@@ -1,0 +1,719 @@
+"""Dense class-price transportation auction, on PyTorch tensors.
+
+The builder taxonomy collapses every scheduling graph to a
+transportation problem (``ops/transport.py``): T tasks each pick one of
+M machines (capacity ``slots[m]``) or their own unscheduled route. This
+module solves that form exactly over a dense ``[Tp, Mp]`` int32 cost
+table. It restates ``poseidon_tpu/ops/dense_auction.py`` operation for
+operation — the same int32/int64 widths, the same stable lexicographic
+sorts, the same tie-breaks — so every output (assignment, levels,
+floors, gap, rounds, phases, the debug histogram) is identical bit for
+bit to the reference's on the same inputs.
+
+Algorithm (see the reference module for the full derivation): an
+eps-scaling auction for the transportation problem with Jacobi rounds
+and one price per machine. The loop carries the machine-sorted seat
+layout ``(sm, slvl, st)``; each round compacts the unassigned tasks into
+a bid window, computes their best and second-best option (the K3 bid
+pass) and re-sorts holders and bids together. Production solves run one
+phase at eps = 1 from the analytic two-stage market clearing (cold) or
+from the previous round's state (warm); exactness is certified by the
+primal-dual gap.
+
+The dense passes are hand-written CUDA kernels (``kernels/``): K1
+``densify`` builds the table, K2 ``row_options`` is every masked
+row-min, K3 ``bid_pass`` is the bid window's pass. On the CPU the same
+wrappers run their plain twins.
+
+Control flow. The reference runs the whole loop as one
+``lax.while_loop`` on the device. Here the loop runs on the host and
+reads its branch flags from the device, through a ``SyncCounter``:
+
+- every iteration reads one small tensor at its top: whether any task
+  is waiting and, after a ``tighten`` step, whether the solve is done;
+- an iteration that finds everyone seated (a phase boundary) reads one
+  more flag, whether any standing assignment violates eps-CS, to choose
+  between ``refight`` and ``tighten``;
+- ``tighten``'s forced-reserve branch is computed without a read: when
+  the force does not apply, its violator set equals the unforced one.
+
+``rounds`` advances on every run-round, refight and tighten step and
+``phases`` on every tighten, exactly as in the reference; the fuse
+(``max_rounds``) bounds the loop the same way.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from poseidon_tpu_torch.graph.network import pad_bucket
+from poseidon_tpu_torch.guards import SyncCounter
+from poseidon_tpu_torch.kernels.bid_pass import bid_pass
+from poseidon_tpu_torch.kernels.densify import densify
+from poseidon_tpu_torch.kernels.row_options import row_options
+from poseidon_tpu_torch.ops.transport import (
+    CH_CLUSTER,
+    CH_PREF,
+    CH_UNSCHED,
+    TransportInstance,
+)
+
+I32 = torch.int32
+I64 = torch.int64
+INF = 2**29                 # saturation cap; all finite values stay below
+_NPINF = np.int64(2**48)    # host INF used by TransportInstance
+MAX_SCALED_COST = 2**27     # guard: scaled costs must stay below this
+
+# Overflow analysis (the reference's, unchanged): every int32 sum has at
+# most two INF-saturated terms (w+d, pc+ra, c+p, b1+eps), so the worst
+# partial is 2*INF = 2^30 < 2^31; wider sums (beta, the violator value,
+# the dual) are int64 and clipped back. Where a sum can still leave the
+# domain (scaling an INF lane in ops/resident.py), PyTorch's int32
+# arithmetic wraps in two's complement on the CPU and the card alike,
+# as XLA's does, and the lane is discarded by a where().
+
+
+class CostDomainTooLarge(ValueError):
+    """Scaled costs exceed the int32 auction domain; use a fallback."""
+
+
+class DenseMemoryTooLarge(ValueError):
+    """The dense [Tp, Mp] table would exceed the device memory budget;
+    use a fallback instead of running out of memory mid-solve."""
+
+
+# Device-memory envelope for the dense [Tp, Mp] int32 cost table, the
+# footprint that dominates the solve (its transients are a small multiple
+# of it). Oversize instances raise DenseMemoryTooLarge and the resident
+# round degrades loudly to the oracle.
+DENSE_TABLE_BUDGET_BYTES = (
+    int(os.environ.get("POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB", "2048"))
+    << 20
+)
+
+
+def check_table_budget(Tp: int, Mp: int) -> None:
+    """Raise DenseMemoryTooLarge if the dense [Tp, Mp] int32 table
+    exceeds the budget (POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB)."""
+    need = Tp * Mp * 4
+    if need <= DENSE_TABLE_BUDGET_BYTES:
+        return
+    raise DenseMemoryTooLarge(
+        f"dense cost table [{Tp}, {Mp}] i32 = "
+        f"{need >> 20} MiB exceeds the {DENSE_TABLE_BUDGET_BYTES >> 20} MiB "
+        f"budget (POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB)"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseInstance:
+    """Scaled, padded dense transportation instance (tensors on one device)."""
+
+    c: torch.Tensor           # i32[Tp, Mp] cost of machine m for task t (INF)
+    u: torch.Tensor           # i32[Tp] unsched route cost (0 on padding)
+    w: torch.Tensor           # i32[Tp] generic (cluster) channel task cost
+    dgen: torch.Tensor        # i32[Mp] generic channel machine route cost
+    s: torch.Tensor           # i32[Mp] slot capacity (0 on padding)
+    task_valid: torch.Tensor  # bool[Tp]
+    scale: int                # n_tasks + 1
+    cmax: torch.Tensor        # i32 scalar: max finite scaled cost
+    smax: int                 # max slots of any machine (top-k width)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseState:
+    """Solver state; feed back in for warm re-solves."""
+
+    asg: torch.Tensor         # i32[Tp]: -1 | machine | Mp (= unsched)
+    lvl: torch.Tensor         # i32[Tp] committed price
+    floor: torch.Tensor       # i32[Mp] machine reserve price
+    gap: torch.Tensor         # i64 scalar: primal - dual (scaled)
+    converged: torch.Tensor   # bool scalar
+    rounds: int
+    phases: int
+
+
+def _sc(x: np.ndarray, scale: np.int64) -> np.ndarray:
+    v = np.asarray(x, np.int64)
+    return np.where(v >= _NPINF, np.int64(INF), v * scale).astype(np.int32)
+
+
+# the reference's name for the table build: K1 (or its twin on the CPU)
+_densify = densify
+
+
+def build_member_tables(
+    inst: TransportInstance, Tp: int, Mp: int, P: int
+) -> dict[str, np.ndarray]:
+    """Scale + pad one instance's channel tables to (Tp, Mp, P), on the
+    host, with exactly the reference's fills and guards. Raises
+    ``CostDomainTooLarge`` / ``ValueError`` per the kernel envelope."""
+    T = inst.n_tasks
+    if T > Tp or inst.n_machines > Mp or inst.max_prefs > P:
+        raise ValueError(
+            f"instance ({T} x {inst.n_machines}, {inst.max_prefs} "
+            f"prefs) does not fit bucket ({Tp} x {Mp}, {P} prefs)"
+        )
+    scale = np.int64(T + 1)
+    cmax = 0
+    for arr in (inst.u, inst.w, inst.pref_cost, inst.d, inst.ra):
+        a = np.asarray(arr, np.int64)
+        fin = a[a < _NPINF]
+        if fin.size:
+            if (fin < 0).any():
+                raise ValueError("auction requires non-negative costs")
+            cmax = max(cmax, int(fin.max()))
+    # route costs add at most two finite legs before saturation
+    cmax_scaled = 2 * cmax * int(scale)
+    if cmax_scaled >= MAX_SCALED_COST:
+        raise CostDomainTooLarge(
+            f"scaled cost domain {cmax_scaled} exceeds int32 auction "
+            f"limit {MAX_SCALED_COST}"
+        )
+
+    def pad1(x, size, fill):
+        out = np.full(size, fill, np.int32)
+        v = np.asarray(x)
+        out[: v.shape[0]] = v
+        return out
+
+    def pad2(x, shape, fill):
+        out = np.full(shape, fill, np.int32)
+        v = np.asarray(x)
+        out[: v.shape[0], : v.shape[1]] = v
+        return out
+
+    Pw = max(P, 1)
+    if inst.max_prefs:
+        pc = pad2(_sc(inst.pref_cost, scale), (Tp, Pw), INF)
+        pm = pad2(inst.pref_machine, (Tp, Pw), -1)
+        pr = pad2(inst.pref_rack, (Tp, Pw), -1)
+    else:
+        pc = np.full((Tp, Pw), INF, np.int32)
+        pm = np.full((Tp, Pw), -1, np.int32)
+        pr = np.full((Tp, Pw), -1, np.int32)
+    return {
+        "u": pad1(_sc(inst.u, scale), Tp, 0),
+        "w": pad1(_sc(inst.w, scale), Tp, INF),
+        "d": pad1(_sc(inst.d, scale), Mp, INF),
+        "ra": pad1(_sc(inst.ra, scale), Mp, INF),
+        "rack_of": pad1(inst.rack_of, Mp, -1),
+        "slots": pad1(inst.slots, Mp, 0),
+        "pc": pc,
+        "pm": pm,
+        "pr": pr,
+        "task_valid": np.arange(Tp) < T,
+        "scale": np.int32(scale),
+        "cmax": np.int32(min(cmax_scaled, int(INF) - 1)),
+    }
+
+
+def build_dense_instance(inst: TransportInstance, device) -> DenseInstance:
+    """Scale + pad a host TransportInstance and densify it on ``device``."""
+    T, M, P = inst.n_tasks, inst.n_machines, inst.max_prefs
+    Tp = pad_bucket(max(T, 1))
+    Mp = pad_bucket(max(M, 1))
+    check_table_budget(Tp, Mp)
+    t = build_member_tables(inst, Tp, Mp, P)
+    g = {k: torch.as_tensor(v).to(device) for k, v in t.items()
+         if k not in ("scale", "cmax")}
+    c = _densify(g["w"], g["d"], g["ra"], g["rack_of"], g["slots"],
+                 g["pc"], g["pm"], g["pr"], n_prefs=P)
+    return DenseInstance(
+        c=c, u=g["u"], w=g["w"], dgen=g["d"], s=g["slots"],
+        task_valid=g["task_valid"], scale=int(t["scale"]),
+        cmax=torch.tensor(int(t["cmax"]), dtype=I32, device=device),
+        smax=max(min(int(np.max(t["slots"], initial=0)), Tp), 1),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the solver
+# ---------------------------------------------------------------------------
+
+def _lexsort(*keys: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Stable lexicographic sort of equal-length 1-D keys, first key most
+    significant (``jax.lax.sort`` with ``num_keys=len(keys)``): stable
+    passes from the last key to the first. Returns the sorted keys."""
+    perm = torch.argsort(keys[-1], stable=True)
+    for k in reversed(keys[:-1]):
+        perm = perm[torch.argsort(k[perm], stable=True)]
+    return tuple(k[perm] for k in keys)
+
+
+def _i32(x: int, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=I32, device=device)
+
+
+def _task_options(dev: DenseInstance, p, with_values: bool = False):
+    """Per-task best/second-best machine values at prices p (K2)."""
+    b1v, m1, v2 = row_options(dev.c, p)
+    if with_values:
+        return b1v, m1, v2, torch.clamp(dev.c + p[None, :], max=INF)
+    return b1v, m1, v2
+
+
+def _theta_clearing(dev: DenseInstance):
+    """Closed-form equilibrium of the generic seat market, cleared twice
+    (the second time on willingness raised by each task's preference
+    gain at the stage-one prices). See the reference for the economics.
+
+    Returns (asg0, lvl0, lam, theta)."""
+    Tp, Mp = dev.c.shape
+    device = dev.c.device
+    UNS = Mp
+    s_pos = dev.s > 0
+    d_eff = torch.where(s_pos, dev.dgen, INF)
+    # machines sorted by generic route cost (ties by machine index);
+    # cumulative seat supply
+    order = torch.argsort(d_eff, stable=True)
+    sd, sdm, scap = d_eff[order], order.to(I32), dev.s[order]
+    cumcap = torch.cumsum(torch.where(sd < INF, scap, 0).to(I64), dim=0)
+
+    def supply_at(x):
+        ix = torch.searchsorted(sd, x, right=True)
+        return torch.where(
+            ix > 0, cumcap[torch.clamp(ix - 1, min=0)],
+            torch.zeros((), dtype=I64, device=device),
+        )
+
+    def clear(y):
+        y_sorted = torch.sort(y).values
+        cands = torch.cat([sd, y])
+        supply = supply_at(cands)
+        demand = Tp - torch.searchsorted(y_sorted, cands, right=True)
+        feasible = supply >= demand
+        theta = torch.where(feasible, cands, INF).min()
+        # seat up to capacity among WEAKLY willing tasks (y >= theta)
+        ix = torch.searchsorted(sd, theta[None], right=True)[0]
+        idx_t = torch.clamp(torch.clamp(ix - 1, min=0), max=Mp - 1)
+        sup_theta = torch.where(
+            ix > 0, cumcap[idx_t], torch.zeros((), dtype=I64, device=device)
+        )
+        k = torch.minimum(sup_theta, ((y >= theta) & dev.task_valid).sum())
+        return theta, k
+
+    y1 = torch.where(dev.task_valid, dev.u - dev.w, -INF)
+    theta1, _k1 = clear(y1)
+    lam1 = torch.where(s_pos, torch.clamp(theta1 - d_eff, 0, INF), 0)
+    # stage two: each task's pref gain over its generic option at the
+    # stage-one prices raises its effective willingness
+    v1 = _task_options(dev, torch.where(s_pos, lam1, INF))[0]
+    gen1 = torch.minimum(
+        dev.u,
+        torch.clamp(
+            dev.w + torch.where(s_pos, d_eff + lam1, INF).min(), max=INF
+        ),
+    )
+    gain = torch.where(
+        dev.task_valid, torch.clamp(gen1 - v1, 0, INF), 0
+    ).to(I32)
+    y = torch.where(
+        dev.task_valid,
+        torch.clamp(y1.to(I64) + gain, max=INF - 1).to(I32),
+        -INF,
+    )
+    theta, k = clear(y)
+    # rank tasks by effective willingness (desc, tid asc); top-k get
+    # seats in cheapest-first order via the capacity boundaries
+    rt = torch.argsort(-y, stable=True)
+    rank = torch.empty(Tp, dtype=I32, device=device)
+    rank[rt] = torch.arange(Tp, dtype=I32, device=device)
+    seat_machine = sdm[
+        torch.clamp(
+            torch.searchsorted(cumcap, rank.to(I64), right=True), max=Mp - 1
+        )
+    ]
+    lam = torch.clamp(theta - d_eff, 0, INF)
+    lam = torch.where(s_pos, lam, 0)
+    seated = (rank < k) & dev.task_valid
+    asg0 = torch.where(
+        dev.task_valid,
+        torch.where(seated, seat_machine, -1),
+        UNS,
+    ).to(I32)
+    lvl0 = torch.where(seated, lam[seat_machine.long()], 0).to(I32)
+    return asg0, lvl0, lam, theta
+
+
+def _solve(
+    dev: DenseInstance,
+    asg0: torch.Tensor,
+    lvl0: torch.Tensor,
+    floor0: torch.Tensor,
+    eps0,
+    alpha: int,
+    max_rounds: int,
+    smax: int,
+    analytic_init: bool = False,
+    collect_hist: bool = False,
+    syncs: SyncCounter | None = None,
+):
+    """The auction loop over the machine-sorted seat layout.
+
+    ``eps0`` is an int or a 0-d tensor (read once, counted, when it is a
+    tensor and the analytic init does not replace it). ``syncs`` counts
+    the loop's host reads. Returns ``(asg, lvl, floor, gap, converged,
+    rounds, phases, hist)`` like the reference, with ``rounds`` and
+    ``phases`` as Python ints.
+    """
+    syncs = syncs if syncs is not None else SyncCounter()
+    c, s, u, task_valid = dev.c, dev.s, dev.u, dev.task_valid
+    Tp, Mp = c.shape
+    device = c.device
+    UNS = Mp           # segment for unscheduled tasks
+    WAIT = Mp + 1      # segment for unassigned tasks awaiting a bid slot
+    DUMP = Mp + 2      # segment for non-participants (padding tasks)
+    NSEG = Mp + 3
+    B = min(Tp, max(1024, Tp // 4))   # bid-window width
+    tids = torch.arange(Tp, dtype=I32, device=device)
+    pos = tids
+    seg_ids = torch.arange(NSEG + 1, dtype=I32, device=device)
+    mids = torch.arange(Mp, dtype=I32, device=device)
+    s_pos = s > 0
+
+    def to_sorted(asg, lvl):
+        on_m = (asg >= 0) & (asg < Mp)
+        km = torch.where(
+            on_m, asg,
+            torch.where(asg == UNS, _i32(UNS, device),
+                        torch.where(task_valid, _i32(WAIT, device),
+                                    _i32(DUMP, device))),
+        )
+        kl = torch.where(on_m & (km < Mp), lvl, 0)
+        sm, snl, st = _lexsort(km, -kl, tids)
+        return sm, -snl, st
+
+    def layout(sm):
+        bnd = torch.searchsorted(sm, seg_ids, out_int32=True)
+        segsz = bnd[1: Mp + 1] - bnd[:Mp]
+        occ = torch.minimum(segsz, s)
+        full = segsz >= s
+        rank = pos - bnd[torch.clamp(sm, max=NSEG - 1).long()]
+        in_m = sm < Mp
+        seated = in_m & (rank < s[torch.clamp(sm, max=Mp - 1).long()])
+        waiting = (in_m & ~seated) | (sm == WAIT)
+        return bnd, occ, full, seated, waiting
+
+    def to_task(sm, slvl, st, seated):
+        val = torch.where(
+            seated, sm,
+            torch.where((sm == UNS) | (sm == DUMP), _i32(UNS, device),
+                        _i32(-1, device)),
+        )
+        asg = torch.zeros(Tp, dtype=I32, device=device)
+        asg[st.long()] = val
+        lvl = torch.zeros(Tp, dtype=I32, device=device)
+        lvl[st.long()] = torch.where(seated, slvl, 0)
+        return asg, lvl
+
+    def ask_from_layout(slvl, bnd, occ, full, floor):
+        last = torch.clamp(bnd[:Mp] + occ - 1, 0, Tp - 1)
+        minlvl = torch.where(occ > 0, slvl[last.long()], INF)
+        p = torch.where(full, torch.clamp(minlvl, max=INF), floor)
+        return torch.where(s_pos, p, INF)
+
+    if analytic_init:
+        asg0, lvl0, lam0, _theta = _theta_clearing(dev)
+        floor0 = lam0
+        eps = 1
+    elif isinstance(eps0, torch.Tensor):
+        eps = int(syncs.read(eps0))
+    else:
+        eps = int(eps0)
+
+    def scatter_window(base, bpos, vals):
+        """``base.at[bpos].set(vals, mode="drop")``: window positions are
+        distinct, and the fill position Tp lands in a spare slot that is
+        cut off again."""
+        ext = torch.cat([base, base.new_zeros(1)])
+        ext[bpos.long()] = vals.to(base.dtype)
+        return ext[:Tp]
+
+    def auction_round(sm, slvl, st, floor, eps, lay):
+        bnd, occ, full, seated, waiting = lay
+        p = ask_from_layout(slvl, bnd, occ, full, floor)
+        # compact the (few) unassigned tasks into the bid window; any
+        # overflow waits in the WAIT segment
+        bpos = torch.sort(torch.where(waiting, pos, Tp)).values[:B]
+        bvalid = bpos < Tp
+        btask = st[torch.clamp(bpos, max=Tp - 1).long()]
+        m1, _b1v, _v2, take_uns, beta = bid_pass(c, p, u, btask, bvalid, eps)
+        bids = bvalid & ~take_uns
+        # new keys per position: holders keep their seats, everyone
+        # else parks in WAIT unless this window gave them a bid
+        new_km = torch.where(
+            seated, sm,
+            torch.where(sm == UNS, _i32(UNS, device),
+                        torch.where(sm == DUMP, _i32(DUMP, device),
+                                    _i32(WAIT, device))),
+        )
+        new_kl = torch.where(seated, slvl, 0)
+        upd_km = torch.where(take_uns, _i32(UNS, device),
+                             torch.where(bids, m1, _i32(WAIT, device)))
+        upd_kl = torch.where(bids, beta, 0)
+        new_km = scatter_window(new_km, bpos, upd_km)
+        new_kl = scatter_window(new_kl, bpos, upd_kl)
+        # holders outrank bidders at equal level
+        is_bid = scatter_window(
+            torch.zeros(Tp, dtype=I32, device=device), bpos, bids.to(I32)
+        )
+        sm2, snl2, _isb, st2 = _lexsort(new_km, -new_kl, is_bid, st)
+        return sm2, -snl2, st2
+
+    def violators(asg, p, eps):
+        """Standing assignments more than eps worse than the task's best
+        option at the ask prices."""
+        b1v, _, _ = _task_options(dev, p)
+        b1 = torch.minimum(b1v, u)
+        on_machine = (asg >= 0) & (asg < Mp)
+        asg_safe = torch.clamp(asg, 0, Mp - 1).long()
+        pa = p[asg_safe]
+        cur = torch.where(
+            on_machine,
+            torch.clamp(
+                c.gather(1, asg_safe[:, None])[:, 0].to(I64)
+                + torch.where(pa >= INF, 0, pa).to(I64),
+                max=INF,
+            ).to(I32),
+            torch.where(asg == UNS, u, INF),
+        )
+        return task_valid & (asg >= 0) & (cur > b1 + eps)
+
+    def deflate(p, full, floor, eps):
+        """Reverse-auction step for FREE machines: the reserve falls to
+        the s_m-th highest willingness-to-pay, minus eps + 1."""
+        b1v, m1, v2 = _task_options(dev, p)
+        alt1 = torch.minimum(b1v, u)
+        alt2 = torch.minimum(v2, u)
+        alt = torch.where(
+            mids[None, :] == m1[:, None], alt2[:, None], alt1[:, None]
+        )
+        will = torch.clamp(alt - c, -INF, INF)
+        will = torch.where(task_valid[:, None], will, -INF)
+        topw = torch.topk(will.T.contiguous(), smax, dim=1).values  # [Mp, smax]
+        sidx = torch.clamp(s - 1, 0, smax - 1)
+        clear = topw.gather(1, sidx[:, None].long())[:, 0]
+        return torch.minimum(
+            torch.where(full, torch.minimum(floor, p), floor),
+            torch.clamp(clear - eps - 1, 0, INF),
+        )
+
+    def release(sm, slvl, st, viol):
+        """Re-sort the carry with violators (a task-space mask) sent to
+        WAIT."""
+        viol_pos = viol[st.long()]
+        km = torch.where(viol_pos, _i32(WAIT, device), sm)
+        kl = torch.where(viol_pos, 0, slvl)
+        s2, nl2, t2 = _lexsort(km, -kl, st)
+        return s2, -nl2, t2
+
+    # a warm state may carry more holders on a machine than its
+    # (possibly shrunk) capacity allows; the sorted layout trims it
+    sm, slvl, st = to_sorted(asg0, lvl0)
+    floor = floor0
+    rounds = phases = 0
+    done = torch.zeros((), dtype=torch.bool, device=device)
+    maybe_done = False   # a tighten step ran since the last read
+    hist = torch.zeros(128, dtype=I32, device=device)
+    lay = None
+    while rounds < max_rounds:
+        lay = layout(sm)
+        seated, waiting = lay[3], lay[4]
+        any_waiting = waiting.any()
+        if maybe_done:
+            flags = syncs.read(torch.stack([done, any_waiting]))
+            if flags[0]:
+                break
+            any_unassigned = bool(flags[1])
+        else:
+            any_unassigned = bool(syncs.read(any_waiting))
+        maybe_done = False
+        h = min(phases, 31)
+        if any_unassigned:
+            if collect_hist:
+                hist[h] += 1
+                hist[h + 96] += waiting.sum(dtype=I32)
+            sm, slvl, st = auction_round(sm, slvl, st, floor, eps, lay)
+            rounds += 1
+        else:
+            bnd, occ, full = lay[0], lay[1], lay[2]
+            # task-space asg for the violator check; the re-sorted carry
+            # is rebuilt from position-space releases
+            val = torch.where(
+                seated, sm,
+                torch.where(sm >= UNS, _i32(UNS, device), _i32(-1, device)),
+            )
+            asg = torch.zeros(Tp, dtype=I32, device=device)
+            asg[st.long()] = val
+            p_now = ask_from_layout(slvl, bnd, occ, full, floor)
+            viol_now = violators(asg, p_now, eps)
+            if bool(syncs.read(viol_now.any())):
+                # refight: release the violators at the current eps
+                if collect_hist:
+                    hist[h + 32] += viol_now.sum(dtype=I32)
+                sm, slvl, st = release(sm, slvl, st, viol_now)
+                rounds += 1
+            else:
+                # tighten: deflate free-machine reserves, shrink eps (or
+                # finish at eps == 1), release the violators the tighter
+                # tolerance exposes; at the eps = 1 fixpoint a remaining
+                # positive reserve on a free machine is forced to 0
+                next_eps = max(1, eps // alpha)
+                at_floor = eps <= 1
+                eps_chk = eps if at_floor else next_eps
+                f0 = deflate(p_now, full, floor, eps_chk)
+                viol = violators(
+                    asg, ask_from_layout(slvl, bnd, occ, full, f0), eps_chk
+                )
+                if at_floor:
+                    stranded = ~full & s_pos & (f0 > 0)
+                    force = ~viol.any() & stranded.any()
+                    f1 = torch.where(force & stranded, 0, f0)
+                    # with force off f1 == f0, so this is viol itself
+                    viol2 = violators(
+                        asg, ask_from_layout(slvl, bnd, occ, full, f1),
+                        eps_chk,
+                    )
+                    done = ~viol2.any() & ~(~full & s_pos & (f1 > 0)).any()
+                else:
+                    f1, viol2 = f0, viol
+                if collect_hist:
+                    hist[h + 64] += viol2.sum(dtype=I32)
+                sm, slvl, st = release(sm, slvl, st, viol2)
+                floor = f1
+                eps = next_eps
+                rounds += 1
+                phases += 1
+                maybe_done = at_floor
+        lay = None
+    if lay is None:
+        lay = layout(sm)
+    bnd_f, occ_f, full_f, seated_f, _waiting = lay
+    asg, lvl = to_task(sm, slvl, st, seated_f)
+
+    # exactness certificate: primal - dual at the ask prices, with
+    # lam = 0 on every non-full machine (complementary slackness)
+    lam = ask_from_layout(slvl, bnd_f, occ_f, full_f, floor)
+    lam = torch.where(full_f & s_pos, lam, 0)
+    b1v, _, _ = _task_options(dev, torch.where(s_pos, lam, INF))
+    b1 = torch.minimum(b1v, u)
+    on_machine = (asg >= 0) & (asg < Mp)
+    c_asg = c.gather(1, torch.clamp(asg, 0, Mp - 1).long()[:, None])[:, 0]
+    per_task = torch.where(
+        on_machine, c_asg, torch.where(asg == UNS, u, INF)
+    )
+    per_task = torch.where(task_valid, per_task, 0)
+    primal = per_task.to(I64).sum()
+    dual = torch.where(task_valid, b1, 0).to(I64).sum() - (
+        s.to(I64) * lam.to(I64)
+    ).sum()
+    gap = primal - dual
+    converged = done & (gap >= 0) & (gap < dev.scale)
+    return asg, lvl, floor, gap, converged, rounds, phases, hist
+
+
+def cold_start(inst_dev: DenseInstance, alpha: int = 1024):
+    """Canonical cold-start state: (asg0, lvl0, floor0, eps0)."""
+    Tp, Mp = inst_dev.c.shape
+    device = inst_dev.c.device
+    asg0 = torch.where(inst_dev.task_valid, -1, Mp).to(I32)
+    lvl0 = torch.zeros(Tp, dtype=I32, device=device)
+    floor0 = torch.zeros(Mp, dtype=I32, device=device)
+    eps0 = torch.clamp(inst_dev.cmax // alpha, min=1)
+    return asg0, lvl0, floor0, eps0
+
+
+def _solve_warm(dev: DenseInstance, asg0, lvl0, floor0, alpha: int,
+                max_rounds: int, smax: int, syncs: SyncCounter | None = None):
+    """Warm entry: re-settle a carried state at eps = 1."""
+    return _solve(
+        dev, asg0, lvl0, floor0, 1, alpha=alpha, max_rounds=max_rounds,
+        smax=smax, analytic_init=False, syncs=syncs,
+    )
+
+
+def _solve_cold(dev: DenseInstance, alpha: int, max_rounds: int,
+                smax: int, syncs: SyncCounter | None = None):
+    """Cold entry: the analytic clearing replaces the placeholder start."""
+    asg0, lvl0, floor0, eps0 = cold_start(dev, alpha)
+    return _solve(
+        dev, asg0, lvl0, floor0, eps0, alpha=alpha, max_rounds=max_rounds,
+        smax=smax, analytic_init=True, syncs=syncs,
+    )
+
+
+def default_fuse() -> int:
+    """Round fuse: flat 20k (see the reference for why it is not scaled
+    with the instance)."""
+    return 20_000
+
+
+def solve_dense(
+    inst_dev: DenseInstance,
+    *,
+    warm: DenseState | None = None,
+    alpha: int = 1024,
+    max_rounds: int | None = None,
+    syncs: SyncCounter | None = None,
+) -> DenseState:
+    """Run the auction on the instance's device; returns device state.
+
+    ``warm`` (a previous solve's state over the same padded shapes)
+    skips the analytic init and re-settles at eps = 1.
+    """
+    Tp, Mp = inst_dev.c.shape
+    smax = inst_dev.smax
+    if warm is not None and (
+        warm.asg.shape[0] != Tp or warm.floor.shape[0] != Mp
+    ):
+        warm = None  # cluster outgrew its padding bucket: cold solve
+    if max_rounds is None:
+        max_rounds = default_fuse()
+    if warm is None:
+        out = _solve_cold(inst_dev, alpha=alpha, max_rounds=max_rounds,
+                          smax=smax, syncs=syncs)
+    else:
+        out = _solve_warm(inst_dev, warm.asg, warm.lvl, warm.floor,
+                          alpha=alpha, max_rounds=max_rounds, smax=smax,
+                          syncs=syncs)
+    asg, lvl, floor, gap, converged, rounds, phases, _ = out
+    return DenseState(
+        asg=asg, lvl=lvl, floor=floor, gap=gap, converged=converged,
+        rounds=rounds, phases=phases,
+    )
+
+
+# ---------------------------------------------------------------------------
+# host helpers
+# ---------------------------------------------------------------------------
+
+def _channels_for(inst: TransportInstance, asg: np.ndarray) -> np.ndarray:
+    """Cheapest channel code per task for a machine assignment."""
+    T = inst.n_tasks
+    ch = np.full(T, CH_UNSCHED, np.int32)
+    on = asg >= 0
+    if not on.any():
+        return ch
+    m = np.maximum(asg, 0)
+    w = np.asarray(inst.w, np.int64)
+    d = np.asarray(inst.d, np.int64)
+    ra = np.asarray(inst.ra, np.int64)
+    best = np.where(on, np.minimum(w + d[m], _NPINF), _NPINF)
+    ch = np.where(on, CH_CLUSTER, CH_UNSCHED).astype(np.int32)
+    for k in range(inst.max_prefs):
+        pc = np.asarray(inst.pref_cost[:, k], np.int64)
+        hit_m = on & (inst.pref_machine[:, k] == asg)
+        val = np.where(hit_m, pc, _NPINF)
+        hit_r = on & (inst.pref_rack[:, k] >= 0) & (
+            inst.pref_rack[:, k] == inst.rack_of[m]
+        )
+        val = np.minimum(val, np.where(hit_r, pc + ra[m], _NPINF))
+        better = val < best
+        best = np.where(better, val, best)
+        ch = np.where(better, CH_PREF + k, ch).astype(np.int32)
+    return ch
