@@ -19,7 +19,15 @@ Phases (each prints its own lines):
    median CUDA-event time of the kernel and of the twin over repeats,
    each with the L2 cache flushed first, and the kernel's least possible
    time on an H100 (its bytes over 3.35 TB/s vs its operations over
-   67 T/s of 32-bit scalar throughput);
+   67 T/s of 32-bit scalar throughput); the host time of one wrapper
+   call of K2 and K3 (``host_us``: N calls timed without a synchronise,
+   over N; ``wall_us`` adds the one synchronise at the end; medians of
+   7 batches); and an edge
+   battery that holds K2 and K3 against their twins (tolerance 0) at
+   the row-stream design's edges: Mp of 16, 64, 1028 and past the
+   shared-memory p budget, fewer rows than resident warps, one slot and
+   fewer slots than SMs, repeated window tasks, all-tied rows, all-INF
+   rows, and costs and prices that wrap int32;
 4. parity: a small flagship-shaped cluster (64 machines x 600 pods), one
    cold and two churned warm rounds on the card and on the CPU (the
    twins): every field of every round must be equal;
@@ -29,7 +37,11 @@ Phases (each prints its own lines):
    (100 retired, 100 new). Launch counts are zeroed just before and
    read just after. Every round must be ``dense_auction``, certified,
    equal in cost to the C++ oracle on the same priced graph, with one
-   result fetch; every kernel must have launched in every round.
+   result fetch; every kernel must have launched in every round. One
+   more warm round under ``torch.profiler`` prints the device busy and
+   idle share, the top device items, and each hand kernel's device time
+   by its CUDA symbol: total, launches, and time per launch as the
+   auction loop calls it.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line,
 and the contract line ``{"ok": true, "device": {...}}``.
@@ -45,6 +57,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12          # 32-bit scalar (non-tensor) peak, same sheet
 REPEATS = 30
+SLEEP_CYCLES = 1_000_000         # ~0.5 ms of card time ahead of each timed call
+# the hand kernels' CUDA symbols, as the profiler names them
+KERNEL_SYMBOLS = ("densify_kernel", "row_options_kernel", "bid_pass_kernel")
 
 
 def log(msg: str) -> None:
@@ -109,18 +124,27 @@ def churn(cluster, round_no: int, fraction: float = 0.01):
 
 
 class Timer:
-    """Median CUDA-event time of a call, the L2 cache flushed first."""
+    """Median CUDA-event time of a call, the L2 cache flushed first by
+    reading 128 MiB (a read leaves no dirty line in L2 for the call's
+    own reads to write back on eviction, as a flush by writing would).
+
+    The card spins for ~0.5 ms (``torch.cuda._sleep``) between the flush
+    and the start event, so the host has enqueued the call before the
+    card reaches the start event: the time is the card's alone, not the
+    wrapper's host time (which a slow host can make longer than the
+    flush)."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
 
     def __call__(self, fn, repeats: int = REPEATS) -> float:
         torch = self.torch
         fn()                                   # warm up
         times = []
         for _ in range(repeats):
-            self.flush.zero_()
+            self.flush.max()
+            torch.cuda._sleep(SLEEP_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -235,6 +259,14 @@ def kernel_phase(torch, timer):
                     timer(lambda: k3.bid_pass_plain(*args3)),
                     *bound_ms(b, ops), (B, Mp)))
     torch.cuda.synchronize()
+    for mod, fn, args, rows in ((k2, k2.row_options, (inst.c, p), Tp),
+                                (k3, k3.bid_pass, args3, B)):
+        host, wall = host_us(torch, lambda: fn(*args))
+        plan = mod.PLANS[inst.c.device, rows, Mp]
+        log(f"[kernels] {mod.KERNEL.name} wrapper host_us={host:.3f} "
+            f"wall_us={wall:.3f} per call (median of {HOST_BATCHES} x "
+            f"{HOST_CALLS} calls) plan={plan}")
+    edge_battery(torch)
     for k, err, ms, plain, bms, by, shape in records:
         log(f"[kernels] {k.name} shape={shape} max_abs_err={err} "
             f"ms={ms:.6f} plain_ms={plain:.6f} bound_ms={bms:.6f} ({by})")
@@ -242,6 +274,135 @@ def kernel_phase(torch, timer):
             raise AssertionError(f"{k.name}: kernel != plain twin "
                                  f"(max_abs_err {err}, tolerance 0)")
     return records
+
+
+HOST_CALLS = 100
+HOST_BATCHES = 7
+
+
+def host_us(torch, fn) -> tuple[float, float]:
+    """Host microseconds per call of ``fn`` over HOST_CALLS calls: the
+    calls alone (no synchronise), and with the one synchronise at the
+    end; each the median of HOST_BATCHES batches."""
+    fn()
+    host, wall = [], []
+    for _ in range(HOST_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) / HOST_CALLS * 1e6)
+        wall.append((t2 - t0) / HOST_CALLS * 1e6)
+    return sorted(host)[HOST_BATCHES // 2], sorted(wall)[HOST_BATCHES // 2]
+
+
+def edge_tables(torch, rng, Tp, Mp, kind):
+    """A table c[Tp, Mp] and prices p[Mp] on the card (int32) of one
+    edge kind."""
+    import numpy as np
+
+    inf = 2**29
+    if kind == "rand":           # costs with INF holes, a few INF prices
+        c = rng.integers(0, 5000, (Tp, Mp))
+        c[rng.random((Tp, Mp)) < 0.1] = inf
+        p = rng.integers(0, 3000, Mp)
+        p[rng.random(Mp) < 0.05] = inf
+    elif kind == "tied":         # c + p is one value per row: all tie
+        p = rng.integers(0, 3000, Mp)
+        c = rng.integers(3000, 9000, (Tp, 1)) - p[None, :]
+    elif kind == "inf":          # every entry INF-saturates
+        c = np.full((Tp, Mp), inf)
+        p = rng.integers(0, 3000, Mp)
+    elif kind == "wrap":         # sums leave int32 and wrap negative
+        c = rng.integers(2**31 - 2**20, 2**31, (Tp, Mp))
+        p = rng.integers(0, 2**30, Mp)
+        p[rng.random(Mp) < 0.1] = inf
+    elif kind == "saturate":     # INF + INF and INF + small everywhere
+        c = np.where(rng.random((Tp, Mp)) < 0.5, inf,
+                     rng.integers(0, 100, (Tp, Mp)))
+        p = np.where(rng.random(Mp) < 0.5, inf, rng.integers(0, 100, Mp))
+    else:
+        raise ValueError(kind)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.int64).astype(np.int32)).to("cuda")
+    return to(c), to(p)
+
+
+def edge_battery(torch):
+    """K2 and K3 equal their twins (tolerance 0) at the design's edges."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels import bid_pass as k3
+    from poseidon_tpu_torch.kernels import row_options as k2
+    from poseidon_tpu_torch.kernels import row_stream
+
+    # the first Mp on the pad_bucket ladder (multiples of 1024) whose p
+    # does not fit in shared memory beside K3's ring, nor K2's
+    big = 1024
+    while (row_stream.layout(big).p_resident
+           or row_stream.layout(big, k3.META_INTS).p_resident):
+        big += 1024
+    rng = np.random.default_rng(2024)
+    cases2 = [  # (Tp, Mp, kind)
+        (37, 16, "rand"), (1000, 64, "rand"), (700, 1028, "rand"),
+        (150, big, "rand"), (5, 1024, "rand"), (3, 16, "rand"),
+        (600, 1024, "tied"), (300, 1028, "inf"), (500, 1024, "wrap"),
+        (64, big, "wrap"), (400, 64, "saturate"), (90, big, "tied"),
+    ]
+    for Tp, Mp, kind in cases2:
+        c, p = edge_tables(torch, rng, Tp, Mp, kind)
+        err = max_abs_err(k2.row_options(c, p), k2.row_options_plain(c, p))
+        plan = k2.PLANS[c.device, Tp, Mp]
+        log(f"[edges] row_options Tp={Tp} Mp={Mp} {kind}: max_abs_err={err} "
+            f"grid={plan.grid} stages={plan.layout.stages} "
+            f"chunk={plan.layout.chunk} p_resident={plan.layout.p_resident}")
+        if err != 0:
+            raise AssertionError(f"row_options edge Tp={Tp} Mp={Mp} {kind}: "
+                                 f"kernel != twin (max_abs_err {err})")
+    cases3 = [  # (Tp, Mp, B, kind, btask mode, eps)
+        (100, 1024, 1, "rand", "distinct", 1),
+        (1000, 1024, 100, "rand", "distinct", 3),
+        (5, 64, 5, "rand", "distinct", 1),
+        (2000, 1024, 1024, "rand", "padded", 1),
+        (64, 16, 64, "rand", "repeat", 7),
+        (700, 1028, 300, "rand", "padded", 1),
+        (200, big, 150, "rand", "padded", 2),
+        (600, 1024, 512, "tied", "distinct", 1),
+        (300, 1024, 256, "inf", "padded", 1),
+        (500, 1024, 500, "wrap", "repeat", 2**28),
+        (400, 64, 333, "saturate", "padded", 1),
+        (64, big, 40, "wrap", "repeat", 5),
+    ]
+    for Tp, Mp, B, kind, mode, eps in cases3:
+        c, p = edge_tables(torch, rng, Tp, Mp, kind)
+        u = torch.from_numpy(np.where(
+            rng.random(Tp) < 0.2, 2**29, rng.integers(0, 6000, Tp)
+        ).astype(np.int32)).to("cuda")
+        if mode == "distinct":
+            bt = rng.choice(Tp, size=B, replace=False)
+            ok = rng.random(B) < 0.8
+        elif mode == "padded":   # the window's padding slots: row Tp-1
+            n = B // 2
+            bt = np.concatenate([rng.choice(Tp - 1, size=n, replace=False),
+                                 np.full(B - n, Tp - 1)])
+            ok = np.arange(B) < n
+        else:                    # any task, any number of times
+            bt = rng.integers(0, Tp, B)
+            ok = rng.random(B) < 0.5
+        btask = torch.from_numpy(bt.astype(np.int32)).to("cuda")
+        bvalid = torch.from_numpy(ok).to("cuda")
+        args = (c, p, u, btask, bvalid, eps)
+        err = max_abs_err(k3.bid_pass(*args), k3.bid_pass_plain(*args))
+        plan = k3.PLANS[c.device, B, Mp]
+        log(f"[edges] bid_pass Tp={Tp} Mp={Mp} B={B} {kind} {mode} eps={eps}: "
+            f"max_abs_err={err} grid={plan.grid} stages={plan.layout.stages} "
+            f"chunk={plan.layout.chunk} p_resident={plan.layout.p_resident}")
+        if err != 0:
+            raise AssertionError(f"bid_pass edge Tp={Tp} Mp={Mp} B={B} {kind}: "
+                                 f"kernel != twin (max_abs_err {err})")
 
 
 def run_rounds(device, clusters, model="quincy"):
@@ -325,6 +486,12 @@ def profile_round(torch, solver, cluster):
     rows.sort(key=lambda r: -r[1])
     for key, t, n in rows[:12]:
         log(f"[profile]   {t:10.1f} us  x{n:<5d} {key[:90]}")
+    for k in KERNEL_SYMBOLS:
+        hits = [(t, n) for key, t, n in rows if k in key]
+        total = sum(t for t, _ in hits)
+        count = sum(n for _, n in hits)
+        log(f"[profile] kernel {k}: total_us={total:.1f} launches={count} "
+            f"us_per_launch={total / max(count, 1):.3f}")
 
 
 def main_path_phase(torch):

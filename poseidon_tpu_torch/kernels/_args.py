@@ -37,3 +37,7 @@ def kernel_arg(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> 
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -3,15 +3,21 @@
 Replaces the bid pass of ``auction_round`` in
 ``poseidon_tpu/ops/dense_auction.py:710-746`` (``_solve``). The CUDA
 source is ``csrc/bid_pass.cu``; its header note gives the byte bound,
-the rotated tie-break and the design.
+the rotated tie-break and the design. Its launch plan comes from
+``row_stream``, made once per device and shape.
 """
 
 from __future__ import annotations
 
 import torch
 
-from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
-from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
+from poseidon_tpu_torch.kernels import row_stream
+from poseidon_tpu_torch.kernels._args import (
+    kernel_arg, on_card, sm_count, stream_ptr,
+)
+from poseidon_tpu_torch.kernels.loader import (
+    Kernel, check_launch, library, occupancy,
+)
 
 INF = 2**29
 
@@ -20,6 +26,11 @@ KERNEL = Kernel(
     source="poseidon_tpu_torch/kernels/csrc/bid_pass.cu",
     replaces="poseidon_tpu/ops/dense_auction.py:710",
 )
+
+# per-warp slot metadata in shared memory: task, u[task] and bvalid of
+# two batches of 32 slots (csrc/bid_pass.cu META)
+META_INTS = 3 * 64
+PLANS = row_stream.PlanCache(meta_ints=META_INTS)
 
 
 def bid_pass_plain(c, p, u, btask, bvalid, eps: int):
@@ -63,12 +74,19 @@ def bid_pass(c, p, u, btask, bvalid, eps: int):
     dev = c.device
     m1, b1v, v2, beta = (torch.empty(B, dtype=i32, device=dev) for _ in range(4))
     take_uns = torch.empty(B, dtype=torch.bool, device=dev)
-    with torch.cuda.device(c.device):
-        err = library("bid_pass").bid_pass_launch(
+    with torch.cuda.device(dev):
+        lib = library("bid_pass")
+        plan = PLANS.get(
+            dev, B, Mp, lambda: sm_count(dev),
+            lambda smem: occupancy(KERNEL, lib.bid_pass_occupancy, smem),
+        )
+        lay = plan.layout
+        err = lib.bid_pass_launch(
             kernel_arg(c, "c", i32, (Tp, Mp)), kernel_arg(p, "p", i32, (Mp,)),
             kernel_arg(u, "u", i32, (Tp,)), kernel_arg(btask, "btask", i32, (B,)),
             kernel_arg(bvalid, "bvalid", torch.bool, (B,)),
-            B, Mp, int(eps),
+            B, Mp, int(eps), plan.grid, lay.stages, lay.chunk,
+            int(lay.p_resident), lay.smem,
             m1.data_ptr(), b1v.data_ptr(), v2.data_ptr(), take_uns.data_ptr(),
             beta.data_ptr(), stream_ptr(c),
         )

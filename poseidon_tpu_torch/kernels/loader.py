@@ -132,15 +132,37 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     """Type every entry point: pointers and the stream as c_void_p (a
     bare Python int would be cut to 32 bits), sizes as c_int."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    sig = {
-        "densify": ("densify_launch", [P] * 9 + [I] * 4 + [P]),
-        "row_options": ("row_options_launch", [P] * 5 + [I] * 2 + [P]),
-        "bid_pass": ("bid_pass_launch", [P] * 5 + [I] * 3 + [P] * 5 + [P]),
+    occupancy = [I, ctypes.POINTER(I)]
+    sigs = {
+        "densify": {"densify_launch": [P] * 9 + [I] * 4 + [P]},
+        "row_options": {
+            "row_options_launch": [P] * 5 + [I] * 7 + [P],
+            "row_options_occupancy": occupancy,
+        },
+        "bid_pass": {
+            "bid_pass_launch": [P] * 5 + [I] * 8 + [P] * 5 + [P],
+            "bid_pass_occupancy": occupancy,
+        },
     }[name]
-    fn = getattr(lib, sig[0])
-    fn.argtypes = sig[1]
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in sigs.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
+
+
+def occupancy(kernel: Kernel, fn, smem: int) -> int:
+    """Blocks of a row-stream kernel that fit on one SM with ``smem``
+    bytes of dynamic shared memory, by its ``*_occupancy`` entry point
+    (which also lifts the kernel's shared-memory cap). Call it with the
+    kernel's device current; the plan caches keep the answer."""
+    blocks = ctypes.c_int(0)
+    err = fn(smem, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(
+            f"occupancy query of {kernel.name} failed: cudaError {err}"
+        )
+    return blocks.value
 
 
 def check_launch(kernel: Kernel, err: int) -> None:

@@ -3,15 +3,22 @@ runner-up of ``min(c + p, INF)``, and its plain twin.
 
 Replaces the row reductions of ``poseidon_tpu/ops/dense_auction.py:445``
 ``_task_options``. The CUDA source is ``csrc/row_options.cu``; its
-header note gives the byte bound and the design.
+header note gives the byte bound and the design. Its launch plan (grid,
+ring depth, tile width, shared memory) comes from ``row_stream``, made
+once per device and shape.
 """
 
 from __future__ import annotations
 
 import torch
 
-from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
-from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
+from poseidon_tpu_torch.kernels import row_stream
+from poseidon_tpu_torch.kernels._args import (
+    kernel_arg, on_card, sm_count, stream_ptr,
+)
+from poseidon_tpu_torch.kernels.loader import (
+    Kernel, check_launch, library, occupancy,
+)
 
 INF = 2**29
 
@@ -20,6 +27,8 @@ KERNEL = Kernel(
     source="poseidon_tpu_torch/kernels/csrc/row_options.cu",
     replaces="poseidon_tpu/ops/dense_auction.py:445",
 )
+
+PLANS = row_stream.PlanCache()
 
 
 def row_options_plain(c, p):
@@ -42,11 +51,20 @@ def row_options(c, p):
     if Mp % 4:
         raise ValueError(f"row_options: Mp={Mp} must be a multiple of 4")
     i32 = torch.int32
-    b1v, m1, v2 = (torch.empty(Tp, dtype=i32, device=c.device) for _ in range(3))
-    with torch.cuda.device(c.device):
-        err = library("row_options").row_options_launch(
+    dev = c.device
+    b1v, m1, v2 = (torch.empty(Tp, dtype=i32, device=dev) for _ in range(3))
+    with torch.cuda.device(dev):
+        lib = library("row_options")
+        plan = PLANS.get(
+            dev, Tp, Mp, lambda: sm_count(dev),
+            lambda smem: occupancy(KERNEL, lib.row_options_occupancy, smem),
+        )
+        lay = plan.layout
+        err = lib.row_options_launch(
             kernel_arg(c, "c", i32, (Tp, Mp)), kernel_arg(p, "p", i32, (Mp,)),
-            b1v.data_ptr(), m1.data_ptr(), v2.data_ptr(), Tp, Mp, stream_ptr(c),
+            b1v.data_ptr(), m1.data_ptr(), v2.data_ptr(), Tp, Mp,
+            plan.grid, lay.stages, lay.chunk, int(lay.p_resident), lay.smem,
+            stream_ptr(c),
         )
     check_launch(KERNEL, err)
     KERNEL.launches += 1
