@@ -19,15 +19,21 @@ Phases (each prints its own lines):
    median CUDA-event time of the kernel and of the twin over repeats,
    each with the L2 cache flushed first, and the kernel's least possible
    time on an H100 (its bytes over 3.35 TB/s vs its operations over
-   67 T/s of 32-bit scalar throughput); the host time of one wrapper
-   call of K2 and K3 (``host_us``: N calls timed without a synchronise,
-   over N; ``wall_us`` adds the one synchronise at the end; medians of
-   7 batches); and an edge
-   battery that holds K2 and K3 against their twins (tolerance 0) at
-   the row-stream design's edges: Mp of 16, 64, 1028 and past the
-   shared-memory p budget, fewer rows than resident warps, one slot and
-   fewer slots than SMs, repeated window tasks, all-tied rows, all-INF
-   rows, and costs and prices that wrap int32;
+   67 T/s of 32-bit scalar throughput); K1's write floor, one ``fill_``
+   of a table of c's size timed the same way (a yardstick, not a call
+   the port makes); the host time of one wrapper call of K1, K2 and K3
+   with its launch plan (``host_us``: N calls timed without a
+   synchronise, over N; ``wall_us`` adds the one synchronise at the
+   end; medians of 7 batches); and an edge battery that holds the
+   kernels against their twins (tolerance 0) at their designs' edges:
+   for K1 Mp of 16, 64, 1028 and 41984, Tp of 1, 3, 5 and past a whole
+   tile, Pw of 0, 1, 3, 5 and 48 (no stage fits) with n_prefs 0, 1 and
+   Pw, no preference at all, preferences on padded columns and racks
+   of -1, every slot 0, every task cost INF and sums that wrap int32;
+   for K2 and K3 Mp of 16, 64, 1028 and past the shared-memory p
+   budget, fewer rows than resident warps, one slot and fewer slots
+   than SMs, repeated window tasks, all-tied rows, all-INF rows, and
+   costs and prices that wrap int32;
 4. parity: a small flagship-shaped cluster (64 machines x 600 pods), one
    cold and two churned warm rounds on the card and on the CPU (the
    twins): every field of every round must be equal;
@@ -41,7 +47,8 @@ Phases (each prints its own lines):
    more warm round under ``torch.profiler`` prints the device busy and
    idle share, the top device items, and each hand kernel's device time
    by its CUDA symbol: total, launches, and time per launch as the
-   auction loop calls it.
+   auction loop calls it, and the time of K2's first launch after K1
+   (it reads the table K1 has just written).
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line,
 and the contract line ``{"ok": true, "device": {...}}``.
@@ -228,6 +235,12 @@ def kernel_phase(torch, timer):
     records.append((k1.KERNEL, err, timer(lambda: k1.densify(*a1, n_prefs=P)),
                     timer(lambda: k1.densify_plain(*a1, n_prefs=P)),
                     *bound_ms(b, ops), (Tp, Mp, P)))
+    # yardstick, not a call the port makes: one fill_ of a table of c's
+    # size, what the card reaches writing the same bytes
+    table = torch.empty((Tp, Mp), dtype=torch.int32, device=dev)
+    log(f"[kernels] densify write_floor_ms={timer(lambda: table.fill_(0)):.6f} "
+        f"(one fill_ of an int32 [{Tp}, {Mp}] table, L2 flushed)")
+    del table
 
     # K2 row_options, at the stage-one clearing prices of the cold round
     lam = _theta_clearing(inst)[2]
@@ -259,10 +272,13 @@ def kernel_phase(torch, timer):
                     timer(lambda: k3.bid_pass_plain(*args3)),
                     *bound_ms(b, ops), (B, Mp)))
     torch.cuda.synchronize()
-    for mod, fn, args, rows in ((k2, k2.row_options, (inst.c, p), Tp),
-                                (k3, k3.bid_pass, args3, B)):
+    for mod, fn, args, key in (
+        (k1, lambda *a: k1.densify(*a, n_prefs=P), a1, (Tp, Mp, P, P)),
+        (k2, k2.row_options, (inst.c, p), (Tp, Mp)),
+        (k3, k3.bid_pass, args3, (B, Mp)),
+    ):
         host, wall = host_us(torch, lambda: fn(*args))
-        plan = mod.PLANS[inst.c.device, rows, Mp]
+        plan = mod.PLANS[(inst.c.device, *key)]
         log(f"[kernels] {mod.KERNEL.name} wrapper host_us={host:.3f} "
             f"wall_us={wall:.3f} per call (median of {HOST_BATCHES} x "
             f"{HOST_CALLS} calls) plan={plan}")
@@ -331,8 +347,78 @@ def edge_tables(torch, rng, Tp, Mp, kind):
     return to(c), to(p)
 
 
+def densify_inputs(torch, rng, Tp, Mp, Pw, kind):
+    """K1's channel arrays on the card (int32) of one edge kind: w[Tp],
+    d/ra/rack_of/slots[Mp], pc/pm/pr[Tp, Pw]. The last eighth of the
+    columns is padding (slots 0, rack -1), as the padded instance has."""
+    import numpy as np
+
+    inf = 2**29
+    racks = max(Mp // 8, 1)
+    real = Mp - Mp // 8
+    rack_of = np.where(np.arange(Mp) < real, rng.integers(0, racks, Mp), -1)
+    slots = np.where(np.arange(Mp) < real, rng.integers(0, 4, Mp), 0)
+    w = np.where(rng.random(Tp) < 0.1, inf, rng.integers(0, 5000, Tp))
+    d = np.where(rng.random(Mp) < 0.1, inf, rng.integers(0, 5000, Mp))
+    ra = np.where(rng.random(Mp) < 0.1, inf, rng.integers(0, 5000, Mp))
+    pc = np.where(rng.random((Tp, Pw)) < 0.1, inf,
+                  rng.integers(0, 3000, (Tp, Pw)))
+    pm = np.where(rng.random((Tp, Pw)) < 0.3, -1,
+                  rng.integers(0, real, (Tp, Pw)))
+    pr = np.where(rng.random((Tp, Pw)) < 0.5, -1,
+                  rng.integers(0, racks, (Tp, Pw)))
+    if kind == "none":           # no task has a preference
+        pm[:], pr[:] = -1, -1
+    elif kind == "padhit":       # preferences on padded columns, racks -1
+        pm = rng.integers(real - 1, Mp, (Tp, Pw))
+        pr = rng.integers(-1, 1, (Tp, Pw))
+    elif kind == "noslots":      # every slot 0: the whole table is INF
+        slots[:] = 0
+    elif kind == "winf":         # w all INF: only preferences are finite
+        w[:] = inf
+    elif kind == "wrap":         # w + d and pc + ra leave int32 and wrap
+        w = rng.integers(2**31 - 2**20, 2**31, Tp)
+        d = rng.integers(2**30, 2**31, Mp)
+        pc = rng.integers(2**31 - 2**20, 2**31, (Tp, Pw))
+        ra = rng.integers(2**30, 2**31, Mp)
+    elif kind != "rand":
+        raise ValueError(kind)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.int64).astype(np.int32)).to("cuda")
+    return tuple(map(to, (w, d, ra, rack_of, slots, pc, pm, pr)))
+
+
+def densify_edges(torch, rng, big):
+    """K1 equals its twin (tolerance 0) at the tile writer's edges."""
+    from poseidon_tpu_torch.kernels import densify as k1
+
+    cases = [  # (Tp, Mp, Pw, n_prefs, kind)
+        (1, 16, 1, 1, "rand"), (3, 64, 3, 3, "rand"),
+        (5, 1028, 5, 5, "rand"), (1003, 1024, 3, 3, "rand"),
+        (700, 16, 5, 5, "rand"), (700, 64, 3, 1, "rand"),
+        (150, 1028, 5, 0, "rand"), (64, big, 3, 3, "rand"),
+        (517, 1024, 5, 5, "none"), (800, 64, 3, 3, "padhit"),
+        (41, 1028, 1, 1, "padhit"), (200, 1024, 3, 3, "noslots"),
+        (333, 1028, 1, 1, "winf"), (1000, 1024, 5, 5, "wrap"),
+        (77, big, 5, 5, "wrap"), (2000, 16, 3, 3, "wrap"),
+        (129, 1024, 0, 0, "rand"), (300, 16, 48, 48, "rand"),
+    ]
+    for Tp, Mp, Pw, n, kind in cases:
+        a = densify_inputs(torch, rng, Tp, Mp, Pw, kind)
+        err = max_abs_err([k1.densify(*a, n_prefs=n)],
+                          [k1.densify_plain(*a, n_prefs=n)])
+        plan = k1.PLANS[a[0].device, Tp, Mp, Pw, n]
+        log(f"[edges] densify Tp={Tp} Mp={Mp} Pw={Pw} n_prefs={n} {kind}: "
+            f"max_abs_err={err} grid={plan.grid} cols={plan.cols} "
+            f"tile_rows={plan.tile_rows} stages={plan.stages}")
+        if err != 0:
+            raise AssertionError(f"densify edge Tp={Tp} Mp={Mp} Pw={Pw} "
+                                 f"n_prefs={n} {kind}: kernel != twin "
+                                 f"(max_abs_err {err})")
+
+
 def edge_battery(torch):
-    """K2 and K3 equal their twins (tolerance 0) at the design's edges."""
+    """K1, K2 and K3 equal their twins (tolerance 0) at the designs' edges."""
     import numpy as np
 
     from poseidon_tpu_torch.kernels import bid_pass as k3
@@ -346,6 +432,7 @@ def edge_battery(torch):
            or row_stream.layout(big, k3.META_INTS).p_resident):
         big += 1024
     rng = np.random.default_rng(2024)
+    densify_edges(torch, rng, big)
     cases2 = [  # (Tp, Mp, kind)
         (37, 16, "rand"), (1000, 64, "rand"), (700, 1028, "rand"),
         (150, big, "rand"), (5, 1024, "rand"), (3, 16, "rand"),
@@ -492,6 +579,19 @@ def profile_round(torch, solver, cluster):
         count = sum(n for _, n in hits)
         log(f"[profile] kernel {k}: total_us={total:.1f} launches={count} "
             f"us_per_launch={total / max(count, 1):.3f}")
+    # K2's first launch after K1 reads the table K1 has just written: a
+    # change in where K1's stores leave c (L2 or memory) shows up here
+    from torch.autograd import DeviceType
+
+    order = sorted((e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA),
+                   key=lambda e: e.time_range.start)
+    k1_at = [i for i, e in enumerate(order) if KERNEL_SYMBOLS[0] in e.name]
+    after = [e for e in order[k1_at[0] + 1:] if KERNEL_SYMBOLS[1] in e.name] \
+        if k1_at else []
+    log(f"[profile] first {KERNEL_SYMBOLS[1]} after {KERNEL_SYMBOLS[0]}: "
+        + (f"us={after[0].time_range.elapsed_us():.3f}" if after
+           else "not found"))
 
 
 def main_path_phase(torch):

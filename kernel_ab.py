@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the row kernels (K2 ``row_options``, K3 ``bid_pass``) of one or
-more checkouts on one GPU, in turns, in one run.
+"""Time the hand kernels (K1 ``densify``, K2 ``row_options``, K3
+``bid_pass``) of one or more checkouts on one GPU, in turns, in one run.
 
     python3 kernel_ab.py ROOT [ROOT ...]
 
@@ -9,9 +9,9 @@ Each ROOT is the root of a checkout of this repository (for example a
 ``.gitignore`` lists). Each is measured in its own process, in the order
 given, so list them in turns (old, new, new, old) to see the card's
 drift. Every process builds its checkout's kernels, makes flagship-shaped
-inputs from one seed (Tp = 10240, Mp = 1024, bid window B = 2560: the
-shapes of BASELINE config 2), checks each kernel against its plain twin
-(tolerance 0) and prints one JSON line:
+inputs from one seed (Tp = 10240, Mp = 1024, P = 3 preference columns,
+bid window B = 2560: the shapes of BASELINE config 2), checks each
+kernel against its plain twin (tolerance 0) and prints one JSON line:
 
 - ``cold_ms``: median CUDA-event time of one call, the L2 cache flushed
   first by reading 128 MiB (so L2 holds no dirty line) and the card held
@@ -23,14 +23,19 @@ shapes of BASELINE config 2), checks each kernel against its plain twin
 - ``read_floor_ms``: as ``cold_ms``, for one PyTorch reduction that
   reads the bytes the kernel must read (``c.max()``; for K3 ``B``
   contiguous rows): a yardstick of what the card reaches on such a read,
-  not a call the port makes;
+  not a call the port makes; for K1 ``write_floor_ms``, one ``fill_`` of
+  an int32 [Tp, Mp] table (the bytes K1 writes);
 - ``warm_ms``: CUDA-event time of 20 back-to-back calls over 20, the
   table left in L2 (the auction loop's case: the 40 MiB table fits in
-  the 50 MB L2), the card again held busy until all 20 are enqueued;
+  the 50 MB L2; for K1 its inputs and output stay there), the card
+  again held busy until all 20 are enqueued;
 - ``host_us``: host time per wrapper call over 100 calls without a
   synchronise, and ``wall_us`` the same with the one synchronise at the
   end; each the median of 7 such batches, every worker pinned to the
-  same CPU core.
+  same CPU core;
+- for K1 also ``one_tile_ms`` and ``one_tile_fill_ms``: as ``cold_ms``,
+  K1 on the first 4 rows (one tile, one block) and a ``fill_`` of as
+  many bytes: the fixed cost of a cold launch, before the bytes count.
 
 The card's name and power limit come first, from ``nvidia-smi``.
 """
@@ -60,6 +65,7 @@ def worker(root: str) -> dict:
 
     import poseidon_tpu_torch
     from poseidon_tpu_torch.kernels import bid_pass as k3
+    from poseidon_tpu_torch.kernels import densify as k1
     from poseidon_tpu_torch.kernels import loader
     from poseidon_tpu_torch.kernels import row_options as k2
 
@@ -70,7 +76,7 @@ def worker(root: str) -> dict:
         for src, text in report.ptxas.items()
     }
     rng = np.random.default_rng(0)
-    Tp, Mp, B, inf = 10240, 1024, 2560, 2**29
+    Tp, Mp, B, P, inf = 10240, 1024, 2560, 3, 2**29
     c = rng.integers(0, 3000, (Tp, Mp))
     c[rng.random((Tp, Mp)) < 0.05] = inf
     p = rng.integers(0, 2000, Mp)
@@ -80,39 +86,60 @@ def worker(root: str) -> dict:
     btask = torch.from_numpy(
         rng.choice(Tp, size=B, replace=False).astype(np.int32)).to(dev)
     bvalid = torch.from_numpy(rng.random(B) < 0.8).to(dev)
+    # K1's channel arrays: 7 of 8 machines real (racks of 100), two
+    # machine and one rack preference column per task, a few INF costs
+    real = Mp - Mp // 8
+    rack_of = np.where(np.arange(Mp) < real, np.arange(Mp) // 100, -1)
+    slots = np.where(np.arange(Mp) < real, 10, 0)
+    pm = np.where(rng.random((Tp, P)) < 0.2, -1, rng.integers(0, real, (Tp, P)))
+    pm[:, 2] = -1
+    pr = np.full((Tp, P), -1)
+    pr[:, 2] = np.where(rng.random(Tp) < 0.3, rng.integers(0, 9, Tp), -1)
+    pc = np.where(rng.random((Tp, P)) < 0.05, inf, rng.integers(0, 3000, (Tp, P)))
+    a1 = tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (
+        rng.integers(0, 9000, Tp), rng.integers(0, 9000, Mp),
+        rng.integers(0, 9000, Mp), rack_of, slots, pc, pm, pr))
+    table = torch.empty((Tp, Mp), dtype=torch.int32, device=dev)
+    # (call, its twin, args, yardstick name, yardstick): the yardstick
+    # is one PyTorch call that moves the same bytes (a fill_ of c's size;
+    # a reduction over all of c, over B contiguous rows of c), timed as
+    # cold_ms is
     calls = {
-        "row_options": (k2.row_options, k2.row_options_plain, (c, p)),
+        "densify": (lambda *a: (k1.densify(*a, n_prefs=P),),
+                    lambda *a: (k1.densify_plain(*a, n_prefs=P),), a1,
+                    "write_floor_ms", lambda: table.fill_(0)),
+        "row_options": (k2.row_options, k2.row_options_plain, (c, p),
+                        "read_floor_ms", lambda: c.max()),
         "bid_pass": (k3.bid_pass, k3.bid_pass_plain,
-                     (c, p, u, btask, bvalid, 1)),
+                     (c, p, u, btask, bvalid, 1),
+                     "read_floor_ms", lambda: c[:B].max()),
     }
-    # yardsticks: one PyTorch reduction that reads the same bytes (all
-    # of c; B contiguous rows of c), timed as cold_ms is
-    floors = {"row_options": lambda: c.max(),
-              "bid_pass": lambda: c[:B].max()}
     flush = torch.zeros(128 << 20, dtype=torch.uint8, device=dev)
+
+    def cold_time(flush_l2, call) -> float:
+        times = []
+        for _ in range(REPEATS):
+            flush_l2()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            call()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        times.sort()
+        return times[len(times) // 2]
+
     out = {"root": root, "package": poseidon_tpu_torch.__file__, "ptxas": regs}
-    for name, (fn, plain, args) in calls.items():
+    for name, (fn, plain, args, floor_name, floor) in calls.items():
         for g, w in zip(fn(*args), plain(*args)):
             if not torch.equal(g, w):
                 raise AssertionError(f"{root}: {name} != its plain twin")
-        cold = {}
-        for how, flush_l2, call in (
-            ("cold_ms", lambda: flush.max(), lambda: fn(*args)),
-            ("cold_dirty_ms", flush.zero_, lambda: fn(*args)),
-            ("read_floor_ms", lambda: flush.max(), floors[name]),
-        ):
-            times = []
-            for _ in range(REPEATS):
-                flush_l2()
-                torch.cuda._sleep(SLEEP_CYCLES)
-                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                a.record()
-                call()
-                b.record()
-                b.synchronize()
-                times.append(a.elapsed_time(b))
-            times.sort()
-            cold[how] = times[len(times) // 2]
+        cold = {
+            "cold_ms": cold_time(lambda: flush.max(), lambda: fn(*args)),
+            "cold_dirty_ms": cold_time(flush.zero_, lambda: fn(*args)),
+            floor_name: cold_time(lambda: flush.max(), floor),
+        }
         fn(*args)
         torch.cuda._sleep(SLEEP_CYCLES * WARM_CALLS)
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -138,6 +165,13 @@ def worker(root: str) -> dict:
             "host_us": sorted(host)[HOST_BATCHES // 2],
             "wall_us": sorted(wall)[HOST_BATCHES // 2],
         }
+    # K1's fixed cost: one 4-row tile (one block), and a fill_ of as many
+    # bytes, each cold; what a launch costs before its bytes do
+    tile = tuple(x[:4] for x in a1[:1]) + a1[1:5] + tuple(x[:4] for x in a1[5:])
+    out["densify"]["one_tile_ms"] = cold_time(
+        lambda: flush.max(), lambda: k1.densify(*tile, n_prefs=P))
+    out["densify"]["one_tile_fill_ms"] = cold_time(
+        lambda: flush.max(), lambda: table[:4].fill_(0))
     return out
 
 

@@ -136,6 +136,11 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
       : "memory");
 }
 
+// An arrival that announces no bytes: completes a phase with no copy.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Block until the phase of parity `parity` of `bar` has completed. A
 // phase that has not completed after ~2^31 SM cycles (about a second)
 // can only be a fault of the pipeline: trap, so that the launch fails

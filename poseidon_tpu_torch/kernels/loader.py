@@ -134,7 +134,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     occupancy = [I, ctypes.POINTER(I)]
     sigs = {
-        "densify": {"densify_launch": [P] * 9 + [I] * 4 + [P]},
+        "densify": {
+            "densify_launch": [P] * 9 + [I] * 8 + [P],
+            "densify_occupancy": [I] + occupancy,
+        },
         "row_options": {
             "row_options_launch": [P] * 5 + [I] * 7 + [P],
             "row_options_occupancy": occupancy,
@@ -152,7 +155,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def occupancy(kernel: Kernel, fn, smem: int) -> int:
-    """Blocks of a row-stream kernel that fit on one SM with ``smem``
+    """Blocks of a persistent kernel that fit on one SM with ``smem``
     bytes of dynamic shared memory, by its ``*_occupancy`` entry point
     (which also lifts the kernel's shared-memory cap). Call it with the
     kernel's device current; the plan caches keep the answer."""

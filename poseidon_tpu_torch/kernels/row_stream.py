@@ -86,22 +86,27 @@ def plan(rows: int, Mp: int, meta_ints: int, sm_count: int,
 
 
 class PlanCache:
-    """Plans by (device, rows, Mp), made on first use."""
+    """Plans by (device, rows, Mp, *shape), made on first use by
+    ``make(rows, Mp, *shape, sm_count, occupancy)``: the row-stream
+    ``plan`` with ``meta_ints`` unless another maker is given (K1's
+    ``tile_stream.plan``, whose shape adds Pw and n_prefs)."""
 
-    def __init__(self, meta_ints: int = 0):
-        self.meta_ints = meta_ints
-        self._plans: dict[tuple, Plan] = {}
+    def __init__(self, meta_ints: int = 0, make: Callable | None = None):
+        self._make = make or (
+            lambda rows, Mp, sm, occ: plan(rows, Mp, meta_ints, sm, occ))
+        self._plans: dict[tuple, object] = {}
 
     def get(self, device, rows: int, Mp: int, sm_count: Callable[[], int],
-            occupancy: Callable[[int], int]) -> Plan:
-        key = (device, rows, Mp)
+            occupancy: Callable[[int], int], *shape: int):
+        key = (device, rows, Mp, *shape)
         p = self._plans.get(key)
         if p is None:
-            p = self._plans[key] = plan(rows, Mp, self.meta_ints, sm_count(), occupancy)
+            p = self._plans[key] = self._make(rows, Mp, *shape, sm_count(),
+                                              occupancy)
         return p
 
-    def __getitem__(self, key: tuple) -> Plan:
-        """The plan made for (device, rows, Mp)."""
+    def __getitem__(self, key: tuple):
+        """The plan made for (device, rows, Mp, *shape)."""
         return self._plans[key]
 
     def __len__(self) -> int:

@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from poseidon_tpu_torch.graph.network import pad_bucket
-from poseidon_tpu_torch.kernels import KERNELS, bid_pass, reset_launch_counts
-from poseidon_tpu_torch.kernels import row_options, row_stream
+from poseidon_tpu_torch.kernels import KERNELS, bid_pass, densify, reset_launch_counts
+from poseidon_tpu_torch.kernels import row_options, row_stream, tile_stream
 from poseidon_tpu_torch.ops.dense_auction import DENSE_TABLE_BUDGET_BYTES
 
 CSRC = pathlib.Path(row_stream.__file__).resolve().parent / "csrc"
@@ -165,3 +165,197 @@ def test_wrappers_raise_on_mixed_devices():
     with pytest.raises(ValueError):
         bid_pass.bid_pass(c.to("meta"), p.to("meta"), u.to("meta"),
                           btask.to("meta"), bvalid.to("meta"), 1)
+
+
+# ---------------------------------------------------------------------------
+# K1 densify: the tile writer's plan (kernels/tile_stream.py)
+# ---------------------------------------------------------------------------
+
+PW_NPREFS = [(Pw, n) for Pw in range(0, 6) for n in sorted({0, min(1, Pw), Pw})]
+
+
+def _tile_cells(p: tile_stream.TilePlan, Tp: int, Mp: int) -> np.ndarray:
+    """How many times the kernel (csrc/densify.cu) stores each cell of
+    a Tp x Mp table under plan ``p``, restated: block b walks items
+    b, b + grid, ...; item it is row tile it % n_rt of column chunk
+    it // n_rt; thread (trow, tcol) stores columns c0 + 4 tcol .. + 3 of
+    rows trow + q * rows_per_pass, q < ROWS_PER_THREAD, of the tile."""
+    R, cols, rpp = p.tile_rows, p.cols, p.rows_per_pass
+    n_rt = -(-Tp // R)
+    n_items = n_rt * -(-Mp // cols)
+    assert n_items == tile_stream.items(Tp, Mp, cols)
+    count = np.zeros((Tp, Mp), np.int32)
+    trow, tcol = np.divmod(np.arange(tile_stream.THREADS), cols // 4)
+    q = np.arange(tile_stream.ROWS_PER_THREAD)
+    for b in range(p.grid):
+        for it in range(b, n_items, p.grid):
+            ch, tile = divmod(it, n_rt)
+            t0, c0 = tile * R, ch * cols
+            rows = min(R, Tp - t0)
+            r = (trow[:, None] + q[None, :] * rpp).ravel()
+            m0 = np.repeat(c0 + 4 * tcol, len(q))
+            ok = (r < rows) & (m0 < Mp)
+            for j in range(4):
+                np.add.at(count, (t0 + r[ok], m0[ok] + j), 1)
+    return count
+
+
+@pytest.mark.parametrize("rows", FLAGSHIP_ROWS)
+def test_densify_plan_fits_the_card_at_every_ladder_shape(rows):
+    """For this Tp and every Mp on the ladder that the table budget
+    admits, Pw 0-5 and n_prefs 0, 1 and Pw: chunks of 4-1024 columns
+    (a power of two x 4) that cut Mp exactly, shared memory within
+    227 KB and equal to the kernel's layout, every bulk copy 16-byte
+    aligned in offset and size (or the tile read directly, which only
+    a tile ending past Tp is), and a grid of 1 to items blocks."""
+    max_mp = DENSE_TABLE_BUDGET_BYTES // (4 * max(16, rows))
+    seen_cols = set()
+    for Mp in _ladder(max_mp):
+        cols = tile_stream.chunk_columns(Mp)
+        assert cols % 4 == 0 and 4 <= cols <= tile_stream.CHUNK_COLUMNS_MAX
+        assert (cols // 4) & (cols // 4 - 1) == 0          # a power of two
+        n_ch = -(-Mp // cols)
+        assert (n_ch - 1) * cols < Mp <= n_ch * cols
+        assert cols >= Mp or cols == tile_stream.CHUNK_COLUMNS_MAX
+        seen_cols.add(cols)
+    for cols in sorted(seen_cols):
+        Mp = cols                       # the layout depends on Mp via cols
+        for Pw, n in PW_NPREFS:
+            c2, stages, p_staged, smem = tile_stream.layout(Mp, Pw, n)
+            assert c2 == cols and p_staged == (n > 0)
+            assert 0 < smem <= row_stream.SMEM_MAX == 232_448
+            assert smem == tile_stream.smem_bytes(cols, stages, Pw, p_staged)
+            assert tile_stream.STAGES_MIN <= stages <= tile_stream.STAGES_MAX
+            for blocks_per_sm in (1, 3, 4):
+                p = tile_stream.plan(rows, Mp, Pw, n, SM_COUNT,
+                                     lambda smem: blocks_per_sm)
+                assert p.tile_rows % 4 == 0
+                assert p.tile_rows * (cols // 4) == (
+                    tile_stream.ROWS_PER_THREAD * tile_stream.THREADS)
+                n_items = tile_stream.items(rows, Mp, cols)
+                assert 1 <= p.grid <= min(n_items, SM_COUNT * blocks_per_sm)
+            n_rt = -(-rows // p.tile_rows)
+            for tile in range(n_rt):
+                copies = tile_stream.bulk_copies(p, rows, Pw, tile)
+                full = (tile + 1) * p.tile_rows <= rows
+                assert (copies is not None) == full
+                if copies is None:
+                    continue
+                assert len(copies) == (4 if n > 0 else 1)
+                for off, nbytes in copies:
+                    assert off % 16 == 0 and nbytes % 16 == 0 and nbytes > 0
+                if n > 0:   # the copy stays inside pc/pm/pr
+                    assert copies[1][0] + copies[1][1] <= rows * Pw * 4
+                assert copies[0][0] + copies[0][1] <= rows * 4
+
+
+@pytest.mark.parametrize("Tp", [1, 3, 5, 8, 9, 100, 517, 1003, 2000, 10240])
+def test_densify_plan_stores_every_cell_once(Tp):
+    """The kernel's dealing, restated, stores every (row, column) exactly
+    once: at narrow and wide Mp, at a ragged chunk (1028 = 1024 + 4), with
+    grids of one block, a few blocks and the flagship's wave."""
+    for Mp in (16, 64, 100, 1024, 1028, 2048):
+        if Tp * Mp > 10240 * 1024:
+            continue
+        for sms, bps in ((1, 1), (3, 2), (SM_COUNT, 4)):
+            p = tile_stream.plan(Tp, Mp, 3, 3, sms, lambda smem: bps)
+            if sms == SM_COUNT and Tp * Mp > 2048 * 1028:
+                continue
+            count = _tile_cells(p, Tp, Mp)
+            assert (count == 1).all(), (Tp, Mp, sms, bps)
+    # the flagship itself, at its real plan
+    if Tp == 10240:
+        p = tile_stream.plan(Tp, 1024, 3, 3, SM_COUNT, lambda smem: 4)
+        assert (p.cols, p.tile_rows, p.grid) == (1024, 4, 528)
+        assert (_tile_cells(p, Tp, 1024) == 1).all()
+
+
+def test_densify_plan_reads_directly_only_where_it_must():
+    """Stages hold the tile's inputs unless 2 stages do not fit (a very
+    wide Pw at narrow Mp); then every tile is read from global memory."""
+    cols, stages, _, smem = tile_stream.layout(16, 48, 48)
+    assert stages == 0 and smem <= row_stream.SMEM_MAX
+    p = tile_stream.plan(3000, 16, 48, 48, SM_COUNT, lambda smem: 1)
+    assert all(tile_stream.bulk_copies(p, 3000, 48, t) is None for t in range(6))
+    assert tile_stream.layout(1024, 3, 3)[1] == tile_stream.STAGES_MAX
+    with pytest.raises(ValueError):
+        tile_stream.layout(1024, 3, 4)
+    with pytest.raises(ValueError):
+        tile_stream.layout(18, 3, 3)
+    with pytest.raises(RuntimeError):
+        tile_stream.plan(10, 1024, 3, 3, SM_COUNT, lambda smem: 0)
+
+
+def test_densify_plan_cache_queries_the_device_once_per_shape():
+    calls = {"sm": 0, "occ": []}
+
+    def sm():
+        calls["sm"] += 1
+        return SM_COUNT
+
+    def occ(smem):
+        calls["occ"].append(smem)
+        return 4
+
+    cache = row_stream.PlanCache(make=tile_stream.plan)
+    a = cache.get("dev0", 10240, 1024, sm, occ, 3, 3)
+    for _ in range(5):
+        assert cache.get("dev0", 10240, 1024, sm, occ, 3, 3) is a
+    assert calls["sm"] == 1 and calls["occ"] == [a.smem]
+    assert a.grid == 4 * SM_COUNT
+    b = cache.get("dev0", 10240, 1024, sm, occ, 3, 1)
+    c = cache.get("dev0", 10240, 1024, sm, occ, 5, 3)
+    assert b is not a and c is not a and len(cache) == 3
+    assert cache["dev0", 10240, 1024, 3, 3] is a
+
+
+def test_densify_constants_agree_with_the_plan():
+    """The tile shape, the unrolled n_prefs and the shared-memory layout
+    are the ones csrc/densify.cu uses."""
+    k1 = (CSRC / "densify.cu").read_text()
+    rpt = int(re.search(r"constexpr int ROWS_PER_THREAD = (\d+);", k1)[1])
+    assert rpt == tile_stream.ROWS_PER_THREAD
+    npu = int(re.search(r"constexpr int NP_UNROLLED = (\d+);", k1)[1])
+    assert npu == tile_stream.NP_UNROLLED
+    cases = [int(x) for x in re.findall(
+        r"case (\d+): return densify_kernel<\1>;", k1)]
+    assert cases == list(range(npu + 1))
+    assert "default: return densify_kernel<-1>;" in k1
+    # bars padded to 16 bytes, then the stages (w | pc | pm | pr)
+    assert "smem + ((stages * 8 + 15) & ~15)" in k1
+    assert "R * (p_staged ? 1 + 3 * Pw : 1)" in k1
+    assert "in = TileIn{st, st + R, st + R + R * Pw, st + R + 2 * R * Pw};" in k1
+    assert "const int R = ROWS_PER_THREAD * rpp;" in k1
+    assert tile_stream.THREADS == 32 * row_stream.WARPS
+
+
+def _k1_args(rng, Tp=40, Mp=64, Pw=3):
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    return (t(rng.integers(0, 500, Tp)), t(rng.integers(0, 500, Mp)),
+            t(rng.integers(0, 500, Mp)), t(rng.integers(-1, 4, Mp)),
+            t(rng.integers(0, 3, Mp)), t(rng.integers(0, 500, (Tp, Pw))),
+            t(rng.integers(-1, Mp, (Tp, Pw))), t(rng.integers(-1, 4, (Tp, Pw))))
+
+
+def test_densify_wrapper_takes_the_twin_for_cpu_tensors():
+    rng = np.random.default_rng(5)
+    a = _k1_args(rng)
+    reset_launch_counts()
+    for n in (0, 1, 3):
+        assert torch.equal(densify.densify(*a, n_prefs=n),
+                           densify.densify_plain(*a, n_prefs=n))
+    assert all(k.launches == 0 for k in KERNELS)
+    assert len(densify.PLANS) == 0
+
+
+def test_densify_wrapper_raises_on_bad_arguments():
+    rng = np.random.default_rng(6)
+    a = _k1_args(rng)
+    with pytest.raises(ValueError):                  # mixed devices
+        densify.densify(*a[:4], a[4].to("meta"), *a[5:], n_prefs=3)
+    for n in (-1, 4):                                # n_prefs outside [0, Pw]
+        with pytest.raises(ValueError):
+            densify.densify(*a, n_prefs=n)
+    b = _k1_args(rng, Mp=18)                         # Mp not a multiple of 4
+    with pytest.raises(ValueError):
+        densify.densify(*b, n_prefs=3)
