@@ -22,8 +22,13 @@ The build is split in two stages so the per-round cost can scale with
 - ``FlowGraphBuilder.assemble`` turns columns into the arc families +
   ``GraphMeta`` with pure vectorized numpy.
 
-The incremental (O(churn)) builder that patches ``BuilderColumns``
-between rounds is not part of this package yet.
+``IncrementalFlowGraphBuilder`` keeps a live ``BuilderColumns`` and
+patches it from O(K) churn events (task add/remove/update/age, slot
+deltas) fed by the scheduler bridge, falling back to a full re-extract
+on anything it cannot patch (machine-set changes, mid-order pending
+re-inserts). Because both paths share ``assemble``, a delta build is
+bit-identical to a from-scratch build by construction; the differential
+suite in tests/test_torch_incremental.py asserts it anyway.
 
 Rebalancing mode (``preemption=True``, the Firmament semantics behind
 ``SchedulingDelta::MIGRATE``/``PREEMPT``): RUNNING tasks enter the
@@ -44,6 +49,7 @@ is cost-neutral while keeping the two blocks independently patchable.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 from enum import IntEnum
@@ -583,3 +589,609 @@ class FlowGraphBuilder:
             n_arcs=n_arcs,
         )
         return arrays, meta
+
+
+class _DeltaUnsupported(Exception):
+    """A buffered churn event the delta path cannot patch exactly."""
+
+
+class IncrementalFlowGraphBuilder:
+    """O(churn) graph maintenance across scheduling rounds.
+
+    The owner (SchedulerBridge) feeds ``note_*`` events as cluster state
+    mutates; ``build_arrays`` patches the cached ``BuilderColumns`` and
+    re-assembles — O(K) Python work for K churned pods plus vectorized
+    numpy over the arrays, instead of the full O(tasks·prefs) object
+    walk. Any event outside the patchable set (machine add/remove/
+    attribute change, a pod re-entering the pending order mid-sequence,
+    pref/job content changes) flips ``note_full_rebuild`` and the next
+    build re-extracts from the cluster.
+
+    Copy-on-write discipline: columns are replaced, never mutated in
+    place, so arrays referenced by a previous round's ``GraphMeta`` (or
+    already shipped to an in-flight solve) stay frozen.
+
+    Self-healing: every delta build verifies the cached pending-uid
+    sequence and machine-name list against the live cluster; a mismatch
+    (a missed event path) logs a warning and falls back to a full
+    rebuild, so a bookkeeping bug degrades to the old cost, never to a
+    wrong graph.
+    """
+
+    def __init__(
+        self,
+        *,
+        pref_arcs: bool = True,
+        rack_aggs: bool = True,
+        preemption: bool = False,
+        migration_hysteresis: int = 20,
+    ):
+        self.builder = FlowGraphBuilder(
+            pref_arcs=pref_arcs, rack_aggs=rack_aggs,
+            preemption=preemption,
+            migration_hysteresis=migration_hysteresis,
+        )
+        self._cols: BuilderColumns | None = None
+        self._merged: BuilderColumns | None = None
+        self._uid_pos: dict[str, int] = {}
+        self._added: dict[str, Task] = {}
+        self._removed: set[str] = set()
+        self._updated: dict[str, Task] = {}
+        self._aged: collections.Counter[str] = collections.Counter()
+        self._slot_delta: collections.Counter[str] = collections.Counter()
+        # running-block buffers (rebalancing mode)
+        self._run_pos: dict[str, int] = {}
+        self._run_added: dict[str, Task] = {}
+        self._run_removed: set[str] = set()
+        self._run_moved: dict[str, str] = {}
+        self._run_updated: dict[str, Task] = {}
+        self._rebuild: str | None = "cold"
+        self.last_build_mode = ""
+        self.builds_full = 0
+        self.builds_delta = 0
+
+    @property
+    def preemption(self) -> bool:
+        return self.builder.preemption
+
+    # ---- churn notifications (all O(1)) -------------------------------
+
+    def note_full_rebuild(self, why: str) -> None:
+        if self._rebuild is None:
+            self._rebuild = why
+            self._added.clear()
+            self._removed.clear()
+            self._updated.clear()
+            self._aged.clear()
+            self._slot_delta.clear()
+            self._run_added.clear()
+            self._run_removed.clear()
+            self._run_moved.clear()
+            self._run_updated.clear()
+
+    def note_task_added(self, task: Task) -> None:
+        """A NEW pending pod appended at the end of the pending order."""
+        if self._rebuild is not None:
+            return
+        if task.uid in self._removed or task.uid in self._uid_pos \
+                or task.uid in self._added:
+            # re-adds / duplicates cannot preserve the canonical order
+            self.note_full_rebuild("pending re-insert")
+            return
+        self._added[task.uid] = task
+
+    def note_task_removed(self, uid: str) -> None:
+        """A pod left the pending set (placed, retired, disappeared)."""
+        if self._rebuild is not None:
+            return
+        if uid in self._added:
+            del self._added[uid]
+            self._aged.pop(uid, None)
+            self._updated.pop(uid, None)
+            return
+        if uid in self._uid_pos:
+            self._removed.add(uid)
+            self._updated.pop(uid, None)
+            return
+        self.note_full_rebuild("unknown pending removal")
+
+    def note_task_updated(self, task: Task) -> None:
+        """An existing pending pod's cpu/mem request changed in place
+        (same uid, same position, same job + prefs)."""
+        if self._rebuild is not None:
+            return
+        if task.uid in self._added:
+            self._added[task.uid] = task
+        elif task.uid in self._uid_pos:
+            self._updated[task.uid] = task
+        else:
+            self.note_full_rebuild("unknown pending update")
+
+    def note_task_aged(self, uid: str, rounds: int = 1) -> None:
+        """A pending pod's wait_rounds grew by ``rounds``."""
+        if self._rebuild is not None:
+            return
+        self._aged[uid] += rounds
+
+    def note_slots_changed(self, machine: str, delta: int) -> None:
+        """A machine's RUNNING-task count changed by ``delta``.
+
+        Rebalancing mode ignores slot deltas: running tasks hold their
+        seats through their own unit of flow, so capacity stays full.
+        """
+        if self._rebuild is not None or self.preemption:
+            return
+        self._slot_delta[machine] += delta
+
+    # ---- running-block notifications (rebalancing mode, all O(1)) -----
+
+    def note_running_added(self, task: Task) -> None:
+        """A task entered the RUNNING set (confirm/adoption)."""
+        if self._rebuild is not None:
+            return
+        uid = task.uid
+        if uid in self._run_pos or uid in self._run_added \
+                or uid in self._run_removed:
+            # duplicates / re-adds inside one window would need a
+            # remove+insert ordering the sorted merge cannot replay
+            self.note_full_rebuild("running re-add")
+            return
+        if not task.machine:
+            self.note_full_rebuild("running add without machine")
+            return
+        self._run_added[uid] = task
+
+    def note_running_removed(self, uid: str) -> None:
+        """A task left the RUNNING set (retired, preempted, evicted)."""
+        if self._rebuild is not None:
+            return
+        if uid in self._run_added:
+            del self._run_added[uid]
+            self._run_moved.pop(uid, None)
+            self._run_updated.pop(uid, None)
+            return
+        if uid in self._run_pos:
+            self._run_removed.add(uid)
+            self._run_moved.pop(uid, None)
+            self._run_updated.pop(uid, None)
+            return
+        self.note_full_rebuild("unknown running removal")
+
+    def note_running_moved(self, uid: str, machine: str) -> None:
+        """A RUNNING task's machine changed (migration applied)."""
+        if self._rebuild is not None:
+            return
+        if uid in self._run_added:
+            self._run_added[uid] = dataclasses.replace(
+                self._run_added[uid], machine=machine
+            )
+        elif uid in self._run_pos and uid not in self._run_removed:
+            self._run_moved[uid] = machine
+        else:
+            self.note_full_rebuild("unknown running move")
+
+    def note_running_updated(self, task: Task) -> None:
+        """A RUNNING task's cpu/mem request changed in place (same
+        uid, machine, job + prefs)."""
+        if self._rebuild is not None:
+            return
+        uid = task.uid
+        if uid in self._run_added:
+            self._run_added[uid] = task
+        elif uid in self._run_pos and uid not in self._run_removed:
+            self._run_updated[uid] = task
+        else:
+            self.note_full_rebuild("unknown running update")
+
+    # ---- build --------------------------------------------------------
+
+    @property
+    def columns(self) -> BuilderColumns | None:
+        """The last build's MERGED columns (identical to the patchable
+        columns in place-only mode, where the merge is the identity)."""
+        return self._merged if self._merged is not None else self._cols
+
+    def cost_columns(self) -> tuple[np.ndarray, np.ndarray]:
+        """(task_cpu_milli, task_mem_kb) for the current task order
+        (pending, then the running block in rebalancing mode)."""
+        cols = self.columns
+        assert cols is not None
+        return cols.cpu_milli, cols.mem_kb
+
+    def checkpoint_columns(self) -> BuilderColumns | None:
+        """The patchable column set, checkpoint-clean (ha/checkpoint
+        .py): buffered churn notes are folded in first (the exact
+        O(churn) patch the next build would apply — the state machine
+        is idempotent, so the next build simply finds nothing pending),
+        because a snapshot of half-applied state would prime a restored
+        builder with columns the notes never reached. None while a
+        full rebuild is pending — there is nothing patchable to save.
+        """
+        if self._rebuild is not None or self._cols is None:
+            return None
+        try:
+            self._apply_deltas()
+        except _DeltaUnsupported as e:
+            self.note_full_rebuild(str(e))
+            return None
+        return self._cols
+
+    def restore_columns(self, cols: BuilderColumns) -> None:
+        """Warm-restore priming (ha/checkpoint.py): adopt a
+        checkpointed patchable column set as the cached state, so the
+        first post-restore build patches O(churn) instead of
+        re-extracting the whole cluster. Safe by construction: the
+        next ``build_arrays`` runs the same self-heal verify every
+        delta build runs — a snapshot that does not match the restored
+        cluster degrades to a full rebuild loudly, never to a wrong
+        graph."""
+        self._cols = cols
+        self._merged = None
+        self._uid_pos = {
+            u: i for i, u in enumerate(cols.uids.tolist())
+        }
+        self._run_pos = {
+            u: i for i, u in enumerate(cols.run_uids.tolist())
+        }
+        self._added.clear()
+        self._removed.clear()
+        self._updated.clear()
+        self._aged.clear()
+        self._slot_delta.clear()
+        self._run_added.clear()
+        self._run_removed.clear()
+        self._run_moved.clear()
+        self._run_updated.clear()
+        self._rebuild = None
+
+    def build_arrays(
+        self,
+        cluster: ClusterState,
+        pending: list[Task] | None = None,
+    ) -> tuple[dict[str, np.ndarray], GraphMeta]:
+        if pending is None:
+            pending = cluster.pending()
+        if self._rebuild is None and self._cols is not None:
+            try:
+                self._apply_deltas()
+            except _DeltaUnsupported as e:
+                self.note_full_rebuild(str(e))
+        if self._rebuild is None and self._cols is not None:
+            cols = self._cols
+            # self-healing guard: the pending-uid sequence is the one
+            # invariant every patch depends on — verify it in full each
+            # build (O(T) C-level compare). Machines change only
+            # through observe_nodes, which always notes; the length
+            # check catches a bypassing mutation without paying an
+            # O(M) name walk per round at 12k machines.
+            ok = (
+                len(pending) == len(cols.uids)
+                and len(cluster.machines) == len(cols.machine_names)
+                and [t.uid for t in pending] == cols.uids.tolist()  # noqa: PTA002 -- deliberate O(T) self-heal verify: a missed churn event must degrade to a full rebuild, never a wrong graph (class docstring)
+            )
+            if ok and self.preemption:
+                # the running block is equally load-bearing in
+                # rebalancing mode: verify (uid, machine) pairs against
+                # the live cluster in canonical (uid-sorted) order
+                live = sorted(  # noqa: PTA002 -- deliberate O(T) self-heal verify of the rebalancing running block (same contract as the pending check above)
+                    (t.uid, t.machine) for t in cluster.tasks
+                    if t.phase == TaskPhase.RUNNING
+                    and t.machine in cols.midx
+                )
+                names = np.array(cols.machine_names, dtype=object)
+                ok = len(live) == len(cols.run_uids) and live == list(
+                    zip(cols.run_uids.tolist(),
+                        names[cols.run_machine].tolist())
+                )
+            if not ok:
+                log.warning(
+                    "incremental graph state diverged from the cluster "
+                    "(missed churn event?); falling back to full rebuild"
+                )
+                self.note_full_rebuild("verify-mismatch")
+        if self._rebuild is not None:
+            self._cols = self.builder.extract_columns(cluster)
+            self._uid_pos = {
+                u: i for i, u in enumerate(self._cols.uids.tolist())
+            }
+            self._run_pos = {
+                u: i for i, u in enumerate(self._cols.run_uids.tolist())
+            }
+            self._rebuild = None
+            self._added.clear()
+            self._removed.clear()
+            self._updated.clear()
+            self._aged.clear()
+            self._slot_delta.clear()
+            self._run_added.clear()
+            self._run_removed.clear()
+            self._run_moved.clear()
+            self._run_updated.clear()
+            self.last_build_mode = "full"
+            self.builds_full += 1
+        else:
+            self.last_build_mode = "delta"
+            self.builds_delta += 1
+        self._merged = self.builder.merge_columns(self._cols)
+        return self.builder.assemble(self._merged)
+
+    # ---- the O(K) patch ----------------------------------------------
+
+    def _apply_deltas(self) -> None:
+        cols = self._cols
+        assert cols is not None
+        if not (self._added or self._removed or self._updated
+                or self._aged or self._slot_delta or self._run_added
+                or self._run_removed or self._run_moved
+                or self._run_updated):
+            return
+        uids = cols.uids
+        jobs = cols.jobs
+        job_idx = cols.job_idx
+        job_counts = cols.job_counts
+        wait = cols.wait
+        pref_counts = cols.pref_counts
+        pref_m, pref_r, pref_w = cols.pref_m, cols.pref_r, cols.pref_w
+        cpu, mem = cols.cpu_milli, cols.mem_kb
+        used_slots = cols.used_slots
+        T, J = len(uids), len(jobs)
+
+        if self._updated:
+            cpu = cpu.copy()
+            mem = mem.copy()
+            for uid, t in self._updated.items():
+                p = self._uid_pos[uid]
+                cpu[p] = int(t.cpu_request * 1000)
+                mem[p] = t.memory_request_kb
+
+        if self._aged:
+            wait = wait.copy()
+            for uid, n in self._aged.items():
+                p = self._uid_pos.get(uid)
+                if p is None:
+                    raise _DeltaUnsupported("aging of unknown task")
+                wait[p] += n
+
+        if self._removed:
+            pos = np.fromiter(
+                (self._uid_pos[u] for u in self._removed),
+                np.int64, len(self._removed),
+            )
+            keep = np.ones(T, bool)
+            keep[pos] = False
+            pref_keep = np.repeat(keep, pref_counts)
+            job_counts = job_counts - np.bincount(
+                job_idx[pos], minlength=J
+            )
+            uids = uids[keep]
+            job_idx = job_idx[keep]
+            wait = wait[keep]
+            cpu = cpu[keep]
+            mem = mem[keep]
+            pref_counts = pref_counts[keep]
+            pref_m = pref_m[pref_keep]
+            pref_r = pref_r[pref_keep]
+            pref_w = pref_w[pref_keep]
+            if (job_counts == 0).any():
+                jkeep = job_counts > 0
+                remap = (np.cumsum(jkeep) - 1).astype(np.int32)
+                job_idx = remap[job_idx]
+                jobs = jobs[jkeep]
+                job_counts = job_counts[jkeep]
+            # canonical job order is first occurrence among pending
+            # tasks; removals can promote a later block's job past an
+            # earlier one — re-permute to match what a fresh extract
+            # would produce
+            if len(job_idx):
+                _, first = np.unique(job_idx, return_index=True)
+                perm = np.argsort(first, kind="stable")
+                if not np.array_equal(perm, np.arange(len(perm))):
+                    inv = np.empty(len(perm), np.int32)
+                    inv[perm] = np.arange(len(perm), dtype=np.int32)
+                    job_idx = inv[job_idx]
+                    jobs = jobs[perm]
+                    job_counts = job_counts[perm]
+
+        if self._added:
+            midx = cols.midx
+            rack_idx = {r: i for i, r in enumerate(cols.racks)}
+            job_lookup = {j: i for i, j in enumerate(jobs.tolist())}
+            new_jobs: list[str] = []
+            a_job, a_wait, a_cpu, a_mem, a_cnt = [], [], [], [], []
+            a_pm, a_pr, a_pw = [], [], []
+            for t in self._added.values():
+                jid = t.job_id
+                ji = job_lookup.get(jid)
+                if ji is None:
+                    ji = len(job_lookup)
+                    job_lookup[jid] = ji
+                    new_jobs.append(jid)
+                a_job.append(ji)
+                a_wait.append(t.wait_rounds)
+                a_cpu.append(int(t.cpu_request * 1000))
+                a_mem.append(t.memory_request_kb)
+                rows = self.builder._task_prefs(t, midx, rack_idx)
+                a_cnt.append(len(rows))
+                for m, r, w in rows:
+                    a_pm.append(m)
+                    a_pr.append(r)
+                    a_pw.append(w)
+            a_job_arr = np.array(a_job, np.int32)
+            uids = np.concatenate([
+                uids, np.array(list(self._added), dtype=object),
+            ])
+            job_idx = np.concatenate([job_idx, a_job_arr])
+            wait = np.concatenate([wait, np.array(a_wait, np.int32)])
+            cpu = np.concatenate([cpu, np.array(a_cpu, np.int64)])
+            mem = np.concatenate([mem, np.array(a_mem, np.int64)])
+            pref_counts = np.concatenate(
+                [pref_counts, np.array(a_cnt, np.int64)]
+            )
+            pref_m = np.concatenate([pref_m, np.array(a_pm, np.int32)])
+            pref_r = np.concatenate([pref_r, np.array(a_pr, np.int32)])
+            pref_w = np.concatenate([pref_w, np.array(a_pw, np.int32)])
+            if new_jobs:
+                jobs = np.concatenate(
+                    [jobs, np.array(new_jobs, dtype=object)]
+                )
+            job_counts = np.bincount(
+                a_job_arr, minlength=len(jobs)
+            ).astype(np.int64) + np.concatenate([
+                job_counts,
+                np.zeros(len(jobs) - len(job_counts), np.int64),
+            ])
+
+        if self._slot_delta:
+            used_slots = used_slots.copy()
+            for name, d in self._slot_delta.items():
+                i = cols.midx.get(name)
+                if i is None:
+                    raise _DeltaUnsupported("slot delta on unknown machine")
+                used_slots[i] += d
+            if (used_slots < 0).any():
+                raise _DeltaUnsupported("negative running-slot count")
+
+        # ---- running block (rebalancing mode) -------------------------
+        run_uids = cols.run_uids
+        run_job = cols.run_job
+        run_machine = cols.run_machine
+        run_wait = cols.run_wait
+        run_cpu = cols.run_cpu
+        run_mem = cols.run_mem
+        run_pc = cols.run_pref_counts
+        run_pm, run_pr, run_pw = (
+            cols.run_pref_m, cols.run_pref_r, cols.run_pref_w
+        )
+
+        if self._run_moved:
+            run_machine = run_machine.copy()
+            for uid, name in self._run_moved.items():
+                i = cols.midx.get(name)
+                if i is None:
+                    raise _DeltaUnsupported("move to unknown machine")
+                run_machine[self._run_pos[uid]] = i
+
+        if self._run_updated:
+            run_cpu = run_cpu.copy()
+            run_mem = run_mem.copy()
+            for uid, t in self._run_updated.items():
+                p = self._run_pos[uid]
+                run_cpu[p] = int(t.cpu_request * 1000)
+                run_mem[p] = t.memory_request_kb
+
+        if self._run_removed:
+            pos = np.fromiter(
+                (self._run_pos[u] for u in self._run_removed),
+                np.int64, len(self._run_removed),
+            )
+            keep = np.ones(len(run_uids), bool)
+            keep[pos] = False
+            pkeep = np.repeat(keep, run_pc)
+            run_uids = run_uids[keep]
+            run_job = run_job[keep]
+            run_machine = run_machine[keep]
+            run_wait = run_wait[keep]
+            run_cpu = run_cpu[keep]
+            run_mem = run_mem[keep]
+            run_pc = run_pc[keep]
+            run_pm = run_pm[pkeep]
+            run_pr = run_pr[pkeep]
+            run_pw = run_pw[pkeep]
+
+        if self._run_added:
+            midx = cols.midx
+            rack_idx = {r: i for i, r in enumerate(cols.racks)}
+            add = sorted(self._run_added.values(), key=lambda t: t.uid)
+            if any(t.machine not in midx for t in add):
+                raise _DeltaUnsupported("running add on unknown machine")
+            per = [
+                self.builder._task_prefs(t, midx, rack_idx) for t in add
+            ]
+            trip = [row for rows in per for row in rows]
+            a_pc = np.array([len(rows) for rows in per], np.int64)
+            # merge-sort the sorted additions into the uid-sorted block
+            all_uids = np.concatenate([
+                run_uids, np.array([t.uid for t in add], dtype=object),
+            ])
+            order = np.argsort(all_uids, kind="stable")
+            counts_all = np.concatenate([run_pc, a_pc])
+            new_counts = counts_all[order]
+            tot = int(counts_all.sum())
+            pm_all = np.concatenate(
+                [run_pm, np.array([x[0] for x in trip], np.int32)]
+            )
+            pr_all = np.concatenate(
+                [run_pr, np.array([x[1] for x in trip], np.int32)]
+            )
+            pw_all = np.concatenate(
+                [run_pw, np.array([x[2] for x in trip], np.int32)]
+            )
+            if tot:
+                starts = np.zeros(len(counts_all), np.int64)
+                starts[1:] = np.cumsum(counts_all)[:-1]
+                new_starts = np.zeros(len(new_counts), np.int64)
+                new_starts[1:] = np.cumsum(new_counts)[:-1]
+                gather = np.repeat(
+                    starts[order] - new_starts, new_counts
+                ) + np.arange(tot)
+                pm_all = pm_all[gather]
+                pr_all = pr_all[gather]
+                pw_all = pw_all[gather]
+            run_uids = all_uids[order]
+            run_job = np.concatenate([
+                run_job, np.array([t.job_id for t in add], dtype=object),
+            ])[order]
+            run_machine = np.concatenate([
+                run_machine,
+                np.array([midx[t.machine] for t in add], np.int32),
+            ])[order]
+            run_wait = np.concatenate([
+                run_wait,
+                np.array([t.wait_rounds for t in add], np.int32),
+            ])[order]
+            run_cpu = np.concatenate([
+                run_cpu,
+                np.array(
+                    [int(t.cpu_request * 1000) for t in add], np.int64
+                ),
+            ])[order]
+            run_mem = np.concatenate([
+                run_mem,
+                np.array(
+                    [t.memory_request_kb for t in add], np.int64
+                ),
+            ])[order]
+            run_pc = new_counts
+            run_pm, run_pr, run_pw = pm_all, pr_all, pw_all
+
+        self._cols = dataclasses.replace(
+            cols, uids=uids, jobs=jobs, job_idx=job_idx,
+            job_counts=job_counts, wait=wait, pref_counts=pref_counts,
+            pref_m=pref_m, pref_r=pref_r, pref_w=pref_w,
+            cpu_milli=cpu, mem_kb=mem, used_slots=used_slots,
+            run_uids=run_uids, run_job=run_job, run_machine=run_machine,
+            run_wait=run_wait, run_cpu=run_cpu, run_mem=run_mem,
+            run_pref_counts=run_pc, run_pref_m=run_pm,
+            run_pref_r=run_pr, run_pref_w=run_pw,
+        )
+        if self._removed:
+            self._uid_pos = {
+                u: i for i, u in enumerate(uids.tolist())
+            }
+        elif self._added:
+            base = len(self._uid_pos)
+            for k, uid in enumerate(self._added):
+                self._uid_pos[uid] = base + k
+        if self._run_removed or self._run_added:
+            self._run_pos = {
+                u: i for i, u in enumerate(run_uids.tolist())
+            }
+        self._added.clear()
+        self._removed.clear()
+        self._updated.clear()
+        self._aged.clear()
+        self._slot_delta.clear()
+        self._run_added.clear()
+        self._run_removed.clear()
+        self._run_moved.clear()
+        self._run_updated.clear()

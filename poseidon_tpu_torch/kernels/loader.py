@@ -8,7 +8,8 @@ together on the first call to ``library`` (or ``build_all``).
 
 Libraries go to ``kernels/_build/`` (listed in ``.gitignore``), named by
 a hash of their sources and flags, so an edited source rebuilds and a
-stale library is never loaded. Nothing here runs at import time: the
+stale library is never loaded. Each build's wall time goes to
+``guards.report_compile``. Nothing here runs at import time: the
 CPU tests import every module, and there is no ``nvcc`` on a host
 without the CUDA toolkit. A build failure raises with the compiler's
 output; nothing falls back.
@@ -25,6 +26,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from poseidon_tpu_torch.guards import report_compile
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "_build"
@@ -113,6 +116,9 @@ def build_all() -> BuildReport:
                 os.replace(tmp, out)
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+        if procs:
+            # one sample per build: the sources compile in parallel
+            report_compile((time.perf_counter() - t0) * 1000)
         for name in _SOURCES:
             if name not in _libs:
                 _libs[name] = _declare(name, ctypes.CDLL(str(_lib_path(name))))

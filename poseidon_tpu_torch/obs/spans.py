@@ -1,0 +1,160 @@
+"""Phase-span profiling: structured span trees in the trace stream.
+
+With ``--trace_profile`` on, every completed round emits ONE ``SPAN``
+trace event whose ``detail`` is a
+self-describing span tree — the per-phase decomposition the flat
+``ROUND`` stats already carry, laid out as intervals so host/device
+overlap is visually inspectable:
+
+    {"name": "round", "lane": "watch+pipelined", "dur_ms": 7.1,
+     "children": [
+       {"name": "observe",   "off_ms": 0.0, "dur_ms": 0.6},
+       {"name": "build",     "off_ms": 0.6, "dur_ms": 0.9},
+       ...
+       {"name": "solve-wait", "off_ms": 5.0, "dur_ms": 1.8,
+        "children": [{"name": "fetch-wait", ...}]},
+       {"name": "device-solve", "track": "device", ...}]}
+
+Clock contract (trace.py module docstring has the full statement): the
+SPAN event's ``timestamp_us`` is WALL clock like every trace event —
+correlate across hosts with it, never difference it. All ``dur_ms`` /
+``off_ms`` values are measured on the monotonic clock family
+(``time.monotonic`` / ``perf_counter``) by the producers, so they are
+NTP-step-safe. Offsets are a sequential reconstruction from the phase
+durations (phases on one track run back-to-back; the device track
+overlaps), not independent stamps.
+
+``chrome_trace`` converts a trace's SPAN events into Chrome-trace /
+Perfetto JSON ("trace event format", ``ph: "X"`` complete events) —
+load the output in ``chrome://tracing`` or ui.perfetto.dev. Rounds are
+anchored on their wall timestamps, so inter-round gaps are real; the
+intra-round layout is the reconstruction above.
+
+The builder runs inside the bridge's finish/actuate window: pure dict
+assembly from host floats the caller already holds, never a device
+sync, never a cluster-sized walk. (The express and stream lanes' span
+trees come with those lanes.)
+"""
+
+from __future__ import annotations
+
+import json
+
+
+def round_span_tree(
+    stats, *, join_ms: float, actuate_ms: float
+) -> dict:
+    """One round's span tree from its ``SchedulerStats`` plus the two
+    finish-side durations only the caller's monotonic stamps know
+    (``join_ms``: the solver fetch-join; ``actuate_ms``: delta
+    application + trace emission)."""
+    children = []
+    off = 0.0
+    for name, dur in (
+        ("observe", stats.observe_ms),
+        ("build", stats.build_ms),
+        ("dispatch", stats.dispatch_ms),
+        ("overlap", stats.overlap_ms),
+        ("solve-wait", join_ms),
+        ("actuate", actuate_ms),
+    ):
+        node = {
+            "name": name,
+            "off_ms": round(off, 3),
+            "dur_ms": round(dur, 3),
+        }
+        if name == "solve-wait" and stats.fetch_wait_ms:
+            node["children"] = [{
+                "name": "fetch-wait",
+                "off_ms": round(off, 3),
+                "dur_ms": round(stats.fetch_wait_ms, 3),
+            }]
+        children.append(node)
+        off += dur
+    # the device program runs concurrently with the overlap window:
+    # anchor it at dispatch end, on its own track
+    dev_off = stats.observe_ms + stats.build_ms + stats.dispatch_ms
+    children.append({
+        "name": "device-solve",
+        "track": "device",
+        "off_ms": round(dev_off, 3),
+        "dur_ms": round(stats.solve_ms, 3),
+    })
+    return {
+        "name": "round",
+        "lane": stats.lane or "round",
+        "build_mode": stats.build_mode,
+        "backend": stats.backend,
+        "dur_ms": round(off, 3),
+        "children": children,
+    }
+
+
+def emit_span(trace, tree: dict, round_num: int) -> None:
+    """One SPAN trace event per tree (the PTA005-declared type)."""
+    trace.emit("SPAN", round_num=round_num, detail=tree)
+
+
+# ---------------------------------------------------------------------------
+# Chrome-trace / Perfetto export
+# ---------------------------------------------------------------------------
+
+
+def _emit_node(
+    out: list[dict], node: dict, t0_us: float, tid: str, pid: int
+) -> None:
+    ts = t0_us + float(node.get("off_ms", 0.0)) * 1000.0
+    dur = float(node.get("dur_ms", 0.0)) * 1000.0
+    out.append({
+        "name": node.get("name", "span"),
+        "ph": "X",
+        "ts": ts,
+        "dur": dur,
+        "pid": pid,
+        "tid": node.get("track", tid),
+        "cat": "poseidon",
+    })
+    for child in node.get("children", ()):
+        _emit_node(out, child, t0_us, tid, pid)
+
+
+def chrome_trace(events) -> dict:
+    """Convert trace events (``trace.read_trace`` output or any
+    iterable of ``TraceEvent``) into a Chrome-trace JSON document.
+
+    Only SPAN events contribute intervals; each tree's root anchors at
+    its event's wall ``timestamp_us`` MINUS its duration (spans are
+    emitted at finish time), children at root + their reconstructed
+    offsets. Lanes become thread names so round / express / device
+    tracks stack separately.
+    """
+    out: list[dict] = []
+    tids: set[str] = set()
+    for ev in events:
+        if ev.event != "SPAN" or not isinstance(ev.detail, dict):
+            continue
+        tree = ev.detail
+        tid = tree.get("lane", "round")
+        t0 = float(ev.timestamp_us) - float(
+            tree.get("dur_ms", 0.0)
+        ) * 1000.0
+        root = dict(tree)
+        root.setdefault("off_ms", 0.0)
+        _emit_node(out, root, t0, tid, pid=1)
+        tids.add(tid)
+        for node in tree.get("children", ()):
+            if "track" in node:
+                tids.add(node["track"])
+    meta = [
+        {"name": "thread_name", "ph": "M", "pid": 1, "tid": t,
+         "args": {"name": f"poseidon:{t}"}}
+        for t in sorted(tids)
+    ]
+    return {"traceEvents": meta + out, "displayTimeUnit": "ms"}
+
+
+def write_chrome_trace(events, path: str) -> str:
+    doc = chrome_trace(events)
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+    return path

@@ -73,13 +73,18 @@ log = logging.getLogger(__name__)
 
 def resolve_device(device) -> torch.device:
     """``None`` means the card. A CUDA device without a card raises and
-    names the way to run on the CPU; nothing falls back on its own."""
+    names the way to run on the CPU; nothing falls back on its own. A
+    CUDA device without an index gets the caller's current one, so a
+    round's worker thread (whose current device is its own) still
+    allocates on the device the solver was made for."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "poseidon_tpu_torch runs on the GPU by default, and no CUDA "
             "device is available; pass device=\"cpu\" to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -456,7 +461,10 @@ class ResidentSolver:
 
     The express/stream lanes, machine aggregation, preference pruning
     and the device mesh are not part of this port yet: asking for any
-    of them raises ``NotImplementedError``.
+    of them raises ``NotImplementedError``. The bridge-facing surface
+    of the express lane is here already (``express_ready`` stays False,
+    ``invalidate_express`` has nothing to drop), so the bridge drives
+    this solver through the reference's calls.
     """
 
     # runner-up computation on the oracle path is O(T·M) host work;
@@ -477,7 +485,9 @@ class ResidentSolver:
         aggregate_classes: bool = False,
         topk_prefs: int = 0,
         express_lane: bool = False,
+        express_max_batch: int = 16,
         stream_windows: int = 0,
+        metrics=None,
     ):
         later = {
             "mesh_width": mesh_width, "aggregate_classes": aggregate_classes,
@@ -492,6 +502,14 @@ class ResidentSolver:
             )
         self.device = resolve_device(device)
         self.alpha = alpha
+        # observability (obs.SchedulerMetrics or None): the solver
+        # reports its fetch count and warm/express-context liveness at
+        # finish time, from host values it already holds
+        self.metrics = metrics
+        # the express lane's batch bound, kept for the lane's port; the
+        # context it would fill stays None until then
+        self.express_max_batch = express_max_batch
+        self._express = None
         self.max_rounds = max_rounds
         self.oracle_fallback = oracle_fallback
         self.oracle_timeout_s = oracle_timeout_s
@@ -515,9 +533,37 @@ class ResidentSolver:
         # certified dense path) and the auction loop's flag reads
         self._fetches = SyncCounter()
         self._loop_syncs = SyncCounter()
+        self._solves = 0
         # host mirror of the warm state (asg/lvl/floor from the round's
         # own fetch): the replay/restore seed
         self._warm_seed: tuple | None = None
+
+    def reset(self) -> None:
+        """Drop the warm state (and the express context): the next
+        round starts cold."""
+        self._warm = None
+        self._express = None
+        self._warm_seed = None
+
+    @property
+    def express_ready(self) -> bool:
+        """True when a warm express context exists (a certified dense
+        round finished and no full round has begun since). Always False
+        until the express lane is ported."""
+        return self._express is not None
+
+    def invalidate_express(self) -> None:
+        """Drop the express context: the next batches wait for a full
+        round."""
+        self._express = None
+
+    def _record_round(self) -> None:
+        if self.metrics is not None:
+            self.metrics.record_solver_round(
+                self.last_round_fetches,
+                self._warm is not None,
+                self._express is not None,
+            )
 
     @property
     def last_round_fetches(self) -> int:
@@ -526,6 +572,13 @@ class ResidentSolver:
     @property
     def last_round_loop_syncs(self) -> int:
         return self._loop_syncs.count
+
+    @property
+    def last_round_solves(self) -> int:
+        """Auction solves of the last round: 1, or 2 when a stale warm
+        start did not certify and the round re-ran cold (each solve
+        makes one result fetch)."""
+        return self._solves
 
     @property
     def warm(self) -> DenseState | None:
@@ -625,6 +678,7 @@ class ResidentSolver:
             )
         self._fetches = SyncCounter()
         self._loop_syncs = SyncCounter()
+        self._solves = 0
         timings: dict[str, float] = {}
         t0 = time.perf_counter()
         model_fn = get_cost_model(cost_model)
@@ -735,7 +789,16 @@ class ResidentSolver:
 
     def _dispatch(self, inflight: InflightSolve, warm: DenseState | None,
                   fetches: SyncCounter, loop_syncs: SyncCounter):
-        """Run the chain and fetch its result (on the round's worker)."""
+        """Run the chain and fetch its result (on the round's worker,
+        with the solver's device current: a thread starts on device 0)."""
+        self._solves += 1
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                return self._run_chain(inflight, warm, fetches, loop_syncs)
+        return self._run_chain(inflight, warm, fetches, loop_syncs)
+
+    def _run_chain(self, inflight: InflightSolve, warm: DenseState | None,
+                   fetches: SyncCounter, loop_syncs: SyncCounter):
         zeros_t = torch.zeros(inflight.Tp, dtype=I32, device=self.device)
         zeros_m = torch.zeros(inflight.Mp, dtype=I32, device=self.device)
         (asg, lvl, floor, gap, conv, rounds, phases, ch, primal, dom_ok,
@@ -837,6 +900,7 @@ class ResidentSolver:
         asg = np.where(
             (asg >= 0) & (asg < Mp) & (asg < inflight.n_machines), asg, -1,
         ).astype(np.int32)
+        self._record_round()
         return ResidentOutcome(
             assignment=asg,
             channel=res.ch[:T],
@@ -958,6 +1022,7 @@ class ResidentSolver:
         else:
             channel = np.full(T, -1, np.int32)
         timings["oracle_ms"] = (time.perf_counter() - t0) * 1000
+        self._record_round()
         return ResidentOutcome(
             assignment=asg,
             channel=channel,

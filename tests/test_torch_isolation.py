@@ -3,7 +3,9 @@
 - every ``poseidon_tpu_torch`` module (and ``chip_smoke.py``) imports in
   a fresh interpreter where ``jax`` cannot be imported, and afterwards
   no ``poseidon_tpu`` / ``poseidon_tpu.*`` module is loaded (the check
-  minds the shared name prefix: ``poseidon_tpu_torch`` is not one);
+  minds the shared name prefix: ``poseidon_tpu_torch`` is not one); the
+  daemon's modules, named one by one, do so too, and its command lines
+  start;
 - ``ResidentSolver()`` with no device on a host without CUDA raises and
   names ``device="cpu"``;
 - the port's C++ oracle source is a byte-identical copy of the
@@ -52,6 +54,63 @@ def test_port_imports_without_jax_or_reference():
     assert got["n"] >= 20, got
     assert got["leaked"] == [], got
     assert got["jax"] == [], got
+
+
+DAEMON_MODULES = (
+    "poseidon_tpu_torch.cli",
+    "poseidon_tpu_torch.trace",
+    "poseidon_tpu_torch.bridge",
+    "poseidon_tpu_torch.bridge.bridge",
+    "poseidon_tpu_torch.apiclient",
+    "poseidon_tpu_torch.apiclient.client",
+    "poseidon_tpu_torch.apiclient.fake_server",
+    "poseidon_tpu_torch.apiclient.watch",
+    "poseidon_tpu_torch.obs",
+    "poseidon_tpu_torch.obs.lifecycle",
+    "poseidon_tpu_torch.obs.metrics",
+    "poseidon_tpu_torch.obs.report",
+    "poseidon_tpu_torch.obs.server",
+    "poseidon_tpu_torch.obs.spans",
+    "poseidon_tpu_torch.ha",
+    "poseidon_tpu_torch.ha.outbox",
+)
+
+_DAEMON_PROBE = r"""
+import importlib, json, runpy, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+for name in json.loads(sys.argv[1]):
+    importlib.import_module(name)
+# the daemon's and the trace tool's command lines start without jax
+for mod in ("poseidon_tpu_torch.cli", "poseidon_tpu_torch.trace"):
+    sys.argv = [mod, "--help"]
+    try:
+        runpy.run_module(mod, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (mod, e.code)
+from poseidon_tpu_torch.obs import build_info
+build_info(device="cpu")
+leaked = sorted(
+    n for n in sys.modules
+    if n == "poseidon_tpu" or n.startswith("poseidon_tpu.")
+)
+jax_loaded = sorted(n for n in sys.modules
+                    if (n == "jax" or n.startswith("jax."))
+                    and sys.modules[n] is not None)
+print(json.dumps({"leaked": leaked, "jax": jax_loaded}))
+"""
+
+
+def test_daemon_modules_import_and_start_without_jax():
+    """Every module of the daemon's path imports with jax blocked, and
+    ``python -m poseidon_tpu_torch.cli --help`` and ``... .trace
+    --help`` run so."""
+    out = subprocess.run(
+        [sys.executable, "-c", _DAEMON_PROBE, json.dumps(DAEMON_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "jax": []}, got
 
 
 def test_package_sources_never_name_jax_or_reference_imports():
