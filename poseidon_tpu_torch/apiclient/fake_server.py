@@ -539,6 +539,11 @@ class FakeApiServer:
                         self._reply(200, {"status": "Released"})
 
         class _QuietServer(ThreadingHTTPServer):
+            # the daemon POSTs bindings from a 16-thread pool: a listen
+            # backlog of socketserver's default 5 drops connects, and
+            # each dropped one waits a 1 s SYN retransmit
+            request_queue_size = 128
+
             def handle_error(self, request, client_address):
                 # a delayed reply hitting a hung-up client (the
                 # delay_next injection outliving the client's socket
@@ -553,8 +558,10 @@ class FakeApiServer:
 
         self._httpd = _QuietServer(("127.0.0.1", 0), Handler)
         self.port = self._httpd.server_address[1]
+        # a short poll interval: stop() waits for one
         self._thread = threading.Thread(
-            target=self._httpd.serve_forever, daemon=True
+            target=self._httpd.serve_forever, kwargs={"poll_interval": 0.05},
+            daemon=True,
         )
 
     # ---- lifecycle -----------------------------------------------------

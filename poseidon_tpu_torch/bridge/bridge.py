@@ -286,7 +286,6 @@ class SchedulerBridge:
         shrink_grace_s: float = SHRINK_GRACE_S,
         metrics=None,
         profile_spans: bool = False,
-        solver=None,
         flightrec=None,
         lifecycle=None,
         auditor=None,
@@ -337,14 +336,9 @@ class SchedulerBridge:
         self.round_num = 0
         # device-resident solve chain; its warm DenseState lives on the
         # device across rounds (the reference's --run_incremental_scheduler
-        # seam). The scale lane rides here too: mesh_width shards the
-        # round's task axis over a device mesh, aggregate_classes/
-        # topk_prefs shrink the machine/pref axes (graph/aggregate.py).
-        # ``solver`` injects a different implementation of the same
-        # begin/finish seam — the multi-tenant service routes every
-        # tenant bridge through a shared batching dispatcher this way
-        # (service/dispatch.TenantSolver); None = own ResidentSolver.
-        self.solver = solver if solver is not None else ResidentSolver(
+        # seam). mesh_width, aggregate_classes and topk_prefs are the
+        # scale lane's options, which ResidentSolver refuses until ported
+        self.solver = ResidentSolver(
             device=device,
             oracle_timeout_s=solver_timeout_s,
             small_to_oracle=small_to_oracle,
@@ -1144,10 +1138,6 @@ class SchedulerBridge:
         migrations: dict[str, tuple[str, str]] = {}
         preemptions: dict[str, str] = {}
         g = self._graph
-        # lifecycle lane for round-path decisions: the service lane's
-        # per-tenant sessions stamp "service", everything else "tick"
-        lc_lane = "service" if self.lane == "service" else "tick"
-
         def _age(uid: str, task: Task) -> None:
             # aging: parked pods push harder next round (the
             # Quincy/CoCo unscheduled-cost input)
@@ -1187,7 +1177,7 @@ class SchedulerBridge:
                 continue
             bindings[d.task] = d.machine
             if self.lifecycle is not None:
-                self.lifecycle.stamp_decided(d.task, lc_lane)
+                self.lifecycle.stamp_decided(d.task, "tick")
             self.decision_log.append((
                 self.round_num, "PLACE", d.task,
                 {"machine": d.machine, "cost": d.cost,

@@ -47,21 +47,39 @@ from poseidon_tpu_torch.models import COST_MODELS, get_cost_model
 
 log = logging.getLogger("poseidon_tpu_torch.cli")
 
-# flags whose modules are not ported yet, with the ROADMAP.md Queue 1
-# item that brings each; a non-default value is refused
+_BOOL = ("true", "false")
+
+# flags whose modules are not ported yet: name -> (the reference's
+# default, type or choices, the ROADMAP.md Queue 1 item that brings it).
+# They parse so the reference's flagfiles load; any other value than
+# the default is refused (``unported_flags``)
 UNPORTED_FLAGS = {
-    "express_lane": 3,
-    "stream_windows": 4,
-    "serve": 5,
-    "mesh_width": 6,
-    "aggregate_classes": 6,
-    "topk_prefs": 6,
-    "standby": 7,
-    "checkpoint_dir": 7,
-    "flight_recorder": 7,
-    "audit_every": 7,
-    "slo": 7,
-    "explain": 7,
+    "express_lane": ("false", _BOOL, 3),
+    "express_max_batch": (16, int, 3),
+    "express_correction_rounds": (1, int, 3),
+    "express_shed_queue": (512, int, 3),
+    "stream_windows": (0, int, 4),
+    "serve": ("false", _BOOL, 5),
+    "serve_apiservers": ("", str, 5),
+    "serve_tenants": (0, int, 5),
+    "serve_max_batch": (64, int, 5),
+    "mesh_width": (0, int, 6),
+    "aggregate_classes": ("false", _BOOL, 6),
+    "topk_prefs": (0, int, 6),
+    "flight_recorder": ("false", _BOOL, 7),
+    "flight_dir": ("flightrec", str, 7),
+    "flight_max_dumps": (16, int, 7),
+    "explain": ("", str, 7),
+    "audit_every": (0, int, 7),
+    "slo": ("", str, 7),
+    "slo_short_window": (6, int, 7),
+    "slo_long_window": (60, int, 7),
+    "slo_burn_threshold": (1.0, float, 7),
+    "checkpoint_dir": ("", str, 7),
+    "checkpoint_every": (10, int, 7),
+    "restore": ("auto", ("auto", "true", "false"), 7),
+    "standby": ("false", _BOOL, 7),
+    "standby_lease_s": (15.0, float, 7),
 }
 
 
@@ -127,89 +145,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="churn budget: MIGRATE+PREEMPT deltas actuated "
                         "per round (0 = unlimited); excess deltas are "
                         "deferred and re-proposed next round")
-    # the scale lane: shard the resident round over a device mesh and/
-    # or collapse the machine axis to equivalence classes, so the dense
-    # table fits the device memory budget at 64k-machine / 512k-pod scale instead
-    # of degrading to the CPU oracle (graph/aggregate.py, parallel/)
-    p.add_argument("--mesh_width", type=int, default=0,
-                   help="shard the resident round's task axis over N "
-                        "devices (power of two; 0 = plain single-"
-                        "device layout, 1 = one-device mesh — bit-"
-                        "identical results either way)")
-    p.add_argument("--aggregate_classes",
-                   default="false", choices=["true", "false"],
-                   help="collapse the machine axis to cost-equivalence "
-                        "classes before the dense solve (exact; "
-                        "machines named by preference arcs stay "
-                        "individually addressable); requires a "
-                        "signature-pricing cost model (all registry "
-                        "models except random)")
-    p.add_argument("--topk_prefs", type=int, default=0,
-                   help="keep only each task's K heaviest preference "
-                        "arcs (0 = keep all; exact when K covers every "
-                        "task's prefs, a stated approximation below "
-                        "that; rebalancing continuation arcs are never "
-                        "pruned)")
-    # the express lane: small watch-event batches become bindings
-    # BETWEEN round ticks via a device patch + bounded eps=1 repair of
-    # the last round's warm dense state (ops/resident.py express
-    # kernels); the full resident round is demoted to a periodic
-    # correction pass that differential-verifies express placements.
-    # Requires --watch (events are the trigger) and runs serial ticks
-    # (the inter-tick window IS the express window, so --round_pipeline
-    # — which parks a solve in flight across that window — is ignored)
-    p.add_argument("--express_lane",
-                   default="false", choices=["true", "false"],
-                   help="bind small pod-arrival batches between round "
-                        "ticks by patching the warm device dense state "
-                        "and running a bounded eps=1 repair (single-"
-                        "digit-ms event-to-bind); full rounds become "
-                        "periodic correction passes. Requires "
-                        "--watch=true; implies serial ticks")
-    p.add_argument("--express_max_batch", type=int, default=16,
-                   help="max pod arrivals per express dispatch (a "
-                        "static kernel shape: ONE compiled variant); "
-                        "larger event bursts degrade to the next full "
-                        "round")
-    p.add_argument("--stream_windows", type=int, default=0,
-                   help="stream-lane depth K: accumulate up to K "
-                        "express windows and solve them as ONE scanned "
-                        "device program with ONE decision-log fetch "
-                        "(amortizes the ~100ms host-visible sync floor "
-                        "K-ways on linked accelerators; 0/1 = synced "
-                        "per-window dispatch). Requires --express_lane")
-    p.add_argument("--express_correction_rounds", type=int, default=1,
-                   help="run the full correction round every Nth tick "
-                        "while the express context is live (1 = every "
-                        "tick); a degraded/invalidated express context "
-                        "forces the round on the next tick regardless")
-    # scheduling as a service: one daemon, N tenant clusters. Every
-    # tenant keeps a fully isolated bridge/stats/trace/decision-log;
-    # their round solves pad into shape buckets and dispatch as ONE
-    # batched device program with ONE batched fetch per bucket chunk
-    # (poseidon_tpu_torch/service/). The reference's ceiling is one cluster
-    # per deployment (one process + one Firmament per apiserver);
-    # this is the one-device-many-clusters inversion of that.
-    p.add_argument("--serve",
-                   default="false", choices=["true", "false"],
-                   help="multi-tenant service mode: schedule N tenant "
-                        "clusters (from --serve_apiservers or "
-                        "--serve_tenants fakes) through one batched "
-                        "device pipeline; per-tenant state/trace/"
-                        "decision logs stay isolated")
-    p.add_argument("--serve_apiservers", default="",
-                   help="comma list of tenant apiserver host:port "
-                        "endpoints for --serve (one tenant each)")
-    p.add_argument("--serve_tenants", type=int, default=0,
-                   help="with --serve and no --serve_apiservers: spin "
-                        "up N in-process fake-apiserver tenants with "
-                        "heterogeneous synthetic workloads (demo/"
-                        "smoke mode)")
-    p.add_argument("--serve_max_batch", type=int, default=64,
-                   help="max tenant instances per batched bucket "
-                        "dispatch; the device memory budget may split a wave "
-                        "into smaller chunks regardless (each chunk "
-                        "is one upload + one batched fetch)")
     p.add_argument("--device", default="cuda",
                    help="the solver's torch device: cuda (default; "
                         "raises without a card), cuda:N, or cpu")
@@ -224,25 +159,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--logtostderr", action="store_true")
     p.add_argument("--flagfile", default="",
                    help="gflags-style file of --name=value lines")
-    # reference-compat flags, accepted and ignored so the reference's
-    # own flagfiles load unchanged (deploy/poseidon.cfg): the solver
-    # seam is the in-process device solve (no binary/algorithm choice)
-    # and incremental change batching is subsumed by the warm device
-    # re-solve (prices/assignments carry over; the graph rebuild is
-    # vectorized and costs ~ms)
+    # Firmament's solver flags, which the reference also accepts and
+    # ignores so its flagfiles load unchanged (deploy/poseidon.cfg):
+    # the solve is in-process (no binary, algorithm or solver log to
+    # choose) and incremental change batching is subsumed by the warm
+    # device re-solve
     for compat in (
         "--scheduler", "--flow_scheduling_solver",
         "--flow_scheduling_binary", "--flowlessly_algorithm",
         "--only_read_assignment_changes", "--remove_duplicate_changes",
         "--merge_changes_to_same_arc",
-        "--purge_changes_before_node_removal",
+        "--purge_changes_before_node_removal", "--log_solver_stderr",
     ):
         # nargs="?": gflags booleans appear both bare
         # (--only_read_assignment_changes) and as --flag=value
         p.add_argument(compat, nargs="?", const="true", default=None,
                        help=argparse.SUPPRESS)
-    p.add_argument("--log_solver_stderr", nargs="?", const="true",
-                   default=None, help=argparse.SUPPRESS)
     # operational extras
     p.add_argument("--max_rounds", type=int, default=0,
                    help="exit after N scheduling rounds (0 = forever)")
@@ -267,109 +199,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "untrusted interfaces)")
     p.add_argument("--trace_profile",
                    default="false", choices=["true", "false"],
-                   help="emit a SPAN phase-span tree per round and per "
-                        "express batch into the trace stream (inspect "
+                   help="emit a SPAN phase-span tree per round into "
+                        "the trace stream (inspect "
                         "with python -m poseidon_tpu_torch.trace report / "
                         "chrome)")
-    # the decision-evidence layer (README "Explain & replay"): the
-    # anomaly flight recorder keeps the last K rounds' full solve
-    # inputs in a bounded ring and dumps .npz + JSON on DEGRADE /
-    # EXPRESS_DEGRADE / FETCH_TIMEOUT / resync storms; replay offline
-    # with the reference's obs.replay (not ported)
-    p.add_argument("--flight_recorder",
-                   default="false", choices=["true", "false"],
-                   help="record the last rounds' full host-side solve "
-                        "inputs (graph, cost inputs, flags, warm "
-                        "seed) in a bounded ring and dump it to "
-                        "--flight_dir on anomalies; replay with "
-                        "the reference's obs.replay (not ported)")
-    p.add_argument("--flight_dir", default="flightrec",
-                   help="directory the flight recorder writes dumps "
-                        "to (.npz array blob + .json manifest per "
-                        "dump)")
-    p.add_argument("--explain", default="", metavar="POD_UID",
-                   help="with --flight_recorder: when the loop exits, "
-                        "print the per-decision cost attribution / "
-                        "unscheduled diagnosis for this pod uid from "
-                        "the last captured round (the on-call's 'why "
-                        "did X land on Y' / 'why is Z still pending' "
-                        "answer)")
-    # the quality observatory (poseidon_tpu_torch/obs/, README "Quality &
-    # SLOs"): per-pod lifecycle tracing rides --metrics_port for free;
-    # the shadow audit re-solves a sampled cluster snapshot on a
-    # background thread (CPU-pinned pricing + the subprocess oracle —
-    # never the accelerator) and publishes placement regret vs the
-    # certified optimum; the SLO engine evaluates declarative
-    # objectives with multi-window burn rates and latched SLO_BREACH
-    # alerting
-    p.add_argument("--audit_every", type=int, default=0,
-                   help="shadow-audit the live placement every N "
-                        "rounds on a background thread (regret vs "
-                        "certified optimum, fragmentation index, "
-                        "drift; poseidon_audit_* metrics); 0 = off")
-    p.add_argument("--slo", default="",
-                   help="comma-separated SLO objectives (grammar: "
-                        "'<source> <op> <threshold> [by label=value]' "
-                        "— e.g. 'e2b_p99_ms < 10 by lane=express, "
-                        "regret == 0, ready'); evaluated per round "
-                        "with multi-window burn rates, surfaced as "
-                        "poseidon_slo_* metrics, /slo, and SLO_BREACH "
-                        "trace events. Needs --metrics_port")
-    p.add_argument("--slo_short_window", type=int, default=6,
-                   help="SLO burn-rate short window, in completed "
-                        "rounds (detection speed)")
-    p.add_argument("--slo_long_window", type=int, default=60,
-                   help="SLO burn-rate long window, in completed "
-                        "rounds (sustained-burn confirmation)")
-    p.add_argument("--slo_burn_threshold", type=float, default=1.0,
-                   help="burn rate both windows must exceed to trip "
-                        "the breach latch (1.0 = budget exhausts "
-                        "within the window)")
-    p.add_argument("--flight_max_dumps", type=int, default=16,
-                   help="keep only the N most recent flight-recorder "
-                        "dumps in --flight_dir (oldest-first GC, so a "
-                        "flapping daemon cannot fill the disk; 0 = "
-                        "unbounded)")
-    # crash safety & HA (poseidon_tpu_torch/ha/, README "Crash safety &
-    # HA"): atomic warm-state checkpoints + a write-ahead actuation
-    # journal make a process death survivable — a restart rehydrates
-    # the warm solve seed, pad floors, bridge pod state, knowledge
-    # rings and watch position instead of paying a cold LIST + cold
-    # solve (and, with rebalancing on, risking a migration storm)
-    p.add_argument("--checkpoint_dir", default="",
-                   help="directory for atomic warm-state checkpoints "
-                        "(solve seed, pad floors, pod/machine state "
-                        "machine, knowledge rings, builder columns, "
-                        "watch resourceVersion) and the write-ahead "
-                        "actuation journal; empty = crash safety off")
-    p.add_argument("--checkpoint_every", type=int, default=10,
-                   help="checkpoint cadence in completed rounds "
-                        "(used with --checkpoint_dir)")
-    p.add_argument("--restore", default="auto",
-                   choices=["auto", "true", "false"],
-                   help="rehydrate from the newest loadable checkpoint "
-                        "in --checkpoint_dir at startup and replay "
-                        "incomplete journaled actuations idempotently: "
-                        "auto = when one exists, true = required "
-                        "(exit 1 when none loads), false = always "
-                        "cold-start")
-    p.add_argument("--standby", default="false",
-                   choices=["true", "false"],
-                   help="HA mode: contend for the k8s Lease-style "
-                        "lock on the apiserver; the holder schedules "
-                        "(renewing each tick), non-holders follow "
-                        "--checkpoint_dir warm and take over on lease "
-                        "expiry without a cold start")
-    p.add_argument("--standby_lease_s", type=float, default=15.0,
-                   help="leader lease duration in seconds (renewed "
-                        "every tick; a standby may take over after "
-                        "this long without a renewal — keep it above "
-                        "the polling period)")
-    # failure-domain survival (README "Failure handling",
-    # poseidon_tpu_torch/ha/outbox.py + chaos/): the mass-eviction guard's
-    # NotReady grace exit, the apiserver-outage degradation ladder
-    # (actuation outbox + declared degraded=outage), and overload
-    # backpressure (round-deadline watchdog + express shed)
+    # failure-domain survival (poseidon_tpu_torch/ha/outbox.py): the
+    # mass-eviction guard's NotReady grace exit, the apiserver-outage
+    # degradation ladder (actuation outbox + declared degraded=outage),
+    # and the round-deadline watchdog
     p.add_argument("--node_grace_s", type=float, default=45.0,
                    help="NotReady grace window: a held implausible "
                         "node/pod snapshot shrink that persists this "
@@ -400,16 +237,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="overload watchdog: a round whose wall span "
                         "exceeds this is a counted deadline miss; "
                         "two consecutive misses declare degraded="
-                        "overload (express windows shed to the tick "
-                        "path until a round meets the deadline). "
+                        "overload until a round meets the deadline. "
                         "0 = off")
-    p.add_argument("--express_shed_queue", type=int, default=512,
-                   help="overload backpressure: when the pods watch "
-                        "queue holds more than this many undrained "
-                        "items, the express window sheds to the tick "
-                        "path (one full solve absorbs the burst) and "
-                        "poseidon_express_shed_total counts it. "
-                        "0 = never shed")
+    # the flags of modules not ported yet, at the reference's defaults
+    for name, (default, kind, item) in UNPORTED_FLAGS.items():
+        typed = {"choices": kind} if isinstance(kind, tuple) else {
+            "type": kind}
+        p.add_argument(f"--{name}", default=default, **typed,
+                       help=f"not ported yet (ROADMAP.md Queue 1 item "
+                            f"{item}); only the default is accepted")
     return p
 
 
@@ -453,7 +289,7 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
 
 def _unported_message(flags: list[str]) -> str:
     items = ", ".join(
-        f"{f} (ROADMAP.md Queue 1 item {UNPORTED_FLAGS[f[2:]]})"
+        f"{f} (ROADMAP.md Queue 1 item {UNPORTED_FLAGS[f[2:]][2]})"
         for f in flags
     )
     return f"not ported to poseidon_tpu_torch yet: {items}"
@@ -648,7 +484,6 @@ def run_loop(
             enable_preemption=args.enable_preemption == "true",
             migration_hysteresis=args.migration_hysteresis,
             max_migrations_per_round=args.max_migrations_per_round,
-            express_max_batch=args.express_max_batch,
             shrink_grace_s=args.node_grace_s,
             metrics=sched_metrics,
             profile_spans=args.trace_profile == "true",

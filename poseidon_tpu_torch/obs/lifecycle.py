@@ -151,20 +151,6 @@ class LifecycleTracker:
             t_event_wall_us=int(time.time() * 1e6),
         )
 
-    def backdate_event(self, uid: str, t_event: float) -> None:
-        """Move an open timeline's event stamp EARLIER (never later):
-        the express daemon loop dequeues events with their own receipt
-        stamps, which precede the observe that minted the timeline.
-        The wall twin (the journal's cross-restart seed) backdates by
-        the same delta, so a restart-replayed bind's e2c also starts
-        at the receipt, not the observe."""
-        tl = self.open.get(uid)
-        if tl is not None and t_event < tl.t_event:
-            tl.t_event_wall_us -= int(
-                (tl.t_event - t_event) * 1e6
-            )
-            tl.t_event = t_event
-
     def stamp(self, uid: str, stage: str) -> None:
         """Mark one mid-life stage (``decided``/``journal``/``posted``)
         at now; unknown uids are ignored (a journaled op for a pod the
@@ -181,12 +167,6 @@ class LifecycleTracker:
         if tl is not None:
             tl.lane = bounded_lane(lane)
             tl.stages["decided"] = time.perf_counter()
-
-    def event_wall_us(self, uid: str) -> int:
-        """The journaled cross-restart seed: wall µs of the event
-        stamp (0 = unknown uid)."""
-        tl = self.open.get(uid)
-        return tl.t_event_wall_us if tl is not None else 0
 
     def close_confirmed(self, uid: str) -> float | None:
         """The binding confirm landed: close the timeline and record
@@ -240,26 +220,6 @@ class LifecycleTracker:
         self._closed_stash.pop(uid, None)
 
     # ---- the restart-replay lane ---------------------------------------
-
-    def close_replayed(self, uid: str, t_event_us: int) -> float | None:
-        """A journal replay settled this pod's bind after a restart:
-        record the CROSS-PROCESS e2c from the journaled wall stamp
-        (the pre-crash timeline's event receipt) instead of minting a
-        fresh timeline that would erase the pre-crash wait. Wall-
-        differenced by necessity (the clock-contract exception this
-        lane documents); samples land under ``lane="restart"``.
-        Returns the sample, or None when no stamp was journaled."""
-        if not t_event_us:
-            return None
-        e2c = max((time.time() * 1e6 - t_event_us) / 1000, 0.0)
-        # a fresh-process tracker has no open timeline for the uid —
-        # and must not mint one: the bind is settled
-        self.open.pop(uid, None)
-        self.closed_total += 1
-        self.last_closed = (uid, "restart", e2c)
-        if self.metrics is not None:
-            self.metrics.record_pod_e2c(e2c, "restart")
-        return e2c
 
     # ---- the standing-unscheduled surface ------------------------------
 

@@ -337,9 +337,10 @@ class SchedulerMetrics:
 
     One instance per daemon, shared by the bridge, the resident solver,
     and the watcher. All ``record_*`` methods take host-side values the
-    caller already holds — they are registered PTA001/PTA002 hot
-    scopes, so the linter rejects any device sync or cluster-sized walk
-    slipping in later.
+    caller already holds. The families of lanes not ported yet (express,
+    stream, service, checkpoints, audit, SLOs, flight recorder) are
+    registered so the exposition names the reference's families; they
+    have no recorder here and stay at zero.
     """
 
     def __init__(self, registry: MetricsRegistry):
@@ -622,7 +623,7 @@ class SchedulerMetrics:
             "degraded=overload (express windows shed to the tick "
             "path); cleared by a round meeting the deadline",
         )
-        # ---- crash safety / HA (poseidon_tpu_torch/ha/) ----
+        # ---- crash safety / HA ----
         self.checkpoint_bytes = registry.gauge(
             "poseidon_checkpoint_bytes",
             "size of the most recent completed warm-state checkpoint "
@@ -650,10 +651,7 @@ class SchedulerMetrics:
             "mesh_width) — "
             "join on it to slice any series by deploy",
         )
-        # ---- the service lane (multi-tenant batching, service/) ----
-        # tenant labels are BOUNDED at the service layer: the first
-        # service.MAX_TENANT_LABELS registered tenants keep their id,
-        # later ones collapse into "other" (finite series forever)
+        # ---- the service lane ----
         self.service_rounds = registry.counter(
             "poseidon_service_rounds_total",
             "service-lane tenant rounds completed, by (bounded) tenant",
@@ -686,9 +684,6 @@ class SchedulerMetrics:
         # degraded-gauge bookkeeping: whys currently set to 1, so a
         # recovery round can clear exactly what an earlier round set
         self._degraded_whys: set[str] = set()
-        # fragmentation-gauge bookkeeping: SKU labels set by the last
-        # audit, so a class that drains out of the fleet is zeroed
-        self._frag_skus: set[str] = set()
         self._resync_window: collections.deque[int] = collections.deque(
             maxlen=STORM_WINDOW
         )
@@ -763,29 +758,6 @@ class SchedulerMetrics:
         metrics twin)."""
         self.degrades.inc(why=degrade_why_label(why))
 
-    def record_flightrec_dump(self, reason: str) -> None:
-        """One flight-recorder dump written (reason is the recorder's
-        own bounded vocabulary, flightrec.DUMP_REASONS)."""
-        self.flightrec_dumps.inc(reason=reason)
-
-    # ---- crash safety / HA (poseidon_tpu_torch/ha/) --------------------------
-
-    def record_checkpoint(self, nbytes: int) -> None:
-        """One completed checkpoint write (writer thread; host ints —
-        the registry lock is the cross-thread discipline)."""
-        self.checkpoint_bytes.set(nbytes)
-        self.checkpoint_age.set(0.0)
-
-    def record_checkpoint_age(self, age_s: float) -> None:
-        """Loop-thread per-round age refresh (host float)."""
-        self.checkpoint_age.set(age_s)
-
-    def record_journal_replay(self, outcome: str) -> None:
-        self.journal_replays.inc(outcome=outcome)
-
-    def record_restore(self) -> None:
-        self.restores.inc()
-
     # ---- failure-domain survival ----------------------------------------
 
     def record_guard_hold(self, kind: str) -> None:
@@ -828,9 +800,6 @@ class SchedulerMetrics:
             ) else "other"
             self.outbox_dead_letters.inc(op=op)
 
-    def record_express_shed(self) -> None:
-        self.express_shed.inc()
-
     def record_deadline_miss(self, overloaded: bool) -> None:
         """One round-deadline miss; ``overloaded`` is the watchdog's
         current degraded-state verdict."""
@@ -865,47 +834,7 @@ class SchedulerMetrics:
         delta; zero increments are free)."""
         self.trace_dropped.inc(n)
 
-    def record_audit(self, res) -> None:
-        """One completed shadow audit (worker thread; host ints — the
-        registry lock is the cross-thread discipline, the same pattern
-        as record_checkpoint)."""
-        self.audit_runs.inc(outcome="error" if res.error else "ok")
-        self.audit_ms.set(res.audit_ms)
-        if res.error:
-            return
-        self.audit_regret.set(res.regret)
-        self.audit_drift.set(res.drift_pods)
-        for sku, slots in res.frag_slots.items():
-            self.audit_frag.set(slots, sku=sku)
-        # a SKU class that drained out of the fleet must not keep
-        # reporting its last capacity forever: zero vanished labels
-        # (labelsets cannot be deleted, so 0 is the tombstone)
-        for sku in self._frag_skus - set(res.frag_slots):
-            self.audit_frag.set(0, sku=sku)
-        self._frag_skus = set(res.frag_slots)
-
-    def record_slo(
-        self, spec: str, *, healthy: bool, burn_short: float,
-        burn_long: float, value, breached: bool,
-    ) -> None:
-        """One objective's evaluation tick (SLO engine, daemon loop
-        thread; ``spec`` is operator-declared, bounded by
-        construction)."""
-        self.slo_healthy.set(1 if healthy else 0, slo=spec)
-        self.slo_burn.set(burn_short, slo=spec, window="short")
-        self.slo_burn.set(burn_long, slo=spec, window="long")
-        if value is not None:
-            self.slo_value.set(value, slo=spec)
-        if breached:
-            self.slo_breaches.inc(slo=spec)
-
     # ---- device telemetry ----------------------------------------------
-
-    def record_predicted_bytes(self, nbytes: int) -> None:
-        """The dense round's per-device table estimate (the
-        check_table_budget math; host int the solver already
-        computed)."""
-        self.device_hbm.set(nbytes, kind="predicted")
 
     def record_live_hbm(self, device=None) -> int | None:
         """Read the caching allocator's own stats for ``device`` (the
@@ -941,21 +870,6 @@ class SchedulerMetrics:
             k: str(v) for k, v in info.items()
         })
 
-    # ---- express lane --------------------------------------------------
-
-    def record_express_batch(self, e2b_ms_samples) -> None:
-        """One certified express dispatch: per-placement
-        event-to-bind-decision samples (already computed from
-        perf-counter stamps; empty for a retire/completion-only
-        batch)."""
-        self.express_batches.inc()
-        self.express_places.inc(len(e2b_ms_samples))
-        for e2b in e2b_ms_samples:
-            self.express_e2b.observe(e2b)
-
-    def record_express_degrade(self, why: str) -> None:
-        self.express_degrades.inc(why=_bounded_why(why))
-
     # ---- watch subsystem ----------------------------------------------
 
     def record_resync(self, reason: str) -> None:
@@ -979,72 +893,6 @@ class SchedulerMetrics:
         self.solver_fetches.inc(fetches, lane="round")
         self.solver_warm.set(1 if warm else 0)
         self.express_context_ready.set(1 if express_ready else 0)
-
-    def record_express_fetch(self) -> None:
-        self.solver_fetches.inc(lane="express")
-
-    # ---- the streaming lane --------------------------------------------
-
-    def record_stream_fetch(self) -> None:
-        self.solver_fetches.inc(lane="stream")
-
-    def record_stream_flush(
-        self, windows: int, placements: int
-    ) -> None:
-        """One stream flush joined: K windows' placements landed on
-        ONE sanctioned fetch (host ints the bridge already holds)."""
-        self.stream_flushes.inc()
-        self.placements_per_fetch.set(placements)
-
-    # ---- the service lane ----------------------------------------------
-
-    def record_service_round(
-        self, tenant: str, total_ms: float, placed: int
-    ) -> None:
-        """One tenant round finished by the service pipeline: the
-        submit-to-result latency and its placement count (host values
-        the service already computed; ``tenant`` is pre-bounded)."""
-        self.service_rounds.inc(tenant=tenant)
-        self.service_round_ms.observe(total_ms, tenant=tenant)
-        self.service_placements.inc(placed)
-
-    def record_service_dispatch(
-        self, bucket: str, occupancy: int
-    ) -> None:
-        """One batched bucket dispatch (one upload + one batched
-        fetch): its shape key and how many tenant instances rode it."""
-        self.service_dispatches.inc(bucket=bucket)
-        self.service_bucket_occupancy.set(occupancy, bucket=bucket)
-
-    def record_service_compiles(self, compiles: int) -> None:
-        self.service_compiles.inc(compiles)
-
-
-# express degrade reasons are free text (they embed uids/counts);
-# collapse to a bounded vocabulary for the label
-_WHY_BUCKETS = (
-    ("unconfirmed", "unconfirmed"),
-    ("domain", "domain"),
-    ("uncertified", "uncertified"),
-    ("change cap", "change-cap"),
-    ("change_cap", "change-cap"),
-    ("stream", "stream"),
-    ("arrivals >", "batch-size"),
-    ("rows exhausted", "rows-exhausted"),
-    ("no-context", "no-context"),
-    ("no warm state", "no-context"),
-    ("round-in-flight", "round-in-flight"),
-    ("class", "aggregation"),
-    ("prefs", "prefs"),
-)
-
-
-def _bounded_why(why: str) -> str:
-    for needle, label in _WHY_BUCKETS:
-        if needle in why:
-            return label
-    return "vocabulary"
-
 
 def build_info(mesh_width: int = 0, device=None) -> dict:
     """The build-identity labelset shared by the

@@ -1,4 +1,4 @@
-"""The metrics/health HTTP endpoint: /metrics, /healthz, /readyz, /slo.
+"""The metrics/health HTTP endpoint: /metrics, /healthz, /readyz.
 
 A ``ThreadingHTTPServer`` on a daemon thread (one short-lived handler
 thread per scrape; the registry's shared lock makes renders safe
@@ -23,9 +23,7 @@ the discipline). Endpoints:
   readiness on a solve would wedge a readiness-gated rollout there
   forever). Until then 503 with the missing conditions in the body, so
   an operator can tell "waiting for the apiserver" from "waiting for
-  the first solve". A 200 body carries the ``restored_warm`` condition
-  detail when the daemon rehydrated from a checkpoint at startup
-  (ha/checkpoint.py), and ``degraded=outage,overload`` while the
+  the first solve". A 200 body carries ``degraded=outage,overload`` while the
   failure-domain ladder has declared a degraded window (apiserver
   unreachable / round-deadline watchdog tripping) — informational,
   never a gate: a degraded scheduler is still scheduling from
@@ -34,11 +32,6 @@ the discipline). Endpoints:
   readiness failures — they surface as labeled gauges
   (``poseidon_degraded{why=...}``, ``poseidon_watch_resync_storm``)
   since a degraded scheduler is still scheduling.
-
-- ``GET /slo``: the SLO engine's evaluation state (obs/slo.py) as
-  JSON — per objective: spec, healthy, short/long burn rates, breach
-  count, current value. 404 when no ``--slo`` objectives were
-  declared.
 
 ``HealthState`` is the loop-fed latch behind ``/readyz``; the cli
 marks it from the observe/round loop (cli.py), tests drive it
@@ -75,11 +68,6 @@ class HealthState:
         self._lock = threading.Lock()
         self._seeded = False
         self._round_done = False
-        # informational condition detail, not a readiness gate: True
-        # when the daemon rehydrated warm state from a checkpoint at
-        # startup (ha/checkpoint.py) — "did this pod cold-start or
-        # warm-restore" is the first rollout question after a bounce
-        self._restored_warm = False
         # declared degraded modes (the failure-domain ladder:
         # "outage" while the apiserver is unreachable, "overload"
         # while the round-deadline watchdog is tripping). NEVER a
@@ -116,17 +104,6 @@ class HealthState:
                 self._gauge.set(
                     1 if self._seeded and self._round_done else 0
                 )
-
-    def mark_restored_warm(self) -> None:
-        """The startup path rehydrated warm state from a checkpoint
-        (surfaced as a /readyz condition detail, never a gate)."""
-        with self._lock:
-            self._restored_warm = True
-
-    @property
-    def restored_warm(self) -> bool:
-        with self._lock:
-            return self._restored_warm
 
     def set_degraded(self, mode: str, active: bool) -> None:
         """Declare or clear a degraded mode ("outage", "overload").
@@ -170,7 +147,6 @@ class ObsServer:
         port: int = 0,
         host: str = "0.0.0.0",
         build: dict | None = None,
-        slo=None,
     ):
         self.registry = registry
         self.health = health
@@ -179,16 +155,12 @@ class ObsServer:
         # the /healthz build-identity echo (obs.metrics.build_info());
         # immutable after start, so handler threads read it lock-free
         self.build = dict(build or {})
-        # the SLO engine behind /slo (obs/slo.py; None = 404):
-        # status() serves handler threads under the engine's own lock
-        self.slo = slo
         self._httpd: http.server.ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
 
     def start(self) -> int:
         registry = self.registry
         health = self.health
-        srv = self  # handlers read srv.slo PER REQUEST (below)
         healthz_body = json.dumps(
             {"status": "ok", "build": self.build}
         ).encode() + b"\n"
@@ -210,36 +182,12 @@ class ObsServer:
                     self.send_response(200)
                     self.send_header("Content-Type",
                                      "application/json")
-                elif route == "/slo":
-                    # read per request, not captured at start():
-                    # callers assign server.slo by attribute and must
-                    # not need to order that before start() (reference
-                    # assignment is atomic; a stale read costs one
-                    # 404 scrape, never a crash)
-                    slo_engine = srv.slo
-                    if slo_engine is None:
-                        body = (
-                            b"no SLO engine configured (--slo)\n"
-                        )
-                        self.send_response(404)
-                        self.send_header("Content-Type",
-                                         "text/plain")
-                    else:
-                        body = json.dumps(
-                            slo_engine.status(), indent=1
-                        ).encode() + b"\n"
-                        self.send_response(200)
-                        self.send_header("Content-Type",
-                                         "application/json")
                 elif route == "/readyz":
                     if health.ready:
-                        # condition details: did this process warm-
-                        # restore, and is it riding out a declared
-                        # degraded window (outage/overload)? Both
-                        # informational, never gates.
+                        # condition detail: is it riding out a
+                        # declared degraded window (outage/overload)?
+                        # Informational, never a gate.
                         parts = ["ready"]
-                        if health.restored_warm:
-                            parts.append("restored_warm=true")
                         modes = health.degraded_modes()
                         if modes:
                             parts.append(

@@ -170,10 +170,10 @@ class TraceEvent:
 class TraceGenerator:
     """Appends one JSON object per line to ``sink`` (file-like).
 
-    ``tenant`` stamps every emitted event — the service lane
-    (poseidon_tpu_torch/service/) gives each tenant session its own generator
-    over one shared sink, and ``python -m poseidon_tpu_torch.trace report
-    --tenant <id>`` filters on the stamp."""
+    ``tenant`` stamps every emitted event (the reference's service lane
+    gives each tenant session its own generator over one shared sink;
+    "" here), and ``python -m poseidon_tpu_torch.trace report --tenant
+    <id>`` filters on the stamp."""
 
     def __init__(
         self,

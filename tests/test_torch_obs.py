@@ -136,16 +136,37 @@ def test_trace_report_of_port_log_equals_reference(tmp_path, capsys):
 
 
 UNPORTED = [
-    ("express_lane", "true"), ("stream_windows", "2"), ("serve", "true"),
-    ("standby", "true"), ("checkpoint_dir", "ckpt"),
-    ("flight_recorder", "true"), ("audit_every", "2"), ("slo", "ready"),
-    ("explain", "pod-00"), ("mesh_width", "1"),
+    ("express_lane", "true"), ("express_max_batch", "8"),
+    ("express_correction_rounds", "2"), ("express_shed_queue", "64"),
+    ("stream_windows", "2"), ("serve", "true"),
+    ("serve_apiservers", "127.0.0.1:1"), ("serve_tenants", "2"),
+    ("serve_max_batch", "8"), ("mesh_width", "1"),
     ("aggregate_classes", "true"), ("topk_prefs", "2"),
+    ("flight_recorder", "true"), ("flight_dir", "fr"),
+    ("flight_max_dumps", "2"), ("explain", "pod-00"),
+    ("audit_every", "2"), ("slo", "ready"), ("slo_short_window", "3"),
+    ("slo_long_window", "30"), ("slo_burn_threshold", "2.0"),
+    ("checkpoint_dir", "ckpt"), ("checkpoint_every", "5"),
+    ("restore", "false"), ("standby", "true"), ("standby_lease_s", "5"),
 ]
 
 
 def test_unported_flags_are_the_listed_ones():
     assert sorted(port_cli.UNPORTED_FLAGS) == sorted(f for f, _ in UNPORTED)
+
+
+def test_unported_flags_take_the_reference_defaults():
+    """Each unported flag defaults as the reference's does, and a
+    flagfile that spells every one of them at that default loads."""
+    ref = vars(ref_cli.build_parser().parse_args([]))
+    port = vars(port_cli.parse_args([]))
+    for name in port_cli.UNPORTED_FLAGS:
+        assert port[name] == ref[name], name
+    spelled = [f"--{name}={ref[name]}" for name in port_cli.UNPORTED_FLAGS]
+    args = port_cli.parse_args(spelled)
+    assert port_cli.unported_flags(args) == []
+    # every option of the reference's parser is one the port knows
+    assert set(ref) <= set(port)
 
 
 @pytest.mark.parametrize("flag,value", UNPORTED)
