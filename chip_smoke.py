@@ -9,7 +9,7 @@ card is visible, or when the package is not importable.
 Phases (each prints its own lines):
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
-2. build: compiles the three CUDA kernels from ``poseidon_tpu_torch/
+2. build: compiles the five CUDA kernels from ``poseidon_tpu_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel) and the C++
    oracle, and prints the build seconds;
 3. kernels: at the flagship's shapes (BASELINE config 2: 1,000 machines,
@@ -33,10 +33,21 @@ Phases (each prints its own lines):
    for K2 and K3 Mp of 16, 64, 1028 and past the shared-memory p
    budget, fewer rows than resident warps, one slot and fewer slots
    than SMs, repeated window tasks, all-tied rows, all-INF rows, and
-   costs and prices that wrap int32;
+   costs and prices that wrap int32. The express lane's K4
+   (``express_rows``: kmax 16 arrival rows, pk 3) and K5
+   (``express_patch``: one full 1024-entry chunk) are held and timed the
+   same way at the flagship, with their own battery: for K4 kmax 1, 16
+   and 64, pk 1, 3 and 5, every lane -1, rows 0 and Tp-1, preferences on
+   padded columns and racks of -1, columns without seats, sums that wrap
+   int32, Mp 16 and 1028; for K5 an empty chunk, rows and columns of -1
+   and past the axis, 1024 entries on one column, duplicate columns
+   driven below 0, two chunks whose order matters, Mp 16, 1028 and
+   65536;
 4. parity: a small flagship-shaped cluster (64 machines x 600 pods), one
    cold and two churned warm rounds on the card and on the CPU (the
-   twins): every field of every round must be equal;
+   twins): every field of every round must be equal; then three express
+   windows over the same cell on both: placements, cost, repair rounds
+   and the warm asg/lvl/floor of every batch must be equal;
 5. main path: ``config2_quincy_flagship(seed=0)`` through
    ``ResidentSolver(device="cuda", small_to_oracle=False).run_round``,
    one cold round and three warm rounds over a seeded 1% churn of pods
@@ -49,8 +60,25 @@ Phases (each prints its own lines):
    by its CUDA symbol: total, launches, and time per launch as the
    auction loop calls it, and the time of K2's first launch after K1
    (it reads the table K1 has just written).
+6. models: each of the six cost models prices the flagship's cost
+   inputs (knowledge aggregates from a seeded generator) on the card
+   exactly as on the CPU, timed beside its byte bound; then one cold
+   flagship round under octopus (the reference's shipped selector) and
+   one BASELINE config 3 round under coco, each equal in cost to the
+   C++ oracle, with its backend (certified or degraded), rounds and
+   wall time printed;
+7. express: the express lane at full width on a bridge on the card
+   over the flagship: one certified round, then 8 windows of 16 seeded
+   arrivals (one machine or rack preference each) and 2 completions,
+   each window confirming the last one's placements (K5 retires them).
+   Per batch: certified, one result fetch, K4, K5, K2 and K3 launched,
+   prep/upload/solve and event-to-bind ms, repair rounds and loop reads
+   printed (the eighth batch under ``torch.profiler``); a correction
+   round whose ``express_corrected`` equals the express placements it
+   moved; and one last window, left unconfirmed, whose placements equal
+   the next full round's choice per uid.
 
-6. daemon: the port's scheduling daemon (``cli.run_loop``, in
+8. daemon: the port's scheduling daemon (``cli.run_loop``, in
    process, ``--device=cuda``, pipelined rounds, incremental scheduler
    and build, ``--max_rounds=4``) against the port's fake apiserver
    filled from ``config2_quincy_flagship(seed=0)``, with a seeded 1 %
@@ -64,7 +92,18 @@ Phases (each prints its own lines):
    launched (counts zeroed just before each run); per-round timers
    (observe, build, dispatch, solve, fetch wait, POST) printed. At the
    end the server's bound pods are exactly the daemon's placements, and
-   the watch lane's bindings equal the poll lane's.
+   the watch lane's bindings equal the poll lane's. A third lane runs
+   the express lane (``--watch=true --express_lane=true
+   --express_shed_queue=0``, serial correction rounds, 12 s ticks, 3
+   rounds: a flagship round's binding POSTs come back as thousands of
+   pod events, past the default shed threshold) with 3 bursts of 16 pods
+   added after the first round: every express binding's POST landed and
+   the server binds each pod where express placed it, each placement is
+   traced as EXPRESS_PLACE, and every express degrade is printed with
+   its reason.
+
+The kernels' record counts K1-K3's launches in the main path and K4-K5's
+in the express phase.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line,
 and the contract line ``{"ok": true, "device": {...}}``.
@@ -83,6 +122,10 @@ REPEATS = 30
 SLEEP_CYCLES = 1_000_000         # ~0.5 ms of card time ahead of each timed call
 # the hand kernels' CUDA symbols, as the profiler names them
 KERNEL_SYMBOLS = ("densify_kernel", "row_options_kernel", "bid_pass_kernel")
+EXPRESS_SYMBOLS = ("express_rows_kernel", "express_patch_kernel",
+                   "row_options_kernel", "bid_pass_kernel")
+# the kernels a resident round launches (K4 and K5 are the express lane's)
+ROUND_KERNELS = ("densify", "row_options", "bid_pass")
 
 
 def log(msg: str) -> None:
@@ -287,6 +330,7 @@ def kernel_phase(torch, timer):
     records.append((k3.KERNEL, err, timer(lambda: k3.bid_pass(*args3)),
                     timer(lambda: k3.bid_pass_plain(*args3)),
                     *bound_ms(b, ops), (B, Mp)))
+    records += express_kernel_records(torch, timer, inst, dt, ra_s)
     torch.cuda.synchronize()
     for mod, fn, args, key in (
         (k1, lambda *a: k1.densify(*a, n_prefs=P), a1, (Tp, Mp, P, P)),
@@ -300,8 +344,12 @@ def kernel_phase(torch, timer):
             f"{HOST_CALLS} calls) plan={plan}")
     edge_battery(torch)
     for k, err, ms, plain, bms, by, shape in records:
+        # K4 and K5 move tens of KiB: their bound is a small fraction of
+        # one launch's fixed cost
+        launch = " launch-bound" if ms > 100 * bms else ""
         log(f"[kernels] {k.name} shape={shape} max_abs_err={err} "
-            f"ms={ms:.6f} plain_ms={plain:.6f} bound_ms={bms:.6f} ({by})")
+            f"ms={ms:.6f} plain_ms={plain:.6f} bound_ms={bms:.6f} ({by})"
+            f"{launch}")
         if err != 0:
             raise AssertionError(f"{k.name}: kernel != plain twin "
                                  f"(max_abs_err {err}, tolerance 0)")
@@ -508,6 +556,243 @@ def edge_battery(torch):
                                  f"kernel != twin (max_abs_err {err})")
 
 
+# ---- K4 express_rows and K5 express_patch ---------------------------
+
+
+def express_rows_inputs(torch, rng, Tp, Mp, kmax, pk, kind):
+    """K4's arguments on the card (int32) of one edge kind: the table
+    c[Tp, Mp], w_s/add_row[kmax], pc_s/add_pm/add_pr[kmax, pk] and
+    dgen/ra_s/rack_of/s[Mp]. The last eighth of the columns is padding
+    (s 0, rack -1), as the padded instance has."""
+    import numpy as np
+
+    inf = 2**29
+    racks = max(Mp // 8, 1)
+    real = Mp - Mp // 8
+    rack_of = np.where(np.arange(Mp) < real, rng.integers(0, racks, Mp), -1)
+    s = np.where(np.arange(Mp) < real, rng.integers(0, 4, Mp), 0)
+    c = rng.integers(0, 50_000, (Tp, Mp))
+    dgen = np.where(rng.random(Mp) < 0.1, inf, rng.integers(0, 5000, Mp))
+    ra = np.where(rng.random(Mp) < 0.1, inf, rng.integers(0, 5000, Mp))
+    w = np.where(rng.random(kmax) < 0.1, inf, rng.integers(0, 5000, kmax))
+    pc = np.where(rng.random((kmax, pk)) < 0.1, inf,
+                  rng.integers(0, 3000, (kmax, pk)))
+    pm = np.where(rng.random((kmax, pk)) < 0.4, -1,
+                  rng.integers(0, real, (kmax, pk)))
+    pr = np.where(rng.random((kmax, pk)) < 0.5, -1,
+                  rng.integers(0, racks, (kmax, pk)))
+    rows = rng.choice(Tp, size=min(kmax, Tp), replace=False)
+    add_row = np.full(kmax, -1)
+    add_row[: len(rows)] = rows
+    add_row[rng.random(kmax) < 0.2] = -1
+    if kind == "allneg":         # every lane -1: nothing is written
+        add_row[:] = -1
+    elif kind == "ends":         # the first and the last row
+        add_row[:2] = [0, Tp - 1]
+    elif kind == "padhit":       # preferences on padded columns, racks -1
+        pm = rng.integers(real - 1, Mp, (kmax, pk))
+        pr = rng.integers(-1, 1, (kmax, pk))
+    elif kind == "noseat":       # half the real columns have no seat
+        s[rng.random(Mp) < 0.5] = 0
+    elif kind == "wrap":         # w + dgen and pc + ra leave int32
+        w = rng.integers(2**31 - 2**20, 2**31, kmax)
+        dgen = rng.integers(2**30, 2**31, Mp)
+        pc = rng.integers(2**31 - 2**20, 2**31, (kmax, pk))
+        ra = rng.integers(2**30, 2**31, Mp)
+    elif kind != "rand":
+        raise ValueError(kind)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.int64).astype(np.int32)).to("cuda")
+    return tuple(map(to, (c, w, pc, add_row, pm, pr, dgen, ra, rack_of, s)))
+
+
+def express_rows_check(torch, args) -> int:
+    """K4 on one copy of the table, its twin on another: max |diff|."""
+    from poseidon_tpu_torch.kernels import express_rows as k4
+
+    c, rest = args[0], args[1:]
+    got = k4.express_rows(c.clone(), *rest)
+    want = k4.express_rows_plain(c.clone(), *rest)
+    return max_abs_err([got], [want])
+
+
+def express_patch_inputs(torch, rng, Tp, Mp, n, kind):
+    """K5's state u/w/valid/asg/lvl[Tp], s[Mp] and one chunk of n
+    entries on the card, of one edge kind."""
+    import numpy as np
+
+    state = (
+        rng.integers(0, 5000, Tp), rng.integers(0, 5000, Tp),
+        rng.random(Tp) < 0.8, rng.integers(0, 4, Mp),
+        rng.integers(-1, Mp + 1, Tp), rng.integers(0, 3000, Tp),
+    )
+    rows = rng.choice(Tp, size=n, replace=n > Tp)
+    cols = rng.integers(0, Mp, n)
+    deltas = rng.integers(-1, 2, n)
+    if kind == "empty":          # an all-unused chunk
+        rows[:], cols[:], deltas[:] = -1, -1, 0
+    elif kind == "neg":          # rows and columns of -1 and past the axis
+        rows[rng.random(n) < 0.5] = -1
+        rows[rng.random(n) < 0.1] = Tp
+        cols[rng.random(n) < 0.3] = -1
+        cols[rng.random(n) < 0.1] = Mp
+    elif kind == "onecol":       # every entry on one column
+        cols[:] = Mp // 2
+        deltas[:] = 1
+    elif kind == "dupneg":       # duplicate columns driven below zero
+        cols = rng.integers(0, min(Mp, 8), n)
+        deltas[:] = -1
+    elif kind != "rand":
+        raise ValueError(kind)
+    to = lambda a, dt: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a).astype(dt)).to("cuda")
+    u, w, valid, s, asg, lvl = state
+    return ((to(u, np.int32), to(w, np.int32), to(valid, bool),
+             to(s, np.int32), to(asg, np.int32), to(lvl, np.int32)),
+            [(to(rows, np.int32), to(cols, np.int32),
+              to(deltas, np.int32))])
+
+
+def express_patch_check(torch, state, chunks) -> int:
+    """K5 over the chunks in order on one copy of the state, the twin on
+    another: max |diff| over u, w, valid, s, asg, lvl."""
+    from poseidon_tpu_torch.kernels import express_patch as k5
+
+    a = [t.clone() for t in state]
+    b = [t.clone() for t in state]
+    for rows, cols, deltas in chunks:
+        k5.express_patch(*a, rows, cols, deltas)
+        k5.express_patch_plain(*b, rows, cols, deltas)
+    return max_abs_err(a, b)
+
+
+def express_edges(torch, rng):
+    """K4 and K5 equal their twins (tolerance 0) at their edges."""
+    cases4 = [  # (Tp, Mp, kmax, pk, kind)
+        (64, 16, 1, 1, "rand"), (300, 16, 16, 3, "rand"),
+        (2000, 1028, 64, 5, "rand"), (100, 1028, 16, 3, "allneg"),
+        (512, 64, 16, 3, "ends"), (256, 1024, 16, 5, "padhit"),
+        (41, 1028, 64, 1, "padhit"), (128, 1024, 16, 3, "noseat"),
+        (256, 1024, 16, 3, "wrap"), (70, 16, 64, 5, "wrap"),
+        (10240, 1024, 16, 3, "ends"),
+    ]
+    for Tp, Mp, kmax, pk, kind in cases4:
+        err = express_rows_check(
+            torch, express_rows_inputs(torch, rng, Tp, Mp, kmax, pk, kind))
+        log(f"[edges] express_rows Tp={Tp} Mp={Mp} kmax={kmax} pk={pk} "
+            f"{kind}: max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"express_rows edge Tp={Tp} Mp={Mp} "
+                                 f"kmax={kmax} pk={pk} {kind}: kernel != "
+                                 f"twin (max_abs_err {err})")
+    cases5 = [  # (Tp, Mp, n, kind)
+        (64, 16, 1024, "empty"), (64, 16, 1024, "neg"),
+        (300, 1028, 1024, "onecol"), (300, 1028, 1024, "dupneg"),
+        (2000, 65536, 1024, "rand"), (10240, 1024, 1024, "neg"),
+        (50, 16, 7, "dupneg"),
+    ]
+    for Tp, Mp, n, kind in cases5:
+        state, chunks = express_patch_inputs(torch, rng, Tp, Mp, n, kind)
+        err = express_patch_check(torch, state, chunks)
+        log(f"[edges] express_patch Tp={Tp} Mp={Mp} n={n} {kind}: "
+            f"max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"express_patch edge Tp={Tp} Mp={Mp} n={n} "
+                                 f"{kind}: kernel != twin (max_abs_err {err})")
+    # two chunks where the order matters: -2 then +1 on one column
+    # leaves 1 (the clamp sits between them); +1 then -2 leaves 0
+    i32 = torch.int32
+    state, _ = express_patch_inputs(torch, rng, 64, 16, 1024, "empty")
+    state[3].fill_(1)
+    none = torch.full((1024,), -1, dtype=i32, device="cuda")
+    col = torch.full((1024,), -1, dtype=i32, device="cuda")
+    col[0] = 3
+    for first, second, want in ((-3, 1, 1), (1, -3, 0)):
+        d1 = torch.zeros(1024, dtype=i32, device="cuda")
+        d2 = torch.zeros(1024, dtype=i32, device="cuda")
+        d1[0], d2[0] = first, second
+        chunks = [(none, col, d1), (none, col, d2)]
+        err = express_patch_check(torch, state, chunks)
+        from poseidon_tpu_torch.kernels import express_patch as k5
+
+        a = [t.clone() for t in state]
+        for rows, cols, deltas in chunks:
+            k5.express_patch(*a, rows, cols, deltas)
+        got = int(a[3][3])
+        log(f"[edges] express_patch two chunks {first:+d} then {second:+d}: "
+            f"max_abs_err={err} s={got} (want {want})")
+        if err != 0 or got != want:
+            raise AssertionError("express_patch chunk order: kernel != twin "
+                                 f"or s={got} != {want}")
+
+
+def express_kernel_records(torch, timer, inst, dt, ra_s):
+    """K4 and K5 at the flagship's shapes (Tp 10240, Mp 1024, kmax 16,
+    pk 3, one full 1024-entry K5 chunk), each held against its twin
+    (tolerance 0) and timed cold; then their edge battery."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels import express_patch as k5
+    from poseidon_tpu_torch.kernels import express_rows as k4
+
+    rng = np.random.default_rng(11)
+    dev = inst.c.device
+    Tp, Mp = inst.c.shape
+    T, kmax, pk = dt.n_tasks, 16, 3
+    scale = T + 1
+    inf = 2**29
+    racks = int(dt.rack_of.max()) + 1
+    real = int((inst.s > 0).sum())
+
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+
+    add_row = to(np.arange(T, T + kmax))
+    w_s = to(rng.integers(0, 300, kmax) * scale)
+    pc_s = to(np.where(rng.random((kmax, pk)) < 0.2, inf,
+                       rng.integers(0, 200, (kmax, pk)) * scale))
+    add_pm = to(np.where(rng.random((kmax, pk)) < 0.5, -1,
+                         rng.integers(0, real, (kmax, pk))))
+    add_pr = to(np.where(rng.random((kmax, pk)) < 0.5, -1,
+                         rng.integers(0, racks, (kmax, pk))))
+    rest = (w_s, pc_s, add_row, add_pm, add_pr, inst.dgen, ra_s,
+            dt.rack_of, inst.s)
+    err4 = express_rows_check(torch, (inst.c, *rest))
+    c4 = inst.c.clone()
+    ms4 = timer(lambda: k4.express_rows(c4, *rest))
+    plain4 = timer(lambda: k4.express_rows_plain(c4, *rest))
+    del c4
+    b4 = kmax * 4 * 2 + kmax * pk * 4 * 3 + 4 * Mp * 4 + kmax * Mp * 4
+    ops4 = kmax * Mp * (3 + 6 * pk)
+
+    n = 1024
+    rows = to(rng.choice(T, size=n, replace=False))
+    cols = to(rng.integers(0, real, n))
+    deltas = to(np.full(n, -1))
+    state = (inst.u.clone(), inst.w.clone(), inst.task_valid.clone(),
+             inst.s.clone(), to(rng.integers(0, Mp + 1, Tp)),
+             to(np.zeros(Tp)))
+    err5 = express_patch_check(torch, state, [(rows, cols, deltas)])
+    scratch = [t.clone() for t in state]
+    ms5 = timer(lambda: k5.express_patch(*scratch, rows, cols, deltas))
+    plain5 = timer(lambda: k5.express_patch_plain(*scratch, rows, cols, deltas))
+    # yardstick, not a call the port makes: index_add_ of the chunk's
+    # seat deltas alone (one part of K5's function)
+    s_copy = inst.s.clone()
+    cols64 = cols.long()
+    add_ms = timer(lambda: s_copy.index_add_(0, cols64, deltas))
+    log(f"[kernels] express_patch yardstick: index_add_ of the chunk's "
+        f"{n} seat deltas alone ms={add_ms:.6f} (L2 flushed)")
+    b5 = n * 4 * 3 + 2 * Mp * 4 + n * (4 * 4 + 1)
+    ops5 = n * 8 + Mp * 2
+    express_edges(torch, rng)
+    return [
+        (k4.KERNEL, err4, ms4, plain4, *bound_ms(b4, ops4),
+         (Tp, Mp, kmax, pk)),
+        (k5.KERNEL, err5, ms5, plain5, *bound_ms(b5, ops5), (Tp, Mp, n)),
+    ]
+
+
 def run_rounds(device, clusters, model="quincy"):
     from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
     from poseidon_tpu_torch.ops.resident import ResidentSolver
@@ -542,18 +827,23 @@ def parity_phase():
                     f"parity round {r}: {f} {getattr(a, f)} != {getattr(b, f)}")
         log(f"[parity] round {r}: card == cpu (cost={a.cost} "
             f"backend={a.backend} rounds={a.rounds})")
+    express_parity()
 
 
-def oracle_cost(cluster, device) -> tuple[int, float]:
+def oracle_cost(cluster, device, model: str = "quincy",
+                kw: dict | None = None) -> tuple[int, float]:
     """The C++ oracle's optimum of the round's priced graph."""
     from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
-    from poseidon_tpu_torch.models.costs import build_cost_inputs, quincy_cost
+    from poseidon_tpu_torch.models.costs import (
+        build_cost_inputs, get_cost_model,
+    )
     from poseidon_tpu_torch.oracle import solve_oracle
 
     net, meta = FlowGraphBuilder().build(cluster)
-    inputs = build_cost_inputs(net, meta, device=device, **cost_kwargs(cluster))
+    inputs = build_cost_inputs(net, meta, device=device,
+                               **(kw if kw is not None else cost_kwargs(cluster)))
     t0 = time.perf_counter()
-    o = solve_oracle(net.with_costs(quincy_cost(inputs)),
+    o = solve_oracle(net.with_costs(get_cost_model(model)(inputs)),
                      algorithm="cost_scaling")
     return o.cost, (time.perf_counter() - t0) * 1e3
 
@@ -691,13 +981,336 @@ def main_path_phase(torch):
             raise AssertionError(f"round {r}: cost {out.cost} != oracle {want}")
         if fetches != 1:
             raise AssertionError(f"round {r}: {fetches} result fetches")
-        idle = [n for n, c in launched.items() if c == 0]
+        idle = [n for n in ROUND_KERNELS if launched[n] == 0]
         if idle:
             raise AssertionError(f"round {r}: kernels not launched: {idle}")
     return launches
 
 
+# ---- the six cost models --------------------------------------------
+
+# the CostInputs fields each model reads (``_finish``'s included), for
+# the pricing pass's byte bound
+_FINISH_FIELDS = ("kind", "task", "discount", "valid", "task_running")
+MODEL_FIELDS = {
+    "trivial": _FINISH_FIELDS,
+    "random": _FINISH_FIELDS + ("machine",),
+    "quincy": _FINISH_FIELDS + ("weight", "task_input", "task_wait"),
+    "octopus": _FINISH_FIELDS + ("machine", "machine_load",
+                                 "machine_used_slots"),
+    "wharemap": _FINISH_FIELDS + ("machine", "task_usage", "task_cpu",
+                                  "machine_load"),
+    "coco": _FINISH_FIELDS + ("machine", "task_cpu", "task_mem_kb",
+                              "machine_load", "machine_mem_free",
+                              "task_wait"),
+}
+
+
+def knowledge_kwargs(cluster, seed: int) -> dict:
+    """The round's cost inputs with seeded knowledge-base aggregates:
+    per-task usage, per-machine load, free memory and used slots."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    T, M = len(cluster.pending()), len(cluster.machines)
+    return dict(
+        cost_kwargs(cluster),
+        task_usage=(rng.random(T) * 2).astype(np.float32),
+        machine_load=rng.random(M).astype(np.float32),
+        machine_mem_free=rng.random(M).astype(np.float32),
+        machine_used_slots=rng.integers(0, 10, M).astype(np.int32),
+    )
+
+
+def model_round(torch, cluster, model: str, kw: dict, label: str):
+    """One cold round of ``cluster`` under ``model`` on the card, its
+    cost held against the C++ oracle on the same priced graph."""
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.ops.resident import ResidentSolver
+
+    arrays, meta = FlowGraphBuilder().build_arrays(cluster)
+    solver = ResidentSolver(device="cuda", small_to_oracle=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = solver.run_round(arrays, meta, cost_model=model,
+                           cost_input_kwargs=kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    want, oracle_ms = oracle_cost(cluster, torch.device("cuda"), model, kw)
+    log(f"[models] {label} under {model}: tasks={len(out.assignment)} "
+        f"backend={out.backend} converged={out.converged} "
+        f"rounds={out.rounds} phases={out.phases} wall_ms={wall:.3f} "
+        f"solve_ms={out.timings.get('solve_ms', 0.0):.3f} "
+        f"loop_syncs={solver.last_round_loop_syncs} cost={out.cost} "
+        f"oracle_cost={want} oracle_ms={oracle_ms:.1f}")
+    if out.cost != want:
+        raise AssertionError(f"[models] {label} under {model}: cost "
+                             f"{out.cost} != oracle {want}")
+
+
+def models_phase(torch, timer):
+    """Each of the six models prices the flagship's cost inputs on the
+    card exactly as on the CPU (tolerance 0; knowledge aggregates from a
+    seeded generator), timed cold beside its byte bound; then one cold
+    flagship round under octopus (the shipped selector) and one BASELINE
+    config 3 round under coco, each equal to the C++ oracle."""
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.graph.network import pad_bucket
+    from poseidon_tpu_torch.models.costs import (
+        COST_MODELS, build_cost_inputs_host,
+    )
+    from poseidon_tpu_torch.synth import config2_quincy_flagship, config3_coco
+
+    cluster = config2_quincy_flagship(seed=0)
+    kw = knowledge_kwargs(cluster, seed=5)
+    _, meta = FlowGraphBuilder().build_arrays(cluster)
+    host = build_cost_inputs_host(pad_bucket(meta.n_arcs), meta, **kw)
+    card = host.to_device(torch.device("cuda"))
+    cpu = host.to_device(torch.device("cpu"))
+    E = host.kind.shape[0]
+    for name in sorted(COST_MODELS):
+        fn = COST_MODELS[name]
+        got = fn(card).cpu()
+        want = fn(cpu)
+        err = max_abs_err([got], [want])
+        ms = timer(lambda: fn(card))
+        n_bytes = sum(getattr(host, f).nbytes for f in MODEL_FIELDS[name])
+        bms, by = bound_ms(n_bytes + E * 4, E * 12)
+        log(f"[models] {name}: arcs={meta.n_arcs} (E={E}) card == cpu "
+            f"max_abs_err={err} ms={ms:.6f} bound_ms={bms:.6f} ({by}, "
+            f"{n_bytes + E * 4} B)")
+        if err != 0:
+            raise AssertionError(f"[models] {name}: card != cpu "
+                                 f"(max_abs_err {err})")
+    model_round(torch, cluster, "octopus", kw, "config 2 flagship")
+    coco = config3_coco(seed=0)
+    model_round(torch, coco, "coco", knowledge_kwargs(coco, seed=6),
+                "config 3")
+
+
+# ---- the express lane ------------------------------------------------
+
+
+def express_events(bridge, rng, window: int, *, n: int = 16,
+                   completions: int = 2, racks: bool = True):
+    """One window's watch events: ``n`` seeded synth-shaped arrivals,
+    each with one machine or rack preference (machines with a free
+    seat), and ``completions`` running pods that finish."""
+    from poseidon_tpu_torch.cluster import Task, TaskPhase
+
+    used = {}
+    for t in bridge.tasks.values():
+        if t.phase == TaskPhase.RUNNING:
+            used[t.machine] = used.get(t.machine, 0) + 1
+    free = sorted(m.name for m in bridge.machines.values()
+                  if used.get(m.name, 0) + 2 < m.max_tasks)
+    rack_names = sorted({m.rack for m in bridge.machines.values()})
+    events = []
+    for k in range(n):
+        if racks and rng.random() < 0.3:
+            prefs = {rack_names[int(rng.integers(len(rack_names)))]:
+                     int(rng.integers(10, 100))}
+        else:
+            prefs = {free[int(rng.integers(len(free)))]:
+                     int(rng.integers(20, 200))}
+        events.append(("ADDED", Task(
+            uid=f"xp-{window}-{k:03d}", job=f"job-xp-{window}",
+            cpu_request=float(rng.choice([0.1, 0.25, 0.5, 1.0])),
+            memory_request_kb=int(rng.choice([1, 2, 8])) << 18,
+            data_prefs=prefs,
+        )))
+    running = sorted(u for u, t in bridge.tasks.items()
+                     if t.phase == TaskPhase.RUNNING)
+    for i in rng.choice(len(running), size=completions, replace=False):
+        events.append(("DELETED", bridge.tasks[running[int(i)]]))
+    return events
+
+
+def express_bridge(device, cluster):
+    """A bridge with the express lane on over ``cluster``, one certified
+    round behind it and its bindings confirmed."""
+    from poseidon_tpu_torch.bridge import SchedulerBridge
+
+    bridge = SchedulerBridge(cost_model="quincy", small_to_oracle=False,
+                             express_lane=True, device=device)
+    bridge.observe_nodes(list(cluster.machines))
+    bridge.observe_pods(list(cluster.tasks))
+    res = bridge.run_scheduler()
+    if res.stats.backend != "dense_auction":
+        raise AssertionError(f"express: first round {res.stats.backend}")
+    for uid, m in res.bindings.items():
+        bridge.confirm_binding(uid, m)
+    return bridge, res
+
+
+def express_parity():
+    """Three express windows on the 64 x 600 parity cell, on the card
+    and on the CPU: every field of every batch equal."""
+    import numpy as np
+
+    from poseidon_tpu_torch.synth import make_synthetic_cluster
+
+    cluster = make_synthetic_cluster(64, 600, seed=1, machines_per_rack=8)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        bridge, _ = express_bridge(device, cluster)
+        rng = np.random.default_rng(77)
+        out = []
+        last = {}
+        for window in range(3):
+            for uid, m in last.items():
+                bridge.confirm_binding(uid, m)
+            r = bridge.express_batch(express_events(bridge, rng, window, n=8))
+            if r is None:
+                raise AssertionError(f"[parity] express window {window} "
+                                     f"degraded on {device}")
+            last = dict(r.bindings)
+            warm = bridge.solver.warm
+            out.append((dict(r.bindings), r.cost, r.rounds, len(r.bindings),
+                        *(np.asarray(t.cpu()).tolist()
+                          for t in (warm.asg, warm.lvl, warm.floor))))
+        runs[device] = out
+    for w, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        if a != b:
+            raise AssertionError(f"[parity] express window {w}: card != cpu")
+        log(f"[parity] express window {w}: card == cpu (placements={a[3]} "
+            f"cost={a[1]} rounds={a[2]})")
+
+
+EXPRESS_WINDOWS = 8
+
+
+def profile_express(prof, wall_us: float) -> None:
+    """Device busy and idle share of one profiled express batch, its
+    top device items, and the express path's hand kernels as called."""
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in rows)
+    log(f"[profile] express batch: wall_us={wall_us:.1f} "
+        f"device_busy_us={busy:.1f} "
+        f"idle_share={1 - min(busy / wall_us, 1):.3f}")
+    rows.sort(key=lambda r: -r[1])
+    for key, t, n in rows[:12]:
+        log(f"[profile]   {t:10.1f} us  x{n:<5d} {key[:90]}")
+    for k in EXPRESS_SYMBOLS:
+        hits = [(t, n) for key, t, n in rows if k in key]
+        total = sum(t for t, _ in hits)
+        count = sum(n for _, n in hits)
+        log(f"[profile] express kernel {k}: total_us={total:.1f} "
+            f"launches={count} us_per_launch={total / max(count, 1):.3f}")
+
+
+def express_phase(torch):
+    """The express lane at full width: a bridge on the card over the
+    flagship, one certified round, then EXPRESS_WINDOWS windows of 16
+    arrivals and 2 completions (each confirming the last window's
+    placements, which reach K5 as retires), a correction round, and one
+    last window left unconfirmed whose placements must equal the next
+    full round's choice per uid. Returns the launch counts of the run."""
+    import numpy as np
+
+    from poseidon_tpu_torch import kernels
+    from poseidon_tpu_torch.synth import config2_quincy_flagship
+
+    cluster = config2_quincy_flagship(seed=0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    bridge, first = express_bridge("cuda", cluster)
+    solver = bridge.solver
+    log(f"[express] first round: placed={first.stats.pods_placed} "
+        f"cost={first.stats.cost} solve_ms={first.stats.solve_ms:.3f}")
+    rng = np.random.default_rng(404)
+    need = ("express_rows", "express_patch", "row_options", "bid_pass")
+
+    def run_window(window: int, events, arrivals: int,
+                   profiled: bool = False) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+
+        before = {k.name: k.launches for k in kernels.KERNELS}
+        torch.cuda.synchronize()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                r = bridge.express_batch(events, t_event=t0)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            profile_express(prof, wall_us)
+        else:
+            r = bridge.express_batch(events, t_event=time.perf_counter())
+        torch.cuda.synchronize()
+        launched = {k.name: k.launches - before[k.name]
+                    for k in kernels.KERNELS}
+        if r is None:
+            raise AssertionError(f"[express] window {window} degraded")
+        t = r.timings
+        log(f"[express] window {window}: arrivals={arrivals} "
+            f"placed={len(r.bindings)} cost={r.cost} "
+            f"repair_rounds={r.rounds} "
+            f"loop_syncs={solver.last_round_loop_syncs} "
+            f"fetches={solver.last_round_fetches} "
+            f"prep_ms={t.get('prep_ms', 0.0):.3f} "
+            f"upload_ms={t.get('upload_ms', 0.0):.3f} "
+            f"solve_ms={t.get('solve_ms', 0.0):.3f} "
+            f"e2b_ms={r.latency_ms:.3f} launches={launched}")
+        if solver.last_round_fetches != 1 or not solver.express_ready:
+            raise AssertionError(f"[express] window {window}: "
+                                 f"{solver.last_round_fetches} fetches, "
+                                 f"context {solver.express_ready}")
+        idle = [n for n in need if launched[n] == 0]
+        if idle:
+            raise AssertionError(f"[express] window {window}: kernels not "
+                                 f"launched: {idle}")
+        if not r.bindings:
+            raise AssertionError(f"[express] window {window}: no placement")
+        return dict(r.bindings)
+
+    placed_since = {}
+    last = {}
+    for window in range(EXPRESS_WINDOWS):
+        for uid, m in last.items():
+            bridge.confirm_binding(uid, m)
+        last = run_window(window, express_events(bridge, rng, window), 16,
+                          profiled=window == EXPRESS_WINDOWS - 1)
+        placed_since.update(last)
+    for uid, m in last.items():
+        bridge.confirm_binding(uid, m)
+    res = bridge.run_scheduler()
+    s = res.stats
+    moved = sum(u in res.migrations or u in res.preemptions
+                for u in placed_since)
+    log(f"[express] correction round: backend={s.backend} "
+        f"placed={s.pods_placed} express_batches={s.express_batches} "
+        f"express_places={s.express_places} "
+        f"express_corrected={s.express_corrected} (moved {moved}) "
+        f"express_degrades={s.express_degrades} "
+        f"e2b_p50_ms={s.express_e2b_p50_ms:.3f} "
+        f"e2b_p99_ms={s.express_e2b_p99_ms:.3f} solve_ms={s.solve_ms:.3f}")
+    if (s.backend != "dense_auction" or s.express_corrected != moved
+            or s.express_degrades != 0
+            or s.express_batches != EXPRESS_WINDOWS):
+        raise AssertionError(f"[express] correction round: {s}")
+    for uid, m in res.bindings.items():
+        bridge.confirm_binding(uid, m)
+    # one last window, machine preferences only, left unconfirmed
+    last = run_window(EXPRESS_WINDOWS, express_events(
+        bridge, rng, EXPRESS_WINDOWS, racks=False, completions=0), 16)
+    # the differential contract: unconfirmed express placements equal
+    # what the next full round chooses for the same pods
+    res = bridge.run_scheduler()
+    differ = {u: (m, res.bindings.get(u)) for u, m in last.items()
+              if res.bindings.get(u) != m}
+    log(f"[express] next round over the unconfirmed window: "
+        f"backend={res.stats.backend} {len(last) - len(differ)} of "
+        f"{len(last)} express placements equal the round's choice")
+    if differ:
+        raise AssertionError(f"[express] express != next round: "
+                             f"{list(differ.items())[:4]}")
+    return {k.name: k.launches for k in kernels.KERNELS}
+
+
 DAEMON_ROUNDS = 4
+EXPRESS_ROUNDS = 3
 
 
 def fill_apiserver(server, cluster) -> None:
@@ -772,6 +1385,27 @@ def daemon_churn(server, machines, round_no: int, keep,
         )
 
 
+def daemon_burst(server, machines, burst_no: int, n: int = 16) -> list:
+    """Add ``n`` seeded synth-shaped pods, each preferring one machine
+    (a pod of one preference prices its preferred machine at 0, so
+    quincy places it); returns their names."""
+    import numpy as np
+
+    rng = np.random.default_rng(3000 + burst_no)
+    names = []
+    for j in range(n):
+        m = machines[int(rng.integers(0, len(machines)))]
+        name = f"pod-x{burst_no}-{j:03d}"
+        server.add_pod(
+            name, job=f"job-x{burst_no}",
+            cpu=f"{int(rng.choice([100, 250, 500, 1000]))}m",
+            memory=f"{int(rng.choice([1, 2, 8])) << 18}Ki",
+            data_prefs={m.name: int(rng.integers(20, 200))},
+        )
+        names.append(f"default/{name}")
+    return names
+
+
 # The daemon phase's apiserver runs in a process of its own, as a real
 # apiserver would: in the daemon's process its handler threads would
 # hold the interpreter lock the auction's host loop needs. It serves the
@@ -794,6 +1428,8 @@ with FakeApiServer() as server:
         elif cmd == "churn":
             chip_smoke.daemon_churn(server, cluster.machines, *arg)
             out = None
+        elif cmd == "burst":
+            out = chip_smoke.daemon_burst(server, cluster.machines, *arg)
         else:
             break
         print(json.dumps(out), flush=True)
@@ -805,7 +1441,10 @@ class ApiServerProcess:
 
     def __init__(self, seed: int):
         import os
+        import threading
 
+        # the loop's watcher and the express lane's feeder both call
+        self.lock = threading.Lock()
         root = os.path.dirname(os.path.abspath(__file__))
         self.proc = subprocess.Popen(
             [sys.executable, "-c", APISERVER_CHILD, str(seed)], cwd=root,
@@ -818,9 +1457,10 @@ class ApiServerProcess:
         self.port = json.loads(line)
 
     def call(self, cmd: str, arg=None):
-        self.proc.stdin.write(json.dumps([cmd, arg]) + "\n")
-        self.proc.stdin.flush()
-        line = self.proc.stdout.readline()
+        with self.lock:
+            self.proc.stdin.write(json.dumps([cmd, arg]) + "\n")
+            self.proc.stdin.flush()
+            line = self.proc.stdout.readline()
         if not line:
             raise RuntimeError(f"the apiserver process died ({cmd})")
         return json.loads(line)
@@ -836,11 +1476,20 @@ class ApiServerProcess:
                 self.proc.wait()
 
 
-def daemon_lane(torch, cluster, watch: bool):
+EXPRESS_BURSTS = 3
+EXPRESS_POLL_US = 12_000_000
+
+
+def daemon_lane(torch, cluster, watch: bool, express: bool = False):
     """One daemon run over the fake apiserver: ``cli.run_loop`` on the
     card, pipelined rounds, incremental scheduler and build, 1 % churn
-    between rounds. Returns the per-dense-round records, the final
-    bindings and the launch counts of the run."""
+    between rounds. With ``express`` the loop watches with the express
+    lane on (serial correction rounds, ``EXPRESS_POLL_US`` ticks, no
+    shed), and after the first round the server adds ``EXPRESS_BURSTS``
+    bursts of 16 pods, one every second, for the express windows.
+    Returns the
+    per-dense-round records, the final bindings, the launch counts of
+    the run and the express batches' records."""
     import logging
     import threading
 
@@ -849,9 +1498,10 @@ def daemon_lane(torch, cluster, watch: bool):
     from poseidon_tpu_torch.apiclient import watch as watch_mod
 
     snaps = {}       # round_num -> (cluster view, knowledge vectors)
-    posts = []       # (bindings POSTed, ms) per POST batch
+    posts = []       # (bindings POSTed, ms, landed, express) per batch
     records = []
     errors = []
+    express_log = []  # (bindings, EXPRESS_PLACE events, degrade whys)
 
     class RecordingBridge(cli.SchedulerBridge):
         """Keeps each dense round's input view for the oracle check."""
@@ -869,6 +1519,20 @@ def daemon_lane(torch, cluster, watch: bool):
             bridges.append(self)
             return ir
 
+        def express_batch(self, pod_events, **kw):
+            n0 = self.trace.dropped_total + len(self.trace.events)
+            out = super().express_batch(pod_events, **kw)
+            new = self.trace.dropped_total + len(self.trace.events) - n0
+            tail = list(self.trace.events)[-new:] if new else []
+            self.last_express = set(out.bindings) if out else set()
+            express_log.append((
+                dict(out.bindings) if out else {},
+                sum(e.event == "EXPRESS_PLACE" for e in tail),
+                [e.detail.get("why") for e in tail
+                 if e.event == "EXPRESS_DEGRADE"],
+            ))
+            return out
+
     bridges = []
 
     class ErrorLog(logging.Handler):
@@ -880,8 +1544,10 @@ def daemon_lane(torch, cluster, watch: bool):
     def timed_post(client, bridge, bindings, outbox=None):
         t0 = time.perf_counter()
         out = post_bindings(client, bridge, bindings, outbox=outbox)
+        xp = bool(bindings) and set(bindings) <= getattr(
+            bridge, "last_express", set())
         posts.append((len(bindings), (time.perf_counter() - t0) * 1e3,
-                      sum(o == "ok" for _, _, o in out)))
+                      sum(o == "ok" for _, _, o in out), xp))
         return out
 
     server = ApiServerProcess(seed=0)
@@ -900,6 +1566,15 @@ def daemon_lane(torch, cluster, watch: bool):
                 return super().tick()
 
         launches_before = {}
+        go = threading.Event()
+
+        def feeder():
+            # the express lane's arrivals: bursts between round ticks
+            if not go.wait(300.0):
+                return
+            for b in range(EXPRESS_BURSTS):
+                server.call("burst", [b])
+                time.sleep(1.0)
 
         def hook(rounds, result):
             bridge = bridges[-1]
@@ -913,17 +1588,28 @@ def daemon_lane(torch, cluster, watch: bool):
                 loop_syncs=bridge.solver.last_round_loop_syncs,
                 launched=launched, n_bindings=len(result.bindings),
             ))
-            if rounds <= DAEMON_ROUNDS - 2:
+            if express:
+                go.set()
+            elif rounds <= DAEMON_ROUNDS - 2:
                 server.call("churn", [rounds, list(result.bindings)])
 
+        n_rounds = EXPRESS_ROUNDS if express else DAEMON_ROUNDS
         args = cli.parse_args([
             "--k8s_apiserver_host=127.0.0.1",
             f"--k8s_apiserver_port={server.port}",
             "--device=cuda", "--flow_scheduling_cost_model=quincy",
             "--run_incremental_scheduler=true", "--incremental_build=true",
-            "--round_pipeline=true", f"--watch={'true' if watch else 'false'}",
-            f"--max_rounds={DAEMON_ROUNDS}", "--polling_frequency=1000",
+            "--round_pipeline=true",
+            f"--watch={'true' if watch or express else 'false'}",
+            f"--express_lane={'true' if express else 'false'}",
+            # each round's binding POSTs come back as thousands of pod
+            # watch events, past the default shed threshold (512): the
+            # window would shed every burst to the tick
+            f"--express_shed_queue={0 if express else 512}",
+            f"--max_rounds={n_rounds}",
+            f"--polling_frequency={EXPRESS_POLL_US if express else 1000}",
         ])
+        feed = threading.Thread(target=feeder, daemon=True)
         stop = threading.Event()
         guard = threading.Timer(300.0, stop.set)
         handler = ErrorLog(level=logging.ERROR)
@@ -939,6 +1625,8 @@ def daemon_lane(torch, cluster, watch: bool):
         cli._post_bindings = timed_post
         watch_mod.ClusterWatcher = CaughtUpWatcher
         guard.start()
+        if express:
+            feed.start()
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -946,16 +1634,19 @@ def daemon_lane(torch, cluster, watch: bool):
             rc = cli.run_loop(args, stop_event=stop, round_hook=hook)
         finally:
             guard.cancel()
+            go.set()
+            if express:
+                feed.join(timeout=60.0)
             (cli.SchedulerBridge, cli._post_bindings,
              watch_mod.ClusterWatcher) = saved
             cli_log.removeHandler(handler)
             bridge_log.setLevel(bridge_level)
         wall_s = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels.KERNELS}
-        if rc != 0 or stop.is_set() or len(records) != DAEMON_ROUNDS:
+        if rc != 0 or stop.is_set() or len(records) != n_rounds:
             raise AssertionError(
                 f"daemon ({'watch' if watch else 'poll'}): rc={rc}, "
-                f"{len(records)} of {DAEMON_ROUNDS} rounds, "
+                f"{len(records)} of {n_rounds} rounds, "
                 f"timed out={stop.is_set()}")
         if errors:
             raise AssertionError(f"daemon logged errors: {errors[:3]}")
@@ -971,7 +1662,7 @@ def daemon_lane(torch, cluster, watch: bool):
                 f"placements ({len(placed)})")
     finally:
         server.close()
-    return records, snaps, posts, bound, launches, wall_s
+    return records, snaps, posts, bound, launches, wall_s, express_log
 
 
 def daemon_phase(torch, card: str):
@@ -988,13 +1679,14 @@ def daemon_phase(torch, card: str):
     cluster = config2_quincy_flagship(seed=0)
     log(f"[daemon] card: {card}")
     lanes = {}
-    for lane in ("poll", "watch"):
-        records, snaps, posts, bound, launches, wall_s = daemon_lane(
-            torch, cluster, watch=lane == "watch")
+    for lane in ("poll", "watch", "express"):
+        (records, snaps, posts, bound, launches, wall_s,
+         express_log) = daemon_lane(torch, cluster, watch=lane == "watch",
+                                    express=lane == "express")
         dense = [r for r in records if r["round"] in snaps]
         if len(dense) < 2:
             raise AssertionError(f"[daemon] {lane}: {len(dense)} dense rounds")
-        nonempty_posts = [p for p in posts if p[0]]
+        nonempty_posts = [p[:3] for p in posts if p[0] and not p[3]]
         for i, r in enumerate(dense):
             s = r["stats"]
             view, (usage, load, mem_free) = snaps[r["round"]]
@@ -1046,13 +1738,15 @@ def daemon_phase(torch, card: str):
                     f"{s.pods_pending} < placed {s.pods_placed} + unsched "
                     f"{s.pods_unscheduled}, or {post_ok} of {post_n} POSTs "
                     f"landed")
-            idle = [n for n, c in r["launched"].items() if c == 0]
+            idle = [n for n in ROUND_KERNELS if r["launched"][n] == 0]
             if idle:
                 raise AssertionError(f"[daemon] {lane} round {s.round_num}: "
                                      f"kernels not launched: {idle}")
         log(f"[daemon] {lane}: {len(records)} rounds ({len(dense)} dense) "
             f"in {wall_s:.3f} s, {len(bound)} pods bound, "
             f"launches={launches}")
+        if lane == "express":
+            express_daemon_checks(records, posts, bound, express_log)
         lanes[lane] = bound
     if lanes["poll"] != lanes["watch"]:
         diff = sum(lanes["poll"].get(u) != m for u, m in lanes["watch"].items())
@@ -1060,6 +1754,45 @@ def daemon_phase(torch, card: str):
                              f"poll lane's ({diff} pods)")
     log(f"[daemon] watch lane bindings == poll lane bindings "
         f"({len(lanes['poll'])} pods)")
+
+
+def express_daemon_checks(records, posts, bound, express_log) -> None:
+    """The daemon's express lane: every express binding's POST landed
+    and the server binds the pod where express placed it, each
+    placement traced as EXPRESS_PLACE, and every degrade printed with
+    its reason (none expected)."""
+    placed = {}
+    for bindings, _places, _whys in express_log:
+        placed.update(bindings)
+    xposts = [p for p in posts if p[3]]
+    n_post = sum(p[0] for p in xposts)
+    n_ok = sum(p[2] for p in xposts)
+    n_events = sum(e[1] for e in express_log)
+    whys = [w for e in express_log for w in e[2]]
+    degrades = sum(r["stats"].express_degrades for r in records)
+    wrong = {u: (m, bound.get(u)) for u, m in placed.items()
+             if bound.get(u) != m}
+    log(f"[daemon] express: batches={sum(1 for e in express_log if e[0])} "
+        f"of {len(express_log)} calls, placements={len(placed)}, "
+        f"EXPRESS_PLACE events={n_events}, POSTs landed={n_ok}/{n_post} "
+        f"(batches of {[p[0] for p in xposts]}, "
+        f"ms={[round(p[1], 3) for p in xposts]}), "
+        f"express_degrades={degrades}, e2b_p50_ms="
+        f"{[r['stats'].express_e2b_p50_ms for r in records]}")
+    for why in whys:
+        log(f"[daemon] express degrade: {why}")
+    if not placed or n_events != len(placed):
+        raise AssertionError(f"[daemon] express: {len(placed)} placements, "
+                             f"{n_events} EXPRESS_PLACE events")
+    if n_ok != n_post or n_post != len(placed):
+        raise AssertionError(f"[daemon] express: {n_ok} of {n_post} POSTs "
+                             f"landed for {len(placed)} placements")
+    if wrong:
+        raise AssertionError(f"[daemon] express placements not bound as "
+                             f"placed: {list(wrong.items())[:4]}")
+    if degrades != len(whys):
+        raise AssertionError(f"[daemon] express: {degrades} degrades, "
+                             f"{len(whys)} with a reason")
 
 
 def main() -> int:
@@ -1093,9 +1826,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
 
-    records = kernel_phase(torch, Timer(torch))
+    timer = Timer(torch)
+    records = kernel_phase(torch, timer)
     parity_phase()
     launches = main_path_phase(torch)
+    models_phase(torch, timer)
+    express_launches = express_phase(torch)
+    for k in ("express_rows", "express_patch"):
+        launches[k] = express_launches[k]
     daemon_phase(torch, smi)
 
     out = {"kernels": [

@@ -101,6 +101,38 @@ class ObserveDelta:
     reconnects: int = 0
 
 
+@dataclasses.dataclass
+class ExpressEvents:
+    """One ``express_poll()``'s worth of between-tick pod events.
+
+    ``pod_events`` are typed ``(type, Task)`` pairs exactly like
+    ``ObserveDelta.pod_events`` — the express window feeds them to
+    ``SchedulerBridge.express_batch``. ``t_first`` is the
+    ``perf_counter`` stamp at which the first event was dequeued (the
+    event-to-bind latency clock's zero); ``t_events`` carries one such
+    dequeue stamp PER event (parallel to ``pod_events``), so the bind
+    path can report a real per-event latency sample instead of
+    replicating the batch's. ``needs_tick=True`` means
+    something the express lane must not handle arrived (node events, a
+    410/decode degradation, an un-seeded watcher): the caller should
+    fall through to a full observe tick, where the normal resync /
+    snapshot-diff guards apply.
+    """
+
+    pod_events: list[tuple[str, Task]] = dataclasses.field(
+        default_factory=list)
+    t_first: float = 0.0
+    t_events: list[float] = dataclasses.field(default_factory=list)
+    reconnects: int = 0
+    needs_tick: bool = False
+    # overload backpressure: the pods stream's queue depth exceeded
+    # the shed threshold — the express lane stepped aside so the full
+    # round (which handles arbitrarily large batches in one solve)
+    # absorbs the burst instead of the per-batch fast path grinding
+    # through it event by event. Counted loudly by the daemon loop.
+    shed: bool = False
+
+
 class _WatchStream(threading.Thread):
     """One resource's watch connection, kept alive across reconnects.
 
@@ -573,6 +605,147 @@ class ClusterWatcher:
             return self.client._parse_node(obj)
         return self.client._parse_pod(obj)
 
+    # ---- the express window (between-tick pod events) ----
+
+    def _express_nodes_pending(
+        self, nodes: _WatchStream | None, out: ExpressEvents
+    ) -> bool:
+        """True when the nodes stream holds work only a full tick may
+        apply. Pure bookkeeping items (BOOKMARK rv advances, counted
+        RECONNECTs — idle streams bookmark routinely) are consumed
+        here so they cannot pin the express window shut; a real node
+        EVENT is pushed back for ``tick()`` and ends the window."""
+        if nodes is None:
+            return False
+        if nodes.gone.is_set():
+            return True
+        while True:
+            # peek under the queue lock: a get+put-back would reorder
+            # the stream behind later events and the rv guard would
+            # then silently drop the displaced one
+            with nodes.queue.mutex:
+                head = (
+                    nodes.queue.queue[0] if nodes.queue.queue else None
+                )
+            if head is None:
+                return False
+            kind = head[0]
+            if kind not in ("BOOKMARK", "RECONNECT"):
+                return True  # EVENT or GONE: tick's business
+            item = nodes.queue.get_nowait()
+            if item[0] == "BOOKMARK":
+                self._applied_rv["nodes"] = max(
+                    self._applied_rv["nodes"], item[1]
+                )
+            else:
+                out.reconnects += 1
+                self.reconnects_total += 1
+                self.trace.emit(
+                    "WATCH_RECONNECT",
+                    detail={"resource": "nodes", "reason": item[1]},
+                )
+                if self.metrics is not None:
+                    self.metrics.record_reconnect("nodes")
+
+    def express_poll(
+        self, timeout_s: float, max_events: int = 16,
+        shed_queue: int = 0,
+    ) -> ExpressEvents:
+        """Block up to ``timeout_s`` for pod watch events between round
+        ticks; returns as soon as a small batch is available.
+
+        The express lane's event source: waits on the pods stream for
+        the FIRST event, then drains whatever else already arrived (up
+        to ``max_events`` — the express batch bound). rv accounting is
+        shared with ``tick()`` so a later tick can never double-apply
+        an express-consumed event. Anything outside the express
+        vocabulary — node events waiting, a stream gone/undecodable,
+        an un-seeded watcher — sets ``needs_tick`` and leaves the rest
+        for the full observe tick (410/staleness resyncs stay on the
+        tick path, where the snapshot-diff guards live).
+        """
+        out = ExpressEvents()
+        pods = self._streams.get("pods")
+        nodes = self._streams.get("nodes")
+        if not self._seeded or pods is None or pods.gone.is_set():
+            out.needs_tick = True
+            return out
+        if shed_queue > 0 and pods.queue.qsize() > shed_queue:
+            # overload shed: more events are queued than the express
+            # lane should grind through batch by batch — hand the
+            # whole burst to the tick path's single full solve.
+            # qsize() is advisory but one-sided-safe here: an
+            # undercount delays the shed by one poll, never loses
+            # events (they stay queued for tick()).
+            out.needs_tick = True
+            out.shed = True
+            return out
+        deadline = time.monotonic() + timeout_s
+        while len(out.pod_events) < max_events:
+            if self._express_nodes_pending(nodes, out):
+                # node events reshape the machine axis: the express
+                # patch vocabulary cannot follow, tick handles them
+                out.needs_tick = True
+                break
+            try:
+                if out.pod_events:
+                    item = pods.queue.get_nowait()
+                else:
+                    wait = deadline - time.monotonic()
+                    if wait <= 0:
+                        # zero-timeout poll (a stream lane's later
+                        # window): drain what already arrived, never
+                        # block
+                        item = pods.queue.get_nowait()
+                    else:
+                        item = pods.queue.get(timeout=min(wait, 0.05))
+            except queue.Empty:
+                if out.pod_events or time.monotonic() >= deadline:
+                    break
+                continue
+            if not out.pod_events:
+                out.t_first = time.perf_counter()
+            kind = item[0]
+            if kind == "RECONNECT":
+                out.reconnects += 1
+                self.reconnects_total += 1
+                self.trace.emit(
+                    "WATCH_RECONNECT",
+                    detail={"resource": "pods", "reason": item[1]},
+                )
+                if self.metrics is not None:
+                    self.metrics.record_reconnect("pods")
+            elif kind == "BOOKMARK":
+                self._applied_rv["pods"] = max(
+                    self._applied_rv["pods"], item[1]
+                )
+            elif kind == "GONE":
+                # put it back for tick() so the resync keeps its reason
+                pods.queue.put(item)
+                out.needs_tick = True
+                break
+            else:  # EVENT
+                _, rv, typ, obj = item
+                if rv and rv <= self._applied_rv["pods"]:
+                    continue  # replayed history: never double-apply
+                try:
+                    parsed = self._parse("pods", obj)
+                except (KeyError, ValueError, TypeError) as e:
+                    # same degradation as tick(): an unparseable event
+                    # means the stream cannot be trusted — mark it gone
+                    # with the real reason and let the tick resync
+                    pods.queue.put(
+                        ("GONE", f"unparseable {typ} event: {e!r}")
+                    )
+                    pods.gone.set()
+                    out.needs_tick = True
+                    break
+                if rv:
+                    self._applied_rv["pods"] = rv
+                out.pod_events.append((typ, parsed))
+                out.t_events.append(time.perf_counter())
+        return out
+
     # ---- test helpers ----
 
     def wait_caught_up(self, rv: int, timeout_s: float = 5.0) -> bool:
@@ -596,6 +769,7 @@ class ClusterWatcher:
 # re-exported for callers that only import the watch module
 __all__ = [
     "ClusterWatcher",
+    "ExpressEvents",
     "ObserveDelta",
     "WatchGone",
     "ApiError",

@@ -2,9 +2,10 @@
 
 The port of ``poseidon_tpu/bridge/bridge.py``: the full and pipelined
 round paths, observe (poll and watch), confirm, revoke and rebalance,
-with the same decisions, decision log and stats bit for bit. The
-express and stream lanes, the flight recorder and the shadow auditor
-are not ported yet; asking for them raises ``NotImplementedError``.
+and the express lane (``express_batch``), with the same decisions,
+decision log and stats bit for bit. The stream lane, the flight
+recorder and the shadow auditor are not ported yet; asking for them
+raises ``NotImplementedError``.
 ``device`` picks the solver's device (``None`` = the card).
 
 The first-party core of the reference (src/firmament/scheduler_bridge.cc)
@@ -117,8 +118,18 @@ from poseidon_tpu_torch.models.knowledge import (
     TaskSample,
 )
 from poseidon_tpu_torch.guards import FetchTimeout
-from poseidon_tpu_torch.ops.resident import InflightSolve, ResidentSolver
-from poseidon_tpu_torch.obs.spans import emit_span, round_span_tree
+from poseidon_tpu_torch.ops.resident import (
+    ExpressArrival,
+    ExpressBatch,
+    ExpressDegrade,
+    InflightSolve,
+    ResidentSolver,
+)
+from poseidon_tpu_torch.obs.spans import (
+    emit_span,
+    express_span_tree,
+    round_span_tree,
+)
 from poseidon_tpu_torch.ops.transport import topology_from_columns
 from poseidon_tpu_torch.trace import TraceGenerator
 
@@ -248,6 +259,21 @@ class RoundResult:
 
 
 @dataclasses.dataclass
+class ExpressResult:
+    """One express batch's actuatable output (the fast-path analog of
+    ``RoundResult``): bindings to POST now, plus the batch's exact cost
+    and repair-round count for observability. Stats ride on the NEXT
+    full round's ``SchedulerStats`` (express counters + the
+    event-to-bind accumulator)."""
+
+    bindings: dict[str, str]
+    cost: int = 0
+    rounds: int = 0
+    latency_ms: float = 0.0
+    timings: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
 class InflightRound:
     """A begun-but-not-finished scheduling round (solve in flight)."""
 
@@ -292,7 +318,6 @@ class SchedulerBridge:
         device=None,
     ):
         later = {
-            "express_lane": express_lane,
             "stream_windows": stream_windows,
             "flightrec": flightrec is not None,
             "auditor": auditor is not None,
@@ -301,7 +326,7 @@ class SchedulerBridge:
         if asked:
             raise NotImplementedError(
                 f"SchedulerBridge options {asked} are not ported to "
-                f"poseidon_tpu_torch yet (ROADMAP.md, Queue 1 items 3, 4 "
+                f"poseidon_tpu_torch yet (ROADMAP.md, Queue 1 items 4 "
                 f"and 7)"
             )
         self.cost_model = cost_model
@@ -309,6 +334,7 @@ class SchedulerBridge:
         self.enable_preemption = enable_preemption
         self.migration_hysteresis = migration_hysteresis
         self.max_migrations_per_round = max_migrations_per_round
+        self.express_lane = express_lane
         self.trace = trace or TraceGenerator()
         # observability: ``metrics`` is an obs.SchedulerMetrics (or
         # None); recording happens ONLY at finish/actuate time from
@@ -345,6 +371,7 @@ class SchedulerBridge:
             mesh_width=mesh_width,
             aggregate_classes=aggregate_classes,
             topk_prefs=topk_prefs,
+            express_lane=express_lane,
             express_max_batch=express_max_batch,
             metrics=metrics,
         )
@@ -396,6 +423,23 @@ class SchedulerBridge:
             if max_migrations_per_round > 0 else None
         )  # None = unlimited; refreshed every begin_round
         self._inflight: InflightRound | None = None
+        # ---- express-lane bookkeeping (all empty with the flag off) ----
+        # bound pods whose device rows the next express dispatch
+        # retires (uid, machine); cleared when a round replaces the
+        # context
+        self._express_retire: list[tuple[str, str]] = []
+        # express placements awaiting the caller's confirm_binding — a
+        # second batch before confirmation would re-solve rows whose
+        # POST is already on the wire, so express refuses until drained
+        self._express_unconfirmed: set[str] = set()
+        # placements since the last full round, for the correction
+        # pass's differential verify (uid -> machine)
+        self._express_placed: dict[str, str] = {}
+        # per-round-window counters + the event-to-bind accumulator
+        self._express_batches = 0
+        self._express_places = 0
+        self._express_degrades = 0
+        self._express_e2b: list[float] = []
 
     def _guard_release(self, kind: str, outcome: str, *,
                        gone: int = 0, known: int = 0,
@@ -560,6 +604,10 @@ class SchedulerBridge:
     def observe_nodes(self, nodes: list[Machine]) -> None:
         """Upsert machines; release the ones that disappeared."""
         t0 = time.perf_counter()
+        # a snapshot diff can move anything (and node changes reshape
+        # the machine axis): the device express context cannot follow
+        if self.express_lane:
+            self.solver.invalidate_express()
         try:
             known_before = len(self.machines)
             known_names = set(self.machines)
@@ -587,6 +635,8 @@ class SchedulerBridge:
         never infers deletion from absence (resyncs go back through
         ``observe_nodes`` and get the guard)."""
         t0 = time.perf_counter()
+        if self.express_lane:
+            self.solver.invalidate_express()
         try:
             if type_ == "DELETED":
                 self._remove_node(node.name)
@@ -769,6 +819,8 @@ class SchedulerBridge:
         """The reference's per-pod dispatch (scheduler_bridge.cc:132-162),
         with restart reconcile and terminal-state retirement."""
         t0 = time.perf_counter()
+        if self.express_lane:
+            self.solver.invalidate_express()
         try:
             known_before = len(self.tasks)
             known_uids = set(self.tasks)
@@ -818,6 +870,257 @@ class SchedulerBridge:
                 drops - self._trace_drops_seen
             )
             self._trace_drops_seen = drops
+
+    # ---- the express lane (between-ticks fast path) --------------------
+
+    def _express_invalidate(self, count_degrade: bool = False,
+                            why: str = "") -> None:
+        if self.solver.express_ready:
+            self.solver.invalidate_express()
+            if count_degrade:
+                self._express_degrades += 1
+                self.trace.emit(
+                    "EXPRESS_DEGRADE", round_num=self.round_num,
+                    detail={"why": why},
+                )
+                self.trace.flush()
+                if self.metrics is not None:
+                    self.metrics.record_express_degrade(why)
+
+    def _express_transitions(
+        self, before: dict[str, Task | None]
+    ) -> tuple[list[Task], list[str], list[tuple[str, int]]]:
+        """Net per-uid effect of one applied event batch: arrivals,
+        pending removals, and slot restores. Duplicate watch events for
+        one uid (stream replays) coalesce here BY CONSTRUCTION — the
+        diff is before-state vs after-state, so a double ADDED or an
+        ADDED+DELETED pair within one batch can never double-apply at
+        the device patch. Raises ``ValueError`` (caught by the caller
+        into a degrade) for any transition outside the express
+        vocabulary."""
+        arrivals: list[Task] = []
+        removals: list[str] = []
+        slot_deltas: list[tuple[str, int]] = []
+        for uid, b in before.items():
+            a = self.tasks.get(uid)
+            if b is None and a is None:
+                continue  # arrived and left inside the batch: net noop
+            if b is None:
+                if a.phase == TaskPhase.PENDING:
+                    arrivals.append(a)
+                else:
+                    raise ValueError(
+                        f"{uid} entered as {a.phase.value} (adoption)"
+                    )
+            elif a is None:
+                if b.phase == TaskPhase.PENDING:
+                    removals.append(uid)
+                elif b.phase == TaskPhase.RUNNING and b.machine:
+                    slot_deltas.append((b.machine, +1))
+                else:
+                    raise ValueError(
+                        f"{uid} left from phase {b.phase.value}"
+                    )
+            elif (b.phase == TaskPhase.PENDING
+                  and a.phase == TaskPhase.PENDING):
+                if (b.cpu_request != a.cpu_request
+                        or b.memory_request_kb != a.memory_request_kb
+                        or b.job != a.job
+                        or b.data_prefs != a.data_prefs):
+                    raise ValueError(f"{uid} reshaped while pending")
+                # identical re-observation (replayed event): noop
+            elif (b.phase == TaskPhase.RUNNING
+                  and a.phase == TaskPhase.RUNNING):
+                if b.machine != a.machine:
+                    raise ValueError(f"{uid} moved machines externally")
+            else:
+                raise ValueError(
+                    f"{uid} transitioned {b.phase.value} -> "
+                    f"{a.phase.value}"
+                )
+        return arrivals, removals, slot_deltas
+
+    def express_batch(
+        self,
+        pod_events: list[tuple[str, Task]],
+        *,
+        t_event: float | None = None,
+        t_events: list[float] | None = None,
+    ) -> ExpressResult | None:
+        """The express fast path: apply a small watch-event batch and —
+        when the device context can represent its net effect — turn it
+        into bindings NOW, without waiting for the round tick.
+
+        The events are ALWAYS applied to bridge state (via the same
+        ``observe_pod_event`` transitions and incremental-builder notes
+        as the tick path, so the periodic correction round sees an
+        identical graph). Returns ``None`` when the express lane is
+        off, no warm context exists, or the batch degrades — the pods
+        then simply wait for the next full round. ``t_event`` (a
+        ``perf_counter`` stamp of the earliest event's receipt) feeds
+        the event-to-bind latency accumulator; ``t_events`` (parallel
+        to ``pod_events``, watch ``ExpressEvents.t_events``) gives each
+        placement a real per-event sample — without it every placement
+        reports the batch latency measured from ``t_event``.
+        """
+        t0 = time.perf_counter()
+        before: dict[str, Task | None] = {}
+        for _typ, pod in pod_events:
+            if pod.uid not in before:
+                before[pod.uid] = self.tasks.get(pod.uid)
+        for typ, pod in pod_events:
+            self.observe_pod_event(typ, pod)
+        if self.lifecycle is not None and t_events is not None:
+            # per-event watch receipt stamps precede the observe that
+            # minted the timelines: backdate (earliest wins)
+            for (_typ, pod), ts in zip(pod_events, t_events):
+                self.lifecycle.backdate_event(pod.uid, ts)
+        if not self.express_lane:
+            return None
+        if not self.solver.express_ready or self._inflight is not None:
+            # no warm context (or a round owns the device): the events
+            # wait for the round path; nothing to invalidate beyond
+            # what observe already did
+            self.solver.invalidate_express()
+            return None
+        if self._express_unconfirmed:
+            # a prior batch's placements were never confirmed: their
+            # rows are still live on device and a re-solve could move
+            # pods whose POSTs are on the wire
+            self._express_invalidate(
+                count_degrade=True, why="unconfirmed placements"
+            )
+            return None
+        try:
+            arrivals, removals, slot_deltas = (
+                self._express_transitions(before)
+            )
+        except ValueError as e:
+            self._express_invalidate(count_degrade=True, why=str(e))
+            return None
+        if not (arrivals or removals or slot_deltas
+                or self._express_retire):
+            return None  # pure replay noise: nothing to do
+        try:
+            maps = self.solver.express_maps()
+        except ExpressDegrade as e:
+            self._express_invalidate(count_degrade=True, why=str(e))
+            return None
+        if maps is None:
+            return None
+        midx, rack_idx = maps
+        builder = (
+            self._graph.builder if self._graph is not None
+            else FlowGraphBuilder(preemption=self.enable_preemption)
+        )
+        batch = ExpressBatch(
+            arrivals=[
+                ExpressArrival(
+                    uid=t.uid,
+                    wait_rounds=t.wait_rounds,
+                    cpu_milli=int(t.cpu_request * 1000),
+                    mem_kb=t.memory_request_kb,
+                    prefs=tuple(
+                        builder.task_arc_rows(t, midx, rack_idx)
+                    ),
+                )
+                for t in arrivals
+            ],
+            retires=self._express_retire,
+            removals=removals,
+            slot_deltas=slot_deltas,
+        )
+        self._express_retire = []
+        outcome = self.solver.express_round(batch)
+        if not outcome.ok:
+            self._express_degrades += 1
+            self.trace.emit(
+                "EXPRESS_DEGRADE", round_num=self.round_num,
+                detail={"why": outcome.reason},
+            )
+            self.trace.flush()
+            if self.metrics is not None:
+                self.metrics.record_express_degrade(outcome.reason)
+            return None
+        if outcome.degrade_reason:
+            # a CERTIFIED batch that degraded loudly mid-flight (the
+            # change-cap overflow's full placement fetch): every
+            # placement below still binds and the context stays warm —
+            # trace + count the degrade WITHOUT invalidating
+            self._express_degrades += 1
+            self.trace.emit(
+                "EXPRESS_DEGRADE", round_num=self.round_num,
+                detail={"why": outcome.degrade_reason},
+            )
+            if self.metrics is not None:
+                self.metrics.record_express_degrade(
+                    outcome.degrade_reason
+                )
+        self._express_batches += 1
+        bindings: dict[str, str] = {}
+        t_done = time.perf_counter()
+        latency = (t_done - (t_event if t_event is not None else t0)) \
+            * 1000
+        # per-uid receipt stamps (earliest wins across coalesced
+        # duplicates) so each placement's e2b is ITS latency, not the
+        # batch's replicated onto every event
+        uid_t: dict[str, float] = {}
+        if t_events is not None:
+            for (_typ, pod), ts in zip(pod_events, t_events):
+                uid_t.setdefault(pod.uid, ts)
+        e2b_samples: list[float] = []
+        for uid, machine in outcome.placements:
+            task = self.tasks.get(uid)
+            if (task is None or task.phase != TaskPhase.PENDING
+                    or machine not in self.machines):
+                # should be unreachable (express_batch owns the window
+                # between observe and bind): degrade rather than bind
+                # against moved state
+                self._express_invalidate(
+                    count_degrade=True,
+                    why=f"placement target moved for {uid}",
+                )
+                return None
+            bindings[uid] = machine
+            self._express_placed[uid] = machine
+            self._express_unconfirmed.add(uid)
+            if self.lifecycle is not None:
+                self.lifecycle.stamp_decided(uid, "express")
+            self.decision_log.append((
+                self.round_num, "PLACE", uid,
+                {"machine": machine, "express": True},
+            ))
+            e2b = (
+                (t_done - uid_t[uid]) * 1000 if uid in uid_t
+                else latency
+            )
+            self.trace.emit(
+                "EXPRESS_PLACE", task=uid, machine=machine,
+                round_num=self.round_num,
+                # per-placement event-to-bind-decision latency (ms,
+                # monotonic-clock difference from the event's OWN
+                # receipt stamp when the caller supplied one)
+                detail={"e2b_ms": round(e2b, 3)},
+            )
+            self._express_e2b.append(e2b)
+            e2b_samples.append(e2b)
+        self._express_places += len(bindings)
+        if self.profile_spans:
+            emit_span(
+                self.trace,
+                express_span_tree(latency, outcome.timings),
+                self.round_num,
+            )
+        self.trace.flush()
+        if self.metrics is not None:
+            self.metrics.record_express_batch(e2b_samples)
+        return ExpressResult(
+            bindings=bindings,
+            cost=outcome.cost,
+            rounds=outcome.rounds,
+            latency_ms=latency,
+            timings=outcome.timings,
+        )
 
     def _running_reobserved(
         self, known: Task | None, pod: Task, stored: Task, was_on: str
@@ -920,6 +1223,21 @@ class SchedulerBridge:
         self._watch_resyncs = 0
         stats.watch_reconnects = self._watch_reconnects
         self._watch_reconnects = 0
+        stats.express_batches = self._express_batches
+        self._express_batches = 0
+        stats.express_places = self._express_places
+        self._express_places = 0
+        stats.express_degrades = self._express_degrades
+        self._express_degrades = 0
+        if self._express_e2b:
+            lat = np.asarray(self._express_e2b)
+            stats.express_e2b_p50_ms = round(
+                float(np.percentile(lat, 50)), 3
+            )
+            stats.express_e2b_p99_ms = round(
+                float(np.percentile(lat, 99)), 3
+            )
+            self._express_e2b = []
         # staged-requeue wave: refresh the per-round displacement
         # budget and admit the next FIFO wave of parked node-death
         # displacement into the schedulable set (note_task_added —
@@ -967,6 +1285,10 @@ class SchedulerBridge:
         # linter flagged (PTA002).
         has_rebal = self.enable_preemption and bool(self.pod_to_machine)
         if not self.machines or (not pending and not has_rebal):
+            # an empty round leaves the express context warm (nothing
+            # to rebuild) but closes the verify window: place-only
+            # placements have no correction pass to wait for
+            self._express_placed.clear()
             stats.total_ms = (time.perf_counter() - t_start) * 1000
             stats.wall_ms = stats.total_ms
             self.trace.emit(
@@ -976,7 +1298,7 @@ class SchedulerBridge:
             self.trace.flush()
             if self.metrics is not None:
                 # empty rounds still carry the window's counters
-                # (evictions, watch resyncs)
+                # (evictions, watch resyncs, express activity)
                 self.metrics.record_round(stats)
                 self._note_trace_drops()
             return InflightRound(
@@ -1083,6 +1405,11 @@ class SchedulerBridge:
             raise
         t_join1 = time.monotonic()
         meta = ir.meta
+        # a finished round replaces the express context: whatever
+        # retire backlog / unconfirmed set the OLD window accumulated
+        # is stale against the new round's rows
+        self._express_retire = []
+        self._express_unconfirmed.clear()
         # phase accounting: prep+upload feed the price column, the pure
         # device compute is the solve column, the result download the
         # decompose column (transfer vs compute stays distinguishable)
@@ -1247,6 +1574,30 @@ class SchedulerBridge:
         stats.deltas_preempt = len(preemptions)
         stats.deltas_noop = len(dset.noop)
         stats.deltas_deferred = len(dset.deferred)
+        if self.express_lane:
+            # the correction pass's differential verify: an express
+            # placement this round moves (MIGRATE) or parks (PREEMPT)
+            # was provably improvable by more than the hysteresis —
+            # corrected, counted, traced. Everything else the round
+            # left in place is verified final under the stated bound
+            # (any remaining per-pod gap is < migration_hysteresis, or
+            # the round would have moved it).
+            for uid, m in self._express_placed.items():
+                if uid in migrations or uid in preemptions:
+                    stats.express_corrected += 1
+                    self.trace.emit(
+                        "EXPRESS_CORRECTED", task=uid, machine=m,
+                        round_num=ir.stats.round_num,
+                    )
+            self._express_placed.clear()
+            if self.enable_preemption and (
+                preemptions or dset.deferred
+            ):
+                # the device seats disagree with reality after a
+                # preemption (pod re-enters pending) or a deferred
+                # migration (seated at the solve's target, running at
+                # the old machine): express sits this window out
+                self.solver.invalidate_express()
         t_now = time.perf_counter()
         stats.total_ms = ir.begin_ms + (t_now - t_fin) * 1000
         stats.wall_ms = (t_now - ir.t_begin_start) * 1000
@@ -1358,6 +1709,13 @@ class SchedulerBridge:
             # the lifecycle close: event -> confirmed, recorded under
             # the lane stamped at decision time
             self.lifecycle.close_confirmed(uid)
+        if self.express_lane:
+            # the bound pod leaves the pending set: queue the device
+            # retire (row deactivates, seat becomes used capacity) for
+            # the next express dispatch
+            self._express_unconfirmed.discard(uid)
+            if self.solver.express_ready:
+                self._express_retire.append((uid, machine))
 
     def revoke_binding(self, uid: str) -> None:
         """A bindings POST failed after an optimistic ``confirm_binding``
@@ -1379,6 +1737,11 @@ class SchedulerBridge:
             self.lifecycle.reopen(uid)
         if self._graph:
             self._graph.note_full_rebuild("binding revoked")
+        if self.express_lane:
+            # a revoked pod re-enters pending mid-window: outside the
+            # express patch vocabulary, wait for the next full round
+            self._express_unconfirmed.discard(uid)
+            self.solver.invalidate_express()
 
     def confirm_migration(self, uid: str, machine: str) -> None:
         """Caller reports a MIGRATE actuated (eviction + re-bind POSTs
@@ -1412,6 +1775,8 @@ class SchedulerBridge:
         self.pod_to_machine.pop(uid, None)
         if self._graph:
             self._graph.note_full_rebuild("preempted back to pending")
+        if self.express_lane:
+            self.solver.invalidate_express()
 
     def restore_running(self, uid: str, machine: str) -> None:
         """An eviction/re-bind POST failed (possibly after an optimistic
@@ -1430,6 +1795,9 @@ class SchedulerBridge:
         self.pod_to_machine[uid] = machine
         if self._graph:
             self._graph.note_full_rebuild("actuation failed")
+        if self.express_lane:
+            # reality no longer matches the device seats
+            self.solver.invalidate_express()
 
     def binding_failed(self, uid: str) -> None:
         """A bindings POST for a PLACE failed: count it and re-queue the
@@ -1439,6 +1807,11 @@ class SchedulerBridge:
         Pending, never confirmed) and the optimistic pipelined path
         (pod confirmed Running first: revoked, then aged)."""
         self._bind_failures += 1
+        if self.express_lane:
+            # whether revoked or never confirmed, the pod's device row
+            # no longer matches reality (seated but unbound, or aged)
+            self._express_unconfirmed.discard(uid)
+            self.solver.invalidate_express()
         task = self.tasks.get(uid)
         if task is None:
             return

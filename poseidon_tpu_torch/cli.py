@@ -12,9 +12,20 @@ where the port has them:
   preemption and rebalancing, ``--trace_log``, ``--stats_json``,
   ``--metrics_port`` (with per-pod lifecycle tracing), ``--max_rounds``,
   the apiserver-outage outbox and the round-deadline watchdog;
+- ``--express_lane=true`` (with ``--watch=true``) adds the between-
+  ticks fast path: the inter-tick sleep becomes an express window that
+  blocks on the pods watch stream, turns small event batches into
+  bindings from the warm device state between round ticks
+  (``SchedulerBridge.express_batch``), and POSTs them at once; full
+  rounds become serial correction passes (every
+  ``--express_correction_rounds`` ticks while the context is live)
+  that differential-verify express placements; anything the express
+  vocabulary cannot represent (node events, stream degradation,
+  oversize batches) degrades loudly to the next full round, and a
+  queue deeper than ``--express_shed_queue`` sheds to the tick;
 - ``--device`` (default ``cuda``) picks the solver's device; without a
   card the default raises, and ``--device=cpu`` runs on the CPU;
-- the flags of modules not ported yet (express and stream lanes, the
+- the flags of modules not ported yet (the stream lane, the
   service, standby and checkpoints, flight recorder, explainer, shadow
   audit, SLOs, the device mesh, class aggregation, preference pruning)
   are parsed so the reference's flagfiles load, and any of them given a
@@ -54,10 +65,6 @@ _BOOL = ("true", "false")
 # They parse so the reference's flagfiles load; any other value than
 # the default is refused (``unported_flags``)
 UNPORTED_FLAGS = {
-    "express_lane": ("false", _BOOL, 3),
-    "express_max_batch": (16, int, 3),
-    "express_correction_rounds": (1, int, 3),
-    "express_shed_queue": (512, int, 3),
     "stream_windows": (0, int, 4),
     "serve": ("false", _BOOL, 5),
     "serve_apiservers": ("", str, 5),
@@ -145,6 +152,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="churn budget: MIGRATE+PREEMPT deltas actuated "
                         "per round (0 = unlimited); excess deltas are "
                         "deferred and re-proposed next round")
+    # the express lane: small watch-event batches become bindings
+    # BETWEEN round ticks via a device patch + bounded eps=1 repair of
+    # the last round's warm dense state (ops/resident.py express lane);
+    # the full resident round is demoted to a periodic correction pass
+    # that differential-verifies express placements. Requires --watch
+    # (events are the trigger) and runs serial ticks (the inter-tick
+    # window IS the express window, so --round_pipeline — which parks a
+    # solve in flight across that window — is ignored)
+    p.add_argument("--express_lane",
+                   default="false", choices=["true", "false"],
+                   help="bind small pod-arrival batches between round "
+                        "ticks by patching the warm device dense state "
+                        "and running a bounded eps=1 repair; full "
+                        "rounds become periodic correction passes. "
+                        "Requires --watch=true; implies serial ticks")
+    p.add_argument("--express_max_batch", type=int, default=16,
+                   help="max pod arrivals per express dispatch (a fixed "
+                        "shape); larger event bursts degrade to the "
+                        "next full round")
+    p.add_argument("--express_correction_rounds", type=int, default=1,
+                   help="run the full correction round every Nth tick "
+                        "while the express context is live (1 = every "
+                        "tick); a degraded/invalidated express context "
+                        "forces the round on the next tick")
+    p.add_argument("--express_shed_queue", type=int, default=512,
+                   help="overload backpressure: when the pods watch "
+                        "queue holds more than this many undrained "
+                        "items, the express window sheds to the tick "
+                        "path (one full solve absorbs the burst) and "
+                        "poseidon_express_shed_total counts it. "
+                        "0 = never shed")
     p.add_argument("--device", default="cuda",
                    help="the solver's torch device: cuda (default; "
                         "raises without a card), cuda:N, or cpu")
@@ -488,6 +526,8 @@ def run_loop(
             metrics=sched_metrics,
             profile_spans=args.trace_profile == "true",
             lifecycle=lifecycle,
+            express_lane=args.express_lane == "true",
+            express_max_batch=args.express_max_batch,
             device=args.device,
         )
         # ---- the failure-domain ladder --------------------------------
@@ -550,11 +590,34 @@ def run_loop(
                 max_lag_s=args.watch_max_lag,
                 metrics=sched_metrics,
             )
+        express = args.express_lane == "true"
+        if express and watcher is None:
+            log.warning(
+                "--express_lane needs --watch=true (watch events are the "
+                "express trigger); express lane disabled"
+            )
+            express = False
+        if express and pipelined:
+            # the pipeline parks a solve in flight across the inter-tick
+            # window — exactly where the express lane lives; serial
+            # correction rounds replace it
+            log.info(
+                "--express_lane runs serial correction rounds; "
+                "--round_pipeline ignored"
+            )
+            pipelined = False
+        if express and not incremental:
+            log.warning(
+                "--express_lane needs warm device state "
+                "(--run_incremental_scheduler=true); every express batch "
+                "will degrade to the round path"
+            )
         # the lane label every round's stats carry (the metrics/report
         # grouping key)
-        bridge.lane = ("watch" if watcher is not None else "poll") + (
-            "+pipelined" if pipelined else ""
-        )
+        bridge.lane = (
+            "express" if express
+            else "watch" if watcher is not None else "poll"
+        ) + ("+pipelined" if pipelined else "")
 
         # graceful shutdown: SIGTERM finishes the in-flight round,
         # flushes deltas + trace, and exits 0
@@ -571,7 +634,7 @@ def run_loop(
             args, client, bridge, watcher, outbox, detector, stop,
             health=health, sched_metrics=sched_metrics,
             stats_fh=stats_fh, incremental=incremental,
-            pipelined=pipelined, round_hook=round_hook,
+            pipelined=pipelined, express=express, round_hook=round_hook,
         )
     finally:
         if old_sigterm is not None:
@@ -592,7 +655,7 @@ def run_loop(
 
 def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
           health, sched_metrics, stats_fh, incremental, pipelined,
-          round_hook) -> int:
+          express, round_hook) -> int:
     """The ticks of ``run_loop``, after everything is built."""
 
     def _note_read_success() -> None:
@@ -637,8 +700,15 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
         else:
             for typ, machine in delta.node_events:
                 bridge.observe_node_event(typ, machine)
-            for typ, task in delta.pod_events:
-                bridge.observe_pod_event(typ, task)
+            if express:
+                # express lane on: pod events go through the batch
+                # path so the device context is patched (or degraded
+                # loudly) in lockstep with bridge state — events that
+                # can still bind do so even at tick time
+                _post_express(bridge.express_batch(delta.pod_events))
+            else:
+                for typ, task in delta.pod_events:
+                    bridge.observe_pod_event(typ, task)
         bridge.note_watch_activity(delta.resyncs, delta.reconnects)
         return True
 
@@ -655,12 +725,82 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
                 # confirm closed
                 bridge.lifecycle.stamp(uid, "posted")
 
+    def _post_express(result) -> None:
+        """POST one express batch's bindings; rejections re-queue (the
+        bridge invalidates the context, so the next full round owns
+        recovery); unreachable POSTs park in the outbox with the pod
+        confirmed."""
+        if result is None or not result.bindings:
+            return
+        for uid, machine, outcome in _post_bindings(
+            client, bridge, result.bindings, outbox=outbox,
+        ):
+            _mark_bind(uid, outcome)
+            if outcome in ("ok", "parked"):
+                bridge.confirm_binding(uid, machine)
+            else:
+                log.warning(
+                    "express bind POST failed for %s; re-queueing", uid
+                )
+                bridge.binding_failed(uid)
+
+    def _express_window(window_s: float) -> None:
+        """The inter-tick express window: turn small watch-event
+        batches into bindings until the window closes or something
+        outside the express vocabulary arrives (node events, stream
+        degradation — the next tick's observe handles those with the
+        full resync/mass-eviction guards)."""
+        deadline = time.monotonic() + window_s
+        while True:
+            if stop.is_set():
+                return  # shutdown: the loop top finishes the round
+            wait = deadline - time.monotonic()
+            if wait <= 0:
+                return
+            ev = watcher.express_poll(
+                wait, max_events=args.express_max_batch,
+                shed_queue=args.express_shed_queue,
+            )
+            if ev.shed:
+                # overload backpressure: the queued burst outgrew the
+                # express lane — loudly hand it to the tick's single
+                # full solve
+                log.warning(
+                    "express window shed to tick: pods stream queue "
+                    "exceeds --express_shed_queue=%d",
+                    args.express_shed_queue,
+                )
+                if sched_metrics is not None:
+                    sched_metrics.record_express_shed()
+            if ev.reconnects:
+                bridge.note_watch_activity(0, ev.reconnects)
+            if ev.pod_events:
+                # always apply consumed pod events, even when the poll
+                # also requests a tick (node event / stream degradation
+                # mid-drain): express_poll already advanced the shared
+                # resourceVersion past them, so tick() would skip them
+                # as replayed history. express_batch applies them
+                # through the same observe transitions whether or not
+                # a placement happens.
+                _post_express(
+                    bridge.express_batch(
+                        ev.pod_events, t_event=ev.t_first,
+                        t_events=ev.t_events,
+                    )
+                )
+            if ev.needs_tick:
+                return
+
     rounds = 0
     # round-pipeline state: at most one solve in flight across ticks,
     # plus the finished-but-not-yet-POSTed deltas of the last round
     inflight = None
     to_post: dict[str, str] = {}
     to_rebal: tuple[dict, dict] = ({}, {})
+    # express-lane demotion state: full rounds become a periodic
+    # correction pass (every --express_correction_rounds ticks) while
+    # the express context is live; a dead context forces the round
+    ticks_since_round = 0
 
     def _log_round(result):
         s = result.stats
@@ -728,8 +868,8 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
     overloaded = False
 
     def _watchdog(stats) -> None:
-        """Round-deadline watchdog: declare the overload state rather
-        than wedge."""
+        """Round-deadline watchdog: degrade (declared overload state,
+        express windows shed to tick) rather than wedge."""
         nonlocal deadline_misses, overloaded
         if args.round_deadline_ms <= 0:
             return
@@ -852,7 +992,17 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
                 else:
                     inflight = ir
                 _flush_pending()
+            elif (
+                express and bridge.solver.express_ready
+                and ticks_since_round + 1
+                < max(args.express_correction_rounds, 1)
+            ):
+                # express context live and no correction due this tick:
+                # the round is skipped, the express window below keeps
+                # binding between ticks
+                ticks_since_round += 1
             else:
+                ticks_since_round = 0
                 result = bridge.run_scheduler()
                 if result.bindings:
                     for uid, machine, outcome in _post_bindings(
@@ -891,7 +1041,15 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
             time.sleep(args.polling_frequency / 1e6)
             continue
         elapsed = time.perf_counter() - tick_start
-        time.sleep(max(args.polling_frequency / 1e6 - elapsed, 0.0))
+        remaining = max(args.polling_frequency / 1e6 - elapsed, 0.0)
+        if express and remaining > 0 and not overloaded:
+            # the inter-tick sleep IS the express window: block on the
+            # pods watch stream and bind arrivals at once. Declared
+            # overload skips the window — the tick path absorbs the
+            # backlog in one solve.
+            _express_window(remaining)
+        else:
+            time.sleep(remaining)
 
 
 def main(argv: list[str] | None = None) -> int:

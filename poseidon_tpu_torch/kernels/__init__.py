@@ -1,13 +1,20 @@
-"""Hand-written Hopper kernels of the dense auction, each beside its
-plain PyTorch twin and its launch counter.
+"""Hand-written Hopper kernels of the dense auction and the express
+lane, each beside its plain PyTorch twin and its launch counter.
 
 A wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 twin for CPU tensors; there is no fallback from one to the other.
 """
 
-from poseidon_tpu_torch.kernels import bid_pass, densify, row_options
+from poseidon_tpu_torch.kernels import (
+    bid_pass,
+    densify,
+    express_patch,
+    express_rows,
+    row_options,
+)
 
-KERNELS = (densify.KERNEL, row_options.KERNEL, bid_pass.KERNEL)
+KERNELS = (densify.KERNEL, row_options.KERNEL, bid_pass.KERNEL,
+           express_rows.KERNEL, express_patch.KERNEL)
 
 
 def reset_launch_counts() -> None:
@@ -15,4 +22,5 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "reset_launch_counts", "bid_pass", "densify", "row_options"]
+__all__ = ["KERNELS", "reset_launch_counts", "bid_pass", "densify",
+           "express_patch", "express_rows", "row_options"]

@@ -31,7 +31,9 @@ from poseidon_tpu_torch.guards import report_compile
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "_build"
-_SOURCES = ("densify", "row_options", "bid_pass")
+_SOURCES = (
+    "densify", "row_options", "bid_pass", "express_rows", "express_patch",
+)
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -151,6 +153,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "bid_pass": {
             "bid_pass_launch": [P] * 5 + [I] * 8 + [P] * 5 + [P],
             "bid_pass_occupancy": occupancy,
+        },
+        "express_rows": {
+            "express_rows_launch": [P] * 10 + [I] * 4 + [P],
+        },
+        "express_patch": {
+            "express_patch_launch": [P] * 9 + [I] * 3 + [P],
         },
     }[name]
     for fn_name, argtypes in sigs.items():

@@ -7,10 +7,11 @@ inside int32. The arithmetic restates the reference package's models
 term for term, in the same integer widths, so the priced arc table is
 identical bit for bit.
 
-Ported so far: ``trivial`` and ``quincy``. ``random``, ``octopus``,
-``wharemap`` and ``coco`` keep their names in the registry and raise
-``NotImplementedError`` until their slice of the port lands; a model
-that is not ported never falls back to another one.
+All six of the reference's models are here: trivial, random, quincy,
+wharemap, coco and octopus (the shipped selector, 6). Pricing is plain
+torch: an elementwise pass over the arc axis, with no fused or compiled
+variant (a fused kernel could contract a multiply and an add and round
+differently from the reference).
 """
 
 from __future__ import annotations
@@ -162,6 +163,14 @@ def _i32(x: int, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.int32, device=like.device)
 
 
+def _div_f32(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` in float32, correctly rounded on every device. The
+    divisor is a tensor on ``x``'s device: PyTorch's CUDA division by a
+    Python scalar multiplies by the scalar's float32 reciprocal
+    instead, which rounds differently from the CPU's division."""
+    return x / torch.tensor(d, dtype=torch.float32, device=x.device)
+
+
 def _finish(inputs: CostInputs, cost: torch.Tensor) -> torch.Tensor:
     """Clamp to the documented domain and zero the padding slots.
 
@@ -229,26 +238,118 @@ def quincy_cost(inputs: CostInputs) -> torch.Tensor:
     return _finish(inputs, c)
 
 
-def _not_ported_error(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"cost model {name!r} is not ported to poseidon_tpu_torch yet; "
-        f"it comes with the cost-model slice of the port (ROADMAP.md)"
-    )
+def random_cost(inputs: CostInputs, seed: int = 42) -> torch.Tensor:
+    """Deterministic pseudo-random arc costs (debug / fuzz policy).
+
+    The reference hashes in uint32. Torch has no uint32 arithmetic on
+    every device, so the hash runs in int64 masked to the low 32 bits
+    after every multiply and add: a signed int64 product of two 32-bit
+    values may wrap, but its low 32 bits are the uint32 product's, and
+    ``>> 15`` of a masked (non-negative) value is the logical shift."""
+    m32 = 0xFFFFFFFF
+
+    def u32(x):
+        return x.to(torch.int64) & m32
+
+    x = (u32(inputs.kind) * 0x9E3779B9) & m32
+    x = (x + ((u32(inputs.task) * 0x85EBCA6B) & m32)) & m32
+    x = (x + ((u32(inputs.machine) * 0xC2B2AE35) & m32)) & m32
+    x = (x + seed) & m32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & m32
+    x = x ^ (x >> 12)
+    c = (x % 100).to(torch.int32)
+    # keep unsched clearly the worst option so random still schedules
+    c = torch.where(_kind(inputs, ArcKind.TASK_TO_UNSCHED),
+                    _i32(COST_CAP // 2, c), c)
+    return _finish(inputs, c)
 
 
-def _not_ported(name: str) -> Callable[[CostInputs], torch.Tensor]:
-    def model(inputs: CostInputs) -> torch.Tensor:
-        raise _not_ported_error(name)
+# The float models below keep every step in float32, one torch op per
+# reference op in the reference's order, and cast with
+# ``.to(torch.int32)`` (truncation toward zero, as ``astype``), so the
+# priced arcs equal the reference model's after the cast bit for bit,
+# on the CPU and on the card alike. (Inside a jitted program, XLA on the
+# CPU turns ``/ 1000.0`` into a multiply by 0.001f, fused with the
+# following add: the reference's compiled rounds can then differ from
+# its own model called op by op in a rare arc of wharemap or coco.)
 
-    model.__name__ = f"{name}_cost"
-    model.ported = False
-    return model
+
+def octopus_cost(inputs: CostInputs) -> torch.Tensor:
+    """Load-balancing policy — the reference's shipped selector
+    (deploy/poseidon.cfg:6-7): busy machines price up, so flow spreads.
+    """
+    load = (inputs.machine_load * 100).to(torch.int32)
+    slots = inputs.machine_used_slots * _SCALE
+    per_machine = (load + slots)[inputs.machine.long()]
+    c = torch.zeros_like(inputs.kind)
+    to_machine = (_kind(inputs, ArcKind.CLUSTER_TO_MACHINE)
+                  | _kind(inputs, ArcKind.RACK_TO_MACHINE)
+                  | _kind(inputs, ArcKind.TASK_TO_MACHINE))
+    c = torch.where(to_machine, per_machine, c)
+    c = torch.where(_kind(inputs, ArcKind.MACHINE_TO_SINK), per_machine, c)
+    c = torch.where(_kind(inputs, ArcKind.TASK_TO_CLUSTER),
+                    _i32(_SCALE, c), c)
+    c = torch.where(_kind(inputs, ArcKind.TASK_TO_UNSCHED),
+                    _i32(COST_CAP // 4, c), c)
+    return _finish(inputs, c)
 
 
-random_cost = _not_ported("random")
-wharemap_cost = _not_ported("wharemap")
-coco_cost = _not_ported("coco")
-octopus_cost = _not_ported("octopus")
+def wharemap_cost(inputs: CostInputs) -> torch.Tensor:
+    """Interference scoring from observed samples (Whare-Map-style).
+
+    Prices a task onto a machine by the product of the machine's observed
+    load and the task's observed hunger — co-locating a hot task on a hot
+    machine is the expensive corner. Unsampled entities degrade to pure
+    load balancing.
+    """
+    task = inputs.task.long()
+    hunger = torch.clamp(inputs.task_usage[task]
+                         + _div_f32(inputs.task_cpu[task].to(torch.float32),
+                                    1000.0), 0.1, 8.0)
+    load = inputs.machine_load[inputs.machine.long()]
+    interf = (hunger * load * 100.0).to(torch.int32)
+    c = torch.zeros_like(inputs.kind)
+    direct = (_kind(inputs, ArcKind.TASK_TO_MACHINE)
+              | _kind(inputs, ArcKind.CLUSTER_TO_MACHINE)
+              | _kind(inputs, ArcKind.RACK_TO_MACHINE))
+    c = torch.where(direct, interf, c)
+    c = torch.where(_kind(inputs, ArcKind.TASK_TO_CLUSTER),
+                    _i32(2 * _SCALE, c), c)
+    c = torch.where(_kind(inputs, ArcKind.TASK_TO_UNSCHED),
+                    _i32(COST_CAP // 4, c), c)
+    return _finish(inputs, c)
+
+
+def coco_cost(inputs: CostInputs) -> torch.Tensor:
+    """Multi-dimensional co-location policy (CoCo-style).
+
+    Cost is the tightest normalized resource fit across CPU and memory:
+    placing a demanding task on a machine with little headroom is
+    penalized superlinearly, so the solver packs across dimensions.
+    """
+    task = inputs.task.long()
+    machine = inputs.machine.long()
+    cpu_req = _div_f32(inputs.task_cpu[task].to(torch.float32), 1000.0)
+    mem_req = inputs.task_mem_kb[task].to(torch.float32)
+    cpu_head = torch.clamp(1.0 - inputs.machine_load[machine], min=0.05)
+    mem_head = torch.clamp(inputs.machine_mem_free[machine], min=0.05)
+    fit = torch.maximum(cpu_req / cpu_head,
+                        mem_req / (mem_head * (1 << 20)))
+    sq = torch.clamp(fit, 0.0, 4.0)
+    score = (sq * sq * 100.0).to(torch.int32)
+    c = torch.zeros_like(inputs.kind)
+    placing = (_kind(inputs, ArcKind.TASK_TO_MACHINE)
+               | _kind(inputs, ArcKind.CLUSTER_TO_MACHINE)
+               | _kind(inputs, ArcKind.RACK_TO_MACHINE))
+    c = torch.where(placing, score, c)
+    c = torch.where(_kind(inputs, ArcKind.TASK_TO_CLUSTER),
+                    _i32(3 * _SCALE, c), c)
+    wait = torch.clamp(inputs.task_wait[task], max=WAIT_CAP)
+    c = torch.where(_kind(inputs, ArcKind.TASK_TO_UNSCHED),
+                    COST_CAP // 4 + 5 * _SCALE * wait, c)
+    return _finish(inputs, c)
+
 
 CostModelFn = Callable[[CostInputs], torch.Tensor]
 
@@ -290,9 +391,7 @@ def resolve_cost_model_name(name_or_selector: str | int) -> str:
 
 
 def get_cost_model(name_or_selector: str | int) -> CostModelFn:
-    """Look up a cost model by name or by the reference's integer flag.
-    Raises ``NotImplementedError`` for a registered model whose port has
-    not landed yet."""
+    """Look up a cost model by name or by the reference's integer flag."""
     name = resolve_cost_model_name(name_or_selector)
     try:
         fn = COST_MODELS[name]
@@ -300,6 +399,4 @@ def get_cost_model(name_or_selector: str | int) -> CostModelFn:
         raise KeyError(
             f"unknown cost model {name!r}; known: {sorted(COST_MODELS)}"
         ) from None
-    if not getattr(fn, "ported", True):
-        raise _not_ported_error(name)
     return fn

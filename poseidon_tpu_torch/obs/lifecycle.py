@@ -151,6 +151,18 @@ class LifecycleTracker:
             t_event_wall_us=int(time.time() * 1e6),
         )
 
+    def backdate_event(self, uid: str, t_event: float) -> None:
+        """Move an open timeline's event stamp EARLIER (never later):
+        the express window dequeues events with their own receipt
+        stamps, which precede the observe that minted the timeline.
+        The wall twin backdates by the same delta."""
+        tl = self.open.get(uid)
+        if tl is not None and t_event < tl.t_event:
+            tl.t_event_wall_us -= int(
+                (tl.t_event - t_event) * 1e6
+            )
+            tl.t_event = t_event
+
     def stamp(self, uid: str, stage: str) -> None:
         """Mark one mid-life stage (``decided``/``journal``/``posted``)
         at now; unknown uids are ignored (a journaled op for a pod the

@@ -337,8 +337,8 @@ class SchedulerMetrics:
 
     One instance per daemon, shared by the bridge, the resident solver,
     and the watcher. All ``record_*`` methods take host-side values the
-    caller already holds. The families of lanes not ported yet (express,
-    stream, service, checkpoints, audit, SLOs, flight recorder) are
+    caller already holds. The families of lanes not ported yet (stream,
+    service, checkpoints, audit, SLOs, flight recorder) are
     registered so the exposition names the reference's families; they
     have no recorder here and stay at zero.
     """
@@ -800,6 +800,9 @@ class SchedulerMetrics:
             ) else "other"
             self.outbox_dead_letters.inc(op=op)
 
+    def record_express_shed(self) -> None:
+        self.express_shed.inc()
+
     def record_deadline_miss(self, overloaded: bool) -> None:
         """One round-deadline miss; ``overloaded`` is the watchdog's
         current degraded-state verdict."""
@@ -870,6 +873,21 @@ class SchedulerMetrics:
             k: str(v) for k, v in info.items()
         })
 
+    # ---- express lane --------------------------------------------------
+
+    def record_express_batch(self, e2b_ms_samples) -> None:
+        """One certified express dispatch: per-placement
+        event-to-bind-decision samples (already computed from
+        perf-counter stamps; empty for a retire/completion-only
+        batch)."""
+        self.express_batches.inc()
+        self.express_places.inc(len(e2b_ms_samples))
+        for e2b in e2b_ms_samples:
+            self.express_e2b.observe(e2b)
+
+    def record_express_degrade(self, why: str) -> None:
+        self.express_degrades.inc(why=_bounded_why(why))
+
     # ---- watch subsystem ----------------------------------------------
 
     def record_resync(self, reason: str) -> None:
@@ -893,6 +911,36 @@ class SchedulerMetrics:
         self.solver_fetches.inc(fetches, lane="round")
         self.solver_warm.set(1 if warm else 0)
         self.express_context_ready.set(1 if express_ready else 0)
+
+    def record_express_fetch(self) -> None:
+        self.solver_fetches.inc(lane="express")
+
+
+# express degrade reasons are free text (they embed uids/counts);
+# collapse to a bounded vocabulary for the label
+_WHY_BUCKETS = (
+    ("unconfirmed", "unconfirmed"),
+    ("domain", "domain"),
+    ("uncertified", "uncertified"),
+    ("change cap", "change-cap"),
+    ("change_cap", "change-cap"),
+    ("stream", "stream"),
+    ("arrivals >", "batch-size"),
+    ("rows exhausted", "rows-exhausted"),
+    ("no-context", "no-context"),
+    ("no warm state", "no-context"),
+    ("round-in-flight", "round-in-flight"),
+    ("class", "aggregation"),
+    ("prefs", "prefs"),
+)
+
+
+def _bounded_why(why: str) -> str:
+    for needle, label in _WHY_BUCKETS:
+        if needle in why:
+            return label
+    return "vocabulary"
+
 
 def build_info(mesh_width: int = 0, device=None) -> dict:
     """The build-identity labelset shared by the

@@ -1,7 +1,7 @@
 """Phase-span profiling: structured span trees in the trace stream.
 
-With ``--trace_profile`` on, every completed round emits ONE ``SPAN``
-trace event whose ``detail`` is a
+With ``--trace_profile`` on, every completed round and every express
+batch emits ONE ``SPAN`` trace event whose ``detail`` is a
 self-describing span tree — the per-phase decomposition the flat
 ``ROUND`` stats already carry, laid out as intervals so host/device
 overlap is visually inspectable:
@@ -30,10 +30,10 @@ load the output in ``chrome://tracing`` or ui.perfetto.dev. Rounds are
 anchored on their wall timestamps, so inter-round gaps are real; the
 intra-round layout is the reconstruction above.
 
-The builder runs inside the bridge's finish/actuate window: pure dict
+The builders run inside the bridge's finish/actuate window: pure dict
 assembly from host floats the caller already holds, never a device
-sync, never a cluster-sized walk. (The express and stream lanes' span
-trees come with those lanes.)
+sync, never a cluster-sized walk. (The stream lane's span tree comes
+with that lane.)
 """
 
 from __future__ import annotations
@@ -158,3 +158,39 @@ def write_chrome_trace(events, path: str) -> str:
     with open(path, "w") as fh:
         json.dump(doc, fh)
     return path
+
+
+def express_span_tree(latency_ms: float, timings: dict) -> dict:
+    """One express batch's span tree from its already-measured phase
+    timings (prep / upload / solve, ops/resident.py vocabulary).
+
+    The root spans the whole event-to-bind window; the work phases
+    tile its END (the batch binds when solve finishes), so any
+    event-receipt queue wait renders BEFORE the work — where it
+    actually happened — not as a trailing gap."""
+    work = sum(
+        float(timings.get(n, 0.0))
+        for n in ("prep_ms", "upload_ms", "solve_ms")
+    )
+    children = []
+    off = max(latency_ms - work, 0.0)
+    if off:
+        children.append({
+            "name": "e2b-wait",
+            "off_ms": 0.0,
+            "dur_ms": round(off, 3),
+        })
+    for name in ("prep_ms", "upload_ms", "solve_ms"):
+        dur = float(timings.get(name, 0.0))
+        children.append({
+            "name": name[:-3],
+            "off_ms": round(off, 3),
+            "dur_ms": round(dur, 3),
+        })
+        off += dur
+    return {
+        "name": "express-batch",
+        "lane": "express",
+        "dur_ms": round(latency_ms, 3),
+        "children": children,
+    }

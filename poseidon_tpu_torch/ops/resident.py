@@ -3,9 +3,12 @@
 A round prices the arcs, densifies the cost table, runs the auction
 and finalizes channels and objective on the device, then brings the
 result back in ONE batched transfer (``_resident_chain`` + the fetch in
-``begin_round``). This restates ``poseidon_tpu/ops/resident.py`` (the
-round half: no express or stream lane, no aggregation, no mesh) on
-PyTorch tensors, with identical outputs bit for bit.
+``begin_round``). Between rounds the express lane patches the round's
+warm device instance and repairs it (``express_round``: K5 retires
+rows, K4 writes arrival rows, an eps=1 repair, one fetch). This
+restates ``poseidon_tpu/ops/resident.py`` (the round half and the
+express lane; no stream lane, no aggregation, no mesh) on PyTorch
+tensors, with identical outputs bit for bit.
 
 Host syncs. The reference's round is one compiled program with one host
 sync. Here the auction's loop runs on the host and reads a small flag
@@ -34,9 +37,11 @@ import time
 import numpy as np
 import torch
 
-from poseidon_tpu_torch.graph.builder import GraphMeta
+from poseidon_tpu_torch.graph.builder import ArcKind, GraphMeta
 from poseidon_tpu_torch.graph.network import FlowNetwork, pad_bucket
 from poseidon_tpu_torch.guards import FetchTimeout, SyncCounter
+from poseidon_tpu_torch.kernels.express_patch import express_patch
+from poseidon_tpu_torch.kernels.express_rows import express_rows
 from poseidon_tpu_torch.kernels.row_options import row_options
 from poseidon_tpu_torch.models.costs import (
     CostInputs,
@@ -276,6 +281,211 @@ def _decision_stats(dev: DenseInstance, asg):
     return chosen, alt
 
 
+# ---------------------------------------------------------------------------
+# the express lane: device patch + bounded eps=1 repair between rounds
+# ---------------------------------------------------------------------------
+
+# Bounded repair fuse: an express batch is 1-K arrivals/completions
+# against warm prices, so the repair is sparse local work; a batch that
+# genuinely needs a price war this long is cheaper as a full round
+# (converged=False -> EXPRESS_DEGRADE, the next round handles it).
+EXPRESS_FUSE = 5_000
+
+# chunk width of the retire/slot patch: backlogs larger than one chunk
+# (a big round's bindings, a rebalancing-mode freeze of every running
+# row) apply as several K5 launches, in order
+_EXPRESS_PATCH_CHUNK = 1024
+
+
+def _express_patch(u, w, task_valid, s, asg, lvl, rows, slot_col,
+                   slot_delta):
+    """Deactivate table rows + apply slot-capacity deltas for one chunk
+    (K5; ``rows``/``slot_col`` use -1 for unused entries).
+
+    The retire half of the express patch vocabulary: a pod whose
+    binding POST landed leaves the pending set, so its (seated) row
+    deactivates and its machine's capacity drops by one — net zero on
+    the auction's feasible set, so warm prices stay eps-CS and no repair
+    is needed. Also carries bare slot deltas (completions of running
+    pods free a seat, +1). Every tensor is patched IN PLACE: u, w,
+    task_valid and s belong to the express context, and the caller
+    passes clones of the warm state's asg and lvl (a degraded batch
+    keeps the warm state the next full round starts from)."""
+    express_patch(u, w, task_valid, s, asg, lvl, rows, slot_col, slot_delta)
+    return u, w, task_valid, s, asg, lvl
+
+
+def _express_patch_chunks(rows, cols, deltas):
+    """Pad retire/slot patches into fixed-width chunks (one K5 launch
+    each)."""
+    out = []
+    n = len(rows)
+    W = _EXPRESS_PATCH_CHUNK
+    for i in range(0, n, W):
+        r = np.full(W, -1, np.int32)
+        c = np.full(W, -1, np.int32)
+        d = np.zeros(W, np.int32)
+        r[: min(W, n - i)] = rows[i: i + W]
+        c[: min(W, n - i)] = cols[i: i + W]
+        d[: min(W, n - i)] = deltas[i: i + W]
+        out.append((r, c, d))
+    return out
+
+
+def _scatter_drop(base, idx, vals):
+    """``base.at[idx].set(vals, mode="drop")`` without a host sync: an
+    out-of-range index lands in a spare slot that is cut off again."""
+    n = base.shape[0]
+    i = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    ext = torch.cat([base, base.new_zeros(1)])
+    ext[i] = vals
+    return ext[:n]
+
+
+def _express_step(
+    dev: DenseInstance,
+    dt: DenseTopology,
+    cost_dev,
+    mini_inputs,
+    asg, lvl, floor,
+    add_row,      # i32[kmax] padded row to activate (-1 unused)
+    add_pm,       # i32[kmax, pk] pref machine COLUMN (-1 none)
+    add_pr,       # i32[kmax, pk] pref rack index (-1 none)
+    *,
+    model_fn,
+    kmax: int,
+    pk: int,
+    alpha: int,
+    max_rounds: int,
+    smax: int,
+    change_cap: int,
+    syncs: SyncCounter | None = None,
+):
+    """One express window on the device (the reference's
+    ``_express_step``, which its ``_express_chain`` runs one window a
+    dispatch): price the arrivals' task-side arcs with the round's cost
+    model, activate their table rows (K4) against the warm instance,
+    run a bounded eps=1 repair from the existing prices (``_solve``: K2,
+    K3, the sorts), and compact the changed placements for the one
+    result fetch. The trailing ``report`` mask stays on the device; only
+    the change-cap overflow path fetches it.
+
+    No rebuild, no cold eps ladder: machine-side routes (``dev.dgen``,
+    the m->sink / rack legs gathered from ``cost_dev``) are the LAST
+    round's prices by design — the periodic correction round re-prices
+    everything and differential-verifies what express placed. The
+    repair's certificate gates every batch. ``dev.c`` is patched in
+    place (the context's table has no other reader); ``rounds`` and
+    ``phases`` come back as Python ints.
+    """
+    Tp, Mp = dev.c.shape
+    device = dev.c.device
+    pos = torch.arange(Tp, dtype=I32, device=device)
+
+    # ---- price the arrivals' task-side arcs (shared cost model) ----
+    cost_mini = model_fn(mini_inputs)
+    u_u = (cost_mini[:kmax]
+           + cost_mini[2 * kmax + kmax * pk: 3 * kmax + kmax * pk])
+    w_u = cost_mini[kmax: 2 * kmax]
+    pc_raw = cost_mini[2 * kmax: 2 * kmax + kmax * pk].reshape(kmax, pk)
+
+    # machine-side legs from the round's priced arc table (the same
+    # gathers as _redensify, [Mp]-cheap)
+    def gat(idx, fill):
+        return torch.where(
+            idx >= 0, cost_dev[torch.clamp(idx, min=0).long()], fill
+        )
+
+    g = gat(dt.arc_m2s, INF)
+    ra_u = torch.clamp(gat(dt.arc_r2m, INF) + g, max=INF)
+    scale = dev.scale
+
+    has_pref = (add_pm >= 0) | (add_pr >= 0)
+    pm_leg = torch.where(
+        add_pm >= 0, g[torch.clamp(add_pm, min=0).long()], 0
+    )
+    pc_route = torch.where(
+        has_pref, torch.clamp(pc_raw + pm_leg, max=INF), INF
+    )
+
+    # integer-domain guard for the batch, in int64
+    def finmax(x):
+        return torch.where(x < INF, x, 0).max()
+
+    cmax_new = torch.maximum(
+        torch.maximum(finmax(u_u), finmax(w_u)), finmax(pc_route)
+    )
+    # the min side masks the unused arrival lanes (add_row == -1): the
+    # mini inputs fill them with a synthetic zero pod the cost model
+    # still prices, and a model pricing that phantom below zero must
+    # not fail the domain check of every batch
+    arr_valid = add_row >= 0
+    cmin_new = torch.minimum(
+        torch.where(arr_valid, u_u, 0).min(),
+        torch.minimum(
+            torch.where(arr_valid, w_u, 0).min(),
+            torch.where(has_pref, pc_route, 0).min(),
+        ),
+    )
+    domain_ok = (cmin_new >= 0) & (
+        2 * cmax_new.to(I64) * scale < MAX_SCALED_COST
+    )
+
+    def sc(x):
+        # int32 times the Python-int scale wraps; the where() discards
+        # the INF-saturated lanes before anything reads them
+        return torch.where(x >= INF, INF, x * scale).to(I32)
+
+    u_s, w_s = sc(u_u), sc(w_u)
+    pc_s = sc(pc_route)
+    ra_s = sc(ra_u)
+
+    # ---- build + scatter the arrival rows (K4, in place) ----
+    c2 = express_rows(dev.c, w_s, pc_s, add_row, add_pm, add_pr,
+                      dev.dgen, ra_s, dt.rack_of, dev.s)
+    u2 = _scatter_drop(dev.u, add_row, u_s)
+    w2 = _scatter_drop(dev.w, add_row, w_s)
+    valid2 = _scatter_drop(
+        dev.task_valid, add_row,
+        torch.ones(kmax, dtype=torch.bool, device=device),
+    )
+    asg0 = _scatter_drop(asg, add_row, torch.full_like(add_row, -1))
+    lvl0 = _scatter_drop(lvl, add_row, torch.zeros_like(add_row))
+    dev2 = dataclasses.replace(dev, c=c2, u=u2, w=w2, task_valid=valid2,
+                               smax=smax)
+
+    # ---- bounded eps=1 repair from the existing prices ----
+    asg_f, lvl_f, floor_f, gap, conv, rounds, phases, _ = _solve(
+        dev2, asg0, lvl0, floor, 1, alpha=alpha, max_rounds=max_rounds,
+        smax=smax, analytic_init=False, syncs=syncs,
+    )
+
+    # ---- compact ONLY the affected placements for the fetch: a sort
+    # of the changed rows' positions (no nonzero, no host sync) ----
+    report = valid2 & (asg_f >= 0) & (asg_f < Mp) & (asg_f != asg0)
+    n_changes = report.sum(dtype=I32)
+    key = torch.sort(torch.where(report, pos, Tp)).values
+    rows_out = key[:change_cap]
+    asg_out = torch.where(
+        rows_out < Tp, asg_f[torch.clamp(rows_out, max=Tp - 1).long()], -1
+    )
+
+    # exact objective of the active rows (the express cost, scaled)
+    on_m = (asg_f >= 0) & (asg_f < Mp)
+    c_asg = c2.gather(1, torch.clamp(asg_f, 0, Mp - 1).long()[:, None])[:, 0]
+    per = torch.where(
+        valid2,
+        torch.where(on_m, c_asg, torch.where(asg_f == Mp, u2, INF)),
+        0,
+    )
+    primal = per.to(I64).sum()
+    n_active = valid2.sum(dtype=I32)
+
+    return (dev2, asg_f, lvl_f, floor_f, gap, conv, rounds, phases,
+            rows_out, asg_out, n_changes, domain_ok, primal, n_active,
+            report)
+
+
 class _AsyncFetch:
     """Single-shot background worker with a bounded join.
 
@@ -447,8 +657,111 @@ class InflightSolve:
     n_machines: int = 0
     timings: dict | None = None
     t_dispatch: float = 0.0
+    # host machine-side cost inputs of the round, kept for the express
+    # lane's mini pricing
+    machine_kwargs: dict | None = None
     # set by finish_round on first join; guards double-finish
     consumed: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpressArrival:
+    """One new pending pod for the express lane, in builder-column
+    vocabulary: ``prefs`` are the (machine_idx, rack_idx, weight) rows
+    ``FlowGraphBuilder.task_arc_rows`` resolves — the SAME single-event
+    column patch the incremental builder applies, so the periodic
+    correction round builds an identical graph for this pod."""
+
+    uid: str
+    wait_rounds: int = 0
+    cpu_milli: int = 0
+    mem_kb: int = 0
+    prefs: tuple = ()    # ((machine_idx | -1, rack_idx | -1, weight), ...)
+
+
+@dataclasses.dataclass
+class ExpressBatch:
+    """One coalesced watch-event batch for ``express_round``.
+
+    ``retires`` are pods whose binding POST landed since the last
+    dispatch (row deactivates, target machine's capacity drops one);
+    ``removals`` are pending pods that left the cluster; ``slot_deltas``
+    are bare capacity changes (a running pod completing frees a seat)."""
+
+    arrivals: list[ExpressArrival] = dataclasses.field(
+        default_factory=list)
+    retires: list[tuple[str, str]] = dataclasses.field(
+        default_factory=list)      # (uid, machine name)
+    removals: list[str] = dataclasses.field(default_factory=list)
+    slot_deltas: list[tuple[str, int]] = dataclasses.field(
+        default_factory=list)      # (machine name, +/- seats)
+
+
+@dataclasses.dataclass
+class ExpressOutcome:
+    """One express dispatch's result. ``ok=False`` means the batch
+    DEGRADED (reason says why): nothing was placed, the express context
+    is invalidated, and the events simply wait for the next full round
+    — never a silent wrong placement (the in-kernel certificate gates
+    every batch)."""
+
+    ok: bool
+    placements: list[tuple[str, str]] = dataclasses.field(
+        default_factory=list)      # (uid, machine name)
+    cost: int = 0
+    rounds: int = 0
+    reason: str = ""
+    # ok=True but something degraded LOUDLY along the way (change-cap
+    # overflow's full placement fetch): the bridge traces/counts an
+    # EXPRESS_DEGRADE with this reason while still binding everything
+    degrade_reason: str = ""
+    timings: dict = dataclasses.field(default_factory=dict)
+
+
+class ExpressDegrade(Exception):
+    """This batch cannot take the express path. Raised internally by
+    the patch/repair chain (``express_round`` turns it into an
+    ``ExpressOutcome(ok=False)``) and by ``express_maps`` when
+    finalizing the context degrades (the bridge invalidates + counts)."""
+
+
+@dataclasses.dataclass
+class _ExpressContext:
+    """The warm device state the express lane patches between rounds.
+
+    Created by ``finish_round`` on every certified dense round (express
+    lane on), dropped by the next ``begin_round``. Device handles keep
+    the round's densified table / topology / priced arcs resident; the
+    host maps are built LAZILY on first express use so rounds that see
+    no inter-round events pay nothing beyond the references.
+    """
+
+    dev: object                 # device DenseInstance (the warm table)
+    dt: object                  # device DenseTopology
+    cost_dev: object            # device priced arc table (round prices)
+    meta: object                # GraphMeta of the round's build
+    topo: object                # base TransportTopology
+    assignment: np.ndarray      # round's final machine assignment
+    machine_kwargs: dict        # host machine-side cost inputs (stale
+                                # by design: "from the existing prices")
+    model_fn: object
+    n_prefs: int
+    smax: int
+    Tp: int
+    Mp: int
+    T: int
+    scale: int
+    # ---- lazy host maps (built on first express dispatch) ----
+    ready: bool = False
+    uid_row: dict | None = None
+    row_uid: dict | None = None
+    free_rows: list | None = None
+    midx: dict | None = None
+    rack_idx: dict | None = None
+    # rebalancing mode: running rows frozen out of the express auction
+    # (their seats become used capacity), applied with the first batch
+    pending_freeze: tuple | None = None
+    batches: int = 0
 
 
 class ResidentSolver:
@@ -459,12 +772,14 @@ class ResidentSolver:
     starting point — the auction's violator release and certificate
     repair it exactly.
 
-    The express/stream lanes, machine aggregation, preference pruning
-    and the device mesh are not part of this port yet: asking for any
-    of them raises ``NotImplementedError``. The bridge-facing surface
-    of the express lane is here already (``express_ready`` stays False,
-    ``invalidate_express`` has nothing to drop), so the bridge drives
-    this solver through the reference's calls.
+    ``express_lane`` keeps each certified round's densified table,
+    topology and prices resident on the device, so small watch-event
+    batches re-solve between rounds (``express_round``: K5 patches, K4
+    arrival rows, a bounded eps=1 repair, one result fetch).
+
+    The stream lane, machine aggregation, preference pruning and the
+    device mesh are not part of this port yet: asking for any of them
+    raises ``NotImplementedError``.
     """
 
     # runner-up computation on the oracle path is O(T·M) host work;
@@ -486,13 +801,13 @@ class ResidentSolver:
         topk_prefs: int = 0,
         express_lane: bool = False,
         express_max_batch: int = 16,
+        express_change_cap: int = 256,
         stream_windows: int = 0,
         metrics=None,
     ):
         later = {
             "mesh_width": mesh_width, "aggregate_classes": aggregate_classes,
-            "topk_prefs": topk_prefs, "express_lane": express_lane,
-            "stream_windows": stream_windows,
+            "topk_prefs": topk_prefs, "stream_windows": stream_windows,
         }
         asked = sorted(k for k, v in later.items() if v)
         if asked:
@@ -506,10 +821,20 @@ class ResidentSolver:
         # reports its fetch count and warm/express-context liveness at
         # finish time, from host values it already holds
         self.metrics = metrics
-        # the express lane's batch bound, kept for the lane's port; the
-        # context it would fill stays None until then
+        # ---- the express lane (between-rounds fast path) ----
+        # express_lane keeps each certified round's densified table /
+        # topology / prices resident so small watch-event batches
+        # re-solve with ONE result fetch (express_round);
+        # express_max_batch bounds arrivals per dispatch (a fixed
+        # shape), and express_change_cap bounds the compacted changed-
+        # placement fetch (more changes than that cost one more fetch)
+        self.express_lane = express_lane
         self.express_max_batch = express_max_batch
-        self._express = None
+        self.express_change_cap = express_change_cap
+        self._express: _ExpressContext | None = None
+        # lifetime express result fetches (one per express batch, one
+        # more on a change-cap overflow)
+        self.express_fetches = 0
         self.max_rounds = max_rounds
         self.oracle_fallback = oracle_fallback
         self.oracle_timeout_s = oracle_timeout_s
@@ -535,8 +860,10 @@ class ResidentSolver:
         self._loop_syncs = SyncCounter()
         self._solves = 0
         # host mirror of the warm state (asg/lvl/floor from the round's
-        # own fetch): the replay/restore seed
+        # own fetch): the replay/restore seed, stale once an express
+        # batch has moved the warm state on the device
         self._warm_seed: tuple | None = None
+        self._warm_mutated = True
 
     def reset(self) -> None:
         """Drop the warm state (and the express context): the next
@@ -544,12 +871,12 @@ class ResidentSolver:
         self._warm = None
         self._express = None
         self._warm_seed = None
+        self._warm_mutated = True
 
     @property
     def express_ready(self) -> bool:
         """True when a warm express context exists (a certified dense
-        round finished and no full round has begun since). Always False
-        until the express lane is ported."""
+        round finished and no full round has begun since)."""
         return self._express is not None
 
     def invalidate_express(self) -> None:
@@ -567,10 +894,14 @@ class ResidentSolver:
 
     @property
     def last_round_fetches(self) -> int:
+        """Result fetches of the last dispatch: a round, or an express
+        batch (1, 2 on a change-cap overflow)."""
         return self._fetches.count
 
     @property
     def last_round_loop_syncs(self) -> int:
+        """The auction loop's flag reads in the last dispatch (a round
+        or an express batch's repair)."""
         return self._loop_syncs.count
 
     @property
@@ -588,8 +919,9 @@ class ResidentSolver:
     @property
     def warm_seed_host(self) -> tuple | None:
         """Host (asg, lvl, floor) int32 mirror of the live warm state,
-        or None when cold."""
-        if self._warm is None:
+        or None when cold or when an express batch has patched the warm
+        state on the device since the last full-state fetch."""
+        if self._warm is None or self._warm_mutated:
             return None
         return self._warm_seed
 
@@ -631,6 +963,7 @@ class ResidentSolver:
             rounds=0, phases=0,
         )
         self._warm_seed = (asg, lvl, floor)
+        self._warm_mutated = False
 
     def _fetch_deadline_s(self) -> float:
         return (
@@ -676,6 +1009,10 @@ class ResidentSolver:
                 "a resident round is already in flight; finish_round() "
                 "must be called before the next begin_round()"
             )
+        # a full round supersedes the inter-round express state; drop
+        # the context FIRST so its device memory (the retained dense
+        # table) is free before this round's chain allocates a new one
+        self._express = None
         self._fetches = SyncCounter()
         self._loop_syncs = SyncCounter()
         self._solves = 0
@@ -779,6 +1116,11 @@ class ResidentSolver:
             smax=smax, max_rounds=max_rounds, warm_used=warm is not None,
             Tp=Tp, Mp=Mp, T=T, n_machines=topo.n_machines,
             timings=timings, t_dispatch=time.perf_counter(),
+            machine_kwargs={
+                k: (cost_input_kwargs or {}).get(k)
+                for k in ("machine_load", "machine_mem_free",
+                          "machine_used_slots")
+            },
         )
         fetches, loop_syncs = self._fetches, self._loop_syncs
         self._inflight = True
@@ -816,7 +1158,7 @@ class ResidentSolver:
                                 conv, primal, dom_ok)
         state = DenseState(asg=asg, lvl=lvl, floor=floor, gap=gap,
                            converged=conv, rounds=rounds, phases=phases)
-        return fetched, state, cost, time.perf_counter()
+        return fetched, state, cost, dev, time.perf_counter()
 
     def discard_round(self, inflight: InflightSolve) -> None:
         """Join and drop an in-flight round the caller is abandoning
@@ -848,7 +1190,7 @@ class ResidentSolver:
         T = inflight.T
         t0 = time.perf_counter()
         try:
-            res, state, cost_dev, t_done = inflight.future.result(
+            res, state, cost_dev, dev, t_done = inflight.future.result(
                 timeout_s=self._fetch_deadline_s()
             )
         except FetchTimeout:
@@ -874,7 +1216,7 @@ class ResidentSolver:
             # (synchronously; this round pays twice)
             self._warm = None
             t0 = time.perf_counter()
-            res, state, cost_dev, _ = self._dispatch(
+            res, state, cost_dev, dev, _ = self._dispatch(
                 inflight, None, self._fetches, self._loop_syncs
             )
             timings["solve_ms"] += (time.perf_counter() - t0) * 1000
@@ -887,6 +1229,7 @@ class ResidentSolver:
 
         self._warm = state
         self._warm_seed = (res.asg, res.lvl, res.floor)
+        self._warm_mutated = False
         Mp = inflight.Mp
         asg = res.asg[:T]
         scale = np.int64(T + 1)
@@ -900,6 +1243,25 @@ class ResidentSolver:
         asg = np.where(
             (asg >= 0) & (asg < Mp) & (asg < inflight.n_machines), asg, -1,
         ).astype(np.int32)
+        if self.express_lane:
+            # keep this round's device instance warm for the express
+            # lane (host maps are built lazily on first express use)
+            self._express = _ExpressContext(
+                dev=dev,
+                dt=inflight.dt,
+                cost_dev=cost_dev,
+                meta=inflight.meta,
+                topo=topo,
+                assignment=asg,
+                machine_kwargs=inflight.machine_kwargs or {},
+                model_fn=inflight.model_fn,
+                n_prefs=max(inflight.n_prefs, 1),
+                smax=inflight.smax,
+                Tp=inflight.Tp,
+                Mp=Mp,
+                T=T,
+                scale=T + 1,
+            )
         self._record_round()
         return ResidentOutcome(
             assignment=asg,
@@ -914,6 +1276,366 @@ class ResidentSolver:
             task_cost=task_cost,
             task_margin=task_margin,
         )
+
+    # ---- the express lane ------------------------------------------------
+
+    def _express_finalize(self, ctx: _ExpressContext) -> None:
+        """Build the context's host maps on first express use (off the
+        round's critical path; the one O(T) walk is the uid<->row map a
+        whole inter-round window of batches then shares)."""
+        if ctx.ready:
+            return
+        ctx.uid_row = {u: i for i, u in enumerate(ctx.meta.task_uids)}
+        ctx.row_uid = {i: u for u, i in ctx.uid_row.items()}
+        ctx.free_rows = list(range(ctx.Tp - 1, ctx.T - 1, -1))
+        ctx.midx = {n: i for i, n in enumerate(ctx.meta.machine_names)}
+        ctx.rack_idx = {n: i for i, n in enumerate(ctx.meta.rack_names)}
+        # rebalancing mode: running rows are NOT express-movable (rebal
+        # deltas stay round-only), so freeze them — deactivate the row,
+        # turn the seat into used capacity at the machine the round
+        # SEATED it on (its solved assignment; the bridge invalidates
+        # the context whenever actuation diverges from that: failed
+        # migrations, preemptions, deferred deltas)
+        cur = np.asarray(ctx.meta.task_current)
+        run_rows = np.flatnonzero(cur >= 0)
+        if len(run_rows):
+            tgt = ctx.assignment[run_rows]
+            if (tgt < 0).any():
+                raise ExpressDegrade(
+                    "running task preempted by the round; express "
+                    "waits for the next context"
+                )
+            ctx.pending_freeze = (
+                run_rows.astype(np.int32), tgt.astype(np.int32),
+            )
+            for i in run_rows.tolist():
+                u = ctx.row_uid.pop(i, None)
+                if u is not None:
+                    ctx.uid_row.pop(u, None)
+                ctx.free_rows.append(i)
+        ctx.ready = True
+
+    def express_maps(self):
+        """(machine_idx, rack_idx) of the express context's round —
+        what the bridge resolves arrival preference rows against (the
+        builder's ``task_arc_rows`` vocabulary). None when no context
+        is live. Raises ``ExpressDegrade`` when finalizing the context
+        fails (e.g. a running task the round preempted) — the context
+        stays set so the caller's invalidate path counts and traces
+        the degrade before dropping it."""
+        ctx = self._express
+        if ctx is None:
+            return None
+        self._express_finalize(ctx)
+        return ctx.midx, ctx.rack_idx
+
+    def _express_col(self, ctx: _ExpressContext, machine_idx: int) -> int:
+        """The solve column of a machine (the identity: machine-class
+        aggregation is not ported)."""
+        return machine_idx
+
+    def _express_member(self, ctx: _ExpressContext, col: int) -> str:
+        """The machine name of a winning solve column."""
+        if col >= len(ctx.meta.machine_names):
+            raise ExpressDegrade(f"placement on padding col {col}")
+        return ctx.meta.machine_names[col]
+
+    def _express_mini_inputs(
+        self, ctx: _ExpressContext, arrivals: list[ExpressArrival],
+        kmax: int, pk: int,
+    ):
+        """Host CostInputs for the arrivals' task-side arcs: a mini arc
+        table (unsched + cluster + pref + unsched->sink per slot) fed
+        through ``build_cost_inputs_host`` with the ROUND's machine
+        aggregates, so express pricing is the same registry model over
+        the same input construction as the full round. Unused lanes
+        hold a synthetic zero pod (``_express_step`` masks them)."""
+        E = kmax * (3 + pk)
+        kind = np.full(E, -1, np.int8)
+        a_task = np.zeros(E, np.int32)
+        a_machine = np.full(E, -1, np.int32)
+        a_weight = np.zeros(E, np.int32)
+        ks = np.arange(kmax, dtype=np.int32)
+        kind[:kmax] = int(ArcKind.TASK_TO_UNSCHED)
+        kind[kmax: 2 * kmax] = int(ArcKind.TASK_TO_CLUSTER)
+        u2s = 2 * kmax + kmax * pk
+        kind[u2s: u2s + kmax] = int(ArcKind.UNSCHED_TO_SINK)
+        a_task[:kmax] = ks
+        a_task[kmax: 2 * kmax] = ks
+        a_task[u2s: u2s + kmax] = ks
+        wait = np.zeros(kmax, np.int32)
+        cpu = np.zeros(kmax, np.int64)
+        mem = np.zeros(kmax, np.int64)
+        uids = [""] * kmax
+        for k, a in enumerate(arrivals):
+            uids[k] = a.uid
+            wait[k] = a.wait_rounds
+            cpu[k] = a.cpu_milli
+            mem[k] = a.mem_kb
+            for j, (m, _r, wgt) in enumerate(a.prefs):
+                i = 2 * kmax + k * pk + j
+                kind[i] = int(
+                    ArcKind.TASK_TO_MACHINE if m >= 0
+                    else ArcKind.TASK_TO_RACK
+                )
+                a_task[i] = k
+                a_machine[i] = m
+                a_weight[i] = wgt
+        zero = np.zeros(0, np.int32)
+        mini_meta = GraphMeta(
+            node_role=np.zeros(0, np.int8),
+            arc_kind=kind,
+            arc_task=a_task,
+            arc_machine=a_machine,
+            arc_rack=np.full(E, -1, np.int32),
+            arc_weight=a_weight,
+            arc_discount=np.zeros(E, np.int32),
+            task_wait=wait,
+            task_current=np.full(kmax, -1, np.int32),
+            task_node=zero,
+            machine_node=zero,
+            node_machine=zero,
+            task_uids=uids,
+            machine_names=ctx.meta.machine_names,
+            rack_names=[],
+            job_ids=[],
+            n_nodes=0,
+            n_arcs=E,
+        )
+        kw = {
+            k: v for k, v in ctx.machine_kwargs.items() if v is not None
+        }
+        return build_cost_inputs_host(
+            E, mini_meta, task_cpu_milli=cpu, task_mem_kb=mem, **kw
+        )
+
+    def express_round(self, batch: ExpressBatch) -> ExpressOutcome:
+        """Turn one coalesced watch-event batch into bindings WITHOUT a
+        round: patch the warm device instance (K5 retires bound rows and
+        adjusts slot capacities, K4 activates the priced arrival rows)
+        and run the bounded eps=1 repair, with ONE result fetch of only
+        the affected placements (counted in ``last_round_fetches``; the
+        repair's flag reads in ``last_round_loop_syncs``). Runs on the
+        caller's thread with the solver's device current.
+
+        Degrades loudly (``ok=False`` + the context invalidated) on
+        anything the patch vocabulary cannot represent or the
+        certificate cannot prove — the events then simply wait for the
+        next full round. Never raises for a representational miss.
+        """
+        ctx = self._express
+        if ctx is None:
+            return ExpressOutcome(ok=False, reason="no-context")
+        if self._inflight:
+            return ExpressOutcome(ok=False, reason="round-in-flight")
+        self._fetches = SyncCounter()
+        self._loop_syncs = SyncCounter()
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                return self._express_round(ctx, batch)
+        return self._express_round(ctx, batch)
+
+    def _express_round(self, ctx: _ExpressContext,
+                       batch: ExpressBatch) -> ExpressOutcome:
+        timings: dict[str, float] = {}
+        t0 = time.perf_counter()
+        try:
+            self._express_finalize(ctx)
+            kmax = self.express_max_batch
+            pk = ctx.n_prefs
+            arrivals = batch.arrivals
+            if len(arrivals) > kmax:
+                raise ExpressDegrade(
+                    f"{len(arrivals)} arrivals > --express_max_batch "
+                    f"{kmax}"
+                )
+            # ---- map retires / removals / slot deltas to patches ----
+            rows: list[int] = []
+            cols: list[int] = []
+            deltas: list[int] = []
+            if ctx.pending_freeze is not None:
+                # first batch of a rebalancing-mode window: freeze the
+                # running block out of the express auction
+                fr, fc = ctx.pending_freeze
+                rows.extend(fr.tolist())
+                cols.extend(fc.tolist())
+                deltas.extend([-1] * len(fr))
+                ctx.pending_freeze = None
+            for uid, mname in batch.retires:
+                r = ctx.uid_row.pop(uid, None)
+                if r is None:
+                    raise ExpressDegrade(f"retire of unknown {uid}")
+                ctx.row_uid.pop(r, None)
+                ctx.free_rows.append(r)
+                m = ctx.midx.get(mname)
+                if m is None:
+                    raise ExpressDegrade(
+                        f"retire on unknown machine {mname}"
+                    )
+                rows.append(r)
+                cols.append(self._express_col(ctx, m))
+                deltas.append(-1)
+            for uid in batch.removals:
+                r = ctx.uid_row.pop(uid, None)
+                if r is None:
+                    raise ExpressDegrade(f"removal of unknown {uid}")
+                ctx.row_uid.pop(r, None)
+                ctx.free_rows.append(r)
+                rows.append(r)
+                cols.append(-1)
+                deltas.append(0)
+            for mname, d in batch.slot_deltas:
+                m = ctx.midx.get(mname)
+                if m is None:
+                    raise ExpressDegrade(
+                        f"slot delta on unknown machine {mname}"
+                    )
+                rows.append(-1)
+                cols.append(self._express_col(ctx, m))
+                deltas.append(d)
+            # ---- map arrivals to rows + solve-space pref targets ----
+            add_row = np.full(kmax, -1, np.int32)
+            add_pm = np.full((kmax, pk), -1, np.int32)
+            add_pr = np.full((kmax, pk), -1, np.int32)
+            for k, a in enumerate(arrivals):
+                if a.uid in ctx.uid_row:
+                    raise ExpressDegrade(f"duplicate arrival {a.uid}")
+                if len(a.prefs) > pk:
+                    raise ExpressDegrade(
+                        f"{a.uid} has {len(a.prefs)} prefs > the "
+                        f"round's pref width {pk}"
+                    )
+                if not ctx.free_rows:
+                    raise ExpressDegrade(
+                        "padded task rows exhausted (cluster outgrew "
+                        "the round's bucket)"
+                    )
+                r = ctx.free_rows.pop()
+                ctx.uid_row[a.uid] = r
+                ctx.row_uid[r] = a.uid
+                add_row[k] = r
+                for j, (m, rk, _w) in enumerate(a.prefs):
+                    if m >= 0:
+                        add_pm[k, j] = self._express_col(ctx, m)
+                    else:
+                        add_pr[k, j] = rk
+            mini_host = self._express_mini_inputs(ctx, arrivals, kmax, pk)
+            timings["prep_ms"] = (time.perf_counter() - t0) * 1000
+
+            # ---- upload + patch chunks (K5) + the repair ----
+            warm = self._warm
+            if warm is None:
+                raise ExpressDegrade("no warm state")
+            t0u = time.perf_counter()
+            device = self.device
+            mini_dev = mini_host.to_device(device)
+            arr_dev = torch.from_numpy(np.concatenate(
+                [add_row[:, None], add_pm, add_pr], axis=1
+            )).to(device)
+            chunks = _express_patch_chunks(rows, cols, deltas)
+            patch_dev = (
+                torch.from_numpy(np.stack([np.stack(ch) for ch in chunks]))
+                .to(device) if chunks else None
+            )
+            timings["upload_ms"] = (time.perf_counter() - t0u) * 1000
+            t_dispatch = time.perf_counter()
+            dev = ctx.dev
+            asg, lvl, floor = warm.asg, warm.lvl, warm.floor
+            if patch_dev is not None:
+                # out of place: a degraded batch keeps the warm state
+                asg, lvl = asg.clone(), lvl.clone()
+                for i in range(patch_dev.shape[0]):
+                    _express_patch(
+                        dev.u, dev.w, dev.task_valid, dev.s, asg, lvl,
+                        patch_dev[i, 0], patch_dev[i, 1], patch_dev[i, 2],
+                    )
+            (dev2, asg_f, lvl_f, floor_f, gap, conv, rounds, phases,
+             rows_out, asg_out, n_changes, domain_ok, primal, _n_active,
+             report) = _express_step(
+                dev, ctx.dt, ctx.cost_dev, mini_dev, asg, lvl, floor,
+                arr_dev[:, 0].contiguous(),
+                arr_dev[:, 1: 1 + pk].contiguous(),
+                arr_dev[:, 1 + pk:].contiguous(),
+                model_fn=ctx.model_fn, kmax=kmax, pk=pk, alpha=self.alpha,
+                max_rounds=EXPRESS_FUSE, smax=ctx.smax,
+                change_cap=self.express_change_cap,
+                syncs=self._loop_syncs,
+            )
+            # the batch's ONE result fetch: only the affected
+            # placements + the certificate bits
+            self.express_fetches += 1
+            if self.metrics is not None:
+                self.metrics.record_express_fetch()
+            n_out = rows_out.shape[0]
+            h = self._fetches.read(torch.cat([
+                rows_out.to(I64), asg_out.to(I64),
+                torch.stack([n_changes.to(I64), conv.to(I64),
+                             domain_ok.to(I64), primal.to(I64)]),
+            ]))
+            rows_np, asg_np = h[:n_out], h[n_out: 2 * n_out]
+            n_chg, conv_h, dom_h, primal_h = (int(x) for x in h[2 * n_out:])
+            timings["solve_ms"] = (time.perf_counter() - t_dispatch) * 1000
+            if not dom_h:
+                raise ExpressDegrade("cost domain exceeded")
+            if not conv_h:
+                raise ExpressDegrade(
+                    f"repair uncertified after {rounds} rounds"
+                )
+            degrade_reason = ""
+            if n_chg > self.express_change_cap:
+                # the repair is CERTIFIED — only the compacted log is
+                # truncated: degrade LOUDLY to one more fetch of the
+                # changed-row mask + assignment; every placement still
+                # binds and the context stays warm
+                degrade_reason = (
+                    f"change_cap: {n_chg} changed placements > "
+                    f"cap {self.express_change_cap} (full placement "
+                    f"fetch)"
+                )
+                self.express_fetches += 1
+                if self.metrics is not None:
+                    self.metrics.record_express_fetch()
+                Tp = ctx.Tp
+                full = self._fetches.read(
+                    torch.cat([report.to(I64), asg_f.to(I64)])
+                )
+                rows_np = np.flatnonzero(full[:Tp]).astype(np.int32)
+                asg_np = full[Tp:][rows_np]
+                n_chg = len(rows_np)
+            # ---- commit: the patched instance + repaired state ARE
+            # the warm state the next round/batch starts from ----
+            ctx.dev = dev2
+            ctx.batches += 1
+            self._warm = DenseState(
+                asg=asg_f, lvl=lvl_f, floor=floor_f, gap=gap,
+                converged=conv, rounds=rounds, phases=phases,
+            )
+            # the warm state moved on the device without a full-state
+            # fetch: the host mirror is stale until the next round
+            self._warm_mutated = True
+            placements: list[tuple[str, str]] = []
+            for i in range(n_chg):
+                r = int(rows_np[i])
+                uid = ctx.row_uid.get(r)
+                if uid is None:
+                    raise ExpressDegrade(
+                        f"placement on unmapped row {r}"
+                    )
+                placements.append(
+                    (uid, self._express_member(ctx, int(asg_np[i])))
+                )
+            return ExpressOutcome(
+                ok=True,
+                placements=placements,
+                cost=primal_h // ctx.scale,
+                rounds=rounds,
+                degrade_reason=degrade_reason,
+                timings=timings,
+            )
+        except ExpressDegrade as e:
+            self._express = None
+            return ExpressOutcome(ok=False, reason=str(e),
+                                  timings=timings)
 
     @staticmethod
     def _host_decision_stats(topo, cost_host, asg):

@@ -1,11 +1,13 @@
 """Differential tests: the port's cost models vs the JAX reference.
 
-On the same builder arrays and knowledge-base inputs, the port's
-``quincy`` and ``trivial`` price every arc exactly as the reference does
-(exact equality, int32), with preemption off and on. Models not ported
-yet keep their registry names and raise instead of pricing.
+On the same builder arrays and knowledge-base inputs, each of the six
+models prices every arc exactly as the reference's model does (exact
+equality, int32), with preemption off and on; the float models
+(octopus, wharemap, coco) also at float edges: loads whose x100 is not
+exact in float32, zero free memory, zero usage.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -49,7 +51,7 @@ CASES = _cases()
 
 
 @pytest.mark.parametrize("preemption", [False, True])
-@pytest.mark.parametrize("model", ["quincy", "trivial"])
+@pytest.mark.parametrize("model", sorted(ref.COST_MODELS))
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_arc_costs_equal(name, model, preemption):
     cluster = CASES[name]
@@ -90,14 +92,54 @@ def test_registry_names_match_reference():
     assert port.get_cost_model("0") is port.trivial_cost
 
 
-@pytest.mark.parametrize("name", ["random", "octopus", "wharemap", "coco",
-                                  6, "5"])
-def test_unported_model_raises(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.get_cost_model(name)
-    resolved = port.resolve_cost_model_name(name)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.COST_MODELS[resolved](None)
+def _edge_inputs(rng, E=4096, Tp=512, Mp=128):
+    """Raw pricing inputs at the float models' edges: machine loads
+    whose x100 is not exact in float32 (0.29, 0.57, 0.58, 0.07 ...),
+    loads of 0 and 1 (cpu headroom at its 0.05 floor), free memory of 0
+    and just under the 0.05 floor, zero usage and zero requests beside
+    large ones. Every kind (padding -1 included) on every arc."""
+    edge_load = np.array([0.0, 1.0, 0.29, 0.57, 0.58, 0.07, 0.14, 0.035,
+                          0.95, 0.999, 0.01, 0.555], np.float32)
+    load = rng.random(Mp).astype(np.float32)
+    load[: len(edge_load)] = edge_load
+    mem_free = rng.random(Mp).astype(np.float32)
+    mem_free[:6] = [0.0, 0.0, 0.05, 0.0499, 1.0, 0.3]
+    usage = (rng.random(Tp) * 9).astype(np.float32)
+    usage[: Tp // 4] = 0.0
+    cpu = rng.integers(0, 20_000, Tp).astype(np.int32)
+    cpu[: Tp // 8] = 0
+    mem = rng.integers(0, 1 << 24, Tp).astype(np.int32)
+    mem[Tp // 8: Tp // 4] = 0
+    return dict(
+        kind=rng.integers(-1, 9, E).astype(np.int32),
+        task=rng.integers(0, Tp, E).astype(np.int32),
+        machine=rng.integers(0, Mp, E).astype(np.int32),
+        weight=rng.integers(0, 100, E).astype(np.int32),
+        discount=rng.integers(0, 3, E).astype(np.int32),
+        valid=rng.random(E) < 0.9,
+        task_wait=rng.integers(0, 100, Tp).astype(np.int32),
+        task_running=rng.random(Tp) < 0.3,
+        task_input=rng.integers(0, 500, Tp).astype(np.int32),
+        task_cpu=cpu, task_mem_kb=mem, task_usage=usage,
+        machine_load=load, machine_mem_free=mem_free,
+        machine_used_slots=rng.integers(0, 20, Mp).astype(np.int32),
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("model", ["octopus", "wharemap", "coco"])
+def test_float_models_equal_at_edges(model, seed):
+    raw = _edge_inputs(np.random.default_rng(seed))
+    want = np.asarray(ref.get_cost_model(model)(
+        ref.CostInputs(**{k: jnp.asarray(v) for k, v in raw.items()})
+    ))
+    got = port.get_cost_model(model)(
+        port.CostInputs(**{k: torch.from_numpy(v) for k, v in raw.items()})
+    )
+    assert got.dtype == torch.int32
+    assert np.array_equal(want, got.numpy())
+    # the edges were reached: some arcs priced from a nonzero score
+    assert (want > 0).any()
 
 
 def test_unknown_model_raises_keyerror():

@@ -136,8 +136,6 @@ def test_trace_report_of_port_log_equals_reference(tmp_path, capsys):
 
 
 UNPORTED = [
-    ("express_lane", "true"), ("express_max_batch", "8"),
-    ("express_correction_rounds", "2"), ("express_shed_queue", "64"),
     ("stream_windows", "2"), ("serve", "true"),
     ("serve_apiservers", "127.0.0.1:1"), ("serve_tenants", "2"),
     ("serve_max_batch", "8"), ("mesh_width", "1"),
@@ -187,7 +185,7 @@ def test_unported_flag_exits_with_an_error(flag, value, capsys):
 
 
 @pytest.mark.parametrize("option", [
-    {"express_lane": True}, {"stream_windows": 2},
+    {"stream_windows": 2},
     {"flightrec": object()}, {"auditor": object()},
     {"mesh_width": 1}, {"aggregate_classes": True}, {"topk_prefs": 2},
 ])
