@@ -9,7 +9,7 @@ card is visible, or when the package is not importable.
 Phases (each prints its own lines):
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
-2. build: compiles the five CUDA kernels from ``poseidon_tpu_torch/
+2. build: compiles the seven CUDA kernels from ``poseidon_tpu_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel) and the C++
    oracle, and prints the build seconds;
 3. kernels: at the flagship's shapes (BASELINE config 2: 1,000 machines,
@@ -42,12 +42,23 @@ Phases (each prints its own lines):
    int32, Mp 16 and 1028; for K5 an empty chunk, rows and columns of -1
    and past the axis, 1024 entries on one column, duplicate columns
    driven below 0, two chunks whose order matters, Mp 16, 1028 and
-   65536;
+   65536. The stream lane's K7 (``stream_commit``: a live window at the
+   flagship, Tp 10240, Mp 1024, kmax 16, cap 256) and the what-if
+   batch's K6 (``perturb``: BASELINE config 5, 64 variants, Tp 4096,
+   Mp 1024, its bound the larger of 1 GiB of writes over 3.35 TB/s and
+   its int32 operations over 67 T/s) are held and timed the same way,
+   with their batteries: for K7 a live window, the first dead window
+   (by certificate, domain and change cap), an already-dead stream, a
+   window at the cap, reports on a column driven below 0 and rows 0 and
+   Tp-1, at three shapes; for K6 B 1 and 2, magnitude 0, 10 and 50 %,
+   scale 1 and above 1, INF rows, a whole INF table, zero-slot columns,
+   Mp 16 and 1028, seeds 0 and 2^31-1;
 4. parity: a small flagship-shaped cluster (64 machines x 600 pods), one
    cold and two churned warm rounds on the card and on the CPU (the
    twins): every field of every round must be equal; then three express
    windows over the same cell on both: placements, cost, repair rounds
-   and the warm asg/lvl/floor of every batch must be equal;
+   and the warm asg/lvl/floor of every batch must be equal; then a
+   3-window stream flush on both: placements, cost, rounds and carry;
 5. main path: ``config2_quincy_flagship(seed=0)`` through
    ``ResidentSolver(device="cuda", small_to_oracle=False).run_round``,
    one cold round and three warm rounds over a seeded 1% churn of pods
@@ -100,10 +111,41 @@ Phases (each prints its own lines):
    added after the first round: every express binding's POST landed and
    the server binds each pod where express placed it, each placement is
    traced as EXPRESS_PLACE, and every express degrade is printed with
-   its reason.
+   its reason. A fourth lane runs the stream lane the same way
+   (``--stream_windows=8``).
+9. stream: the stream lane at full width over the flagship: an 8-window
+   flush of the express phase's schedule (16 arrivals and 2 completions
+   a window) on a bridge on the card, one result fetch, K4, K5 and K7
+   launched (counts zeroed just before), equal window by window and in
+   its carry to the same flush on a bridge on the CPU; the synced
+   express lane's agreement over the same windows is printed (ties go
+   another way in the two lanes, in the reference too); a short flush
+   (3 windows padded to 8); and a flush whose window 3 fails its
+   certificate: windows 0-2 bind, the table and carry equal a clean
+   3-window flush's, window 3's pods bind in the next round;
+10. whatif: ``solve_what_if`` over BASELINE config 5 (1,000 machines x
+   4,000 pods, quincy) with 64 variants on the card: every variant
+   certified, variant 0 equal to the C++ oracle, variants 1 and 63
+   equal to the CPU twins' solves of the same perturbed tables, one
+   result fetch; total and per-variant ms and the loop reads printed;
+11. service: a ``SchedulingService`` on the card over four tenants at
+   real size (the flagship and config 5 under quincy, 200 x 2,000
+   trivial and 64 x 600 random without preference arcs: four shape
+   buckets), 2 warm-up and 3 measured waves with a seeded 1 % churn and
+   every binding confirmed: each tenant equal to a solo bridge on the
+   card and to the C++ oracle, K1-K3 launched per wave, one result
+   fetch per dispatch chunk (one more per cold retry), no kernel build
+   and no new launch plan in the measured waves; then
+   ``cli.main(["--serve=true", "--serve_tenants=3", "--max_rounds=4",
+   "--device=cuda"])``.
 
-The kernels' record counts K1-K3's launches in the main path and K4-K5's
-in the express phase.
+Each phase prints its seconds. ``--phases=a,b`` runs only the named
+phases after the build, prints no record and no contract line (a quick
+bring-up check).
+
+The kernels' record counts K1-K3's launches in the main path, K4-K5's
+in the express phase, K7's in the stream phase's 8-window flush and
+K6's in the what-if phase.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line,
 and the contract line ``{"ok": true, "device": {...}}``.
@@ -126,6 +168,14 @@ EXPRESS_SYMBOLS = ("express_rows_kernel", "express_patch_kernel",
                    "row_options_kernel", "bid_pass_kernel")
 # the kernels a resident round launches (K4 and K5 are the express lane's)
 ROUND_KERNELS = ("densify", "row_options", "bid_pass")
+# the device of the stream, what-if and service phases (a rehearsal on a
+# host without a card sets "cpu"; the script itself always runs "cuda")
+DEVICE = "cuda"
+
+
+def sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
 
 
 def log(msg: str) -> None:
@@ -331,6 +381,8 @@ def kernel_phase(torch, timer):
                     timer(lambda: k3.bid_pass_plain(*args3)),
                     *bound_ms(b, ops), (B, Mp)))
     records += express_kernel_records(torch, timer, inst, dt, ra_s)
+    records.append(stream_commit_record(torch, timer))
+    records.append(perturb_record(torch, timer))
     torch.cuda.synchronize()
     for mod, fn, args, key in (
         (k1, lambda *a: k1.densify(*a, n_prefs=P), a1, (Tp, Mp, P, P)),
@@ -344,8 +396,8 @@ def kernel_phase(torch, timer):
             f"{HOST_CALLS} calls) plan={plan}")
     edge_battery(torch)
     for k, err, ms, plain, bms, by, shape in records:
-        # K4 and K5 move tens of KiB: their bound is a small fraction of
-        # one launch's fixed cost
+        # K4, K5 and K7 move tens to hundreds of KiB: their bound is a
+        # small fraction of one launch's fixed cost
         launch = " launch-bound" if ms > 100 * bms else ""
         log(f"[kernels] {k.name} shape={shape} max_abs_err={err} "
             f"ms={ms:.6f} plain_ms={plain:.6f} bound_ms={bms:.6f} ({by})"
@@ -793,6 +845,293 @@ def express_kernel_records(torch, timer, inst, dt, ra_s):
     ]
 
 
+def perturb_instance(torch, device, seed: int = 0):
+    """BASELINE config 5 (1,000 machines x 4,000 pods, quincy), priced on
+    the card, as a host TransportInstance, with its priced graph."""
+    import numpy as np
+
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.graph.network import FlowNetwork, pad_bucket
+    from poseidon_tpu_torch.models.costs import (
+        build_cost_inputs_host, quincy_cost,
+    )
+    from poseidon_tpu_torch.ops.transport import (
+        extract_topology, instance_from_topology,
+    )
+    from poseidon_tpu_torch.synth import config5_whatif
+
+    cluster = config5_whatif(seed=seed)
+    arrays, meta = FlowGraphBuilder().build_arrays(cluster)
+    inputs = build_cost_inputs_host(
+        pad_bucket(meta.n_arcs), meta, **cost_kwargs(cluster)
+    ).to_device(device)
+    cost = quincy_cost(inputs).cpu().numpy().astype(np.int32)[: meta.n_arcs]
+    topo = extract_topology(meta, arrays["src"], arrays["dst"],
+                            arrays["cap"])
+    net = FlowNetwork.from_arrays(arrays["src"], arrays["dst"],
+                                  arrays["cap"], cost, arrays["supply"])
+    return instance_from_topology(topo, cost), net
+
+
+# ops of one threefry2x32 evaluation: 20 rounds of add, rotate and xor,
+# 5 two-word key injections and the input injection (int32 scalar ops)
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 2
+
+
+def perturb_counts(torch, c0, u0, w0, dgen0, s, B: int) -> tuple[int, int]:
+    """Bytes K6 must move (each input read once, each output written
+    once) and the int32 operations this input needs: two threefry
+    evaluations and ~10 ops of randint and jitter for every finite value
+    K6 hashes (w, dgen, u and the table's preference part on seated
+    columns, variants 1..B-1), and ~6 ops for every table entry of every
+    variant."""
+    inf = 2**29
+    Tp, Mp = c0.shape
+    generic = torch.clamp(w0[:, None].long() + dgen0[None, :].long(), max=inf)
+    pref = ((c0.long() < generic) & (s[None, :] > 0)).sum().item()
+    vec = sum(int((x < inf).sum()) for x in (w0, u0, dgen0))
+    hashed = (B - 1) * (pref + vec)
+    n_bytes = (B * Tp * Mp * 4 + B * (2 * Tp + Mp) * 4 + B * 4
+               + Tp * Mp * 4 + (2 * Tp + 2 * Mp) * 4)
+    n_ops = hashed * (2 * THREEFRY_OPS + 10) + B * Tp * Mp * 6
+    return n_bytes, n_ops
+
+
+def perturb_check(torch, args, B, scale, seed, pct) -> int:
+    from poseidon_tpu_torch.kernels import perturb as k6
+
+    got = k6.perturb(*args, B, scale, seed, pct)
+    want = k6.perturb_plain(*args, B, scale, seed, pct)
+    sync(torch)
+    return max_abs_err(got, want)
+
+
+def perturb_record(torch, timer):
+    """K6 at BASELINE config 5 with B = 64, held against its twin
+    (tolerance 0) and timed; then its edge battery."""
+    from poseidon_tpu_torch.kernels import perturb as k6
+    from poseidon_tpu_torch.ops.dense_auction import build_dense_instance
+
+    dev = torch.device(DEVICE)
+    inst, _net = perturb_instance(torch, dev)
+    d = build_dense_instance(inst, dev)
+    args = (d.c, d.u, d.w, d.dgen, d.s)
+    B, seed, pct = 64, 7, 10
+    err = perturb_check(torch, args, B, d.scale, seed, pct)
+    ms = timer(lambda: k6.perturb(*args, B, d.scale, seed, pct))
+    plain = timer(lambda: k6.perturb_plain(*args, B, d.scale, seed, pct),
+                  repeats=3)
+    n_bytes, n_ops = perturb_counts(torch, *args, B)
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = n_ops / INT32_OPS_PER_S * 1e3
+    Tp, Mp = d.c.shape
+    log(f"[kernels] perturb bounds: bytes {n_bytes} -> {tb:.6f} ms, int32 "
+        f"ops {n_ops} -> {to:.6f} ms (B={B}, Tp={Tp}, Mp={Mp}, "
+        f"scale={d.scale})")
+    perturb_edges(torch)
+    return (k6.KERNEL, err, ms, plain, *bound_ms(n_bytes, n_ops),
+            (B, Tp, Mp))
+
+
+def perturb_edge_table(torch, rng, Tp, Mp, scale, kind):
+    import numpy as np
+
+    inf = 2**29
+    w0 = rng.integers(0, 60, Tp) * scale
+    d0 = rng.integers(0, 60, Mp) * scale
+    s = rng.integers(0, 3, Mp)
+    if kind == "inf-rows":
+        w0[::3] = inf
+    if kind == "zero-slots":
+        s[::2] = 0
+    if kind == "all-inf":
+        w0[:] = inf
+    c0 = np.minimum(w0[:, None] + d0[None, :], inf)
+    pref = rng.random((Tp, Mp)) < 0.2
+    c0 = np.where(pref, np.minimum(c0, rng.integers(0, 50, (Tp, Mp)) * scale),
+                  c0)
+    c0 = np.where(s[None, :] > 0, c0, inf)
+    u0 = rng.integers(0, 90, Tp) * scale
+
+    def to(a):
+        return torch.from_numpy(
+            np.ascontiguousarray(a).astype(np.int32)).to(DEVICE)
+
+    return tuple(to(x) for x in (c0, u0, w0, d0, s))
+
+
+def perturb_edges(torch) -> None:
+    """K6 against its twin (tolerance 0): B 1 and 2, magnitude 0, 10 and
+    50 %, scale 1 and above 1, INF rows, a whole INF table, zero-slot
+    columns, Mp 16 and 1028, seeds 0 and 2^31-1."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    cases = []
+    for B in (1, 2):
+        for pct in (0, 10, 50):
+            for scale in (1, 7):
+                cases.append((B, pct, scale, 64, 16, "plain",
+                              (0, 2**31 - 1)[(B + pct) % 2]))
+    for kind in ("inf-rows", "zero-slots", "all-inf"):
+        cases.append((2, 10, 5, 48, 16, kind, 0))
+    for Mp in (16, 1028):
+        for seed in (0, 2**31 - 1):
+            cases.append((2, 50, 3, 40, Mp, "plain", seed))
+    bad = []
+    for B, pct, scale, Tp, Mp, kind, seed in cases:
+        args = perturb_edge_table(torch, rng, Tp, Mp, scale, kind)
+        err = perturb_check(torch, args, B, scale, seed, pct)
+        if err:
+            bad.append((B, pct, scale, Tp, Mp, kind, seed, err))
+    log(f"[edges] perturb: {len(cases)} shapes, {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"[edges] perturb != twin: {bad[:4]}")
+
+
+def stream_commit_inputs(torch, rng, Tp, Mp, kmax, cap, *, live=True,
+                         conv=True, dom=True, nchg=3, below_zero=False):
+    """One window's K7 inputs at (Tp, Mp): a report of ~kmax rows (rows 0
+    and Tp-1 among them), arrival rows 0 and Tp-1, and the carry. With
+    ``below_zero`` the reports land on a column with one seat left, so
+    the decrements drive it below 0 before the clamp."""
+    import numpy as np
+
+    inf = 2**29
+
+    def to(a, dt=np.int32):
+        # np.array keeps a 0-d flag 0-d (ascontiguousarray would not)
+        return torch.from_numpy(np.array(a, dtype=dt)).to(DEVICE)
+
+    report = np.zeros(Tp, bool)
+    report[rng.choice(Tp, size=min(kmax, Tp), replace=False)] = True
+    report[[0, Tp - 1]] = True
+    asg_f = rng.integers(-1, Mp + 1, Tp)
+    s_n = rng.integers(0, 10, Mp)
+    if below_zero:
+        asg_f[report] = 3
+        s_n[3] = 1
+    add_row = np.full(kmax, -1)
+    add_row[: min(kmax, 2)] = [0, Tp - 1][: min(kmax, 2)]
+    if kmax > 2:
+        add_row[2:] = rng.choice(np.arange(1, Tp - 1), size=kmax - 2,
+                                 replace=False)
+    add_row[-1] = -1 if kmax > 3 else add_row[-1]
+    c = rng.integers(0, inf, (Tp, Mp))
+    flags = dict(live=to([int(live)]), conv=to(np.array(conv), bool),
+                 domain_ok=to(np.array(dom), bool),
+                 n_changes=to(np.array(nchg)))
+    rest = dict(
+        rows_out=to(np.sort(rng.choice(Tp + 1, cap))),
+        asg_out=to(rng.integers(-1, Mp, cap)),
+        primal=to(np.array(int(rng.integers(0, 2**40))), np.int64),
+        report=to(report, bool), asg_f=to(asg_f),
+        lvl_f=to(rng.integers(0, 500, Tp)),
+        floor_f=to(rng.integers(0, 500, Mp)),
+        u_n=to(rng.integers(0, 500, Tp)), w_n=to(rng.integers(0, 500, Tp)),
+        valid_n=to(rng.random(Tp) < 0.9, bool), s_n=to(s_n),
+        add_row=to(add_row),
+        c_saved=to(rng.integers(0, inf, (kmax, Mp))),
+        u=to(rng.integers(0, 500, Tp)), w=to(rng.integers(0, 500, Tp)),
+        valid=to(rng.random(Tp) < 0.9, bool),
+        asg=to(rng.integers(-1, Mp + 1, Tp)),
+        lvl=to(rng.integers(0, 500, Tp)), s=to(rng.integers(0, 10, Mp)),
+        floor=to(rng.integers(0, 500, Mp)), c=to(c),
+    )
+    return flags, rest
+
+
+K7_ORDER = ("live", "conv", "domain_ok", "n_changes", "change_cap",
+            "rows_out", "asg_out", "primal", "report", "asg_f", "lvl_f",
+            "floor_f", "u_n", "w_n", "valid_n", "s_n", "add_row", "c_saved",
+            "u", "w", "valid", "asg", "lvl", "s", "floor", "c", "log_row")
+
+
+def stream_commit_args(torch, flags, rest, change_cap):
+    """A fresh copy of one window's K7 arguments, in call order."""
+    from poseidon_tpu_torch.kernels.stream_commit import log_width
+
+    cap = rest["rows_out"].shape[0]
+    a = {k: v.clone() for k, v in {**flags, **rest}.items()}
+    a["change_cap"] = change_cap
+    a["log_row"] = torch.zeros(log_width(cap), dtype=torch.int64,
+                               device=DEVICE)
+    return [a[k] for k in K7_ORDER]
+
+
+def stream_commit_check(torch, flags, rest, change_cap) -> int:
+    """K7 and its twin on copies of the same inputs: every in-place
+    output (carry, table, latch, log row) compared."""
+    from poseidon_tpu_torch.kernels import stream_commit as k7
+
+    ka = stream_commit_args(torch, flags, rest, change_cap)
+    pa = stream_commit_args(torch, flags, rest, change_cap)
+    k7.stream_commit(*ka)
+    k7.stream_commit_plain(*pa)
+    sync(torch)
+    outs = [i for i, k in enumerate(K7_ORDER) if k != "change_cap"]
+    return max_abs_err([ka[i] for i in outs], [pa[i] for i in outs])
+
+
+def stream_commit_record(torch, timer):
+    """K7 at the flagship's shapes (Tp 10240, Mp 1024, kmax 16, cap 256)
+    on a live window, held against its twin (tolerance 0) and timed;
+    then its edge battery."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels import stream_commit as k7
+
+    rng = np.random.default_rng(31)
+    Tp, Mp, kmax, cap = 10240, 1024, 16, 256
+    flags, rest = stream_commit_inputs(torch, rng, Tp, Mp, kmax, cap)
+    err = stream_commit_check(torch, flags, rest, cap)
+    ka = stream_commit_args(torch, flags, rest, cap)
+    pa = stream_commit_args(torch, flags, rest, cap)
+    # every timed call sees a live latch (the live path moves the most)
+    ms = timer(lambda: (ka[0].fill_(1), k7.stream_commit(*ka)))
+    plain = timer(lambda: (pa[0].fill_(1), k7.stream_commit_plain(*pa)))
+    # live path: flags, log, report, asg_f/lvl_f/u_n/w_n, valid_n,
+    # floor_f, s_n read; u/w/asg/lvl, valid, s, floor, log, live written
+    n_bytes = (4 + 2 + 4 + 2 * cap * 4 + 8 + Tp + 4 * Tp * 4 + Tp
+               + 2 * Mp * 4 + 4 * Tp * 4 + Tp + 2 * Mp * 4
+               + (2 * cap + 6) * 8 + 4)
+    n_ops = Tp * 12 + Mp * 3 + cap * 2
+    stream_commit_edges(torch)
+    return (k7.KERNEL, err, ms, plain, *bound_ms(n_bytes, n_ops),
+            (Tp, Mp, kmax, cap))
+
+
+def stream_commit_edges(torch) -> None:
+    """K7 against its twin (tolerance 0): a live window, the first dead
+    window (by conv, domain and change cap), an already-dead stream, a
+    window exactly at the cap, reports on a column driven below 0, rows
+    0 and Tp-1, at the flagship and at Tp 16 / Mp 16, kmax 1 and 16,
+    cap 0 and 256."""
+    import numpy as np
+
+    rng = np.random.default_rng(41)
+    cases = []
+    for Tp, Mp, kmax, cap in ((10240, 1024, 16, 256), (16, 16, 1, 0),
+                              (64, 1028, 16, 8)):
+        for kw in (dict(), dict(conv=False), dict(dom=False),
+                   dict(nchg=cap + 1), dict(live=False),
+                   dict(nchg=cap), dict(below_zero=True),
+                   dict(below_zero=True, live=False)):
+            cases.append((Tp, Mp, kmax, cap, kw))
+    bad = []
+    for Tp, Mp, kmax, cap, kw in cases:
+        kw = dict(kw)
+        kw.setdefault("nchg", min(3, cap))
+        flags, rest = stream_commit_inputs(torch, rng, Tp, Mp, kmax, cap,
+                                           **kw)
+        err = stream_commit_check(torch, flags, rest, cap)
+        if err:
+            bad.append((Tp, Mp, kmax, cap, kw, err))
+    log(f"[edges] stream_commit: {len(cases)} shapes, {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"[edges] stream_commit != twin: {bad[:4]}")
+
+
 def run_rounds(device, clusters, model="quincy"):
     from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
     from poseidon_tpu_torch.ops.resident import ResidentSolver
@@ -828,6 +1167,7 @@ def parity_phase():
         log(f"[parity] round {r}: card == cpu (cost={a.cost} "
             f"backend={a.backend} rounds={a.rounds})")
     express_parity()
+    stream_parity()
 
 
 def oracle_cost(cluster, device, model: str = "quincy",
@@ -1126,13 +1466,15 @@ def express_events(bridge, rng, window: int, *, n: int = 16,
     return events
 
 
-def express_bridge(device, cluster):
-    """A bridge with the express lane on over ``cluster``, one certified
-    round behind it and its bindings confirmed."""
+def express_bridge(device, cluster, stream_windows: int = 0):
+    """A bridge with the express lane on (and the stream lane with
+    ``stream_windows`` K > 1) over ``cluster``, one certified round
+    behind it and its bindings confirmed."""
     from poseidon_tpu_torch.bridge import SchedulerBridge
 
     bridge = SchedulerBridge(cost_model="quincy", small_to_oracle=False,
-                             express_lane=True, device=device)
+                             express_lane=True, device=device,
+                             stream_windows=stream_windows)
     bridge.observe_nodes(list(cluster.machines))
     bridge.observe_pods(list(cluster.tasks))
     res = bridge.run_scheduler()
@@ -1309,6 +1651,553 @@ def express_phase(torch):
     return {k.name: k.launches for k in kernels.KERNELS}
 
 
+STREAM_WINDOWS = 8
+STREAM_SYMBOLS = ("stream_commit_kernel", "express_rows_kernel",
+                  "express_patch_kernel", "row_options_kernel",
+                  "bid_pass_kernel")
+
+
+def profile_symbols(prof, wall_us: float, label: str, symbols) -> None:
+    """Device busy and idle share of one profiled call and each named
+    kernel's device time as called (by its CUDA symbol)."""
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in rows)
+    log(f"[profile] {label}: wall_us={wall_us:.1f} "
+        f"device_busy_us={busy:.1f} "
+        f"idle_share={1 - min(busy / max(wall_us, 1e-9), 1):.3f}")
+    for k in symbols:
+        hits = [(t, n) for key, t, n in rows if k in key]
+        total = sum(t for t, _ in hits)
+        count = sum(n for _, n in hits)
+        log(f"[profile] {label} kernel {k}: total_us={total:.1f} "
+            f"launches={count} us_per_launch={total / max(count, 1):.3f}")
+
+
+def stream_schedule(bridge, rng, tag: str, sizes, *, completions: int = 2):
+    """The windows of one stream batch, drawn from ONE snapshot of the
+    bridge (the synced and the stream lane agree on running pods only at
+    flush boundaries): per window ``sizes[w]`` seeded arrivals with one
+    machine or rack preference each (the ``[express]`` schedule's shape)
+    and ``completions`` running pods that finish, none twice. Events
+    name pods by uid, so each bridge resolves them against its own
+    state."""
+    from poseidon_tpu_torch.cluster import TaskPhase
+
+    used = {}
+    for t in bridge.tasks.values():
+        if t.phase == TaskPhase.RUNNING:
+            used[t.machine] = used.get(t.machine, 0) + 1
+    free = sorted(m.name for m in bridge.machines.values()
+                  if used.get(m.name, 0) + 2 < m.max_tasks)
+    rack_names = sorted({m.rack for m in bridge.machines.values()})
+    running = sorted(u for u, t in bridge.tasks.items()
+                     if t.phase == TaskPhase.RUNNING)
+    victims = [running[int(i)] for i in rng.choice(
+        len(running), size=completions * len(sizes), replace=False)]
+    windows = []
+    for w, n in enumerate(sizes):
+        arrivals = []
+        for k in range(n):
+            if rng.random() < 0.3:
+                prefs = {rack_names[int(rng.integers(len(rack_names)))]:
+                         int(rng.integers(10, 100))}
+            else:
+                prefs = {free[int(rng.integers(len(free)))]:
+                         int(rng.integers(20, 200))}
+            arrivals.append(dict(
+                uid=f"st-{tag}-{w}-{k:03d}", job=f"job-st-{tag}-{w}",
+                cpu_request=float(rng.choice([0.1, 0.25, 0.5, 1.0])),
+                memory_request_kb=int(rng.choice([1, 2, 8])) << 18,
+                data_prefs=prefs,
+            ))
+        windows.append((arrivals,
+                        victims[w * completions: (w + 1) * completions]))
+    return windows
+
+
+def stream_events(bridge, window):
+    from poseidon_tpu_torch.cluster import Task
+
+    arrivals, victims = window
+    return ([("ADDED", Task(**a)) for a in arrivals]
+            + [("DELETED", bridge.tasks[u]) for u in victims])
+
+
+def synced_windows(bridge, windows, label: str) -> list[dict]:
+    """The synced express lane over ``windows``: one batch and its
+    confirmations per window; returns each window's placements."""
+    out = []
+    for w, window in enumerate(windows):
+        r = bridge.express_batch(stream_events(bridge, window),
+                                 t_event=time.perf_counter())
+        if r is None or not bridge.solver.express_ready:
+            raise AssertionError(f"[stream] {label}: synced window {w} "
+                                 f"degraded")
+        out.append(dict(r.bindings))
+        for uid, m in r.bindings.items():
+            bridge.confirm_binding(uid, m)
+    return out
+
+
+def stream_flush_windows(bridge, windows, label: str):
+    """The stream lane over ``windows``: accumulate, ONE flush, finish.
+    Returns each window's placements (from the decision log), the
+    result and the flush's inflight record (ctx, carry)."""
+    for w, window in enumerate(windows):
+        if not bridge.stream_window(stream_events(bridge, window),
+                                    t_event=time.perf_counter()):
+            raise AssertionError(f"[stream] {label}: window {w} did not "
+                                 f"accumulate")
+    n_log = len(bridge.decision_log)
+    bridge.stream_flush()
+    inflight = bridge.solver._stream_inflight
+    r = bridge.stream_finish()
+    per = [dict() for _ in windows]
+    for _round, kind, uid, detail in list(bridge.decision_log)[n_log:]:
+        if kind == "PLACE" and isinstance(detail, dict):
+            per[detail["stream_window"]][uid] = detail["machine"]
+    if r is not None:
+        for uid, m in r.bindings.items():
+            bridge.confirm_binding(uid, m)
+    return per, r, inflight
+
+
+def stream_phase(torch, card: str):
+    """The stream lane at full width over the flagship: a K = 8 flush of
+    the ``[express]`` schedule (16 arrivals and 2 completions a window)
+    on a bridge on the card, with ONE result fetch and K4, K5 and K7
+    launched, equal window by window (placements, window costs and
+    rounds, then the warm carry) to the same flush on a bridge on the
+    CPU (the twins); beside it, the synced express lane on a third
+    bridge over the same windows, its agreement printed (both packages
+    place ties differently in the two lanes: see ``stream_failure``'s
+    note); a short flush (3 windows, padded), again card == CPU; and a
+    flush whose window 3 fails its certificate (``stream_failure``).
+    Returns the launch counts of the K = 8 flush."""
+    import numpy as np
+
+    from poseidon_tpu_torch import kernels
+    from poseidon_tpu_torch.synth import config2_quincy_flagship
+
+    log(f"[stream] card: {card}")
+    cluster = config2_quincy_flagship(seed=0)
+    card_b = express_bridge(DEVICE, cluster, STREAM_WINDOWS)[0]
+    host_b = express_bridge("cpu", cluster, STREAM_WINDOWS)[0]
+    synced = express_bridge(DEVICE, cluster, 0)[0]
+    rng = np.random.default_rng(505)
+    solver = card_b.solver
+
+    def run(label, sizes, launches=False, profiled=False):
+        windows = stream_schedule(card_b, rng, label, sizes)
+        fetched0 = solver.stream_fetches
+        sync(torch)
+        if launches:
+            kernels.reset_launch_counts()
+        if profiled and DEVICE == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                per, r, _inf = stream_flush_windows(card_b, windows, label)
+                sync(torch)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            profile_symbols(prof, wall_ms * 1e3, f"stream {label} flush",
+                            STREAM_SYMBOLS)
+        else:
+            t0 = time.perf_counter()
+            per, r, _inf = stream_flush_windows(card_b, windows, label)
+            sync(torch)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        t = r.timings if r is not None else {}
+        log(f"[stream] {label}: windows={len(windows)} of K="
+            f"{STREAM_WINDOWS} placed={[len(a) for a in per]} "
+            f"fetches={solver.stream_fetches - fetched0} "
+            f"last_stream_fetches={solver.last_stream_fetches} "
+            f"loop_syncs={solver.last_round_loop_syncs} "
+            f"prep_ms={t.get('prep_ms', 0.0):.3f} "
+            f"upload_ms={t.get('upload_ms', 0.0):.3f} "
+            f"stack_ms={t.get('stack_ms', 0.0):.3f} "
+            f"solve_ms={t.get('solve_ms', 0.0):.3f} wall_ms={wall_ms:.3f} "
+            f"per_window_ms={wall_ms / len(windows):.3f} "
+            f"e2b_ms={r.latency_ms if r else 0.0:.3f}"
+            + (f" launches={counts}" if launches else ""))
+        if (solver.stream_fetches - fetched0 != 1
+                or solver.last_stream_fetches != 1
+                or not solver.express_ready or not all(per)):
+            raise AssertionError(f"[stream] {label}: fetches "
+                                 f"{solver.last_stream_fetches}, context "
+                                 f"{solver.express_ready}")
+        per_h, r_h, _ = stream_flush_windows(host_b, windows, label)
+        a, b = card_b.solver.warm, host_b.solver.warm
+        carry_equal = all(torch.equal(x.cpu(), y)
+                          for x, y in ((a.asg, b.asg), (a.lvl, b.lvl),
+                                       (a.floor, b.floor)))
+        if (per != per_h or r.cost != r_h.cost or r.rounds != r_h.rounds
+                or not carry_equal):
+            raise AssertionError(f"[stream] {label}: card != cpu")
+        log(f"[stream] {label}: card == cpu for every window's placements, "
+            f"the cost ({r.cost}), the rounds ({r.rounds}) and the carry")
+        return windows, per, counts
+
+    windows, per, counts = run("full", [16] * STREAM_WINDOWS, launches=True)
+    idle = [n for n in ("express_rows", "express_patch", "stream_commit")
+            if counts[n] == 0 and DEVICE == "cuda"]
+    if idle:
+        raise AssertionError(f"[stream] kernels not launched: {idle}")
+    want = synced_windows(synced, windows, "full")
+    same = [sum(a.get(u) == m for u, m in b.items())
+            for a, b in zip(per, want)]
+    log(f"[stream] synced express lane over the same windows: placed "
+        f"{[len(b) for b in want]}, the same pod on the same machine as "
+        f"the stream in {same} (ties go another way in the two lanes, as "
+        f"in the reference)")
+    run("short", [16] * 3, profiled=True)
+    stream_failure(torch, cluster)
+    return counts
+
+
+def stream_failure(torch, cluster) -> None:
+    """A flush whose window 3 fails its certificate: windows 0-2 of 4
+    arrivals, window 3 of 16, and a change cap the first three meet and
+    window 3 overflows (taken from a clean 3-window flush of the same
+    windows on a second bridge). Windows 0-2 bind as the clean flush's,
+    the table (window 3's K4 rows put back by K7) and the carry equal
+    the clean flush's, the degrade names window 3 and the cap, and the
+    next round binds window 3's pods.
+
+    Why a clean flush and not the synced lane: the synced lane frees a
+    placed pod's table row at the next window's retire, where the next
+    arrivals take it; the stream lane frees it at the finish. Arrivals
+    thus sit in other rows, and the auction's task-id tie-breaks can
+    seat them on other machines of equal cost. The reference does the
+    same (ROADMAP Queue 3)."""
+    import numpy as np
+
+    failing = express_bridge(DEVICE, cluster, STREAM_WINDOWS)[0]
+    clean = express_bridge(DEVICE, cluster, STREAM_WINDOWS)[0]
+    rng = np.random.default_rng(606)
+    windows = stream_schedule(clean, rng, "fail", [4, 4, 4, 16])
+    want, _r3, inf3 = stream_flush_windows(clean, windows[:3], "clean")
+    cap = max(len(b) for b in want)
+    failing.solver.express_change_cap = cap
+    trace = failing.trace
+    # the trace is a ring (the first round's events fill it): count
+    # the events this flush adds by the ring's running total
+    n0 = trace.dropped_total + len(trace.events)
+    per, r, inf = stream_flush_windows(failing, windows, "fail")
+    sync(torch)
+    new = trace.dropped_total + len(trace.events) - n0
+    tail = list(trace.events)[-new:] if new else []
+    whys = [e.detail["why"] for e in tail if e.event == "EXPRESS_DEGRADE"]
+    flush = [e.detail for e in tail if e.event == "STREAM_FLUSH"]
+    log(f"[stream] failing flush: cap={cap} failed_window="
+        f"{flush[0]['failed_window'] if flush else None} placed="
+        f"{[len(a) for a in per]} degrade={whys}")
+    if per[:3] != want or per[3] or not flush \
+            or flush[0]["failed_window"] != 3:
+        raise AssertionError("[stream] failing flush: windows 0-2 != the "
+                             "clean flush's, or window 3 bound")
+    if not whys or "window 3" not in whys[0] or "change_cap" not in whys[0]:
+        raise AssertionError(f"[stream] failing flush: degrade {whys}")
+    if failing.solver.express_ready:
+        raise AssertionError("[stream] failing flush: context still live")
+    a, b = inf.ctx.dev, inf3.ctx.dev
+    wa, wb = failing.solver._warm, clean.solver._warm
+    for name, x, y in (("c", a.c, b.c), ("u", a.u, b.u), ("w", a.w, b.w),
+                       ("s", a.s, b.s), ("valid", a.task_valid,
+                                         b.task_valid),
+                       ("asg", wa.asg, wb.asg), ("lvl", wa.lvl, wb.lvl),
+                       ("floor", wa.floor, wb.floor)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"[stream] failing flush: {name} != the "
+                                 f"clean 3-window flush's")
+    res = failing.run_scheduler()
+    late = {x["uid"] for x in windows[3][0]}
+    if not late <= set(res.bindings) or res.stats.express_degrades != 1:
+        raise AssertionError("[stream] failing flush: window 3's pods did "
+                             "not bind in the next round")
+    log(f"[stream] failing flush: windows 0-2 bound as the clean flush's, "
+        f"table and carry == the clean flush's, window 3's {len(late)} "
+        f"pods bound by the next round (backend={res.stats.backend})")
+
+
+def stream_parity() -> None:
+    """A 3-window stream flush on the 64 x 600 parity cell, on the card
+    and on the CPU: placements, window costs and rounds, and the carry,
+    equal."""
+    import numpy as np
+
+    from poseidon_tpu_torch.synth import make_synthetic_cluster
+
+    cluster = make_synthetic_cluster(64, 600, seed=1, machines_per_rack=8)
+    runs = {}
+    for device in (DEVICE, "cpu"):
+        bridge = express_bridge(device, cluster, 3)[0]
+        rng = np.random.default_rng(78)
+        windows = stream_schedule(bridge, rng, "par", [8, 8, 8])
+        per, r, inf = stream_flush_windows(bridge, windows, "parity")
+        warm = bridge.solver.warm
+        runs[device] = (per, r.cost, r.rounds,
+                        [np.asarray(t.cpu()).tolist()
+                         for t in (warm.asg, warm.lvl, warm.floor,
+                                   inf.ctx.dev.s, inf.ctx.dev.u)])
+    if runs[DEVICE] != runs["cpu"]:
+        raise AssertionError("[parity] stream flush: card != cpu")
+    log(f"[parity] stream flush of 3 windows: card == cpu (placed="
+        f"{[len(a) for a in runs['cpu'][0]]} cost={runs['cpu'][1]} "
+        f"rounds={runs['cpu'][2]})")
+
+
+WHATIF_VARIANTS = 64
+
+
+def whatif_phase(torch, card: str):
+    """BASELINE config 5 (1,000 machines x 4,000 pods, quincy) as
+    ``solve_what_if(n_variants=64, seed=7)`` on the card: every variant
+    certified, variant 0 equal to the C++ oracle on the unperturbed
+    instance, variants 1 and 63 equal to the CPU twins' solves of the
+    same perturbed tables, one result fetch. Returns the launch counts
+    of the call."""
+    import numpy as np
+
+    from poseidon_tpu_torch import kernels
+    from poseidon_tpu_torch.guards import SyncCounter
+    from poseidon_tpu_torch.ops import batch
+    from poseidon_tpu_torch.ops.dense_auction import build_dense_instance
+    from poseidon_tpu_torch.oracle import solve_oracle
+
+    dev = torch.device(DEVICE)
+    inst, net = perturb_instance(torch, dev)
+    fetches, loops = SyncCounter(), SyncCounter()
+    sync(torch)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = batch.solve_what_if(inst, n_variants=WHATIF_VARIANTS, seed=7,
+                              device=DEVICE, fetches=fetches,
+                              loop_syncs=loops)
+    sync(torch)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    want0 = solve_oracle(net, algorithm="cost_scaling").cost
+    log(f"[whatif] card: {card}")
+    log(f"[whatif] config 5: T={inst.n_tasks} M={inst.n_machines} "
+        f"variants={WHATIF_VARIANTS} total_ms={total_ms:.3f} "
+        f"per_variant_ms={total_ms / WHATIF_VARIANTS:.3f} "
+        f"fetches={fetches.count} loop_syncs={loops.count} "
+        f"rounds min/median/max={int(res.rounds.min())}/"
+        f"{int(sorted(res.rounds)[WHATIF_VARIANTS // 2])}/"
+        f"{int(res.rounds.max())} converged={int(res.converged.sum())} "
+        f"cost0={int(res.costs[0])} oracle0={want0} launches={counts}")
+    if not res.converged.all() or fetches.count != 1:
+        raise AssertionError(f"[whatif] {int(res.converged.sum())} of "
+                             f"{WHATIF_VARIANTS} certified, "
+                             f"{fetches.count} fetches")
+    if int(res.costs[0]) != want0:
+        raise AssertionError(f"[whatif] variant 0 cost {res.costs[0]} != "
+                             f"oracle {want0}")
+    idle = [n for n in ("perturb", "densify", "row_options", "bid_pass")
+            if counts[n] == 0 and DEVICE == "cuda"]
+    if idle:
+        raise AssertionError(f"[whatif] kernels not launched: {idle}")
+    # the same perturbed tables, variants 1 and 63 solved by the twins
+    d = build_dense_instance(inst, dev)
+    if DEVICE == "cuda":
+        # K6 as the what-if calls it (once, after the densify), timed by
+        # CUDA events: a profiler session late in the run can record no
+        # device activity
+        a_ev = torch.cuda.Event(enable_timing=True)
+        b_ev = torch.cuda.Event(enable_timing=True)
+        a_ev.record()
+        c, u, w, dg, cm = batch.perturb_costs(d, WHATIF_VARIANTS, 7)
+        b_ev.record()
+        b_ev.synchronize()
+        log(f"[whatif] perturb as called: {a_ev.elapsed_time(b_ev):.6f} ms "
+            f"(CUDA events around perturb_costs, L2 as the densify left "
+            f"it)")
+    else:
+        c, u, w, dg, cm = batch.perturb_costs(d, WHATIF_VARIANTS, 7)
+    cpu = torch.device("cpu")
+    s, tv = d.s.to(cpu), d.task_valid.to(cpu)
+    for b in (1, WHATIF_VARIANTS - 1):
+        t1 = time.perf_counter()
+        cost, conv, asg, rounds = batch._solve_variant(
+            c.to(cpu), u.to(cpu), w.to(cpu), dg.to(cpu), cm.to(cpu), b,
+            s, tv, d.scale, smax=d.smax, alpha=1024, max_rounds=20_000,
+        )
+        T = inst.n_tasks
+        a = asg.numpy()[:T]
+        a = np.where((a >= 0) & (a < inst.n_machines), a, -1)
+        same = (int(cost) // (T + 1) == int(res.costs[b]) and bool(conv)
+                and rounds == int(res.rounds[b])
+                and np.array_equal(a, res.assignments[b]))
+        log(f"[whatif] variant {b}: card cost={int(res.costs[b])} "
+            f"rounds={int(res.rounds[b])}; cpu twins cost="
+            f"{int(cost) // (T + 1)} rounds={rounds} "
+            f"({(time.perf_counter() - t1):.1f} s) equal={same}")
+        if not same:
+            raise AssertionError(f"[whatif] variant {b}: card != cpu")
+    return counts
+
+
+SERVICE_WARMUP_WAVES = 2
+SERVICE_WAVES = 3
+
+
+def service_tenants():
+    """The ``[service]`` tenants at real size: (id, model, cluster,
+    churned pods keep preferences)."""
+    from poseidon_tpu_torch.synth import (
+        config2_quincy_flagship, config5_whatif, make_synthetic_cluster,
+    )
+
+    # the trivial and random tenants carry no preference arcs: with them
+    # neither package certifies within the 20,000-round fuse at these
+    # sizes (ROADMAP Queue 3) and both degrade to the oracle
+    return [
+        ("flagship", "quincy", config2_quincy_flagship(seed=0), True),
+        ("config5", "quincy", config5_whatif(seed=0), True),
+        ("trivial", "trivial",
+         make_synthetic_cluster(200, 2000, seed=5, prefs_per_task=0), False),
+        ("random", "random",
+         make_synthetic_cluster(64, 600, seed=6, prefs_per_task=0), False),
+    ]
+
+
+def service_churn(cluster, round_no: int, keep_prefs: bool):
+    import dataclasses
+
+    out = churn(cluster, round_no)
+    if keep_prefs:
+        return out
+    return dataclasses.replace(out, tasks=[
+        dataclasses.replace(t, data_prefs={}) for t in out.tasks])
+
+
+def bound_cluster(cluster, bindings):
+    """The cluster as the apiserver shows it once ``bindings`` landed:
+    those pods running on their machines."""
+    import dataclasses
+
+    from poseidon_tpu_torch.cluster import TaskPhase
+
+    return dataclasses.replace(cluster, tasks=[
+        dataclasses.replace(t, phase=TaskPhase.RUNNING,
+                            machine=bindings[t.uid])
+        if t.uid in bindings else t
+        for t in cluster.tasks
+    ])
+
+
+def service_phase(torch, card: str):
+    """A ``SchedulingService`` on the card over four heterogeneous
+    tenants at real size (the flagship, the config-5 cluster, a 200 x
+    2,000 trivial tenant and a 64 x 600 random one: four shape buckets),
+    2 warm-up waves and 3 measured waves with a seeded 1 % churn, each
+    wave's bindings confirmed (the pods then run where they were
+    placed). Per wave and tenant: placements equal a solo bridge's on
+    the card fed the same observations, ``dense_service`` with its cost equal to the
+    C++ oracle's on the tenant's priced graph; per wave: K1-K3 launched,
+    one result fetch per dispatch chunk (plus one per cold retry); no
+    kernel build and no new launch plan in the measured waves. Then the
+    ``--serve`` front door through ``cli.main``. Returns the launch
+    counts of the last measured wave."""
+    import contextlib
+
+    from poseidon_tpu_torch import cli, kernels
+    from poseidon_tpu_torch.bridge import SchedulerBridge
+    from poseidon_tpu_torch.graph.network import FlowNetwork
+    from poseidon_tpu_torch.guards import CompileCounter
+    from poseidon_tpu_torch.oracle import solve_oracle
+    from poseidon_tpu_torch.service import SchedulingService
+
+    log(f"[service] card: {card}")
+    service = SchedulingService(device=DEVICE)
+    d = service.dispatcher
+    tenants = service_tenants()
+    clusters, solos = {}, {}
+    for tid, model, cluster, _prefs in tenants:
+        service.add_tenant(tid, cost_model=model)
+        solos[tid] = SchedulerBridge(cost_model=model, small_to_oracle=False,
+                                     device=DEVICE)
+        clusters[tid] = cluster
+    counter = CompileCounter()
+    counts = {}
+    for wave in range(SERVICE_WARMUP_WAVES + SERVICE_WAVES):
+        measured = wave >= SERVICE_WARMUP_WAVES
+        if wave:
+            for tid, _model, _c, prefs in tenants:
+                clusters[tid] = service_churn(clusters[tid], 50 + wave, prefs)
+        for tid in clusters:
+            for bridge in (service.sessions[tid].bridge, solos[tid]):
+                bridge.observe_nodes(list(clusters[tid].machines))
+                bridge.observe_pods(list(clusters[tid].tasks))
+        before = (d.dispatches, d.fetches.count, d.cold_retries,
+                  d.loop_syncs.count)
+        sync(torch)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counter if measured else contextlib.nullcontext():
+            futs = {tid: service.submit(tid) for tid in clusters}
+            service.pump()
+            service.flush()
+            results = {tid: f.result(timeout=600) for tid, f in futs.items()}
+            sync(torch)
+        wave_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        chunks = d.dispatches - before[0]
+        fetches = d.fetches.count - before[1]
+        retries = d.cold_retries - before[2]
+        log(f"[service] wave {wave}{' (warm-up)' if not measured else ''}: "
+            f"wave_ms={wave_ms:.3f} chunks={chunks} fetches={fetches} "
+            f"cold_retries={retries} loop_syncs="
+            f"{d.loop_syncs.count - before[3]} builds="
+            f"{counter.count if measured else '-'} launches={counts}")
+        idle = [n for n in ROUND_KERNELS
+                if counts[n] == 0 and DEVICE == "cuda"]
+        if idle or fetches != chunks + retries or chunks < 2:
+            raise AssertionError(f"[service] wave {wave}: idle {idle}, "
+                                 f"{fetches} fetches for {chunks} chunks "
+                                 f"+ {retries} retries")
+        for tid, r in results.items():
+            s = r.stats
+            solver = service.sessions[tid].solver
+            arrays = solver.last_arrays
+            net = FlowNetwork.from_arrays(
+                arrays["src"], arrays["dst"], arrays["cap"],
+                solver.last_cost_host, arrays["supply"])
+            want = solve_oracle(net, algorithm="cost_scaling").cost
+            solo = solos[tid].run_scheduler()
+            same = dict(solo.bindings) == dict(r.bindings)
+            log(f"[service] wave {wave} {tid}: backend={s.backend} "
+                f"placed={s.pods_placed} cost={s.cost} oracle={want} "
+                f"solve_ms={s.solve_ms:.3f} total_ms={s.total_ms:.3f} "
+                f"solo_backend={solo.stats.backend} solo_equal={same}")
+            if s.backend != "dense_service" or s.cost != want or not same:
+                raise AssertionError(f"[service] wave {wave} {tid}: "
+                                     f"{s.backend}, cost {s.cost} vs oracle "
+                                     f"{want}, solo equal {same}")
+            # the driver's actuation: every binding lands, on both
+            for uid, m in r.bindings.items():
+                service.sessions[tid].bridge.confirm_binding(uid, m)
+                solos[tid].confirm_binding(uid, m)
+            clusters[tid] = bound_cluster(clusters[tid], r.bindings)
+    if counter.count != 0:
+        raise AssertionError(f"[service] {counter.count} kernel builds or "
+                             f"new launch plans after warm-up")
+    log(f"[service] measured waves: 0 kernel builds and 0 new launch plans")
+    t0 = time.perf_counter()
+    rc = cli.main(["--serve=true", "--serve_tenants=3", "--max_rounds=4",
+                   f"--device={DEVICE}"])
+    log(f"[service] cli --serve=true --serve_tenants=3 --max_rounds=4 "
+        f"--device={DEVICE}: rc={rc} in {time.perf_counter() - t0:.3f} s")
+    if rc != 0:
+        raise AssertionError(f"[service] --serve exited {rc}")
+    return counts
+
+
 DAEMON_ROUNDS = 4
 EXPRESS_ROUNDS = 3
 
@@ -1480,13 +2369,15 @@ EXPRESS_BURSTS = 3
 EXPRESS_POLL_US = 12_000_000
 
 
-def daemon_lane(torch, cluster, watch: bool, express: bool = False):
+def daemon_lane(torch, cluster, watch: bool, express: bool = False,
+                stream_windows: int = 0):
     """One daemon run over the fake apiserver: ``cli.run_loop`` on the
     card, pipelined rounds, incremental scheduler and build, 1 % churn
     between rounds. With ``express`` the loop watches with the express
     lane on (serial correction rounds, ``EXPRESS_POLL_US`` ticks, no
     shed), and after the first round the server adds ``EXPRESS_BURSTS``
-    bursts of 16 pods, one every second, for the express windows.
+    bursts of 16 pods, one every second, for the express windows; with
+    ``stream_windows`` K > 1 those windows run as stream flushes.
     Returns the
     per-dense-round records, the final bindings, the launch counts of
     the run and the express batches' records."""
@@ -1531,6 +2422,32 @@ def daemon_lane(torch, cluster, watch: bool, express: bool = False):
                 [e.detail.get("why") for e in tail
                  if e.event == "EXPRESS_DEGRADE"],
             ))
+            return out
+
+        def stream_window(self, pod_events, **kw):
+            n0 = self.trace.dropped_total + len(self.trace.events)
+            ok = super().stream_window(pod_events, **kw)
+            new = self.trace.dropped_total + len(self.trace.events) - n0
+            tail = list(self.trace.events)[-new:] if new else []
+            whys = [e.detail.get("why") for e in tail
+                    if e.event == "EXPRESS_DEGRADE"]
+            if whys:
+                express_log.append(({}, 0, whys))
+            return ok
+
+        def stream_finish(self):
+            n0 = self.trace.dropped_total + len(self.trace.events)
+            out = super().stream_finish()
+            new = self.trace.dropped_total + len(self.trace.events) - n0
+            tail = list(self.trace.events)[-new:] if new else []
+            self.last_express = set(out.bindings) if out else set()
+            if new:
+                express_log.append((
+                    dict(out.bindings) if out else {},
+                    sum(e.event == "EXPRESS_PLACE" for e in tail),
+                    [e.detail.get("why") for e in tail
+                     if e.event == "EXPRESS_DEGRADE"],
+                ))
             return out
 
     bridges = []
@@ -1606,6 +2523,7 @@ def daemon_lane(torch, cluster, watch: bool, express: bool = False):
             # watch events, past the default shed threshold (512): the
             # window would shed every burst to the tick
             f"--express_shed_queue={0 if express else 512}",
+            f"--stream_windows={stream_windows}",
             f"--max_rounds={n_rounds}",
             f"--polling_frequency={EXPRESS_POLL_US if express else 1000}",
         ])
@@ -1679,10 +2597,12 @@ def daemon_phase(torch, card: str):
     cluster = config2_quincy_flagship(seed=0)
     log(f"[daemon] card: {card}")
     lanes = {}
-    for lane in ("poll", "watch", "express"):
+    for lane in ("poll", "watch", "express", "stream"):
         (records, snaps, posts, bound, launches, wall_s,
-         express_log) = daemon_lane(torch, cluster, watch=lane == "watch",
-                                    express=lane == "express")
+         express_log) = daemon_lane(
+            torch, cluster, watch=lane == "watch",
+            express=lane in ("express", "stream"),
+            stream_windows=STREAM_WINDOWS if lane == "stream" else 0)
         dense = [r for r in records if r["round"] in snaps]
         if len(dense) < 2:
             raise AssertionError(f"[daemon] {lane}: {len(dense)} dense rounds")
@@ -1745,8 +2665,8 @@ def daemon_phase(torch, card: str):
         log(f"[daemon] {lane}: {len(records)} rounds ({len(dense)} dense) "
             f"in {wall_s:.3f} s, {len(bound)} pods bound, "
             f"launches={launches}")
-        if lane == "express":
-            express_daemon_checks(records, posts, bound, express_log)
+        if lane in ("express", "stream"):
+            express_daemon_checks(records, posts, bound, express_log, lane)
         lanes[lane] = bound
     if lanes["poll"] != lanes["watch"]:
         diff = sum(lanes["poll"].get(u) != m for u, m in lanes["watch"].items())
@@ -1756,7 +2676,8 @@ def daemon_phase(torch, card: str):
         f"({len(lanes['poll'])} pods)")
 
 
-def express_daemon_checks(records, posts, bound, express_log) -> None:
+def express_daemon_checks(records, posts, bound, express_log,
+                          lane: str = "express") -> None:
     """The daemon's express lane: every express binding's POST landed
     and the server binds the pod where express placed it, each
     placement traced as EXPRESS_PLACE, and every degrade printed with
@@ -1772,7 +2693,7 @@ def express_daemon_checks(records, posts, bound, express_log) -> None:
     degrades = sum(r["stats"].express_degrades for r in records)
     wrong = {u: (m, bound.get(u)) for u, m in placed.items()
              if bound.get(u) != m}
-    log(f"[daemon] express: batches={sum(1 for e in express_log if e[0])} "
+    log(f"[daemon] {lane}: batches={sum(1 for e in express_log if e[0])} "
         f"of {len(express_log)} calls, placements={len(placed)}, "
         f"EXPRESS_PLACE events={n_events}, POSTs landed={n_ok}/{n_post} "
         f"(batches of {[p[0] for p in xposts]}, "
@@ -1780,7 +2701,7 @@ def express_daemon_checks(records, posts, bound, express_log) -> None:
         f"express_degrades={degrades}, e2b_p50_ms="
         f"{[r['stats'].express_e2b_p50_ms for r in records]}")
     for why in whys:
-        log(f"[daemon] express degrade: {why}")
+        log(f"[daemon] {lane} degrade: {why}")
     if not placed or n_events != len(placed):
         raise AssertionError(f"[daemon] express: {len(placed)} placements, "
                              f"{n_events} EXPRESS_PLACE events")
@@ -1827,14 +2748,53 @@ def main() -> int:
                 log(f"[build] {src}: {line.strip()}")
 
     timer = Timer(torch)
-    records = kernel_phase(torch, timer)
-    parity_phase()
-    launches = main_path_phase(torch)
-    models_phase(torch, timer)
-    express_launches = express_phase(torch)
-    for k in ("express_rows", "express_patch"):
-        launches[k] = express_launches[k]
-    daemon_phase(torch, smi)
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        log(f"[{name}] phase took {phase_s[name]:.1f} s")
+        return out
+
+    # ``--phases=a,b`` runs only those phases after the build (a quick
+    # check of one path while it is being brought up): it prints no
+    # kernels record and no contract line, and exits 0 when they pass
+    only = next((a.split("=", 1)[1].split(",") for a in sys.argv[1:]
+                 if a.startswith("--phases=")), None)
+
+    def want(name):
+        return only is None or name in only
+
+    records = []
+    launches = {}
+    if want("kernels"):
+        records = phase("kernels", kernel_phase, torch, timer)
+    if want("parity"):
+        phase("parity", parity_phase)
+    if want("main"):
+        launches = phase("main", main_path_phase, torch)
+    if want("models"):
+        phase("models", models_phase, torch, timer)
+    if want("express"):
+        express_launches = phase("express", express_phase, torch)
+        for k in ("express_rows", "express_patch"):
+            launches[k] = express_launches[k]
+    if want("daemon"):
+        phase("daemon", daemon_phase, torch, smi)
+    if want("stream"):
+        launches["stream_commit"] = phase(
+            "stream", stream_phase, torch, smi)["stream_commit"]
+    if want("whatif"):
+        launches["perturb"] = phase(
+            "whatif", whatif_phase, torch, smi)["perturb"]
+    if want("service"):
+        phase("service", service_phase, torch, smi)
+    log("[done] phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items()))
+    if only is not None:
+        log(f"[done] phases {only} passed (a partial run: no record)")
+        return 0
 
     out = {"kernels": [
         {

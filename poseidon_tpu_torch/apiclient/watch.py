@@ -746,6 +746,35 @@ class ClusterWatcher:
                 out.t_events.append(time.perf_counter())
         return out
 
+    def express_poll_windows(
+        self, timeout_s: float, max_events: int = 16,
+        windows: int = 1, shed_queue: int = 0,
+    ) -> list[ExpressEvents]:
+        """The stream lane's event source: up to ``windows`` coalesced
+        express windows from one poll call. The first window blocks
+        like ``express_poll``; later windows only DRAIN what already
+        arrived (timeout 0) — a backlogged stream fills K windows for
+        one flush, an idle one returns a single window and the driver
+        flushes short. Stops early at a window that needs the tick path
+        (node events, gone stream, shed) or that came back empty; the
+        list always carries at least one entry, and only its LAST entry
+        can have ``needs_tick``/``shed`` set. rv accounting is shared
+        with ``tick()`` exactly as in ``express_poll``."""
+        out: list[ExpressEvents] = []
+        for w in range(max(windows, 1)):
+            ev = self.express_poll(
+                timeout_s if w == 0 else 0.0,
+                max_events=max_events, shed_queue=shed_queue,
+            )
+            if not ev.pod_events and w > 0 and not (
+                ev.needs_tick or ev.shed or ev.reconnects
+            ):
+                break  # drained dry: flush what we have
+            out.append(ev)
+            if ev.needs_tick or ev.shed:
+                break
+        return out
+
     # ---- test helpers ----
 
     def wait_caught_up(self, rv: int, timeout_s: float = 5.0) -> bool:

@@ -2,11 +2,13 @@
 
 The port of ``poseidon_tpu/bridge/bridge.py``: the full and pipelined
 round paths, observe (poll and watch), confirm, revoke and rebalance,
-and the express lane (``express_batch``), with the same decisions,
-decision log and stats bit for bit. The stream lane, the flight
-recorder and the shadow auditor are not ported yet; asking for them
-raises ``NotImplementedError``.
-``device`` picks the solver's device (``None`` = the card).
+the express lane (``express_batch``) and the stream lane
+(``stream_window`` / ``stream_flush`` / ``stream_finish``), with the
+same decisions, decision log and stats bit for bit. The flight recorder
+and the shadow auditor are not ported yet; asking for them raises
+``NotImplementedError``. ``device`` picks the solver's device (``None``
+= the card); ``solver`` injects another implementation of the
+begin/finish seam (the service lane's per-tenant ``TenantSolver``).
 
 The first-party core of the reference (src/firmament/scheduler_bridge.cc)
 re-expressed around ``solve_scheduling``: nodes/pods observed from the
@@ -128,6 +130,7 @@ from poseidon_tpu_torch.ops.resident import (
 from poseidon_tpu_torch.obs.spans import (
     emit_span,
     express_span_tree,
+    stream_span_tree,
     round_span_tree,
 )
 from poseidon_tpu_torch.ops.transport import topology_from_columns
@@ -312,13 +315,13 @@ class SchedulerBridge:
         shrink_grace_s: float = SHRINK_GRACE_S,
         metrics=None,
         profile_spans: bool = False,
+        solver=None,
         flightrec=None,
         lifecycle=None,
         auditor=None,
         device=None,
     ):
         later = {
-            "stream_windows": stream_windows,
             "flightrec": flightrec is not None,
             "auditor": auditor is not None,
         }
@@ -326,8 +329,7 @@ class SchedulerBridge:
         if asked:
             raise NotImplementedError(
                 f"SchedulerBridge options {asked} are not ported to "
-                f"poseidon_tpu_torch yet (ROADMAP.md, Queue 1 items 4 "
-                f"and 7)"
+                f"poseidon_tpu_torch yet (ROADMAP.md, Queue 1 item 7)"
             )
         self.cost_model = cost_model
         self.max_tasks_per_machine = max_tasks_per_machine
@@ -335,6 +337,7 @@ class SchedulerBridge:
         self.migration_hysteresis = migration_hysteresis
         self.max_migrations_per_round = max_migrations_per_round
         self.express_lane = express_lane
+        self.stream_windows = stream_windows
         self.trace = trace or TraceGenerator()
         # observability: ``metrics`` is an obs.SchedulerMetrics (or
         # None); recording happens ONLY at finish/actuate time from
@@ -363,8 +366,12 @@ class SchedulerBridge:
         # device-resident solve chain; its warm DenseState lives on the
         # device across rounds (the reference's --run_incremental_scheduler
         # seam). mesh_width, aggregate_classes and topk_prefs are the
-        # scale lane's options, which ResidentSolver refuses until ported
-        self.solver = ResidentSolver(
+        # scale lane's options, which ResidentSolver refuses until ported.
+        # ``solver`` injects a different implementation of the same
+        # begin/finish seam — the multi-tenant service routes every
+        # tenant bridge through a shared batching dispatcher this way
+        # (service/dispatch.TenantSolver); None = own ResidentSolver.
+        self.solver = solver if solver is not None else ResidentSolver(
             device=device,
             oracle_timeout_s=solver_timeout_s,
             small_to_oracle=small_to_oracle,
@@ -373,6 +380,7 @@ class SchedulerBridge:
             topk_prefs=topk_prefs,
             express_lane=express_lane,
             express_max_batch=express_max_batch,
+            stream_windows=stream_windows,
             metrics=metrics,
         )
         # O(churn) graph maintenance: every state transition below is
@@ -440,6 +448,14 @@ class SchedulerBridge:
         self._express_places = 0
         self._express_degrades = 0
         self._express_e2b: list[float] = []
+        # ---- stream-lane bookkeeping (--stream_windows K) ----
+        # per-uid watch receipt stamps of the windows accumulated since
+        # the last flush/finish: each stream placement's e2b is ITS
+        # latency measured at finish time, spanning the whole K-window
+        # accumulation
+        self._stream_uid_t: dict[str, float] = {}
+        self._stream_t0: float | None = None
+        self._stream_flushes = 0
 
     def _guard_release(self, kind: str, outcome: str, *,
                        gone: int = 0, known: int = 0,
@@ -1122,6 +1138,211 @@ class SchedulerBridge:
             timings=outcome.timings,
         )
 
+    # ---- the stream lane (--stream_windows K) ---------------------------
+
+    def stream_window(
+        self,
+        pod_events: list[tuple[str, Task]],
+        *,
+        t_event: float | None = None,
+        t_events: list[float] | None = None,
+    ) -> bool:
+        """Accumulate one watch-event window into the pending stream
+        batch (``express_batch``'s head — the same observe transitions,
+        coalescing and degrade gates — but the solve is deferred:
+        ``stream_flush`` runs K accumulated windows with ONE result
+        fetch). Returns True when the window was accumulated (or was
+        pure replay noise); False means the stream degraded and the
+        events wait for the next full round. The events are ALWAYS
+        applied to bridge state either way."""
+        t0 = time.perf_counter()
+        before: dict[str, Task | None] = {}
+        for _typ, pod in pod_events:
+            if pod.uid not in before:
+                before[pod.uid] = self.tasks.get(pod.uid)
+        for typ, pod in pod_events:
+            self.observe_pod_event(typ, pod)
+        if self.lifecycle is not None and t_events is not None:
+            for (_typ, pod), ts in zip(pod_events, t_events):
+                self.lifecycle.backdate_event(pod.uid, ts)
+        if not self.express_lane:
+            return False
+        if not self.solver.express_ready or self._inflight is not None:
+            self.solver.invalidate_express()
+            return False
+        if self._express_unconfirmed:
+            self._express_invalidate(
+                count_degrade=True, why="unconfirmed placements"
+            )
+            return False
+        try:
+            arrivals, removals, slot_deltas = (
+                self._express_transitions(before)
+            )
+        except ValueError as e:
+            self._express_invalidate(count_degrade=True, why=str(e))
+            return False
+        if not (arrivals or removals or slot_deltas
+                or self._express_retire):
+            return True  # pure replay noise: nothing to accumulate
+        try:
+            maps = self.solver.express_maps()
+        except ExpressDegrade as e:
+            self._express_invalidate(count_degrade=True, why=str(e))
+            return False
+        if maps is None:
+            return False
+        midx, rack_idx = maps
+        builder = (
+            self._graph.builder if self._graph is not None
+            else FlowGraphBuilder(preemption=self.enable_preemption)
+        )
+        batch = ExpressBatch(
+            arrivals=[
+                ExpressArrival(
+                    uid=t.uid,
+                    wait_rounds=t.wait_rounds,
+                    cpu_milli=int(t.cpu_request * 1000),
+                    mem_kb=t.memory_request_kb,
+                    prefs=tuple(
+                        builder.task_arc_rows(t, midx, rack_idx)
+                    ),
+                )
+                for t in arrivals
+            ],
+            retires=self._express_retire,
+            removals=removals,
+            slot_deltas=slot_deltas,
+        )
+        self._express_retire = []
+        outcome = self.solver.stream_window(batch)
+        if not outcome.ok:
+            self._express_degrades += 1
+            self.trace.emit(
+                "EXPRESS_DEGRADE", round_num=self.round_num,
+                detail={"why": outcome.reason},
+            )
+            self.trace.flush()
+            if self.metrics is not None:
+                self.metrics.record_express_degrade(outcome.reason)
+            return False
+        # receipt stamps for the finish-side per-placement e2b
+        # (earliest wins across coalesced duplicates)
+        if self._stream_t0 is None:
+            self._stream_t0 = t_event if t_event is not None else t0
+        if t_events is not None:
+            for (_typ, pod), ts in zip(pod_events, t_events):
+                self._stream_uid_t.setdefault(pod.uid, ts)
+        elif t_event is not None:
+            for _typ, pod in pod_events:
+                self._stream_uid_t.setdefault(pod.uid, t_event)
+        return True
+
+    def stream_flush(self) -> None:
+        """Start the accumulated windows on the solver's background
+        worker (ONE result fetch for all of them). Never blocks: the
+        next batch's windows accumulate meanwhile; ``stream_finish``
+        joins it."""
+        self.solver.stream_flush()
+
+    def stream_finish(self) -> ExpressResult | None:
+        """Join the in-flight stream batch and bind every GOOD window's
+        placements (a mid-stream certificate failure still binds the
+        windows the latch proved before freezing — the degrade is traced
+        and the failed window's events onward wait for the next full
+        round). Returns ``None`` when nothing was in flight or nothing
+        could bind."""
+        out = self.solver.stream_finish()
+        if out is None:
+            return None
+        t_done = time.perf_counter()
+        t0 = self._stream_t0
+        self._stream_t0 = None
+        latency = (t_done - t0) * 1000 if t0 is not None else 0.0
+        bindings: dict[str, str] = {}
+        e2b_samples: list[float] = []
+        for uid, machine, wdx in out.placements:
+            task = self.tasks.get(uid)
+            if task is None or task.phase != TaskPhase.PENDING:
+                # the pod left (or bound elsewhere) in a LATER window of
+                # the same batch — the deletion was applied to bridge
+                # state at accumulate time, so the placement is stale
+                self._stream_uid_t.pop(uid, None)
+                continue
+            if machine not in self.machines:
+                self._express_invalidate(
+                    count_degrade=True,
+                    why=f"placement target moved for {uid}",
+                )
+                return None
+            bindings[uid] = machine
+            self._express_placed[uid] = machine
+            self._express_unconfirmed.add(uid)
+            if self.lifecycle is not None:
+                self.lifecycle.stamp_decided(uid, "stream")
+            self.decision_log.append((
+                self.round_num, "PLACE", uid,
+                {"machine": machine, "express": True,
+                 "stream_window": wdx},
+            ))
+            ts = self._stream_uid_t.pop(uid, None)
+            e2b = (t_done - ts) * 1000 if ts is not None else latency
+            self.trace.emit(
+                "EXPRESS_PLACE", task=uid, machine=machine,
+                round_num=self.round_num,
+                detail={"e2b_ms": round(e2b, 3),
+                        "stream_window": wdx},
+            )
+            self._express_e2b.append(e2b)
+            e2b_samples.append(e2b)
+        good = len(out.window_costs)
+        self._express_batches += good
+        self._express_places += len(bindings)
+        self._stream_flushes += 1
+        self.trace.emit(
+            "STREAM_FLUSH", round_num=self.round_num,
+            detail={
+                "windows": out.windows,
+                "placements": len(bindings),
+                "fetches": out.fetches,
+                "failed_window": out.failed_window,
+            },
+        )
+        if self.profile_spans:
+            emit_span(
+                self.trace,
+                stream_span_tree(
+                    latency, out.timings, windows=out.windows,
+                ),
+                self.round_num,
+            )
+        if not out.ok:
+            # the solver already invalidated the context; the good
+            # windows above are bound, the failed window's events
+            # onward wait for the round path
+            self._express_degrades += 1
+            self.trace.emit(
+                "EXPRESS_DEGRADE", round_num=self.round_num,
+                detail={"why": out.reason},
+            )
+            if self.metrics is not None:
+                self.metrics.record_express_degrade(out.reason)
+        self.trace.flush()
+        if self.metrics is not None:
+            self.metrics.record_express_batch(e2b_samples)
+            self.metrics.record_stream_flush(
+                out.windows, len(bindings)
+            )
+        if not bindings and not out.ok:
+            return None
+        return ExpressResult(
+            bindings=bindings,
+            cost=sum(out.window_costs),
+            rounds=max(out.window_rounds, default=0),
+            latency_ms=latency,
+            timings=out.timings,
+        )
+
     def _running_reobserved(
         self, known: Task | None, pod: Task, stored: Task, was_on: str
     ) -> None:
@@ -1407,9 +1628,13 @@ class SchedulerBridge:
         meta = ir.meta
         # a finished round replaces the express context: whatever
         # retire backlog / unconfirmed set the OLD window accumulated
-        # is stale against the new round's rows
+        # is stale against the new round's rows (stream stamps too —
+        # the solver abandoned any pending/in-flight stream batch at
+        # begin_round)
         self._express_retire = []
         self._express_unconfirmed.clear()
+        self._stream_uid_t.clear()
+        self._stream_t0 = None
         # phase accounting: prep+upload feed the price column, the pure
         # device compute is the solve column, the result download the
         # decompose column (transfer vs compute stays distinguishable)

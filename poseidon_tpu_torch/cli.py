@@ -23,10 +23,16 @@ where the port has them:
   vocabulary cannot represent (node events, stream degradation,
   oversize batches) degrades loudly to the next full round, and a
   queue deeper than ``--express_shed_queue`` sheds to the tick;
+- ``--stream_windows=K`` (K > 1, with the express lane) accumulates up
+  to K express windows and runs them as one stream flush with one
+  result fetch (``SchedulerBridge.stream_window`` / ``stream_flush`` /
+  ``stream_finish``);
+- ``--serve=true`` schedules N tenant clusters (``--serve_apiservers``
+  or ``--serve_tenants`` in-process fakes) through one batched
+  pipeline (``service/serve.py``);
 - ``--device`` (default ``cuda``) picks the solver's device; without a
   card the default raises, and ``--device=cpu`` runs on the CPU;
-- the flags of modules not ported yet (the stream lane, the
-  service, standby and checkpoints, flight recorder, explainer, shadow
+- the flags of modules not ported yet (standby and checkpoints, flight recorder, explainer, shadow
   audit, SLOs, the device mesh, class aggregation, preference pruning)
   are parsed so the reference's flagfiles load, and any of them given a
   value other than its default stops the daemon with an error naming
@@ -65,11 +71,6 @@ _BOOL = ("true", "false")
 # They parse so the reference's flagfiles load; any other value than
 # the default is refused (``unported_flags``)
 UNPORTED_FLAGS = {
-    "stream_windows": (0, int, 4),
-    "serve": ("false", _BOOL, 5),
-    "serve_apiservers": ("", str, 5),
-    "serve_tenants": (0, int, 5),
-    "serve_max_batch": (64, int, 5),
     "mesh_width": (0, int, 6),
     "aggregate_classes": ("false", _BOOL, 6),
     "topk_prefs": (0, int, 6),
@@ -171,6 +172,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max pod arrivals per express dispatch (a fixed "
                         "shape); larger event bursts degrade to the "
                         "next full round")
+    p.add_argument("--stream_windows", type=int, default=0,
+                   help="stream-lane depth K: accumulate up to K "
+                        "express windows and solve them as ONE stream "
+                        "flush with ONE result fetch (0/1 = synced "
+                        "per-window batches). Requires --express_lane")
     p.add_argument("--express_correction_rounds", type=int, default=1,
                    help="run the full correction round every Nth tick "
                         "while the express context is live (1 = every "
@@ -183,6 +189,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "path (one full solve absorbs the burst) and "
                         "poseidon_express_shed_total counts it. "
                         "0 = never shed")
+    # scheduling as a service: one daemon, N tenant clusters. Every
+    # tenant keeps an isolated bridge/stats/trace/decision log; their
+    # round solves pad into shape buckets and dispatch as one batched
+    # device program with one batched fetch per bucket chunk
+    # (poseidon_tpu_torch/service/)
+    p.add_argument("--serve",
+                   default="false", choices=["true", "false"],
+                   help="multi-tenant service mode: schedule N tenant "
+                        "clusters (from --serve_apiservers or "
+                        "--serve_tenants fakes) through one batched "
+                        "device pipeline; per-tenant state/trace/"
+                        "decision logs stay isolated")
+    p.add_argument("--serve_apiservers", default="",
+                   help="comma list of tenant apiserver host:port "
+                        "endpoints for --serve (one tenant each)")
+    p.add_argument("--serve_tenants", type=int, default=0,
+                   help="with --serve and no --serve_apiservers: spin "
+                        "up N in-process fake-apiserver tenants with "
+                        "heterogeneous synthetic workloads")
+    p.add_argument("--serve_max_batch", type=int, default=64,
+                   help="max tenant instances per batched bucket "
+                        "dispatch; the memory budget may split a wave "
+                        "into smaller chunks regardless (each chunk "
+                        "is one upload + one batched fetch)")
     p.add_argument("--device", default="cuda",
                    help="the solver's torch device: cuda (default; "
                         "raises without a card), cuda:N, or cpu")
@@ -528,6 +558,7 @@ def run_loop(
             lifecycle=lifecycle,
             express_lane=args.express_lane == "true",
             express_max_batch=args.express_max_batch,
+            stream_windows=args.stream_windows,
             device=args.device,
         )
         # ---- the failure-domain ladder --------------------------------
@@ -612,10 +643,17 @@ def run_loop(
                 "(--run_incremental_scheduler=true); every express batch "
                 "will degrade to the round path"
             )
+        stream_k = max(args.stream_windows, 0)
+        if stream_k > 1 and not express:
+            log.warning(
+                "--stream_windows needs --express_lane=true (the stream "
+                "lane runs express windows); streaming disabled"
+            )
+            stream_k = 0
         # the lane label every round's stats carry (the metrics/report
         # grouping key)
         bridge.lane = (
-            "express" if express
+            ("stream" if stream_k > 1 else "express") if express
             else "watch" if watcher is not None else "poll"
         ) + ("+pipelined" if pipelined else "")
 
@@ -634,7 +672,8 @@ def run_loop(
             args, client, bridge, watcher, outbox, detector, stop,
             health=health, sched_metrics=sched_metrics,
             stats_fh=stats_fh, incremental=incremental,
-            pipelined=pipelined, express=express, round_hook=round_hook,
+            pipelined=pipelined, express=express, stream_k=stream_k,
+            round_hook=round_hook,
         )
     finally:
         if old_sigterm is not None:
@@ -655,7 +694,7 @@ def run_loop(
 
 def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
           health, sched_metrics, stats_fh, incremental, pipelined,
-          express, round_hook) -> int:
+          express, stream_k, round_hook) -> int:
     """The ticks of ``run_loop``, after everything is built."""
 
     def _note_read_success() -> None:
@@ -790,6 +829,73 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
                 )
             if ev.needs_tick:
                 return
+
+    def _stream_drain() -> None:
+        """Join the in-flight stream batch and flush+join whatever is
+        still pending, POSTing every binding — the tick path must start
+        with no stream work in flight (begin_round abandons it, and
+        abandoned windows wait a whole round)."""
+        _post_express(bridge.stream_finish())
+        if bridge.solver.stream_pending_windows:
+            bridge.stream_flush()
+            _post_express(bridge.stream_finish())
+
+    def _stream_window(window_s: float) -> None:
+        """The inter-tick stream window (--stream_windows K > 1):
+        accumulate up to K coalesced express windows and run them as ONE
+        stream flush with ONE result fetch. Under a backlogged stream
+        consecutive batches pipeline — batch k+1's event uploads happen
+        while batch k runs on the solver's worker; a dry stream flushes
+        short so placements never sit on accumulated windows until the
+        tick."""
+        deadline = time.monotonic() + window_s
+        while True:
+            if stop.is_set():
+                _stream_drain()
+                return
+            wait = deadline - time.monotonic()
+            if wait <= 0:
+                _stream_drain()
+                return
+            if bridge.solver.stream_inflight:
+                # a flush is in flight: sub-poll so its join (and the
+                # bindings' POSTs) lands within ms of the fetch
+                wait = min(wait, 0.005)
+            evs = watcher.express_poll_windows(
+                wait, max_events=args.express_max_batch,
+                windows=stream_k,
+                shed_queue=args.express_shed_queue,
+            )
+            for ev in evs:
+                if ev.shed:
+                    log.warning(
+                        "stream window shed to tick: pods stream "
+                        "queue exceeds --express_shed_queue=%d",
+                        args.express_shed_queue,
+                    )
+                    if sched_metrics is not None:
+                        sched_metrics.record_express_shed()
+                if ev.reconnects:
+                    bridge.note_watch_activity(0, ev.reconnects)
+                if ev.pod_events:
+                    bridge.stream_window(
+                        ev.pod_events, t_event=ev.t_first,
+                        t_events=ev.t_events,
+                    )
+                if bridge.solver.stream_pending_windows >= stream_k:
+                    # batch full: join the previous flush (its windows
+                    # ran while these uploaded), then start this one
+                    _post_express(bridge.stream_finish())
+                    bridge.stream_flush()
+            if evs and (evs[-1].needs_tick or evs[-1].shed):
+                _stream_drain()
+                return
+            if not any(ev.pod_events for ev in evs):
+                # idle poll: join the in-flight batch and flush any
+                # short remainder
+                _post_express(bridge.stream_finish())
+                if bridge.solver.stream_pending_windows:
+                    bridge.stream_flush()
 
     rounds = 0
     # round-pipeline state: at most one solve in flight across ticks,
@@ -1047,13 +1153,21 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
             # pods watch stream and bind arrivals at once. Declared
             # overload skips the window — the tick path absorbs the
             # backlog in one solve.
-            _express_window(remaining)
+            if stream_k > 1:
+                _stream_window(remaining)
+            else:
+                _express_window(remaining)
         else:
             time.sleep(remaining)
 
 
 def main(argv: list[str] | None = None) -> int:
-    return run_loop(parse_args(sys.argv[1:] if argv is None else argv))
+    args = parse_args(sys.argv[1:] if argv is None else argv)
+    if args.serve == "true":
+        from poseidon_tpu_torch.service.serve import run_serve
+
+        return run_serve(args)
+    return run_loop(args)
 
 
 if __name__ == "__main__":

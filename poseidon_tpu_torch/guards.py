@@ -14,6 +14,11 @@ background result fetch exceeds its deadline.
 kernel loader calls after each first-use ``nvcc`` build (the port's
 counterpart of the reference's XLA-compile monitoring seam; the daemon
 feeds it to the compile-latency histogram).
+
+``CompileCounter`` counts, inside its block, what the port pays where
+the reference compiles: ``nvcc`` builds and new kernel launch plans
+(``note_build``, called by the loader and the plan caches). The service
+and stream lanes assert it stays at 0 in steady state.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import torch
 
 _sink_lock = threading.Lock()
 _duration_sink = None
+_counter_lock = threading.Lock()
+_active_counters: list["CompileCounter"] = []
 
 
 class FetchTimeout(RuntimeError):
@@ -54,9 +61,38 @@ def set_compile_duration_sink(sink) -> bool:
     return True
 
 
+class CompileCounter:
+    """Context manager counting kernel builds and new launch plans made
+    in the block (the reference counts XLA compiles). ``supported`` is
+    always True: every build and plan goes through ``note_build``."""
+
+    supported = True
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def __enter__(self) -> "CompileCounter":
+        with _counter_lock:
+            _active_counters.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        with _counter_lock:
+            _active_counters.remove(self)
+
+
+def note_build() -> None:
+    """One kernel build or one new launch plan, for every active
+    ``CompileCounter``."""
+    with _counter_lock:
+        for c in _active_counters:
+            c.count += 1
+
+
 def report_compile(duration_ms: float) -> None:
     """Called by the kernel loader after a build; a failing sink must
     not break the build."""
+    note_build()
     with _sink_lock:
         sink = _duration_sink
     if sink is not None:

@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels of the dense auction and the express
-lane, each beside its plain PyTorch twin and its launch counter.
+"""Hand-written Hopper kernels of the dense auction, the express and
+stream lanes and the what-if batch, each beside its plain PyTorch twin
+and its launch counter.
 
 A wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 twin for CPU tensors; there is no fallback from one to the other.
@@ -10,11 +11,14 @@ from poseidon_tpu_torch.kernels import (
     densify,
     express_patch,
     express_rows,
+    perturb,
     row_options,
+    stream_commit,
 )
 
 KERNELS = (densify.KERNEL, row_options.KERNEL, bid_pass.KERNEL,
-           express_rows.KERNEL, express_patch.KERNEL)
+           express_rows.KERNEL, express_patch.KERNEL, perturb.KERNEL,
+           stream_commit.KERNEL)
 
 
 def reset_launch_counts() -> None:
@@ -23,4 +27,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "reset_launch_counts", "bid_pass", "densify",
-           "express_patch", "express_rows", "row_options"]
+           "express_patch", "express_rows", "perturb", "row_options",
+           "stream_commit"]

@@ -33,6 +33,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "_build"
 _SOURCES = (
     "densify", "row_options", "bid_pass", "express_rows", "express_patch",
+    "stream_commit", "perturb",
 )
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -159,6 +160,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         },
         "express_patch": {
             "express_patch_launch": [P] * 9 + [I] * 3 + [P],
+        },
+        "stream_commit": {
+            "stream_commit_launch": [P] * 26 + [I] * 5 + [P],
+        },
+        "perturb": {
+            "perturb_launch": [P] * 11 + [I] * 6 + [P],
         },
     }[name]
     for fn_name, argtypes in sigs.items():

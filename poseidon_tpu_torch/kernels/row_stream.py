@@ -16,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+from poseidon_tpu_torch.guards import note_build
+
 SMEM_MAX = 232_448          # dynamic shared memory one block may use on sm_90 (227 KB)
 WARPS = 8                   # warps per block (csrc/common.cuh THREADS = 256)
 TILE_COLUMNS_MAX = 1024     # columns of c one stage holds (4 KiB)
@@ -103,6 +105,7 @@ class PlanCache:
         if p is None:
             p = self._plans[key] = self._make(rows, Mp, *shape, sm_count(),
                                               occupancy)
+            note_build()
         return p
 
     def __getitem__(self, key: tuple):

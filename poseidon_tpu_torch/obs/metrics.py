@@ -337,10 +337,10 @@ class SchedulerMetrics:
 
     One instance per daemon, shared by the bridge, the resident solver,
     and the watcher. All ``record_*`` methods take host-side values the
-    caller already holds. The families of lanes not ported yet (stream,
-    service, checkpoints, audit, SLOs, flight recorder) are
-    registered so the exposition names the reference's families; they
-    have no recorder here and stay at zero.
+    caller already holds. The families of lanes not ported yet
+    (checkpoints, audit, SLOs, flight recorder) are registered so the
+    exposition names the reference's families; they have no recorder
+    here and stay at zero.
     """
 
     def __init__(self, registry: MetricsRegistry):
@@ -914,6 +914,44 @@ class SchedulerMetrics:
 
     def record_express_fetch(self) -> None:
         self.solver_fetches.inc(lane="express")
+
+    # ---- the stream lane -------------------------------------------------
+
+    def record_stream_fetch(self) -> None:
+        self.solver_fetches.inc(lane="stream")
+
+    def record_stream_flush(
+        self, windows: int, placements: int
+    ) -> None:
+        """One stream flush joined: K windows' placements landed on ONE
+        result fetch (host ints the bridge already holds)."""
+        self.stream_flushes.inc()
+        self.placements_per_fetch.set(placements)
+
+    # ---- the service lane ------------------------------------------------
+
+    def record_service_round(
+        self, tenant: str, total_ms: float, placed: int
+    ) -> None:
+        """One tenant round finished by the service pipeline: the
+        submit-to-result latency and its placement count (``tenant`` is
+        pre-bounded)."""
+        self.service_rounds.inc(tenant=tenant)
+        self.service_round_ms.observe(total_ms, tenant=tenant)
+        self.service_placements.inc(placed)
+
+    def record_service_dispatch(
+        self, bucket: str, occupancy: int
+    ) -> None:
+        """One batched bucket dispatch (one upload + one batched
+        fetch): its shape key and how many tenant instances rode it."""
+        self.service_dispatches.inc(bucket=bucket)
+        self.service_bucket_occupancy.set(occupancy, bucket=bucket)
+
+    def record_service_compiles(self, compiles: int) -> None:
+        """Kernel builds and new launch plans a service launch caused
+        (0 in steady state)."""
+        self.service_compiles.inc(compiles)
 
 
 # express degrade reasons are free text (they embed uids/counts);

@@ -1,10 +1,10 @@
 """Phase-span profiling: structured span trees in the trace stream.
 
-With ``--trace_profile`` on, every completed round and every express
-batch emits ONE ``SPAN`` trace event whose ``detail`` is a
-self-describing span tree — the per-phase decomposition the flat
-``ROUND`` stats already carry, laid out as intervals so host/device
-overlap is visually inspectable:
+With ``--trace_profile`` on, every completed round, every express
+batch and every stream flush emits ONE ``SPAN`` trace event whose
+``detail`` is a self-describing span tree — the per-phase decomposition
+the flat ``ROUND`` stats already carry, laid out as intervals so
+host/device overlap is visually inspectable:
 
     {"name": "round", "lane": "watch+pipelined", "dur_ms": 7.1,
      "children": [
@@ -192,5 +192,55 @@ def express_span_tree(latency_ms: float, timings: dict) -> dict:
         "name": "express-batch",
         "lane": "express",
         "dur_ms": round(latency_ms, 3),
+        "children": children,
+    }
+
+
+def stream_span_tree(
+    latency_ms: float, timings: dict, *, windows: int = 0
+) -> dict:
+    """One stream flush's span tree (K windows, one fetch): the
+    per-window prep/upload phases on the host track (they overlapped the
+    previous batch's windows on the device), the padding/stack step and
+    the windows' run with its one fetch on the device track."""
+    prep = float(timings.get("prep_ms", 0.0))
+    upload = float(timings.get("upload_ms", 0.0))
+    stack = float(timings.get("stack_ms", 0.0))
+    solve = float(timings.get("solve_ms", 0.0))
+    work = prep + upload + stack + solve
+    children = []
+    off = max(latency_ms - work, 0.0)
+    if off:
+        children.append({
+            "name": "accumulate-wait",
+            "off_ms": 0.0,
+            "dur_ms": round(off, 3),
+        })
+    for name, dur in (("prep", prep), ("upload", upload)):
+        children.append({
+            "name": name,
+            "off_ms": round(off, 3),
+            "dur_ms": round(dur, 3),
+        })
+        off += dur
+    children.append({
+        "name": "stack",
+        "track": "device",
+        "off_ms": round(off, 3),
+        "dur_ms": round(stack, 3),
+    })
+    off += stack
+    children.append({
+        "name": "scan+fetch",
+        "track": "device",
+        "off_ms": round(off, 3),
+        "dur_ms": round(solve, 3),
+    })
+    off += solve
+    return {
+        "name": "stream-flush",
+        "lane": "stream",
+        "windows": windows,
+        "dur_ms": round(max(latency_ms, off), 3),
         "children": children,
     }

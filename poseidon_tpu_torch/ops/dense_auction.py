@@ -96,16 +96,113 @@ DENSE_TABLE_BUDGET_BYTES = (
 )
 
 
-def check_table_budget(Tp: int, Mp: int) -> None:
-    """Raise DenseMemoryTooLarge if the dense [Tp, Mp] int32 table
-    exceeds the budget (POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB)."""
-    need = Tp * Mp * 4
+def _budget_need(
+    Tp: int, Mp: int, n_variants: int, side_ints_per_variant: int,
+    extra_ints: int, mesh_width: int,
+) -> int:
+    per_device_table = -(-Tp * Mp // max(mesh_width, 1))
+    return (per_device_table + side_ints_per_variant) * 4 * n_variants \
+        + extra_ints * 4
+
+
+def max_variants_for(
+    Tp: int, Mp: int, side_ints_per_variant: int = 0,
+    extra_ints: int = 0, mesh_width: int = 1,
+) -> int:
+    """Largest ``n_variants`` (batch / bucket width) of this [Tp, Mp]
+    shape that fits the budget; 0 if even one instance does not fit.
+    The batched lanes (what-if variants, the service's shape-bucket
+    dispatcher) size their chunks with this, so an oversize wave splits
+    into fitting dispatches instead of raising."""
+    base = _budget_need(
+        Tp, Mp, 0, side_ints_per_variant, extra_ints, mesh_width
+    )
+    per = _budget_need(
+        Tp, Mp, 1, side_ints_per_variant, extra_ints, mesh_width
+    ) - base
+    if per <= 0:
+        return 0
+    return max((DENSE_TABLE_BUDGET_BYTES - base) // per, 0)
+
+
+def max_stream_windows_for(
+    Tp: int, Mp: int, stream_ints: int,
+    side_ints_per_variant: int = 0, extra_ints: int = 0,
+    mesh_width: int = 1,
+) -> int:
+    """Largest ``--stream_windows K`` whose event-stream buffer (plus
+    its staging twin: 2 copies of K windows x ``stream_ints`` i32 each)
+    still fits next to one dense [Tp, Mp] table; 0 if even K=1 does not
+    fit."""
+    base = _budget_need(
+        Tp, Mp, 1, side_ints_per_variant, extra_ints, mesh_width
+    )
+    per = 2 * max(stream_ints, 1) * 4
+    return max((DENSE_TABLE_BUDGET_BYTES - base) // per, 0)
+
+
+def check_table_budget(
+    Tp: int, Mp: int, n_variants: int = 1,
+    side_ints_per_variant: int = 0, extra_ints: int = 0,
+    mesh_width: int = 1, stream_windows: int = 0,
+    stream_ints: int = 0,
+) -> None:
+    """Raise DenseMemoryTooLarge if ``n_variants`` dense [Tp, Mp] i32
+    tables exceed the budget (POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB).
+
+    ``side_ints_per_variant`` counts per-variant i32 arrays beyond the
+    main table (the what-if batch's perturbed u/w/dgen, the service
+    members' channel tables); ``extra_ints`` counts one-off i32
+    scratch. ``stream_windows`` / ``stream_ints`` charge the stream
+    lane's event buffer: K windows x ``stream_ints`` i32, doubled for
+    the staging twin. An overflow names the largest batch
+    (``n_variants``) or ``--stream_windows`` that would fit. The
+    reference's other escapes (a task-sharded mesh, machine-class
+    aggregation) are not ported: ``mesh_width > 1`` raises.
+    """
+    if mesh_width > 1:
+        raise NotImplementedError(
+            "mesh_width > 1 (the task-sharded mesh) is not ported to "
+            "poseidon_tpu_torch yet (ROADMAP.md Queue 1 item 6)"
+        )
+    stream_bytes = 2 * max(stream_windows, 0) * max(stream_ints, 0) * 4
+    need = _budget_need(
+        Tp, Mp, n_variants, side_ints_per_variant, extra_ints, 1,
+    ) + stream_bytes
     if need <= DENSE_TABLE_BUDGET_BYTES:
         return
+    hint = ""
+    if stream_windows > 0 and stream_ints > 0:
+        fit_k = max_stream_windows_for(
+            Tp, Mp, stream_ints, side_ints_per_variant, extra_ints,
+        )
+        if fit_k >= 1:
+            hint = (
+                f"; the largest stream batch of this shape that fits "
+                f"is --stream_windows={fit_k}"
+            )
+    if n_variants > 1:
+        fit_b = max_variants_for(
+            Tp, Mp, side_ints_per_variant, extra_ints,
+        )
+        if fit_b >= 1:
+            hint = (
+                f"; the largest batch of this shape that fits is "
+                f"n_variants <= {fit_b} (shrink the what-if batch / "
+                f"service bucket width, --serve_max_batch)"
+            )
+    stream_note = (
+        f", {stream_bytes >> 20} MiB double-buffered stream event "
+        f"buffer ({stream_windows} windows)"
+        if stream_bytes else ""
+    )
     raise DenseMemoryTooLarge(
-        f"dense cost table [{Tp}, {Mp}] i32 = "
-        f"{need >> 20} MiB exceeds the {DENSE_TABLE_BUDGET_BYTES >> 20} MiB "
-        f"budget (POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB)"
+        f"dense cost table {n_variants} x [{Tp}, {Mp}] i32 "
+        f"(+ {side_ints_per_variant} side ints/variant, "
+        f"{extra_ints} scratch ints{stream_note}) "
+        f"= {need >> 20} MiB exceeds the "
+        f"{DENSE_TABLE_BUDGET_BYTES >> 20} MiB budget "
+        f"(POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB){hint}"
     )
 
 
@@ -144,6 +241,15 @@ def _sc(x: np.ndarray, scale: np.int64) -> np.ndarray:
 
 # the reference's name for the table build: K1 (or its twin on the CPU)
 _densify = densify
+
+
+def member_side_ints(Tp: int, Mp: int, P: int) -> int:
+    """Per-instance i32 side tables beyond the dense [Tp, Mp] solve
+    table, in the channel-table form ``build_member_tables`` produces:
+    u/w/task_valid (Tp each), d/ra/rack_of/slots (Mp each), pc/pm/pr
+    (Tp x P each) — what the batched budget accounting charges each
+    what-if variant / service bucket member."""
+    return 3 * Tp + 4 * Mp + 3 * Tp * max(P, 1)
 
 
 def build_member_tables(

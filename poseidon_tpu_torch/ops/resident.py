@@ -5,10 +5,14 @@ and finalizes channels and objective on the device, then brings the
 result back in ONE batched transfer (``_resident_chain`` + the fetch in
 ``begin_round``). Between rounds the express lane patches the round's
 warm device instance and repairs it (``express_round``: K5 retires
-rows, K4 writes arrival rows, an eps=1 repair, one fetch). This
-restates ``poseidon_tpu/ops/resident.py`` (the round half and the
-express lane; no stream lane, no aggregation, no mesh) on PyTorch
-tensors, with identical outputs bit for bit.
+rows, K4 writes arrival rows, an eps=1 repair, one fetch), and the
+stream lane runs K such windows back to back with one fetch for all of
+them (``stream_window`` / ``stream_flush`` / ``stream_finish``; K7
+commits each window on the device). This restates
+``poseidon_tpu/ops/resident.py`` (the round half, the express and
+stream lanes and the service lane's per-tenant warm pool; no
+aggregation, no mesh) on PyTorch tensors, with identical outputs bit
+for bit.
 
 Host syncs. The reference's round is one compiled program with one host
 sync. Here the auction's loop runs on the host and reads a small flag
@@ -29,6 +33,7 @@ C++ CPU oracle; a non-taxonomy graph goes straight to the oracle.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -43,6 +48,7 @@ from poseidon_tpu_torch.guards import FetchTimeout, SyncCounter
 from poseidon_tpu_torch.kernels.express_patch import express_patch
 from poseidon_tpu_torch.kernels.express_rows import express_rows
 from poseidon_tpu_torch.kernels.row_options import row_options
+from poseidon_tpu_torch.kernels.stream_commit import log_width, stream_commit
 from poseidon_tpu_torch.models.costs import (
     CostInputs,
     build_cost_inputs_host,
@@ -91,6 +97,14 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def on_device(device: torch.device):
+    """``device`` as the current CUDA device for a block (a no-op on the
+    CPU): a worker thread starts on device 0."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,6 +346,23 @@ def _express_patch_chunks(rows, cols, deltas):
     return out
 
 
+def _stream_event_ints(kmax: int, pk: int, pw: int, m_in: int) -> int:
+    """Per-window i32 count of the stream event encoding, for the
+    budget guard: the mini cost inputs (~8 arc-axis arrays over the
+    kmax x (3 + pk) mini arc budget plus task/machine side arrays), the
+    arrival row/pref slices, and the patch triple at width ``pw``. An
+    upper-bound estimate; the guard doubles it for the staging twin."""
+    e_mini = kmax * (3 + pk)
+    return (
+        e_mini * 8          # mini arc-axis cost-input arrays
+        + kmax * 6          # mini task-axis arrays
+        + m_in * 4          # mini machine-axis arrays
+        + 2 * kmax * pk     # add_pm / add_pr
+        + kmax              # add_row
+        + 3 * pw            # prow / pcol / pdelta
+    )
+
+
 def _scatter_drop(base, idx, vals):
     """``base.at[idx].set(vals, mode="drop")`` without a host sync: an
     out-of-range index lands in a spare slot that is cut off again."""
@@ -484,6 +515,81 @@ def _express_step(
     return (dev2, asg_f, lvl_f, floor_f, gap, conv, rounds, phases,
             rows_out, asg_out, n_changes, domain_ok, primal, n_active,
             report)
+
+
+def _stream_chain(
+    dev: DenseInstance,
+    dt: DenseTopology,
+    cost_dev,
+    windows,       # K tuples (mini, add_row, add_pm, add_pr, prow, pcol, pdelta)
+    asg, lvl, floor,
+    *,
+    model_fn,
+    kmax: int,
+    pk: int,
+    alpha: int,
+    max_rounds: int,
+    smax: int,
+    change_cap: int,
+    syncs: SyncCounter | None = None,
+):
+    """The stream lane: K express windows back to back on the device,
+    with no host read of their own (the reference's ``_stream_chain``,
+    one ``lax.scan``; here a host loop over the windows).
+
+    Each window replays what the synced lane does per window: the
+    window's retire/removal/slot patch (K5, on copies of the carry),
+    then ``_express_step`` (pricing, K4's arrival rows, the eps=1
+    repair, the compaction), then K7 ``stream_commit``: the certificate
+    latch ``live`` (an int32[1] on the device), the in-device auto-retire
+    of the window's placements, the latched select of the carry, the
+    undo of K4's rows in a dead window, and the masked log row. A dead
+    window still runs its repair from the frozen carry, as the
+    reference's scan does, so every window's conv, domain_ok, n_changes
+    and rounds match it; its outputs read as masked.
+
+    ``asg``/``lvl``/``floor`` are overwritten in place (pass copies);
+    ``dev``'s u/w/s/task_valid and c likewise carry the stream's state.
+    Returns ``(carry, log, rounds)``: carry = (c, u, w, s, valid, asg,
+    lvl, floor, live), log an int64 [K, log_width(change_cap)] device
+    tensor of the masked per-window logs (the flush's one fetch), rounds
+    the windows' repair rounds (host ints)."""
+    Tp, Mp = dev.c.shape
+    device = dev.c.device
+    c, u, w, s, valid = dev.c, dev.u, dev.w, dev.s, dev.task_valid
+    live = torch.ones(1, dtype=I32, device=device)
+    cap = min(change_cap, Tp)
+    log = torch.zeros((len(windows), log_width(cap)), dtype=I64,
+                      device=device)
+    rounds_all = []
+    for k, (mini, add_row, add_pm, add_pr, prow, pcol, pdelta) in enumerate(
+            windows):
+        u1, w1, valid1, s1 = u.clone(), w.clone(), valid.clone(), s.clone()
+        asg1, lvl1 = asg.clone(), lvl.clone()
+        _express_patch(u1, w1, valid1, s1, asg1, lvl1, prow, pcol, pdelta)
+        dev_w = DenseInstance(
+            c=c, u=u1, w=w1, dgen=dev.dgen, s=s1, task_valid=valid1,
+            scale=dev.scale, cmax=dev.cmax, smax=smax,
+        )
+        # the rows K4 is about to write, for a dead window to put back
+        c_saved = c.index_select(0, torch.clamp(add_row, 0, Tp - 1).long())
+        (dev2, asg_f, lvl_f, floor_f, _gap, conv, rounds, _phases,
+         rows_out, asg_out, n_changes, domain_ok, primal, _n_active,
+         report) = _express_step(
+            dev_w, dt, cost_dev, mini, asg1, lvl1, floor,
+            add_row, add_pm, add_pr,
+            model_fn=model_fn, kmax=kmax, pk=pk, alpha=alpha,
+            max_rounds=max_rounds, smax=smax, change_cap=change_cap,
+            syncs=syncs,
+        )
+        stream_commit(
+            live, conv, domain_ok, n_changes, change_cap, rows_out,
+            asg_out, primal, report, asg_f, lvl_f, floor_f, dev2.u, dev2.w,
+            dev2.task_valid, dev2.s, add_row, c_saved,
+            u, w, valid, asg, lvl, s, floor, c, log[k],
+        )
+        rounds_all.append(rounds)
+    return (c, u, w, s, valid, asg, lvl, floor, live), log, rounds_all
 
 
 class _AsyncFetch:
@@ -762,6 +868,140 @@ class _ExpressContext:
     # (their seats become used capacity), applied with the first batch
     pending_freeze: tuple | None = None
     batches: int = 0
+    # uids the stream lane already retired on the device (K7's
+    # auto-retire): the later confirm-driven retire for the same uid
+    # must not apply its seat decrement twice
+    stream_retired: set = dataclasses.field(default_factory=set)
+
+
+@dataclasses.dataclass
+class StreamOutcome:
+    """One stream flush's result (K windows, one result fetch).
+
+    ``ok=False`` with ``failed_window >= 0`` means a window failed its
+    certificate: ``placements`` still carries every good window's
+    bindings (the windows before ``failed_window``: the latch froze the
+    carry there, so they are what a synced replay would have produced),
+    the context is invalidated, and the failed window's events onward
+    wait for the next full round."""
+
+    ok: bool
+    placements: list[tuple[str, str, int]] = dataclasses.field(
+        default_factory=list)     # (uid, machine name, window idx)
+    window_costs: list[int] = dataclasses.field(default_factory=list)
+    window_rounds: list[int] = dataclasses.field(default_factory=list)
+    windows: int = 0              # real (non-padding) windows flushed
+    failed_window: int = -1
+    reason: str = ""
+    fetches: int = 0              # result fetches of this flush (1)
+    timings: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class _StreamWindow:
+    """One accumulated-but-not-flushed stream window: the host event
+    encoding and its device copy (uploaded at accumulate time, so the
+    next batch's uploads overlap an in-flight flush)."""
+
+    host: tuple                   # (mini, add_row, add_pm, add_pr,
+                                  #  prow, pcol, pdelta)
+    dev: tuple                    # device copy of ``host``
+    pw: int                       # patch width the window was padded to
+    journal: list                 # [(row, old_uid|None, new_uid|None)]
+    prep_ms: float = 0.0
+    upload_ms: float = 0.0
+
+
+@dataclasses.dataclass
+class _InflightStream:
+    """A flushed stream batch: its K windows run on a background worker
+    that ends with the batch's one result fetch; the next batch's
+    windows accumulate meanwhile."""
+
+    future: object                # _AsyncFetch -> (log, rounds, carry, t)
+    ctx: object                   # the _ExpressContext it solved under
+    n_windows: int                # real windows (the rest are no-op pads)
+    journals: list                # per real window row-map journals
+    row_uid_end: dict             # ctx.row_uid snapshot at flush time
+    fetches: SyncCounter = dataclasses.field(default_factory=SyncCounter)
+    timings: dict = dataclasses.field(default_factory=dict)
+    t_dispatch: float = 0.0
+
+
+# ---------------------------------------------------------------------------
+# per-tenant warm contexts (the service lane, poseidon_tpu_torch/service/)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TenantContext:
+    """One tenant's warm solve context in the multi-tenant service: the
+    tenant's ``DenseState`` from its last certified in-bucket solve
+    (valid while its padded dims stay (Tp, Mp)) and its grow-only
+    padding floors, so a tenant whose counts oscillate across a bucket
+    boundary keeps one padded shape."""
+
+    state: DenseState | None = None
+    Tp: int = 0
+    Mp: int = 0
+    # grow-only bucket floors (reset by the pool on budget overflow)
+    e_floor: int = 16     # arc-count bucket (cost-input pricing pad)
+    t_floor: int = 16     # task-axis padding bucket
+    m_floor: int = 16     # machine-axis padding bucket
+    p_floor: int = 0      # preference-column floor
+    s_floor: int = 1      # smax (max free slots) floor
+    ti_floor: int = 1     # build_cost_inputs_host per-task pad
+    mi_floor: int = 1     # build_cost_inputs_host per-machine pad
+
+
+class TenantWarmPool:
+    """Warm per-tenant contexts keyed by tenant id. Single-threaded by
+    contract (the service's pump thread); it only holds references to
+    the device tensors the member solves produced."""
+
+    def __init__(self) -> None:
+        self._ctx: dict[str, TenantContext] = {}
+
+    def context(self, tenant_id: str) -> TenantContext:
+        ctx = self._ctx.get(tenant_id)
+        if ctx is None:
+            ctx = TenantContext()
+            self._ctx[tenant_id] = ctx
+        return ctx
+
+    def warm(self, tenant_id: str, Tp: int, Mp: int) -> DenseState | None:
+        """The tenant's warm handle, or None when cold or the tenant
+        outgrew its padding bucket (a shape change means a cold solve)."""
+        ctx = self._ctx.get(tenant_id)
+        if ctx is None or ctx.state is None:
+            return None
+        if ctx.Tp != Tp or ctx.Mp != Mp:
+            return None
+        return ctx.state
+
+    def commit(
+        self, tenant_id: str, state: DenseState, Tp: int, Mp: int
+    ) -> None:
+        ctx = self.context(tenant_id)
+        ctx.state = state
+        ctx.Tp = Tp
+        ctx.Mp = Mp
+
+    def invalidate(self, tenant_id: str | None = None) -> None:
+        """Drop warm state (one tenant, or everyone when None). Floors
+        survive: the next solve is cold, the tenant did not shrink."""
+        if tenant_id is not None:
+            ctx = self._ctx.get(tenant_id)
+            if ctx is not None:
+                ctx.state = None
+            return
+        for ctx in self._ctx.values():
+            ctx.state = None
+
+    def reset_floors(self, tenant_id: str) -> None:
+        """Budget-overflow escape: a floor raised by a past larger
+        cluster must not keep re-padding a fitting tenant over budget."""
+        self._ctx[tenant_id] = TenantContext()
 
 
 class ResidentSolver:
@@ -775,11 +1015,13 @@ class ResidentSolver:
     ``express_lane`` keeps each certified round's densified table,
     topology and prices resident on the device, so small watch-event
     batches re-solve between rounds (``express_round``: K5 patches, K4
-    arrival rows, a bounded eps=1 repair, one result fetch).
+    arrival rows, a bounded eps=1 repair, one result fetch), and
+    ``stream_windows`` K > 1 runs K such windows per result fetch
+    (``stream_window`` / ``stream_flush`` / ``stream_finish``).
 
-    The stream lane, machine aggregation, preference pruning and the
-    device mesh are not part of this port yet: asking for any of them
-    raises ``NotImplementedError``.
+    Machine aggregation, preference pruning and the device mesh are not
+    part of this port yet: asking for any of them raises
+    ``NotImplementedError``.
     """
 
     # runner-up computation on the oracle path is O(T·M) host work;
@@ -807,7 +1049,7 @@ class ResidentSolver:
     ):
         later = {
             "mesh_width": mesh_width, "aggregate_classes": aggregate_classes,
-            "topk_prefs": topk_prefs, "stream_windows": stream_windows,
+            "topk_prefs": topk_prefs,
         }
         asked = sorted(k for k, v in later.items() if v)
         if asked:
@@ -835,6 +1077,25 @@ class ResidentSolver:
         # lifetime express result fetches (one per express batch, one
         # more on a change-cap overflow)
         self.express_fetches = 0
+        # ---- the stream lane (K express windows per result fetch) ----
+        # stream_windows K > 1 accumulates K express windows and runs
+        # them back to back with ONE result fetch of their K logs
+        # (_stream_chain); 0/1 = off (synced express)
+        self.stream_windows = stream_windows
+        # grow-only per-window patch-width bucket (one padded shape for
+        # the retire/removal/slot slice of every window)
+        self._stream_pw_floor = 16
+        self._stream_pending: list[_StreamWindow] = []
+        self._stream_inflight: _InflightStream | None = None
+        # lifetime stream fetches (one per flush), the window count the
+        # last flush carried, and the last flush's result fetches (1)
+        self.stream_fetches = 0
+        self.last_stream_windows = 0
+        self.last_stream_fetches = 0
+        # flushed-but-unjoined stream batches a full round abandoned
+        # (the daemon drains streams before every tick: nonzero means a
+        # driver bug worth surfacing)
+        self.stream_abandoned = 0
         self.max_rounds = max_rounds
         self.oracle_fallback = oracle_fallback
         self.oracle_timeout_s = oracle_timeout_s
@@ -872,6 +1133,8 @@ class ResidentSolver:
         self._express = None
         self._warm_seed = None
         self._warm_mutated = True
+        self._stream_pending = []
+        self._stream_inflight = None
 
     @property
     def express_ready(self) -> bool:
@@ -881,8 +1144,32 @@ class ResidentSolver:
 
     def invalidate_express(self) -> None:
         """Drop the express context: the next batches wait for a full
-        round."""
+        round. Pending (unflushed) stream windows reference the context,
+        so they drop with it; their events are already in bridge state
+        and wait for the round like any degraded batch."""
         self._express = None
+        self._stream_pending = []
+
+    # ---- the stream lane (K windows per result fetch) -------------------
+
+    @property
+    def stream_pending_windows(self) -> int:
+        """Accumulated-but-not-flushed stream windows."""
+        return len(self._stream_pending)
+
+    @property
+    def stream_inflight(self) -> bool:
+        """True while a flushed stream batch has not been joined."""
+        return self._stream_inflight is not None
+
+    def _stream_abandon(self) -> None:
+        """Round-boundary cleanup: drop pending windows and abandon any
+        in-flight stream batch (its worker finishes harmlessly; the
+        round replaces the device state). Counted, never silent."""
+        self._stream_pending = []
+        if self._stream_inflight is not None:
+            self._stream_inflight = None
+            self.stream_abandoned += 1
 
     def _record_round(self) -> None:
         if self.metrics is not None:
@@ -1013,6 +1300,9 @@ class ResidentSolver:
         # the context FIRST so its device memory (the retained dense
         # table) is free before this round's chain allocates a new one
         self._express = None
+        self._stream_abandon()
+        self.last_stream_windows = 0
+        self.last_stream_fetches = 0
         self._fetches = SyncCounter()
         self._loop_syncs = SyncCounter()
         self._solves = 0
@@ -1068,7 +1358,18 @@ class ResidentSolver:
         Tp = dt_host.arc_unsched.shape[0]
         Mp = dt_host.slots.shape[0]
         try:
-            check_table_budget(Tp, Mp)
+            stream_k = (
+                self.stream_windows
+                if self.express_lane and self.stream_windows > 0
+                else 0
+            )
+            check_table_budget(
+                Tp, Mp, stream_windows=stream_k,
+                stream_ints=_stream_event_ints(
+                    self.express_max_batch, P,
+                    self._stream_pw_floor, self._mi_floor,
+                ) if stream_k else 0,
+            )
         except DenseMemoryTooLarge as e:
             # degrade loudly BEFORE any device allocation; a floor
             # raised by a past larger cluster must not keep re-padding a
@@ -1636,6 +1937,437 @@ class ResidentSolver:
             self._express = None
             return ExpressOutcome(ok=False, reason=str(e),
                                   timings=timings)
+
+    # ---- the stream lane: accumulate / flush / finish --------------------
+
+    def _stream_put(self, host: tuple) -> tuple:
+        """Upload one window's host encoding (mini CostInputs, then six
+        int32 arrays) to the solver's device."""
+        mini, *arrays = host
+        return (mini.to_device(self.device),
+                *(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                  for a in arrays))
+
+    def _stream_apply_freeze(self, ctx: _ExpressContext, warm) -> None:
+        """Rebalancing mode's first stream window: the running block's
+        freeze is cluster-sized, so it applies at once as the synced
+        lane's chunked K5 patches (no fetch) instead of widening every
+        window's patch slice. The order matches the synced lane: the
+        freeze lands before window 0's own patch and repair. The warm
+        asg/lvl are patched out of place, as the express lane does."""
+        fr, fc = ctx.pending_freeze
+        ctx.pending_freeze = None
+        if not len(fr):
+            return
+        chunks = _express_patch_chunks(fr.tolist(), fc.tolist(),
+                                       [-1] * len(fr))
+        asg, lvl = warm.asg.clone(), warm.lvl.clone()
+        dev = ctx.dev
+        for ch in chunks:
+            rows_d, cols_d, deltas_d = (
+                torch.from_numpy(x).to(self.device) for x in ch
+            )
+            _express_patch(dev.u, dev.w, dev.task_valid, dev.s, asg, lvl,
+                           rows_d, cols_d, deltas_d)
+        self._warm = dataclasses.replace(warm, asg=asg, lvl=lvl)
+        self._warm_mutated = True
+
+    def stream_window(self, batch: ExpressBatch) -> ExpressOutcome:
+        """Accumulate one coalesced watch-event window into the pending
+        stream batch WITHOUT solving it: encode the window into the
+        fixed-shape per-window slices ``_stream_chain`` runs (arrival
+        rows at kmax x pk, patches padded to the grow-only patch-width
+        bucket) and upload it now, so it overlaps an in-flight flush.
+        ``ok=True`` means "accumulated"; placements come back from
+        ``stream_flush`` + ``stream_finish``.
+
+        Host maps (uid<->row, free rows) advance at accumulate time
+        exactly as the synced lane's, every mutation journaled so the
+        finish can roll the map back to each window's view. Degrades
+        like ``express_round`` (ok=False; context and pending windows
+        dropped; the events wait for the next full round)."""
+        ctx = self._express
+        if ctx is None:
+            return ExpressOutcome(ok=False, reason="no-context")
+        if self._inflight:
+            return ExpressOutcome(ok=False, reason="round-in-flight")
+        if len(self._stream_pending) >= max(self.stream_windows, 1):
+            # driver contract: flush at K windows; refuse loudly rather
+            # than grow past the batch length
+            self._express = None
+            self._stream_pending = []
+            return ExpressOutcome(
+                ok=False, reason="stream buffer full (flush first)"
+            )
+        timings: dict[str, float] = {}
+        t0 = time.perf_counter()
+        journal: list[tuple[int, str | None, str | None]] = []
+        try:
+            self._express_finalize(ctx)
+            kmax = self.express_max_batch
+            pk = ctx.n_prefs
+            arrivals = batch.arrivals
+            if len(arrivals) > kmax:
+                raise ExpressDegrade(
+                    f"{len(arrivals)} arrivals > --express_max_batch "
+                    f"{kmax}"
+                )
+            warm = self._warm
+            if warm is None:
+                raise ExpressDegrade("no warm state")
+            if ctx.pending_freeze is not None:
+                with on_device(self.device):
+                    self._stream_apply_freeze(ctx, warm)
+            # ---- map retires / removals / slot deltas to patches ----
+            rows: list[int] = []
+            cols: list[int] = []
+            deltas: list[int] = []
+            for uid, mname in batch.retires:
+                if uid in ctx.stream_retired:
+                    # K7 already retired this row at placement time: the
+                    # confirm-driven twin must not decrement again
+                    ctx.stream_retired.discard(uid)
+                    continue
+                r = ctx.uid_row.pop(uid, None)
+                if r is None:
+                    raise ExpressDegrade(f"retire of unknown {uid}")
+                ctx.row_uid.pop(r, None)
+                ctx.free_rows.append(r)
+                journal.append((r, uid, None))
+                m = ctx.midx.get(mname)
+                if m is None:
+                    raise ExpressDegrade(
+                        f"retire on unknown machine {mname}"
+                    )
+                rows.append(r)
+                cols.append(self._express_col(ctx, m))
+                deltas.append(-1)
+            for uid in batch.removals:
+                r = ctx.uid_row.pop(uid, None)
+                if r is None:
+                    raise ExpressDegrade(f"removal of unknown {uid}")
+                ctx.row_uid.pop(r, None)
+                ctx.free_rows.append(r)
+                journal.append((r, uid, None))
+                rows.append(r)
+                cols.append(-1)
+                deltas.append(0)
+            for mname, d in batch.slot_deltas:
+                m = ctx.midx.get(mname)
+                if m is None:
+                    raise ExpressDegrade(
+                        f"slot delta on unknown machine {mname}"
+                    )
+                rows.append(-1)
+                cols.append(self._express_col(ctx, m))
+                deltas.append(d)
+            # ---- map arrivals to rows + solve-space pref targets ----
+            add_row = np.full(kmax, -1, np.int32)
+            add_pm = np.full((kmax, pk), -1, np.int32)
+            add_pr = np.full((kmax, pk), -1, np.int32)
+            for k, a in enumerate(arrivals):
+                if a.uid in ctx.uid_row:
+                    raise ExpressDegrade(f"duplicate arrival {a.uid}")
+                if len(a.prefs) > pk:
+                    raise ExpressDegrade(
+                        f"{a.uid} has {len(a.prefs)} prefs > the "
+                        f"round's pref width {pk}"
+                    )
+                if not ctx.free_rows:
+                    raise ExpressDegrade(
+                        "padded task rows exhausted (cluster outgrew "
+                        "the round's bucket)"
+                    )
+                r = ctx.free_rows.pop()
+                ctx.uid_row[a.uid] = r
+                ctx.row_uid[r] = a.uid
+                journal.append((r, None, a.uid))
+                add_row[k] = r
+                for j, (m, rk, _w) in enumerate(a.prefs):
+                    if m >= 0:
+                        add_pm[k, j] = self._express_col(ctx, m)
+                    else:
+                        add_pr[k, j] = rk
+            mini_host = self._express_mini_inputs(ctx, arrivals, kmax, pk)
+            # fixed-width patch slice under a grow-only bucket floor
+            pw = pad_bucket(max(len(rows), 1),
+                            minimum=self._stream_pw_floor)
+            self._stream_pw_floor = max(self._stream_pw_floor, pw)
+            prow = np.full(pw, -1, np.int32)
+            pcol = np.full(pw, -1, np.int32)
+            pdelta = np.zeros(pw, np.int32)
+            n = len(rows)
+            prow[:n] = rows
+            pcol[:n] = cols
+            pdelta[:n] = deltas
+            timings["prep_ms"] = (time.perf_counter() - t0) * 1000
+            host = (mini_host, add_row, add_pm, add_pr, prow, pcol, pdelta)
+            t0u = time.perf_counter()
+            devt = self._stream_put(host)
+            timings["upload_ms"] = (time.perf_counter() - t0u) * 1000
+            self._stream_pending.append(_StreamWindow(
+                host=host, dev=devt, pw=pw, journal=journal,
+                prep_ms=timings["prep_ms"],
+                upload_ms=timings["upload_ms"],
+            ))
+            return ExpressOutcome(ok=True, timings=timings)
+        except ExpressDegrade as e:
+            self._express = None
+            self._stream_pending = []
+            return ExpressOutcome(ok=False, reason=str(e), timings=timings)
+
+    def stream_flush(self) -> None:
+        """Run the accumulated windows as one ``_stream_chain`` on a
+        background worker that ends with the batch's ONE result fetch
+        (the K masked window logs). No-op when nothing is pending or a
+        batch is already in flight (``stream_finish`` first). Never
+        joins: the next batch's windows accumulate meanwhile."""
+        if not self._stream_pending:
+            return
+        if self._stream_inflight is not None:
+            return
+        ctx = self._express
+        warm = self._warm
+        if ctx is None or warm is None:
+            self._stream_pending = []
+            return
+        windows = list(self._stream_pending)
+        self._stream_pending = []
+        K = max(self.stream_windows, 1)
+        real = len(windows)
+        timings = {
+            "prep_ms": sum(w.prep_ms for w in windows),
+            "upload_ms": sum(w.upload_ms for w in windows),
+        }
+        kmax = self.express_max_batch
+        pk = ctx.n_prefs
+        pw = self._stream_pw_floor
+        t0 = time.perf_counter()
+        for wdw in windows:
+            if wdw.pw != pw:
+                # the patch-width floor grew mid-batch: re-pad the
+                # earlier windows to the batch's width
+                mini, a_r, a_pm, a_pr, pr0, pc0, pd0 = wdw.host
+                pr1 = np.full(pw, -1, np.int32)
+                pc1 = np.full(pw, -1, np.int32)
+                pd1 = np.zeros(pw, np.int32)
+                pr1[:len(pr0)] = pr0
+                pc1[:len(pc0)] = pc0
+                pd1[:len(pd0)] = pd0
+                wdw.host = (mini, a_r, a_pm, a_pr, pr1, pc1, pd1)
+                wdw.dev = self._stream_put(wdw.host)
+                wdw.pw = pw
+        if real < K:
+            # a short flush pads with no-op windows (no arrivals, no
+            # patches), as the reference pads its scan
+            noop_host = (
+                self._express_mini_inputs(ctx, [], kmax, pk),
+                np.full(kmax, -1, np.int32),
+                np.full((kmax, pk), -1, np.int32),
+                np.full((kmax, pk), -1, np.int32),
+                np.full(pw, -1, np.int32),
+                np.full(pw, -1, np.int32),
+                np.zeros(pw, np.int32),
+            )
+            noop = _StreamWindow(host=noop_host,
+                                 dev=self._stream_put(noop_host), pw=pw,
+                                 journal=[])
+            windows = windows + [noop] * (K - real)
+        timings["stack_ms"] = (time.perf_counter() - t0) * 1000
+        # the worker overwrites the carry in place: the warm state's
+        # asg/lvl/floor are copied (an abandoned batch leaves the warm
+        # start of the next round untouched; the context it patches is
+        # dropped with it)
+        asg, lvl, floor = warm.asg.clone(), warm.lvl.clone(), \
+            warm.floor.clone()
+        self._loop_syncs = SyncCounter()
+        loop_syncs = self._loop_syncs
+        inflight = _InflightStream(
+            future=None, ctx=ctx, n_windows=real,
+            journals=[w.journal for w in windows[:real]],
+            row_uid_end=dict(ctx.row_uid),
+            timings=timings, t_dispatch=time.perf_counter(),
+        )
+        fetches = inflight.fetches
+        dev_windows = [w.dev for w in windows]
+        change_cap = self.express_change_cap
+
+        def run():
+            with on_device(self.device):
+                carry, log, rounds = _stream_chain(
+                    ctx.dev, ctx.dt, ctx.cost_dev, dev_windows,
+                    asg, lvl, floor,
+                    model_fn=ctx.model_fn, kmax=kmax, pk=pk,
+                    alpha=self.alpha, max_rounds=EXPRESS_FUSE,
+                    smax=ctx.smax, change_cap=change_cap,
+                    syncs=loop_syncs,
+                )
+                # the batch's ONE result fetch: K masked window logs
+                return fetches.read(log), rounds, carry, time.perf_counter()
+
+        self.stream_fetches += 1
+        self.last_stream_windows = real
+        if self.metrics is not None:
+            self.metrics.record_stream_fetch()
+        inflight.future = _AsyncFetch(run)
+        self._stream_inflight = inflight
+
+    def stream_finish(self) -> StreamOutcome | None:
+        """Join the in-flight stream batch: the ONE fetch carrying K
+        windows' masked logs and certificate bits. Commits the final
+        carry as the warm device state (the latch makes it the last
+        good window's state even when a later window failed), resolves
+        each window's compacted rows to uids through the journal
+        rollback, and returns the placements in window order. Returns
+        None when nothing is in flight; never raises for a failed
+        window."""
+        inf = self._stream_inflight
+        if inf is None:
+            return None
+        self._stream_inflight = None
+        ctx = inf.ctx
+        real = inf.n_windows
+        try:
+            log_np, rnds, carry, t_done = inf.future.result(
+                self._fetch_deadline_s()
+            )
+        except FetchTimeout:
+            self.fetch_timeouts += 1
+            # the device is suspect: drop everything warm (the round
+            # path's abandon) — never a silent wait
+            self._express = None
+            self._stream_pending = []
+            self._warm = None
+            self._warm_mutated = True
+            return StreamOutcome(
+                ok=False, reason="stream fetch deadline missed",
+                windows=real, fetches=1, timings=inf.timings,
+            )
+        self.last_stream_fetches = inf.fetches.count
+        timings = dict(inf.timings)
+        timings["solve_ms"] = (t_done - inf.t_dispatch) * 1000
+        if self._express is not ctx:
+            # a degrade invalidated the context between flush and
+            # finish: nothing to commit against; the events already wait
+            # for the round path
+            return StreamOutcome(
+                ok=False, reason="context invalidated mid-flight",
+                windows=real, fetches=1, timings=timings,
+            )
+        cap = min(self.express_change_cap, ctx.Tp)
+        rows_np = log_np[:, :cap]
+        asg_np = log_np[:, cap: 2 * cap]
+        nchg_np, live_np, conv_np, dom_np, primal_np = (
+            log_np[:, 2 * cap + i] for i in range(5)
+        )
+        # ---- first failed window (if any) + its reason ----
+        failed = -1
+        reason = ""
+        for wdx in range(real):
+            if live_np[wdx]:
+                continue
+            failed = wdx
+            if not dom_np[wdx]:
+                reason = f"window {wdx}: cost domain exceeded"
+            elif not conv_np[wdx]:
+                reason = (
+                    f"window {wdx}: repair uncertified after "
+                    f"{rnds[wdx]} rounds"
+                )
+            elif int(nchg_np[wdx]) > self.express_change_cap:
+                reason = (
+                    f"window {wdx}: change_cap: {int(nchg_np[wdx])} "
+                    f"changed placements > cap "
+                    f"{self.express_change_cap}"
+                )
+            else:
+                reason = f"window {wdx}: certificate failed"
+            break
+        good = real if failed < 0 else failed
+        # ---- commit the final carry as the warm device state ----
+        c_d, u_d, w_d, s_d, valid_d, asg_d, lvl_d, floor_d, _live = carry
+        ctx.dev = dataclasses.replace(ctx.dev, c=c_d, u=u_d, w=w_d, s=s_d,
+                                      task_valid=valid_d)
+        ctx.batches += good
+        self._warm = DenseState(
+            asg=asg_d, lvl=lvl_d, floor=floor_d,
+            gap=torch.zeros((), dtype=I64, device=self.device),
+            converged=torch.ones((), dtype=torch.bool, device=self.device),
+            rounds=0, phases=0,
+        )
+        self._warm_mutated = True
+        # ---- resolve per-window compacted rows to uids: roll the
+        # row<->uid map back through the journals, last window first ----
+        Tp = ctx.Tp
+        by_win: dict[int, list[tuple[str, int]]] = {}
+        cur = inf.row_uid_end
+        bad = ""
+        for wdx in range(real - 1, -1, -1):
+            if wdx < good and not bad:
+                out: list[tuple[str, int]] = []
+                for i in range(min(int(nchg_np[wdx]), cap)):
+                    r = int(rows_np[wdx, i])
+                    if r >= Tp:
+                        break
+                    uid = cur.get(r)
+                    if uid is None:
+                        bad = (
+                            f"window {wdx}: placement on unmapped "
+                            f"row {r}"
+                        )
+                        break
+                    out.append((uid, int(asg_np[wdx, i])))
+                by_win[wdx] = out
+            for row, old, _new in reversed(inf.journals[wdx]):
+                if old is None:
+                    cur.pop(row, None)
+                else:
+                    cur[row] = old
+        if bad:
+            self._express = None
+            self._stream_pending = []
+            return StreamOutcome(
+                ok=False, reason=bad, windows=real, fetches=1,
+                timings=timings,
+            )
+        placements: list[tuple[str, str, int]] = []
+        try:
+            for wdx in range(good):
+                for uid, col in by_win.get(wdx, ()):
+                    placements.append(
+                        (uid, self._express_member(ctx, col), wdx)
+                    )
+        except ExpressDegrade as e:
+            self._express = None
+            self._stream_pending = []
+            return StreamOutcome(
+                ok=False, reason=str(e), windows=real, fetches=1,
+                timings=timings,
+            )
+        # host twin of K7's auto-retire: free the placed rows and mark
+        # the uids so the confirm-driven retire is a no-op
+        for uid, _m, _w in placements:
+            r = ctx.uid_row.pop(uid, None)
+            if r is not None:
+                ctx.row_uid.pop(r, None)
+                ctx.free_rows.append(r)
+            ctx.stream_retired.add(uid)
+        window_costs = [int(primal_np[w]) // ctx.scale for w in range(good)]
+        window_rounds = [int(rnds[w]) for w in range(good)]
+        if failed >= 0:
+            self._express = None
+            self._stream_pending = []
+            return StreamOutcome(
+                ok=False, placements=placements,
+                window_costs=window_costs, window_rounds=window_rounds,
+                windows=real, failed_window=failed, reason=reason,
+                fetches=1, timings=timings,
+            )
+        return StreamOutcome(
+            ok=True, placements=placements, window_costs=window_costs,
+            window_rounds=window_rounds, windows=real, fetches=1,
+            timings=timings,
+        )
 
     @staticmethod
     def _host_decision_stats(topo, cost_host, asg):

@@ -113,6 +113,42 @@ def test_daemon_modules_import_and_start_without_jax():
     assert got == {"leaked": [], "jax": []}, got
 
 
+SLICE_MODULES = (
+    "poseidon_tpu_torch.service",
+    "poseidon_tpu_torch.service.dispatch",
+    "poseidon_tpu_torch.service.service",
+    "poseidon_tpu_torch.service.serve",
+    "poseidon_tpu_torch.ops.batch",
+    "poseidon_tpu_torch.kernels.perturb",
+    "poseidon_tpu_torch.kernels.stream_commit",
+)
+
+
+def test_stream_service_and_batch_modules_import_without_jax():
+    """The stream, what-if and service modules import with jax blocked,
+    and the daemon's ``--help`` (which now lists the stream and serve
+    flags) runs so."""
+    out = subprocess.run(
+        [sys.executable, "-c", _DAEMON_PROBE, json.dumps(SLICE_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "jax": []}, got
+
+
+def test_batch_and_service_entry_points_default_to_the_card(monkeypatch):
+    from poseidon_tpu_torch.ops.batch import solve_heterogeneous
+    from poseidon_tpu_torch.service import SchedulingService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SchedulingService()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        solve_heterogeneous([object()])
+    assert SchedulingService(device="cpu").dispatcher.device.type == "cpu"
+
+
 def test_package_sources_never_name_jax_or_reference_imports():
     """A static guard beside the dynamic one: no source line of the port
     imports jax or the reference package."""

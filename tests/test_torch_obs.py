@@ -136,9 +136,7 @@ def test_trace_report_of_port_log_equals_reference(tmp_path, capsys):
 
 
 UNPORTED = [
-    ("stream_windows", "2"), ("serve", "true"),
-    ("serve_apiservers", "127.0.0.1:1"), ("serve_tenants", "2"),
-    ("serve_max_batch", "8"), ("mesh_width", "1"),
+    ("mesh_width", "1"),
     ("aggregate_classes", "true"), ("topk_prefs", "2"),
     ("flight_recorder", "true"), ("flight_dir", "fr"),
     ("flight_max_dumps", "2"), ("explain", "pod-00"),
@@ -185,7 +183,6 @@ def test_unported_flag_exits_with_an_error(flag, value, capsys):
 
 
 @pytest.mark.parametrize("option", [
-    {"stream_windows": 2},
     {"flightrec": object()}, {"auditor": object()},
     {"mesh_width": 1}, {"aggregate_classes": True}, {"topk_prefs": 2},
 ])

@@ -258,7 +258,6 @@ def test_non_taxonomy_graph_degrades_to_oracle():
 
 def test_unported_options_raise():
     for kw in (dict(mesh_width=2),
-               dict(aggregate_classes=True), dict(stream_windows=4),
-               dict(topk_prefs=2)):
+               dict(aggregate_classes=True), dict(topk_prefs=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             PortSolver(device="cpu", **kw)
