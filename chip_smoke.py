@@ -9,7 +9,7 @@ card is visible, or when the package is not importable.
 Phases (each prints its own lines):
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
-2. build: compiles the seven CUDA kernels from ``poseidon_tpu_torch/
+2. build: compiles the eight CUDA kernels from ``poseidon_tpu_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel) and the C++
    oracle, and prints the build seconds;
 3. kernels: at the flagship's shapes (BASELINE config 2: 1,000 machines,
@@ -52,13 +52,23 @@ Phases (each prints its own lines):
    window at the cap, reports on a column driven below 0 and rows 0 and
    Tp-1, at three shapes; for K6 B 1 and 2, magnitude 0, 10 and 50 %,
    scale 1 and above 1, INF rows, a whole INF table, zero-slot columns,
-   Mp 16 and 1028, seeds 0 and 2^31-1;
+   Mp 16 and 1028, seeds 0 and 2^31-1. The scale lane's K8
+   (``gap_rows``, the sharded certificate's table pass) is held and
+   timed the same way at config 8's aggregated table [524288, 256] and
+   at the flagship's [10240, 1024], its bound the table's bytes over
+   3.35 TB/s, with its battery: Mp 16, 128, 1024 and 1040, 1, 31 and
+   32,769 rows, every asg class, task_valid all false, every price INF;
+   beside it K3 over a shard's rows at a task offset and K7's commit
+   and restore over a two-shard table, live and dead;
 4. parity: a small flagship-shaped cluster (64 machines x 600 pods), one
    cold and two churned warm rounds on the card and on the CPU (the
    twins): every field of every round must be equal; then three express
    windows over the same cell on both: placements, cost, repair rounds
    and the warm asg/lvl/floor of every batch must be equal; then a
    3-window stream flush on both: placements, cost, rounds and carry;
+   then the scale lane on the same cell (aggregation, a width-2 mesh
+   with both shards on one device): a round, two express windows and a
+   3-window stream flush, every field and both row blocks equal;
 5. main path: ``config2_quincy_flagship(seed=0)`` through
    ``ResidentSolver(device="cuda", small_to_oracle=False).run_round``,
    one cold round and three warm rounds over a seeded 1% churn of pods
@@ -112,7 +122,11 @@ Phases (each prints its own lines):
    the server binds each pod where express placed it, each placement is
    traced as EXPRESS_PLACE, and every express degrade is printed with
    its reason. A fourth lane runs the stream lane the same way
-   (``--stream_windows=8``).
+   (``--stream_windows=8``). A fifth polls with the scale flags
+   (``--aggregate_classes=true --topk_prefs=2 --mesh_width=1``, 3
+   rounds): every round dense, certified, K1-K3 and K8 launched, and
+   equal in cost to the oracle on the graph with each task's
+   preference arcs cut to its two heaviest.
 9. stream: the stream lane at full width over the flagship: an 8-window
    flush of the express phase's schedule (16 arrivals and 2 completions
    a window) on a bridge on the card, one result fetch, K4, K5 and K7
@@ -137,15 +151,36 @@ Phases (each prints its own lines):
    fetch per dispatch chunk (one more per cold retry), no kernel build
    and no new launch plan in the measured waves; then
    ``cli.main(["--serve=true", "--serve_tenants=3", "--max_rounds=4",
-   "--device=cuda"])``.
+   "--device=cuda"])``;
+12. scale: ``check_table_budget`` refuses config 8's all-pairs table
+   (524,288 x 65,536 int32); then BASELINE config 8
+   (``synth.config8_scale(seed=0)``: 65,536 machines, 524,288 pods, 512
+   machines a rack, 2 SKUs) through ``SchedulerBridge(aggregate_classes=
+   True, topk_prefs=2, mesh_width=1)`` on the card with the oracle
+   fallback off: the cold burst round, then 3 churn rounds of 16,384
+   ``config8_arrivals`` and 16,384 deletions, bindings confirmed. Launch
+   counts are zeroed just before and read just after; each round must
+   be ``dense_auction``, certified, with one result fetch per solve (a
+   stale warm start that re-runs cold is printed), and prints wall,
+   prep, upload and solve ms, auction rounds, loop reads, Tp, Mp, the
+   class count, the table's MiB and the peak allocated memory. One more
+   churn round runs under ``torch.profiler`` (device busy time, idle
+   share). Then exactness and widths: ``config8_scale(256, 2048,
+   seed=1, machines_per_rack=32)`` aggregated with top-2 preferences at
+   mesh widths 1, 2 and 4 (every shard on this card) bit-identical and
+   equal to the oracle; the flagship plain and at widths 1, 2 and 4
+   over a cold and a warm round, every integer output bit-identical
+   (with each width's wall time); the aggregated flagship's cost equal
+   to the plain one's; ``sharded_certificate_gap`` at width 4 equal to
+   the solve's own gap.
 
 Each phase prints its seconds. ``--phases=a,b`` runs only the named
 phases after the build, prints no record and no contract line (a quick
 bring-up check).
 
 The kernels' record counts K1-K3's launches in the main path, K4-K5's
-in the express phase, K7's in the stream phase's 8-window flush and
-K6's in the what-if phase.
+in the express phase, K7's in the stream phase's 8-window flush, K6's
+in the what-if phase and K8's in the scale phase's config 8 rounds.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line,
 and the contract line ``{"ok": true, "device": {...}}``.
@@ -383,6 +418,7 @@ def kernel_phase(torch, timer):
     records += express_kernel_records(torch, timer, inst, dt, ra_s)
     records.append(stream_commit_record(torch, timer))
     records.append(perturb_record(torch, timer))
+    records.append(gap_rows_record(torch, timer))
     torch.cuda.synchronize()
     for mod, fn, args, key in (
         (k1, lambda *a: k1.densify(*a, n_prefs=P), a1, (Tp, Mp, P, P)),
@@ -395,6 +431,7 @@ def kernel_phase(torch, timer):
             f"wall_us={wall:.3f} per call (median of {HOST_BATCHES} x "
             f"{HOST_CALLS} calls) plan={plan}")
     edge_battery(torch)
+    shard_edges(torch)
     for k, err, ms, plain, bms, by, shape in records:
         # K4, K5 and K7 move tens to hundreds of KiB: their bound is a
         # small fraction of one launch's fixed cost
@@ -459,7 +496,7 @@ def edge_tables(torch, rng, Tp, Mp, kind):
     else:
         raise ValueError(kind)
     to = lambda a: torch.from_numpy(  # noqa: E731
-        np.ascontiguousarray(a, dtype=np.int64).astype(np.int32)).to("cuda")
+        np.ascontiguousarray(a, dtype=np.int64).astype(np.int32)).to(DEVICE)
     return to(c), to(p)
 
 
@@ -1168,6 +1205,7 @@ def parity_phase():
             f"backend={a.backend} rounds={a.rounds})")
     express_parity()
     stream_parity()
+    scale_parity()
 
 
 def oracle_cost(cluster, device, model: str = "quincy",
@@ -1466,15 +1504,16 @@ def express_events(bridge, rng, window: int, *, n: int = 16,
     return events
 
 
-def express_bridge(device, cluster, stream_windows: int = 0):
+def express_bridge(device, cluster, stream_windows: int = 0, **scale):
     """A bridge with the express lane on (and the stream lane with
     ``stream_windows`` K > 1) over ``cluster``, one certified round
-    behind it and its bindings confirmed."""
+    behind it and its bindings confirmed. ``scale`` takes the scale
+    lane's options (aggregation, the mesh)."""
     from poseidon_tpu_torch.bridge import SchedulerBridge
 
     bridge = SchedulerBridge(cost_model="quincy", small_to_oracle=False,
                              express_lane=True, device=device,
-                             stream_windows=stream_windows)
+                             stream_windows=stream_windows, **scale)
     bridge.observe_nodes(list(cluster.machines))
     bridge.observe_pods(list(cluster.tasks))
     res = bridge.run_scheduler()
@@ -2366,11 +2405,15 @@ class ApiServerProcess:
 
 
 EXPRESS_BURSTS = 3
+# the daemon's scale lane: poll over the flagship with the scale flags
+SCALE_DAEMON_FLAGS = ("--aggregate_classes=true", "--topk_prefs=2",
+                      "--mesh_width=1")
+SCALE_DAEMON_ROUNDS = 3
 EXPRESS_POLL_US = 12_000_000
 
 
 def daemon_lane(torch, cluster, watch: bool, express: bool = False,
-                stream_windows: int = 0):
+                stream_windows: int = 0, extra_args=(), n_rounds=None):
     """One daemon run over the fake apiserver: ``cli.run_loop`` on the
     card, pipelined rounds, incremental scheduler and build, 1 % churn
     between rounds. With ``express`` the loop watches with the express
@@ -2378,7 +2421,8 @@ def daemon_lane(torch, cluster, watch: bool, express: bool = False,
     shed), and after the first round the server adds ``EXPRESS_BURSTS``
     bursts of 16 pods, one every second, for the express windows; with
     ``stream_windows`` K > 1 those windows run as stream flushes.
-    Returns the
+    ``extra_args`` are more daemon flags, ``n_rounds`` overrides the
+    lane's round count. Returns the
     per-dense-round records, the final bindings, the launch counts of
     the run and the express batches' records."""
     import logging
@@ -2507,10 +2551,11 @@ def daemon_lane(torch, cluster, watch: bool, express: bool = False,
             ))
             if express:
                 go.set()
-            elif rounds <= DAEMON_ROUNDS - 2:
+            elif rounds <= n_rounds - 2:
                 server.call("churn", [rounds, list(result.bindings)])
 
-        n_rounds = EXPRESS_ROUNDS if express else DAEMON_ROUNDS
+        if n_rounds is None:
+            n_rounds = EXPRESS_ROUNDS if express else DAEMON_ROUNDS
         args = cli.parse_args([
             "--k8s_apiserver_host=127.0.0.1",
             f"--k8s_apiserver_port={server.port}",
@@ -2526,6 +2571,7 @@ def daemon_lane(torch, cluster, watch: bool, express: bool = False,
             f"--stream_windows={stream_windows}",
             f"--max_rounds={n_rounds}",
             f"--polling_frequency={EXPRESS_POLL_US if express else 1000}",
+            *extra_args,
         ])
         feed = threading.Thread(target=feeder, daemon=True)
         stop = threading.Event()
@@ -2597,12 +2643,14 @@ def daemon_phase(torch, card: str):
     cluster = config2_quincy_flagship(seed=0)
     log(f"[daemon] card: {card}")
     lanes = {}
-    for lane in ("poll", "watch", "express", "stream"):
+    for lane in ("poll", "watch", "express", "stream", "scale"):
         (records, snaps, posts, bound, launches, wall_s,
          express_log) = daemon_lane(
             torch, cluster, watch=lane == "watch",
             express=lane in ("express", "stream"),
-            stream_windows=STREAM_WINDOWS if lane == "stream" else 0)
+            stream_windows=STREAM_WINDOWS if lane == "stream" else 0,
+            extra_args=SCALE_DAEMON_FLAGS if lane == "scale" else (),
+            n_rounds=SCALE_DAEMON_ROUNDS if lane == "scale" else None)
         dense = [r for r in records if r["round"] in snaps]
         if len(dense) < 2:
             raise AssertionError(f"[daemon] {lane}: {len(dense)} dense rounds")
@@ -2619,8 +2667,20 @@ def daemon_phase(torch, card: str):
                 task_mem_kb=np.array([t.memory_request_kb for t in pending]),
                 task_usage=usage, machine_load=load, machine_mem_free=mem_free,
             )
-            want = solve_oracle(net.with_costs(quincy_cost(inputs)),
-                                algorithm="cost_scaling").cost
+            if lane == "scale":
+                # --topk_prefs=2: the optimum of the graph with each
+                # task's preference arcs cut to its two heaviest
+                want = pruned_oracle_cost(view, dict(
+                    task_cpu_milli=np.array(
+                        [int(t.cpu_request * 1000) for t in pending]),
+                    task_mem_kb=np.array(
+                        [t.memory_request_kb for t in pending]),
+                    task_usage=usage, machine_load=load,
+                    machine_mem_free=mem_free,
+                ), 2, torch.device("cuda"))
+            else:
+                want = solve_oracle(net.with_costs(quincy_cost(inputs)),
+                                    algorithm="cost_scaling").cost
             post_n, post_ms, post_ok = (nonempty_posts[i] if i < len(
                 nonempty_posts) else (0, 0.0, 0))
             log(f"[daemon] {lane} round {s.round_num}: "
@@ -2658,7 +2718,9 @@ def daemon_phase(torch, card: str):
                     f"{s.pods_pending} < placed {s.pods_placed} + unsched "
                     f"{s.pods_unscheduled}, or {post_ok} of {post_n} POSTs "
                     f"landed")
-            idle = [n for n in ROUND_KERNELS if r["launched"][n] == 0]
+            idle = [n for n in (SCALE_KERNELS if lane == "scale"
+                                else ROUND_KERNELS)
+                    if r["launched"][n] == 0]
             if idle:
                 raise AssertionError(f"[daemon] {lane} round {s.round_num}: "
                                      f"kernels not launched: {idle}")
@@ -2714,6 +2776,546 @@ def express_daemon_checks(records, posts, bound, express_log,
     if degrades != len(whys):
         raise AssertionError(f"[daemon] express: {degrades} degrades, "
                              f"{len(whys)} with a reason")
+
+
+# ---- K8 gap_rows, and the shard offsets of K3 and K7 ----------------
+
+# config 8's aggregated table as its rounds solve it (BASELINE config 8
+# through the scale lane: 524,288 pods over 256 machine classes, one per
+# rack and SKU)
+CONFIG8_TABLE = (524288, 256)
+
+
+def gap_rows_inputs(torch, seed: int, rows: int, Mp: int, kind: str = "rand"):
+    """One row block's K8 inputs, made on the device from a seed: a
+    table with ~5 % INF entries, holders' prices ``lam`` and seats, and
+    an ``asg`` that reaches every class (a machine, the unscheduled
+    route Mp, -1 and out of range). ``kind`` "invalid" clears
+    task_valid, "lam_inf" sets every price to INF, "full_inf" the whole
+    table and every price."""
+    inf = 2**29
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, dtype=torch.int32,
+                             device=DEVICE, generator=g)
+
+    c = ints(0, 2**24, (rows, Mp))
+    c.masked_fill_(ints(0, 20, (rows, Mp)) == 0, inf)
+    u = ints(0, 2**25, (rows,))
+    valid = ints(0, 20, (rows,)) != 0
+    s = ints(0, 12, (Mp,))
+    lam = ints(0, 2**22, (Mp,))
+    asg = ints(-1, Mp + 1, (rows,))
+    wild = ints(0, 8, (rows,)) == 0
+    asg = torch.where(wild, ints(-5, 2 * Mp + 5, (rows,)), asg)
+    if kind == "invalid":
+        valid.zero_()
+    if kind in ("lam_inf", "full_inf"):
+        lam.fill_(inf)
+    if kind == "full_inf":
+        c.fill_(inf)
+    return c, u, valid, s, lam, asg
+
+
+def gap_rows_bytes_ops(rows: int, Mp: int) -> tuple[int, int]:
+    """K8's bytes (table, u/asg/task_valid per row, s/lam per column,
+    the two int64 sums) and int32 operations (add, two mins per entry;
+    a few per row)."""
+    return (rows * Mp * 4 + rows * 9 + Mp * 8 + 16,
+            rows * Mp * 3 + rows * 8)
+
+
+def gap_rows_record(torch, timer):
+    """K8 at config 8's aggregated table [524288, 256] (the scale lane's
+    shape) and at the flagship's [10240, 1024], held against its twin
+    (tolerance 0) and timed; the record is config 8's."""
+    from poseidon_tpu_torch.kernels import gap_rows as k8
+
+    out = None
+    for rows, Mp in ((10240, 1024), CONFIG8_TABLE):
+        args = gap_rows_inputs(torch, rows + Mp, rows, Mp)
+        err = max_abs_err([k8.gap_rows(*args)], [k8.gap_rows_plain(*args)])
+        ms = timer(lambda: k8.gap_rows(*args))
+        plain = timer(lambda: k8.gap_rows_plain(*args))
+        bms, by = bound_ms(*gap_rows_bytes_ops(rows, Mp))
+        log(f"[kernels] gap_rows shape=({rows}, {Mp}) max_abs_err={err} "
+            f"ms={ms:.6f} plain_ms={plain:.6f} bound_ms={bms:.6f} ({by})")
+        out = (k8.KERNEL, err, ms, plain, bms, by, (rows, Mp))
+        del args
+    return out
+
+
+def shard_edges(torch) -> None:
+    """K8 against its twin at its edges (Mp 16, 128, 1024 and 1040; 1,
+    31 and 32,769 rows; every asg class; task_valid all false; every
+    price INF), K3 over a shard's rows at a task offset (equal to its
+    twin and to the whole table's pass), and K7's commit into shard 0
+    and restore into shard 1 of a two-shard table, live and dead."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels import bid_pass as k3
+    from poseidon_tpu_torch.kernels import gap_rows as k8
+    from poseidon_tpu_torch.kernels import stream_commit as k7
+
+    bad = []
+    n = 0
+    for Mp in (16, 128, 1024, 1040):
+        for rows in (1, 31, 32769):
+            for kind in ("rand", "invalid", "lam_inf", "full_inf"):
+                if kind != "rand" and rows != 31:
+                    continue
+                args = gap_rows_inputs(torch, rows * 7 + Mp, rows, Mp, kind)
+                err = max_abs_err([k8.gap_rows(*args)],
+                                  [k8.gap_rows_plain(*args)])
+                n += 1
+                if err:
+                    bad.append(("gap_rows", rows, Mp, kind, err))
+    rng = np.random.default_rng(53)
+    for Tp, Mp, r0, r1 in ((10240, 1024, 5120, 10240), (64, 16, 16, 48),
+                           (2048, 128, 1024, 1536)):
+        c, p = edge_tables(torch, rng, Tp, Mp, "tied")
+        u = torch.from_numpy(rng.integers(0, 6000, Tp).astype(np.int32)).to(
+            DEVICE)
+        bt = torch.from_numpy(rng.integers(r0, r1, 256).astype(np.int32)).to(
+            DEVICE)
+        ok = torch.from_numpy(rng.random(256) < 0.8).to(DEVICE)
+        part = (c[r0:r1].contiguous(), p, u[r0:r1].contiguous(), bt - r0, ok,
+                2)
+        got = k3.bid_pass(*part, task0=r0)
+        err = max(max_abs_err(got, k3.bid_pass_plain(*part, task0=r0)),
+                  max_abs_err(got, k3.bid_pass(c, p, u, bt, ok, 2)))
+        n += 1
+        if err:
+            bad.append(("bid_pass task0", Tp, Mp, r0, err))
+    for live in (True, False):
+        flags, rest = stream_commit_inputs(torch, rng, 64, 1028, 16, 8,
+                                           live=live)
+        outs = []
+        for commit, restore in ((k7.stream_commit, k7.stream_restore),
+                                (k7.stream_commit_plain, None)):
+            a = stream_commit_args(torch, flags, rest, 8)
+            ic, ia, isv = (K7_ORDER.index(k) for k in ("c", "add_row",
+                                                       "c_saved"))
+            b0, b1 = a[ic][:32].clone(), a[ic][32:].clone()
+            a[ic] = b0
+            commit(*a, row0=0)
+            if restore is not None:
+                restore(a[0], a[ia], a[isv], b1, 64, 32)
+            else:
+                k7._restore_rows_plain(a[0][0] != 0, a[ia], a[isv], b1, 64,
+                                       32)
+            sync(torch)
+            outs.append([x for i, x in enumerate(a)
+                         if K7_ORDER[i] != "change_cap"] + [b1])
+        n += 1
+        err = max_abs_err(*outs)
+        if err:
+            bad.append(("stream_commit shards", live, err))
+    log(f"[edges] gap_rows, bid_pass at a task offset, stream_commit over "
+        f"two shards: {n} cases, {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"[edges] shard kernels != twins: {bad[:4]}")
+
+
+# ---- the scale lane -------------------------------------------------
+
+CONFIG8 = (65_536, 524_288)      # BASELINE config 8: machines, pods
+CONFIG8_RACK = 512               # machines a rack (synth.config8_scale)
+CONFIG8_CHURN = 16_384           # arrivals and deletions a churn round
+CONFIG8_ROUNDS = 3               # churn rounds after the cold burst
+SCALE_WIDTHS = (1, 2, 4)         # mesh widths, every shard on one card
+SCALE_REPEATS = 5                # flagship cold + warm pairs per width
+SCALE_KERNELS = ROUND_KERNELS + ("gap_rows",)
+
+
+def mesh_devices(torch, width: int) -> list:
+    """``width`` shards, all on the card the script runs on."""
+    return [torch.device(DEVICE, 0) if DEVICE == "cuda"
+            else torch.device(DEVICE)] * width
+
+
+def scale_config8(torch) -> dict:
+    """Config 8 through the port's bridge on the card: aggregation,
+    top-2 preferences, a width-1 mesh, no oracle fallback; the cold
+    burst round, then churn rounds of 16,384 arrivals and as many
+    deletions, bindings confirmed. Launch counts are zeroed just before
+    the first round and read after the last churn round; one more churn
+    round runs under torch.profiler. Returns the launch counts."""
+    import logging
+
+    # one INFO line per placement (the daemon phase turns INFO on)
+    # would be half a million lines a burst round
+    bridge_log = logging.getLogger("poseidon_tpu_torch.bridge.bridge")
+    level = bridge_log.level
+    bridge_log.setLevel(logging.WARNING)
+    try:
+        return _scale_config8(torch)
+    finally:
+        bridge_log.setLevel(level)
+
+
+def _scale_config8(torch) -> dict:
+    import collections
+
+    from poseidon_tpu_torch import kernels
+    from poseidon_tpu_torch.bridge import SchedulerBridge
+    from poseidon_tpu_torch.synth import config8_arrivals, config8_scale
+
+    n_machines, n_tasks = CONFIG8
+    t0 = time.perf_counter()
+    cluster = config8_scale(n_machines, n_tasks, seed=0,
+                            machines_per_rack=CONFIG8_RACK, n_skus=2)
+    n_racks = len(cluster.racks())
+    log(f"[scale] config 8: {n_machines} machines x {n_tasks} pods, "
+        f"{n_racks} racks, built in {time.perf_counter() - t0:.3f} s")
+    bridge = SchedulerBridge(
+        cost_model="quincy", small_to_oracle=False, aggregate_classes=True,
+        topk_prefs=2, mesh_width=1, device=DEVICE,
+    )
+    # a degrade at this scale must fail the phase, not sit in a CPU solve
+    bridge.solver.oracle_fallback = False
+    solver = bridge.solver
+    outcomes = []
+    finish = solver.finish_round
+
+    def recording_finish(inflight):
+        out = finish(inflight)
+        outcomes.append(out)
+        return out
+
+    solver.finish_round = recording_finish
+    t0 = time.perf_counter()
+    bridge.observe_nodes(cluster.machines)
+    bridge.observe_pods(cluster.tasks)
+    log(f"[scale] observe {time.perf_counter() - t0:.3f} s; "
+        f"round flags {bridge.round_flags}")
+    alive = collections.deque()
+
+    def one_round(r, label):
+        if r > 0:
+            t0 = time.perf_counter()
+            for t in config8_arrivals(n_racks, CONFIG8_CHURN, r - 1, seed=0):
+                bridge.observe_pod_event("ADDED", t)
+            for _ in range(min(CONFIG8_CHURN, len(alive))):
+                bridge.observe_pod_event("DELETED",
+                                         bridge.tasks[alive.popleft()])
+            events_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            events_ms = 0.0
+        sync(torch)
+        t0 = time.perf_counter()
+        res = bridge.run_scheduler()
+        sync(torch)
+        wall = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        for uid, m in res.bindings.items():
+            bridge.confirm_binding(uid, m)
+        confirm_ms = (time.perf_counter() - t1) * 1e3
+        alive.extend(res.bindings)
+        out = outcomes[-1]
+        s = res.stats
+        Tp, Mp = solver.pad_floors["t"], solver.pad_floors["m"]
+        peak = (torch.cuda.max_memory_allocated() / 2**20
+                if DEVICE == "cuda" else 0.0)
+        log(f"[scale] config 8 {label}: pending={s.pods_pending} "
+            f"placed={s.pods_placed} unsched={s.pods_unscheduled} "
+            f"wall_ms={wall:.3f} prep_ms={out.timings['prep_ms']:.3f} "
+            f"upload_ms={out.timings['upload_ms']:.3f} "
+            f"solve_ms={out.timings['solve_ms']:.3f} "
+            f"build_ms={s.build_ms:.3f} events_ms={events_ms:.3f} "
+            f"confirm_ms={confirm_ms:.3f} backend={s.backend} "
+            f"converged={out.converged} rounds={out.rounds} "
+            f"phases={out.phases} solves={solver.last_round_solves} "
+            f"fetches={solver.last_round_fetches} "
+            f"loop_syncs={solver.last_round_loop_syncs} Tp={Tp} Mp={Mp} "
+            f"classes={solver.last_round_classes} "
+            f"table_mib={Tp * Mp * 4 / 2**20:.1f} "
+            f"max_memory_allocated_mib={peak:.1f} cost={s.cost}")
+        if solver.last_round_solves > 1:
+            log(f"[scale] config 8 {label}: the stale warm start did not "
+                f"certify; the round re-ran cold (both packages do)")
+        if s.backend != "dense_auction" or not out.converged:
+            raise AssertionError(f"[scale] config 8 {label}: {s.backend}")
+        if solver.last_round_fetches != solver.last_round_solves:
+            raise AssertionError(
+                f"[scale] config 8 {label}: {solver.last_round_fetches} "
+                f"fetches for {solver.last_round_solves} solves")
+        if s.degrades_total:
+            raise AssertionError(f"[scale] config 8 {label}: degraded")
+
+    sync(torch)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    one_round(0, "burst round")
+    for r in range(1, CONFIG8_ROUNDS + 1):
+        one_round(r, f"churn round {r}")
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    log(f"[scale] config 8 launches={launches}")
+    idle = [n for n in SCALE_KERNELS if launches[n] == 0]
+    if idle and DEVICE == "cuda":
+        raise AssertionError(f"[scale] config 8: not launched: {idle}")
+    if DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one_round(CONFIG8_ROUNDS + 1, "profiled churn round")
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages() if e.self_device_time_total > 0]
+        busy = sum(t for _, t, _ in rows)
+        log(f"[scale] config 8 profiled churn round: wall_us={wall_us:.1f} "
+            f"device_busy_us={busy:.1f} "
+            f"idle_share={1 - min(busy / wall_us, 1):.3f}")
+        rows.sort(key=lambda r: -r[1])
+        for key, t, n in rows[:12]:
+            log(f"[scale]   {t:10.1f} us  x{n:<5d} {key[:90]}")
+        # the hand kernels as the round calls them
+        for k in KERNEL_SYMBOLS + ("gap_rows_kernel",):
+            hits = [(t, n) for key, t, n in rows if k in key]
+            total = sum(t for t, _ in hits)
+            count = sum(n for _, n in hits)
+            log(f"[scale] kernel {k}: total_us={total:.1f} launches={count} "
+                f"us_per_launch={total / max(count, 1):.3f}")
+    return launches
+
+
+def _recording_fetch(fetch, fetched: list):
+    """``ops.resident._fetch_result`` that also appends each round's
+    fetched host result (asg, channels, chosen/alt, lvl, floor, primal)
+    to ``fetched``, for the width comparisons."""
+    def call(*args, **kw):
+        out = fetch(*args, **kw)
+        fetched.append(out)
+        return out
+    return call
+
+
+def flagship_round_record(solver, out, fetched: list) -> tuple:
+    """Every integer output of a round: the fetched asg, channels,
+    chosen/alt, lvl, floor and primal (the last ``_fetch_result``), the
+    outcome's assignment, cost, rounds and phases, and the certificate's
+    gap."""
+    f = fetched[-1]
+    return (out.backend, out.cost, out.rounds, out.phases,
+            out.assignment.tolist(), f.asg.tolist(), f.ch.tolist(),
+            f.chosen.tolist(), f.alt.tolist(), f.lvl.tolist(),
+            f.floor.tolist(), f.primal, int(solver.warm.gap))
+
+
+def scale_widths(torch) -> None:
+    """Exactness and widths: the downsampled config 8 instance at widths
+    1, 2 and 4 (every shard on the card) equal to each other and to the
+    C++ oracle; the flagship plain vs widths 1, 2 and 4 over a cold and
+    a warm round, every integer output equal, with each width's wall
+    time; the aggregated flagship's cost equal to the plain one's; and
+    ``sharded_certificate_gap`` at width 4 equal to the solve's gap."""
+    from poseidon_tpu_torch.ops import resident
+
+    fetch = resident._fetch_result
+    fetched = []
+    resident._fetch_result = _recording_fetch(fetch, fetched)
+    try:
+        _scale_widths(torch, fetched)
+    finally:
+        resident._fetch_result = fetch
+
+
+def _scale_widths(torch, fetched: list) -> None:
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.models.costs import (
+        build_cost_inputs, get_cost_model,
+    )
+    from poseidon_tpu_torch.ops.dense_auction import build_dense_instance
+    from poseidon_tpu_torch.ops.resident import ResidentSolver
+    from poseidon_tpu_torch.ops.transport import extract_instance
+    from poseidon_tpu_torch.parallel import (
+        make_mesh, shard_instance, sharded_certificate_gap,
+        solve_dense_sharded,
+    )
+    from poseidon_tpu_torch.synth import config2_quincy_flagship, config8_scale
+
+    dev = torch.device(DEVICE)
+    small = config8_scale(256, 2048, seed=1, machines_per_rack=32, n_skus=2)
+    arrays, meta = FlowGraphBuilder().build_arrays(small)
+    want, _ = oracle_cost(small, dev)
+    seen = None
+    for w in SCALE_WIDTHS:
+        solver = ResidentSolver(
+            device=DEVICE, small_to_oracle=False, aggregate_classes=True,
+            topk_prefs=2, mesh_width=w, mesh_devices=mesh_devices(torch, w))
+        out = solver.run_round(arrays, meta, cost_model="quincy",
+                               cost_input_kwargs=cost_kwargs(small))
+        rec = flagship_round_record(solver, out, fetched)
+        log(f"[scale] downsampled config 8 (256 x 2048) width {w}: "
+            f"backend={out.backend} cost={out.cost} oracle_cost={want} "
+            f"rounds={out.rounds} classes={solver.last_round_classes}")
+        if out.backend != "dense_auction" or out.cost != want:
+            raise AssertionError(f"[scale] downsampled width {w}: "
+                                 f"{out.backend} cost {out.cost} != {want}")
+        if seen is not None and rec != seen:
+            raise AssertionError(f"[scale] downsampled width {w} != width 1")
+        seen = rec
+
+    clusters = [config2_quincy_flagship(seed=0)]
+    clusters.append(churn(clusters[0], 1))
+    built = [FlowGraphBuilder().build_arrays(c) for c in clusters]
+    base = None
+    # each width runs the cold + warm pair SCALE_REPEATS times in turns
+    # (0, 1, 2, 4, 0, 1, ...), each time on a fresh solver; the medians
+    # of the walls compare the widths within this run
+    walls = {w: ([], []) for w in (0,) + SCALE_WIDTHS}
+    for _rep in range(SCALE_REPEATS):
+        for w in (0,) + SCALE_WIDTHS:
+            solver = ResidentSolver(
+                device=DEVICE, small_to_oracle=False, mesh_width=w,
+                mesh_devices=mesh_devices(torch, w) if w else None)
+            recs = []
+            for k, (cluster, (arrays, meta)) in enumerate(zip(clusters,
+                                                              built)):
+                sync(torch)
+                t0 = time.perf_counter()
+                out = solver.run_round(
+                    arrays, meta, cost_model="quincy",
+                    cost_input_kwargs=cost_kwargs(cluster))
+                sync(torch)
+                walls[w][k].append((time.perf_counter() - t0) * 1e3)
+                recs.append(flagship_round_record(solver, out, fetched))
+            if base is None:
+                base = recs
+            elif recs != base:
+                raise AssertionError(f"[scale] flagship width {w} != plain")
+    for w, (cold, warm) in walls.items():
+        med = [sorted(x)[len(x) // 2] for x in (cold, warm)]
+        log(f"[scale] flagship width {w}: cold wall_ms median {med[0]:.3f} "
+            f"{[round(x, 3) for x in cold]} warm wall_ms median "
+            f"{med[1]:.3f} {[round(x, 3) for x in warm]} "
+            f"cost={base[0][1]}/{base[1][1]} "
+            f"rounds={base[0][2]}/{base[1][2]} gap={base[0][-1]}/"
+            f"{base[1][-1]} (every integer output equal to plain)")
+    agg = ResidentSolver(device=DEVICE, small_to_oracle=False,
+                         aggregate_classes=True)
+    out = agg.run_round(*built[0], cost_model="quincy",
+                        cost_input_kwargs=cost_kwargs(clusters[0]))
+    log(f"[scale] aggregated flagship: cost={out.cost} plain={base[0][1]} "
+        f"classes={agg.last_round_classes}")
+    if out.cost != base[0][1]:
+        raise AssertionError("[scale] aggregated flagship cost != plain")
+
+    net, meta = FlowGraphBuilder().build(clusters[0])
+    inputs = build_cost_inputs(net, meta, device=dev,
+                               **cost_kwargs(clusters[0]))
+    inst = extract_instance(
+        net.with_costs(get_cost_model("quincy")(inputs)), meta)
+    mesh = make_mesh(devices=mesh_devices(torch, 4))
+    sdev = shard_instance(build_dense_instance(inst, dev), mesh)
+    state = solve_dense_sharded(sdev)
+    gap = sharded_certificate_gap(sdev, state, mesh)
+    log(f"[scale] sharded_certificate_gap width 4: {gap} (solve's gap "
+        f"{int(state.gap)}, converged={bool(state.converged)})")
+    if gap != int(state.gap) or not bool(state.converged):
+        raise AssertionError("[scale] sharded certificate != solve's gap")
+
+
+def scale_phase(torch, card: str) -> dict:
+    """The scale lane on the card: the unaggregated config 8 table is
+    refused by the budget guard; config 8 end to end; exactness and
+    mesh widths. Returns config 8's launch counts."""
+    from poseidon_tpu_torch.ops.dense_auction import (
+        DenseMemoryTooLarge, check_table_budget,
+    )
+
+    log(f"[scale] card: {card}")
+    try:
+        check_table_budget(CONFIG8[1], CONFIG8[0])
+    except DenseMemoryTooLarge as e:
+        log(f"[scale] unaggregated config 8 refused: {str(e)[:160]}")
+    else:
+        raise AssertionError("[scale] the unaggregated table was accepted")
+    launches = scale_config8(torch)
+    scale_widths(torch)
+    return launches
+
+
+def scale_parity() -> None:
+    """An aggregated width-2 round on the 64 x 600 parity cell (both
+    shards on one device), two express windows and a 3-window stream
+    flush over it, on the card and on the CPU: every field equal."""
+    import numpy as np
+    import torch
+
+    from poseidon_tpu_torch.synth import make_synthetic_cluster
+
+    cluster = make_synthetic_cluster(64, 600, seed=1, machines_per_rack=8)
+    runs = {}
+    for device in (DEVICE, "cpu"):
+        scale = dict(aggregate_classes=True, mesh_width=2,
+                     mesh_devices=[torch.device(device, 0) if device == "cuda"
+                                   else torch.device(device)] * 2)
+        bridge, res = express_bridge(device, cluster, 3, **scale)
+        rng = np.random.default_rng(79)
+        out = [(dict(res.bindings), res.stats.cost)]
+        last = {}
+        for window in range(2):
+            for uid, m in last.items():
+                bridge.confirm_binding(uid, m)
+            r = bridge.express_batch(express_events(bridge, rng, window, n=8))
+            if r is None:
+                raise AssertionError(f"[parity] scale express window "
+                                     f"{window} degraded on {device}")
+            last = dict(r.bindings)
+            out.append((dict(r.bindings), r.cost, r.rounds))
+        for uid, m in last.items():
+            bridge.confirm_binding(uid, m)
+        windows = stream_schedule(bridge, rng, "sc", [8, 8, 8])
+        per, r, inf = stream_flush_windows(bridge, windows, "scale parity")
+        warm = bridge.solver.warm
+        out.append((per, r.cost, r.rounds,
+                    [np.asarray(t.cpu()).tolist()
+                     for t in (warm.asg, warm.lvl, warm.floor,
+                               inf.ctx.dev.s, inf.ctx.dev.u)],
+                    [np.asarray(b.cpu()).tolist()
+                     for b in inf.ctx.dev.c.blocks]))
+        runs[device] = out
+    if runs[DEVICE] != runs["cpu"]:
+        raise AssertionError("[parity] aggregated width-2 lane: card != cpu")
+    log(f"[parity] aggregated width-2 round, 2 express windows and a "
+        f"3-window stream flush: card == cpu (round cost="
+        f"{runs['cpu'][0][1]}, windows placed "
+        f"{[len(w[0]) for w in runs['cpu'][1:3]]}, flush placed "
+        f"{[len(a) for a in runs['cpu'][3][0]]})")
+
+
+def pruned_oracle_cost(view, kw: dict, k: int, device) -> int:
+    """The C++ oracle's optimum of a round's quincy graph with each
+    task's preference arcs cut to its ``k`` heaviest (the scale lane's
+    ``--topk_prefs``): the dropped arcs get capacity 0."""
+    import dataclasses
+
+    import numpy as np
+
+    from poseidon_tpu_torch.graph.aggregate import prune_topology_prefs
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.models.costs import build_cost_inputs, quincy_cost
+    from poseidon_tpu_torch.oracle import solve_oracle
+    from poseidon_tpu_torch.ops.transport import extract_topology
+
+    net, meta = FlowGraphBuilder().build(view)
+    host = net.to_host()
+    topo = extract_topology(meta, host["src"], host["dst"], host["cap"])
+    pruned = prune_topology_prefs(topo, meta.arc_weight, meta.arc_discount, k)
+    drop = np.setdiff1d(topo.arc_pref[topo.arc_pref >= 0],
+                        pruned.arc_pref[pruned.arc_pref >= 0])
+    cap = net.cap.copy()
+    cap[drop] = 0
+    inputs = build_cost_inputs(net, meta, device=device, **kw)
+    priced = net.with_costs(quincy_cost(inputs))
+    return solve_oracle(dataclasses.replace(priced, cap=cap),
+                        algorithm="cost_scaling").cost
 
 
 def main() -> int:
@@ -2790,6 +3392,9 @@ def main() -> int:
             "whatif", whatif_phase, torch, smi)["perturb"]
     if want("service"):
         phase("service", service_phase, torch, smi)
+    if want("scale"):
+        launches["gap_rows"] = phase(
+            "scale", scale_phase, torch, smi)["gap_rows"]
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()))
     if only is not None:

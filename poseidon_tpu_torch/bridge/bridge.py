@@ -309,6 +309,7 @@ class SchedulerBridge:
         mesh_width: int = 0,
         aggregate_classes: bool = False,
         topk_prefs: int = 0,
+        mesh_devices=None,
         express_lane: bool = False,
         express_max_batch: int = 16,
         stream_windows: int = 0,
@@ -365,8 +366,10 @@ class SchedulerBridge:
         self.round_num = 0
         # device-resident solve chain; its warm DenseState lives on the
         # device across rounds (the reference's --run_incremental_scheduler
-        # seam). mesh_width, aggregate_classes and topk_prefs are the
-        # scale lane's options, which ResidentSolver refuses until ported.
+        # seam). The scale lane rides here too: mesh_width lays the
+        # round's task axis out over a device mesh (mesh_devices lists
+        # its devices, which may repeat), aggregate_classes/topk_prefs
+        # shrink the machine/pref axes (graph/aggregate.py).
         # ``solver`` injects a different implementation of the same
         # begin/finish seam — the multi-tenant service routes every
         # tenant bridge through a shared batching dispatcher this way
@@ -378,6 +381,7 @@ class SchedulerBridge:
             mesh_width=mesh_width,
             aggregate_classes=aggregate_classes,
             topk_prefs=topk_prefs,
+            mesh_devices=mesh_devices,
             express_lane=express_lane,
             express_max_batch=express_max_batch,
             stream_windows=stream_windows,
@@ -1888,6 +1892,29 @@ class SchedulerBridge:
     @solver_timeout_s.setter
     def solver_timeout_s(self, value: float) -> None:
         self.solver.oracle_timeout_s = value
+
+    @property
+    def round_flags(self) -> dict:
+        """The settings a round runs under, with the keys the
+        reference's flight recorder captures each round (the recorder
+        itself is not ported): the scale lane's ``mesh_width``,
+        ``aggregate_classes`` and ``topk_prefs`` among them."""
+        return {
+            "enable_preemption": self.enable_preemption,
+            "migration_hysteresis": self.migration_hysteresis,
+            "max_migrations_per_round": self.max_migrations_per_round,
+            "express_lane": self.express_lane,
+            "express_max_batch": getattr(
+                self.solver, "express_max_batch", 16
+            ),
+            "small_to_oracle": getattr(self.solver, "small_to_oracle", True),
+            "mesh_width": getattr(self.solver, "mesh_width", 0),
+            "aggregate_classes": getattr(
+                self.solver, "aggregate_classes", False
+            ),
+            "topk_prefs": getattr(self.solver, "topk_prefs", 0),
+            "lane": self.lane,
+        }
 
     @property
     def warm_state(self):

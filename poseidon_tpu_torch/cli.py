@@ -71,9 +71,6 @@ _BOOL = ("true", "false")
 # They parse so the reference's flagfiles load; any other value than
 # the default is refused (``unported_flags``)
 UNPORTED_FLAGS = {
-    "mesh_width": (0, int, 6),
-    "aggregate_classes": ("false", _BOOL, 6),
-    "topk_prefs": (0, int, 6),
     "flight_recorder": ("false", _BOOL, 7),
     "flight_dir": ("flightrec", str, 7),
     "flight_max_dumps": (16, int, 7),
@@ -153,6 +150,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="churn budget: MIGRATE+PREEMPT deltas actuated "
                         "per round (0 = unlimited); excess deltas are "
                         "deferred and re-proposed next round")
+    # the scale lane: lay the resident round out over a device mesh
+    # and/or collapse the machine axis to equivalence classes, so the
+    # dense table fits the device budget at 64k-machine / 512k-pod
+    # scale instead of degrading to the CPU oracle (graph/aggregate.py,
+    # parallel/)
+    p.add_argument("--mesh_width", type=int, default=0,
+                   help="shard the resident round's task axis over N "
+                        "devices (power of two; 0 = plain single-"
+                        "device layout, 1 = one-device mesh — bit-"
+                        "identical results either way)")
+    p.add_argument("--aggregate_classes",
+                   default="false", choices=["true", "false"],
+                   help="collapse the machine axis to cost-equivalence "
+                        "classes before the dense solve (exact; "
+                        "machines named by preference arcs stay "
+                        "individually addressable); requires a "
+                        "signature-pricing cost model (all registry "
+                        "models except random)")
+    p.add_argument("--topk_prefs", type=int, default=0,
+                   help="keep only each task's K heaviest preference "
+                        "arcs (0 = keep all; exact when K covers every "
+                        "task's prefs, a stated approximation below "
+                        "that; rebalancing continuation arcs are never "
+                        "pruned)")
     # the express lane: small watch-event batches become bindings
     # BETWEEN round ticks via a device patch + bounded eps=1 repair of
     # the last round's warm dense state (ops/resident.py express lane);
@@ -524,7 +545,7 @@ def run_loop(
         health = HealthState(ready_gauge=sched_metrics.ready)
         # build identity: the poseidon_build_info gauge + the /healthz
         # JSON echo (one startup-time resolution, never the hot path)
-        binfo = build_info(device=args.device)
+        binfo = build_info(mesh_width=args.mesh_width, device=args.device)
         sched_metrics.set_build_info(binfo)
         obs_server = ObsServer(
             sched_metrics.registry, health, port=args.metrics_port,
@@ -552,6 +573,9 @@ def run_loop(
             enable_preemption=args.enable_preemption == "true",
             migration_hysteresis=args.migration_hysteresis,
             max_migrations_per_round=args.max_migrations_per_round,
+            mesh_width=args.mesh_width,
+            aggregate_classes=args.aggregate_classes == "true",
+            topk_prefs=args.topk_prefs,
             shrink_grace_s=args.node_grace_s,
             metrics=sched_metrics,
             profile_spans=args.trace_profile == "true",
@@ -652,10 +676,15 @@ def run_loop(
             stream_k = 0
         # the lane label every round's stats carry (the metrics/report
         # grouping key)
-        bridge.lane = (
+        lane = (
             ("stream" if stream_k > 1 else "express") if express
             else "watch" if watcher is not None else "poll"
         ) + ("+pipelined" if pipelined else "")
+        if args.mesh_width:
+            lane += "+sharded"
+        if args.aggregate_classes == "true":
+            lane += "+agg"
+        bridge.lane = lane
 
         # graceful shutdown: SIGTERM finishes the in-flight round,
         # flushes deltas + trace, and exits 0

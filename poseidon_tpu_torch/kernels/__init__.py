@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the dense auction, the express and
-stream lanes and the what-if batch, each beside its plain PyTorch twin
-and its launch counter.
+stream lanes, the what-if batch and the sharded certificate, each
+beside its plain PyTorch twin and its launch counter.
 
 A wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 twin for CPU tensors; there is no fallback from one to the other.
@@ -11,6 +11,7 @@ from poseidon_tpu_torch.kernels import (
     densify,
     express_patch,
     express_rows,
+    gap_rows,
     perturb,
     row_options,
     stream_commit,
@@ -18,7 +19,7 @@ from poseidon_tpu_torch.kernels import (
 
 KERNELS = (densify.KERNEL, row_options.KERNEL, bid_pass.KERNEL,
            express_rows.KERNEL, express_patch.KERNEL, perturb.KERNEL,
-           stream_commit.KERNEL)
+           stream_commit.KERNEL, gap_rows.KERNEL)
 
 
 def reset_launch_counts() -> None:
@@ -27,5 +28,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "reset_launch_counts", "bid_pass", "densify",
-           "express_patch", "express_rows", "perturb", "row_options",
-           "stream_commit"]
+           "express_patch", "express_rows", "gap_rows", "perturb",
+           "row_options", "stream_commit"]

@@ -33,7 +33,7 @@ META_INTS = 3 * 64
 PLANS = row_stream.PlanCache(meta_ints=META_INTS)
 
 
-def bid_pass_plain(c, p, u, btask, bvalid, eps: int):
+def bid_pass_plain(c, p, u, btask, bvalid, eps: int, task0: int = 0):
     """The reference lines restated in PyTorch. Returns (m1, b1v, v2,
     take_uns, beta) over the window."""
     Mp = c.shape[1]
@@ -43,7 +43,7 @@ def bid_pass_plain(c, p, u, btask, bvalid, eps: int):
     b1v = vb.min(dim=1).values
     midx = torch.arange(Mp, dtype=torch.int32, device=c.device)[None, :]
     # the reference multiplies in uint32: emulate the wrap in int64
-    rot = ((bt * 40503) % 2**32 % Mp).to(torch.int32)[:, None]
+    rot = (((bt + task0) * 40503) % 2**32 % Mp).to(torch.int32)[:, None]
     tie_rank = torch.remainder(midx - rot, Mp)   # floor modulo
     m1 = torch.argmin(
         torch.where(vb == b1v[:, None], tie_rank, Mp + 1), dim=1
@@ -60,12 +60,14 @@ def bid_pass_plain(c, p, u, btask, bvalid, eps: int):
     return m1, b1v, v2, take_uns, beta
 
 
-def bid_pass(c, p, u, btask, bvalid, eps: int):
+def bid_pass(c, p, u, btask, bvalid, eps: int, task0: int = 0):
     """The bid pass over window tasks ``btask[B]`` (``bvalid[B]`` marks
-    real slots) at prices p[Mp] and bid increment ``eps``. CPU tensors
-    take the plain twin; CUDA tensors launch K3."""
+    real slots) at prices p[Mp] and bid increment ``eps``. Under a
+    row-block mesh c and u hold the rows from ``task0`` on and btask is
+    relative to it; the tie-break ranks by the absolute task. CPU
+    tensors take the plain twin; CUDA tensors launch K3."""
     if not on_card(c, p, u, btask, bvalid):
-        return bid_pass_plain(c, p, u, btask, bvalid, eps)
+        return bid_pass_plain(c, p, u, btask, bvalid, eps, task0)
     Tp, Mp = c.shape
     B = btask.shape[0]
     if Mp % 4:
@@ -85,7 +87,7 @@ def bid_pass(c, p, u, btask, bvalid, eps: int):
             kernel_arg(c, "c", i32, (Tp, Mp)), kernel_arg(p, "p", i32, (Mp,)),
             kernel_arg(u, "u", i32, (Tp,)), kernel_arg(btask, "btask", i32, (B,)),
             kernel_arg(bvalid, "bvalid", torch.bool, (B,)),
-            B, Mp, int(eps), plan.grid, lay.stages, lay.chunk,
+            B, Mp, int(eps), int(task0), plan.grid, lay.stages, lay.chunk,
             int(lay.p_resident), lay.smem,
             m1.data_ptr(), b1v.data_ptr(), v2.data_ptr(), take_uns.data_ptr(),
             beta.data_ptr(), stream_ptr(c),

@@ -5,7 +5,7 @@
 // t = btask[b]:
 //   vb[m]   = min(c[t, m] + p[m], INF)
 //   b1v     = min_m vb[m]
-//   rot     = (uint32(t) * 40503) mod Mp          (uint32 arithmetic)
+//   rot     = (uint32(t + task0) * 40503) mod Mp  (uint32 arithmetic)
 //   m1      = the m with vb[m] == b1v of least tie_rank = (m - rot) mod Mp
 //             (a floor modulo, so the rank is in [0, Mp))
 //   v2      = min_m vb[m] with column m1 masked to INF
@@ -13,7 +13,10 @@
 //   take_uns = bvalid[b] && u[t] <= b1v
 //   beta    = min(int64(min(v2, u[t])) + eps - c1, INF - 1)  (int64, then int32)
 // Invalid window slots (bvalid = 0) are computed like any other row; the
-// caller's scatter drops them.
+// caller's scatter drops them. task0 is the first task of the table's
+// rows: 0 for the whole table, the shard's first row under a row-block
+// mesh (btask is then relative to it, and the tie-break still ranks by
+// the absolute task id).
 //
 // Bound: bytes. The window gathers B rows of the table: B*Mp*4 B (10 MiB
 // at the flagship B = 2560, Mp = 1024: 3.1 us at 3.35 TB/s), plus p once
@@ -53,7 +56,8 @@ constexpr int META = 2 * BATCH;  // a warp's metadata ring: two batches
 __global__ void __launch_bounds__(pt::THREADS, 4) bid_pass_kernel(
     const int* __restrict__ c, const int* __restrict__ p, const int* __restrict__ u,
     const int* __restrict__ btask, const uint8_t* __restrict__ bvalid, int B, int Mp, int eps,
-    int stages, int chunk, int p_resident, int* __restrict__ m1_out, int* __restrict__ b1v_out,
+    int task0, int stages, int chunk, int p_resident, int* __restrict__ m1_out,
+    int* __restrict__ b1v_out,
     int* __restrict__ v2_out, uint8_t* __restrict__ take_uns_out, int* __restrict__ beta_out) {
   extern __shared__ __align__(128) unsigned char smem[];
   const bool pres = p_resident != 0;
@@ -120,7 +124,8 @@ __global__ void __launch_bounds__(pt::THREADS, 4) bid_pass_kernel(
   for (int i = 0; i < total; ++i) {
     if (j == 0) {
       t = mt[k % META];
-      rot = static_cast<int>((static_cast<unsigned>(t) * 40503u) % static_cast<unsigned>(Mp));
+      rot = static_cast<int>((static_cast<unsigned>(t + task0) * 40503u) %
+                             static_cast<unsigned>(Mp));
     }
     pt::mbar_wait(&bars[s], phase);
     const int col = j * chunk;
@@ -170,12 +175,12 @@ extern "C" int bid_pass_occupancy(int smem, int* blocks) {
 }
 
 extern "C" int bid_pass_launch(const int* c, const int* p, const int* u, const int* btask,
-                               const uint8_t* bvalid, int B, int Mp, int eps, int grid, int stages,
-                               int chunk, int p_resident, int smem, int* m1, int* b1v, int* v2,
-                               uint8_t* take_uns, int* beta, void* stream) {
+                               const uint8_t* bvalid, int B, int Mp, int eps, int task0, int grid,
+                               int stages, int chunk, int p_resident, int smem, int* m1, int* b1v,
+                               int* v2, uint8_t* take_uns, int* beta, void* stream) {
   if (B > 0)
     bid_pass_kernel<<<grid, pt::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        c, p, u, btask, bvalid, B, Mp, eps, stages, chunk, p_resident, m1, b1v, v2, take_uns,
-        beta);
+        c, p, u, btask, bvalid, B, Mp, eps, task0, stages, chunk, p_resident, m1, b1v, v2,
+        take_uns, beta);
   return static_cast<int>(cudaGetLastError());
 }

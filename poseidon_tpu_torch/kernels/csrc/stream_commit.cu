@@ -26,6 +26,11 @@
 // 3 Mp-vectors (~0.42 MB) and writes 6 Tp-vectors (~0.2 MB) when live, or
 // restores 16 rows of c (64 KiB) when dead: ~0.2 us at 3.35 TB/s.
 //
+// Under a row-block mesh (parallel/) c is one shard's rows [row0, row0 +
+// c_rows): the commit restores the arrival rows it owns, and
+// stream_restore_launch restores another shard's rows after the commit,
+// reading the verdict back from `live` (one block, the same row copy).
+//
 // Design: the simple one, as K5. One block of 1024 threads striding over
 // the Tp, Mp and row axes. Every thread computes live2 from the flags
 // before a __syncthreads(), so the write-back of `live` by thread 0 at the
@@ -51,7 +56,7 @@ __global__ void __launch_bounds__(COMMIT_THREADS) stream_commit_kernel(
     int* __restrict__ u, int* __restrict__ w, unsigned char* __restrict__ valid,
     int* __restrict__ asg, int* __restrict__ lvl, int* __restrict__ s,
     int* __restrict__ floor_, int* __restrict__ c, long long* __restrict__ log_row,
-    int Tp, int Mp) {
+    int Tp, int Mp, int row0, int c_rows) {
   const int nchg = *n_changes;
   const bool live2 = (*live != 0) && (*conv != 0) && (*domain_ok != 0) && (nchg <= change_cap);
   __syncthreads();
@@ -71,8 +76,8 @@ __global__ void __launch_bounds__(COMMIT_THREADS) stream_commit_kernel(
     for (int m = threadIdx.x; m < Mp; m += blockDim.x) s[m] = max(__ldcg(&s_n[m]), 0);
   } else {
     for (int k = 0; k < kmax; ++k) {
-      const int r = add_row[k];
-      if (r < 0 || r >= Tp) continue;
+      const int r = add_row[k] - row0;
+      if (add_row[k] < 0 || add_row[k] >= Tp || r < 0 || r >= c_rows) continue;
       const int* src = c_saved + static_cast<size_t>(k) * Mp;
       int* dst = c + static_cast<size_t>(r) * Mp;
       for (int m = threadIdx.x; m < Mp; m += blockDim.x) dst[m] = src[m];
@@ -92,6 +97,22 @@ __global__ void __launch_bounds__(COMMIT_THREADS) stream_commit_kernel(
   }
 }
 
+// A dead window's undo in another shard: the commit has already written
+// its verdict to `live`.
+__global__ void __launch_bounds__(COMMIT_THREADS) stream_restore_kernel(
+    const int* __restrict__ live, const int* __restrict__ add_row,
+    const int* __restrict__ c_saved, int kmax, int* __restrict__ c, int Tp, int Mp,
+    int row0, int c_rows) {
+  if (*live != 0) return;
+  for (int k = 0; k < kmax; ++k) {
+    const int r = add_row[k] - row0;
+    if (add_row[k] < 0 || add_row[k] >= Tp || r < 0 || r >= c_rows) continue;
+    const int* src = c_saved + static_cast<size_t>(k) * Mp;
+    int* dst = c + static_cast<size_t>(r) * Mp;
+    for (int m = threadIdx.x; m < Mp; m += blockDim.x) dst[m] = src[m];
+  }
+}
+
 }  // namespace
 
 extern "C" int stream_commit_launch(
@@ -101,10 +122,18 @@ extern "C" int stream_commit_launch(
     const int* u_n, const int* w_n, const unsigned char* valid_n, int* s_n, const int* add_row,
     const int* c_saved, int* u, int* w, unsigned char* valid, int* asg, int* lvl, int* s,
     int* floor_, int* c, long long* log_row, int change_cap, int cap, int kmax, int Tp, int Mp,
-    void* stream) {
+    int row0, int c_rows, void* stream) {
   stream_commit_kernel<<<1, COMMIT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       live, conv, domain_ok, n_changes, change_cap, rows_out, asg_out, primal, cap, report, asg_f,
       lvl_f, floor_f, u_n, w_n, valid_n, s_n, add_row, c_saved, kmax, u, w, valid, asg, lvl, s,
-      floor_, c, log_row, Tp, Mp);
+      floor_, c, log_row, Tp, Mp, row0, c_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int stream_restore_launch(const int* live, const int* add_row, const int* c_saved,
+                                     int* c, int kmax, int Tp, int Mp, int row0, int c_rows,
+                                     void* stream) {
+  stream_restore_kernel<<<1, COMMIT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      live, add_row, c_saved, kmax, c, Tp, Mp, row0, c_rows);
   return static_cast<int>(cudaGetLastError());
 }

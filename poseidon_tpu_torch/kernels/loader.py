@@ -33,7 +33,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "_build"
 _SOURCES = (
     "densify", "row_options", "bid_pass", "express_rows", "express_patch",
-    "stream_commit", "perturb",
+    "stream_commit", "perturb", "gap_rows",
 )
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -152,7 +152,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "row_options_occupancy": occupancy,
         },
         "bid_pass": {
-            "bid_pass_launch": [P] * 5 + [I] * 8 + [P] * 5 + [P],
+            "bid_pass_launch": [P] * 5 + [I] * 9 + [P] * 5 + [P],
             "bid_pass_occupancy": occupancy,
         },
         "express_rows": {
@@ -162,10 +162,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "express_patch_launch": [P] * 9 + [I] * 3 + [P],
         },
         "stream_commit": {
-            "stream_commit_launch": [P] * 26 + [I] * 5 + [P],
+            "stream_commit_launch": [P] * 26 + [I] * 7 + [P],
+            "stream_restore_launch": [P] * 4 + [I] * 5 + [P],
         },
         "perturb": {
             "perturb_launch": [P] * 11 + [I] * 6 + [P],
+        },
+        "gap_rows": {
+            "gap_rows_launch": [P] * 6 + [I] * 3 + [P, P],
         },
     }[name]
     for fn_name, argtypes in sigs.items():

@@ -34,13 +34,27 @@ def log_width(cap: int) -> int:
     return 2 * cap + 6
 
 
+def _restore_rows_plain(keep, add_row, c_saved, c, Tp, row0):
+    """``c`` holds rows [row0, row0 + len(c)) of the table: put back the
+    arrival rows it owns unless ``keep`` (out-of-range lanes write into
+    a spare row that is cut off again)."""
+    rows, Mp = c.shape
+    r = add_row - row0
+    r = torch.where((add_row >= 0) & (add_row < Tp) & (r >= 0) & (r < rows),
+                    r, rows).long()
+    c_ext = torch.cat([c, c.new_zeros(1, Mp)])
+    c_ext[r] = torch.where(keep, c_ext[r], c_saved)
+    c.copy_(c_ext[:rows])
+
+
 def stream_commit_plain(live, conv, domain_ok, n_changes, change_cap,
                         rows_out, asg_out, primal, report, asg_f, lvl_f,
                         floor_f, u_n, w_n, valid_n, s_n, add_row, c_saved,
-                        u, w, valid, asg, lvl, s, floor, c, log_row):
+                        u, w, valid, asg, lvl, s, floor, c, log_row,
+                        row0: int = 0):
     """The reference lines restated in PyTorch, with the same in-place
     contract as the kernel (no host read: every branch is a ``where``)."""
-    Tp, Mp = c.shape
+    Tp, Mp = u.shape[0], s.shape[0]
     cap = rows_out.shape[0]
     live2 = (live[0] != 0) & conv & domain_ok & (n_changes <= change_cap)
     # auto-retire, as the reference computes it before the select; the
@@ -57,12 +71,8 @@ def stream_commit_plain(live, conv, domain_ok, n_changes, change_cap,
     lvl.copy_(torch.where(live2, torch.where(report, 0, lvl_f), lvl))
     s.copy_(torch.where(live2, s_r, s))
     floor.copy_(torch.where(live2, floor_f, floor))
-    # a dead window puts back the rows K4 wrote (out-of-range lanes
-    # write into a spare row that is cut off again)
-    r = torch.where((add_row >= 0) & (add_row < Tp), add_row, Tp).long()
-    c_ext = torch.cat([c, c.new_zeros(1, Mp)])
-    c_ext[r] = torch.where(live2, c_ext[r], c_saved)
-    c.copy_(c_ext[:Tp])
+    # a dead window puts back the rows K4 wrote
+    _restore_rows_plain(live2, add_row, c_saved, c, Tp, row0)
     i64 = torch.int64
     log_row[:cap] = torch.where(live2, rows_out.to(i64), Tp)
     log_row[cap: 2 * cap] = torch.where(live2, asg_out.to(i64), -1)
@@ -76,7 +86,7 @@ def stream_commit_plain(live, conv, domain_ok, n_changes, change_cap,
 def stream_commit(live, conv, domain_ok, n_changes, change_cap, rows_out,
                   asg_out, primal, report, asg_f, lvl_f, floor_f, u_n, w_n,
                   valid_n, s_n, add_row, c_saved, u, w, valid, asg, lvl, s,
-                  floor, c, log_row):
+                  floor, c, log_row, row0: int = 0):
     """Commit one stream window.
 
     ``live`` int32[1] is the stream's latch (read, then written with this
@@ -89,8 +99,10 @@ def stream_commit(live, conv, domain_ok, n_changes, change_cap, rows_out,
     [Tp], ``s``/``floor`` [Mp] are the carry, overwritten in place.
     ``add_row`` int32[kmax] and ``c_saved`` int32[kmax, Mp] are the
     window's arrival rows and their contents before K4 wrote them into
-    ``c`` [Tp, Mp]. ``log_row`` int64[``log_width(cap)``] receives the
-    masked log. CPU tensors take the plain twin; CUDA tensors launch K7."""
+    ``c`` [Tp, Mp]; under a row-block mesh ``c`` is one shard's rows
+    from ``row0`` on, and ``stream_restore`` undoes the other shards'.
+    ``log_row`` int64[``log_width(cap)``] receives the masked log. CPU
+    tensors take the plain twin; CUDA tensors launch K7."""
     args = (live, conv, domain_ok, n_changes, rows_out, asg_out, primal,
             report, asg_f, lvl_f, floor_f, u_n, w_n, valid_n, s_n, add_row,
             c_saved, u, w, valid, asg, lvl, s, floor, c, log_row)
@@ -99,9 +111,10 @@ def stream_commit(live, conv, domain_ok, n_changes, change_cap, rows_out,
                             rows_out, asg_out, primal, report, asg_f,
                             lvl_f, floor_f, u_n, w_n, valid_n, s_n,
                             add_row, c_saved, u, w, valid, asg, lvl, s,
-                            floor, c, log_row)
+                            floor, c, log_row, row0)
         return
-    Tp, Mp = c.shape
+    Tp, Mp = u.shape[0], s.shape[0]
+    c_rows = c.shape[0]
     cap = rows_out.shape[0]
     kmax = add_row.shape[0]
     i32, i64, b8 = torch.int32, torch.int64, torch.bool
@@ -118,12 +131,37 @@ def stream_commit(live, conv, domain_ok, n_changes, change_cap, rows_out,
         (w, "w", i32, (Tp,)), (valid, "valid", b8, (Tp,)),
         (asg, "asg", i32, (Tp,)), (lvl, "lvl", i32, (Tp,)),
         (s, "s", i32, (Mp,)), (floor, "floor", i32, (Mp,)),
-        (c, "c", i32, (Tp, Mp)), (log_row, "log_row", i64, (log_width(cap),)),
+        (c, "c", i32, (c_rows, Mp)),
+        (log_row, "log_row", i64, (log_width(cap),)),
     )
     ptrs = [kernel_arg(t, name, dt, shape) for t, name, dt, shape in spec]
     with torch.cuda.device(c.device):
         err = library("stream_commit").stream_commit_launch(
-            *ptrs, change_cap, cap, kmax, Tp, Mp, stream_ptr(c),
+            *ptrs, change_cap, cap, kmax, Tp, Mp, row0, c_rows, stream_ptr(c),
+        )
+    check_launch(KERNEL, err)
+    KERNEL.launches += 1
+
+
+def stream_restore(live, add_row, c_saved, c, Tp: int, row0: int):
+    """A dead window's undo in one more shard, after ``stream_commit``
+    wrote the window's verdict to ``live``: ``c`` holds the table's rows
+    [row0, row0 + len(c)) of Tp, and the arrival rows it owns come back
+    from ``c_saved`` [kmax, Mp] unless ``live`` is set. CPU tensors take
+    the plain twin; CUDA tensors launch K7's restore entry point."""
+    if not on_card(live, add_row, c_saved, c):
+        _restore_rows_plain(live[0] != 0, add_row, c_saved, c, Tp, row0)
+        return
+    c_rows, Mp = c.shape
+    kmax = add_row.shape[0]
+    i32 = torch.int32
+    with torch.cuda.device(c.device):
+        err = library("stream_commit").stream_restore_launch(
+            kernel_arg(live, "live", i32, (1,)),
+            kernel_arg(add_row, "add_row", i32, (kmax,)),
+            kernel_arg(c_saved, "c_saved", i32, (kmax, Mp)),
+            kernel_arg(c, "c", i32, (c_rows, Mp)),
+            kmax, Tp, Mp, row0, c_rows, stream_ptr(c),
         )
     check_launch(KERNEL, err)
     KERNEL.launches += 1

@@ -839,6 +839,12 @@ class SchedulerMetrics:
 
     # ---- device telemetry ----------------------------------------------
 
+    def record_predicted_bytes(self, nbytes: int) -> None:
+        """The dense round's per-device table estimate (the
+        check_table_budget math; a host int the solver already
+        computed)."""
+        self.device_hbm.set(nbytes, kind="predicted")
+
     def record_live_hbm(self, device=None) -> int | None:
         """Read the caching allocator's own stats for ``device`` (the
         solver's device) and publish bytes-in-use (a CPU device

@@ -25,6 +25,16 @@ The dense passes are hand-written CUDA kernels (``kernels/``): K1
 row-min, K3 ``bid_pass`` is the bid window's pass. On the CPU the same
 wrappers run their plain twins.
 
+Row-block mesh. ``DenseInstance.c`` is either one [Tp, Mp] tensor or a
+``RowBlocks`` table, whose row block k lives on device k of a
+``parallel.TaskMesh`` (the reference lays the same table out over a
+``jax.sharding.Mesh``). Every reader of the table goes through the
+``table_*`` helpers below: K2, K3 and the gathers run once per shard on
+the shard's rows and their [Tp] results are put together on the mesh's
+first device, where the seat layout, the [Tp] carry and the [Mp] prices
+stay; the certificate's table pass is K8 ``gap_rows``, once per shard.
+A plain tensor takes exactly the code path it took before the mesh.
+
 Control flow. The reference runs the whole loop as one
 ``lax.while_loop`` on the device. Here the loop runs on the host and
 reads its branch flags from the device, through a ``SyncCounter``:
@@ -54,6 +64,7 @@ from poseidon_tpu_torch.graph.network import pad_bucket
 from poseidon_tpu_torch.guards import SyncCounter
 from poseidon_tpu_torch.kernels.bid_pass import bid_pass
 from poseidon_tpu_torch.kernels.densify import densify
+from poseidon_tpu_torch.kernels.gap_rows import gap_rows
 from poseidon_tpu_torch.kernels.row_options import row_options
 from poseidon_tpu_torch.ops.transport import (
     CH_CLUSTER,
@@ -148,49 +159,64 @@ def check_table_budget(
     stream_ints: int = 0,
 ) -> None:
     """Raise DenseMemoryTooLarge if ``n_variants`` dense [Tp, Mp] i32
-    tables exceed the budget (POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB).
+    tables exceed the PER-DEVICE budget
+    (POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB).
 
     ``side_ints_per_variant`` counts per-variant i32 arrays beyond the
     main table (the what-if batch's perturbed u/w/dgen, the service
     members' channel tables); ``extra_ints`` counts one-off i32
-    scratch. ``stream_windows`` / ``stream_ints`` charge the stream
-    lane's event buffer: K windows x ``stream_ints`` i32, doubled for
-    the staging twin. An overflow names the largest batch
-    (``n_variants``) or ``--stream_windows`` that would fit. The
-    reference's other escapes (a task-sharded mesh, machine-class
-    aggregation) are not ported: ``mesh_width > 1`` raises.
+    scratch. ``mesh_width`` is the task-axis shard count of a row-block
+    mesh (``parallel/``): each device holds Tp/width rows of the table.
+    ``stream_windows`` / ``stream_ints`` charge the stream lane's event
+    buffer: K windows x ``stream_ints`` i32, doubled for the staging
+    twin.
+
+    An overflow names what would fit: the largest batch
+    (``n_variants``) or ``--stream_windows`` of this shape, the smallest
+    ``--mesh_width``, and ``--aggregate_classes`` / ``--topk_prefs``,
+    which shrink the machine axis to its equivalence classes.
     """
-    if mesh_width > 1:
-        raise NotImplementedError(
-            "mesh_width > 1 (the task-sharded mesh) is not ported to "
-            "poseidon_tpu_torch yet (ROADMAP.md Queue 1 item 6)"
-        )
     stream_bytes = 2 * max(stream_windows, 0) * max(stream_ints, 0) * 4
     need = _budget_need(
-        Tp, Mp, n_variants, side_ints_per_variant, extra_ints, 1,
+        Tp, Mp, n_variants, side_ints_per_variant, extra_ints, mesh_width,
     ) + stream_bytes
     if need <= DENSE_TABLE_BUDGET_BYTES:
         return
-    hint = ""
+    batch_hint = ""
     if stream_windows > 0 and stream_ints > 0:
         fit_k = max_stream_windows_for(
             Tp, Mp, stream_ints, side_ints_per_variant, extra_ints,
+            mesh_width,
         )
         if fit_k >= 1:
-            hint = (
-                f"; the largest stream batch of this shape that fits "
-                f"is --stream_windows={fit_k}"
+            batch_hint = (
+                f"the largest stream batch of this shape that fits "
+                f"is --stream_windows={fit_k}; "
             )
     if n_variants > 1:
         fit_b = max_variants_for(
-            Tp, Mp, side_ints_per_variant, extra_ints,
+            Tp, Mp, side_ints_per_variant, extra_ints, mesh_width
         )
         if fit_b >= 1:
-            hint = (
-                f"; the largest batch of this shape that fits is "
+            batch_hint = (
+                f"the largest batch of this shape that fits is "
                 f"n_variants <= {fit_b} (shrink the what-if batch / "
-                f"service bucket width, --serve_max_batch)"
+                f"service bucket width, --serve_max_batch); "
             )
+    fit_w = max(mesh_width, 1)
+    while fit_w < 1024 and _budget_need(
+        Tp, Mp, n_variants, side_ints_per_variant, extra_ints, fit_w
+    ) > DENSE_TABLE_BUDGET_BYTES:
+        fit_w *= 2
+    if _budget_need(
+        Tp, Mp, n_variants, side_ints_per_variant, extra_ints, fit_w
+    ) <= DENSE_TABLE_BUDGET_BYTES:
+        mesh_hint = (
+            f"a task-sharded mesh of width >= {fit_w} would fit "
+            f"(--mesh_width={fit_w})"
+        )
+    else:
+        mesh_hint = "no practical mesh width fits this shape alone"
     stream_note = (
         f", {stream_bytes >> 20} MiB double-buffered stream event "
         f"buffer ({stream_windows} windows)"
@@ -199,10 +225,15 @@ def check_table_budget(
     raise DenseMemoryTooLarge(
         f"dense cost table {n_variants} x [{Tp}, {Mp}] i32 "
         f"(+ {side_ints_per_variant} side ints/variant, "
-        f"{extra_ints} scratch ints{stream_note}) "
-        f"= {need >> 20} MiB exceeds the "
+        f"{extra_ints} scratch ints, mesh width {max(mesh_width, 1)}"
+        f"{stream_note}) "
+        f"= {need >> 20} MiB/device exceeds the "
         f"{DENSE_TABLE_BUDGET_BYTES >> 20} MiB budget "
-        f"(POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB){hint}"
+        f"(POSEIDON_TPU_TORCH_DENSE_TABLE_BUDGET_MB); {batch_hint}"
+        f"{mesh_hint}; --aggregate_classes collapses the machine axis "
+        f"to its equivalence classes (add --topk_prefs=K to cap "
+        f"preference columns), typically orders of magnitude fewer "
+        f"columns"
     )
 
 
@@ -210,7 +241,8 @@ def check_table_budget(
 class DenseInstance:
     """Scaled, padded dense transportation instance (tensors on one device)."""
 
-    c: torch.Tensor           # i32[Tp, Mp] cost of machine m for task t (INF)
+    c: object                 # i32[Tp, Mp] cost of machine m for task t
+                              # (INF): a tensor, or RowBlocks on a mesh
     u: torch.Tensor           # i32[Tp] unsched route cost (0 on padding)
     w: torch.Tensor           # i32[Tp] generic (cluster) channel task cost
     dgen: torch.Tensor        # i32[Mp] generic channel machine route cost
@@ -341,6 +373,133 @@ def build_dense_instance(inst: TransportInstance, device) -> DenseInstance:
 # the solver
 # ---------------------------------------------------------------------------
 
+class RowBlocks:
+    """The dense [Tp, Mp] table as row blocks over a ``TaskMesh``:
+    ``blocks[k]`` holds rows ``bounds[k]`` on ``mesh.devices[k]``. It
+    answers ``shape`` and ``device`` (the mesh's first device) like the
+    tensor it stands for."""
+
+    def __init__(self, blocks, mesh):
+        self.blocks = list(blocks)
+        self.mesh = mesh
+        Tp = sum(int(b.shape[0]) for b in self.blocks)
+        self.shape = torch.Size((Tp, int(self.blocks[0].shape[1])))
+        self.bounds = mesh.rows(Tp)
+        self.device = mesh.first
+
+    def shards(self):
+        """(block, r0, r1, device) of every shard, in row order."""
+        return [
+            (b, r0, r1, d)
+            for b, (r0, r1), d in zip(self.blocks, self.bounds,
+                                      self.mesh.devices)
+        ]
+
+
+def to_dev(x: torch.Tensor, device) -> torch.Tensor:
+    """``x`` on ``device`` (no copy when it is there already)."""
+    return x if x.device == device else x.to(device)
+
+
+def rows_of(x: torch.Tensor, r0: int, r1: int, device) -> torch.Tensor:
+    """Rows [r0, r1) of a task-major tensor on ``device``. A kernel reads
+    16-byte vectors, so a slice that starts off that alignment on the
+    card is copied."""
+    v = x[r0:r1]
+    if v.device != device:
+        return v.to(device)
+    if device.type == "cuda" and v.data_ptr() % 16:
+        return v.clone()
+    return v
+
+
+def _cat_first(parts, device) -> torch.Tensor:
+    if len(parts) == 1:
+        return to_dev(parts[0], device)
+    return torch.cat([to_dev(x, device) for x in parts])
+
+
+def table_row_options(c, p):
+    """K2 over the table: (b1v, m1, v2) per row, on the first device."""
+    if not isinstance(c, RowBlocks):
+        return row_options(c, p)
+    outs = [row_options(b, to_dev(p, d)) for b, _r0, _r1, d in c.shards()]
+    return tuple(_cat_first([o[i] for o in outs], c.device)
+                 for i in range(3))
+
+
+def table_gather(c, col: torch.Tensor) -> torch.Tensor:
+    """``c[t, col[t]]`` for every row t (``col`` int64 [Tp], in range)."""
+    if not isinstance(c, RowBlocks):
+        return c.gather(1, col[:, None])[:, 0]
+    return _cat_first([
+        b.gather(1, rows_of(col, r0, r1, d)[:, None])[:, 0]
+        for b, r0, r1, d in c.shards()
+    ], c.device)
+
+
+def table_bid_pass(c, p, u, btask, bvalid, eps: int):
+    """K3 over the bid window. Under a mesh each shard takes the window
+    entries whose task it owns (the others masked invalid, btask made
+    relative to the shard) and the owners' outputs are merged."""
+    if not isinstance(c, RowBlocks):
+        return bid_pass(c, p, u, btask, bvalid, eps)
+    out = None
+    for b, r0, r1, d in c.shards():
+        own = (btask >= r0) & (btask < r1)
+        res = bid_pass(
+            b, to_dev(p, d), rows_of(u, r0, r1, d),
+            to_dev(torch.where(own, btask - r0, 0), d),
+            to_dev(bvalid & own, d), eps, task0=r0,
+        )
+        res = [to_dev(x, c.device) for x in res]
+        out = res if out is None else [
+            torch.where(own, x, y) for x, y in zip(res, out)
+        ]
+    return tuple(out)
+
+
+def table_top_willingness(c, alt1, alt2, m1, task_valid, smax: int):
+    """``top_k(will.T, smax)`` values of the deflate step, will[t, m] =
+    clamp(alt[t, m] - c[t, m]) with alt the task's best alternative to
+    machine m, -INF on invalid rows. Under a mesh each shard keeps its
+    own top ``min(smax, rows)`` per machine and one more ``topk`` over
+    the candidates picks the smax largest: only values are read, so the
+    result is the same."""
+    def will_of(cb, a1, a2, mm, tv):
+        mids = torch.arange(cb.shape[1], dtype=I32, device=cb.device)
+        alt = torch.where(mids[None, :] == mm[:, None], a2[:, None],
+                          a1[:, None])
+        will = torch.clamp(alt - cb, -INF, INF)
+        return torch.where(tv[:, None], will, -INF)
+
+    if not isinstance(c, RowBlocks):
+        will = will_of(c, alt1, alt2, m1, task_valid)
+        return torch.topk(will.T.contiguous(), smax, dim=1).values
+    cands = []
+    for b, r0, r1, d in c.shards():
+        will = will_of(b, *(rows_of(x, r0, r1, d)
+                            for x in (alt1, alt2, m1, task_valid)))
+        cands.append(to_dev(torch.topk(
+            will.T.contiguous(), min(smax, r1 - r0), dim=1).values, c.device))
+    if len(cands) == 1:
+        return cands[0]
+    return torch.topk(torch.cat(cands, dim=1), smax, dim=1).values
+
+
+def table_gap_sums(c, u, task_valid, s, lam, asg) -> torch.Tensor:
+    """The certificate's table pass under a mesh: K8 on every shard,
+    int64 (primal, b1 sum) summed on the first device."""
+    parts = [
+        to_dev(gap_rows(b, *(rows_of(x, r0, r1, d)
+                             for x in (u, task_valid)),
+                        to_dev(s, d), to_dev(lam, d),
+                        rows_of(asg, r0, r1, d)), c.device)
+        for b, r0, r1, d in c.shards()
+    ]
+    return torch.stack(parts).sum(dim=0)
+
+
 def _lexsort(*keys: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """Stable lexicographic sort of equal-length 1-D keys, first key most
     significant (``jax.lax.sort`` with ``num_keys=len(keys)``): stable
@@ -356,8 +515,9 @@ def _i32(x: int, device) -> torch.Tensor:
 
 
 def _task_options(dev: DenseInstance, p, with_values: bool = False):
-    """Per-task best/second-best machine values at prices p (K2)."""
-    b1v, m1, v2 = row_options(dev.c, p)
+    """Per-task best/second-best machine values at prices p (K2); with
+    ``with_values`` also the [Tp, Mp] values (a plain table only)."""
+    b1v, m1, v2 = table_row_options(dev.c, p)
     if with_values:
         return b1v, m1, v2, torch.clamp(dev.c + p[None, :], max=INF)
     return b1v, m1, v2
@@ -479,7 +639,6 @@ def _solve(
     tids = torch.arange(Tp, dtype=I32, device=device)
     pos = tids
     seg_ids = torch.arange(NSEG + 1, dtype=I32, device=device)
-    mids = torch.arange(Mp, dtype=I32, device=device)
     s_pos = s > 0
 
     def to_sorted(asg, lvl):
@@ -548,7 +707,9 @@ def _solve(
         bpos = torch.sort(torch.where(waiting, pos, Tp)).values[:B]
         bvalid = bpos < Tp
         btask = st[torch.clamp(bpos, max=Tp - 1).long()]
-        m1, _b1v, _v2, take_uns, beta = bid_pass(c, p, u, btask, bvalid, eps)
+        m1, _b1v, _v2, take_uns, beta = table_bid_pass(
+            c, p, u, btask, bvalid, eps
+        )
         bids = bvalid & ~take_uns
         # new keys per position: holders keep their seats, everyone
         # else parks in WAIT unless this window gave them a bid
@@ -582,7 +743,7 @@ def _solve(
         cur = torch.where(
             on_machine,
             torch.clamp(
-                c.gather(1, asg_safe[:, None])[:, 0].to(I64)
+                table_gather(c, asg_safe).to(I64)
                 + torch.where(pa >= INF, 0, pa).to(I64),
                 max=INF,
             ).to(I32),
@@ -596,12 +757,7 @@ def _solve(
         b1v, m1, v2 = _task_options(dev, p)
         alt1 = torch.minimum(b1v, u)
         alt2 = torch.minimum(v2, u)
-        alt = torch.where(
-            mids[None, :] == m1[:, None], alt2[:, None], alt1[:, None]
-        )
-        will = torch.clamp(alt - c, -INF, INF)
-        will = torch.where(task_valid[:, None], will, -INF)
-        topw = torch.topk(will.T.contiguous(), smax, dim=1).values  # [Mp, smax]
+        topw = table_top_willingness(c, alt1, alt2, m1, task_valid, smax)
         sidx = torch.clamp(s - 1, 0, smax - 1)
         clear = topw.gather(1, sidx[:, None].long())[:, 0]
         return torch.minimum(
@@ -706,18 +862,22 @@ def _solve(
     # lam = 0 on every non-full machine (complementary slackness)
     lam = ask_from_layout(slvl, bnd_f, occ_f, full_f, floor)
     lam = torch.where(full_f & s_pos, lam, 0)
-    b1v, _, _ = _task_options(dev, torch.where(s_pos, lam, INF))
-    b1 = torch.minimum(b1v, u)
-    on_machine = (asg >= 0) & (asg < Mp)
-    c_asg = c.gather(1, torch.clamp(asg, 0, Mp - 1).long()[:, None])[:, 0]
-    per_task = torch.where(
-        on_machine, c_asg, torch.where(asg == UNS, u, INF)
-    )
-    per_task = torch.where(task_valid, per_task, 0)
-    primal = per_task.to(I64).sum()
-    dual = torch.where(task_valid, b1, 0).to(I64).sum() - (
-        s.to(I64) * lam.to(I64)
-    ).sum()
+    price_mass = (s.to(I64) * lam.to(I64)).sum()
+    if isinstance(c, RowBlocks):
+        # the table pass per shard (K8), summed in int64
+        primal, b1_sum = table_gap_sums(c, u, task_valid, s, lam, asg)
+    else:
+        b1v, _, _ = _task_options(dev, torch.where(s_pos, lam, INF))
+        b1 = torch.minimum(b1v, u)
+        on_machine = (asg >= 0) & (asg < Mp)
+        c_asg = table_gather(c, torch.clamp(asg, 0, Mp - 1).long())
+        per_task = torch.where(
+            on_machine, c_asg, torch.where(asg == UNS, u, INF)
+        )
+        per_task = torch.where(task_valid, per_task, 0)
+        primal = per_task.to(I64).sum()
+        b1_sum = torch.where(task_valid, b1, 0).to(I64).sum()
+    dual = b1_sum - price_mass
     gap = primal - dual
     converged = done & (gap >= 0) & (gap < dev.scale)
     return asg, lvl, floor, gap, converged, rounds, phases, hist

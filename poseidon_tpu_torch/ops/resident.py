@@ -10,9 +10,18 @@ stream lane runs K such windows back to back with one fetch for all of
 them (``stream_window`` / ``stream_flush`` / ``stream_finish``; K7
 commits each window on the device). This restates
 ``poseidon_tpu/ops/resident.py`` (the round half, the express and
-stream lanes and the service lane's per-tenant warm pool; no
-aggregation, no mesh) on PyTorch tensors, with identical outputs bit
-for bit.
+stream lanes, the service lane's per-tenant warm pool and the scale
+lane) on PyTorch tensors, with identical outputs bit for bit.
+
+The scale lane. ``topk_prefs`` caps each task's preference columns,
+``aggregate_classes`` collapses the machine axis to its equivalence
+classes (``graph/aggregate.py``; the fetched class assignment expands
+back to machines in ``finish_round``), and ``mesh_width`` lays the
+dense table out as row blocks over a task-axis mesh (``parallel/``):
+K1 builds each shard's rows, K2/K3/K4 and the gathers run per shard,
+K7 undoes a dead stream window's rows in the shard that owns them, and
+the certificate's table pass is K8 per shard. Width 0 is the plain
+layout; width 1 is a one-shard mesh with the same results.
 
 Host syncs. The reference's round is one compiled program with one host
 sync. Here the auction's loop runs on the host and reads a small flag
@@ -42,17 +51,27 @@ import time
 import numpy as np
 import torch
 
+from poseidon_tpu_torch.graph.aggregate import (
+    aggregate_topology,
+    expand_assignment,
+    plan_from_signatures,
+    prune_topology_prefs,
+)
 from poseidon_tpu_torch.graph.builder import ArcKind, GraphMeta
 from poseidon_tpu_torch.graph.network import FlowNetwork, pad_bucket
 from poseidon_tpu_torch.guards import FetchTimeout, SyncCounter
 from poseidon_tpu_torch.kernels.express_patch import express_patch
 from poseidon_tpu_torch.kernels.express_rows import express_rows
-from poseidon_tpu_torch.kernels.row_options import row_options
-from poseidon_tpu_torch.kernels.stream_commit import log_width, stream_commit
+from poseidon_tpu_torch.kernels.stream_commit import (
+    log_width,
+    stream_commit,
+    stream_restore,
+)
 from poseidon_tpu_torch.models.costs import (
     CostInputs,
     build_cost_inputs_host,
     get_cost_model,
+    resolve_cost_model_name,
 )
 from poseidon_tpu_torch.ops.dense_auction import (
     I32,
@@ -62,11 +81,17 @@ from poseidon_tpu_torch.ops.dense_auction import (
     DenseInstance,
     DenseMemoryTooLarge,
     DenseState,
+    RowBlocks,
+    _budget_need,
     _densify,
     _solve,
     check_table_budget,
     cold_start,
     default_fuse,
+    rows_of,
+    table_gather,
+    table_row_options,
+    to_dev,
 )
 from poseidon_tpu_torch.ops.transport import (
     CH_CLUSTER,
@@ -77,6 +102,7 @@ from poseidon_tpu_torch.ops.transport import (
     extract_topology,
     instance_from_topology,
 )
+from poseidon_tpu_torch.parallel import make_mesh
 from poseidon_tpu_torch.solver import is_small_instance
 
 log = logging.getLogger(__name__)
@@ -180,12 +206,15 @@ def pad_topology(
 
 
 def _redensify(dt: DenseTopology, cost: torch.Tensor, n_prefs: int,
-               smax: int):
+               smax: int, mesh=None):
     """Gather the priced arc table into a scaled DenseInstance.
 
     Returns (DenseInstance, domain_ok, pc_scaled, ra_scaled). The domain
     check (non-negative costs, 2*cmax*(T+1) < MAX_SCALED_COST) is a
-    device boolean read with the result.
+    device boolean read with the result. With a ``mesh`` the table is
+    ``RowBlocks``: K1 runs once per shard over its rows of the
+    task-major fields; the [Tp] and [Mp] vectors stay on the mesh's
+    first device.
     """
     Tp = dt.arc_unsched.shape[0]
     device = cost.device
@@ -229,10 +258,25 @@ def _redensify(dt: DenseTopology, cost: torch.Tensor, n_prefs: int,
     task_valid = torch.arange(Tp, device=device) < dt.n_tasks
     u_s = torch.where(task_valid, u_s, 0)
 
-    c = _densify(
-        w_s, d_s, ra_s, dt.rack_of, dt.slots, pc_s,
-        dt.pref_machine, dt.pref_rack, n_prefs=n_prefs,
-    )
+    if mesh is None:
+        c = _densify(
+            w_s, d_s, ra_s, dt.rack_of, dt.slots, pc_s,
+            dt.pref_machine, dt.pref_rack, n_prefs=n_prefs,
+        )
+    else:
+        # the task-major operands by rows (the pref fields are in
+        # parallel.RESIDENT_TASK_FIELDS), the machine vectors whole
+        blocks = [
+            _densify(
+                rows_of(w_s, r0, r1, d), to_dev(d_s, d), to_dev(ra_s, d),
+                to_dev(dt.rack_of, d), to_dev(dt.slots, d),
+                rows_of(pc_s, r0, r1, d),
+                rows_of(dt.pref_machine, r0, r1, d),
+                rows_of(dt.pref_rack, r0, r1, d), n_prefs=n_prefs,
+            )
+            for (r0, r1), d in zip(mesh.rows(Tp), mesh.devices)
+        ]
+        c = RowBlocks(blocks, mesh)
     dev = DenseInstance(
         c=c,
         u=u_s,
@@ -268,7 +312,7 @@ def _finalize(dev: DenseInstance, dt: DenseTopology, pc_s, ra_s, asg):
         better = val < best
         best = torch.where(better, val, best)
         ch = torch.where(better, CH_PREF + k, ch)
-    c_asg = dev.c.gather(1, m[:, None])[:, 0]
+    c_asg = table_gather(dev.c, m)
     per = torch.where(dev.task_valid, torch.where(on, c_asg, dev.u), 0)
     return ch, per.to(I64).sum()
 
@@ -285,9 +329,9 @@ def _decision_stats(dev: DenseInstance, asg):
     Tp, Mp = dev.c.shape
     on = (asg >= 0) & (asg < Mp) & dev.task_valid
     m = torch.clamp(asg, 0, Mp - 1).long()
-    c_asg = dev.c.gather(1, m[:, None])[:, 0]
+    c_asg = table_gather(dev.c, m)
     chosen = torch.where(on, c_asg, dev.u)
-    b1v, m1, v2 = row_options(
+    b1v, m1, v2 = table_row_options(
         dev.c, torch.zeros(Mp, dtype=I32, device=dev.c.device)
     )
     alt_m = torch.where(on & (m1 == asg), v2, b1v)
@@ -371,6 +415,40 @@ def _scatter_drop(base, idx, vals):
     ext = torch.cat([base, base.new_zeros(1)])
     ext[i] = vals
     return ext[:n]
+
+
+def _write_arrival_rows(c, w_s, pc_s, add_row, add_pm, add_pr, dgen,
+                        ra_s, rack_of, s):
+    """K4: the arrival rows into the table, in place. Under a mesh each
+    shard writes the rows it owns (the others' lanes masked to -1)."""
+    if not isinstance(c, RowBlocks):
+        return express_rows(c, w_s, pc_s, add_row, add_pm, add_pr, dgen,
+                            ra_s, rack_of, s)
+    for b, r0, r1, d in c.shards():
+        own = (add_row >= r0) & (add_row < r1)
+        express_rows(
+            b, *(to_dev(x, d) for x in (
+                w_s, pc_s, torch.where(own, add_row - r0, -1), add_pm,
+                add_pr, dgen, ra_s, rack_of, s)),
+        )
+    return c
+
+
+def _saved_rows(c, add_row):
+    """The table rows K4 is about to write (row 0 for a -1 lane), on the
+    first device, for a dead stream window to put back."""
+    Tp = c.shape[0]
+    idx = torch.clamp(add_row, 0, Tp - 1)
+    if not isinstance(c, RowBlocks):
+        return c.index_select(0, idx.long())
+    saved = None
+    for b, r0, r1, d in c.shards():
+        rows = to_dev(b.index_select(0, to_dev(
+            torch.clamp(idx - r0, 0, r1 - r0 - 1), d).long()), c.device)
+        own = (idx >= r0) & (idx < r1)
+        saved = rows if saved is None else torch.where(
+            own[:, None], rows, saved)
+    return saved
 
 
 def _express_step(
@@ -472,8 +550,8 @@ def _express_step(
     ra_s = sc(ra_u)
 
     # ---- build + scatter the arrival rows (K4, in place) ----
-    c2 = express_rows(dev.c, w_s, pc_s, add_row, add_pm, add_pr,
-                      dev.dgen, ra_s, dt.rack_of, dev.s)
+    c2 = _write_arrival_rows(dev.c, w_s, pc_s, add_row, add_pm, add_pr,
+                             dev.dgen, ra_s, dt.rack_of, dev.s)
     u2 = _scatter_drop(dev.u, add_row, u_s)
     w2 = _scatter_drop(dev.w, add_row, w_s)
     valid2 = _scatter_drop(
@@ -503,7 +581,7 @@ def _express_step(
 
     # exact objective of the active rows (the express cost, scaled)
     on_m = (asg_f >= 0) & (asg_f < Mp)
-    c_asg = c2.gather(1, torch.clamp(asg_f, 0, Mp - 1).long()[:, None])[:, 0]
+    c_asg = table_gather(c2, torch.clamp(asg_f, 0, Mp - 1).long())
     per = torch.where(
         valid2,
         torch.where(on_m, c_asg, torch.where(asg_f == Mp, u2, INF)),
@@ -540,7 +618,8 @@ def _stream_chain(
     Each window replays what the synced lane does per window: the
     window's retire/removal/slot patch (K5, on copies of the carry),
     then ``_express_step`` (pricing, K4's arrival rows, the eps=1
-    repair, the compaction), then K7 ``stream_commit``: the certificate
+    repair, the compaction), then K7 ``stream_commit`` (and, under a
+    mesh, K7's restore in every other shard): the certificate
     latch ``live`` (an int32[1] on the device), the in-device auto-retire
     of the window's placements, the latched select of the carry, the
     undo of K4's rows in a dead window, and the masked log row. A dead
@@ -572,7 +651,7 @@ def _stream_chain(
             scale=dev.scale, cmax=dev.cmax, smax=smax,
         )
         # the rows K4 is about to write, for a dead window to put back
-        c_saved = c.index_select(0, torch.clamp(add_row, 0, Tp - 1).long())
+        c_saved = _saved_rows(c, add_row)
         (dev2, asg_f, lvl_f, floor_f, _gap, conv, rounds, _phases,
          rows_out, asg_out, n_changes, domain_ok, primal, _n_active,
          report) = _express_step(
@@ -582,12 +661,19 @@ def _stream_chain(
             max_rounds=max_rounds, smax=smax, change_cap=change_cap,
             syncs=syncs,
         )
+        shards = (c.shards() if isinstance(c, RowBlocks)
+                  else [(c, 0, Tp, device)])
         stream_commit(
             live, conv, domain_ok, n_changes, change_cap, rows_out,
             asg_out, primal, report, asg_f, lvl_f, floor_f, dev2.u, dev2.w,
             dev2.task_valid, dev2.s, add_row, c_saved,
-            u, w, valid, asg, lvl, s, floor, c, log[k],
+            u, w, valid, asg, lvl, s, floor, shards[0][0], log[k],
         )
+        # under a mesh the other shards undo their own rows of a dead
+        # window, reading the verdict K7 just wrote to ``live``
+        for b, r0, _r1, d in shards[1:]:
+            stream_restore(to_dev(live, d), to_dev(add_row, d),
+                           to_dev(c_saved, d), b, Tp, r0)
         rounds_all.append(rounds)
     return (c, u, w, s, valid, asg, lvl, floor, live), log, rounds_all
 
@@ -646,17 +732,19 @@ def _resident_chain(
     max_rounds: int,
     warm_start: bool,
     syncs: SyncCounter | None = None,
+    mesh=None,
 ):
     """The whole resident round on the device: cost model → densify →
     auction → channel/objective finalize → decision stats. When
-    ``warm_start`` is False the warm_* arguments are ignored.
+    ``warm_start`` is False the warm_* arguments are ignored. ``mesh``
+    lays the table out as row blocks (``_redensify``).
 
     Returns the reference's 14-tuple: (asg, lvl, floor, gap, converged,
     rounds, phases, ch, primal, domain_ok, chosen, alt, cost, dev), with
     ``rounds``/``phases`` as Python ints."""
     cost = model_fn(inputs_dev)
     dev, domain_ok, pc_s, ra_s = _redensify(
-        dt, cost, n_prefs=n_prefs, smax=smax
+        dt, cost, n_prefs=n_prefs, smax=smax, mesh=mesh
     )
     if warm_start:
         asg, lvl, floor, gap, converged, rounds, phases, _ = _solve(
@@ -766,6 +854,10 @@ class InflightSolve:
     # host machine-side cost inputs of the round, kept for the express
     # lane's mini pricing
     machine_kwargs: dict | None = None
+    # the scale lane: the machine-class plan the solve ran over (None =
+    # all-pairs) and the base topology's real machine slots
+    agg_plan: object = None
+    base_slots: object = None
     # set by finish_round on first join; guards double-finish
     consumed: bool = False
 
@@ -847,6 +939,7 @@ class _ExpressContext:
     cost_dev: object            # device priced arc table (round prices)
     meta: object                # GraphMeta of the round's build
     topo: object                # base TransportTopology
+    agg_plan: object            # AggregatePlan | None
     assignment: np.ndarray      # round's final machine assignment
     machine_kwargs: dict        # host machine-side cost inputs (stale
                                 # by design: "from the existing prices")
@@ -864,6 +957,14 @@ class _ExpressContext:
     free_rows: list | None = None
     midx: dict | None = None
     rack_idx: dict | None = None
+    # aggregation: machine -> column, members in column order, column
+    # bounds into that order, members per column, free seats per real
+    # machine (express placements take them, completions restore them)
+    col_of: np.ndarray | None = None
+    col_bounds: np.ndarray | None = None
+    col_order: np.ndarray | None = None
+    members_per_col: np.ndarray | None = None
+    member_slots_left: np.ndarray | None = None
     # rebalancing mode: running rows frozen out of the express auction
     # (their seats become used capacity), applied with the first batch
     pending_freeze: tuple | None = None
@@ -1019,9 +1120,13 @@ class ResidentSolver:
     ``stream_windows`` K > 1 runs K such windows per result fetch
     (``stream_window`` / ``stream_flush`` / ``stream_finish``).
 
-    Machine aggregation, preference pruning and the device mesh are not
-    part of this port yet: asking for any of them raises
-    ``NotImplementedError``.
+    The scale lane: ``topk_prefs`` caps each task's preference columns,
+    ``aggregate_classes`` solves over machine equivalence classes (and
+    refuses the ``random`` model, which prices by machine index), and
+    ``mesh_width`` lays the table out over a task-axis mesh of that
+    width: the first ``mesh_width`` CUDA devices, ``[device] *
+    mesh_width`` on the CPU, or the list ``mesh_devices`` (which may
+    repeat a device). Width 0 is the plain layout.
     """
 
     # runner-up computation on the oracle path is O(T·M) host work;
@@ -1041,23 +1146,37 @@ class ResidentSolver:
         mesh_width: int = 0,
         aggregate_classes: bool = False,
         topk_prefs: int = 0,
+        mesh_devices=None,
         express_lane: bool = False,
         express_max_batch: int = 16,
         express_change_cap: int = 256,
         stream_windows: int = 0,
         metrics=None,
     ):
-        later = {
-            "mesh_width": mesh_width, "aggregate_classes": aggregate_classes,
-            "topk_prefs": topk_prefs,
-        }
-        asked = sorted(k for k, v in later.items() if v)
-        if asked:
-            raise NotImplementedError(
-                f"ResidentSolver options {asked} are not ported to "
-                f"poseidon_tpu_torch yet (ROADMAP.md)"
-            )
         self.device = resolve_device(device)
+        # ---- the scale lane (graph/aggregate.py + parallel/) ----
+        # mesh_width 0 = the plain layout; >= 1 lays the table out over
+        # a task-axis mesh of that width (width 1 is a one-shard mesh,
+        # bit-identical to plain). aggregate_classes collapses the
+        # machine axis to its equivalence classes before densify;
+        # topk_prefs caps preference columns (0 = keep all).
+        self.aggregate_classes = aggregate_classes
+        self.topk_prefs = topk_prefs
+        self._mesh = None
+        if mesh_devices is not None:
+            self._mesh = make_mesh(mesh_width or None, devices=mesh_devices)
+        elif mesh_width and self.device.type == "cuda":
+            self._mesh = make_mesh(mesh_width)
+        elif mesh_width:
+            self._mesh = make_mesh(devices=[self.device] * mesh_width)
+        if self._mesh is not None and self._mesh.first != self.device:
+            raise ValueError(
+                f"the mesh's first device {self._mesh.first} is not the "
+                f"solver's device {self.device}"
+            )
+        self.mesh_width = self._mesh.width if self._mesh is not None else 0
+        # the machine classes the last round solved over (0 = all-pairs)
+        self.last_round_classes = 0
         self.alpha = alpha
         # observability (obs.SchedulerMetrics or None): the solver
         # reports its fetch count and warm/express-context liveness at
@@ -1241,6 +1360,8 @@ class ResidentSolver:
         if warm_seed is None:
             return
         asg, lvl, floor = (np.array(x, np.int32) for x in warm_seed[:3])
+        # under a mesh the warm state lives with the auction's control
+        # state, on the mesh's first device (the solver's device)
         self._warm = DenseState(
             asg=torch.from_numpy(asg).to(self.device),
             lvl=torch.from_numpy(lvl).to(self.device),
@@ -1306,6 +1427,7 @@ class ResidentSolver:
         self._fetches = SyncCounter()
         self._loop_syncs = SyncCounter()
         self._solves = 0
+        self.last_round_classes = 0
         timings: dict[str, float] = {}
         t0 = time.perf_counter()
         model_fn = get_cost_model(cost_model)
@@ -1341,6 +1463,16 @@ class ResidentSolver:
                 )
             except NotSchedulingShaped:
                 return degrade("not-scheduling-shaped", None)
+        # ---- the scale lane: prune prefs, aggregate the machine axis.
+        # The BASE topology (original machine axis, pruned pref columns)
+        # is what the outcome reports and the oracle degrade prices; the
+        # solve runs over the class columns when aggregation is on, and
+        # finish_round expands the fetched assignment back ----
+        if self.topk_prefs:
+            topo = prune_topology_prefs(
+                topo, meta.arc_weight, meta.arc_discount, self.topk_prefs,
+            )
+        base_topo = topo
         T = topo.n_tasks
         if (
             self.small_to_oracle
@@ -1348,7 +1480,24 @@ class ResidentSolver:
             and self._warm is None
             and (T == 0 or is_small_instance(T, topo.n_machines))
         ):
-            return degrade("small-instance", topo, price_on_cpu=True)
+            return degrade("small-instance", base_topo, price_on_cpu=True)
+        agg_plan = None
+        if self.aggregate_classes:
+            if resolve_cost_model_name(cost_model) == "random":
+                raise ValueError(
+                    "aggregate_classes requires a cost model that "
+                    "prices machines by their signature; 'random' "
+                    "hashes the machine index (see graph/aggregate.py)"
+                )
+            kw = cost_input_kwargs or {}
+            agg_plan = plan_from_signatures(
+                base_topo,
+                machine_load=kw.get("machine_load"),
+                machine_mem_free=kw.get("machine_mem_free"),
+                machine_used_slots=kw.get("machine_used_slots"),
+            )
+            topo = aggregate_topology(base_topo, agg_plan)
+            self.last_round_classes = agg_plan.n_cols
         self._p_floor = max(topo.max_prefs, self._p_floor)
         P = self._p_floor
         dt_host = pad_topology(
@@ -1364,7 +1513,8 @@ class ResidentSolver:
                 else 0
             )
             check_table_budget(
-                Tp, Mp, stream_windows=stream_k,
+                Tp, Mp, mesh_width=max(self.mesh_width, 1),
+                stream_windows=stream_k,
                 stream_ints=_stream_event_ints(
                     self.express_max_batch, P,
                     self._stream_pw_floor, self._mi_floor,
@@ -1387,7 +1537,13 @@ class ResidentSolver:
                 "resident round exceeds the dense memory budget (%s); "
                 "degrading to oracle", e,
             )
-            return degrade("memory-envelope", topo)
+            return degrade("memory-envelope", base_topo)
+        if self.metrics is not None:
+            # the budget guard's per-device estimate, beside the live
+            # bytes the daemon records (host arithmetic only)
+            self.metrics.record_predicted_bytes(_budget_need(
+                Tp, Mp, 1, 0, 0, max(self.mesh_width, 1)
+            ))
         self._t_floor = Tp
         self._m_floor = Mp
         # power-of-two smax bound, grow-only like the other floors
@@ -1412,10 +1568,11 @@ class ResidentSolver:
         dt = dt_host.to_device(self.device)
         timings["upload_ms"] = (time.perf_counter() - t0) * 1000
         inflight = InflightSolve(
-            arrays=arrays, meta=meta, topo=topo, dt=dt,
+            arrays=arrays, meta=meta, topo=base_topo, dt=dt,
             inputs_dev=inputs_dev, model_fn=model_fn, n_prefs=P,
             smax=smax, max_rounds=max_rounds, warm_used=warm is not None,
-            Tp=Tp, Mp=Mp, T=T, n_machines=topo.n_machines,
+            Tp=Tp, Mp=Mp, T=T, n_machines=base_topo.n_machines,
+            agg_plan=agg_plan, base_slots=base_topo.slots,
             timings=timings, t_dispatch=time.perf_counter(),
             machine_kwargs={
                 k: (cost_input_kwargs or {}).get(k)
@@ -1453,7 +1610,7 @@ class ResidentSolver:
             model_fn=inflight.model_fn, n_prefs=inflight.n_prefs,
             smax=inflight.smax, alpha=self.alpha,
             max_rounds=inflight.max_rounds, warm_start=warm is not None,
-            syncs=loop_syncs,
+            syncs=loop_syncs, mesh=self._mesh,
         )
         fetched = _fetch_result(fetches, asg, ch, chosen, alt, lvl, floor,
                                 conv, primal, dom_ok)
@@ -1541,9 +1698,22 @@ class ResidentSolver:
         task_margin = np.where(
             alt64 >= int(INF), MARGIN_UNKNOWN, alt64 // scale - task_cost,
         )
-        asg = np.where(
-            (asg >= 0) & (asg < Mp) & (asg < inflight.n_machines), asg, -1,
-        ).astype(np.int32)
+        plan = inflight.agg_plan
+        if plan is not None:
+            # the solve ran over class columns: expand the winning class
+            # assignment back to real machines (current placements kept,
+            # so deltas are genuine moves)
+            cols = np.where(
+                (asg >= 0) & (asg < plan.n_cols), asg, -1
+            ).astype(np.int32)
+            asg = expand_assignment(
+                plan, inflight.base_slots, inflight.meta.task_current, cols,
+            )
+        else:
+            asg = np.where(
+                (asg >= 0) & (asg < Mp) & (asg < inflight.n_machines),
+                asg, -1,
+            ).astype(np.int32)
         if self.express_lane:
             # keep this round's device instance warm for the express
             # lane (host maps are built lazily on first express use)
@@ -1553,6 +1723,7 @@ class ResidentSolver:
                 cost_dev=cost_dev,
                 meta=inflight.meta,
                 topo=topo,
+                agg_plan=inflight.agg_plan,
                 assignment=asg,
                 machine_kwargs=inflight.machine_kwargs or {},
                 model_fn=inflight.model_fn,
@@ -1591,6 +1762,24 @@ class ResidentSolver:
         ctx.free_rows = list(range(ctx.Tp - 1, ctx.T - 1, -1))
         ctx.midx = {n: i for i, n in enumerate(ctx.meta.machine_names)}
         ctx.rack_idx = {n: i for i, n in enumerate(ctx.meta.rack_names)}
+        plan = ctx.agg_plan
+        if plan is not None:
+            ctx.col_of = plan.col_of_machine
+            order = np.argsort(plan.col_of_machine, kind="stable")
+            ctx.col_order = order
+            ctx.col_bounds = np.searchsorted(
+                plan.col_of_machine[order], np.arange(plan.n_cols + 1),
+            )
+            ctx.members_per_col = np.bincount(
+                plan.col_of_machine, minlength=plan.n_cols
+            )
+            # free seats per REAL machine: the round's base free slots
+            # minus its placements (express placements take seats at
+            # report time; completions restore them)
+            left = np.asarray(ctx.topo.slots, np.int64).copy()
+            placed = ctx.assignment[ctx.assignment >= 0]
+            left -= np.bincount(placed, minlength=len(left))
+            ctx.member_slots_left = np.maximum(left, 0)
         # rebalancing mode: running rows are NOT express-movable (rebal
         # deltas stay round-only), so freeze them — deactivate the row,
         # turn the seat into used capacity at the machine the round
@@ -1606,8 +1795,9 @@ class ResidentSolver:
                     "running task preempted by the round; express "
                     "waits for the next context"
                 )
+            cols = ctx.col_of[tgt] if ctx.col_of is not None else tgt
             ctx.pending_freeze = (
-                run_rows.astype(np.int32), tgt.astype(np.int32),
+                run_rows.astype(np.int32), cols.astype(np.int32),
             )
             for i in run_rows.tolist():
                 u = ctx.row_uid.pop(i, None)
@@ -1631,15 +1821,28 @@ class ResidentSolver:
         return ctx.midx, ctx.rack_idx
 
     def _express_col(self, ctx: _ExpressContext, machine_idx: int) -> int:
-        """The solve column of a machine (the identity: machine-class
-        aggregation is not ported)."""
-        return machine_idx
+        """The solve column of a machine (its class under aggregation)."""
+        return (
+            int(ctx.col_of[machine_idx]) if ctx.col_of is not None
+            else machine_idx
+        )
 
     def _express_member(self, ctx: _ExpressContext, col: int) -> str:
-        """The machine name of a winning solve column."""
-        if col >= len(ctx.meta.machine_names):
-            raise ExpressDegrade(f"placement on padding col {col}")
-        return ctx.meta.machine_names[col]
+        """Expand a winning solve column to a real machine name (class
+        -> first member with a free seat, in canonical order: the
+        express analog of ``expand_assignment``'s fill pass)."""
+        if ctx.agg_plan is None:
+            if col >= len(ctx.meta.machine_names):
+                raise ExpressDegrade(f"placement on padding col {col}")
+            return ctx.meta.machine_names[col]
+        lo, hi = ctx.col_bounds[col], ctx.col_bounds[col + 1]
+        members = ctx.col_order[lo:hi]
+        avail = ctx.member_slots_left[members] > 0
+        if not avail.any():
+            raise ExpressDegrade(f"class {col} overfull on expansion")
+        m = int(members[int(np.argmax(avail))])
+        ctx.member_slots_left[m] -= 1
+        return ctx.meta.machine_names[m]
 
     def _express_mini_inputs(
         self, ctx: _ExpressContext, arrivals: list[ExpressArrival],
@@ -1794,6 +1997,10 @@ class ResidentSolver:
                 rows.append(-1)
                 cols.append(self._express_col(ctx, m))
                 deltas.append(d)
+                if ctx.member_slots_left is not None:
+                    ctx.member_slots_left[m] = max(
+                        ctx.member_slots_left[m] + d, 0
+                    )
             # ---- map arrivals to rows + solve-space pref targets ----
             add_row = np.full(kmax, -1, np.int32)
             add_pm = np.full((kmax, pk), -1, np.int32)
@@ -1817,7 +2024,15 @@ class ResidentSolver:
                 add_row[k] = r
                 for j, (m, rk, _w) in enumerate(a.prefs):
                     if m >= 0:
-                        add_pm[k, j] = self._express_col(ctx, m)
+                        col = self._express_col(ctx, m)
+                        if (ctx.members_per_col is not None
+                                and ctx.members_per_col[col] != 1):
+                            raise ExpressDegrade(
+                                f"{a.uid} prefers machine {m} inside "
+                                f"a non-singleton class (not pinned "
+                                f"at the last round)"
+                            )
+                        add_pm[k, j] = col
                     else:
                         add_pr[k, j] = rk
             mini_host = self._express_mini_inputs(ctx, arrivals, kmax, pk)
@@ -2061,6 +2276,10 @@ class ResidentSolver:
                 rows.append(-1)
                 cols.append(self._express_col(ctx, m))
                 deltas.append(d)
+                if ctx.member_slots_left is not None:
+                    ctx.member_slots_left[m] = max(
+                        ctx.member_slots_left[m] + d, 0
+                    )
             # ---- map arrivals to rows + solve-space pref targets ----
             add_row = np.full(kmax, -1, np.int32)
             add_pm = np.full((kmax, pk), -1, np.int32)
@@ -2085,7 +2304,15 @@ class ResidentSolver:
                 add_row[k] = r
                 for j, (m, rk, _w) in enumerate(a.prefs):
                     if m >= 0:
-                        add_pm[k, j] = self._express_col(ctx, m)
+                        col = self._express_col(ctx, m)
+                        if (ctx.members_per_col is not None
+                                and ctx.members_per_col[col] != 1):
+                            raise ExpressDegrade(
+                                f"{a.uid} prefers machine {m} inside "
+                                f"a non-singleton class (not pinned "
+                                f"at the last round)"
+                            )
+                        add_pm[k, j] = col
                     else:
                         add_pr[k, j] = rk
             mini_host = self._express_mini_inputs(ctx, arrivals, kmax, pk)

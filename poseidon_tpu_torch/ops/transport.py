@@ -410,6 +410,59 @@ def instance_from_topology(
     )
 
 
+def extract_instance(net, meta: GraphMeta) -> TransportInstance:
+    """Validate the builder taxonomy of a priced network and compact it
+    to transportation form (host arrays).
+
+    Raises NotSchedulingShaped if the arc table does not match the
+    builder's shape contract. The per-round production loop uses the
+    device-resident path in ops/resident.py instead.
+    """
+    if int(net.n_arcs) != int(meta.n_arcs) or int(net.n_nodes) != int(
+        meta.n_nodes
+    ):
+        raise NotSchedulingShaped(
+            f"network ({net.n_nodes} nodes / {net.n_arcs} arcs) does not "
+            f"match the builder metadata ({meta.n_nodes} / {meta.n_arcs})"
+        )
+    host = net.to_host()
+    topo = extract_topology(meta, host["src"], host["dst"], host["cap"])
+    return instance_from_topology(topo, host["cost"])
+
+
+def assignment_cost(
+    inst: TransportInstance, assignment: np.ndarray
+) -> int:
+    """Objective of a FIXED assignment over a transport instance: each
+    assigned task routes through its cheapest channel to its machine,
+    unassigned tasks pay their unsched route. Raises ValueError if some
+    assigned machine is unreachable for its task (no channel covers it).
+    """
+    asg = np.asarray(assignment, np.int64)
+    T = inst.n_tasks
+    if T == 0:
+        return 0
+    on = asg >= 0
+    m = np.clip(asg, 0, max(inst.n_machines - 1, 0))
+    best = np.where(on, inst.w + inst.d[m], INF)  # cluster channel
+    hit_m = inst.pref_machine == asg[:, None]
+    pc = np.where(hit_m, inst.pref_cost, INF)
+    hit_r = (inst.pref_rack >= 0) & (
+        inst.pref_rack == inst.rack_of[m][:, None]
+    )
+    pc = np.minimum(
+        pc, np.where(hit_r, inst.pref_cost + inst.ra[m][:, None], INF)
+    )
+    best = np.minimum(best, pc.min(axis=1, initial=INF))
+    if (best[on] >= INF).any():
+        bad = int(np.flatnonzero(on & (best >= INF))[0])
+        raise ValueError(
+            f"task {bad} cannot reach its assigned machine "
+            f"{int(asg[bad])} through any channel"
+        )
+    return int(np.where(on, best, inst.u).sum())
+
+
 @dataclasses.dataclass(frozen=True)
 class TransportResult:
     assignment: np.ndarray   # int32[T] machine index, -1 = unscheduled

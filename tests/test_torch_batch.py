@@ -237,5 +237,9 @@ def test_what_if_budget_overflow_raises(monkeypatch):
 
 
 def test_mesh_width_waits_for_its_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_da.check_table_budget(64, 16, mesh_width=2)
+    """The scale lane is ported: a mesh width divides the per-device
+    table estimate, as the reference's does."""
+    port_da.check_table_budget(64, 16, mesh_width=2)
+    for args in ((4096, 1024, 0, 2), (64, 16, 4 * 16, 8)):
+        assert (port_da.max_variants_for(*args[:3], mesh_width=args[3])
+                == ref_da.max_variants_for(*args[:3], mesh_width=args[3]))

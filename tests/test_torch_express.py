@@ -1,8 +1,8 @@
 """Differential tests: the port's express lane vs the reference's.
 
-The port of ``tests/test_express.py`` (all but the scale-lane
-composition, which waits for the port's scale lane, and the recompile
-budget, which is JAX's): the same clusters and watch-event batches go
+The port of ``tests/test_express.py`` (all but the recompile budget,
+which is JAX's; the scale-lane composition runs with the port's mesh
+on ``[cpu] * width``): the same clusters and watch-event batches go
 through ``poseidon_tpu``'s bridge and ``poseidon_tpu_torch``'s
 (``device="cpu"``) side by side, and every batch's placements, cost,
 repair rounds and the bridges' decision logs and round stats must be
@@ -407,6 +407,60 @@ class TestDifferential:
             return out
 
         both(script)
+
+
+class TestScaleComposition:
+    """Express composes with the scale lane (the reference's cases): the
+    same placements under aggregation and a mesh in both packages, and
+    the same as the plain lane. The port's mesh lies on ``[cpu] *
+    width``, the reference's on its 8 forced host devices."""
+
+    @pytest.mark.parametrize("opts", [
+        {"aggregate_classes": True},
+        {"mesh_width": 1},
+        {"mesh_width": 8},
+        {"mesh_width": 8, "aggregate_classes": True},
+    ])
+    def test_bit_identical_to_plain_lane(self, opts):
+        def drive(pkg, **kw):
+            bridge, cluster = make_bridge(pkg, n_machines=24, n_tasks=100,
+                                          seed=5, **kw)
+            pods = [arrival(pkg, f"xp-{k}", cluster, k) for k in range(4)]
+            r = bridge.express_batch([("ADDED", p) for p in pods])
+            assert r is not None, "express degraded"
+            return batch_record(r), list(bridge.decision_log)
+
+        def script(pkg):
+            return drive(pkg, **opts)
+
+        scaled = both(script)
+        assert scaled[0][:3] == drive(PORT)[0][:3]
+
+    def test_aggregated_expansion_respects_capacity(self):
+        """Arrivals through one class spill over its members; every
+        placement lands on a real machine with a free seat, equal in
+        both packages."""
+        def script(pkg):
+            bridge, cluster = make_bridge(pkg, n_machines=12, n_tasks=40,
+                                          seed=17, aggregate_classes=True,
+                                          max_tasks_per_machine=6)
+            seats = {m.name: m.max_tasks for m in cluster.machines}
+            for _uid, m in bridge.pod_to_machine.items():
+                seats[m] -= 1
+            placed = {}
+            for k in range(8):
+                r = bridge.express_batch([("ADDED", arrival(pkg, f"sp-{k}"))])
+                if r is None:
+                    break
+                for uid, m in r.bindings.items():
+                    placed[uid] = m
+                    bridge.confirm_binding(uid, m)
+            for _uid, m in placed.items():
+                seats[m] -= 1
+            assert all(v >= 0 for v in seats.values()), seats
+            return placed
+
+        assert both(script)
 
 
 class TestFlagOffBitIdentity:

@@ -7,7 +7,7 @@
   daemon's modules, named one by one, do so too, and its command lines
   start;
 - ``ResidentSolver()`` with no device on a host without CUDA raises and
-  names ``device="cpu"``;
+  names ``device="cpu"``, and so does a mesh of CUDA devices;
 - the port's C++ oracle source is a byte-identical copy of the
   reference's, so the two cannot drift.
 """
@@ -135,6 +135,44 @@ def test_stream_service_and_batch_modules_import_without_jax():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"leaked": [], "jax": []}, got
+
+
+SCALE_MODULES = (
+    "poseidon_tpu_torch.graph.aggregate",
+    "poseidon_tpu_torch.parallel",
+    "poseidon_tpu_torch.parallel.mesh",
+    "poseidon_tpu_torch.parallel.sharded",
+    "poseidon_tpu_torch.kernels.gap_rows",
+)
+
+
+def test_scale_lane_modules_import_without_jax():
+    """The scale lane's modules (aggregation, the mesh, K8's wrapper)
+    import with jax blocked, and the daemon's ``--help`` (which lists
+    --mesh_width, --aggregate_classes and --topk_prefs) runs so."""
+    out = subprocess.run(
+        [sys.executable, "-c", _DAEMON_PROBE, json.dumps(SCALE_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "jax": []}, got
+
+
+def test_mesh_entry_points_default_to_the_card(monkeypatch):
+    """``make_mesh`` without devices wants CUDA devices and raises
+    without them; a CPU solver lays its mesh out on the CPU only when
+    asked for the CPU."""
+    from poseidon_tpu_torch.ops.resident import ResidentSolver
+    from poseidon_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ResidentSolver(mesh_width=2)
+    solver = ResidentSolver(device="cpu", mesh_width=2)
+    assert {d.type for d in solver._mesh.devices} == {"cpu"}
 
 
 def test_batch_and_service_entry_points_default_to_the_card(monkeypatch):

@@ -257,7 +257,12 @@ def test_non_taxonomy_graph_degrades_to_oracle():
 
 
 def test_unported_options_raise():
-    for kw in (dict(mesh_width=2),
-               dict(aggregate_classes=True), dict(topk_prefs=2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            PortSolver(device="cpu", **kw)
+    """The scale lane's options are ported now: each constructs, and a
+    mesh width on the CPU lays the mesh out over the CPU."""
+    solver = PortSolver(device="cpu", mesh_width=2)
+    assert solver.mesh_width == 2
+    assert solver._mesh.devices == (torch.device("cpu"),) * 2
+    assert PortSolver(device="cpu", aggregate_classes=True).aggregate_classes
+    assert PortSolver(device="cpu", topk_prefs=2).topk_prefs == 2
+    with pytest.raises(ValueError, match="power of two"):
+        PortSolver(device="cpu", mesh_width=3)

@@ -12,9 +12,9 @@ lines (``ops/resident.py:658-690``) at its edge inputs: a live window,
 the first dead window, an already-dead stream, a report on a column
 driven below 0, rows 0 and Tp-1.
 
-The scale-lane composition of the reference's differential class waits
-for the port's scale lane (ROADMAP Queue 1 item 6): its options raise
-here, and a test pins that.
+The scale-lane composition of the reference's differential class runs
+too: aggregation, mesh width 1 and mesh width 8 (the port's mesh on
+``[cpu] * width``, the reference's on its 8 forced host devices).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import poseidon_tpu.cluster as ref_cluster
 import poseidon_tpu.synth as ref_synth
 import poseidon_tpu_torch.bridge as port_bridge
 import poseidon_tpu_torch.cluster as port_cluster
+import poseidon_tpu_torch.ops.dense_auction as port_da
 import poseidon_tpu_torch.synth as port_synth
 from poseidon_tpu.compat import enable_x64
 from poseidon_tpu.trace import TraceGenerator as RefTrace
@@ -98,6 +99,8 @@ def flush_logs(pkg, bridge) -> dict:
         rows, asg = log[:, :cap], log[:, cap: 2 * cap]
         nchg, live, conv, dom, primal = (log[:, 2 * cap + i]
                                          for i in range(5))
+        carry = [torch.cat(x.blocks) if isinstance(x, port_da.RowBlocks)
+                 else x for x in carry]   # a mesh's table: its row blocks
         carry = [x.numpy() for x in carry]
         carry[-1] = carry[-1][0]   # the port's latch is an int32[1]
     out = {
@@ -281,8 +284,9 @@ class TestStreamDifferential:
     preemption, in both packages, and the two packages agree window by
     window."""
 
-    def _drive_pair(self, pkg, K, cycles, seed, *, preemption=False):
-        kw = {}
+    def _drive_pair(self, pkg, K, cycles, seed, *, preemption=False,
+                    opts=None):
+        kw = dict(opts or {})
         if preemption:
             kw.update(enable_preemption=True, migration_hysteresis=5,
                       running_fraction=0.25)
@@ -377,11 +381,10 @@ class TestStreamDifferential:
         {"aggregate_classes": True}, {"mesh_width": 1}, {"mesh_width": 8},
     ])
     def test_scale_lane_options_wait_for_their_item(self, opts):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port_bridge.SchedulerBridge(
-                cost_model="quincy", small_to_oracle=False,
-                express_lane=True, stream_windows=2, device="cpu", **opts,
-            )
+        """The scale lane is ported: the reference's scale cases of this
+        differential (``tests/test_stream.py``) run here, the port's
+        mesh laid out over ``[cpu] * width``."""
+        self._compare(2, 2, 31, opts=opts)
 
 
 class TestStreamCertificate:
