@@ -9,7 +9,7 @@ card is visible, or when the package is not importable.
 Phases (each prints its own lines):
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
-2. build: compiles the eight CUDA kernels from ``poseidon_tpu_torch/
+2. build: compiles the eleven CUDA kernels from ``poseidon_tpu_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel) and the C++
    oracle, and prints the build seconds;
 3. kernels: at the flagship's shapes (BASELINE config 2: 1,000 machines,
@@ -59,7 +59,22 @@ Phases (each prints its own lines):
    3.35 TB/s, with its battery: Mp 16, 128, 1024 and 1040, 1, 31 and
    32,769 rows, every asg class, task_valid all false, every price INF;
    beside it K3 over a shard's rows at a task offset and K7's commit
-   and restore over a two-shard table, live and dead;
+   and restore over a two-shard table, live and dead. The general
+   lane's K9 (``cs_sweep``, at the first sweep of the flagship
+   cost-scaling solve's busiest refine burst), K10 (``bf_relax``: its
+   ``out`` round at the same state is the record, its ``in`` round at
+   SSP's first round is printed) and K11 (``ssp_augment``, SSP's first
+   path; each timed call restores the flow first, and the restore's own
+   time is taken off) are held and timed the same way at the flagship's
+   residual CSR (NN 12,290, 2F 145,410), their bounds the bytes a sweep,
+   round or walk must move over 3.35 TB/s, with their battery: a node of
+   degree 0, segments of 1,100 and 1,500 arcs, eps 1, 3 and 64 over
+   costs of both signs, distances all INF, all 0 and from the deficits
+   or one source, and walks along a path, over a mirror arc, into the
+   sentinel, from an unreachable T, round a cycle and with delta cut by
+   wanted - routed or 0; then one refine burst (a global update and 16
+   sweeps) and SSP's first three paths (their K10 ``in`` rounds and
+   K11 walks) under ``torch.profiler``;
 4. parity: a small flagship-shaped cluster (64 machines x 600 pods), one
    cold and two churned warm rounds on the card and on the CPU (the
    twins): every field of every round must be equal; then three express
@@ -172,7 +187,20 @@ Phases (each prints its own lines):
    over a cold and a warm round, every integer output bit-identical
    (with each width's wall time); the aggregated flagship's cost equal
    to the plain one's; ``sharded_certificate_gap`` at width 4 equal to
-   the solve's own gap.
+   the solve's own gap;
+13. general: the general-graph lane on the card. Cost-scaling over
+   ``make_synthetic_cluster(200, 2000, seed=0)`` under quincy equal bit
+   for bit to the CPU twins (flows, sweeps, phases, routed, converged)
+   with the reference's 1,744 sweeps and 12 phases; then, launch counts
+   zeroed just before each solve and read just after it, the
+   quincy-priced flagship by cost-scaling (cost
+   771,192 = the C++ oracle's, the reference's 2,592 sweeps and 13
+   phases, one result fetch), by SSP (= oracle), written to DIMACS,
+   read back and solved through ``solve_scheduling`` with an
+   empty-cluster meta (backend ``cost_scaling``, = oracle), and through
+   ``solve_scheduling``'s dense path cold and warm (= oracle); wall ms,
+   sweeps, phases, paths, loop reads and fetches printed, K9-K11 and
+   K1-K3 each launched.
 
 Each phase prints its seconds. ``--phases=a,b`` runs only the named
 phases after the build, prints no record and no contract line (a quick
@@ -180,7 +208,8 @@ bring-up check).
 
 The kernels' record counts K1-K3's launches in the main path, K4-K5's
 in the express phase, K7's in the stream phase's 8-window flush, K6's
-in the what-if phase and K8's in the scale phase's config 8 rounds.
+in the what-if phase, K8's in the scale phase's config 8 rounds and
+K9-K11's in the general phase's flagship run.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line,
 and the contract line ``{"ok": true, "device": {...}}``.
@@ -419,6 +448,7 @@ def kernel_phase(torch, timer):
     records.append(stream_commit_record(torch, timer))
     records.append(perturb_record(torch, timer))
     records.append(gap_rows_record(torch, timer))
+    records += general_kernel_records(torch, timer)
     torch.cuda.synchronize()
     for mod, fn, args, key in (
         (k1, lambda *a: k1.densify(*a, n_prefs=P), a1, (Tp, Mp, P, P)),
@@ -432,6 +462,7 @@ def kernel_phase(torch, timer):
             f"{HOST_CALLS} calls) plan={plan}")
     edge_battery(torch)
     shard_edges(torch)
+    general_edges(torch)
     for k, err, ms, plain, bms, by, shape in records:
         # K4, K5 and K7 move tens to hundreds of KiB: their bound is a
         # small fraction of one launch's fixed cost
@@ -3318,6 +3349,579 @@ def pruned_oracle_cost(view, kw: dict, k: int, device) -> int:
                         algorithm="cost_scaling").cost
 
 
+# ---- the general-graph lane: cost-scaling, SSP, the front door ------
+
+# make_synthetic_cluster(200, 2000, seed=0) under quincy, and the
+# reference's counts there and at the flagship (JAX on a CPU host,
+# priced by tests/helpers.py's ``price``): sweeps, phases, and cost
+GENERAL_SMALL = (200, 2000)
+GENERAL_SMALL_COUNTS = (1744, 12)
+FLAGSHIP_CS = (771192, 2592, 13)
+GENERAL_KERNELS = ("cs_sweep", "bf_relax", "ssp_augment")
+GENERAL_SYMBOLS = ("cs_sweep_kernel", "bf_out_kernel", "bf_in_kernel",
+                   "ssp_augment_kernel")
+
+
+def priced_net(torch, cluster, device):
+    """A cluster's built FlowNetwork priced by quincy on ``device``, and
+    its meta."""
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.models.costs import build_cost_inputs, quincy_cost
+
+    net, meta = FlowGraphBuilder().build(cluster)
+    inputs = build_cost_inputs(net, meta, device=device,
+                               **cost_kwargs(cluster))
+    return net.with_costs(quincy_cost(inputs)), meta
+
+
+def cs_fields(res) -> tuple:
+    return (res.flows.tobytes(), res.routed, res.wanted, res.sweeps,
+            res.phases, res.converged)
+
+
+def cs_line(res) -> str:
+    return (f"sweeps={res.sweeps} phases={res.phases} routed={res.routed}/"
+            f"{res.wanted} converged={res.converged} "
+            f"loop_syncs={res.loop_syncs} fetches={res.fetches}")
+
+
+def busiest_burst(torch, net):
+    """Run ``net``'s cost-scaling solve through ``_Solve.run`` itself, with
+    one more read a refine burst (its global update samples the state),
+    and keep the state at the start of the burst whose active nodes have
+    the most out-arcs. Returns a function that makes a fresh solve object
+    in that state, the burst's eps, its active nodes and their arcs."""
+    from poseidon_tpu_torch.ops.cost_scaling import _Solve
+
+    dev = torch.device(DEVICE)
+    fuse = 200 * (net.num_node_slots.bit_length() + 8) * 8
+
+    class Sampled(_Solve):
+        best = (-1, None)
+
+        def global_update(self, eps: int) -> None:
+            act = self.excess > 0
+            deg = (self.g.seg[1:] - self.g.seg[:-1]).long()
+            load = int(deg[act].sum())
+            if load > self.best[0]:
+                self.best = (load, (self.flow.clone(), self.excess.clone(),
+                                    self.price.clone(), eps,
+                                    int(act.sum())))
+            super().global_update(eps)
+
+    s = Sampled(net, dev, 8, fuse, 16)
+    s.run()
+    load, (flow, excess, price, eps, n_act) = s.best
+
+    def at_burst():
+        t = _Solve(net, dev, 8, fuse, 16)
+        t.flow.copy_(flow)
+        t.excess.copy_(excess)
+        t.price.copy_(price)
+        return t
+
+    return at_burst, eps, n_act, load
+
+
+def ssp_first_path(torch, net):
+    """SSP's first path on the card: the residual CSR, the converged
+    Bellman-Ford distances and predecessors, and K10 ``in``'s first-round
+    inputs."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels.bf_relax import INF, bf_relax_in
+    from poseidon_tpu_torch.ops.cost_scaling import residual_csr
+    from poseidon_tpu_torch.ops.ssp import _residual_tables, mirror_costs
+
+    dev = torch.device(DEVICE)
+    fsrc, fdst, fcap, fcost, S, T = _residual_tables(net)
+    F, NN = fsrc.shape[0], net.num_node_slots + 2
+    g = residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]), NN,
+                     dev)
+    flow = torch.zeros(F, dtype=torch.int32, device=dev)
+    pot = torch.zeros(NN, dtype=torch.int32, device=dev)
+    mrc = mirror_costs(g, pot, flow)
+    dist0 = torch.full((NN,), INF, dtype=torch.int32, device=dev)
+    dist0[S] = 0
+    pred0 = torch.full((NN,), 2 * F, dtype=torch.int32, device=dev)
+    dist, pred = dist0.clone(), pred0.clone()
+    d2 = torch.empty_like(dist)
+    changed = torch.ones(1, dtype=torch.int32, device=dev)
+    rounds = 0
+    while int(changed[0]) and rounds < NN:
+        bf_relax_in(g.seg, g.arc, g.head, mrc, dist, d2, pred, changed)
+        dist, d2 = d2, dist
+        rounds += 1
+    tabs = (torch.as_tensor(fsrc, device=dev), torch.as_tensor(fdst, device=dev))
+    return dict(g=g, mrc=mrc, dist0=dist0, pred0=pred0, dist=dist, pred=pred,
+                flow=flow, tabs=tabs, S=S, T=T, F=F, NN=NN, rounds=rounds,
+                wanted=int(np.maximum(net.supply, 0).sum()))
+
+
+def path_length(pred, fsrc, fdst, S: int, T: int) -> int:
+    p, fs, fd = pred.tolist(), fsrc.tolist(), fdst.tolist()
+    F = len(fs)
+    v, h = T, 0
+    while v != S and h < len(p):
+        a = p[v]
+        if a >= 2 * F:
+            break
+        v = fs[a] if a < F else fd[a - F]
+        h += 1
+    return h
+
+
+def general_kernel_records(torch, timer):
+    """K9-K11 held against their twins (tolerance 0) and timed cold at the
+    flagship's shapes (NN 12,290, 2F 145,410 for cost-scaling; 145,408
+    for SSP); then one refine burst under torch.profiler."""
+    from poseidon_tpu_torch.kernels import bf_relax as k10
+    from poseidon_tpu_torch.kernels import cs_sweep as k9
+    from poseidon_tpu_torch.kernels import ssp_augment as k11
+    from poseidon_tpu_torch.ops.cost_scaling import arc_lengths
+    from poseidon_tpu_torch.synth import config2_quincy_flagship
+
+    records = []
+    # K9 at the first sweep of the flagship solve's busiest refine burst
+    # (its state after the burst's global update)
+    flag, _ = priced_net(torch, config2_quincy_flagship(seed=0),
+                         torch.device(DEVICE))
+    at_burst, eps, n_act, load = busiest_burst(torch, flag)
+    s = at_burst()
+    s.global_update(eps)
+    g, NN, F = s.g, s.NN, s.F
+    act = s.excess > 0
+    deg = (g.seg[1:] - g.seg[:-1]).long()
+    act_arcs = int(deg[act].sum())
+    n_act = int(act.sum())
+    ex2, pr2 = torch.empty_like(s.excess), torch.empty_like(s.price)
+    outs = []
+    for fn in (k9.cs_sweep, k9.cs_sweep_plain):
+        flow = s.flow.clone()
+        e_o, p_o = torch.empty_like(s.excess), torch.empty_like(s.price)
+        fn(g.seg, g.arc, g.head, g.cost, g.fcap, flow, s.excess, s.price,
+           eps, e_o, p_o)
+        outs.append([flow, e_o, p_o])
+    err = max_abs_err(outs[0], outs[1])
+    flow = s.flow.clone()
+
+    def k9_call(fn):
+        return lambda: fn(g.seg, g.arc, g.head, g.cost, g.fcap, flow,
+                          s.excess, s.price, eps, ex2, pr2)
+
+    # bytes: seg, each active segment's arc/head/cost and residual (24 an
+    # arc), excess and price in and out (24 a node)
+    b = 4 * (NN + 1) + 24 * act_arcs + 24 * NN
+    ops = 12 * act_arcs
+    ms, plain = timer(k9_call(k9.cs_sweep)), timer(k9_call(k9.cs_sweep_plain))
+    log(f"[kernels] cs_sweep state: the busiest refine burst's first sweep "
+        f"(eps={eps}), {n_act} active nodes, {act_arcs} arcs in their "
+        f"segments (of {2 * F})")
+    records.append((k9.KERNEL, err, ms, plain, *bound_ms(b, ops),
+                    (NN, 2 * F)))
+
+    # K10 out: the first round of the same state's next global update
+    ln = arc_lengths(g, s.flow, s.price, eps)
+    d = torch.where(s.excess < 0, 0, k10.INF_K).to(torch.int64)
+    ch = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    outs = []
+    for fn in (k10.bf_relax_out, k10.bf_relax_out_plain):
+        d_o, c_o = torch.empty_like(d), torch.zeros_like(ch)
+        fn(g.seg, g.head, ln, d, d_o, c_o)
+        outs.append([d_o, c_o])
+    err = max_abs_err(outs[0], outs[1])
+    d_o = torch.empty_like(d)
+    b = 4 * (NN + 1) + 12 * 2 * F + 16 * NN + 4
+    ops = 4 * 2 * F
+    ms = timer(lambda: k10.bf_relax_out(g.seg, g.head, ln, d, d_o, ch))
+    plain = timer(lambda: k10.bf_relax_out_plain(g.seg, g.head, ln, d, d_o, ch))
+    records.append((k10.KERNEL, err, ms, plain, *bound_ms(b, ops),
+                    (NN, 2 * F)))
+    del s, ln, d
+
+    # K10 in at SSP's first round of its first path (the flagship net)
+    q = ssp_first_path(torch, flag)
+    g2, NN2, F2 = q["g"], q["NN"], q["F"]
+    outs = []
+    for fn in (k10.bf_relax_in, k10.bf_relax_in_plain):
+        d_o, p_o = torch.empty_like(q["dist0"]), q["pred0"].clone()
+        c_o = torch.zeros_like(ch)
+        fn(g2.seg, g2.arc, g2.head, q["mrc"], q["dist0"], d_o, p_o, c_o)
+        outs.append([d_o, p_o, c_o])
+    in_err = max_abs_err(outs[0], outs[1])
+    d_o, p_o = torch.empty_like(q["dist0"]), q["pred0"].clone()
+    in_args = (g2.seg, g2.arc, g2.head, q["mrc"], q["dist0"], d_o, p_o, ch)
+    in_ms = timer(lambda: k10.bf_relax_in(*in_args))
+    in_plain = timer(lambda: k10.bf_relax_in_plain(*in_args))
+    b_in = 4 * (NN2 + 1) + 12 * 2 * F2 + 12 * NN2 + 4
+    in_bms, in_by = bound_ms(b_in, 4 * 2 * F2)
+    log(f"[kernels] bf_relax (in) shape=({NN2}, {2 * F2}) "
+        f"max_abs_err={in_err} ms={in_ms:.6f} plain_ms={in_plain:.6f} "
+        f"bound_ms={in_bms:.6f} ({in_by}); the record is the out round's")
+    if in_err:
+        raise AssertionError(f"bf_relax (in) != twin: {in_err}")
+
+    # K11: the first path's walk and augment; each timed call restores
+    # the flow and the routed count first (two copy_ launches, timed
+    # alone and taken off)
+    fsrc, fdst = q["tabs"]
+    st0 = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    outs = []
+    for fn in (k11.ssp_augment, k11.ssp_augment_plain):
+        fl, st = q["flow"].clone(), st0.clone()
+        fn(q["pred"], q["dist"], fsrc, fdst, g2.fcap, fl, st, q["wanted"],
+           q["S"], q["T"])
+        outs.append([fl, st])
+    err = max_abs_err(outs[0], outs[1])
+    h = path_length(q["pred"], fsrc, fdst, q["S"], q["T"])
+    fl, st = q["flow"].clone(), st0.clone()
+
+    def restore():
+        fl.copy_(q["flow"])
+        st.copy_(st0)
+
+    def k11_call(fn):
+        def call():
+            restore()
+            fn(q["pred"], q["dist"], fsrc, fdst, g2.fcap, fl, st,
+               q["wanted"], q["S"], q["T"])
+        return call
+
+    base = timer(restore)
+    ms = max(timer(k11_call(k11.ssp_augment)) - base, 0.0)
+    plain = max(timer(k11_call(k11.ssp_augment_plain)) - base, 0.0)
+    log(f"[kernels] ssp_augment: first path of {h} arcs after "
+        f"{q['rounds']} Bellman-Ford rounds, delta={int(outs[0][1][1])}; "
+        f"restore copies {base:.6f} ms taken off both times")
+    records.append((k11.KERNEL, err, ms, plain, *bound_ms(20 * h + 24, 4 * h),
+                    (NN2, h)))
+    profile_refine_burst(torch, at_burst(), eps)
+    profile_ssp_paths(torch, flag)
+    return records
+
+
+def profile_refine_burst(torch, s, eps: int) -> None:
+    """One refine burst (a global update, then 16 K9 sweeps) of solve
+    object ``s`` under torch.profiler: wall, device busy time and idle
+    share, and K9's and K10's device time per launch as the solve calls
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    syncs0 = s.syncs.count
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.global_update(eps)
+        s.sweep_burst(eps)
+        sync(torch)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in rows)
+    log(f"[profile] refine burst (the flagship's busiest): wall_us="
+        f"{wall_us:.1f} loop_reads={s.syncs.count - syncs0} "
+        f"device_busy_us={busy:.1f} idle_share={1 - min(busy / wall_us, 1):.3f}")
+    rows.sort(key=lambda r: -r[1])
+    for key, t, n in rows[:12]:
+        log(f"[profile]   {t:10.1f} us  x{n:<5d} {key[:90]}")
+    for k in GENERAL_SYMBOLS[:2]:
+        hits = [(t, n) for key, t, n in rows if k in key]
+        total, count = sum(t for t, _ in hits), sum(n for _, n in hits)
+        log(f"[profile] refine burst kernel {k}: total_us={total:.1f} "
+            f"launches={count} us_per_launch={total / max(count, 1):.3f}")
+
+
+def profile_ssp_paths(torch, net, n_paths: int = 3) -> None:
+    """SSP's first ``n_paths`` paths over ``net`` under torch.profiler (the
+    residual CSR's build included): K10 ``in``'s and K11's device time
+    per launch as the solve calls them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from poseidon_tpu_torch.ops import ssp
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = ssp.solve_ssp(net, max_paths=n_paths, device=DEVICE)
+        sync(torch)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    label = f"SSP's first {res.iterations} paths"
+    log(f"[profile] {label}: routed={res.routed} loop_reads={res.loop_syncs}")
+    profile_symbols(prof, wall_us, label, GENERAL_SYMBOLS[2:])
+
+
+def edge_residual_graph(torch, seed: int, NN: int, F: int, hub: int):
+    """A random residual graph for K9/K10's battery on the card: node
+    NN - 1 has no arc (degree 0), node 1 is the tail of ``hub`` forward
+    arcs (a segment past 1,024 when hub is large), with random
+    capacities, flows, excesses, prices and costs of both signs."""
+    import numpy as np
+
+    from poseidon_tpu_torch.ops.cost_scaling import residual_csr
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEVICE)
+    fsrc = rng.integers(0, NN - 1, F).astype(np.int32)
+    fdst = rng.integers(0, NN - 1, F).astype(np.int32)
+    fsrc[:hub] = 1
+    fcap = rng.integers(0, 10, F).astype(np.int32)
+    fcost = rng.integers(-400, 400, F).astype(np.int64)
+    g = residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]), NN,
+                     dev)
+    flow = torch.as_tensor((rng.random(F) * (fcap + 1)).astype(np.int32)
+                           .clip(0, fcap), device=dev)
+    excess = torch.as_tensor(rng.integers(-6, 9, NN).astype(np.int32),
+                             device=dev)
+    price = torch.as_tensor(rng.integers(-900, 900, NN).astype(np.int64),
+                            device=dev)
+    return g, flow, excess, price, rng
+
+
+def general_edges(torch) -> None:
+    """K9, K10 (both entry points) and K11 against their twins on the
+    card, tolerance 0, at edge shapes: a degree-0 node, a segment of
+    1,500 arcs, negative reduced costs at eps 1, 3 and 64, all-INF and
+    all-zero distances, and K11's walks: a path, one over a mirror arc,
+    a walk that meets the sentinel, an unreachable T, a cycle to the
+    step cap, and a delta cut by wanted - routed."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels import bf_relax as k10
+    from poseidon_tpu_torch.kernels import cs_sweep as k9
+    from poseidon_tpu_torch.kernels import ssp_augment as k11
+    from poseidon_tpu_torch.ops.cost_scaling import arc_lengths
+    from poseidon_tpu_torch.ops.ssp import mirror_costs
+
+    INF_K, INF = k10.INF_K, k10.INF
+    dev = torch.device(DEVICE)
+    bad, n = [], 0
+    for seed, NN, F, hub in ((1, 40, 300, 0), (2, 300, 4000, 1500),
+                             (3, 2, 1, 0), (4, 1100, 3000, 1100)):
+        g, flow0, excess, price, rng = edge_residual_graph(
+            torch, seed, NN, F, hub)
+        for eps in (1, 3, 64):
+            outs = []
+            for fn in (k9.cs_sweep, k9.cs_sweep_plain):
+                fl = flow0.clone()
+                e_o, p_o = torch.empty_like(excess), torch.empty_like(price)
+                fn(g.seg, g.arc, g.head, g.cost, g.fcap, fl, excess, price,
+                   eps, e_o, p_o)
+                outs.append([fl, e_o, p_o])
+            err = max_abs_err(outs[0], outs[1])
+            n += 1
+            if err:
+                bad.append(("cs_sweep", seed, eps, err))
+            ln = arc_lengths(g, flow0, price, eps)
+            for kind in ("excess", "all_inf", "zeros"):
+                d = {"excess": torch.where(excess < 0, 0, INF_K),
+                     "all_inf": torch.full((NN,), INF_K, device=dev),
+                     "zeros": torch.zeros(NN, device=dev)}[kind].to(torch.int64)
+                outs = []
+                for fn in (k10.bf_relax_out, k10.bf_relax_out_plain):
+                    d_o = torch.empty_like(d)
+                    c_o = torch.full((1,), 7, dtype=torch.int32, device=dev)
+                    fn(g.seg, g.head, ln, d, d_o, c_o)
+                    outs.append([d_o, c_o])
+                err = max_abs_err(outs[0], outs[1])
+                n += 1
+                if err:
+                    bad.append(("bf_relax_out", seed, eps, kind, err))
+        pot = (price % 50).to(torch.int32)
+        mrc = mirror_costs(g, pot, flow0).to(torch.int32)
+        for kind in ("source", "all_inf", "mixed"):
+            dist = torch.full((NN,), INF, dtype=torch.int32, device=dev)
+            if kind == "source":
+                dist[0] = 0
+            elif kind == "mixed":
+                dist = torch.where(excess > 0, excess * 3, INF).to(torch.int32)
+            pred0 = torch.as_tensor(rng.integers(0, 2 * F + 1, NN)
+                                    .astype(np.int32), device=dev)
+            outs = []
+            for fn in (k10.bf_relax_in, k10.bf_relax_in_plain):
+                d_o, p_o = torch.empty_like(dist), pred0.clone()
+                c_o = torch.full((1,), 7, dtype=torch.int32, device=dev)
+                fn(g.seg, g.arc, g.head, mrc, dist, d_o, p_o, c_o)
+                outs.append([d_o, p_o, c_o])
+            err = max_abs_err(outs[0], outs[1])
+            n += 1
+            if err:
+                bad.append(("bf_relax_in", seed, kind, err))
+    for name, case in ssp_walk_cases(torch):
+        outs = []
+        for fn in (k11.ssp_augment, k11.ssp_augment_plain):
+            fl, st = case["flow"].clone(), case["state"].clone()
+            fn(case["pred"], case["dist"], case["fsrc"], case["fdst"],
+               case["fcap"], fl, st, case["wanted"], case["S"], case["T"])
+            outs.append([fl, st])
+        err = max_abs_err(outs[0], outs[1])
+        n += 1
+        if err:
+            bad.append(("ssp_augment", name, err))
+    log(f"[edges] cs_sweep, bf_relax (out, in), ssp_augment: {n} cases, "
+        f"{len(bad)} differ")
+    if bad:
+        raise AssertionError(f"[edges] general kernels != twins: {bad[:4]}")
+
+
+def ssp_walk_cases(torch):
+    """K11's hand-made walks on a chain S -> 0 -> 1 -> ... -> 5 -> T of
+    forward arcs 0..6 (capacities 4..10, some flow), with arc 7 from 3
+    to 2 carrying flow (its mirror, arc 7 + F, reaches 3 from 2):
+    (name, arguments) pairs."""
+    dev = torch.device(DEVICE)
+    S, T = 6, 7
+    fsrc = [S, 0, 1, 2, 3, 4, 5, 3]
+    fdst = [0, 1, 2, 3, 4, 5, T, 2]
+    F = len(fsrc)
+    pred = [0, 1, 2, 3, 4, 5, 2 * F, 6]   # the forward arc into each node
+    dist = [1, 2, 3, 4, 5, 6, 0, 7]
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    def case(pred_, dist_=dist, routed=0):
+        return dict(pred=t(pred_), dist=t(dist_), fsrc=t(fsrc), fdst=t(fdst),
+                    fcap=t([4, 9, 8, 7, 6, 5, 10, 3]),
+                    flow=t([1, 0, 2, 0, 0, 1, 0, 2]), state=t([routed, 0]),
+                    wanted=10, S=S, T=T)
+
+    def swap(seq, **at):
+        out = list(seq)
+        for k, v in at.items():
+            out[int(k[1:])] = v
+        return out
+
+    return [
+        ("path", case(pred)),
+        ("mirror", case(swap(pred, v3=7 + F))),
+        ("sentinel", case(swap(pred, v4=2 * F))),
+        ("unreachable", case(pred, swap(dist, v7=2**30))),
+        # 2 <- 2 over arc 3's tail: a cycle that never reaches S
+        ("cycle", case(swap(pred, v2=3, v3=7 + F))),
+        ("capped", case(pred, routed=9)),
+        ("done", case(pred, routed=10)),
+    ]
+
+
+def general_phase(torch, card: str) -> dict:
+    """The general-graph lane on the card. Cost-scaling at 200 x 2,000
+    equal bit for bit to the CPU twins; then, launch counts zeroed just
+    before each solve and read just after it, the quincy-priced flagship
+    by cost-scaling (cost = oracle, the reference's sweeps and phases,
+    one fetch), by SSP (= oracle), as a DIMACS text through
+    ``solve_scheduling`` (backend cost_scaling) and through
+    ``solve_scheduling``'s dense path cold and warm (= oracle). Returns
+    each kernel's launches in the solve its record times: K9 and K10
+    (its ``out`` round) in the cost-scaling solve, K11 in SSP's."""
+    from poseidon_tpu_torch import kernels
+    from poseidon_tpu_torch.cluster import ClusterState
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.graph.dimacs import read_dimacs, write_dimacs
+    from poseidon_tpu_torch.ops import cost_scaling, ssp
+    from poseidon_tpu_torch.oracle import solve_oracle
+    from poseidon_tpu_torch.solver import solve_scheduling
+    from poseidon_tpu_torch.synth import (
+        config2_quincy_flagship, make_synthetic_cluster,
+    )
+
+    dev = torch.device(DEVICE)
+    log(f"[general] card: {card}")
+
+    def timed(fn):
+        sync(torch)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(torch)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def counted(label, fn, launched):
+        """``fn`` timed, with the launch counts zeroed just before it and
+        read just after; fails unless each kernel of ``launched`` ran."""
+        sync(torch)
+        kernels.reset_launch_counts()
+        out, ms = timed(fn)
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        log(f"[general] {label} launches: " + " ".join(
+            f"{k}={counts[k]}" for k in launched))
+        idle = [k for k in launched if counts[k] == 0]
+        if idle:
+            raise AssertionError(f"[general] {label}: not launched {idle}")
+        return out, ms, counts
+
+    small, _ = priced_net(torch, make_synthetic_cluster(*GENERAL_SMALL,
+                                                        seed=0), dev)
+    card_res, card_ms = timed(
+        lambda: cost_scaling.solve_cost_scaling(small, device=DEVICE))
+    cpu_res, cpu_ms = timed(
+        lambda: cost_scaling.solve_cost_scaling(small, device="cpu"))
+    same = cs_fields(card_res) == cs_fields(cpu_res)
+    log(f"[general] cost-scaling {GENERAL_SMALL[0]} x {GENERAL_SMALL[1]}: "
+        f"card wall_ms={card_ms:.3f} {cs_line(card_res)} | CPU twins "
+        f"wall_ms={cpu_ms:.3f} | bit-identical={same}")
+    if not same or not card_res.converged or (
+            card_res.sweeps, card_res.phases) != GENERAL_SMALL_COUNTS:
+        raise AssertionError(f"[general] 200 x 2000: card != CPU or "
+                             f"counts != {GENERAL_SMALL_COUNTS}")
+
+    flag, meta = priced_net(torch, config2_quincy_flagship(seed=0), dev)
+    t0 = time.perf_counter()
+    want = solve_oracle(flag, algorithm="cost_scaling").cost
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    res, ms, cs_counts = counted(
+        "cost-scaling flagship",
+        lambda: cost_scaling.solve_cost_scaling(flag, device=DEVICE),
+        ("cs_sweep", "bf_relax"))
+    cost = cost_scaling.solution_cost(flag, res)
+    log(f"[general] cost-scaling flagship (N {flag.num_node_slots}, E "
+        f"{flag.num_arc_slots}): wall_ms={ms:.3f} cost={cost} "
+        f"oracle={want} oracle_ms={oracle_ms:.1f} {cs_line(res)}")
+    if (cost, res.sweeps, res.phases) != FLAGSHIP_CS or cost != want:
+        raise AssertionError(f"[general] flagship: cost/sweeps/phases "
+                             f"{(cost, res.sweeps, res.phases)}, want "
+                             f"{FLAGSHIP_CS}, oracle {want}")
+    if not (res.converged and res.feasible) or res.fetches != 1:
+        raise AssertionError(f"[general] flagship: {cs_line(res)}")
+
+    sres, ms, ssp_counts = counted(
+        "SSP flagship", lambda: ssp.solve_ssp(flag, device=DEVICE),
+        ("bf_relax", "ssp_augment"))
+    scost = ssp.solution_cost(flag, sres)
+    log(f"[general] SSP flagship: wall_ms={ms:.3f} paths={sres.iterations} "
+        f"routed={sres.routed}/{sres.wanted} cost={scost} oracle={want} "
+        f"loop_syncs={sres.loop_syncs} fetches={sres.fetches}")
+    if scost != want or not sres.feasible or sres.fetches != 1:
+        raise AssertionError(f"[general] SSP cost {scost} != oracle {want}")
+
+    dnet = read_dimacs(write_dimacs(flag))
+    _, empty = FlowGraphBuilder().build(ClusterState(machines=[], tasks=[]))
+    out, ms, _ = counted(
+        "DIMACS flagship",
+        lambda: solve_scheduling(dnet, empty, device=DEVICE),
+        ("cs_sweep", "bf_relax"))
+    log(f"[general] DIMACS flagship through solve_scheduling: backend="
+        f"{out.backend} cost={out.cost} oracle={want} wall_ms={ms:.3f}")
+    if out.backend != "cost_scaling" or out.cost != want:
+        raise AssertionError(f"[general] DIMACS: {out.backend} {out.cost}")
+
+    cold, cold_ms, _ = counted("dense cold", lambda: solve_scheduling(
+        flag, meta, small_to_oracle=False, device=DEVICE), ROUND_KERNELS)
+    warm, warm_ms, _ = counted("dense warm", lambda: solve_scheduling(
+        flag, meta, small_to_oracle=False, warm=cold.state, device=DEVICE),
+        ("densify",))
+    log(f"[general] front door dense path: cold backend={cold.backend} "
+        f"cost={cold.cost} wall_ms={cold_ms:.3f}; warm backend="
+        f"{warm.backend} cost={warm.cost} wall_ms={warm_ms:.3f}; "
+        f"oracle={want}")
+    if {cold.backend, warm.backend} != {"dense_auction"} or \
+            cold.cost != want or warm.cost != want:
+        raise AssertionError("[general] front door dense path != oracle")
+    return {"cs_sweep": cs_counts["cs_sweep"],
+            "bf_relax": cs_counts["bf_relax"],
+            "ssp_augment": ssp_counts["ssp_augment"]}
+
+
 def main() -> int:
     import torch
 
@@ -3395,6 +3999,10 @@ def main() -> int:
     if want("scale"):
         launches["gap_rows"] = phase(
             "scale", scale_phase, torch, smi)["gap_rows"]
+    if want("general"):
+        general_launches = phase("general", general_phase, torch, smi)
+        for k in GENERAL_KERNELS:
+            launches[k] = general_launches[k]
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()))
     if only is not None:

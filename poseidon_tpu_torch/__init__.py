@@ -13,9 +13,15 @@ run instead.
 Layers:
   graph/     host flow-graph builder, deltas, DIMACS I/O
   models/    vectorized cost models + knowledge base
-  kernels/   CUDA kernels K1-K3 with their plain twins and launch counts
-  ops/       transport form, dense auction, device-resident round
+  kernels/   CUDA kernels K1-K11 with their plain twins and launch counts
+  ops/       transport form, dense auction, device-resident round,
+             cost-scaling and successive shortest paths
   oracle/    the C++ CPU MCMF oracle (exact reference solver)
+  solver.py  the front door: solve_scheduling() with warm handles
 """
 
+from poseidon_tpu_torch.solver import SolveOutcome, solve_scheduling
+
 __version__ = "0.1.0"
+
+__all__ = ["SolveOutcome", "solve_scheduling", "__version__"]

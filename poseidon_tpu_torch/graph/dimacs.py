@@ -1,6 +1,9 @@
-"""DIMACS min-cost-flow text format: write an instance, parse a solution.
+"""DIMACS min-cost-flow text format: read and write an instance, parse a
+solution.
 
-DIMACS is the interchange with the C++ CPU oracle (oracle/).
+DIMACS is the interchange with the C++ CPU oracle (oracle/), and
+``read_dimacs`` is the general-graph lane's entry for hand-written
+graphs (``solver.solve_scheduling`` routes them to cost-scaling).
 
 Format (1-indexed nodes):
     c <comment>
@@ -41,6 +44,46 @@ def write_dimacs_host(
             f"{int(cap[a])} {int(cost[a])}\n"
         )
     return out.getvalue()
+
+
+def read_dimacs(text: str) -> FlowNetwork:
+    """Parse a DIMACS min-cost instance into a padded ``FlowNetwork``."""
+    n_nodes = n_arcs = -1
+    supply: np.ndarray | None = None
+    src: list[int] = []
+    dst: list[int] = []
+    cap: list[int] = []
+    cost: list[int] = []
+    for raw in text.splitlines():
+        line = raw.strip()
+        if not line or line.startswith("c"):
+            continue
+        parts = line.split()
+        if parts[0] == "p":
+            if parts[1] != "min":
+                raise ValueError(f"not a min-cost problem line: {line!r}")
+            n_nodes, n_arcs = int(parts[2]), int(parts[3])
+            supply = np.zeros(n_nodes, dtype=np.int64)
+        elif parts[0] == "n":
+            if supply is None:
+                raise ValueError("n line before p line")
+            v = int(parts[1])
+            if not 1 <= v <= n_nodes:
+                # without this, node id 0 would alias supply[-1] silently
+                raise ValueError(f"node id {v} out of range 1..{n_nodes}")
+            supply[v - 1] = int(parts[2])
+        elif parts[0] == "a":
+            if int(parts[3]) != 0:
+                raise ValueError("nonzero lower bounds unsupported")
+            src.append(int(parts[1]) - 1)
+            dst.append(int(parts[2]) - 1)
+            cap.append(int(parts[4]))
+            cost.append(int(parts[5]))
+    if supply is None:
+        raise ValueError("missing p line")
+    if len(src) != n_arcs:
+        raise ValueError(f"expected {n_arcs} arcs, got {len(src)}")
+    return FlowNetwork.from_arrays(src, dst, cap, cost, supply)
 
 
 def parse_flow_output(text: str, n_arcs: int) -> tuple[int, np.ndarray]:

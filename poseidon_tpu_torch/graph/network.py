@@ -3,8 +3,9 @@
 The flow network is a set of int32 arc/node tables padded to bucketed
 sizes. In this package the tables stay on the host as numpy arrays:
 the device-resident round (ops/resident.py) never uploads the network
-itself, only the topology index maps and the pricing inputs, and the
-one consumer of a whole network is the C++ oracle (via DIMACS text).
+itself, only the topology index maps and the pricing inputs; the
+general-graph solvers (ops/cost_scaling.py, ops/ssp.py) upload a whole
+network once per solve, and the C++ oracle reads it as DIMACS text.
 
 Conventions
 -----------
@@ -55,6 +56,10 @@ class FlowNetwork:
     supply: np.ndarray   # int32[N] node supply (+source / -demand)
     n_nodes: int
     n_arcs: int
+
+    @property
+    def num_node_slots(self) -> int:
+        return self.supply.shape[-1]
 
     @property
     def num_arc_slots(self) -> int:
@@ -127,3 +132,8 @@ class FlowNetwork:
             "supply": self.supply[:nn],
         }
 
+
+def total_supply(net: FlowNetwork) -> int:
+    """Total positive supply (the flow value a feasible solution must route)."""
+    s = np.asarray(net.supply)
+    return int(s[s > 0].sum())

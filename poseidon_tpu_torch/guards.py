@@ -10,6 +10,13 @@ for the auction loop's branch-flag reads). Tests assert the counts.
 ``FetchTimeout`` is raised by the resident solver when a round's
 background result fetch exceeds its deadline.
 
+``GuardError`` is raised by a host guard that refuses an instance
+outside a kernel's envelope before anything launches (the dense
+table's cost domain and memory budget, cost-scaling's excess wrap,
+SSP's cost bound). The front door degrades to the oracle on this type
+alone; a wrapper's own argument errors are plain ``ValueError`` and
+propagate.
+
 ``set_compile_duration_sink`` installs a ``fn(duration_ms)`` that the
 kernel loader calls after each first-use ``nvcc`` build (the port's
 counterpart of the reference's XLA-compile monitoring seam; the daemon
@@ -36,6 +43,10 @@ _active_counters: list["CompileCounter"] = []
 
 class FetchTimeout(RuntimeError):
     """The background placement fetch missed its deadline."""
+
+
+class GuardError(ValueError):
+    """A host guard refused the instance before any launch."""
 
 
 class SyncCounter:

@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels of the dense auction, the express and
-stream lanes, the what-if batch and the sharded certificate, each
+stream lanes, the what-if batch, the sharded certificate and the
+general-graph solvers (cost-scaling and successive shortest paths), each
 beside its plain PyTorch twin and its launch counter.
 
 A wrapper launches its CUDA kernel for CUDA tensors and runs the plain
@@ -7,19 +8,23 @@ twin for CPU tensors; there is no fallback from one to the other.
 """
 
 from poseidon_tpu_torch.kernels import (
+    bf_relax,
     bid_pass,
+    cs_sweep,
     densify,
     express_patch,
     express_rows,
     gap_rows,
     perturb,
     row_options,
+    ssp_augment,
     stream_commit,
 )
 
 KERNELS = (densify.KERNEL, row_options.KERNEL, bid_pass.KERNEL,
            express_rows.KERNEL, express_patch.KERNEL, perturb.KERNEL,
-           stream_commit.KERNEL, gap_rows.KERNEL)
+           stream_commit.KERNEL, gap_rows.KERNEL, cs_sweep.KERNEL,
+           bf_relax.KERNEL, ssp_augment.KERNEL)
 
 
 def reset_launch_counts() -> None:
@@ -27,6 +32,7 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "reset_launch_counts", "bid_pass", "densify",
-           "express_patch", "express_rows", "gap_rows", "perturb",
-           "row_options", "stream_commit"]
+__all__ = ["KERNELS", "reset_launch_counts", "bf_relax", "bid_pass",
+           "cs_sweep", "densify", "express_patch", "express_rows",
+           "gap_rows", "perturb", "row_options", "ssp_augment",
+           "stream_commit"]

@@ -33,7 +33,8 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent / "_build"
 _SOURCES = (
     "densify", "row_options", "bid_pass", "express_rows", "express_patch",
-    "stream_commit", "perturb", "gap_rows",
+    "stream_commit", "perturb", "gap_rows", "cs_sweep", "bf_relax",
+    "ssp_augment",
 )
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -139,8 +140,9 @@ def library(name: str) -> ctypes.CDLL:
 
 def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     """Type every entry point: pointers and the stream as c_void_p (a
-    bare Python int would be cut to 32 bits), sizes as c_int."""
-    P, I = ctypes.c_void_p, ctypes.c_int
+    bare Python int would be cut to 32 bits), sizes as c_int, 64-bit
+    values as c_longlong."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     occupancy = [I, ctypes.POINTER(I)]
     sigs = {
         "densify": {
@@ -170,6 +172,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         },
         "gap_rows": {
             "gap_rows_launch": [P] * 6 + [I] * 3 + [P, P],
+        },
+        "cs_sweep": {
+            "cs_sweep_launch": [P] * 10 + [L] + [I] * 2 + [P],
+        },
+        "bf_relax": {
+            "bf_relax_out_launch": [P] * 6 + [I] + [P],
+            "bf_relax_in_launch": [P] * 8 + [I] * 2 + [P],
+        },
+        "ssp_augment": {
+            "ssp_augment_launch": [P] * 7 + [I] * 5 + [P],
         },
     }[name]
     for fn_name, argtypes in sigs.items():

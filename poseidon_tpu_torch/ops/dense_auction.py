@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from poseidon_tpu_torch.graph.network import pad_bucket
-from poseidon_tpu_torch.guards import SyncCounter
+from poseidon_tpu_torch.guards import GuardError, SyncCounter
 from poseidon_tpu_torch.kernels.bid_pass import bid_pass
 from poseidon_tpu_torch.kernels.densify import densify
 from poseidon_tpu_torch.kernels.gap_rows import gap_rows
@@ -71,6 +71,7 @@ from poseidon_tpu_torch.ops.transport import (
     CH_PREF,
     CH_UNSCHED,
     TransportInstance,
+    TransportResult,
 )
 
 I32 = torch.int32
@@ -88,11 +89,11 @@ MAX_SCALED_COST = 2**27     # guard: scaled costs must stay below this
 # as XLA's does, and the lane is discarded by a where().
 
 
-class CostDomainTooLarge(ValueError):
+class CostDomainTooLarge(GuardError):
     """Scaled costs exceed the int32 auction domain; use a fallback."""
 
 
-class DenseMemoryTooLarge(ValueError):
+class DenseMemoryTooLarge(GuardError):
     """The dense [Tp, Mp] table would exceed the device memory budget;
     use a fallback instead of running out of memory mid-solve."""
 
@@ -289,7 +290,7 @@ def build_member_tables(
 ) -> dict[str, np.ndarray]:
     """Scale + pad one instance's channel tables to (Tp, Mp, P), on the
     host, with exactly the reference's fills and guards. Raises
-    ``CostDomainTooLarge`` / ``ValueError`` per the kernel envelope."""
+    ``CostDomainTooLarge`` / ``GuardError`` per the kernel envelope."""
     T = inst.n_tasks
     if T > Tp or inst.n_machines > Mp or inst.max_prefs > P:
         raise ValueError(
@@ -303,7 +304,7 @@ def build_member_tables(
         fin = a[a < _NPINF]
         if fin.size:
             if (fin < 0).any():
-                raise ValueError("auction requires non-negative costs")
+                raise GuardError("auction requires non-negative costs")
             cmax = max(cmax, int(fin.max()))
     # route costs add at most two finite legs before saturation
     cmax_scaled = 2 * cmax * int(scale)
@@ -983,3 +984,75 @@ def _channels_for(inst: TransportInstance, asg: np.ndarray) -> np.ndarray:
         best = np.where(better, val, best)
         ch = np.where(better, CH_PREF + k, ch).astype(np.int32)
     return ch
+
+
+def _objective(inst: TransportInstance, ch: np.ndarray,
+               asg: np.ndarray) -> int:
+    T = inst.n_tasks
+    if T == 0:
+        return 0
+    m = np.maximum(np.asarray(asg), 0)
+    k = np.maximum(np.asarray(ch) - CH_PREF, 0)
+    pref_c = np.take_along_axis(
+        np.asarray(inst.pref_cost, np.int64), k[:, None], axis=1
+    )[:, 0]
+    is_rack = np.take_along_axis(
+        inst.pref_rack, k[:, None], axis=1
+    )[:, 0] >= 0
+    per_task = np.where(
+        (ch == CH_UNSCHED) | (asg < 0),
+        np.asarray(inst.u, np.int64),
+        np.where(
+            ch == CH_CLUSTER,
+            np.asarray(inst.w, np.int64) + np.asarray(inst.d, np.int64)[m],
+            pref_c + np.where(is_rack, np.asarray(inst.ra, np.int64)[m], 0),
+        ),
+    )
+    return int(per_task.sum())
+
+
+def solve_transport_dense(
+    inst: TransportInstance,
+    *,
+    warm: DenseState | None = None,
+    alpha: int = 1024,
+    max_rounds: int | None = None,
+    device=None,
+) -> tuple[TransportResult, DenseState | None]:
+    """Host-facing wrapper: densify, solve on ``device`` (``None``: the
+    card), read the assignment and the certificate back in one fetch."""
+    from poseidon_tpu_torch.ops.resident import on_device, resolve_device
+
+    dev = resolve_device(device)
+    T = inst.n_tasks
+    if T == 0:
+        return (
+            TransportResult(
+                assignment=np.zeros(0, np.int32),
+                channel=np.zeros(0, np.int32),
+                cost=0, rounds=0, phases=0, converged=True,
+            ),
+            None,
+        )
+    with on_device(dev):
+        inst_dev = build_dense_instance(inst, dev)
+        state = solve_dense(inst_dev, warm=warm, alpha=alpha,
+                            max_rounds=max_rounds)
+        got = SyncCounter().read(torch.cat([
+            state.asg[:T], state.converged.to(I32).reshape(1)]))
+    Mp = inst_dev.c.shape[1]
+    asg = np.asarray(got[:T], np.int32)
+    asg = np.where((asg >= 0) & (asg < Mp) & (asg < inst.n_machines),
+                   asg, -1).astype(np.int32)
+    ch = _channels_for(inst, asg)
+    return (
+        TransportResult(
+            assignment=asg,
+            channel=ch,
+            cost=_objective(inst, ch, asg),
+            rounds=int(state.rounds),
+            phases=int(state.phases),
+            converged=bool(got[T]),
+        ),
+        state,
+    )

@@ -7,7 +7,8 @@
   daemon's modules, named one by one, do so too, and its command lines
   start;
 - ``ResidentSolver()`` with no device on a host without CUDA raises and
-  names ``device="cpu"``, and so does a mesh of CUDA devices;
+  names ``device="cpu"``, and so do a mesh of CUDA devices and the
+  general lane's entry points;
 - the port's C++ oracle source is a byte-identical copy of the
   reference's, so the two cannot drift.
 """
@@ -157,6 +158,53 @@ def test_scale_lane_modules_import_without_jax():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"leaked": [], "jax": []}, got
+
+
+GENERAL_MODULES = (
+    "poseidon_tpu_torch.solver",
+    "poseidon_tpu_torch.ops.cost_scaling",
+    "poseidon_tpu_torch.ops.ssp",
+    "poseidon_tpu_torch.graph.dimacs",
+    "poseidon_tpu_torch.kernels.cs_sweep",
+    "poseidon_tpu_torch.kernels.bf_relax",
+    "poseidon_tpu_torch.kernels.ssp_augment",
+)
+
+
+def test_general_lane_modules_import_without_jax():
+    """The general-graph lane (cost-scaling, SSP, their kernels K9-K11,
+    the front door, DIMACS input) imports with jax blocked."""
+    out = subprocess.run(
+        [sys.executable, "-c", _DAEMON_PROBE, json.dumps(GENERAL_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "jax": []}, got
+
+
+def test_general_lane_entry_points_default_to_the_card(monkeypatch):
+    """``solve_cost_scaling``, ``solve_ssp``, ``solve_transport_dense``
+    and ``solve_scheduling`` with no device want the card, and raise
+    naming ``device="cpu"`` without one."""
+    from poseidon_tpu_torch import solve_scheduling
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.graph.dimacs import read_dimacs
+    from poseidon_tpu_torch.ops import solve_ssp
+    from poseidon_tpu_torch.ops.cost_scaling import solve_cost_scaling
+    from poseidon_tpu_torch.ops.dense_auction import solve_transport_dense
+    from poseidon_tpu_torch.cluster import ClusterState
+
+    net = read_dimacs("p min 2 1\nn 1 3\nn 2 -3\na 1 2 0 5 2\n")
+    _, meta = FlowGraphBuilder().build(ClusterState(machines=[], tasks=[]))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: solve_cost_scaling(net), lambda: solve_ssp(net),
+                 lambda: solve_scheduling(net, meta),
+                 lambda: solve_transport_dense(object())):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert solve_scheduling(net, meta, device="cpu").cost == 6
+    assert solve_ssp(net, device="cpu").routed == 3
 
 
 def test_mesh_entry_points_default_to_the_card(monkeypatch):
