@@ -66,15 +66,21 @@ Phases (each prints its own lines):
    SSP's first round is printed) and K11 (``ssp_augment``, SSP's first
    path; each timed call restores the flow first, and the restore's own
    time is taken off) are held and timed the same way at the flagship's
-   residual CSR (NN 12,290, 2F 145,410), their bounds the bytes a sweep,
-   round or walk must move over 3.35 TB/s, with their battery: a node of
-   degree 0, segments of 1,100 and 1,500 arcs, eps 1, 3 and 64 over
-   costs of both signs, distances all INF, all 0 and from the deficits
-   or one source, and walks along a path, over a mirror arc, into the
-   sentinel, from an unreachable T, round a cycle and with delta cut by
-   wanted - routed or 0; then one refine burst (a global update and 16
-   sweeps) and SSP's first three paths (their K10 ``in`` rounds and
-   K11 walks) under ``torch.profiler``;
+   residual CSR (NN 12,290, 2F 145,410; K9's and K10's launch plan
+   printed), their bounds the bytes a sweep, round or walk must move
+   over 3.35 TB/s, with their battery: a node of degree 0, segments of
+   1,100 and 1,500 arcs, segments at the plan's edges (degree 0, 1,
+   31-33, the chunk size 2,048 +- 1, a cluster's reach 16,384 +- 1 and
+   12,289 among 3,000 nodes of degree 6; a graph of heavy nodes only),
+   a hub whose admissible arcs and choice arc lie in different chunks
+   and cluster ranks (the choice arc pushing its share and a remainder),
+   and ``in`` ties whose lowest arc id lies at the segment's end; eps 1,
+   3 and 64 over costs of both signs, distances all INF, all 0 and from
+   the deficits or one source, and walks along a path, over a mirror
+   arc, into the sentinel, from an unreachable T, round a cycle and
+   with delta cut by wanted - routed or 0; then one refine burst (a
+   global update and 16 sweeps) and SSP's first three paths (their K10
+   ``in`` rounds and K11 walks) under ``torch.profiler``;
 4. parity: a small flagship-shaped cluster (64 machines x 600 pods), one
    cold and two churned warm rounds on the card and on the CPU (the
    twins): every field of every round must be equal; then three express
@@ -3449,7 +3455,8 @@ def ssp_first_path(torch, net):
     changed = torch.ones(1, dtype=torch.int32, device=dev)
     rounds = 0
     while int(changed[0]) and rounds < NN:
-        bf_relax_in(g.seg, g.arc, g.head, mrc, dist, d2, pred, changed)
+        bf_relax_in(g.seg, g.arc, g.head, mrc, dist, d2, pred, changed,
+                    g.plan)
         dist, d2 = d2, dist
         rounds += 1
     tabs = (torch.as_tensor(fsrc, device=dev), torch.as_tensor(fdst, device=dev))
@@ -3495,8 +3502,17 @@ def general_kernel_records(torch, timer):
     act_arcs = int(deg[act].sum())
     n_act = int(act.sum())
     ex2, pr2 = torch.empty_like(s.excess), torch.empty_like(s.price)
+    plan = g.plan
+    heavy = [int(x) for x in deg[plan.items[:plan.n_heavy, 0].long()]]
+    log(f"[kernels] K9/K10 launch plan (flagship, cost-scaling CSR): "
+        f"{plan.n_heavy} heavy segments of {heavy} positions over clusters "
+        f"of 8 blocks, {plan.n_light} light blocks, {plan.blocks} blocks")
+
+    def k9_kernel(*a):
+        k9.cs_sweep(*a, plan)
+
     outs = []
-    for fn in (k9.cs_sweep, k9.cs_sweep_plain):
+    for fn in (k9_kernel, k9.cs_sweep_plain):
         flow = s.flow.clone()
         e_o, p_o = torch.empty_like(s.excess), torch.empty_like(s.price)
         fn(g.seg, g.arc, g.head, g.cost, g.fcap, flow, s.excess, s.price,
@@ -3513,7 +3529,7 @@ def general_kernel_records(torch, timer):
     # arc), excess and price in and out (24 a node)
     b = 4 * (NN + 1) + 24 * act_arcs + 24 * NN
     ops = 12 * act_arcs
-    ms, plain = timer(k9_call(k9.cs_sweep)), timer(k9_call(k9.cs_sweep_plain))
+    ms, plain = timer(k9_call(k9_kernel)), timer(k9_call(k9.cs_sweep_plain))
     log(f"[kernels] cs_sweep state: the busiest refine burst's first sweep "
         f"(eps={eps}), {n_act} active nodes, {act_arcs} arcs in their "
         f"segments (of {2 * F})")
@@ -3524,8 +3540,12 @@ def general_kernel_records(torch, timer):
     ln = arc_lengths(g, s.flow, s.price, eps)
     d = torch.where(s.excess < 0, 0, k10.INF_K).to(torch.int64)
     ch = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+
+    def k10_out(*a):
+        k10.bf_relax_out(*a, plan)
+
     outs = []
-    for fn in (k10.bf_relax_out, k10.bf_relax_out_plain):
+    for fn in (k10_out, k10.bf_relax_out_plain):
         d_o, c_o = torch.empty_like(d), torch.zeros_like(ch)
         fn(g.seg, g.head, ln, d, d_o, c_o)
         outs.append([d_o, c_o])
@@ -3533,7 +3553,7 @@ def general_kernel_records(torch, timer):
     d_o = torch.empty_like(d)
     b = 4 * (NN + 1) + 12 * 2 * F + 16 * NN + 4
     ops = 4 * 2 * F
-    ms = timer(lambda: k10.bf_relax_out(g.seg, g.head, ln, d, d_o, ch))
+    ms = timer(lambda: k10_out(g.seg, g.head, ln, d, d_o, ch))
     plain = timer(lambda: k10.bf_relax_out_plain(g.seg, g.head, ln, d, d_o, ch))
     records.append((k10.KERNEL, err, ms, plain, *bound_ms(b, ops),
                     (NN, 2 * F)))
@@ -3542,8 +3562,12 @@ def general_kernel_records(torch, timer):
     # K10 in at SSP's first round of its first path (the flagship net)
     q = ssp_first_path(torch, flag)
     g2, NN2, F2 = q["g"], q["NN"], q["F"]
+
+    def k10_in(*a):
+        k10.bf_relax_in(*a, g2.plan)
+
     outs = []
-    for fn in (k10.bf_relax_in, k10.bf_relax_in_plain):
+    for fn in (k10_in, k10.bf_relax_in_plain):
         d_o, p_o = torch.empty_like(q["dist0"]), q["pred0"].clone()
         c_o = torch.zeros_like(ch)
         fn(g2.seg, g2.arc, g2.head, q["mrc"], q["dist0"], d_o, p_o, c_o)
@@ -3551,7 +3575,7 @@ def general_kernel_records(torch, timer):
     in_err = max_abs_err(outs[0], outs[1])
     d_o, p_o = torch.empty_like(q["dist0"]), q["pred0"].clone()
     in_args = (g2.seg, g2.arc, g2.head, q["mrc"], q["dist0"], d_o, p_o, ch)
-    in_ms = timer(lambda: k10.bf_relax_in(*in_args))
+    in_ms = timer(lambda: k10_in(*in_args))
     in_plain = timer(lambda: k10.bf_relax_in_plain(*in_args))
     b_in = 4 * (NN2 + 1) + 12 * 2 * F2 + 12 * NN2 + 4
     in_bms, in_by = bound_ms(b_in, 4 * 2 * F2)
@@ -3652,117 +3676,233 @@ def profile_ssp_paths(torch, net, n_paths: int = 3) -> None:
     profile_symbols(prof, wall_us, label, GENERAL_SYMBOLS[2:])
 
 
-def edge_residual_graph(torch, seed: int, NN: int, F: int, hub: int):
+def edge_residual_graph(seed: int, NN: int, F: int, hub: int):
     """A random residual graph for K9/K10's battery on the card: node
     NN - 1 has no arc (degree 0), node 1 is the tail of ``hub`` forward
     arcs (a segment past 1,024 when hub is large), with random
     capacities, flows, excesses, prices and costs of both signs."""
     import numpy as np
 
-    from poseidon_tpu_torch.ops.cost_scaling import residual_csr
-
     rng = np.random.default_rng(seed)
-    dev = torch.device(DEVICE)
     fsrc = rng.integers(0, NN - 1, F).astype(np.int32)
     fdst = rng.integers(0, NN - 1, F).astype(np.int32)
     fsrc[:hub] = 1
     fcap = rng.integers(0, 10, F).astype(np.int32)
     fcost = rng.integers(-400, 400, F).astype(np.int64)
-    g = residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]), NN,
-                     dev)
-    flow = torch.as_tensor((rng.random(F) * (fcap + 1)).astype(np.int32)
-                           .clip(0, fcap), device=dev)
-    excess = torch.as_tensor(rng.integers(-6, 9, NN).astype(np.int32),
-                             device=dev)
-    price = torch.as_tensor(rng.integers(-900, 900, NN).astype(np.int64),
-                            device=dev)
-    return g, flow, excess, price, rng
+    flow = (rng.random(F) * (fcap + 1)).astype(np.int32).clip(0, fcap)
+    excess = rng.integers(-6, 9, NN).astype(np.int32)
+    price = rng.integers(-900, 900, NN).astype(np.int64)
+    return fsrc, fdst, fcap, fcost, flow, excess, price
+
+
+def degree_graph(seed: int, degrees):
+    """Residual tables whose nodes have exactly ``degrees`` residual arcs:
+    the degree stubs paired at random (a self loop gives its node both
+    its forward arc and the mirror; an odd total gets one more stub on
+    the last node). Random capacities, flows, prices and costs of both
+    signs; excesses small, the nodes past a light block's reach holding
+    up to 10^6."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels.csr_plan import CHUNK
+
+    rng = np.random.default_rng(seed)
+    deg = np.asarray(degrees, np.int64)
+    deg[-1] += int(deg.sum()) % 2
+    stubs = rng.permutation(np.repeat(np.arange(len(deg)), deg))
+    fsrc, fdst = stubs[0::2].astype(np.int32), stubs[1::2].astype(np.int32)
+    F = len(fsrc)
+    fcap = rng.integers(0, 10, F).astype(np.int32)
+    fcost = rng.integers(-400, 400, F).astype(np.int64)
+    flow = (rng.random(F) * (fcap + 1)).astype(np.int32).clip(0, fcap)
+    excess = rng.integers(-6, 9, len(deg)).astype(np.int32)
+    big = deg > CHUNK
+    excess[big] = rng.integers(1, 10**6, int(big.sum()))
+    price = rng.integers(-900, 900, len(deg)).astype(np.int64)
+    return fsrc, fdst, fcap, fcost, flow, excess, price
+
+
+def hub_graph(D: int, admissible, NN: int = 40, extra: int = 200):
+    """tests/test_torch_cost_scaling.py's ``hub_graph``: node 1 the tail
+    of forward arcs 0..D-1, prices 0, every residual arc 2 units, node
+    1's arcs cost -1 at ``admissible`` and +1 elsewhere, node 1's excess
+    5: the choice arc pushes its share and a remainder."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    F = D + extra
+    fsrc = np.concatenate([np.full(D, 1), rng.integers(2, NN - 1, extra)])
+    fdst = np.concatenate([rng.integers(2, NN - 1, D),
+                           rng.integers(2, NN - 1, extra)])
+    fcost = np.concatenate([np.ones(D), rng.integers(-400, 400, extra)])
+    fcost[list(admissible)] = -1
+    excess = rng.integers(-6, 9, NN).astype(np.int32)
+    excess[1] = 5
+    return (fsrc.astype(np.int32), fdst.astype(np.int32),
+            np.full(F, 4, np.int32), fcost.astype(np.int64),
+            np.full(F, 2, np.int32), excess, np.zeros(NN, np.int64))
+
+
+def tie_graph(D1: int, D2: int = 20, NN: int = 30):
+    """tests/test_torch_ssp.py's ``tie_graph``: node 1's in-arcs all offer
+    -5 (distances 0, node 1's INF); the lowest arc id among them, D1,
+    sits at the end of node 1's segment. Returns the tables with the
+    distances in place of the excesses and potentials 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(D1)
+    F = D1 + D2
+    fsrc = np.concatenate([np.full(D1, 1), np.full(D2, 3)]).astype(np.int32)
+    fdst = np.concatenate([rng.integers(2, NN, D1),
+                           np.full(D2, 1)]).astype(np.int32)
+    fcost = np.concatenate([np.full(D1, 5), np.full(D2, -5)]).astype(np.int64)
+    flow = np.concatenate([np.ones(D1), np.zeros(D2)]).astype(np.int32)
+    dist = np.zeros(NN, np.int32)
+    dist[1] = 2**30
+    return (fsrc, fdst, np.full(F, 4, np.int32), fcost, flow, dist,
+            np.zeros(NN, np.int64))
+
+
+def general_edge_graphs():
+    """(name, tables, SSP potentials or None, distances or None) of K9's
+    and K10's battery: random graphs (a degree-0 node, hubs of
+    1,100 and 1,500 arcs), segments of degree 0, 1, 31-33, the chunk
+    size +- 1, a cluster's reach +- 1 and 12,289 (S and T at the
+    flagship) among 3,000 nodes of degree 6, a graph of heavy nodes only,
+    the hub cases of the CPU tests (the choice arc and the other
+    admissible arcs in different chunks and blocks, a remainder push on
+    the choice arc, a segment past one cluster's reach) and the two
+    ``in`` ties whose lowest arc id lies at the segment's end."""
+    from poseidon_tpu_torch.kernels.csr_plan import CHUNK, CLUSTER
+
+    out = [(f"random{seed}", edge_residual_graph(seed, NN, F, hub),
+            None)
+           for seed, NN, F, hub in ((1, 40, 300, 0), (2, 300, 4000, 1500),
+                                    (3, 2, 1, 0), (4, 1100, 3000, 1100))]
+    reach = CLUSTER * CHUNK
+    out.append(("degrees", degree_graph(5, [
+        0, 1, 31, 32, 33, CHUNK - 1, CHUNK, CHUNK + 1, reach - 1, reach,
+        reach + 1, 12289, 12289] + [6] * 3000 + [0, 1]), None))
+    out.append(("all_heavy", degree_graph(6, [CHUNK + 1, 3000, 5000,
+                                              reach + 2]), None))
+    for name, (D, adm) in {
+        "hub_light_at_threshold": (CHUNK, [31, 32, 1000, CHUNK - 1]),
+        "hub_choice_chunk0_rest_later": (3 * CHUNK + 100,
+                                         [CHUNK - 1, CHUNK + 5,
+                                          2 * CHUNK + 7, 3 * CHUNK + 50]),
+        "hub_choice_on_rank3": (5 * CHUNK, [3 * CHUNK + 1, 3 * CHUNK + 9,
+                                            4 * CHUNK + 3, 4 * CHUNK + 4]),
+        "hub_past_one_cluster": (reach + 300, [5, 7 * CHUNK + 1,
+                                               reach + 10, reach + 299]),
+    }.items():
+        out.append((name, hub_graph(D, adm), None))
+    for name, D1 in (("tie_light", CHUNK - 30),
+                     ("tie_heavy_rank2", 2 * CHUNK + 10)):
+        out.append((name, tie_graph(D1), "tie"))
+    return out
 
 
 def general_edges(torch) -> None:
     """K9, K10 (both entry points) and K11 against their twins on the
-    card, tolerance 0, at edge shapes: a degree-0 node, a segment of
-    1,500 arcs, negative reduced costs at eps 1, 3 and 64, all-INF and
-    all-zero distances, and K11's walks: a path, one over a mirror arc,
-    a walk that meets the sentinel, an unreachable T, a cycle to the
-    step cap, and a delta cut by wanted - routed."""
+    card, tolerance 0, at edge shapes (``general_edge_graphs``): K9 at
+    eps 1, 3 and 64 over costs of both signs; K10 ``out`` with all-INF,
+    all-zero and deficit distances; K10 ``in`` from one source, all INF
+    and mixed (the tie graphs with their own distances); and K11's
+    walks: a path, one over a mirror arc, a walk that meets the
+    sentinel, an unreachable T, a cycle to the step cap, and a delta
+    cut by wanted - routed."""
     import numpy as np
 
     from poseidon_tpu_torch.kernels import bf_relax as k10
     from poseidon_tpu_torch.kernels import cs_sweep as k9
     from poseidon_tpu_torch.kernels import ssp_augment as k11
-    from poseidon_tpu_torch.ops.cost_scaling import arc_lengths
+    from poseidon_tpu_torch.ops.cost_scaling import arc_lengths, residual_csr
     from poseidon_tpu_torch.ops.ssp import mirror_costs
 
     INF_K, INF = k10.INF_K, k10.INF
     dev = torch.device(DEVICE)
     bad, n = [], 0
-    for seed, NN, F, hub in ((1, 40, 300, 0), (2, 300, 4000, 1500),
-                             (3, 2, 1, 0), (4, 1100, 3000, 1100)):
-        g, flow0, excess, price, rng = edge_residual_graph(
-            torch, seed, NN, F, hub)
-        for eps in (1, 3, 64):
-            outs = []
-            for fn in (k9.cs_sweep, k9.cs_sweep_plain):
-                fl = flow0.clone()
-                e_o, p_o = torch.empty_like(excess), torch.empty_like(price)
-                fn(g.seg, g.arc, g.head, g.cost, g.fcap, fl, excess, price,
-                   eps, e_o, p_o)
-                outs.append([fl, e_o, p_o])
-            err = max_abs_err(outs[0], outs[1])
-            n += 1
-            if err:
-                bad.append(("cs_sweep", seed, eps, err))
-            ln = arc_lengths(g, flow0, price, eps)
-            for kind in ("excess", "all_inf", "zeros"):
-                d = {"excess": torch.where(excess < 0, 0, INF_K),
-                     "all_inf": torch.full((NN,), INF_K, device=dev),
-                     "zeros": torch.zeros(NN, device=dev)}[kind].to(torch.int64)
-                outs = []
-                for fn in (k10.bf_relax_out, k10.bf_relax_out_plain):
-                    d_o = torch.empty_like(d)
-                    c_o = torch.full((1,), 7, dtype=torch.int32, device=dev)
-                    fn(g.seg, g.head, ln, d, d_o, c_o)
-                    outs.append([d_o, c_o])
-                err = max_abs_err(outs[0], outs[1])
-                n += 1
-                if err:
-                    bad.append(("bf_relax_out", seed, eps, kind, err))
-        pot = (price % 50).to(torch.int32)
-        mrc = mirror_costs(g, pot, flow0).to(torch.int32)
-        for kind in ("source", "all_inf", "mixed"):
-            dist = torch.full((NN,), INF, dtype=torch.int32, device=dev)
-            if kind == "source":
-                dist[0] = 0
-            elif kind == "mixed":
-                dist = torch.where(excess > 0, excess * 3, INF).to(torch.int32)
-            pred0 = torch.as_tensor(rng.integers(0, 2 * F + 1, NN)
-                                    .astype(np.int32), device=dev)
-            outs = []
-            for fn in (k10.bf_relax_in, k10.bf_relax_in_plain):
-                d_o, p_o = torch.empty_like(dist), pred0.clone()
-                c_o = torch.full((1,), 7, dtype=torch.int32, device=dev)
-                fn(g.seg, g.arc, g.head, mrc, dist, d_o, p_o, c_o)
-                outs.append([d_o, p_o, c_o])
-            err = max_abs_err(outs[0], outs[1])
-            n += 1
-            if err:
-                bad.append(("bf_relax_in", seed, kind, err))
-    for name, case in ssp_walk_cases(torch):
+
+    def check(label, kernel, plain, make_args):
+        """One case: the kernel (with the plan) and its twin on fresh
+        copies of the same arguments; every output equal."""
+        nonlocal n
         outs = []
-        for fn in (k11.ssp_augment, k11.ssp_augment_plain):
-            fl, st = case["flow"].clone(), case["state"].clone()
-            fn(case["pred"], case["dist"], case["fsrc"], case["fdst"],
-               case["fcap"], fl, st, case["wanted"], case["S"], case["T"])
-            outs.append([fl, st])
+        for fn in (kernel, plain):
+            args, keep = make_args()
+            fn(*args)
+            outs.append(keep)
         err = max_abs_err(outs[0], outs[1])
         n += 1
         if err:
-            bad.append(("ssp_augment", name, err))
+            ndiff = [int((x != y).sum()) for x, y in zip(*outs)]
+            bad.append((*label, err, ndiff))
+
+    for name, tabs, kind in general_edge_graphs():
+        fsrc, fdst, fcap, fcost, flow_h, excess_h, price_h = tabs
+        NN = len(excess_h)
+        g = residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]),
+                         NN, dev)
+        flow0 = torch.as_tensor(flow_h, device=dev)
+        excess = torch.as_tensor(excess_h, device=dev)
+        price = torch.as_tensor(price_h, device=dev)
+        rng = np.random.default_rng(NN)
+        F = len(fsrc)
+        if kind is None:
+            for eps in (1, 3, 64):
+                def sweep_args(eps=eps):
+                    fl = flow0.clone()
+                    e_o, p_o = torch.empty_like(excess), torch.empty_like(price)
+                    return ((g.seg, g.arc, g.head, g.cost, g.fcap, fl, excess,
+                             price, eps, e_o, p_o), [fl, e_o, p_o])
+                check(("cs_sweep", name, eps),
+                      lambda *a: k9.cs_sweep(*a, g.plan), k9.cs_sweep_plain,
+                      sweep_args)
+                ln = arc_lengths(g, flow0, price, eps)
+                for dk in ("excess", "all_inf", "zeros"):
+                    d = {"excess": torch.where(excess < 0, 0, INF_K),
+                         "all_inf": torch.full((NN,), INF_K, device=dev),
+                         "zeros": torch.zeros(NN, device=dev)}[dk].to(torch.int64)
+
+                    def out_args(d=d, ln=ln):
+                        d_o = torch.empty_like(d)
+                        c_o = torch.full((1,), 7, dtype=torch.int32, device=dev)
+                        return (g.seg, g.head, ln, d, d_o, c_o), [d_o, c_o]
+                    check(("bf_relax_out", name, eps, dk),
+                          lambda *a: k10.bf_relax_out(*a, g.plan),
+                          k10.bf_relax_out_plain, out_args)
+        pot = (price % 50).to(torch.int32)
+        mrc = mirror_costs(g, pot, flow0).to(torch.int32)
+        for dk in (("tie",) if kind == "tie" else ("source", "all_inf", "mixed")):
+            dist = {"tie": excess,
+                    "source": torch.where(torch.arange(NN, device=dev) == 0,
+                                          0, INF),
+                    "all_inf": torch.full((NN,), INF, device=dev),
+                    "mixed": torch.where(excess > 0, excess * 3, INF)}[dk]
+            dist = dist.to(torch.int32)
+            pred0 = torch.as_tensor(rng.integers(0, 2 * F + 1, NN)
+                                    .astype(np.int32), device=dev)
+
+            def in_args(dist=dist, pred0=pred0):
+                d_o, p_o = torch.empty_like(dist), pred0.clone()
+                c_o = torch.full((1,), 7, dtype=torch.int32, device=dev)
+                return ((g.seg, g.arc, g.head, mrc, dist, d_o, p_o, c_o),
+                        [d_o, p_o, c_o])
+            check(("bf_relax_in", name, dk),
+                  lambda *a: k10.bf_relax_in(*a, g.plan),
+                  k10.bf_relax_in_plain, in_args)
+    for name, case in ssp_walk_cases(torch):
+        def walk_args(case=case):
+            fl, st = case["flow"].clone(), case["state"].clone()
+            return ((case["pred"], case["dist"], case["fsrc"], case["fdst"],
+                     case["fcap"], fl, st, case["wanted"], case["S"],
+                     case["T"]), [fl, st])
+        check(("ssp_augment", name), k11.ssp_augment, k11.ssp_augment_plain,
+              walk_args)
     log(f"[edges] cs_sweep, bf_relax (out, in), ssp_augment: {n} cases, "
         f"{len(bad)} differ")
     if bad:
-        raise AssertionError(f"[edges] general kernels != twins: {bad[:4]}")
+        raise AssertionError(f"[edges] general kernels != twins: {bad[:8]}")
 
 
 def ssp_walk_cases(torch):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the hand kernels (K1 ``densify``, K2 ``row_options``, K3
-``bid_pass``) of one or more checkouts on one GPU, in turns, in one run.
+``bid_pass``, K9 ``cs_sweep``, K10 ``bf_relax`` ``out`` and ``in``) of
+one or more checkouts on one GPU, in turns, in one run.
 
     python3 kernel_ab.py ROOT [ROOT ...]
 
@@ -36,6 +37,20 @@ kernel against its plain twin (tolerance 0) and prints one JSON line:
 - for K1 also ``one_tile_ms`` and ``one_tile_fill_ms``: as ``cold_ms``,
   K1 on the first 4 rows (one tile, one block) and a ``fill_`` of as
   many bytes: the fixed cost of a cold launch, before the bytes count.
+
+K9 and K10 run at the general lane's flagship states, which each
+process builds with its own checkout's solvers: BASELINE config 2 priced
+by quincy as a general graph (NN 12,290); K9 at the first sweep of the
+cost-scaling solve's busiest refine burst (the state after its global
+update; ``chip_smoke.py``'s ``[kernels]`` state) and K10 ``out`` at the
+first round of that state's next global update; K10 ``in`` at SSP's
+first relaxation round. Each calls its checkout's own wrapper (a
+checkout whose residual CSR carries a launch plan passes it; an older
+one takes none) and is checked against the twin (tolerance 0). K9
+updates the flow in place, so its repeated calls sweep on from the
+state they leave; every checkout makes the same calls from the same
+state, and the kernels agree bit for bit, so each times the same work.
+They print ``cold_ms``, ``warm_ms``, ``host_us`` and ``wall_us``.
 
 The card's name and power limit come first, from ``nvidia-smi``.
 """
@@ -140,31 +155,7 @@ def worker(root: str) -> dict:
             "cold_dirty_ms": cold_time(flush.zero_, lambda: fn(*args)),
             floor_name: cold_time(lambda: flush.max(), floor),
         }
-        fn(*args)
-        torch.cuda._sleep(SLEEP_CYCLES * WARM_CALLS)
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(WARM_CALLS):
-            fn(*args)
-        b.record()
-        b.synchronize()
-        host, wall = [], []
-        for _ in range(HOST_BATCHES):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(HOST_CALLS):
-                fn(*args)
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            host.append((t1 - t0) / HOST_CALLS * 1e6)
-            wall.append((t2 - t0) / HOST_CALLS * 1e6)
-        out[name] = {
-            **cold,
-            "warm_ms": a.elapsed_time(b) / WARM_CALLS,
-            "host_us": sorted(host)[HOST_BATCHES // 2],
-            "wall_us": sorted(wall)[HOST_BATCHES // 2],
-        }
+        out[name] = {**cold, **warm_and_host(torch, lambda: fn(*args))}
     # K1's fixed cost: one 4-row tile (one block), and a fill_ of as many
     # bytes, each cold; what a launch costs before its bytes do
     tile = tuple(x[:4] for x in a1[:1]) + a1[1:5] + tuple(x[:4] for x in a1[5:])
@@ -172,7 +163,146 @@ def worker(root: str) -> dict:
         lambda: flush.max(), lambda: k1.densify(*tile, n_prefs=P))
     out["densify"]["one_tile_fill_ms"] = cold_time(
         lambda: flush.max(), lambda: table[:4].fill_(0))
+    for name, (call, check) in general_calls(torch, dev).items():
+        if not check():
+            raise AssertionError(f"{root}: {name} != its plain twin")
+        out[name] = {"cold_ms": cold_time(lambda: flush.max(), call),
+                     **warm_and_host(torch, call)}
     return out
+
+
+def warm_and_host(torch, call) -> dict:
+    """``warm_ms``, ``host_us`` and ``wall_us`` of ``call`` (the module
+    note says how)."""
+    call()
+    torch.cuda._sleep(SLEEP_CYCLES * WARM_CALLS)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(WARM_CALLS):
+        call()
+    b.record()
+    b.synchronize()
+    host, wall = [], []
+    for _ in range(HOST_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            call()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) / HOST_CALLS * 1e6)
+        wall.append((t2 - t0) / HOST_CALLS * 1e6)
+    return {"warm_ms": a.elapsed_time(b) / WARM_CALLS,
+            "host_us": sorted(host)[HOST_BATCHES // 2],
+            "wall_us": sorted(wall)[HOST_BATCHES // 2]}
+
+
+def general_calls(torch, dev) -> dict:
+    """K9 and K10 at the flagship's general-lane states, built with this
+    process's checkout: name -> (timed call, check against the twin)."""
+    import numpy as np
+
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.kernels import bf_relax as k10
+    from poseidon_tpu_torch.kernels import cs_sweep as k9
+    from poseidon_tpu_torch.models.costs import build_cost_inputs, quincy_cost
+    from poseidon_tpu_torch.ops import cost_scaling as cs
+    from poseidon_tpu_torch.ops import ssp
+    from poseidon_tpu_torch.synth import config2_quincy_flagship
+
+    cluster = config2_quincy_flagship(seed=0)
+    net, meta = FlowGraphBuilder().build(cluster)
+    pending = cluster.pending()
+    inputs = build_cost_inputs(
+        net, meta, device=dev,
+        task_cpu_milli=np.array([int(t.cpu_request * 1000) for t in pending],
+                                np.int64),
+        task_mem_kb=np.array([t.memory_request_kb for t in pending],
+                             np.int64))
+    net = net.with_costs(quincy_cost(inputs))
+    fuse = 200 * (net.num_node_slots.bit_length() + 8) * 8
+
+    class Sampled(cs._Solve):
+        """The solve, keeping the state at the start of the refine burst
+        whose active nodes hold the most positions."""
+        best = (-1, None)
+
+        def global_update(self, eps: int) -> None:
+            act = self.excess > 0
+            deg = (self.g.seg[1:] - self.g.seg[:-1]).long()
+            load = int(deg[act].sum())
+            if load > self.best[0]:
+                self.best = (load, (self.flow.clone(), self.excess.clone(),
+                                    self.price.clone(), eps))
+            super().global_update(eps)
+
+    sampled = Sampled(net, dev, 8, fuse, 16)
+    sampled.run()
+    flow, excess, price, eps = sampled.best[1]
+    s = cs._Solve(net, dev, 8, fuse, 16)
+    s.flow.copy_(flow)
+    s.excess.copy_(excess)
+    s.price.copy_(price)
+    s.global_update(eps)
+    g = s.g
+    plan = (g.plan,) if hasattr(g, "plan") else ()
+
+    def sweep_args(fl):
+        return (g.seg, g.arc, g.head, g.cost, g.fcap, fl, s.excess, s.price,
+                eps, torch.empty_like(s.excess), torch.empty_like(s.price))
+
+    def check_sweep():
+        a, b = sweep_args(s.flow.clone()), sweep_args(s.flow.clone())
+        k9.cs_sweep(*a, *plan)
+        k9.cs_sweep_plain(*b)
+        return all(torch.equal(x, y) for x, y in
+                   zip((a[5], a[9], a[10]), (b[5], b[9], b[10])))
+
+    timed_flow = s.flow.clone()
+    sweep_call = sweep_args(timed_flow)
+    ln = cs.arc_lengths(g, s.flow, s.price, eps)
+    d = torch.where(s.excess < 0, 0, k10.INF_K).to(torch.int64)
+
+    def out_args():
+        return (g.seg, g.head, ln, d, torch.empty_like(d),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+
+    def check_out():
+        a, b = out_args(), out_args()
+        k10.bf_relax_out(*a, *plan)
+        k10.bf_relax_out_plain(*b)
+        return torch.equal(a[4], b[4]) and torch.equal(a[5], b[5])
+
+    out_call = out_args()
+    fsrc, fdst, fcap, fcost, S, T = ssp._residual_tables(net)
+    F, NN = fsrc.shape[0], net.num_node_slots + 2
+    g2 = cs.residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]),
+                         NN, dev)
+    plan2 = (g2.plan,) if hasattr(g2, "plan") else ()
+    mrc = ssp.mirror_costs(g2, torch.zeros(NN, dtype=torch.int32, device=dev),
+                           torch.zeros(F, dtype=torch.int32, device=dev))
+    dist = torch.full((NN,), k10.INF, dtype=torch.int32, device=dev)
+    dist[S] = 0
+
+    def in_args():
+        return (g2.seg, g2.arc, g2.head, mrc, dist, torch.empty_like(dist),
+                torch.full((NN,), 2 * F, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+
+    def check_in():
+        a, b = in_args(), in_args()
+        k10.bf_relax_in(*a, *plan2)
+        k10.bf_relax_in_plain(*b)
+        return all(torch.equal(x, y) for x, y in zip(a[5:], b[5:]))
+
+    in_call = in_args()
+    return {
+        "cs_sweep": (lambda: k9.cs_sweep(*sweep_call, *plan), check_sweep),
+        "bf_relax_out": (lambda: k10.bf_relax_out(*out_call, *plan),
+                         check_out),
+        "bf_relax_in": (lambda: k10.bf_relax_in(*in_call, *plan2), check_in),
+    }
 
 
 def main(argv: list[str]) -> int:
@@ -191,7 +321,7 @@ def main(argv: list[str]) -> int:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
              os.path.abspath(root)],
-            cwd=root, capture_output=True, text=True, timeout=600,
+            cwd=root, capture_output=True, text=True, timeout=900,
         )
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)

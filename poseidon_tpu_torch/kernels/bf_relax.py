@@ -11,10 +11,11 @@ Two entry points, one per reference loop:
   ``dist[tail] + rc``, with the predecessor arc.
 
 The CUDA source is ``csrc/bf_relax.cu``; its header note gives the byte
-bound and the design (one warp a node). The CSR is the one K9 reads
-(``kernels/cs_sweep.py``). Each launch writes the new distances into a
-second buffer and sets ``changed`` (int32[1]) when any improved; the
-caller swaps the buffers.
+bound and the design (a segmented min split by positions through the
+launch plan of ``kernels/csr_plan.py``, as K9). The CSR and its plan are
+the ones K9 reads (``kernels/cs_sweep.py``). Each launch writes the new
+distances into a second buffer and sets ``changed`` (int32[1]) when any
+improved; the caller swaps the buffers.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
 from poseidon_tpu_torch.kernels.cs_sweep import csr_tails
+from poseidon_tpu_torch.kernels.csr_plan import CsrPlan, plan_args
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
 
 INF_K = 2**50   # cost_scaling.py's "no path" distance
@@ -72,11 +74,12 @@ def bf_relax_in_plain(seg, arc, head, mrc, dist_in, dist_out, pred, changed):
     changed.copy_(improved.any().to(torch.int32).reshape(1))
 
 
-def bf_relax_out(seg, head, ln, d_in, d_out, changed):
+def bf_relax_out(seg, head, ln, d_in, d_out, changed, plan: CsrPlan):
     """One round of the global price update: ``seg`` int32[NN + 1],
     ``head`` int32[2F], ``ln`` int64[2F] (INF_K where no residual
-    capacity), ``d_in``/``d_out`` int64[NN], ``changed`` int32[1]. CPU
-    tensors take the plain twin; CUDA tensors launch K10."""
+    capacity), ``d_in``/``d_out`` int64[NN], ``changed`` int32[1];
+    ``plan`` the CSR's launch plan. CPU tensors take the plain twin, which
+    needs no plan; CUDA tensors launch K10."""
     if not on_card(seg, head, ln, d_in, d_out, changed):
         bf_relax_out_plain(seg, head, ln, d_in, d_out, changed)
         return
@@ -89,18 +92,21 @@ def bf_relax_out(seg, head, ln, d_in, d_out, changed):
         (d_out, "d_out", i64, (NN,)), (changed, "changed", i32, (1,)),
     )
     ptrs = [kernel_arg(t, name, dt, shape) for t, name, dt, shape in spec]
+    pp = plan_args(plan, NN, R)
     with torch.cuda.device(d_in.device):
         err = library("bf_relax").bf_relax_out_launch(
-            *ptrs, NN, stream_ptr(d_in))
+            *pp, *ptrs[1:], plan.n_heavy, plan.n_light, stream_ptr(d_in))
     check_launch(KERNEL, err)
     KERNEL.launches += 1
 
 
-def bf_relax_in(seg, arc, head, mrc, dist_in, dist_out, pred, changed):
+def bf_relax_in(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
+                plan: CsrPlan):
     """One SSP relaxation round: ``seg`` int32[NN + 1], ``arc``/``head``/
     ``mrc`` int32[2F], ``dist_in``/``dist_out``/``pred`` int32[NN] (pred
-    in place), ``changed`` int32[1]. CPU tensors take the plain twin; CUDA
-    tensors launch K10."""
+    in place), ``changed`` int32[1]; ``plan`` the CSR's launch plan. CPU
+    tensors take the plain twin, which needs no plan; CUDA tensors launch
+    K10."""
     if not on_card(seg, arc, head, mrc, dist_in, dist_out, pred, changed):
         bf_relax_in_plain(seg, arc, head, mrc, dist_in, dist_out, pred,
                           changed)
@@ -115,8 +121,10 @@ def bf_relax_in(seg, arc, head, mrc, dist_in, dist_out, pred, changed):
         (pred, "pred", i32, (NN,)), (changed, "changed", i32, (1,)),
     )
     ptrs = [kernel_arg(t, name, dt, shape) for t, name, dt, shape in spec]
+    pp = plan_args(plan, NN, R)
     with torch.cuda.device(dist_in.device):
         err = library("bf_relax").bf_relax_in_launch(
-            *ptrs, NN, R // 2, stream_ptr(dist_in))
+            *pp, *ptrs[1:], plan.n_heavy, plan.n_light, R // 2,
+            stream_ptr(dist_in))
     check_launch(KERNEL, err)
     KERNEL.launches += 1

@@ -3,8 +3,10 @@ its plain twin.
 
 Replaces ``poseidon_tpu/ops/cost_scaling.py:120-170``, the ``sweep`` of
 ``_solve``. The CUDA source is ``csrc/cs_sweep.cu``; its header note
-gives the byte bound and the design (one warp a node over the residual
-CSR, two passes over its segment).
+gives the byte bound and the design (the work split by positions
+through the launch plan of ``kernels/csr_plan.py``: light nodes in runs
+a block, each heavy node's segment over one thread-block cluster; two
+passes over a node's positions).
 
 The residual CSR (built once per solve by ``ops/cost_scaling.py``): the
 2F residual arcs stably sorted by tail; node v's out-arcs are positions
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
+from poseidon_tpu_torch.kernels.csr_plan import CsrPlan, plan_args
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
 
 KERNEL = Kernel(
@@ -85,11 +88,12 @@ def cs_sweep_plain(seg, arc, head, cost, fcap, flow, excess_in, price_in,
 
 
 def cs_sweep(seg, arc, head, cost, fcap, flow, excess_in, price_in,
-             eps: int, excess_out, price_out):
+             eps: int, excess_out, price_out, plan: CsrPlan):
     """One discharge sweep at ``eps``. ``seg`` int32[NN + 1], ``arc``/
     ``head`` int32[2F], ``cost`` int64[2F] (the CSR), ``fcap``/``flow``
-    int32[F], ``excess_*`` int32[NN], ``price_*`` int64[NN]. CPU tensors
-    take the plain twin; CUDA tensors launch K9."""
+    int32[F], ``excess_*`` int32[NN], ``price_*`` int64[NN]; ``plan`` the
+    CSR's launch plan (``ResidualCSR.plan``). CPU tensors take the plain
+    twin, which needs no plan; CUDA tensors launch K9."""
     args = (seg, arc, head, cost, fcap, flow, excess_in, price_in,
             excess_out, price_out)
     if not on_card(*args):
@@ -110,9 +114,11 @@ def cs_sweep(seg, arc, head, cost, fcap, flow, excess_in, price_in,
         (price_out, "price_out", i64, (NN,)),
     )
     ptrs = [kernel_arg(t, name, dt, shape) for t, name, dt, shape in spec]
+    pp = plan_args(plan, NN, R)
     with torch.cuda.device(flow.device):
         err = library("cs_sweep").cs_sweep_launch(
-            *ptrs, int(eps), NN, F, stream_ptr(flow),
+            *pp, *ptrs[1:], int(eps), plan.n_heavy, plan.n_light, NN, F,
+            stream_ptr(flow),
         )
     check_launch(KERNEL, err)
     KERNEL.launches += 1

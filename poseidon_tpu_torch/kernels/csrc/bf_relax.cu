@@ -22,11 +22,13 @@
 // serves: position p of v's segment gives m = mirror(arc[p]) with tail
 // head[p]. The torch side passes mrc[p] = rc[m] where m has capacity left,
 // INF where not (the solver's cost guard keeps |rc| < INF). The mirrors'
-// ids do not ascend inside a segment, so the warp takes the lexicographic
-// least (cand, m): the lowest arc id among the candidates equal to best.
+// ids do not ascend inside a segment, so the kernel takes the least
+// (cand, m), packed into one int64 as cand * 2^32 + m (m < 2^31): the
+// lowest arc id among the candidates equal to best, carried by a plain
+// 64-bit min across lanes, chunks and blocks.
 //
 // Both read d/dist from one buffer and write the other (the host swaps
-// them between rounds): a head's distance is read by other warps in the
+// them between rounds): a head's distance is read by other blocks in the
 // same launch. pred is written in place (only its owner reads or writes
 // it). Each launch zeroes `changed` first.
 //
@@ -37,111 +39,209 @@
 // (12 bytes an arc) and dist at each head (4), reads and writes dist and
 // writes pred (12 bytes a node): ~2.5 MB, 0.75 us.
 //
-// Design: right and simple first, as K9: one warp a node, 32 arcs a step,
-// a warp min (int64 for `out`, lexicographic int32 pair for `in`), lane 0
-// writes. The aggregator nodes' ~10,000-arc segments set the critical
-// path.
+// Design (csr_plan.cuh): a segmented min split by positions. A light
+// block takes a run of whole light nodes: a node's lanes are reduced by
+// shuffles, one shared-memory atomicMin a run, and one thread a node
+// writes it. A heavy node's segment is dealt over one cluster's blocks:
+// each block reduces its chunks, its thread 0 stores the block's min into
+// the block's own slot of rank 0's shared memory (distributed shared
+// memory, one writer a slot, no remote atomics), and rank 0 takes the min
+// of the slots and writes the node after a cluster barrier. A min does
+// not depend on the order, so the result is the same bit for bit under
+// any split.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "csr_plan.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace csr;
+
 constexpr long long INF_K = 1ll << 50;  // cost_scaling.py:172
 constexpr int INF = 1 << 30;            // ssp.py:37
+constexpr long long LO32 = 1ll << 32;
 
-__global__ void __launch_bounds__(THREADS) bf_out_kernel(const int* __restrict__ seg,
-                                                         const int* __restrict__ head,
-                                                         const long long* __restrict__ ln,
-                                                         const long long* __restrict__ d_in,
-                                                         long long* __restrict__ d_out,
-                                                         int* __restrict__ changed, int NN) {
-  const int lane = threadIdx.x & 31;
-  const int v = static_cast<int>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (v >= NN) return;
-  long long best = INF_K;
-  for (int p = seg[v] + lane; p < seg[v + 1]; p += 32) {
-    const long long l = ln[p];
-    if (l < INF_K) {
-      const long long dh = d_in[head[p]];
-      if (dh < INF_K) best = min(best, dh + l);
-    }
+// `out`: a position's via d[head] + ln; the node keeps min(d, best).
+struct Out {
+  const int* __restrict__ head;
+  const long long* __restrict__ ln;
+  const long long* __restrict__ d_in;
+  long long* __restrict__ d_out;
+  __device__ __forceinline__ long long sent() const { return INF_K; }
+  __device__ __forceinline__ long long node(int v) const { return d_in[v]; }
+  __device__ __forceinline__ void load(int p, bool ok, int& h, int&, long long& x) const {
+    h = ok ? head[p] : 0;
+    x = ok ? ln[p] : INF_K;
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) best = min(best, __shfl_xor_sync(FULL, best, off));
-  if (lane == 0) {
-    const long long d = d_in[v];
+  __device__ __forceinline__ long long key(int h, int, long long l) const {
+    if (l >= INF_K) return INF_K;
+    const long long dh = d_in[h];
+    return dh < INF_K ? dh + l : INF_K;
+  }
+  __device__ __forceinline__ void finish(int v, long long d, long long best, int* changed) const {
     const long long nd = min(d, best);
     d_out[v] = nd;
     if (nd < d) *changed = 1;
   }
-}
+};
 
-__global__ void __launch_bounds__(THREADS) bf_in_kernel(
-    const int* __restrict__ seg, const int* __restrict__ arc, const int* __restrict__ head,
-    const int* __restrict__ mrc, const int* __restrict__ dist_in, int* __restrict__ dist_out,
-    int* __restrict__ pred, int* __restrict__ changed, int NN, int F) {
-  const int lane = threadIdx.x & 31;
-  const int v = static_cast<int>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (v >= NN) return;
-  int best = INF;
-  int bm = 2 * F;  // NO_PRED
-  for (int p = seg[v] + lane; p < seg[v + 1]; p += 32) {
-    const int r = mrc[p];
-    if (r >= INF) continue;
-    const int du = dist_in[head[p]];
-    if (du >= INF) continue;
-    const int c = du + r;
-    const int a = arc[p];
+// `in`: a position's (cand, m) packed; the node takes it when cand < dist.
+struct In {
+  const int* __restrict__ arc;
+  const int* __restrict__ head;
+  const int* __restrict__ mrc;
+  const int* __restrict__ dist_in;
+  int* __restrict__ dist_out;
+  int* __restrict__ pred;
+  int F;
+  __device__ __forceinline__ long long sent() const { return INF * LO32 + 2 * F; }
+  __device__ __forceinline__ long long node(int v) const { return dist_in[v]; }
+  __device__ __forceinline__ void load(int p, bool ok, int& h, int& a, long long& x) const {
+    h = ok ? head[p] : 0;
+    a = ok ? arc[p] : 0;
+    x = ok ? mrc[p] : INF;
+  }
+  __device__ __forceinline__ long long key(int h, int a, long long r) const {
+    if (r >= INF) return sent();
+    const int du = dist_in[h];
+    if (du >= INF) return sent();
     const int m = a < F ? a + F : a - F;
-    if (c < best || (c == best && m < bm)) {
-      best = c;
-      bm = m;
-    }
+    return static_cast<long long>(du + static_cast<int>(r)) * LO32 + m;
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ob = __shfl_xor_sync(FULL, best, off);
-    const int om = __shfl_xor_sync(FULL, bm, off);
-    if (ob < best || (ob == best && om < bm)) {
-      best = ob;
-      bm = om;
-    }
-  }
-  if (lane == 0) {
-    const int d = dist_in[v];
-    if (best < d) {
-      dist_out[v] = best;
-      pred[v] = bm;
+  __device__ __forceinline__ void finish(int v, long long d, long long best, int* changed) const {
+    const long long cand = best >> 32;  // floor: the low word is m >= 0
+    if (cand < d) {
+      dist_out[v] = static_cast<int>(cand);
+      pred[v] = static_cast<int>(best & 0xffffffffll);
       *changed = 1;
     } else {
-      dist_out[v] = d;
+      dist_out[v] = static_cast<int>(d);
     }
   }
+};
+
+// The round's body for one block of the plan: the min of P::key over
+// each node's positions, then P::finish per node.
+template <class P>
+__device__ __forceinline__ void relax(const P& pol, const int4* __restrict__ plan, int n_heavy,
+                                      int n_light, const int* __restrict__ tail, int* changed) {
+  __shared__ long long s_best[MAX_NODES];  // a light block's nodes
+  __shared__ long long w_best[WARPS];
+  __shared__ long long s_part[CLUSTER];     // rank 0: each block's min
+  const Work w = decode(plan, n_heavy, n_light);
+  if (w.idle) return;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long SENT = pol.sent();
+  int h[ITEMS], a[ITEMS], lt[ITEMS];
+  long long x[ITEMS], key[ITEMS];
+  auto load = [&](int base) {
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const int p = base + k * THREADS + tid;
+      const bool ok = p < w.end;
+      pol.load(p, ok, h[k], a[k], x[k]);
+      lt[k] = w.heavy ? 0 : (ok ? tail[p] - w.lo : MAX_NODES);
+    }
+  };
+  auto gather = [&]() {
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) key[k] = pol.key(h[k], a[k], x[k]);
+  };
+
+  if (!w.heavy) {
+    // ---- a light block: nodes [lo, hi), one pass of at most CHUNK ----
+    const int n = w.hi - w.lo;
+    const long long mine = tid < n ? pol.node(w.lo + tid) : 0;
+    load(w.first);
+    if (tid < n) s_best[tid] = SENT;
+    __syncthreads();
+    gather();
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      if (!__any_sync(FULL, key[k] < SENT)) continue;
+      const Run r = run_of(lt[k]);
+      const long long m = run_total(key[k], r, lane, Min());
+      if (lane == r.last && m < SENT) atomicMin(&s_best[lt[k]], m);
+    }
+    __syncthreads();
+    if (tid < n) pol.finish(w.lo + tid, mine, s_best[tid], changed);
+    return;
+  }
+
+  // ---- a heavy node v, its segment dealt over the cluster ----
+  const int v = w.lo;
+  const long long mine = pol.node(v);
+  cluster_arrive();  // this block has started: the others may write its slots
+  long long best = SENT;
+  for (int base = w.first; base < w.end; base += w.stride) {
+    load(base);
+    gather();
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) best = min(best, key[k]);
+  }
+  best = warp_all(best, Min());
+  if (lane == 0) w_best[warp] = best;
+  __syncthreads();
+  cluster_wait();
+  if (tid == 0) {  // this block's min into its slot of rank 0
+    long long b = SENT;
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) b = min(b, w_best[i]);
+    *at_rank(&s_part[w.rank], 0) = b;
+  }
+  cluster_sync();  // rank 0 holds every block's min
+  if (w.rank == 0 && tid == 0) {
+    long long b = SENT;
+#pragma unroll
+    for (int i = 0; i < CLUSTER; ++i) b = min(b, s_part[i]);
+    pol.finish(v, mine, b, changed);
+  }
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
+    bf_out_kernel(const int4* __restrict__ plan, int n_heavy, int n_light,
+                  const int* __restrict__ tail, const int* __restrict__ head,
+                  const long long* __restrict__ ln, const long long* __restrict__ d_in,
+                  long long* __restrict__ d_out, int* __restrict__ changed) {
+  relax(Out{head, ln, d_in, d_out}, plan, n_heavy, n_light, tail, changed);
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
+    bf_in_kernel(const int4* __restrict__ plan, int n_heavy, int n_light,
+                 const int* __restrict__ tail, const int* __restrict__ arc,
+                 const int* __restrict__ head, const int* __restrict__ mrc,
+                 const int* __restrict__ dist_in, int* __restrict__ dist_out,
+                 int* __restrict__ pred, int* __restrict__ changed, int F) {
+  relax(In{arc, head, mrc, dist_in, dist_out, pred, F}, plan, n_heavy, n_light, tail, changed);
 }
 
 }  // namespace
 
-extern "C" int bf_relax_out_launch(const int* seg, const int* head, const long long* ln,
-                                   const long long* d_in, long long* d_out, int* changed, int NN,
-                                   void* stream) {
+extern "C" int bf_relax_out_launch(const int* plan, const int* tail, const int* head,
+                                   const long long* ln, const long long* d_in, long long* d_out,
+                                   int* changed, int n_heavy, int n_light, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(changed, 0, sizeof(int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bf_out_kernel<<<(NN + WARPS - 1) / WARPS, THREADS, 0, s>>>(seg, head, ln, d_in, d_out, changed,
-                                                             NN);
+  const int blocks = grid_blocks(n_heavy, n_light);
+  if (blocks == 0) return 0;
+  bf_out_kernel<<<blocks, THREADS, 0, s>>>(reinterpret_cast<const int4*>(plan), n_heavy, n_light,
+                                           tail, head, ln, d_in, d_out, changed);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bf_relax_in_launch(const int* seg, const int* arc, const int* head, const int* mrc,
-                                  const int* dist_in, int* dist_out, int* pred, int* changed,
-                                  int NN, int F, void* stream) {
+extern "C" int bf_relax_in_launch(const int* plan, const int* tail, const int* arc, const int* head,
+                                  const int* mrc, const int* dist_in, int* dist_out, int* pred,
+                                  int* changed, int n_heavy, int n_light, int F, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(changed, 0, sizeof(int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bf_in_kernel<<<(NN + WARPS - 1) / WARPS, THREADS, 0, s>>>(seg, arc, head, mrc, dist_in, dist_out,
-                                                            pred, changed, NN, F);
+  const int blocks = grid_blocks(n_heavy, n_light);
+  if (blocks == 0) return 0;
+  bf_in_kernel<<<blocks, THREADS, 0, s>>>(reinterpret_cast<const int4*>(plan), n_heavy, n_light,
+                                          tail, arc, head, mrc, dist_in, dist_out, pred, changed,
+                                          F);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,7 @@ _SOURCES = (
     "stream_commit", "perturb", "gap_rows", "cs_sweep", "bf_relax",
     "ssp_augment",
 )
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "csr_plan.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -174,11 +174,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "gap_rows_launch": [P] * 6 + [I] * 3 + [P, P],
         },
         "cs_sweep": {
-            "cs_sweep_launch": [P] * 10 + [L] + [I] * 2 + [P],
+            "cs_sweep_launch": [P] * 11 + [L] + [I] * 4 + [P],
         },
         "bf_relax": {
-            "bf_relax_out_launch": [P] * 6 + [I] + [P],
-            "bf_relax_in_launch": [P] * 8 + [I] * 2 + [P],
+            "bf_relax_out_launch": [P] * 7 + [I] * 2 + [P],
+            "bf_relax_in_launch": [P] * 9 + [I] * 3 + [P],
         },
         "ssp_augment": {
             "ssp_augment_launch": [P] * 7 + [I] * 5 + [P],

@@ -13,7 +13,8 @@ price update (a multi-source Bellman-Ford from the deficit nodes in arc
 lengths ``max(0, floor(rc / eps) + 1)``), until no node holds excess.
 
 The per-arc passes run over one residual CSR built once per solve (the
-2F residual arcs stably sorted by tail, ``residual_csr``): a discharge
+2F residual arcs stably sorted by tail, ``residual_csr``, with the
+kernels' launch plan made on the host from its degrees): a discharge
 sweep is the hand kernel K9 ``cs_sweep`` and a Bellman-Ford round is K10
 ``bf_relax`` (``out``); the saturation, the arc lengths and the price
 shift are torch. On the CPU the same wrappers run their plain twins.
@@ -47,6 +48,7 @@ from poseidon_tpu_torch.graph.network import FlowNetwork, total_supply
 from poseidon_tpu_torch.guards import GuardError, SyncCounter
 from poseidon_tpu_torch.kernels.bf_relax import INF_K, bf_relax_out
 from poseidon_tpu_torch.kernels.cs_sweep import cs_sweep, residual
+from poseidon_tpu_torch.kernels.csr_plan import CsrPlan, make_plan
 
 I32 = torch.int32
 I64 = torch.int64
@@ -73,7 +75,8 @@ class CostScalingResult:
 class ResidualCSR:
     """The 2F residual arcs (a < F forward arc a, a >= F the mirror of
     a - F) stably sorted by tail: node v's out-arcs are positions
-    ``[seg[v], seg[v + 1])``, in ascending arc id."""
+    ``[seg[v], seg[v + 1])``, in ascending arc id. ``plan`` is K9's and
+    K10's launch plan over it."""
 
     seg: torch.Tensor    # int32[NN + 1]
     arc: torch.Tensor    # int32[2F] residual arc id of each position
@@ -81,26 +84,30 @@ class ResidualCSR:
     tail: torch.Tensor   # int64[2F] (for torch gathers)
     cost: torch.Tensor   # [2F] residual cost, the caller's dtype
     fcap: torch.Tensor   # int32[F] forward capacities
+    plan: CsrPlan
 
 
 def residual_csr(fsrc: np.ndarray, fdst: np.ndarray, fcap: np.ndarray,
                  rcost: np.ndarray, NN: int, device) -> ResidualCSR:
-    """Upload the forward tables and build the residual CSR on ``device``."""
-    rsrc = torch.as_tensor(np.concatenate([fsrc, fdst]).astype(np.int64),
-                           device=device)
+    """Upload the forward tables and build the residual CSR on ``device``;
+    the segment offsets and the launch plan come from the host's degree
+    counts (no device read)."""
+    rsrc_h = np.concatenate([fsrc, fdst]).astype(np.int64)
+    seg_h = np.zeros(NN + 1, np.int64)
+    seg_h[1:] = np.cumsum(np.bincount(rsrc_h, minlength=NN))
+    rsrc = torch.as_tensor(rsrc_h, device=device)
     rdst = torch.as_tensor(np.concatenate([fdst, fsrc]).astype(np.int32),
                            device=device)
     order = torch.argsort(rsrc, stable=True)
-    seg = torch.zeros(NN + 1, dtype=I64, device=device)
-    seg[1:] = torch.cumsum(torch.bincount(rsrc, minlength=NN), 0)
     return ResidualCSR(
-        seg=seg.to(I32),
+        seg=torch.as_tensor(seg_h.astype(np.int32), device=device),
         arc=order.to(I32),
         head=rdst[order].contiguous(),
         tail=rsrc[order].contiguous(),
         cost=torch.as_tensor(rcost, device=device)[order].contiguous(),
         fcap=torch.as_tensor(np.ascontiguousarray(fcap, np.int32),
                              device=device),
+        plan=make_plan(seg_h, device),
     )
 
 
@@ -209,7 +216,8 @@ class _Solve:
         changed, it = True, 0
         while changed and it < self.NN:
             for _ in range(BF_BURST):
-                bf_relax_out(self.g.seg, self.g.head, ln, d, d2, self._changed)
+                bf_relax_out(self.g.seg, self.g.head, ln, d, d2,
+                             self._changed, self.g.plan)
                 d, d2 = d2, d
             it += BF_BURST
             changed = bool(self.syncs.read(self._changed)[0])
@@ -227,7 +235,7 @@ class _Solve:
         for _ in range(self.sweeps_per_update):
             cs_sweep(g.seg, g.arc, g.head, g.cost, g.fcap, self.flow,
                      self.excess, self.price, eps, self._excess2,
-                     self._price2)
+                     self._price2, g.plan)
             self.excess, self._excess2 = self._excess2, self.excess
             self.price, self._price2 = self._price2, self.price
         self.sweeps += self.sweeps_per_update

@@ -115,7 +115,8 @@ def _solve(net: FlowNetwork, max_paths: int, device) -> SolveResult:
         pred = torch.full((NN,), NO_PRED, dtype=I32, device=device)
         more, it = True, 0
         while more and it < NN:
-            bf_relax_in(g.seg, g.arc, g.head, mrc, dist, dist2, pred, changed)
+            bf_relax_in(g.seg, g.arc, g.head, mrc, dist, dist2, pred, changed,
+                        g.plan)
             dist, dist2 = dist2, dist
             it += 1
             more = bool(syncs.read(changed)[0])

@@ -24,12 +24,13 @@ import poseidon_tpu.ops.transport as ref_tr
 import poseidon_tpu_torch.graph.aggregate as port_agg
 import poseidon_tpu_torch.ops.transport as port_tr
 from poseidon_tpu.graph.builder import FlowGraphBuilder
-from poseidon_tpu.oracle import solve_oracle
 from poseidon_tpu_torch.ops.dense_auction import (
     build_dense_instance,
     solve_dense,
 )
+from poseidon_tpu_torch.oracle import solve_oracle
 from tests.helpers import price, random_cluster
+from tests.test_torch_cost_scaling import to_port
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -214,7 +215,7 @@ class TestExactness:
         rng = np.random.default_rng(3)
         for trial in range(2):
             net, meta, topo, cost = _priced(rng, 10, 50, model=model)
-            oracle = solve_oracle(net, algorithm="cost_scaling")
+            oracle = solve_oracle(to_port(net), algorithm="cost_scaling")
             plan = port_agg.plan_from_costs(port_topo(topo), cost)
             expanded, got = port_agg_optimum(topo, plan, cost, meta)
             used = np.bincount(expanded[expanded >= 0],
@@ -230,7 +231,7 @@ class TestExactness:
             ).astype(np.float32) / 4.0
             net, meta, topo, cost = _priced(rng, 10, 50, model="octopus",
                                             machine_load=load)
-            oracle = solve_oracle(net, algorithm="cost_scaling")
+            oracle = solve_oracle(to_port(net), algorithm="cost_scaling")
             plan = port_agg.plan_from_signatures(port_topo(topo),
                                                  machine_load=load)
             _expanded, got = port_agg_optimum(topo, plan, cost, meta)

@@ -8,7 +8,12 @@ twins. Every output is an integer, so every comparison is exact
 cost. The twins are also held against the reference's own sweep and
 Bellman-Ford lines, restated here with ``jax.numpy``, at edge inputs: a
 node of degree 0, a segment of 1,500 arcs, negative reduced costs at
-eps > 1, all-INF distances.
+eps > 1, all-INF distances; and at the boundaries of the kernels' launch
+plan (``kernels/csr_plan.py``): a hub segment dealt over several chunks,
+its admissible arcs and its choice arc in different chunks, past one
+cluster's reach, and a remainder push on the choice arc. The optimum's
+cost comes from the port's own oracle build (``poseidon_tpu_torch.
+oracle``), which never races the reference's in-place build.
 """
 
 import functools
@@ -23,10 +28,11 @@ import poseidon_tpu.ops.cost_scaling as ref
 import poseidon_tpu_torch.ops.cost_scaling as port
 from poseidon_tpu.compat import enable_x64
 from poseidon_tpu.graph.network import FlowNetwork
-from poseidon_tpu.oracle import solve_oracle
 from poseidon_tpu_torch.graph.network import FlowNetwork as PortNet
 from poseidon_tpu_torch.kernels.bf_relax import INF_K, bf_relax_out
 from poseidon_tpu_torch.kernels.cs_sweep import cs_sweep
+from poseidon_tpu_torch.kernels.csr_plan import CHUNK, CLUSTER
+from poseidon_tpu_torch.oracle import solve_oracle
 
 from tests.helpers import price
 from tests.test_oracle import check_flow, random_instance
@@ -96,7 +102,7 @@ def test_random_vs_reference_and_oracle(trial):
     p = assert_same(net)
     assert p.converged and p.feasible
     assert port.solution_cost(to_port(net), p) == solve_oracle(
-        net, "cost_scaling").cost
+        to_port(net), "cost_scaling").cost
     check_flow(net, p.flows[: int(net.n_arcs)].astype(np.int64))
 
 
@@ -105,7 +111,7 @@ def test_larger_vs_reference():
     net = random_instance(rng, n_nodes=50, n_arcs=300, max_supply=15)
     p = assert_same(net)
     assert port.solution_cost(to_port(net), p) == solve_oracle(
-        net, "cost_scaling").cost
+        to_port(net), "cost_scaling").cost
 
 
 def test_builder_graph_vs_reference():
@@ -128,7 +134,7 @@ def test_builder_graph_vs_reference():
                                   h["supply"])
     p = assert_same(net)
     assert port.solution_cost(to_port(net), p) == solve_oracle(
-        net, "ssp").cost
+        to_port(net), "ssp").cost
 
 
 def test_synthetic_cluster_64x600_counts():
@@ -296,7 +302,7 @@ def test_cs_sweep_twin_matches_reference_sweep(graph, eps):
     p_out = torch.empty(NN, dtype=torch.int64)
     cs_sweep(g.seg, g.arc, g.head, g.cost, g.fcap, t_flow,
              torch.from_numpy(excess), torch.from_numpy(price_), eps,
-             e_out, p_out)
+             e_out, p_out, g.plan)
     want = ref_sweep(fsrc, fdst, fcap, fcost, flow, excess, price_, eps)
     np.testing.assert_array_equal(t_flow.numpy(), want[0])
     np.testing.assert_array_equal(e_out.numpy(), want[1])
@@ -318,7 +324,8 @@ def test_bf_relax_out_twin_matches_reference_round(graph, eps, d_kind):
                           torch.from_numpy(price_), eps)
     d_out = torch.empty(NN, dtype=torch.int64)
     changed = torch.full((1,), 7, dtype=torch.int32)
-    bf_relax_out(g.seg, g.head, ln, torch.from_numpy(d), d_out, changed)
+    bf_relax_out(g.seg, g.head, ln, torch.from_numpy(d), d_out, changed,
+                 g.plan)
     new, ch = ref_bf_round(fsrc, fdst, fcap, fcost, flow, price_, eps, d)
     np.testing.assert_array_equal(d_out.numpy(), new)
     assert int(changed[0]) == int(ch)
@@ -335,3 +342,89 @@ def test_csr_segments_hold_ascending_arc_ids():
         ids = arc[seg[v]:seg[v + 1]]
         assert (np.diff(ids) > 0).all()
         assert (rsrc[ids] == v).all()
+
+
+# ---- the twins at the launch plan's boundaries -------------------------
+
+def hub_graph(D: int, admissible, *, NN: int = 40, extra: int = 200,
+              seed: int = 0):
+    """Node 1 the tail of forward arcs 0..D-1 (its segment, in arc order)
+    to random heads; ``extra`` random arcs among nodes 2..NN-2 (nodes 0
+    and NN-1 have degree 0). Prices 0, capacity 4, flow 2: every residual
+    arc has 2 units. Node 1's arcs cost -1 at the positions of
+    ``admissible`` and +1 elsewhere; node 1 holds excess 5, so with four
+    admissible arcs each takes a share of 1 and the choice arc (the first)
+    the remainder 1 as well."""
+    rng = np.random.default_rng(seed)
+    F = D + extra
+    fsrc = np.concatenate([np.full(D, 1), rng.integers(2, NN - 1, extra)])
+    fdst = np.concatenate([rng.integers(2, NN - 1, D),
+                           rng.integers(2, NN - 1, extra)])
+    fcost = np.concatenate([np.ones(D), rng.integers(-400, 400, extra)])
+    fcost[list(admissible)] = -1
+    excess = rng.integers(-6, 9, NN).astype(np.int32)
+    excess[1] = 5
+    return (fsrc.astype(np.int32), fdst.astype(np.int32),
+            np.full(F, 4, np.int32), fcost.astype(np.int64),
+            np.full(F, 2, np.int32), excess, np.zeros(NN, np.int64))
+
+
+# (segment length, node 1's admissible positions); CHUNK positions a
+# heavy chunk, chunk c on cluster rank c % CLUSTER
+HUB_CASES = {
+    # a light block at the threshold: runs across warps
+    "light_at_threshold": (CHUNK, [31, 32, 1000, CHUNK - 1]),
+    # choice at the end of chunk 0, the other admissible arcs later
+    "choice_chunk0_rest_later": (3 * CHUNK + 100,
+                                 [CHUNK - 1, CHUNK + 5, 2 * CHUNK + 7,
+                                  3 * CHUNK + 50]),
+    # choice on rank 3, not the rank that writes the node
+    "choice_on_rank3": (5 * CHUNK, [3 * CHUNK + 1, 3 * CHUNK + 9,
+                                    4 * CHUNK + 3, 4 * CHUNK + 4]),
+    # past one cluster: rank 0 takes chunks 0 and CLUSTER
+    "past_one_cluster": (CLUSTER * CHUNK + 300,
+                         [5, 7 * CHUNK + 1, CLUSTER * CHUNK + 10,
+                          CLUSTER * CHUNK + 299]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HUB_CASES))
+def test_cs_sweep_twin_at_plan_boundaries(case):
+    D, adm = HUB_CASES[case]
+    fsrc, fdst, fcap, fcost, flow, excess, price_ = hub_graph(D, adm)
+    NN = len(excess)
+    g = _csr(fsrc, fdst, fcap, fcost, NN)
+    heavy = g.plan.items[: g.plan.n_heavy, 0].tolist()
+    assert heavy == ([] if D <= CHUNK else [1])
+    assert g.seg[2] - g.seg[1] == D
+    t_flow = torch.from_numpy(flow.copy())
+    e_out = torch.empty(NN, dtype=torch.int32)
+    p_out = torch.empty(NN, dtype=torch.int64)
+    cs_sweep(g.seg, g.arc, g.head, g.cost, g.fcap, t_flow,
+             torch.from_numpy(excess), torch.from_numpy(price_), 1,
+             e_out, p_out, g.plan)
+    want = ref_sweep(fsrc, fdst, fcap, fcost, flow, excess, price_, 1)
+    np.testing.assert_array_equal(t_flow.numpy(), want[0])
+    np.testing.assert_array_equal(e_out.numpy(), want[1])
+    np.testing.assert_array_equal(p_out.numpy(), want[2])
+    # the choice arc took its share and the remainder: 2 units
+    assert want[0][adm[0]] == 2 + 2
+    assert all(want[0][a] == 2 + 1 for a in adm[1:])
+
+
+@pytest.mark.parametrize("case", sorted(HUB_CASES))
+def test_bf_relax_out_twin_at_plan_boundaries(case):
+    D, adm = HUB_CASES[case]
+    fsrc, fdst, fcap, fcost, flow, excess, price_ = hub_graph(D, adm)
+    NN = len(excess)
+    d = np.where(excess < 0, 0, INF_K).astype(np.int64)
+    g = _csr(fsrc, fdst, fcap, fcost, NN)
+    ln = port.arc_lengths(g, torch.from_numpy(flow),
+                          torch.from_numpy(price_), 1)
+    d_out = torch.empty(NN, dtype=torch.int64)
+    changed = torch.full((1,), 7, dtype=torch.int32)
+    bf_relax_out(g.seg, g.head, ln, torch.from_numpy(d), d_out, changed,
+                 g.plan)
+    new, ch = ref_bf_round(fsrc, fdst, fcap, fcost, flow, price_, 1, d)
+    np.testing.assert_array_equal(d_out.numpy(), new)
+    assert int(changed[0]) == int(ch)

@@ -5,14 +5,24 @@ Builder arrays and ``GraphMeta``, the transport topology and instance,
 ``extract_deltas`` must equal the reference's exactly on the same
 clusters (``tests.helpers.random_cluster`` seeds and synthetic clusters
 with running pods, in place-only and rebalancing mode).
+
+``build_reference_oracle`` puts the reference's C++ oracle binary in
+place for the port tests whose reference code runs it: the reference
+builds it in place on first use (``make``, ``g++ -o`` over the binary),
+so a test worker could execute it while another was still writing it.
 """
 
 import dataclasses
+import fcntl
+import os
+import pathlib
+import subprocess
 
 import numpy as np
 import pytest
 
 import poseidon_tpu.graph.deltas as ref_deltas
+import poseidon_tpu.oracle.oracle as ref_oracle
 import poseidon_tpu.ops.resident as ref_res
 import poseidon_tpu.ops.transport as ref_tr
 import poseidon_tpu_torch.graph.deltas as port_deltas
@@ -24,6 +34,36 @@ from poseidon_tpu_torch import cluster as port_cluster
 from poseidon_tpu_torch.graph.builder import FlowGraphBuilder as PortBuilder
 
 from tests.helpers import random_cluster
+
+REF_ORACLE_DIR = pathlib.Path(ref_oracle.__file__).resolve().parent
+
+
+def build_reference_oracle() -> pathlib.Path:
+    """Have the reference oracle's binary whole at its path before a test
+    runs reference code that calls it. Under an exclusive ``flock`` of a
+    lock file in the (gitignored) build directory, a missing or stale
+    binary is compiled with the reference Makefile's flags to a temporary
+    name and renamed over the path: every worker then sees no binary or a
+    whole one, and the reference's own ``_ensure_built`` finds it fresh
+    and builds nothing. The reference's module is left as it is."""
+    src = REF_ORACLE_DIR / "mcmf_oracle.cc"
+    binary = REF_ORACLE_DIR / "build" / "mcmf_oracle"
+    binary.parent.mkdir(parents=True, exist_ok=True)
+    with open(binary.parent / ".port-tests.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (not binary.exists()
+                or binary.stat().st_mtime < src.stat().st_mtime):
+            tmp = binary.with_name(f"{binary.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                ["g++", "-std=c++17", "-O2", "-Wall", "-Wextra", "-o",
+                 str(tmp), str(src)],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(f"reference oracle build failed:\n"
+                                   f"{proc.stderr}")
+            os.replace(tmp, binary)
+    return binary
 
 
 def to_port_cluster(cluster):
@@ -172,7 +212,8 @@ def test_flows_from_assignment_equal(name):
 def test_oracle_and_decomposition_equal(name):
     """The port's oracle wrapper (its own build of its own copy of the
     C++ source) solves to the reference's optimum, and the flows
-    decompose to the same placements."""
+    decompose to the same placements. The reference's binary is put in
+    place first (``build_reference_oracle``)."""
     from poseidon_tpu.graph.decompose import extract_placements as ref_ep
     from poseidon_tpu.graph.network import FlowNetwork as RefNet
     from poseidon_tpu.oracle import solve_oracle as ref_solve
@@ -180,6 +221,7 @@ def test_oracle_and_decomposition_equal(name):
     from poseidon_tpu_torch.graph.network import FlowNetwork as PortNet
     from poseidon_tpu_torch.oracle import solve_oracle as port_solve
 
+    build_reference_oracle()
     (ra, rm), (pa, pm) = _build(name, False)
     cost = np.random.default_rng(len(name) + 1).integers(
         0, 300, rm.n_arcs

@@ -28,6 +28,17 @@ import poseidon_tpu_torch.cluster as port_cluster
 import poseidon_tpu_torch.graph.builder as port_builder
 import poseidon_tpu_torch.ops.transport as port_transport
 
+from tests.test_torch_graph import build_reference_oracle
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_oracle_built():
+    """The reference's side of these tests can solve on its C++ oracle,
+    which it builds in place on first use: have the binary whole first
+    (``tests/test_torch_graph.py``'s ``build_reference_oracle``)."""
+    build_reference_oracle()
+
+
 REF = types.SimpleNamespace(bridge=ref_bridge, cluster=ref_cluster,
                             builder=ref_builder, transport=ref_transport,
                             kw={})

@@ -34,6 +34,16 @@ import poseidon_tpu_torch.obs.report as port_report
 import poseidon_tpu_torch.obs.spans as port_spans
 import poseidon_tpu_torch.trace as port_trace
 
+from tests.test_torch_graph import build_reference_oracle
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_oracle_built():
+    """The reference's side of these tests can solve on its C++ oracle,
+    which it builds in place on first use: have the binary whole first
+    (``tests/test_torch_graph.py``'s ``build_reference_oracle``)."""
+    build_reference_oracle()
+
 
 def _free_port() -> int:
     with socket.socket() as s:

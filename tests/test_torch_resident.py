@@ -29,7 +29,18 @@ from poseidon_tpu_torch.graph.builder import FlowGraphBuilder as PortBuilder
 from poseidon_tpu_torch.ops.resident import ResidentSolver as PortSolver
 
 from tests.helpers import random_cluster
-from tests.test_torch_graph import delta_rows, to_port_cluster
+from tests.test_torch_graph import (
+    build_reference_oracle, delta_rows, to_port_cluster,
+)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_oracle_built():
+    """The reference's side of these tests can solve on its C++ oracle,
+    which it builds in place on first use: have the binary whole first
+    (``tests/test_torch_graph.py``'s ``build_reference_oracle``)."""
+    build_reference_oracle()
+
 
 FIELDS_ARRAY = ("assignment", "channel", "task_cost", "task_margin")
 FIELDS_SCALAR = ("cost", "backend", "converged", "rounds", "phases")

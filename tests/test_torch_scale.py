@@ -33,10 +33,21 @@ import poseidon_tpu_torch.ops.resident as port_res
 import poseidon_tpu_torch.synth as port_synth
 import poseidon_tpu_torch.trace as port_trace
 from poseidon_tpu.graph.builder import FlowGraphBuilder as RefBuilder
-from poseidon_tpu.oracle import solve_oracle
 from poseidon_tpu_torch.graph.builder import FlowGraphBuilder as PortBuilder
 from poseidon_tpu_torch.obs.metrics import MetricsRegistry, SchedulerMetrics
+from poseidon_tpu_torch.oracle import solve_oracle
 from tests.helpers import price
+from tests.test_torch_cost_scaling import to_port
+from tests.test_torch_graph import build_reference_oracle
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_oracle_built():
+    """The reference's side of these tests can solve on its C++ oracle,
+    which it builds in place on first use: have the binary whole first
+    (``tests/test_torch_graph.py``'s ``build_reference_oracle``)."""
+    build_reference_oracle()
+
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -144,7 +155,7 @@ class TestShardedResidentRound:
         net, meta = RefBuilder().build(cluster)
         net = price(net, meta, "quincy", cluster)
         assert port_out[0][1] == solve_oracle(
-            net, algorithm="cost_scaling").cost
+            to_port(net), algorithm="cost_scaling").cost
 
     @pytest.mark.parametrize("width", [0, 1, 2])
     def test_downsampled_config8_widths_equal(self, width):

@@ -34,6 +34,17 @@ import poseidon_tpu_torch.synth as port_synth
 from poseidon_tpu.ops.dense_auction import solve_transport_dense
 from poseidon_tpu.ops.transport import TransportInstance as RefInstance
 
+from tests.test_torch_graph import build_reference_oracle
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_oracle_built():
+    """The reference's side of these tests can solve on its C++ oracle,
+    which it builds in place on first use: have the binary whole first
+    (``tests/test_torch_graph.py``'s ``build_reference_oracle``)."""
+    build_reference_oracle()
+
+
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
 REF = types.SimpleNamespace(bridge=ref_bridge, cluster=ref_cluster,

@@ -32,7 +32,15 @@ from poseidon_tpu_torch.ops.dense_auction import solve_transport_dense
 from tests.helpers import price, random_cluster
 from tests.test_torch_cost_scaling import to_port
 from tests.test_torch_dense_auction import _port_inst
-from tests.test_torch_graph import to_port_cluster
+from tests.test_torch_graph import build_reference_oracle, to_port_cluster
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_oracle_built():
+    """The reference's side of these tests can solve on its C++ oracle,
+    which it builds in place on first use: have the binary whole first
+    (``tests/test_torch_graph.py``'s ``build_reference_oracle``)."""
+    build_reference_oracle()
 
 
 @pytest.fixture(autouse=True, scope="module")

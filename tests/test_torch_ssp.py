@@ -7,8 +7,11 @@ twins. Every comparison is exact (tolerance 0): flows, routed, wanted,
 the path count and the cost. The twins are also held against the
 reference's relaxation round and path walk, restated here with
 ``jax.numpy``, at edge inputs: a node of degree 0, a segment of 1,500
-arcs, all-INF distances, and walks over a mirror arc, into the sentinel,
-from an unreachable T and round a cycle to the step cap.
+arcs, all-INF distances, ties on the candidate whose lowest arc id lies
+in a later chunk of the kernels' launch plan (``kernels/csr_plan.py``),
+and walks over a mirror arc, into the sentinel, from an unreachable T
+and round a cycle to the step cap. The optimum's cost comes from the
+port's own oracle build (``poseidon_tpu_torch.oracle``).
 """
 
 import functools
@@ -22,10 +25,11 @@ from jax import ops as jops
 import poseidon_tpu.ops.ssp as ref
 import poseidon_tpu_torch.ops.ssp as port
 from poseidon_tpu.graph.network import FlowNetwork
-from poseidon_tpu.oracle import solve_oracle
 from poseidon_tpu_torch.kernels.bf_relax import INF, bf_relax_in
+from poseidon_tpu_torch.kernels.csr_plan import CHUNK
 from poseidon_tpu_torch.kernels.ssp_augment import ssp_augment
 from poseidon_tpu_torch.ops.cost_scaling import residual_csr
+from poseidon_tpu_torch.oracle import solve_oracle
 
 from tests.helpers import price
 from tests.test_oracle import check_flow, random_instance
@@ -90,7 +94,7 @@ def test_random_vs_reference_and_oracle(trial):
     p = assert_same(net)
     assert p.feasible
     assert port.solution_cost(to_port(net), p) == solve_oracle(
-        net, "ssp").cost
+        to_port(net), "ssp").cost
     check_flow(net, p.flows[: int(net.n_arcs)].astype(np.int64))
 
 
@@ -99,7 +103,7 @@ def test_larger_vs_reference():
     net = random_instance(rng, n_nodes=50, n_arcs=300, max_supply=15)
     p = assert_same(net)
     assert port.solution_cost(to_port(net), p) == solve_oracle(
-        net, "cost_scaling").cost
+        to_port(net), "cost_scaling").cost
 
 
 def test_builder_graph_vs_reference():
@@ -122,7 +126,7 @@ def test_builder_graph_vs_reference():
                                   h["supply"])
     p = assert_same(net)
     assert port.solution_cost(to_port(net), p) == solve_oracle(
-        net, "ssp").cost
+        to_port(net), "ssp").cost
 
 
 @pytest.mark.parametrize("i", range(2))
@@ -228,11 +232,63 @@ def test_bf_relax_in_twin_matches_reference_round(graph, d_kind):
     t_pred = torch.from_numpy(pred.copy())
     changed = torch.full((1,), 7, dtype=torch.int32)
     bf_relax_in(g.seg, g.arc, g.head, mrc, torch.from_numpy(dist), d_out,
-                t_pred, changed)
+                t_pred, changed, g.plan)
     want = ref_round(fsrc, fdst, fcap, fcost, flow, pot, dist, pred)
     np.testing.assert_array_equal(d_out.numpy(), want[0])
     np.testing.assert_array_equal(t_pred.numpy(), want[1])
     assert int(changed[0]) == int(want[2])
+
+
+def tie_graph(D1: int, D2: int = 20, NN: int = 30):
+    """Node 1 the tail of D1 forward arcs (to nodes 2..NN-1, flow 1 of 4,
+    cost 5) and the head of D2 arcs from node 3 (ids D1.., flow 0 of 4,
+    cost -5). Potentials 0, every distance 0 but node 1's (INF): each of
+    node 1's in-arcs offers -5. The forward arcs' mirrors (ids >= F) sit
+    first in node 1's segment, the arcs from node 3 (ids < F) last, so
+    the lowest id among the best, D1, lies at the segment's end."""
+    rng = np.random.default_rng(D1)
+    F = D1 + D2
+    fsrc = np.concatenate([np.full(D1, 1), np.full(D2, 3)]).astype(np.int32)
+    fdst = np.concatenate([rng.integers(2, NN, D1),
+                           np.full(D2, 1)]).astype(np.int32)
+    fcap = np.full(F, 4, np.int32)
+    fcost = np.concatenate([np.full(D1, 5), np.full(D2, -5)]).astype(np.int32)
+    flow = np.concatenate([np.ones(D1), np.zeros(D2)]).astype(np.int32)
+    dist = np.zeros(NN, np.int32)
+    dist[1] = INF
+    return fsrc, fdst, fcap, fcost, flow, dist
+
+
+# node 1's segment: D1 + 20 positions; the tie's lowest id in the last
+# warps of a light block, and in chunk 2 (cluster rank 2) of a heavy node
+TIE_CASES = {"light": CHUNK - 30, "heavy_rank2": 2 * CHUNK + 10}
+
+
+@pytest.mark.parametrize("case", sorted(TIE_CASES))
+def test_bf_relax_in_tie_in_a_later_chunk(case):
+    D1 = TIE_CASES[case]
+    fsrc, fdst, fcap, fcost, flow, dist = tie_graph(D1)
+    NN, F = len(dist), len(fsrc)
+    pot = np.zeros(NN, np.int32)
+    pred = np.full(NN, 2 * F, np.int32)
+    g = residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]), NN,
+                     "cpu")
+    assert g.plan.n_heavy == (case == "heavy_rank2")
+    mrc = port.mirror_costs(g, torch.from_numpy(pot), torch.from_numpy(flow))
+    d_out = torch.empty(NN, dtype=torch.int32)
+    t_pred = torch.from_numpy(pred.copy())
+    changed = torch.zeros(1, dtype=torch.int32)
+    bf_relax_in(g.seg, g.arc, g.head, mrc, torch.from_numpy(dist), d_out,
+                t_pred, changed, g.plan)
+    want = ref_round(fsrc, fdst, fcap, fcost, flow, pot, dist, pred)
+    np.testing.assert_array_equal(d_out.numpy(), want[0])
+    np.testing.assert_array_equal(t_pred.numpy(), want[1])
+    assert int(changed[0]) == int(want[2]) == 1
+    # node 1 takes -5 over the lowest id, arc D1 from node 3, whose
+    # position is past the first CHUNK of the segment when heavy
+    assert (want[0][1], want[1][1]) == (-5, D1)
+    pos = int(np.flatnonzero(g.arc.numpy() == D1 + F)[0]) - int(g.seg[1])
+    assert pos >= D1 and (pos >= 2 * CHUNK) == (case == "heavy_rank2")
 
 
 def walk_cases():

@@ -18,6 +18,7 @@ import time
 import types
 
 import numpy as np
+import pytest
 
 import poseidon_tpu.apiclient as ref_api
 import poseidon_tpu.bridge as ref_bridge
@@ -27,6 +28,16 @@ import poseidon_tpu_torch.bridge as port_bridge
 import poseidon_tpu_torch.cli as port_cli
 
 from tests.test_torch_daemon import stats_record
+from tests.test_torch_graph import build_reference_oracle
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_oracle_built():
+    """The reference's side of these tests can solve on its C++ oracle,
+    which it builds in place on first use: have the binary whole first
+    (``tests/test_torch_graph.py``'s ``build_reference_oracle``)."""
+    build_reference_oracle()
+
 
 REF = types.SimpleNamespace(api=ref_api, bridge=ref_bridge, cli=ref_cli,
                             kw={}, argv=[])
