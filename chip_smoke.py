@@ -19,7 +19,9 @@ Phases (each prints its own lines):
    median CUDA-event time of the kernel and of the twin over repeats,
    each with the L2 cache flushed first, and the kernel's least possible
    time on an H100 (its bytes over 3.35 TB/s vs its operations over
-   67 T/s of 32-bit scalar throughput); K1's write floor, one ``fill_``
+   the card's 32-bit integer scalar peak: 64 lanes an SM at the maximum
+   SM clock ``nvidia-smi`` reports, ~16.7e12 ops/s); K1's write floor,
+   one ``fill_``
    of a table of c's size timed the same way (a yardstick, not a call
    the port makes); the host time of one wrapper call of K1, K2 and K3
    with its launch plan (``host_us``: N calls timed without a
@@ -46,13 +48,19 @@ Phases (each prints its own lines):
    flagship, Tp 10240, Mp 1024, kmax 16, cap 256) and the what-if
    batch's K6 (``perturb``: BASELINE config 5, 64 variants, Tp 4096,
    Mp 1024, its bound the larger of 1 GiB of writes over 3.35 TB/s and
-   its int32 operations over 67 T/s) are held and timed the same way,
+   its int32 operations over the int32 peak; its write floor, one
+   ``fill_`` of an int32 [64, 4096, 1024] table, beside it) are held and
+   timed the same way,
    with their batteries: for K7 a live window, the first dead window
    (by certificate, domain and change cap), an already-dead stream, a
    window at the cap, reports on a column driven below 0 and rows 0 and
    Tp-1, at three shapes; for K6 B 1 and 2, magnitude 0, 10 and 50 %,
    scale 1 and above 1, INF rows, a whole INF table, zero-slot columns,
-   Mp 16 and 1028, seeds 0 and 2^31-1. The scale lane's K8
+   Mp 16 and 1028, seeds 0 and 2^31-1, and its tile plan's edges (B 1,
+   2, 33, 34, 63, 64, 65 and 130 over Tp not a multiple of the row tile,
+   Mp 16
+   and 1028, magnitude 0 and 50 % and one whose span passes 2^16, where
+   the residues' products pass 32 bits, an all-INF table). The scale lane's K8
    (``gap_rows``, the sharded certificate's table pass) is held and
    timed the same way at config 8's aggregated table [524288, 256] and
    at the flagship's [10240, 1024], its bound the table's bytes over
@@ -63,12 +71,15 @@ Phases (each prints its own lines):
    lane's K9 (``cs_sweep``, at the first sweep of the flagship
    cost-scaling solve's busiest refine burst), K10 (``bf_relax``: its
    ``out`` round at the same state is the record, its ``in`` round at
-   SSP's first round is printed) and K11 (``ssp_augment``, SSP's first
-   path; each timed call restores the flow first, and the restore's own
-   time is taken off) are held and timed the same way at the flagship's
-   residual CSR (NN 12,290, 2F 145,410; K9's and K10's launch plan
-   printed), their bounds the bytes a sweep, round or walk must move
-   over 3.35 TB/s, with their battery: a node of degree 0, segments of
+   SSP's first round is printed) and K11 (``ssp_augment``, SSP's path
+   step at its first path: the walk, the augment, the potentials and
+   the next round's mirror costs and dist0/pred0; each timed call
+   restores the flow, routed and pred first, and the restore's own time
+   is taken off; beside it the launch floor, ``torch.cuda._sleep(0)``
+   cold and back to back, and the step's host time a call) are held and
+   timed the same way at the flagship's residual CSR (NN 12,290, 2F
+   145,410; K9's and K10's launch plan printed), their bounds the bytes
+   a sweep, round or step must move over 3.35 TB/s, with their battery: a node of degree 0, segments of
    1,100 and 1,500 arcs, segments at the plan's edges (degree 0, 1,
    31-33, the chunk size 2,048 +- 1, a cluster's reach 16,384 +- 1 and
    12,289 among 3,000 nodes of degree 6; a graph of heavy nodes only),
@@ -76,11 +87,15 @@ Phases (each prints its own lines):
    and cluster ranks (the choice arc pushing its share and a remainder),
    and ``in`` ties whose lowest arc id lies at the segment's end; eps 1,
    3 and 64 over costs of both signs, distances all INF, all 0 and from
-   the deficits or one source, and walks along a path, over a mirror
-   arc, into the sentinel, from an unreachable T, round a cycle and
-   with delta cut by wanted - routed or 0; then one refine burst (a
-   global update and 16 sweeps) and SSP's first three paths (their K10
-   ``in`` rounds and K11 walks) under ``torch.profiler``;
+   the deficits or one source, and path steps whose walks go along a
+   path, over a mirror arc, into the sentinel, from an unreachable T,
+   round a cycle, with delta cut by wanted - routed or 0, and along
+   paths of the walk's shared record length - 1, + 0 and + 1 arcs, and
+   the prologue, each also checked for the dist-buffer hazard (the
+   distances read stay as they were, the next dist0 lands in the other
+   buffer); then one refine burst (a global update and 16 sweeps) and
+   SSP's first three paths (their K10 ``in`` rounds and K11 steps)
+   under ``torch.profiler``;
 4. parity: a small flagship-shaped cluster (64 machines x 600 pods), one
    cold and two churned warm rounds on the card and on the CPU (the
    twins): every field of every round must be equal; then three express
@@ -201,7 +216,8 @@ Phases (each prints its own lines):
    zeroed just before each solve and read just after it, the
    quincy-priced flagship by cost-scaling (cost
    771,192 = the C++ oracle's, the reference's 2,592 sweeps and 13
-   phases, one result fetch), by SSP (= oracle), written to DIMACS,
+   phases, one result fetch), by SSP (= oracle; one K11 call a path
+   after its prologue), written to DIMACS,
    read back and solved through ``solve_scheduling`` with an
    empty-cluster meta (backend ``cost_scaling``, = oracle), and through
    ``solve_scheduling``'s dense path cold and warm (= oracle); wall ms,
@@ -229,7 +245,14 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
-INT32_OPS_PER_S = 67e12          # 32-bit scalar (non-tensor) peak, same sheet
+# 32-bit integer scalar peak, set by ``int32_ops_per_s`` on the card: a
+# Hopper SM has 64 INT32 lanes (NVIDIA H100 Tensor Core GPU Architecture
+# white paper), one operation a lane a clock, at the card's maximum SM
+# clock as ``nvidia-smi --query-gpu=clocks.max.sm`` reports it (about
+# 16.7e12 for 132 SMs at 1,980 MHz). The data sheet's 67 TFLOP/s of
+# float32 counts an FMA as two operations on 128 lanes: no int32 roof.
+INT32_LANES_PER_SM = 64
+INT32_OPS_PER_S = None
 REPEATS = 30
 SLEEP_CYCLES = 1_000_000         # ~0.5 ms of card time ahead of each timed call
 # the hand kernels' CUDA symbols, as the profiler names them
@@ -353,6 +376,20 @@ def max_abs_err(got, want) -> int:
         d = g.to(torch.int64) - w.to(torch.int64)
         err = max(err, int(d.abs().max()) if d.numel() else 0)
     return err
+
+
+def int32_ops_per_s(torch) -> float:
+    """The card's 32-bit integer scalar peak (see INT32_LANES_PER_SM)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
 
 
 def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
@@ -1001,7 +1038,13 @@ def perturb_record(torch, timer):
     Tp, Mp = d.c.shape
     log(f"[kernels] perturb bounds: bytes {n_bytes} -> {tb:.6f} ms, int32 "
         f"ops {n_ops} -> {to:.6f} ms (B={B}, Tp={Tp}, Mp={Mp}, "
-        f"scale={d.scale})")
+        f"scale={d.scale}); plan {k6.table_plan(B, Tp, Mp)}")
+    # yardstick, not a call the port makes: one fill_ of the table K6
+    # writes, what the card reaches writing the same bytes
+    table = torch.empty((B, Tp, Mp), dtype=torch.int32, device=dev)
+    log(f"[kernels] perturb write_floor_ms={timer(lambda: table.fill_(0)):.6f} "
+        f"(one fill_ of an int32 [{B}, {Tp}, {Mp}] table, L2 flushed)")
+    del table
     perturb_edges(torch)
     return (k6.KERNEL, err, ms, plain, *bound_ms(n_bytes, n_ops),
             (B, Tp, Mp))
@@ -1037,7 +1080,13 @@ def perturb_edge_table(torch, rng, Tp, Mp, scale, kind):
 def perturb_edges(torch) -> None:
     """K6 against its twin (tolerance 0): B 1 and 2, magnitude 0, 10 and
     50 %, scale 1 and above 1, INF rows, a whole INF table, zero-slot
-    columns, Mp 16 and 1028, seeds 0 and 2^31-1."""
+    columns, Mp 16 and 1028, seeds 0 and 2^31-1; and the tile plan's
+    edges (``kernels/perturb.py`` ``table_plan``): B 1, 2, 33, 34, 63,
+    64, 65 and 130 (variant chunks of 32 after variant 0) over Tp not a
+    multiple of the row tile,
+    Mp 16 and 1028, magnitude 0 and 50 % and 40,000 % (a span past 2^16:
+    the residues' products pass 32 bits), an all-INF table, seeds 0 and
+    2^31-1."""
     import numpy as np
 
     rng = np.random.default_rng(21)
@@ -1052,6 +1101,14 @@ def perturb_edges(torch) -> None:
     for Mp in (16, 1028):
         for seed in (0, 2**31 - 1):
             cases.append((2, 50, 3, 40, Mp, "plain", seed))
+    # the tile plan: row tiles of 32 rows at Mp 1024 and 1028, of 256 at
+    # Mp 16; chunks of 32 variants after variant 0
+    for B in (1, 2, 33, 34, 63, 64, 65, 130):
+        for Tp, Mp in ((33, 1024), (70, 1028), (300, 16)):
+            cases.append((B, 10, 3, Tp, Mp, "plain", B % 2 * (2**31 - 1)))
+    for pct in (0, 50, 40000):
+        cases.append((65, pct, 7, 45, 1024, "plain", 0))
+    cases.append((65, 10, 7, 45, 1024, "all-inf", 2**31 - 1))
     bad = []
     for B, pct, scale, Tp, Mp, kind, seed in cases:
         args = perturb_edge_table(torch, rng, Tp, Mp, scale, kind)
@@ -2083,16 +2140,19 @@ def whatif_phase(torch, card: str):
     if DEVICE == "cuda":
         # K6 as the what-if calls it (once, after the densify), timed by
         # CUDA events: a profiler session late in the run can record no
-        # device activity
+        # device activity. The card spins until the host has enqueued
+        # the call, so the events hold the two launches' device time and
+        # not the wrapper's host work (its output allocations and plan)
         a_ev = torch.cuda.Event(enable_timing=True)
         b_ev = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4 * SLEEP_CYCLES)
         a_ev.record()
         c, u, w, dg, cm = batch.perturb_costs(d, WHATIF_VARIANTS, 7)
         b_ev.record()
         b_ev.synchronize()
         log(f"[whatif] perturb as called: {a_ev.elapsed_time(b_ev):.6f} ms "
-            f"(CUDA events around perturb_costs, L2 as the densify left "
-            f"it)")
+            f"(device time, CUDA events around perturb_costs with the "
+            f"card held busy until enqueued; L2 as the densify left it)")
     else:
         c, u, w, dg, cm = batch.perturb_costs(d, WHATIF_VARIANTS, 7)
     cpu = torch.device("cpu")
@@ -3365,7 +3425,7 @@ GENERAL_SMALL_COUNTS = (1744, 12)
 FLAGSHIP_CS = (771192, 2592, 13)
 GENERAL_KERNELS = ("cs_sweep", "bf_relax", "ssp_augment")
 GENERAL_SYMBOLS = ("cs_sweep_kernel", "bf_out_kernel", "bf_in_kernel",
-                   "ssp_augment_kernel")
+                   "ssp_walk_kernel", "ssp_wide_kernel")
 
 
 def priced_net(torch, cluster, device):
@@ -3437,7 +3497,8 @@ def ssp_first_path(torch, net):
 
     from poseidon_tpu_torch.kernels.bf_relax import INF, bf_relax_in
     from poseidon_tpu_torch.ops.cost_scaling import residual_csr
-    from poseidon_tpu_torch.ops.ssp import _residual_tables, mirror_costs
+    from poseidon_tpu_torch.kernels.ssp_augment import mirror_costs_plain
+    from poseidon_tpu_torch.ops.ssp import _residual_tables
 
     dev = torch.device(DEVICE)
     fsrc, fdst, fcap, fcost, S, T = _residual_tables(net)
@@ -3446,7 +3507,7 @@ def ssp_first_path(torch, net):
                      dev)
     flow = torch.zeros(F, dtype=torch.int32, device=dev)
     pot = torch.zeros(NN, dtype=torch.int32, device=dev)
-    mrc = mirror_costs(g, pot, flow)
+    mrc = mirror_costs_plain(g.arc, g.head, g.tail, g.cost, g.fcap, pot, flow)
     dist0 = torch.full((NN,), INF, dtype=torch.int32, device=dev)
     dist0[S] = 0
     pred0 = torch.full((NN,), 2 * F, dtype=torch.int32, device=dev)
@@ -3463,6 +3524,60 @@ def ssp_first_path(torch, net):
     return dict(g=g, mrc=mrc, dist0=dist0, pred0=pred0, dist=dist, pred=pred,
                 flow=flow, tabs=tabs, S=S, T=T, F=F, NN=NN, rounds=rounds,
                 wanted=int(np.maximum(net.supply, 0).sum()))
+
+
+def path_step(g, fsrc, fdst, NN: int, wanted: int, S: int, T: int, flow,
+              pred, dist, pot, routed: int = 0):
+    """A K11 ``PathStep`` over residual CSR ``g`` holding one path's flow,
+    predecessors, distances (in the buffer the step reads), potentials
+    and routed count (copies of the tensors given)."""
+    from poseidon_tpu_torch.kernels.ssp_augment import PathStep
+
+    st = PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap, fsrc, fdst, NN,
+                  wanted, S, T)
+    st.flow.copy_(flow)
+    st.pred.copy_(pred)
+    st.dist[st.d].copy_(dist)
+    st.pot[st.p].copy_(pot)
+    st.state[0] = routed
+    return st
+
+
+def step_outputs(st) -> list:
+    """Everything a K11 step writes or must leave as it was: the flow,
+    state, mirror costs, predecessors and both buffers of each pair."""
+    return [st.flow, st.state, st.mrc, st.pred, *st.dist, *st.pot]
+
+
+def ssp_step_bytes_ops(NN: int, F: int, h: int) -> tuple[int, int]:
+    """Bytes a K11 step must move (each input read once, each output
+    written once) and its int32 operations: the walk of an h-arc path
+    (pred, the arc's tail, capacity and flow in, the flow out: 20 bytes
+    an arc, and dist[T] and the state), the wide pass over 2F positions
+    (arc, head, tail, cost in, mirror cost out: 20 bytes; ~12 ops) and NN
+    nodes (pot, dist in; pot', dist0, pred out: 20 bytes; ~4 ops), and
+    the flow and capacities it gathers (8 bytes a forward arc)."""
+    R = 2 * F
+    return (20 * h + 12 + 20 * R + 20 * NN + 8 * F,
+            6 * h + 12 * R + 4 * NN)
+
+
+WARM_CALLS = 20
+
+
+def warm_ms(torch, fn) -> float:
+    """CUDA-event ms a call over WARM_CALLS back-to-back calls, the card
+    held busy until all are enqueued (so the time is the card's)."""
+    fn()
+    torch.cuda._sleep(SLEEP_CYCLES * WARM_CALLS)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(WARM_CALLS):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / WARM_CALLS
 
 
 def path_length(pred, fsrc, fdst, S: int, T: int) -> int:
@@ -3585,40 +3700,67 @@ def general_kernel_records(torch, timer):
     if in_err:
         raise AssertionError(f"bf_relax (in) != twin: {in_err}")
 
-    # K11: the first path's walk and augment; each timed call restores
-    # the flow and the routed count first (two copy_ launches, timed
-    # alone and taken off)
+    # K11: the first path's step (walk, augment, potentials, the next
+    # round's mirror costs and dist0/pred0); each timed call restores the
+    # flow, the routed count and pred first (three copy_ launches, timed
+    # alone and taken off) and the step's buffer indices (host ints)
     fsrc, fdst = q["tabs"]
-    st0 = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    zero = torch.zeros(NN2, dtype=torch.int32, device=DEVICE)
+
+    def first_step():
+        return path_step(g2, fsrc, fdst, NN2, q["wanted"], q["S"], q["T"],
+                         q["flow"], q["pred"], q["dist"], zero)
+
     outs = []
-    for fn in (k11.ssp_augment, k11.ssp_augment_plain):
-        fl, st = q["flow"].clone(), st0.clone()
-        fn(q["pred"], q["dist"], fsrc, fdst, g2.fcap, fl, st, q["wanted"],
-           q["S"], q["T"])
-        outs.append([fl, st])
+    for fn in (k11.ssp_augment, k11.ssp_step_plain):
+        st = first_step()
+        fn(st)
+        outs.append(step_outputs(st))
     err = max_abs_err(outs[0], outs[1])
     h = path_length(q["pred"], fsrc, fdst, q["S"], q["T"])
-    fl, st = q["flow"].clone(), st0.clone()
+    st = first_step()
+    st0 = st.state.clone()
+    d0, p0 = st.d, st.p
 
     def restore():
-        fl.copy_(q["flow"])
-        st.copy_(st0)
+        st.flow.copy_(q["flow"])
+        st.state.copy_(st0)
+        st.pred.copy_(q["pred"])
+        st.d, st.p = d0, p0
 
     def k11_call(fn):
         def call():
             restore()
-            fn(q["pred"], q["dist"], fsrc, fdst, g2.fcap, fl, st,
-               q["wanted"], q["S"], q["T"])
+            fn(st)
         return call
 
     base = timer(restore)
     ms = max(timer(k11_call(k11.ssp_augment)) - base, 0.0)
-    plain = max(timer(k11_call(k11.ssp_augment_plain)) - base, 0.0)
-    log(f"[kernels] ssp_augment: first path of {h} arcs after "
-        f"{q['rounds']} Bellman-Ford rounds, delta={int(outs[0][1][1])}; "
-        f"restore copies {base:.6f} ms taken off both times")
-    records.append((k11.KERNEL, err, ms, plain, *bound_ms(20 * h + 24, 4 * h),
-                    (NN2, h)))
+    plain = max(timer(k11_call(k11.ssp_step_plain)) - base, 0.0)
+    delta = int(outs[0][1][1])
+    log(f"[kernels] ssp_augment: first path's step, a path of {h} arcs "
+        f"after {q['rounds']} Bellman-Ford rounds, delta={delta}; restore "
+        f"copies {base:.6f} ms taken off both times")
+    b, ops = ssp_step_bytes_ops(NN2, F2, h)
+    records.append((k11.KERNEL, err, ms, plain, *bound_ms(b, ops),
+                    (NN2, 2 * F2, h)))
+    # yardsticks, not calls the port makes: the launch floor (an empty
+    # kernel, torch.cuda._sleep(0)), cold and back to back; and the host
+    # time of one step call beside it
+    floor_cold = timer(lambda: torch.cuda._sleep(0))
+    floor_warm = warm_ms(torch, lambda: torch.cuda._sleep(0))
+    step_warm = warm_ms(torch, k11_call(k11.ssp_augment)) - warm_ms(
+        torch, restore)
+    log(f"[kernels] ssp_augment launch floor: torch.cuda._sleep(0) cold "
+        f"{floor_cold:.6f} ms, back to back {floor_warm:.6f} ms a launch; "
+        f"the step back to back {step_warm:.6f} ms a call (restore taken "
+        f"off)")
+    host, wall = host_us(torch, lambda: k11.ssp_augment(st))
+    f_host, f_wall = host_us(torch, lambda: torch.cuda._sleep(0))
+    log(f"[kernels] ssp_augment wrapper host_us={host:.3f} wall_us="
+        f"{wall:.3f} per call; torch.cuda._sleep(0) host_us={f_host:.3f} "
+        f"wall_us={f_wall:.3f} (median of {HOST_BATCHES} x {HOST_CALLS} "
+        f"calls)")
     profile_refine_burst(torch, at_burst(), eps)
     profile_ssp_paths(torch, flag)
     return records
@@ -3817,7 +3959,6 @@ def general_edges(torch) -> None:
     from poseidon_tpu_torch.kernels import cs_sweep as k9
     from poseidon_tpu_torch.kernels import ssp_augment as k11
     from poseidon_tpu_torch.ops.cost_scaling import arc_lengths, residual_csr
-    from poseidon_tpu_torch.ops.ssp import mirror_costs
 
     INF_K, INF = k10.INF_K, k10.INF
     dev = torch.device(DEVICE)
@@ -3872,7 +4013,8 @@ def general_edges(torch) -> None:
                           lambda *a: k10.bf_relax_out(*a, g.plan),
                           k10.bf_relax_out_plain, out_args)
         pot = (price % 50).to(torch.int32)
-        mrc = mirror_costs(g, pot, flow0).to(torch.int32)
+        mrc = k11.mirror_costs_plain(g.arc, g.head, g.tail, g.cost, g.fcap,
+                                     pot, flow0).to(torch.int32)
         for dk in (("tie",) if kind == "tie" else ("source", "all_inf", "mixed")):
             dist = {"tie": excess,
                     "source": torch.where(torch.arange(NN, device=dev) == 0,
@@ -3891,58 +4033,102 @@ def general_edges(torch) -> None:
             check(("bf_relax_in", name, dk),
                   lambda *a: k10.bf_relax_in(*a, g.plan),
                   k10.bf_relax_in_plain, in_args)
-    for name, case in ssp_walk_cases(torch):
-        def walk_args(case=case):
-            fl, st = case["flow"].clone(), case["state"].clone()
-            return ((case["pred"], case["dist"], case["fsrc"], case["fdst"],
-                     case["fcap"], fl, st, case["wanted"], case["S"],
-                     case["T"]), [fl, st])
-        check(("ssp_augment", name), k11.ssp_augment, k11.ssp_augment_plain,
-              walk_args)
+    hazards = []
+    for name, case, first in ssp_step_cases():
+        def step_args(case=case):
+            g = residual_csr(case["fsrc"], case["fdst"], case["fcap"],
+                             np.concatenate([case["fcost"], -case["fcost"]]),
+                             len(case["dist"]), dev)
+            t = {k: torch.as_tensor(case[k], device=dev) for k in (
+                "fsrc", "fdst", "flow", "pred", "dist", "pot")}
+            st = path_step(g, t["fsrc"], t["fdst"], len(case["dist"]),
+                           case["wanted"], case["S"], case["T"], t["flow"],
+                           t["pred"], t["dist"], t["pot"], case["routed"])
+            return (st,), step_outputs(st)
+
+        def k11_kernel(st, first=first):
+            d0 = st.d
+            k11.ssp_augment(st, first)
+            # the hazard: the next dist0 went into the other buffer, and
+            # the distances read are left as they were
+            want = torch.as_tensor(case["dist"], device=dev)
+            if not torch.equal(st.dist[d0], want) or st.d != d0 ^ 1:
+                hazards.append(name)
+
+        check(("ssp_augment", name), k11_kernel,
+              lambda st, first=first: k11.ssp_step_plain(st, first),
+              step_args)
     log(f"[edges] cs_sweep, bf_relax (out, in), ssp_augment: {n} cases, "
-        f"{len(bad)} differ")
-    if bad:
+        f"{len(bad)} differ; ssp_augment dist-buffer hazards: {hazards}")
+    if bad or hazards:
         raise AssertionError(f"[edges] general kernels != twins: {bad[:8]}")
 
 
-def ssp_walk_cases(torch):
-    """K11's hand-made walks on a chain S -> 0 -> 1 -> ... -> 5 -> T of
-    forward arcs 0..6 (capacities 4..10, some flow), with arc 7 from 3
-    to 2 carrying flow (its mirror, arc 7 + F, reaches 3 from 2):
-    (name, arguments) pairs."""
-    dev = torch.device(DEVICE)
+def ssp_step_cases():
+    """K11's hand-made path steps, (name, case, first) triples: walks on
+    a chain S -> 0 -> 1 -> ... -> 5 -> T of forward arcs 0..6
+    (capacities 4..10, some flow), with arc 7 from 3 to 2 carrying flow
+    (its mirror, arc 7 + F, reaches 3 from 2): a path, one over a mirror
+    arc, into the sentinel, from an unreachable T, round a cycle, delta
+    cut by wanted - routed and 0; chains of the walk's shared record
+    length - 1, + 0 and + 1 arcs; and the prologue (no walk)."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels.ssp_augment import INF, WALK_RECORD
+
     S, T = 6, 7
-    fsrc = [S, 0, 1, 2, 3, 4, 5, 3]
-    fdst = [0, 1, 2, 3, 4, 5, T, 2]
+    fsrc = np.array([S, 0, 1, 2, 3, 4, 5, 3], np.int32)
+    fdst = np.array([0, 1, 2, 3, 4, 5, T, 2], np.int32)
     F = len(fsrc)
-    pred = [0, 1, 2, 3, 4, 5, 2 * F, 6]   # the forward arc into each node
-    dist = [1, 2, 3, 4, 5, 6, 0, 7]
+    pred = np.array([0, 1, 2, 3, 4, 5, 2 * F, 6], np.int32)
+    dist = np.array([1, 2, 3, 4, 5, 6, 0, 7], np.int32)
+    rng = np.random.default_rng(17)
 
-    def t(x):
-        return torch.tensor(x, dtype=torch.int32, device=dev)
-
-    def case(pred_, dist_=dist, routed=0):
-        return dict(pred=t(pred_), dist=t(dist_), fsrc=t(fsrc), fdst=t(fdst),
-                    fcap=t([4, 9, 8, 7, 6, 5, 10, 3]),
-                    flow=t([1, 0, 2, 0, 0, 1, 0, 2]), state=t([routed, 0]),
-                    wanted=10, S=S, T=T)
+    def case(pred_, dist_=dist, routed=0, tabs=None):
+        fs, fd, fc, fl = tabs or (fsrc, fdst,
+                                  np.array([4, 9, 8, 7, 6, 5, 10, 3], np.int32),
+                                  np.array([1, 0, 2, 0, 0, 1, 0, 2], np.int32))
+        NN = len(dist_)
+        return dict(fsrc=fs, fdst=fd, fcap=fc, flow=fl, pred=pred_,
+                    dist=dist_, routed=routed, wanted=10, S=NN - 2, T=NN - 1,
+                    fcost=rng.integers(-50, 50, len(fs)).astype(np.int32),
+                    pot=rng.integers(-40, 40, NN).astype(np.int32))
 
     def swap(seq, **at):
-        out = list(seq)
+        out = seq.copy()
         for k, v in at.items():
             out[int(k[1:])] = v
         return out
 
-    return [
-        ("path", case(pred)),
-        ("mirror", case(swap(pred, v3=7 + F))),
-        ("sentinel", case(swap(pred, v4=2 * F))),
-        ("unreachable", case(pred, swap(dist, v7=2**30))),
+    def chain(n_arcs):
+        # S -> 0 -> ... -> n-1 -> T, a spare arc 0 -> T with flow; the
+        # bottleneck of 3 in the middle
+        n = n_arcs - 1
+        fs = np.array([n] + list(range(n)) + [0], np.int32)
+        fd = np.array(list(range(n)) + [n + 1, n + 1], np.int32)
+        Fc = len(fs)
+        fc = np.full(Fc, 5, np.int32)
+        fc[n_arcs // 2] = 3
+        fl = np.zeros(Fc, np.int32)
+        fl[-1] = 2
+        pr = np.concatenate([np.arange(n), [2 * Fc], [n]]).astype(np.int32)
+        di = np.concatenate([np.arange(1, n + 1), [0], [n + 1]]).astype(np.int32)
+        return case(pr, di, tabs=(fs, fd, fc, fl))
+
+    out = [
+        ("path", case(pred), False),
+        ("mirror", case(swap(pred, v3=7 + F)), False),
+        ("sentinel", case(swap(pred, v4=2 * F)), False),
+        ("unreachable", case(pred, swap(dist, v7=INF)), False),
         # 2 <- 2 over arc 3's tail: a cycle that never reaches S
-        ("cycle", case(swap(pred, v2=3, v3=7 + F))),
-        ("capped", case(pred, routed=9)),
-        ("done", case(pred, routed=10)),
+        ("cycle", case(swap(pred, v2=3, v3=7 + F)), False),
+        ("capped", case(pred, routed=9), False),
+        ("done", case(pred, routed=10), False),
+        ("prologue", case(pred), True),
     ]
+    for k in (-1, 0, 1):
+        out.append((f"record{k:+d}", chain(WALK_RECORD + k), False))
+    return out
 
 
 def general_phase(torch, card: str) -> dict:
@@ -4033,6 +4219,10 @@ def general_phase(torch, card: str) -> dict:
         f"loop_syncs={sres.loop_syncs} fetches={sres.fetches}")
     if scost != want or not sres.feasible or sres.fetches != 1:
         raise AssertionError(f"[general] SSP cost {scost} != oracle {want}")
+    # one K11 call a path, after the prologue
+    if ssp_counts["ssp_augment"] != sres.iterations + 1:
+        raise AssertionError(f"[general] SSP: {ssp_counts['ssp_augment']} "
+                             f"K11 calls for {sres.iterations} paths")
 
     dnet = read_dimacs(write_dimacs(flag))
     _, empty = FlowGraphBuilder().build(ClusterState(machines=[], tasks=[]))
@@ -4080,8 +4270,11 @@ def main() -> int:
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
+    global INT32_OPS_PER_S
+    INT32_OPS_PER_S = int32_ops_per_s(torch)
     log(f"[device] {name} | nvidia-smi: {smi} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda} | int32 roof {INT32_OPS_PER_S:.6e} ops/s "
+        f"(SMs x {INT32_LANES_PER_SM} lanes x clocks.max.sm)")
 
     t0 = time.perf_counter()
     report = loader.build_all()

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the hand kernels (K1 ``densify``, K2 ``row_options``, K3
-``bid_pass``, K9 ``cs_sweep``, K10 ``bf_relax`` ``out`` and ``in``) of
-one or more checkouts on one GPU, in turns, in one run.
+``bid_pass``, K9 ``cs_sweep``, K10 ``bf_relax`` ``out`` and ``in``, K11
+``ssp_augment``, K6 ``perturb``) of one or more checkouts on one GPU, in
+turns, in one run.
 
     python3 kernel_ab.py ROOT [ROOT ...]
 
@@ -52,6 +53,32 @@ state they leave; every checkout makes the same calls from the same
 state, and the kernels agree bit for bit, so each times the same work.
 They print ``cold_ms``, ``warm_ms``, ``host_us`` and ``wall_us``.
 
+K11 ``ssp_augment`` runs at SSP's first path over the same flagship
+(its converged distances and predecessors): what one path costs between
+two relaxation loops. A checkout whose K11 is the path step (a
+``PathStep``) makes one step call; an older one makes what its
+``ops/ssp.py`` made a path: the walk-and-augment launch, the torch
+potential update, the next round's ``mirror_costs`` and its
+dist0/pred0. Each timed call first restores the flow, routed and pred
+(three ``copy_``), timed alone as ``restore_ms``/``restore_host_us`` and
+taken off ``cold_ms`` and ``warm_ms``; ``host_us`` and ``wall_us`` are
+the call's with the restore (``restore_host_us`` beside them). Each is
+checked against its checkout's own twin (tolerance 0) and prints a
+digest of what it wrote (routed, delta, the flow's and the next mirror
+costs' sums), which must agree across checkouts. Beside it the launch
+floor: ``torch.cuda._sleep(0)`` (an empty kernel), ``cold_ms``,
+``warm_ms`` and ``host_us``.
+
+K6 ``perturb`` runs at BASELINE config 5 with 64 variants (Tp 4096, Mp
+1024, seed 7, 10 %), each checkout's own instance build, checked against
+its twin (tolerance 0); ``write_floor_ms`` is one ``fill_`` of an int32
+[64, 4096, 1024] table, timed as ``cold_ms``.
+
+``ssp_solve`` is the whole flagship SSP solve with the checkout's
+``solve_ssp`` (the general lane's path through K10 ``in`` and K11):
+``wall_ms`` of each of two solves after a warm-up solve, with its
+paths, loop reads and cost.
+
 The card's name and power limit come first, from ``nvidia-smi``.
 """
 
@@ -83,6 +110,7 @@ def worker(root: str) -> dict:
     from poseidon_tpu_torch.kernels import densify as k1
     from poseidon_tpu_torch.kernels import loader
     from poseidon_tpu_torch.kernels import row_options as k2
+    from poseidon_tpu_torch.ops import ssp
 
     report = loader.build_all()
     regs = {
@@ -163,12 +191,228 @@ def worker(root: str) -> dict:
         lambda: flush.max(), lambda: k1.densify(*tile, n_prefs=P))
     out["densify"]["one_tile_fill_ms"] = cold_time(
         lambda: flush.max(), lambda: table[:4].fill_(0))
-    for name, (call, check) in general_calls(torch, dev).items():
+    del table
+    net = flagship_net(dev)
+    for name, (call, check) in general_calls(torch, dev, net).items():
         if not check():
             raise AssertionError(f"{root}: {name} != its plain twin")
         out[name] = {"cold_ms": cold_time(lambda: flush.max(), call),
                      **warm_and_host(torch, call)}
+    call, restore, check, digest = ssp_step_call(torch, dev, net)
+    if not check():
+        raise AssertionError(f"{root}: ssp_augment != its plain twin")
+    cold_r = cold_time(lambda: flush.max(), restore)
+    timed = warm_and_host(torch, call)
+    rest = warm_and_host(torch, restore)
+    out["ssp_augment"] = {
+        "cold_ms": cold_time(lambda: flush.max(), call) - cold_r,
+        "warm_ms": timed["warm_ms"] - rest["warm_ms"],
+        "host_us": timed["host_us"], "wall_us": timed["wall_us"],
+        "restore_ms": cold_r, "restore_host_us": rest["host_us"],
+        "digest": digest,
+    }
+    out["launch_floor"] = {
+        "cold_ms": cold_time(lambda: flush.max(),
+                             lambda: torch.cuda._sleep(0)),
+        **warm_and_host(torch, lambda: torch.cuda._sleep(0)),
+    }
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ssp.solve_ssp(net, device=dev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["ssp_solve"] = {"wall_ms": walls[1:], "paths": res.iterations,
+                        "loop_syncs": res.loop_syncs,
+                        "cost": ssp.solution_cost(net, res)}
+    call, check = perturb_call(torch, dev)
+    if not check():
+        raise AssertionError(f"{root}: perturb != its plain twin")
+    big = torch.empty((64, 4096, 1024), dtype=torch.int32, device=dev)
+    out["perturb"] = {
+        "cold_ms": cold_time(lambda: flush.max(), call),
+        **warm_and_host(torch, call),
+        "write_floor_ms": cold_time(lambda: flush.max(),
+                                    lambda: big.fill_(0)),
+    }
     return out
+
+
+def flagship_net(dev):
+    """BASELINE config 2 priced by quincy, as a general graph."""
+    import numpy as np
+
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.models.costs import build_cost_inputs, quincy_cost
+    from poseidon_tpu_torch.synth import config2_quincy_flagship
+
+    cluster = config2_quincy_flagship(seed=0)
+    net, meta = FlowGraphBuilder().build(cluster)
+    pending = cluster.pending()
+    inputs = build_cost_inputs(
+        net, meta, device=dev,
+        task_cpu_milli=np.array([int(t.cpu_request * 1000) for t in pending],
+                                np.int64),
+        task_mem_kb=np.array([t.memory_request_kb for t in pending],
+                             np.int64))
+    return net.with_costs(quincy_cost(inputs))
+
+
+def mirror_costs(g, pot, flow):
+    """K10 ``in``'s mirror costs over ``g`` with this process's checkout:
+    a newer one has ``kernels.ssp_augment.mirror_costs_plain``, an older
+    one ``ops.ssp.mirror_costs``."""
+    from poseidon_tpu_torch.kernels import ssp_augment as k11
+
+    if hasattr(k11, "mirror_costs_plain"):
+        return k11.mirror_costs_plain(g.arc, g.head, g.tail, g.cost, g.fcap,
+                                      pot, flow)
+    from poseidon_tpu_torch.ops import ssp
+
+    return ssp.mirror_costs(g, pot, flow)
+
+
+def ssp_step_call(torch, dev, net):
+    """K11 at SSP's first path of the flagship (``net``), with this
+    process's checkout: (timed call, its restore, check against the twin,
+    digest)."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels import bf_relax as k10
+    from poseidon_tpu_torch.kernels import ssp_augment as k11
+    from poseidon_tpu_torch.ops import cost_scaling as cs
+    from poseidon_tpu_torch.ops import ssp
+
+    fsrc, fdst, fcap, fcost, S, T = ssp._residual_tables(net)
+    F, NN = fsrc.shape[0], net.num_node_slots + 2
+    g = cs.residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]),
+                        NN, dev)
+    i32 = torch.int32
+    wanted = int(np.maximum(net.supply, 0).sum())
+    fsrc_d, fdst_d = (torch.as_tensor(x, device=dev) for x in (fsrc, fdst))
+    pot0 = torch.zeros(NN, dtype=i32, device=dev)
+    flow0 = torch.zeros(F, dtype=i32, device=dev)
+    mrc = mirror_costs(g, pot0, flow0)
+    dist = torch.full((NN,), k10.INF, dtype=i32, device=dev)
+    dist[S] = 0
+    pred = torch.full((NN,), 2 * F, dtype=i32, device=dev)
+    d2, changed = torch.empty_like(dist), torch.ones(1, dtype=i32, device=dev)
+    while int(changed[0]):
+        k10.bf_relax_in(g.seg, g.arc, g.head, mrc, dist, d2, pred, changed,
+                        g.plan)
+        dist, d2 = d2, dist
+    state0 = torch.zeros(2, dtype=i32, device=dev)
+
+    if hasattr(k11, "PathStep"):
+        def make():
+            st = k11.PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap,
+                              fsrc_d, fdst_d, NN, wanted, S, T)
+            st.flow.copy_(flow0)
+            st.pred.copy_(pred)
+            st.dist[st.d].copy_(dist)
+            return st
+
+        st = make()
+        d0, p0 = st.d, st.p
+
+        def restore():
+            st.flow.copy_(flow0)
+            st.state.copy_(state0)
+            st.pred.copy_(pred)
+            st.d, st.p = d0, p0
+
+        def call():
+            restore()
+            k11.ssp_augment(st)
+
+        def outputs(step_fn):
+            s1 = make()
+            step_fn(s1)
+            return [s1.flow, s1.state, s1.mrc, s1.pred, *s1.dist, *s1.pot]
+
+        def check():
+            return all(torch.equal(x, y) for x, y in zip(
+                outputs(k11.ssp_augment), outputs(k11.ssp_step_plain)))
+
+        def digest():
+            call()
+            torch.cuda.synchronize()
+            return [*st.state.tolist(), int(st.flow.sum()),
+                    int(st.mrc.long().sum())]
+    else:
+        flow, state, pr = flow0.clone(), state0.clone(), pred.clone()
+        res = {}
+
+        def restore():
+            flow.copy_(flow0)
+            state.copy_(state0)
+            pr.copy_(pred)
+
+        def step(augment, fl, stt):
+            # what the older ops/ssp.py ran between two relaxation loops
+            augment(pr, dist, fsrc_d, fdst_d, g.fcap, fl, stt, wanted, S, T)
+            pot = pot0 + torch.where(dist < k10.INF, dist, 0)
+            res["mrc"] = mirror_costs(g, pot, fl)
+            nd = torch.full((NN,), k10.INF, dtype=i32, device=dev)
+            nd[S] = 0
+            res["pred"] = torch.full((NN,), 2 * F, dtype=i32, device=dev)
+            return [fl, stt, res["mrc"], res["pred"], nd, pot]
+
+        def call():
+            restore()
+            step(k11.ssp_augment, flow, state)
+
+        def check():
+            a = step(k11.ssp_augment, flow0.clone(), state0.clone())
+            b = step(k11.ssp_augment_plain, flow0.clone(), state0.clone())
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+
+        def digest():
+            call()
+            torch.cuda.synchronize()
+            return [*state.tolist(), int(flow.sum()),
+                    int(res["mrc"].long().sum())]
+
+    return call, restore, check, digest()
+
+
+def perturb_call(torch, dev):
+    """K6 at BASELINE config 5, 64 variants, with this process's
+    checkout: (timed call, check against the twin)."""
+    import numpy as np
+
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.graph.network import pad_bucket
+    from poseidon_tpu_torch.kernels import perturb as k6
+    from poseidon_tpu_torch.models.costs import (
+        build_cost_inputs_host, quincy_cost,
+    )
+    from poseidon_tpu_torch.ops.dense_auction import build_dense_instance
+    from poseidon_tpu_torch.ops.transport import (
+        extract_topology, instance_from_topology,
+    )
+    from poseidon_tpu_torch.synth import config5_whatif
+
+    cluster = config5_whatif(seed=0)
+    arrays, meta = FlowGraphBuilder().build_arrays(cluster)
+    pending = cluster.pending()
+    inputs = build_cost_inputs_host(
+        pad_bucket(meta.n_arcs), meta,
+        task_cpu_milli=np.array([int(t.cpu_request * 1000) for t in pending],
+                                np.int64),
+        task_mem_kb=np.array([t.memory_request_kb for t in pending],
+                             np.int64)).to_device(dev)
+    cost = quincy_cost(inputs).cpu().numpy().astype(np.int32)[: meta.n_arcs]
+    topo = extract_topology(meta, arrays["src"], arrays["dst"], arrays["cap"])
+    d = build_dense_instance(instance_from_topology(topo, cost), dev)
+    args = (d.c, d.u, d.w, d.dgen, d.s, 64, d.scale, 7, 10)
+
+    def check():
+        got, want = k6.perturb(*args), k6.perturb_plain(*args)
+        return all(torch.equal(x, y) for x, y in zip(got, want))
+
+    return lambda: k6.perturb(*args), check
 
 
 def warm_and_host(torch, call) -> dict:
@@ -198,29 +442,17 @@ def warm_and_host(torch, call) -> dict:
             "wall_us": sorted(wall)[HOST_BATCHES // 2]}
 
 
-def general_calls(torch, dev) -> dict:
-    """K9 and K10 at the flagship's general-lane states, built with this
-    process's checkout: name -> (timed call, check against the twin)."""
+def general_calls(torch, dev, net) -> dict:
+    """K9 and K10 at the flagship's general-lane states (``net``, the
+    flagship priced by quincy), built with this process's checkout:
+    name -> (timed call, check against the twin)."""
     import numpy as np
 
-    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
     from poseidon_tpu_torch.kernels import bf_relax as k10
     from poseidon_tpu_torch.kernels import cs_sweep as k9
-    from poseidon_tpu_torch.models.costs import build_cost_inputs, quincy_cost
     from poseidon_tpu_torch.ops import cost_scaling as cs
     from poseidon_tpu_torch.ops import ssp
-    from poseidon_tpu_torch.synth import config2_quincy_flagship
 
-    cluster = config2_quincy_flagship(seed=0)
-    net, meta = FlowGraphBuilder().build(cluster)
-    pending = cluster.pending()
-    inputs = build_cost_inputs(
-        net, meta, device=dev,
-        task_cpu_milli=np.array([int(t.cpu_request * 1000) for t in pending],
-                                np.int64),
-        task_mem_kb=np.array([t.memory_request_kb for t in pending],
-                             np.int64))
-    net = net.with_costs(quincy_cost(inputs))
     fuse = 200 * (net.num_node_slots.bit_length() + 8) * 8
 
     class Sampled(cs._Solve):
@@ -280,8 +512,8 @@ def general_calls(torch, dev) -> dict:
     g2 = cs.residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]),
                          NN, dev)
     plan2 = (g2.plan,) if hasattr(g2, "plan") else ()
-    mrc = ssp.mirror_costs(g2, torch.zeros(NN, dtype=torch.int32, device=dev),
-                           torch.zeros(F, dtype=torch.int32, device=dev))
+    mrc = mirror_costs(g2, torch.zeros(NN, dtype=torch.int32, device=dev),
+                       torch.zeros(F, dtype=torch.int32, device=dev))
     dist = torch.full((NN,), k10.INF, dtype=torch.int32, device=dev)
     dist[S] = 0
 

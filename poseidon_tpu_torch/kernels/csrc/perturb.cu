@@ -25,26 +25,44 @@
 //
 // Design: two kernels on one stream. `perturb_vectors` (grid: index
 // blocks x B) jitters w, dgen and u and writes the variant's table subkeys
-// to a scratch; `perturb_table` (grid: group blocks x B) gives each thread
-// 4 groups of 4 entries of one row of one variant (16-byte loads and
-// stores, Mp a multiple of 4). Every variant re-reads c0, w0, dgen0 and
-// s, which sit in L2 after the first (16 MiB at config 5), so device
-// memory sees c0 about once and the table writes. The hashes are sparse
-// (~1 % of the entries at config 5) and scattered over the warps' lanes:
-// a thread first writes every entry's generic route into registers and
-// marks its preference entries, then the warp hashes them in passes, each
-// lane taking one marked entry a pass, so a warp pays its busiest lane's
-// count of hashes instead of one per entry slot any lane needs. Each block
-// reduces its finite max (warp shuffles, then shared memory) and folds
-// 2 * max into cmax[b] with one atomicMax (cmax starts at 1). The int64
-// divisions are by the constant 100 and by one scale per call.
+// to a scratch. `perturb_table` gives each block one tile of the table,
+// `tile_rows` rows x `4 * cgw` columns (the plan of kernels/perturb.py:
+// powers of two, a row of the tile one warp's 512 contiguous bytes at
+// Mp >= 128), and loops over the variants inside: it reads its c0, w0,
+// dgen0 and s once and finds what no variant changes: in each thread's 4
+// 16-byte groups (one column group, 4 rows) the preference entries (c0 <
+// min(w0 + dgen0, INF) on a seated column, s > 0), which go with their c0
+// into a list per warp in shared memory. It writes variant 0 (c0 itself)
+// first. For the other variants it stages, a chunk of variants at a time,
+// each variant's w over the tile's rows, dg over its columns (INF on
+// unseated columns) and table subkeys in shared memory, so a variant
+// costs each entry an add and a min, and a 16-byte streaming store
+// (`__stcs`: the table is written once and read by the next launch, so
+// it should not displace c0's and the vectors' lines in L2; each warp's
+// store already covers whole 128-byte lines, so a staging tile for bulk
+// copies would only add a shared-memory round trip and a barrier a
+// variant). Only preference entries are hashed (~1 % of the entries at
+// config 5, a few a warp): the warp hashes its list for a batch of
+// variants at once, 32 (variant, entry) pairs a pass over all its lanes,
+// into shared memory, and each lane takes its own entries' values from
+// there; so the hash passes a warp pays are its entries x variants / 32,
+// not one pass a variant for its busiest lane. The per-entry arrays are
+// indexed only by unrolled constants, so they stay in registers. A
+// variant's finite max is reduced by warp shuffles and shared atomics
+// over the block, then folded into cmax[b] with one atomicMax a block
+// and variant (cmax starts at 1). The randint residues are combined in
+// 64 bits (a span past 65,535 overflows 32); the floor divisions by
+// scale are 32-bit, by 100 a constant.
 #include "common.cuh"
 
 namespace {
 
 constexpr int VEC_THREADS = 256;
-constexpr int TABLE_THREADS = 256;
-constexpr int PER_THREAD = 4;  // 16-byte groups of one variant a thread writes
+constexpr int TABLE_THREADS = 256;  // kernels/perturb.py TABLE_THREADS
+constexpr int TABLE_WARPS = TABLE_THREADS / 32;
+constexpr int GROUPS = 4;           // 16-byte groups a thread holds, one column group
+constexpr int ENTRIES = 4 * GROUPS;
+constexpr int WARP_ENTRIES = 32 * ENTRIES;  // a warp's entries of a tile: its most preference entries
 
 __device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1, uint32_t& x0, uint32_t& x1) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
@@ -94,41 +112,47 @@ struct Draw {
 
 __device__ __forceinline__ Draw draw_keys(Key k) { return Draw{derive(k, 0u), derive(k, 1u)}; }
 
-__device__ __forceinline__ uint64_t bits_mod(Key k, uint64_t n, uint32_t span, uint64_t m32) {
-  uint32_t x0 = static_cast<uint32_t>(n >> 32), x1 = static_cast<uint32_t>(n);
-  threefry(k.a, k.b, x0, x1);
-  // ((x0 << 32) | x1) mod span, from 32-bit halves
-  return ((x0 % span) * m32 + (x1 % span)) % span;
+__device__ __forceinline__ int floordiv(int a, int b) {  // b > 0
+  int q = a / b;
+  if ((a % b != 0) && (a < 0)) --q;
+  return q;
 }
 
-__device__ __forceinline__ long long floordiv(long long a, long long b) {
-  long long q = a / b;
-  if ((a % b != 0) && (a < 0)) --q;
+__device__ __forceinline__ long long floordiv100(long long a) {
+  long long q = a / 100;
+  if ((a % 100 != 0) && (a < 0)) --q;
   return q;
 }
 
 // randint's span and its residues: 2^32 and 2^64 modulo span
 struct Span {
-  uint32_t span;
-  uint64_t m32, mul;
+  uint32_t span, m32, mul;
 };
 
 __device__ __forceinline__ Span make_span(int pct) {
   const uint32_t span = static_cast<uint32_t>(2 * pct + 1);
   const uint64_t m32 = (1ull << 32) % span;
-  return Span{span, m32, (m32 * m32) % span};
+  return Span{span, static_cast<uint32_t>(m32), static_cast<uint32_t>((m32 * m32) % span)};
+}
+
+// ((x0 << 32) | x1) mod span from the hashed halves
+__device__ __forceinline__ uint32_t bits_mod(Key k, uint64_t n, const Span& sp) {
+  uint32_t x0 = static_cast<uint32_t>(n >> 32), x1 = static_cast<uint32_t>(n);
+  threefry(k.a, k.b, x0, x1);
+  return static_cast<uint32_t>(
+      (static_cast<uint64_t>(x0 % sp.span) * sp.m32 + x1 % sp.span) % sp.span);
 }
 
 // J(k, x) at flat index n
 __device__ __forceinline__ int jitter(const Draw& d, int x, uint64_t n, int scale, int pct,
                                       const Span& sp) {
   if (x >= pt::INF) return pt::INF;
-  const uint64_t hi = bits_mod(d.hi, n, sp.span, sp.m32);
-  const uint64_t lo = bits_mod(d.lo, n, sp.span, sp.m32);
-  const long long f =
-      static_cast<long long>(100 - pct) + static_cast<long long>((hi * sp.mul + lo) % sp.span);
-  const long long un = floordiv(x, scale);
-  long long y = floordiv(un * f, 100) * scale;
+  const uint32_t hi = bits_mod(d.hi, n, sp);
+  const uint32_t lo = bits_mod(d.lo, n, sp);
+  const uint32_t off =
+      static_cast<uint32_t>((static_cast<uint64_t>(hi) * sp.mul + lo) % sp.span);
+  const long long f = static_cast<long long>(100 - pct) + off;
+  long long y = floordiv100(static_cast<long long>(floordiv(x, scale)) * f) * scale;
   y = y < 0 ? 0 : y;
   y = y > pt::INF - 1 ? pt::INF - 1 : y;
   return static_cast<int>(y);
@@ -176,92 +200,196 @@ __global__ void __launch_bounds__(VEC_THREADS) perturb_vectors(
   }
 }
 
-__global__ void __launch_bounds__(TABLE_THREADS) perturb_table(
+// Dynamic shared memory of a block (kernels/perturb.py `table_plan`
+// sizes it): first each warp's preference list, WARP_ENTRIES slots each
+// of c0 (int), the jittered values of a batch of variants (int) and the
+// slot's lane and entry (uint16: lane << 4 | entry); then, for a chunk of
+// `chunk` variants, w over the tile's rows (chunk x tile_rows ints), dg
+// over its columns, INF on unseated columns (chunk x tile_cols), the
+// table subkeys (chunk x 4) and the running finite max (chunk).
+__global__ void __launch_bounds__(TABLE_THREADS, 3) perturb_table(
     const int4* __restrict__ c0, const int* __restrict__ w0, const int4* __restrict__ dgen0,
-    const int4* __restrict__ s, const int* __restrict__ w, const int4* __restrict__ dg,
-    const uint32_t* __restrict__ table_keys, int4* __restrict__ c, int* cmax, int Tp, int Mp,
-    int scale, int pct) {
-  __shared__ int warp_max[TABLE_THREADS / 32];
-  // one variant per grid row; groups of 4 consecutive entries of one
-  // row (Mp is a multiple of 4; Tp * Mp / 4 < 2^32, the wrapper checks)
-  const int b = blockIdx.y;
-  const unsigned G = static_cast<unsigned>(static_cast<uint64_t>(Tp) * Mp / 4);
-  const unsigned Mg = static_cast<unsigned>(Mp / 4);
-  const unsigned base = blockIdx.x * TABLE_THREADS * PER_THREAD;
-  int4* cb = c + static_cast<size_t>(b) * G;
-  const int* wb = w + static_cast<size_t>(b) * Tp;
-  const int4* db = dg + static_cast<size_t>(b) * Mg;
-  int v[4 * PER_THREAD];    // the thread's entries, as written
-  int pref[4 * PER_THREAD];  // preference parts still to jitter
-  unsigned pending = 0;      // bit e: entry e has a preference part
-#pragma unroll
-  for (int k = 0; k < PER_THREAD; ++k) {
-    const unsigned g = base + k * TABLE_THREADS + threadIdx.x;
-    int4 v4 = g < G ? c0[g] : make_int4(pt::INF, pt::INF, pt::INF, pt::INF);
-    int* vp = &v4.x;
-    if (b != 0 && g < G) {
-      const unsigned row = g / Mg;
-      const unsigned colg = g - row * Mg;
-      const long long w0r = w0[row], wbr = wb[row];
-      const int4 d0 = dgen0[colg], d4 = db[colg], s4 = s[colg];
-      const int* d0p = &d0.x;
-      const int* dp = &d4.x;
-      const int* sp4 = &s4.x;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int x = pt::INF;
-        if (sp4[j] > 0) {
-          const long long g0 = w0r + d0p[j];
-          const int generic = g0 < pt::INF ? static_cast<int>(g0) : pt::INF;
-          if (vp[j] < generic) {
-            pref[4 * k + j] = vp[j];
-            pending |= 1u << (4 * k + j);
-          }
-          const long long gb = wbr + dp[j];
-          x = gb < pt::INF ? static_cast<int>(gb) : pt::INF;
-        }
-        vp[j] = x;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[4 * k + j] = vp[j];
+    const int4* __restrict__ s, const int* __restrict__ w, const int* __restrict__ dg,
+    const uint32_t* __restrict__ table_keys, int4* __restrict__ c, int* cmax, int B, int Tp,
+    int Mp, int scale, int pct, int cgw, int tile_rows, int col_tiles, int chunk) {
+  extern __shared__ int4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* base = reinterpret_cast<int*>(smem4);
+  int* h_pp = base + warp * WARP_ENTRIES;
+  int* h_res = base + (TABLE_WARPS + warp) * WARP_ENTRIES;
+  uint16_t* h_id =
+      reinterpret_cast<uint16_t*>(base + 2 * TABLE_WARPS * WARP_ENTRIES) + warp * WARP_ENTRIES;
+  const int tile_cols = 4 * cgw;
+  int* s_w = base + 2 * TABLE_WARPS * WARP_ENTRIES + TABLE_WARPS * WARP_ENTRIES / 2;
+  int* s_dg = s_w + chunk * tile_rows;
+  uint32_t* s_key = reinterpret_cast<uint32_t*>(s_dg + chunk * tile_cols);
+  int* s_max = reinterpret_cast<int*>(s_key + 4 * chunk);
+
+  const int Mg = Mp / 4;
+  const size_t G = static_cast<size_t>(Tp) * Mg;
+  const int cgw_shift = __ffs(cgw) - 1;             // cgw, tile_rows: powers of two
+  const int rows_shift = __ffs(tile_rows) - 1;
+  const int cols_shift = cgw_shift + 2;
+  const int rpp = TABLE_THREADS >> cgw_shift;       // rows of one pass of the block
+  const int row0 = (static_cast<int>(blockIdx.x) / col_tiles) * tile_rows;
+  const int g0 = (static_cast<int>(blockIdx.x) % col_tiles) * cgw;
+  const int lane_row = threadIdx.x >> cgw_shift;
+  const int cg = g0 + (threadIdx.x & (cgw - 1));    // this thread's column group
+  const bool col_ok = cg < Mg;
+
+  // what no variant changes: which entries are preference entries and
+  // their c0; variant 0 (c0 itself) is written as it is read
+  int seated = 0;                                   // bit j: column 4 cg + j has s > 0
+  int4 d04 = make_int4(0, 0, 0, 0);
+  if (col_ok) {
+    const int4 s4 = s[cg];
+    seated = (s4.x > 0) | (s4.y > 0) << 1 | (s4.z > 0) << 2 | (s4.w > 0) << 3;
+    d04 = dgen0[cg];
   }
-  // the hashes: every lane with a pending preference part takes one per
-  // pass, so a warp runs as many passes as its busiest lane has parts,
-  // not one per entry slot that any lane needs
-  if (__any_sync(0xffffffffu, pending)) {
-    Draw d;
-    d.hi = Key{table_keys[4 * b], table_keys[4 * b + 1]};
-    d.lo = Key{table_keys[4 * b + 2], table_keys[4 * b + 3]};
-    const Span sp = make_span(pct);
-    while (__any_sync(0xffffffffu, pending)) {
-      if (pending) {
-        const int e = __ffs(pending) - 1;
-        pending &= pending - 1;
-        const unsigned g = base + (e >> 2) * TABLE_THREADS + threadIdx.x;
-        const int x = jitter(d, pref[e], 4ull * g + (e & 3), scale, pct, sp);
-        v[e] = min(v[e], x);
-      }
-    }
-  }
+  const int* d0p = &d04.x;
+  int pp[ENTRIES];
+  unsigned prefs = 0;                               // bit e: entry e is a preference entry
   int vmax = 0;
 #pragma unroll
-  for (int k = 0; k < PER_THREAD; ++k) {
-    const unsigned g = base + k * TABLE_THREADS + threadIdx.x;
-    if (g < G) cb[g] = make_int4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+  for (int k = 0; k < GROUPS; ++k) {
+    const int row = row0 + lane_row + k * rpp;
+    int4 v4 = make_int4(pt::INF, pt::INF, pt::INF, pt::INF);
+    if (col_ok && row < Tp) {
+      const size_t g = static_cast<size_t>(row) * Mg + cg;
+      v4 = c0[g];
+      __stcs(c + g, v4);
+      const long long w0r = w0[row];
+      const int* vp = &v4.x;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (v[4 * k + j] < pt::INF) vmax = max(vmax, v[4 * k + j]);
+      for (int j = 0; j < 4; ++j) {
+        const long long g0l = w0r + d0p[j];
+        const int generic = g0l < pt::INF ? static_cast<int>(g0l) : pt::INF;
+        if ((seated >> j & 1) && vp[j] < generic) prefs |= 1u << (4 * k + j);
+        if (vp[j] < pt::INF) vmax = max(vmax, vp[j]);
+      }
+    }
+    pp[4 * k] = v4.x;
+    pp[4 * k + 1] = v4.y;
+    pp[4 * k + 2] = v4.z;
+    pp[4 * k + 3] = v4.w;
+  }
+  // the warp's preference list: lane l's entries at [off, off + cnt)
+  const int cnt = __popc(prefs);
+  int incl = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const int off = incl - cnt;
+  const int pw = __shfl_sync(0xffffffffu, incl, 31);
+  {
+    int r = off;
+#pragma unroll
+    for (int i = 0; i < ENTRIES; ++i) {
+      if (prefs >> i & 1) {
+        h_pp[r] = pp[i];
+        h_id[r] = static_cast<uint16_t>(lane << 4 | i);
+        ++r;
+      }
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) vmax = max(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = vmax;
+  if (threadIdx.x == 0) s_max[0] = 0;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int m = 0;
+  if (lane == 0) atomicMax(&s_max[0], vmax);
+  __syncthreads();
+  if (threadIdx.x == 0 && 2 * s_max[0] > 1) atomicMax(&cmax[0], 2 * s_max[0]);
+
+  size_t out[GROUPS];                               // this thread's groups in one variant
 #pragma unroll
-    for (int i = 0; i < TABLE_THREADS / 32; ++i) m = max(m, warp_max[i]);
-    if (2 * m > 1) atomicMax(&cmax[b], 2 * m);
+  for (int k = 0; k < GROUPS; ++k) {
+    const int row = row0 + lane_row + k * rpp;
+    out[k] = col_ok && row < Tp ? static_cast<size_t>(row) * Mg + cg : ~size_t(0);
+  }
+  const Span sp = make_span(pct);
+  const int* s_seat = reinterpret_cast<const int*>(s);
+  for (int b0 = 1; b0 < B; b0 += chunk) {
+    const int n = min(chunk, B - b0);
+    __syncthreads();  // the last chunk's reads of the stage are done
+    for (int i = threadIdx.x; i < n * tile_rows; i += TABLE_THREADS) {
+      const int row = row0 + (i & (tile_rows - 1));
+      s_w[i] = row < Tp ? w[static_cast<size_t>(b0 + (i >> rows_shift)) * Tp + row] : pt::INF;
+    }
+    for (int i = threadIdx.x; i < n * tile_cols; i += TABLE_THREADS) {
+      const int col = 4 * g0 + (i & (tile_cols - 1));
+      s_dg[i] = col < Mp && s_seat[col] > 0
+                    ? dg[static_cast<size_t>(b0 + (i >> cols_shift)) * Mp + col]
+                    : pt::INF;
+    }
+    for (int i = threadIdx.x; i < 4 * n; i += TABLE_THREADS) s_key[i] = table_keys[4 * b0 + i];
+    for (int i = threadIdx.x; i < n; i += TABLE_THREADS) s_max[i] = 0;
+    __syncthreads();
+    int hb_base = 0, hb_end = 0;  // the variants whose hashes h_res holds
+    for (int bi = 0; bi < n; ++bi) {
+      if (pw > 0 && bi == hb_end) {
+        // the hashes of a batch of variants, 32 preference entries a
+        // pass over the whole warp
+        const int nsub = min(n - bi, max(1, WARP_ENTRIES / pw));
+        const int items = nsub * pw;
+        __syncwarp();  // the last batch's values are read
+        for (int j = lane; j < items; j += 32) {
+          const int vi = j / pw;
+          const int p = j - vi * pw;
+          const int id = h_id[p];
+          const int e = id & 15;
+          const int t = warp << 5 | id >> 4;
+          const int row = row0 + (t >> cgw_shift) + (e >> 2) * rpp;
+          const int col = 4 * (g0 + (t & (cgw - 1))) + (e & 3);
+          const uint32_t* kp = s_key + 4 * (bi + vi);
+          Draw d;
+          d.hi = Key{kp[0], kp[1]};
+          d.lo = Key{kp[2], kp[3]};
+          h_res[j] = jitter(d, h_pp[p], static_cast<uint64_t>(row) * Mp + col, scale, pct, sp);
+        }
+        __syncwarp();
+        hb_base = bi;
+        hb_end = bi + nsub;
+      }
+      const int4 db4 = *reinterpret_cast<const int4*>(s_dg + bi * tile_cols + 4 * (cg - g0));
+      const int* dbp = &db4.x;
+      int v[ENTRIES];
+#pragma unroll
+      for (int k = 0; k < GROUPS; ++k) {
+        const int wb = s_w[bi * tile_rows + lane_row + k * rpp];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[4 * k + j] = min(wb + dbp[j], pt::INF);
+      }
+      if (cnt) {
+        const int* rp = h_res + (bi - hb_base) * pw + off;
+        unsigned pending = prefs;
+        for (int r = 0; pending; ++r) {
+          const int e = __ffs(pending) - 1;
+          pending &= pending - 1;
+          const int x = rp[r];
+#pragma unroll
+          for (int i = 0; i < ENTRIES; ++i) v[i] = i == e ? min(v[i], x) : v[i];
+        }
+      }
+      int bmax = 0;
+      int4* cb = c + static_cast<size_t>(b0 + bi) * G;
+#pragma unroll
+      for (int k = 0; k < GROUPS; ++k) {
+        if (out[k] != ~size_t(0))
+          __stcs(cb + out[k], make_int4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (v[4 * k + j] < pt::INF) bmax = max(bmax, v[4 * k + j]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) bmax = max(bmax, __shfl_xor_sync(0xffffffffu, bmax, o));
+      if (lane == 0 && bmax > 0) atomicMax(&s_max[bi], bmax);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += TABLE_THREADS)
+      if (2 * s_max[i] > 1) atomicMax(&cmax[b0 + i], 2 * s_max[i]);
   }
 }
 
@@ -270,7 +398,8 @@ __global__ void __launch_bounds__(TABLE_THREADS) perturb_table(
 extern "C" int perturb_launch(const int* c0, const int* u0, const int* w0, const int* dgen0,
                               const int* s, int* c, int* u, int* w, int* dg, int* cmax,
                               uint32_t* table_keys, int B, int Tp, int Mp, int scale, int seed,
-                              int pct, void* stream) {
+                              int pct, int cgw, int tile_rows, int col_tiles, int chunk,
+                              int smem, int grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_vec = Tp > Mp ? Tp : Mp;
   dim3 vgrid((n_vec + VEC_THREADS - 1) / VEC_THREADS, B);
@@ -278,12 +407,11 @@ extern "C" int perturb_launch(const int* c0, const int* u0, const int* w0, const
                                                   Mp, scale, seed, pct);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const uint64_t G = static_cast<uint64_t>(Tp) * Mp / 4;
-  const uint64_t per_block = static_cast<uint64_t>(TABLE_THREADS) * PER_THREAD;
-  dim3 tgrid(static_cast<unsigned>((G + per_block - 1) / per_block), B);
-  perturb_table<<<tgrid, TABLE_THREADS, 0, st>>>(
+  err = cudaFuncSetAttribute(perturb_table, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  perturb_table<<<grid, TABLE_THREADS, smem, st>>>(
       reinterpret_cast<const int4*>(c0), w0, reinterpret_cast<const int4*>(dgen0),
-      reinterpret_cast<const int4*>(s), w, reinterpret_cast<const int4*>(dg), table_keys,
-      reinterpret_cast<int4*>(c), cmax, Tp, Mp, scale, pct);
+      reinterpret_cast<const int4*>(s), w, dg, table_keys, reinterpret_cast<int4*>(c), cmax, B,
+      Tp, Mp, scale, pct, cgw, tile_rows, col_tiles, chunk);
   return static_cast<int>(cudaGetLastError());
 }

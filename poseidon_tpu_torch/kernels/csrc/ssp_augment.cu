@@ -1,64 +1,124 @@
-// K11 ssp_augment: the path walk and augment of successive shortest paths.
+// K11 ssp_augment: one path step of successive shortest paths, everything
+// between two relaxation loops, in one library call.
 //
-// Replaces: poseidon_tpu/ops/ssp.py:130-157, the walk and the flow update
-// of `_solve`'s `body` (a `while_loop` that marks the path's arcs in a
-// [2F + 1] mask, then one masked update of every flow slot):
+// Replaces: poseidon_tpu/ops/ssp.py:73 `_solve`'s `body` outside its
+// relaxation `while_loop`: the walk and the flow update (l.130-157),
+// the potential update (l.156), and the next `bellman_ford`'s set-up,
+// its reduced costs and capacity mask (l.101-102) and dist0/pred0
+// (l.119-120). After the path's relaxation rounds (K10 `in`):
 //   v = T; until v == S or NN steps: a = pred[v]; bneck = min(bneck,
 //   res[a]); v = tail(a)   (a = NO_PRED = 2F has tail T and residual 0)
 //   delta = (dist[T] < INF && v == S) ? min(bneck, wanted - routed) : 0
 //   flow[a] += delta (forward arc), flow[a - F] -= delta (mirror), once per
-//   arc of the path;  routed += delta.
-// The launch leaves routed and delta in state[0], state[1] (int32[2]) for
-// the host's one read a path.
+//   arc of the path;  routed += delta;
+//   pot' = pot + (dist < INF ? dist : 0);
+//   mrc[p] = capacity of m > 0 ? -cost[p] + pot'[head[p]] - pot'[tail[p]]
+//            : INF, for the mirror m of arc[p] (K10 `in`'s input, as
+//            ops/ssp.py's `mirror_costs_plain`);
+//   dist0 = INF but dist0[S] = 0;  pred0 = NO_PRED.
+// The first path's step (`first`) is the prologue: no walk, pot' = pot.
+// routed and delta land in state[0], state[1] (int32[2]) for the host's
+// one read a path. Integer sums wrap as PyTorch's and XLA's int32 do.
 //
-// Two shortcuts give the same result as the full walk: an unreachable T
-// routes nothing whatever the walk visits, so it is not walked; and a walk
-// that meets NO_PRED takes residual 0 into bneck (delta 0) and returns to
-// T, where it repeats itself to the step cap, so it stops there. A walk
-// that reaches S visits each arc once (an arc visited twice would put the
-// deterministic walk in a cycle that never reaches S), so the second walk,
-// which applies delta, touches each path arc once, as the mask does.
+// The same walk shortcuts as before: an unreachable T routes nothing
+// whatever the walk visits, so it is not walked; a walk that meets
+// NO_PRED takes residual 0 into bneck (delta 0) and would return to T and
+// repeat itself to the step cap, so it stops there. A walk that reaches S
+// visits distinct nodes (a deterministic walk that met a node twice would
+// cycle and never reach S), so its arcs are distinct and no arc lies on it
+// with its mirror: every flow slot it names is named once, and the lanes
+// can update them at once without atomics.
 //
-// Bound: latency, not bytes. A path of h arcs reads 4 ints an arc twice
-// and writes one flow int an arc: under 100 bytes at the flagship's 4-arc
-// paths (T <- machine <- cluster aggregator <- task <- S, ~0.03 ns at
-// 3.35 TB/s), far below one launch. Its time is the chain of h dependent
-// loads, twice.
+// Bound: latency. The walk is a chain of dependent loads, two a step
+// (pred[v], then the arc's tail); the wide pass reads the CSR's four
+// [2F] columns and gathers pot, dist and flow, ~3.7 MB at the flagship
+// (1.1 us at 3.35 TB/s), about a launch's fixed cost.
 //
-// Design: one block of one warp; lane 0 walks (the path is a chain).
+// Design: two launches on the caller's stream from one C entry point,
+// whose arguments are a host struct of device pointers checked once per
+// solve (kernels/ssp_augment.py) and three integers.
+// - `ssp_walk_kernel`, one block: thread 0 walks T -> S once, keeping
+//   the first `record` arc ids in shared memory and the bottleneck; the
+//   block's threads then add +-delta to the recorded arcs together. A
+//   path longer than the record is walked a second time by thread 0 from
+//   the node where the record ended, to apply delta to the rest.
+// - `ssp_wide_kernel`, one thread per CSR position and node: the new
+//   potentials are formed where they are gathered (pot[x] + dist[x]), so
+//   no thread waits on another's potential; it writes pot' into the other
+//   buffer of the pot pair, and dist0 into the other buffer of the dist
+//   pair, never into the `dist` it reads; pred is reset in place (only
+//   the walk, which ran before it, reads pred).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int INF = 1 << 30;  // ssp.py:37
+constexpr int WALK_THREADS = 128;
+constexpr int WIDE_THREADS = 256;
 
-__global__ void ssp_augment_kernel(const int* __restrict__ pred, const int* __restrict__ dist,
-                                   const int* __restrict__ fsrc, const int* __restrict__ fdst,
-                                   const int* __restrict__ fcap, int* __restrict__ flow,
-                                   int* __restrict__ state, int wanted, int S, int T, int NN,
-                                   int F) {
-  if (threadIdx.x != 0) return;
-  const int NO_PRED = 2 * F;
-  const bool reachable = dist[T] < INF;
-  int v = T;
-  int bneck = INF;
-  if (reachable) {
-    for (int steps = 0; v != S && steps < NN; ++steps) {
-      const int a = pred[v];
-      if (a == NO_PRED) {
-        bneck = 0;
-        v = T;
-        break;
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int wrap_sub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
+
+__global__ void __launch_bounds__(WALK_THREADS)
+    ssp_walk_kernel(const int* __restrict__ pred, const int* __restrict__ dist,
+                    const int* __restrict__ fsrc, const int* __restrict__ fdst,
+                    const int* __restrict__ fcap, int* __restrict__ flow, int* __restrict__ state,
+                    int wanted, int S, int T, int NN, int F, int record) {
+  extern __shared__ int rec[];
+  __shared__ int s_delta, s_h, s_rest;
+  if (threadIdx.x == 0) {
+    const int NO_PRED = 2 * F;
+    const bool reachable = dist[T] < INF;
+    int v = T;
+    int bneck = INF;
+    int h = 0;      // arcs recorded
+    int rest = -1;  // the node where the record ended, if it did
+    if (reachable) {
+      for (int steps = 0; v != S && steps < NN; ++steps) {
+        const int a = pred[v];
+        if (a == NO_PRED) {
+          bneck = 0;
+          v = T;
+          break;
+        }
+        if (h < record) {
+          rec[h++] = a;
+        } else if (rest < 0) {
+          rest = v;
+        }
+        bneck = min(bneck, a < F ? fcap[a] - flow[a] : flow[a - F]);
+        v = a < F ? fsrc[a] : fdst[a - F];
       }
-      bneck = min(bneck, a < F ? fcap[a] - flow[a] : flow[a - F]);
-      v = a < F ? fsrc[a] : fdst[a - F];
+    }
+    const int routed = state[0];
+    const int delta = (reachable && v == S) ? min(bneck, wanted - routed) : 0;
+    state[0] = routed + delta;
+    state[1] = delta;
+    s_delta = delta;
+    s_h = h;
+    s_rest = rest;
+  }
+  __syncthreads();
+  const int delta = s_delta;
+  if (delta == 0) return;
+  const int h = s_h;
+  for (int i = threadIdx.x; i < h; i += WALK_THREADS) {
+    const int a = rec[i];
+    if (a < F) {
+      flow[a] += delta;
+    } else {
+      flow[a - F] -= delta;
     }
   }
-  const int routed = state[0];
-  const int delta = (reachable && v == S) ? min(bneck, wanted - routed) : 0;
-  if (delta != 0) {
-    for (int u = T; u != S;) {
+  if (threadIdx.x == WALK_THREADS - 1 && s_rest >= 0) {
+    // the arcs past the record: their slots differ from the recorded ones
+    for (int u = s_rest; u != S;) {
       const int a = pred[u];
       if (a < F) {
         flow[a] += delta;
@@ -69,16 +129,82 @@ __global__ void ssp_augment_kernel(const int* __restrict__ pred, const int* __re
       }
     }
   }
-  state[0] = routed + delta;
-  state[1] = delta;
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS)
+    ssp_wide_kernel(const int* __restrict__ arc, const int* __restrict__ head,
+                    const int* __restrict__ tail, const int* __restrict__ cost,
+                    const int* __restrict__ fcap, const int* __restrict__ flow,
+                    const int* __restrict__ dist, int* __restrict__ dist_next,
+                    const int* __restrict__ pot, int* __restrict__ pot_next,
+                    int* __restrict__ pred, int* __restrict__ mrc, int S, int NN, int F, int R,
+                    int first) {
+  const int i = blockIdx.x * WIDE_THREADS + threadIdx.x;
+  if (i < R) {
+    const int a = arc[i];
+    const int hd = head[i];
+    const int tl = tail[i];
+    int ph = pot[hd];
+    int pt = pot[tl];
+    if (!first) {
+      const int dh = dist[hd];
+      const int dt = dist[tl];
+      ph = wrap_add(ph, dh < INF ? dh : 0);
+      pt = wrap_add(pt, dt < INF ? dt : 0);
+    }
+    const bool fwd = a < F;
+    const int slot = fwd ? a : a - F;
+    const int f = flow[slot];
+    const int cap = fwd ? f : fcap[slot] - f;
+    mrc[i] = cap > 0 ? wrap_sub(wrap_sub(ph, cost[i]), pt) : INF;
+  }
+  if (i < NN) {
+    const int d = first ? 0 : dist[i];
+    pot_next[i] = wrap_add(pot[i], d < INF ? d : 0);
+    dist_next[i] = i == S ? 0 : INF;
+    pred[i] = 2 * F;
+  }
 }
 
 }  // namespace
 
-extern "C" int ssp_augment_launch(const int* pred, const int* dist, const int* fsrc,
-                                  const int* fdst, const int* fcap, int* flow, int* state,
-                                  int wanted, int S, int T, int NN, int F, void* stream) {
-  ssp_augment_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      pred, dist, fsrc, fdst, fcap, flow, state, wanted, S, T, NN, F);
+// The solve's device pointers and sizes, laid out as the ctypes
+// Structure `_Args` of kernels/ssp_augment.py: every field 8 bytes.
+struct SspArgs {
+  const int* arc;
+  const int* head;
+  const int* tail;
+  const int* cost;
+  const int* fcap;
+  const int* fsrc;
+  const int* fdst;
+  int* flow;
+  int* pred;
+  int* mrc;
+  int* state;
+  int* dist[2];
+  int* pot[2];
+  long long wanted, S, T, NN, F, R, record;
+};
+
+// One path step: dist[d] holds the path's distances (unread when
+// `first`), pot[p] its potentials; the next relaxation reads dist[d ^ 1]
+// and the next step pot[p ^ 1].
+extern "C" int ssp_step_launch(const SspArgs* a, int d, int p, int first, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int S = static_cast<int>(a->S), NN = static_cast<int>(a->NN);
+  const int F = static_cast<int>(a->F), R = static_cast<int>(a->R);
+  if (!first) {
+    const int record = static_cast<int>(a->record);
+    ssp_walk_kernel<<<1, WALK_THREADS, record * sizeof(int), st>>>(
+        a->pred, a->dist[d], a->fsrc, a->fdst, a->fcap, a->flow, a->state,
+        static_cast<int>(a->wanted), S, static_cast<int>(a->T), NN, F, record);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int n = R > NN ? R : NN;
+  ssp_wide_kernel<<<(n + WIDE_THREADS - 1) / WIDE_THREADS, WIDE_THREADS, 0, st>>>(
+      a->arc, a->head, a->tail, a->cost, a->fcap, a->flow, a->dist[d], a->dist[d ^ 1], a->pot[p],
+      a->pot[p ^ 1], a->pred, a->mrc, S, NN, F, R, first);
   return static_cast<int>(cudaGetLastError());
 }

@@ -168,7 +168,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "stream_restore_launch": [P] * 4 + [I] * 5 + [P],
         },
         "perturb": {
-            "perturb_launch": [P] * 11 + [I] * 6 + [P],
+            "perturb_launch": [P] * 11 + [I] * 12 + [P],
         },
         "gap_rows": {
             "gap_rows_launch": [P] * 6 + [I] * 3 + [P, P],
@@ -181,7 +181,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "bf_relax_in_launch": [P] * 9 + [I] * 3 + [P],
         },
         "ssp_augment": {
-            "ssp_augment_launch": [P] * 7 + [I] * 5 + [P],
+            "ssp_step_launch": [P, I, I, I, P],
         },
     }[name]
     for fn_name, argtypes in sigs.items():

@@ -12,10 +12,14 @@ module carries its own copy of that algorithm: ``threefry2x32`` and
 ``variant_keys`` here are what the CUDA source computes, and the twin
 does the same arithmetic in int64 torch, masked to 32 bits. The CUDA
 source is ``csrc/perturb.cu``; its header note gives the bounds and the
-design.
+design. ``table_plan`` is the table kernel's launch plan (tile sizes,
+variant chunk, shared memory and grid), here so that the CPU tests
+reach its arithmetic.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -26,11 +30,63 @@ INF = 2**29
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
+TABLE_THREADS = 256     # a table block (csrc/perturb.cu)
+TILE_GROUPS = 4         # 16-byte groups a thread holds, down one column
+MAX_CGW = 32            # 16-byte column groups of a tile row: one warp
+VARIANT_CHUNK = 32      # variants staged in shared memory at a time
+SMEM_CAP = 232_448      # shared memory a Hopper block may opt into
+# each warp's preference list: its 32 x 4 x TILE_GROUPS entries' c0 and
+# jittered values (int32) and lane/entry ids (uint16)
+HASH_SMEM = TABLE_THREADS // 32 * 32 * 4 * TILE_GROUPS * (4 + 4 + 2)
+
 KERNEL = Kernel(
     name="perturb",
     source="poseidon_tpu_torch/kernels/csrc/perturb.cu",
     replaces="poseidon_tpu/ops/batch.py:100",
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class TablePlan:
+    """The table kernel's launch plan: one block a tile of ``tile_rows``
+    rows x ``4 * cgw`` columns, variants 1..B-1 staged ``chunk`` at a
+    time; ``smem`` bytes of shared memory hold the warps' preference
+    lists (HASH_SMEM) and one chunk's stage."""
+
+    cgw: int          # 16-byte column groups of a tile row (threads a row)
+    tile_rows: int    # rows of a tile: (TABLE_THREADS / cgw) * TILE_GROUPS
+    row_tiles: int
+    col_tiles: int
+    chunk: int        # variants staged at a time
+    smem: int         # dynamic shared memory of a block, bytes
+
+    @property
+    def tile_cols(self) -> int:
+        return 4 * self.cgw
+
+    @property
+    def grid(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+
+def table_plan(B: int, Tp: int, Mp: int) -> TablePlan:
+    """The plan of ``B`` variants of a [Tp, Mp] table (Mp a multiple of
+    4): a tile row spans the narrowest power of two of 16-byte groups
+    that covers Mp, at most one warp's 32 (512 bytes); a thread holds
+    TILE_GROUPS groups of one column, TABLE_THREADS / cgw rows apart; the
+    chunk is at most VARIANT_CHUNK variants and what fits SMEM_CAP
+    beside the preference lists."""
+    if B < 1 or Tp < 1 or Mp < 4 or Mp % 4:
+        raise ValueError(f"no table plan for B={B}, [{Tp}, {Mp}]")
+    mg = Mp // 4
+    cgw = min(MAX_CGW, 1 << (mg - 1).bit_length())
+    tile_rows = TABLE_THREADS // cgw * TILE_GROUPS
+    per_variant = (tile_rows + 4 * cgw + 4 + 1) * 4
+    chunk = max(1, min(VARIANT_CHUNK, B - 1,
+                       (SMEM_CAP - HASH_SMEM) // per_variant))
+    return TablePlan(cgw=cgw, tile_rows=tile_rows,
+                     row_tiles=-(-Tp // tile_rows), col_tiles=-(-mg // cgw),
+                     chunk=chunk, smem=HASH_SMEM + chunk * per_variant)
 
 
 def threefry2x32(k0, k1, x0, x1):
@@ -141,10 +197,12 @@ def perturb(c0, u0, w0, dgen0, s, n_variants: int, scale: int, seed: int,
         raise ValueError(f"n_variants must be >= 1, got {B}")
     if not -2**31 <= seed < 2**31:
         raise ValueError(f"seed {seed} is not an int32")
-    if Mp % 4 or Tp * Mp // 4 >= 2**32:
-        raise ValueError(f"[{Tp}, {Mp}]: Mp must be a multiple of 4 and "
-                         f"Tp * Mp / 4 below 2^32 (the kernel moves "
-                         f"16-byte groups of a row, counted in 32 bits)")
+    if not 0 <= pct < 2**30 or scale < 1:
+        raise ValueError(f"pct {pct} must be in [0, 2^30) and scale "
+                         f"{scale} at least 1")
+    if Mp % 4:
+        raise ValueError(f"[{Tp}, {Mp}]: Mp must be a multiple of 4 (the "
+                         f"kernel moves 16-byte groups of a row)")
     i32 = torch.int32
     dev = c0.device
     c = torch.empty((B, Tp, Mp), dtype=i32, device=dev)
@@ -160,9 +218,11 @@ def perturb(c0, u0, w0, dgen0, s, n_variants: int, scale: int, seed: int,
         c.data_ptr(), u.data_ptr(), w.data_ptr(), dg.data_ptr(),
         cmax.data_ptr(), keys.data_ptr(),
     ]
+    plan = table_plan(B, Tp, Mp)
     with torch.cuda.device(dev):
         err = library("perturb").perturb_launch(
-            *ptrs, B, Tp, Mp, int(scale), int(seed), int(pct),
+            *ptrs, B, Tp, Mp, int(scale), int(seed), int(pct), plan.cgw,
+            plan.tile_rows, plan.col_tiles, plan.chunk, plan.smem, plan.grid,
             stream_ptr(c0),
         )
     check_launch(KERNEL, err)

@@ -8,13 +8,17 @@ units and path count, bit for bit:
   hand kernel K10 ``bf_relax`` (``in``: the min over a node's residual
   in-arcs, with the lowest-id predecessor, rewritten only on strict
   improvement);
-* the walk T -> S along the predecessors and the augment, one launch of
-  K11 ``ssp_augment``;
-* the potential update, torch.
+* everything between two relaxation loops, one library call of K11
+  ``ssp_augment`` a path: the walk T -> S along the predecessors, the
+  augment, the potential update, the next loop's mirror costs and its
+  dist0/pred0 (the first path's call is the prologue: the mirror costs
+  and dist0/pred0 only).
 
 Both kernels read the residual CSR of ``ops/cost_scaling.py`` (built once
-per solve). Exactness: all arithmetic is int32; ``solve_ssp`` refuses a
-network whose ``max|cost| * 3 * (n_nodes + 3)`` reaches 2**30 (INF).
+per solve); K11's tensors are checked once per solve, when its
+``PathStep`` is made. Exactness: all arithmetic is int32; ``solve_ssp``
+refuses a network whose ``max|cost| * 3 * (n_nodes + 3)`` reaches 2**30
+(INF).
 
 Internal super-source/sink framing: node slots [N] and [N+1] of an
 (N+2)-wide node space are S and T; one S-arc and one T-arc per node slot
@@ -34,9 +38,9 @@ import torch
 
 from poseidon_tpu_torch.graph.network import FlowNetwork, total_supply
 from poseidon_tpu_torch.guards import GuardError, SyncCounter
-from poseidon_tpu_torch.kernels.bf_relax import INF, bf_relax_in
-from poseidon_tpu_torch.kernels.ssp_augment import ssp_augment
-from poseidon_tpu_torch.ops.cost_scaling import ResidualCSR, residual_csr
+from poseidon_tpu_torch.kernels.bf_relax import bf_relax_in
+from poseidon_tpu_torch.kernels.ssp_augment import PathStep, ssp_augment
+from poseidon_tpu_torch.ops.cost_scaling import residual_csr
 
 I32 = torch.int32
 
@@ -75,67 +79,43 @@ def _residual_tables(net: FlowNetwork):
             fcap.astype(np.int32), fcost.astype(np.int32), S, T)
 
 
-def mirror_costs(g: ResidualCSR, pot: torch.Tensor,
-                 flow: torch.Tensor) -> torch.Tensor:
-    """K10 ``in``'s per-position input: position p stands for the mirror m
-    of ``arc[p]``, an in-arc of p's tail with tail ``head[p]`` and cost
-    ``-cost[p]``; its reduced cost under ``pot``, or INF where m has no
-    capacity left (the reference's ``rc`` and ``cap_ok``)."""
-    F = g.fcap.shape[0]
-    fwd = g.arc < F
-    slot = torch.where(fwd, g.arc, g.arc - F).long()
-    mrc = -g.cost + pot[g.head.long()] - pot[g.tail]
-    cap_m = torch.where(fwd, flow[slot], g.fcap[slot] - flow[slot])
-    return torch.where(cap_m > 0, mrc, INF).contiguous()
-
-
 def _solve(net: FlowNetwork, max_paths: int, device) -> SolveResult:
     fsrc, fdst, fcap, fcost, S, T = _residual_tables(net)
-    F = fsrc.shape[0]
     NN = net.num_node_slots + 2  # node space incl. S, T
     g = residual_csr(fsrc, fdst, fcap,
                      np.concatenate([fcost, -fcost]), NN, device)
-    fsrc_d = torch.as_tensor(fsrc, device=device)
-    fdst_d = torch.as_tensor(fdst, device=device)
     wanted = total_supply(net)
-    NO_PRED = 2 * F
     syncs = SyncCounter()
     changed = torch.zeros(1, dtype=I32, device=device)
-    dist2 = torch.empty(NN, dtype=I32, device=device)
-    state = torch.zeros(2, dtype=I32, device=device)   # routed, delta
+    step = PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap,
+                    torch.as_tensor(fsrc, device=device),
+                    torch.as_tensor(fdst, device=device), NN, wanted, S, T)
 
-    def bellman_ford(pot, flow):
-        """Parallel Bellman-Ford with in-round predecessor tracking;
-        predecessors are rewritten only on strict improvement, so the
-        parent graph stays acyclic and the walk terminates."""
-        nonlocal dist2
-        mrc = mirror_costs(g, pot, flow)
-        dist = torch.full((NN,), INF, dtype=I32, device=device)
-        dist[S] = 0
-        pred = torch.full((NN,), NO_PRED, dtype=I32, device=device)
+    def bellman_ford():
+        """Parallel Bellman-Ford with in-round predecessor tracking from
+        the step's dist0/pred0 over its mirror costs; predecessors are
+        rewritten only on strict improvement, so the parent graph stays
+        acyclic and the walk terminates."""
         more, it = True, 0
         while more and it < NN:
-            bf_relax_in(g.seg, g.arc, g.head, mrc, dist, dist2, pred, changed,
-                        g.plan)
-            dist, dist2 = dist2, dist
+            bf_relax_in(g.seg, g.arc, g.head, step.mrc, step.dist[step.d],
+                        step.dist[step.d ^ 1], step.pred, changed, g.plan)
+            step.d ^= 1
             it += 1
             more = bool(syncs.read(changed)[0])
-        return dist, pred
 
-    flow = torch.zeros(F, dtype=I32, device=device)
-    pot = torch.zeros(NN, dtype=I32, device=device)
     routed, paths, done = 0, 0, False
     while routed < wanted and not done and paths < max_paths:
-        dist, pred = bellman_ford(pot, flow)
-        ssp_augment(pred, dist, fsrc_d, fdst_d, g.fcap, flow, state,
-                    wanted, S, T)
-        pot = pot + torch.where(dist < INF, dist, 0)
-        routed, delta = (int(x) for x in syncs.read(state))
+        if paths == 0:
+            ssp_augment(step, first=True)
+        bellman_ford()
+        ssp_augment(step)
+        routed, delta = (int(x) for x in syncs.read(step.state))
         paths += 1
         # a zero-unit round means no augmenting path exists: stop
         done = delta == 0
     fetch = SyncCounter()
-    flows = fetch.read(flow)[: net.num_arc_slots].copy()
+    flows = fetch.read(step.flow)[: net.num_arc_slots].copy()
     return SolveResult(flows=flows, routed=routed, wanted=wanted,
                        iterations=paths, loop_syncs=syncs.count,
                        fetches=fetch.count)

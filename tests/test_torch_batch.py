@@ -8,7 +8,13 @@
 - ``solve_what_if`` and ``solve_heterogeneous`` on the CPU against the
   reference at small sizes over mixed shapes and all six cost models:
   costs, certificates, assignments and rounds, tolerance 0;
-- the batched budget guard's message and ``max_variants_for``.
+- the batched budget guard's message and ``max_variants_for``;
+- K6's table launch plan (``kernels/perturb.py`` ``table_plan``, which
+  the CUDA kernel reads): every cell of the table in exactly one tile
+  and thread slot, every variant in exactly one staged chunk, shared
+  memory within a block's budget and aligned, at B 1, 2, 33, 34 (a
+  chunk's edge), 63, 64, 65 and past one chunk, Tp not a multiple of the row tile, Mp 16 and 1028; the
+  kernel's constants the plan's own.
 
 The reference's instances come from ``tests/helpers.build_priced`` (the
 reference's builder and models); the port solves the same
@@ -18,6 +24,8 @@ reference's builder and models); the port solves the same
 from __future__ import annotations
 
 import dataclasses
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +37,7 @@ from poseidon_tpu.ops import batch as ref_batch
 from poseidon_tpu.ops import dense_auction as ref_da
 from poseidon_tpu.ops.transport import extract_instance
 from poseidon_tpu_torch.guards import SyncCounter
+from poseidon_tpu_torch.kernels import perturb as k6
 from poseidon_tpu_torch.kernels.perturb import perturb, variant_keys
 from poseidon_tpu_torch.ops import batch as port_batch
 from poseidon_tpu_torch.ops import dense_auction as port_da
@@ -243,3 +252,97 @@ def test_mesh_width_waits_for_its_item():
     for args in ((4096, 1024, 0, 2), (64, 16, 4 * 16, 8)):
         assert (port_da.max_variants_for(*args[:3], mesh_width=args[3])
                 == ref_da.max_variants_for(*args[:3], mesh_width=args[3]))
+
+
+# ---- K6's table launch plan ------------------------------------------
+
+PLAN_SHAPES = [(4096, 1024), (4095, 1024), (33, 1024), (100, 1028),
+               (4095, 16), (1, 16), (7, 4)]
+PLAN_VARIANTS = [1, 2, 33, 34, 63, 64, 65, 130, 200]
+
+
+def plan_cells(plan, Tp: int, Mp: int) -> np.ndarray:
+    """The (row, 16-byte column group) of every thread slot of the grid
+    that stores, by the kernel's own index arithmetic: block -> tile
+    (row0, g0), thread -> (lane_row, column group), slot k -> row
+    lane_row + k * rows-a-pass."""
+    rpp = k6.TABLE_THREADS // plan.cgw
+    blk = np.arange(plan.grid)[:, None, None]
+    tid = np.arange(k6.TABLE_THREADS)[None, :, None]
+    k = np.arange(k6.TILE_GROUPS)[None, None, :]
+    row = (blk // plan.col_tiles) * plan.tile_rows + tid // plan.cgw + k * rpp
+    cg = (blk % plan.col_tiles) * plan.cgw + tid % plan.cgw
+    row, cg = np.broadcast_arrays(row, cg)
+    keep = (row < Tp) & (cg < Mp // 4)
+    return row[keep] * (Mp // 4) + cg[keep]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_table_plan_stores_every_cell_once(shape):
+    Tp, Mp = shape
+    plan = k6.table_plan(64, Tp, Mp)
+    cells = plan_cells(plan, Tp, Mp)
+    assert np.array_equal(np.sort(cells), np.arange(Tp * Mp // 4))
+    # every tile holds at least one real cell
+    assert plan.row_tiles == -(-Tp // plan.tile_rows)
+    assert plan.col_tiles * plan.cgw >= Mp // 4 > (plan.col_tiles - 1) * plan.cgw
+
+
+@pytest.mark.parametrize("B", PLAN_VARIANTS)
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_table_plan_stages_every_variant_once(B, shape):
+    """Variants 1..B-1 are staged in chunks (variant 0 is c0, written as
+    read), as the kernel's loop ``b0 = 1, 1 + chunk, ...`` takes them,
+    within the shared-memory budget, each part 16-byte aligned."""
+    Tp, Mp = shape
+    plan = k6.table_plan(B, Tp, Mp)
+    staged = [b for b0 in range(1, B, plan.chunk)
+              for b in range(b0, min(b0 + plan.chunk, B))]
+    assert staged == list(range(1, B))
+    assert 1 <= plan.chunk <= k6.VARIANT_CHUNK
+    per_variant = (plan.tile_rows + plan.tile_cols + 4 + 1) * 4
+    # the warps' preference lists: 512 entries a warp (4 + 4 + 2 bytes)
+    assert k6.HASH_SMEM == k6.TABLE_THREADS // 32 * 512 * 10
+    assert plan.smem == k6.HASH_SMEM + plan.chunk * per_variant <= k6.SMEM_CAP
+    # a chunk is cut below VARIANT_CHUNK variants (and B - 1) only where
+    # one more variant would not fit
+    assert (plan.chunk == min(k6.VARIANT_CHUNK, max(B - 1, 1))
+            or plan.smem + per_variant > k6.SMEM_CAP)
+    # the w and dg stages start 16-byte aligned (dg is read as int4)
+    assert k6.HASH_SMEM % 16 == 0
+    assert (plan.chunk * plan.tile_rows) % 4 == 0 and plan.tile_cols % 4 == 0
+    # powers of two (the kernel shifts and masks by them); a tile row is
+    # at most one warp's 32 groups
+    for x in (plan.cgw, plan.tile_rows):
+        assert x & (x - 1) == 0
+    assert plan.cgw <= 32 and plan.tile_rows * plan.cgw == (
+        k6.TABLE_THREADS * k6.TILE_GROUPS)
+    if B > k6.VARIANT_CHUNK + 1:
+        assert len(range(1, B, plan.chunk)) > 1
+
+
+def test_table_plan_at_config5():
+    """BASELINE config 5 with 64 variants: 1,024 tiles of 32 rows x 128
+    columns, variants 1-63 in chunks of 32; 62 KB of shared memory, so
+    three blocks fit an SM."""
+    plan = k6.table_plan(64, 4096, 1024)
+    assert (plan.cgw, plan.tile_rows, plan.tile_cols, plan.grid,
+            plan.chunk) == (32, 32, 128, 1024, 32)
+    assert 3 * plan.smem <= 228 * 1024 - 3 * 1024
+
+
+def test_table_plan_refuses_a_ragged_row():
+    for bad in ((1, 8, 18), (0, 8, 16), (2, 0, 16)):
+        with pytest.raises(ValueError):
+            k6.table_plan(*bad)
+
+
+def test_table_constants_agree_with_the_source():
+    src = (pathlib.Path(k6.__file__).parent / "csrc" / "perturb.cu").read_text()
+    got = {k: int(v) for k, v in re.findall(
+        r"constexpr int (TABLE_THREADS|GROUPS) = (\d+);", src)}
+    assert got == {"TABLE_THREADS": k6.TABLE_THREADS,
+                   "GROUPS": k6.TILE_GROUPS}
+    # the preference lists' layout the plan sizes
+    assert "WARP_ENTRIES = 32 * ENTRIES" in src
+    assert "ENTRIES = 4 * GROUPS" in src

@@ -10,8 +10,14 @@ reference's relaxation round and path walk, restated here with
 arcs, all-INF distances, ties on the candidate whose lowest arc id lies
 in a later chunk of the kernels' launch plan (``kernels/csr_plan.py``),
 and walks over a mirror arc, into the sentinel, from an unreachable T
-and round a cycle to the step cap. The optimum's cost comes from the
-port's own oracle build (``poseidon_tpu_torch.oracle``).
+and round a cycle to the step cap. K11's whole path step (its twin
+``ssp_step_plain``, which the wrapper runs on CPU tensors) is held
+against the reference's per-path pieces: the walk and augment, the
+potential update, the next round's reduced costs and capacity mask and
+dist0/pred0, on every walk case, on paths one arc shorter than, as long
+as and one arc longer than the kernel's shared record, and for the
+first path's prologue. The optimum's cost comes from the port's own
+oracle build (``poseidon_tpu_torch.oracle``).
 """
 
 import functools
@@ -27,7 +33,9 @@ import poseidon_tpu_torch.ops.ssp as port
 from poseidon_tpu.graph.network import FlowNetwork
 from poseidon_tpu_torch.kernels.bf_relax import INF, bf_relax_in
 from poseidon_tpu_torch.kernels.csr_plan import CHUNK
-from poseidon_tpu_torch.kernels.ssp_augment import ssp_augment
+from poseidon_tpu_torch.kernels.ssp_augment import (
+    WALK_RECORD, PathStep, mirror_costs_plain, ssp_augment,
+)
 from poseidon_tpu_torch.ops.cost_scaling import residual_csr
 from poseidon_tpu_torch.oracle import solve_oracle
 
@@ -227,7 +235,8 @@ def test_bf_relax_in_twin_matches_reference_round(graph, d_kind):
     pred = np.random.default_rng(9).integers(0, 2 * F + 1, NN).astype(np.int32)
     g = residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]), NN,
                      "cpu")
-    mrc = port.mirror_costs(g, torch.from_numpy(pot), torch.from_numpy(flow))
+    mrc = mirror_costs_plain(g.arc, g.head, g.tail, g.cost, g.fcap,
+                             torch.from_numpy(pot), torch.from_numpy(flow))
     d_out = torch.empty(NN, dtype=torch.int32)
     t_pred = torch.from_numpy(pred.copy())
     changed = torch.full((1,), 7, dtype=torch.int32)
@@ -274,7 +283,8 @@ def test_bf_relax_in_tie_in_a_later_chunk(case):
     g = residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]), NN,
                      "cpu")
     assert g.plan.n_heavy == (case == "heavy_rank2")
-    mrc = port.mirror_costs(g, torch.from_numpy(pot), torch.from_numpy(flow))
+    mrc = mirror_costs_plain(g.arc, g.head, g.tail, g.cost, g.fcap,
+                             torch.from_numpy(pot), torch.from_numpy(flow))
     d_out = torch.empty(NN, dtype=torch.int32)
     t_pred = torch.from_numpy(pred.copy())
     changed = torch.zeros(1, dtype=torch.int32)
@@ -320,20 +330,138 @@ def walk_cases():
     }
 
 
+def make_step(fsrc, fdst, fcap, flow, pred, dist, routed, wanted, S, T,
+              fcost=None, pot=None):
+    """A CPU ``PathStep`` over the residual CSR of the forward tables,
+    filled with one path's flow, predecessors, distances (in the buffer
+    the step reads), potentials and routed count."""
+    NN, F = len(dist), len(fsrc)
+    if fcost is None:
+        fcost = np.random.default_rng(F).integers(-50, 50, F).astype(np.int32)
+    g = residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]), NN,
+                     "cpu")
+    step = PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap,
+                    torch.from_numpy(fsrc), torch.from_numpy(fdst), NN,
+                    wanted, S, T)
+    step.flow.copy_(torch.from_numpy(flow))
+    step.pred.copy_(torch.from_numpy(pred))
+    step.dist[step.d].copy_(torch.from_numpy(dist))
+    if pot is not None:
+        step.pot[step.p].copy_(torch.from_numpy(pot))
+    step.state[0] = routed
+    return step, fcost
+
+
 @pytest.mark.parametrize("name", sorted(walk_cases()))
 def test_ssp_augment_twin_matches_reference_walk(name):
     fsrc, fdst, fcap, flow, pred, dist, routed, wanted, S, T = \
         walk_cases()[name]
-    t_flow = torch.from_numpy(flow.copy())
-    state = torch.tensor([routed, 0], dtype=torch.int32)
-    ssp_augment(torch.from_numpy(pred), torch.from_numpy(dist),
-                torch.from_numpy(fsrc), torch.from_numpy(fdst),
-                torch.from_numpy(fcap), t_flow, state, wanted, S, T)
+    step, _ = make_step(fsrc, fdst, fcap, flow, pred, dist, routed, wanted,
+                        S, T)
+    ssp_augment(step)
     w_flow, w_routed, w_delta = ref_walk(fsrc, fdst, fcap, flow, pred, dist,
                                          routed, wanted, S, T)
-    np.testing.assert_array_equal(t_flow.numpy(), w_flow)
-    assert state.tolist() == [w_routed, w_delta]
+    np.testing.assert_array_equal(step.flow.numpy(), w_flow)
+    assert step.state.tolist() == [w_routed, w_delta]
     if name in ("sentinel", "unreachable", "cycle", "done"):
         assert w_delta == 0
     else:
         assert w_delta > 0
+
+
+def chain_case(n_arcs: int):
+    """A chain S -> 0 -> 1 -> ... -> T of ``n_arcs`` forward arcs (arc i
+    into node i, the last into T), every arc with room, and a spare arc
+    from node 0 to T carrying flow; pred the chain, dist its depth."""
+    n = n_arcs - 1                   # chain nodes 0 .. n-1
+    S, T = n, n + 1
+    fsrc = np.array([S] + list(range(n)) + [0], np.int32)
+    fdst = np.array(list(range(n)) + [T, T], np.int32)
+    F = len(fsrc)
+    fcap = np.full(F, 5, np.int32)
+    fcap[n_arcs // 2] = 3            # the bottleneck, in the chain's middle
+    flow = np.zeros(F, np.int32)
+    flow[-1] = 2
+    pred = np.concatenate([np.arange(n), [2 * F], [n]]).astype(np.int32)
+    dist = np.concatenate([np.arange(1, n + 1), [0],
+                           [n + 1]]).astype(np.int32)
+    return fsrc, fdst, fcap, flow, pred, dist, 0, 10, S, T
+
+
+def step_cases():
+    """Every walk case, paths at the shared record's length +- 1, and the
+    first path's prologue (no walk)."""
+    cases = {name: (c, False) for name, c in walk_cases().items()}
+    for k in (-1, 0, 1):
+        cases[f"record{k:+d}"] = (chain_case(WALK_RECORD + k), False)
+    cases["prologue"] = (walk_cases()["path"], True)
+    return cases
+
+
+def ref_reduced(fsrc, fdst, fcap, fcost, flow, pot):
+    """ssp.py:101-102: the residual arcs' reduced costs and capacity mask
+    under ``pot`` and ``flow``, indexed by residual arc id."""
+    rsrc = jnp.concatenate([fsrc, fdst])
+    rdst = jnp.concatenate([fdst, fsrc])
+    rcost = jnp.concatenate([fcost, -fcost])
+    pot = jnp.asarray(pot)
+    rc = rcost + pot[rsrc] - pot[rdst]
+    cap_ok = jnp.concatenate([jnp.asarray(fcap) - flow, jnp.asarray(flow)]) > 0
+    return np.asarray(rc), np.asarray(cap_ok)
+
+
+@pytest.mark.parametrize("name", sorted(step_cases()))
+def test_path_step_twin_matches_reference_pieces(name):
+    (fsrc, fdst, fcap, flow, pred, dist, routed, wanted, S, T), first = \
+        step_cases()[name]
+    NN, F = len(dist), len(fsrc)
+    pot = np.random.default_rng(NN).integers(-40, 40, NN).astype(np.int32)
+    step, fcost = make_step(fsrc, fdst, fcap, flow, pred, dist, routed,
+                            wanted, S, T, pot=pot)
+    d0, p0 = step.d, step.p
+    ssp_augment(step, first=first)
+    # the flow, routed and delta (ssp.py:130-157); the prologue walks not
+    if first:
+        w_flow, w_routed, w_delta = flow, routed, 0
+        w_pot = pot
+    else:
+        w_flow, w_routed, w_delta = ref_walk(fsrc, fdst, fcap, flow, pred,
+                                             dist, routed, wanted, S, T)
+        w_pot = pot + np.where(dist < INF, dist, 0)      # ssp.py:156
+    np.testing.assert_array_equal(step.flow.numpy(), w_flow)
+    if not first:
+        assert step.state.tolist() == [w_routed, w_delta]
+    # the buffers flipped; the distances read are left as they were
+    assert (step.d, step.p) == (d0 ^ 1, p0 ^ 1)
+    np.testing.assert_array_equal(step.dist[d0].numpy(), dist)
+    np.testing.assert_array_equal(step.pot[step.p].numpy(), w_pot)
+    # the next round's inputs (ssp.py:101-102, 119-120): each position's
+    # mirror m of arc[p], rc[m] where m has capacity, else INF
+    rc, cap_ok = ref_reduced(fsrc, fdst, fcap, fcost, w_flow, w_pot)
+    arc = step.arc.numpy()
+    m = np.where(arc < F, arc + F, arc - F)
+    np.testing.assert_array_equal(step.mrc.numpy(),
+                                  np.where(cap_ok[m], rc[m], INF))
+    dist0 = np.full(NN, INF, np.int32)
+    dist0[S] = 0
+    np.testing.assert_array_equal(step.dist[step.d].numpy(), dist0)
+    np.testing.assert_array_equal(step.pred.numpy(), np.full(NN, 2 * F))
+    if name.startswith("record"):
+        # a real path through the chain's bottleneck of 3
+        assert w_delta == 3 and w_routed == 3
+
+
+def test_solve_makes_one_path_step_call_a_path(monkeypatch):
+    """SSP calls K11 once a path, after a prologue, and nothing else
+    between its relaxation loops."""
+    calls = []
+    real = port.ssp_augment
+
+    def counting(step, first=False):
+        calls.append(first)
+        real(step, first)
+
+    monkeypatch.setattr(port, "ssp_augment", counting)
+    net = _random_nets(1234, 20)[0]
+    p = assert_same(net)
+    assert calls == [True] + [False] * p.iterations
