@@ -36,25 +36,35 @@ Phases (each prints its own lines):
    budget, fewer rows than resident warps, one slot and fewer slots
    than SMs, repeated window tasks, all-tied rows, all-INF rows, and
    costs and prices that wrap int32. The express lane's K4
-   (``express_rows``: kmax 16 arrival rows, pk 3) and K5
-   (``express_patch``: one full 1024-entry chunk) are held and timed the
-   same way at the flagship, with their own battery: for K4 kmax 1, 16
-   and 64, pk 1, 3 and 5, every lane -1, rows 0 and Tp-1, preferences on
-   padded columns and racks of -1, columns without seats, sums that wrap
-   int32, Mp 16 and 1028; for K5 an empty chunk, rows and columns of -1
-   and past the axis, 1024 entries on one column, duplicate columns
-   driven below 0, two chunks whose order matters, Mp 16, 1028 and
-   65536. The stream lane's K7 (``stream_commit``: a live window at the
-   flagship, Tp 10240, Mp 1024, kmax 16, cap 256) and the what-if
+   (``express_rows``, the window's head: kmax 16 arrival rows, pk 3, the
+   [Tp] vectors and the saved rows) and K5 (``express_patch``: one full
+   1024-entry chunk) are held and timed the same way at the flagship,
+   with their own battery: for K4 kmax 1, 16 and 64, pk 0, 1, 3 and 5,
+   every lane -1, lanes of -1 and rows past Tp, rows 0 and Tp-1,
+   preferences on padded columns and racks of -1, columns without seats,
+   sums that wrap int32, Mp 16 and 1028, each with and without the
+   saved rows, and a two-shard table whose second shard owns every
+   arrival (equal to the whole table's); for K5 an empty chunk, rows and
+   columns of -1 and past the axis, 1024 entries on one column,
+   duplicate columns driven below 0, two chunks whose order matters, Mp
+   16, 1028 and 65536. K7 (``stream_commit``, the window's tail: a live
+   stream window at the flagship, Tp 10240, Mp 1024, kmax 16, cap 256,
+   16 reported rows; the synced lane's call without the commit printed
+   beside it)
+   and the what-if
    batch's K6 (``perturb``: BASELINE config 5, 64 variants, Tp 4096,
    Mp 1024, its bound the larger of 1 GiB of writes over 3.35 TB/s and
    its int32 operations over the int32 peak; its write floor, one
    ``fill_`` of an int32 [64, 4096, 1024] table, beside it) are held and
    timed the same way,
-   with their batteries: for K7 a live window, the first dead window
-   (by certificate, domain and change cap), an already-dead stream, a
-   window at the cap, reports on a column driven below 0 and rows 0 and
-   Tp-1, at three shapes; for K6 B 1 and 2, magnitude 0, 10 and 50 %,
+   with their batteries: for K7, with and without the commit, a live
+   window, the first dead window (by certificate, domain and change
+   cap), an already-dead stream, a window at the cap, reports on a
+   column driven below 0 and rows 0 and Tp-1, at three shapes, then
+   n_changes of 0, cap - 1, cap, cap + 1 and Tp, reports on the first
+   and last row of every cluster rank's tile and 1,024-row chunk, cap
+   0, Tp 16, 1028 and 10240, Mp 16 and 1028, an objective past 2^40;
+   for K6 B 1 and 2, magnitude 0, 10 and 50 %,
    scale 1 and above 1, INF rows, a whole INF table, zero-slot columns,
    Mp 16 and 1028, seeds 0 and 2^31-1, and its tile plan's edges (B 1,
    2, 33, 34, 63, 64, 65 and 130 over Tp not a multiple of the row tile,
@@ -66,8 +76,10 @@ Phases (each prints its own lines):
    at the flagship's [10240, 1024], its bound the table's bytes over
    3.35 TB/s, with its battery: Mp 16, 128, 1024 and 1040, 1, 31 and
    32,769 rows, every asg class, task_valid all false, every price INF;
-   beside it K3 over a shard's rows at a task offset and K7's commit
-   and restore over a two-shard table, live and dead. The general
+   beside it K3 over a shard's rows at a task offset and K7 over a
+   two-shard table (the per-row cost, the commit into the first shard,
+   the restore of the second), live and dead, with and without the
+   commit, one of them with every arrival in the second shard. The general
    lane's K9 (``cs_sweep``, at the first sweep of the flagship
    cost-scaling solve's busiest refine burst), K10 (``bf_relax``: its
    ``out`` round at the same state is the record, its ``in`` round at
@@ -128,9 +140,11 @@ Phases (each prints its own lines):
    over the flagship: one certified round, then 8 windows of 16 seeded
    arrivals (one machine or rack preference each) and 2 completions,
    each window confirming the last one's placements (K5 retires them).
-   Per batch: certified, one result fetch, K4, K5, K2 and K3 launched,
-   prep/upload/solve and event-to-bind ms, repair rounds and loop reads
-   printed (the eighth batch under ``torch.profiler``); a correction
+   Per batch: certified, one result fetch, K4, K5, K7, K2 and K3
+   launched, prep/upload/solve and event-to-bind ms, repair rounds, loop
+   reads and the host time of ``_express_step`` outside ``_solve``
+   printed (the eighth batch under ``torch.profiler``, with its CUDA
+   kernels in all and outside ``_solve``); a correction
    round whose ``express_corrected`` equals the express placements it
    moved; and one last window, left unconfirmed, whose placements equal
    the next full round's choice per uid.
@@ -170,7 +184,9 @@ Phases (each prints its own lines):
    its carry to the same flush on a bridge on the CPU; the synced
    express lane's agreement over the same windows is printed (ties go
    another way in the two lanes, in the reference too); a short flush
-   (3 windows padded to 8); and a flush whose window 3 fails its
+   (3 windows padded to 8, under ``torch.profiler``: CUDA kernels a
+   window in all and outside ``_solve``); each flush's host time a
+   window outside ``_solve``; and a flush whose window 3 fails its
    certificate: windows 0-2 bind, the table and carry equal a clean
    3-window flush's, window 3's pods bind in the next round;
 10. whatif: ``solve_what_if`` over BASELINE config 5 (1,000 machines x
@@ -258,6 +274,7 @@ SLEEP_CYCLES = 1_000_000         # ~0.5 ms of card time ahead of each timed call
 # the hand kernels' CUDA symbols, as the profiler names them
 KERNEL_SYMBOLS = ("densify_kernel", "row_options_kernel", "bid_pass_kernel")
 EXPRESS_SYMBOLS = ("express_rows_kernel", "express_patch_kernel",
+                   "stream_commit_kernel",
                    "row_options_kernel", "bid_pass_kernel")
 # the kernels a resident round launches (K4 and K5 are the express lane's)
 ROUND_KERNELS = ("densify", "row_options", "bid_pass")
@@ -725,8 +742,9 @@ def edge_battery(torch):
 def express_rows_inputs(torch, rng, Tp, Mp, kmax, pk, kind):
     """K4's arguments on the card (int32) of one edge kind: the table
     c[Tp, Mp], w_s/add_row[kmax], pc_s/add_pm/add_pr[kmax, pk] and
-    dgen/ra_s/rack_of/s[Mp]. The last eighth of the columns is padding
-    (s 0, rack -1), as the padded instance has."""
+    dgen/ra_s/rack_of/s[Mp], then its [Tp] vectors (u_s[kmax]; u, w,
+    valid, asg, lvl). The last eighth of the columns is padding (s 0,
+    rack -1), as the padded instance has."""
     import numpy as np
 
     inf = 2**29
@@ -751,7 +769,9 @@ def express_rows_inputs(torch, rng, Tp, Mp, kmax, pk, kind):
     if kind == "allneg":         # every lane -1: nothing is written
         add_row[:] = -1
     elif kind == "ends":         # the first and the last row
-        add_row[:2] = [0, Tp - 1]
+        add_row[:2] = [0, Tp - 1][:kmax]
+    elif kind == "past":         # lanes of -1 and rows past Tp
+        add_row[: min(kmax, 3)] = [-1, Tp, Tp + 7][: min(kmax, 3)]
     elif kind == "padhit":       # preferences on padded columns, racks -1
         pm = rng.integers(real - 1, Mp, (kmax, pk))
         pr = rng.integers(-1, 1, (kmax, pk))
@@ -764,19 +784,60 @@ def express_rows_inputs(torch, rng, Tp, Mp, kmax, pk, kind):
         ra = rng.integers(2**30, 2**31, Mp)
     elif kind != "rand":
         raise ValueError(kind)
-    to = lambda a: torch.from_numpy(  # noqa: E731
-        np.ascontiguousarray(a, dtype=np.int64).astype(np.int32)).to("cuda")
-    return tuple(map(to, (c, w, pc, add_row, pm, pr, dgen, ra, rack_of, s)))
+    to = lambda a, dt=np.int32: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.int64).astype(dt)).to(DEVICE)
+    head = tuple(map(to, (c, w, pc, add_row, pm, pr, dgen, ra, rack_of, s)))
+    vectors = (to(rng.integers(0, 5000, kmax)), to(rng.integers(0, 500, Tp)),
+               to(rng.integers(0, 500, Tp)), to(rng.random(Tp) < 0.5, bool),
+               to(rng.integers(-1, Mp + 1, Tp)), to(rng.integers(0, 500, Tp)))
+    return head, vectors
 
 
-def express_rows_check(torch, args) -> int:
-    """K4 on one copy of the table, its twin on another: max |diff|."""
+def express_rows_run(k4fn, head, vectors, save: bool, split=None):
+    """One call of K4 (or its twin) on fresh copies: the whole table, or
+    (``split`` = r0) two row shards [0, r0) and [r0, Tp), each its own
+    launch, the first with the [Tp] vectors. Returns every output: the
+    table, the saved rows, u, w, valid, asg0, lvl0, and asg/lvl (which
+    must come back untouched)."""
+    c, *rest = (t.clone() for t in head)
+    vec = tuple(t.clone() for t in vectors)
+    kmax, Mp = head[3].shape[0], c.shape[1]
+    saved = [saved_rows_buffer(c, kmax) if save else None
+             for _ in range(1 if split is None else 2)]
+    if split is None:
+        out = k4fn(c, *rest, vec, saved[0])
+        table = c
+    else:
+        b0, b1 = c[:split].clone(), c[split:].clone()
+        out = k4fn(b0, *rest, vec, saved[0], 0)
+        k4fn(b1, *rest, None, saved[1], split)
+        table = [b0, b1]
+    return [table, [x for x in saved if x is not None], vec[1:], list(out)]
+
+
+def saved_rows_buffer(c, kmax):
+    """A [kmax, Mp] buffer of -7 on c's device: the rows K4 saves land
+    in it, the lanes without a row must leave theirs at -7."""
+    return c.new_full((kmax, c.shape[1]), -7)
+
+
+def express_rows_check(torch, head, vectors, save=True, split=None) -> int:
+    """K4 on copies of the inputs, its twin on others: max |diff| over
+    every output (table, saved rows, u, w, valid, asg0, lvl0, asg, lvl)."""
     from poseidon_tpu_torch.kernels import express_rows as k4
 
-    c, rest = args[0], args[1:]
-    got = k4.express_rows(c.clone(), *rest)
-    want = k4.express_rows_plain(c.clone(), *rest)
-    return max_abs_err([got], [want])
+    got = express_rows_run(k4.express_rows, head, vectors, save, split)
+    want = express_rows_run(k4.express_rows_plain, head, vectors, save,
+                            split)
+    sync(torch)
+    return max_abs_err(flatten(got), flatten(want))
+
+
+def flatten(x) -> list:
+    """The tensors of a nest of lists and tuples, in order."""
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in flatten(y)]
+    return [x]
 
 
 def express_patch_inputs(torch, rng, Tp, Mp, n, kind):
@@ -831,23 +892,46 @@ def express_patch_check(torch, state, chunks) -> int:
 
 def express_edges(torch, rng):
     """K4 and K5 equal their twins (tolerance 0) at their edges."""
+    from poseidon_tpu_torch.kernels import express_rows as k4
+
     cases4 = [  # (Tp, Mp, kmax, pk, kind)
         (64, 16, 1, 1, "rand"), (300, 16, 16, 3, "rand"),
         (2000, 1028, 64, 5, "rand"), (100, 1028, 16, 3, "allneg"),
         (512, 64, 16, 3, "ends"), (256, 1024, 16, 5, "padhit"),
         (41, 1028, 64, 1, "padhit"), (128, 1024, 16, 3, "noseat"),
         (256, 1024, 16, 3, "wrap"), (70, 16, 64, 5, "wrap"),
-        (10240, 1024, 16, 3, "ends"),
+        (10240, 1024, 16, 3, "ends"), (10240, 1024, 16, 3, "past"),
+        (10240, 1024, 1, 3, "ends"), (2049, 1028, 16, 0, "rand"),
+        (4097, 16, 16, 1, "past"), (10240, 1024, 16, 3, "rand"),
     ]
+    bad, n = [], 0
     for Tp, Mp, kmax, pk, kind in cases4:
-        err = express_rows_check(
-            torch, express_rows_inputs(torch, rng, Tp, Mp, kmax, pk, kind))
-        log(f"[edges] express_rows Tp={Tp} Mp={Mp} kmax={kmax} pk={pk} "
-            f"{kind}: max_abs_err={err}")
-        if err != 0:
-            raise AssertionError(f"express_rows edge Tp={Tp} Mp={Mp} "
-                                 f"kmax={kmax} pk={pk} {kind}: kernel != "
-                                 f"twin (max_abs_err {err})")
+        head, vectors = express_rows_inputs(torch, rng, Tp, Mp, kmax, pk,
+                                            kind)
+        for save in (True, False):
+            err = express_rows_check(torch, head, vectors, save)
+            n += 1
+            if err:
+                bad.append((Tp, Mp, kmax, pk, kind, save, err))
+    # a two-shard table whose second shard owns every arrival
+    for Tp, Mp, kmax in ((10240, 1024, 16), (64, 16, 16)):
+        head, vectors = express_rows_inputs(torch, rng, Tp, Mp, kmax, 3,
+                                            "rand")
+        head[3].copy_(torch.arange(Tp - kmax, Tp, dtype=torch.int32,
+                                   device=head[3].device))
+        err = express_rows_check(torch, head, vectors, True, Tp // 2)
+        # the shards' tables, put together, equal the whole table's
+        whole = express_rows_run(k4.express_rows, head, vectors, True)
+        split = express_rows_run(k4.express_rows, head, vectors, True,
+                                 Tp // 2)
+        err = max(err, max_abs_err([whole[0]], [torch.cat(split[0])]))
+        n += 1
+        if err:
+            bad.append((Tp, Mp, kmax, "shard 1 owns every row", err))
+    log(f"[edges] express_rows: {n} cases (with and without saved rows; "
+        f"two shards), {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"[edges] express_rows != twin: {bad[:4]}")
     cases5 = [  # (Tp, Mp, n, kind)
         (64, 16, 1024, "empty"), (64, 16, 1024, "neg"),
         (300, 1028, 1024, "onecol"), (300, 1028, 1024, "dupneg"),
@@ -891,7 +975,8 @@ def express_edges(torch, rng):
 
 def express_kernel_records(torch, timer, inst, dt, ra_s):
     """K4 and K5 at the flagship's shapes (Tp 10240, Mp 1024, kmax 16,
-    pk 3, one full 1024-entry K5 chunk), each held against its twin
+    pk 3, as the stream lane calls K4: the [Tp] vectors and the saved
+    rows; one full 1024-entry K5 chunk), each held against its twin
     (tolerance 0) and timed cold; then their edge battery."""
     import numpy as np
 
@@ -918,15 +1003,25 @@ def express_kernel_records(torch, timer, inst, dt, ra_s):
                          rng.integers(0, real, (kmax, pk))))
     add_pr = to(np.where(rng.random((kmax, pk)) < 0.5, -1,
                          rng.integers(0, racks, (kmax, pk))))
-    rest = (w_s, pc_s, add_row, add_pm, add_pr, inst.dgen, ra_s,
+    u_s = to(rng.integers(0, 300, kmax) * scale)
+    head = (inst.c, w_s, pc_s, add_row, add_pm, add_pr, inst.dgen, ra_s,
             dt.rack_of, inst.s)
-    err4 = express_rows_check(torch, (inst.c, *rest))
-    c4 = inst.c.clone()
-    ms4 = timer(lambda: k4.express_rows(c4, *rest))
-    plain4 = timer(lambda: k4.express_rows_plain(c4, *rest))
+    # the stream lane's call: the [Tp] vectors and the saved rows
+    vectors = (u_s, inst.u, inst.w, inst.task_valid,
+               to(rng.integers(0, Mp + 1, Tp)), to(np.zeros(Tp)))
+    err4 = express_rows_check(torch, head, vectors)
+    c4, *rest = (t.clone() for t in head)
+    vec = tuple(t.clone() for t in vectors)
+    saved = saved_rows_buffer(c4, kmax)
+    ms4 = timer(lambda: k4.express_rows(c4, *rest, vec, saved))
+    plain4 = timer(lambda: k4.express_rows_plain(c4, *rest, vec, saved))
     del c4
-    b4 = kmax * 4 * 2 + kmax * pk * 4 * 3 + 4 * Mp * 4 + kmax * Mp * 4
-    ops4 = kmax * Mp * (3 + 6 * pk)
+    # read: the lanes' scalars and preferences, 4 [Mp] columns, asg and
+    # lvl, the old rows; written: the rows, the saved rows, asg0/lvl0,
+    # u/w/valid at the rows
+    b4 = (kmax * 4 * 3 + kmax * pk * 4 * 3 + 4 * Mp * 4 + 2 * Tp * 4
+          + 3 * kmax * Mp * 4 + 2 * Tp * 4 + kmax * 9)
+    ops4 = kmax * Mp * (3 + 6 * pk) + 2 * Tp
 
     n = 1024
     rows = to(rng.choice(T, size=n, replace=False))
@@ -1121,123 +1216,204 @@ def perturb_edges(torch) -> None:
 
 
 def stream_commit_inputs(torch, rng, Tp, Mp, kmax, cap, *, live=True,
-                         conv=True, dom=True, nchg=3, below_zero=False):
-    """One window's K7 inputs at (Tp, Mp): a report of ~kmax rows (rows 0
-    and Tp-1 among them), arrival rows 0 and Tp-1, and the carry. With
+                         conv=True, dom=True, nrep=16, rows=None,
+                         below_zero=False, big=False):
+    """One window's K7 inputs at (Tp, Mp), as a dict: the window after
+    its repair (valid_n, asg0, asg_f, u_n, w_n, lvl_f, floor_f, s_n; the
+    cost table c), its certificate, its arrival rows (0 and Tp-1 among
+    them) and saved rows, and the carry. Exactly ``nrep`` rows report (at
+    ``rows`` when given, else at random, 0 and Tp-1 first); the other
+    rows are inactive, off every machine or unchanged. With
     ``below_zero`` the reports land on a column with one seat left, so
-    the decrements drive it below 0 before the clamp."""
+    the decrements drive it below 0 before the clamp; with ``big`` the
+    costs sit near 2^29 and the objective near 2^40 and past it."""
     import numpy as np
 
     inf = 2**29
-
-    def to(a, dt=np.int32):
-        # np.array keeps a 0-d flag 0-d (ascontiguousarray would not)
-        return torch.from_numpy(np.array(a, dtype=dt)).to(DEVICE)
-
-    report = np.zeros(Tp, bool)
-    report[rng.choice(Tp, size=min(kmax, Tp), replace=False)] = True
-    report[[0, Tp - 1]] = True
-    asg_f = rng.integers(-1, Mp + 1, Tp)
+    if rows is None:
+        rest = rng.permutation(np.arange(1, Tp - 1))
+        rows = np.concatenate([[0, Tp - 1], rest])[:nrep]
+    rows = np.unique(np.asarray(rows, dtype=np.int64))
+    rep = np.zeros(Tp, bool)
+    rep[rows] = True
+    valid_n = rng.random(Tp) < 0.8
+    asg_f = rng.integers(-1, Mp + 2, Tp)
+    asg0 = rng.integers(-1, Mp + 1, Tp)
+    # a row that does not report: inactive, off every machine, or where
+    # the repair started
+    kind = rng.integers(0, 3, Tp)
+    valid_n[(kind == 0) & ~rep] = False
+    off = (kind == 1) & ~rep
+    asg_f[off] = rng.choice([-1, Mp, Mp + 1], size=int(off.sum()))
+    same = (kind == 2) & ~rep
+    asg_f[same] = rng.integers(0, Mp, int(same.sum()))
+    asg0[same] = asg_f[same]
+    valid_n[rep] = True
+    asg_f[rep] = rng.integers(0, Mp, len(rows))
+    asg0[rep] = np.where(asg_f[rep] == 0, Mp, asg_f[rep] - 1)
     s_n = rng.integers(0, 10, Mp)
     if below_zero:
-        asg_f[report] = 3
+        asg_f[rep] = 3
+        asg0[rep] = -1
         s_n[3] = 1
+    lo = inf - 2**20 if big else 0
+    c = rng.integers(lo, inf, (Tp, Mp))
+    u_n = rng.integers(lo, inf if big else 500, Tp)
     add_row = np.full(kmax, -1)
     add_row[: min(kmax, 2)] = [0, Tp - 1][: min(kmax, 2)]
     if kmax > 2:
         add_row[2:] = rng.choice(np.arange(1, Tp - 1), size=kmax - 2,
                                  replace=False)
     add_row[-1] = -1 if kmax > 3 else add_row[-1]
-    c = rng.integers(0, inf, (Tp, Mp))
-    flags = dict(live=to([int(live)]), conv=to(np.array(conv), bool),
-                 domain_ok=to(np.array(dom), bool),
-                 n_changes=to(np.array(nchg)))
-    rest = dict(
-        rows_out=to(np.sort(rng.choice(Tp + 1, cap))),
-        asg_out=to(rng.integers(-1, Mp, cap)),
-        primal=to(np.array(int(rng.integers(0, 2**40))), np.int64),
-        report=to(report, bool), asg_f=to(asg_f),
+
+    def to(a, dt=np.int32):
+        # np.array keeps a 0-d flag 0-d (ascontiguousarray would not)
+        return torch.from_numpy(np.array(a, dtype=dt)).to(DEVICE)
+
+    return dict(
+        live=to([int(live)]), conv=to(np.array(conv), bool),
+        domain_ok=to(np.array(dom), bool), cap=cap, change_cap=cap,
+        valid_n=to(valid_n, bool), asg0=to(asg0), asg_f=to(asg_f),
+        u_n=to(u_n), w_n=to(rng.integers(0, 500, Tp)),
         lvl_f=to(rng.integers(0, 500, Tp)),
-        floor_f=to(rng.integers(0, 500, Mp)),
-        u_n=to(rng.integers(0, 500, Tp)), w_n=to(rng.integers(0, 500, Tp)),
-        valid_n=to(rng.random(Tp) < 0.9, bool), s_n=to(s_n),
-        add_row=to(add_row),
-        c_saved=to(rng.integers(0, inf, (kmax, Mp))),
-        u=to(rng.integers(0, 500, Tp)), w=to(rng.integers(0, 500, Tp)),
-        valid=to(rng.random(Tp) < 0.9, bool),
+        floor_f=to(rng.integers(0, 500, Mp)), s_n=to(s_n),
+        add_row=to(add_row), c_saved=to(rng.integers(0, inf, (kmax, Mp))),
+        c=to(c), u=to(rng.integers(0, 500, Tp)),
+        w=to(rng.integers(0, 500, Tp)), valid=to(rng.random(Tp) < 0.9, bool),
         asg=to(rng.integers(-1, Mp + 1, Tp)),
         lvl=to(rng.integers(0, 500, Tp)), s=to(rng.integers(0, 10, Mp)),
-        floor=to(rng.integers(0, 500, Mp)), c=to(c),
+        floor=to(rng.integers(0, 500, Mp)),
     )
-    return flags, rest
 
 
-K7_ORDER = ("live", "conv", "domain_ok", "n_changes", "change_cap",
-            "rows_out", "asg_out", "primal", "report", "asg_f", "lvl_f",
-            "floor_f", "u_n", "w_n", "valid_n", "s_n", "add_row", "c_saved",
-            "u", "w", "valid", "asg", "lvl", "s", "floor", "c", "log_row")
-
-
-def stream_commit_args(torch, flags, rest, change_cap):
-    """A fresh copy of one window's K7 arguments, in call order."""
-    from poseidon_tpu_torch.kernels.stream_commit import log_width
-
-    cap = rest["rows_out"].shape[0]
-    a = {k: v.clone() for k, v in {**flags, **rest}.items()}
-    a["change_cap"] = change_cap
-    a["log_row"] = torch.zeros(log_width(cap), dtype=torch.int64,
-                               device=DEVICE)
-    return [a[k] for k in K7_ORDER]
-
-
-def stream_commit_check(torch, flags, rest, change_cap) -> int:
-    """K7 and its twin on copies of the same inputs: every in-place
-    output (carry, table, latch, log row) compared."""
+def stream_commit_args(torch, x, change_cap, commit=True, split=None):
+    """A fresh copy of one window's K7 arguments, in call order, and the
+    tensors it writes. ``split`` = r0 cuts the table into two row shards
+    (the tail reads the per-row cost; the commit restores into shard 0;
+    the second shard comes last in the written list)."""
     from poseidon_tpu_torch.kernels import stream_commit as k7
 
-    ka = stream_commit_args(torch, flags, rest, change_cap)
-    pa = stream_commit_args(torch, flags, rest, change_cap)
-    k7.stream_commit(*ka)
-    k7.stream_commit_plain(*pa)
-    sync(torch)
-    outs = [i for i, k in enumerate(K7_ORDER) if k != "change_cap"]
-    return max_abs_err([ka[i] for i in outs], [pa[i] for i in outs])
+    y = {k: (v.clone() if hasattr(v, "clone") else v) for k, v in x.items()}
+    Tp, Mp = y["c"].shape
+    log_row = torch.full((k7.log_width(y["cap"]),), -9, dtype=torch.int64,
+                         device=DEVICE)
+    report = torch.zeros(Tp, dtype=torch.bool, device=DEVICE)
+    cost, table, extra = y["c"], y["c"], []
+    if split is not None:
+        col = torch.clamp(y["asg_f"], 0, Mp - 1).long()
+        cost = y["c"].gather(1, col[:, None])[:, 0].contiguous()
+        table = y["c"][:split].clone()
+        extra = [y["c"][split:].clone()]
+    com = None
+    if commit:
+        com = k7.Commit(y["live"], y["lvl_f"], y["floor_f"], y["w_n"],
+                        y["s_n"], y["add_row"], y["c_saved"], table, y["u"],
+                        y["w"], y["valid"], y["asg"], y["lvl"], y["s"],
+                        y["floor"])
+    args = (log_row, report, y["valid_n"], y["asg0"], y["asg_f"], y["u_n"],
+            cost, Mp, y["conv"], y["domain_ok"], change_cap, com)
+    written = [log_row, report, *(com or ()), *extra]
+    return args, written
+
+
+def stream_commit_check(torch, x, change_cap, commit=True, split=None) -> int:
+    """K7 and its twin on copies of the same inputs: every output (the
+    log row, the report, and with the commit the carry, the table, the
+    latch and the consumed seats) compared. With ``split`` the second
+    shard is undone by K7's restore (its twin's for the twin)."""
+    from poseidon_tpu_torch.kernels import stream_commit as k7
+
+    outs = []
+    for fn, restore in ((k7.stream_commit, k7.stream_restore),
+                        (k7.stream_commit_plain, None)):
+        args, written = stream_commit_args(torch, x, change_cap, commit,
+                                           split)
+        fn(*args)
+        if split is not None and commit:
+            com, b1 = args[-1], written[-1]
+            Tp = x["c"].shape[0]
+            if restore is not None:
+                restore(com.live, com.add_row, com.c_saved, b1, Tp, split)
+            else:
+                k7._restore_rows_plain(com.live[0] != 0, com.add_row,
+                                       com.c_saved, b1, Tp, split)
+        sync(torch)
+        outs.append(written)
+    return max_abs_err(*outs)
+
+
+def stream_commit_bytes(x, commit=True) -> tuple[int, int]:
+    """The tail's bytes and int32 operations on these inputs: the report
+    inputs and one cost entry an active row on a machine (or u_n off
+    one) read, report and the log written; with the commit of a live
+    window the carry's inputs read and the carry written (a dead one
+    copies back its saved rows instead), the seat decrements counted as
+    a read and a write of each."""
+    import numpy as np
+
+    valid = x["valid_n"].cpu().numpy()
+    f = x["asg_f"].cpu().numpy()
+    Tp, Mp = x["c"].shape
+    cap = x["cap"]
+    n_rep = int((valid & (f >= 0) & (f < Mp)
+                 & (f != x["asg0"].cpu().numpy())).sum())
+    n_bytes = Tp * (1 + 4 + 4) + int(valid.sum()) * 4 + 2 + Tp \
+        + (2 * cap + 6) * 8
+    n_ops = Tp * 10 + cap * 4
+    if commit:
+        rows = x["add_row"].cpu().numpy()
+        n_rows = int(((rows >= 0) & (rows < Tp)).sum())
+        win_ok = (bool(x["conv"]) and bool(x["domain_ok"])
+                  and n_rep <= x["change_cap"])
+        if bool(x["live"][0]) and win_ok:
+            n_bytes += (Tp * 4 * 3 + Mp * 4 * 2 + 4 * 2 + Tp * (4 * 4 + 1)
+                        + Mp * 4 * 2 + n_rep * 8)
+            n_ops += Tp * 8 + Mp * 2
+        else:
+            n_bytes += 4 * 2 + n_rows * Mp * 4 * 2
+    return int(n_bytes), int(n_ops)
 
 
 def stream_commit_record(torch, timer):
-    """K7 at the flagship's shapes (Tp 10240, Mp 1024, kmax 16, cap 256)
-    on a live window, held against its twin (tolerance 0) and timed;
-    then its edge battery."""
+    """K7 at the flagship's shapes (Tp 10240, Mp 1024, kmax 16, cap 256):
+    the stream lane's call, a live window whose 16 arrivals place (16
+    reported rows), held against its twin (tolerance 0) and timed; the
+    synced lane's call (no commit) held the same way; then its edge
+    battery."""
     import numpy as np
 
     from poseidon_tpu_torch.kernels import stream_commit as k7
 
     rng = np.random.default_rng(31)
     Tp, Mp, kmax, cap = 10240, 1024, 16, 256
-    flags, rest = stream_commit_inputs(torch, rng, Tp, Mp, kmax, cap)
-    err = stream_commit_check(torch, flags, rest, cap)
-    ka = stream_commit_args(torch, flags, rest, cap)
-    pa = stream_commit_args(torch, flags, rest, cap)
+    x = stream_commit_inputs(torch, rng, Tp, Mp, kmax, cap)
+    err = max(stream_commit_check(torch, x, cap),
+              stream_commit_check(torch, x, cap, commit=False))
+    ka, _ = stream_commit_args(torch, x, cap)
+    pa, _ = stream_commit_args(torch, x, cap)
     # every timed call sees a live latch (the live path moves the most)
-    ms = timer(lambda: (ka[0].fill_(1), k7.stream_commit(*ka)))
-    plain = timer(lambda: (pa[0].fill_(1), k7.stream_commit_plain(*pa)))
-    # live path: flags, log, report, asg_f/lvl_f/u_n/w_n, valid_n,
-    # floor_f, s_n read; u/w/asg/lvl, valid, s, floor, log, live written
-    n_bytes = (4 + 2 + 4 + 2 * cap * 4 + 8 + Tp + 4 * Tp * 4 + Tp
-               + 2 * Mp * 4 + 4 * Tp * 4 + Tp + 2 * Mp * 4
-               + (2 * cap + 6) * 8 + 4)
-    n_ops = Tp * 12 + Mp * 3 + cap * 2
+    ms = timer(lambda: (ka[-1].live.fill_(1), k7.stream_commit(*ka)))
+    plain = timer(lambda: (pa[-1].live.fill_(1),
+                           k7.stream_commit_plain(*pa)))
+    sa, _ = stream_commit_args(torch, x, cap, commit=False)
+    log(f"[kernels] stream_commit without the commit (the synced lane's "
+        f"tail) ms={timer(lambda: k7.stream_commit(*sa)):.6f}; bound "
+        f"{bound_ms(*stream_commit_bytes(x, commit=False))}")
     stream_commit_edges(torch)
-    return (k7.KERNEL, err, ms, plain, *bound_ms(n_bytes, n_ops),
+    return (k7.KERNEL, err, ms, plain, *bound_ms(*stream_commit_bytes(x)),
             (Tp, Mp, kmax, cap))
 
 
 def stream_commit_edges(torch) -> None:
-    """K7 against its twin (tolerance 0): a live window, the first dead
-    window (by conv, domain and change cap), an already-dead stream, a
-    window exactly at the cap, reports on a column driven below 0, rows
-    0 and Tp-1, at the flagship and at Tp 16 / Mp 16, kmax 1 and 16,
-    cap 0 and 256."""
+    """K7 against its twin (tolerance 0), with and without the commit: the
+    commit's battery (a live window, the first dead window by
+    certificate, domain and change cap, an already-dead stream, a window
+    at the cap, reports on a column driven below 0, rows 0 and Tp-1; at
+    Tp 10240 / Mp 1024, Tp 16 / Mp 16 with cap 0 and Tp 64 / Mp 1028),
+    then the tail's own edges: n_changes of 0, cap - 1, cap, cap + 1 and
+    Tp (every row reported); reports on the first and last row of every
+    cluster rank's tile and of every 1,024-row chunk in it; cap 0; Tp
+    16, 1028 and 10240; Mp 16 and 1028; an objective near 2^40."""
     import numpy as np
 
     rng = np.random.default_rng(41)
@@ -1245,20 +1421,31 @@ def stream_commit_edges(torch) -> None:
     for Tp, Mp, kmax, cap in ((10240, 1024, 16, 256), (16, 16, 1, 0),
                               (64, 1028, 16, 8)):
         for kw in (dict(), dict(conv=False), dict(dom=False),
-                   dict(nchg=cap + 1), dict(live=False),
-                   dict(nchg=cap), dict(below_zero=True),
+                   dict(nrep=cap + 1), dict(live=False),
+                   dict(nrep=cap), dict(below_zero=True),
                    dict(below_zero=True, live=False)):
             cases.append((Tp, Mp, kmax, cap, kw))
+    for Tp, Mp, cap in ((10240, 1024, 256), (1028, 1028, 64), (16, 16, 4)):
+        for nrep in sorted({0, cap - 1, cap, cap + 1, Tp} - {-1}):
+            cases.append((Tp, Mp, 16, cap, dict(nrep=min(nrep, Tp))))
+        per = (Tp + 7) // 8
+        edges = [t for r in range(8) for t in (
+            r * per, r * per + per - 1, r * per + 1023, r * per + 1024)
+            if 0 <= t < min((r + 1) * per, Tp)]
+        cases.append((Tp, Mp, 16, cap, dict(rows=edges)))
+        cases.append((Tp, Mp, 16, len(edges), dict(rows=edges)))
+        cases.append((Tp, Mp, 16, 0, dict(rows=edges)))
+        cases.append((Tp, Mp, 16, cap, dict(big=True, nrep=Tp // 3)))
     bad = []
     for Tp, Mp, kmax, cap, kw in cases:
-        kw = dict(kw)
-        kw.setdefault("nchg", min(3, cap))
-        flags, rest = stream_commit_inputs(torch, rng, Tp, Mp, kmax, cap,
-                                           **kw)
-        err = stream_commit_check(torch, flags, rest, cap)
-        if err:
-            bad.append((Tp, Mp, kmax, cap, kw, err))
-    log(f"[edges] stream_commit: {len(cases)} shapes, {len(bad)} differ")
+        x = stream_commit_inputs(torch, rng, Tp, Mp, kmax, cap, **kw)
+        for commit in (True, False):
+            err = stream_commit_check(torch, x, cap, commit)
+            if err:
+                bad.append((Tp, Mp, kmax, cap, kw if "rows" not in kw
+                            else "edges", commit, err))
+    log(f"[edges] stream_commit: {len(cases)} shapes x 2 modes (with and "
+        f"without the commit), {len(bad)} differ")
     if bad:
         raise AssertionError(f"[edges] stream_commit != twin: {bad[:4]}")
 
@@ -1320,6 +1507,23 @@ def oracle_cost(cluster, device, model: str = "quincy",
     return o.cost, (time.perf_counter() - t0) * 1e3
 
 
+def device_rows(prof) -> list:
+    """(key, device us, count) of every device event of a profile:
+    kernels, copies and sets. A CPU op's row is left out (where the op
+    ran on the profiled thread it carries its kernels' device time
+    too), and so are user annotations (``kernel_ab.SolveMarks``'s span
+    around each ``_solve`` also lies on the device's timeline)."""
+    from torch.autograd import DeviceType
+
+    from kernel_ab import SOLVE_SPAN
+
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0 and e.key != SOLVE_SPAN
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_round(torch, solver, cluster):
     """One more warm round under torch.profiler: device busy share and
     the device time by kernel name (after the main path's counts were
@@ -1355,10 +1559,7 @@ def profile_round(torch, solver, cluster):
     finally:
         for name, fn in saved.items():
             setattr(torch, name, fn)
-    # device-side events only (a CPU op's own self time on the device
-    # is 0; its kernels are listed under their own names)
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = device_rows(prof)
     kernels_us = sum(t for k, t, _ in rows if not k.startswith("Memcpy")
                      and not k.startswith("Memset"))
     busy = sum(t for _, t, _ in rows)
@@ -1658,8 +1859,7 @@ EXPRESS_WINDOWS = 8
 def profile_express(prof, wall_us: float) -> None:
     """Device busy and idle share of one profiled express batch, its
     top device items, and the express path's hand kernels as called."""
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = device_rows(prof)
     busy = sum(t for _, t, _ in rows)
     log(f"[profile] express batch: wall_us={wall_us:.1f} "
         f"device_busy_us={busy:.1f} "
@@ -1695,7 +1895,8 @@ def express_phase(torch):
     log(f"[express] first round: placed={first.stats.pods_placed} "
         f"cost={first.stats.cost} solve_ms={first.stats.solve_ms:.3f}")
     rng = np.random.default_rng(404)
-    need = ("express_rows", "express_patch", "row_options", "bid_pass")
+    need = ("express_rows", "express_patch", "stream_commit", "row_options",
+            "bid_pass")
 
     def run_window(window: int, events, arrivals: int,
                    profiled: bool = False) -> dict:
@@ -1703,6 +1904,7 @@ def express_phase(torch):
 
         before = {k.name: k.launches for k in kernels.KERNELS}
         torch.cuda.synchronize()
+        marks.reset()
         if profiled:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1711,9 +1913,16 @@ def express_phase(torch):
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
             profile_express(prof, wall_us)
+            w = window_profile(prof, wall_us)
+            log(f"[express] window {window}: CUDA kernels {w['kernels']}, "
+                f"{w['kernels_outside_solve']} of them outside _solve "
+                f"({w['unlinked']} placed by device time), copies "
+                f"{w['copies']}")
         else:
             r = bridge.express_batch(events, t_event=time.perf_counter())
         torch.cuda.synchronize()
+        log(f"[express] window {window}: _express_step host_us outside "
+            f"_solve={(marks.step_s - marks.solve_s) * 1e6:.1f}")
         launched = {k.name: k.launches - before[k.name]
                     for k in kernels.KERNELS}
         if r is None:
@@ -1740,14 +1949,18 @@ def express_phase(torch):
             raise AssertionError(f"[express] window {window}: no placement")
         return dict(r.bindings)
 
+    from kernel_ab import SolveMarks, window_profile
+    from poseidon_tpu_torch.ops import resident
+
     placed_since = {}
     last = {}
-    for window in range(EXPRESS_WINDOWS):
-        for uid, m in last.items():
-            bridge.confirm_binding(uid, m)
-        last = run_window(window, express_events(bridge, rng, window), 16,
-                          profiled=window == EXPRESS_WINDOWS - 1)
-        placed_since.update(last)
+    with SolveMarks(torch, resident) as marks:
+        for window in range(EXPRESS_WINDOWS):
+            for uid, m in last.items():
+                bridge.confirm_binding(uid, m)
+            last = run_window(window, express_events(bridge, rng, window),
+                              16, profiled=window == EXPRESS_WINDOWS - 1)
+            placed_since.update(last)
     for uid, m in last.items():
         bridge.confirm_binding(uid, m)
     res = bridge.run_scheduler()
@@ -1768,8 +1981,9 @@ def express_phase(torch):
     for uid, m in res.bindings.items():
         bridge.confirm_binding(uid, m)
     # one last window, machine preferences only, left unconfirmed
-    last = run_window(EXPRESS_WINDOWS, express_events(
-        bridge, rng, EXPRESS_WINDOWS, racks=False, completions=0), 16)
+    with SolveMarks(torch, resident) as marks:
+        last = run_window(EXPRESS_WINDOWS, express_events(
+            bridge, rng, EXPRESS_WINDOWS, racks=False, completions=0), 16)
     # the differential contract: unconfirmed express placements equal
     # what the next full round chooses for the same pods
     res = bridge.run_scheduler()
@@ -1793,8 +2007,7 @@ STREAM_SYMBOLS = ("stream_commit_kernel", "express_rows_kernel",
 def profile_symbols(prof, wall_us: float, label: str, symbols) -> None:
     """Device busy and idle share of one profiled call and each named
     kernel's device time as called (by its CUDA symbol)."""
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = device_rows(prof)
     busy = sum(t for _, t, _ in rows)
     log(f"[profile] {label}: wall_us={wall_us:.1f} "
         f"device_busy_us={busy:.1f} "
@@ -1922,27 +2135,46 @@ def stream_phase(torch, card: str):
     solver = card_b.solver
 
     def run(label, sizes, launches=False, profiled=False):
+        from kernel_ab import InlineFetch, SolveMarks, window_profile
+        from poseidon_tpu_torch.ops import resident
+
         windows = stream_schedule(card_b, rng, label, sizes)
         fetched0 = solver.stream_fetches
         sync(torch)
         if launches:
             kernels.reset_launch_counts()
-        if profiled and DEVICE == "cuda":
-            from torch.profiler import ProfilerActivity, profile
+        with SolveMarks(torch, resident) as marks:
+            if profiled and DEVICE == "cuda":
+                from torch.profiler import ProfilerActivity, profile
 
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+                # the flush on this thread: the profiler records its spans
+                async_fetch, resident._AsyncFetch = (resident._AsyncFetch,
+                                                     InlineFetch)
+                try:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        per, r, _inf = stream_flush_windows(card_b, windows,
+                                                            label)
+                        sync(torch)
+                        wall_ms = (time.perf_counter() - t0) * 1e3
+                finally:
+                    resident._AsyncFetch = async_fetch
+                profile_symbols(prof, wall_ms * 1e3, f"stream {label} flush",
+                                STREAM_SYMBOLS)
+                w = window_profile(prof, wall_ms * 1e3)
+                log(f"[stream] {label}: CUDA kernels a window "
+                    f"{w['kernels'] / STREAM_WINDOWS:.1f}, outside _solve "
+                    f"{w['kernels_outside_solve'] / STREAM_WINDOWS:.1f} "
+                    f"({w['unlinked']} placed by device time; "
+                    f"{STREAM_WINDOWS} windows, the padding's included)")
+            else:
                 t0 = time.perf_counter()
                 per, r, _inf = stream_flush_windows(card_b, windows, label)
                 sync(torch)
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            profile_symbols(prof, wall_ms * 1e3, f"stream {label} flush",
-                            STREAM_SYMBOLS)
-        else:
-            t0 = time.perf_counter()
-            per, r, _inf = stream_flush_windows(card_b, windows, label)
-            sync(torch)
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[stream] {label}: host_us a window outside _solve="
+            f"{(marks.chain_s - marks.solve_s) / STREAM_WINDOWS * 1e6:.1f}")
         counts = {k.name: k.launches for k in kernels.KERNELS}
         t = r.timings if r is not None else {}
         log(f"[stream] {label}: windows={len(windows)} of K="
@@ -2986,30 +3218,23 @@ def shard_edges(torch) -> None:
         n += 1
         if err:
             bad.append(("bid_pass task0", Tp, Mp, r0, err))
-    for live in (True, False):
-        flags, rest = stream_commit_inputs(torch, rng, 64, 1028, 16, 8,
-                                           live=live)
-        outs = []
-        for commit, restore in ((k7.stream_commit, k7.stream_restore),
-                                (k7.stream_commit_plain, None)):
-            a = stream_commit_args(torch, flags, rest, 8)
-            ic, ia, isv = (K7_ORDER.index(k) for k in ("c", "add_row",
-                                                       "c_saved"))
-            b0, b1 = a[ic][:32].clone(), a[ic][32:].clone()
-            a[ic] = b0
-            commit(*a, row0=0)
-            if restore is not None:
-                restore(a[0], a[ia], a[isv], b1, 64, 32)
-            else:
-                k7._restore_rows_plain(a[0][0] != 0, a[ia], a[isv], b1, 64,
-                                       32)
-            sync(torch)
-            outs.append([x for i, x in enumerate(a)
-                         if K7_ORDER[i] != "change_cap"] + [b1])
-        n += 1
-        err = max_abs_err(*outs)
-        if err:
-            bad.append(("stream_commit shards", live, err))
+    # K7 over two shards (the per-row cost, the commit into shard 0,
+    # the restore of shard 1), live and dead; at 64 x 1028 and at the
+    # flagship with shard 1 owning every arrival row
+    for Tp, Mp, r0, live, owned in ((64, 1028, 32, True, False),
+                                    (64, 1028, 32, False, False),
+                                    (10240, 1024, 5120, True, True),
+                                    (10240, 1024, 5120, False, True)):
+        x = stream_commit_inputs(torch, rng, Tp, Mp, 16, 8, live=live,
+                                 nrep=6)
+        if owned:
+            x["add_row"].copy_(torch.arange(Tp - 16, Tp, dtype=torch.int32,
+                                            device=DEVICE))
+        for commit in (True, False):
+            n += 1
+            err = stream_commit_check(torch, x, 8, commit, split=r0)
+            if err:
+                bad.append(("stream_commit shards", Tp, live, commit, err))
     log(f"[edges] gap_rows, bid_pass at a task offset, stream_commit over "
         f"two shards: {n} cases, {len(bad)} differ")
     if bad:
@@ -3162,8 +3387,7 @@ def _scale_config8(torch) -> dict:
             t0 = time.perf_counter()
             one_round(CONFIG8_ROUNDS + 1, "profiled churn round")
             wall_us = (time.perf_counter() - t0) * 1e6
-        rows = [(e.key, e.self_device_time_total, e.count)
-                for e in prof.key_averages() if e.self_device_time_total > 0]
+        rows = device_rows(prof)
         busy = sum(t for _, t, _ in rows)
         log(f"[scale] config 8 profiled churn round: wall_us={wall_us:.1f} "
             f"device_busy_us={busy:.1f} "
@@ -3782,8 +4006,7 @@ def profile_refine_burst(torch, s, eps: int) -> None:
         s.sweep_burst(eps)
         sync(torch)
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = device_rows(prof)
     busy = sum(t for _, t, _ in rows)
     log(f"[profile] refine burst (the flagship's busiest): wall_us="
         f"{wall_us:.1f} loop_reads={s.syncs.count - syncs0} "

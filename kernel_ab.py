@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
 """Time the hand kernels (K1 ``densify``, K2 ``row_options``, K3
 ``bid_pass``, K9 ``cs_sweep``, K10 ``bf_relax`` ``out`` and ``in``, K11
-``ssp_augment``, K6 ``perturb``) of one or more checkouts on one GPU, in
-turns, in one run.
+``ssp_augment``, K6 ``perturb``), and the express and stream lanes' windows
+(K4 ``express_rows``, K5 ``express_patch``, K7 ``stream_commit`` and
+what surrounds them), of one or more checkouts on one GPU, in turns, in
+one run.
 
-    python3 kernel_ab.py ROOT [ROOT ...]
+    python3 kernel_ab.py [--parts=window,kernels] ROOT [ROOT ...]
+
+``--parts`` names what to measure (both by default): ``window`` the
+lanes (``window_lanes``: its note says what each number is), ``kernels``
+the rest below.
 
 Each ROOT is the root of a checkout of this repository (for example a
 ``git archive`` of an older commit unpacked into a directory that
@@ -90,6 +96,7 @@ import subprocess
 import sys
 import time
 
+PARTS = ("window", "kernels")
 REPEATS = 30
 WARM_CALLS = 20
 HOST_CALLS = 100
@@ -97,7 +104,7 @@ HOST_BATCHES = 7
 SLEEP_CYCLES = 1_000_000
 
 
-def worker(root: str) -> dict:
+def worker(root: str, parts: tuple[str, ...] = PARTS) -> dict:
     # every worker on the same one core, so host times compare
     os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
     here = os.path.dirname(os.path.abspath(__file__))
@@ -118,13 +125,18 @@ def worker(root: str) -> dict:
               if "registers" in ln or "spill" in ln]
         for src, text in report.ptxas.items()
     }
+    out = {"root": root, "package": poseidon_tpu_torch.__file__, "ptxas": regs}
+    dev = torch.device("cuda")
+    if "window" in parts:
+        out.update(window_lanes(torch, dev))
+    if "kernels" not in parts:
+        return out
     rng = np.random.default_rng(0)
     Tp, Mp, B, P, inf = 10240, 1024, 2560, 3, 2**29
     c = rng.integers(0, 3000, (Tp, Mp))
     c[rng.random((Tp, Mp)) < 0.05] = inf
     p = rng.integers(0, 2000, Mp)
     u = rng.integers(0, 4000, Tp)
-    dev = torch.device("cuda")
     c, p, u = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (c, p, u))
     btask = torch.from_numpy(
         rng.choice(Tp, size=B, replace=False).astype(np.int32)).to(dev)
@@ -173,7 +185,6 @@ def worker(root: str) -> dict:
         times.sort()
         return times[len(times) // 2]
 
-    out = {"root": root, "package": poseidon_tpu_torch.__file__, "ptxas": regs}
     for name, (fn, plain, args, floor_name, floor) in calls.items():
         for g, w in zip(fn(*args), plain(*args)):
             if not torch.equal(g, w):
@@ -537,9 +548,280 @@ def general_calls(torch, dev, net) -> dict:
     }
 
 
+# ---- the express and stream lanes: what a window costs around _solve ----
+
+SOLVE_SPAN = "kernel_ab:_solve"
+WINDOW_SYMBOLS = ("express_rows", "express_patch", "stream_commit")
+FLUSHES = 5
+
+
+class SolveMarks:
+    """While active, every ``_solve`` call of ``resident`` (the eps=1
+    repair both lanes run a window) runs inside a profiler span named
+    ``SOLVE_SPAN`` and adds its host seconds to ``solve_s``; calls of
+    ``_stream_chain`` and ``_express_step`` add theirs to ``chain_s`` and
+    ``step_s``. Every checkout has these three module functions."""
+
+    def __init__(self, torch, resident):
+        self.torch, self.mod = torch, resident
+        self.solve_s = self.chain_s = self.step_s = 0.0
+
+    def _wrap(self, name, attr, span=None):
+        inner = getattr(self.mod, name)
+
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            if span is None:
+                out = inner(*a, **kw)
+            else:
+                with self.torch.profiler.record_function(span):
+                    out = inner(*a, **kw)
+            setattr(self, attr, getattr(self, attr) + time.perf_counter() - t0)
+            return out
+
+        return inner, call
+
+    def __enter__(self):
+        self.saved = {}
+        for name, attr, span in (("_solve", "solve_s", SOLVE_SPAN),
+                                 ("_stream_chain", "chain_s", None),
+                                 ("_express_step", "step_s", None)):
+            self.saved[name], call = self._wrap(name, attr, span)
+            setattr(self.mod, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, inner in self.saved.items():
+            setattr(self.mod, name, inner)
+
+    def reset(self):
+        self.solve_s = self.chain_s = self.step_s = 0.0
+
+
+class InlineFetch:
+    """Stands in for ``resident._AsyncFetch`` in a profiled flush: runs
+    the stream batch on the calling thread, whose spans the profiler
+    records (it does not follow the solver's worker thread)."""
+
+    def __init__(self, fn):
+        self._value = fn()
+
+    def result(self, timeout_s=None):
+        return self._value
+
+
+def window_profile(prof, wall_us: float) -> dict:
+    """One profiled call of a lane: device kernels in all and those
+    launched outside every ``SOLVE_SPAN`` (a kernel's launch time is its
+    runtime call's, matched by correlation id; ``unlinked`` counts the
+    device events without one, placed by their device start), the device
+    time of everything launched outside them (copies and sets too),
+    copies and sets (``memcpy``/``memset``), device busy and idle share,
+    and each window kernel's device time a launch by its CUDA symbol."""
+    from torch.autograd import DeviceType
+
+    evs = list(prof.events())
+    cpu = [e for e in evs if e.device_type == DeviceType.CPU]
+    spans = [(e.time_range.start, e.time_range.end) for e in cpu
+             if e.name == SOLVE_SPAN]
+    runtime = {e.id: e.time_range.start for e in cpu
+               if e.name.startswith("cu")}
+    # the device timeline also holds each span as an annotation
+    dev_evs = [e for e in evs if e.device_type == DeviceType.CUDA
+               and e.name != SOLVE_SPAN
+               and not getattr(e, "is_user_annotation", False)]
+    def copy(e):
+        return "memcpy" in e.name.lower() or "memset" in e.name.lower()
+
+    kernels = [e for e in dev_evs if not copy(e)]
+    outside = unlinked = 0
+    outside_us = 0.0
+    for e in dev_evs:
+        t = runtime.get(e.id)
+        if t is None:
+            unlinked += 1
+            t = e.time_range.start
+        if not any(a <= t <= b for a, b in spans):
+            outside += not copy(e)
+            outside_us += e.time_range.end - e.time_range.start
+    busy = sum(e.time_range.end - e.time_range.start for e in dev_evs)
+    per = {}
+    for sym in WINDOW_SYMBOLS:
+        hits = [e for e in kernels if sym in e.name]
+        total = sum(e.time_range.end - e.time_range.start for e in hits)
+        per[sym] = {"launches": len(hits),
+                    "us_per_launch": total / max(len(hits), 1)}
+    return {"kernels": len(kernels), "kernels_outside_solve": outside,
+            "device_us_outside_solve": outside_us, "unlinked": unlinked,
+            "copies": len(dev_evs) - len(kernels),
+            "solve_spans": len(spans), "wall_us": wall_us,
+            "device_busy_us": busy,
+            "idle_share": 1 - min(busy / max(wall_us, 1e-9), 1),
+            "as_called": per}
+
+
+def lane_events(bridge, rng, tag: str, sizes, completions: int = 2):
+    """Windows of watch events drawn from one snapshot of ``bridge``:
+    ``sizes[w]`` seeded arrivals with one machine (free seat) or rack
+    preference each, and ``completions`` running pods that finish, none
+    twice (``chip_smoke.py``'s ``[express]``/``[stream]`` schedule)."""
+    from poseidon_tpu_torch.cluster import Task, TaskPhase
+
+    used = {}
+    for t in bridge.tasks.values():
+        if t.phase == TaskPhase.RUNNING:
+            used[t.machine] = used.get(t.machine, 0) + 1
+    free = sorted(m.name for m in bridge.machines.values()
+                  if used.get(m.name, 0) + 2 < m.max_tasks)
+    racks = sorted({m.rack for m in bridge.machines.values()})
+    running = sorted(u for u, t in bridge.tasks.items()
+                     if t.phase == TaskPhase.RUNNING)
+    victims = [running[int(i)] for i in rng.choice(
+        len(running), size=completions * len(sizes), replace=False)]
+    out = []
+    for w, n in enumerate(sizes):
+        ev = []
+        for k in range(n):
+            if rng.random() < 0.3:
+                prefs = {racks[int(rng.integers(len(racks)))]:
+                         int(rng.integers(10, 100))}
+            else:
+                prefs = {free[int(rng.integers(len(free)))]:
+                         int(rng.integers(20, 200))}
+            ev.append(("ADDED", Task(
+                uid=f"ab-{tag}-{w}-{k:03d}", job=f"job-ab-{tag}-{w}",
+                cpu_request=float(rng.choice([0.1, 0.25, 0.5, 1.0])),
+                memory_request_kb=int(rng.choice([1, 2, 8])) << 18,
+                data_prefs=prefs)))
+        for u in victims[w * completions: (w + 1) * completions]:
+            ev.append(("DELETED", bridge.tasks[u]))
+        out.append(ev)
+    return out
+
+
+def window_lanes(torch, dev, K: int = 8, n: int = 16) -> dict:
+    """The stream lane (flushes of K windows of n arrivals and 2
+    completions) and the synced express lane (batches of the same shape)
+    on bridges over the flagship (config 2, quincy), each behind one
+    certified round: after a warm-up flush and batch, ``FLUSHES`` timed
+    ones, then one profiled (``window_profile``; the flush on the calling
+    thread, ``InlineFetch``). ``flush_ms``: host
+    clock from ``stream_flush`` to ``stream_finish``'s return;
+    ``window_host_us``: ``_stream_chain``'s host time less its
+    ``_solve`` calls', a window; ``batch_ms``: ``express_batch``'s wall,
+    ``solve_ms`` its own timing; ``step_host_us``: ``_express_step``'s
+    host time less its ``_solve``'s; ``launches``: the wrappers'
+    counts a flush or batch. Every checkout sees the same events."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from poseidon_tpu_torch import kernels
+    from poseidon_tpu_torch.bridge import SchedulerBridge
+    from poseidon_tpu_torch.ops import resident
+    from poseidon_tpu_torch.synth import config2_quincy_flagship
+
+    cluster = config2_quincy_flagship(seed=0)
+
+    def bridge(windows):
+        b = SchedulerBridge(cost_model="quincy", small_to_oracle=False,
+                            express_lane=True, device=str(dev),
+                            stream_windows=windows)
+        b.observe_nodes(list(cluster.machines))
+        b.observe_pods(list(cluster.tasks))
+        for uid, m in b.run_scheduler().bindings.items():
+            b.confirm_binding(uid, m)
+        return b
+
+    def counts():
+        return {k.name: k.launches for k in kernels.KERNELS}
+
+    def delta(c0):
+        return {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+
+    out = {}
+    rng = np.random.default_rng(2024)
+    sb = bridge(K)
+    async_fetch = resident._AsyncFetch
+    rows = {"flush_ms": [], "window_host_us": [], "placed": []}
+    with SolveMarks(torch, resident) as marks:
+        for f in range(FLUSHES + 2):
+            windows = lane_events(sb, rng, f"s{f}", [n] * K)
+            for ev in windows:
+                sb.stream_window(ev, t_event=time.perf_counter())
+            marks.reset()
+            c0 = counts()
+            torch.cuda.synchronize()
+            prof = None
+            if f == FLUSHES + 1:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+                resident._AsyncFetch = InlineFetch
+            t0 = time.perf_counter()
+            sb.stream_flush()
+            r = sb.stream_finish()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                resident._AsyncFetch = async_fetch
+                out["stream_profile"] = window_profile(prof, wall * 1e6)
+            if r is None or sb.solver.last_stream_fetches != 1:
+                raise AssertionError(f"stream flush {f}: {r}")
+            for uid, m in r.bindings.items():
+                sb.confirm_binding(uid, m)
+            if 0 < f <= FLUSHES:
+                rows["flush_ms"].append(wall * 1e3)
+                rows["window_host_us"].append(
+                    (marks.chain_s - marks.solve_s) / K * 1e6)
+                rows["placed"].append(len(r.bindings))
+                rows["launches"] = delta(c0)
+    out["stream"] = rows
+    del sb
+    xb = bridge(0)
+    rows = {"batch_ms": [], "solve_ms": [], "step_host_us": [], "placed": []}
+    with SolveMarks(torch, resident) as marks:
+        for f in range(FLUSHES + 2):
+            ev = lane_events(xb, rng, f"x{f}", [n])[0]
+            marks.reset()
+            c0 = counts()
+            torch.cuda.synchronize()
+            prof = None
+            if f == FLUSHES + 1:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            r = xb.express_batch(ev, t_event=t0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                out["express_profile"] = window_profile(prof, wall * 1e6)
+            if r is None or xb.solver.last_round_fetches != 1:
+                raise AssertionError(f"express batch {f}: {r}")
+            for uid, m in r.bindings.items():
+                xb.confirm_binding(uid, m)
+            if 0 < f <= FLUSHES:
+                rows["batch_ms"].append(wall * 1e3)
+                rows["solve_ms"].append(r.timings.get("solve_ms", 0.0))
+                rows["step_host_us"].append(
+                    (marks.step_s - marks.solve_s) * 1e6)
+                rows["placed"].append(len(r.bindings))
+                rows["launches"] = delta(c0)
+    out["express"] = rows
+    return out
+
+
 def main(argv: list[str]) -> int:
+    parts = PARTS
+    if argv and argv[0].startswith("--parts="):
+        parts = tuple(argv.pop(0).split("=", 1)[1].split(","))
+        if not set(parts) <= set(PARTS):
+            print(f"--parts takes {','.join(PARTS)}", file=sys.stderr)
+            return 2
     if len(argv) >= 2 and argv[0] == "--worker":
-        print(json.dumps(worker(argv[1])), flush=True)
+        print(json.dumps(worker(argv[1], parts)), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -551,8 +833,8 @@ def main(argv: list[str]) -> int:
     print(smi.stdout.strip(), flush=True)
     for root in argv:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker",
-             os.path.abspath(root)],
+            [sys.executable, os.path.abspath(__file__),
+             f"--parts={','.join(parts)}", "--worker", os.path.abspath(root)],
             cwd=root, capture_output=True, text=True, timeout=900,
         )
         if proc.returncode != 0:

@@ -1,56 +1,106 @@
-// K4 express_rows: build the express lane's arrival rows of the dense
-// cost table and write them into c in place.
+// K4 express_rows: the head of an express window. One launch builds the
+// arrival rows of the dense cost table and writes every arrival scatter.
 //
-// Replaces: poseidon_tpu/ops/resident.py:486-502, the row build and the
-// `c.at[addi].set(row, mode="drop")` scatter of `_express_step` (XLA
-// fused them on the TPU). For each arrival lane k with a row r =
-// add_row[k] in [0, Tp), and each column m:
+// Replaces: poseidon_tpu/ops/resident.py:486-507, the row build and the six
+// `.at[addi].set(..., mode="drop")` scatters of `_express_step` (XLA fused
+// them on the TPU). For each arrival lane k with a row r = add_row[k] in
+// [0, Tp), and each column m:
 //   v = min(w_s[k] + dgen[m], INF)
 //   for each preference j: min with pc_s[k, j] where add_pm[k, j] == m,
 //                          min with min(pc_s[k, j] + ra_s[m], INF) where
 //                          add_pr[k, j] == rack_of[m] (both >= 0)
 //   c[r, m] = s[m] > 0 ? v : INF
-// Lanes of -1 (or a row past Tp) write nothing. The two sums wrap as
-// XLA's int32 does (pt::wrap_add); the INF clamps follow the add.
+// and u[r] = u_s[k], w[r] = w_s[k], valid[r] = 1 in place, while
+//   asg0[t] = t is an arrival row ? -1 : asg[t],  lvl0[t] = ... ? 0 : lvl[t]
+// are written out of place over the whole [Tp]: in the synced lane `asg` may
+// be the warm state itself, which a degraded batch must leave as it was.
+// With `c_saved`, row r's old contents go to c_saved[k] first (the stream
+// lane's undo of a dead window); the lanes without a row leave theirs alone.
+// Lanes of -1 (or a row past Tp) write nothing. The two sums wrap as XLA's
+// int32 does (pt::wrap_add); the INF clamps follow the add.
 //
-// Bound: bytes, and far below one launch's fixed cost. At the flagship
-// (kmax = 16 lanes, Mp = 1024, pk = 3) it reads 4 column vectors (16 KiB)
-// and writes 16 rows (64 KiB): about 80 KiB, 0.02 us at 3.35 TB/s. A
-// launch costs microseconds, so the kernel is launch-bound.
+// Assumption: the arrival rows are distinct (the host coalesces duplicate
+// arrivals before it encodes a window), so no two blocks write one row.
 //
-// Design: the simple one. One block per lane; the lane's preferences
-// (pk triples) go to shared memory once, then the block's threads stride
-// over the columns, neighbouring threads on neighbouring columns, so the
-// column reads and the row write are coalesced. Writing in place is safe:
-// the express context's table has no other reader, and a degraded batch
-// drops the context.
+// Under a row-block mesh (parallel/) `c` holds rows [row0, row0 + c_rows) of
+// the table: a launch writes the rows (and saved rows) it owns, and only the
+// first shard's launch gets the [Tp] vectors (null pointers elsewhere).
+//
+// Bound: bytes, far below one launch's fixed cost. At the flagship (kmax =
+// 16 lanes, Tp = 10240, Mp = 1024, pk = 3) it reads 4 column vectors (16
+// KiB), asg and lvl (80 KiB) and the old rows when it saves them (64 KiB),
+// and writes 16 rows (64 KiB), asg0 and lvl0 (80 KiB) and the saved rows
+// (64 KiB): ~0.37 MB, about 0.11 us at 3.35 TB/s. A launch costs microseconds.
+//
+// Design: one launch, two kinds of block. Blocks [0, kmax) take one lane
+// each: its preferences (pk triples) go to shared memory once, then the
+// block's threads stride over the columns, neighbouring threads on
+// neighbouring columns, so the column reads and the row write are
+// coalesced; each element of a saved row is read by the thread that then
+// overwrites it. Blocks past kmax take VEC_TILE entries of [Tp] each: they
+// copy asg and lvl into asg0 and lvl0, meet at a __syncthreads(), then set
+// the arrival rows that fall in their tile, so each entry has one writer
+// at a time.
 #include "common.cuh"
 
 namespace {
 
 constexpr int ROW_THREADS = 256;
+constexpr int VEC_TILE = 2048;
 
-__global__ void __launch_bounds__(ROW_THREADS) express_rows_kernel(
-    const int* __restrict__ w_s, const int* __restrict__ pc_s, const int* __restrict__ add_row,
-    const int* __restrict__ add_pm, const int* __restrict__ add_pr, const int* __restrict__ dgen,
-    const int* __restrict__ ra_s, const int* __restrict__ rack_of, const int* __restrict__ s,
-    int* __restrict__ c, int pk, int Tp, int Mp) {
-  extern __shared__ int prefs[];  // [3][pk]: machine, rack, cost
-  const int k = blockIdx.x;
-  const int r = add_row[k];
-  if (r < 0 || r >= Tp) return;  // uniform across the block
+}  // namespace
+
+// The launch's pointers and sizes, laid out as the ctypes Structure
+// `_Args` of kernels/express_rows.py: every field 8 bytes.
+struct RowsArgs {
+  const int* w_s;        // [kmax]
+  const int* u_s;        // [kmax]
+  const int* pc_s;       // [kmax, pk]
+  const int* add_row;    // [kmax]
+  const int* add_pm;     // [kmax, pk]
+  const int* add_pr;     // [kmax, pk]
+  const int* dgen;       // [Mp]
+  const int* ra_s;       // [Mp]
+  const int* rack_of;    // [Mp]
+  const int* s;          // [Mp]
+  int* c;                // [c_rows, Mp], rows row0.. of the table
+  int* c_saved;          // [kmax, Mp] or null
+  int* u;                // [Tp] or null (then w .. lvl0 are null too)
+  int* w;
+  unsigned char* valid;
+  const int* asg;
+  const int* lvl;
+  int* asg0;
+  int* lvl0;
+  long long kmax, pk, Tp, Mp, row0, c_rows;
+};
+
+namespace {
+
+__device__ void arrival_row(const RowsArgs& a, int k, int* prefs) {
+  const int r = a.add_row[k];
+  const int pk = static_cast<int>(a.pk);
+  const int Mp = static_cast<int>(a.Mp);
+  if (a.u != nullptr && r >= 0 && r < a.Tp && threadIdx.x == 0) {
+    a.u[r] = a.u_s[k];
+    a.w[r] = a.w_s[k];
+    a.valid[r] = 1;
+  }
+  const long long local = static_cast<long long>(r) - a.row0;
+  if (r < 0 || r >= a.Tp || local < 0 || local >= a.c_rows) return;  // uniform
   for (int j = threadIdx.x; j < pk; j += blockDim.x) {
-    prefs[j] = add_pm[k * pk + j];
-    prefs[pk + j] = add_pr[k * pk + j];
-    prefs[2 * pk + j] = pc_s[k * pk + j];
+    prefs[j] = a.add_pm[k * pk + j];
+    prefs[pk + j] = a.add_pr[k * pk + j];
+    prefs[2 * pk + j] = a.pc_s[k * pk + j];
   }
   __syncthreads();
-  const int w = w_s[k];
-  int* out = c + static_cast<size_t>(r) * Mp;
+  const int w = a.w_s[k];
+  int* out = a.c + local * Mp;
+  int* saved = a.c_saved != nullptr ? a.c_saved + static_cast<size_t>(k) * Mp : nullptr;
   for (int m = threadIdx.x; m < Mp; m += blockDim.x) {
-    int v = min(pt::wrap_add(w, dgen[m]), pt::INF);
-    const int rk = rack_of[m];
-    const int ra = ra_s[m];
+    int v = min(pt::wrap_add(w, a.dgen[m]), pt::INF);
+    const int rk = a.rack_of[m];
+    const int ra = a.ra_s[m];
     for (int j = 0; j < pk; ++j) {
       const int pm = prefs[j];
       const int pr = prefs[pk + j];
@@ -58,19 +108,44 @@ __global__ void __launch_bounds__(ROW_THREADS) express_rows_kernel(
       if (pm >= 0 && pm == m) v = min(v, pc);
       if (pr >= 0 && pr == rk) v = min(v, min(pt::wrap_add(pc, ra), pt::INF));
     }
-    out[m] = s[m] > 0 ? v : pt::INF;
+    if (saved != nullptr) saved[m] = out[m];
+    out[m] = a.s[m] > 0 ? v : pt::INF;
   }
+}
+
+__device__ void vector_tile(const RowsArgs& a, int tile) {
+  const int t0 = tile * VEC_TILE;
+  const int t1 = static_cast<int>(min(static_cast<long long>(t0 + VEC_TILE), a.Tp));
+  for (int t = t0 + threadIdx.x; t < t1; t += blockDim.x) {
+    a.asg0[t] = a.asg[t];
+    a.lvl0[t] = a.lvl[t];
+  }
+  __syncthreads();  // the copies land before the arrival rows overwrite them
+  for (int k = threadIdx.x; k < a.kmax; k += blockDim.x) {
+    const int r = a.add_row[k];
+    if (r >= t0 && r < t1) {
+      a.asg0[r] = -1;
+      a.lvl0[r] = 0;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(ROW_THREADS) express_rows_kernel(const RowsArgs a) {
+  extern __shared__ int prefs[];  // [3][pk]: machine, rack, cost
+  if (blockIdx.x < a.kmax)
+    arrival_row(a, blockIdx.x, prefs);
+  else
+    vector_tile(a, blockIdx.x - static_cast<int>(a.kmax));
 }
 
 }  // namespace
 
-extern "C" int express_rows_launch(const int* w_s, const int* pc_s, const int* add_row,
-                                   const int* add_pm, const int* add_pr, const int* dgen,
-                                   const int* ra_s, const int* rack_of, const int* s, int* c,
-                                   int kmax, int pk, int Tp, int Mp, void* stream) {
-  if (kmax > 0 && Mp > 0)
-    express_rows_kernel<<<kmax, ROW_THREADS, 3 * pk * static_cast<int>(sizeof(int)),
-                          static_cast<cudaStream_t>(stream)>>>(
-        w_s, pc_s, add_row, add_pm, add_pr, dgen, ra_s, rack_of, s, c, pk, Tp, Mp);
+extern "C" int express_rows_launch(const RowsArgs* a, void* stream) {
+  const long long tiles = a->u != nullptr ? (a->Tp + VEC_TILE - 1) / VEC_TILE : 0;
+  const long long blocks = a->kmax + tiles;
+  if (blocks > 0)
+    express_rows_kernel<<<static_cast<unsigned>(blocks), ROW_THREADS,
+                          3 * a->pk * static_cast<int>(sizeof(int)),
+                          static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }

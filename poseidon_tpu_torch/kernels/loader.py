@@ -158,13 +158,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "bid_pass_occupancy": occupancy,
         },
         "express_rows": {
-            "express_rows_launch": [P] * 10 + [I] * 4 + [P],
+            "express_rows_launch": [P, P],
         },
         "express_patch": {
             "express_patch_launch": [P] * 9 + [I] * 3 + [P],
         },
         "stream_commit": {
-            "stream_commit_launch": [P] * 26 + [I] * 7 + [P],
+            "stream_commit_launch": [P, P],
             "stream_restore_launch": [P] * 4 + [I] * 5 + [P],
         },
         "perturb": {

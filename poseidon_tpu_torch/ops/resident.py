@@ -63,6 +63,7 @@ from poseidon_tpu_torch.guards import FetchTimeout, SyncCounter
 from poseidon_tpu_torch.kernels.express_patch import express_patch
 from poseidon_tpu_torch.kernels.express_rows import express_rows
 from poseidon_tpu_torch.kernels.stream_commit import (
+    Commit,
     log_width,
     stream_commit,
     stream_restore,
@@ -407,48 +408,45 @@ def _stream_event_ints(kmax: int, pk: int, pw: int, m_in: int) -> int:
     )
 
 
-def _scatter_drop(base, idx, vals):
-    """``base.at[idx].set(vals, mode="drop")`` without a host sync: an
-    out-of-range index lands in a spare slot that is cut off again."""
-    n = base.shape[0]
-    i = torch.where((idx >= 0) & (idx < n), idx, n).long()
-    ext = torch.cat([base, base.new_zeros(1)])
-    ext[i] = vals
-    return ext[:n]
-
-
-def _write_arrival_rows(c, w_s, pc_s, add_row, add_pm, add_pr, dgen,
-                        ra_s, rack_of, s):
-    """K4: the arrival rows into the table, in place. Under a mesh each
-    shard writes the rows it owns (the others' lanes masked to -1)."""
+def _write_arrival_rows(dev, dt, w_s, u_s, pc_s, add_row, add_pm, add_pr,
+                        ra_s, asg, lvl, c_saved=None):
+    """K4, the window's head: the arrival rows into the table and u, w,
+    task_valid at them, in place; returns ``(asg0, lvl0)`` (new tensors,
+    -1 / 0 at the arrival rows). With ``c_saved`` (one [kmax, Mp] buffer
+    a shard) the rows' old contents are kept for a dead stream window.
+    Under a mesh each shard's launch writes the rows it owns; the first
+    shard's also writes the [Tp] vectors."""
+    c = dev.c
+    vectors = (u_s, dev.u, dev.w, dev.task_valid, asg, lvl)
+    head = (w_s, pc_s, add_row, add_pm, add_pr, dev.dgen, ra_s, dt.rack_of,
+            dev.s)
     if not isinstance(c, RowBlocks):
-        return express_rows(c, w_s, pc_s, add_row, add_pm, add_pr, dgen,
-                            ra_s, rack_of, s)
-    for b, r0, r1, d in c.shards():
-        own = (add_row >= r0) & (add_row < r1)
-        express_rows(
-            b, *(to_dev(x, d) for x in (
-                w_s, pc_s, torch.where(own, add_row - r0, -1), add_pm,
-                add_pr, dgen, ra_s, rack_of, s)),
-        )
-    return c
+        return express_rows(c, *head, vectors,
+                            c_saved[0] if c_saved else None)
+    return [
+        express_rows(b, *(to_dev(x, d) for x in head),
+                     None if i else vectors,
+                     c_saved[i] if c_saved else None, r0)
+        for i, (b, r0, _r1, d) in enumerate(c.shards())
+    ][0]
 
 
-def _saved_rows(c, add_row):
-    """The table rows K4 is about to write (row 0 for a -1 lane), on the
-    first device, for a dead stream window to put back."""
-    Tp = c.shape[0]
-    idx = torch.clamp(add_row, 0, Tp - 1)
-    if not isinstance(c, RowBlocks):
-        return c.index_select(0, idx.long())
-    saved = None
-    for b, r0, r1, d in c.shards():
-        rows = to_dev(b.index_select(0, to_dev(
-            torch.clamp(idx - r0, 0, r1 - r0 - 1), d).long()), c.device)
-        own = (idx >= r0) & (idx < r1)
-        saved = rows if saved is None else torch.where(
-            own[:, None], rows, saved)
-    return saved
+@dataclasses.dataclass
+class _StreamCarry:
+    """The stream lane's carry between windows, overwritten in place by
+    each live window's tail: ``live`` int32[1] (the latch), u/w/valid/
+    asg/lvl [Tp], s/floor [Mp], and ``saved``, one int32 [kmax, Mp]
+    buffer a table shard for the rows the head overwrites."""
+
+    live: torch.Tensor
+    u: torch.Tensor
+    w: torch.Tensor
+    valid: torch.Tensor
+    asg: torch.Tensor
+    lvl: torch.Tensor
+    s: torch.Tensor
+    floor: torch.Tensor
+    saved: list
 
 
 def _express_step(
@@ -469,27 +467,36 @@ def _express_step(
     smax: int,
     change_cap: int,
     syncs: SyncCounter | None = None,
+    carry: _StreamCarry | None = None,
+    log_row: torch.Tensor | None = None,
 ):
     """One express window on the device (the reference's
     ``_express_step``, which its ``_express_chain`` runs one window a
     dispatch): price the arrivals' task-side arcs with the round's cost
-    model, activate their table rows (K4) against the warm instance,
-    run a bounded eps=1 repair from the existing prices (``_solve``: K2,
-    K3, the sorts), and compact the changed placements for the one
-    result fetch. The trailing ``report`` mask stays on the device; only
-    the change-cap overflow path fetches it.
+    model, activate their table rows and scatter u, w, task_valid, asg
+    and lvl at them (the head, K4: one launch) against the warm
+    instance, run a bounded eps=1 repair from the existing prices
+    (``_solve``: K2, K3, the sorts), and compact the changed placements
+    into one int64 log row for the one result fetch (the tail, K7: one
+    launch; ``log_width`` entries, into ``log_row`` when given). The
+    trailing ``report`` mask stays on the device; only the change-cap
+    overflow path fetches it. With ``carry`` (the stream lane) the head
+    saves the rows it overwrites and the tail commits the window into
+    the carry, latching and masking as ``_stream_chain`` says.
 
     No rebuild, no cold eps ladder: machine-side routes (``dev.dgen``,
     the m->sink / rack legs gathered from ``cost_dev``) are the LAST
     round's prices by design — the periodic correction round re-prices
     everything and differential-verifies what express placed. The
     repair's certificate gates every batch. ``dev.c`` is patched in
-    place (the context's table has no other reader); ``rounds`` and
-    ``phases`` come back as Python ints.
+    place, and so are its u, w and task_valid (the context's vectors have
+    no other reader: a degraded batch drops the context); asg/lvl are
+    not (``asg`` may be the warm state). ``rounds`` and ``phases`` come
+    back as Python ints; rows_out, asg_out, n_changes, primal and
+    n_active are views of the log row.
     """
     Tp, Mp = dev.c.shape
     device = dev.c.device
-    pos = torch.arange(Tp, dtype=I32, device=device)
 
     # ---- price the arrivals' task-side arcs (shared cost model) ----
     cost_mini = model_fn(mini_inputs)
@@ -549,19 +556,11 @@ def _express_step(
     pc_s = sc(pc_route)
     ra_s = sc(ra_u)
 
-    # ---- build + scatter the arrival rows (K4, in place) ----
-    c2 = _write_arrival_rows(dev.c, w_s, pc_s, add_row, add_pm, add_pr,
-                             dev.dgen, ra_s, dt.rack_of, dev.s)
-    u2 = _scatter_drop(dev.u, add_row, u_s)
-    w2 = _scatter_drop(dev.w, add_row, w_s)
-    valid2 = _scatter_drop(
-        dev.task_valid, add_row,
-        torch.ones(kmax, dtype=torch.bool, device=device),
-    )
-    asg0 = _scatter_drop(asg, add_row, torch.full_like(add_row, -1))
-    lvl0 = _scatter_drop(lvl, add_row, torch.zeros_like(add_row))
-    dev2 = dataclasses.replace(dev, c=c2, u=u2, w=w2, task_valid=valid2,
-                               smax=smax)
+    # ---- the head (K4): the arrival rows and scatters, one launch ----
+    asg0, lvl0 = _write_arrival_rows(
+        dev, dt, w_s, u_s, pc_s, add_row, add_pm, add_pr, ra_s, asg, lvl,
+        carry.saved if carry is not None else None)
+    dev2 = dataclasses.replace(dev, smax=smax)
 
     # ---- bounded eps=1 repair from the existing prices ----
     asg_f, lvl_f, floor_f, gap, conv, rounds, phases, _ = _solve(
@@ -569,30 +568,33 @@ def _express_step(
         smax=smax, analytic_init=False, syncs=syncs,
     )
 
-    # ---- compact ONLY the affected placements for the fetch: a sort
-    # of the changed rows' positions (no nonzero, no host sync) ----
-    report = valid2 & (asg_f >= 0) & (asg_f < Mp) & (asg_f != asg0)
-    n_changes = report.sum(dtype=I32)
-    key = torch.sort(torch.where(report, pos, Tp)).values
-    rows_out = key[:change_cap]
-    asg_out = torch.where(
-        rows_out < Tp, asg_f[torch.clamp(rows_out, max=Tp - 1).long()], -1
-    )
-
-    # exact objective of the active rows (the express cost, scaled)
-    on_m = (asg_f >= 0) & (asg_f < Mp)
-    c_asg = table_gather(c2, torch.clamp(asg_f, 0, Mp - 1).long())
-    per = torch.where(
-        valid2,
-        torch.where(on_m, c_asg, torch.where(asg_f == Mp, u2, INF)),
-        0,
-    )
-    primal = per.to(I64).sum()
-    n_active = valid2.sum(dtype=I32)
+    # ---- the tail (K7): report, count, ordered compaction, objective
+    # (and the stream's commit), one launch with no host read ----
+    cap = min(change_cap, Tp)
+    if log_row is None:
+        log_row = torch.empty(log_width(cap), dtype=I64, device=device)
+    report = torch.empty(Tp, dtype=torch.bool, device=device)
+    c2 = dev2.c
+    cost = c2
+    if isinstance(c2, RowBlocks):
+        cost = table_gather(c2, torch.clamp(asg_f, 0, Mp - 1).long())
+    commit = None
+    if carry is not None:
+        first = c2.shards()[0][0] if isinstance(c2, RowBlocks) else c2
+        commit = Commit(
+            live=carry.live, lvl_f=lvl_f, floor_f=floor_f, w_n=dev2.w,
+            s_n=dev2.s, add_row=add_row, c_saved=carry.saved[0], c=first,
+            u=carry.u, w=carry.w, valid=carry.valid, asg=carry.asg,
+            lvl=carry.lvl, s=carry.s, floor=carry.floor,
+        )
+    stream_commit(log_row, report, dev2.task_valid, asg0, asg_f, dev2.u,
+                  cost, Mp, conv, domain_ok, change_cap, commit)
+    rows_out, asg_out = log_row[:cap], log_row[cap: 2 * cap]
+    n_changes, primal, n_active = (log_row[2 * cap + i] for i in (0, 4, 5))
 
     return (dev2, asg_f, lvl_f, floor_f, gap, conv, rounds, phases,
             rows_out, asg_out, n_changes, domain_ok, primal, n_active,
-            report)
+            report, log_row)
 
 
 def _stream_chain(
@@ -617,12 +619,13 @@ def _stream_chain(
 
     Each window replays what the synced lane does per window: the
     window's retire/removal/slot patch (K5, on copies of the carry),
-    then ``_express_step`` (pricing, K4's arrival rows, the eps=1
-    repair, the compaction), then K7 ``stream_commit`` (and, under a
-    mesh, K7's restore in every other shard): the certificate
-    latch ``live`` (an int32[1] on the device), the in-device auto-retire
-    of the window's placements, the latched select of the carry, the
-    undo of K4's rows in a dead window, and the masked log row. A dead
+    then ``_express_step`` with the carry: pricing, the head (K4: the
+    arrival rows, their old contents saved), the eps=1 repair, and the
+    tail (K7 ``stream_commit``; under a mesh, then K7's restore in every
+    other shard): the compaction, the certificate latch ``live`` (an
+    int32[1] on the device), the in-device auto-retire of the window's
+    placements, the latched select of the carry, the undo of K4's rows
+    in a dead window, and the masked log row. A dead
     window still runs its repair from the frozen carry, as the
     reference's scan does, so every window's conv, domain_ok, n_changes
     and rounds match it; its outputs read as masked.
@@ -635,47 +638,44 @@ def _stream_chain(
     the windows' repair rounds (host ints)."""
     Tp, Mp = dev.c.shape
     device = dev.c.device
-    c, u, w, s, valid = dev.c, dev.u, dev.w, dev.s, dev.task_valid
-    live = torch.ones(1, dtype=I32, device=device)
+    c = dev.c
+    shards = (c.shards() if isinstance(c, RowBlocks)
+              else [(c, 0, Tp, device)])
+    carry = _StreamCarry(
+        live=torch.ones(1, dtype=I32, device=device), u=dev.u, w=dev.w,
+        valid=dev.task_valid, asg=asg, lvl=lvl, s=dev.s, floor=floor,
+        saved=[torch.empty((kmax, Mp), dtype=I32, device=d)
+               for *_, d in shards],
+    )
     cap = min(change_cap, Tp)
-    log = torch.zeros((len(windows), log_width(cap)), dtype=I64,
+    log = torch.empty((len(windows), log_width(cap)), dtype=I64,
                       device=device)
     rounds_all = []
     for k, (mini, add_row, add_pm, add_pr, prow, pcol, pdelta) in enumerate(
             windows):
-        u1, w1, valid1, s1 = u.clone(), w.clone(), valid.clone(), s.clone()
-        asg1, lvl1 = asg.clone(), lvl.clone()
+        u1, w1 = carry.u.clone(), carry.w.clone()
+        valid1, s1 = carry.valid.clone(), carry.s.clone()
+        asg1, lvl1 = carry.asg.clone(), carry.lvl.clone()
         _express_patch(u1, w1, valid1, s1, asg1, lvl1, prow, pcol, pdelta)
         dev_w = DenseInstance(
             c=c, u=u1, w=w1, dgen=dev.dgen, s=s1, task_valid=valid1,
             scale=dev.scale, cmax=dev.cmax, smax=smax,
         )
-        # the rows K4 is about to write, for a dead window to put back
-        c_saved = _saved_rows(c, add_row)
-        (dev2, asg_f, lvl_f, floor_f, _gap, conv, rounds, _phases,
-         rows_out, asg_out, n_changes, domain_ok, primal, _n_active,
-         report) = _express_step(
-            dev_w, dt, cost_dev, mini, asg1, lvl1, floor,
+        *_, rounds, _phases = _express_step(
+            dev_w, dt, cost_dev, mini, asg1, lvl1, carry.floor,
             add_row, add_pm, add_pr,
             model_fn=model_fn, kmax=kmax, pk=pk, alpha=alpha,
             max_rounds=max_rounds, smax=smax, change_cap=change_cap,
-            syncs=syncs,
-        )
-        shards = (c.shards() if isinstance(c, RowBlocks)
-                  else [(c, 0, Tp, device)])
-        stream_commit(
-            live, conv, domain_ok, n_changes, change_cap, rows_out,
-            asg_out, primal, report, asg_f, lvl_f, floor_f, dev2.u, dev2.w,
-            dev2.task_valid, dev2.s, add_row, c_saved,
-            u, w, valid, asg, lvl, s, floor, shards[0][0], log[k],
-        )
+            syncs=syncs, carry=carry, log_row=log[k],
+        )[:8]
         # under a mesh the other shards undo their own rows of a dead
         # window, reading the verdict K7 just wrote to ``live``
-        for b, r0, _r1, d in shards[1:]:
-            stream_restore(to_dev(live, d), to_dev(add_row, d),
-                           to_dev(c_saved, d), b, Tp, r0)
+        for (b, r0, _r1, d), saved in zip(shards[1:], carry.saved[1:]):
+            stream_restore(to_dev(carry.live, d), to_dev(add_row, d), saved,
+                           b, Tp, r0)
         rounds_all.append(rounds)
-    return (c, u, w, s, valid, asg, lvl, floor, live), log, rounds_all
+    return ((c, carry.u, carry.w, carry.s, carry.valid, carry.asg, carry.lvl,
+             carry.floor, carry.live), log, rounds_all)
 
 
 class _AsyncFetch:
@@ -2066,8 +2066,7 @@ class ResidentSolver:
                         patch_dev[i, 0], patch_dev[i, 1], patch_dev[i, 2],
                     )
             (dev2, asg_f, lvl_f, floor_f, gap, conv, rounds, phases,
-             rows_out, asg_out, n_changes, domain_ok, primal, _n_active,
-             report) = _express_step(
+             *_, report, log_row) = _express_step(
                 dev, ctx.dt, ctx.cost_dev, mini_dev, asg, lvl, floor,
                 arr_dev[:, 0].contiguous(),
                 arr_dev[:, 1: 1 + pk].contiguous(),
@@ -2082,14 +2081,11 @@ class ResidentSolver:
             self.express_fetches += 1
             if self.metrics is not None:
                 self.metrics.record_express_fetch()
-            n_out = rows_out.shape[0]
-            h = self._fetches.read(torch.cat([
-                rows_out.to(I64), asg_out.to(I64),
-                torch.stack([n_changes.to(I64), conv.to(I64),
-                             domain_ok.to(I64), primal.to(I64)]),
-            ]))
+            h = self._fetches.read(log_row)
+            n_out = (h.shape[0] - 6) // 2
             rows_np, asg_np = h[:n_out], h[n_out: 2 * n_out]
-            n_chg, conv_h, dom_h, primal_h = (int(x) for x in h[2 * n_out:])
+            n_chg, _ok, conv_h, dom_h, primal_h = (
+                int(x) for x in h[2 * n_out: 2 * n_out + 5])
             timings["solve_ms"] = (time.perf_counter() - t_dispatch) * 1000
             if not dom_h:
                 raise ExpressDegrade("cost domain exceeded")

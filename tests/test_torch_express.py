@@ -14,7 +14,10 @@ equal (tolerance 0). Beside them:
   and K4 inside the whole express step against ``_express_chain`` on a
   hand-made instance (arrival rows 0 and Tp-1, -1 lanes, preferences
   on padded columns, racks of -1, columns without seats, int32 sums
-  that wrap);
+  that wrap); K4's twin alone, the window's head, against the
+  reference's row build and six arrival scatters (-1 lanes, rows past
+  Tp, rows 0 and Tp-1, with and without the saved rows, whole and over
+  a two-shard mesh);
 - a batch that degrades after its patch: the next full round starts
   from the same warm state as the reference's (rounds, phases,
   assignment);
@@ -781,6 +784,155 @@ def test_express_step_equals_reference(kmax, pk, wrap, seed):
     live = case["add_row"][case["add_row"] >= 0]
     assert not np.array_equal(np.asarray(rdev2.c)[live], i["c"][live])
     assert bool(np.asarray(out_ref[11])) == (not wrap)
+
+
+# ---- K4, the window's head, against the reference's lines -----------
+
+HEAD_INF = 2**29
+
+
+def _reference_head(c, u, w, valid, asg, lvl, s, dgen, w_s, u_s, pc_s,
+                    add_row, add_pm, add_pr, ra_s, rack_of):
+    """``poseidon_tpu/ops/resident.py:486-507`` (the row build and the
+    six arrival scatters of ``_express_step``), line for line in jnp."""
+    Tp, Mp = c.shape
+    mids = jnp.arange(Mp, dtype=jnp.int32)
+    row = jnp.minimum(w_s[:, None] + dgen[None, :], HEAD_INF)
+    for j in range(add_pm.shape[1]):
+        pm_j = add_pm[:, j: j + 1]
+        pr_j = add_pr[:, j: j + 1]
+        pc_j = pc_s[:, j: j + 1]
+        hit_m = (pm_j == mids[None, :]) & (pm_j >= 0)
+        row = jnp.minimum(row, jnp.where(hit_m, pc_j, HEAD_INF))
+        hit_r = (pr_j == rack_of[None, :]) & (pr_j >= 0)
+        row = jnp.minimum(
+            row,
+            jnp.where(hit_r, jnp.minimum(pc_j + ra_s[None, :], HEAD_INF),
+                      HEAD_INF),
+        )
+    row = jnp.where(s[None, :] > 0, row, HEAD_INF)
+    addi = jnp.where(add_row >= 0, add_row, Tp)
+    return (c.at[addi].set(row, mode="drop"),
+            u.at[addi].set(u_s, mode="drop"),
+            w.at[addi].set(w_s, mode="drop"),
+            valid.at[addi].set(True, mode="drop"),
+            asg.at[addi].set(-1, mode="drop"),
+            lvl.at[addi].set(0, mode="drop"))
+
+
+def _head_case(rng, kind, Tp=48, Mp=16, kmax=6, pk=3):
+    """One window's head inputs (numpy int32): distinct arrival rows,
+    with lanes of -1, a row past Tp or the rows 0 and Tp-1 by ``kind``;
+    preferences, racks, seatless columns and int32 sums that wrap."""
+    i32 = np.int32
+    racks = 4
+    rack_of = np.where(np.arange(Mp) < Mp - 2, rng.integers(0, racks, Mp), -1)
+    add_row = rng.choice(np.arange(1, Tp - 1), size=kmax, replace=False)
+    if kind == "neg":
+        add_row[[1, 3]] = -1
+    elif kind == "past":
+        add_row[[0, 2]] = [Tp, Tp + 5]
+    elif kind == "ends":
+        add_row[[0, kmax - 1]] = [Tp - 1, 0]
+    big = rng.random(kmax) < 0.3
+    return dict(
+        c=rng.integers(0, 50_000, (Tp, Mp)).astype(i32),
+        u=rng.integers(0, 500, Tp).astype(i32),
+        w=rng.integers(0, 500, Tp).astype(i32),
+        valid=rng.random(Tp) < 0.5,
+        asg=rng.integers(-1, Mp + 1, Tp).astype(i32),
+        lvl=rng.integers(0, 300, Tp).astype(i32),
+        s=np.where(rng.random(Mp) < 0.2, 0,
+                   rng.integers(1, 4, Mp)).astype(i32),
+        dgen=np.where(rng.random(Mp) < 0.2, 2**30 + 7,
+                      rng.integers(0, 5000, Mp)).astype(i32),
+        w_s=np.where(big, 2**31 - 5, rng.integers(0, 5000, kmax)).astype(i32),
+        u_s=rng.integers(0, 5000, kmax).astype(i32),
+        pc_s=np.where(rng.random((kmax, pk)) < 0.2, 2**31 - 3,
+                      rng.integers(0, 3000, (kmax, pk))).astype(i32),
+        add_row=add_row.astype(i32),
+        add_pm=np.where(rng.random((kmax, pk)) < 0.4, -1,
+                        rng.integers(0, Mp, (kmax, pk))).astype(i32),
+        add_pr=np.where(rng.random((kmax, pk)) < 0.5, -1,
+                        rng.integers(0, racks, (kmax, pk))).astype(i32),
+        ra_s=np.where(rng.random(Mp) < 0.2, 2**30 + 9,
+                      rng.integers(0, 5000, Mp)).astype(i32),
+        rack_of=rack_of.astype(i32),
+    )
+
+
+def _port_head(x, save, split=None):
+    """The head's twin on copies of ``x``: the whole table, or two row
+    shards cut at ``split`` (the first with the [Tp] vectors). Returns
+    the table, u, w, valid, asg0, lvl0, the saved-row buffers (one a
+    shard, filled with -7 first) and the untouched asg/lvl."""
+    from poseidon_tpu_torch.kernels.express_rows import express_rows
+
+    t = {k: torch.from_numpy(v.copy()) for k, v in x.items()}
+    kmax, Mp = t["add_row"].shape[0], t["c"].shape[1]
+    head = (t["w_s"], t["pc_s"], t["add_row"], t["add_pm"], t["add_pr"],
+            t["dgen"], t["ra_s"], t["rack_of"], t["s"])
+    vectors = (t["u_s"], t["u"], t["w"], t["valid"], t["asg"], t["lvl"])
+    cuts = [(0, t["c"].shape[0])] if split is None else \
+        [(0, split), (split, t["c"].shape[0])]
+    blocks = [t["c"][r0:r1].clone() for r0, r1 in cuts]
+    saved = [torch.full((kmax, Mp), -7, dtype=torch.int32) if save else None
+             for _ in cuts]
+    out = None
+    for i, ((r0, _r1), b) in enumerate(zip(cuts, blocks)):
+        res = express_rows(b, *head, None if i else vectors, saved[i], r0)
+        out = out or res
+    return (torch.cat(blocks), t["u"], t["w"], t["valid"], *out, saved,
+            t["asg"], t["lvl"])
+
+
+@pytest.mark.parametrize("kind", ["neg", "past", "ends"])
+@pytest.mark.parametrize("save", [True, False], ids=["saved", "unsaved"])
+@pytest.mark.parametrize("split", [None, 24, 40],
+                         ids=["whole", "mesh-half", "mesh-tail"])
+def test_head_twin_equals_reference_lines(kind, save, split):
+    """K4's twin (the window's head: the arrival rows, the u/w/valid
+    scatters in place, asg0/lvl0 out of place, the saved rows) against
+    ``_reference_head`` on the same inputs, whole and over a two-shard
+    mesh (``mesh-tail``: the second shard owns every arrival)."""
+    rng = np.random.default_rng(
+        [["neg", "past", "ends"].index(kind), int(save), split or 0])
+    x = _head_case(rng, kind)
+    Tp = x["c"].shape[0]
+    if split == 40:
+        x["add_row"] = rng.choice(np.arange(40, Tp - 1), 6,
+                                  replace=False).astype(np.int32)
+        if kind == "neg":
+            x["add_row"][[1, 3]] = -1
+        elif kind == "past":
+            x["add_row"][[0, 2]] = [Tp, Tp + 5]
+        elif kind == "ends":
+            x["add_row"][0] = Tp - 1
+    with enable_x64(True):
+        want = [np.asarray(a) for a in _reference_head(
+            *(jnp.asarray(x[k]) for k in (
+                "c", "u", "w", "valid", "asg", "lvl", "s", "dgen", "w_s",
+                "u_s", "pc_s", "add_row", "add_pm", "add_pr", "ra_s",
+                "rack_of")))]
+    c2, u2, w2, v2, asg0, lvl0, saved, asg, lvl = _port_head(x, save, split)
+    for name, got, ref in zip(("c", "u", "w", "valid", "asg0", "lvl0"),
+                              (c2, u2, w2, v2, asg0, lvl0), want):
+        assert np.array_equal(got.numpy(), ref), name
+    # asg and lvl are read, never written (the warm state may be them)
+    assert np.array_equal(asg.numpy(), x["asg"])
+    assert np.array_equal(lvl.numpy(), x["lvl"])
+    rows = x["add_row"]
+    assert not np.array_equal(c2.numpy(), x["c"])
+    if not save:
+        return
+    # each live lane's row as it was, in the shard that owns it; the
+    # other lanes' buffer rows untouched
+    cuts = [0, Tp] if split is None else [0, split, Tp]
+    for i, buf in enumerate(saved):
+        lo, hi = cuts[i], cuts[i + 1]
+        for k, r in enumerate(rows):
+            want_row = x["c"][r] if lo <= r < hi else np.full(16, -7)
+            assert np.array_equal(buf[k].numpy(), want_row), (i, k, r)
 
 
 # ---- the watch window and the daemon loop ---------------------------

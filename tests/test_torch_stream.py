@@ -7,10 +7,13 @@ window — the compacted rows and assignments, n_changes, the latch
 (live), conv, domain_ok, repair rounds and primal — and then the final
 carry (table, u, w, s, task_valid, asg, lvl, floor), the bindings, the
 trace and the next round's stats, all with tolerance 0. Beside them,
-K7 ``stream_commit``'s plain twin against the reference's scan-step
-lines (``ops/resident.py:658-690``) at its edge inputs: a live window,
-the first dead window, an already-dead stream, a report on a column
-driven below 0, rows 0 and Tp-1.
+K7 ``stream_commit``'s plain twins against the reference's lines: its
+commit piece against the scan step's (``ops/resident.py:658-690``) at
+its edge inputs (a live window, the first dead window, an already-dead
+stream, a report on a column driven below 0, rows 0 and Tp-1), and the
+whole window tail against ``_express_step``'s l.526-545 chained with
+the scan step's, with and without the commit, at 0, cap and cap + 1
+changed rows, for live and dead windows.
 
 The scale-lane composition of the reference's differential class runs
 too: aggregation, mesh width 1 and mesh width 8 (the port's mesh on
@@ -37,8 +40,8 @@ import poseidon_tpu_torch.synth as port_synth
 from poseidon_tpu.compat import enable_x64
 from poseidon_tpu.trace import TraceGenerator as RefTrace
 from poseidon_tpu_torch.kernels.stream_commit import (
+    commit_plain,
     log_width,
-    stream_commit,
 )
 from poseidon_tpu_torch.trace import TraceGenerator as PortTrace
 
@@ -777,7 +780,7 @@ def test_stream_commit_twin_equals_reference_step(case, seed):
         c_old[np.clip(add_row, 0, c_old.shape[0] - 1)])
     cap = arrs["rows_out"].shape[0]
     log = torch.zeros(log_width(cap), dtype=torch.int64)
-    stream_commit(
+    commit_plain(
         t["live"], t["conv"], t["domain_ok"], t["n_changes"],
         case["change_cap"], t["rows_out"], t["asg_out"], t["primal"],
         t["report"], t["asg_f"], t["lvl_f"], t["floor_f"], t["u_n"],
@@ -800,3 +803,160 @@ def test_stream_commit_twin_equals_reference_step(case, seed):
     assert np.array_equal(h[cap: 2 * cap], asgo_r)
     assert list(h[2 * cap: 2 * cap + 5]) == [
         int(nchg_r), int(live2_r), int(conv_r), int(dom_r), int(primal_r)]
+
+
+# ---------------------------------------------------------------------------
+# K7 as the window's tail: its twin against the reference's lines
+# ---------------------------------------------------------------------------
+
+def _reference_tail(valid2, asg0, asg_f, u2, c2, change_cap):
+    """``poseidon_tpu/ops/resident.py:526-545`` (the tail of
+    ``_express_step``: the report, the change count, the compaction and
+    the objective), line for line in jnp."""
+    Tp, Mp = c2.shape
+    pos = jnp.arange(Tp, dtype=jnp.int32)
+    report = valid2 & (asg_f >= 0) & (asg_f < Mp) & (asg_f != asg0)
+    n_changes = jnp.sum(report, dtype=jnp.int32)
+    key = jnp.sort(jnp.where(report, pos, Tp))
+    rows_out = key[:change_cap]
+    asg_out = jnp.where(
+        rows_out < Tp, asg_f[jnp.minimum(rows_out, Tp - 1)], -1
+    )
+    on_m = (asg_f >= 0) & (asg_f < Mp)
+    c_asg = jnp.take_along_axis(
+        c2, jnp.clip(asg_f, 0, Mp - 1)[:, None], axis=1
+    )[:, 0]
+    per = jnp.where(
+        valid2, jnp.where(on_m, c_asg, jnp.where(asg_f == Mp, u2, INF)),
+        0,
+    )
+    primal = jnp.sum(per.astype(jnp.int64))
+    n_active = jnp.sum(valid2, dtype=jnp.int32)
+    return report, n_changes, rows_out, asg_out, primal, n_active
+
+
+def _tail_case(seed, n_rep, *, Tp=40, Mp=16, kmax=4):
+    """A window after its repair with exactly ``n_rep`` reported rows
+    (rows 0 and Tp-1 first); the other rows inactive, off every machine
+    (-1, Mp: unscheduled, Mp + 1) or where their repair started. Two
+    reports share column 3, which has one seat left."""
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([[0, Tp - 1],
+                           rng.permutation(np.arange(1, Tp - 1))])[:n_rep]
+    rep = np.zeros(Tp, bool)
+    rep[rows] = True
+    valid = rng.random(Tp) < 0.7
+    asg_f = rng.integers(-1, Mp + 2, Tp)
+    asg0 = rng.integers(-1, Mp + 1, Tp)
+    kind = rng.integers(0, 3, Tp)
+    valid[(kind == 0) & ~rep] = False
+    asg_f[(kind == 1) & ~rep] = -1
+    same = (kind == 2) & ~rep
+    asg_f[same] = rng.integers(0, Mp, int(same.sum()))
+    asg0[same] = asg_f[same]
+    valid[rep] = True
+    asg_f[rep] = rng.integers(0, Mp, n_rep)
+    asg_f[rows[:2]] = 3
+    asg0[rep] = -1
+    s_n = rng.integers(0, 3, Mp)
+    s_n[3] = 1
+    add_row = np.array([0, Tp - 1, -1, 5][:kmax], np.int32)
+    c_old = rng.integers(0, 1000, (Tp, Mp)).astype(np.int32)
+    c_new = c_old.copy()
+    for r in add_row[add_row >= 0]:
+        c_new[r] = rng.integers(0, 1000, Mp)
+    i32 = np.int32
+    return dict(
+        valid2=valid, asg0=asg0.astype(i32), asg_f=asg_f.astype(i32),
+        u2=rng.integers(0, 500, Tp).astype(i32),
+        w2=rng.integers(0, 500, Tp).astype(i32),
+        lvl_f=rng.integers(0, 500, Tp).astype(i32),
+        floor_f=rng.integers(0, 500, Mp).astype(i32), s_n=s_n.astype(i32),
+        u=rng.integers(0, 500, Tp).astype(i32),
+        w=rng.integers(0, 500, Tp).astype(i32),
+        s=rng.integers(0, 4, Mp).astype(i32), valid=rng.random(Tp) < 0.8,
+        asg=rng.integers(-1, Mp + 1, Tp).astype(i32),
+        lvl=rng.integers(0, 500, Tp).astype(i32),
+        floor=rng.integers(0, 500, Mp).astype(i32),
+    ), add_row, c_old, c_new
+
+
+@pytest.mark.parametrize("n_rep", [0, 8, 9], ids=["none", "at-cap",
+                                                  "over-cap"])
+@pytest.mark.parametrize("window", [
+    dict(live=True, conv=True, domain_ok=True),
+    dict(live=True, conv=False, domain_ok=True),
+    dict(live=True, conv=True, domain_ok=False),
+    dict(live=False, conv=True, domain_ok=True),
+], ids=["live", "dead-conv", "dead-domain", "already-dead"])
+@pytest.mark.parametrize("commit", [True, False], ids=["stream", "synced"])
+def test_window_tail_twin_equals_reference(n_rep, window, commit):
+    """K7's twin (the whole tail) against ``_reference_tail`` and, in the
+    stream lane, ``_reference_commit`` chained after it: the report, the
+    log row (rows, assignments, n_changes, the verdict, conv, domain_ok,
+    the objective, n_active), and with the commit the carry, the table
+    (a dead window's rows put back) and the latch. Without the commit
+    the verdict is the window's certificate and nothing is masked."""
+    from poseidon_tpu_torch.kernels.stream_commit import (
+        Commit,
+        stream_commit,
+    )
+
+    cap = 8
+    x, add_row, c_old, c_new = _tail_case(n_rep, n_rep)
+    Tp, Mp = c_new.shape
+    with enable_x64(True):
+        j = {k: jnp.asarray(v) for k, v in x.items()}
+        tail = _reference_tail(j["valid2"], j["asg0"], j["asg_f"], j["u2"],
+                               jnp.asarray(c_new), cap)
+        report_r, nchg_r, rows_r, asgo_r, primal_r, nact_r = tail
+        win_ok = window["conv"] and window["domain_ok"] and int(nchg_r) <= cap
+        if commit:
+            carry2, ys = _reference_commit(
+                jnp.asarray(window["live"]), jnp.asarray(window["conv"]),
+                jnp.asarray(window["domain_ok"]), nchg_r, cap, rows_r,
+                asgo_r, primal_r, report_r, j["asg_f"], j["lvl_f"],
+                j["floor_f"], j["u2"], j["w2"], j["valid2"], j["s_n"],
+                jnp.asarray(c_new), j["u"], j["w"], j["s"], j["valid"],
+                j["asg"], j["lvl"], j["floor"], jnp.asarray(c_old))
+            carry2 = [np.asarray(v) for v in carry2]
+            want_log = [np.asarray(v) for v in ys]
+        else:
+            want_log = [np.asarray(rows_r), np.asarray(asgo_r),
+                        np.asarray(nchg_r), np.asarray(win_ok),
+                        np.asarray(window["conv"]),
+                        np.asarray(window["domain_ok"]),
+                        np.asarray(primal_r)]
+        report_r, nact_r = np.asarray(report_r), int(nact_r)
+    assert int(nchg_r) == n_rep
+    t = {k: torch.from_numpy(np.array(v)) for k, v in x.items()}
+    c = torch.from_numpy(c_new.copy())       # K4 already wrote its rows
+    log = torch.full((log_width(cap),), -9, dtype=torch.int64)
+    report = torch.zeros(Tp, dtype=torch.bool)
+    live = torch.tensor([int(window["live"])], dtype=torch.int32)
+    com = None
+    if commit:
+        com = Commit(
+            live, t["lvl_f"], t["floor_f"], t["w2"], t["s_n"],
+            torch.from_numpy(add_row),
+            torch.from_numpy(c_old[np.clip(add_row, 0, Tp - 1)]), c,
+            t["u"], t["w"], t["valid"], t["asg"], t["lvl"], t["s"],
+            t["floor"])
+    stream_commit(log, report, t["valid2"], t["asg0"], t["asg_f"], t["u2"],
+                  c, Mp, torch.tensor(window["conv"]),
+                  torch.tensor(window["domain_ok"]), cap, com)
+    assert np.array_equal(report.numpy(), report_r)
+    h = log.numpy()
+    assert np.array_equal(h[:cap], want_log[0])
+    assert np.array_equal(h[cap: 2 * cap], want_log[1])
+    assert list(h[2 * cap:]) == [int(v) for v in want_log[2:]] + [nact_r]
+    if not commit:
+        assert np.array_equal(c.numpy(), c_new)
+        return
+    c_r, u_r, w_r, s_r, valid_r, asg_r, lvl_r, floor_r, live_r = carry2
+    for got, want in ((c, c_r), (t["u"], u_r), (t["w"], w_r),
+                      (t["s"], s_r), (t["valid"], valid_r),
+                      (t["asg"], asg_r), (t["lvl"], lvl_r),
+                      (t["floor"], floor_r)):
+        assert np.array_equal(got.numpy(), want)
+    assert int(live[0]) == int(live_r)
