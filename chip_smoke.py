@@ -38,16 +38,20 @@ Phases (each prints its own lines):
    costs and prices that wrap int32. The express lane's K4
    (``express_rows``, the window's head: kmax 16 arrival rows, pk 3, the
    [Tp] vectors and the saved rows) and K5 (``express_patch``: one full
-   1024-entry chunk) are held and timed the same way at the flagship,
+   1024-entry chunk, out of place, as a stream window calls it) are
+   held and timed the same way at the flagship,
    with their own battery: for K4 kmax 1, 16 and 64, pk 0, 1, 3 and 5,
    every lane -1, lanes of -1 and rows past Tp, rows 0 and Tp-1,
    preferences on padded columns and racks of -1, columns without seats,
    sums that wrap int32, Mp 16 and 1028, each with and without the
    saved rows, and a two-shard table whose second shard owns every
-   arrival (equal to the whole table's); for K5 an empty chunk, rows and
-   columns of -1 and past the axis, 1024 entries on one column,
-   duplicate columns driven below 0, two chunks whose order matters, Mp
-   16, 1028 and 65536. K7 (``stream_commit``, the window's tail: a live
+   arrival (equal to the whole table's); for K5, each out of place
+   (the sources checked unchanged), in place and in the synced lane's
+   mixed form, an empty chunk, rows and columns of -1 and past the axis,
+   1024 entries on one column, duplicate columns driven below 0, 1 to 11
+   chunks in one call, two chunks whose order matters, a chunk of 2,500
+   entries, Tp 16 to 10240, Mp 16, 1028, 12288 (the staged seats' limit),
+   12292 and 65536. K7 (``stream_commit``, the window's tail: a live
    stream window at the flagship, Tp 10240, Mp 1024, kmax 16, cap 256,
    16 reported rows; the synced lane's call without the commit printed
    beside it)
@@ -72,10 +76,13 @@ Phases (each prints its own lines):
    and 1028, magnitude 0 and 50 % and one whose span passes 2^16, where
    the residues' products pass 32 bits, an all-INF table). The scale lane's K8
    (``gap_rows``, the sharded certificate's table pass) is held and
-   timed the same way at config 8's aggregated table [524288, 256] and
-   at the flagship's [10240, 1024], its bound the table's bytes over
-   3.35 TB/s, with its battery: Mp 16, 128, 1024 and 1040, 1, 31 and
-   32,769 rows, every asg class, task_valid all false, every price INF;
+   timed the same way at config 8's aggregated table [524288, 256], at
+   the flagship's [10240, 1024] and at its width-2 and width-4 shards
+   [5120, 1024] and [2560, 1024], its bound the table's bytes over 3.35
+   TB/s and ``c.amin()`` over the same table as a read yardstick, with
+   its battery at its plan's edges: Mp 16, 128, 256, 1024, 1040, 8192
+   (the staged prices' limit) and 8196, 1, 7, 31, 10,241 and 32,769
+   rows, every asg class, task_valid all false, every price INF;
    beside it K3 over a shard's rows at a task offset and K7 over a
    two-shard table (the per-row cost, the commit into the first shard,
    the restore of the second), live and dead, with and without the
@@ -222,9 +229,11 @@ Phases (each prints its own lines):
    mesh widths 1, 2 and 4 (every shard on this card) bit-identical and
    equal to the oracle; the flagship plain and at widths 1, 2 and 4
    over a cold and a warm round, every integer output bit-identical
-   (with each width's wall time); the aggregated flagship's cost equal
-   to the plain one's; ``sharded_certificate_gap`` at width 4 equal to
-   the solve's own gap;
+   (with each width's wall time); K8 as those rounds call it at widths
+   1, 2 and 4 (a cold and a warm round each under ``torch.profiler``:
+   its device time a launch, one launch a shard); the aggregated
+   flagship's cost equal to the plain one's; ``sharded_certificate_gap``
+   at width 4 equal to the solve's own gap;
 13. general: the general-graph lane on the card. Cost-scaling over
    ``make_synthetic_cluster(200, 2000, seed=0)`` under quincy equal bit
    for bit to the CPU twins (flows, sweeps, phases, routed, converged)
@@ -840,54 +849,69 @@ def flatten(x) -> list:
     return [x]
 
 
-def express_patch_inputs(torch, rng, Tp, Mp, n, kind):
-    """K5's state u/w/valid/asg/lvl[Tp], s[Mp] and one chunk of n
-    entries on the card, of one edge kind."""
+def express_patch_inputs(torch, rng, Tp, Mp, n, kind, chunks: int = 1):
+    """K5's state u/w/valid/s/asg/lvl ([Tp], s [Mp]) and a backlog
+    int32[chunks, 3, n] on the card, of one edge kind."""
     import numpy as np
 
     state = (
         rng.integers(0, 5000, Tp), rng.integers(0, 5000, Tp),
-        rng.random(Tp) < 0.8, rng.integers(0, 4, Mp),
+        rng.random(Tp) < 0.8, rng.integers(-1, 4, Mp),
         rng.integers(-1, Mp + 1, Tp), rng.integers(0, 3000, Tp),
     )
-    rows = rng.choice(Tp, size=n, replace=n > Tp)
-    cols = rng.integers(0, Mp, n)
-    deltas = rng.integers(-1, 2, n)
+    shape = (chunks, n)
+    rows = np.stack([rng.choice(Tp, size=n, replace=n > Tp)
+                     for _ in range(chunks)])
+    cols = rng.integers(0, Mp, shape)
+    deltas = rng.integers(-1, 2, shape)
     if kind == "empty":          # an all-unused chunk
         rows[:], cols[:], deltas[:] = -1, -1, 0
     elif kind == "neg":          # rows and columns of -1 and past the axis
-        rows[rng.random(n) < 0.5] = -1
-        rows[rng.random(n) < 0.1] = Tp
-        cols[rng.random(n) < 0.3] = -1
-        cols[rng.random(n) < 0.1] = Mp
+        rows[rng.random(shape) < 0.5] = -1
+        rows[rng.random(shape) < 0.1] = Tp
+        cols[rng.random(shape) < 0.3] = -1
+        cols[rng.random(shape) < 0.1] = Mp
     elif kind == "onecol":       # every entry on one column
         cols[:] = Mp // 2
         deltas[:] = 1
     elif kind == "dupneg":       # duplicate columns driven below zero
-        cols = rng.integers(0, min(Mp, 8), n)
+        cols = rng.integers(0, min(Mp, 8), shape)
         deltas[:] = -1
     elif kind != "rand":
         raise ValueError(kind)
     to = lambda a, dt: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a).astype(dt)).to("cuda")
     u, w, valid, s, asg, lvl = state
+    backlog = np.stack([rows, cols, deltas], axis=1)
     return ((to(u, np.int32), to(w, np.int32), to(valid, bool),
              to(s, np.int32), to(asg, np.int32), to(lvl, np.int32)),
-            [(to(rows, np.int32), to(cols, np.int32),
-              to(deltas, np.int32))])
+            to(backlog, np.int32))
 
 
-def express_patch_check(torch, state, chunks) -> int:
-    """K5 over the chunks in order on one copy of the state, the twin on
-    another: max |diff| over u, w, valid, s, asg, lvl."""
+PATCH_MODES = ("out", "in", "mixed")
+
+
+def patch_destinations(state, mode: str):
+    """K5's destinations in one of its three forms: ``out`` six new
+    tensors (the stream window's), ``in`` each its own source,
+    ``mixed`` the synced lane's (u/w/valid/s in place, asg/lvl new)."""
+    return {"out": None, "in": state,
+            "mixed": (*state[:4], None, None)}[mode]
+
+
+def express_patch_check(torch, state, backlog, mode: str = "out") -> int:
+    """K5 over the backlog in one call from one copy of the state, the
+    twin from another, in one form: max |diff| over the six outputs and
+    over the sources patched out of place (which must stay as they
+    were)."""
     from poseidon_tpu_torch.kernels import express_patch as k5
 
     a = [t.clone() for t in state]
     b = [t.clone() for t in state]
-    for rows, cols, deltas in chunks:
-        k5.express_patch(*a, rows, cols, deltas)
-        k5.express_patch_plain(*b, rows, cols, deltas)
-    return max_abs_err(a, b)
+    got = k5.express_patch(a, patch_destinations(a, mode), backlog)
+    want = k5.express_patch_plain(b, patch_destinations(b, mode), backlog)
+    kept = {"out": 0, "in": 6, "mixed": 4}[mode]
+    return max(max_abs_err(got, want), max_abs_err(a[kept:], state[kept:]))
 
 
 def express_edges(torch, rng):
@@ -932,45 +956,51 @@ def express_edges(torch, rng):
         f"two shards), {len(bad)} differ")
     if bad:
         raise AssertionError(f"[edges] express_rows != twin: {bad[:4]}")
-    cases5 = [  # (Tp, Mp, n, kind)
-        (64, 16, 1024, "empty"), (64, 16, 1024, "neg"),
-        (300, 1028, 1024, "onecol"), (300, 1028, 1024, "dupneg"),
-        (2000, 65536, 1024, "rand"), (10240, 1024, 1024, "neg"),
-        (50, 16, 7, "dupneg"),
+    cases5 = [  # (Tp, Mp, n, chunks, kind)
+        (16, 16, 1024, 1, "empty"), (64, 16, 1024, 1, "neg"),
+        (300, 1028, 1024, 1, "onecol"), (300, 1028, 1024, 3, "dupneg"),
+        (2000, 65536, 1024, 2, "rand"), (10240, 1024, 1024, 1, "neg"),
+        (50, 16, 7, 1, "dupneg"), (10240, 1024, 2500, 1, "rand"),
+        (16, 1028, 1024, 4, "rand"), (10240, 1024, 1024, 11, "rand"),
+        (4097, 16, 64, 2, "neg"), (100, 12288, 512, 2, "dupneg"),
+        (100, 12292, 512, 2, "dupneg"), (10240, 16, 16, 1, "onecol"),
     ]
-    for Tp, Mp, n, kind in cases5:
-        state, chunks = express_patch_inputs(torch, rng, Tp, Mp, n, kind)
-        err = express_patch_check(torch, state, chunks)
-        log(f"[edges] express_patch Tp={Tp} Mp={Mp} n={n} {kind}: "
-            f"max_abs_err={err}")
-        if err != 0:
-            raise AssertionError(f"express_patch edge Tp={Tp} Mp={Mp} n={n} "
-                                 f"{kind}: kernel != twin (max_abs_err {err})")
-    # two chunks where the order matters: -2 then +1 on one column
-    # leaves 1 (the clamp sits between them); +1 then -2 leaves 0
-    i32 = torch.int32
-    state, _ = express_patch_inputs(torch, rng, 64, 16, 1024, "empty")
-    state[3].fill_(1)
-    none = torch.full((1024,), -1, dtype=i32, device="cuda")
-    col = torch.full((1024,), -1, dtype=i32, device="cuda")
-    col[0] = 3
-    for first, second, want in ((-3, 1, 1), (1, -3, 0)):
-        d1 = torch.zeros(1024, dtype=i32, device="cuda")
-        d2 = torch.zeros(1024, dtype=i32, device="cuda")
-        d1[0], d2[0] = first, second
-        chunks = [(none, col, d1), (none, col, d2)]
-        err = express_patch_check(torch, state, chunks)
-        from poseidon_tpu_torch.kernels import express_patch as k5
+    n5 = 0
+    for Tp, Mp, n, chunks, kind in cases5:
+        state, backlog = express_patch_inputs(torch, rng, Tp, Mp, n, kind,
+                                              chunks)
+        for mode in PATCH_MODES:
+            err = express_patch_check(torch, state, backlog, mode)
+            n5 += 1
+            if err != 0:
+                raise AssertionError(
+                    f"express_patch edge Tp={Tp} Mp={Mp} n={n} "
+                    f"chunks={chunks} {kind} {mode}: kernel != twin "
+                    f"(max_abs_err {err})")
+    log(f"[edges] express_patch: {n5} cases ({len(cases5)} shapes x "
+        f"{'/'.join(PATCH_MODES)}; Tp 16-10240, Mp 16-65536, 1-11 chunks, "
+        f"chunks of 7-2500 entries), all equal to the twin")
+    # two chunks in one call where the order matters: -3 then +1 on one
+    # column leaves 1 (the clamp sits between them); +1 then -3 leaves 0
+    from poseidon_tpu_torch.kernels import express_patch as k5
 
-        a = [t.clone() for t in state]
-        for rows, cols, deltas in chunks:
-            k5.express_patch(*a, rows, cols, deltas)
-        got = int(a[3][3])
-        log(f"[edges] express_patch two chunks {first:+d} then {second:+d}: "
-            f"max_abs_err={err} s={got} (want {want})")
-        if err != 0 or got != want:
-            raise AssertionError("express_patch chunk order: kernel != twin "
-                                 f"or s={got} != {want}")
+    state, backlog = express_patch_inputs(torch, rng, 64, 16, 1024, "empty",
+                                          2)
+    state[3].fill_(1)
+    backlog[:, 1, 0] = 3
+    for first, second, want in ((-3, 1, 1), (1, -3, 0)):
+        backlog[0, 2, 0], backlog[1, 2, 0] = first, second
+        for mode in PATCH_MODES:
+            err = express_patch_check(torch, state, backlog, mode)
+            a = [t.clone() for t in state]
+            got = int(k5.express_patch(a, patch_destinations(a, mode),
+                                       backlog)[3][3])
+            log(f"[edges] express_patch two chunks {first:+d} then "
+                f"{second:+d} ({mode}): max_abs_err={err} s={got} "
+                f"(want {want})")
+            if err != 0 or got != want:
+                raise AssertionError("express_patch chunk order: kernel != "
+                                     f"twin or s={got} != {want}")
 
 
 def express_kernel_records(torch, timer, inst, dt, ra_s):
@@ -1023,25 +1053,29 @@ def express_kernel_records(torch, timer, inst, dt, ra_s):
           + 3 * kmax * Mp * 4 + 2 * Tp * 4 + kmax * 9)
     ops4 = kmax * Mp * (3 + 6 * pk) + 2 * Tp
 
+    # the stream window's call at its widest: one full 1024-entry chunk,
+    # out of place from the carry into the window's six vectors
     n = 1024
-    rows = to(rng.choice(T, size=n, replace=False))
-    cols = to(rng.integers(0, real, n))
-    deltas = to(np.full(n, -1))
+    backlog = to(np.stack([rng.choice(T, size=n, replace=False),
+                           rng.integers(0, real, n), np.full(n, -1)])[None])
     state = (inst.u.clone(), inst.w.clone(), inst.task_valid.clone(),
              inst.s.clone(), to(rng.integers(0, Mp + 1, Tp)),
              to(np.zeros(Tp)))
-    err5 = express_patch_check(torch, state, [(rows, cols, deltas)])
-    scratch = [t.clone() for t in state]
-    ms5 = timer(lambda: k5.express_patch(*scratch, rows, cols, deltas))
-    plain5 = timer(lambda: k5.express_patch_plain(*scratch, rows, cols, deltas))
+    err5 = express_patch_check(torch, state, backlog, "out")
+    dst = tuple(torch.empty_like(x) for x in state)
+    ms5 = timer(lambda: k5.express_patch(state, dst, backlog))
+    plain5 = timer(lambda: k5.express_patch_plain(state, dst, backlog))
     # yardstick, not a call the port makes: index_add_ of the chunk's
-    # seat deltas alone (one part of K5's function)
+    # seat deltas alone (one part of K5's function); no single PyTorch
+    # call computes K5's
     s_copy = inst.s.clone()
-    cols64 = cols.long()
-    add_ms = timer(lambda: s_copy.index_add_(0, cols64, deltas))
+    cols64 = backlog[0, 1].long()
+    add_ms = timer(lambda: s_copy.index_add_(0, cols64, backlog[0, 2]))
     log(f"[kernels] express_patch yardstick: index_add_ of the chunk's "
         f"{n} seat deltas alone ms={add_ms:.6f} (L2 flushed)")
-    b5 = n * 4 * 3 + 2 * Mp * 4 + n * (4 * 4 + 1)
+    # read: the chunk, the five [Tp] vectors and s; written: the same
+    # six out of place
+    b5 = n * 4 * 3 + 2 * (Tp * 17 + Mp * 4)
     ops5 = n * 8 + Mp * 2
     express_edges(torch, rng)
     return [
@@ -3116,29 +3150,17 @@ CONFIG8_TABLE = (524288, 256)
 
 
 def gap_rows_inputs(torch, seed: int, rows: int, Mp: int, kind: str = "rand"):
-    """One row block's K8 inputs, made on the device from a seed: a
-    table with ~5 % INF entries, holders' prices ``lam`` and seats, and
-    an ``asg`` that reaches every class (a machine, the unscheduled
-    route Mp, -1 and out of range). ``kind`` "invalid" clears
-    task_valid, "lam_inf" sets every price to INF, "full_inf" the whole
-    table and every price."""
+    """One row block's K8 inputs, made on the device from a seed
+    (``kernel_ab.gap_args``: a table with ~5 % INF entries, holders'
+    prices ``lam`` and seats, and an ``asg`` that reaches every class:
+    a machine, the unscheduled route Mp, -1 and out of range). ``kind``
+    "invalid" clears task_valid, "lam_inf" sets every price to INF,
+    "full_inf" the whole table and every price."""
+    from kernel_ab import gap_args
+
     inf = 2**29
-    g = torch.Generator(device=DEVICE)
-    g.manual_seed(seed)
-
-    def ints(lo, hi, shape):
-        return torch.randint(lo, hi, shape, dtype=torch.int32,
-                             device=DEVICE, generator=g)
-
-    c = ints(0, 2**24, (rows, Mp))
-    c.masked_fill_(ints(0, 20, (rows, Mp)) == 0, inf)
-    u = ints(0, 2**25, (rows,))
-    valid = ints(0, 20, (rows,)) != 0
-    s = ints(0, 12, (Mp,))
-    lam = ints(0, 2**22, (Mp,))
-    asg = ints(-1, Mp + 1, (rows,))
-    wild = ints(0, 8, (rows,)) == 0
-    asg = torch.where(wild, ints(-5, 2 * Mp + 5, (rows,)), asg)
+    c, u, valid, s, lam, asg = gap_args(torch, torch.device(DEVICE), rows,
+                                        Mp, seed)
     if kind == "invalid":
         valid.zero_()
     if kind in ("lam_inf", "full_inf"):
@@ -3158,20 +3180,31 @@ def gap_rows_bytes_ops(rows: int, Mp: int) -> tuple[int, int]:
 
 def gap_rows_record(torch, timer):
     """K8 at config 8's aggregated table [524288, 256] (the scale lane's
-    shape) and at the flagship's [10240, 1024], held against its twin
-    (tolerance 0) and timed; the record is config 8's."""
+    shape), at the flagship's [10240, 1024] and at its width-2 and
+    width-4 shards [5120, 1024] and [2560, 1024], held against its twin
+    (tolerance 0) and timed cold, each with its plan and the yardstick
+    ``c.amin()`` (one PyTorch read of the same table; no single PyTorch
+    call computes K8's function); the record is config 8's."""
     from poseidon_tpu_torch.kernels import gap_rows as k8
 
     out = None
-    for rows, Mp in ((10240, 1024), CONFIG8_TABLE):
+    for rows, Mp in ((10240, 1024), (5120, 1024), (2560, 1024),
+                     CONFIG8_TABLE):
         args = gap_rows_inputs(torch, rows + Mp, rows, Mp)
         err = max_abs_err([k8.gap_rows(*args)], [k8.gap_rows_plain(*args)])
         ms = timer(lambda: k8.gap_rows(*args))
         plain = timer(lambda: k8.gap_rows_plain(*args))
+        floor = timer(lambda: args[0].amin())
         bms, by = bound_ms(*gap_rows_bytes_ops(rows, Mp))
+        plan = k8.PLANS[(args[0].device, rows, Mp)]
         log(f"[kernels] gap_rows shape=({rows}, {Mp}) max_abs_err={err} "
-            f"ms={ms:.6f} plain_ms={plain:.6f} bound_ms={bms:.6f} ({by})")
-        out = (k8.KERNEL, err, ms, plain, bms, by, (rows, Mp))
+            f"ms={ms:.6f} plain_ms={plain:.6f} bound_ms={bms:.6f} ({by}) "
+            f"share={bms / ms:.3f} read_floor_ms={floor:.6f} (c.amin(), a "
+            f"yardstick) plan={plan}")
+        if err:
+            raise AssertionError(f"[kernels] gap_rows ({rows}, {Mp}) != twin")
+        if (rows, Mp) == CONFIG8_TABLE:
+            out = (k8.KERNEL, err, ms, plain, bms, by, (rows, Mp))
         del args
     return out
 
@@ -3190,10 +3223,16 @@ def shard_edges(torch) -> None:
 
     bad = []
     n = 0
-    for Mp in (16, 128, 1024, 1040):
-        for rows in (1, 31, 32769):
+    # the plan's edges: 1 row; rows not a multiple of the warps a block
+    # (7, 31, 32,769), of a wave's warps (10,241) or of the rows a lane
+    # loads at once (4 at Mp 16 and 128, 2 at 256); Mp above the staged
+    # prices (8,196) and at their limit (8,192)
+    for Mp in (16, 128, 256, 1024, 1040, 8192, 8196):
+        for rows in (1, 7, 31, 10241, 32769):
             for kind in ("rand", "invalid", "lam_inf", "full_inf"):
                 if kind != "rand" and rows != 31:
+                    continue
+                if Mp > 1040 and rows > 31:
                     continue
                 args = gap_rows_inputs(torch, rows * 7 + Mp, rows, Mp, kind)
                 err = max_abs_err([k8.gap_rows(*args)],
@@ -3433,7 +3472,8 @@ def scale_widths(torch) -> None:
     1, 2 and 4 (every shard on the card) equal to each other and to the
     C++ oracle; the flagship plain vs widths 1, 2 and 4 over a cold and
     a warm round, every integer output equal, with each width's wall
-    time; the aggregated flagship's cost equal to the plain one's; and
+    time; K8 as those rounds call it at each width; the aggregated
+    flagship's cost equal to the plain one's; and
     ``sharded_certificate_gap`` at width 4 equal to the solve's gap."""
     from poseidon_tpu_torch.ops import resident
 
@@ -3518,6 +3558,8 @@ def _scale_widths(torch, fetched: list) -> None:
             f"cost={base[0][1]}/{base[1][1]} "
             f"rounds={base[0][2]}/{base[1][2]} gap={base[0][-1]}/"
             f"{base[1][-1]} (every integer output equal to plain)")
+    if DEVICE == "cuda":
+        scale_gap_as_called(torch, clusters, built)
     agg = ResidentSolver(device=DEVICE, small_to_oracle=False,
                          aggregate_classes=True)
     out = agg.run_round(*built[0], cost_model="quincy",
@@ -3540,6 +3582,40 @@ def _scale_widths(torch, fetched: list) -> None:
         f"{int(state.gap)}, converged={bool(state.converged)})")
     if gap != int(state.gap) or not bool(state.converged):
         raise AssertionError("[scale] sharded certificate != solve's gap")
+
+
+def scale_gap_as_called(torch, clusters, built) -> None:
+    """K8 as the flagship's rounds call it at mesh widths 1, 2 and 4 (one
+    launch a shard at each certificate): a cold round, then a warm one
+    under torch.profiler, its K8 device time a launch. The table was
+    just read by the round's K2/K3 and may sit in the 50 MB L2, so the
+    time is an as-called one, not a cold one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from poseidon_tpu_torch.ops.resident import ResidentSolver
+
+    for w in SCALE_WIDTHS:
+        solver = ResidentSolver(
+            device=DEVICE, small_to_oracle=False, mesh_width=w,
+            mesh_devices=mesh_devices(torch, w))
+        for k, (cluster, (arrays, meta)) in enumerate(zip(clusters, built)):
+            sync(torch)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                solver.run_round(arrays, meta, cost_model="quincy",
+                                 cost_input_kwargs=cost_kwargs(cluster))
+                sync(torch)
+            hits = [(t, n) for key, t, n in device_rows(prof)
+                    if "gap_rows_kernel" in key]
+            total = sum(t for t, _ in hits)
+            count = sum(n for _, n in hits)
+            Tp = solver.pad_floors["t"]
+            log(f"[scale] flagship width {w} {('cold', 'warm')[k]} round: "
+                f"gap_rows as called: launches={count} "
+                f"us_per_launch={total / max(count, 1):.3f} "
+                f"shard=({Tp // w}, {solver.pad_floors['m']})")
+            if not count:
+                raise AssertionError(f"[scale] width {w}: no gap_rows launch")
 
 
 def scale_phase(torch, card: str) -> dict:

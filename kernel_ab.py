@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the hand kernels (K1 ``densify``, K2 ``row_options``, K3
-``bid_pass``, K9 ``cs_sweep``, K10 ``bf_relax`` ``out`` and ``in``, K11
-``ssp_augment``, K6 ``perturb``), and the express and stream lanes' windows
+``bid_pass``, K8 ``gap_rows``, K9 ``cs_sweep``, K10 ``bf_relax`` ``out``
+and ``in``, K11 ``ssp_augment``, K6 ``perturb``), and the express and stream lanes' windows
 (K4 ``express_rows``, K5 ``express_patch``, K7 ``stream_commit`` and
 what surrounds them), of one or more checkouts on one GPU, in turns, in
 one run.
@@ -75,6 +75,14 @@ costs' sums), which must agree across checkouts. Beside it the launch
 floor: ``torch.cuda._sleep(0)`` (an empty kernel), ``cold_ms``,
 ``warm_ms`` and ``host_us``.
 
+K8 ``gap_rows`` (``gap_rows_10240x1024``, ``gap_rows_524288x256``)
+runs at the flagship's table and config 8's aggregated one, made on the
+card from a seed, checked against its twin (tolerance 0), with
+``cold_ms``, ``cold_dirty_ms``, ``warm_ms``, ``host_us``, ``wall_us``
+and ``read_floor_ms``: one ``c.amin()`` over the same table, timed as
+``cold_ms`` (a yardstick: no single PyTorch call computes K8's
+function).
+
 K6 ``perturb`` runs at BASELINE config 5 with 64 variants (Tp 4096, Mp
 1024, seed 7, 10 %), each checkout's own instance build, checked against
 its twin (tolerance 0); ``write_floor_ms`` is one ``fill_`` of an int32
@@ -97,6 +105,9 @@ import sys
 import time
 
 PARTS = ("window", "kernels")
+# K8's shapes: the flagship's table (a width-1 mesh's one shard) and
+# config 8's aggregated table
+GAP_SHAPES = ((10240, 1024), (524288, 256))
 REPEATS = 30
 WARM_CALLS = 20
 HOST_CALLS = 100
@@ -115,6 +126,7 @@ def worker(root: str, parts: tuple[str, ...] = PARTS) -> dict:
     import poseidon_tpu_torch
     from poseidon_tpu_torch.kernels import bid_pass as k3
     from poseidon_tpu_torch.kernels import densify as k1
+    from poseidon_tpu_torch.kernels import gap_rows as k8
     from poseidon_tpu_torch.kernels import loader
     from poseidon_tpu_torch.kernels import row_options as k2
     from poseidon_tpu_torch.ops import ssp
@@ -169,6 +181,12 @@ def worker(root: str, parts: tuple[str, ...] = PARTS) -> dict:
                      (c, p, u, btask, bvalid, 1),
                      "read_floor_ms", lambda: c[:B].max()),
     }
+    for rows, Mp8 in GAP_SHAPES:
+        ga = gap_args(torch, dev, rows, Mp8, seed=rows + Mp8)
+        calls[f"gap_rows_{rows}x{Mp8}"] = (
+            lambda *a: (k8.gap_rows(*a),),
+            lambda *a: (k8.gap_rows_plain(*a),), ga,
+            "read_floor_ms", lambda c8=ga[0]: c8.amin())
     flush = torch.zeros(128 << 20, dtype=torch.uint8, device=dev)
 
     def cold_time(flush_l2, call) -> float:
@@ -248,6 +266,29 @@ def worker(root: str, parts: tuple[str, ...] = PARTS) -> dict:
                                     lambda: big.fill_(0)),
     }
     return out
+
+
+def gap_args(torch, dev, rows: int, Mp: int, seed: int) -> tuple:
+    """K8's inputs (c, u, task_valid, s, lam, asg) for one row block,
+    made on ``dev`` from a seed: a table with ~5 % INF entries, seats,
+    prices, and an ``asg`` that reaches every class (a machine, the
+    unscheduled route Mp, -1 and out of range). ``chip_smoke.py``'s K8
+    cases start from these too."""
+    inf = 2**29
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, dtype=torch.int32, device=dev,
+                             generator=g)
+
+    c = ints(0, 2**24, (rows, Mp))
+    c.masked_fill_(ints(0, 20, (rows, Mp)) == 0, inf)
+    asg = ints(-1, Mp + 1, (rows,))
+    asg = torch.where(ints(0, 8, (rows,)) == 0,
+                      ints(-5, 2 * Mp + 5, (rows,)), asg)
+    return (c, ints(0, 2**25, (rows,)), ints(0, 20, (rows,)) != 0,
+            ints(0, 12, (Mp,)), ints(0, 2**22, (Mp,)), asg)
 
 
 def flagship_net(dev):

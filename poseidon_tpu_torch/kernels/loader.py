@@ -161,7 +161,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "express_rows_launch": [P, P],
         },
         "express_patch": {
-            "express_patch_launch": [P] * 9 + [I] * 3 + [P],
+            "express_patch_launch": [P] * 13 + [I] * 5 + [P],
         },
         "stream_commit": {
             "stream_commit_launch": [P, P],
@@ -171,7 +171,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "perturb_launch": [P] * 11 + [I] * 12 + [P],
         },
         "gap_rows": {
-            "gap_rows_launch": [P] * 6 + [I] * 3 + [P, P],
+            "gap_rows_launch": [P] * 6 + [I] * 6 + [P, P],
+            "gap_rows_occupancy": [I] + occupancy,
         },
         "cs_sweep": {
             "cs_sweep_launch": [P] * 11 + [L] + [I] * 4 + [P],

@@ -352,42 +352,41 @@ EXPRESS_FUSE = 5_000
 
 # chunk width of the retire/slot patch: backlogs larger than one chunk
 # (a big round's bindings, a rebalancing-mode freeze of every running
-# row) apply as several K5 launches, in order
+# row) apply as several chunks of one K5 launch, in order
 _EXPRESS_PATCH_CHUNK = 1024
 
 
-def _express_patch(u, w, task_valid, s, asg, lvl, rows, slot_col,
-                   slot_delta):
-    """Deactivate table rows + apply slot-capacity deltas for one chunk
-    (K5; ``rows``/``slot_col`` use -1 for unused entries).
+def _express_patch(state, backlog, out=None):
+    """Deactivate table rows + apply slot-capacity deltas, chunk after
+    chunk (K5, one launch; ``backlog`` int32[n_chunks, 3, W] of rows,
+    slot columns and deltas, -1 for unused entries).
 
     The retire half of the express patch vocabulary: a pod whose
     binding POST landed leaves the pending set, so its (seated) row
     deactivates and its machine's capacity drops by one — net zero on
     the auction's feasible set, so warm prices stay eps-CS and no repair
     is needed. Also carries bare slot deltas (completions of running
-    pods free a seat, +1). Every tensor is patched IN PLACE: u, w,
-    task_valid and s belong to the express context, and the caller
-    passes clones of the warm state's asg and lvl (a degraded batch
-    keeps the warm state the next full round starts from)."""
-    express_patch(u, w, task_valid, s, asg, lvl, rows, slot_col, slot_delta)
-    return u, w, task_valid, s, asg, lvl
+    pods free a seat, +1). Reads ``state`` = (u, w, task_valid, s, asg,
+    lvl) and returns the patched six: into ``out`` when given, whose
+    entries may be the state's own tensors (patched in place) or None
+    (new tensors); else all six are new, as the reference's are. A
+    degraded batch keeps the warm state's asg and lvl, so callers never
+    patch those in place."""
+    return express_patch(state, out, backlog)
 
 
 def _express_patch_chunks(rows, cols, deltas):
-    """Pad retire/slot patches into fixed-width chunks (one K5 launch
-    each)."""
-    out = []
+    """Pad retire/slot patches into fixed-width chunks: int32[n_chunks,
+    3, W] (rows, cols, deltas), the backlog one K5 launch applies."""
     n = len(rows)
     W = _EXPRESS_PATCH_CHUNK
-    for i in range(0, n, W):
-        r = np.full(W, -1, np.int32)
-        c = np.full(W, -1, np.int32)
-        d = np.zeros(W, np.int32)
-        r[: min(W, n - i)] = rows[i: i + W]
-        c[: min(W, n - i)] = cols[i: i + W]
-        d[: min(W, n - i)] = deltas[i: i + W]
-        out.append((r, c, d))
+    out = np.full((-(-n // W), 3, W), -1, np.int32)
+    out[:, 2] = 0
+    for k, i in enumerate(range(0, n, W)):
+        m = min(W, n - i)
+        out[k, 0, :m] = rows[i: i + W]
+        out[k, 1, :m] = cols[i: i + W]
+        out[k, 2, :m] = deltas[i: i + W]
     return out
 
 
@@ -601,7 +600,7 @@ def _stream_chain(
     dev: DenseInstance,
     dt: DenseTopology,
     cost_dev,
-    windows,       # K tuples (mini, add_row, add_pm, add_pr, prow, pcol, pdelta)
+    windows,       # K tuples (mini, add_row, add_pm, add_pr, patch[1, 3, pw])
     asg, lvl, floor,
     *,
     model_fn,
@@ -618,7 +617,8 @@ def _stream_chain(
     one ``lax.scan``; here a host loop over the windows).
 
     Each window replays what the synced lane does per window: the
-    window's retire/removal/slot patch (K5, on copies of the carry),
+    window's retire/removal/slot patch (K5, out of place: the carry into
+    the flush's window buffers),
     then ``_express_step`` with the carry: pricing, the head (K4: the
     arrival rows, their old contents saved), the eps=1 repair, and the
     tail (K7 ``stream_commit``; under a mesh, then K7's restore in every
@@ -651,12 +651,14 @@ def _stream_chain(
     log = torch.empty((len(windows), log_width(cap)), dtype=I64,
                       device=device)
     rounds_all = []
-    for k, (mini, add_row, add_pm, add_pr, prow, pcol, pdelta) in enumerate(
-            windows):
-        u1, w1 = carry.u.clone(), carry.w.clone()
-        valid1, s1 = carry.valid.clone(), carry.s.clone()
-        asg1, lvl1 = carry.asg.clone(), carry.lvl.clone()
-        _express_patch(u1, w1, valid1, s1, asg1, lvl1, prow, pcol, pdelta)
+    # the window's patched vectors, one set a flush: window k + 1's K5
+    # writes them only after window k's K7 (the last reader of w/s/valid/u
+    # here) on the same stream, and reads nothing but the carry
+    state = (carry.u, carry.w, carry.valid, carry.s, carry.asg, carry.lvl)
+    buffers = tuple(torch.empty_like(x) for x in state)
+    for k, (mini, add_row, add_pm, add_pr, patch) in enumerate(windows):
+        u1, w1, valid1, s1, asg1, lvl1 = _express_patch(state, patch,
+                                                        buffers)
         dev_w = DenseInstance(
             c=c, u=u1, w=w1, dgen=dev.dgen, s=s1, task_valid=valid1,
             scale=dev.scale, cmax=dev.cmax, smax=smax,
@@ -2049,22 +2051,18 @@ class ResidentSolver:
                 [add_row[:, None], add_pm, add_pr], axis=1
             )).to(device)
             chunks = _express_patch_chunks(rows, cols, deltas)
-            patch_dev = (
-                torch.from_numpy(np.stack([np.stack(ch) for ch in chunks]))
-                .to(device) if chunks else None
-            )
+            patch_dev = (torch.from_numpy(chunks).to(device)
+                         if len(chunks) else None)
             timings["upload_ms"] = (time.perf_counter() - t0u) * 1000
             t_dispatch = time.perf_counter()
             dev = ctx.dev
             asg, lvl, floor = warm.asg, warm.lvl, warm.floor
             if patch_dev is not None:
-                # out of place: a degraded batch keeps the warm state
-                asg, lvl = asg.clone(), lvl.clone()
-                for i in range(patch_dev.shape[0]):
-                    _express_patch(
-                        dev.u, dev.w, dev.task_valid, dev.s, asg, lvl,
-                        patch_dev[i, 0], patch_dev[i, 1], patch_dev[i, 2],
-                    )
+                # asg/lvl out of place: a degraded batch keeps the warm
+                # state; the context's u/w/valid/s in place
+                vec = (dev.u, dev.w, dev.task_valid, dev.s)
+                *_, asg, lvl = _express_patch((*vec, asg, lvl), patch_dev,
+                                              (*vec, None, None))
             (dev2, asg_f, lvl_f, floor_f, gap, conv, rounds, phases,
              *_, report, log_row) = _express_step(
                 dev, ctx.dt, ctx.cost_dev, mini_dev, asg, lvl, floor,
@@ -2153,33 +2151,32 @@ class ResidentSolver:
 
     def _stream_put(self, host: tuple) -> tuple:
         """Upload one window's host encoding (mini CostInputs, then six
-        int32 arrays) to the solver's device."""
-        mini, *arrays = host
+        int32 arrays) to the solver's device: the arrival arrays as they
+        are, the patch triple as one K5 backlog int32[1, 3, pw]."""
+        mini, *arrays, prow, pcol, pdelta = host
+        patch = np.stack([prow, pcol, pdelta])[None]
         return (mini.to_device(self.device),
                 *(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                  for a in arrays))
+                  for a in (*arrays, patch)))
 
     def _stream_apply_freeze(self, ctx: _ExpressContext, warm) -> None:
         """Rebalancing mode's first stream window: the running block's
         freeze is cluster-sized, so it applies at once as the synced
-        lane's chunked K5 patches (no fetch) instead of widening every
-        window's patch slice. The order matches the synced lane: the
-        freeze lands before window 0's own patch and repair. The warm
-        asg/lvl are patched out of place, as the express lane does."""
+        lane's chunked K5 patch (one upload, one launch, no fetch)
+        instead of widening every window's patch slice. The order
+        matches the synced lane: the freeze lands before window 0's own
+        patch and repair. The warm asg/lvl are patched out of place, as
+        the express lane does."""
         fr, fc = ctx.pending_freeze
         ctx.pending_freeze = None
         if not len(fr):
             return
-        chunks = _express_patch_chunks(fr.tolist(), fc.tolist(),
-                                       [-1] * len(fr))
-        asg, lvl = warm.asg.clone(), warm.lvl.clone()
+        backlog = torch.from_numpy(_express_patch_chunks(
+            fr.tolist(), fc.tolist(), [-1] * len(fr))).to(self.device)
         dev = ctx.dev
-        for ch in chunks:
-            rows_d, cols_d, deltas_d = (
-                torch.from_numpy(x).to(self.device) for x in ch
-            )
-            _express_patch(dev.u, dev.w, dev.task_valid, dev.s, asg, lvl,
-                           rows_d, cols_d, deltas_d)
+        vec = (dev.u, dev.w, dev.task_valid, dev.s)
+        *_, asg, lvl = _express_patch((*vec, warm.asg, warm.lvl), backlog,
+                                      (*vec, None, None))
         self._warm = dataclasses.replace(warm, asg=asg, lvl=lvl)
         self._warm_mutated = True
 

@@ -9,8 +9,10 @@ repair rounds and the bridges' decision logs and round stats must be
 equal (tolerance 0). Beside them:
 
 - the plain twins of the two express kernels against the reference's
-  device programs: K5 against ``_express_patch`` on random chunks
-  (duplicate columns, sums driven below zero, -1 lanes, chunk order),
+  device programs: K5 against ``_express_patch`` chunk after chunk,
+  the whole backlog in one call (duplicate columns, sums driven below
+  zero, -1 lanes, chunk order), in place, out of place with its sources
+  left untouched, and in the synced lane's mixed form,
   and K4 inside the whole express step against ``_express_chain`` on a
   hand-made instance (arrival rows 0 and Tp-1, -1 lanes, preferences
   on padded columns, racks of -1, columns without seats, int32 sums
@@ -578,64 +580,133 @@ def _patch_case(rng, Tp, Mp, n):
     return rows, cols, deltas
 
 
+def _patch_state(rng, Tp, Mp):
+    return (rng.integers(0, 1000, Tp).astype(np.int32),
+            rng.integers(0, 1000, Tp).astype(np.int32),
+            rng.random(Tp) < 0.8,
+            rng.integers(0, 4, Mp).astype(np.int32),
+            rng.integers(-1, Mp + 1, Tp).astype(np.int32),
+            rng.integers(0, 500, Tp).astype(np.int32))
+
+
+def _patch_reference(state, backlog):
+    """The reference's ``_express_patch``, one dispatch a chunk."""
+    ref = tuple(jnp.asarray(x) for x in state)
+    for rr, rc, rd in backlog:
+        ref = ref_res._express_patch(*ref, jnp.asarray(rr), jnp.asarray(rc),
+                                     jnp.asarray(rd))
+    return [np.asarray(x) for x in ref]
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_patch_twin_equals_reference(seed):
-    """K5's twin against ``_express_patch``, chunk after chunk (the
-    clamp sits between chunks), with duplicate columns, rows and
-    columns of -1 or past the axis, and sums driven below zero."""
+    """K5's twin, the whole backlog in one call, against
+    ``_express_patch`` chunk after chunk (the clamp sits between
+    chunks), with duplicate columns, rows and columns of -1 or past the
+    axis, and sums driven below zero; in place, as the context's
+    vectors are patched."""
     rng = np.random.default_rng(seed)
     Tp, Mp = 96, 20
-    u = rng.integers(0, 1000, Tp).astype(np.int32)
-    w = rng.integers(0, 1000, Tp).astype(np.int32)
-    valid = rng.random(Tp) < 0.8
-    s = rng.integers(0, 4, Mp).astype(np.int32)
-    asg = rng.integers(-1, Mp + 1, Tp).astype(np.int32)
-    lvl = rng.integers(0, 500, Tp).astype(np.int32)
+    state = _patch_state(rng, Tp, Mp)
     backlog = [_patch_case(rng, Tp, Mp, int(rng.integers(1, 2600)))]
     if seed == 0:
         # order matters: -2 then +1 on one column across a boundary
         r = np.full(1025, -1, np.int32)
         c = np.full(1025, 3, np.int32)
         d = np.zeros(1025, np.int32)
-        d[0], d[1024] = -2 - int(s[3]), 1
+        d[0], d[1024] = -2 - int(state[3][3]), 1
         backlog = [(r, c, d)]
     chunks_ref = ref_res._express_patch_chunks(*backlog[0])
     chunks_port = port_res._express_patch_chunks(*backlog[0])
-    assert len(chunks_ref) == len(chunks_port)
-    ref_state = tuple(jnp.asarray(x) for x in (u, w, valid, s, asg, lvl))
-    port_state = tuple(torch.from_numpy(x.copy())
-                       for x in (u, w, valid, s, asg, lvl))
+    assert chunks_port.shape == (len(chunks_ref), 3, 1024)
+    assert chunks_port.dtype == np.int32
     for (rr, rc, rd), (pr, pc, pd) in zip(chunks_ref, chunks_port):
         assert np.array_equal(rr, pr) and np.array_equal(rc, pc)
         assert np.array_equal(rd, pd)
-        ref_state = ref_res._express_patch(
-            *ref_state, jnp.asarray(rr), jnp.asarray(rc), jnp.asarray(rd)
-        )
-        port_res._express_patch(
-            *port_state, torch.from_numpy(pr), torch.from_numpy(pc),
-            torch.from_numpy(pd),
-        )
-    for a, b in zip(ref_state, port_state):
-        assert np.array_equal(np.asarray(a), b.numpy())
+    want = _patch_reference(state, chunks_ref)
+    port_state = tuple(torch.from_numpy(x.copy()) for x in state)
+    out = port_res._express_patch(port_state, torch.from_numpy(chunks_port),
+                                  port_state)
+    for a, b, c in zip(want, port_state, out):
+        assert b is c
+        assert np.array_equal(a, b.numpy())
     if seed == 0:
         assert int(port_state[3][3]) == 1
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_patch_out_of_place_twin_equals_reference(seed):
+    """Out of place (the reference's own form: new tensors), the result
+    equals ``_express_patch`` chunk after chunk and every source is left
+    as it was; the synced lane's mixed form (u/w/valid/s in place,
+    asg/lvl new) equals it too."""
+    rng = np.random.default_rng(100 + seed)
+    Tp, Mp = 77, 24
+    state = _patch_state(rng, Tp, Mp)
+    chunks = port_res._express_patch_chunks(
+        *_patch_case(rng, Tp, Mp, int(rng.integers(1, 3100))))
+    want = _patch_reference(state, chunks)
+    src = tuple(torch.from_numpy(x.copy()) for x in state)
+    out = port_res._express_patch(src, torch.from_numpy(chunks))
+    for a, b, s, x in zip(want, out, src, state):
+        assert np.array_equal(a, b.numpy())
+        assert np.array_equal(s.numpy(), x)
+        assert b.data_ptr() != s.data_ptr()
+    vec = src[:4]
+    *_, asg, lvl = port_res._express_patch(src, torch.from_numpy(chunks),
+                                           (*vec, None, None))
+    for a, b in zip(want, (*vec, asg, lvl)):
+        assert np.array_equal(a, b.numpy())
+    assert np.array_equal(src[4].numpy(), state[4])
+    assert np.array_equal(src[5].numpy(), state[5])
+
+
+def test_patch_rejects_a_destination_that_is_another_source():
+    Tp, Mp = 16, 16
+    src = (torch.zeros(Tp, dtype=torch.int32),
+           torch.zeros(Tp, dtype=torch.int32),
+           torch.ones(Tp, dtype=torch.bool), torch.ones(Mp, dtype=torch.int32),
+           torch.zeros(Tp, dtype=torch.int32),
+           torch.zeros(Tp, dtype=torch.int32))
+    backlog = torch.full((1, 3, 8), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="another source"):
+        express_patch(src, (src[1], None, None, None, None, None), backlog)
 
 
 def test_patch_twin_empty_and_one_column():
     Tp, Mp = 16, 16
     u = torch.arange(Tp, dtype=torch.int32)
     s = torch.full((Mp,), 2, dtype=torch.int32)
-    state = [u.clone(), u.clone(), torch.ones(Tp, dtype=torch.bool),
-             s.clone(), u.clone(), u.clone()]
+    state = (u.clone(), u.clone(), torch.ones(Tp, dtype=torch.bool),
+             s.clone(), u.clone(), u.clone())
     none = torch.full((1024,), -1, dtype=torch.int32)
-    express_patch(*state, none, none, torch.zeros(1024, dtype=torch.int32))
+
+    def chunk(cols, deltas):
+        return torch.stack([none, cols, deltas])[None]
+
+    express_patch(state, state, chunk(none, torch.zeros(1024,
+                                                        dtype=torch.int32)))
     assert torch.equal(state[0], u) and torch.equal(state[3], s)
     cols = torch.full((1024,), 5, dtype=torch.int32)
     ones = torch.ones(1024, dtype=torch.int32)
-    express_patch(*state, none, cols, ones)
+    express_patch(state, state, chunk(cols, ones))
     assert int(state[3][5]) == 1026
-    express_patch(*state, none, cols, -2 * ones)
+    express_patch(state, state, chunk(cols, -2 * ones))
     assert int(state[3][5]) == 0 and int(state[3].sum()) == 2 * (Mp - 1)
+    # two chunks in one call: +1 then -3 leaves 0, -3 then +1 leaves 1
+    for first, second, want in ((1, -3, 0), (-3, 1, 1)):
+        st = tuple(x.clone() for x in state)
+        st[3][5] = 1
+        both = torch.cat([chunk(cols, first * (cols == cols).int()),
+                          chunk(cols, second * (cols == cols).int())])
+        both[:, 1, 1:] = -1
+        express_patch(st, st, both)
+        assert int(st[3][5]) == want
+    # no chunk: the sources are copied and nothing is clamped
+    neg = tuple(x.clone() for x in state)
+    neg[3][0] = -4
+    out = express_patch(neg, None, torch.empty((0, 3, 8), dtype=torch.int32))
+    assert int(out[3][0]) == -4 and torch.equal(out[0], neg[0])
 
 
 def _weight_model_ref(inputs):

@@ -12,7 +12,8 @@ priced instances (``tests/helpers``):
 - ``sharded_certificate_gap`` (per-shard holder partials, K8's twin per
   shard) equals the reference's ``shard_map`` gap on solved states and
   on hand-made states that reach every ``asg`` class;
-- K8's twin on its edge shapes, K3's twin at a shard offset,
+- K8's twin on its edge shapes, its launch plan (every row dealt to
+  exactly one warp of one wave), K3's twin at a shard offset,
   ``collective_account`` (non-empty, nothing of [T, M] size) and
   ``make_mesh``'s refusals.
 """
@@ -35,6 +36,7 @@ from poseidon_tpu.graph.builder import FlowGraphBuilder
 from poseidon_tpu.ops.transport import extract_instance
 from poseidon_tpu.synth import make_synthetic_cluster
 from poseidon_tpu_torch.kernels.bid_pass import bid_pass_plain
+from poseidon_tpu_torch.kernels import gap_rows as k8
 from poseidon_tpu_torch.kernels.gap_rows import gap_rows, gap_rows_plain
 from poseidon_tpu_torch.ops.transport import TransportInstance
 from tests.helpers import price, random_cluster
@@ -253,6 +255,52 @@ def test_gap_rows_twin_edges(rows, Mp, case):
     assert tuple(got.tolist()) == _gap_numpy(c, u, valid, s, lam, asg)
     assert torch.equal(got, gap_rows_plain(
         *(torch.from_numpy(x) for x in (c, u, valid, s, lam, asg))))
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("blocks", [1, 8])
+@pytest.mark.parametrize("Mp", [16, 128, 256, 1024, 1040, 8196])
+@pytest.mark.parametrize("rows", [1, 31, 10240, 32769, 524288])
+def test_gap_rows_plan_covers_every_row_once(rows, Mp, blocks):
+    """K8's plan deals every row to exactly one warp, all warps in one
+    wave (at most SMs x blocks an SM), every warp but the last holding
+    ``rows_per_warp`` rows; prices staged up to ``STAGE_MAX`` columns."""
+    seen = []
+    p = k8.plan(rows, Mp, H100_SMS, lambda R, smem: blocks)
+    assert p.smem == (Mp * 4 if Mp <= k8.STAGE_MAX else 0)
+    # a lane keeps 4 vectors in flight, of up to 4 rows at once
+    assert p.rows_at_once == (4 if Mp <= 128 else 2 if Mp <= 256 else 1)
+    assert p.rows_per_warp % p.rows_at_once == 0
+    assert 1 <= p.grid <= H100_SMS * blocks
+    dealt = [k8.warp_rows(p, rows, w) for w in range(p.grid * k8.WARPS)]
+    for r in dealt:
+        seen.extend(r)
+    assert len(seen) == rows and sorted(seen) == list(range(rows))
+    sizes = [len(r) for r in dealt]
+    busy = [n for n in sizes if n]
+    assert all(n == p.rows_per_warp for n in busy[:-1])
+    assert 0 < busy[-1] <= p.rows_per_warp
+    # the idle warps are the last block's tail: no block is idle
+    assert sizes[len(busy):] == [0] * (len(sizes) - len(busy))
+    assert len(sizes) - len(busy) < k8.WARPS
+
+
+def test_gap_rows_plan_matches_its_source():
+    """The plan's warps a block and staging limit are the kernel's."""
+    import pathlib
+    import re
+
+    cu = (pathlib.Path(k8.__file__).resolve().parent / "csrc"
+          / "gap_rows.cu").read_text()
+    assert int(re.search(r"STAGE_MAX = (\d+);", cu).group(1)) == k8.STAGE_MAX
+    assert "GAP_THREADS = pt::THREADS" in cu and k8.WARPS == 256 // 32
+    assert "UNROLL = 4;" in cu
+    with pytest.raises(ValueError):
+        k8.plan(10, 1022, H100_SMS, lambda R, smem: 8)
+    with pytest.raises(RuntimeError):
+        k8.plan(10, 1024, H100_SMS, lambda R, smem: 0)
 
 
 @pytest.mark.parametrize("r0,r1", [(0, 32), (32, 64), (16, 48)])

@@ -17,7 +17,9 @@ changed rows, for live and dead windows.
 
 The scale-lane composition of the reference's differential class runs
 too: aggregation, mesh width 1 and mesh width 8 (the port's mesh on
-``[cpu] * width``, the reference's on its 8 forced host devices).
+``[cpu] * width``, the reference's on its 8 forced host devices); so do
+an 8-window flush and a rebalancing-mode freeze of more running rows
+than one K5 chunk holds (one multi-chunk backlog a call in both lanes).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import poseidon_tpu.synth as ref_synth
 import poseidon_tpu_torch.bridge as port_bridge
 import poseidon_tpu_torch.cluster as port_cluster
 import poseidon_tpu_torch.ops.dense_auction as port_da
+import poseidon_tpu_torch.ops.resident as port_res
 import poseidon_tpu_torch.synth as port_synth
 from poseidon_tpu.compat import enable_x64
 from poseidon_tpu.trace import TraceGenerator as RefTrace
@@ -288,20 +291,20 @@ class TestStreamDifferential:
     window."""
 
     def _drive_pair(self, pkg, K, cycles, seed, *, preemption=False,
-                    opts=None):
+                    opts=None, n_machines=16, n_tasks=70, running=None):
         kw = dict(opts or {})
         if preemption:
             kw.update(enable_preemption=True, migration_hysteresis=5,
-                      running_fraction=0.25)
+                      running_fraction=running or 0.25)
         else:
-            kw["running_fraction"] = 0.2
+            kw["running_fraction"] = running or 0.2
         sync, cl_a = make_stream_bridge(
-            pkg, n_machines=16, n_tasks=70, seed=seed, stream_windows=0,
-            **dict(kw),
+            pkg, n_machines=n_machines, n_tasks=n_tasks, seed=seed,
+            stream_windows=0, **dict(kw),
         )
         strm, cl_b = make_stream_bridge(
-            pkg, n_machines=16, n_tasks=70, seed=seed, stream_windows=K,
-            **dict(kw),
+            pkg, n_machines=n_machines, n_tasks=n_tasks, seed=seed,
+            stream_windows=K, **dict(kw),
         )
         rng = np.random.default_rng(seed)
         record = []
@@ -379,6 +382,27 @@ class TestStreamDifferential:
 
     def test_preemption_mode_bit_identical(self):
         self._compare(3, 2, 23, preemption=True)
+
+    def test_eight_window_flush_bit_identical(self):
+        out = self._compare(8, 2, 41)
+        assert out[5] == 2
+
+    def test_freeze_past_one_chunk_bit_identical(self, monkeypatch):
+        """Rebalancing mode with more running rows than one K5 chunk
+        holds: the synced lane's first batch patches the freeze and its
+        own retires as a multi-chunk backlog, the stream lane's
+        ``_stream_apply_freeze`` as one; each in one call."""
+        calls = []
+        patch = port_res._express_patch
+
+        def recording(state, backlog, out=None):
+            calls.append(tuple(backlog.shape))
+            return patch(state, backlog, out)
+
+        monkeypatch.setattr(port_res, "_express_patch", recording)
+        self._compare(2, 1, 47, preemption=True, n_machines=240,
+                      n_tasks=1500, running=0.75)
+        assert sum(1 for s in calls if s[0] >= 2) >= 2, calls
 
     @pytest.mark.parametrize("opts", [
         {"aggregate_classes": True}, {"mesh_width": 1}, {"mesh_width": 8},
