@@ -158,10 +158,10 @@ Phases (each prints its own lines):
 
 8. daemon: the port's scheduling daemon (``cli.run_loop``, in
    process, ``--device=cuda``, pipelined rounds, incremental scheduler
-   and build, ``--max_rounds=4``) against the port's fake apiserver
+   and build, ``--max_rounds=3``) against the port's fake apiserver
    filled from ``config2_quincy_flagship(seed=0)``, with a seeded 1 %
-   churn (100 pods deleted, 100 added) after each of the first two
-   rounds; once polling, once watching. Per dense round: every pending
+   churn (100 pods deleted, 100 added) after the first round; once
+   polling, once watching. Per dense round: every pending
    pod placed or left unscheduled by the optimum, every placement's
    POST landed, ``dense_auction``, cost equal to the C++ oracle on the
    bridge's own view of that round, one result fetch per auction solve
@@ -172,7 +172,7 @@ Phases (each prints its own lines):
    end the server's bound pods are exactly the daemon's placements, and
    the watch lane's bindings equal the poll lane's. A third lane runs
    the express lane (``--watch=true --express_lane=true
-   --express_shed_queue=0``, serial correction rounds, 12 s ticks, 3
+   --express_shed_queue=0``, serial correction rounds, 12 s ticks, 2
    rounds: a flagship round's binding POSTs come back as thousands of
    pod events, past the default shed threshold) with 3 bursts of 16 pods
    added after the first round: every express binding's POST landed and
@@ -247,11 +247,52 @@ Phases (each prints its own lines):
    empty-cluster meta (backend ``cost_scaling``, = oracle), and through
    ``solve_scheduling``'s dense path cold and warm (= oracle); wall ms,
    sweeps, phases, paths, loop reads and fetches printed, K9-K11 and
-   K1-K3 each launched.
+   K1-K3 each launched;
+14. ha: crash safety over the flagship daemon, each daemon in a child
+   process against the fake apiserver's process, serial rounds, bursts
+   of 16 pods between rounds. Daemon A checkpoints every round and
+   SIGKILLs itself in round 3's actuation after half its binding POSTs
+   landed (round 2's checkpoint on disk); daemon B (``--restore=true
+   --standby=true``) restores it, replays the journal, runs round 3 and
+   SIGKILLs itself in round 4's actuation; a standby
+   (``--standby_lease_s=2``) follows B's checkpoints, takes over,
+   restores round 3's checkpoint, replays B's journal and runs rounds 4
+   and 5. The apiserver's op log binds every pod at most once, the
+   standby's placements are the server's, each replay settles every
+   intent of the round its leader died in, both first rounds restore
+   warm (RESTORE, ``restored_warm`` on ``/readyz``, the restored seed
+   used), and every dense round is certified, equals the C++ oracle
+   with one fetch a solve and launches K1-K3, but for the standby's
+   round 5, which runs out the auction's fuse in both packages and is
+   held to the oracle's cost (``HA_FUSE_ROUNDS``); checkpoint write
+   ms, restore ms, replay outcomes and the takeover seconds printed;
+15. observe: the flagship daemon for 3 rounds with the flight recorder,
+   the shadow audit every round, ``--slo=regret == 0`` on a metrics
+   port, checkpoints and ``--explain`` of a pod that arrived for round
+   3: round 1's fetches and loop reads equal the [daemon] poll lane's;
+   an on-demand dump replayed on the card bit for bit; the explanation
+   printed; ``validate`` of an unscheduled pod's diagnosis; the
+   audit's regret 0; ``/slo`` served; capture us a round beside the
+   warm rounds' wall, dump, replay and audit ms printed;
+16. chaos: in a child process, the reference's four scenarios at their
+   own sizes and seeds through the port's daemon on the card, then the
+   scaled ``scenario_composite(nodes=80, pods=320)``, whose rounds run
+   K1-K3 through its outage, node storm and post-fault burst: every
+   invariant holds, every dense round equals the oracle with one fetch
+   a solve, a dense round follows every fault, ``rounds_to_recover``
+   printed.
 
 Each phase prints its seconds. ``--phases=a,b`` runs only the named
 phases after the build, prints no record and no contract line (a quick
-bring-up check).
+bring-up check). ``--keep_dir=DIR`` keeps, for a host with jax, the
+flight-recorder dumps of [ha]'s standby in ``DIR/ha-standby`` (``python3
+-m tests.replay_cold ref DUMP`` replays one through the reference) and
+the snapshots [observe]'s shadow audit audited, with the port's
+results, in ``DIR/audits`` (``python3 -m tests.audit_against_reference
+DIR/audits``).
+``--phases=ha_control`` (never in the whole run) drives [ha]'s daemon and
+bursts for 6 rounds with no crash, to show which rounds run out the
+auction's fuse without any crash-safety path.
 
 The kernels' record counts K1-K3's launches in the main path, K4-K5's
 in the express phase, K7's in the stream phase's 8-window flush, K6's
@@ -2600,8 +2641,12 @@ def service_phase(torch, card: str):
     return counts
 
 
-DAEMON_ROUNDS = 4
-EXPRESS_ROUNDS = 3
+# rounds a daemon lane runs (4 and 3 until the [ha], [observe] and
+# [chaos] phases took ~193 s more of the script's time: every check
+# still runs on every round; the express lanes' bursts all land in the
+# window after round 1)
+DAEMON_ROUNDS = 3
+EXPRESS_ROUNDS = 2
 
 
 def fill_apiserver(server, cluster) -> None:
@@ -2707,7 +2752,8 @@ import chip_smoke
 from poseidon_tpu_torch.apiclient import FakeApiServer
 from poseidon_tpu_torch.synth import config2_quincy_flagship
 
-cluster = config2_quincy_flagship(seed=int(sys.argv[1]))
+cluster = (config2_quincy_flagship(seed=int(sys.argv[1]))
+           if len(sys.argv) < 3 else chip_smoke.rehearsal_cluster())
 with FakeApiServer() as server:
     chip_smoke.fill_apiserver(server, cluster)
     print(json.dumps(server.port), flush=True)
@@ -2721,6 +2767,13 @@ with FakeApiServer() as server:
             out = None
         elif cmd == "burst":
             out = chip_smoke.daemon_burst(server, cluster.machines, *arg)
+        elif cmd == "op_log":
+            server.apply_pending()
+            out = [list(op) for op in server.op_log]
+        elif cmd == "bound":
+            server.apply_pending()
+            out = {k: d.get("spec", {}).get("nodeName", "")
+                   for k, d in server.pods.items()}
         else:
             break
         print(json.dumps(out), flush=True)
@@ -2730,7 +2783,7 @@ with FakeApiServer() as server:
 class ApiServerProcess:
     """The fake apiserver in a child process (see APISERVER_CHILD)."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, rehearsal: bool = False):
         import os
         import threading
 
@@ -2738,7 +2791,8 @@ class ApiServerProcess:
         self.lock = threading.Lock()
         root = os.path.dirname(os.path.abspath(__file__))
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", APISERVER_CHILD, str(seed)], cwd=root,
+            [sys.executable, "-c", APISERVER_CHILD, str(seed),
+             *(["rehearsal"] if rehearsal else [])], cwd=root,
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
         )
         line = self.proc.stdout.readline()
@@ -2768,6 +2822,8 @@ class ApiServerProcess:
 
 
 EXPRESS_BURSTS = 3
+# the [daemon] poll lane's first round (loop reads, cost), for [observe]
+DAEMON_ROUND1: dict = {}
 # the daemon's scale lane: poll over the flagship with the scale flags
 SCALE_DAEMON_FLAGS = ("--aggregate_classes=true", "--topk_prefs=2",
                       "--mesh_width=1")
@@ -2865,9 +2921,9 @@ def daemon_lane(torch, cluster, watch: bool, express: bool = False,
 
     post_bindings = cli._post_bindings
 
-    def timed_post(client, bridge, bindings, outbox=None):
+    def timed_post(client, bridge, bindings, **kw):
         t0 = time.perf_counter()
-        out = post_bindings(client, bridge, bindings, outbox=outbox)
+        out = post_bindings(client, bridge, bindings, **kw)
         xp = bool(bindings) and set(bindings) <= getattr(
             bridge, "last_express", set())
         posts.append((len(bindings), (time.perf_counter() - t0) * 1e3,
@@ -3087,6 +3143,11 @@ def daemon_phase(torch, card: str):
             if idle:
                 raise AssertionError(f"[daemon] {lane} round {s.round_num}: "
                                      f"kernels not launched: {idle}")
+        if lane == "poll":
+            # [observe] holds its first round (the same cold flagship
+            # round, with the observability tools on) against this one
+            DAEMON_ROUND1["poll"] = (dense[0]["loop_syncs"],
+                                     dense[0]["stats"].cost)
         log(f"[daemon] {lane}: {len(records)} rounds ({len(dense)} dense) "
             f"in {wall_s:.3f} s, {len(bound)} pods bound, "
             f"launches={launches}")
@@ -4551,6 +4612,1041 @@ def general_phase(torch, card: str) -> dict:
             "ssp_augment": ssp_counts["ssp_augment"]}
 
 
+# ---------------------------------------------------------------------------
+# [ha], [observe], [chaos]: crash safety, the observability tools and chaos
+# ---------------------------------------------------------------------------
+#
+# Each daemon of these phases runs in a child process of its own
+# (``daemon_child``) against the flagship served by ``ApiServerProcess``:
+# a daemon can then be SIGKILLed while it holds a CUDA context, and a
+# restarted one starts in a fresh process as a real restart would. The
+# child speaks one JSON message a line on stdout (prefixed ``@@ ``) and
+# waits after every round for the parent's reply on stdin, so bursts of
+# pods land between rounds deterministically.
+
+HA_PREFIX = "@@ "
+HA_LEASE_S = 2.0
+# the standby's rounds after its takeover: round 4 (its first, after
+# replaying the journal of the leader it replaced) and round 5
+HA_STANDBY_ROUNDS = 2
+# the auction's round fuse (``ops.dense_auction.default_fuse``)
+FUSE_ROUNDS = 20_000
+# Rounds of these phases whose warm and cold solves both run out the
+# fuse, in both packages: the flagship daemon's fifth round (about 930
+# pending pods, the backlog quincy left unscheduled) runs it out with
+# or without a crash before it, and the reference's replay of the
+# standby's round-5 flight-recorder dump (cold) runs it out too
+# (PERF.md section 5; ROADMAP Queue 3, "Fuse exhaustion"). Only these
+# rounds may degrade to the oracle.
+HA_FUSE_ROUNDS = {("[ha] S", 5)}
+HA_BURST = 16
+# the flagship in these phases, or a small cluster when the phases are
+# rehearsed on a host without a card (``DEVICE = "cpu"``)
+REHEARSAL_SHAPE = (100, 1000)
+
+
+def rehearsal_cluster():
+    from poseidon_tpu_torch.synth import make_synthetic_cluster
+
+    return make_synthetic_cluster(*REHEARSAL_SHAPE, seed=0)
+
+
+def oracle_round_cost(device, view, know, model: str = "quincy") -> int:
+    """The C++ oracle's optimum of the round the daemon solved: the
+    bridge's view at the round's begin priced as the round priced it."""
+    import numpy as np
+
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.models import get_cost_model
+    from poseidon_tpu_torch.models.costs import build_cost_inputs
+    from poseidon_tpu_torch.oracle import solve_oracle
+
+    usage, load, mem_free = know
+    pending = view.pending()
+    net, meta = FlowGraphBuilder().build(view)
+    inputs = build_cost_inputs(
+        net, meta, device=device,
+        task_cpu_milli=np.array([int(t.cpu_request * 1000) for t in pending]),
+        task_mem_kb=np.array([t.memory_request_kb for t in pending]),
+        task_usage=usage, machine_load=load, machine_mem_free=mem_free,
+    )
+    cost = get_cost_model(model)(inputs)
+    return solve_oracle(net.with_costs(cost), algorithm="cost_scaling").cost
+
+
+def oracle_bridge(base, st: dict):
+    """``base`` (the CLI's bridge class) keeping, in ``st``, each dense
+    round's input view (``snaps``) for the oracle check, whether the
+    round started from the warm state (``warm``) and the live bridge
+    (``bridge``)."""
+
+    class OracleBridge(base):
+        def cluster_state(self):
+            # the view the round builds from: begin_round takes it
+            # after admitting the round's staged-requeue wave
+            view = super().cluster_state()
+            st["view"] = view
+            return view
+
+        def begin_round(self):
+            st["bridge"] = self
+            st["view"] = None
+            ir = super().begin_round()
+            view = st["view"]
+            if ir.result is None:
+                uids = [t.uid for t in view.pending()]
+                names = [m.name for m in view.machines]
+                know = (self.knowledge.task_cpu_usage(uids),
+                        self.knowledge.machine_load(names),
+                        self.knowledge.machine_mem_free(names))
+                st["snaps"][ir.stats.round_num] = (view, know)
+                st["warm"][ir.stats.round_num] = bool(
+                    getattr(ir.solve, "warm_used", False))
+            return ir
+
+    return OracleBridge
+
+
+def _http_get(port: int, route: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(
+        f"http://127.0.0.1:{port}{route}", timeout=10
+    ) as resp:
+        return resp.read().decode()
+
+
+def daemon_child() -> int:
+    """One daemon of the [ha] and [observe] phases (``sys.argv[1]`` is
+    its JSON spec): ``cli.main`` with the spec's flags, every dense
+    round held against the C++ oracle and its kernel launches counted,
+    the crash-safety and observability tools timed where they run.
+    Spec keys: ``argv``; ``kill_round`` (SIGKILL itself in that round's
+    actuation, after half its binding POSTs landed); ``sync_ckpt``
+    (rounds whose checkpoint write it waits for); ``pause_round`` (after
+    that round's checkpoint is on disk, keep the lease and wait for the
+    parent's next line); ``dump_round`` (an on-demand flight dump after that
+    round's hook); ``audit_dir`` (pickle each audited snapshot
+    there)."""
+    import inspect
+    import logging
+    import os
+    import pickle
+    import signal
+    import threading
+
+    import torch
+
+    from poseidon_tpu_torch import cli, kernels
+    from poseidon_tpu_torch import ha as ha_pkg
+    from poseidon_tpu_torch.ha import checkpoint as ckpt_mod
+    from poseidon_tpu_torch.ha import standby as standby_mod
+    from poseidon_tpu_torch.obs import audit as audit_mod
+    from poseidon_tpu_torch.obs import flightrec as fr_mod
+
+    spec = json.loads(sys.argv[1])
+    args = cli.parse_args(spec["argv"])
+    device = torch.device(args.device)
+    lock = threading.Lock()
+    st = {"snaps": {}, "warm": {}, "capture_us": {}, "ckpt_write_ms": [],
+          "audits": [], "captures": 0, "lease": None, "bridge": None}
+
+    def emit(**kw):
+        print(HA_PREFIX + json.dumps(kw, default=str), flush=True)
+
+    def wrap(owner, name, around):
+        """Replace ``owner.name`` by a wrapper that takes any arguments
+        and calls ``around(call, bound)``: ``call()`` runs the original,
+        ``bound`` maps its parameter names to this call's arguments (a
+        parameter the port renames fails here, at the wrapper, by
+        name)."""
+        orig = getattr(owner, name)
+        sig = inspect.signature(orig)
+
+        def wrapper(*a, **kw):
+            bound = sig.bind(*a, **kw)
+            bound.apply_defaults()
+            return around(lambda: orig(*a, **kw), bound.arguments)
+
+        setattr(owner, name, wrapper)
+        return orig
+
+    def timed(owner, name, sink):
+        """``owner.name`` timed: ``sink(ms, result, arguments)``."""
+
+        def around(call, bound):
+            t0 = time.perf_counter()
+            out = call()
+            sink((time.perf_counter() - t0) * 1e3, out, bound)
+            return out
+
+        wrap(owner, name, around)
+
+    # what the port does not publish: the background checkpoint
+    # writer's, the restore's, the journal replay's and the flight
+    # recorder's capture times, the standby's first followed checkpoint
+    # and the shadow audit's results as they complete (the restored
+    # checkpoint and the replay outcomes come from the trace: RESTORE
+    # and JOURNAL_REPLAY)
+    def write_ms(ms, _out, _a):
+        with lock:
+            st["ckpt_write_ms"].append(ms)
+
+    timed(ckpt_mod.CheckpointManager, "write_sync", write_ms)
+    timed(ha_pkg, "restore_bridge",
+          lambda ms, _out, _a: st.update(restore_ms=ms))
+    timed(ha_pkg, "replay_journal",
+          lambda ms, _out, _a: st.update(replay_ms=ms))
+
+    def capture_us(ms, _out, _a):
+        rn = st["bridge"].round_num if st["bridge"] is not None else 0
+        st["capture_us"][rn] = st["capture_us"].get(rn, 0.0) + ms * 1e3
+
+    timed(fr_mod.FlightRecorder, "capture_begin", capture_us)
+    timed(fr_mod.FlightRecorder, "capture_finish", capture_us)
+
+    def captured(_ms, out, _a):
+        if out:
+            with lock:
+                st["captures"] += 1
+
+    timed(audit_mod.ShadowAuditor, "capture", captured)
+
+    def following(_ms, out, _a):
+        if out[0] is not None and not st.get("following"):
+            st["following"] = True
+            emit(following=out[0].round_num)
+
+    timed(standby_mod, "follow_checkpoints", following)
+
+    def audited(_ms, out, bound):
+        if spec.get("audit_dir"):
+            # the captured snapshot, for a comparison with the
+            # reference's audit of the same snapshot off the card
+            with open(f"{spec['audit_dir']}/audit-{out.round_num}.pkl",
+                      "wb") as fh:
+                pickle.dump(bound["snap"], fh)
+        st["audits"].append(out)
+
+    timed(audit_mod.ShadowAuditor, "_process", audited)
+
+    cli.SchedulerBridge = oracle_bridge(cli.SchedulerBridge, st)
+
+    def post(call, bound):
+        bridge, bindings = bound["bridge"], bound["bindings"]
+        if spec.get("kill_round") == bridge.round_num and bindings:
+            items = list(bindings.items())
+            half = dict(items[: len(items) // 2])
+            out = orig_post(**{**bound, "bindings": half})
+            with lock:
+                writes = list(st["ckpt_write_ms"])
+            emit(killed=bridge.round_num, posted=len(half),
+                 of=len(items), ok=sum(o == "ok" for _, _, o in out),
+                 ckpt_write_ms=writes)
+            os.kill(os.getpid(), signal.SIGKILL)
+        return call()
+
+    orig_post = wrap(cli, "_post_bindings", post)
+
+    def take(call, bound):
+        ckpt_mgr, bridge = bound["ckpt_mgr"], bound["bridge"]
+        n0 = ckpt_mgr.writes_total
+        call()
+        rn = bridge.round_num
+        if bound["final"] or rn not in spec.get("sync_ckpt", ()):
+            return
+        deadline = time.monotonic() + 120
+        while ckpt_mgr.writes_total <= n0:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"checkpoint of round {rn} not written")
+            time.sleep(0.01)
+        with lock:
+            writes = list(st["ckpt_write_ms"])
+        emit(checkpointed=rn, path=ckpt_mgr.last_path, ckpt_write_ms=writes)
+        if spec.get("pause_round") == rn:
+            # alive and leading until the parent's next line: the lease
+            # is renewed as the loop's ticks would renew it
+            resumed = threading.Event()
+
+            def renew():
+                while not resumed.wait(HA_LEASE_S / 4):
+                    if st["lease"] is not None:
+                        st["lease"].renew()
+
+            threading.Thread(target=renew, daemon=True).start()
+            line = sys.stdin.readline()
+            resumed.set()
+            if not line:
+                raise SystemExit(3)
+
+    wrap(cli, "_take_checkpoint", take)
+    t_begin = {}
+
+    def hook(rounds, result):
+        s = result.stats
+        bridge = st["bridge"]
+        solver = bridge.solver
+        launched = {k.name: k.launches - t_begin.get(k.name, 0)
+                    for k in kernels.KERNELS}
+        t_begin.update({k.name: k.launches for k in kernels.KERNELS})
+        rec = dict(
+            round=s.round_num, pending=s.pods_pending, placed=s.pods_placed,
+            unsched=s.pods_unscheduled, backend=s.backend, cost=s.cost,
+            wall_ms=s.wall_ms, solve_ms=s.solve_ms, build=s.build_mode,
+            fetches=solver.last_round_fetches,
+            solves=solver.last_round_solves,
+            loop_syncs=solver.last_round_loop_syncs, launched=launched,
+            warm=st["warm"].get(s.round_num), n_bindings=len(result.bindings),
+            capture_us=st["capture_us"].get(s.round_num),
+        )
+        snap = st["snaps"].get(s.round_num)
+        if snap is not None and s.backend in ("dense_auction",
+                                              "oracle:uncertified"):
+            t0 = time.perf_counter()
+            rec["oracle"] = oracle_round_cost(
+                device, *snap, model=args.flow_scheduling_cost_model)
+            rec["oracle_ms"] = (time.perf_counter() - t0) * 1e3
+        if bridge.auditor is not None:
+            deadline = time.monotonic() + 300
+            while len(st["audits"]) < st["captures"]:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the shadow audit never finished")
+                time.sleep(0.02)
+            rec["audits"] = [dict(round=a.round_num, regret=a.regret,
+                                  sq=a.status_quo_cost, opt=a.optimal_cost,
+                                  drift=a.drift_pods, ms=a.audit_ms,
+                                  error=a.error) for a in st["audits"]]
+        if args.metrics_port:
+            rec["readyz"] = _http_get(args.metrics_port, "/readyz")
+            if args.slo:
+                rec["slo"] = json.loads(_http_get(args.metrics_port, "/slo"))
+        if rounds == 1 and "restore_ms" in st:
+            rec["restore"] = dict(restore_ms=st["restore_ms"],
+                                  replay_ms=st.get("replay_ms"))
+        with lock:
+            rec["ckpt_write_ms"] = list(st["ckpt_write_ms"])
+        if spec.get("dump_round") == s.round_num:
+            t0 = time.perf_counter()
+            rec["dump"] = bridge.flight_dump("manual", label="chip_smoke")
+            rec["dump_ms"] = (time.perf_counter() - t0) * 1e3
+        emit(round=rec)
+        if not sys.stdin.readline():
+            raise SystemExit(3)
+
+    def run(call, bound):
+        st["lease"] = bound["lease"]
+        emit(started=time.time(), lease=bound["lease"] is not None,
+             preloaded=None if bound["preloaded"] is None
+             else bound["preloaded"].round_num)
+        return orig_run(**{**bound, "round_hook": hook})
+
+    orig_run = wrap(cli, "run_loop", run)
+    # one INFO line per placement would flood the log
+    logging.getLogger("poseidon_tpu_torch.bridge.bridge").setLevel(
+        logging.WARNING)
+    kernels.reset_launch_counts()
+    rc = cli.main(spec["argv"])
+    bridge = st["bridge"]
+    placed = ({u: t.machine for u, t in bridge.tasks.items() if t.machine}
+              if bridge is not None else {})
+    sys.stdout.flush()
+    with lock:
+        writes = list(st["ckpt_write_ms"])
+    emit(exit=rc, placed=placed, ckpt_write_ms=writes)
+    return 0
+
+
+class DaemonChild:
+    """A ``daemon_child`` process: its protocol messages, the other
+    lines it printed, and a watchdog that kills it at ``timeout_s``."""
+
+    def __init__(self, spec: dict, name: str, timeout_s: float = 600.0):
+        import os
+        import tempfile
+        import threading
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.name = name
+        self.err = tempfile.NamedTemporaryFile(
+            "w+", prefix=f"chip-smoke-{name}-", suffix=".log", delete=False)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.daemon_child())",
+             json.dumps(spec)],
+            cwd=root, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self.err, text=True,
+        )
+        self.lines: list[str] = []
+        self.watchdog = threading.Timer(timeout_s, self.kill)
+        self.watchdog.daemon = True
+        self.watchdog.start()
+
+    def next(self) -> dict | None:
+        """The next protocol message, or None once the child exited."""
+        while True:
+            line = self.proc.stdout.readline()
+            if not line:
+                return None
+            if line.startswith(HA_PREFIX):
+                return json.loads(line[len(HA_PREFIX):])
+            self.lines.append(line.rstrip("\n"))
+
+    def expect(self, key: str) -> dict:
+        msg = self.next()
+        while msg is not None and "checkpointed" in msg and \
+                key != "checkpointed":
+            msg = self.next()  # a synced checkpoint it was not asked for
+        if msg is None or key not in msg:
+            raise AssertionError(
+                f"{self.name}: expected {key!r}, got {msg!r}; stderr "
+                f"tail:\n{self.tail()}")
+        return msg
+
+    def go(self) -> None:
+        self.proc.stdin.write("go\n")
+        self.proc.stdin.flush()
+
+    def kill(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGKILL)
+
+    def wait(self) -> int:
+        rc = self.proc.wait(timeout=120)
+        self.watchdog.cancel()
+        return rc
+
+    def tail(self, n: int = 4000) -> str:
+        self.err.flush()
+        with open(self.err.name) as fh:
+            return fh.read()[-n:]
+
+    def close(self) -> None:
+        import os
+
+        self.kill()
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            pass
+        self.watchdog.cancel()
+        self.err.close()
+        os.unlink(self.err.name)
+
+
+def check_dense_round(tag: str, rec: dict, known_fuse: bool = False) -> None:
+    """A dense round of a child daemon: certified on the dense path, its
+    cost equal to the C++ oracle's, one result fetch per auction solve,
+    K1-K3 launched. ``known_fuse`` names a round whose warm and cold
+    solves both run out the 20,000-round fuse in both packages (the
+    reference's replay of the round's flight-recorder dump runs it out
+    too; ROADMAP Queue 3, "Fuse exhaustion"): only such a round may
+    degrade to the oracle, and then it is held to the independent
+    oracle's cost, to a fuse's worth of loop reads a solve, and to one
+    fetch a solve plus the fallback's read of the priced arcs."""
+    if rec["backend"] == "oracle:uncertified" and known_fuse:
+        if (rec.get("oracle") != rec["cost"]
+                or rec["fetches"] != rec["solves"] + 1
+                or rec["loop_syncs"] < rec["solves"] * FUSE_ROUNDS):
+            raise AssertionError(f"{tag} round {rec['round']}: degraded "
+                                 f"round {rec}")
+        log(f"{tag} round {rec['round']}: DEGRADED to the oracle after "
+            f"{rec['solves']} solves ran out the fuse ({rec['loop_syncs']} "
+            f"loop reads, solve_ms={rec['solve_ms']:.3f}); cost == the "
+            f"independent oracle's (ROADMAP Queue 3, fuse exhaustion)")
+        return
+    if rec["backend"] != "dense_auction":
+        raise AssertionError(f"{tag} round {rec['round']}: backend "
+                             f"{rec['backend']}")
+    if rec.get("oracle") != rec["cost"]:
+        raise AssertionError(f"{tag} round {rec['round']}: cost "
+                             f"{rec['cost']} != oracle {rec.get('oracle')}")
+    if rec["fetches"] != rec["solves"]:
+        raise AssertionError(f"{tag} round {rec['round']}: "
+                             f"{rec['fetches']} fetches for "
+                             f"{rec['solves']} solves")
+    idle = [n for n in ROUND_KERNELS if rec["launched"][n] == 0]
+    if idle and DEVICE == "cuda":  # a CPU rehearsal runs the twins
+        raise AssertionError(f"{tag} round {rec['round']}: kernels not "
+                             f"launched: {idle}")
+
+
+def round_line(tag: str, rec: dict) -> str:
+    return (f"{tag} round {rec['round']}: pending={rec['pending']} "
+            f"placed={rec['placed']} unsched={rec['unsched']} "
+            f"build={rec['build']} warm_start={rec['warm']} "
+            f"wall_ms={rec['wall_ms']:.3f} solve_ms={rec['solve_ms']:.3f} "
+            f"backend={rec['backend']} cost={rec['cost']} "
+            f"oracle_cost={rec.get('oracle')} solves={rec['solves']} "
+            f"fetches={rec['fetches']} loop_syncs={rec['loop_syncs']} "
+            f"launches={ {k: v for k, v in rec['launched'].items() if v} }")
+
+
+def exactly_once(op_log) -> list[str]:
+    """Pods bound twice in the apiserver's ordered op log without an
+    eviction or a node-death orphaning in between."""
+    bound, doubles = {}, []
+    for op, pod, node in op_log:
+        if op == "bind":
+            if pod in bound:
+                doubles.append(f"{pod}: {bound[pod]} then {node}")
+            bound[pod] = node
+        elif op in ("evict", "orphan"):
+            bound.pop(pod, None)
+    return doubles
+
+
+def percentile(xs, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, float), q)) if xs else 0.0
+
+
+def _ha_argv(server, device: str, ckpt_dir: str, *extra) -> list[str]:
+    return [
+        "--k8s_apiserver_host=127.0.0.1",
+        f"--k8s_apiserver_port={server.port}", f"--device={device}",
+        "--flow_scheduling_cost_model=quincy",
+        "--run_incremental_scheduler=true", "--incremental_build=true",
+        "--round_pipeline=false", "--polling_frequency=1000",
+        f"--checkpoint_dir={ckpt_dir}", "--checkpoint_every=1", *extra,
+    ]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _trace_events(path: str) -> list[dict]:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def ha_phase(torch, card: str, keep_dir: str | None = None) -> None:
+    """Crash safety on the card over the flagship daemon. Daemon A
+    checkpoints every round and is SIGKILLed in round 3's actuation
+    (half its binding POSTs landed); daemon B restores round 2's
+    checkpoint, replays the journal, runs round 3 and is SIGKILLed in
+    round 4's actuation; a standby that follows B's checkpoints takes
+    over, restores round 3's checkpoint, replays B's journal and runs
+    rounds 4 and 5. Every pod is bound at most once in the apiserver's
+    op log, none is lost, each replay settles every intent of the round
+    its leader died in, the restored first rounds start warm, and every
+    dense round is certified and equals the C++ oracle with one fetch a
+    solve, but for the named fuse round (``HA_FUSE_ROUNDS``), which the
+    standby's flight recorder dumps as a degrade (into ``keep_dir``
+    when given, for ``tests/replay_cold.py``)."""
+    import collections
+    import os
+    import shutil
+    import tempfile
+
+    log(f"[ha] card: {card}")
+    rehearsal = DEVICE != "cuda"
+    work = tempfile.mkdtemp(prefix="chip-smoke-ha-")
+    ckpt = f"{work}/ckpt"
+    server = ApiServerProcess(seed=0, rehearsal=rehearsal)
+    children = []
+    try:
+        def start(spec, name):
+            child = DaemonChild(spec, name)
+            children.append(child)
+            return child
+
+        burst_no = iter(range(100))
+
+        def burst():
+            server.call("burst", [next(burst_no), HA_BURST])
+
+        def rounds_of(child, tag, n, bursts=True):
+            """n rounds of ``child``, each checked; a burst of pods
+            lands after each (before the next round observes)."""
+            out = []
+            for _ in range(n):
+                rec = child.expect("round")["round"]
+                log(round_line(tag, rec))
+                if rec["backend"]:  # an empty round has no backend
+                    check_dense_round(
+                        tag, rec, (tag, rec["round"]) in HA_FUSE_ROUNDS)
+                out.append(rec)
+                if bursts:
+                    burst()
+                child.go()
+            return out
+
+        # ---- daemon A: three rounds, killed in round 3's actuation ----
+        trace_a = f"{work}/trace-a.jsonl"
+        a = start(dict(argv=_ha_argv(server, DEVICE, ckpt,
+                                     f"--trace_log={trace_a}"),
+                       kill_round=3, sync_ckpt=[2]), "A")
+        a.expect("started")
+        recs_a = rounds_of(a, "[ha] A", 2)
+        killed = a.expect("killed")
+        if a.next() is not None or a.wait() != -9:
+            raise AssertionError("[ha] A was not killed in round 3")
+        log(f"[ha] A SIGKILLed in round {killed['killed']}'s actuation "
+            f"after {killed['ok']} of {killed['of']} binding POSTs landed")
+        if not 0 < killed["ok"] < killed["of"]:
+            raise AssertionError("[ha] A's kill did not land mid-actuation")
+        burst()
+
+        # ---- daemon B: --restore=true, round 3, killed in round 4 -------
+        port_b = _free_port()
+        trace_b = f"{work}/trace-b.jsonl"
+        b = start(dict(argv=_ha_argv(
+            server, DEVICE, ckpt, "--restore=true", "--standby=true",
+            f"--standby_lease_s={HA_LEASE_S}", f"--trace_log={trace_b}",
+            f"--metrics_port={port_b}", "--metrics_host=127.0.0.1"),
+            kill_round=4, sync_ckpt=[3], pause_round=3), "B")
+        started_b = b.expect("started")
+        recs_b = rounds_of(b, "[ha] B", 1)
+        held = b.expect("checkpointed")
+
+        # ---- the standby follows B; B is killed; it takes over ----------
+        trace_s = f"{work}/trace-s.jsonl"
+        port_s = _free_port()
+        flight_s = (f"{os.path.abspath(keep_dir)}/ha-standby" if keep_dir
+                    else f"{work}/flight-s")
+        s = start(dict(argv=_ha_argv(
+            server, DEVICE, ckpt, "--standby=true",
+            f"--standby_lease_s={HA_LEASE_S}", f"--trace_log={trace_s}",
+            f"--metrics_port={port_s}", "--metrics_host=127.0.0.1",
+            f"--max_rounds={HA_STANDBY_ROUNDS}", "--flight_recorder=true",
+            f"--flight_dir={flight_s}")), "S")
+        followed = s.expect("following")["following"]
+        if followed != held["checkpointed"]:
+            raise AssertionError(f"[ha] the standby follows round "
+                                 f"{followed}, not B's last checkpoint")
+        b.go()  # B runs round 4 and is killed in its actuation
+        killed_b = b.expect("killed")
+        if b.next() is not None or b.wait() != -9:
+            raise AssertionError("[ha] B was not killed in round 4")
+        t_kill = time.time()
+        log(f"[ha] B SIGKILLed in round {killed_b['killed']}'s actuation "
+            f"after {killed_b['ok']} of {killed_b['of']} binding POSTs "
+            f"landed")
+        if not 0 < killed_b["ok"] < killed_b["of"]:
+            raise AssertionError("[ha] B's kill did not land mid-actuation")
+        burst()
+        started_s = s.expect("started")
+        takeover_s = started_s["started"] - t_kill
+        recs_s = rounds_of(s, "[ha] S", HA_STANDBY_ROUNDS)
+        done = s.expect("exit")
+        if done["exit"] != 0 or s.wait() != 0:
+            raise AssertionError(f"[ha] the standby exited {done['exit']}")
+        takeover_round_s = time.time() - t_kill
+
+        # ---- checks --------------------------------------------------------
+        op_log = server.call("op_log")
+        doubles = exactly_once(op_log)
+        if doubles:
+            raise AssertionError(f"[ha] exactly-once violated: {doubles[:5]}")
+        bound = {k: v for k, v in server.call("bound").items() if v}
+        placed = {u: m for u, m in done["placed"].items()}
+        if bound != placed:
+            lost = sorted(set(placed) - set(bound))[:5]
+            raise AssertionError(
+                f"[ha] server bindings ({len(bound)}) != the standby's "
+                f"placements ({len(placed)}); e.g. {lost}")
+        replays = {}
+        for tag, started, recs, trace, from_round in (
+                ("B", started_b, recs_b, trace_b, 2),
+                ("S", started_s, recs_s, trace_s, held["checkpointed"])):
+            first = recs[0]
+            events = _trace_events(trace)
+            restore = [e for e in events if e["event"] == "RESTORE"]
+            if (len(restore) != 1 or not restore[0]["detail"]["warm"]
+                    or restore[0]["detail"]["round"] != from_round
+                    or not started["lease"]):
+                raise AssertionError(f"[ha] {tag}: RESTORE {restore}, "
+                                     f"expected round {from_round}")
+            if not first["warm"]:
+                raise AssertionError(f"[ha] {tag}: the first round after "
+                                     f"the restore started cold")
+            if "restored_warm=true" not in first["readyz"]:
+                raise AssertionError(f"[ha] {tag}: /readyz "
+                                     f"{first['readyz']!r}")
+            replays[tag] = collections.Counter(
+                e["detail"]["outcome"] for e in events
+                if e["event"] == "JOURNAL_REPLAY")
+            r = first["restore"]
+            log(f"[ha] {tag}: restored checkpoint round "
+                f"{restore[0]['detail']['round']} (warm), "
+                f"restore_ms={r['restore_ms']:.3f} journal "
+                f"replay_ms={r['replay_ms']:.3f} outcomes="
+                f"{dict(replays[tag])} "
+                f"readyz={first['readyz'].strip()!r}; first round "
+                f"solves={first['solves']} (a warm start that does not "
+                f"certify re-runs cold: ROADMAP Queue 3)")
+        # the recorder dumps each degraded round of the standby's
+        dumped = {e["round_num"]: e["detail"]["path"]
+                  for e in _trace_events(trace_s)
+                  if e["event"] == "FLIGHTREC_DUMP"
+                  and e["detail"]["reason"] == "degrade"}
+        degraded = {r["round"] for r in recs_s
+                    if r["backend"] == "oracle:uncertified"}
+        if set(dumped) != degraded:
+            raise AssertionError(f"[ha] degrade dumps of rounds "
+                                 f"{sorted(dumped)}, degraded rounds "
+                                 f"{sorted(degraded)}")
+        for rn, path in sorted(dumped.items()):
+            log(f"[ha] S round {rn}: the flight recorder dumped it as a "
+                f"degrade: {path}")
+        for tag, intents in (("B", killed), ("S", killed_b)):
+            settled = replays[tag]["replayed"] + \
+                replays[tag]["already-applied"]
+            if settled != intents["of"] or not replays[tag]["replayed"]:
+                raise AssertionError(
+                    f"[ha] {tag}'s journal replay {dict(replays[tag])} "
+                    f"does not settle the {intents['of']} intents of the "
+                    f"round its leader was killed in")
+        writes = (killed["ckpt_write_ms"] + killed_b["ckpt_write_ms"]
+                  + done["ckpt_write_ms"])
+        log(f"[ha] checkpoint write ms (background writer, n={len(writes)}):"
+            f" p50={percentile(writes, 50):.3f} max={max(writes):.3f}; "
+            f"takeover: standby leading {takeover_s:.3f} s after B's "
+            f"SIGKILL (lease {HA_LEASE_S} s), its first round done "
+            f"{takeover_round_s:.3f} s after; {len(op_log)} apiserver ops, "
+            f"{len(bound)} pods bound exactly once, none lost")
+    finally:
+        for child in children:
+            child.close()
+        server.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def ha_control_phase(torch, card: str, rounds: int = 6) -> None:
+    """[ha]'s flagship daemon and bursts without a crash, a restore or a
+    standby: ``rounds`` rounds of one daemon, each held to the C++
+    oracle as in [ha]. A round that runs out the fuse may degrade here
+    (it is printed, held to the oracle's cost and to a fuse's worth of
+    loop reads a solve): this phase shows which rounds of the sequence
+    do so with no crash-safety path involved. It runs only when named
+    (``--phases=ha_control``)."""
+    import shutil
+    import tempfile
+
+    log(f"[ha_control] card: {card}")
+    work = tempfile.mkdtemp(prefix="chip-smoke-ha-control-")
+    server = ApiServerProcess(seed=0, rehearsal=DEVICE != "cuda")
+    child = None
+    try:
+        child = DaemonChild(dict(argv=_ha_argv(
+            server, DEVICE, f"{work}/ckpt", f"--max_rounds={rounds}")), "C")
+        child.expect("started")
+        for i in range(rounds):
+            rec = child.expect("round")["round"]
+            log(round_line("[ha_control]", rec))
+            if rec["backend"]:
+                check_dense_round("[ha_control]", rec, known_fuse=True)
+            server.call("burst", [i, HA_BURST])
+            child.go()
+        done = child.expect("exit")
+        if done["exit"] != 0 or child.wait() != 0:
+            raise AssertionError(f"[ha_control] the daemon exited "
+                                 f"{done['exit']}")
+    finally:
+        if child is not None:
+            child.close()
+        server.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def observe_phase(torch, card: str, daemon_round1=None,
+                  audit_dir: str | None = None) -> list[dict]:
+    """The observability tools on the card over the flagship daemon, 3
+    rounds: the flight recorder, the shadow audit every round, one SLO
+    objective on the metrics port, checkpoints, and ``--explain`` of a
+    pod that arrived for round 3 (``--explain`` answers from the last
+    captured round; a pod placed in round 2 is Running by then, outside
+    round 3's place-only graph); then an on-demand dump replayed on the
+    card bit for bit, the explanation, ``validate`` of an unscheduled
+    pod's diagnosis, the audit's regret 0, and ``/slo`` served.
+    ``audit_dir`` keeps each audited snapshot and the port's results
+    there (``tests/audit_against_reference.py`` audits the same
+    snapshots with the reference). Returns the audits."""
+    import os
+    import shutil
+    import tempfile
+
+    from poseidon_tpu_torch.obs.explain import RoundExplainer
+    from poseidon_tpu_torch.obs.flightrec import load_dump
+    from poseidon_tpu_torch.obs.replay import render_report, replay_dump
+
+    log(f"[observe] card: {card}")
+    if audit_dir is not None:
+        audit_dir = os.path.abspath(audit_dir)
+        os.makedirs(audit_dir, exist_ok=True)
+    rehearsal = DEVICE != "cuda"
+    work = tempfile.mkdtemp(prefix="chip-smoke-observe-")
+    server = ApiServerProcess(seed=0, rehearsal=rehearsal)
+    target = "default/pod-x1-000"  # burst 1 arrives for round 3
+    port = _free_port()
+    child = None
+    try:
+        child = DaemonChild(dict(argv=_ha_argv(
+            server, DEVICE, f"{work}/ckpt", "--max_rounds=3",
+            "--flight_recorder=true", f"--flight_dir={work}/fr",
+            "--audit_every=1", "--slo=regret == 0",
+            f"--metrics_port={port}", "--metrics_host=127.0.0.1",
+            f"--explain={target}"), dump_round=3, audit_dir=audit_dir),
+            "observe")
+        child.expect("started")
+        recs = []
+        for i in range(3):
+            rec = child.expect("round")["round"]
+            log(round_line("[observe]", rec) +
+                f" capture_us={rec['capture_us']}")
+            if rec["backend"]:
+                check_dense_round("[observe]", rec)
+            recs.append(rec)
+            if i < 2:
+                # the next round's arrivals, beside the backlog quincy
+                # left unscheduled
+                server.call("burst", [i, HA_BURST])
+            child.go()
+        done = child.expect("exit")
+        if done["exit"] != 0 or child.wait() != 0:
+            raise AssertionError(f"[observe] the daemon exited "
+                                 f"{done['exit']}:\n{child.tail()}")
+
+        # the sync budget: capture, checkpoint and audit add no read
+        r1 = recs[0]
+        if r1["fetches"] != 1:
+            raise AssertionError(f"[observe] round 1: {r1['fetches']} "
+                                 f"fetches")
+        if daemon_round1 is not None and (
+                r1["loop_syncs"], r1["cost"]) != daemon_round1:
+            raise AssertionError(
+                f"[observe] round 1 (loop reads, cost) "
+                f"{(r1['loop_syncs'], r1['cost'])} != the [daemon] poll "
+                f"lane's {daemon_round1} with the tools off")
+        # the audit: regret 0 on the placement of one certified round
+        # (round 1's, audited at round 2); later audits measure the
+        # union of several place-only rounds, which no round promised
+        # to be jointly optimal: their regret is reported
+        audits = recs[-1]["audits"]
+        if (not audits or any(a["error"] for a in audits)
+                or audits[0]["round"] != 2 or audits[0]["regret"] != 0
+                or any(a["regret"] != a["sq"] - a["opt"] or a["regret"] < 0
+                       for a in audits)):
+            raise AssertionError(f"[observe] audits {audits}")
+        if audit_dir is not None:
+            with open(f"{audit_dir}/audits.json", "w") as fh:
+                json.dump(audits, fh)
+        # /slo served, one objective, one evaluation a round
+        slo = recs[-1]["slo"]
+        if len(slo["objectives"]) != 1 or slo["evaluations"] != 3:
+            raise AssertionError(f"[observe] /slo {slo}")
+        # the on-demand dump, replayed on the card bit for bit
+        dump_path = recs[-1]["dump"]
+        dump = load_dump(dump_path)
+        t0 = time.perf_counter()
+        report = replay_dump(dump, device=DEVICE)
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        if report["identical"] is not True or not all(
+                r["ok"] for r in report["records"]):
+            raise AssertionError(render_report(report))
+        # the explanation the daemon printed at exit
+        text = "\n".join(child.lines)
+        if f"== explain {target} ==" not in text or \
+                "sums exactly" not in text:
+            raise AssertionError(f"[observe] --explain printed:\n{text}")
+        for line in text.splitlines():
+            log(f"[observe] explain: {line}")
+        # validate: an unscheduled pod's minimal relaxation places it
+        rec = [r for r in dump["records"] if r.kind == "round"][-1]
+        ex = RoundExplainer.from_record(rec, device=DEVICE)
+        unsched = rec.result["unscheduled"]
+        if not unsched:
+            raise AssertionError("[observe] no unscheduled pod to validate")
+        expl = ex.explain(unsched[0])
+        t0 = time.perf_counter()
+        verdict = ex.validate(expl)
+        validate_ms = (time.perf_counter() - t0) * 1e3
+        if not verdict["ok"]:
+            raise AssertionError(f"[observe] validate {expl} -> {verdict}")
+        warm = [(r["round"], r["capture_us"], r["wall_ms"],
+                 r["capture_us"] / 1e3 / r["wall_ms"])
+                for r in recs if r["backend"] and r["round"] > 1]
+        log(f"[observe] capture_us a round "
+            f"{[r['capture_us'] for r in recs]}; warm rounds (round, "
+            f"capture_us, wall_ms, capture share) {warm} (the reference "
+            f"bounded the share at 0.02 of a churned-warm round; not a "
+            f"gate); dump_ms={recs[-1]['dump_ms']:.3f} "
+            f"({len(dump['records'])} records) replay_ms={replay_ms:.3f} "
+            f"({report['compared']} records bit-identical on {DEVICE}); "
+            f"audits (round, regret, status quo, optimum, drift pods, "
+            f"audit_ms) {[(a['round'], a['regret'], a['sq'], a['opt'], a['drift'], round(a['ms'], 3)) for a in audits]}"
+            f"; validate({unsched[0]}: "
+            f"{expl.diagnosis}) -> {verdict} in {validate_ms:.3f} ms; "
+            f"/slo {slo['objectives'][0]['spec']!r} healthy="
+            f"{slo['objectives'][0]['healthy']}")
+        return audits
+    finally:
+        if child is not None:
+            child.close()
+        server.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# the scaled scenario: the composite at 80 nodes (above the oracle's
+# 64-machine threshold, 67 after its storm) x 320 pods, so its rounds run
+# K1-K3 on the card: the burst whose POSTs ride into the outage, the
+# storm's staged drain and the post-fault burst; held in both packages
+# on the CPU by tests/test_torch_chaos.py
+CHAOS_SCALED = dict(nodes=80, pods=320)
+
+
+def chaos_child() -> int:
+    """The [chaos] phase's daemons, in a process of their own: the
+    reference's four scenarios at their own sizes and seeds, then the
+    scaled composite; one JSON line per scenario."""
+    import logging
+    import tempfile
+
+    import torch
+
+    from poseidon_tpu_torch import cli, kernels
+    from poseidon_tpu_torch.chaos import (
+        check_invariants,
+        rounds_to_recover,
+        run_daemon_scenario,
+        scenario_composite,
+    )
+    from poseidon_tpu_torch.chaos.scenarios import SCENARIOS
+
+    device = sys.argv[1]
+    st = {"snaps": {}, "warm": {}, "checked": [], "bridge": None}
+    cli.SchedulerBridge = oracle_bridge(cli.SchedulerBridge, st)
+    orig_run = cli.run_loop
+
+    def run(args, stop_event=None, lease=None, preloaded=None,
+            round_hook=None):
+        def hook(rounds, result):
+            s = result.stats
+            if s.backend == "dense_auction":
+                bridge = st["bridge"]
+                want = oracle_round_cost(
+                    torch.device(device), *st["snaps"][s.round_num],
+                    model=args.flow_scheduling_cost_model)
+                st["checked"].append(dict(
+                    round=s.round_num, cost=s.cost, oracle=want,
+                    fetches=bridge.solver.last_round_fetches,
+                    solves=bridge.solver.last_round_solves))
+            if round_hook is not None:
+                round_hook(rounds, result)
+
+        return orig_run(args, stop_event=stop_event, lease=lease,
+                        preloaded=preloaded, round_hook=hook)
+
+    cli.run_loop = run
+    logging.getLogger("poseidon_tpu_torch.bridge.bridge").setLevel(
+        logging.WARNING)
+    runs = [(name, SCENARIOS[name]()) for name in sorted(SCENARIOS)]
+    runs.append(("composite_scaled", scenario_composite(**CHAOS_SCALED)))
+    with tempfile.TemporaryDirectory() as work:
+        for name, sc in runs:
+            st["snaps"].clear()
+            st["checked"] = []
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            run_ = run_daemon_scenario(
+                sc, work, polling_ms=25.0, extra_flags=(f"--device={device}",))
+            seconds = time.perf_counter() - t0
+            storm = name == "node_storm"
+            rep = check_invariants(
+                run_, expect_guard=storm,
+                guard_release_rounds=5 if storm else None)
+            backends = sorted({r["backend"] for r in run_.stats
+                               if r["pods_pending"]})
+            print(HA_PREFIX + json.dumps(dict(
+                name=name, nodes=sc.nodes, pods=sc.pods, seed=sc.seed,
+                rounds=len(run_.stats), ok=rep.ok, failures=rep.failures,
+                fault_clear_round=sc.fault_clear_round,
+                applied=run_.applied, backends=backends,
+                rounds_to_recover=rounds_to_recover(
+                    run_.stats, sc.fault_clear_round),
+                recover_within=sc.recover_within,
+                double_binds=len(rep.details["double_binds"]),
+                lost=len(rep.details["lost_pods"]),
+                degrades=rep.details["degrades_total"],
+                dense=st["checked"], seconds=seconds,
+                launches={k.name: k.launches for k in kernels.KERNELS
+                          if k.launches},
+            ), default=str), flush=True)
+    return 0
+
+
+def chaos_phase(torch, card: str) -> None:
+    """The chaos harness on the card: the reference's four scenarios at
+    their own sizes and seeds through the port's daemon with
+    ``--device=cuda`` (clusters of at most 64 machines: the
+    small-instance oracle solves their rounds), then the scaled
+    composite (``CHAOS_SCALED``), whose rounds run K1-K3 through every
+    fault and its recovery; the invariants hold in every one, every
+    dense round equals the C++ oracle with one fetch a solve, and a
+    dense round follows every fault of the scaled one, one of them
+    after its ``fault_clear_round``."""
+    import os
+
+    log(f"[chaos] card: {card}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.chaos_child())",
+         DEVICE], cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    results = [json.loads(line[len(HA_PREFIX):])
+               for line in out.stdout.splitlines()
+               if line.startswith(HA_PREFIX)]
+    if out.returncode != 0 or len(results) != 5:
+        raise AssertionError(f"[chaos] rc={out.returncode}, "
+                             f"{len(results)} of 5 scenarios:\n"
+                             f"{out.stderr[-4000:]}")
+    for r in results:
+        log(f"[chaos] {r['name']} ({r['nodes']} nodes x {r['pods']} pods, "
+            f"seed {r['seed']}): {r['rounds']} rounds in "
+            f"{r['seconds']:.3f} s, invariants ok={r['ok']}, "
+            f"rounds_to_recover={r['rounds_to_recover']} (bound "
+            f"{r['recover_within']}), double binds={r['double_binds']}, "
+            f"lost={r['lost']}, degrades={r['degrades']}, backends="
+            f"{r['backends']}, applied={r['applied']}, "
+            f"launches={r['launches']}")
+        if not r["ok"]:
+            raise AssertionError(f"[chaos] {r['name']}: {r['failures']}")
+        for d in r["dense"]:
+            if d["cost"] != d["oracle"] or d["fetches"] != d["solves"]:
+                raise AssertionError(f"[chaos] {r['name']} round "
+                                     f"{d['round']}: {d}")
+    scaled = results[-1]
+    if scaled["backends"] != ["dense_auction"] or not scaled["dense"]:
+        raise AssertionError(f"[chaos] the scaled scenario did not run the "
+                             f"dense path: {scaled['backends']}")
+    dense = [d["round"] for d in scaled["dense"]]
+    late = [(at, kind) for at, kind, _ in scaled["applied"]
+            if not any(r > at for r in dense)]
+    if late or max(dense) < scaled["fault_clear_round"]:
+        raise AssertionError(
+            f"[chaos] scaled scenario: no dense round after the faults "
+            f"{late} (dense rounds {dense}, fault clear round "
+            f"{scaled['fault_clear_round']})")
+    idle = [n for n in ROUND_KERNELS if not scaled["launches"].get(n)]
+    if idle and DEVICE == "cuda":
+        raise AssertionError(f"[chaos] scaled scenario: kernels not "
+                             f"launched: {idle}")
+    log(f"[chaos] scaled scenario: {len(dense)} dense rounds {dense}, "
+        f"each == the C++ oracle with one fetch a solve; one after every "
+        f"fault, {sum(r >= scaled['fault_clear_round'] for r in dense)} "
+        f"at or after the fault clear round "
+        f"{scaled['fault_clear_round']}")
+
+
 def main() -> int:
     import torch
 
@@ -4598,8 +5694,12 @@ def main() -> int:
     # ``--phases=a,b`` runs only those phases after the build (a quick
     # check of one path while it is being brought up): it prints no
     # kernels record and no contract line, and exits 0 when they pass
-    only = next((a.split("=", 1)[1].split(",") for a in sys.argv[1:]
-                 if a.startswith("--phases=")), None)
+    def option(prefix):
+        return next((a[len(prefix):] for a in sys.argv[1:]
+                     if a.startswith(prefix)), None)
+
+    only = option("--phases=")
+    only = only.split(",") if only is not None else None
 
     def want(name):
         return only is None or name in only
@@ -4635,6 +5735,17 @@ def main() -> int:
         general_launches = phase("general", general_phase, torch, smi)
         for k in GENERAL_KERNELS:
             launches[k] = general_launches[k]
+    keep_dir = option("--keep_dir=")
+    if want("ha"):
+        phase("ha", ha_phase, torch, smi, keep_dir)
+    if want("observe"):
+        phase("observe", observe_phase, torch, smi,
+              DAEMON_ROUND1.get("poll"),
+              None if keep_dir is None else f"{keep_dir}/audits")
+    if want("chaos"):
+        phase("chaos", chaos_phase, torch, smi)
+    if only is not None and "ha_control" in only:
+        phase("ha_control", ha_control_phase, torch, smi)
     log("[done] phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()))
     if only is not None:

@@ -455,6 +455,33 @@ class ClusterWatcher:
         self._seeded = True
         return nodes, pods
 
+    def resume(self, rvs: dict[str, int]) -> None:
+        """Warm-restore resumption (ha/checkpoint.py): restart both
+        streams from CHECKPOINTED resourceVersions without a seeding
+        LIST — the restored bridge already holds the snapshot those rvs
+        describe, so events with rv > checkpoint replay exactly the
+        history the dead process missed. If the apiserver has compacted
+        past a checkpointed rv the stream goes 410 and the next
+        ``tick()`` degrades to the LOUD full-LIST resync (snapshot-diff
+        path, mass-eviction guard armed) — stale resumption never
+        guesses."""
+        self._carry_residual_coalesced()
+        self.stop()
+        self._coalesced_seen = dict.fromkeys(RESOURCES, 0)
+        self._applied_rv = {
+            r: int(rvs.get(r, 0)) for r in RESOURCES
+        }
+        for resource in RESOURCES:
+            s = _WatchStream(
+                self.client.base, resource, self._applied_rv[resource],
+                read_timeout_s=self.read_timeout_s,
+                backoff_base_s=self.backoff_base_s,
+                backoff_cap_s=self.backoff_cap_s,
+            )
+            self._streams[resource] = s
+            s.start()
+        self._seeded = True
+
     @property
     def applied_rvs(self) -> dict[str, int]:
         """Per-resource applied resourceVersions (the checkpoint's

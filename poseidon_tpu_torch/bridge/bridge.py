@@ -4,9 +4,10 @@ The port of ``poseidon_tpu/bridge/bridge.py``: the full and pipelined
 round paths, observe (poll and watch), confirm, revoke and rebalance,
 the express lane (``express_batch``) and the stream lane
 (``stream_window`` / ``stream_flush`` / ``stream_finish``), with the
-same decisions, decision log and stats bit for bit. The flight recorder
-and the shadow auditor are not ported yet; asking for them raises
-``NotImplementedError``. ``device`` picks the solver's device (``None``
+same decisions, decision log and stats bit for bit, the flight
+recorder's capture sites (``flightrec=``), the shadow auditor's sampled
+capture (``auditor=``) and the warm restore (``restore_state``).
+``device`` picks the solver's device (``None``
 = the card); ``solver`` injects another implementation of the
 begin/finish seam (the service lane's per-tenant ``TenantSolver``).
 
@@ -127,6 +128,7 @@ from poseidon_tpu_torch.ops.resident import (
     InflightSolve,
     ResidentSolver,
 )
+from poseidon_tpu_torch.obs.metrics import STORM_RESYNCS, STORM_WINDOW
 from poseidon_tpu_torch.obs.spans import (
     emit_span,
     express_span_tree,
@@ -288,6 +290,9 @@ class InflightRound:
     t_begin_start: float = 0.0
     t_begin_end: float = 0.0
     begin_ms: float = 0.0
+    # the flight recorder's begin-time record of this round's inputs
+    # (obs/flightrec.py); finish_round attaches the outcome to it
+    flight: object = None
 
 
 class SchedulerBridge:
@@ -322,16 +327,6 @@ class SchedulerBridge:
         auditor=None,
         device=None,
     ):
-        later = {
-            "flightrec": flightrec is not None,
-            "auditor": auditor is not None,
-        }
-        asked = sorted(k for k, v in later.items() if v)
-        if asked:
-            raise NotImplementedError(
-                f"SchedulerBridge options {asked} are not ported to "
-                f"poseidon_tpu_torch yet (ROADMAP.md, Queue 1 item 7)"
-            )
         self.cost_model = cost_model
         self.max_tasks_per_machine = max_tasks_per_machine
         self.enable_preemption = enable_preemption
@@ -350,11 +345,24 @@ class SchedulerBridge:
         # round's stats for the metrics/report grouping.
         self.metrics = metrics
         self.profile_spans = profile_spans
-        # the quality observatory (obs/lifecycle.py): ``lifecycle``
-        # stamps per-pod timelines at every stage the bridge drives
-        # (event/decided/confirmed — the cli stamps the POST stage it
-        # owns). None = off, zero cost.
+        # the anomaly flight recorder (obs/flightrec.py, --flight_
+        # recorder): captures each round's full host-side inputs at
+        # begin time and dumps the ring on DEGRADE / EXPRESS_DEGRADE /
+        # FETCH_TIMEOUT / resync-storm or on demand. None = off, zero
+        # cost.
+        self.flightrec = flightrec
+        # the quality observatory (obs/lifecycle.py, obs/audit.py):
+        # ``lifecycle`` stamps per-pod timelines at every stage the
+        # bridge drives (event/decided/confirmed — the cli stamps the
+        # journal/POST stages it owns); ``auditor`` captures a sampled
+        # cluster snapshot per cadence for the background shadow
+        # re-solve. Both None = off, zero cost.
         self.lifecycle = lifecycle
+        self.auditor = auditor
+        # the watch stream position recorded with each round's flight
+        # record (loop-set: the cli stamps ClusterWatcher.applied_rv
+        # per tick; "" = poll mode)
+        self.flight_rv = ""
         # trace-ring overwrites already mirrored into the metrics
         # counter (per-round delta against trace.dropped_total)
         self._trace_drops_seen = 0
@@ -387,6 +395,10 @@ class SchedulerBridge:
             stream_windows=stream_windows,
             metrics=metrics,
         )
+        if flightrec is not None and flightrec.device is None:
+            # the recorder names the device its rounds were solved on
+            # in each dump's manifest
+            flightrec.device = getattr(self.solver, "device", None)
         # O(churn) graph maintenance: every state transition below is
         # mirrored as a note; begin_round patches instead of rebuilding
         self.incremental_build = incremental_build
@@ -434,6 +446,14 @@ class SchedulerBridge:
             max_migrations_per_round
             if max_migrations_per_round > 0 else None
         )  # None = unlimited; refreshed every begin_round
+        # resync-storm trip for the flight recorder: a sliding window
+        # of per-round resync counts (the obs/metrics.py storm gauge's
+        # twin), latched so a persisting storm dumps once, not every
+        # round
+        self._resync_window: collections.deque[int] = collections.deque(
+            maxlen=STORM_WINDOW
+        )
+        self._storm_dumped = False
         self._inflight: InflightRound | None = None
         # ---- express-lane bookkeeping (all empty with the flag off) ----
         # bound pods whose device rows the next express dispatch
@@ -891,6 +911,27 @@ class SchedulerBridge:
             )
             self._trace_drops_seen = drops
 
+    def flight_dump(
+        self, reason: str = "manual", label: str = ""
+    ) -> str | None:
+        """Dump the flight-recorder ring (anomaly sites call this with
+        their bounded reason; operators and the daemon call it on
+        demand).
+        Returns the manifest path, or None when the recorder is off or
+        the ring is empty. Every dump is loud: a FLIGHTREC_DUMP trace
+        event plus ``poseidon_flightrec_dumps_total{reason}``."""
+        if self.flightrec is None:
+            return None
+        path = self.flightrec.dump(reason, label=label)
+        if path is not None:
+            self.trace.emit(
+                "FLIGHTREC_DUMP", round_num=self.round_num,
+                detail={"reason": reason, "label": label,
+                        "path": path},
+            )
+            self.trace.flush()
+        return path
+
     # ---- the express lane (between-ticks fast path) --------------------
 
     def _express_invalidate(self, count_degrade: bool = False,
@@ -906,6 +947,7 @@ class SchedulerBridge:
                 self.trace.flush()
                 if self.metrics is not None:
                     self.metrics.record_express_degrade(why)
+                self.flight_dump("express-degrade", label=why)
 
     def _express_transitions(
         self, before: dict[str, Task | None]
@@ -1061,6 +1103,15 @@ class SchedulerBridge:
             self.trace.flush()
             if self.metrics is not None:
                 self.metrics.record_express_degrade(outcome.reason)
+            if self.flightrec is not None:
+                # record the degraded batch's inputs, then dump: "what
+                # exactly did the express lane choke on" survives
+                self.flightrec.capture_express(
+                    self.round_num, batch, outcome
+                )
+                self.flight_dump(
+                    "express-degrade", label=outcome.reason
+                )
             return None
         if outcome.degrade_reason:
             # a CERTIFIED batch that degraded loudly mid-flight (the
@@ -1134,6 +1185,10 @@ class SchedulerBridge:
         self.trace.flush()
         if self.metrics is not None:
             self.metrics.record_express_batch(e2b_samples)
+        if self.flightrec is not None:
+            self.flightrec.capture_express(
+                self.round_num, batch, outcome, placements=bindings
+            )
         return ExpressResult(
             bindings=bindings,
             cost=outcome.cost,
@@ -1229,6 +1284,13 @@ class SchedulerBridge:
             self.trace.flush()
             if self.metrics is not None:
                 self.metrics.record_express_degrade(outcome.reason)
+            if self.flightrec is not None:
+                self.flightrec.capture_express(
+                    self.round_num, batch, outcome
+                )
+                self.flight_dump(
+                    "express-degrade", label=outcome.reason
+                )
             return False
         # receipt stamps for the finish-side per-placement e2b
         # (earliest wins across coalesced duplicates)
@@ -1331,6 +1393,7 @@ class SchedulerBridge:
             )
             if self.metrics is not None:
                 self.metrics.record_express_degrade(out.reason)
+            self.flight_dump("express-degrade", label=out.reason)
         self.trace.flush()
         if self.metrics is not None:
             self.metrics.record_express_batch(e2b_samples)
@@ -1448,6 +1511,21 @@ class SchedulerBridge:
         self._watch_resyncs = 0
         stats.watch_reconnects = self._watch_reconnects
         self._watch_reconnects = 0
+        if self.flightrec is not None:
+            # resync-storm trip (the obs storm gauge's recorder twin):
+            # a flapping watch stream re-listing the cluster every tick
+            # is exactly the incident whose inputs should survive
+            self._resync_window.append(stats.watch_resyncs)
+            if sum(self._resync_window) >= STORM_RESYNCS:
+                if not self._storm_dumped:
+                    self._storm_dumped = True
+                    self.flight_dump(
+                        "resync-storm",
+                        label=f"{sum(self._resync_window)} resyncs "
+                              f"in the last {STORM_WINDOW} rounds",
+                    )
+            else:
+                self._storm_dumped = False
         stats.express_batches = self._express_batches
         self._express_batches = 0
         stats.express_places = self._express_places
@@ -1463,6 +1541,26 @@ class SchedulerBridge:
                 float(np.percentile(lat, 99)), 3
             )
             self._express_e2b = []
+        if (
+            self.auditor is not None
+            and self.machines and self.tasks
+            and self.auditor.due(self.round_num)
+        ):
+            # the shadow audit's sampled capture: post-observe cluster
+            # state handed to the background re-solve (host data
+            # only, no device read; the O(cluster) list copy
+            # amortizes over the sampling cadence like the checkpoint
+            # capture). Captured BEFORE the build so empty rounds —
+            # a drifted place-only cluster with nothing pending rounds
+            # empty forever — still get audited.
+            self.auditor.capture(
+                round_num=self.round_num,
+                cost_model=self.cost_model,
+                hysteresis=self.migration_hysteresis,
+                machines=self.machines,
+                tasks=self.tasks,
+                knowledge=self.knowledge,
+            )
         # staged-requeue wave: refresh the per-round displacement
         # budget and admit the next FIFO wave of parked node-death
         # displacement into the schedulable set (note_task_added —
@@ -1596,6 +1694,35 @@ class SchedulerBridge:
             t_begin_end=t_end,
             begin_ms=(t_end - t_start) * 1000,
         )
+        if self.flightrec is not None:
+            # capture AFTER the dispatch: the arrays are exactly what
+            # the solve consumed, the solver's padding floors/dims are
+            # this round's, and the warm seed (when clean) is the host
+            # mirror the LAST round's fetch already brought back — no
+            # device read, vectorized copies only
+            ir.flight = self.flightrec.capture_begin(
+                round_num=self.round_num,
+                cost_model=self.cost_model,
+                flags={
+                    **self.round_flags, "build_mode": stats.build_mode,
+                },
+                arrays=arrays,
+                meta=meta,
+                cost_kwargs=cost_kwargs,
+                pad_floors=getattr(self.solver, "pad_floors", {}),
+                dims={
+                    "Tp": getattr(solve, "Tp", 0),
+                    "Mp": getattr(solve, "Mp", 0),
+                    "n_prefs": getattr(solve, "n_prefs", 0),
+                    "smax": getattr(solve, "smax", 0),
+                },
+                warm_used=getattr(solve, "warm_used", False),
+                warm_seed=(
+                    getattr(self.solver, "warm_seed_host", None)
+                    if getattr(solve, "warm_used", False) else None
+                ),
+                rv=self.flight_rv,
+            )
         self._inflight = ir
         return ir
 
@@ -1627,6 +1754,7 @@ class SchedulerBridge:
                 detail={"error": str(e)},
             )
             self.trace.flush()
+            self.flight_dump("fetch-timeout", label=str(e))
             raise
         t_join1 = time.monotonic()
         meta = ir.meta
@@ -1658,6 +1786,7 @@ class SchedulerBridge:
         # logged: a DEGRADE trace event + the lifetime counter in
         # stats. Deliberate routing (small-instance, non-taxonomy
         # graphs) is dispatch, not degradation, and stays uncounted.
+        flight_dump_why = ""
         if outcome.backend.startswith("oracle:"):
             why = outcome.backend.split(":", 1)[1]
             if why not in ("small-instance", "not-scheduling-shaped"):
@@ -1668,6 +1797,9 @@ class SchedulerBridge:
                 )
                 if self.metrics is not None:
                     self.metrics.record_degrade(why)
+                # dumped AFTER the outcome is attached to the record
+                # below, so the dump carries this round's result too
+                flight_dump_why = why
         stats.degrades_total = self._degrades_total
 
         # the decision layer: diff the solved assignment against current
@@ -1852,6 +1984,16 @@ class SchedulerBridge:
         if self.metrics is not None:
             self.metrics.record_round(stats)
             self._note_trace_drops()
+        if self.flightrec is not None:
+            self.flightrec.capture_finish(
+                ir.flight, outcome, dataclasses.asdict(stats),
+                extra={
+                    "unscheduled": list(unscheduled),
+                    "deferred": [d.task for d in dset.deferred],
+                },
+            )
+            if flight_dump_why:
+                self.flight_dump("degrade", label=flight_dump_why)
         return RoundResult(
             bindings=bindings, stats=stats, unscheduled=unscheduled,
             migrations=migrations, preemptions=preemptions,
@@ -1882,6 +2024,61 @@ class SchedulerBridge:
                     detail={"error": "fetch abandoned in cancel_round"},
                 )
                 self.trace.flush()
+                self.flight_dump(
+                    "fetch-timeout",
+                    label="fetch abandoned in cancel_round",
+                )
+
+    def restore_state(
+        self,
+        *,
+        machines: list[Machine],
+        tasks: list[Task],
+        round_num: int,
+        knowledge_state: dict | None = None,
+        builder_cols=None,
+    ) -> None:
+        """Warm-restore rehydration (ha/checkpoint.py): adopt a
+        checkpointed cluster image wholesale on a freshly-constructed
+        bridge — tasks/machines in their checkpointed insertion order
+        (the pending order every graph build depends on), the derived
+        ``pod_to_machine`` set, the knowledge sample rings, and
+        (optionally) the incremental builder's patchable columns so the
+        first post-restore build patches instead of re-extracting.
+        The device express context did not survive the process, so the
+        express bookkeeping starts clean; mass-eviction-guard strikes
+        reset (a restore begins a fresh observation history — the
+        guard itself stays armed across the boundary)."""
+        self.machines = {m.name: m for m in machines}
+        self.tasks = {t.uid: t for t in tasks}
+        self.pod_to_machine = {
+            t.uid: t.machine for t in tasks
+            if t.phase == TaskPhase.RUNNING
+            and t.machine in self.machines
+        }
+        self.round_num = int(round_num)
+        if knowledge_state is not None:
+            self.knowledge.restore_state(knowledge_state)
+        if self._graph is not None:
+            if builder_cols is not None:
+                self._graph.restore_columns(builder_cols)
+            else:
+                self._graph.note_full_rebuild("restore")
+        self._express_retire = []
+        self._express_unconfirmed.clear()
+        self._express_placed.clear()
+        self._stream_uid_t.clear()
+        self._stream_t0 = None
+        if self.express_lane:
+            self.solver.invalidate_express()
+        self._node_shrink_strikes = 0
+        self._pod_shrink_strikes = 0
+        self._node_shrink_strikes_first = 0.0
+        self._pod_shrink_strikes_first = 0.0
+        # parking does not survive the process: restored pods are all
+        # schedulable at once (documented — at worst one placement
+        # burst after a crash mid-drain, bounded by what was parked)
+        self._displaced_parked = {}
 
     @property
     def solver_timeout_s(self) -> float:
@@ -1895,10 +2092,11 @@ class SchedulerBridge:
 
     @property
     def round_flags(self) -> dict:
-        """The settings a round runs under, with the keys the
-        reference's flight recorder captures each round (the recorder
-        itself is not ported): the scale lane's ``mesh_width``,
-        ``aggregate_classes`` and ``topk_prefs`` among them."""
+        """The settings a round runs under: the flags the flight
+        recorder captures each round (with the round's ``build_mode``)
+        and the replay rebuilds its solver from — the scale lane's
+        ``mesh_width``, ``aggregate_classes`` and ``topk_prefs`` among
+        them."""
         return {
             "enable_preemption": self.enable_preemption,
             "migration_hysteresis": self.migration_hysteresis,

@@ -32,11 +32,19 @@ where the port has them:
   pipeline (``service/serve.py``);
 - ``--device`` (default ``cuda``) picks the solver's device; without a
   card the default raises, and ``--device=cpu`` runs on the CPU;
-- the flags of modules not ported yet (standby and checkpoints, flight recorder, explainer, shadow
-  audit, SLOs, the device mesh, class aggregation, preference pruning)
-  are parsed so the reference's flagfiles load, and any of them given a
-  value other than its default stops the daemon with an error naming
-  it (``unported_flags``); none is ignored silently.
+- crash safety (``--checkpoint_dir``, ``--checkpoint_every``,
+  ``--restore``): warm-state checkpoints written by a background thread
+  and a write-ahead actuation journal, restored and replayed before the
+  first observe; ``--standby=true`` follows the leader's checkpoints
+  behind a lease and takes over warm (``ha/``);
+- the observability tools: the flight recorder (``--flight_recorder``,
+  ``--flight_dir``, ``--flight_max_dumps``), ``--explain`` at the
+  loop's exit, the shadow audit (``--audit_every``) and the SLO engine
+  (``--slo*``, served on ``/slo``) (``obs/``);
+- a flag of a module not ported yet would parse at the reference's
+  default and stop the daemon at any other value
+  (``UNPORTED_FLAGS``, ``unported_flags``); none is ignored silently,
+  and today the table is empty.
 
 The kernel loader's first-use ``nvcc`` builds feed the compile-latency
 histogram (``poseidon_xla_compile_ms``, the reference's family name)
@@ -53,6 +61,7 @@ import argparse
 import concurrent.futures
 import json
 import logging
+import os
 import signal
 import sys
 import threading
@@ -64,28 +73,13 @@ from poseidon_tpu_torch.models import COST_MODELS, get_cost_model
 
 log = logging.getLogger("poseidon_tpu_torch.cli")
 
-_BOOL = ("true", "false")
-
 # flags whose modules are not ported yet: name -> (the reference's
 # default, type or choices, the ROADMAP.md Queue 1 item that brings it).
 # They parse so the reference's flagfiles load; any other value than
-# the default is refused (``unported_flags``)
-UNPORTED_FLAGS = {
-    "flight_recorder": ("false", _BOOL, 7),
-    "flight_dir": ("flightrec", str, 7),
-    "flight_max_dumps": (16, int, 7),
-    "explain": ("", str, 7),
-    "audit_every": (0, int, 7),
-    "slo": ("", str, 7),
-    "slo_short_window": (6, int, 7),
-    "slo_long_window": (60, int, 7),
-    "slo_burn_threshold": (1.0, float, 7),
-    "checkpoint_dir": ("", str, 7),
-    "checkpoint_every": (10, int, 7),
-    "restore": ("auto", ("auto", "true", "false"), 7),
-    "standby": ("false", _BOOL, 7),
-    "standby_lease_s": (15.0, float, 7),
-}
+# the default is refused (``unported_flags``). Every module of the
+# reference is ported, so the table is empty; it stays as the place
+# for a future one.
+UNPORTED_FLAGS: dict[str, tuple] = {}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -292,6 +286,103 @@ def build_parser() -> argparse.ArgumentParser:
                         "the trace stream (inspect "
                         "with python -m poseidon_tpu_torch.trace report / "
                         "chrome)")
+    # the decision-evidence layer (obs/flightrec|replay|explain): the
+    # anomaly flight recorder keeps the last K rounds' full solve
+    # inputs in a bounded ring and dumps .npz + JSON on DEGRADE /
+    # EXPRESS_DEGRADE / FETCH_TIMEOUT / resync storms; replay offline
+    # with python -m poseidon_tpu_torch.obs.replay <dump>
+    p.add_argument("--flight_recorder",
+                   default="false", choices=["true", "false"],
+                   help="record the last rounds' full host-side solve "
+                        "inputs (graph, cost inputs, flags, warm "
+                        "seed) in a bounded ring and dump it to "
+                        "--flight_dir on anomalies; replay with "
+                        "python -m poseidon_tpu_torch.obs.replay")
+    p.add_argument("--flight_dir", default="flightrec",
+                   help="directory the flight recorder writes dumps "
+                        "to (.npz array blob + .json manifest per "
+                        "dump)")
+    p.add_argument("--explain", default="", metavar="POD_UID",
+                   help="with --flight_recorder: when the loop exits, "
+                        "print the per-decision cost attribution / "
+                        "unscheduled diagnosis for this pod uid from "
+                        "the last captured round (the on-call's 'why "
+                        "did X land on Y' / 'why is Z still pending' "
+                        "answer)")
+    # the quality observatory (poseidon_tpu_torch/obs/): per-pod
+    # lifecycle tracing rides --metrics_port for free; the shadow audit
+    # re-solves a sampled cluster snapshot on a background thread (CPU
+    # pricing + the subprocess oracle — never a launch on the card)
+    # and publishes placement regret vs the
+    # certified optimum; the SLO engine evaluates declarative
+    # objectives with multi-window burn rates and latched SLO_BREACH
+    # alerting
+    p.add_argument("--audit_every", type=int, default=0,
+                   help="shadow-audit the live placement every N "
+                        "rounds on a background thread (regret vs "
+                        "certified optimum, fragmentation index, "
+                        "drift; poseidon_audit_* metrics); 0 = off")
+    p.add_argument("--slo", default="",
+                   help="comma-separated SLO objectives (grammar: "
+                        "'<source> <op> <threshold> [by label=value]' "
+                        "— e.g. 'e2b_p99_ms < 10 by lane=express, "
+                        "regret == 0, ready'); evaluated per round "
+                        "with multi-window burn rates, surfaced as "
+                        "poseidon_slo_* metrics, /slo, and SLO_BREACH "
+                        "trace events. Needs --metrics_port")
+    p.add_argument("--slo_short_window", type=int, default=6,
+                   help="SLO burn-rate short window, in completed "
+                        "rounds (detection speed)")
+    p.add_argument("--slo_long_window", type=int, default=60,
+                   help="SLO burn-rate long window, in completed "
+                        "rounds (sustained-burn confirmation)")
+    p.add_argument("--slo_burn_threshold", type=float, default=1.0,
+                   help="burn rate both windows must exceed to trip "
+                        "the breach latch (1.0 = budget exhausts "
+                        "within the window)")
+    p.add_argument("--flight_max_dumps", type=int, default=16,
+                   help="keep only the N most recent flight-recorder "
+                        "dumps in --flight_dir (oldest-first GC, so a "
+                        "flapping daemon cannot fill the disk; 0 = "
+                        "unbounded)")
+    # crash safety & HA (poseidon_tpu_torch/ha/): atomic warm-state
+    # checkpoints + a write-ahead actuation
+    # journal make a process death survivable — a restart rehydrates
+    # the warm solve seed, pad floors, bridge pod state, knowledge
+    # rings and watch position instead of paying a cold LIST + cold
+    # solve (and, with rebalancing on, risking a migration storm)
+    p.add_argument("--checkpoint_dir", default="",
+                   help="directory for atomic warm-state checkpoints "
+                        "(solve seed, pad floors, pod/machine state "
+                        "machine, knowledge rings, builder columns, "
+                        "watch resourceVersion) and the write-ahead "
+                        "actuation journal; empty = crash safety off")
+    p.add_argument("--checkpoint_every", type=int, default=10,
+                   help="checkpoint cadence in completed rounds; the "
+                        "in-round capture is a cheap host snapshot "
+                        "(the warm seed is the host mirror the round's "
+                        "fetch already holds), serialization + fsync "
+                        "run on a background writer thread")
+    p.add_argument("--restore", default="auto",
+                   choices=["auto", "true", "false"],
+                   help="rehydrate from the newest loadable checkpoint "
+                        "in --checkpoint_dir at startup and replay "
+                        "incomplete journaled actuations idempotently: "
+                        "auto = when one exists, true = required "
+                        "(exit 1 when none loads), false = always "
+                        "cold-start")
+    p.add_argument("--standby", default="false",
+                   choices=["true", "false"],
+                   help="HA mode: contend for the k8s Lease-style "
+                        "lock on the apiserver; the holder schedules "
+                        "(renewing each tick), non-holders follow "
+                        "--checkpoint_dir warm and take over on lease "
+                        "expiry without a cold start")
+    p.add_argument("--standby_lease_s", type=float, default=15.0,
+                   help="leader lease duration in seconds (renewed "
+                        "every tick; a standby may take over after "
+                        "this long without a renewal — keep it above "
+                        "the polling period)")
     # failure-domain survival (poseidon_tpu_torch/ha/outbox.py): the
     # mass-eviction guard's NotReady grace exit, the apiserver-outage
     # degradation ladder (actuation outbox + declared degraded=outage),
@@ -329,6 +420,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "overload until a round meets the deadline. "
                         "0 = off")
     # the flags of modules not ported yet, at the reference's defaults
+    # (none today)
     for name, (default, kind, item) in UNPORTED_FLAGS.items():
         typed = {"choices": kind} if isinstance(kind, tuple) else {
             "type": kind}
@@ -402,25 +494,34 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     return args
 
 
-def _post_bindings(client, bridge, bindings: dict[str, str], outbox=None):
+def _post_bindings(client, bridge, bindings: dict[str, str],
+                   journal=None, seqs=None, outbox=None):
     """POST bindings concurrently (bounded): serially, a 10k-placement
     round is 10k sequential HTTP round trips — the reference has the
     same flaw (one pplx chain joined per pod, k8s_api_client.cc:225).
     Returns [(uid, machine, outcome)] with outcome in ok / rejected /
     unreachable / parked; the caller decides confirm/revoke (the
     bridge is not thread-safe, so state changes stay on the main
-    thread). With an ``outbox``, unreachable POSTs park there (outcome
-    "parked"): the pod stays confirmed and the outbox pump owns the
-    retries — the apiserver-outage ladder."""
+    thread). When an actuation journal rides along (``--checkpoint_
+    dir``), each successful POST is marked ``posted`` — the caller
+    must have journaled the intents (with their ``seqs``) BEFORE this
+    call, that ordering is the crash-consistency contract. With an
+    ``outbox``, unreachable POSTs park there (outcome "parked"): the
+    pod stays confirmed, the journal intent stays open, and the
+    outbox pump owns the retries — the apiserver-outage ladder."""
 
     def _bind(item):
         uid, machine = item
         task = bridge.tasks.get(uid)
         ns = task.namespace if task else "default"
         outcome = client.bind_outcome(uid, machine, namespace=ns)
+        if outcome == "ok" and journal is not None and seqs:
+            journal.posted(seqs.get(("bind", uid), 0))
         if outcome == "unreachable" and outbox is not None:
             outbox.enqueue(
-                "bind", uid, machine=machine, round_num=bridge.round_num,
+                "bind", uid, machine=machine,
+                seq=(seqs or {}).get(("bind", uid), 0),
+                round_num=bridge.round_num,
             )
             outcome = "parked"
         return uid, machine, outcome
@@ -431,34 +532,46 @@ def _post_bindings(client, bridge, bindings: dict[str, str], outbox=None):
 
 
 def _actuate_rebalance(client, bridge, migrations, preemptions, *,
-                       confirm: bool, outbox=None):
+                       confirm: bool, journal=None, seqs=None,
+                       outbox=None):
     """Actuate MIGRATE (evict + re-bind) and PREEMPT (evict) deltas.
 
     ``confirm=True`` is the serial contract (state changes only after
     the POSTs land); ``confirm=False`` the optimistic pipelined one
     (the bridge already confirmed at finish time — failures restore the
-    pod to its old machine and the next poll reconciles). With an
-    ``outbox``, unreachable POSTs park there (the decision stands, only
-    the wire is broken): the pod keeps its confirmed state and the pump
-    replays idempotently.
+    pod to its old machine and the next poll reconciles). Journaled
+    like the bindings: intents must already be on disk; this marks
+    posted/confirmed/failed per delta. With an ``outbox``, unreachable
+    POSTs park there (the decision stands, only the wire is broken):
+    the pod keeps its confirmed state, the journal intent stays open,
+    and the pump replays idempotently.
     """
     def _ns(uid):
         task = bridge.tasks.get(uid)
         return task.namespace if task else "default"
 
+    def _mark(kind, uid, phase):
+        if journal is not None and seqs:
+            getattr(journal, phase)(seqs.get((kind, uid), 0))
+
     for uid, frm in preemptions.items():
         out = client.evict_outcome(uid, namespace=_ns(uid))
         if out == "ok":
+            _mark("evict", uid, "posted")
             if confirm:
                 bridge.confirm_preemption(uid)
+            _mark("evict", uid, "confirmed")
         elif out == "unreachable" and outbox is not None:
             if confirm:
                 bridge.confirm_preemption(uid)
             outbox.enqueue(
-                "evict", uid, from_machine=frm, round_num=bridge.round_num,
+                "evict", uid, from_machine=frm,
+                seq=(seqs or {}).get(("evict", uid), 0),
+                round_num=bridge.round_num,
             )
         else:
             log.warning("eviction POST failed for %s; restoring", uid)
+            _mark("evict", uid, "failed")
             bridge.restore_running(uid, frm)
     for uid, (frm, to) in migrations.items():
         ns = _ns(uid)
@@ -466,23 +579,51 @@ def _actuate_rebalance(client, bridge, migrations, preemptions, *,
         if out == "ok":
             out = client.bind_outcome(uid, to, namespace=ns)
         if out == "ok":
+            _mark("migrate", uid, "posted")
             if confirm:
                 bridge.confirm_migration(uid, to)
+            _mark("migrate", uid, "confirmed")
         elif out == "unreachable" and outbox is not None:
             if confirm:
                 bridge.confirm_migration(uid, to)
             outbox.enqueue(
                 "migrate", uid, machine=to, from_machine=frm,
+                seq=(seqs or {}).get(("migrate", uid), 0),
                 round_num=bridge.round_num,
             )
         else:
             log.warning("migration POSTs failed for %s; restoring", uid)
+            _mark("migrate", uid, "failed")
             bridge.restore_running(uid, frm)
+
+
+def _take_checkpoint(args, bridge, watcher, ckpt_mgr, journal,
+                     final: bool = False) -> None:
+    """Capture + hand off one warm-state checkpoint (and rotate the
+    journal's terminal entries — their effects now live in the
+    snapshot). The final (shutdown) checkpoint writes synchronously
+    after draining the writer."""
+    snap = ckpt_mgr.capture(bridge, watcher)
+    bridge.trace.emit(
+        "CHECKPOINT", round_num=bridge.round_num,
+        detail={"cadence": args.checkpoint_every,
+                "warm": snap.warm_seed is not None,
+                "final": final},
+    )
+    bridge.trace.flush()
+    if journal is not None:
+        journal.rotate()
+    if final:
+        ckpt_mgr.close(final_snap=snap)
+    else:
+        ckpt_mgr.submit(snap)
 
 
 def run_loop(
     args: argparse.Namespace,
     stop_event: threading.Event | None = None,
+    lease=None,
+    preloaded=None,
     round_hook=None,
 ) -> int:
     """The scheduling daemon loop.
@@ -491,10 +632,15 @@ def run_loop(
     handler is installed while the loop runs on the main thread, and
     the previous one is put back on exit; embedded callers and tests
     pass their own event) and the loop then finishes the in-flight
-    round, flushes its deltas and the trace, and exits 0.
-    ``round_hook`` (tests, chip_smoke.py) is called on the daemon loop
-    thread after every completed round with ``(rounds_completed,
-    result)``: the deterministic injection seam.
+    round, flushes its deltas, writes a final checkpoint + trace
+    flush, and exits 0. ``lease`` (ha/standby.LeaderElector) is
+    renewed every tick in HA mode — a failed renewal steps down with
+    exit code 1 instead of scheduling against a lost lock.
+    ``preloaded`` short-circuits the checkpoint read with a snapshot a
+    standby already followed into memory. ``round_hook`` (tests, the
+    chaos harness, chip_smoke.py) is called on the daemon loop thread
+    after every completed round with ``(rounds_completed, result)``:
+    the deterministic injection seam.
     """
     bad = unported_flags(args)
     if bad:
@@ -560,9 +706,44 @@ def run_loop(
     stats_fh = None
     watcher = None
     old_sigterm = None
+    bridge = None
+    flightrec = None
+    auditor = None
+    ckpt_mgr = None
+    journal = None
+    # the final checkpoint and --explain belong to a loop that ran
+    ran = False
     # bind the metrics port only once construction can no longer
     # raise; the finally below releases everything built so far
     try:
+        if args.flight_recorder == "true":
+            from poseidon_tpu_torch.obs import FlightRecorder
+
+            flightrec = FlightRecorder(
+                args.flight_dir, metrics=sched_metrics,
+                max_dumps=args.flight_max_dumps, device=args.device,
+            )
+        if args.audit_every > 0:
+            from poseidon_tpu_torch.obs import ShadowAuditor
+
+            auditor = ShadowAuditor(
+                metrics=sched_metrics, sample_every=args.audit_every,
+            )
+        # crash safety (--checkpoint_dir): the checkpoint manager + the
+        # write-ahead actuation journal live side by side in one
+        # directory
+        if args.checkpoint_dir:
+            from poseidon_tpu_torch.ha import (
+                ActuationJournal,
+                CheckpointManager,
+            )
+
+            ckpt_mgr = CheckpointManager(
+                args.checkpoint_dir, metrics=sched_metrics,
+            )
+            journal = ActuationJournal(
+                os.path.join(args.checkpoint_dir, "journal.jsonl")
+            )
         bridge = SchedulerBridge(
             cost_model=args.flow_scheduling_cost_model,
             max_tasks_per_machine=args.max_tasks_per_pu,
@@ -584,6 +765,8 @@ def run_loop(
             express_max_batch=args.express_max_batch,
             stream_windows=args.stream_windows,
             device=args.device,
+            flightrec=flightrec,
+            auditor=auditor,
         )
         # ---- the failure-domain ladder --------------------------------
         # actuation outbox: unreachable POSTs park with jittered backoff
@@ -607,9 +790,18 @@ def run_loop(
             if health is not None:
                 health.set_degraded("outage", active)
 
+        def _outbox_settled(entry, outcome: str) -> None:
+            # the parked actuation landed (or was already visible):
+            # close its journal intent; bridge state was confirmed at
+            # decision time, so nothing moves here
+            if journal is not None and entry.seq:
+                journal.confirmed(entry.seq)
+
         def _outbox_dead(entry) -> None:
             # the wire never healed for this op: give the pod back to
             # the normal failure paths — ONE aging bump for the outage
+            if journal is not None and entry.seq:
+                journal.failed(entry.seq)
             bridge.trace.emit(
                 "OUTBOX_DEAD_LETTER", task=entry.uid,
                 machine=entry.machine, round_num=bridge.round_num,
@@ -626,6 +818,7 @@ def run_loop(
             client,
             dead_letter_s=args.outbox_dead_letter_s,
             metrics=sched_metrics,
+            on_settled=_outbox_settled,
             on_dead_letter=_outbox_dead,
         )
         detector = OutageDetector(
@@ -633,6 +826,29 @@ def run_loop(
         ) if args.outage_threshold > 0 else OutageDetector(
             threshold=1_000_000_000  # never declares; outbox still parks
         )
+        # the SLO engine reads its sources from the metrics registry
+        # and emits SLO_BREACH into the bridge's trace stream
+        slo_engine = None
+        if args.slo:
+            if sched_metrics is None:
+                log.warning(
+                    "--slo needs --metrics_port (the objectives read "
+                    "their sources from the metrics registry); SLO "
+                    "engine disabled"
+                )
+            else:
+                from poseidon_tpu_torch.obs import SloEngine
+
+                slo_engine = SloEngine(
+                    [x for x in
+                     (o.strip() for o in args.slo.split(",")) if x],
+                    metrics=sched_metrics,
+                    trace=bridge.trace,
+                    short_window=args.slo_short_window,
+                    long_window=args.slo_long_window,
+                    burn_threshold=args.slo_burn_threshold,
+                )
+                obs_server.slo = slo_engine
         incremental = args.run_incremental_scheduler == "true"
         pipelined = args.round_pipeline == "true"
         stats_fh = open(args.stats_json, "a") if args.stats_json else None
@@ -686,8 +902,70 @@ def run_loop(
             lane += "+agg"
         bridge.lane = lane
 
+        # ---- warm restore (--restore): rehydrate, replay, resume ------
+        if ckpt_mgr is not None and args.restore == "false":
+            # explicit cold start: the previous boot's state is
+            # disowned, including its journal — a stale intent replayed
+            # at some LATER restart against a cluster that moved on
+            # could evict a healthy pod (discard logs what it drops)
+            journal.discard()
+        elif ckpt_mgr is not None:
+            from poseidon_tpu_torch.ha import replay_journal, restore_bridge
+
+            snap = preloaded if preloaded is not None \
+                else ckpt_mgr.load_latest()
+            if snap is None and args.restore == "true":
+                log.error(
+                    "--restore=true but no loadable checkpoint in %s",
+                    args.checkpoint_dir,
+                )
+                return 1
+            # replay incomplete journaled actuations BEFORE the first
+            # observe/round — on EVERY start, checkpoint or not: the
+            # journal's consistency contract is with the apiserver,
+            # and a crash before the first checkpoint still leaves
+            # intents that must settle exactly once (the observe path
+            # then delivers their effects as ordinary events)
+            outcomes = replay_journal(
+                client, journal.incomplete(), journal=journal,
+                trace=bridge.trace, metrics=sched_metrics,
+                lifecycle=lifecycle,
+            )
+            if any(outcomes.values()):
+                log.info("journal replay outcomes: %s", {
+                    k: v for k, v in outcomes.items() if v
+                })
+            if snap is None:
+                log.info(
+                    "no checkpoint in %s; cold start", args.checkpoint_dir
+                )
+            else:
+                restored_rv = restore_bridge(bridge, snap)
+                bridge.trace.emit(
+                    "RESTORE", round_num=bridge.round_num,
+                    detail={
+                        "round": snap.round_num,
+                        "warm": snap.warm_seed is not None,
+                        "rv": dict(restored_rv),
+                        "checkpoint_unix": snap.created_unix,
+                    },
+                )
+                bridge.trace.flush()
+                if sched_metrics is not None:
+                    sched_metrics.record_restore()
+                if health is not None:
+                    health.mark_restored_warm()
+                if watcher is not None and restored_rv:
+                    watcher.resume(restored_rv)
+                log.info(
+                    "warm restore: checkpoint round %d, %d tasks, %d "
+                    "machines, warm_seed=%s",
+                    snap.round_num, len(snap.tasks), len(snap.machines),
+                    snap.warm_seed is not None,
+                )
+
         # graceful shutdown: SIGTERM finishes the in-flight round,
-        # flushes deltas + trace, and exits 0
+        # flushes deltas + trace + a final checkpoint, and exits 0
         stop = stop_event if stop_event is not None else threading.Event()
         try:
             old_sigterm = signal.signal(
@@ -697,34 +975,78 @@ def run_loop(
             pass  # not the main thread: embedded callers own signals
         if obs_server is not None:
             obs_server.start()
+        ran = True
         return _loop(
             args, client, bridge, watcher, outbox, detector, stop,
             health=health, sched_metrics=sched_metrics,
             stats_fh=stats_fh, incremental=incremental,
             pipelined=pipelined, express=express, stream_k=stream_k,
-            round_hook=round_hook,
+            round_hook=round_hook, journal=journal, ckpt_mgr=ckpt_mgr,
+            flightrec=flightrec, slo_engine=slo_engine, lease=lease,
         )
     finally:
         if old_sigterm is not None:
             signal.signal(signal.SIGTERM, old_sigterm)
         if watcher is not None:
             watcher.stop()
+        if auditor is not None:
+            auditor.stop()
         if compile_sink_set:
             # the sink slot is process-global: a later run_loop in
             # this process must not keep feeding this run's registry
             set_compile_duration_sink(None)
+        if ckpt_mgr is not None and ran:
+            # the final checkpoint: whatever warm state the daemon
+            # held at exit survives to the next boot (or the standby)
+            try:
+                _take_checkpoint(
+                    args, bridge, watcher, ckpt_mgr, journal, final=True
+                )
+            except Exception:
+                log.exception("final checkpoint failed")
+        if journal is not None:
+            journal.close()
         if obs_server is not None:
             obs_server.stop()
+        if args.explain and ran:
+            _explain_at_exit(args, flightrec)
         if stats_fh:
             stats_fh.close()
         if trace_fh:
             trace_fh.close()
 
 
+def _explain_at_exit(args, flightrec) -> None:
+    """The operator's exit question (``--explain``): why did/didn't
+    this pod place — answered from the last captured round, on the
+    daemon's device."""
+    if flightrec is None:
+        log.error(
+            "--explain needs --flight_recorder=true (the explainer "
+            "reads the captured round inputs)"
+        )
+        return
+    from poseidon_tpu_torch.obs.explain import (
+        ExplainError,
+        RoundExplainer,
+        render_explanation,
+    )
+
+    try:
+        ex = RoundExplainer.from_record(
+            flightrec.last_round_record(), device=args.device
+        )
+        print(render_explanation(ex.explain(args.explain)))
+    except ExplainError as e:
+        log.error("--explain %s: %s", args.explain, e)
+
+
 def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
           health, sched_metrics, stats_fh, incremental, pipelined,
-          express, stream_k, round_hook) -> int:
+          express, stream_k, round_hook, journal, ckpt_mgr, flightrec,
+          slo_engine, lease) -> int:
     """The ticks of ``run_loop``, after everything is built."""
+    lifecycle = bridge.lifecycle
 
     def _note_read_success() -> None:
         """A read (poll/LIST) succeeded. That proves the READ path
@@ -778,20 +1100,63 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
                 for typ, task in delta.pod_events:
                     bridge.observe_pod_event(typ, task)
         bridge.note_watch_activity(delta.resyncs, delta.reconnects)
+        if flightrec is not None:
+            # stamp the applied watch position onto the next round's
+            # flight record, so a dump correlates with the apiserver's
+            # event history
+            bridge.flight_rv = watcher.applied_rv
         return True
 
-    def _mark_bind(uid, outcome: str) -> None:
-        """Detector/lifecycle marks for one pool result ("ok" /
-        "rejected" / "parked")."""
+    def _bind_seqs(bindings: dict[str, str]) -> dict:
+        """Journal bind intents (one fsync) BEFORE any POST/confirm.
+        Each intent carries the pod's lifecycle event stamp (wall us)
+        so a restart replay closes the pre-crash timeline."""
+        if journal is None or not bindings:
+            return {}
+        seqs = journal.intents(
+            [{"op": "bind", "uid": u, "machine": m,
+              "t_event_us": (
+                  lifecycle.event_wall_us(u)
+                  if lifecycle is not None else 0
+              )}
+             for u, m in bindings.items()],
+            bridge.round_num,
+        )
+        if lifecycle is not None:
+            for uid in bindings:
+                lifecycle.stamp(uid, "journal")
+        return seqs
+
+    def _rebal_seqs(migrations, preemptions) -> dict:
+        if journal is None or not (migrations or preemptions):
+            return {}
+        ops = [
+            {"op": "evict", "uid": u, "from": frm}
+            for u, frm in preemptions.items()
+        ] + [
+            {"op": "migrate", "uid": u, "machine": to, "from": frm}
+            for u, (frm, to) in migrations.items()
+        ]
+        return journal.intents(ops, bridge.round_num)
+
+    def _mark_bind(seqs, uid, outcome: str) -> None:
+        """Journal/detector/lifecycle marks for one pool result ("ok" /
+        "rejected" / "parked" — a parked bind's intent stays OPEN: the
+        outbox pump closes it when the wire heals)."""
         if outcome == "parked":
             detector.note_failure()
-        elif outcome == "ok":
+            return
+        if outcome == "ok":
             detector.note_success()
-            if bridge.lifecycle is not None:
+            if lifecycle is not None:
                 # stamped on the loop thread as each pool result is
                 # consumed; a no-op for timelines the optimistic
                 # confirm closed
-                bridge.lifecycle.stamp(uid, "posted")
+                lifecycle.stamp(uid, "posted")
+        if journal is not None and seqs:
+            seq = seqs.get(("bind", uid), 0)
+            (journal.confirmed if outcome == "ok"
+             else journal.failed)(seq)
 
     def _post_express(result) -> None:
         """POST one express batch's bindings; rejections re-queue (the
@@ -800,10 +1165,12 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
         confirmed."""
         if result is None or not result.bindings:
             return
+        seqs = _bind_seqs(result.bindings)
         for uid, machine, outcome in _post_bindings(
-            client, bridge, result.bindings, outbox=outbox,
+            client, bridge, result.bindings, journal=journal,
+            seqs=seqs, outbox=outbox,
         ):
-            _mark_bind(uid, outcome)
+            _mark_bind(seqs, uid, outcome)
             if outcome in ("ok", "parked"):
                 bridge.confirm_binding(uid, machine)
             else:
@@ -929,9 +1296,14 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
     rounds = 0
     # round-pipeline state: at most one solve in flight across ticks,
     # plus the finished-but-not-yet-POSTed deltas of the last round
+    # (and their journal intent seqs — written at finish time, before
+    # the optimistic confirms, so a checkpoint taken between rounds is
+    # always consistent with the journal)
     inflight = None
     to_post: dict[str, str] = {}
     to_rebal: tuple[dict, dict] = ({}, {})
+    to_post_seqs: dict = {}
+    to_rebal_seqs: dict = {}
     # express-lane demotion state: full rounds become a periodic
     # correction pass (every --express_correction_rounds ticks) while
     # the express context is live; a dead context forces the round
@@ -952,38 +1324,49 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
             stats_fh.write(json.dumps(vars(s)) + "\n")
             stats_fh.flush()
 
-    def _post_and_revoke(to_post):
+    def _post_and_revoke(to_post, seqs):
         """POST optimistically-confirmed bindings; rejections re-queue
         the pod as unscheduled (counted in SchedulerStats) so it is
         re-offered next round; unreachable POSTs park in the outbox
         (the pod stays confirmed — outage semantics)."""
         for uid, machine, outcome in _post_bindings(
-            client, bridge, to_post, outbox=outbox,
+            client, bridge, to_post, journal=journal, seqs=seqs,
+            outbox=outbox,
         ):
-            _mark_bind(uid, outcome)
+            _mark_bind(seqs, uid, outcome)
             if outcome not in ("ok", "parked"):
                 log.warning("bind POST failed for %s; re-queueing", uid)
                 bridge.binding_failed(uid)
 
     def _flush_pending():
         """POST any deltas still queued from the last finished round."""
-        nonlocal to_post, to_rebal
+        nonlocal to_post, to_rebal, to_post_seqs, to_rebal_seqs
         if to_post:
-            _post_and_revoke(to_post)
+            _post_and_revoke(to_post, to_post_seqs)
             to_post = {}
+            to_post_seqs = {}
         if to_rebal[0] or to_rebal[1]:
             _actuate_rebalance(
                 client, bridge, to_rebal[0], to_rebal[1],
-                confirm=False, outbox=outbox,
+                confirm=False, journal=journal, seqs=to_rebal_seqs,
+                outbox=outbox,
             )
             to_rebal = ({}, {})
+            to_rebal_seqs = {}
 
     def _finish_inflight():
-        """Join the in-flight solve, confirm optimistically, stage the
-        POSTs."""
+        """Join the in-flight solve: journal its deltas' intents (the
+        write-ahead edge — BEFORE the optimistic confirms, so a crash
+        or checkpoint from here on always finds the decisions durably
+        recorded), confirm optimistically, stage the POSTs."""
         nonlocal inflight, to_post, to_rebal
+        nonlocal to_post_seqs, to_rebal_seqs
         result = bridge.finish_round(inflight)
         inflight = None
+        to_post_seqs = _bind_seqs(result.bindings)
+        to_rebal_seqs = _rebal_seqs(
+            result.migrations, result.preemptions
+        )
         # optimistic confirm: the next build sees the new placements
         # now; the POSTs follow in the overlap window and a failure
         # re-queues/restores
@@ -1054,9 +1437,17 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
             # publishes nothing); allocator bookkeeping, outside the
             # round window by design
             sched_metrics.record_live_hbm(bridge.solver.device)
+        if slo_engine is not None:
+            # one SLO evaluation per completed round (the burn-rate
+            # windows are measured in rounds)
+            slo_engine.evaluate(result.stats.round_num)
         rounds += 1
         if round_hook is not None:
             round_hook(rounds, result)
+        if ckpt_mgr is not None:
+            ckpt_mgr.record_age()
+            if rounds % max(args.checkpoint_every, 1) == 0:
+                _take_checkpoint(args, bridge, watcher, ckpt_mgr, journal)
         if args.max_rounds and rounds >= args.max_rounds:
             if flush:
                 _flush_pending()
@@ -1078,15 +1469,24 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
             _flush_pending()
             if outbox.pending:
                 # one immediate best-effort drain (backoff ignored: the
-                # process is leaving); whatever stays parked is lost,
-                # loudly
+                # process is leaving). Whatever stays parked is covered
+                # by the open journal intents — the next boot replays
+                # them idempotently; without a journal the loss is
+                # loud, not silent.
                 outbox.pump(force=True)
-                if outbox.pending:
+                if outbox.pending or journal is None:
                     log.warning(
                         "exiting with %d actuation(s) parked in the "
-                        "outbox", outbox.pending,
+                        "outbox%s", outbox.pending,
+                        "" if journal is not None else
+                        " and NO journal to replay them",
                     )
             return 0
+        if lease is not None and not lease.renew():
+            # leadership lost (partition / apiserver-side expiry): never
+            # schedule against a lock someone else may hold
+            log.error("lease renewal failed; stepping down")
+            return 1
         tick_start = time.perf_counter()
         if outbox.pending:
             # retry parked actuations (jittered backoff per entry; one
@@ -1139,11 +1539,19 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
             else:
                 ticks_since_round = 0
                 result = bridge.run_scheduler()
+                # write-ahead: ALL of this round's intended actuations
+                # hit the journal (one fsync) before the first POST goes
+                # on the wire
+                seqs = _bind_seqs(result.bindings)
+                rebal_seqs = _rebal_seqs(
+                    result.migrations, result.preemptions
+                )
                 if result.bindings:
                     for uid, machine, outcome in _post_bindings(
-                        client, bridge, result.bindings, outbox=outbox,
+                        client, bridge, result.bindings, journal=journal,
+                        seqs=seqs, outbox=outbox,
                     ):
-                        _mark_bind(uid, outcome)
+                        _mark_bind(seqs, uid, outcome)
                         if outcome in ("ok", "parked"):
                             # parked: the decision stands, the outbox
                             # owns the wire (a dead-letter revokes and
@@ -1154,7 +1562,8 @@ def _loop(args, client, bridge, watcher, outbox, detector, stop, *,
                 if result.migrations or result.preemptions:
                     _actuate_rebalance(
                         client, bridge, result.migrations,
-                        result.preemptions, confirm=True, outbox=outbox,
+                        result.preemptions, confirm=True,
+                        journal=journal, seqs=rebal_seqs, outbox=outbox,
                     )
                 if _round_done(result, False):
                     return 0
@@ -1196,6 +1605,10 @@ def main(argv: list[str] | None = None) -> int:
         from poseidon_tpu_torch.service.serve import run_serve
 
         return run_serve(args)
+    if args.standby == "true":
+        from poseidon_tpu_torch.ha.standby import run_standby
+
+        return run_standby(args)
     return run_loop(args)
 
 

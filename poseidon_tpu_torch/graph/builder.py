@@ -798,6 +798,52 @@ class IncrementalFlowGraphBuilder:
         assert cols is not None
         return cols.cpu_milli, cols.mem_kb
 
+    def checkpoint_columns(self) -> BuilderColumns | None:
+        """The patchable column set, checkpoint-clean (ha/checkpoint
+        .py): buffered churn notes are folded in first (the exact
+        O(churn) patch the next build would apply — the state machine
+        is idempotent, so the next build simply finds nothing pending),
+        because a snapshot of half-applied state would prime a restored
+        builder with columns the notes never reached. None while a
+        full rebuild is pending — there is nothing patchable to save.
+        """
+        if self._rebuild is not None or self._cols is None:
+            return None
+        try:
+            self._apply_deltas()
+        except _DeltaUnsupported as e:
+            self.note_full_rebuild(str(e))
+            return None
+        return self._cols
+
+    def restore_columns(self, cols: BuilderColumns) -> None:
+        """Warm-restore priming (ha/checkpoint.py): adopt a
+        checkpointed patchable column set as the cached state, so the
+        first post-restore build patches O(churn) instead of
+        re-extracting the whole cluster. Safe by construction: the
+        next ``build_arrays`` runs the same self-heal verify every
+        delta build runs — a snapshot that does not match the restored
+        cluster degrades to a full rebuild loudly, never to a wrong
+        graph."""
+        self._cols = cols
+        self._merged = None
+        self._uid_pos = {
+            u: i for i, u in enumerate(cols.uids.tolist())
+        }
+        self._run_pos = {
+            u: i for i, u in enumerate(cols.run_uids.tolist())
+        }
+        self._added.clear()
+        self._removed.clear()
+        self._updated.clear()
+        self._aged.clear()
+        self._slot_delta.clear()
+        self._run_added.clear()
+        self._run_removed.clear()
+        self._run_moved.clear()
+        self._run_updated.clear()
+        self._rebuild = None
+
     def build_arrays(
         self,
         cluster: ClusterState,

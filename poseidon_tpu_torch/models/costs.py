@@ -246,6 +246,11 @@ def random_cost(inputs: CostInputs, seed: int = 42) -> torch.Tensor:
     after every multiply and add: a signed int64 product of two 32-bit
     values may wrap, but its low 32 bits are the uint32 product's, and
     ``>> 15`` of a masked (non-negative) value is the logical shift."""
+    return _finish(inputs, _random_hash(inputs, seed))
+
+
+def _random_hash(inputs: CostInputs, seed: int = 42) -> torch.Tensor:
+    """``random_cost`` before ``_finish``."""
     m32 = 0xFFFFFFFF
 
     def u32(x):
@@ -260,9 +265,8 @@ def random_cost(inputs: CostInputs, seed: int = 42) -> torch.Tensor:
     x = x ^ (x >> 12)
     c = (x % 100).to(torch.int32)
     # keep unsched clearly the worst option so random still schedules
-    c = torch.where(_kind(inputs, ArcKind.TASK_TO_UNSCHED),
-                    _i32(COST_CAP // 2, c), c)
-    return _finish(inputs, c)
+    return torch.where(_kind(inputs, ArcKind.TASK_TO_UNSCHED),
+                       _i32(COST_CAP // 2, c), c)
 
 
 # The float models below keep every step in float32, one torch op per
@@ -400,3 +404,221 @@ def get_cost_model(name_or_selector: str | int) -> CostModelFn:
             f"unknown cost model {name!r}; known: {sorted(COST_MODELS)}"
         ) from None
     return fn
+
+
+# ---------------------------------------------------------------------------
+# per-term attribution: the explainer's API (obs/explain.py)
+# ---------------------------------------------------------------------------
+#
+# Each model's cost is, by construction, a SUM of named terms per arc
+# (locality, load, wait-aging, fixed channel fees...). The term
+# functions below recompute each model with the identical expressions,
+# split into those named components (the reference's term names), and
+# ``_overlay_terms`` applies the ``_finish`` overlays (domain clamp,
+# preemption penalty, hysteresis discount) as explicit adjustment terms
+# — so for every arc the term values sum BIT-EXACTLY to the registry
+# model's priced output (asserted by ``arc_cost_terms`` itself at call
+# time). Float-derived quantities (octopus load, wharemap interference,
+# coco fit) are kept as single terms: splitting them would reassociate
+# float arithmetic and break the bit-exactness contract.
+
+
+def _zmask(inputs: CostInputs, mask, value) -> torch.Tensor:
+    z = torch.zeros_like(inputs.kind)
+    if not isinstance(value, torch.Tensor):
+        value = _i32(value, z)
+    return torch.where(mask, value, z)
+
+
+def _trivial_terms(inputs: CostInputs) -> dict[str, torch.Tensor]:
+    return {
+        "unsched_base": _zmask(
+            inputs, _kind(inputs, ArcKind.TASK_TO_UNSCHED), 5 * _SCALE
+        ),
+        "wildcard_base": _zmask(
+            inputs, _kind(inputs, ArcKind.TASK_TO_CLUSTER), 2 * _SCALE
+        ),
+    }
+
+
+def _random_terms(inputs: CostInputs) -> dict[str, torch.Tensor]:
+    # the hash is one indivisible term (there is nothing to attribute)
+    return {"hash": _random_hash(inputs)}
+
+
+def _quincy_terms(inputs: CostInputs) -> dict[str, torch.Tensor]:
+    task = inputs.task.long()
+    total = inputs.task_input[task]
+    remote = torch.clamp(total - inputs.weight, min=0)
+    pref = (_kind(inputs, ArcKind.TASK_TO_MACHINE)
+            | _kind(inputs, ArcKind.TASK_TO_RACK))
+    cluster = _kind(inputs, ArcKind.TASK_TO_CLUSTER)
+    unsched = _kind(inputs, ArcKind.TASK_TO_UNSCHED)
+    wait = torch.clamp(inputs.task_wait[task], max=WAIT_CAP)
+    z = torch.zeros_like(inputs.kind)
+    return {
+        "remote_data": torch.where(
+            pref, remote, torch.where(cluster, total, z)
+        ),
+        "wildcard_base": _zmask(inputs, cluster, _SCALE),
+        "wait_aging": _zmask(inputs, unsched, 5 * _SCALE * wait),
+        "unsched_base": _zmask(inputs, unsched, 5 * _SCALE),
+        "rack_hop": _zmask(
+            inputs, _kind(inputs, ArcKind.RACK_TO_MACHINE), _SCALE // 2
+        ),
+    }
+
+
+def _octopus_terms(inputs: CostInputs) -> dict[str, torch.Tensor]:
+    machine = inputs.machine.long()
+    load = (inputs.machine_load * 100).to(torch.int32)
+    slots = inputs.machine_used_slots * _SCALE
+    routed = (_kind(inputs, ArcKind.CLUSTER_TO_MACHINE)
+              | _kind(inputs, ArcKind.RACK_TO_MACHINE)
+              | _kind(inputs, ArcKind.TASK_TO_MACHINE)
+              | _kind(inputs, ArcKind.MACHINE_TO_SINK))
+    return {
+        "machine_load": _zmask(inputs, routed, load[machine]),
+        "used_slots": _zmask(inputs, routed, slots[machine]),
+        "wildcard_base": _zmask(
+            inputs, _kind(inputs, ArcKind.TASK_TO_CLUSTER), _SCALE
+        ),
+        "unsched_base": _zmask(
+            inputs, _kind(inputs, ArcKind.TASK_TO_UNSCHED),
+            COST_CAP // 4,
+        ),
+    }
+
+
+def _wharemap_terms(inputs: CostInputs) -> dict[str, torch.Tensor]:
+    task = inputs.task.long()
+    hunger = torch.clamp(inputs.task_usage[task]
+                         + _div_f32(inputs.task_cpu[task].to(torch.float32),
+                                    1000.0), 0.1, 8.0)
+    load = inputs.machine_load[inputs.machine.long()]
+    interf = (hunger * load * 100.0).to(torch.int32)
+    direct = (_kind(inputs, ArcKind.TASK_TO_MACHINE)
+              | _kind(inputs, ArcKind.CLUSTER_TO_MACHINE)
+              | _kind(inputs, ArcKind.RACK_TO_MACHINE))
+    return {
+        "interference": _zmask(inputs, direct, interf),
+        "wildcard_base": _zmask(
+            inputs, _kind(inputs, ArcKind.TASK_TO_CLUSTER), 2 * _SCALE
+        ),
+        "unsched_base": _zmask(
+            inputs, _kind(inputs, ArcKind.TASK_TO_UNSCHED),
+            COST_CAP // 4,
+        ),
+    }
+
+
+def _coco_terms(inputs: CostInputs) -> dict[str, torch.Tensor]:
+    task = inputs.task.long()
+    machine = inputs.machine.long()
+    cpu_req = _div_f32(inputs.task_cpu[task].to(torch.float32), 1000.0)
+    mem_req = inputs.task_mem_kb[task].to(torch.float32)
+    cpu_head = torch.clamp(1.0 - inputs.machine_load[machine], min=0.05)
+    mem_head = torch.clamp(inputs.machine_mem_free[machine], min=0.05)
+    fit = torch.maximum(cpu_req / cpu_head,
+                        mem_req / (mem_head * (1 << 20)))
+    sq = torch.clamp(fit, 0.0, 4.0)
+    score = (sq * sq * 100.0).to(torch.int32)
+    placing = (_kind(inputs, ArcKind.TASK_TO_MACHINE)
+               | _kind(inputs, ArcKind.CLUSTER_TO_MACHINE)
+               | _kind(inputs, ArcKind.RACK_TO_MACHINE))
+    unsched = _kind(inputs, ArcKind.TASK_TO_UNSCHED)
+    wait = torch.clamp(inputs.task_wait[task], max=WAIT_CAP)
+    return {
+        "resource_fit": _zmask(inputs, placing, score),
+        "wildcard_base": _zmask(
+            inputs, _kind(inputs, ArcKind.TASK_TO_CLUSTER), 3 * _SCALE
+        ),
+        "wait_aging": _zmask(inputs, unsched, 5 * _SCALE * wait),
+        "unsched_base": _zmask(inputs, unsched, COST_CAP // 4),
+    }
+
+
+COST_TERM_FNS: dict[
+    str, Callable[[CostInputs], dict[str, torch.Tensor]]
+] = {
+    "trivial": _trivial_terms,
+    "random": _random_terms,
+    "quincy": _quincy_terms,
+    "wharemap": _wharemap_terms,
+    "coco": _coco_terms,
+    "octopus": _octopus_terms,
+}
+
+
+def _overlay_terms(
+    inputs: CostInputs, terms: dict[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """Apply the shared ``_finish`` overlays as explicit adjustment
+    terms, so the returned dict sums to the model's final arc cost on
+    every slot (padding slots included — everything masks to 0)."""
+    raw = None
+    for v in terms.values():
+        raw = v if raw is None else raw + v
+    clipped = torch.clamp(raw, 0, COST_CAP).to(torch.int32)
+    running = inputs.task_running[inputs.task.long()]
+    preempt = running & (inputs.kind == int(ArcKind.TASK_TO_UNSCHED))
+    after_pre = torch.where(
+        preempt,
+        torch.clamp(clipped + PREEMPTION_PENALTY, max=DOMAIN_SAFE_COST),
+        clipped,
+    )
+    after_disc = torch.clamp(after_pre - inputs.discount, min=0)
+    out = dict(terms)
+    out["domain_clamp"] = clipped - raw
+    out["preemption_penalty"] = after_pre - clipped
+    out["hysteresis_discount"] = after_disc - after_pre
+    z = torch.zeros_like(inputs.kind)
+    return {k: torch.where(inputs.valid, v, z) for k, v in out.items()}
+
+
+def arc_cost_terms(
+    name_or_selector: str | int, inputs: CostInputs, *, device=None,
+) -> dict[str, np.ndarray]:
+    """Named per-arc cost terms for a registry model, as HOST arrays.
+
+    The returned ``{term_name: int32[E]}`` values sum bit-exactly to
+    ``get_cost_model(name)(inputs)`` on the same inputs — verified at
+    call time (a mismatch raises, so the explainer can never report a
+    breakdown that does not add up to the solver's arc cost). Zero-
+    everywhere terms are kept: consumers drop them per decision.
+    ``inputs`` are host arrays (``build_cost_inputs_host``), priced on
+    ``device`` (None = the card; the pricing is bit-identical on the
+    CPU), or tensors, priced where they live."""
+    name = resolve_cost_model_name(name_or_selector)
+    try:
+        raw_fn = COST_TERM_FNS[name]
+    except KeyError:
+        raise KeyError(
+            f"no term attribution for cost model {name!r}; "
+            f"known: {sorted(COST_TERM_FNS)}"
+        ) from None
+    if not isinstance(inputs.kind, torch.Tensor):
+        from poseidon_tpu_torch.ops.resident import resolve_device
+
+        inputs = inputs.to_device(resolve_device(device))
+    terms_dev = _overlay_terms(inputs, raw_fn(inputs))
+    total_dev = COST_MODELS[name](inputs)
+    # by term name, the order the reference's returns them in (its
+    # host transfer rebuilds the dict with sorted keys); the explainer's
+    # transcript orders equal-sized terms by it
+    terms = {
+        k: v.cpu().numpy().astype(np.int32)
+        for k, v in sorted(terms_dev.items())
+    }
+    total = total_dev.cpu().numpy().astype(np.int32)
+    acc = np.zeros_like(total, np.int64)
+    for v in terms.values():
+        acc += v
+    if not np.array_equal(acc, total.astype(np.int64)):
+        bad = int(np.flatnonzero(acc != total)[0])
+        raise AssertionError(
+            f"term breakdown for model {name!r} does not sum to the "
+            f"priced arc cost (first mismatch at arc {bad}: "
+            f"{int(acc[bad])} != {int(total[bad])})"
+        )
+    return terms

@@ -18,11 +18,23 @@ uses, held against it:
   behind ``python -m poseidon_tpu_torch.trace report``.
 - ``lifecycle``: bounded per-pod timelines closed into
   event-to-confirmed latency histograms.
-
-The flight recorder, explainer, replay, shadow audit and SLO engine
-are not ported yet (ROADMAP.md, Queue 1 item 7).
+- ``flightrec`` + ``replay`` + ``explain``: the anomaly flight
+  recorder keeps the last rounds' full host-side solve inputs in a
+  bounded ring and dumps them (the reference's dump layout);
+  ``python -m poseidon_tpu_torch.obs.replay <dump>`` re-runs them on
+  the card and asserts bit-identity; the explainer attributes a
+  decision's cost to the model's named terms and diagnoses an
+  unscheduled pod.
+- ``audit`` + ``slo``: the shadow auditor re-solves a sampled cluster
+  snapshot on a background thread (CPU pricing + the subprocess
+  oracle — never a launch on the card) and publishes placement regret
+  and a fragmentation index; the SLO engine evaluates declarative
+  objectives with multi-window burn rates, latched ``SLO_BREACH``
+  trace events and the ``/slo`` endpoint.
 """
 
+from poseidon_tpu_torch.obs.audit import ShadowAuditor
+from poseidon_tpu_torch.obs.flightrec import FlightRecorder
 from poseidon_tpu_torch.obs.lifecycle import LifecycleTracker
 from poseidon_tpu_torch.obs.metrics import (
     MetricsRegistry,
@@ -30,12 +42,16 @@ from poseidon_tpu_torch.obs.metrics import (
     build_info,
 )
 from poseidon_tpu_torch.obs.server import HealthState, ObsServer
+from poseidon_tpu_torch.obs.slo import SloEngine
 
 __all__ = [
+    "FlightRecorder",
     "HealthState",
     "LifecycleTracker",
     "MetricsRegistry",
     "ObsServer",
     "SchedulerMetrics",
+    "ShadowAuditor",
+    "SloEngine",
     "build_info",
 ]

@@ -337,10 +337,7 @@ class SchedulerMetrics:
 
     One instance per daemon, shared by the bridge, the resident solver,
     and the watcher. All ``record_*`` methods take host-side values the
-    caller already holds. The families of lanes not ported yet
-    (checkpoints, audit, SLOs, flight recorder) are registered so the
-    exposition names the reference's families; they have no recorder
-    here and stay at zero.
+    caller already holds, under the reference's family names.
     """
 
     def __init__(self, registry: MetricsRegistry):
@@ -687,6 +684,9 @@ class SchedulerMetrics:
         self._resync_window: collections.deque[int] = collections.deque(
             maxlen=STORM_WINDOW
         )
+        # fragmentation SKU labels the last audit published (a drained
+        # class is zeroed, not left at its last value)
+        self._frag_skus: set[str] = set()
 
     # ---- per-round recording (bridge finish/begin path) ---------------
 
@@ -812,6 +812,29 @@ class SchedulerMetrics:
     def record_overload_cleared(self) -> None:
         self.overload.set(0)
 
+    def record_flightrec_dump(self, reason: str) -> None:
+        """One flight-recorder dump written (reason is the recorder's
+        own bounded vocabulary, flightrec.DUMP_REASONS)."""
+        self.flightrec_dumps.inc(reason=reason)
+
+    # ---- crash safety / HA (poseidon_tpu_torch/ha/) ---------------------
+
+    def record_checkpoint(self, nbytes: int) -> None:
+        """One completed checkpoint write (writer thread; host ints —
+        the registry lock is the cross-thread discipline)."""
+        self.checkpoint_bytes.set(nbytes)
+        self.checkpoint_age.set(0.0)
+
+    def record_checkpoint_age(self, age_s: float) -> None:
+        """Loop-thread per-round age refresh (host float)."""
+        self.checkpoint_age.set(age_s)
+
+    def record_journal_replay(self, outcome: str) -> None:
+        self.journal_replays.inc(outcome=outcome)
+
+    def record_restore(self) -> None:
+        self.restores.inc()
+
     # ---- the quality observatory ---------------------------------------
 
     def record_pod_e2c(self, e2c_ms: float, lane: str) -> None:
@@ -836,6 +859,39 @@ class SchedulerMetrics:
         """Trace-ring overwrites since the last round (bridge-reported
         delta; zero increments are free)."""
         self.trace_dropped.inc(n)
+
+    def record_audit(self, res) -> None:
+        """One completed shadow audit (worker thread; host ints — the
+        registry lock is the cross-thread discipline, the same pattern
+        as record_checkpoint)."""
+        self.audit_runs.inc(outcome="error" if res.error else "ok")
+        self.audit_ms.set(res.audit_ms)
+        if res.error:
+            return
+        self.audit_regret.set(res.regret)
+        self.audit_drift.set(res.drift_pods)
+        for sku, slots in res.frag_slots.items():
+            self.audit_frag.set(slots, sku=sku)
+        # a SKU class that drained out of the fleet must not keep
+        # reporting its last capacity forever: zero vanished labels
+        # (labelsets cannot be deleted, so 0 is the tombstone)
+        for sku in self._frag_skus - set(res.frag_slots):
+            self.audit_frag.set(0, sku=sku)
+        self._frag_skus = set(res.frag_slots)
+
+    def record_slo(
+        self, spec: str, *, healthy: bool, burn_short: float,
+        burn_long: float, value, breached: bool,
+    ) -> None:
+        """One objective's evaluation tick (SLO engine, loop thread;
+        ``spec`` is operator-declared, bounded by construction)."""
+        self.slo_healthy.set(1 if healthy else 0, slo=spec)
+        self.slo_burn.set(burn_short, slo=spec, window="short")
+        self.slo_burn.set(burn_long, slo=spec, window="long")
+        if value is not None:
+            self.slo_value.set(value, slo=spec)
+        if breached:
+            self.slo_breaches.inc(slo=spec)
 
     # ---- device telemetry ----------------------------------------------
 

@@ -297,3 +297,74 @@ def test_chip_smoke_refuses_without_a_card():
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+HA_OBS_CHAOS_MODULES = (
+    "poseidon_tpu_torch.chaos",
+    "poseidon_tpu_torch.chaos.scenarios",
+    "poseidon_tpu_torch.ha.checkpoint",
+    "poseidon_tpu_torch.ha.journal",
+    "poseidon_tpu_torch.ha.standby",
+    "poseidon_tpu_torch.obs.flightrec",
+    "poseidon_tpu_torch.obs.replay",
+    "poseidon_tpu_torch.obs.explain",
+    "poseidon_tpu_torch.obs.audit",
+    "poseidon_tpu_torch.obs.slo",
+)
+
+_REPLAY_HELP_PROBE = r"""
+import runpy, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.argv = ["poseidon_tpu_torch.obs.replay", "--help"]
+try:
+    runpy.run_module("poseidon_tpu_torch.obs.replay", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = [n for n in sys.modules
+          if n == "poseidon_tpu" or n.startswith("poseidon_tpu.")]
+assert not leaked, leaked
+"""
+
+
+def test_crash_safety_observability_and_chaos_import_without_jax():
+    """The crash-safety, observability and chaos modules import with
+    jax blocked (the daemon's ``--help``, which lists their flags, runs
+    so), and ``python -m poseidon_tpu_torch.obs.replay --help`` works."""
+    out = subprocess.run(
+        [sys.executable, "-c", _DAEMON_PROBE,
+         json.dumps(HA_OBS_CHAOS_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "jax": []}, got
+    out = subprocess.run(
+        [sys.executable, "-c", _REPLAY_HELP_PROBE], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout and "dump" in out.stdout
+
+
+# the 14 flags of ROADMAP Queue 1 item 7, each at a non-default value
+ITEM7_FLAGS = {
+    "flight_recorder": "true", "flight_dir": "fr",
+    "flight_max_dumps": "2", "explain": "pod-00", "audit_every": "2",
+    "slo": "ready", "slo_short_window": "3", "slo_long_window": "30",
+    "slo_burn_threshold": "2.0", "checkpoint_dir": "ckpt",
+    "checkpoint_every": "5", "restore": "false", "standby": "true",
+    "standby_lease_s": "5",
+}
+
+
+def test_unported_flags_table_is_empty_and_item7_flags_parse():
+    from poseidon_tpu_torch import cli
+
+    assert cli.UNPORTED_FLAGS == {}
+    args = cli.parse_args(
+        [f"--{k}={v}" for k, v in ITEM7_FLAGS.items()] + ["--device=cpu"]
+    )
+    defaults = cli.parse_args([])
+    assert cli.unported_flags(args) == []
+    for name in ITEM7_FLAGS:
+        assert getattr(args, name) != getattr(defaults, name), name

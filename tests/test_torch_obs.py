@@ -151,6 +151,8 @@ SCALE_FLAGS = [
     ("mesh_width", "1"),
     ("aggregate_classes", "true"), ("topk_prefs", "2"),
 ]
+# the flags ROADMAP Queue 1 item 7 ported (crash safety, the flight
+# recorder, explainer, audit and SLOs), each at a non-default value
 UNPORTED = [
     ("flight_recorder", "true"), ("flight_dir", "fr"),
     ("flight_max_dumps", "2"), ("explain", "pod-00"),
@@ -162,17 +164,22 @@ UNPORTED = [
 
 
 def test_unported_flags_are_the_listed_ones():
-    assert sorted(port_cli.UNPORTED_FLAGS) == sorted(f for f, _ in UNPORTED)
+    """Every module is ported: the table of unported flags is empty,
+    and each flag it used to list is an option of the parser."""
+    assert port_cli.UNPORTED_FLAGS == {}
+    options = vars(port_cli.parse_args([]))
+    assert all(flag in options for flag, _ in UNPORTED)
 
 
 def test_unported_flags_take_the_reference_defaults():
-    """Each unported flag defaults as the reference's does, and a
-    flagfile that spells every one of them at that default loads."""
+    """Each formerly unported flag defaults as the reference's does,
+    and a flagfile that spells every one of them at that default
+    loads."""
     ref = vars(ref_cli.build_parser().parse_args([]))
     port = vars(port_cli.parse_args([]))
-    for name in port_cli.UNPORTED_FLAGS:
+    for name, _ in UNPORTED:
         assert port[name] == ref[name], name
-    spelled = [f"--{name}={ref[name]}" for name in port_cli.UNPORTED_FLAGS]
+    spelled = [f"--{name}={ref[name]}" for name, _ in UNPORTED]
     args = port_cli.parse_args(spelled)
     assert port_cli.unported_flags(args) == []
     # every option of the reference's parser is one the port knows
@@ -181,40 +188,39 @@ def test_unported_flags_take_the_reference_defaults():
 
 @pytest.mark.parametrize("flag,value", SCALE_FLAGS + UNPORTED)
 def test_unported_flag_exits_with_an_error(flag, value, capsys):
-    if (flag, value) in SCALE_FLAGS:
-        # ported: the flag parses at the value, leaves the unported
-        # table, and the daemon's bridge takes it
-        args = port_cli.parse_args(["--device=cpu", f"--{flag}={value}"])
-        assert flag not in port_cli.UNPORTED_FLAGS
-        assert port_cli.unported_flags(args) == []
-        assert str(getattr(args, flag)) == value
-        return
-    with pytest.raises(SystemExit) as exc:
-        port_cli.parse_args(["--device=cpu", f"--{flag}={value}"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"--{flag}" in err and "not ported" in err
-    # a namespace built past parse_args is refused by run_loop too
-    args = port_cli.parse_args(["--device=cpu"])
-    setattr(args, flag, port_cli.build_parser().parse_args(
-        [f"--{flag}={value}"]).__dict__[flag])
-    with pytest.raises(NotImplementedError, match=f"--{flag}"):
-        port_cli.run_loop(args)
-    # the reference's default values pass
-    assert port_cli.unported_flags(port_cli.parse_args([])) == []
+    """Every flag is ported now: it parses at the value, is absent
+    from the unported table, and the parsed value is the reference's
+    parse of the same spelling. (The name is kept from when these flags
+    were refused; it checks that none is.)"""
+    args = port_cli.parse_args(["--device=cpu", f"--{flag}={value}"])
+    assert flag not in port_cli.UNPORTED_FLAGS
+    assert port_cli.unported_flags(args) == []
+    ref = ref_cli.build_parser().parse_args([f"--{flag}={value}"])
+    assert getattr(args, flag) == getattr(ref, flag)
+    assert getattr(args, flag) != getattr(port_cli.parse_args([]), flag)
+    assert capsys.readouterr().err == ""
 
 
 @pytest.mark.parametrize("option", [
-    {"flightrec": object()}, {"auditor": object()},
+    {"flightrec": "recorder"}, {"auditor": "auditor"},
     {"mesh_width": 1}, {"aggregate_classes": True}, {"topk_prefs": 2},
 ])
-def test_unported_bridge_options_raise(option):
+def test_unported_bridge_options_raise(option, tmp_path):
+    """No bridge option raises any more: the flight recorder and the
+    shadow auditor ride the bridge, the scale lane's options reach its
+    solver. (The name is kept from when these options raised; it checks
+    that none does.)"""
     from poseidon_tpu_torch.bridge import SchedulerBridge
+    from poseidon_tpu_torch.obs import FlightRecorder, ShadowAuditor
 
     (name, value), = option.items()
     if name in ("flightrec", "auditor"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            SchedulerBridge(device="cpu", **option)
+        value = (FlightRecorder(str(tmp_path)) if name == "flightrec"
+                 else ShadowAuditor(background=False))
+        bridge = SchedulerBridge(device="cpu", **{name: value})
+        assert getattr(bridge, name) is value
+        if name == "flightrec":
+            assert value.device == bridge.solver.device
         return
     # the scale lane's options are ported: the bridge's solver takes them
     bridge = SchedulerBridge(device="cpu", **option)
