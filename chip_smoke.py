@@ -280,7 +280,29 @@ Phases (each prints its own lines):
    K1-K3 through its outage, node storm and post-fault burst: every
    invariant holds, every dense round equals the oracle with one fetch
    a solve, a dense round follows every fault, ``rounds_to_recover``
-   printed.
+   printed;
+17. analysis: the contract checker (``poseidon_tpu_torch.analysis``) on
+   the card: (a) the whole tree with the suppression audit, 0
+   violations, the files scanned and the seconds printed; (b) the op
+   census of the six audited entries (``optrace_check.record_entries(
+   "cuda")``, the same tiny instance) equal to the pinned CPU census
+   (``analysis/op_fingerprints.json``), no float64, no host read outside
+   ``SyncCounter.read``, no device move inside an entry; (c) the runtime
+   sync map: a flagship cold round, a churned warm round, an express
+   batch of 16 arrivals and an 8-window stream flush on one solver under
+   ``torch.cuda.set_sync_debug_mode("warn")`` (warnings from every
+   thread, the round's fetch worker included, each attributed to the
+   innermost port frame): each window's synchronising calls inside
+   ``SyncCounter.read`` equal the solver's own counters, every other one
+   is a ``Contracts.sync_sites`` upload, and static PTA001 names every
+   site the card reported;
+18. adversarial: all 240 trials of the adversarial fuse sweep
+   (``poseidon_tpu_torch.adversarial``: six cost models over 2-40
+   machines x 2-150 tasks) on the card over 4 processes: every
+   converged dense solve equal to the C++ oracle, every exhausted one
+   exact through ``solve_scheduling``, the exhausted list equal to the
+   reference's (``ADVERSARIAL_EXHAUSTED``), K1-K3 launched; the
+   exhausted count and a trial's p50 and max wall printed.
 
 Each phase prints its seconds. ``--phases=a,b`` runs only the named
 phases after the build, prints no record and no contract line (a quick
@@ -5647,6 +5669,274 @@ def chaos_phase(torch, card: str) -> None:
         f"{scaled['fault_clear_round']}")
 
 
+# ---- the contract checker on the card --------------------------------
+
+SYNC_WARNING = "synchronizing CUDA operation"
+SYNC_ARRIVALS = 16               # the express phase's batch width
+SYNC_WINDOWS = 8                 # the stream phase's flush
+
+
+def _port_frame():
+    """(path, line) of the innermost ``poseidon_tpu_torch`` frame of the
+    calling thread, and whether that frame is ``SyncCounter.read`` (then
+    the path and line are its caller's)."""
+    import pathlib
+
+    pkg = str(pathlib.Path(__file__).resolve().parent / "poseidon_tpu_torch")
+    root = pathlib.Path(__file__).resolve().parent
+    f = sys._getframe(2)
+    while f is not None:
+        fn = f.f_code.co_filename
+        if fn.startswith(pkg) and "/analysis/" not in fn:
+            if fn.endswith("guards.py") and f.f_code.co_name == "read":
+                caller = f.f_back
+                rel = pathlib.Path(caller.f_code.co_filename).resolve()
+                return rel.relative_to(root).as_posix(), caller.f_lineno, True
+            return (pathlib.Path(fn).resolve().relative_to(root).as_posix(),
+                    f.f_lineno, False)
+        f = f.f_back
+    return None, 0, False
+
+
+def sync_map(torch, fn):
+    """Run ``fn()`` with the card's sync debug mode at "warn" and return
+    (result, [(path, line, via_read), ...]): one entry per synchronising
+    call, from every thread (the round's fetch worker included),
+    attributed to the innermost port frame."""
+    import threading
+    import warnings
+
+    sites = []
+    lock = threading.Lock()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING in str(message):
+            site = _port_frame()
+            with lock:
+                sites.append(site)
+
+    with warnings.catch_warnings():
+        # "always": the default filter drops repeats from one location
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def _enclosing_function(path: str, line: int) -> str | None:
+    """The qualname of the innermost def around ``path:line``."""
+    import ast
+    import pathlib
+
+    from poseidon_tpu_torch.analysis.rules import iter_functions
+
+    tree = ast.parse(pathlib.Path(path).read_text())
+    best = None
+    for fn, qual, _d in iter_functions(tree):
+        if fn.lineno <= line <= (fn.end_lineno or fn.lineno):
+            if best is None or fn.lineno >= best[0]:
+                best = (fn.lineno, qual)
+    return best[1] if best else None
+
+
+def check_sync_window(label: str, sites, expected_reads: int,
+                      inventory, sanctioned) -> dict:
+    """Hold one window's runtime sync map to the solver's own counters,
+    the contracts' sanctioned sites and the static PTA001 inventory."""
+    import collections
+
+    reads = [s for s in sites if s[2]]
+    other = collections.Counter((p, ln) for p, ln, via in sites if not via)
+    if len(reads) != expected_reads:
+        raise AssertionError(
+            f"[analysis] {label}: {len(reads)} synchronising reads through "
+            f"SyncCounter.read, the solver counted {expected_reads}")
+    unattributed = [s for s in sites if s[0] is None]
+    if unattributed:
+        raise AssertionError(f"[analysis] {label}: {len(unattributed)} "
+                             "synchronising calls outside the port")
+    by_path = collections.defaultdict(list)
+    for d in inventory:
+        by_path[d["path"]].append(d)
+    for (path, line), n in sorted(other.items()):
+        qual = _enclosing_function(path, line)
+        if (path, qual) not in sanctioned:
+            raise AssertionError(
+                f"[analysis] {label}: {n} synchronising call(s) at "
+                f"{path}:{line} ({qual}), not a SyncCounter.read nor a "
+                "Contracts.sync_sites entry")
+        if not any(d["start"] <= line <= d["end"] for d in by_path[path]):
+            raise AssertionError(
+                f"[analysis] {label}: {path}:{line} ({qual}) synchronised "
+                "on the card, and static PTA001 does not name it")
+    for path, line, _via in reads:
+        if not any(d["kind"] == "read" and d["start"] <= line <= d["end"]
+                   for d in by_path[path]):
+            raise AssertionError(
+                f"[analysis] {label}: the read at {path}:{line} is not in "
+                "static PTA001's inventory")
+    sites_n = {f"{p}:{ln}": n for (p, ln), n in sorted(other.items())}
+    log(f"[analysis] sync map {label}: {len(sites)} synchronising calls = "
+        f"{len(reads)} SyncCounter.read (solver counters "
+        f"{expected_reads}) + {sum(other.values())} declared uploads "
+        f"{sites_n}")
+    return {"reads": len(reads), "uploads": sum(other.values())}
+
+
+def sync_arrivals(res, window: int, n: int, n_machines: int):
+    """``n`` seeded express arrivals, each preferring one machine."""
+    return res.ExpressBatch(arrivals=[
+        res.ExpressArrival(
+            uid=f"sync-{window}-{k}", wait_rounds=0, cpu_milli=250,
+            mem_kb=1 << 18,
+            prefs=(((window * 131 + k * 37) % n_machines, -1, 5),),
+        )
+        for k in range(n)
+    ])
+
+
+def analysis_phase(torch, card: str) -> None:
+    """The contract checker on the card: the static run, the op census
+    of the audited entries on the card against the pinned CPU census,
+    and the runtime sync map of a flagship cold round, a warm round, an
+    express batch and a stream flush."""
+    import pathlib
+
+    from poseidon_tpu_torch.analysis import DEFAULT_CONTRACTS
+    from poseidon_tpu_torch.analysis.core import analyze_and_audit
+    from poseidon_tpu_torch.analysis.optrace_check import (
+        record_entries, run_optrace_audit,
+    )
+    from poseidon_tpu_torch.analysis.rules import sync_inventory
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.ops import resident as res
+    from poseidon_tpu_torch.synth import config2_quincy_flagship
+
+    root = pathlib.Path(__file__).resolve().parent
+    # (a) the whole tree, with the suppression audit
+    t0 = time.perf_counter()
+    vs, n_files = analyze_and_audit(root)
+    static_s = time.perf_counter() - t0
+    for v in vs:
+        log(f"[analysis] {v.path}:{v.line}: {v.code} {v.message}")
+    log(f"[analysis] static: {len(vs)} violations in {n_files} files, "
+        f"{static_s:.2f} s | {card}")
+    if vs:
+        raise AssertionError(f"[analysis] {len(vs)} static violations")
+
+    # (b) the op census of the audited entries, recorded on the card
+    t0 = time.perf_counter()
+    recs = record_entries("cuda")
+    found, n_entries = run_optrace_audit(root, recordings=recs)
+    for v in found:
+        log(f"[analysis] {v.path}:{v.line}: {v.code} {v.message}")
+    for name, r in recs.items():
+        kern = {k[len('kernel.'):]: v for k, v in r.census.items()
+                if k.startswith("kernel.")}
+        log(f"[analysis] census {name} (cuda): "
+            f"{sum(r.census.values())} ops, "
+            f"{r.census.get('SyncCounter.read', 0)} reads, kernels {kern}, "
+            f"device moves {sum(r.transfers.values())}")
+    log(f"[analysis] census: {n_entries} entries on the card, "
+        f"{len(found)} problems, {time.perf_counter() - t0:.2f} s")
+    if found:
+        raise AssertionError(f"[analysis] op census: {len(found)} problems")
+
+    # (c) the runtime sync map at the main path's, the express phase's
+    # and the stream phase's shapes
+    inventory = sync_inventory(root)
+    sanctioned = {(p, q) for p, q, _why in DEFAULT_CONTRACTS.sync_sites}
+    cluster = config2_quincy_flagship(seed=0)
+    warm_cluster = churn(cluster, 1)
+    built = [FlowGraphBuilder().build_arrays(c)
+             for c in (cluster, warm_cluster)]
+    solver = res.ResidentSolver(
+        device="cuda", small_to_oracle=False, express_lane=True,
+        express_max_batch=SYNC_ARRIVALS, stream_windows=SYNC_WINDOWS)
+    n_machines = len(cluster.machines)
+    for label, c, (arrays, meta) in (("cold round", cluster, built[0]),
+                                     ("warm round", warm_cluster, built[1])):
+        out, sites = sync_map(torch, lambda: solver.run_round(
+            arrays, meta, cost_model="quincy",
+            cost_input_kwargs=cost_kwargs(c)))
+        if out.backend != "dense_auction" or not out.converged:
+            raise AssertionError(f"[analysis] {label}: {out.backend}")
+        check_sync_window(label, sites, solver.last_round_fetches
+                          + solver.last_round_loop_syncs, inventory,
+                          sanctioned)
+    batch = sync_arrivals(res, 0, SYNC_ARRIVALS, n_machines)
+    out, sites = sync_map(torch, lambda: solver.express_round(batch))
+    if not out.ok:
+        raise AssertionError(f"[analysis] express batch: {out.reason}")
+    check_sync_window("express batch", sites, solver.last_round_fetches
+                      + solver.last_round_loop_syncs, inventory, sanctioned)
+
+    def flush():
+        for w in range(1, SYNC_WINDOWS + 1):
+            got = solver.stream_window(
+                sync_arrivals(res, w, SYNC_ARRIVALS, n_machines))
+            if not got.ok:
+                raise AssertionError(f"[analysis] window {w}: {got.reason}")
+        solver.stream_flush()
+        return solver.stream_finish()
+
+    out, sites = sync_map(torch, flush)
+    if out is None:
+        raise AssertionError("[analysis] stream flush: no outcome")
+    check_sync_window("stream flush", sites, solver.last_stream_fetches
+                      + solver.last_round_loop_syncs, inventory, sanctioned)
+
+
+# the reference's exhausted trials of the adversarial sweep (its
+# script's (trial, model, M, T) list, from tests/test_torch_adversarial.py
+# ::test_full_sweep_exhausted_list_matches_reference, which runs all 240
+# trials through both packages on the CPU)
+ADVERSARIAL_EXHAUSTED = (
+    (11, "random", 37, 134), (29, "random", 19, 72),
+    (76, "octopus", 15, 74), (83, "random", 30, 124),
+    (92, "coco", 10, 75), (158, "coco", 14, 115),
+    (161, "random", 37, 46), (203, "random", 36, 135),
+)
+ADVERSARIAL_WORKERS = 4          # processes, each its own CUDA context
+
+
+def adversarial_phase(torch, card: str) -> None:
+    """All 240 trials of the adversarial fuse sweep on the card."""
+    from poseidon_tpu_torch import adversarial
+
+    t0 = time.perf_counter()
+    records, launches = adversarial.sweep(
+        adversarial.TRIALS, "cuda", workers=ADVERSARIAL_WORKERS)
+    wall = time.perf_counter() - t0
+    wrong = [r for r in records if r.wrong]
+    ex = adversarial.exhausted(records)
+    walls = sorted(r.wall_s for r in records)
+    log(f"[adversarial] {len(records)} trials in {wall:.1f} s over "
+        f"{ADVERSARIAL_WORKERS} processes: exhausted {len(ex)} {ex}, "
+        f"wrong {len(wrong)}, wall a trial p50 {percentile(walls, 50):.3f} s "
+        f"max {walls[-1]:.3f} s | launches "
+        f"{ {k: launches.get(k, 0) for k in ROUND_KERNELS} } | {card}")
+    for r in records:
+        if not r.converged or r.wall_s >= 1.0:
+            log(f"[adversarial] trial {r.trial} {r.model} M={r.M} T={r.T}: "
+                f"converged={r.converged} rounds={r.rounds} cost={r.cost} "
+                f"oracle={r.oracle_cost} front={r.front_cost} "
+                f"wall_s={r.wall_s:.3f}")
+    if wrong:
+        raise AssertionError(f"[adversarial] wrong trials: {wrong}")
+    if tuple(ex) != ADVERSARIAL_EXHAUSTED:
+        raise AssertionError(f"[adversarial] exhausted {ex} != the "
+                             f"reference's {ADVERSARIAL_EXHAUSTED}")
+    idle = [k for k in ROUND_KERNELS if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"[adversarial] kernels not launched: {idle}")
+
+
 def main() -> int:
     import torch
 
@@ -5744,6 +6034,10 @@ def main() -> int:
               None if keep_dir is None else f"{keep_dir}/audits")
     if want("chaos"):
         phase("chaos", chaos_phase, torch, smi)
+    if want("analysis"):
+        phase("analysis", analysis_phase, torch, smi)
+    if want("adversarial"):
+        phase("adversarial", adversarial_phase, torch, smi)
     if only is not None and "ha_control" in only:
         phase("ha_control", ha_control_phase, torch, smi)
     log("[done] phase seconds: " + ", ".join(

@@ -6,11 +6,15 @@ and ``in``, K11 ``ssp_augment``, K6 ``perturb``), and the express and stream lan
 what surrounds them), of one or more checkouts on one GPU, in turns, in
 one run.
 
-    python3 kernel_ab.py [--parts=window,kernels] ROOT [ROOT ...]
+    python3 kernel_ab.py [--parts=window,kernels,syncs] ROOT [ROOT ...]
 
-``--parts`` names what to measure (both by default): ``window`` the
-lanes (``window_lanes``: its note says what each number is), ``kernels``
-the rest below.
+``--parts`` names what to measure (``window`` and ``kernels`` by
+default): ``window`` the lanes (``window_lanes``: its note says what
+each number is), ``kernels`` the rest below, ``syncs`` the flagship's
+synchronising calls (``sync_rounds``: a cold and three churned warm
+rounds under ``torch.cuda.set_sync_debug_mode("warn")``, each call
+counted and split into ``SyncCounter.read`` and the rest, beside the
+solver's own counters and the round's wall).
 
 Each ROOT is the root of a checkout of this repository (for example a
 ``git archive`` of an older commit unpacked into a directory that
@@ -104,7 +108,8 @@ import subprocess
 import sys
 import time
 
-PARTS = ("window", "kernels")
+PARTS = ("window", "kernels", "syncs")
+DEFAULT_PARTS = ("window", "kernels")
 # K8's shapes: the flagship's table (a width-1 mesh's one shard) and
 # config 8's aggregated table
 GAP_SHAPES = ((10240, 1024), (524288, 256))
@@ -115,11 +120,12 @@ HOST_BATCHES = 7
 SLEEP_CYCLES = 1_000_000
 
 
-def worker(root: str, parts: tuple[str, ...] = PARTS) -> dict:
+def worker(root: str, parts: tuple[str, ...] = DEFAULT_PARTS) -> dict:
     # every worker on the same one core, so host times compare
     os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [root] + [d for d in sys.path if os.path.abspath(d or ".") != here]
+    sys.modules.pop("chip_smoke", None)
     import numpy as np
     import torch
 
@@ -139,6 +145,8 @@ def worker(root: str, parts: tuple[str, ...] = PARTS) -> dict:
     }
     out = {"root": root, "package": poseidon_tpu_torch.__file__, "ptxas": regs}
     dev = torch.device("cuda")
+    if "syncs" in parts:
+        out["syncs"] = sync_rounds(torch)
     if "window" in parts:
         out.update(window_lanes(torch, dev))
     if "kernels" not in parts:
@@ -854,8 +862,65 @@ def window_lanes(torch, dev, K: int = 8, n: int = 16) -> dict:
     return out
 
 
+def sync_rounds(torch, rounds: int = 4) -> list[dict]:
+    """The flagship (``config2_quincy_flagship(seed=0)``, the checkout's
+    own ``chip_smoke.churn`` a warm round) through the checkout's own
+    ``ResidentSolver`` on the card: per round the synchronising calls
+    the card's sync debug mode reports from every thread, the ones made
+    inside ``SyncCounter.read``, the solver's own count (fetches + loop
+    reads) and the round's wall ms."""
+    import warnings
+
+    from chip_smoke import churn, cost_kwargs
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.ops.resident import ResidentSolver
+    from poseidon_tpu_torch.synth import config2_quincy_flagship
+
+    clusters = [config2_quincy_flagship(seed=0)]
+    for r in range(1, rounds):
+        clusters.append(churn(clusters[-1], r))
+    built = [FlowGraphBuilder().build_arrays(c) for c in clusters]
+    solver = ResidentSolver(device="cuda", small_to_oracle=False)
+    out = []
+    for c, (arrays, meta) in zip(clusters, built):
+        calls = []
+
+        def show(message, *a, **k):
+            if "synchronizing CUDA operation" in str(message):
+                f = sys._getframe(1)
+                via = False
+                while f is not None:
+                    if f.f_code.co_filename.endswith("guards.py") and \
+                            f.f_code.co_name == "read":
+                        via = True
+                        break
+                    f = f.f_back
+                calls.append(via)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                o = solver.run_round(arrays, meta, cost_model="quincy",
+                                     cost_input_kwargs=cost_kwargs(c))
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            wall = (time.perf_counter() - t0) * 1e3
+        out.append({
+            "calls": len(calls), "in_read": sum(calls),
+            "counted": solver.last_round_fetches
+            + solver.last_round_loop_syncs,
+            "rounds": o.rounds, "cost": o.cost, "wall_ms": wall,
+        })
+    return out
+
+
 def main(argv: list[str]) -> int:
-    parts = PARTS
+    parts = DEFAULT_PARTS
     if argv and argv[0].startswith("--parts="):
         parts = tuple(argv.pop(0).split("=", 1)[1].split(","))
         if not set(parts) <= set(PARTS):

@@ -228,7 +228,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatch; the memory budget may split a wave "
                         "into smaller chunks regardless (each chunk "
                         "is one upload + one batched fetch)")
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default="cuda",  # noqa: PTA005 -- the port's own flag: deploy/poseidon-tpu.cfg is the reference's deployment file, which the port leaves as it is; README's port section documents it
                    help="the solver's torch device: cuda (default; "
                         "raises without a card), cuda:N, or cpu")
     p.add_argument("--max_solver_runtime", type=int,

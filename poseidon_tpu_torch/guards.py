@@ -26,6 +26,14 @@ feeds it to the compile-latency histogram).
 the reference compiles: ``nvcc`` builds and new kernel launch plans
 (``note_build``, called by the loader and the plan caches). The service
 and stream lanes assert it stays at 0 in steady state.
+
+``census`` is the seam of the op-trace audit
+(``analysis/optrace_check.py``): while a recorder is active, a
+``SyncCounter.read`` and each hand kernel's wrapper
+(``kernels._args.census_op``) tell it where they begin and end, so the
+audit counts each as one op under its own name — the same census on
+the CPU (the twins) and on the card (the kernels). With no recorder it
+costs one list test.
 """
 
 from __future__ import annotations
@@ -49,6 +57,28 @@ class GuardError(ValueError):
     """A host guard refused the instance before any launch."""
 
 
+# the active op-trace recorders (analysis/optrace_check.py)
+_census: list = []
+
+
+class census:
+    """``with census(name):`` marks one counted op (a sanctioned read or
+    a hand kernel) for every active op-trace recorder."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> None:
+        for r in _census:
+            r.enter(self.name)
+
+    def __exit__(self, *exc) -> None:
+        for r in reversed(_census):
+            r.exit(self.name)
+
+
 class SyncCounter:
     """Counts sanctioned device->host reads. ``read`` is the only way
     the solve loop and the result fetch bring device values to the
@@ -59,6 +89,9 @@ class SyncCounter:
 
     def read(self, t: torch.Tensor) -> np.ndarray:
         self.count += 1
+        if _census:
+            with census("SyncCounter.read"):
+                return t.detach().to("cpu").numpy()
         return t.detach().to("cpu").numpy()
 
 

@@ -1,8 +1,29 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks shared by the kernel wrappers, and the op-trace
+seam every wrapper carries."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from poseidon_tpu_torch import guards
+
+
+def census_op(name: str):
+    """Decorate a hand kernel's wrapper so that an active op-trace
+    recorder (``analysis/optrace_check.py``) counts one call as one op,
+    ``kernel.<name>``, and records nothing inside it: the kernel on the
+    card and its plain twin on the CPU give the same census."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not guards._census:
+                return fn(*args, **kwargs)
+            with guards.census("kernel." + name):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -22,7 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
+from poseidon_tpu_torch.kernels._args import (
+    census_op, kernel_arg, on_card, stream_ptr,
+)
 from poseidon_tpu_torch.kernels.cs_sweep import csr_tails
 from poseidon_tpu_torch.kernels.csr_plan import CsrPlan, plan_args
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
@@ -74,6 +76,7 @@ def bf_relax_in_plain(seg, arc, head, mrc, dist_in, dist_out, pred, changed):
     changed.copy_(improved.any().to(torch.int32).reshape(1))
 
 
+@census_op("bf_relax")
 def bf_relax_out(seg, head, ln, d_in, d_out, changed, plan: CsrPlan):
     """One round of the global price update: ``seg`` int32[NN + 1],
     ``head`` int32[2F], ``ln`` int64[2F] (INF_K where no residual
@@ -100,6 +103,7 @@ def bf_relax_out(seg, head, ln, d_in, d_out, changed, plan: CsrPlan):
     KERNEL.launches += 1
 
 
+@census_op("bf_relax")
 def bf_relax_in(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
                 plan: CsrPlan):
     """One SSP relaxation round: ``seg`` int32[NN + 1], ``arc``/``head``/

@@ -13,7 +13,7 @@ import torch
 
 from poseidon_tpu_torch.kernels import row_stream
 from poseidon_tpu_torch.kernels._args import (
-    kernel_arg, on_card, sm_count, stream_ptr,
+    census_op, kernel_arg, on_card, sm_count, stream_ptr,
 )
 from poseidon_tpu_torch.kernels.loader import (
     Kernel, check_launch, library, occupancy,
@@ -60,6 +60,7 @@ def bid_pass_plain(c, p, u, btask, bvalid, eps: int, task0: int = 0):
     return m1, b1v, v2, take_uns, beta
 
 
+@census_op("bid_pass")
 def bid_pass(c, p, u, btask, bvalid, eps: int, task0: int = 0):
     """The bid pass over window tasks ``btask[B]`` (``bvalid[B]`` marks
     real slots) at prices p[Mp] and bid increment ``eps``. Under a

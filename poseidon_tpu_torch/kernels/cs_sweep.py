@@ -21,7 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
+from poseidon_tpu_torch.kernels._args import (
+    census_op, kernel_arg, on_card, stream_ptr,
+)
 from poseidon_tpu_torch.kernels.csr_plan import CsrPlan, plan_args
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
 
@@ -87,6 +89,7 @@ def cs_sweep_plain(seg, arc, head, cost, fcap, flow, excess_in, price_in,
     price_out.copy_(torch.where(active & ~has_adm, price_in - eps, price_in))
 
 
+@census_op("cs_sweep")
 def cs_sweep(seg, arc, head, cost, fcap, flow, excess_in, price_in,
              eps: int, excess_out, price_out, plan: CsrPlan):
     """One discharge sweep at ``eps``. ``seg`` int32[NN + 1], ``arc``/

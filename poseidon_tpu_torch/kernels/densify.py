@@ -15,7 +15,7 @@ import torch
 
 from poseidon_tpu_torch.kernels import row_stream, tile_stream
 from poseidon_tpu_torch.kernels._args import (
-    kernel_arg, on_card, sm_count, stream_ptr,
+    census_op, kernel_arg, on_card, sm_count, stream_ptr,
 )
 from poseidon_tpu_torch.kernels.loader import (
     Kernel, check_launch, library, occupancy,
@@ -49,6 +49,7 @@ def densify_plain(w, d, ra, rack_of, slots, pc, pm, pr, n_prefs: int):
     return torch.where(slots[None, :] > 0, c, INF)
 
 
+@census_op("densify")
 def densify(w, d, ra, rack_of, slots, pc, pm, pr, n_prefs: int):
     """c[Tp, Mp] int32 from the channel arrays: w[Tp], d/ra/rack_of/
     slots[Mp], pc/pm/pr[Tp, Pw] with ``n_prefs <= Pw`` live columns.

@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
+from poseidon_tpu_torch.kernels._args import (
+    census_op, kernel_arg, on_card, stream_ptr,
+)
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
 
 INF = 2**29
@@ -69,6 +71,7 @@ def express_patch_plain(src, dst, backlog):
     return dst
 
 
+@census_op("express_patch")
 def express_patch(src, dst, backlog):
     """Apply a backlog int32[n_chunks, 3, W] (rows, cols, deltas; -1 =
     unused entry) from ``src`` = (u, w, valid, s, asg, lvl) into ``dst``

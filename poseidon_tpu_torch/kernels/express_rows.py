@@ -16,7 +16,9 @@ import ctypes
 
 import torch
 
-from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
+from poseidon_tpu_torch.kernels._args import (
+    census_op, kernel_arg, on_card, stream_ptr,
+)
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
 
 INF = 2**29
@@ -82,6 +84,7 @@ def express_rows_plain(c, w_s, pc_s, add_row, add_pm, add_pr, dgen, ra_s,
     return asg0, lvl0
 
 
+@census_op("express_rows")
 def express_rows(c, w_s, pc_s, add_row, add_pm, add_pr, dgen, ra_s, rack_of,
                  s, vectors=None, c_saved=None, row0: int = 0):
     """The window's head. ``c`` [rows, Mp] holds the table's rows from

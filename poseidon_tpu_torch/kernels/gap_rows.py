@@ -22,7 +22,7 @@ import torch
 
 from poseidon_tpu_torch.kernels import row_stream
 from poseidon_tpu_torch.kernels._args import (
-    kernel_arg, on_card, sm_count, stream_ptr,
+    census_op, kernel_arg, on_card, sm_count, stream_ptr,
 )
 from poseidon_tpu_torch.kernels.loader import (
     Kernel, check_launch, library, occupancy,
@@ -110,6 +110,7 @@ def gap_rows_plain(c, u, task_valid, s, lam, asg):
     ])
 
 
+@census_op("gap_rows")
 def gap_rows(c, u, task_valid, s, lam, asg):
     """(primal, b1 sum) int64[2] of one row block: c[rows, Mp] int32,
     u/asg[rows] int32, task_valid[rows] bool, s/lam[Mp] int32. CPU

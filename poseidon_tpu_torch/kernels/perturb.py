@@ -23,7 +23,9 @@ import dataclasses
 
 import torch
 
-from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
+from poseidon_tpu_torch.kernels._args import (
+    census_op, kernel_arg, on_card, stream_ptr,
+)
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
 
 INF = 2**29
@@ -180,6 +182,7 @@ def perturb_plain(c0, u0, w0, dgen0, s, n_variants: int, scale: int,
     return c, u, w, dg, cmax
 
 
+@census_op("perturb")
 def perturb(c0, u0, w0, dgen0, s, n_variants: int, scale: int, seed: int,
             pct: int):
     """Build ``n_variants`` jittered copies of one instance: c0 int32

@@ -14,7 +14,7 @@ import torch
 
 from poseidon_tpu_torch.kernels import row_stream
 from poseidon_tpu_torch.kernels._args import (
-    kernel_arg, on_card, sm_count, stream_ptr,
+    census_op, kernel_arg, on_card, sm_count, stream_ptr,
 )
 from poseidon_tpu_torch.kernels.loader import (
     Kernel, check_launch, library, occupancy,
@@ -41,6 +41,7 @@ def row_options_plain(c, p):
     return b1v, m1, masked.min(dim=1).values
 
 
+@census_op("row_options")
 def row_options(c, p):
     """(b1v, m1, v2) of ``min(c + p, INF)`` per row of c[Tp, Mp] with
     prices p[Mp]. CPU tensors take the plain twin; CUDA tensors launch

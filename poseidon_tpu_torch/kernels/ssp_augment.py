@@ -31,7 +31,9 @@ import ctypes
 
 import torch
 
-from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
+from poseidon_tpu_torch.kernels._args import (
+    census_op, kernel_arg, on_card, stream_ptr,
+)
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
 
 INF = 2**30
@@ -169,6 +171,7 @@ def ssp_step_plain(step: PathStep, first: bool = False) -> None:
     step.pred.fill_(2 * step.F)
 
 
+@census_op("ssp_augment")
 def ssp_augment(step: PathStep, first: bool = False) -> None:
     """One path step of ``step`` (the prologue when ``first``), then flip
     its ``dist`` and ``pot`` buffers. A step on CPU tensors runs the

@@ -21,7 +21,9 @@ from typing import NamedTuple
 
 import torch
 
-from poseidon_tpu_torch.kernels._args import kernel_arg, on_card, stream_ptr
+from poseidon_tpu_torch.kernels._args import (
+    census_op, kernel_arg, on_card, stream_ptr,
+)
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
 
 INF = 2**29
@@ -187,6 +189,7 @@ def stream_commit_plain(log_row, report, valid_n, asg0, asg_f, u_n, cost,
                  n_active)
 
 
+@census_op("stream_commit")
 def stream_commit(log_row, report, valid_n, asg0, asg_f, u_n, cost, Mp: int,
                   conv, domain_ok, change_cap: int,
                   commit: Commit | None = None):
@@ -247,6 +250,7 @@ def stream_commit(log_row, report, valid_n, asg0, asg_f, u_n, cost, Mp: int,
     KERNEL.launches += 1
 
 
+@census_op("stream_commit")
 def stream_restore(live, add_row, c_saved, c, Tp: int, row0: int):
     """A dead window's undo in one more shard, after ``stream_commit``
     wrote the window's verdict to ``live``: ``c`` holds the table's rows

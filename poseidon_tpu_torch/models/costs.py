@@ -160,7 +160,9 @@ def build_cost_inputs_host(
 
 
 def _i32(x: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.int32, device=like.device)
+    """An int32 scalar made on ``like``'s device (a fill, not a blocking
+    upload of host data)."""
+    return torch.full((), x, dtype=torch.int32, device=like.device)
 
 
 def _div_f32(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -168,7 +170,7 @@ def _div_f32(x: torch.Tensor, d: float) -> torch.Tensor:
     divisor is a tensor on ``x``'s device: PyTorch's CUDA division by a
     Python scalar multiplies by the scalar's float32 reciprocal
     instead, which rounds differently from the CPU's division."""
-    return x / torch.tensor(d, dtype=torch.float32, device=x.device)
+    return x / torch.full((), d, dtype=torch.float32, device=x.device)
 
 
 def _finish(inputs: CostInputs, cost: torch.Tensor) -> torch.Tensor:

@@ -253,7 +253,7 @@ class LifecycleTracker:
         if not wait_rounds:
             self.metrics.record_unsched_wait(0.0, 0.0, 0.0)
             return
-        ages = np.asarray(wait_rounds, np.int64)  # noqa: PTA001 -- host ints from the caller's walk, never a device array
+        ages = np.asarray(wait_rounds, np.int64)
         self.metrics.record_unsched_wait(
             float(np.percentile(ages, 50)),
             float(np.percentile(ages, 95)),
@@ -292,7 +292,7 @@ class LifecycleTracker:
         if not wait_rounds:
             self.metrics.record_unsched_wait(0.0, 0.0, 0.0)
             return
-        ages = np.asarray(wait_rounds, np.int64)  # noqa: PTA001 -- host ints from the caller's walk, never a device array
+        ages = np.asarray(wait_rounds, np.int64)
         self.metrics.record_unsched_wait(
             float(np.percentile(ages, 50)),
             float(np.percentile(ages, 95)),

@@ -312,7 +312,7 @@ def solve_heterogeneous(
         stacked = upload_members(stack_members(members, B), device)
         zeros_t = torch.zeros(Tp, dtype=I32, device=device)
         zeros_m = torch.zeros(Mp, dtype=I32, device=device)
-        outs = [
+        outs = [  # noqa: PTA007 -- one-shot convenience lane: solve_heterogeneous plans per shape mix by design; the warm/floored path is BatchDispatcher (service/dispatch.py)
             _solve_member(
                 stacked, b, zeros_t, zeros_t, zeros_m,
                 n_prefs=P, smax=smax, alpha=alpha, max_rounds=max_rounds,

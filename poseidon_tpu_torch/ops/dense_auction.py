@@ -360,7 +360,7 @@ def build_dense_instance(inst: TransportInstance, device) -> DenseInstance:
     t = build_member_tables(inst, Tp, Mp, P)
     g = {k: torch.as_tensor(v).to(device) for k, v in t.items()
          if k not in ("scale", "cmax")}
-    c = _densify(g["w"], g["d"], g["ra"], g["rack_of"], g["slots"],
+    c = _densify(g["w"], g["d"], g["ra"], g["rack_of"], g["slots"],  # noqa: PTA007 -- one-shot solo lane: build_dense_instance plans per instance shape by design; warm rounds ride ResidentSolver's grow-only floors
                  g["pc"], g["pm"], g["pr"], n_prefs=P)
     return DenseInstance(
         c=c, u=g["u"], w=g["w"], dgen=g["d"], s=g["slots"],
@@ -512,7 +512,9 @@ def _lexsort(*keys: torch.Tensor) -> tuple[torch.Tensor, ...]:
 
 
 def _i32(x: int, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=I32, device=device)
+    """An int32 scalar made on ``device`` (a fill: no blocking upload
+    of host data, as ``torch.tensor(x, device=...)`` would be)."""
+    return torch.full((), x, dtype=I32, device=device)
 
 
 def _task_options(dev: DenseInstance, p, with_values: bool = False):
@@ -558,8 +560,11 @@ def _theta_clearing(dev: DenseInstance):
         # seat up to capacity among WEAKLY willing tasks (y >= theta)
         ix = torch.searchsorted(sd, theta[None], right=True)[0]
         idx_t = torch.clamp(torch.clamp(ix - 1, min=0), max=Mp - 1)
+        # a one-element index, not a 0-d one: indexing by a 0-d tensor
+        # reads it to the host (a sync on the card)
         sup_theta = torch.where(
-            ix > 0, cumcap[idx_t], torch.zeros((), dtype=I64, device=device)
+            ix > 0, cumcap[idx_t.reshape(1)].reshape(()),
+            torch.zeros((), dtype=I64, device=device),
         )
         k = torch.minimum(sup_theta, ((y >= theta) & dev.task_valid).sum())
         return theta, k

@@ -1759,10 +1759,10 @@ class ResidentSolver:
         whole inter-round window of batches then shares)."""
         if ctx.ready:
             return
-        ctx.uid_row = {u: i for i, u in enumerate(ctx.meta.task_uids)}
+        ctx.uid_row = {u: i for i, u in enumerate(ctx.meta.task_uids)}  # noqa: PTA002 -- one-time lazy build per round, amortized over every express batch of the inter-round window (not per-event work)
         ctx.row_uid = {i: u for u, i in ctx.uid_row.items()}
         ctx.free_rows = list(range(ctx.Tp - 1, ctx.T - 1, -1))
-        ctx.midx = {n: i for i, n in enumerate(ctx.meta.machine_names)}
+        ctx.midx = {n: i for i, n in enumerate(ctx.meta.machine_names)}  # noqa: PTA002 -- same one-time lazy build as uid_row above
         ctx.rack_idx = {n: i for i, n in enumerate(ctx.meta.rack_names)}
         plan = ctx.agg_plan
         if plan is not None:

@@ -629,7 +629,7 @@ class BatchDispatcher:
             cost=int(cost_np) // (T + 1),
             backend="dense_service",
             converged=True,
-            rounds=int(rounds),
+            rounds=int(rounds),  # noqa: PTA001 -- rounds is a host int: _solve_member returns its (rounds, phases) as Python ints beside the device tuple
             phases=0,
             topology=pending.topo,
             timings=timings,

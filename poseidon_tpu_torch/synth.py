@@ -323,3 +323,48 @@ def config4_trace_replay(
             yield new_tasks, done
 
     return machines, rounds()
+
+
+# ---- the adversarial sweep's shapes (``poseidon_tpu_torch.adversarial``)
+
+
+def random_cluster(
+    rng: np.random.Generator, n_machines: int, n_tasks: int
+) -> ClusterState:
+    """A randomized small cluster with racks, prefs, jobs and running
+    tasks: the reference's test helper (``tests/helpers.py``), with the
+    same draws from ``rng`` in the same order, so one seed gives both
+    packages the same cluster."""
+    return make_synthetic_cluster(
+        n_machines,
+        n_tasks,
+        seed=int(rng.integers(0, 2**31)),
+        machines_per_rack=int(rng.integers(2, max(3, n_machines))),
+        max_tasks_per_machine=int(rng.integers(1, 6)),
+        prefs_per_task=int(rng.integers(0, 4)),
+        tasks_per_job=int(rng.integers(1, 6)),
+        running_fraction=float(rng.choice([0.0, 0.2])),
+    )
+
+
+def price(net, meta, model: str, cluster: ClusterState | None = None,
+          *, device="cpu", **cost_input_kwargs):
+    """Price a built network with a named cost model (the reference's
+    test helper): the pending tasks' cpu and memory requests feed the
+    model, which runs on ``device``; the priced network is on the
+    host."""
+    from poseidon_tpu_torch.models.costs import (
+        build_cost_inputs, get_cost_model,
+    )
+
+    if cluster is not None:
+        pending = cluster.pending()
+        cost_input_kwargs.setdefault(
+            "task_cpu_milli",
+            np.array([int(t.cpu_request * 1000) for t in pending]),
+        )
+        cost_input_kwargs.setdefault(
+            "task_mem_kb", np.array([t.memory_request_kb for t in pending])
+        )
+    inputs = build_cost_inputs(net, meta, device=device, **cost_input_kwargs)
+    return net.with_costs(get_cost_model(model)(inputs))

@@ -368,3 +368,46 @@ def test_unported_flags_table_is_empty_and_item7_flags_parse():
     assert cli.unported_flags(args) == []
     for name in ITEM7_FLAGS:
         assert getattr(args, name) != getattr(defaults, name), name
+
+
+_CHECKER_PROBE = r"""
+import json, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import poseidon_tpu_torch.adversarial
+import poseidon_tpu_torch.analysis
+import poseidon_tpu_torch.analysis.__main__
+from poseidon_tpu_torch.analysis import (
+    locks, optrace_check, padding_taint, recompile, rules, threads,
+)
+leaked = sorted(
+    n for n in sys.modules
+    if n == "poseidon_tpu" or n.startswith("poseidon_tpu.")
+)
+print(json.dumps({"leaked": leaked,
+                  "main": poseidon_tpu_torch.analysis.__main__.__name__}))
+"""
+
+
+def test_checker_and_sweep_import_without_jax():
+    """The contract checker and the adversarial sweep stand alone too:
+    they import with jax blocked and load nothing of the reference."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CHECKER_PROBE], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == [], got
+
+
+def test_checker_and_sweep_entry_points_default_to_the_card(monkeypatch):
+    """The op-trace audit and the adversarial sweep run tensors: without
+    a device they want the card, and raise naming device="cpu"."""
+    from poseidon_tpu_torch import adversarial
+    from poseidon_tpu_torch.analysis import optrace_check
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        optrace_check.record_entries()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        adversarial.sweep(1)
