@@ -9,7 +9,7 @@ card is visible, or when the package is not importable.
 Phases (each prints its own lines):
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
-2. build: compiles the eleven CUDA kernels from ``poseidon_tpu_torch/
+2. build: compiles the thirteen CUDA kernels from ``poseidon_tpu_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel) and the C++
    oracle, and prints the build seconds;
 3. kernels: at the flagship's shapes (BASELINE config 2: 1,000 machines,
@@ -114,7 +114,27 @@ Phases (each prints its own lines):
    distances read stay as they were, the next dist0 lands in the other
    buffer); then one refine burst (a global update and 16 sweeps) and
    SSP's first three paths (their K10 ``in`` rounds and K11 steps)
-   under ``torch.profiler``;
+   under ``torch.profiler``. The auction loop's K12 (``top_will``, the
+   deflate step's clearing level) and K13 (``seat_sort``: the 4-key sort
+   of ``auction_round`` is the record, the 3-key sort of ``to_sorted``
+   and the bid window's compaction are printed) are held and timed the
+   same way on the inputs of their first calls in a flagship cold solve
+   (Tp 10240, Mp 1024, smax 16), their bounds the bytes they must move,
+   and beside each the library call it replaced, timed alone on the same
+   inputs (``torch.topk`` of the transposed will table; ``torch.sort``
+   of the packed keys and of the compaction's key): the JSON record's
+   ``library_ms``;
+3b. edges: K12 and K13 against their twins (tolerance 0) at their
+   designs' edges: for K12 smax 1, 2, 16, 33, 1,024 and Tp (the list
+   method, the radix method and the switch), Tp 1, 3 and 10,240, Mp 16,
+   1,028 and 12,292, all -INF columns, no valid task, s 0 and past smax,
+   every value tied, alt - c past +-INF and wrapping, and 2- and 4-shard
+   merges equal to the whole table; for K13 1, 3 and 4 keys over n 1, 2,
+   3, 1,023-1,025, 10,240, the one-block method's limit and one past it,
+   20,000 and 524,288, the segment at 0 and Mp + 2, levels 0 and INF,
+   one segment, is_bid all 0 and all 1, keys past 64 bits (Mp 65,539 at
+   n 40,000; four whole-int32 keys on both methods), and the compaction
+   with 0, B - 1, B, B + 1 and n waiting at n 1 to 524,288;
 4. parity: a small flagship-shaped cluster (64 machines x 600 pods), one
    cold and two churned warm rounds on the card and on the CPU (the
    twins): every field of every round must be equal; then three express
@@ -130,12 +150,15 @@ Phases (each prints its own lines):
    (100 retired, 100 new). Launch counts are zeroed just before and
    read just after. Every round must be ``dense_auction``, certified,
    equal in cost to the C++ oracle on the same priced graph, with one
-   result fetch; every kernel must have launched in every round. One
+   result fetch; every kernel must have launched in every round (K1-K3,
+   K12 and K13). One
    more warm round under ``torch.profiler`` prints the device busy and
    idle share, the top device items, and each hand kernel's device time
    by its CUDA symbol: total, launches, and time per launch as the
-   auction loop calls it, and the time of K2's first launch after K1
-   (it reads the table K1 has just written).
+   auction loop calls it (K12 and K13 a wrapper call; the round makes
+   no ``torch.sort``, ``torch.argsort`` or ``torch.topk`` call), and the
+   time of K2's first launch after K1 (it reads the table K1 has just
+   written).
 6. models: each of the six cost models prices the flagship's cost
    inputs (knowledge aggregates from a seeded generator) on the card
    exactly as on the CPU, timed beside its byte bound; then one cold
@@ -287,7 +310,9 @@ Phases (each prints its own lines):
    census of the six audited entries (``optrace_check.record_entries(
    "cuda")``, the same tiny instance) equal to the pinned CPU census
    (``analysis/op_fingerprints.json``), no float64, no host read outside
-   ``SyncCounter.read``, no device move inside an entry; (c) the runtime
+   ``SyncCounter.read``, no device move inside an entry, no library
+   top-k in any entry and no library sort but a cold solve's clearing's;
+   (c) the runtime
    sync map: a flagship cold round, a churned warm round, an express
    batch of 16 arrivals and an 8-window stream flush on one solver under
    ``torch.cuda.set_sync_debug_mode("warn")`` (warnings from every
@@ -316,7 +341,8 @@ DIR/audits``).
 bursts for 6 rounds with no crash, to show which rounds run out the
 auction's fuse without any crash-safety path.
 
-The kernels' record counts K1-K3's launches in the main path, K4-K5's
+The kernels' record counts K1-K3's, K12's and K13's launches in the
+main path (a K12 or K13 launch is one wrapper call), K4-K5's
 in the express phase, K7's in the stream phase's 8-window flush, K6's
 in the what-if phase, K8's in the scale phase's config 8 rounds and
 K9-K11's in the general phase's flagship run.
@@ -344,12 +370,14 @@ INT32_OPS_PER_S = None
 REPEATS = 30
 SLEEP_CYCLES = 1_000_000         # ~0.5 ms of card time ahead of each timed call
 # the hand kernels' CUDA symbols, as the profiler names them
-KERNEL_SYMBOLS = ("densify_kernel", "row_options_kernel", "bid_pass_kernel")
+KERNEL_SYMBOLS = ("densify_kernel", "row_options_kernel", "bid_pass_kernel",
+                  "top_will_", "seat_")
 EXPRESS_SYMBOLS = ("express_rows_kernel", "express_patch_kernel",
                    "stream_commit_kernel",
                    "row_options_kernel", "bid_pass_kernel")
-# the kernels a resident round launches (K4 and K5 are the express lane's)
-ROUND_KERNELS = ("densify", "row_options", "bid_pass")
+# the kernels a resident round launches (K4 and K5 are the express lane's);
+# a certified solve ends in a tighten step, so K12 runs in every one
+ROUND_KERNELS = ("densify", "row_options", "bid_pass", "top_will", "seat_sort")
 # the device of the stream, what-if and service phases (a rehearsal on a
 # host without a card sets "cpu"; the script itself always runs "cuda")
 DEVICE = "cuda"
@@ -581,6 +609,10 @@ def kernel_phase(torch, timer):
     records.append(perturb_record(torch, timer))
     records.append(gap_rows_record(torch, timer))
     records += general_kernel_records(torch, timer)
+    calls = loop_calls(torch, inst, smax)
+    records.append(top_will_record(torch, timer, calls))
+    records.append(seat_sort_records(torch, timer, calls))
+    del calls
     torch.cuda.synchronize()
     for mod, fn, args, key in (
         (k1, lambda *a: k1.densify(*a, n_prefs=P), a1, (Tp, Mp, P, P)),
@@ -806,6 +838,406 @@ def edge_battery(torch):
         if err != 0:
             raise AssertionError(f"bid_pass edge Tp={Tp} Mp={Mp} B={B} {kind}: "
                                  f"kernel != twin (max_abs_err {err})")
+
+
+# ---- K12 top_will and K13 seat_sort: the auction loop's selection and sorts
+
+
+# the library call each of K12's and K13's forms replaced, timed alone on
+# the same inputs (its own input made outside the timing): K12's
+# ``torch.topk`` over the transposed will table, K13's ``torch.sort`` of
+# the packed keys (one stable int64 sort) and of the compaction's key
+LIBRARY_MS = {}
+
+
+def _clone(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+def loop_calls(torch, inst, smax: int) -> dict:
+    """The inputs of the first call of each K12 and K13 form in a
+    flagship cold solve on the card (``_solve`` with the analytic init,
+    as the resident round runs it): ``top_will``, the 3- and 4-key sorts
+    and the compaction."""
+    from poseidon_tpu_torch.ops import dense_auction as da
+
+    got = {}
+    saved = {n: getattr(da, n) for n in ("seat_sort", "seat_compact",
+                                         "top_will")}
+
+    def keep(name, form):
+        fn = saved[name]
+
+        def call(*a):
+            got.setdefault(form(*a), _clone(a))
+            return fn(*a)
+        return call
+
+    da.seat_sort = keep("seat_sort", lambda keys, spans: f"sort{len(keys)}")
+    da.seat_compact = keep("seat_compact", lambda w, B: "compact")
+    da.top_will = keep("top_will", lambda parts, s, smax: "top_will")
+    try:
+        out = da._solve(inst, *da.cold_start(inst), alpha=1024,
+                        max_rounds=FUSE_ROUNDS, smax=smax, analytic_init=True)
+    finally:
+        for n, fn in saved.items():
+            setattr(da, n, fn)
+    log(f"[kernels] loop inputs from a flagship cold solve: rounds={out[5]} "
+        f"phases={out[6]} forms={sorted(got)}")
+    missing = {"top_will", "sort3", "sort4", "compact"} - set(got)
+    if missing:
+        raise AssertionError(f"flagship cold solve never called {missing}")
+    return got
+
+
+def will_table_t(torch, part):
+    """will.T of one table part, as the twin (and the port before K12)
+    builds it."""
+    c, a1, a2, m1, tv = part
+    inf = 2**29
+    mids = torch.arange(c.shape[1], dtype=torch.int32, device=c.device)
+    alt = torch.where(mids[None, :] == m1[:, None], a2[:, None], a1[:, None])
+    will = torch.where(tv[:, None], torch.clamp(alt - c, -inf, inf), -inf)
+    return will.T.contiguous()
+
+
+def top_will_record(torch, timer, calls):
+    """K12 at the flagship's first deflate: kernel vs twin, cold times,
+    the bound (the table's bytes once) and ``torch.topk`` alone."""
+    from poseidon_tpu_torch.kernels import top_will as k12
+
+    parts, s, smax = calls["top_will"]
+    c = parts[0][0]
+    Tp, Mp = c.shape
+    err = max_abs_err([k12.top_will(parts, s, smax)],
+                      [k12.top_will_plain(parts, s, smax)])
+    ms = timer(lambda: k12.top_will(parts, s, smax))
+    plain = timer(lambda: k12.top_will_plain(parts, s, smax))
+    will_t = will_table_t(torch, parts[0])
+    LIBRARY_MS["top_will"] = timer(lambda: torch.topk(will_t, smax, dim=1))
+    del will_t
+    p = k12.PLANS[c.device, Tp, Mp, smax]
+    log(f"[kernels] top_will plan={p} smax={smax} "
+        f"library_ms(torch.topk of will.T)={LIBRARY_MS['top_will']:.6f}")
+    b = Tp * Mp * 4 + Tp * 13 + Mp * 8
+    ops = Tp * Mp * 8
+    return (k12.KERNEL, err, ms, plain, *bound_ms(b, ops), (Tp, Mp, smax))
+
+
+def packed_keys(torch, keys, spans):
+    """The keys as one int64 each (the fields K13 packs), when they fit
+    in 63 bits; None otherwise."""
+    from poseidon_tpu_torch.kernels.seat_sort import field_bits
+
+    bits = [field_bits(sp) for sp in spans]
+    if sum(bits) > 63:
+        return None
+    out = torch.zeros(keys[0].shape[0], dtype=torch.int64,
+                      device=keys[0].device)
+    for k, (lo, _hi), b in zip(keys, spans, bits):
+        out = (out << b) | (k.to(torch.int64) - lo)
+    return out
+
+
+def seat_sort_bytes_ops(n: int, nkeys: int, width: int) -> tuple[int, int]:
+    """Keys read and written once; per key a pass: a digit, a rank and an
+    address (3 int32 operations), beside packing and unpacking."""
+    return 2 * nkeys * n * 4, n * (4 * nkeys + 3 * -(-width // 8))
+
+
+def seat_sort_records(torch, timer, calls):
+    """K13 at the flagship's first call of each form: the 4-key sort of
+    ``auction_round`` (the record), the 3-key sort of ``to_sorted`` and
+    the bid window's compaction (printed)."""
+    from poseidon_tpu_torch.kernels import seat_sort as k13
+
+    record = None
+    for form in ("sort4", "sort3", "compact"):
+        if form == "compact":
+            waiting, B = calls[form]
+            n = waiting.shape[0]
+            run = lambda: k13.seat_compact(waiting, B)  # noqa: E731
+            twin = lambda: k13.seat_compact_plain(waiting, B)  # noqa: E731
+            key = torch.where(
+                waiting, torch.arange(n, dtype=torch.int32,
+                                      device=waiting.device), n)
+            lib = lambda: torch.sort(key)  # noqa: E731
+            b, ops = n + B * 4, n * 3
+            shape = (n, B, int(waiting.sum()))
+            plan_key = ("compact", waiting.device, n)
+        else:
+            keys, spans = calls[form]
+            n = keys[0].shape[0]
+            run = lambda: k13.seat_sort(keys, spans)  # noqa: E731
+            twin = lambda: k13.seat_sort_plain(*keys)  # noqa: E731
+            packed = packed_keys(torch, keys, spans)
+            lib = (None if packed is None else
+                   lambda: torch.sort(packed, stable=True))  # noqa: E731
+            bits = tuple(k13.field_bits(sp) for sp in spans)
+            b, ops = seat_sort_bytes_ops(n, len(keys), sum(bits))
+            shape = (n, len(keys), sum(bits))
+            plan_key = ("sort", keys[0].device, n, bits)
+        err = max_abs_err(list(_as_tuple(run())), list(_as_tuple(twin())))
+        plan = k13.PLANS[plan_key]
+        ms = timer(run)
+        plain = timer(twin)
+        lib_ms = timer(lib) if lib is not None else None
+        bms, by = bound_ms(b, ops)
+        log(f"[kernels] seat_sort {form} shape={shape} max_abs_err={err} "
+            f"ms={ms:.6f} plain_ms={plain:.6f} library_ms={lib_ms} "
+            f"bound_ms={bms:.6f} ({by}) plan={plan}")
+        if err != 0:
+            raise AssertionError(f"seat_sort {form}: kernel != plain twin "
+                                 f"(max_abs_err {err}, tolerance 0)")
+        if form == "sort4":
+            LIBRARY_MS["seat_sort"] = lib_ms
+            record = (k13.KERNEL, err, ms, plain, bms, by, shape)
+            log(f"[kernels] seat_sort sort4 on one block alone (the "
+                f"cluster's kernel launched as a cluster of 1, a yardstick): "
+                f"ms={timer(lambda: one_block_sort(torch, keys, spans)):.6f}")
+    return record
+
+
+def one_block_sort(torch, keys, spans):
+    """K13's sort launched on one block (a cluster of one) instead of its
+    plan's 8-block cluster: the yardstick the cluster is chosen over."""
+    from poseidon_tpu_torch.kernels import seat_sort as k13
+    from poseidon_tpu_torch.kernels.loader import check_launch, library
+
+    n = keys[0].shape[0]
+    bits = [k13.field_bits(sp) for sp in spans]
+    words = 1 if sum(bits) <= 64 else 2
+    outs = [torch.empty_like(k) for k in keys]
+    pad = k13.MAX_KEYS - len(keys)
+    err = library("seat_sort").seat_sort_launch(
+        *[k.data_ptr() for k in keys], *[None] * pad,
+        *[o.data_ptr() for o in outs], *[None] * pad, n, len(keys),
+        *[sp[0] for sp in spans], *[0] * pad, *bits, *[0] * pad, words, 1,
+        k13.block_smem(n, words, 1), 0, None, None,
+        torch.cuda.current_stream().cuda_stream)
+    check_launch(k13.KERNEL, err)
+    return outs
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def top_will_inputs(torch, rng, Tp, Mp, smax, kind):
+    """K12's arguments on the card: one table part (c, alt1, alt2, m1,
+    task_valid) and s, of one edge kind."""
+    import numpy as np
+
+    inf = 2**29
+    c = rng.integers(0, 5000, (Tp, Mp))
+    c[rng.random((Tp, Mp)) < 0.1] = inf
+    alt1 = rng.integers(0, 6000, Tp)
+    alt2 = np.minimum(alt1 + rng.integers(0, 500, Tp), inf)
+    alt1[rng.random(Tp) < 0.05] = inf
+    m1 = rng.integers(0, Mp, Tp)
+    tv = rng.random(Tp) < 0.9
+    if kind == "tied":           # every will the same value
+        c[:] = 7
+        alt1[:] = 100
+        alt2[:] = 100
+        tv[:] = True
+    elif kind == "inf":          # alt - c past +-INF, and wrapping int32
+        c = rng.integers(-2**31, 2**31, (Tp, Mp))
+        alt1 = rng.integers(-2**31, 2**31, Tp)
+        alt2 = rng.integers(-2**31, 2**31, Tp)
+    elif kind == "ninfcol":      # every third column -INF in every row
+        c[:, ::3] = 2**31 - 1
+    elif kind == "invalid":      # no valid task: every column all -INF
+        tv[:] = False
+    elif kind != "rand":
+        raise ValueError(kind)
+    s = rng.integers(0, smax + 3, Mp)
+    s[0] = 0
+    s[-1] = smax + 5
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.int64).astype(np.int32)).to("cuda")
+    part = (to(c), to(alt1), to(alt2), to(m1),
+            torch.from_numpy(tv).to("cuda"))
+    return part, to(s)
+
+
+def shard_parts(part, shards: int):
+    """One table part cut into ``shards`` row blocks (each cloned, so
+    every block is aligned as the mesh's are)."""
+    Tp = part[0].shape[0]
+    h = Tp // shards
+    return [tuple(x[k * h:(k + 1) * h].clone() for x in part)
+            for k in range(shards)]
+
+
+TOP_WILL_CASES = [  # (Tp, Mp, smax, kind, shards)
+    (1, 16, 1, "rand", 1), (3, 16, 2, "rand", 1), (3, 1028, 3, "rand", 1),
+    (700, 16, 16, "rand", 1), (700, 1028, 33, "rand", 1),
+    (2000, 16, 1024, "rand", 1), (1025, 64, 1025, "rand", 1),
+    (1000, 1028, 1, "rand", 1), (10240, 1024, 16, "rand", 1),
+    (10240, 1024, 1024, "rand", 1), (10240, 1024, 10240, "rand", 1),
+    (300, 12292, 16, "rand", 1), (200, 12292, 40, "rand", 1),
+    (500, 1024, 16, "tied", 1), (500, 1024, 64, "tied", 1),
+    (400, 1028, 8, "inf", 1), (400, 1028, 100, "inf", 1),
+    (300, 64, 4, "invalid", 1), (300, 64, 50, "invalid", 1),
+    (600, 1024, 32, "ninfcol", 1), (600, 1024, 2, "ninfcol", 1),
+    (1024, 1024, 16, "rand", 2), (1024, 1024, 16, "rand", 4),
+    (2048, 256, 100, "rand", 2), (2048, 256, 100, "rand", 4),
+    (10240, 1024, 16, "rand", 4), (65536, 256, 2048, "rand", 1),
+]
+
+
+def top_will_edges(torch) -> None:
+    """K12 equals its twin (tolerance 0) at its plan's edges: smax 1, 2,
+    16, 33, 1,024 and Tp (both methods and the switch between them); Tp 1,
+    3, past one slab and 10,240; Mp 16, 1,028 and 12,292; all -INF
+    columns; invalid tasks; s 0 and s > smax; every value tied; alt - c
+    past +-INF; a 2- and 4-shard merge equal to the whole table."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels import top_will as k12
+
+    rng = np.random.default_rng(1215)
+    for Tp, Mp, smax, kind, shards in TOP_WILL_CASES:
+        part, s = top_will_inputs(torch, rng, Tp, Mp, smax, kind)
+        parts = [part] if shards == 1 else shard_parts(part, shards)
+        got = k12.top_will(parts, s, smax)
+        err = max_abs_err([got], [k12.top_will_plain([part], s, smax)])
+        if shards > 1:   # the twin's own mesh form too
+            err = max(err, max_abs_err(
+                [got], [k12.top_will_plain(parts, s, smax)]))
+        p = k12.PLANS[part[0].device, Tp // shards, Mp, smax]
+        log(f"[edges] top_will Tp={Tp} Mp={Mp} smax={smax} {kind} "
+            f"shards={shards}: max_abs_err={err} method={p.method} k={p.k} "
+            f"slabs={p.slabs} rows_per_slab={p.rows_per_slab}")
+        if err != 0:
+            raise AssertionError(f"top_will edge Tp={Tp} Mp={Mp} smax={smax} "
+                                 f"{kind} shards={shards}: kernel != twin "
+                                 f"(max_abs_err {err})")
+
+
+def seat_keys(torch, rng, n, Mp, nkeys, kind):
+    """K13's keys and spans on the card, as the auction loop makes them:
+    the segment in [0, Mp + 3), the negated level, is_bid, the task id
+    (a permutation); ``wide``: four keys of the whole int32 range."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels.seat_sort import INT32
+
+    inf = 2**29
+    nseg = Mp + 3
+    km = rng.integers(0, nseg, n)
+    km[0], km[-1] = 0, nseg - 1
+    kl = np.where(rng.random(n) < 0.3, 0, rng.integers(0, inf + 1, n))
+    kl[-1] = inf
+    isb = rng.integers(0, 2, n)
+    st = rng.permutation(n)
+    seg, task = (0, nseg - 1), (0, n - 1)
+    if kind == "oneseg":
+        km[:] = nseg // 2
+    elif kind == "bid0":
+        isb[:] = 0
+    elif kind == "bid1":
+        isb[:] = 1
+    elif kind == "kl0":
+        kl[:] = 0
+    elif kind == "klinf":
+        kl[:] = inf
+    elif kind not in ("rand", "wide"):
+        raise ValueError(kind)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.int64).astype(np.int32)).to("cuda")
+    if kind == "wide":
+        keys = [rng.integers(-2**31, 2**31, n) for _ in range(nkeys)]
+        return [to(k) for k in keys], [INT32] * nkeys
+    if nkeys == 4:
+        return [to(km), to(-kl), to(isb), to(st)], [seg, INT32, (0, 1), task]
+    if nkeys == 3:
+        return [to(km), to(-kl), to(st)], [seg, INT32, task]
+    waiting = rng.random(n) < 0.5
+    return [to(np.where(waiting, np.arange(n), n))], [(0, n)]
+
+
+def seat_sort_edges(torch) -> None:
+    """K13 equals its twin (tolerance 0): 1, 3 and 4 keys; n 1, 2, 3,
+    7-9 (blocks of the cluster without keys), 1,023-1,025, 10,240 and
+    10,241, the 8-block cluster's limit and one past it (tiles),
+    20,000 and 524,288; the segment at 0 and Mp + 2, levels 0 and INF, one
+    segment, is_bid all 0 and all 1; keys past 64 bits (Mp 65,539 with n
+    past 2^15, and four whole-int32 keys, each on a cluster and on
+    tiles); the compaction with 0, B - 1, B, B + 1 and n waiting, one
+    block and several."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels import seat_sort as k13
+
+    rng = np.random.default_rng(1315)
+    fixed = k13.BLOCK_FIXED_BYTES
+    optin = k13.PLANS._smem_optin(torch.device("cuda", 0))
+    # the largest n an 8-block cluster holds, one-word and two-word keys
+    cap1 = k13.CLUSTER * ((optin - fixed) // 16)
+    cap2 = k13.CLUSTER * ((optin - fixed) // 32)
+    cases = [  # (n, Mp, nkeys, kind)
+        (1, 16, 4, "rand"), (2, 16, 3, "rand"), (3, 16, 4, "rand"),
+        (1, 16, 1, "rand"), (3, 16, 1, "rand"), (7, 16, 4, "rand"),
+        (8, 16, 4, "rand"), (9, 16, 3, "rand"),
+        (1023, 1024, 4, "rand"), (1024, 1024, 3, "rand"),
+        (1025, 1024, 4, "rand"), (1025, 1024, 1, "rand"),
+        (10240, 1024, 4, "rand"), (10240, 1024, 3, "rand"),
+        (10240, 1024, 1, "rand"), (10240, 1024, 4, "oneseg"),
+        (10240, 1024, 4, "bid0"), (10240, 1024, 4, "bid1"),
+        (10240, 1024, 3, "kl0"), (10240, 1024, 4, "klinf"),
+        (10241, 1024, 4, "rand"), (20000, 1024, 3, "oneseg"),
+        (cap1, 1024, 4, "rand"), (cap1 + 1, 1024, 4, "rand"),
+        (524288, 256, 4, "rand"), (524288, 256, 3, "rand"),
+        (524288, 256, 1, "rand"), (40000, 65539, 4, "rand"),
+        (cap2 + 1, 65539, 4, "rand"), (5000, 65539, 4, "rand"),
+        (cap2, 16, 4, "wide"), (cap2 + 1, 16, 4, "wide"),
+        (5000, 16, 3, "wide"),
+    ]
+    for n, Mp, nkeys, kind in cases:
+        keys, spans = seat_keys(torch, rng, n, Mp, nkeys, kind)
+        err = max_abs_err(list(k13.seat_sort(keys, spans)),
+                          list(k13.seat_sort_plain(*keys)))
+        bits = tuple(k13.field_bits(sp) for sp in spans)
+        p = k13.PLANS["sort", keys[0].device, n, bits]
+        log(f"[edges] seat_sort n={n} Mp={Mp} keys={nkeys} {kind}: "
+            f"max_abs_err={err} bits={sum(bits)} words={p.words} "
+            f"passes={p.passes} cluster={p.cluster} tiles={p.tiles}")
+        if err != 0:
+            raise AssertionError(f"seat_sort edge n={n} Mp={Mp} "
+                                 f"keys={nkeys} {kind}: kernel != twin "
+                                 f"(max_abs_err {err})")
+    for n in (1, 3, 10240, 65536, 65537, 524288):
+        B = min(n, max(1024, n // 4))
+        for waiting_n in sorted({0, B - 1, B, min(B + 1, n), n}):
+            waiting = np.zeros(n, dtype=bool)
+            waiting[rng.choice(n, size=waiting_n, replace=False)] = True
+            w = torch.from_numpy(waiting).to("cuda")
+            err = max_abs_err([k13.seat_compact(w, B)],
+                              [k13.seat_compact_plain(w, B)])
+            p = k13.PLANS["compact", w.device, n]
+            log(f"[edges] seat_compact n={n} B={B} waiting={waiting_n}: "
+                f"max_abs_err={err} blocks={p.blocks} "
+                f"per_block={p.per_block}")
+            if err != 0:
+                raise AssertionError(f"seat_compact edge n={n} "
+                                     f"waiting={waiting_n}: kernel != twin "
+                                     f"(max_abs_err {err})")
+
+
+def edges_phase(torch) -> None:
+    """K12 and K13 against their twins at their designs' edges (the
+    older kernels' batteries run inside [kernels])."""
+    top_will_edges(torch)
+    seat_sort_edges(torch)
+
 
 
 # ---- K4 express_rows and K5 express_patch ---------------------------
@@ -1629,11 +2061,16 @@ def profile_round(torch, solver, cluster):
 
     from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
 
+    from poseidon_tpu_torch.kernels import seat_sort, top_will
+
     arrays, meta = FlowGraphBuilder().build_arrays(cluster)
     kw = cost_kwargs(cluster)
     # count the round's library sort and top-k calls (the profiler does
-    # not see the CPU ops of the solver's worker thread)
+    # not see the CPU ops of the solver's worker thread): since K12 and
+    # K13 a warm round makes none (only a cold solve's clearing sorts)
     calls = {"sort": 0, "topk": 0}
+    wrapper_calls = {k.name: k.launches for k in (top_will.KERNEL,
+                                                  seat_sort.KERNEL)}
     saved = {name: getattr(torch, name) for name in ("argsort", "sort", "topk")}
 
     def counted(name, fn):
@@ -1656,6 +2093,8 @@ def profile_round(torch, solver, cluster):
     finally:
         for name, fn in saved.items():
             setattr(torch, name, fn)
+    for k in (top_will.KERNEL, seat_sort.KERNEL):
+        wrapper_calls[k.name] = k.launches - wrapper_calls[k.name]
     rows = device_rows(prof)
     kernels_us = sum(t for k, t, _ in rows if not k.startswith("Memcpy")
                      and not k.startswith("Memset"))
@@ -1666,24 +2105,21 @@ def profile_round(torch, solver, cluster):
     rows.sort(key=lambda r: -r[1])
     for key, t, n in rows[:24]:
         log(f"[profile]   {t:10.1f} us  x{n:<5d} {key[:90]}")
-    # the library calls of the auction loop (ROADMAP Queue 2 items 1-2):
-    # device time of their kernels over the round's calls
-    for label, op, match in (
-        ("seat-layout sorts", "sort",
-         lambda key: "DeviceRadixSort" in key
-         or "fill_reverse_indices" in key),
-        ("deflate top-k", "topk",
-         lambda key: "topk" in key.lower() or "SortKV" in key
-         or "sortKeyValue" in key),
-    ):
-        hits = [(key, t, n) for key, t, n in rows if match(key)]
+    # the auction loop's selection and sorts: K12 and K13 as the round
+    # calls them (device time of their kernels over the wrapper's calls)
+    log(f"[profile] library calls in the round: torch.sort/argsort "
+        f"{calls['sort']}, torch.topk {calls['topk']}")
+    if (calls["sort"] or calls["topk"]) and solver.last_round_solves == 1:
+        raise AssertionError(f"warm round made library calls: {calls}")
+    for name, sym in (("top_will", "top_will_"), ("seat_sort", "seat_")):
+        hits = [(key, t, n) for key, t, n in rows if sym in key]
         total = sum(t for _, t, _ in hits)
-        n_calls = calls.get(op, 0)
-        log(f"[profile] {label} (torch {op}): total_us={total:.1f} "
+        n_calls = wrapper_calls[name]
+        log(f"[profile] {name} as called: total_us={total:.1f} "
             f"kernel_launches={sum(n for _, _, n in hits)} calls={n_calls} "
             f"us_per_call={total / max(n_calls, 1):.3f}")
         for key, t, n in hits:
-            log(f"[profile]   {label}: {t:.1f} us x{n} {key[:80]}")
+            log(f"[profile]   {name}: {t:.1f} us x{n} {key[:80]}")
     for k in KERNEL_SYMBOLS:
         hits = [(t, n) for key, t, n in rows if k in key]
         total = sum(t for t, _ in hits)
@@ -3675,6 +4111,7 @@ def scale_gap_as_called(torch, clusters, built) -> None:
     time is an as-called one, not a cold one."""
     from torch.profiler import ProfilerActivity, profile
 
+    from poseidon_tpu_torch.kernels import gap_rows
     from poseidon_tpu_torch.ops.resident import ResidentSolver
 
     for w in SCALE_WIDTHS:
@@ -3682,23 +4119,37 @@ def scale_gap_as_called(torch, clusters, built) -> None:
             device=DEVICE, small_to_oracle=False, mesh_width=w,
             mesh_devices=mesh_devices(torch, w))
         for k, (cluster, (arrays, meta)) in enumerate(zip(clusters, built)):
-            sync(torch)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                solver.run_round(arrays, meta, cost_model="quincy",
-                                 cost_input_kwargs=cost_kwargs(cluster))
+            # the launch counter says whether the round launched K8 (one
+            # launch a shard); the profiler gives its device time, and a
+            # round whose launches it did not capture is profiled again
+            # (the next round is warm too), at most twice more
+            for attempt in range(3):
                 sync(torch)
-            hits = [(t, n) for key, t, n in device_rows(prof)
-                    if "gap_rows_kernel" in key]
-            total = sum(t for t, _ in hits)
-            count = sum(n for _, n in hits)
-            Tp = solver.pad_floors["t"]
-            log(f"[scale] flagship width {w} {('cold', 'warm')[k]} round: "
-                f"gap_rows as called: launches={count} "
-                f"us_per_launch={total / max(count, 1):.3f} "
-                f"shard=({Tp // w}, {solver.pad_floors['m']})")
+                before = gap_rows.KERNEL.launches
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    solver.run_round(arrays, meta, cost_model="quincy",
+                                     cost_input_kwargs=cost_kwargs(cluster))
+                    sync(torch)
+                launched = gap_rows.KERNEL.launches - before
+                hits = [(t, n) for key, t, n in device_rows(prof)
+                        if "gap_rows_kernel" in key]
+                total = sum(t for t, _ in hits)
+                count = sum(n for _, n in hits)
+                Tp = solver.pad_floors["t"]
+                log(f"[scale] flagship width {w} {('cold', 'warm')[k]} "
+                    f"round: gap_rows as called: launches={launched} "
+                    f"captured={count} "
+                    f"us_per_launch={total / max(count, 1):.3f} "
+                    f"shard=({Tp // w}, {solver.pad_floors['m']})")
+                if launched < w:
+                    raise AssertionError(f"[scale] width {w}: {launched} "
+                                         f"gap_rows launches for {w} shards")
+                if count:
+                    break
             if not count:
-                raise AssertionError(f"[scale] width {w}: no gap_rows launch")
+                raise AssertionError(f"[scale] width {w}: the profiler "
+                                     f"captured no gap_rows launch")
 
 
 def scale_phase(torch, card: str) -> dict:
@@ -5671,6 +6122,11 @@ def chaos_phase(torch, card: str) -> None:
 
 # ---- the contract checker on the card --------------------------------
 
+# the audited entries that run a cold solve, and the library sorts of its
+# clearing (``_theta_clearing``: two stable argsorts, two sorts), which
+# stay torch (ROADMAP Queue 2)
+COLD_ENTRIES = ("resident_chain", "solve_member")
+CLEARING_SORTS = {"aten.sort.stable": 2, "aten.sort.default": 2}
 SYNC_WARNING = "synchronizing CUDA operation"
 SYNC_ARRIVALS = 16               # the express phase's batch width
 SYNC_WINDOWS = 8                 # the stream phase's flush
@@ -5846,6 +6302,19 @@ def analysis_phase(torch, card: str) -> None:
         f"{len(found)} problems, {time.perf_counter() - t0:.2f} s")
     if found:
         raise AssertionError(f"[analysis] op census: {len(found)} problems")
+    # the auction loop makes no library top-k or sort on the card (K12,
+    # K13); a cold entry keeps only its clearing's sorts
+    for name, r in recs.items():
+        lib = {k: v for k, v in r.census.items()
+               if k.startswith(("aten.sort", "aten.argsort", "aten.topk"))}
+        want = CLEARING_SORTS if name in COLD_ENTRIES else {}
+        log(f"[analysis] census {name} (cuda): library sorts and top-k "
+            f"{lib}, K12 {r.census.get('kernel.top_will', 0)}, K13 "
+            f"{r.census.get('kernel.seat_sort', 0)} sorts + "
+            f"{r.census.get('kernel.seat_compact', 0)} compactions")
+        if lib != want:
+            raise AssertionError(f"[analysis] {name}: library sorts/top-k "
+                                 f"{lib}, expected {want}")
 
     # (c) the runtime sync map at the main path's, the express phase's
     # and the stream phase's shapes
@@ -5998,6 +6467,8 @@ def main() -> int:
     launches = {}
     if want("kernels"):
         records = phase("kernels", kernel_phase, torch, timer)
+    if want("edges"):
+        phase("edges", edges_phase, torch)
     if want("parity"):
         phase("parity", parity_phase)
     if want("main"):
@@ -6051,7 +6522,8 @@ def main() -> int:
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[k.name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": LIBRARY_MS.get(k.name),
         }
         for k, err, ms, plain, bms, by, _shape in records
     ]}

@@ -734,6 +734,21 @@ DEFAULT_CONTRACTS = Contracts(
         ),
         "tile_stream.plan": (),
         "gap_rows.plan": (),
+        "top_will.plan": (
+            ("poseidon_tpu_torch/kernels/top_will.py::PlanCache",
+             "the cache itself: a plan is made once per (device, rows, "
+             "Mp, smax) and note_build() counts it"),
+        ),
+        "seat_sort.sort_plan": (
+            ("poseidon_tpu_torch/kernels/seat_sort.py::_Plans",
+             "the cache itself: a plan is made once per (device, n, "
+             "field widths) and note_build() counts it"),
+        ),
+        "seat_sort.compact_plan": (
+            ("poseidon_tpu_torch/kernels/seat_sort.py::_Plans",
+             "the cache itself: a plan is made once per (device, n) and "
+             "note_build() counts it"),
+        ),
         "make_plan": (
             ("poseidon_tpu_torch/ops/cost_scaling.py::residual_csr",
              "the residual CSR is built once a solve and carries its "

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the dense auction, the express and
+"""Hand-written Hopper kernels of the dense auction (its row passes,
+the deflate step's selection and the seat-layout sorts), the express and
 stream lanes, the what-if batch, the sharded certificate and the
 general-graph solvers (cost-scaling and successive shortest paths), each
 beside its plain PyTorch twin and its launch counter.
@@ -17,14 +18,17 @@ from poseidon_tpu_torch.kernels import (
     gap_rows,
     perturb,
     row_options,
+    seat_sort,
     ssp_augment,
     stream_commit,
+    top_will,
 )
 
 KERNELS = (densify.KERNEL, row_options.KERNEL, bid_pass.KERNEL,
            express_rows.KERNEL, express_patch.KERNEL, perturb.KERNEL,
            stream_commit.KERNEL, gap_rows.KERNEL, cs_sweep.KERNEL,
-           bf_relax.KERNEL, ssp_augment.KERNEL)
+           bf_relax.KERNEL, ssp_augment.KERNEL, top_will.KERNEL,
+           seat_sort.KERNEL)
 
 
 def reset_launch_counts() -> None:
@@ -34,5 +38,5 @@ def reset_launch_counts() -> None:
 
 __all__ = ["KERNELS", "reset_launch_counts", "bf_relax", "bid_pass",
            "cs_sweep", "densify", "express_patch", "express_rows",
-           "gap_rows", "perturb", "row_options", "ssp_augment",
-           "stream_commit"]
+           "gap_rows", "perturb", "row_options", "seat_sort", "ssp_augment",
+           "stream_commit", "top_will"]

@@ -34,7 +34,7 @@ _BUILD = pathlib.Path(__file__).resolve().parent / "_build"
 _SOURCES = (
     "densify", "row_options", "bid_pass", "express_rows", "express_patch",
     "stream_commit", "perturb", "gap_rows", "cs_sweep", "bf_relax",
-    "ssp_augment",
+    "ssp_augment", "top_will", "seat_sort",
 )
 _HEADERS = ("common.cuh", "csr_plan.cuh")
 NVCC_FLAGS = (
@@ -183,6 +183,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         },
         "ssp_augment": {
             "ssp_step_launch": [P, I, I, I, P],
+        },
+        "top_will": {
+            "top_will_list_launch": [P] * 5 + [I] * 5 + [P, P],
+            "top_will_merge_launch": [P, I, I, I, P, I, P, P],
+            "top_will_hist_launch": [P] * 5 + [I] * 5 + [P, P, P],
+            "top_will_pick_launch": [P, I, I, I, P, I, P, P, P],
+        },
+        "seat_sort": {
+            "seat_sort_setup": [ctypes.POINTER(I)],
+            "seat_sort_launch": [P] * 8 + [I] * 14 + [P] * 3,
+            "seat_compact_launch": [P] + [I] * 4 + [P] * 3,
         },
     }[name]
     for fn_name, argtypes in sigs.items():

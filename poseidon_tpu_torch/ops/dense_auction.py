@@ -66,6 +66,8 @@ from poseidon_tpu_torch.kernels.bid_pass import bid_pass
 from poseidon_tpu_torch.kernels.densify import densify
 from poseidon_tpu_torch.kernels.gap_rows import gap_rows
 from poseidon_tpu_torch.kernels.row_options import row_options
+from poseidon_tpu_torch.kernels.seat_sort import INT32, seat_compact, seat_sort
+from poseidon_tpu_torch.kernels.top_will import top_will
 from poseidon_tpu_torch.ops.transport import (
     CH_CLUSTER,
     CH_PREF,
@@ -460,32 +462,18 @@ def table_bid_pass(c, p, u, btask, bvalid, eps: int):
     return tuple(out)
 
 
-def table_top_willingness(c, alt1, alt2, m1, task_valid, smax: int):
-    """``top_k(will.T, smax)`` values of the deflate step, will[t, m] =
-    clamp(alt[t, m] - c[t, m]) with alt the task's best alternative to
-    machine m, -INF on invalid rows. Under a mesh each shard keeps its
-    own top ``min(smax, rows)`` per machine and one more ``topk`` over
-    the candidates picks the smax largest: only values are read, so the
-    result is the same."""
-    def will_of(cb, a1, a2, mm, tv):
-        mids = torch.arange(cb.shape[1], dtype=I32, device=cb.device)
-        alt = torch.where(mids[None, :] == mm[:, None], a2[:, None],
-                          a1[:, None])
-        will = torch.clamp(alt - cb, -INF, INF)
-        return torch.where(tv[:, None], will, -INF)
-
+def table_top_willingness(c, alt1, alt2, m1, task_valid, s, smax: int):
+    """The clearing level of the deflate step (K12): per machine m the
+    ``clamp(s - 1, 0, smax - 1)``-th entry of ``top_k(will.T, smax)``,
+    will[t, m] = clamp(alt[t, m] - c[t, m]) with alt the task's best
+    alternative to machine m, -INF on invalid rows. Under a mesh K12
+    makes one pass a shard and merges the shards' candidates."""
     if not isinstance(c, RowBlocks):
-        will = will_of(c, alt1, alt2, m1, task_valid)
-        return torch.topk(will.T.contiguous(), smax, dim=1).values
-    cands = []
-    for b, r0, r1, d in c.shards():
-        will = will_of(b, *(rows_of(x, r0, r1, d)
-                            for x in (alt1, alt2, m1, task_valid)))
-        cands.append(to_dev(torch.topk(
-            will.T.contiguous(), min(smax, r1 - r0), dim=1).values, c.device))
-    if len(cands) == 1:
-        return cands[0]
-    return torch.topk(torch.cat(cands, dim=1), smax, dim=1).values
+        return top_will([(c, alt1, alt2, m1, task_valid)], s, smax)
+    return top_will([
+        (b, *(rows_of(x, r0, r1, d) for x in (alt1, alt2, m1, task_valid)))
+        for b, r0, r1, d in c.shards()
+    ], s, smax)
 
 
 def table_gap_sums(c, u, task_valid, s, lam, asg) -> torch.Tensor:
@@ -499,16 +487,6 @@ def table_gap_sums(c, u, task_valid, s, lam, asg) -> torch.Tensor:
         for b, r0, r1, d in c.shards()
     ]
     return torch.stack(parts).sum(dim=0)
-
-
-def _lexsort(*keys: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """Stable lexicographic sort of equal-length 1-D keys, first key most
-    significant (``jax.lax.sort`` with ``num_keys=len(keys)``): stable
-    passes from the last key to the first. Returns the sorted keys."""
-    perm = torch.argsort(keys[-1], stable=True)
-    for k in reversed(keys[:-1]):
-        perm = perm[torch.argsort(k[perm], stable=True)]
-    return tuple(k[perm] for k in keys)
 
 
 def _i32(x: int, device) -> torch.Tensor:
@@ -642,6 +620,10 @@ def _solve(
     DUMP = Mp + 2      # segment for non-participants (padding tasks)
     NSEG = Mp + 3
     B = min(Tp, max(1024, Tp // 4))   # bid-window width
+    # the sort keys' domains (K13 packs each key into these bits): the
+    # segment, the task id (tids and the carried st are permutations of
+    # it), the negated level takes the whole int32 range
+    SEG, TASK = (0, NSEG - 1), (0, Tp - 1)
     tids = torch.arange(Tp, dtype=I32, device=device)
     pos = tids
     seg_ids = torch.arange(NSEG + 1, dtype=I32, device=device)
@@ -656,7 +638,7 @@ def _solve(
                                     _i32(DUMP, device))),
         )
         kl = torch.where(on_m & (km < Mp), lvl, 0)
-        sm, snl, st = _lexsort(km, -kl, tids)
+        sm, snl, st = seat_sort((km, -kl, tids), (SEG, INT32, TASK))
         return sm, -snl, st
 
     def layout(sm):
@@ -710,7 +692,7 @@ def _solve(
         p = ask_from_layout(slvl, bnd, occ, full, floor)
         # compact the (few) unassigned tasks into the bid window; any
         # overflow waits in the WAIT segment
-        bpos = torch.sort(torch.where(waiting, pos, Tp)).values[:B]
+        bpos = seat_compact(waiting, B)
         bvalid = bpos < Tp
         btask = st[torch.clamp(bpos, max=Tp - 1).long()]
         m1, _b1v, _v2, take_uns, beta = table_bid_pass(
@@ -735,7 +717,8 @@ def _solve(
         is_bid = scatter_window(
             torch.zeros(Tp, dtype=I32, device=device), bpos, bids.to(I32)
         )
-        sm2, snl2, _isb, st2 = _lexsort(new_km, -new_kl, is_bid, st)
+        sm2, snl2, _isb, st2 = seat_sort(
+            (new_km, -new_kl, is_bid, st), (SEG, INT32, (0, 1), TASK))
         return sm2, -snl2, st2
 
     def violators(asg, p, eps):
@@ -763,9 +746,8 @@ def _solve(
         b1v, m1, v2 = _task_options(dev, p)
         alt1 = torch.minimum(b1v, u)
         alt2 = torch.minimum(v2, u)
-        topw = table_top_willingness(c, alt1, alt2, m1, task_valid, smax)
-        sidx = torch.clamp(s - 1, 0, smax - 1)
-        clear = topw.gather(1, sidx[:, None].long())[:, 0]
+        clear = table_top_willingness(c, alt1, alt2, m1, task_valid, s,
+                                      smax)
         return torch.minimum(
             torch.where(full, torch.minimum(floor, p), floor),
             torch.clamp(clear - eps - 1, 0, INF),
@@ -777,7 +759,7 @@ def _solve(
         viol_pos = viol[st.long()]
         km = torch.where(viol_pos, _i32(WAIT, device), sm)
         kl = torch.where(viol_pos, 0, slvl)
-        s2, nl2, t2 = _lexsort(km, -kl, st)
+        s2, nl2, t2 = seat_sort((km, -kl, st), (SEG, INT32, TASK))
         return s2, -nl2, t2
 
     # a warm state may carry more holders on a machine than its
