@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the hand kernels (K1 ``densify``, K2 ``row_options``, K3
 ``bid_pass``, K8 ``gap_rows``, K9 ``cs_sweep``, K10 ``bf_relax`` ``out``
-and ``in``, K11 ``ssp_augment``, K6 ``perturb``), and the express and stream lanes' windows
+and ``in``, K11 ``ssp_augment``, K12 ``top_will``, K13 ``seat_sort``, K6
+``perturb``), and the express and stream lanes' windows
 (K4 ``express_rows``, K5 ``express_patch``, K7 ``stream_commit`` and
 what surrounds them), of one or more checkouts on one GPU, in turns, in
 one run.
@@ -86,6 +87,14 @@ card from a seed, checked against its twin (tolerance 0), with
 and ``read_floor_ms``: one ``c.amin()`` over the same table, timed as
 ``cold_ms`` (a yardstick: no single PyTorch call computes K8's
 function).
+
+K12 ``top_will`` and K13 ``seat_sort`` run as the auction loop calls
+them (``loop_kernel_calls``): K12's list method and K13's 4-key sort,
+3-key sort and compaction on the inputs of their first calls in a
+flagship cold solve, each checkout's own solver; K12's radix method at
+config 8's shape ([524288, 256], smax 3,072, drawn on the card from a
+seed). Each is checked against its twin (tolerance 0) and prints
+``cold_ms``, ``warm_ms``, ``host_us`` and ``wall_us``.
 
 K6 ``perturb`` runs at BASELINE config 5 with 64 variants (Tp 4096, Mp
 1024, seed 7, 10 %), each checkout's own instance build, checked against
@@ -263,6 +272,11 @@ def worker(root: str, parts: tuple[str, ...] = DEFAULT_PARTS) -> dict:
     out["ssp_solve"] = {"wall_ms": walls[1:], "paths": res.iterations,
                         "loop_syncs": res.loop_syncs,
                         "cost": ssp.solution_cost(net, res)}
+    for name, (call, check) in loop_kernel_calls(torch, dev).items():
+        if not check():
+            raise AssertionError(f"{root}: {name} != its plain twin")
+        out[name] = {"cold_ms": cold_time(lambda: flush.max(), call),
+                     **warm_and_host(torch, call)}
     call, check = perturb_call(torch, dev)
     if not check():
         raise AssertionError(f"{root}: perturb != its plain twin")
@@ -435,6 +449,69 @@ def ssp_step_call(torch, dev, net):
                     int(res["mrc"].long().sum())]
 
     return call, restore, check, digest()
+
+
+# config 8's aggregated table (524,288 tasks x 256 classes) and a deflate
+# smax of its order: K12's radix method
+RADIX_SHAPE = (524288, 256, 3072)
+
+
+def loop_kernel_calls(torch, dev) -> dict:
+    """K12 and K13 as the auction loop calls them: (call, check) by name.
+    ``top_will`` (K12's list method), ``seat_sort4``, ``seat_sort3`` and
+    ``seat_compact`` (K13) on the inputs of their first calls in a
+    flagship cold solve (``chip_smoke.loop_calls``, the checkout's own
+    solver: every checkout solves bit for bit alike, so all get the same
+    inputs); ``top_will_radix`` at config 8's shape (RADIX_SHAPE), its
+    table drawn on the card from a seed. Each check holds the call
+    against its twin (tolerance 0)."""
+    import chip_smoke
+    from poseidon_tpu_torch.kernels import seat_sort as k13
+    from poseidon_tpu_torch.kernels import top_will as k12
+    from poseidon_tpu_torch.ops.resident import _redensify
+
+    dt, cost, smax = chip_smoke.flagship_inputs(torch, dev)
+    inst = _redensify(dt, cost, n_prefs=dt.pref_machine.shape[1],
+                      smax=smax)[0]
+    got = chip_smoke.loop_calls(torch, inst, smax)
+    parts, s, k = got["top_will"]
+    keys4, spans4 = got["sort4"]
+    keys3, spans3 = got["sort3"]
+    waiting, B = got["compact"]
+    rows, Mp, kr = RADIX_SHAPE
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    a1 = ints(0, 6000, (rows,))
+    radix = ([(ints(0, 5000, (rows, Mp)), a1, a1 + ints(0, 500, (rows,)),
+               ints(0, Mp, (rows,)), ints(0, 10, (rows,)) < 9)],
+             ints(0, kr + 3, (Mp,)), kr)
+
+    def same(a, b):
+        a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    return {
+        "top_will": (lambda: k12.top_will(parts, s, k),
+                     lambda: same(k12.top_will(parts, s, k),
+                                  k12.top_will_plain(parts, s, k))),
+        "top_will_radix": (lambda: k12.top_will(*radix),
+                           lambda: same(k12.top_will(*radix),
+                                        k12.top_will_plain(*radix))),
+        "seat_sort4": (lambda: k13.seat_sort(keys4, spans4),
+                       lambda: same(k13.seat_sort(keys4, spans4),
+                                    k13.seat_sort_plain(*keys4))),
+        "seat_sort3": (lambda: k13.seat_sort(keys3, spans3),
+                       lambda: same(k13.seat_sort(keys3, spans3),
+                                    k13.seat_sort_plain(*keys3))),
+        "seat_compact": (lambda: k13.seat_compact(waiting, B),
+                         lambda: same(k13.seat_compact(waiting, B),
+                                      k13.seat_compact_plain(waiting, B))),
+    }
 
 
 def perturb_call(torch, dev):

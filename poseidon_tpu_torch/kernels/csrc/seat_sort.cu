@@ -11,8 +11,8 @@
 //
 // Bound: bytes, and far below any launch: n * 4 bytes a key in and out
 // (320 KiB for the 4-key sort at the flagship's n = 10,240: 0.1 us at
-// 3.35 TB/s). What costs is the sort's dependent passes, so the design
-// keeps them in shared memory, in one launch, where the keys fit.
+// 3.35 TB/s). What costs is the sort's dependent steps, each a barrier,
+// so the design keeps them in shared memory, in one launch, and few.
 //
 // Design. The wrapper (kernels/seat_sort.py) gives every key a domain
 // [lo, lo + 2^bits): the segment in [0, Mp + 3), the negated level the
@@ -21,33 +21,72 @@
 // packed key of W bits: one 64-bit word, or two where W > 64 (never cut).
 // The last key of every call is a task id, a permutation, so packed keys
 // are distinct and the sorted keys are the same whatever the order of
-// equal keys; the passes are stable all the same.
+// equal keys; every method below sorts any keys all the same (equal keys
+// are interchangeable, and the output holds only keys).
 //
-// The sort is a least-significant-digit radix sort of the packed keys, 8
-// bits a pass (ceil(W / 8) passes: 8 at the flagship's 58 bits). A pass
-// ranks every key stably among the keys of its digit: each warp walks its
-// own run of keys 32 at a time, a lane's rank among the lanes that share
-// its digit is the popcount of the lower ones, and a per-warp, per-digit
-// counter in shared memory carries the run; an exclusive scan over
-// (digit, warp) turns the counts into offsets. The lanes that share a
-// digit come from eight ballots, one a digit bit (a fixed cost, where
-// `__match_any_sync` iterates over the distinct digits of a round). A
-// pass whose keys all share one digit is skipped.
+// Three methods, by the host's plan (kernels/seat_sort.py `sort_plan`):
 //
-// * cluster: where each block's share of the packed keys fits twice in
-//   its shared memory (n <= 106,912 for one word, 53,456 for two; the
-//   flagship's 10,240 does), one launch of an 8-block thread-block
-//   cluster: block r holds keys [r * chunk, (r + 1) * chunk), counts them,
-//   reads the other blocks' digit totals through distributed shared
-//   memory, and scatters each key into the block that owns its new
-//   position; two cluster barriers a pass. The ranking is bound by the
-//   SM's instruction issue, so eight SMs beat one block at the flagship's
-//   10,240 keys (`chip_smoke.py` [kernels] prints the one-block launch
-//   beside the cluster's).
-// * tiles: above that (config 8's 524,288 tasks), the packed keys live in
-//   a device buffer pair, and each pass is three launches over tiles of
-//   4,096 keys: a digit count a tile, one block's exclusive scan over
-//   (digit, tile), and the stable scatter of each tile at its offsets.
+// * split (n <= SPLIT_MAX_N and a block's share fits its shared memory;
+//   the flagship's 10,240 do): one launch of an 8-block cluster of 1,024
+//   threads a block, most significant digit first; block r owns positions
+//   [r * chunk, (r + 1) * chunk). The packed keys form one bucket. A level
+//   splits every bucket of more than SMALL keys by its top digit: the
+//   highest d bits that vary inside the bucket (an AND and an OR over its
+//   keys find them), d = min(varying bits, DIGIT_MAX, log2(size) - 1), so
+//   a level's bins number at most n / 2; the first bucket's digit is the
+//   top d bits of the packed width. Each block counts its own keys of
+//   each bin (shared-memory atomics, the lanes of a warp that share a bin
+//   folded into one by `__match_any_sync`), a cluster barrier, each block
+//   reads every block's counts through distributed shared memory (8 bytes
+//   a load) and scans them into its own cursor of each bin, and scatters
+//   its keys into the blocks that own their places, folding the AND and
+//   OR of each bin the next level splits (`__reduce_and_sync` and
+//   `__reduce_or_sync` over the lanes of a bin); a cluster barrier. No
+//   stability is needed: the bits below the digit decide the order inside
+//   a bin. Each non-empty bin starts a bucket (a bit in a head bitmap that
+//   every block derives alike); a bin of more than SMALL keys is split at
+//   the next level, unless its keys are all equal. At the flagship the
+//   first digit is the segment: the machines' buckets hold a few holders
+//   and bidders, WAIT, UNS and DUMP thousands of keys at level 0 whose
+//   only varying bits are the task id's, split once more by those. A
+//   level is two cluster barriers whatever its buckets, and levels end
+//   once every bucket holds at most SMALL keys: each level after the
+//   first takes at least one varying bit off every bucket it splits, so
+//   any keys (all n in one bucket, 128-bit keys) end. Last, every key
+//   finds its bucket's ends in the bitmap and takes its rank in the bucket
+//   by counting the keys of the bucket below it (equal keys by position;
+//   a neighbour block's keys where the bucket crosses into it), and is
+//   unpacked to its place in the outputs. One block alone (a cluster of
+//   one) ran the same levels 3-4x slower than the cluster of 8
+//   (`chip_smoke.py` [kernels] prints both): every step is issue-bound on
+//   one SM.
+// * cluster: above that, where each block's share of the packed keys
+//   fits twice in its shared memory (n <= 106,912 for one word, 53,456
+//   for two), a least-significant-digit radix sort, 8 bits a pass
+//   (ceil(W / 8) passes), in one launch of an 8-block thread-block
+//   cluster: block r holds keys [r * chunk, (r + 1) * chunk). A pass ranks
+//   every key stably among the keys of its digit: each warp walks its own
+//   run of keys 32 at a time, a lane's rank among the lanes that share
+//   its digit is the popcount of the lower ones (eight ballots, a fixed
+//   cost), and a per-warp, per-digit counter in shared memory carries the
+//   run; an exclusive scan over (digit, warp) turns the counts into
+//   offsets; each block reads the other blocks' digit totals through
+//   distributed shared memory and scatters each key into the block that
+//   owns its new position; two cluster barriers a pass. A pass whose keys
+//   all share one digit is skipped. It was the flagship's method before
+//   the split (8 passes of its 58-bit keys: 48.6 us cold on an H100, 2 x
+//   8 cluster barriers and 8 block scans; `chip_smoke.py` [kernels]
+//   prints it by phase).
+// * tiles: above that (config 8's 524,288 tasks), the same passes with
+//   the packed keys in a device buffer pair, three launches a pass over
+//   tiles of 4,096 keys: a digit count a tile, one block's exclusive
+//   scan over (digit, tile), and the stable scatter of each tile at its
+//   offsets. Its passes keep today's plan: a split there would need a
+//   launch a level with its bins in device memory.
+//
+// Each sort entry takes an optional `stamps` buffer: where it is given,
+// thread 0 of block 0 writes clock64() at the method's phase ends (the
+// STAMP_* slots), the kernel's breakdown by phase on one SM.
 //
 // The compaction is a prefix count of the waiting flags (8 flags a
 // thread, a block-wide scan a chunk of 8,192), written where the count is
@@ -84,6 +123,35 @@ constexpr int COMPACT_CHUNK = COMPACT_THREADS * COMPACT_ITEMS;
 // (kernels/seat_sort.py BLOCK_FIXED_BYTES names the same size)
 constexpr int BLOCK_FIXED_INTS = BLOCK_WARPS * RADIX + 2 * RADIX + 32 + MAX_PASSES;
 static_assert(BLOCK_THREADS >= RADIX, "a thread a digit");
+// the split method (kernels/seat_sort.py names the same sizes)
+constexpr int SPLIT_THREADS = 1024;
+constexpr int SPLIT_CLUSTER = 8;    // blocks of the split's cluster (portable)
+constexpr int SPLIT_MAX_N = 32768;  // keys of a split: a bin's count in 16 bits
+constexpr int SMALL = 32;           // a bucket the last step ranks as it is
+constexpr int DIGIT_MAX = 11;       // bits of a level's digit
+constexpr int SPLIT_FIXED_INTS = 48;  // the scan's warp sums and the level's scalars
+// the methods of seat_sort_launch
+constexpr int METHOD_TILES = 0;
+constexpr int METHOD_CLUSTER = 1;
+constexpr int METHOD_SPLIT = 2;
+// stamps: clock64() at the ends of phases (thread 0 of block 0)
+constexpr int STAMPS = 32;
+constexpr int STAMP_START = 0;
+constexpr int STAMP_PACKED = 1;
+constexpr int STAMP_LEVEL = 2;       // split: the end of level l at 2 + l (l < 8)
+constexpr int STAMP_PASS0 = 2;       // cluster: pass 0 counted, barrier, offsets, scattered, barrier
+constexpr int STAMP_PASS = 8;        // cluster: the end of pass p at 8 + p (p < 16)
+// split: the steps of level 0 at 18 + i and of level 1 at 10 + i: 0 the
+// digits, 1 counted (after its barrier), 2 the counts read, 3 scanned, 4
+// the cursors and heads, 5 scattered (after its barrier)
+constexpr int STAMP_STEP = 18;
+constexpr int STAMP_STEP1 = 10;
+constexpr int STAMP_LEVELS = 24;     // split: the number of levels
+constexpr int STAMP_LISTED = 25;     // split: keys split at level l at 25 + l (l < 6)
+constexpr int STAMP_END = 31;
+static_assert(STAMP_END < STAMPS, "a stamp a slot");
+static_assert(SPLIT_FIXED_INTS == 32 + 16, "the warp sums and the scalars");
+static_assert(SPLIT_CLUSTER <= CLUSTER_MAX, "a portable cluster");
 
 struct Fields {
   int nkeys;
@@ -119,7 +187,7 @@ __device__ __forceinline__ Packed pack(const Keys& k, const Fields& f, int e) {
     if (pos < 64) {
       p.lo |= v << pos;
       if (WORDS == 2 && pos > 32) p.hi |= v >> (64 - pos);
-    } else {
+    } else if (WORDS == 2) {
       p.hi |= v << (pos - 64);
     }
   }
@@ -265,9 +333,14 @@ __device__ __forceinline__ void scatter_digits(const Buf<WORDS>& b, int side, in
 // offsets (the keys of lower digits, then of its digit in lower blocks),
 // scatters each key into the block that owns its new position, a cluster
 // barrier.
+__device__ __forceinline__ void stamp(long long* stamps, int slot, bool me) {
+  if (stamps != nullptr && me) stamps[slot] = clock64();
+}
+
 template <int WORDS>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1) seat_sort_cluster_kernel(Keys k, int n,
-                                                                             Fields f) {
+                                                                             Fields f,
+                                                                             long long* stamps) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
   const int blocks = static_cast<int>(cl.num_blocks());
@@ -283,22 +356,28 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) seat_sort_cluster_kernel(Key
   u64* keys = reinterpret_cast<u64*>(cnt + BLOCK_FIXED_INTS);
   const Buf<WORDS> b{keys, chunk};
   const int tid = threadIdx.x;
+  const bool stamper = me == 0 && tid == 0;
+  stamp(stamps, STAMP_START, stamper);
   if (tid < MAX_PASSES) skipped[tid] = 0;
   for (int e = tid; e < here; e += BLOCK_THREADS) b.store(0, e, pack<WORDS>(k, f, first + e));
   __syncthreads();
+  stamp(stamps, STAMP_PACKED, stamper);
   const int rounds = (here + BLOCK_THREADS - 1) / BLOCK_THREADS;
   int side = 0;
   for (int pass = 0; pass < f.passes; ++pass) {
+    const bool first_pass = stamper && pass == 0;
     for (int i = tid; i < BLOCK_WARPS * RADIX; i += BLOCK_THREADS) cnt[i] = 0;
     __syncthreads();
     count_digits<WORDS>(b, side, 0, here, rounds, pass, cnt);
     __syncthreads();
+    stamp(stamps, STAMP_PASS0, first_pass);
     if (tid < RADIX) {
       int t = 0;
       for (int w = 0; w < BLOCK_WARPS; ++w) t += cnt[w * RADIX + tid];
       tot[tid] = t;
     }
     cl.sync();  // every block's totals are in place
+    stamp(stamps, STAMP_PASS0 + 1, first_pass);
     int all = 0;
     int lower = 0;
     if (tid < RADIX) {
@@ -314,6 +393,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) seat_sort_cluster_kernel(Key
     const int excl = block_exclusive_scan<BLOCK_THREADS>(all, sums, total);
     if (skipped[pass]) {  // every key has one digit: the pass keeps the order
       cl.sync();          // no block reads this block's totals any more
+      stamp(stamps, STAMP_PASS + pass, stamper && pass < 16);
       continue;
     }
     if (tid < RADIX) {
@@ -325,12 +405,16 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) seat_sort_cluster_kernel(Key
       }
     }
     __syncthreads();
+    stamp(stamps, STAMP_PASS0 + 2, first_pass);
     scatter_digits<WORDS>(b, side, 0, here, rounds, pass, cnt, [&](int rank, const Packed& p) {
       const int owner = rank / chunk;
       const Buf<WORDS> dst{cl.map_shared_rank(keys, owner), chunk};
       dst.store(side ^ 1, rank - owner * chunk, p);
     });
+    stamp(stamps, STAMP_PASS0 + 3, first_pass);
     cl.sync();  // every key has landed; every totals read is done
+    stamp(stamps, STAMP_PASS0 + 4, first_pass);
+    stamp(stamps, STAMP_PASS + pass, stamper && pass < 16);
     side ^= 1;
   }
   for (int e = tid; e < here; e += BLOCK_THREADS) {
@@ -339,6 +423,464 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) seat_sort_cluster_kernel(Key
     for (int i = 0; i < MAX_KEYS; ++i)
       if (i < f.nkeys) k.out[i][first + e] = field<WORDS>(p, f, i);
   }
+  __syncthreads();
+  stamp(stamps, STAMP_END, stamper);
+}
+
+// ---- the split method -------------------------------------------------
+
+// A split block's shared memory for n keys over a cluster of `blocks`
+// blocks, chunk = ceil(n / blocks) keys a block (kernels/seat_sort.py
+// `split_smem` sums the same sizes): the block's key buffer pair, its
+// partial AND and OR of each listed bucket, then ints: its count, its
+// cursor and the next level's slot of each bin, the head bitmap, the
+// level's buckets
+// (start, size, keys before it, this block's keys before it, its bins'
+// base, the digit's shift and width) and the next level's (start,
+// size), the warp sums and the level's scalars. The bitmap and the lists
+// are the same in every block: each block derives them from the same
+// cluster-wide counts.
+struct SplitSmem {
+  u64* keys;      // 2 * WORDS * chunk: side s, word j of local key e at (s * WORDS + j) * chunk + e
+  u64* part;      // 2 * WORDS * lmax: bucket j's AND at (2 j) * WORDS, OR at (2 j + 1) * WORDS
+  int* hist;      // (n + 1) / 2, 8-byte aligned (read as int2 by the other blocks)
+  int* cur;       // (n + 1) / 2
+  int* nslot;     // (n + 1) / 2: the next level's bucket a bin starts, or -1
+  unsigned* head; // n / 32 + 2
+  int* lstart;
+  int* lsize;
+  int* lpre;
+  int* lmine;
+  int* lbase;
+  int* lshift;
+  int* ldig;
+  int* nstart;
+  int* nsize;
+  int* sums;      // 32
+  int* misc;      // 16: [0] buckets this level, [2..4] its keys, this block's, its bins
+};
+
+__host__ __device__ __forceinline__ int split_lmax(int n) { return n / (SMALL + 1) + 1; }
+
+template <int WORDS>
+__device__ __forceinline__ SplitSmem split_smem(unsigned char* base, int n, int chunk) {
+  const int lmax = split_lmax(n);
+  const int hb = (n + 1) / 2;
+  SplitSmem m;
+  u64* p = reinterpret_cast<u64*>(base);
+  m.keys = p;
+  p += 2 * WORDS * chunk;
+  m.part = p;
+  p += 2 * WORDS * lmax;
+  int* q = reinterpret_cast<int*>(p);
+  m.hist = q;
+  q += hb;
+  m.cur = q;
+  q += hb;
+  m.nslot = q;
+  q += hb;
+  m.head = reinterpret_cast<unsigned*>(q);
+  q += n / 32 + 2;
+  int** lists[9] = {&m.lstart, &m.lsize, &m.lpre, &m.lmine, &m.lbase,
+                    &m.lshift, &m.ldig, &m.nstart, &m.nsize};
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    *lists[i] = q;
+    q += lmax;
+  }
+  m.sums = q;
+  m.misc = q + 32;
+  return m;
+}
+
+// 32 bits of the packed key from bit s up.
+template <int WORDS>
+__device__ __forceinline__ unsigned bits_at(const Packed& p, int s) {
+  if (WORDS == 1 || s < 64) {
+    const unsigned lo = static_cast<unsigned>(p.lo >> (s & 63));
+    if (WORDS == 1 || s <= 32) return lo;
+    return lo | static_cast<unsigned>(p.hi << (64 - s));
+  }
+  return static_cast<unsigned>(p.hi >> (s - 64));
+}
+
+template <int WORDS>
+__device__ __forceinline__ bool key_less(const Packed& a, const Packed& b) {
+  if (WORDS == 2 && a.hi != b.hi) return a.hi < b.hi;
+  return a.lo < b.lo;
+}
+
+template <int WORDS>
+__device__ __forceinline__ bool key_equal(const Packed& a, const Packed& b) {
+  return a.lo == b.lo && (WORDS == 1 || a.hi == b.hi);
+}
+
+// The largest i with pre[i] <= x (pre non-decreasing, pre[0] = 0 <= x):
+// the bucket whose run of keys holds flat key x.
+__device__ __forceinline__ int find_run(const int* pre, int count, int x) {
+  int lo = 0;
+  int hi = count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (pre[mid] <= x) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Inclusive sum of x over the lanes up to this one (every lane calls it).
+__device__ __forceinline__ int warp_inclusive_scan(int x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// The digit's bin of a key of bucket j.
+template <int WORDS>
+__device__ __forceinline__ int bin_of(const SplitSmem& m, int j, const Packed& p) {
+  return m.lbase[j] +
+         static_cast<int>(bits_at<WORDS>(p, m.lshift[j]) & ((1u << m.ldig[j]) - 1u));
+}
+
+// The cluster sorts all n keys in its blocks' shared memory, most
+// significant digit first (the header note's split method); block r owns
+// positions [r * chunk, (r + 1) * chunk). Levels split the buckets of
+// more than SMALL keys by their top varying bits: each block counts its
+// own keys of each bin, reads every block's counts (distributed shared
+// memory, 8 bytes a load), and scatters its keys into the blocks that
+// own their new positions. The last step ranks each key inside its
+// bucket (reading a neighbour block's keys where the bucket crosses into
+// it) and writes it out.
+template <int WORDS>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1) seat_sort_split_kernel(Keys k, int n,
+                                                                           Fields f,
+                                                                           long long* stamps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int blocks = static_cast<int>(cl.num_blocks());
+  const int me = static_cast<int>(cl.block_rank());
+  const int chunk = (n + blocks - 1) / blocks;
+  const int lo = min(n, me * chunk);
+  const int hi = min(n, lo + chunk);
+  const SplitSmem m = split_smem<WORDS>(smem, n, chunk);
+  const Buf<WORDS> b{m.keys, chunk};
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const bool stamper = me == 0 && tid == 0;
+  const auto key_at = [&](int side, int q) -> Packed {  // any block's key at position q
+    const int owner = q / chunk;
+    if (owner == me) return b.load(side, q - lo);
+    const Buf<WORDS> there{cl.map_shared_rank(m.keys, owner), chunk};
+    return there.load(side, q - owner * chunk);
+  };
+  stamp(stamps, STAMP_START, stamper);
+  const int hwords = n / 32 + 2;
+  for (int i = tid; i < hwords; i += SPLIT_THREADS) m.head[i] = i == 0 ? 1u : 0u;
+  for (int i = tid; i < (n + 1) / 2; i += SPLIT_THREADS) m.hist[i] = 0;
+  if (tid == 0) {
+    m.misc[0] = n > SMALL ? 1 : 0;
+    m.lstart[0] = 0;
+    m.lsize[0] = n;
+  }
+  // pack this block's keys, four a thread a batch with all their loads in
+  // flight
+  constexpr int BATCH = 4;
+  for (int first = lo; first < hi; first += BATCH * SPLIT_THREADS) {
+    Packed p[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int e = first + i * SPLIT_THREADS + tid;
+      if (e < hi) p[i] = pack<WORDS>(k, f, e);
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int e = first + i * SPLIT_THREADS + tid;
+      if (e < hi) b.store(0, e - lo, p[i]);
+    }
+  }
+  __syncthreads();  // this block's keys and the first bucket are in place
+  stamp(stamps, STAMP_PACKED, stamper);
+  int side = 0;
+  int level = 0;
+  for (;; ++level) {
+    const int count = m.misc[0];
+    if (count == 0) break;
+    const auto step = [&](int i) {  // the phase stamps of levels 0 and 1
+      if (level < 2) stamp(stamps, (level ? STAMP_STEP1 : STAMP_STEP) + i, stamper);
+    };
+    // the buckets' keys laid end to end (flat index x), over the cluster
+    // and over this block's own positions
+    // (a list of at most 32 buckets, as at the flagship, is scanned by
+    // warp 0 alone: one barrier where a block scan takes three)
+    const bool few = count <= 32;
+    const int size = tid < count ? m.lsize[tid] : 0;
+    int here = 0;
+    if (tid < count) {
+      const int s0 = m.lstart[tid];
+      here = max(0, min(s0 + size, hi) - max(s0, lo));
+    }
+    int listed;
+    int owned;
+    int pre;
+    int pre_mine;
+    if (few) {
+      pre = warp_inclusive_scan(size);
+      pre_mine = warp_inclusive_scan(here);
+      listed = __shfl_sync(0xffffffffu, pre, 31);
+      owned = __shfl_sync(0xffffffffu, pre_mine, 31);
+      pre -= size;
+      pre_mine -= here;
+    } else {
+      pre = block_exclusive_scan<SPLIT_THREADS>(size, m.sums, listed);
+      pre_mine = block_exclusive_scan<SPLIT_THREADS>(here, m.sums, owned);
+    }
+    if (tid < count) {
+      m.lpre[tid] = pre;
+      m.lmine[tid] = pre_mine;
+    }
+    if (few && tid == 0) {
+      m.misc[2] = listed;
+      m.misc[3] = owned;
+    }
+    __syncthreads();
+    if (few) {
+      listed = m.misc[2];
+      owned = m.misc[3];
+    }
+    // position of this block's flat key x: bucket j, global position e
+    const auto own = [&](int x, int& j) {
+      j = find_run(m.lmine, count, x);
+      return max(m.lstart[j], lo) + x - m.lmine[j];
+    };
+    // each bucket's digit: its top d varying bits, from the blocks' parts
+    // of its AND and OR (d = 0 where its keys are all equal: one bin, not
+    // split again); the first bucket's, the top bits of the packed width
+    int bins = 0;
+    if (tid < count) {
+      int width = f.pos[0] + f.bits[0];
+      if (level > 0) {
+        u64 va[WORDS];
+        u64 vo[WORDS];
+#pragma unroll
+        for (int w = 0; w < WORDS; ++w) {
+          va[w] = ~0ull;
+          vo[w] = 0ull;
+        }
+#pragma unroll
+        for (int r = 0; r < SPLIT_CLUSTER; ++r) {  // unrolled: the remote loads overlap
+          if (r < blocks) {
+            const u64* there = cl.map_shared_rank(m.part, r);
+#pragma unroll
+            for (int w = 0; w < WORDS; ++w) {
+              va[w] &= there[2 * tid * WORDS + w];
+              vo[w] |= there[(2 * tid + 1) * WORDS + w];
+            }
+          }
+        }
+        const u64 vlo = va[0] ^ vo[0];
+        if (WORDS == 2) {
+          const u64 vhi = va[WORDS - 1] ^ vo[WORDS - 1];
+          width = vhi ? 128 - __clzll(vhi) : (vlo ? 64 - __clzll(vlo) : 0);
+        } else {
+          width = vlo ? 64 - __clzll(vlo) : 0;
+        }
+      }
+      const int d = width ? min(min(width, DIGIT_MAX), 30 - __clz(m.lsize[tid])) : 0;
+      m.lshift[tid] = width - d;
+      m.ldig[tid] = d;
+      bins = 1 << d;
+    }
+    int used;
+    int bin0;
+    if (few) {
+      bin0 = warp_inclusive_scan(bins);
+      used = __shfl_sync(0xffffffffu, bin0, 31);
+      bin0 -= bins;
+      if (tid == 0) m.misc[4] = used;
+    } else {
+      bin0 = block_exclusive_scan<SPLIT_THREADS>(bins, m.sums, used);
+    }
+    if (tid < count) m.lbase[tid] = bin0;
+    __syncthreads();  // the bins (zero since the last level) are laid out
+    if (few) used = m.misc[4];
+    step(0);
+    // count this block's keys of each bin
+    for (int x0 = warp * 32; x0 < owned; x0 += SPLIT_THREADS) {
+      const int x = x0 + lane;
+      const unsigned act = __ballot_sync(0xffffffffu, x < owned);
+      if (x < owned) {
+        int j;
+        const Packed p = b.load(side, own(x, j) - lo);
+        const int bin = bin_of<WORDS>(m, j, p);
+        const unsigned peers = __match_any_sync(act, bin);
+        if (lane == __ffs(peers) - 1) atomicAdd(&m.hist[bin], __popc(peers));
+      }
+    }
+    cl.sync();  // every block's counts are in place
+    step(1);
+    // each bin's keys in all blocks and in the blocks before this one, 2
+    // bins a thread (one 8-byte load a block): this block's cursor of the
+    // bin; a non-empty bin starts a bucket (the same bitmap in every
+    // block), and one of more than SMALL keys, not all equal, is split at
+    // the next level: its slot by a scan in bin order (the same lists in
+    // every block), kept beside the bin for the scatter, which folds the
+    // bucket's AND and OR. The scan runs on total | next-level flag << 16
+    // (n <= SPLIT_MAX_N: the keys' sum fits its low 16 bits).
+    int carry = 0;
+    for (int c0 = 0; c0 < used; c0 += SPLIT_THREADS * 2) {
+      const int i0 = c0 + tid * 2;
+      int tot[2] = {0, 0};
+      int before[2] = {0, 0};
+      if (i0 < used) {
+#pragma unroll
+        for (int r = 0; r < SPLIT_CLUSTER; ++r) {
+          if (r < blocks) {
+            const int2 v = *reinterpret_cast<const int2*>(cl.map_shared_rank(m.hist, r) + i0);
+            tot[0] += v.x;
+            tot[1] += v.y;
+            before[0] += r < me ? v.x : 0;
+            before[1] += r < me ? v.y : 0;
+          }
+        }
+      }
+      if (c0 == 0) step(2);
+      int flag[2];
+      int local = 0;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (i0 + q >= used) tot[q] = 0;
+        flag[q] = 0;
+        if (tot[q] > SMALL) flag[q] = m.ldig[find_run(m.lbase, count, i0 + q)] > 0;
+        local += tot[q] | flag[q] << 16;
+      }
+      int total;
+      int run = carry + block_exclusive_scan<SPLIT_THREADS>(local, m.sums, total);
+      if (c0 == 0) step(3);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int i = i0 + q;
+        if (i < used) {
+          const int at = run & 0xffff;
+          m.cur[i] = at + before[q];
+          m.nslot[i] = -1;
+          if (tot[q] > 0) {
+            const int j = find_run(m.lbase, count, i);
+            const int pos = m.lstart[j] + at - m.lpre[j];
+            atomicOr(&m.head[pos >> 5], 1u << (pos & 31));
+            if (flag[q]) {
+              const int slot = run >> 16;
+              m.nstart[slot] = pos;
+              m.nsize[slot] = tot[q];
+              m.nslot[i] = slot;
+#pragma unroll
+              for (int w = 0; w < WORDS; ++w) {
+                m.part[2 * slot * WORDS + w] = ~0ull;
+                m.part[(2 * slot + 1) * WORDS + w] = 0ull;
+              }
+            }
+          }
+        }
+        run += tot[q] | flag[q] << 16;
+      }
+      carry += total;
+    }
+    __syncthreads();
+    step(4);
+    // scatter this block's keys into the blocks that own their bins' places
+    for (int x0 = warp * 32; x0 < owned; x0 += SPLIT_THREADS) {
+      const int x = x0 + lane;
+      const unsigned act = __ballot_sync(0xffffffffu, x < owned);
+      if (x < owned) {
+        int j;
+        const Packed p = b.load(side, own(x, j) - lo);
+        const int bin = bin_of<WORDS>(m, j, p);
+        const unsigned peers = __match_any_sync(act, bin);
+        const int leader = __ffs(peers) - 1;
+        int at = 0;
+        if (lane == leader) at = atomicAdd(&m.cur[bin], __popc(peers));
+        at = __shfl_sync(act, at, leader);
+        const int pos = m.lstart[j] - m.lpre[j] + at + __popc(peers & ((1u << lane) - 1u));
+        const int owner = pos / chunk;
+        const Buf<WORDS> there{owner == me ? m.keys : cl.map_shared_rank(m.keys, owner), chunk};
+        there.store(side ^ 1, pos - owner * chunk, p);
+        const int slot = m.nslot[bin];  // the same for every lane of `peers`
+        if (slot >= 0) {  // fold the next level's bucket's AND and OR
+          const u64 word[2] = {p.lo, p.hi};
+#pragma unroll
+          for (int w = 0; w < WORDS; ++w) {
+            const unsigned l = static_cast<unsigned>(word[w]);
+            const unsigned h = static_cast<unsigned>(word[w] >> 32);
+            const u64 va = static_cast<u64>(__reduce_and_sync(peers, h)) << 32 |
+                           __reduce_and_sync(peers, l);
+            const u64 vo = static_cast<u64>(__reduce_or_sync(peers, h)) << 32 |
+                           __reduce_or_sync(peers, l);
+            if (lane == leader) {
+              atomicAnd(&m.part[2 * slot * WORDS + w], va);
+              atomicOr(&m.part[(2 * slot + 1) * WORDS + w], vo);
+            }
+          }
+        }
+      }
+    }
+    cl.sync();  // every key has landed; every read of the counts and parts is done
+    step(5);
+    if (listed == n) {
+      side ^= 1;  // every key moved: the other side holds them all
+    } else {
+      for (int x = tid; x < owned; x += SPLIT_THREADS) {
+        int j;
+        const int e = own(x, j) - lo;
+        b.store(side, e, b.load(side ^ 1, e));
+      }
+    }
+    for (int i = tid; i < used; i += SPLIT_THREADS) m.hist[i] = 0;  // for the next level
+    const int next = carry >> 16;
+    __syncthreads();
+    if (tid < next) {
+      m.lstart[tid] = m.nstart[tid];
+      m.lsize[tid] = m.nsize[tid];
+    }
+    if (tid == 0) m.misc[0] = next;
+    stamp(stamps, STAMP_LEVEL + level, stamper && level < 8);
+    if (stamper && stamps != nullptr && level < 6) stamps[STAMP_LISTED + level] = listed;
+    __syncthreads();
+  }
+  if (stamper && stamps != nullptr) stamps[STAMP_LEVELS] = level;
+  // rank every key of this block inside its bucket (at most SMALL keys,
+  // or all equal)
+  for (int e = lo + tid; e < hi; e += SPLIT_THREADS) {
+    const Packed p = b.load(side, e - lo);
+    const int w0 = e >> 5;
+    const unsigned upto = 0xffffffffu >> (31 - (e & 31));  // bits <= e's
+    const unsigned below = m.head[w0] & upto;
+    const unsigned above = m.head[w0] & ~upto;
+    int s = -1;
+    if (below) s = (w0 << 5) + 31 - __clz(below);
+    else if (w0 > 0 && m.head[w0 - 1]) s = ((w0 - 1) << 5) + 31 - __clz(m.head[w0 - 1]);
+    int t = -1;
+    if (above) t = (w0 << 5) + __ffs(above) - 1;
+    else if (((w0 + 1) << 5) >= n) t = n;
+    else if (m.head[w0 + 1]) t = ((w0 + 1) << 5) + __ffs(m.head[w0 + 1]) - 1;
+    else if (((w0 + 2) << 5) >= n) t = n;
+    int rank = e;
+    if (s >= 0 && t >= 0 && t - s <= SMALL) {
+      rank = s;
+      for (int q = s; q < t; ++q) {
+        const Packed o = q >= lo && q < hi ? b.load(side, q - lo) : key_at(side, q);
+        rank += key_less<WORDS>(o, p) || (q < e && key_equal<WORDS>(o, p));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MAX_KEYS; ++i)
+      if (i < f.nkeys) k.out[i][rank] = field<WORDS>(p, f, i);
+  }
+  cl.sync();  // no block leaves while another may read its keys
+  stamp(stamps, STAMP_END, stamper);
 }
 
 template <int WORDS>
@@ -442,12 +984,12 @@ __global__ void __launch_bounds__(TILE_THREADS) seat_scatter_kernel(
 }
 
 template <int WORDS>
-cudaError_t sort_keys(const Keys& k, int n, const Fields& f, int cluster, int smem, int tiles,
-                      u64* buf, int* tile_hist, cudaStream_t st) {
-  if (cluster) {
+cudaError_t sort_keys(const Keys& k, int n, const Fields& f, int method, int cluster, int smem,
+                      int tiles, u64* buf, int* tile_hist, long long* stamps, cudaStream_t st) {
+  if (method == METHOD_SPLIT || method == METHOD_CLUSTER) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(cluster);
-    cfg.blockDim = dim3(BLOCK_THREADS);
+    cfg.blockDim = dim3(method == METHOD_SPLIT ? SPLIT_THREADS : BLOCK_THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = st;
     cudaLaunchAttribute attr[1];
@@ -457,7 +999,10 @@ cudaError_t sort_keys(const Keys& k, int n, const Fields& f, int cluster, int sm
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const cudaError_t e = cudaLaunchKernelEx(&cfg, seat_sort_cluster_kernel<WORDS>, k, n, f);
+    const cudaError_t e =
+        method == METHOD_SPLIT
+            ? cudaLaunchKernelEx(&cfg, seat_sort_split_kernel<WORDS>, k, n, f, stamps)
+            : cudaLaunchKernelEx(&cfg, seat_sort_cluster_kernel<WORDS>, k, n, f, stamps);
     return e != cudaSuccess ? e : cudaGetLastError();
   }
   const int pack_grid = min((n + PACK_THREADS - 1) / PACK_THREADS, 1024);
@@ -566,19 +1111,27 @@ extern "C" int seat_sort_setup(int* optin) {
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(seat_sort_cluster_kernel<2>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(seat_sort_split_kernel<1>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(seat_sort_split_kernel<2>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
   return static_cast<int>(e);
 }
 
 // Sort n positions by nkeys int32 keys (k0 most significant), key i in
 // [lo_i, lo_i + 2^bits_i), into o0..o3. `words` (1 or 2) 64-bit words a
-// packed key; `block` the one-block method with `smem` bytes, else
-// `tiles` tiles over buf (2 * words * n 64-bit words) and tile_hist
-// (RADIX * tiles ints).
+// packed key; `method` METHOD_SPLIT or METHOD_CLUSTER (`cluster` blocks
+// of `smem` bytes) or METHOD_TILES
+// (`tiles` tiles over buf, 2 * words * n 64-bit words, and tile_hist,
+// RADIX * tiles ints); `stamps` (STAMPS int64, or null) takes the phase
+// stamps of the split and cluster methods.
 extern "C" int seat_sort_launch(const int* k0, const int* k1, const int* k2, const int* k3,
                                 int* o0, int* o1, int* o2, int* o3, int n, int nkeys, int lo0,
                                 int lo1, int lo2, int lo3, int b0, int b1, int b2, int b3,
-                                int words, int cluster, int smem, int tiles, void* buf,
-                                int* tile_hist, void* stream) {
+                                int words, int method, int cluster, int smem, int tiles,
+                                void* buf, int* tile_hist, long long* stamps, void* stream) {
   if (nkeys < 1 || nkeys > MAX_KEYS || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   Keys k{{k0, k1, k2, k3}, {o0, o1, o2, o3}};
   Fields f{};
@@ -597,10 +1150,13 @@ extern "C" int seat_sort_launch(const int* k0, const int* k1, const int* k2, con
   f.passes = (width + 7) / 8;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   u64* b = static_cast<u64*>(buf);
-  if (cluster < 0 || cluster > CLUSTER_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(words == 1
-                              ? sort_keys<1>(k, n, f, cluster, smem, tiles, b, tile_hist, st)
-                              : sort_keys<2>(k, n, f, cluster, smem, tiles, b, tile_hist, st));
+  if (method < METHOD_TILES || method > METHOD_SPLIT ||
+      (method != METHOD_TILES && (cluster < 1 || cluster > CLUSTER_MAX)) ||
+      (method == METHOD_SPLIT && n > SPLIT_MAX_N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      words == 1 ? sort_keys<1>(k, n, f, method, cluster, smem, tiles, b, tile_hist, stamps, st)
+                 : sort_keys<2>(k, n, f, method, cluster, smem, tiles, b, tile_hist, stamps, st));
 }
 
 // The bid window's compaction of waiting[n] into out[B]: `blocks` blocks

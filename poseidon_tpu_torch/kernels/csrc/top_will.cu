@@ -19,24 +19,41 @@
 // Design. Two methods, chosen by the host's plan (kernels/top_will.py
 // `plan`) from smax:
 //
-// * list (smax <= LIST_MAX): one pass over the table. A block of
-//   LIST_THREADS threads covers LIST_THREADS adjacent columns of one slab
-//   of rows, a thread one column, so a warp's loads of a row are 128
-//   contiguous bytes. Each thread keeps the K largest values of its
-//   column's slab in registers (K = smax rounded up to a power of two, a
-//   template argument), sorted descending: a value that does not beat the
-//   list's last entry costs one compare, the others an unrolled
-//   branch-free shift (few registers, so an SM keeps many warps loading).
-//   The slab's list goes to part[slab, :, m]. A second launch (`merge`)
-//   folds the slabs' lists of a column: a block's warps (16, or 8 for K
-//   32) share a group of 32 columns and take turns at the lists, each
-//   loading a whole list and merging it into its own by taking the larger
-//   of a[i] and b[K - 1 - i] (the K largest of both, a bitonic sequence)
-//   and log2(K) half-cleaners; warp 0 merges the warps' lists from shared
-//   memory and writes the k_m-th entry. Under a row-block mesh each shard
-//   writes its slabs' lists into its own part of `part`, and one merge
-//   reads all of them: the k-th largest of the union is among each shard's
-//   own k largest.
+// * list (smax <= LIST_MAX): one pass over the table, one launch. Each
+//   thread keeps the K largest values it has seen in registers (K = smax
+//   rounded up to a power of two, a template argument), sorted
+//   descending. A block of LIST_WARPS warps covers LIST_COLS = 32
+//   adjacent columns (a lane a column, so a warp's load of a row is 128
+//   contiguous bytes) of one slab of rows, its warps taking the slab's
+//   rows in turns, a warp LIST_UNROLL consecutive rows of a turn
+//   (for K <= 16 32 warps and 16 rows: 64 KB of loads in flight an SM,
+//   one block an SM; lane u loads row u's scalars, coalesced, and
+//   shuffles hand them round). The lists are short (the card's threads
+//   share the table: ~80 rows a list at the
+//   flagship), so a list takes in about half of its values; one at a
+//   time (an unrolled shift) a warp paid a whole insertion a row and the
+//   pass was bound by instructions (41.3 us as called at the flagship on
+//   an H100 before this design, 30.9 of it a pass at one column a thread
+//   and 10.4 a second launch that merged the slabs' lists from device
+//   memory). So for K >= 8 a turn's values go in by batches of K: sorted
+//   by a bitonic network, then merged into the list by `merge_top`
+//   (a[i] = max(a[i], b[K - 1 - i]) keeps the K largest of two
+//   descending lists as a bitonic sequence, which log2(K) half-cleaners
+//   sort): branch-free, and skipped where no lane of the warp has a value
+//   above its list's last. A thread-block cluster of `slabs` blocks (at
+//   most 8) covers all the rows of one column group; the plan takes the
+//   most slabs (up to 4) whose clusters the card holds all at once
+//   (`top_will_list_clusters`), so a launch is one wave. The lists meet
+//   by `merge_top` too: a tree over the block's warps through shared
+//   memory, then the cluster's first block reads the other blocks' lists
+//   through distributed shared memory, one warp a block, and a tree over
+//   those; its warp 0 writes the k_m-th entry of every column. No list
+//   goes through device memory. Under a row-block mesh each shard's
+//   launch writes its K-entry lists instead (lists[K, Mp]), and one more
+//   launch (`merge`) folds the shards' lists of each column: the k-th
+//   largest of the union is among each shard's own k largest. With
+//   `stamps`, thread 0 of block (0, 0) writes clock64() at the fold's,
+//   the block tree's, the cluster read's and the write's end.
 //
 // * radix (larger smax, up to the rows): selection by the value's four
 //   bytes, most significant first, on the order-preserving unsigned key
@@ -53,12 +70,27 @@
 //   its own part and `pick` sums the parts. This reads the table four
 //   times, so it is the first step-2 candidate where smax is large (config
 //   8's aggregated classes).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int LIST_THREADS = 128;
-constexpr int LIST_UNROLL = 8;
+constexpr int LIST_COLS = 32;
+constexpr int LIST_CLUSTER_MAX = 8;   // a portable cluster
+constexpr int LIST_STAMPS = 8;   // stamps[0..4]: start, folded, block tree, cluster read, written
+// warps of a list block (one block an SM) and rows a lane loads at once:
+// a list of K registers and its loads in at most 64 registers a thread
+template <int K>
+__host__ __device__ constexpr int list_warps() {
+  return K <= 16 ? 32 : 16;
+}
+template <int K>
+__host__ __device__ constexpr int list_unroll() {
+  return K <= 16 ? 16 : 32;
+}
 constexpr int MERGE_COLS = 32;
 // warps of a merge block: its warps' lists fill 32 KiB of shared memory
 template <int K>
@@ -113,38 +145,180 @@ __device__ __forceinline__ void merge_top(int (&a)[K], const int (&b)[K]) {
   }
 }
 
+// v[0..N) sorted descending by a bitonic network (N a power of two; every
+// index is known at compile time, so v stays in registers).
+template <int N>
+__device__ __forceinline__ void sort_desc(int (&v)[N]) {
+#pragma unroll
+  for (int size = 2; size <= N; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const int hi = max(v[i], v[j]);
+          const int lo = min(v[i], v[j]);
+          const bool down = (i & size) == 0;
+          v[i] = down ? hi : lo;
+          v[j] = down ? lo : hi;
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ int rank_of(const int* __restrict__ s, int smax, int m) {
+  return min(max(s[m] - 1, 0), smax - 1);
+}
+
+// The lists of warps [0, lists) of the block meet in warp 0: halves of
+// the warps hand theirs to the other half through `keep` (K * 32 ints a
+// slot, lists / 2 slots) until one is left. Every thread of the block
+// calls it.
 template <int K>
-__global__ void __launch_bounds__(LIST_THREADS) top_will_list_kernel(
+__device__ __forceinline__ void tree_merge(int (&a)[K], int* keep, int lists) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int span = 1;
+  while (span < lists) span <<= 1;
+  for (int half = span >> 1; half >= 1; half >>= 1) {
+    if (warp >= half && warp < lists) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) keep[((warp - half) * K + i) * 32 + lane] = a[i];
+    }
+    __syncthreads();
+    if (warp + half < lists) {
+      int v[K];
+#pragma unroll
+      for (int i = 0; i < K; ++i) v[i] = keep[(warp * K + i) * 32 + lane];
+      merge_top<K>(a, v);
+    }
+    __syncthreads();
+    lists = half;
+  }
+}
+
+// One launch of the list method over a shard: grid (column groups,
+// slabs), a cluster of the `slabs` blocks of one column group. Writes
+// out[m] (the k_m-th largest), or with `lists` the K-entry list of every
+// column (lists[i * Mp + m]) for the mesh's merge.
+template <int K>
+__global__ void __launch_bounds__(list_warps<K>() * 32, 1) top_will_list_kernel(
     const int* __restrict__ c, const int* __restrict__ alt1, const int* __restrict__ alt2,
     const int* __restrict__ m1, const unsigned char* __restrict__ valid, int rows, int Mp,
-    int rows_per_slab, int* __restrict__ part) {
-  const int m = blockIdx.x * LIST_THREADS + threadIdx.x;
-  if (m >= Mp) return;
+    int rows_per_slab, const int* __restrict__ s, int smax, int* __restrict__ out,
+    int* __restrict__ lists, long long* stamps) {
+  constexpr int LIST_WARPS = list_warps<K>();
+  constexpr int LIST_UNROLL = list_unroll<K>();
+  constexpr int TURN = LIST_UNROLL * LIST_WARPS;  // rows of the block's turn
+  __shared__ int keep[(LIST_WARPS / 2) * K * 32];
+  __shared__ int pub[K * 32];
+  cg::cluster_group cl = cg::this_cluster();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m = blockIdx.x * LIST_COLS + lane;
+  const bool stamper = stamps != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+                       threadIdx.x == 0;
+  if (stamper) stamps[0] = clock64();
   const int r0 = blockIdx.y * rows_per_slab;
   const int r1 = min(rows, r0 + rows_per_slab);
   int a[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) a[i] = LIST_EMPTY;
-  int r = r0;
-  for (; r + LIST_UNROLL <= r1; r += LIST_UNROLL) {
-    int cv[LIST_UNROLL];
-#pragma unroll
-    for (int u = 0; u < LIST_UNROLL; ++u) cv[u] = c[static_cast<size_t>(r + u) * Mp + m];
+  // the slab in turns of TURN rows, warp w taking LIST_UNROLL consecutive
+  // rows of a turn (their loads of c in flight at once); lane u loads row
+  // u's scalars (coalesced) and the shuffles hand them round
+  const bool col = m < Mp;
+  const int turns = (r1 - r0) / TURN;
+  for (int t = 0; t < turns; ++t) {
+    const int base = r0 + t * TURN + warp * LIST_UNROLL;
+    int w[LIST_UNROLL];
 #pragma unroll
     for (int u = 0; u < LIST_UNROLL; ++u)
-      list_push<K>(a, will_of(cv[u], __ldg(alt1 + r + u), __ldg(alt2 + r + u),
-                              __ldg(m1 + r + u), __ldg(valid + r + u), m));
-  }
-  for (; r < r1; ++r)
-    list_push<K>(a, will_of(c[static_cast<size_t>(r) * Mp + m], __ldg(alt1 + r),
-                            __ldg(alt2 + r), __ldg(m1 + r), __ldg(valid + r), m));
-  int* out = part + static_cast<size_t>(blockIdx.y) * K * Mp + m;
+      w[u] = col ? __ldcs(c + static_cast<size_t>(base + u) * Mp + m) : 0;
+    int s1 = 0;
+    int s2 = 0;
+    int sm = 0;
+    int sv = 0;
+    if (lane < LIST_UNROLL) {
+      s1 = __ldg(alt1 + base + lane);
+      s2 = __ldg(alt2 + base + lane);
+      sm = __ldg(m1 + base + lane);
+      sv = __ldg(valid + base + lane);
+    }
+    bool any = false;
 #pragma unroll
-  for (int i = 0; i < K; ++i) out[static_cast<size_t>(i) * Mp] = a[i];
-}
-
-__device__ __forceinline__ int rank_of(const int* __restrict__ s, int smax, int m) {
-  return min(max(s[m] - 1, 0), smax - 1);
+    for (int u = 0; u < LIST_UNROLL; ++u) {
+      const int a1 = __shfl_sync(0xffffffffu, s1, u);
+      const int a2 = __shfl_sync(0xffffffffu, s2, u);
+      const int mm = __shfl_sync(0xffffffffu, sm, u);
+      const int v = __shfl_sync(0xffffffffu, sv, u);
+      w[u] = col ? will_of(w[u], a1, a2, mm, static_cast<unsigned char>(v), m) : LIST_EMPTY;
+      any |= w[u] > a[K - 1];
+    }
+    if (K >= 8) {
+      // a turn's values in batches of K: sorted, then merged into the
+      // list (branch-free; a lane's list takes in about half of its
+      // values, so one by one a warp would pay a whole insertion a row)
+      if (__any_sync(0xffffffffu, any)) {
+#pragma unroll
+        for (int b0 = 0; b0 < LIST_UNROLL; b0 += K) {
+          int v[K];
+#pragma unroll
+          for (int i = 0; i < K; ++i) v[i] = w[b0 + i];
+          sort_desc<K>(v);
+          merge_top<K>(a, v);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < LIST_UNROLL; ++u) list_push<K>(a, w[u]);
+    }
+  }
+  if (col) {
+    for (int r = r0 + turns * TURN + warp; r < r1; r += LIST_WARPS)
+      list_push<K>(a, will_of(__ldcs(c + static_cast<size_t>(r) * Mp + m), __ldg(alt1 + r),
+                              __ldg(alt2 + r), __ldg(m1 + r), __ldg(valid + r), m));
+  }
+  if (stamps != nullptr) {
+    __syncthreads();
+    if (stamper) stamps[1] = clock64();
+  }
+  tree_merge<K>(a, keep, LIST_WARPS);
+  if (stamper) stamps[2] = clock64();
+  if (warp == 0) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) pub[i * 32 + lane] = a[i];
+  }
+  cl.sync();  // every block's list is in place
+  const int blocks = static_cast<int>(cl.num_blocks());
+  const bool root = cl.block_rank() == 0;
+  if (root && warp >= 1 && warp < blocks) {
+    const int* there = cl.map_shared_rank(pub, warp);
+#pragma unroll
+    for (int i = 0; i < K; ++i) a[i] = there[i * 32 + lane];
+  }
+  cl.sync();  // the first block has read every list: the others may leave
+  if (stamper) stamps[3] = clock64();
+  if (!root) return;
+  tree_merge<K>(a, keep, blocks);
+  if (warp == 0 && m < Mp) {
+    if (lists != nullptr) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) lists[static_cast<size_t>(i) * Mp + m] = a[i];
+    } else {
+      const int k = rank_of(s, smax, m);
+      int v = a[0];
+#pragma unroll
+      for (int i = 1; i < K; ++i) v = i == k ? a[i] : v;
+      out[m] = v;
+    }
+  }
+  if (stamps != nullptr) {
+    __syncthreads();
+    if (stamper) stamps[4] = clock64();
+  }
 }
 
 // A block covers MERGE_COLS columns (a lane each, so a warp's loads of a
@@ -298,13 +472,39 @@ __global__ void __launch_bounds__(PICK_THREADS) top_will_pick_kernel(
 }
 
 template <int K>
+cudaLaunchConfig_t list_config(int Mp, int slabs, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Mp + LIST_COLS - 1) / LIST_COLS, slabs);
+  cfg.blockDim = dim3(list_warps<K>() * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = slabs;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int K>
 cudaError_t launch_list(const int* c, const int* alt1, const int* alt2, const int* m1,
                         const unsigned char* valid, int rows, int Mp, int slabs,
-                        int rows_per_slab, int* part, cudaStream_t stream) {
-  const dim3 grid((Mp + LIST_THREADS - 1) / LIST_THREADS, slabs);
-  top_will_list_kernel<K><<<grid, LIST_THREADS, 0, stream>>>(c, alt1, alt2, m1, valid, rows, Mp,
-                                                              rows_per_slab, part);
-  return cudaGetLastError();
+                        int rows_per_slab, const int* s, int smax, int* out, int* lists,
+                        long long* stamps, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = list_config<K>(Mp, slabs, stream, attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, top_will_list_kernel<K>, c, alt1, alt2, m1, valid,
+                                           rows, Mp, rows_per_slab, s, smax, out, lists, stamps);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// Clusters of one list launch the card holds at once.
+template <int K>
+cudaError_t list_clusters(int Mp, int slabs, int* clusters) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = list_config<K>(Mp, slabs, nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(clusters, top_will_list_kernel<K>, &cfg);
 }
 
 template <int K>
@@ -317,15 +517,20 @@ cudaError_t launch_merge(const int* part, int lists, int Mp, const int* s, int s
 
 }  // namespace
 
-// The list method's slab pass over one shard: part[slab, :K, Mp] for
-// `slabs` slabs of `rows_per_slab` rows. K is 1, 2, 4, 8, 16 or 32.
+// The list method over one shard, one launch: out[m] for every column,
+// or (`lists` not null) the K largest of every column into lists[K, Mp]
+// for the mesh's merge. `slabs` (1 to LIST_CLUSTER_MAX) blocks of
+// `rows_per_slab` rows a column group, one cluster; K is 1, 2, 4, 8, 16
+// or 32; `stamps` (LIST_STAMPS int64, or null) takes the phase stamps.
 extern "C" int top_will_list_launch(const int* c, const int* alt1, const int* alt2, const int* m1,
                                     const unsigned char* valid, int rows, int Mp, int K,
-                                    int slabs, int rows_per_slab, int* part, void* stream) {
+                                    int slabs, int rows_per_slab, const int* s, int smax,
+                                    int* out, int* lists, long long* stamps, void* stream) {
+  if (slabs < 1 || slabs > LIST_CLUSTER_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto go = [&](auto launch) {
-    return static_cast<int>(launch(c, alt1, alt2, m1, valid, rows, Mp, slabs, rows_per_slab, part,
-                                   st));
+    return static_cast<int>(launch(c, alt1, alt2, m1, valid, rows, Mp, slabs, rows_per_slab, s,
+                                   smax, out, lists, stamps, st));
   };
   switch (K) {
     case 1: return go(launch_list<1>);
@@ -338,8 +543,22 @@ extern "C" int top_will_list_launch(const int* c, const int* alt1, const int* al
   }
 }
 
-// The list method's merge: out[m] = the k_m-th largest of the `lists`
-// lists part[l, :K, m].
+// The clusters of a list launch over Mp columns in `slabs` slabs that the
+// card holds at once (cudaOccupancyMaxActiveClusters), into *clusters.
+extern "C" int top_will_list_clusters(int Mp, int K, int slabs, int* clusters) {
+  switch (K) {
+    case 1: return static_cast<int>(list_clusters<1>(Mp, slabs, clusters));
+    case 2: return static_cast<int>(list_clusters<2>(Mp, slabs, clusters));
+    case 4: return static_cast<int>(list_clusters<4>(Mp, slabs, clusters));
+    case 8: return static_cast<int>(list_clusters<8>(Mp, slabs, clusters));
+    case 16: return static_cast<int>(list_clusters<16>(Mp, slabs, clusters));
+    case 32: return static_cast<int>(list_clusters<32>(Mp, slabs, clusters));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The mesh's merge of the list method: out[m] = the k_m-th largest of
+// the shards' `lists` lists part[l, :K, m].
 extern "C" int top_will_merge_launch(const int* part, int lists, int Mp, int K, const int* s,
                                      int smax, int* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -185,14 +185,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "ssp_step_launch": [P, I, I, I, P],
         },
         "top_will": {
-            "top_will_list_launch": [P] * 5 + [I] * 5 + [P, P],
+            "top_will_list_launch": [P] * 5 + [I] * 5 + [P, I] + [P] * 4,
+            "top_will_list_clusters": [I, I, I, ctypes.POINTER(I)],
             "top_will_merge_launch": [P, I, I, I, P, I, P, P],
             "top_will_hist_launch": [P] * 5 + [I] * 5 + [P, P, P],
             "top_will_pick_launch": [P, I, I, I, P, I, P, P, P],
         },
         "seat_sort": {
             "seat_sort_setup": [ctypes.POINTER(I)],
-            "seat_sort_launch": [P] * 8 + [I] * 14 + [P] * 3,
+            "seat_sort_launch": [P] * 8 + [I] * 15 + [P] * 4,
             "seat_compact_launch": [P] + [I] * 4 + [P] * 3,
         },
     }[name]

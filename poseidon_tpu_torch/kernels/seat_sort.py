@@ -40,14 +40,23 @@ KERNEL = Kernel(
 INT32 = (-2**31, 2**31 - 1)   # the span of a key with no narrower domain
 MAX_KEYS = 4
 DIGIT_BITS = 8
-BLOCK_WARPS = 16              # a block of the shared-memory sort: 512 threads
+BLOCK_WARPS = 16              # a block of the cluster sort: 512 threads
 RADIX = 256
 MAX_PASSES = 16
-CLUSTER = 8                   # blocks of the shared-memory sort's cluster
+CLUSTER = 8                   # blocks of the cluster sort
 # shared memory of a cluster block before its two key buffers
 # (csrc/seat_sort.cu BLOCK_FIXED_INTS)
 BLOCK_FIXED_BYTES = (BLOCK_WARPS * RADIX + 2 * RADIX + 32 + MAX_PASSES) * 4
 TILE = 4096                   # keys a tile of the tiled sort
+# the split method (csrc/seat_sort.cu SPLIT_*, SMALL, DIGIT_MAX)
+SPLIT_THREADS = 1024
+SPLIT_CLUSTER = 8             # blocks of the split's cluster
+SPLIT_MAX_N = 32768           # keys of a split (a bin's count in 16 bits)
+SMALL = 32                    # a bucket the last step ranks as it is
+DIGIT_MAX = 11                # bits of a level's digit
+SPLIT_FIXED_INTS = 48
+METHODS = {"tiles": 0, "cluster": 1, "split": 2}   # csrc METHOD_*
+STAMPS = 32                   # int64 phase stamps (csrc STAMP_*)
 COMPACT_CHUNK = 8192          # flags a compaction block scans at once
 COMPACT_ONE_BLOCK = 65536     # flags one compaction block takes alone
 COMPACT_MAX_BLOCKS = 1024
@@ -63,10 +72,11 @@ def field_bits(span: tuple[int, int]) -> int:
 @dataclasses.dataclass(frozen=True)
 class SortPlan:
     words: int    # 64-bit words of a packed key (1, or 2 past 64 bits)
-    passes: int   # 8-bit digit passes
-    cluster: int  # blocks of the shared-memory sort (CLUSTER), 0: tiles
-    smem: int     # a cluster block's dynamic shared memory
-    tiles: int    # the tiled method's tiles of TILE keys (0 for a cluster)
+    passes: int   # 8-bit digit passes of the cluster and tiled methods
+    method: str   # "split", "cluster" (LSD) or "tiles"
+    cluster: int  # blocks of the split or LSD cluster, else 0
+    smem: int     # dynamic shared memory of a split or LSD cluster block
+    tiles: int    # the tiled method's tiles of TILE keys, else 0
 
 
 def block_smem(n: int, words: int, cluster: int) -> int:
@@ -75,22 +85,55 @@ def block_smem(n: int, words: int, cluster: int) -> int:
     return BLOCK_FIXED_BYTES + 2 * words * 8 * -(-n // cluster)
 
 
+def split_lmax(n: int) -> int:
+    """Buckets of more than SMALL keys that n keys can hold, plus one."""
+    return n // (SMALL + 1) + 1
+
+
+def split_smem(n: int, words: int, cluster: int) -> int:
+    """Shared memory of a split block for n keys over ``cluster`` blocks
+    (csrc ``split_smem``): the block's two key buffers of ceil(n /
+    cluster) keys, its part of each listed bucket's AND and OR, then
+    ints: its counts, cursors and next-level slots of the bins (at most
+    n / 2 a level), the head bitmap, nine bucket lists, the warp sums and
+    the scalars."""
+    chunk = -(-n // cluster)
+    lmax = split_lmax(n)
+    ints = 3 * ((n + 1) // 2) + n // 32 + 2 + 9 * lmax + SPLIT_FIXED_INTS
+    return 16 * words * (chunk + lmax) + 4 * ints
+
+
 def sort_plan(n: int, bits: tuple[int, ...], smem_optin: int) -> SortPlan:
     """The method for n keys of these field widths on a card whose
-    block may take ``smem_optin`` bytes of shared memory: a cluster of
-    CLUSTER blocks where each block's share of both key buffers fits
-    beside its counters, else tiles of 4,096."""
+    block may take ``smem_optin`` bytes of shared memory: the split over
+    SPLIT_CLUSTER blocks while n <= SPLIT_MAX_N and a block's share
+    fits, else the LSD cluster of CLUSTER blocks where each block's
+    share of both key buffers fits beside its counters, else tiles of
+    4,096."""
     if n < 1 or not 1 <= len(bits) <= MAX_KEYS:
         raise ValueError(f"seat_sort: n={n}, {len(bits)} keys")
     width = sum(bits)
     words = 1 if width <= 64 else 2
     passes = -(-width // DIGIT_BITS)
+    smem = split_smem(n, words, SPLIT_CLUSTER)
+    if n <= SPLIT_MAX_N and smem <= smem_optin:
+        return SortPlan(words=words, passes=passes, method="split",
+                        cluster=SPLIT_CLUSTER, smem=smem, tiles=0)
     smem = block_smem(n, words, CLUSTER)
     if smem <= smem_optin:
-        return SortPlan(words=words, passes=passes, cluster=CLUSTER,
-                        smem=smem, tiles=0)
-    return SortPlan(words=words, passes=passes, cluster=0, smem=0,
-                    tiles=-(-n // TILE))
+        return SortPlan(words=words, passes=passes, method="cluster",
+                        cluster=CLUSTER, smem=smem, tiles=0)
+    return SortPlan(words=words, passes=passes, method="tiles", cluster=0,
+                    smem=0, tiles=-(-n // TILE))
+
+
+def split_digit(width: int, size: int) -> int:
+    """Bits of the digit that splits a bucket of ``size`` keys whose
+    keys vary in their low ``width`` bits (csrc: min(width, DIGIT_MAX,
+    log2(size) - 1); 0 where the keys are all equal)."""
+    if width == 0:
+        return 0
+    return min(width, DIGIT_MAX, size.bit_length() - 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,14 +226,43 @@ def _check_spans(keys, spans) -> None:
                 f"leaves its span [{lo}, {hi}]")
 
 
+def _launch(keys, spans, p: SortPlan, stamps=None) -> tuple[torch.Tensor, ...]:
+    """Launch K13 on CUDA keys by plan ``p`` (its method may be forced
+    by a caller that times the methods); ``stamps``: an int64[STAMPS]
+    tensor for the phase stamps, or None."""
+    n = keys[0].shape[0]
+    dev = keys[0].device
+    i32 = torch.int32
+    ins = [kernel_arg(k, f"key {i}", i32, (n,)) for i, k in enumerate(keys)]
+    outs = [torch.empty(n, dtype=i32, device=dev) for _ in keys]
+    pad = MAX_KEYS - len(keys)
+    bits = [field_bits(sp) for sp in spans]
+    with torch.cuda.device(dev):
+        lib = library("seat_sort")
+        if p.method == "tiles":
+            buf = torch.empty(2 * p.words * n, dtype=torch.int64, device=dev)
+            hist = torch.empty(RADIX * p.tiles, dtype=i32, device=dev)
+        else:
+            buf = hist = None
+        err = lib.seat_sort_launch(
+            *ins, *[None] * pad, *[o.data_ptr() for o in outs], *[None] * pad,
+            n, len(keys), *[sp[0] for sp in spans], *[0] * pad,
+            *bits, *[0] * pad, p.words, METHODS[p.method], p.cluster, p.smem,
+            p.tiles, None if buf is None else buf.data_ptr(),
+            None if hist is None else hist.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), stream_ptr(keys[0]),
+        )
+    check_launch(KERNEL, err)
+    return tuple(outs)
+
+
 @census_op("seat_sort")
 def seat_sort(keys, spans) -> tuple[torch.Tensor, ...]:
     """The keys (1-4 int32[n] tensors on one device, the first most
     significant) sorted lexicographically. ``spans[i] = (lo, hi)`` bounds
     key i. CPU tensors take the plain twin (after the span check); CUDA
-    tensors launch K13 (one launch where the keys fit in the shared
-    memory of an 8-block cluster, else 3 launches a digit pass and
-    two)."""
+    tensors launch K13 (one launch up to the 8-block cluster's limit,
+    else 3 launches a digit pass and two)."""
     keys = tuple(keys)
     spans = tuple(spans)
     if len(keys) != len(spans) or not 1 <= len(keys) <= MAX_KEYS:
@@ -199,30 +271,30 @@ def seat_sort(keys, spans) -> tuple[torch.Tensor, ...]:
     if not on_card(*keys):
         _check_spans(keys, spans)
         return seat_sort_plain(*keys)
+    p = PLANS.sort(keys[0].device, keys[0].shape[0], bits)
+    outs = _launch(keys, spans, p)
+    KERNEL.launches += 1
+    return outs
+
+
+def phase_stamps(keys, spans, method: str | None = None) -> list[int]:
+    """One launch of K13's sort on CUDA keys with its phase stamps
+    (clock64() on one SM at the csrc STAMP_* slots): by its plan's
+    method, or ``method`` "cluster" (the LSD cluster). A
+    measurement, not a call of the main path: the launch is not
+    counted."""
+    keys = tuple(keys)
     n = keys[0].shape[0]
     dev = keys[0].device
-    i32 = torch.int32
-    ins = [kernel_arg(k, f"key {i}", i32, (n,)) for i, k in enumerate(keys)]
-    outs = [torch.empty(n, dtype=i32, device=dev) for _ in keys]
-    pad = MAX_KEYS - len(keys)
-    with torch.cuda.device(dev):
-        lib = library("seat_sort")
-        p = PLANS.sort(dev, n, bits)
-        if p.cluster:
-            buf = hist = None
-        else:
-            buf = torch.empty(2 * p.words * n, dtype=torch.int64, device=dev)
-            hist = torch.empty(RADIX * p.tiles, dtype=i32, device=dev)
-        err = lib.seat_sort_launch(
-            *ins, *[None] * pad, *[o.data_ptr() for o in outs], *[None] * pad,
-            n, len(keys), *[sp[0] for sp in spans], *[0] * pad,
-            *bits, *[0] * pad, p.words, p.cluster, p.smem, p.tiles,
-            None if buf is None else buf.data_ptr(),
-            None if hist is None else hist.data_ptr(), stream_ptr(keys[0]),
-        )
-    check_launch(KERNEL, err)
-    KERNEL.launches += 1
-    return tuple(outs)
+    p = PLANS.sort(dev, n, tuple(field_bits(sp) for sp in spans))
+    if method == "cluster" and p.method != "cluster":
+        p = dataclasses.replace(p, method="cluster", cluster=CLUSTER,
+                                smem=block_smem(n, p.words, CLUSTER))
+    elif method not in (None, p.method):
+        raise ValueError(f"seat_sort: {method} does not take n={n}")
+    stamps = torch.full((STAMPS,), -1, dtype=torch.int64, device=dev)
+    _launch(keys, spans, p, stamps)
+    return stamps.tolist()
 
 
 @census_op("seat_compact")

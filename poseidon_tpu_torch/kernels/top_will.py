@@ -16,6 +16,7 @@ on its shard's device, and the result lands on the device of ``s``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -35,46 +36,55 @@ KERNEL = Kernel(
 )
 
 LIST_KS = (1, 2, 4, 8, 16, 32)   # the list method's lengths (LIST_MAX = 32)
-LIST_THREADS = 128               # columns of a list block (csrc LIST_THREADS)
+LIST_COLS = 32                   # columns of a list block, a lane each (csrc)
+LIST_CLUSTER = 4                 # blocks of a list cluster: one column group's slabs
+LIST_CLUSTER_MAX = 8             # a portable cluster (csrc)
+LIST_STAMPS = 8                  # int64 phase stamps of a list launch (csrc)
 HIST_COLS = 32                   # columns of a histogram block
 BINS = 256
 RADIX_PASSES = 4                 # one a byte of the int32 key
-LIST_BLOCKS_PER_SM = 4           # list blocks the plan aims to keep on an SM
 HIST_BLOCKS_PER_SM = 6           # histogram blocks (32 KiB of shared memory each)
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    method: str          # "list" (one pass and a merge) or "radix"
+    method: str          # "list" (one cluster launch) or "radix"
     k: int               # the list length (0 for radix)
-    slabs: int           # row slabs of the shard (the grid's y)
+    slabs: int           # row slabs: a list cluster's blocks, the radix grid's y
     rows_per_slab: int
+    col_blocks: int      # the grid's x: column groups (LIST_COLS or HIST_COLS)
 
 
-def plan(rows: int, Mp: int, smax: int, sm_count: int) -> Plan:
+def plan(rows: int, Mp: int, smax: int, sm_count: int,
+         resident=None) -> Plan:
     """The method and the slabs of one shard of ``rows`` rows: the list
     method, its length smax rounded up to a power of two, while smax <=
-    32; radix selection above. Slabs split the rows so that the grid
-    (column blocks x slabs) fills the card about once, but a list slab
-    keeps at least 4 K rows (the merge reads K values a slab and a
-    column) and a histogram slab at least 8 (one a warp)."""
+    32; radix selection above. A list launch is one cluster a column
+    group of 32, its blocks the row slabs: at most LIST_CLUSTER, each of
+    at least 4 K rows (so a block's fold outweighs its merges), and the
+    most for which ``resident(k, slabs)`` (the clusters the card holds at
+    once; None: all of them) covers every column group, so that the
+    launch is one wave (one block an SM); radix slabs split the rows so
+    that the grid (column blocks x slabs) fills the card about once, a
+    slab at least 8 rows (one a warp)."""
     if rows < 1 or Mp < 1 or not 1 <= smax:
         raise ValueError(f"top_will: rows={rows}, Mp={Mp}, smax={smax}")
     if smax <= LIST_KS[-1]:
         k = next(x for x in LIST_KS if x >= smax)
-        col_blocks = -(-Mp // LIST_THREADS)
-        want = -(-sm_count * LIST_BLOCKS_PER_SM // col_blocks)
-        min_rows = 4 * k
-        method = "list"
+        col_blocks = -(-Mp // LIST_COLS)
+        slabs = max(1, min(LIST_CLUSTER, rows // (4 * k)))
+        if resident is not None:
+            slabs = next((n for n in range(slabs, 0, -1)
+                          if resident(k, n) >= col_blocks), slabs)
     else:
         k = 0
         col_blocks = -(-Mp // HIST_COLS)
         want = -(-sm_count * HIST_BLOCKS_PER_SM // col_blocks)
-        min_rows = 8
-        method = "radix"
-    slabs = max(1, min(want, rows // min_rows))
+        slabs = max(1, min(want, rows // 8))
     per = -(-rows // slabs)
-    return Plan(method=method, k=k, slabs=-(-rows // per), rows_per_slab=per)
+    method = "list" if k else "radix"
+    return Plan(method=method, k=k, slabs=-(-rows // per), rows_per_slab=per,
+                col_blocks=col_blocks)
 
 
 def slab_rows(p: Plan, rows: int, slab: int) -> range:
@@ -93,7 +103,9 @@ class PlanCache:
         key = (device, rows, Mp, smax)
         p = self._plans.get(key)
         if p is None:
-            p = self._plans[key] = plan(rows, Mp, smax, sm_count(device))
+            p = self._plans[key] = plan(
+                rows, Mp, smax, sm_count(device),
+                lambda k, slabs: _resident(device, Mp, k, slabs))
             note_build()
         return p
 
@@ -154,8 +166,9 @@ def top_will(parts, s, smax: int):
     sequence of (c[rows, Mp] int32, alt1/alt2/m1[rows] int32,
     task_valid[rows] bool), one a row block, each on one device; smax
     lies in [1, total rows]. CPU tensors take the plain twin; CUDA
-    tensors launch K12 (a slab pass a shard and a merge, or four count
-    passes a shard and four picks)."""
+    tensors launch K12 (the list method: one launch, and under a mesh
+    one a shard and a merge; radix: four count passes a shard and four
+    picks)."""
     parts = [tuple(p) for p in parts]
     kinds = {on_card(*p) for p in parts} | {on_card(s)}
     if len(kinds) != 1:
@@ -183,30 +196,77 @@ def top_will(parts, s, smax: int):
     return out
 
 
+def _list_launch(lib, part, p: Plan, s_ptr, smax, out, lists, stamps=None):
+    """One list launch over one shard: ``out`` (the k-th values), or the
+    K-entry ``lists`` of every column where ``lists`` is given."""
+    with torch.cuda.device(part[0].device):
+        err = lib.top_will_list_launch(
+            *_shard_args(part), part[0].shape[0], part[0].shape[1], p.k,
+            p.slabs, p.rows_per_slab, s_ptr, smax,
+            None if out is None else out.data_ptr(),
+            None if lists is None else lists.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), stream_ptr(part[0]))
+    check_launch(KERNEL, err)
+
+
 def _list(lib, parts, plans, Mp, s_ptr, smax, out):
-    """One slab pass a shard into its rows of ``lists``, then the merge."""
+    """One launch for a whole table; under a mesh one a shard into its
+    row of ``lists``, then the merge of the shards' lists."""
+    if len(parts) == 1:
+        _list_launch(lib, parts[0], plans[0], s_ptr, smax, out, None)
+        return
     K = plans[0].k
     home = out.device
-    n_lists = sum(p.slabs for p in plans)
-    lists = torch.empty((n_lists, K, Mp), dtype=torch.int32, device=home)
-    at = 0
-    for part, p in zip(parts, plans):
+    lists = torch.empty((len(parts), K, Mp), dtype=torch.int32, device=home)
+    for q, (part, p) in enumerate(zip(parts, plans)):
         dev = part[0].device
-        dst = lists[at:at + p.slabs] if dev == home else torch.empty(
-            (p.slabs, K, Mp), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            err = lib.top_will_list_launch(
-                *_shard_args(part), part[0].shape[0], Mp, K, p.slabs,
-                p.rows_per_slab, dst.data_ptr(), stream_ptr(part[0]))
-        check_launch(KERNEL, err)
+        dst = lists[q] if dev == home else torch.empty(
+            (K, Mp), dtype=torch.int32, device=dev)
+        _list_launch(lib, part, p, s_ptr, smax, None, dst)
         if dev != home:
-            lists[at:at + p.slabs].copy_(dst)
-        at += p.slabs
+            lists[q].copy_(dst)
     with torch.cuda.device(home):
-        err = lib.top_will_merge_launch(lists.data_ptr(), n_lists, Mp, K,
+        err = lib.top_will_merge_launch(lists.data_ptr(), len(parts), Mp, K,
                                         s_ptr, smax, out.data_ptr(),
                                         stream_ptr(out))
     check_launch(KERNEL, err)
+
+
+def _resident(device, Mp: int, k: int, slabs: int) -> int:
+    """Clusters of a list launch over Mp columns in ``slabs`` slabs that
+    the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    got = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = library("top_will").top_will_list_clusters(
+            Mp, k, slabs, ctypes.byref(got))
+    check_launch(KERNEL, err)
+    return got.value
+
+
+def list_clusters(device, Mp: int, smax: int, rows: int) -> dict[int, int]:
+    """The clusters the card holds at once for each slab count of this
+    shape's list launch: a diagnostic ``chip_smoke.py`` prints beside the
+    plan."""
+    k = PLANS.get(device, rows, Mp, smax).k
+    return {n: _resident(device, Mp, k, n)
+            for n in range(1, LIST_CLUSTER_MAX + 1)}
+
+
+def phase_stamps(part, s, smax: int) -> list[int]:
+    """One list launch of K12 over one table part with its phase stamps
+    (clock64() on one SM: start, folded, the block's tree, the cluster's
+    read, written). A measurement, not a call of the main path: the
+    launch is not counted."""
+    Mp = part[0].shape[1]
+    p = PLANS.get(part[0].device, part[0].shape[0], Mp, smax)
+    if p.method != "list":
+        raise ValueError(f"top_will: smax={smax} takes the radix method")
+    out = torch.empty(Mp, dtype=torch.int32, device=s.device)
+    stamps = torch.full((LIST_STAMPS,), -1, dtype=torch.int64, device=s.device)
+    _list_launch(library("top_will"), part, p,
+                 kernel_arg(s, "s", torch.int32, (Mp,)), smax, out, None,
+                 stamps)
+    return stamps.tolist()
 
 
 def _radix(lib, parts, plans, Mp, s, smax, out):

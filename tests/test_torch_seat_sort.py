@@ -63,9 +63,23 @@ def loop_keys(rng, n, Mp, nkeys, kind):
         kl[:] = 0
     elif kind == "klinf":
         kl[:] = INF
+    elif kind in ("sized", "sizedlvl"):
+        km = bucket_segments(rng, n, nseg)
+        if kind == "sized":
+            kl[:] = 0
+            isb[:] = 0
+    elif kind == "cold":
+        km[:] = nseg - 2
+        km[n - n // 40:] = nseg - 1
+        kl[:] = 0
+        isb[:] = 0
     elif kind == "wide":
         keys = [rng.integers(-2**31, 2**31, n) for _ in range(nkeys)]
         return [k.astype(np.int32) for k in keys], [k13.INT32] * nkeys
+    elif kind in ("same", "dup"):
+        hi = 0 if kind == "same" else 2
+        keys = [rng.integers(0, hi + 1, n) for _ in range(nkeys)]
+        return [k.astype(np.int32) for k in keys], [(0, 2)] * nkeys
     else:
         assert kind == "rand", kind
     i32 = lambda a: a.astype(np.int64).astype(np.int32)  # noqa: E731
@@ -76,6 +90,23 @@ def loop_keys(rng, n, Mp, nkeys, kind):
         return [i32(km), i32(-kl), i32(tid)], [seg, k13.INT32, task]
     waiting = rng.random(n) < 0.5
     return [i32(np.where(waiting, np.arange(n), n))], [(0, n)]
+
+
+EDGE_BUCKETS = (0, 1, 31, 32, 33, 63, 64, 65)   # chip_smoke.EDGE_BUCKETS
+
+
+def bucket_segments(rng, n, nseg):
+    """``chip_smoke.bucket_segments``: segments whose sizes run through
+    EDGE_BUCKETS, the keys left over in the last, in a random order."""
+    km = np.full(n, nseg - 1)
+    at = 0
+    for seg in range(nseg - 1):
+        size = EDGE_BUCKETS[seg % len(EDGE_BUCKETS)]
+        if at + size > n:
+            break
+        km[at:at + size] = seg
+        at += size
+    return km[rng.permutation(n)]
 
 
 SORT_CASES = [  # (n, Mp, nkeys, kind)
@@ -213,28 +244,202 @@ def test_packed_key_orders_like_the_twin(n, Mp, nkeys, kind):
 
 
 ONE_WORD_CLUSTER_MAX = 8 * ((H100_SMEM_OPTIN - k13.BLOCK_FIXED_BYTES) // 16)
+ONE_WORD_SPLIT_MAX = max(
+    n for n in range(1, k13.SPLIT_MAX_N + 1)
+    if k13.split_smem(n, 1, k13.SPLIT_CLUSTER) <= H100_SMEM_OPTIN)
 
 
-@pytest.mark.parametrize("n", [1, 7, 8, 9, 1024, 10240, 53456, 53457,
-                               ONE_WORD_CLUSTER_MAX,
+@pytest.mark.parametrize("n", [1, 8, 33, 1024, 10240, ONE_WORD_SPLIT_MAX,
+                               ONE_WORD_SPLIT_MAX + 1, 53456, 53457,
                                ONE_WORD_CLUSTER_MAX + 1, 524288])
 @pytest.mark.parametrize("bits", [(11, 32, 14), (11, 32, 1, 14),
                                   (17, 32, 1, 16), (32, 32, 32, 32), (14,)])
 def test_sort_plan(n, bits):
+    """The method by n and the key width: the split cluster while n <=
+    32,768 and a block's share fits (the flagship's 3- and 4-key sorts),
+    the LSD cluster while each block's share fits, tiles above."""
     p = k13.sort_plan(n, bits, H100_SMEM_OPTIN)
     width = sum(bits)
     assert p.words == (1 if width <= 64 else 2)
     assert p.passes == -(-width // 8) <= k13.MAX_PASSES
-    if k13.block_smem(n, p.words, k13.CLUSTER) <= H100_SMEM_OPTIN:
-        assert p.cluster == k13.CLUSTER and p.tiles == 0
-        assert p.smem == k13.BLOCK_FIXED_BYTES + 16 * p.words * -(-n // p.cluster)
+    split = k13.split_smem(n, p.words, k13.SPLIT_CLUSTER)
+    if n <= k13.SPLIT_MAX_N and split <= H100_SMEM_OPTIN:
+        assert (p.method, p.cluster, p.tiles) == ("split", 8, 0)
+        assert p.smem == split
+    elif k13.block_smem(n, p.words, k13.CLUSTER) <= H100_SMEM_OPTIN:
+        assert (p.method, p.cluster, p.tiles) == ("cluster", k13.CLUSTER, 0)
+        assert p.smem == (k13.BLOCK_FIXED_BYTES
+                          + 16 * p.words * -(-n // p.cluster))
         assert p.smem <= H100_SMEM_OPTIN
     else:
-        assert p.cluster == 0 and p.smem == 0
+        assert (p.method, p.cluster, p.smem) == ("tiles", 0, 0)
         assert (p.tiles - 1) * k13.TILE < n <= p.tiles * k13.TILE
-    # the flagship's 3- and 4-key sorts: one launch of an 8-block cluster
+    assert p.method in k13.METHODS
+    # the flagship's 3- and 4-key sorts: the split cluster, one word
     if n == 10240 and width <= 64:
-        assert p.cluster == 8 and p.words == 1
+        assert p.method == "split" and p.words == 1
+    # past the split's limit (23,936 one-word keys on an H100, 19,056
+    # two-word ones) the LSD cluster takes over
+    if n == ONE_WORD_SPLIT_MAX + 1 and width <= 64:
+        assert p.method == "cluster"
+
+
+def test_split_smem_sums_the_kernel_layout():
+    """split_smem is the csrc layout's sum: a block's two key buffers and
+    its part of the AND and OR of lmax buckets in 64-bit words, then ints
+    (counts, cursors and next-level slots of the bins, bitmap, nine
+    lists, fixed)."""
+    for n, words, cl in ((1, 1, 8), (33, 1, 8), (10240, 1, 8),
+                         (10240, 2, 8), (10240, 1, 1), (19056, 2, 8)):
+        lmax = n // 33 + 1
+        assert k13.split_lmax(n) == lmax
+        ints = 3 * ((n + 1) // 2) + n // 32 + 2 + 9 * lmax + 48
+        assert k13.split_smem(n, words, cl) == (16 * words * -(-n // cl)
+                                                + 16 * words * lmax
+                                                + 4 * ints)
+    assert ONE_WORD_SPLIT_MAX == 23936
+    assert max(n for n in range(1, k13.SPLIT_MAX_N + 1)
+               if k13.split_smem(n, 2, 8) <= H100_SMEM_OPTIN) == 19056
+    # a bin's count and the next level's slot share one int in the scan
+    assert k13.SPLIT_MAX_N < 2 ** 16 and (k13.SPLIT_MAX_N // 33 + 1) < 2 ** 15
+
+
+@pytest.mark.parametrize("width", [0, 1, 4, 12, 14, 58, 128])
+@pytest.mark.parametrize("size", [33, 64, 65, 240, 10240, 12288])
+def test_split_digit(width, size):
+    """A bucket's digit: its top varying bits, at most DIGIT_MAX, and at
+    most log2(size) - 1 so that a level's bins number at most n / 2; no
+    digit (one bin) where the keys are all equal."""
+    d = k13.split_digit(width, size)
+    if width == 0:
+        assert d == 0
+        return
+    assert 1 <= d <= min(width, k13.DIGIT_MAX)
+    assert 2 ** d <= size // 2
+    assert d == width or d == k13.DIGIT_MAX or 2 ** (d + 1) > size // 2
+
+
+def split_model(packed, n, width0):
+    """csrc/seat_sort.cu's split method restated on Python ints: levels
+    split every bucket of more than SMALL keys by its top varying bits,
+    the first bucket by the top bits of the packed width ``width0``
+    (the bins' keys laid out in reverse order of arrival: a split needs
+    no stability), each non-empty bin a bucket (a head bit); then each
+    key finds its bucket in the head bitmap as the kernel does (its word
+    and the next or previous one) and takes its rank by counting. Returns
+    the keys as the kernel writes them and each level's (buckets, keys
+    split, bins, first digit's shift and width)."""
+    a = list(packed)
+    head = [0] * (n // 32 + 2)
+    head[0] = 1
+    buckets = [(0, n)] if n > k13.SMALL else []
+    levels = []
+    while buckets:
+        nxt, bins, listed = [], 0, 0
+        for i, (start, size) in enumerate(buckets):
+            keys = a[start:start + size]
+            andv = orv = keys[0]
+            for x in keys:
+                andv &= x
+                orv |= x
+            width = (andv ^ orv).bit_length() if levels else width0
+            d = k13.split_digit(width, size)
+            shift = width - d
+            if i == 0:
+                first = (shift, d)
+            groups = [[] for _ in range(1 << d)]
+            for x in keys:
+                groups[(x >> shift) & ((1 << d) - 1)].append(x)
+            pos = start
+            for g in groups:
+                if g:
+                    head[pos >> 5] |= 1 << (pos & 31)
+                    if len(g) > k13.SMALL and d > 0:
+                        nxt.append((pos, len(g)))
+                    a[pos:pos + len(g)] = g[::-1]
+                    pos += len(g)
+            bins += 1 << d
+            listed += size
+        assert bins <= (n + 1) // 2
+        assert len(nxt) <= k13.split_lmax(n)
+        levels.append((len(buckets), listed, bins, first))
+        buckets = nxt
+    out = [None] * n
+    for e in range(n):
+        w0, upto = e >> 5, (1 << ((e & 31) + 1)) - 1
+        below, above = head[w0] & upto, head[w0] & ~upto
+        s = t = -1
+        if below:
+            s = (w0 << 5) + below.bit_length() - 1
+        elif w0 > 0 and head[w0 - 1]:
+            s = ((w0 - 1) << 5) + head[w0 - 1].bit_length() - 1
+        if above:
+            t = (w0 << 5) + (above & -above).bit_length() - 1
+        elif (w0 + 1) << 5 >= n:
+            t = n
+        elif head[w0 + 1]:
+            t = ((w0 + 1) << 5) + (head[w0 + 1] & -head[w0 + 1]).bit_length() - 1
+        elif (w0 + 2) << 5 >= n:
+            t = n
+        rank = e
+        if s >= 0 and t >= 0 and t - s <= k13.SMALL:
+            rank = s + sum(a[q] < a[e] or (q < e and a[q] == a[e])
+                           for q in range(s, t))
+        else:   # a bucket past SMALL is one of equal keys, in place
+            lo = hi = e
+            while not head[lo >> 5] >> (lo & 31) & 1:
+                lo -= 1
+            while hi + 1 < n and not head[(hi + 1) >> 5] >> ((hi + 1) & 31) & 1:
+                hi += 1
+            assert hi + 1 - lo > k13.SMALL
+            assert all(x == a[e] for x in a[lo:hi + 1])
+        assert out[rank] is None
+        out[rank] = a[e]
+    return out, levels
+
+
+SPLIT_CASES = SORT_CASES + [
+    (10240, 1024, 4, "rand"), (10240, 1024, 3, "rand"),
+    (10240, 1024, 4, "sized"), (2000, 64, 3, "sized"),
+    (10240, 1024, 4, "sizedlvl"), (10240, 1024, 4, "cold"),
+    (600, 16, 3, "cold"), (33, 16, 4, "oneseg"), (32, 16, 4, "oneseg"),
+    (65, 16, 3, "cold"), (4000, 16, 4, "same"), (4000, 16, 1, "dup"),
+    (3000, 16, 3, "dup"), (2000, 16, 1, "wide"), (2000, 16, 2, "wide"),
+]
+
+
+@pytest.mark.parametrize("n,Mp,nkeys,kind", SPLIT_CASES)
+def test_split_model_sorts_like_the_twin(n, Mp, nkeys, kind):
+    """The split method restated (``split_model``) writes every key once
+    and in the twin's order, on PR 15's sort cases and at the split's
+    edges: buckets of 0, 1, 31-33 and 63-65 keys, all n keys in one
+    bucket, n past and at SMALL, keys of 32 and 64 bits, equal keys."""
+    rng = np.random.default_rng(n * 7 + nkeys + Mp)
+    keys, spans = loop_keys(rng, n, Mp, nkeys, kind)
+    packed = [_pack(vals, spans) for vals in zip(*keys)]
+    got, levels = split_model(packed, n,
+                              sum(k13.field_bits(sp) for sp in spans))
+    want = k13.seat_sort_plain(*[torch.from_numpy(k) for k in keys])
+    for i, w in enumerate(want):
+        assert [_unpack(p, spans, i) for p in got] == w.tolist()
+    assert (levels == []) == (n <= k13.SMALL)
+
+
+def test_split_model_at_the_flagship():
+    """The flagship's 4-key sort (58-bit keys): the first digit is the
+    top 11 bits, the segment (bits 47-57); where only WAIT and DUMP occur
+    (level 0, not bidding: a cold round's layout) each of the two buckets
+    splits once more, by the task id, in two levels in all."""
+    rng = np.random.default_rng(2)
+    for kind in ("rand", "cold"):
+        keys, spans = loop_keys(rng, 10240, 1024, 4, kind)
+        packed = [_pack(vals, spans) for vals in zip(*keys)]
+        got, levels = split_model(packed, 10240, 58)
+        assert got == sorted(packed)
+        assert levels[0][3] == (47, 11)
+        if kind == "cold":
+            assert len(levels) == 2
+            assert levels[1][:2] == (2, 10240)  # WAIT and DUMP, every key
 
 
 @pytest.mark.parametrize("n", [1, 3, 10240, 65536, 65537, 524288, 2**22])
@@ -266,3 +471,13 @@ def test_kernel_constants_agree_with_the_plan():
     assert (const("COMPACT_THREADS") * const("COMPACT_ITEMS")
             == k13.COMPACT_CHUNK)
     assert const("COMPACT_THREADS") == k13.COMPACT_MAX_BLOCKS
+    assert const("SPLIT_THREADS") == k13.SPLIT_THREADS
+    assert const("SPLIT_CLUSTER") == k13.SPLIT_CLUSTER
+    assert const("SPLIT_MAX_N") == k13.SPLIT_MAX_N
+    assert const("SMALL") == k13.SMALL
+    assert const("DIGIT_MAX") == k13.DIGIT_MAX
+    assert const("SPLIT_FIXED_INTS") == k13.SPLIT_FIXED_INTS
+    assert const("STAMPS") == k13.STAMPS
+    for name, value in k13.METHODS.items():
+        assert const(f"METHOD_{name.upper()}") == value
+    assert "return n / (SMALL + 1) + 1;" in src      # split_lmax

@@ -8,8 +8,10 @@ tolerance 0 (every value is an int32), on the edges ``chip_smoke.py
 [edges]`` runs on the card at small sizes: both methods' smax, Tp 1 and
 3, all -INF columns, no valid task, s 0 and past smax, ties, alt - c past
 +-INF and wrapping int32, and 2- and 4-shard merges. The launch plan
-(method, list length, slabs) is held on the CPU; the kernel itself runs
-only on the card.
+(method, list length, the list cluster's slabs and column groups) and
+the list method's merges (``merge_top`` and the tree over a block's
+warps and a cluster's blocks, restated) are held on the CPU; the kernel
+itself runs only on the card.
 """
 
 from __future__ import annotations
@@ -151,13 +153,22 @@ PLAN_SHAPES = [(rows, smax, Mp)
 
 @pytest.mark.parametrize("rows,smax,Mp", PLAN_SHAPES)
 def test_plan_deals_every_row_once(rows, smax, Mp):
+    """The list method: one cluster a group of 32 columns (the grid's x),
+    its blocks the row slabs (at most LIST_CLUSTER, each of at least 4 K
+    rows unless there is one); radix: HIST_COLS columns a block, slabs of
+    at least 8 rows. Either way every row lies in one slab."""
     p = k12.plan(rows, Mp, smax, 132)
     if smax <= 32:
         assert p.method == "list" and p.k >= smax and p.k in k12.LIST_KS
         assert p.k < 2 * smax
+        assert p.col_blocks == -(-Mp // k12.LIST_COLS)
+        assert 1 <= p.slabs <= k12.LIST_CLUSTER   # a portable cluster
         assert p.slabs == 1 or p.rows_per_slab >= 4 * p.k
+        if rows >= 4 * p.k * k12.LIST_CLUSTER:
+            assert p.slabs == k12.LIST_CLUSTER
     else:
         assert p.method == "radix" and p.k == 0
+        assert p.col_blocks == -(-Mp // k12.HIST_COLS)
         assert p.slabs == 1 or p.rows_per_slab >= 8
     assert 1 <= p.slabs <= 65535          # the grid's y dimension
     # slabs are consecutive runs: every row once, no slab empty
@@ -168,13 +179,16 @@ def test_plan_deals_every_row_once(rows, smax, Mp):
 
 
 def test_plan_fills_the_card_at_the_flagship():
+    """The flagship's first deflate (smax 16): 32 column groups x a
+    cluster of 4 slabs, 128 blocks of 1,024 threads, one an SM: one wave
+    over the card's 132 SMs. Config 8's radix grid fills it 6 times."""
     p = k12.plan(10240, 1024, 16, 132)
     assert (p.method, p.k) == ("list", 16)
-    col_blocks = -(-1024 // k12.LIST_THREADS)
-    assert col_blocks * p.slabs >= 132 * k12.LIST_BLOCKS_PER_SM
+    assert (p.col_blocks, p.slabs, p.rows_per_slab) == (32, 4, 2560)
+    assert p.col_blocks * p.slabs <= 132
     r = k12.plan(524288, 256, 3072, 132)
     assert r.method == "radix"
-    assert -(-256 // k12.HIST_COLS) * r.slabs >= 132 * k12.HIST_BLOCKS_PER_SM
+    assert r.col_blocks * r.slabs >= 132 * k12.HIST_BLOCKS_PER_SM
 
 
 def test_plan_rejects_bad_shapes():
@@ -189,9 +203,13 @@ def test_kernel_constants_agree_with_the_plan():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
 
-    assert const("LIST_THREADS") == k12.LIST_THREADS
+    assert const("LIST_COLS") == k12.LIST_COLS
+    assert const("LIST_CLUSTER_MAX") == k12.LIST_CLUSTER_MAX
+    assert k12.LIST_CLUSTER <= k12.LIST_CLUSTER_MAX
+    assert const("LIST_STAMPS") == k12.LIST_STAMPS
     assert const("HIST_COLS") == k12.HIST_COLS
     assert const("BINS") == k12.BINS
+    assert k12.BINS == 2 ** (32 // k12.RADIX_PASSES)  # a byte a radix pass
     for k in k12.LIST_KS:
         assert f"case {k}: return" in src
 
@@ -226,3 +244,86 @@ def test_kernel_merge_keeps_the_k_largest(K):
             _merge_top(a, (b + [-2**31] * K)[:K])
         want = (sorted(sum(lists, []), reverse=True) + [-2**31] * K)[:K]
         assert a == want
+
+
+def _tree_merge(lists_of_warps):
+    """csrc/top_will.cu ``tree_merge``, restated: warps [half, lists)
+    hand their lists to warps [0, lists - half), which merge, halves
+    until one is left; returns warp 0's list and the slots used."""
+    a = [list(x) for x in lists_of_warps]
+    lists = len(a)
+    span = 1
+    while span < lists:
+        span <<= 1
+    half, slots = span >> 1, 0
+    while half >= 1:
+        keep = {w - half: list(a[w]) for w in range(half, lists)}
+        slots = max(slots, len(keep))
+        for w in range(half):
+            if w + half < lists:
+                _merge_top(a[w], keep[w])
+        lists, half = half, half >> 1
+    return a[0], slots
+
+
+@pytest.mark.parametrize("K", k12.LIST_KS)
+@pytest.mark.parametrize("lists", [1, 2, 3, 5, 8, 16, 32])
+def test_kernel_tree_keeps_the_k_largest(K, lists):
+    """The one-launch list method's merges, restated: a block's 16 or 32
+    warps (or a cluster's 1-8 blocks) meet in a tree of ``merge_top`` steps
+    through at most lists / 2 slots of shared memory, and the first
+    list holds the K largest values of all, ties and the empty fill
+    included."""
+    rng = np.random.default_rng(K * 100 + lists)
+    for trial in range(10):
+        hi = 3 if trial % 2 else 10**6
+        raw = [sorted(rng.integers(-hi, hi, int(rng.integers(0, K + 1)))
+                      .tolist(), reverse=True) for _ in range(lists)]
+        got, slots = _tree_merge([(b + [-2**31] * K)[:K] for b in raw])
+        want = (sorted(sum(raw, []), reverse=True) + [-2**31] * K)[:K]
+        assert got == want
+        assert slots <= max(1, lists // 2)
+
+
+def _sort_desc(v):
+    """csrc/top_will.cu ``sort_desc``: the bitonic network, restated."""
+    v, n = list(v), len(v)
+    size = 2
+    while size <= n:
+        stride = size >> 1
+        while stride > 0:
+            for i in range(n):
+                j = i ^ stride
+                if j > i:
+                    hi, lo = max(v[i], v[j]), min(v[i], v[j])
+                    down = (i & size) == 0
+                    v[i], v[j] = (hi, lo) if down else (lo, hi)
+            stride >>= 1
+        size <<= 1
+    return v
+
+
+@pytest.mark.parametrize("K", [8, 16, 32])
+@pytest.mark.parametrize("kind", ["rand", "tied", "rising"])
+def test_kernel_fold_in_sorted_batches_keeps_the_k_largest(K, kind):
+    """The list method's fold for K >= 8, restated: a lane's values of a
+    turn go in by batches of K, each sorted by the bitonic network and
+    merged into the list by ``merge_top``; the list keeps its column's K
+    largest values, ties and the empty fill included."""
+    rng = np.random.default_rng(K + len(kind))
+    unroll = 16 if K <= 16 else 32
+    rows = unroll * 9
+    if kind == "tied":
+        col = rng.integers(0, 3, rows).tolist()
+    elif kind == "rising":
+        col = sorted(rng.integers(-10**6, 10**6, rows).tolist())
+    else:
+        col = rng.integers(-10**6, 10**6, rows).tolist()
+    empty = -2**31
+    a = [empty] * K
+    for turn in range(0, rows, unroll):
+        for b0 in range(turn, turn + unroll, K):
+            batch = _sort_desc(col[b0:b0 + K])
+            assert batch == sorted(batch, reverse=True)
+            _merge_top(a, batch)
+    assert a == sorted(col, reverse=True)[:K]
