@@ -55,21 +55,23 @@
 //   `stamps`, thread 0 of block (0, 0) writes clock64() at the fold's,
 //   the block tree's, the cluster read's and the write's end.
 //
-// * radix (larger smax, up to the rows): selection by the value's four
-//   bytes, most significant first, on the order-preserving unsigned key
-//   will ^ 0x80000000. Pass q (q = 0..3) launches `hist`: a block covers
-//   HIST_COLS columns (a lane each) of a slab of rows, its eight warps
-//   taking every eighth row, and counts the byte q of every value whose
-//   bytes above q equal the column's prefix so far, in a shared-memory
-//   histogram laid out digit-major, so a warp's 32 lanes hit 32 banks. It
-//   adds the nonzero bins into hist[part, byte, m] with global atomics.
-//   Then `pick` (a warp a column, eight bins a lane and a suffix scan over
-//   the lanes) finds the byte where the count from the top reaches the
-//   rank still wanted, takes the counts above it off the rank, zeroes the
-//   bins for the next pass, and after the fourth byte writes the value. Under a mesh each shard counts into
-//   its own part and `pick` sums the parts. This reads the table four
-//   times, so it is the first step-2 candidate where smax is large (config
-//   8's aggregated classes).
+// * radix (larger smax, up to the rows): selection by three digits of
+//   the value (11, 11 and 10 bits), most significant first, on the
+//   order-preserving unsigned key will ^ 0x80000000. Pass q (q = 0..2)
+//   launches `hist`: a block of 1,024 threads covers HIST_COLS = 16
+//   columns of a slab of rows (a half-warp a row: 64-byte segments, 64
+//   rows at once), and counts digit q of every value whose digits above
+//   q equal the column's prefix so far, in a shared-memory histogram of
+//   2,048 bins x 16 columns (128 KiB, one block an SM; the plan's grid is
+//   one wave), laid out digit-major so a half-warp's lanes hit distinct
+//   banks. It adds the nonzero bins into hist[part, m, digit] with global
+//   atomics. Then `pick` (a warp a column, bins / 32 bins a lane and a
+//   suffix scan over the lanes) finds the digit where the count from the
+//   top reaches the rank still wanted, takes the counts above it off the
+//   rank, zeroes the bins for the next pass, and after the last digit
+//   writes the value. Under a mesh each shard counts into its own part
+//   and `pick` sums the parts. The table is read three times (a byte a
+//   pass read it four times: 1,056 us a call at config 8 on an H100).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -97,11 +99,21 @@ template <int K>
 __host__ __device__ constexpr int merge_warps() {
   return K <= 16 ? 16 : 8;
 }
-constexpr int HIST_COLS = 32;
-constexpr int HIST_THREADS = 256;
-constexpr int HIST_WARPS = HIST_THREADS / 32;
-constexpr int HIST_UNROLL = 4;
-constexpr int BINS = 256;
+constexpr int HIST_COLS = 16;                 // a half-warp a row: 64-byte segments
+constexpr int HIST_THREADS = 1024;            // one block an SM (its histogram: 128 KiB)
+constexpr int HIST_ROWS = HIST_THREADS / HIST_COLS;  // rows of a block at once
+constexpr int HIST_UNROLL = 8;
+constexpr int BINS = 2048;                    // the widest digit's bins
+constexpr int RADIX_PASSES = 3;               // digits of 11, 11 and 10 bits
+constexpr int HIST_SMEM = BINS * HIST_COLS * 4;
+// the digit of radix pass q: its width and the bits below it
+__host__ __device__ constexpr int digit_bits(int pass) { return pass == RADIX_PASSES - 1 ? 10 : 11; }
+__host__ __device__ constexpr int digit_shift(int pass) {
+  return pass == 0 ? 21 : pass == 1 ? 10 : 0;
+}
+static_assert(digit_bits(0) + digit_bits(1) + digit_bits(2) == 32, "the key's 32 bits");
+static_assert(digit_shift(0) == digit_bits(1) + digit_shift(1) && digit_shift(1) == digit_bits(2),
+              "digits laid end to end");
 constexpr int PICK_THREADS = 256;
 constexpr int LIST_EMPTY = -2147483647 - 1;  // below every will (>= -INF)
 
@@ -364,80 +376,90 @@ __global__ void __launch_bounds__(merge_warps<K>() * 32) top_will_merge_kernel(
   out[m] = v;
 }
 
-__global__ void __launch_bounds__(HIST_THREADS) top_will_hist_kernel(
+__global__ void __launch_bounds__(HIST_THREADS, 1) top_will_hist_kernel(
     const int* __restrict__ c, const int* __restrict__ alt1, const int* __restrict__ alt2,
     const int* __restrict__ m1, const unsigned char* __restrict__ valid, int rows, int Mp,
     int rows_per_slab, int pass, const int* __restrict__ state, int* __restrict__ hist) {
-  __shared__ int h[BINS * HIST_COLS];
-  for (int i = threadIdx.x; i < BINS * HIST_COLS; i += HIST_THREADS) h[i] = 0;
+  extern __shared__ int h[];  // BINS x HIST_COLS, digit-major
+  const int bins = 1 << digit_bits(pass);
+  for (int i = threadIdx.x; i < bins * HIST_COLS; i += HIST_THREADS) h[i] = 0;
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m = blockIdx.x * HIST_COLS + lane;
+  const int col = threadIdx.x % HIST_COLS;
+  const int m = blockIdx.x * HIST_COLS + col;
   const int r0 = blockIdx.y * rows_per_slab;
   const int r1 = min(rows, r0 + rows_per_slab);
-  const int shift = 24 - 8 * pass;
+  const int shift = digit_shift(pass);
+  const unsigned dmask = static_cast<unsigned>(bins - 1);
   if (m < Mp) {
-    const unsigned high = pass ? ~0u << (32 - 8 * pass) : 0u;
+    const unsigned high = pass ? ~0u << (shift + digit_bits(pass)) : 0u;
     const unsigned want = pass ? static_cast<unsigned>(state[m]) & high : 0u;
-    int r = r0 + warp;
-    for (; r + (HIST_UNROLL - 1) * HIST_WARPS < r1; r += HIST_UNROLL * HIST_WARPS) {
+    int r = r0 + static_cast<int>(threadIdx.x) / HIST_COLS;
+    for (; r + (HIST_UNROLL - 1) * HIST_ROWS < r1; r += HIST_UNROLL * HIST_ROWS) {
       int cv[HIST_UNROLL];
 #pragma unroll
       for (int u = 0; u < HIST_UNROLL; ++u)
-        cv[u] = c[static_cast<size_t>(r + u * HIST_WARPS) * Mp + m];
+        cv[u] = __ldcs(c + static_cast<size_t>(r + u * HIST_ROWS) * Mp + m);
 #pragma unroll
       for (int u = 0; u < HIST_UNROLL; ++u) {
-        const int t = r + u * HIST_WARPS;
+        const int t = r + u * HIST_ROWS;
         const unsigned key = static_cast<unsigned>(will_of(
             cv[u], __ldg(alt1 + t), __ldg(alt2 + t), __ldg(m1 + t), __ldg(valid + t), m)) ^
                              0x80000000u;
-        if ((key & high) == want) atomicAdd(&h[((key >> shift) & 0xff) * HIST_COLS + lane], 1);
+        if ((key & high) == want) atomicAdd(&h[((key >> shift) & dmask) * HIST_COLS + col], 1);
       }
     }
-    for (; r < r1; r += HIST_WARPS) {
+    for (; r < r1; r += HIST_ROWS) {
       const unsigned key = static_cast<unsigned>(will_of(
-          c[static_cast<size_t>(r) * Mp + m], __ldg(alt1 + r), __ldg(alt2 + r), __ldg(m1 + r),
-          __ldg(valid + r), m)) ^
+          __ldcs(c + static_cast<size_t>(r) * Mp + m), __ldg(alt1 + r), __ldg(alt2 + r),
+          __ldg(m1 + r), __ldg(valid + r), m)) ^
                            0x80000000u;
-      if ((key & high) == want) atomicAdd(&h[((key >> shift) & 0xff) * HIST_COLS + lane], 1);
+      if ((key & high) == want) atomicAdd(&h[((key >> shift) & dmask) * HIST_COLS + col], 1);
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < BINS * HIST_COLS; i += HIST_THREADS) {
+  for (int i = threadIdx.x; i < bins * HIST_COLS; i += HIST_THREADS) {
     const int v = h[i];
-    const int col = blockIdx.x * HIST_COLS + (i % HIST_COLS);
-    if (v != 0 && col < Mp) atomicAdd(&hist[static_cast<size_t>(i / HIST_COLS) * Mp + col], v);
+    const int mc = blockIdx.x * HIST_COLS + (i % HIST_COLS);
+    if (v != 0 && mc < Mp) atomicAdd(&hist[static_cast<size_t>(mc) * BINS + i / HIST_COLS], v);
   }
 }
 
-// A warp a column: lane l owns the bins [8 l, 8 l + 8), sums them over the
-// parts (zeroing them for the next pass), and a suffix scan over the lanes
-// finds the lane whose bins hold the rank still wanted; that lane walks
-// its eight bins from the top.
+// A warp a column: lane l owns the digit's bins [l * per, (l + 1) * per)
+// (per = bins / 32; a column's bins lie together, hist[part, m, bin], so
+// a lane reads and zeroes its own with 16-byte accesses), sums them over
+// the parts, and a suffix scan over the lanes finds the lane whose bins
+// hold the rank still wanted; that lane walks its bins from the top.
 __global__ void __launch_bounds__(PICK_THREADS) top_will_pick_kernel(
     int* __restrict__ hist, int parts, int Mp, int pass, const int* __restrict__ s, int smax,
     int* __restrict__ state, int* __restrict__ out) {
-  constexpr int PER_LANE = BINS / 32;
+  constexpr int MAX_PER_LANE = BINS / 32;
+  const int per = (1 << digit_bits(pass)) / 32;
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * (PICK_THREADS / 32) + (threadIdx.x >> 5);
   if (m >= Mp) return;  // the whole warp: m is the warp's
   const unsigned prefix = pass ? static_cast<unsigned>(state[m]) : 0u;
   const int k = pass ? state[Mp + m] : rank_of(s, smax, m) + 1;
-  int cnt[PER_LANE];
+  int cnt[MAX_PER_LANE];
+#pragma unroll
+  for (int j = 0; j < MAX_PER_LANE; ++j) cnt[j] = 0;
+  for (int q = 0; q < parts; ++q) {
+    int4* bins = reinterpret_cast<int4*>(hist + (static_cast<size_t>(q) * Mp + m) * BINS +
+                                         lane * per);
+#pragma unroll
+    for (int j = 0; j < MAX_PER_LANE / 4; ++j) {
+      if (4 * j < per) {
+        const int4 v = bins[j];
+        bins[j] = make_int4(0, 0, 0, 0);
+        cnt[4 * j] += v.x;
+        cnt[4 * j + 1] += v.y;
+        cnt[4 * j + 2] += v.z;
+        cnt[4 * j + 3] += v.w;
+      }
+    }
+  }
   int mine = 0;
 #pragma unroll
-  for (int j = 0; j < PER_LANE; ++j) {
-    const int b = lane * PER_LANE + j;
-    int n = 0;
-    for (int q = 0; q < parts; ++q) {
-      int* bin = hist + (static_cast<size_t>(q) * BINS + b) * Mp + m;
-      n += *bin;
-      *bin = 0;
-    }
-    cnt[j] = n;
-    mine += n;
-  }
+  for (int j = 0; j < MAX_PER_LANE; ++j) mine += cnt[j];
   int incl = mine;  // the counts in this lane's bins and every higher lane's
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -451,23 +473,24 @@ __global__ void __launch_bounds__(PICK_THREADS) top_will_pick_kernel(
   int rest = k;
   if (lane == src && who) {
     int acc = above;
+    bool found = false;
 #pragma unroll
-    for (int j = PER_LANE - 1; j >= 0; --j) {
-      if (acc + cnt[j] >= k) {
-        digit = lane * PER_LANE + j;
+    for (int j = MAX_PER_LANE - 1; j >= 0; --j) {
+      if (!found && j < per && acc + cnt[j] >= k) {
+        digit = lane * per + j;
         rest = k - acc;
-        break;
+        found = true;
       }
-      acc += cnt[j];
+      acc += found ? 0 : cnt[j];
     }
   }
   digit = __shfl_sync(0xffffffffu, digit, src);
   rest = __shfl_sync(0xffffffffu, rest, src);
   if (lane == 0) {
-    const unsigned p = prefix | static_cast<unsigned>(digit) << (24 - 8 * pass);
+    const unsigned p = prefix | static_cast<unsigned>(digit) << digit_shift(pass);
     state[m] = static_cast<int>(p);
     state[Mp + m] = rest;
-    if (pass == 3) out[m] = static_cast<int>(p ^ 0x80000000u);
+    if (pass == RADIX_PASSES - 1) out[m] = static_cast<int>(p ^ 0x80000000u);
   }
 }
 
@@ -573,21 +596,26 @@ extern "C" int top_will_merge_launch(const int* part, int lists, int Mp, int K, 
   }
 }
 
-// The radix method's count of byte `pass` over one shard into
-// hist[BINS, Mp] (zero before the pass: `pick` leaves it so).
+// The radix method's count of digit `pass` over one shard into
+// hist[Mp, BINS] (zero before the pass: `pick` leaves it so).
 extern "C" int top_will_hist_launch(const int* c, const int* alt1, const int* alt2, const int* m1,
                                     const unsigned char* valid, int rows, int Mp, int slabs,
                                     int rows_per_slab, int pass, const int* state, int* hist,
                                     void* stream) {
+  if (pass < 0 || pass >= RADIX_PASSES) return static_cast<int>(cudaErrorInvalidValue);
+  // the histogram's 128 KiB, above the default cap (on the current device)
+  const cudaError_t lifted = cudaFuncSetAttribute(
+      top_will_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HIST_SMEM);
+  if (lifted != cudaSuccess) return static_cast<int>(lifted);
   const dim3 grid((Mp + HIST_COLS - 1) / HIST_COLS, slabs);
-  top_will_hist_kernel<<<grid, HIST_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  top_will_hist_kernel<<<grid, HIST_THREADS, HIST_SMEM, static_cast<cudaStream_t>(stream)>>>(
       c, alt1, alt2, m1, valid, rows, Mp, rows_per_slab, pass, state, hist);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The radix method's choice of byte `pass` from the parts' counts
-// hist[parts, BINS, Mp]; state[2, Mp] carries (prefix, rank) between
-// passes, and the fourth pass writes out[Mp].
+// The radix method's choice of digit `pass` from the parts' counts
+// hist[parts, Mp, BINS]; state[2, Mp] carries (prefix, rank) between
+// passes, and the last pass writes out[Mp].
 extern "C" int top_will_pick_launch(int* hist, int parts, int Mp, int pass, const int* s,
                                     int smax, int* state, int* out, void* stream) {
   constexpr int cols = PICK_THREADS / 32;

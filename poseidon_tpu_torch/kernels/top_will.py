@@ -40,10 +40,10 @@ LIST_COLS = 32                   # columns of a list block, a lane each (csrc)
 LIST_CLUSTER = 4                 # blocks of a list cluster: one column group's slabs
 LIST_CLUSTER_MAX = 8             # a portable cluster (csrc)
 LIST_STAMPS = 8                  # int64 phase stamps of a list launch (csrc)
-HIST_COLS = 32                   # columns of a histogram block
-BINS = 256
-RADIX_PASSES = 4                 # one a byte of the int32 key
-HIST_BLOCKS_PER_SM = 6           # histogram blocks (32 KiB of shared memory each)
+HIST_COLS = 16                   # columns of a histogram block (csrc)
+BINS = 2048                      # the widest digit's bins (csrc)
+DIGIT_BITS = (11, 11, 10)        # the radix passes' digits, most significant first
+RADIX_PASSES = len(DIGIT_BITS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +65,8 @@ def plan(rows: int, Mp: int, smax: int, sm_count: int,
     most for which ``resident(k, slabs)`` (the clusters the card holds at
     once; None: all of them) covers every column group, so that the
     launch is one wave (one block an SM); radix slabs split the rows so
-    that the grid (column blocks x slabs) fills the card about once, a
-    slab at least 8 rows (one a warp)."""
+    that the grid (column blocks x slabs, one block an SM) is one wave
+    of at most ``sm_count`` blocks, a slab at least 8 rows."""
     if rows < 1 or Mp < 1 or not 1 <= smax:
         raise ValueError(f"top_will: rows={rows}, Mp={Mp}, smax={smax}")
     if smax <= LIST_KS[-1]:
@@ -79,8 +79,7 @@ def plan(rows: int, Mp: int, smax: int, sm_count: int,
     else:
         k = 0
         col_blocks = -(-Mp // HIST_COLS)
-        want = -(-sm_count * HIST_BLOCKS_PER_SM // col_blocks)
-        slabs = max(1, min(want, rows // 8))
+        slabs = max(1, min(sm_count // col_blocks, rows // 8))
     per = -(-rows // slabs)
     method = "list" if k else "radix"
     return Plan(method=method, k=k, slabs=-(-rows // per), rows_per_slab=per,
@@ -167,7 +166,7 @@ def top_will(parts, s, smax: int):
     task_valid[rows] bool), one a row block, each on one device; smax
     lies in [1, total rows]. CPU tensors take the plain twin; CUDA
     tensors launch K12 (the list method: one launch, and under a mesh
-    one a shard and a merge; radix: four count passes a shard and four
+    one a shard and a merge; radix: three count passes a shard and three
     picks)."""
     parts = [tuple(p) for p in parts]
     kinds = {on_card(*p) for p in parts} | {on_card(s)}
@@ -270,14 +269,14 @@ def phase_stamps(part, s, smax: int) -> list[int]:
 
 
 def _radix(lib, parts, plans, Mp, s, smax, out):
-    """Four passes: every shard counts byte q into its part of ``hist``,
-    then one pick a column fixes the byte."""
+    """RADIX_PASSES passes: every shard counts digit q into its part of
+    ``hist``, then one pick a column fixes the digit."""
     home = out.device
-    hist = torch.zeros((len(parts), BINS, Mp), dtype=torch.int32, device=home)
+    hist = torch.zeros((len(parts), Mp, BINS), dtype=torch.int32, device=home)
     state = torch.empty((2, Mp), dtype=torch.int32, device=home)
     own = [
         hist[q] if part[0].device == home else torch.zeros(
-            (BINS, Mp), dtype=torch.int32, device=part[0].device)
+            (Mp, BINS), dtype=torch.int32, device=part[0].device)
         for q, part in enumerate(parts)
     ]
     args = [_shard_args(part) for part in parts]

@@ -411,7 +411,7 @@ SPLIT_CASES = SORT_CASES + [
 @pytest.mark.parametrize("n,Mp,nkeys,kind", SPLIT_CASES)
 def test_split_model_sorts_like_the_twin(n, Mp, nkeys, kind):
     """The split method restated (``split_model``) writes every key once
-    and in the twin's order, on PR 15's sort cases and at the split's
+    and in the twin's order, on the sort cases above and at the split's
     edges: buckets of 0, 1, 31-33 and 63-65 keys, all n keys in one
     bucket, n past and at SMALL, keys of 32 and 64 bits, equal keys."""
     rng = np.random.default_rng(n * 7 + nkeys + Mp)

@@ -170,6 +170,7 @@ def test_plan_deals_every_row_once(rows, smax, Mp):
         assert p.method == "radix" and p.k == 0
         assert p.col_blocks == -(-Mp // k12.HIST_COLS)
         assert p.slabs == 1 or p.rows_per_slab >= 8
+        assert p.col_blocks * p.slabs <= max(132, p.col_blocks)  # one wave
     assert 1 <= p.slabs <= 65535          # the grid's y dimension
     # slabs are consecutive runs: every row once, no slab empty
     firsts = [k12.slab_rows(p, rows, q) for q in range(p.slabs)]
@@ -188,7 +189,9 @@ def test_plan_fills_the_card_at_the_flagship():
     assert p.col_blocks * p.slabs <= 132
     r = k12.plan(524288, 256, 3072, 132)
     assert r.method == "radix"
-    assert r.col_blocks * r.slabs >= 132 * k12.HIST_BLOCKS_PER_SM
+    # config 8's histograms: 16 column groups x 8 slabs, one block an SM
+    assert (r.col_blocks, r.slabs) == (16, 8)
+    assert 132 - r.col_blocks < r.col_blocks * r.slabs <= 132
 
 
 def test_plan_rejects_bad_shapes():
@@ -209,7 +212,10 @@ def test_kernel_constants_agree_with_the_plan():
     assert const("LIST_STAMPS") == k12.LIST_STAMPS
     assert const("HIST_COLS") == k12.HIST_COLS
     assert const("BINS") == k12.BINS
-    assert k12.BINS == 2 ** (32 // k12.RADIX_PASSES)  # a byte a radix pass
+    assert const("RADIX_PASSES") == k12.RADIX_PASSES
+    assert "return pass == RADIX_PASSES - 1 ? 10 : 11;" in src  # digit_bits
+    assert k12.DIGIT_BITS == (11, 11, 10) and sum(k12.DIGIT_BITS) == 32
+    assert k12.BINS == 2 ** max(k12.DIGIT_BITS)
     for k in k12.LIST_KS:
         assert f"case {k}: return" in src
 
@@ -327,3 +333,49 @@ def test_kernel_fold_in_sorted_batches_keeps_the_k_largest(K, kind):
             assert batch == sorted(batch, reverse=True)
             _merge_top(a, batch)
     assert a == sorted(col, reverse=True)[:K]
+
+
+def _radix_select(wills, k):
+    """csrc/top_will.cu's radix method, restated for one column: the
+    k-th largest of ``wills`` (int32) by DIGIT_BITS digits of the
+    order-preserving key will ^ 0x80000000, most significant first: a
+    pass counts the digit among the keys that share the prefix so far,
+    and the pick walks the counts from the top."""
+    keys = [(w + 2**31) % 2**32 for w in wills]
+    prefix, rest, low = 0, k, 32
+    for bits in k12.DIGIT_BITS:
+        low -= bits
+        high_mask = (2**32 - 1) ^ (2**(low + bits) - 1)
+        counts = [0] * 2**bits
+        for key in keys:
+            if key & high_mask == prefix:
+                counts[(key >> low) & (2**bits - 1)] += 1
+        acc = 0
+        for digit in range(2**bits - 1, -1, -1):
+            if acc + counts[digit] >= rest:
+                break
+            acc += counts[digit]
+        rest -= acc
+        prefix |= digit << low
+    return prefix - 2**31   # key ^ 0x80000000 as an int32
+
+
+@pytest.mark.parametrize("kind", ["rand", "tied", "ends", "small"])
+def test_radix_digits_select_the_kth_largest(kind):
+    """The radix method's three digits (11, 11, 10 bits) select the k-th
+    largest value exactly, at k 1, 2, n / 2 and n, ties, the int32 ends
+    and values within one digit's span."""
+    rng = np.random.default_rng(len(kind))
+    n = 400
+    if kind == "tied":
+        wills = rng.integers(-3, 3, n)
+    elif kind == "ends":
+        wills = rng.choice([-2**31, 2**31 - 1, -INF, INF, 0, -1], n)
+    elif kind == "small":
+        wills = rng.integers(1000, 1000 + 2**10, n)
+    else:
+        wills = rng.integers(-2**31, 2**31, n)
+    wills = [int(w) for w in wills]
+    ordered = sorted(wills, reverse=True)
+    for k in (1, 2, n // 2, n):
+        assert _radix_select(wills, k) == ordered[k - 1]
