@@ -123,12 +123,11 @@ Phases (each prints its own lines):
    and beside each the library call it replaced, timed alone on the same
    inputs (``torch.topk`` of the transposed will table; ``torch.sort``
    of the packed keys and of the compaction's key): the JSON record's
-   ``library_ms``; each by phase from ``clock64()`` stamps of one SM (K12:
-   the fold, the block's tree, the cluster's read, its tree and write,
-   and the clusters the card holds at once; K13: the split's pack, each
-   level and its steps and the rank step, and the LSD cluster it
-   replaced by pass and by step), and as yardsticks K13's LSD cluster
-   and the LSD on one block;
+   ``library_ms``; each by phase from ``clock64()`` stamps of one SM by
+   the kernels' stamps build (K12: the fold, the block's tree, the
+   cluster's read, its tree and write, and the clusters the card holds
+   at once; K13: the split's pack, each level, levels 0 and 1 by step,
+   and the rank step);
 3b. edges: K12 and K13 against their twins (tolerance 0) at their
    designs' edges: for K12 smax 1, 2, 16, 33, 1,024 and Tp (the list
    method, the radix method and the switch), Tp 1, 3 and 10,240, Mp 16,
@@ -138,10 +137,12 @@ Phases (each prints its own lines):
    cluster of one slab, of 3 and 5 (trees over lists not a power of
    two), a ragged last slab, K 32, Mp 16 and 12,292, 2 and 4 shards;
    for K13 1, 3 and 4 keys over n 1, 2,
-   3, 1,023-1,025, 10,240, the LSD cluster's limit and one past it,
+   3, 1,023-1,025, 10,240, the former LSD cluster's limit and one past
+   it (tiles),
    20,000 and 524,288, the segment at 0 and Mp + 2, levels 0 and INF,
    one segment, is_bid all 0 and all 1, keys past 64 bits (Mp 65,539 at
-   n 40,000; four whole-int32 keys on both methods); the split's edges:
+   n 40,000; four whole-int32 keys on both sides of that limit); the
+   split's edges:
    buckets of 0, 1, 31-33 and 63-65 keys (the task id alone or the level
    too varying in them), all n keys in one bucket (a cold round's WAIT
    and DUMP), n at SMALL and past it, the split's limit and one past it
@@ -241,7 +242,7 @@ Phases (each prints its own lines):
 11. service: a ``SchedulingService`` on the card over four tenants at
    real size (the flagship and config 5 under quincy, 200 x 2,000
    trivial and 64 x 600 random without preference arcs: four shape
-   buckets), 2 warm-up and 2 measured waves with a seeded 1 % churn and
+   buckets), 2 warm-up and 3 measured waves with a seeded 1 % churn and
    every binding confirmed: each tenant equal to a solo bridge on the
    card and to the C++ oracle, K1-K3 launched per wave, one result
    fetch per dispatch chunk (one more per cold retry), no kernel build
@@ -335,15 +336,14 @@ Phases (each prints its own lines):
    ``SyncCounter.read`` equal the solver's own counters, every other one
    is a ``Contracts.sync_sites`` upload, and static PTA001 names every
    site the card reported;
-18. adversarial: the first 80 of the 240 trials of the adversarial fuse
-   sweep (``poseidon_tpu_torch.adversarial``: six cost models over 2-40
-   machines x 2-150 tasks; ``ADVERSARIAL_TRIALS``, the depth cut to
-   keep the script in its time limit) on the card over 4 processes:
-   every converged dense solve equal to the C++ oracle, every exhausted
-   one exact through ``solve_scheduling``, the exhausted list equal to
-   the reference's for those trials (``ADVERSARIAL_EXHAUSTED``), K1-K3
-   launched; the exhausted count and a trial's p50 and max wall
-   printed.
+18. adversarial: all 240 trials of the adversarial fuse sweep
+   (``poseidon_tpu_torch.adversarial``: six cost models over 2-40
+   machines x 2-150 tasks) on the card over 4 processes, the trials the
+   reference ran out of their fuse started first (the longest): every
+   converged dense solve equal to the C++ oracle, every exhausted one
+   exact through ``solve_scheduling``, the exhausted list equal to the
+   reference's (``ADVERSARIAL_EXHAUSTED``), K1-K3 launched; the
+   exhausted count and a trial's p50 and max wall printed.
 
 Each phase prints its seconds. ``--phases=a,b`` runs only the named
 phases after the build, prints no record and no contract line (a quick
@@ -982,8 +982,6 @@ def seat_sort_records(torch, timer, calls):
     """K13 at the flagship's first call of each form: the 4-key sort of
     ``auction_round`` (the record), the 3-key sort of ``to_sorted`` and
     the bid window's compaction (printed)."""
-    import dataclasses
-
     from poseidon_tpu_torch.kernels import seat_sort as k13
 
     record = None
@@ -1027,19 +1025,6 @@ def seat_sort_records(torch, timer, calls):
         if form == "sort4":
             LIBRARY_MS["seat_sort"] = lib_ms
             record = (k13.KERNEL, err, ms, plain, bms, by, shape)
-            log(f"[kernels] seat_sort sort4 on one block alone (the LSD "
-                f"cluster's kernel launched as a cluster of 1, a yardstick): "
-                f"ms={timer(lambda: one_block_sort(torch, keys, spans)):.6f}")
-            cl = dataclasses.replace(
-                plan, method="cluster", cluster=k13.CLUSTER,
-                smem=k13.block_smem(n, plan.words, k13.CLUSTER))
-            cl_err = max_abs_err(list(k13._launch(keys, spans, cl)),
-                                 list(twin()))
-            log(f"[kernels] seat_sort sort4 by the LSD cluster (the method "
-                f"before the split, a yardstick): max_abs_err={cl_err} ms="
-                f"{timer(lambda: k13._launch(keys, spans, cl)):.6f}")
-            if cl_err != 0:
-                raise AssertionError("seat_sort LSD cluster != plain twin")
         if form != "compact":
             seat_sort_phases(torch, form, keys, spans)
     return record
@@ -1059,64 +1044,33 @@ def torch_sm_count() -> int:
 
 
 def seat_sort_phases(torch, form, keys, spans) -> None:
-    """K13's sort by phase (clock64() stamps of thread 0 of block 0, one
-    launch after a warm-up, medians of 9): the split method's pack, each
-    level and the rank step, and levels 0 and 1 by step; and the LSD
-    cluster's pack, pass 0 by step (count, barrier, offsets, scatter,
-    barrier) and the passes."""
+    """K13's split by phase (clock64() stamps of thread 0 of block 0 by
+    the stamps build, medians of 9 launches after a warm-up): the pack,
+    each level (with the keys it split) and the rank step, and levels 0
+    and 1 by step."""
     from poseidon_tpu_torch.kernels import seat_sort as k13
 
-    def median(method):
-        runs = [k13.phase_stamps(keys, spans, method) for _ in range(10)][1:]
-        return [sorted(r[i] for r in runs)[len(runs) // 2]
-                for i in range(k13.STAMPS)], runs[-1]
-
-    for method, what in ((None, "split"),):
-        st, last = median(method)
-        levels = last[24]
-        marks = [st[0], st[1]] + [st[2 + lv] for lv in range(min(levels, 8))]
-        steps = [f"pack {clock_us(st[1] - st[0]):.3f}"]
-        steps += [f"level{lv} ({last[25 + lv] if lv < 6 else '?'} keys) "
-                  f"{clock_us(marks[2 + lv] - marks[1 + lv]):.3f}"
-                  for lv in range(min(levels, 8))]
-        steps.append(f"rank+write {clock_us(st[31] - marks[-1]):.3f}")
-        names = ("digits", "count+barrier", "read counts", "scan",
-                 "cursors+heads", "scatter+barrier", "next list")
-        for lv, first in ((0, 18), (1, 10)):
-            if lv >= levels:
-                break
-            sub = [st[1 + lv]] + st[first:first + 6] + [st[2 + lv]]
-            steps.append(f"level{lv} = " + ", ".join(
-                f"{x} {clock_us(b - a):.3f}"
-                for x, a, b in zip(names, sub, sub[1:])))
-        log(f"[kernels] seat_sort {form} {what} by phase (us at the max SM "
-            f"clock, block 0): total {clock_us(st[31] - st[0]):.3f} = "
-            + ", ".join(steps))
-    st, _ = median("cluster")
-    p0 = [st[1]] + st[2:7]
-    names = ("count", "barrier1", "offsets", "scatter", "barrier2")
-    steps = [f"{nm} {clock_us(b - a):.3f}"
-             for nm, a, b in zip(names, p0, p0[1:])]
-    ends = [st[8 + q] for q in range(16) if st[8 + q] >= 0]
-    passes = [clock_us(b - a) for a, b in zip([st[1]] + ends, ends)]
-    log(f"[kernels] seat_sort {form} LSD cluster by phase (us, block 0): "
-        f"total {clock_us(st[31] - st[0]):.3f}; pack "
-        f"{clock_us(st[1] - st[0]):.3f}; pass 0: " + ", ".join(steps)
-        + "; passes " + ", ".join(f"{x:.3f}" for x in passes)
-        + f"; unpack {clock_us(st[31] - ends[-1]):.3f}")
-
-
-def one_block_sort(torch, keys, spans):
-    """K13's LSD sort launched on one block (a cluster of one): the
-    yardstick the cluster was chosen over."""
-    from poseidon_tpu_torch.kernels import seat_sort as k13
-
-    n = keys[0].shape[0]
-    bits = tuple(k13.field_bits(sp) for sp in spans)
-    words = 1 if sum(bits) <= 64 else 2
-    p = k13.SortPlan(words=words, passes=-(-sum(bits) // 8), method="cluster",
-                     cluster=1, smem=k13.block_smem(n, words, 1), tiles=0)
-    return k13._launch(keys, spans, p)
+    runs = [k13.phase_stamps(keys, spans) for _ in range(10)][1:]
+    st = [sorted(r[i] for r in runs)[len(runs) // 2]
+          for i in range(k13.STAMPS)]
+    levels = min(runs[-1][k13.STAMP_LEVELS], k13.STAMP_LEVEL_MAX)
+    ends = [st[k13.STAMP_PACKED]] + [st[k13.STAMP_LEVEL + lv]
+                                     for lv in range(levels)]
+    us = lambda a, b: f"{clock_us(b - a):.3f}"  # noqa: E731
+    parts = [f"pack {us(st[k13.STAMP_START], st[k13.STAMP_PACKED])}"]
+    for lv in range(levels):
+        listed = (runs[-1][k13.STAMP_LISTED + lv]
+                  if lv < k13.STAMP_LISTED_MAX else "?")
+        parts.append(f"level{lv} ({listed} keys) {us(ends[lv], ends[lv + 1])}")
+    parts.append(f"rank+write {us(ends[-1], st[k13.STAMP_END])}")
+    for lv, at in enumerate(k13.STAMP_STEPS[:levels]):
+        marks = [ends[lv], *st[at:at + len(k13.STEPS)], ends[lv + 1]]
+        names = (*k13.STEPS, "next list")
+        parts.append(f"level{lv} = " + ", ".join(
+            f"{nm} {us(a, b)}" for nm, a, b in zip(names, marks, marks[1:])))
+    log(f"[kernels] seat_sort {form} split by phase (us at the max SM "
+        f"clock, block 0): total {us(st[k13.STAMP_START], st[k13.STAMP_END])}"
+        " = " + ", ".join(parts))
 
 
 def _as_tuple(x):
@@ -1306,11 +1260,11 @@ def bucket_segments(rng, n: int, nseg: int):
 def seat_sort_edges(torch) -> None:
     """K13 equals its twin (tolerance 0): 1, 3 and 4 keys; n 1, 2, 3,
     7-9 (blocks of the cluster without keys), 1,023-1,025, 10,240 and
-    10,241, the LSD cluster's limit and one past it (tiles), the
+    10,241, the former LSD cluster's limit and one past it (tiles), the
     split's edges (the module note's list),
     20,000 and 524,288; the segment at 0 and Mp + 2, levels 0 and INF, one
     segment, is_bid all 0 and all 1; keys past 64 bits (Mp 65,539 with n
-    past 2^15, and four whole-int32 keys, each on a cluster and on
+    past 2^15, and four whole-int32 keys, each on the split and on
     tiles); the compaction with 0, B - 1, B, B + 1 and n waiting, one
     block and several."""
     import numpy as np
@@ -1318,11 +1272,12 @@ def seat_sort_edges(torch) -> None:
     from poseidon_tpu_torch.kernels import seat_sort as k13
 
     rng = np.random.default_rng(1315)
-    fixed = k13.BLOCK_FIXED_BYTES
     optin = k13.PLANS._smem_optin(torch.device("cuda", 0))
-    # the largest n an 8-block cluster holds, one-word and two-word keys
-    cap1 = k13.CLUSTER * ((optin - fixed) // 16)
-    cap2 = k13.CLUSTER * ((optin - fixed) // 32)
+    # the largest n the LSD cluster the split replaced held (8 blocks,
+    # 18,624 bytes of counters a block beside its share of two key
+    # buffers), one-word and two-word keys: tiles now, kept as edges
+    cap1 = 8 * ((optin - 18624) // 16)
+    cap2 = 8 * ((optin - 18624) // 32)
     # the largest n the split block holds, one-word and two-word keys
     split1, split2 = (max(n for n in range(1, k13.SPLIT_MAX_N + 1)
                           if k13.split_smem(n, w, k13.SPLIT_CLUSTER) <= optin)
@@ -1347,7 +1302,7 @@ def seat_sort_edges(torch) -> None:
         # the split method: buckets of 0, 1, 31-33 and 63-65 keys (only
         # the task id varying in them, or the level too), all n keys in
         # one bucket (a cold round's WAIT), n at the split block's limit
-        # and one past it (the cluster), a first key of 32 bits, equal
+        # and one past it (tiles), a first key of 32 bits, equal
         # keys (one all-equal bucket, buckets of equal keys past SMALL)
         (10240, 1024, 4, "sized"), (10240, 1024, 3, "sized"),
         (10240, 1024, 4, "sizedlvl"), (2000, 64, 4, "sized"),
@@ -3103,7 +3058,7 @@ def whatif_phase(torch, card: str):
 
 
 SERVICE_WARMUP_WAVES = 2
-SERVICE_WAVES = 2
+SERVICE_WAVES = 3
 
 
 def service_tenants():
@@ -3155,7 +3110,7 @@ def service_phase(torch, card: str):
     """A ``SchedulingService`` on the card over four heterogeneous
     tenants at real size (the flagship, the config-5 cluster, a 200 x
     2,000 trivial tenant and a 64 x 600 random one: four shape buckets),
-    2 warm-up waves and 2 measured waves with a seeded 1 % churn, each
+    2 warm-up waves and 3 measured waves with a seeded 1 % churn, each
     wave's bindings confirmed (the pods then run where they were
     placed). Per wave and tenant: placements equal a solo bridge's on
     the card fed the same observations, ``dense_service`` with its cost equal to the
@@ -6531,20 +6486,19 @@ ADVERSARIAL_EXHAUSTED = (
     (161, "random", 37, 46), (203, "random", 36, 135),
 )
 ADVERSARIAL_WORKERS = 4          # processes, each its own CUDA context
-# the sweep's first trials run on the card (its depth cut to keep the
-# script inside its time limit: each exhausted trial runs the 20,000-
-# round fuse, 66-99 s; the CPU test runs all 240 through both packages)
-ADVERSARIAL_TRIALS = 80
 
 
 def adversarial_phase(torch, card: str) -> None:
-    """The adversarial fuse sweep's first ADVERSARIAL_TRIALS trials on
-    the card."""
+    """All 240 trials of the adversarial fuse sweep on the card. The
+    trials the reference ran out of their fuse (the 20,000-round runs,
+    66-99 s each) start first, so the pool's last trials are short ones;
+    the order changes no trial's result."""
     from poseidon_tpu_torch import adversarial
 
     t0 = time.perf_counter()
     records, launches = adversarial.sweep(
-        ADVERSARIAL_TRIALS, "cuda", workers=ADVERSARIAL_WORKERS)
+        adversarial.TRIALS, "cuda", workers=ADVERSARIAL_WORKERS,
+        first=[e[0] for e in ADVERSARIAL_EXHAUSTED])
     wall = time.perf_counter() - t0
     wrong = [r for r in records if r.wrong]
     ex = adversarial.exhausted(records)
@@ -6562,11 +6516,9 @@ def adversarial_phase(torch, card: str) -> None:
                 f"wall_s={r.wall_s:.3f}")
     if wrong:
         raise AssertionError(f"[adversarial] wrong trials: {wrong}")
-    want = tuple(e for e in ADVERSARIAL_EXHAUSTED
-                 if e[0] < ADVERSARIAL_TRIALS)
-    if tuple(ex) != want:
+    if tuple(ex) != ADVERSARIAL_EXHAUSTED:
         raise AssertionError(f"[adversarial] exhausted {ex} != the "
-                             f"reference's {want}")
+                             f"reference's {ADVERSARIAL_EXHAUSTED}")
     idle = [k for k in ROUND_KERNELS if not launches.get(k)]
     if idle:
         raise AssertionError(f"[adversarial] kernels not launched: {idle}")

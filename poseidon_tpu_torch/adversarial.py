@@ -120,16 +120,20 @@ def _worker_trial(job) -> tuple[Trial, dict]:
 
 
 def sweep(trials: int = TRIALS, device=None, progress=None,
-          workers: int = 1) -> tuple[list[Trial], dict]:
+          workers: int = 1, first=()) -> tuple[list[Trial], dict]:
     """Run the first ``trials`` trials on ``device`` (None: the card),
     over ``workers`` processes (each its own CUDA context: the auction's
-    host loop, not the card, bounds a tiny trial). Returns the trials in
-    order and the hand kernels' launches summed over them;
+    host loop, not the card, bounds a tiny trial); the trials numbered in
+    ``first`` (those expected to run longest) start before the others, so
+    the pool does not end on a long one. Returns the trials in order and
+    the hand kernels' launches summed over them;
     ``progress(trial_record)`` is called as each finishes."""
     from poseidon_tpu_torch.ops.resident import resolve_device
 
     device = str(resolve_device(device))
-    jobs = [(*t, device) for t in trial_inputs(trials)]
+    early = set(first)
+    jobs = sorted(((*t, device) for t in trial_inputs(trials)),
+                  key=lambda job: job[0] not in early)
     launches: dict = {}
     out: list[Trial] = []
 

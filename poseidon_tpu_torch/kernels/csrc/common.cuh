@@ -262,4 +262,25 @@ __device__ __forceinline__ void fold_tile(Top2& acc, const int* cs, const int* p
   }
 }
 
+// Phase stamps, a kernel's time by phase on one SM. Only the stamps build
+// of a source (kernels/loader.py builds it apart, with -DPHASE_STAMPS)
+// takes a buffer and writes clock64() into it; in every other build a
+// Stamps is empty and each stamp compiles to nothing.
+struct Stamps {
+#ifdef PHASE_STAMPS
+  static constexpr bool on = true;
+  long long* at;
+  __device__ __forceinline__ void operator()(int slot, bool me) const {
+    if (me) at[slot] = clock64();
+  }
+  __device__ __forceinline__ void put(int slot, long long v, bool me) const {
+    if (me) at[slot] = v;
+  }
+#else
+  static constexpr bool on = false;
+  __device__ __forceinline__ void operator()(int, bool) const {}
+  __device__ __forceinline__ void put(int, long long, bool) const {}
+#endif
+};
+
 }  // namespace pt

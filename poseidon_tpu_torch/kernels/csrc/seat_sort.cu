@@ -24,7 +24,7 @@
 // equal keys; every method below sorts any keys all the same (equal keys
 // are interchangeable, and the output holds only keys).
 //
-// Three methods, by the host's plan (kernels/seat_sort.py `sort_plan`):
+// Two methods, by the host's plan (kernels/seat_sort.py `sort_plan`):
 //
 // * split (n <= SPLIT_MAX_N and a block's share fits its shared memory;
 //   the flagship's 10,240 do): one launch of an 8-block cluster of 1,024
@@ -56,37 +56,22 @@
 //   finds its bucket's ends in the bitmap and takes its rank in the bucket
 //   by counting the keys of the bucket below it (equal keys by position;
 //   a neighbour block's keys where the bucket crosses into it), and is
-//   unpacked to its place in the outputs. One block alone (a cluster of
-//   one) ran the same levels 3-4x slower than the cluster of 8
-//   (`chip_smoke.py` [kernels] prints both): every step is issue-bound on
-//   one SM.
-// * cluster: above that, where each block's share of the packed keys
-//   fits twice in its shared memory (n <= 106,912 for one word, 53,456
-//   for two), a least-significant-digit radix sort, 8 bits a pass
-//   (ceil(W / 8) passes), in one launch of an 8-block thread-block
-//   cluster: block r holds keys [r * chunk, (r + 1) * chunk). A pass ranks
-//   every key stably among the keys of its digit: each warp walks its own
-//   run of keys 32 at a time, a lane's rank among the lanes that share
-//   its digit is the popcount of the lower ones (eight ballots, a fixed
-//   cost), and a per-warp, per-digit counter in shared memory carries the
-//   run; an exclusive scan over (digit, warp) turns the counts into
-//   offsets; each block reads the other blocks' digit totals through
-//   distributed shared memory and scatters each key into the block that
-//   owns its new position; two cluster barriers a pass. A pass whose keys
-//   all share one digit is skipped. It was the flagship's method before
-//   the split (8 passes of its 58-bit keys: 48.6 us cold on an H100, 2 x
-//   8 cluster barriers and 8 block scans; `chip_smoke.py` [kernels]
-//   prints it by phase).
-// * tiles: above that (config 8's 524,288 tasks), the same passes with
-//   the packed keys in a device buffer pair, three launches a pass over
-//   tiles of 4,096 keys: a digit count a tile, one block's exclusive
-//   scan over (digit, tile), and the stable scatter of each tile at its
-//   offsets. Its passes keep today's plan: a split there would need a
-//   launch a level with its bins in device memory.
+//   unpacked to its place in the outputs. One block alone (an earlier
+//   form of the split on a cluster of one) took about twice the cluster's
+//   time at the flagship: every step is issue-bound on one SM.
+// * tiles: above that (config 8's 524,288 tasks), a least-significant-
+//   digit radix sort, 8 bits a pass (ceil(W / 8) passes), with the packed
+//   keys in a device buffer pair, three launches a pass over tiles of
+//   4,096 keys: a digit count a tile, one block's exclusive scan over
+//   (digit, tile), and the stable scatter of each tile at its offsets (a
+//   key's rank among the keys of its digit that its warp met before it:
+//   eight ballots a key and a per-warp, per-digit counter). A split there
+//   would need a launch a level with its bins in device memory.
 //
-// Each sort entry takes an optional `stamps` buffer: where it is given,
-// thread 0 of block 0 writes clock64() at the method's phase ends (the
-// STAMP_* slots), the kernel's breakdown by phase on one SM.
+// The stamps build (-DPHASE_STAMPS, common.cuh `Stamps`) adds a `stamps`
+// buffer to `seat_sort_launch`: thread 0 of block 0 of the split writes
+// clock64() at its phase ends (the STAMP_* slots), its breakdown by phase
+// on one SM.
 //
 // The compaction is a prefix count of the waiting flags (8 flags a
 // thread, a block-wide scan a chunk of 8,192), written where the count is
@@ -104,10 +89,6 @@ using u64 = unsigned long long;
 
 constexpr int RADIX = 256;
 constexpr int MAX_KEYS = 4;
-constexpr int MAX_PASSES = 16;
-constexpr int CLUSTER_MAX = 8;  // blocks of the shared-memory sort (portable cluster size)
-constexpr int BLOCK_THREADS = 512;
-constexpr int BLOCK_WARPS = BLOCK_THREADS / 32;
 constexpr int TILE_THREADS = 256;
 constexpr int TILE_WARPS = TILE_THREADS / 32;
 constexpr int TILE_ROUNDS = 16;
@@ -117,12 +98,6 @@ constexpr int PACK_THREADS = 256;
 constexpr int COMPACT_THREADS = 1024;
 constexpr int COMPACT_ITEMS = 8;
 constexpr int COMPACT_CHUNK = COMPACT_THREADS * COMPACT_ITEMS;
-// ints of a cluster block's shared memory before its key buffers: the
-// per-warp counters, the block's digit totals (read by the other blocks)
-// and the digits' bases, the scan's warp sums, the skipped-pass flags
-// (kernels/seat_sort.py BLOCK_FIXED_BYTES names the same size)
-constexpr int BLOCK_FIXED_INTS = BLOCK_WARPS * RADIX + 2 * RADIX + 32 + MAX_PASSES;
-static_assert(BLOCK_THREADS >= RADIX, "a thread a digit");
 // the split method (kernels/seat_sort.py names the same sizes)
 constexpr int SPLIT_THREADS = 1024;
 constexpr int SPLIT_CLUSTER = 8;    // blocks of the split's cluster (portable)
@@ -132,26 +107,26 @@ constexpr int DIGIT_MAX = 11;       // bits of a level's digit
 constexpr int SPLIT_FIXED_INTS = 48;  // the scan's warp sums and the level's scalars
 // the methods of seat_sort_launch
 constexpr int METHOD_TILES = 0;
-constexpr int METHOD_CLUSTER = 1;
-constexpr int METHOD_SPLIT = 2;
-// stamps: clock64() at the ends of phases (thread 0 of block 0)
+constexpr int METHOD_SPLIT = 1;
+// the stamps build's slots (kernels/seat_sort.py names the same): clock64()
+// at the ends of the split's phases, thread 0 of block 0
 constexpr int STAMPS = 32;
 constexpr int STAMP_START = 0;
 constexpr int STAMP_PACKED = 1;
-constexpr int STAMP_LEVEL = 2;       // split: the end of level l at 2 + l (l < 8)
-constexpr int STAMP_PASS0 = 2;       // cluster: pass 0 counted, barrier, offsets, scattered, barrier
-constexpr int STAMP_PASS = 8;        // cluster: the end of pass p at 8 + p (p < 16)
-// split: the steps of level 0 at 18 + i and of level 1 at 10 + i: 0 the
-// digits, 1 counted (after its barrier), 2 the counts read, 3 scanned, 4
-// the cursors and heads, 5 scattered (after its barrier)
-constexpr int STAMP_STEP = 18;
+constexpr int STAMP_LEVEL = 2;       // the end of level l at 2 + l (l < STAMP_LEVEL_MAX)
+constexpr int STAMP_LEVEL_MAX = 8;
+// the steps of level 0 at STAMP_STEP0 + i and of level 1 at STAMP_STEP1 +
+// i: 0 the digits, 1 counted (after its barrier), 2 the counts read, 3
+// scanned, 4 the cursors and heads, 5 scattered (after its barrier)
+constexpr int STAMP_STEP0 = 18;
 constexpr int STAMP_STEP1 = 10;
-constexpr int STAMP_LEVELS = 24;     // split: the number of levels
-constexpr int STAMP_LISTED = 25;     // split: keys split at level l at 25 + l (l < 6)
+constexpr int STAMP_LEVELS = 24;     // the number of levels
+constexpr int STAMP_LISTED = 25;     // keys split at level l at 25 + l (l < STAMP_LISTED_MAX)
+constexpr int STAMP_LISTED_MAX = 6;
 constexpr int STAMP_END = 31;
 static_assert(STAMP_END < STAMPS, "a stamp a slot");
 static_assert(SPLIT_FIXED_INTS == 32 + 16, "the warp sums and the scalars");
-static_assert(SPLIT_CLUSTER <= CLUSTER_MAX, "a portable cluster");
+static_assert(SPLIT_CLUSTER <= 8, "a portable cluster");
 
 struct Fields {
   int nkeys;
@@ -325,108 +300,6 @@ __device__ __forceinline__ void scatter_digits(const Buf<WORDS>& b, int side, in
   }
 }
 
-// The shared-memory sort over a cluster of `cl` blocks (1 to CLUSTER_MAX;
-// a cluster of one is a single block). Block r holds keys [r * chunk, (r +
-// 1) * chunk) in its shared memory, chunk = ceil(n / cl). A pass: each
-// block counts its keys by digit, a cluster barrier, each block reads every
-// block's digit totals through distributed shared memory and takes its
-// offsets (the keys of lower digits, then of its digit in lower blocks),
-// scatters each key into the block that owns its new position, a cluster
-// barrier.
-__device__ __forceinline__ void stamp(long long* stamps, int slot, bool me) {
-  if (stamps != nullptr && me) stamps[slot] = clock64();
-}
-
-template <int WORDS>
-__global__ void __launch_bounds__(BLOCK_THREADS, 1) seat_sort_cluster_kernel(Keys k, int n,
-                                                                             Fields f,
-                                                                             long long* stamps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cl = cg::this_cluster();
-  const int blocks = static_cast<int>(cl.num_blocks());
-  const int me = static_cast<int>(cl.block_rank());
-  int* cnt = reinterpret_cast<int*>(smem);
-  int* tot = cnt + BLOCK_WARPS * RADIX;
-  int* base = tot + RADIX;
-  int* sums = base + RADIX;
-  int* skipped = sums + 32;
-  const int chunk = (n + blocks - 1) / blocks;
-  const int first = me * chunk;
-  const int here = max(0, min(chunk, n - first));
-  u64* keys = reinterpret_cast<u64*>(cnt + BLOCK_FIXED_INTS);
-  const Buf<WORDS> b{keys, chunk};
-  const int tid = threadIdx.x;
-  const bool stamper = me == 0 && tid == 0;
-  stamp(stamps, STAMP_START, stamper);
-  if (tid < MAX_PASSES) skipped[tid] = 0;
-  for (int e = tid; e < here; e += BLOCK_THREADS) b.store(0, e, pack<WORDS>(k, f, first + e));
-  __syncthreads();
-  stamp(stamps, STAMP_PACKED, stamper);
-  const int rounds = (here + BLOCK_THREADS - 1) / BLOCK_THREADS;
-  int side = 0;
-  for (int pass = 0; pass < f.passes; ++pass) {
-    const bool first_pass = stamper && pass == 0;
-    for (int i = tid; i < BLOCK_WARPS * RADIX; i += BLOCK_THREADS) cnt[i] = 0;
-    __syncthreads();
-    count_digits<WORDS>(b, side, 0, here, rounds, pass, cnt);
-    __syncthreads();
-    stamp(stamps, STAMP_PASS0, first_pass);
-    if (tid < RADIX) {
-      int t = 0;
-      for (int w = 0; w < BLOCK_WARPS; ++w) t += cnt[w * RADIX + tid];
-      tot[tid] = t;
-    }
-    cl.sync();  // every block's totals are in place
-    stamp(stamps, STAMP_PASS0 + 1, first_pass);
-    int all = 0;
-    int lower = 0;
-    if (tid < RADIX) {
-#pragma unroll
-      for (int r = 0; r < CLUSTER_MAX; ++r) {  // unrolled: the remote loads overlap
-        const int t = r < blocks ? *cl.map_shared_rank(tot + tid, r) : 0;
-        all += t;
-        lower += r < me ? t : 0;
-      }
-      if (all == n) skipped[pass] = 1;  // the same in every block
-    }
-    int total;
-    const int excl = block_exclusive_scan<BLOCK_THREADS>(all, sums, total);
-    if (skipped[pass]) {  // every key has one digit: the pass keeps the order
-      cl.sync();          // no block reads this block's totals any more
-      stamp(stamps, STAMP_PASS + pass, stamper && pass < 16);
-      continue;
-    }
-    if (tid < RADIX) {
-      int run = excl + lower;
-      for (int w = 0; w < BLOCK_WARPS; ++w) {
-        const int c = cnt[w * RADIX + tid];
-        cnt[w * RADIX + tid] = run;
-        run += c;
-      }
-    }
-    __syncthreads();
-    stamp(stamps, STAMP_PASS0 + 2, first_pass);
-    scatter_digits<WORDS>(b, side, 0, here, rounds, pass, cnt, [&](int rank, const Packed& p) {
-      const int owner = rank / chunk;
-      const Buf<WORDS> dst{cl.map_shared_rank(keys, owner), chunk};
-      dst.store(side ^ 1, rank - owner * chunk, p);
-    });
-    stamp(stamps, STAMP_PASS0 + 3, first_pass);
-    cl.sync();  // every key has landed; every totals read is done
-    stamp(stamps, STAMP_PASS0 + 4, first_pass);
-    stamp(stamps, STAMP_PASS + pass, stamper && pass < 16);
-    side ^= 1;
-  }
-  for (int e = tid; e < here; e += BLOCK_THREADS) {
-    const Packed p = b.load(side, e);
-#pragma unroll
-    for (int i = 0; i < MAX_KEYS; ++i)
-      if (i < f.nkeys) k.out[i][first + e] = field<WORDS>(p, f, i);
-  }
-  __syncthreads();
-  stamp(stamps, STAMP_END, stamper);
-}
-
 // ---- the split method -------------------------------------------------
 
 // A split block's shared memory for n keys over a cluster of `blocks`
@@ -558,7 +431,7 @@ __device__ __forceinline__ int bin_of(const SplitSmem& m, int j, const Packed& p
 template <int WORDS>
 __global__ void __launch_bounds__(SPLIT_THREADS, 1) seat_sort_split_kernel(Keys k, int n,
                                                                            Fields f,
-                                                                           long long* stamps) {
+                                                                           pt::Stamps stamps) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
   const int blocks = static_cast<int>(cl.num_blocks());
@@ -578,7 +451,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 1) seat_sort_split_kernel(Keys 
     const Buf<WORDS> there{cl.map_shared_rank(m.keys, owner), chunk};
     return there.load(side, q - owner * chunk);
   };
-  stamp(stamps, STAMP_START, stamper);
+  stamps(STAMP_START, stamper);
   const int hwords = n / 32 + 2;
   for (int i = tid; i < hwords; i += SPLIT_THREADS) m.head[i] = i == 0 ? 1u : 0u;
   for (int i = tid; i < (n + 1) / 2; i += SPLIT_THREADS) m.hist[i] = 0;
@@ -604,14 +477,14 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 1) seat_sort_split_kernel(Keys 
     }
   }
   __syncthreads();  // this block's keys and the first bucket are in place
-  stamp(stamps, STAMP_PACKED, stamper);
+  stamps(STAMP_PACKED, stamper);
   int side = 0;
   int level = 0;
   for (;; ++level) {
     const int count = m.misc[0];
     if (count == 0) break;
     const auto step = [&](int i) {  // the phase stamps of levels 0 and 1
-      if (level < 2) stamp(stamps, (level ? STAMP_STEP1 : STAMP_STEP) + i, stamper);
+      if (level < 2) stamps((level ? STAMP_STEP1 : STAMP_STEP0) + i, stamper);
     };
     // the buckets' keys laid end to end (flat index x), over the cluster
     // and over this block's own positions
@@ -846,11 +719,11 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 1) seat_sort_split_kernel(Keys 
       m.lsize[tid] = m.nsize[tid];
     }
     if (tid == 0) m.misc[0] = next;
-    stamp(stamps, STAMP_LEVEL + level, stamper && level < 8);
-    if (stamper && stamps != nullptr && level < 6) stamps[STAMP_LISTED + level] = listed;
+    stamps(STAMP_LEVEL + level, stamper && level < STAMP_LEVEL_MAX);
+    stamps.put(STAMP_LISTED + level, listed, stamper && level < STAMP_LISTED_MAX);
     __syncthreads();
   }
-  if (stamper && stamps != nullptr) stamps[STAMP_LEVELS] = level;
+  stamps.put(STAMP_LEVELS, level, stamper);
   // rank every key of this block inside its bucket (at most SMALL keys,
   // or all equal)
   for (int e = lo + tid; e < hi; e += SPLIT_THREADS) {
@@ -880,7 +753,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 1) seat_sort_split_kernel(Keys 
       if (i < f.nkeys) k.out[i][rank] = field<WORDS>(p, f, i);
   }
   cl.sync();  // no block leaves while another may read its keys
-  stamp(stamps, STAMP_END, stamper);
+  stamps(STAMP_END, stamper);
 }
 
 template <int WORDS>
@@ -985,11 +858,11 @@ __global__ void __launch_bounds__(TILE_THREADS) seat_scatter_kernel(
 
 template <int WORDS>
 cudaError_t sort_keys(const Keys& k, int n, const Fields& f, int method, int cluster, int smem,
-                      int tiles, u64* buf, int* tile_hist, long long* stamps, cudaStream_t st) {
-  if (method == METHOD_SPLIT || method == METHOD_CLUSTER) {
+                      int tiles, u64* buf, int* tile_hist, pt::Stamps stamps, cudaStream_t st) {
+  if (method == METHOD_SPLIT) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(cluster);
-    cfg.blockDim = dim3(method == METHOD_SPLIT ? SPLIT_THREADS : BLOCK_THREADS);
+    cfg.blockDim = dim3(SPLIT_THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = st;
     cudaLaunchAttribute attr[1];
@@ -999,10 +872,7 @@ cudaError_t sort_keys(const Keys& k, int n, const Fields& f, int method, int clu
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const cudaError_t e =
-        method == METHOD_SPLIT
-            ? cudaLaunchKernelEx(&cfg, seat_sort_split_kernel<WORDS>, k, n, f, stamps)
-            : cudaLaunchKernelEx(&cfg, seat_sort_cluster_kernel<WORDS>, k, n, f, stamps);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, seat_sort_split_kernel<WORDS>, k, n, f, stamps);
     return e != cudaSuccess ? e : cudaGetLastError();
   }
   const int pack_grid = min((n + PACK_THREADS - 1) / PACK_THREADS, 1024);
@@ -1097,20 +967,14 @@ __global__ void __launch_bounds__(COMPACT_THREADS) seat_compact_kernel(
 
 }  // namespace
 
-// Lift the one-block sort's dynamic shared-memory cap to the card's
-// per-block maximum and report that maximum (the plan sizes the block
-// method by it). Called once per device.
+// Lift the split kernel's dynamic shared-memory cap to the card's
+// per-block maximum and report that maximum (the plan sizes the split by
+// it). Called once per device.
 extern "C" int seat_sort_setup(int* optin) {
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(seat_sort_cluster_kernel<1>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(seat_sort_cluster_kernel<2>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(seat_sort_split_kernel<1>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
@@ -1122,16 +986,24 @@ extern "C" int seat_sort_setup(int* optin) {
 
 // Sort n positions by nkeys int32 keys (k0 most significant), key i in
 // [lo_i, lo_i + 2^bits_i), into o0..o3. `words` (1 or 2) 64-bit words a
-// packed key; `method` METHOD_SPLIT or METHOD_CLUSTER (`cluster` blocks
-// of `smem` bytes) or METHOD_TILES
-// (`tiles` tiles over buf, 2 * words * n 64-bit words, and tile_hist,
-// RADIX * tiles ints); `stamps` (STAMPS int64, or null) takes the phase
-// stamps of the split and cluster methods.
+// packed key; `method` METHOD_SPLIT (`cluster` blocks of `smem` bytes)
+// or METHOD_TILES (`tiles` tiles over buf, 2 * words * n 64-bit words,
+// and tile_hist, RADIX * tiles ints). The stamps build takes `stamps`
+// too (STAMPS int64) for the split's phase stamps.
 extern "C" int seat_sort_launch(const int* k0, const int* k1, const int* k2, const int* k3,
                                 int* o0, int* o1, int* o2, int* o3, int n, int nkeys, int lo0,
                                 int lo1, int lo2, int lo3, int b0, int b1, int b2, int b3,
                                 int words, int method, int cluster, int smem, int tiles,
-                                void* buf, int* tile_hist, long long* stamps, void* stream) {
+                                void* buf, int* tile_hist,
+#ifdef PHASE_STAMPS
+                                long long* stamp_buf,
+#endif
+                                void* stream) {
+#ifdef PHASE_STAMPS
+  const pt::Stamps stamps{stamp_buf};
+#else
+  const pt::Stamps stamps{};
+#endif
   if (nkeys < 1 || nkeys > MAX_KEYS || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   Keys k{{k0, k1, k2, k3}, {o0, o1, o2, o3}};
   Fields f{};
@@ -1150,9 +1022,8 @@ extern "C" int seat_sort_launch(const int* k0, const int* k1, const int* k2, con
   f.passes = (width + 7) / 8;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   u64* b = static_cast<u64*>(buf);
-  if (method < METHOD_TILES || method > METHOD_SPLIT ||
-      (method != METHOD_TILES && (cluster < 1 || cluster > CLUSTER_MAX)) ||
-      (method == METHOD_SPLIT && n > SPLIT_MAX_N))
+  if ((method != METHOD_TILES && method != METHOD_SPLIT) ||
+      (method == METHOD_SPLIT && (cluster < 1 || cluster > SPLIT_CLUSTER || n > SPLIT_MAX_N)))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       words == 1 ? sort_keys<1>(k, n, f, method, cluster, smem, tiles, b, tile_hist, stamps, st)

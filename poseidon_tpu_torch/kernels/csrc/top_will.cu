@@ -51,9 +51,11 @@
 //   goes through device memory. Under a row-block mesh each shard's
 //   launch writes its K-entry lists instead (lists[K, Mp]), and one more
 //   launch (`merge`) folds the shards' lists of each column: the k-th
-//   largest of the union is among each shard's own k largest. With
-//   `stamps`, thread 0 of block (0, 0) writes clock64() at the fold's,
-//   the block tree's, the cluster read's and the write's end.
+//   largest of the union is among each shard's own k largest. In the
+//   stamps build (-DPHASE_STAMPS, common.cuh `Stamps`) the launch takes
+//   a `stamps` buffer too, and thread 0 of block (0, 0) writes clock64()
+//   at the fold's, the block tree's, the cluster read's and the write's
+//   end.
 //
 // * radix (larger smax, up to the rows): selection by three digits of
 //   the value (11, 11 and 10 bits), most significant first, on the
@@ -82,7 +84,9 @@ namespace {
 
 constexpr int LIST_COLS = 32;
 constexpr int LIST_CLUSTER_MAX = 8;   // a portable cluster
-constexpr int LIST_STAMPS = 8;   // stamps[0..4]: start, folded, block tree, cluster read, written
+// the stamps build's slots (kernels/top_will.py LIST_STAMPS): start,
+// folded, block tree, cluster read, written
+constexpr int LIST_STAMPS = 8;
 // warps of a list block (one block an SM) and rows a lane loads at once:
 // a list of K registers and its loads in at most 64 registers a thread
 template <int K>
@@ -220,7 +224,7 @@ __global__ void __launch_bounds__(list_warps<K>() * 32, 1) top_will_list_kernel(
     const int* __restrict__ c, const int* __restrict__ alt1, const int* __restrict__ alt2,
     const int* __restrict__ m1, const unsigned char* __restrict__ valid, int rows, int Mp,
     int rows_per_slab, const int* __restrict__ s, int smax, int* __restrict__ out,
-    int* __restrict__ lists, long long* stamps) {
+    int* __restrict__ lists, pt::Stamps stamps) {
   constexpr int LIST_WARPS = list_warps<K>();
   constexpr int LIST_UNROLL = list_unroll<K>();
   constexpr int TURN = LIST_UNROLL * LIST_WARPS;  // rows of the block's turn
@@ -230,9 +234,8 @@ __global__ void __launch_bounds__(list_warps<K>() * 32, 1) top_will_list_kernel(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int m = blockIdx.x * LIST_COLS + lane;
-  const bool stamper = stamps != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
-                       threadIdx.x == 0;
-  if (stamper) stamps[0] = clock64();
+  const bool stamper = blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0;
+  stamps(0, stamper);
   const int r0 = blockIdx.y * rows_per_slab;
   const int r1 = min(rows, r0 + rows_per_slab);
   int a[K];
@@ -293,12 +296,12 @@ __global__ void __launch_bounds__(list_warps<K>() * 32, 1) top_will_list_kernel(
       list_push<K>(a, will_of(__ldcs(c + static_cast<size_t>(r) * Mp + m), __ldg(alt1 + r),
                               __ldg(alt2 + r), __ldg(m1 + r), __ldg(valid + r), m));
   }
-  if (stamps != nullptr) {
+  if (pt::Stamps::on) {
     __syncthreads();
-    if (stamper) stamps[1] = clock64();
+    stamps(1, stamper);
   }
   tree_merge<K>(a, keep, LIST_WARPS);
-  if (stamper) stamps[2] = clock64();
+  stamps(2, stamper);
   if (warp == 0) {
 #pragma unroll
     for (int i = 0; i < K; ++i) pub[i * 32 + lane] = a[i];
@@ -312,7 +315,7 @@ __global__ void __launch_bounds__(list_warps<K>() * 32, 1) top_will_list_kernel(
     for (int i = 0; i < K; ++i) a[i] = there[i * 32 + lane];
   }
   cl.sync();  // the first block has read every list: the others may leave
-  if (stamper) stamps[3] = clock64();
+  stamps(3, stamper);
   if (!root) return;
   tree_merge<K>(a, keep, blocks);
   if (warp == 0 && m < Mp) {
@@ -327,9 +330,9 @@ __global__ void __launch_bounds__(list_warps<K>() * 32, 1) top_will_list_kernel(
       out[m] = v;
     }
   }
-  if (stamps != nullptr) {
+  if (pt::Stamps::on) {
     __syncthreads();
-    if (stamper) stamps[4] = clock64();
+    stamps(4, stamper);
   }
 }
 
@@ -514,7 +517,7 @@ template <int K>
 cudaError_t launch_list(const int* c, const int* alt1, const int* alt2, const int* m1,
                         const unsigned char* valid, int rows, int Mp, int slabs,
                         int rows_per_slab, const int* s, int smax, int* out, int* lists,
-                        long long* stamps, cudaStream_t stream) {
+                        pt::Stamps stamps, cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = list_config<K>(Mp, slabs, stream, attr);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, top_will_list_kernel<K>, c, alt1, alt2, m1, valid,
@@ -544,11 +547,21 @@ cudaError_t launch_merge(const int* part, int lists, int Mp, const int* s, int s
 // or (`lists` not null) the K largest of every column into lists[K, Mp]
 // for the mesh's merge. `slabs` (1 to LIST_CLUSTER_MAX) blocks of
 // `rows_per_slab` rows a column group, one cluster; K is 1, 2, 4, 8, 16
-// or 32; `stamps` (LIST_STAMPS int64, or null) takes the phase stamps.
+// or 32. The stamps build takes `stamps` too (LIST_STAMPS int64) for the
+// phase stamps.
 extern "C" int top_will_list_launch(const int* c, const int* alt1, const int* alt2, const int* m1,
                                     const unsigned char* valid, int rows, int Mp, int K,
                                     int slabs, int rows_per_slab, const int* s, int smax,
-                                    int* out, int* lists, long long* stamps, void* stream) {
+                                    int* out, int* lists,
+#ifdef PHASE_STAMPS
+                                    long long* stamp_buf,
+#endif
+                                    void* stream) {
+#ifdef PHASE_STAMPS
+  const pt::Stamps stamps{stamp_buf};
+#else
+  const pt::Stamps stamps{};
+#endif
   if (slabs < 1 || slabs > LIST_CLUSTER_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto go = [&](auto launch) {

@@ -8,7 +8,10 @@ together on the first call to ``library`` (or ``build_all``).
 
 Libraries go to ``kernels/_build/`` (listed in ``.gitignore``), named by
 a hash of their sources and flags, so an edited source rebuilds and a
-stale library is never loaded. Each build's wall time goes to
+stale library is never loaded. The sources in ``_STAMPED`` are built a
+second time with ``-DPHASE_STAMPS`` as the library ``<name>_stamps``:
+the same kernels writing ``clock64()`` phase stamps (``csrc/common.cuh``
+``Stamps``), which only the wrappers' ``phase_stamps`` diagnostics load. Each build's wall time goes to
 ``guards.report_compile``. Nothing here runs at import time: the
 CPU tests import every module, and there is no ``nvcc`` on a host
 without the CUDA toolkit. A build failure raises with the compiler's
@@ -36,6 +39,10 @@ _SOURCES = (
     "stream_commit", "perturb", "gap_rows", "cs_sweep", "bf_relax",
     "ssp_augment", "top_will", "seat_sort",
 )
+_STAMPED = ("top_will", "seat_sort")
+# the entry points that take the stamps buffer (before the stream) in the
+# stamps build
+_STAMPED_ENTRIES = ("top_will_list_launch", "seat_sort_launch")
 _HEADERS = ("common.cuh", "csr_plan.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -84,11 +91,20 @@ def _nvcc() -> str:
     )
 
 
+def _builds() -> dict[str, tuple[str, tuple[str, ...]]]:
+    """Every library: its source and its nvcc flags."""
+    out = {name: (name, NVCC_FLAGS) for name in _SOURCES}
+    for name in _STAMPED:
+        out[f"{name}_stamps"] = (name, (*NVCC_FLAGS, "-DPHASE_STAMPS"))
+    return out
+
+
 def _lib_path(name: str) -> pathlib.Path:
+    source, flags = _builds()[name]
     h = hashlib.sha256()
-    for part in (f"{name}.cu", *_HEADERS):
+    for part in (f"{source}.cu", *_HEADERS):
         h.update((_CSRC / part).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -100,13 +116,13 @@ def build_all() -> BuildReport:
         t0 = time.perf_counter()
         _BUILD.mkdir(parents=True, exist_ok=True)
         procs = {}
-        for name in _SOURCES:
+        for name, (source, flags) in _builds().items():
             out = _lib_path(name)
             if out.exists():
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             procs[name] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+                [_nvcc(), *flags, "-o", str(tmp), str(_CSRC / f"{source}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ), tmp, out)
         ptxas = {}
@@ -123,7 +139,7 @@ def build_all() -> BuildReport:
         if procs:
             # one sample per build: the sources compile in parallel
             report_compile((time.perf_counter() - t0) * 1000)
-        for name in _SOURCES:
+        for name in _builds():
             if name not in _libs:
                 _libs[name] = _declare(name, ctypes.CDLL(str(_lib_path(name))))
         return BuildReport(seconds=time.perf_counter() - t0, ptxas=ptxas)
@@ -141,7 +157,8 @@ def library(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     """Type every entry point: pointers and the stream as c_void_p (a
     bare Python int would be cut to 32 bits), sizes as c_int, 64-bit
-    values as c_longlong."""
+    values as c_longlong. A stamps build's entries are its source's, the
+    stamps buffer added before the stream where it takes one."""
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     occupancy = [I, ctypes.POINTER(I)]
     sigs = {
@@ -185,7 +202,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "ssp_step_launch": [P, I, I, I, P],
         },
         "top_will": {
-            "top_will_list_launch": [P] * 5 + [I] * 5 + [P, I] + [P] * 4,
+            "top_will_list_launch": [P] * 5 + [I] * 5 + [P, I] + [P] * 3,
             "top_will_list_clusters": [I, I, I, ctypes.POINTER(I)],
             "top_will_merge_launch": [P, I, I, I, P, I, P, P],
             "top_will_hist_launch": [P] * 5 + [I] * 5 + [P, P, P],
@@ -193,11 +210,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         },
         "seat_sort": {
             "seat_sort_setup": [ctypes.POINTER(I)],
-            "seat_sort_launch": [P] * 8 + [I] * 15 + [P] * 4,
+            "seat_sort_launch": [P] * 8 + [I] * 15 + [P] * 3,
             "seat_compact_launch": [P] + [I] * 4 + [P] * 3,
         },
-    }[name]
+    }[_builds()[name][0]]
     for fn_name, argtypes in sigs.items():
+        if name.endswith("_stamps") and fn_name in _STAMPED_ENTRIES:
+            argtypes = [*argtypes[:-1], P, argtypes[-1]]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -39,14 +39,9 @@ KERNEL = Kernel(
 
 INT32 = (-2**31, 2**31 - 1)   # the span of a key with no narrower domain
 MAX_KEYS = 4
-DIGIT_BITS = 8
-BLOCK_WARPS = 16              # a block of the cluster sort: 512 threads
+DIGIT_BITS = 8                # a digit pass of the tiled sort
 RADIX = 256
-MAX_PASSES = 16
-CLUSTER = 8                   # blocks of the cluster sort
-# shared memory of a cluster block before its two key buffers
-# (csrc/seat_sort.cu BLOCK_FIXED_INTS)
-BLOCK_FIXED_BYTES = (BLOCK_WARPS * RADIX + 2 * RADIX + 32 + MAX_PASSES) * 4
+MAX_PASSES = 16               # digit passes of a 128-bit key
 TILE = 4096                   # keys a tile of the tiled sort
 # the split method (csrc/seat_sort.cu SPLIT_*, SMALL, DIGIT_MAX)
 SPLIT_THREADS = 1024
@@ -55,8 +50,21 @@ SPLIT_MAX_N = 32768           # keys of a split (a bin's count in 16 bits)
 SMALL = 32                    # a bucket the last step ranks as it is
 DIGIT_MAX = 11                # bits of a level's digit
 SPLIT_FIXED_INTS = 48
-METHODS = {"tiles": 0, "cluster": 1, "split": 2}   # csrc METHOD_*
-STAMPS = 32                   # int64 phase stamps (csrc STAMP_*)
+METHODS = {"tiles": 0, "split": 1}   # csrc METHOD_*
+# the stamps build's slots (csrc STAMP_*): clock64() at the split's phase
+# ends; levels and steps are counted from 0
+STAMPS = 32
+STAMP_START = 0
+STAMP_PACKED = 1
+STAMP_LEVEL = 2               # the end of level l at STAMP_LEVEL + l
+STAMP_LEVEL_MAX = 8
+STAMP_STEPS = (18, 10)        # level l < 2: its steps' ends from here on
+STEPS = ("digits", "count+barrier", "read counts", "scan", "cursors+heads",
+         "scatter+barrier")
+STAMP_LEVELS = 24             # the number of levels
+STAMP_LISTED = 25             # keys split at level l at STAMP_LISTED + l
+STAMP_LISTED_MAX = 6
+STAMP_END = 31
 COMPACT_CHUNK = 8192          # flags a compaction block scans at once
 COMPACT_ONE_BLOCK = 65536     # flags one compaction block takes alone
 COMPACT_MAX_BLOCKS = 1024
@@ -72,17 +80,11 @@ def field_bits(span: tuple[int, int]) -> int:
 @dataclasses.dataclass(frozen=True)
 class SortPlan:
     words: int    # 64-bit words of a packed key (1, or 2 past 64 bits)
-    passes: int   # 8-bit digit passes of the cluster and tiled methods
-    method: str   # "split", "cluster" (LSD) or "tiles"
-    cluster: int  # blocks of the split or LSD cluster, else 0
-    smem: int     # dynamic shared memory of a split or LSD cluster block
+    passes: int   # 8-bit digit passes of the tiled method
+    method: str   # "split" or "tiles"
+    cluster: int  # blocks of the split's cluster, else 0
+    smem: int     # dynamic shared memory of a split block, else 0
     tiles: int    # the tiled method's tiles of TILE keys, else 0
-
-
-def block_smem(n: int, words: int, cluster: int) -> int:
-    """Shared memory of one block of a ``cluster``-block sort of n keys:
-    its counters and both buffers of its ceil(n / cluster) keys."""
-    return BLOCK_FIXED_BYTES + 2 * words * 8 * -(-n // cluster)
 
 
 def split_lmax(n: int) -> int:
@@ -107,9 +109,7 @@ def sort_plan(n: int, bits: tuple[int, ...], smem_optin: int) -> SortPlan:
     """The method for n keys of these field widths on a card whose
     block may take ``smem_optin`` bytes of shared memory: the split over
     SPLIT_CLUSTER blocks while n <= SPLIT_MAX_N and a block's share
-    fits, else the LSD cluster of CLUSTER blocks where each block's
-    share of both key buffers fits beside its counters, else tiles of
-    4,096."""
+    fits, else tiles of 4,096."""
     if n < 1 or not 1 <= len(bits) <= MAX_KEYS:
         raise ValueError(f"seat_sort: n={n}, {len(bits)} keys")
     width = sum(bits)
@@ -119,10 +119,6 @@ def sort_plan(n: int, bits: tuple[int, ...], smem_optin: int) -> SortPlan:
     if n <= SPLIT_MAX_N and smem <= smem_optin:
         return SortPlan(words=words, passes=passes, method="split",
                         cluster=SPLIT_CLUSTER, smem=smem, tiles=0)
-    smem = block_smem(n, words, CLUSTER)
-    if smem <= smem_optin:
-        return SortPlan(words=words, passes=passes, method="cluster",
-                        cluster=CLUSTER, smem=smem, tiles=0)
     return SortPlan(words=words, passes=passes, method="tiles", cluster=0,
                     smem=0, tiles=-(-n // TILE))
 
@@ -227,9 +223,9 @@ def _check_spans(keys, spans) -> None:
 
 
 def _launch(keys, spans, p: SortPlan, stamps=None) -> tuple[torch.Tensor, ...]:
-    """Launch K13 on CUDA keys by plan ``p`` (its method may be forced
-    by a caller that times the methods); ``stamps``: an int64[STAMPS]
-    tensor for the phase stamps, or None."""
+    """Launch K13 on CUDA keys by plan ``p``; with ``stamps`` (an
+    int64[STAMPS] tensor) the stamps build's kernel, which writes its
+    phase stamps there."""
     n = keys[0].shape[0]
     dev = keys[0].device
     i32 = torch.int32
@@ -238,7 +234,7 @@ def _launch(keys, spans, p: SortPlan, stamps=None) -> tuple[torch.Tensor, ...]:
     pad = MAX_KEYS - len(keys)
     bits = [field_bits(sp) for sp in spans]
     with torch.cuda.device(dev):
-        lib = library("seat_sort")
+        lib = library("seat_sort" if stamps is None else "seat_sort_stamps")
         if p.method == "tiles":
             buf = torch.empty(2 * p.words * n, dtype=torch.int64, device=dev)
             hist = torch.empty(RADIX * p.tiles, dtype=i32, device=dev)
@@ -250,7 +246,7 @@ def _launch(keys, spans, p: SortPlan, stamps=None) -> tuple[torch.Tensor, ...]:
             *bits, *[0] * pad, p.words, METHODS[p.method], p.cluster, p.smem,
             p.tiles, None if buf is None else buf.data_ptr(),
             None if hist is None else hist.data_ptr(),
-            None if stamps is None else stamps.data_ptr(), stream_ptr(keys[0]),
+            *([] if stamps is None else [stamps.data_ptr()]), stream_ptr(keys[0]),
         )
     check_launch(KERNEL, err)
     return tuple(outs)
@@ -261,8 +257,8 @@ def seat_sort(keys, spans) -> tuple[torch.Tensor, ...]:
     """The keys (1-4 int32[n] tensors on one device, the first most
     significant) sorted lexicographically. ``spans[i] = (lo, hi)`` bounds
     key i. CPU tensors take the plain twin (after the span check); CUDA
-    tensors launch K13 (one launch up to the 8-block cluster's limit,
-    else 3 launches a digit pass and two)."""
+    tensors launch K13 (one launch up to the split's limit, else 3
+    launches a digit pass and two)."""
     keys = tuple(keys)
     spans = tuple(spans)
     if len(keys) != len(spans) or not 1 <= len(keys) <= MAX_KEYS:
@@ -277,22 +273,23 @@ def seat_sort(keys, spans) -> tuple[torch.Tensor, ...]:
     return outs
 
 
-def phase_stamps(keys, spans, method: str | None = None) -> list[int]:
-    """One launch of K13's sort on CUDA keys with its phase stamps
-    (clock64() on one SM at the csrc STAMP_* slots): by its plan's
-    method, or ``method`` "cluster" (the LSD cluster). A
-    measurement, not a call of the main path: the launch is not
-    counted."""
+def phase_stamps(keys, spans) -> list[int]:
+    """One launch of K13's split on CUDA keys by the stamps build, its
+    phase stamps (clock64() on one SM at the STAMP_* slots; -1 where a
+    slot was not reached). A measurement, not a call of the main path:
+    the launch is not counted."""
     keys = tuple(keys)
-    n = keys[0].shape[0]
     dev = keys[0].device
-    p = PLANS.sort(dev, n, tuple(field_bits(sp) for sp in spans))
-    if method == "cluster" and p.method != "cluster":
-        p = dataclasses.replace(p, method="cluster", cluster=CLUSTER,
-                                smem=block_smem(n, p.words, CLUSTER))
-    elif method not in (None, p.method):
-        raise ValueError(f"seat_sort: {method} does not take n={n}")
+    p = PLANS.sort(dev, keys[0].shape[0], tuple(field_bits(sp) for sp in spans))
+    if p.method != "split":
+        raise ValueError(f"seat_sort: phase stamps of the split, not {p.method}")
     stamps = torch.full((STAMPS,), -1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        # the stamps build's own kernel takes the shared-memory cap too
+        err = library("seat_sort_stamps").seat_sort_setup(
+            ctypes.byref(ctypes.c_int(0)))
+    if err != 0:
+        raise RuntimeError(f"seat_sort setup failed: cudaError {err}")
     _launch(keys, spans, p, stamps)
     return stamps.tolist()
 

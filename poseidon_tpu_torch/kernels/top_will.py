@@ -197,14 +197,16 @@ def top_will(parts, s, smax: int):
 
 def _list_launch(lib, part, p: Plan, s_ptr, smax, out, lists, stamps=None):
     """One list launch over one shard: ``out`` (the k-th values), or the
-    K-entry ``lists`` of every column where ``lists`` is given."""
+    K-entry ``lists`` of every column where ``lists`` is given; ``lib``
+    the stamps build where ``stamps`` (int64[LIST_STAMPS]) is given."""
     with torch.cuda.device(part[0].device):
         err = lib.top_will_list_launch(
             *_shard_args(part), part[0].shape[0], part[0].shape[1], p.k,
             p.slabs, p.rows_per_slab, s_ptr, smax,
             None if out is None else out.data_ptr(),
             None if lists is None else lists.data_ptr(),
-            None if stamps is None else stamps.data_ptr(), stream_ptr(part[0]))
+            *([] if stamps is None else [stamps.data_ptr()]),
+            stream_ptr(part[0]))
     check_launch(KERNEL, err)
 
 
@@ -252,17 +254,17 @@ def list_clusters(device, Mp: int, smax: int, rows: int) -> dict[int, int]:
 
 
 def phase_stamps(part, s, smax: int) -> list[int]:
-    """One list launch of K12 over one table part with its phase stamps
-    (clock64() on one SM: start, folded, the block's tree, the cluster's
-    read, written). A measurement, not a call of the main path: the
-    launch is not counted."""
+    """One list launch of K12 over one table part by the stamps build,
+    its phase stamps (clock64() on one SM: start, folded, the block's
+    tree, the cluster's read, written). A measurement, not a call of the
+    main path: the launch is not counted."""
     Mp = part[0].shape[1]
     p = PLANS.get(part[0].device, part[0].shape[0], Mp, smax)
     if p.method != "list":
         raise ValueError(f"top_will: smax={smax} takes the radix method")
     out = torch.empty(Mp, dtype=torch.int32, device=s.device)
     stamps = torch.full((LIST_STAMPS,), -1, dtype=torch.int64, device=s.device)
-    _list_launch(library("top_will"), part, p,
+    _list_launch(library("top_will_stamps"), part, p,
                  kernel_arg(s, "s", torch.int32, (Mp,)), smax, out, None,
                  stamps)
     return stamps.tolist()

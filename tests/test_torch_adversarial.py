@@ -92,6 +92,19 @@ def test_first_twelve_trials_match_reference():
             assert r.rounds == 20_000 and r.front_cost == r.oracle_cost
 
 
+def test_sweep_starts_the_named_trials_first():
+    """``first`` changes only the order the trials start in (in one
+    process, the order they finish in), not what any trial returns."""
+    order = []
+    got, _ = adversarial.sweep(4, CPU, first=[3, 1],
+                               progress=lambda r: order.append(r.trial))
+    plain, _ = adversarial.sweep(4, CPU)
+    assert order == [1, 3, 0, 2]
+    assert [r.trial for r in got] == [0, 1, 2, 3]
+    assert ([dataclasses.replace(r, wall_s=0.0) for r in got]
+            == [dataclasses.replace(r, wall_s=0.0) for r in plain])
+
+
 @pytest.mark.slow
 def test_full_sweep_exhausted_list_matches_reference():
     """All 240 trials in both packages: the same exhausted list (the

@@ -243,7 +243,10 @@ def test_packed_key_orders_like_the_twin(n, Mp, nkeys, kind):
     assert max(packed).bit_length() <= width
 
 
-ONE_WORD_CLUSTER_MAX = 8 * ((H100_SMEM_OPTIN - k13.BLOCK_FIXED_BYTES) // 16)
+# the one-word limit of the LSD cluster sort the split replaced (8 blocks,
+# each its share of two key buffers beside 18,624 bytes of counters): an n
+# the grid keeps
+ONE_WORD_CLUSTER_MAX = 8 * ((H100_SMEM_OPTIN - 18624) // 16)
 ONE_WORD_SPLIT_MAX = max(
     n for n in range(1, k13.SPLIT_MAX_N + 1)
     if k13.split_smem(n, 1, k13.SPLIT_CLUSTER) <= H100_SMEM_OPTIN)
@@ -257,7 +260,7 @@ ONE_WORD_SPLIT_MAX = max(
 def test_sort_plan(n, bits):
     """The method by n and the key width: the split cluster while n <=
     32,768 and a block's share fits (the flagship's 3- and 4-key sorts),
-    the LSD cluster while each block's share fits, tiles above."""
+    tiles above."""
     p = k13.sort_plan(n, bits, H100_SMEM_OPTIN)
     width = sum(bits)
     assert p.words == (1 if width <= 64 else 2)
@@ -266,11 +269,6 @@ def test_sort_plan(n, bits):
     if n <= k13.SPLIT_MAX_N and split <= H100_SMEM_OPTIN:
         assert (p.method, p.cluster, p.tiles) == ("split", 8, 0)
         assert p.smem == split
-    elif k13.block_smem(n, p.words, k13.CLUSTER) <= H100_SMEM_OPTIN:
-        assert (p.method, p.cluster, p.tiles) == ("cluster", k13.CLUSTER, 0)
-        assert p.smem == (k13.BLOCK_FIXED_BYTES
-                          + 16 * p.words * -(-n // p.cluster))
-        assert p.smem <= H100_SMEM_OPTIN
     else:
         assert (p.method, p.cluster, p.smem) == ("tiles", 0, 0)
         assert (p.tiles - 1) * k13.TILE < n <= p.tiles * k13.TILE
@@ -279,9 +277,9 @@ def test_sort_plan(n, bits):
     if n == 10240 and width <= 64:
         assert p.method == "split" and p.words == 1
     # past the split's limit (23,936 one-word keys on an H100, 19,056
-    # two-word ones) the LSD cluster takes over
-    if n == ONE_WORD_SPLIT_MAX + 1 and width <= 64:
-        assert p.method == "cluster"
+    # two-word ones) the tiles take over, a launch plan fixed by n
+    if n > ONE_WORD_SPLIT_MAX:
+        assert p.method == "tiles"
 
 
 def test_split_smem_sums_the_kernel_layout():
@@ -459,14 +457,9 @@ def test_kernel_constants_agree_with_the_plan():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
 
-    warps = const("BLOCK_THREADS") // 32
-    assert warps == k13.BLOCK_WARPS
-    assert const("RADIX") == k13.RADIX
-    assert const("MAX_PASSES") == k13.MAX_PASSES
+    assert const("RADIX") == k13.RADIX == 2 ** k13.DIGIT_BITS
     assert const("MAX_KEYS") == k13.MAX_KEYS
-    assert re.search(r"BLOCK_FIXED_INTS = BLOCK_WARPS \* RADIX \+ 2 \* RADIX "
-                     r"\+ 32 \+ MAX_PASSES;", src)
-    assert const("CLUSTER_MAX") == k13.CLUSTER
+    assert k13.MAX_PASSES * k13.DIGIT_BITS == 32 * k13.MAX_KEYS
     assert const("TILE_THREADS") * const("TILE_ROUNDS") == k13.TILE
     assert (const("COMPACT_THREADS") * const("COMPACT_ITEMS")
             == k13.COMPACT_CHUNK)
@@ -477,7 +470,12 @@ def test_kernel_constants_agree_with_the_plan():
     assert const("SMALL") == k13.SMALL
     assert const("DIGIT_MAX") == k13.DIGIT_MAX
     assert const("SPLIT_FIXED_INTS") == k13.SPLIT_FIXED_INTS
-    assert const("STAMPS") == k13.STAMPS
+    for name in ("STAMPS", "STAMP_START", "STAMP_PACKED", "STAMP_LEVEL",
+                 "STAMP_LEVEL_MAX", "STAMP_LEVELS",
+                 "STAMP_LISTED", "STAMP_LISTED_MAX", "STAMP_END"):
+        assert const(name) == getattr(k13, name)
+    assert const("STAMP_STEP0") == k13.STAMP_STEPS[0]
+    assert const("STAMP_STEP1") == k13.STAMP_STEPS[1]
     for name, value in k13.METHODS.items():
         assert const(f"METHOD_{name.upper()}") == value
     assert "return n / (SMALL + 1) + 1;" in src      # split_lmax
