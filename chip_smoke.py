@@ -9,7 +9,7 @@ card is visible, or when the package is not importable.
 Phases (each prints its own lines):
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
-2. build: compiles the thirteen CUDA kernels from ``poseidon_tpu_torch/
+2. build: compiles the fourteen CUDA kernels from ``poseidon_tpu_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel) and the C++
    oracle, and prints the build seconds;
 3. kernels: at the flagship's shapes (BASELINE config 2: 1,000 machines,
@@ -165,8 +165,10 @@ Phases (each prints its own lines):
    (100 retired, 100 new). Launch counts are zeroed just before and
    read just after. Every round must be ``dense_auction``, certified,
    equal in cost to the C++ oracle on the same priced graph, with one
-   result fetch; every kernel must have launched in every round (K1-K3,
-   K12 and K13). One
+   result fetch and no loop read (the auction loop is one CUDA graph a
+   solve: the kernels it runs count their launches when it runs them);
+   every kernel must have launched in every round (K1-K3, K12 and K13);
+   each round prints its loop graph captures and their ms. One
    more warm round under ``torch.profiler`` prints the device busy and
    idle share, the top device items, and each hand kernel's device time
    by its CUDA symbol: total, launches, and time per launch as the
@@ -174,6 +176,18 @@ Phases (each prints its own lines):
    no ``torch.sort``, ``torch.argsort`` or ``torch.topk`` call), and the
    time of K2's first launch after K1 (it reads the table K1 has just
    written).
+5b. loop: the auction loop's graph held against the host loop (the
+   plain version, ``_solve(..., host_loop=True)``) on the same card
+   tensors, every output bit for bit (tolerance 0): every solve of the
+   flagship's cold round and three churned warm rounds, the last warm
+   solve with ``collect_hist``, the flagship as a RowBlocks table of
+   width 2 on the card, a fuse-limited solve (trivial pricing with
+   preference arcs on 64 x 600, ``LOOP_FUSE`` = 2,000 rounds, not
+   converged) and config 8's burst round at [scale]'s shape; for each
+   the capture's ms, the graph's solve ms against the host loop's and
+   both loop read counts; then a profiled warm round's device busy and
+   idle share. K14 ``loop_ctl`` is held against its twin in [kernels]
+   over every mode, flag, done and fuse case and timed there;
 6. models: each of the six cost models prices the flagship's cost
    inputs (knowledge aggregates from a seeded generator) on the card
    exactly as on the CPU, timed beside its byte bound; then one cold
@@ -610,7 +624,9 @@ def kernel_phase(torch, timer):
     btask = torch.from_numpy(
         rng.choice(Tp, size=B, replace=False).astype(np.int32)).to(dev)
     bvalid = torch.from_numpy(rng.random(B) < 0.8).to(dev)
-    args3 = (inst.c, p, inst.u, btask, bvalid, 1)
+    # K3 reads eps from the card
+    eps1 = torch.ones((), dtype=torch.int32, device=dev)
+    args3 = (inst.c, p, inst.u, btask, bvalid, eps1)
     got = k3.bid_pass(*args3)
     want = k3.bid_pass_plain(*args3)
     err = max_abs_err(got, want)
@@ -628,6 +644,7 @@ def kernel_phase(torch, timer):
     calls = loop_calls(torch, inst, smax)
     records.append(top_will_record(torch, timer, calls))
     records.append(seat_sort_records(torch, timer, calls))
+    records.append(loop_ctl_record(torch, timer))
     del calls
     torch.cuda.synchronize()
     for mod, fn, args, key in (
@@ -845,7 +862,8 @@ def edge_battery(torch):
             ok = rng.random(B) < 0.5
         btask = torch.from_numpy(bt.astype(np.int32)).to("cuda")
         bvalid = torch.from_numpy(ok).to("cuda")
-        args = (c, p, u, btask, bvalid, eps)
+        args = (c, p, u, btask, bvalid,
+                torch.full((), eps, dtype=torch.int32, device="cuda"))
         err = max_abs_err(k3.bid_pass(*args), k3.bid_pass_plain(*args))
         plan = k3.PLANS[c.device, B, Mp]
         log(f"[edges] bid_pass Tp={Tp} Mp={Mp} B={B} {kind} {mode} eps={eps}: "
@@ -899,8 +917,11 @@ def loop_calls(torch, inst, smax: int) -> dict:
     da.seat_compact = keep("seat_compact", lambda w, B: "compact")
     da.top_will = keep("top_will", lambda parts, s, smax: "top_will")
     try:
+        # the host loop on the card: the graph's kernels are not called
+        # from Python, the host loop's are
         out = da._solve(inst, *da.cold_start(inst), alpha=1024,
-                        max_rounds=FUSE_ROUNDS, smax=smax, analytic_init=True)
+                        max_rounds=FUSE_ROUNDS, smax=smax, analytic_init=True,
+                        host_loop=True)
     finally:
         for n, fn in saved.items():
             setattr(da, n, fn)
@@ -2258,6 +2279,7 @@ def profile_round(torch, solver, cluster):
 def main_path_phase(torch):
     """The flagship resident round on the card: cold + 3 churned warm."""
     from poseidon_tpu_torch import kernels
+    from poseidon_tpu_torch.ops import dense_auction as da
     from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
     from poseidon_tpu_torch.ops.resident import ResidentSolver
     from poseidon_tpu_torch.synth import config2_quincy_flagship
@@ -2272,6 +2294,7 @@ def main_path_phase(torch):
     per_round = []
     for cluster, (arrays, meta) in zip(clusters, built):
         before = {k.name: k.launches for k in kernels.KERNELS}
+        n_cap = da.CAPTURES.total
         t0 = time.perf_counter()
         out = solver.run_round(arrays, meta, cost_model="quincy",
                                cost_input_kwargs=cost_kwargs(cluster))
@@ -2281,10 +2304,12 @@ def main_path_phase(torch):
                     for k in kernels.KERNELS}
         per_round.append((cluster, out, wall, launched,
                           solver.last_round_fetches,
-                          solver.last_round_loop_syncs))
+                          solver.last_round_loop_syncs,
+                          [c[-1] for c in da.CAPTURES.since(n_cap)]))
     launches = {k.name: k.launches for k in kernels.KERNELS}
     profile_round(torch, solver, churn(clusters[-1], 4))
-    for r, (cluster, out, wall, launched, fetches, syncs) in enumerate(per_round):
+    for r, (cluster, out, wall, launched, fetches, syncs,
+            caps) in enumerate(per_round):
         want, oracle_ms = oracle_cost(cluster, torch.device("cuda"))
         log(f"[main] round {r} ({'cold' if r == 0 else 'warm'}): "
             f"tasks={len(out.assignment)} wall_ms={wall:.3f} "
@@ -2293,6 +2318,8 @@ def main_path_phase(torch):
             f"solve_ms={out.timings['solve_ms']:.3f} "
             f"backend={out.backend} converged={out.converged} "
             f"rounds={out.rounds} phases={out.phases} loop_syncs={syncs} "
+            f"loop_graph_captures={len(caps)} capture_ms="
+            f"{sum(caps):.3f} "
             f"fetches={fetches} cost={out.cost} oracle_cost={want} "
             f"oracle_ms={oracle_ms:.1f} launches={launched}")
         if out.backend != "dense_auction" or not out.converged:
@@ -2301,10 +2328,241 @@ def main_path_phase(torch):
             raise AssertionError(f"round {r}: cost {out.cost} != oracle {want}")
         if fetches != 1:
             raise AssertionError(f"round {r}: {fetches} result fetches")
+        if syncs != 0:
+            raise AssertionError(f"round {r}: {syncs} loop reads (the loop "
+                                 f"is one graph a solve)")
         idle = [n for n in ROUND_KERNELS if launched[n] == 0]
         if idle:
             raise AssertionError(f"round {r}: kernels not launched: {idle}")
     return launches
+
+
+# ---- [loop]: the auction loop's graph against the host loop ----------
+
+LOOP_FUSE = 2_000                # the fuse-limited case's fuse
+# trivial pricing with preference arcs on a 64 x 600 synthetic cluster:
+# neither package certifies it within the fuse (ROADMAP Queue 3)
+LOOP_FUSE_CLUSTER = (64, 600, 1)
+LOOP_OUTPUTS = ("asg", "lvl", "floor", "gap", "converged", "rounds",
+                "phases", "hist")
+
+
+def loop_twin(torch, label: str, args, kw, rows: list):
+    """Run ``dense_auction._solve(*args, **kw)`` as the graph (a first
+    call, which captures when the key is new, then a cached launch) and
+    as the host loop on the same card tensors; every output must be
+    equal bit for bit (tolerance 0). Prints the capture's ms, both
+    solves' ms and the loop reads; returns the graph's outputs."""
+    from poseidon_tpu_torch.guards import SyncCounter
+    from poseidon_tpu_torch.ops import dense_auction as da
+
+    kw = {k: v for k, v in kw.items() if k not in ("syncs", "host_loop")}
+    n_cap = da.CAPTURES.total
+    graph_reads = SyncCounter()
+    sync(torch)
+    t0 = time.perf_counter()
+    first = da._solve(*args, syncs=graph_reads, **kw)
+    sync(torch)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    caps = da.CAPTURES.since(n_cap)
+    t0 = time.perf_counter()
+    graph = da._solve(*args, syncs=graph_reads, **kw)
+    sync(torch)
+    graph_ms = (time.perf_counter() - t0) * 1e3
+    host_reads = SyncCounter()
+    t0 = time.perf_counter()
+    host = da._solve(*args, syncs=host_reads, host_loop=True, **kw)
+    sync(torch)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    bad = [n for n, a, b, f in zip(LOOP_OUTPUTS, graph, host, first)
+           if not (torch.equal(a, b) and torch.equal(a, f))]
+    Tp, Mp = args[0].c.shape
+    row = dict(label=label, Tp=Tp, Mp=Mp, rounds=int(graph[5]),
+               phases=int(graph[6]), converged=bool(graph[4]),
+               capture_ms=sum(c[-1] for c in caps), captures=len(caps),
+               first_ms=first_ms, graph_ms=graph_ms, host_ms=host_ms,
+               graph_reads=graph_reads.count, host_reads=host_reads.count)
+    rows.append(row)
+    log(f"[loop] {label}: Tp={Tp} Mp={Mp} rounds={row['rounds']} "
+        f"phases={row['phases']} converged={row['converged']} "
+        f"captures={len(caps)} capture_ms={row['capture_ms']:.3f} "
+        f"first_solve_ms={first_ms:.3f} graph_solve_ms={graph_ms:.3f} "
+        f"host_loop_solve_ms={host_ms:.3f} loop_reads graph="
+        f"{graph_reads.count} host={host_reads.count} "
+        f"equal={'all' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"[loop] {label}: graph != host loop in {bad}")
+    if graph_reads.count:
+        raise AssertionError(f"[loop] {label}: the graph made "
+                             f"{graph_reads.count} loop reads")
+    return graph
+
+
+def loop_ctl_record(torch, timer):
+    """K14 against its twin (tolerance 0) in every mode over every flag,
+    done and fuse combination, then timed as one BRANCH step (the
+    graph's per-iteration control). Returns its kernels record."""
+    from poseidon_tpu_torch.kernels import loop_graph as k14
+
+    dev = torch.device("cuda")
+    i32 = torch.int32
+    err = 0
+    n = 0
+    for mode in (k14.ENTER, k14.BRANCH, k14.PHASE, k14.NEXT):
+        for flag in (False, True):
+            for done in (False, True):
+                for rounds, fuse in ((0, 1), (1, 1), (7, 2000), (2000, 2000)):
+                    ins = [torch.tensor(flag, device=dev),
+                           torch.tensor(rounds, dtype=i32, device=dev),
+                           torch.tensor(fuse, dtype=i32, device=dev),
+                           torch.tensor(done, device=dev),
+                           torch.tensor([1, 1, 1, 1], dtype=i32, device=dev),
+                           torch.arange(k14.TALLY, dtype=i32, device=dev)]
+                    host = [x.cpu() for x in ins]
+                    k14.loop_ctl(mode, *ins)
+                    k14.loop_ctl_plain(mode, *host)
+                    err = max(err, max_abs_err(ins[4:], [x.to(dev)
+                                                         for x in host[4:]]))
+                    n += 1
+    ins = [torch.tensor(True, device=dev),
+           torch.tensor(3, dtype=i32, device=dev),
+           torch.tensor(LOOP_FUSE, dtype=i32, device=dev),
+           torch.tensor(False, device=dev),
+           torch.zeros(4, dtype=i32, device=dev),
+           torch.zeros(k14.TALLY, dtype=i32, device=dev)]
+    ms = timer(lambda: k14.loop_ctl(k14.BRANCH, *ins))
+    plain = timer(lambda: k14.loop_ctl_plain(k14.BRANCH, *ins))
+    # reads flag, rounds, the fuse, done and the tally once; writes the
+    # codes and the tally once
+    b = 1 + 4 + 4 + 1 + 4 * 4 + 2 * k14.TALLY * 4
+    log(f"[kernels] loop_ctl: {n} mode/flag/done/fuse cases, "
+        f"max_abs_err={err}")
+    return (k14.KERNEL, err, ms, plain, *bound_ms(b, 8), (1,))
+
+
+def loop_phase(torch, card: str) -> None:
+    """The loop's graph held against the host loop (the plain version)
+    on the same card tensors, bit for bit in every output: the flagship's
+    cold round and three churned warm rounds (every ``_solve`` the
+    resident chain makes), a warm round with ``collect_hist``, a
+    fuse-limited solve (LOOP_FUSE rounds, not converged), the flagship
+    as a RowBlocks table of width 2 on the card, and config 8's burst
+    round at [scale]'s shape; then a profiled warm round."""
+    from poseidon_tpu_torch import parallel
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
+    from poseidon_tpu_torch.ops import dense_auction as da
+    from poseidon_tpu_torch.ops import resident
+    from poseidon_tpu_torch.ops.transport import extract_instance
+    from poseidon_tpu_torch.synth import (
+        config2_quincy_flagship, make_synthetic_cluster, price,
+    )
+
+    log(f"[loop] card: {card}")
+    rows = []
+    calls = []
+    original = resident._solve
+
+    def twin(*args, **kw):
+        calls.append((args, kw))
+        label = f"flagship round {len(calls) - 1} " + (
+            "cold" if kw.get("analytic_init") else "warm")
+        return loop_twin(torch, label, args, kw, rows)
+
+    clusters = [config2_quincy_flagship(seed=0)]
+    for r in (1, 2, 3):
+        clusters.append(churn(clusters[-1], r))
+    solver = resident.ResidentSolver(device="cuda", small_to_oracle=False)
+    resident._solve = twin
+    try:
+        for r, cluster in enumerate(clusters):
+            arrays, meta = FlowGraphBuilder().build_arrays(cluster)
+            out = solver.run_round(arrays, meta, cost_model="quincy",
+                                   cost_input_kwargs=cost_kwargs(cluster))
+            if out.backend != "dense_auction" or not out.converged:
+                raise AssertionError(f"[loop] flagship round {r}: "
+                                     f"{out.backend}")
+            if solver.last_round_loop_syncs or solver.last_round_fetches != 1:
+                raise AssertionError(
+                    f"[loop] flagship round {r}: loop reads "
+                    f"{solver.last_round_loop_syncs}, fetches "
+                    f"{solver.last_round_fetches}")
+    finally:
+        resident._solve = original
+    log(f"[loop] flagship auction rounds {[x['rounds'] for x in rows]}, "
+        f"phases {[x['phases'] for x in rows]}")
+
+    # the last warm round's solve again, with the histogram
+    args, kw = calls[-1]
+    loop_twin(torch, "flagship warm, collect_hist", args,
+              {**kw, "collect_hist": True}, rows)
+
+    # the flagship as row blocks of width 2, both on this card
+    dev0 = args[0]
+    sharded = parallel.shard_instance(
+        dev0, parallel.make_mesh(devices=[torch.device("cuda", 0)] * 2))
+    if not isinstance(sharded.c, da.RowBlocks) or not da.uses_graph(sharded.c):
+        raise AssertionError("[loop] the width-2 table takes no graph")
+    loop_twin(torch, "flagship RowBlocks width 2", (sharded, *args[1:]), kw,
+              rows)
+
+    # a fuse-limited solve
+    M, T, seed = LOOP_FUSE_CLUSTER
+    cl = make_synthetic_cluster(M, T, seed=seed)
+    net, meta = FlowGraphBuilder().build(cl)
+    net = price(net, meta, "trivial", cl, device="cuda")
+    inst = da.build_dense_instance(extract_instance(net, meta),
+                                   torch.device("cuda"))
+    out = loop_twin(torch, f"{M} x {T} trivial with preferences, fuse "
+                    f"{LOOP_FUSE}", (inst, *da.cold_start(inst)),
+                    dict(alpha=1024, max_rounds=LOOP_FUSE, smax=inst.smax,
+                         analytic_init=True), rows)
+    if int(out[5]) != LOOP_FUSE or bool(out[4]):
+        raise AssertionError(f"[loop] fuse case: rounds {int(out[5])}, "
+                             f"converged {bool(out[4])}")
+
+    loop_config8(torch, rows)
+
+    # a profiled warm round (the graph, no twin)
+    profile_round(torch, solver, churn(clusters[-1], 4))
+    graph_s = sum(x["graph_ms"] for x in rows) / 1e3
+    host_s = sum(x["host_ms"] for x in rows) / 1e3
+    log(f"[loop] {len(rows)} solves: graph {graph_s:.3f} s, host loop "
+        f"{host_s:.3f} s, captures {sum(x['captures'] for x in rows)} in "
+        f"{sum(x['capture_ms'] for x in rows):.3f} ms | {card}")
+
+
+def loop_config8(torch, rows: list) -> None:
+    """Config 8's burst round through the bridge as [scale] runs it
+    (aggregation, top-2 preferences, width 1), its solve held graph
+    against host loop."""
+    import logging
+
+    from poseidon_tpu_torch.bridge import SchedulerBridge
+    from poseidon_tpu_torch.ops import resident
+    from poseidon_tpu_torch.synth import config8_scale
+
+    n_machines, n_tasks = CONFIG8
+    cluster = config8_scale(n_machines, n_tasks, seed=0,
+                            machines_per_rack=CONFIG8_RACK, n_skus=2)
+    bridge = SchedulerBridge(
+        cost_model="quincy", small_to_oracle=False, aggregate_classes=True,
+        topk_prefs=2, mesh_width=1, device="cuda")
+    bridge.solver.oracle_fallback = False
+    bridge.observe_nodes(cluster.machines)
+    bridge.observe_pods(cluster.tasks)
+    original = resident._solve
+    bridge_log = logging.getLogger("poseidon_tpu_torch.bridge.bridge")
+    level = bridge_log.level
+    bridge_log.setLevel(logging.WARNING)
+    resident._solve = lambda *a, **k: loop_twin(
+        torch, f"config 8 burst ({n_machines} x {n_tasks})", a, k, rows)
+    try:
+        res = bridge.run_scheduler()
+    finally:
+        resident._solve = original
+        bridge_log.setLevel(level)
+    if res.stats.backend != "dense_auction":
+        raise AssertionError(f"[loop] config 8: {res.stats.backend}")
 
 
 # ---- the six cost models --------------------------------------------
@@ -2584,10 +2842,12 @@ def express_phase(torch):
             f"upload_ms={t.get('upload_ms', 0.0):.3f} "
             f"solve_ms={t.get('solve_ms', 0.0):.3f} "
             f"e2b_ms={r.latency_ms:.3f} launches={launched}")
-        if solver.last_round_fetches != 1 or not solver.express_ready:
+        if solver.last_round_fetches != 1 or not solver.express_ready \
+                or solver.last_round_loop_syncs != 0:
             raise AssertionError(f"[express] window {window}: "
                                  f"{solver.last_round_fetches} fetches, "
-                                 f"context {solver.express_ready}")
+                                 f"{solver.last_round_loop_syncs} loop "
+                                 f"reads, context {solver.express_ready}")
         idle = [n for n in need if launched[n] == 0]
         if idle:
             raise AssertionError(f"[express] window {window}: kernels not "
@@ -2838,9 +3098,11 @@ def stream_phase(torch, card: str):
             + (f" launches={counts}" if launches else ""))
         if (solver.stream_fetches - fetched0 != 1
                 or solver.last_stream_fetches != 1
+                or (solver.last_round_loop_syncs != 0 and DEVICE == "cuda")
                 or not solver.express_ready or not all(per)):
             raise AssertionError(f"[stream] {label}: fetches "
-                                 f"{solver.last_stream_fetches}, context "
+                                 f"{solver.last_stream_fetches}, loop reads "
+                                 f"{solver.last_round_loop_syncs}, context "
                                  f"{solver.express_ready}")
         per_h, r_h, _ = stream_flush_windows(host_b, windows, label)
         a, b = card_b.solver.warm, host_b.solver.warm
@@ -3003,10 +3265,12 @@ def whatif_phase(torch, card: str):
         f"{int(sorted(res.rounds)[WHATIF_VARIANTS // 2])}/"
         f"{int(res.rounds.max())} converged={int(res.converged.sum())} "
         f"cost0={int(res.costs[0])} oracle0={want0} launches={counts}")
-    if not res.converged.all() or fetches.count != 1:
+    if not res.converged.all() or fetches.count != 1 or (
+            loops.count != 0 and DEVICE == "cuda"):
         raise AssertionError(f"[whatif] {int(res.converged.sum())} of "
                              f"{WHATIF_VARIANTS} certified, "
-                             f"{fetches.count} fetches")
+                             f"{fetches.count} fetches, {loops.count} loop "
+                             f"reads")
     if int(res.costs[0]) != want0:
         raise AssertionError(f"[whatif] variant 0 cost {res.costs[0]} != "
                              f"oracle {want0}")
@@ -3125,6 +3389,7 @@ def service_phase(torch, card: str):
     from poseidon_tpu_torch.bridge import SchedulerBridge
     from poseidon_tpu_torch.graph.network import FlowNetwork
     from poseidon_tpu_torch.guards import CompileCounter
+    from poseidon_tpu_torch.ops import dense_auction as da
     from poseidon_tpu_torch.oracle import solve_oracle
     from poseidon_tpu_torch.service import SchedulingService
 
@@ -3150,7 +3415,7 @@ def service_phase(torch, card: str):
                 bridge.observe_nodes(list(clusters[tid].machines))
                 bridge.observe_pods(list(clusters[tid].tasks))
         before = (d.dispatches, d.fetches.count, d.cold_retries,
-                  d.loop_syncs.count)
+                  d.loop_syncs.count, da.CAPTURES.total)
         sync(torch)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3169,13 +3434,17 @@ def service_phase(torch, card: str):
             f"wave_ms={wave_ms:.3f} chunks={chunks} fetches={fetches} "
             f"cold_retries={retries} loop_syncs="
             f"{d.loop_syncs.count - before[3]} builds="
-            f"{counter.count if measured else '-'} launches={counts}")
+            f"{counter.count if measured else '-'} loop_graph_captures="
+            f"{da.CAPTURES.total - before[4]} launches={counts}")
         idle = [n for n in ROUND_KERNELS
                 if counts[n] == 0 and DEVICE == "cuda"]
-        if idle or fetches != chunks + retries or chunks < 2:
+        loop_reads = d.loop_syncs.count - before[3]
+        if idle or fetches != chunks + retries or chunks < 2 or (
+                loop_reads != 0 and DEVICE == "cuda"):
             raise AssertionError(f"[service] wave {wave}: idle {idle}, "
                                  f"{fetches} fetches for {chunks} chunks "
-                                 f"+ {retries} retries")
+                                 f"+ {retries} retries, {loop_reads} loop "
+                                 f"reads")
         for tid, r in results.items():
             s = r.stats
             solver = service.sessions[tid].solver
@@ -3538,6 +3807,7 @@ def daemon_lane(torch, cluster, watch: bool, express: bool = False,
                 fetches=bridge.solver.last_round_fetches,
                 solves=bridge.solver.last_round_solves,
                 loop_syncs=bridge.solver.last_round_loop_syncs,
+                auction_rounds=bridge.solver.last_round_auction_rounds,
                 launched=launched, n_bindings=len(result.bindings),
             ))
             if express:
@@ -3686,6 +3956,7 @@ def daemon_phase(torch, card: str):
                 f"backend={s.backend} cost={s.cost} oracle_cost={want} "
                 f"solves={r['solves']} fetches={r['fetches']} "
                 f"loop_syncs={r['loop_syncs']} "
+                f"auction_rounds={r['auction_rounds']} "
                 f"launches={r['launched']}")
             if s.backend != "dense_auction":
                 raise AssertionError(f"[daemon] {lane} round {s.round_num}: "
@@ -3718,7 +3989,7 @@ def daemon_phase(torch, card: str):
         if lane == "poll":
             # [observe] holds its first round (the same cold flagship
             # round, with the observability tools on) against this one
-            DAEMON_ROUND1["poll"] = (dense[0]["loop_syncs"],
+            DAEMON_ROUND1["poll"] = (dense[0]["auction_rounds"],
                                      dense[0]["stats"].cost)
         log(f"[daemon] {lane}: {len(records)} rounds ({len(dense)} dense) "
             f"in {wall_s:.3f} s, {len(bound)} pods bound, "
@@ -3882,11 +4153,12 @@ def shard_edges(torch) -> None:
         bt = torch.from_numpy(rng.integers(r0, r1, 256).astype(np.int32)).to(
             DEVICE)
         ok = torch.from_numpy(rng.random(256) < 0.8).to(DEVICE)
+        eps2 = torch.full((), 2, dtype=torch.int32, device=DEVICE)
         part = (c[r0:r1].contiguous(), p, u[r0:r1].contiguous(), bt - r0, ok,
-                2)
+                eps2)
         got = k3.bid_pass(*part, task0=r0)
         err = max(max_abs_err(got, k3.bid_pass_plain(*part, task0=r0)),
-                  max_abs_err(got, k3.bid_pass(c, p, u, bt, ok, 2)))
+                  max_abs_err(got, k3.bid_pass(c, p, u, bt, ok, eps2)))
         n += 1
         if err:
             bad.append(("bid_pass task0", Tp, Mp, r0, err))
@@ -3955,6 +4227,7 @@ def _scale_config8(torch) -> dict:
 
     from poseidon_tpu_torch import kernels
     from poseidon_tpu_torch.bridge import SchedulerBridge
+    from poseidon_tpu_torch.ops import dense_auction as da
     from poseidon_tpu_torch.synth import config8_arrivals, config8_scale
 
     n_machines, n_tasks = CONFIG8
@@ -3988,6 +4261,7 @@ def _scale_config8(torch) -> dict:
     alive = collections.deque()
 
     def one_round(r, label):
+        n_cap = da.CAPTURES.total
         if r > 0:
             t0 = time.perf_counter()
             for t in config8_arrivals(n_racks, CONFIG8_CHURN, r - 1, seed=0):
@@ -4024,6 +4298,8 @@ def _scale_config8(torch) -> dict:
             f"phases={out.phases} solves={solver.last_round_solves} "
             f"fetches={solver.last_round_fetches} "
             f"loop_syncs={solver.last_round_loop_syncs} Tp={Tp} Mp={Mp} "
+            f"loop_graph_captures={da.CAPTURES.total - n_cap} capture_ms="
+            f"{sum(c[-1] for c in da.CAPTURES.since(n_cap)):.3f} "
             f"classes={solver.last_round_classes} "
             f"table_mib={Tp * Mp * 4 / 2**20:.1f} "
             f"max_memory_allocated_mib={peak:.1f} cost={s.cost}")
@@ -5483,6 +5759,7 @@ def daemon_child() -> int:
             fetches=solver.last_round_fetches,
             solves=solver.last_round_solves,
             loop_syncs=solver.last_round_loop_syncs, launched=launched,
+            auction_rounds=solver.last_round_auction_rounds,
             warm=st["warm"].get(s.round_num), n_bindings=len(result.bindings),
             capture_us=st["capture_us"].get(s.round_num),
         )
@@ -5631,17 +5908,20 @@ def check_dense_round(tag: str, rec: dict, known_fuse: bool = False) -> None:
     too; ROADMAP Queue 3, "Fuse exhaustion"): only such a round may
     degrade to the oracle, and then it is held to the independent
     oracle's cost, to a fuse's worth of loop reads a solve, and to one
-    fetch a solve plus the fallback's read of the priced arcs."""
+    fetch a solve plus the fallback's read of the priced arcs; each of
+    its solves ran FUSE_ROUNDS auction rounds (read with its fetch: on
+    the card the loop is one graph and makes no loop read)."""
     if rec["backend"] == "oracle:uncertified" and known_fuse:
         if (rec.get("oracle") != rec["cost"]
                 or rec["fetches"] != rec["solves"] + 1
-                or rec["loop_syncs"] < rec["solves"] * FUSE_ROUNDS):
+                or rec["auction_rounds"] != [FUSE_ROUNDS] * rec["solves"]):
             raise AssertionError(f"{tag} round {rec['round']}: degraded "
                                  f"round {rec}")
         log(f"{tag} round {rec['round']}: DEGRADED to the oracle after "
-            f"{rec['solves']} solves ran out the fuse ({rec['loop_syncs']} "
-            f"loop reads, solve_ms={rec['solve_ms']:.3f}); cost == the "
-            f"independent oracle's (ROADMAP Queue 3, fuse exhaustion)")
+            f"{rec['solves']} solves ran out the fuse (auction rounds "
+            f"{rec['auction_rounds']}, {rec['loop_syncs']} loop reads, "
+            f"solve_ms={rec['solve_ms']:.3f}); cost == the independent "
+            f"oracle's (ROADMAP Queue 3, fuse exhaustion)")
         return
     if rec["backend"] != "dense_auction":
         raise AssertionError(f"{tag} round {rec['round']}: backend "
@@ -6007,12 +6287,15 @@ def observe_phase(torch, card: str, daemon_round1=None,
         if r1["fetches"] != 1:
             raise AssertionError(f"[observe] round 1: {r1['fetches']} "
                                  f"fetches")
+        if r1["loop_syncs"] != 0 and DEVICE == "cuda":
+            raise AssertionError(f"[observe] round 1: {r1['loop_syncs']} "
+                                 f"loop reads (the loop is one graph)")
         if daemon_round1 is not None and (
-                r1["loop_syncs"], r1["cost"]) != daemon_round1:
+                r1["auction_rounds"], r1["cost"]) != daemon_round1:
             raise AssertionError(
-                f"[observe] round 1 (loop reads, cost) "
-                f"{(r1['loop_syncs'], r1['cost'])} != the [daemon] poll "
-                f"lane's {daemon_round1} with the tools off")
+                f"[observe] round 1 (auction rounds, cost) "
+                f"{(r1['auction_rounds'], r1['cost'])} != the [daemon] "
+                f"poll lane's {daemon_round1} with the tools off")
         # the audit: regret 0 on the placement of one certified round
         # (round 1's, audited at round 2); later audits measure the
         # union of several place-only rounds, which no round promised
@@ -6591,6 +6874,8 @@ def main() -> int:
         phase("parity", parity_phase)
     if want("main"):
         launches = phase("main", main_path_phase, torch)
+    if want("loop"):
+        phase("loop", loop_phase, torch, smi)
     if want("models"):
         phase("models", models_phase, torch, timer)
     if want("express"):

@@ -195,7 +195,8 @@ def worker(root: str, parts: tuple[str, ...] = DEFAULT_PARTS) -> dict:
         "row_options": (k2.row_options, k2.row_options_plain, (c, p),
                         "read_floor_ms", lambda: c.max()),
         "bid_pass": (k3.bid_pass, k3.bid_pass_plain,
-                     (c, p, u, btask, bvalid, 1),
+                     (c, p, u, btask, bvalid,
+                      torch.ones((), dtype=torch.int32, device=dev)),
                      "read_floor_ms", lambda: c[:B].max()),
     }
     for rows, Mp8 in GAP_SHAPES:

@@ -276,14 +276,19 @@ BACKGROUND_MARKER = "pta: background-thread"
 # in the current recordings is reported stale.
 _KERNEL_MASK_CONTRACTS: dict = {
     "*": (
-        ("any", "_solve",
-         "the loop's flags: any(waiting) over the sorted carry, where "
-         "padded tasks ride the DUMP segment and are never WAIT; "
-         "any(viol) over violators(), which ANDs task_valid in before "
-         "it returns; any(stranded), which ANDs s > 0 in and so "
-         "excludes the zero-slot padded machines (the pad contract) — "
-         "no padded lane can hold the loop open or end it"),
-        ("sum", "_solve",
+        ("any", "head",
+         "the loop's flag any(waiting) over the sorted carry, where "
+         "padded tasks ride the DUMP segment and are never WAIT — no "
+         "padded lane can hold the loop open"),
+        ("any", "pre",
+         "any(viol_now) over violators(), which ANDs task_valid in "
+         "before it returns"),
+        ("any", "tighten",
+         "any(viol) over violators(), which ANDs task_valid in; "
+         "any(stranded), which ANDs s > 0 in and so excludes the "
+         "zero-slot padded machines (the pad contract) — no padded lane "
+         "can hold the loop open or end it"),
+        ("sum", "_certify",
          "the dual's machine-side term sums s * lam: padded machines "
          "carry s == 0 by the pad contract, exact zeros in the "
          "certificate"),

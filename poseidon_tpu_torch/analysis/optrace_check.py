@@ -33,7 +33,12 @@ audits the recording:
 - **a pinned per-entry census** (``analysis/op_fingerprints.json``):
   the instances are fixed and the auction is deterministic, so even
   the host loop's op counts are stable; a diff is a changed program.
-  ``--update-fingerprints`` re-pins the file.
+  ``--update-fingerprints`` re-pins the file. Each entry pins two
+  counts: ``ops``, every op, and ``card_ops``, the same with the
+  auction loop (the ``loop.auction`` seam of ``_solve``) as one op. On
+  the card the loop is one CUDA graph launch, whose ops run without
+  the dispatcher, so a card recording is held to ``card_ops``; the ops
+  inside the seam are still checked for the problems below.
 
 Audited entries (the counterparts of the reference's audited set):
 ``ops/dense_auction.py::_solve``, ``ops/resident.py::_resident_chain``,
@@ -113,6 +118,10 @@ class Recording:
         default_factory=collections.Counter)
     # PTA009 candidates: (op, function, path, line)
     candidates: set = dataclasses.field(default_factory=set)
+    # the census with each ``loop.*`` seam as one op
+    card_census: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    device: str = "cpu"
 
 
 def _tensors(tree):
@@ -175,21 +184,34 @@ def _recorder_class():
             self.rec = rec
             self.taint = taint
             self.depth = 0
+            self.group = 0      # inside a ``loop.*`` seam
             self.in_read = 0
             self.flags: dict = {}     # id(tensor) -> (taint, masked, bool)
             self.keep: list = []      # keeps ids unique while recording
 
         # ---- the census seam -----------------------------------------
         def enter(self, name: str) -> None:
+            if name.startswith("loop."):
+                # a group: its ops stay in the census (and are
+                # checked); the card census counts the group once
+                if not self.taint and self.depth == 0 and not self.group:
+                    self.rec.card_census[name] += 1
+                self.group += 1
+                return
             if name == "SyncCounter.read":
                 self.in_read += 1
             if self.taint:
                 return
             if self.depth == 0:
                 self.rec.census[name] += 1
+                if not self.group:
+                    self.rec.card_census[name] += 1
             self.depth += 1
 
         def exit(self, name: str) -> None:
+            if name.startswith("loop."):
+                self.group -= 1
+                return
             if name == "SyncCounter.read":
                 self.in_read -= 1
             if not self.taint:
@@ -282,6 +304,8 @@ def _recorder_class():
                 rec.problems.append(("host-tensor", "tensor made from "
                                      "host data", _site()))
             rec.census[str(func)] += 1
+            if not self.group:
+                rec.card_census[str(func)] += 1
             out = func(*args, **kwargs)
             for o in _tensors(out):
                 if o.dtype == torch.float64:
@@ -451,9 +475,13 @@ def production_entries(device=None) -> list[tuple[str, object, tuple, dict]]:
 def record_entries(device=None, *, taint: bool = False) -> dict:
     """{entry: Recording} of the audited set on ``device`` (None: the
     card)."""
+    from poseidon_tpu_torch.ops.resident import resolve_device
+
+    kind = resolve_device(device).type
     out = {}
     for name, fn, args, kwargs in production_entries(device):
         out[name], _ = record(name, fn, args, kwargs, taint=taint)
+        out[name].device = kind
     return out
 
 
@@ -492,18 +520,27 @@ def structural_problems(rec: Recording, contracts) -> list[tuple]:
 
 
 def fingerprint(rec: Recording) -> dict:
-    return {"ops": dict(sorted(rec.census.items()))}
+    """The pinned form: a card recording has only ``card_ops`` (its
+    loop ran as a graph)."""
+    card = {"card_ops": dict(sorted(rec.card_census.items()))}
+    if rec.device == "cuda":
+        return card
+    return {"ops": dict(sorted(rec.census.items())), **card}
 
 
 def diff_fingerprint(name: str, got: dict, want: dict) -> list[str]:
     problems = []
-    g, w = got["ops"], want.get("ops", {})
-    for op in sorted(set(g) | set(w)):
-        if g.get(op, 0) != w.get(op, 0):
-            problems.append(
-                f"{name}: op '{op}' count {g.get(op, 0)} != pinned "
-                f"{w.get(op, 0)} (a changed program — if intentional, "
-                "re-pin with --update-fingerprints and say why)")
+    for key in ("ops", "card_ops"):
+        if key not in got:
+            continue
+        g, w = got[key], want.get(key, {})
+        for op in sorted(set(g) | set(w)):
+            if g.get(op, 0) != w.get(op, 0):
+                problems.append(
+                    f"{name}: {'op' if key == 'ops' else 'card op'} "
+                    f"'{op}' count {g.get(op, 0)} != pinned "
+                    f"{w.get(op, 0)} (a changed program — if intentional, "
+                    "re-pin with --update-fingerprints and say why)")
     return problems
 
 

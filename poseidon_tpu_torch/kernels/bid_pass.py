@@ -33,9 +33,9 @@ META_INTS = 3 * 64
 PLANS = row_stream.PlanCache(meta_ints=META_INTS)
 
 
-def bid_pass_plain(c, p, u, btask, bvalid, eps: int, task0: int = 0):
-    """The reference lines restated in PyTorch. Returns (m1, b1v, v2,
-    take_uns, beta) over the window."""
+def bid_pass_plain(c, p, u, btask, bvalid, eps, task0: int = 0):
+    """The reference lines restated in PyTorch (``eps`` an int32 0-d
+    tensor). Returns (m1, b1v, v2, take_uns, beta) over the window."""
     Mp = c.shape[1]
     bt = btask.long()
     cb = c[bt]                                   # [B, Mp] gather
@@ -61,13 +61,17 @@ def bid_pass_plain(c, p, u, btask, bvalid, eps: int, task0: int = 0):
 
 
 @census_op("bid_pass")
-def bid_pass(c, p, u, btask, bvalid, eps: int, task0: int = 0):
+def bid_pass(c, p, u, btask, bvalid, eps, task0: int = 0):
     """The bid pass over window tasks ``btask[B]`` (``bvalid[B]`` marks
-    real slots) at prices p[Mp] and bid increment ``eps``. Under a
-    row-block mesh c and u hold the rows from ``task0`` on and btask is
-    relative to it; the tie-break ranks by the absolute task. CPU
-    tensors take the plain twin; CUDA tensors launch K3."""
-    if not on_card(c, p, u, btask, bvalid):
+    real slots) at prices p[Mp] and bid increment ``eps``, an int32 0-d
+    tensor beside them (K3 reads it on the device, so a captured launch
+    takes each run's eps). Under a row-block mesh c and u hold the rows
+    from ``task0`` on and btask is relative to it; the tie-break ranks
+    by the absolute task. CPU tensors take the plain twin; CUDA tensors
+    launch K3."""
+    if not isinstance(eps, torch.Tensor):
+        raise TypeError("bid_pass: eps must be an int32 0-d tensor")
+    if not on_card(c, p, u, btask, bvalid, eps):
         return bid_pass_plain(c, p, u, btask, bvalid, eps, task0)
     Tp, Mp = c.shape
     B = btask.shape[0]
@@ -88,7 +92,7 @@ def bid_pass(c, p, u, btask, bvalid, eps: int, task0: int = 0):
             kernel_arg(c, "c", i32, (Tp, Mp)), kernel_arg(p, "p", i32, (Mp,)),
             kernel_arg(u, "u", i32, (Tp,)), kernel_arg(btask, "btask", i32, (B,)),
             kernel_arg(bvalid, "bvalid", torch.bool, (B,)),
-            B, Mp, int(eps), int(task0), plan.grid, lay.stages, lay.chunk,
+            kernel_arg(eps, "eps", i32, ()), B, Mp, int(task0), plan.grid, lay.stages, lay.chunk,
             int(lay.p_resident), lay.smem,
             m1.data_ptr(), b1v.data_ptr(), v2.data_ptr(), take_uns.data_ptr(),
             beta.data_ptr(), stream_ptr(c),

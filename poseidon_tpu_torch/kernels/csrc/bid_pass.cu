@@ -12,6 +12,8 @@
 //   c1      = c[t, m1]
 //   take_uns = bvalid[b] && u[t] <= b1v
 //   beta    = min(int64(min(v2, u[t])) + eps - c1, INF - 1)  (int64, then int32)
+// eps is read from device memory (an int32 the caller keeps on the card),
+// so a launch captured into the auction loop's graph takes each round's eps.
 // Invalid window slots (bvalid = 0) are computed like any other row; the
 // caller's scatter drops them. task0 is the first task of the table's
 // rows: 0 for the whole table, the shard's first row under a row-block
@@ -55,8 +57,8 @@ constexpr int META = 2 * BATCH;  // a warp's metadata ring: two batches
 
 __global__ void __launch_bounds__(pt::THREADS, 4) bid_pass_kernel(
     const int* __restrict__ c, const int* __restrict__ p, const int* __restrict__ u,
-    const int* __restrict__ btask, const uint8_t* __restrict__ bvalid, int B, int Mp, int eps,
-    int task0, int stages, int chunk, int p_resident, int* __restrict__ m1_out,
+    const int* __restrict__ btask, const uint8_t* __restrict__ bvalid,
+    const int* __restrict__ eps_ptr, int B, int Mp, int task0, int stages, int chunk, int p_resident, int* __restrict__ m1_out,
     int* __restrict__ b1v_out,
     int* __restrict__ v2_out, uint8_t* __restrict__ take_uns_out, int* __restrict__ beta_out) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -143,6 +145,7 @@ __global__ void __launch_bounds__(pt::THREADS, 4) bid_pass_kernel(
         const int c1 = (m1 >= col && m1 < col + n) ? cs[m1 - col]
                                                    : c[static_cast<size_t>(t) * Mp + m1];
         const int ub = mu[k % META];
+        const int eps = *eps_ptr;
         const long long beta = min(static_cast<long long>(min(acc.v2, ub)) + eps - c1,
                                    static_cast<long long>(pt::INF - 1));
         const int slot = pt::warp_row(k);
@@ -175,12 +178,13 @@ extern "C" int bid_pass_occupancy(int smem, int* blocks) {
 }
 
 extern "C" int bid_pass_launch(const int* c, const int* p, const int* u, const int* btask,
-                               const uint8_t* bvalid, int B, int Mp, int eps, int task0, int grid,
+                               const uint8_t* bvalid, const int* eps, int B, int Mp, int task0,
+                               int grid,
                                int stages, int chunk, int p_resident, int smem, int* m1, int* b1v,
                                int* v2, uint8_t* take_uns, int* beta, void* stream) {
   if (B > 0)
     bid_pass_kernel<<<grid, pt::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        c, p, u, btask, bvalid, B, Mp, eps, task0, stages, chunk, p_resident, m1, b1v, v2,
+        c, p, u, btask, bvalid, eps, B, Mp, task0, stages, chunk, p_resident, m1, b1v, v2,
         take_uns, beta);
   return static_cast<int>(cudaGetLastError());
 }

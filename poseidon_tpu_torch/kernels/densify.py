@@ -50,10 +50,12 @@ def densify_plain(w, d, ra, rack_of, slots, pc, pm, pr, n_prefs: int):
 
 
 @census_op("densify")
-def densify(w, d, ra, rack_of, slots, pc, pm, pr, n_prefs: int):
+def densify(w, d, ra, rack_of, slots, pc, pm, pr, n_prefs: int, out=None):
     """c[Tp, Mp] int32 from the channel arrays: w[Tp], d/ra/rack_of/
-    slots[Mp], pc/pm/pr[Tp, Pw] with ``n_prefs <= Pw`` live columns.
-    CPU tensors take the plain twin; CUDA tensors launch K1."""
+    slots[Mp], pc/pm/pr[Tp, Pw] with ``n_prefs <= Pw`` live columns,
+    written into ``out`` when given (a table kept at a fixed address:
+    the auction loop's graph reads its table where it lies). CPU tensors
+    take the plain twin; CUDA tensors launch K1."""
     card = on_card(w, d, ra, rack_of, slots, pc, pm, pr)
     Tp, Mp = w.shape[0], d.shape[0]
     Pw = pc.shape[1]
@@ -62,10 +64,11 @@ def densify(w, d, ra, rack_of, slots, pc, pm, pr, n_prefs: int):
     if not 0 <= n_prefs <= Pw:
         raise ValueError(f"densify: n_prefs={n_prefs} outside [0, {Pw}]")
     if not card:
-        return densify_plain(w, d, ra, rack_of, slots, pc, pm, pr, n_prefs)
+        c = densify_plain(w, d, ra, rack_of, slots, pc, pm, pr, n_prefs)
+        return c if out is None else out.copy_(c)
     i32 = torch.int32
     dev = w.device
-    c = torch.empty((Tp, Mp), dtype=i32, device=dev)
+    c = torch.empty((Tp, Mp), dtype=i32, device=dev) if out is None else out
     args = [kernel_arg(w, "w", i32, (Tp,))]
     for t, name in ((d, "d"), (ra, "ra"), (rack_of, "rack_of"), (slots, "slots")):
         args.append(kernel_arg(t, name, i32, (Mp,)))

@@ -37,7 +37,7 @@ _BUILD = pathlib.Path(__file__).resolve().parent / "_build"
 _SOURCES = (
     "densify", "row_options", "bid_pass", "express_rows", "express_patch",
     "stream_commit", "perturb", "gap_rows", "cs_sweep", "bf_relax",
-    "ssp_augment", "top_will", "seat_sort",
+    "ssp_augment", "top_will", "seat_sort", "loop_graph",
 )
 _STAMPED = ("top_will", "seat_sort")
 # the entry points that take the stamps buffer (before the stream) in the
@@ -59,17 +59,44 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+# callables that fold completed graph launches into the counts
+# (kernels/loop_graph.py): a kernel captured into a graph launches when
+# the graph runs, not when its wrapper is called
+_settlers: list = []
+
+
+def register_settle(fn) -> None:
+    _settlers.append(fn)
+
+
+def _settle() -> None:
+    for fn in _settlers:
+        fn()
+
+
 @dataclasses.dataclass
 class Kernel:
     """One hand-written kernel: where it lives, what it replaces, and
-    how many times its wrapper has launched it. ``launches`` is bumped
-    only where the wrapper launches the CUDA kernel, never on the plain
-    (CPU) path."""
+    how many times it has been launched. ``launches`` is bumped only
+    where the wrapper launches the CUDA kernel, never on the plain (CPU)
+    path, and by the auction loop's graph for the runs of the kernels
+    captured into it (``count`` holds what is settled; reading or
+    setting ``launches`` settles the completed graph runs first)."""
 
     name: str
     source: str      # path in the repository
     replaces: str    # file:line of the reference's device program
-    launches: int = 0
+    count: int = 0
+
+    @property
+    def launches(self) -> int:
+        _settle()
+        return self.count
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        _settle()
+        self.count = n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,7 +198,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "row_options_occupancy": occupancy,
         },
         "bid_pass": {
-            "bid_pass_launch": [P] * 5 + [I] * 9 + [P] * 5 + [P],
+            "bid_pass_launch": [P] * 6 + [I] * 8 + [P] * 5 + [P],
             "bid_pass_occupancy": occupancy,
         },
         "express_rows": {
@@ -212,6 +239,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "seat_sort_setup": [ctypes.POINTER(I)],
             "seat_sort_launch": [P] * 8 + [I] * 15 + [P] * 3,
             "seat_compact_launch": [P] + [I] * 4 + [P] * 3,
+        },
+        "loop_graph": {
+            "loop_graph_build": [P] * 9 + [P, P],
+            "loop_graph_launch": [P, P],
+            "loop_graph_destroy": [P, P],
+            "loop_ctl_launch": [I] + [P] * 7,
         },
     }[_builds()[name][0]]
     for fn_name, argtypes in sigs.items():

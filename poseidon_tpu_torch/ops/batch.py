@@ -43,6 +43,7 @@ from poseidon_tpu_torch.ops.dense_auction import (
     I32,
     I64,
     DenseInstance,
+    TableSlots,
     _densify,
     _solve,
     build_dense_instance,
@@ -80,7 +81,7 @@ def _solve_variant(c, u, w, dg, cm, b: int, s, task_valid, scale: int, *,
                    syncs: SyncCounter | None = None):
     """Variant ``b``'s full certified solve (analytic cold start, the
     eps ladder) and exact objective, over the stacked tables. Returns
-    device (cost, converged, asg) and the rounds as a host int."""
+    device (cost, converged, asg, rounds)."""
     c1, u1 = c[b], u[b]
     dev = DenseInstance(
         c=c1, u=u1, w=w[b], dgen=dg[b], s=s, task_valid=task_valid,
@@ -157,17 +158,18 @@ def solve_what_if(
         h = fetches.read(torch.cat([
             torch.stack([o[0] for o in outs]),
             torch.stack([o[1] for o in outs]).to(I64),
+            torch.stack([o[3] for o in outs]).to(I64),
             torch.stack([o[2] for o in outs]).to(I64).reshape(-1),
         ]))
     B = n_variants
     T = inst.n_tasks
-    asg = h[2 * B:].reshape(B, Tp).astype(np.int32)
+    asg = h[3 * B:].reshape(B, Tp).astype(np.int32)
     # scaled costs: every per-task term is a multiple of scale
     return BatchResult(
         costs=h[:B].astype(np.int64) // (T + 1),
         converged=h[B: 2 * B].astype(bool),
         assignments=_host_assignments(asg, T, inst.n_machines),
-        rounds=np.asarray([o[3] for o in outs], np.int32),
+        rounds=h[2 * B: 3 * B].astype(np.int32),
     )
 
 
@@ -233,21 +235,27 @@ def _solve_member(
     max_rounds: int,
     warm_start: bool,
     syncs: SyncCounter | None = None,
+    tables: TableSlots | None = None,
 ):
     """Bucket member ``b``'s full certified solve over the stacked
-    channel tables: K1 densifies the member's contiguous slice, then the
+    channel tables: K1 densifies the member's contiguous slice (into a
+    slot of ``tables`` on the card: one address, one loop graph, for
+    every member of the bucket), then the
     unchanged ``_solve`` (warm: the eps=1 settle from the tenant's last
     state; cold: the analytic ladder, as its solo solve) and the exact
     scaled objective. Returns device (cost, converged, asg, lvl, floor,
-    gap) and host (rounds, phases)."""
+    gap) and (rounds, phases), int32 0-d device tensors."""
     def one(k):
         return stacked[k][b]
 
     u1, w1 = one("u"), one("w")
     d1, s1 = one("d"), one("slots")
     tv1 = one("task_valid")
+    Tp, Mp = u1.shape[0], d1.shape[0]
     c1 = _densify(w1, d1, one("ra"), one("rack_of"), s1, one("pc"),
-                  one("pm"), one("pr"), n_prefs=n_prefs)
+                  one("pm"), one("pr"), n_prefs=n_prefs,
+                  out=None if tables is None else tables.get(
+                      u1.device, (Tp, Mp)))
     dev = DenseInstance(
         c=c1, u=u1, w=w1, dgen=d1, s=s1, task_valid=tv1,
         scale=int(stacked["scale"][b]), cmax=one("cmax"), smax=smax,
@@ -324,9 +332,10 @@ def solve_heterogeneous(
         h = fetches.read(torch.cat([
             torch.stack([o[0][0] for o in outs]),
             torch.stack([o[0][1] for o in outs]).to(I64),
+            torch.stack([o[1][0] for o in outs]).to(I64),
             torch.stack([o[0][2] for o in outs]).to(I64).reshape(-1),
         ]))
-    asg_all = h[2 * B:].reshape(B, Tp)
+    asg_all = h[3 * B:].reshape(B, Tp)
     Tmax = max(i.n_tasks for i in instances)
     asg_out = np.full((B, Tmax), -1, np.int32)
     costs = np.zeros(B, np.int64)
@@ -338,5 +347,5 @@ def solve_heterogeneous(
         costs=costs,
         converged=h[B: 2 * B].astype(bool),
         assignments=asg_out,
-        rounds=np.asarray([o[1][0] for o in outs], np.int32),
+        rounds=h[2 * B: 3 * B].astype(np.int32),
     )

@@ -36,16 +36,22 @@ stay; the certificate's table pass is K8 ``gap_rows``, once per shard.
 A plain tensor takes exactly the code path it took before the mesh.
 
 Control flow. The reference runs the whole loop as one
-``lax.while_loop`` on the device. Here the loop runs on the host and
-reads its branch flags from the device, through a ``SyncCounter``:
+``lax.while_loop`` on the device, and so does the port on the card: the
+loop's five bodies (``_Loop``: head, round, phase-shift check, refight,
+tighten) are captured once per solve shape and table address into one
+CUDA graph (``kernels/loop_graph.py``) whose WHILE and IF nodes K14
+``loop_ctl`` sets on the device. A solve copies its start into the
+graph's buffers, launches it once and reads nothing until the caller's
+result fetch; eps, rounds, phases, done, the fuse and alpha are device
+tensors. On CPU tensors (and for a row-block table over several
+devices) the same bodies run under the host loop, which reads its
+branch flags through a ``SyncCounter``:
 
-- every iteration reads one small tensor at its top: whether any task
-  is waiting and, after a ``tighten`` step, whether the solve is done;
+- every iteration reads whether the solve is done and whether any task
+  is waiting;
 - an iteration that finds everyone seated (a phase boundary) reads one
   more flag, whether any standing assignment violates eps-CS, to choose
-  between ``refight`` and ``tighten``;
-- ``tighten``'s forced-reserve branch is computed without a read: when
-  the force does not apply, its violator set equals the unforced one.
+  between ``refight`` and ``tighten``.
 
 ``rounds`` advances on every run-round, refight and tighten step and
 ``phases`` on every tighten, exactly as in the reference; the fuse
@@ -54,14 +60,19 @@ reads its branch flags from the device, through a ``SyncCounter``:
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import os
+import sys
+import threading
+import time
 
 import numpy as np
 import torch
 
 from poseidon_tpu_torch.graph.network import pad_bucket
-from poseidon_tpu_torch.guards import GuardError, SyncCounter
+from poseidon_tpu_torch.guards import GuardError, SyncCounter, census
 from poseidon_tpu_torch.kernels.bid_pass import bid_pass
 from poseidon_tpu_torch.kernels.densify import densify
 from poseidon_tpu_torch.kernels.gap_rows import gap_rows
@@ -265,8 +276,8 @@ class DenseState:
     floor: torch.Tensor       # i32[Mp] machine reserve price
     gap: torch.Tensor         # i64 scalar: primal - dual (scaled)
     converged: torch.Tensor   # bool scalar
-    rounds: int
-    phases: int
+    rounds: torch.Tensor      # i32 scalar
+    phases: torch.Tensor      # i32 scalar
 
 
 def _sc(x: np.ndarray, scale: np.int64) -> np.ndarray:
@@ -441,10 +452,11 @@ def table_gather(c, col: torch.Tensor) -> torch.Tensor:
     ], c.device)
 
 
-def table_bid_pass(c, p, u, btask, bvalid, eps: int):
-    """K3 over the bid window. Under a mesh each shard takes the window
-    entries whose task it owns (the others masked invalid, btask made
-    relative to the shard) and the owners' outputs are merged."""
+def table_bid_pass(c, p, u, btask, bvalid, eps: torch.Tensor):
+    """K3 over the bid window (``eps`` an int32 0-d tensor). Under a
+    mesh each shard takes the window entries whose task it owns (the
+    others masked invalid, btask made relative to the shard) and the
+    owners' outputs are merged."""
     if not isinstance(c, RowBlocks):
         return bid_pass(c, p, u, btask, bvalid, eps)
     out = None
@@ -453,7 +465,7 @@ def table_bid_pass(c, p, u, btask, bvalid, eps: int):
         res = bid_pass(
             b, to_dev(p, d), rows_of(u, r0, r1, d),
             to_dev(torch.where(own, btask - r0, 0), d),
-            to_dev(bvalid & own, d), eps, task0=r0,
+            to_dev(bvalid & own, d), to_dev(eps, d), task0=r0,
         )
         res = [to_dev(x, c.device) for x in res]
         out = res if out is None else [
@@ -590,6 +602,536 @@ def _theta_clearing(dev: DenseInstance):
     return asg0, lvl0, lam, theta
 
 
+@dataclasses.dataclass
+class LoopState:
+    """The auction loop's carry (the reference's ``while_loop`` carry)
+    and its scalar inputs, all tensors on the solve's device: the
+    machine-sorted seat layout, the reserves, eps and the counters."""
+
+    sm: torch.Tensor          # i32[Tp] segment by position
+    slvl: torch.Tensor        # i32[Tp] level by position
+    st: torch.Tensor          # i32[Tp] task by position
+    floor: torch.Tensor       # i32[Mp] machine reserve price
+    eps: torch.Tensor         # i32 0-d
+    rounds: torch.Tensor      # i32 0-d
+    phases: torch.Tensor      # i32 0-d
+    done: torch.Tensor        # bool 0-d
+    hist: torch.Tensor        # i32[128]
+    max_rounds: torch.Tensor  # i32 0-d
+    alpha: torch.Tensor       # i32 0-d
+
+
+class _Loop:
+    """The loop of one solve shape: its geometry, its state and its five
+    bodies. ``head`` lays out the carry and asks whether anyone waits;
+    ``run_round`` is one auction round; ``pre`` is the phase shift's
+    violator check; ``refight`` and ``tighten`` are its two outcomes.
+    Each body reads the state and writes it in place, with no host read
+    and no Python branch on data, so one code runs under the host loop
+    (CPU tensors) and inside the loop's CUDA graph. Tensors a body
+    leaves for a later one (the layout, the flags, the phase shift's
+    asks and violators) are attributes.
+
+    With ``static`` the instance's u, s and task_valid are the loop's own
+    buffers, filled by ``load`` (a graph reads its inputs at fixed
+    addresses; the table is read where it lies)."""
+
+    def __init__(self, dev: DenseInstance, smax: int, collect_hist: bool,
+                 static: bool = False):
+        c = dev.c
+        Tp, Mp = c.shape
+        device = c.device
+        if static:
+            dev = dataclasses.replace(
+                dev, u=torch.empty_like(dev.u), s=torch.empty_like(dev.s),
+                task_valid=torch.empty_like(dev.task_valid))
+        self.dev = dev
+        self.static = static
+        self.smax = smax
+        self.collect_hist = collect_hist
+        self.Tp, self.Mp = Tp, Mp
+        self.UNS = Mp            # segment for unscheduled tasks
+        self.WAIT = Mp + 1       # for unassigned tasks awaiting a bid slot
+        self.DUMP = Mp + 2       # for non-participants (padding tasks)
+        self.NSEG = Mp + 3
+        self.B = min(Tp, max(1024, Tp // 4))   # bid-window width
+        # the sort keys' domains (K13 packs each key into these bits):
+        # the segment, the task id (tids and the carried st are
+        # permutations of it); the negated level takes the whole range
+        self.SEG, self.TASK = (0, self.NSEG - 1), (0, Tp - 1)
+        self.tids = torch.arange(Tp, dtype=I32, device=device)
+        self.seg_ids = torch.arange(self.NSEG + 1, dtype=I32, device=device)
+        self.s_pos = dev.s > 0
+        self.k_uns, self.k_wait, self.k_dump, self.k_neg1 = (
+            _i32(x, device) for x in (self.UNS, self.WAIT, self.DUMP, -1))
+        self.one = torch.ones(1, dtype=I32, device=device)
+        z = torch.zeros((), dtype=I32, device=device)
+        self.S = LoopState(
+            sm=torch.empty(Tp, dtype=I32, device=device),
+            slvl=torch.empty(Tp, dtype=I32, device=device),
+            st=torch.empty(Tp, dtype=I32, device=device),
+            floor=torch.empty(Mp, dtype=I32, device=device),
+            eps=z.clone(), rounds=z.clone(), phases=z.clone(),
+            done=torch.zeros((), dtype=torch.bool, device=device),
+            hist=torch.zeros(128, dtype=I32, device=device),
+            max_rounds=z.clone(), alpha=z.clone(),
+        )
+
+    # ---- the reference's helpers --------------------------------------
+
+    def to_sorted(self, asg, lvl):
+        Mp = self.Mp
+        on_m = (asg >= 0) & (asg < Mp)
+        km = torch.where(
+            on_m, asg,
+            torch.where(asg == self.UNS, self.k_uns,
+                        torch.where(self.dev.task_valid, self.k_wait,
+                                    self.k_dump)),
+        )
+        kl = torch.where(on_m & (km < Mp), lvl, 0)
+        sm, snl, st = seat_sort((km, -kl, self.tids),
+                                (self.SEG, INT32, self.TASK))
+        return sm, -snl, st
+
+    def layout(self, sm):
+        Mp, s = self.Mp, self.dev.s
+        bnd = torch.searchsorted(sm, self.seg_ids, out_int32=True)
+        segsz = bnd[1: Mp + 1] - bnd[:Mp]
+        occ = torch.minimum(segsz, s)
+        full = segsz >= s
+        rank = self.tids - bnd[torch.clamp(sm, max=self.NSEG - 1).long()]
+        in_m = sm < Mp
+        seated = in_m & (rank < s[torch.clamp(sm, max=Mp - 1).long()])
+        waiting = (in_m & ~seated) | (sm == self.WAIT)
+        return bnd, occ, full, seated, waiting
+
+    def to_task(self, sm, slvl, st, seated):
+        Tp, device = self.Tp, sm.device
+        val = torch.where(
+            seated, sm,
+            torch.where((sm == self.UNS) | (sm == self.DUMP), self.k_uns,
+                        self.k_neg1),
+        )
+        asg = torch.zeros(Tp, dtype=I32, device=device)
+        asg[st.long()] = val
+        lvl = torch.zeros(Tp, dtype=I32, device=device)
+        lvl[st.long()] = torch.where(seated, slvl, 0)
+        return asg, lvl
+
+    def ask(self, slvl, bnd, occ, full, floor):
+        last = torch.clamp(bnd[:self.Mp] + occ - 1, 0, self.Tp - 1)
+        minlvl = torch.where(occ > 0, slvl[last.long()], INF)
+        p = torch.where(full, torch.clamp(minlvl, max=INF), floor)
+        return torch.where(self.s_pos, p, INF)
+
+    def _scatter_window(self, base, bpos, vals):
+        """``base.at[bpos].set(vals, mode="drop")``: window positions are
+        distinct, and the fill position Tp lands in a spare slot that is
+        cut off again."""
+        ext = torch.cat([base, base.new_zeros(1)])
+        ext[bpos.long()] = vals.to(base.dtype)
+        return ext[:self.Tp]
+
+    def auction_round(self, lay):
+        S, Tp = self.S, self.Tp
+        sm, slvl, st = S.sm, S.slvl, S.st
+        bnd, occ, full, seated, waiting = lay
+        p = self.ask(slvl, bnd, occ, full, S.floor)
+        # compact the (few) unassigned tasks into the bid window; any
+        # overflow waits in the WAIT segment
+        bpos = seat_compact(waiting, self.B)
+        bvalid = bpos < Tp
+        btask = st[torch.clamp(bpos, max=Tp - 1).long()]
+        m1, _b1v, _v2, take_uns, beta = table_bid_pass(
+            self.dev.c, p, self.dev.u, btask, bvalid, S.eps
+        )
+        bids = bvalid & ~take_uns
+        # new keys per position: holders keep their seats, everyone
+        # else parks in WAIT unless this window gave them a bid
+        new_km = torch.where(
+            seated, sm,
+            torch.where(sm == self.UNS, self.k_uns,
+                        torch.where(sm == self.DUMP, self.k_dump,
+                                    self.k_wait)),
+        )
+        new_kl = torch.where(seated, slvl, 0)
+        upd_km = torch.where(take_uns, self.k_uns,
+                             torch.where(bids, m1, self.k_wait))
+        upd_kl = torch.where(bids, beta, 0)
+        new_km = self._scatter_window(new_km, bpos, upd_km)
+        new_kl = self._scatter_window(new_kl, bpos, upd_kl)
+        # holders outrank bidders at equal level
+        is_bid = self._scatter_window(
+            torch.zeros(Tp, dtype=I32, device=sm.device), bpos, bids.to(I32)
+        )
+        sm2, snl2, _isb, st2 = seat_sort(
+            (new_km, -new_kl, is_bid, st),
+            (self.SEG, INT32, (0, 1), self.TASK))
+        return sm2, -snl2, st2
+
+    def violators(self, asg, p, eps):
+        """Standing assignments more than eps worse than the task's best
+        option at the ask prices."""
+        dev, Mp = self.dev, self.Mp
+        b1v, _, _ = _task_options(dev, p)
+        b1 = torch.minimum(b1v, dev.u)
+        on_machine = (asg >= 0) & (asg < Mp)
+        asg_safe = torch.clamp(asg, 0, Mp - 1).long()
+        pa = p[asg_safe]
+        cur = torch.where(
+            on_machine,
+            torch.clamp(
+                table_gather(dev.c, asg_safe).to(I64)
+                + torch.where(pa >= INF, 0, pa).to(I64),
+                max=INF,
+            ).to(I32),
+            torch.where(asg == self.UNS, dev.u, INF),
+        )
+        return dev.task_valid & (asg >= 0) & (cur > b1 + eps)
+
+    def deflate(self, p, full, floor, eps):
+        """Reverse-auction step for FREE machines: the reserve falls to
+        the s_m-th highest willingness-to-pay, minus eps + 1."""
+        dev = self.dev
+        b1v, m1, v2 = _task_options(dev, p)
+        alt1 = torch.minimum(b1v, dev.u)
+        alt2 = torch.minimum(v2, dev.u)
+        clear = table_top_willingness(dev.c, alt1, alt2, m1,
+                                      dev.task_valid, dev.s, self.smax)
+        return torch.minimum(
+            torch.where(full, torch.minimum(floor, p), floor),
+            torch.clamp(clear - eps - 1, 0, INF),
+        )
+
+    def release(self, viol):
+        """Re-sort the carry with violators (a task-space mask) sent to
+        WAIT, into the state."""
+        S = self.S
+        viol_pos = viol[S.st.long()]
+        km = torch.where(viol_pos, self.k_wait, S.sm)
+        kl = torch.where(viol_pos, 0, S.slvl)
+        s2, nl2, t2 = seat_sort((km, -kl, S.st),
+                                (self.SEG, INT32, self.TASK))
+        self._store(s2, -nl2, t2)
+
+    def _store(self, sm, slvl, st):
+        self.S.sm.copy_(sm)
+        self.S.slvl.copy_(slvl)
+        self.S.st.copy_(st)
+
+    def _hist_add(self, row: int, value) -> None:
+        """hist[min(phases, 31) + row] += value."""
+        h = torch.clamp(self.S.phases, max=31).reshape(1).long() + row
+        self.S.hist.index_add_(0, h, value.reshape(1))
+
+    # ---- the state ----------------------------------------------------
+
+    def load(self, dev: DenseInstance, asg0, lvl0, floor0, eps0,
+             alpha: int, max_rounds: int) -> None:
+        """The solve's start: a static loop takes the instance's vectors
+        into its buffers; the carry is laid out from (asg0, lvl0) (a warm
+        state may carry more holders on a machine than its, possibly
+        shrunk, capacity allows; the sorted layout trims it). ``eps0`` is
+        an int or an int32 0-d tensor, copied without a read."""
+        S = self.S
+        if self.static:
+            self.dev.u.copy_(dev.u)
+            self.dev.s.copy_(dev.s)
+            self.dev.task_valid.copy_(dev.task_valid)
+            torch.gt(self.dev.s, 0, out=self.s_pos)
+        self._store(*self.to_sorted(asg0, lvl0))
+        S.floor.copy_(floor0)
+        if isinstance(eps0, torch.Tensor):
+            S.eps.copy_(eps0)
+        else:
+            S.eps.fill_(int(eps0))
+        S.rounds.zero_()
+        S.phases.zero_()
+        S.done.zero_()
+        S.hist.zero_()
+        S.max_rounds.fill_(int(max_rounds))
+        S.alpha.fill_(int(alpha))
+
+    # ---- the five bodies ---------------------------------------------
+
+    def head(self) -> None:
+        self.lay = self.layout(self.S.sm)
+        self.any_waiting = self.lay[4].any()
+
+    def run_round(self) -> None:
+        if self.collect_hist:
+            self._hist_add(0, self.one)
+            self._hist_add(96, self.lay[4].sum(dtype=I32))
+        self._store(*self.auction_round(self.lay))
+        self.S.rounds.add_(1)
+
+    def pre(self) -> None:
+        S = self.S
+        bnd, occ, full, seated, _waiting = self.lay
+        # task-space asg for the violator check; the re-sorted carry is
+        # rebuilt from position-space releases
+        val = torch.where(seated, S.sm,
+                          torch.where(S.sm >= self.UNS, self.k_uns,
+                                      self.k_neg1))
+        asg = torch.zeros(self.Tp, dtype=I32, device=val.device)
+        asg[S.st.long()] = val
+        self.asg = asg
+        self.p_now = self.ask(S.slvl, bnd, occ, full, S.floor)
+        self.viol_now = self.violators(asg, self.p_now, S.eps)
+        self.any_now = self.viol_now.any()
+
+    def refight(self) -> None:
+        """Release the violators at the current eps."""
+        if self.collect_hist:
+            self._hist_add(32, self.viol_now.sum(dtype=I32))
+        self.release(self.viol_now)
+        self.S.rounds.add_(1)
+
+    def tighten(self) -> None:
+        """Deflate free-machine reserves, shrink eps (or finish at eps ==
+        1), release the violators the tighter tolerance exposes; at the
+        eps = 1 fixpoint a remaining positive reserve on a free machine
+        is forced to 0."""
+        S = self.S
+        bnd, occ, full, _seated, _waiting = self.lay
+        next_eps = torch.clamp(
+            torch.div(S.eps, S.alpha, rounding_mode="floor"), min=1)
+        at_floor = S.eps <= 1
+        eps_chk = torch.where(at_floor, S.eps, next_eps)
+        f0 = self.deflate(self.p_now, full, S.floor, eps_chk)
+        viol = self.violators(
+            self.asg, self.ask(S.slvl, bnd, occ, full, f0), eps_chk)
+        stranded = ~full & self.s_pos & (f0 > 0)
+        force = at_floor & ~viol.any() & stranded.any()
+        f1 = torch.where(force & stranded, 0, f0)
+        # the reference's inner cond: the check at the forced reserves,
+        # which are f0 itself (so the set is viol) when the force is off
+        viol2 = self.violators(
+            self.asg, self.ask(S.slvl, bnd, occ, full, f1), eps_chk)
+        done = at_floor & ~viol2.any() & ~(
+            ~full & self.s_pos & (f1 > 0)).any()
+        if self.collect_hist:
+            self._hist_add(64, viol2.sum(dtype=I32))
+        self.release(viol2)
+        S.floor.copy_(f1)
+        S.eps.copy_(next_eps)
+        S.done.copy_(done)
+        S.rounds.add_(1)
+        S.phases.add_(1)
+
+    def bodies(self) -> dict:
+        return {"head": self.head, "round": self.run_round,
+                "pre": self.pre, "refight": self.refight,
+                "tighten": self.tighten}
+
+
+def _host_loop(loop: _Loop, max_rounds: int, syncs: SyncCounter,
+               trace: list | None = None) -> None:
+    """The loop on the host (the plain version, CPU tensors): one read an
+    iteration of whether the solve is done and whether anyone waits, and
+    at a phase shift one more, whether any assignment violates eps-CS.
+    Every iteration is one round, so the fuse is the iteration count.
+    ``trace`` receives each iteration's flags and branch."""
+    S = loop.S
+    for it in range(max_rounds):
+        loop.head()
+        done, any_waiting = (bool(x) for x in syncs.read(
+            torch.stack([S.done, loop.any_waiting])))
+        if done:
+            if trace is not None:
+                trace.append((it, any_waiting, True, None, "exit"))
+            return
+        if any_waiting:
+            loop.run_round()
+            branch, any_now = "round", None
+        else:
+            loop.pre()
+            any_now = bool(syncs.read(loop.any_now))
+            branch = "refight" if any_now else "tighten"
+            loop.refight() if any_now else loop.tighten()
+        if trace is not None:
+            trace.append((it, any_waiting, False, any_now, branch))
+
+
+# ---------------------------------------------------------------------------
+# the loop as one CUDA graph a solve (the card)
+# ---------------------------------------------------------------------------
+
+GRAPH_CACHE_SIZE = 96        # loop graphs kept (LRU): one per table address
+
+
+@dataclasses.dataclass
+class _GraphEntry:
+    """One captured loop: the static loop (never run eagerly again: its
+    attributes hold the tensors the captured bodies pass between them)
+    and its graph. ``free`` is recorded once a solve's certificate has
+    read the state; the next solve's stream waits for it."""
+
+    loop: _Loop
+    graph: object
+    lock: threading.Lock
+    free: torch.cuda.Event
+    device: torch.device
+    stream: object = None
+
+    def run(self, start: tuple) -> None:
+        """One solve's loop (the entry's lock held): on the current
+        stream, after the previous solve's certificate has read the
+        state, load the start and launch the graph."""
+        self.stream = torch.cuda.current_stream(self.device)
+        self.stream.wait_event(self.free)
+        self.loop.load(*start)
+        self.graph.launch()
+
+    def release(self) -> None:
+        """The certificate has been enqueued: the state is free."""
+        self.free.record(self.stream)
+
+
+class TableSlots:
+    """Dense tables on the card at fixed addresses, reused from solve to
+    solve by one owner (a resident solver, a service dispatcher): the
+    loop's graph reads its table where it lies, so a table that keeps
+    its address keeps its graph (no capture), and K1 writes each solve's
+    table in place (no copy). A slot is handed out again only once
+    nothing but the slots holds it (its reference count: the express
+    context, a round or stream batch in flight and any view keep theirs),
+    else another slot is made. Past ``SHAPES`` shapes the free slots of
+    the least recently used let go. CPU tables take no slot."""
+
+    SHAPES = 8
+
+    def __init__(self) -> None:
+        self._slots: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, device, shape: tuple, part: int = 0):
+        """A free [rows, Mp] int32 table on ``device`` (None on the
+        CPU); ``part`` tells a mesh's row blocks apart."""
+        device = torch.device(device)
+        if device.type == "cpu":
+            return None
+        key = (device, tuple(shape), part)
+        with self._lock:
+            slots = self._slots.setdefault(key, [])
+            self._slots.move_to_end(key)
+            for k in list(self._slots)[:-self.SHAPES]:
+                kept = [t for t in self._slots[k] if sys.getrefcount(t) > 3]
+                if kept:
+                    self._slots[k] = kept
+                else:
+                    del self._slots[k]
+            for t in slots:
+                # the list, the loop variable and getrefcount's argument
+                if sys.getrefcount(t) == 3:
+                    return t
+            t = torch.empty(shape, dtype=I32, device=device)
+            slots.append(t)
+            return t
+
+
+class CaptureLog:
+    """The loop graphs' captures: how many there were (``total``) and
+    the last 4,096 as (Tp, Mp, smax, layout, collect_hist, ms)."""
+
+    def __init__(self) -> None:
+        self.total = 0
+        self._recent: collections.deque = collections.deque(maxlen=4096)
+
+    def add(self, row: tuple) -> None:
+        self.total += 1
+        self._recent.append(row)
+
+    def since(self, total: int) -> list:
+        """The captures made after the log stood at ``total``."""
+        n = self.total - total
+        return list(self._recent)[-n:] if n > 0 else []
+
+
+_graphs: collections.OrderedDict = collections.OrderedDict()
+_graphs_lock = threading.Lock()
+_warmed: set = set()
+CAPTURES = CaptureLog()
+
+
+def graph_key(dev: DenseInstance, smax: int, collect_hist: bool) -> tuple:
+    """The loop graph's cache key: the device, Tp, Mp, the bid window,
+    smax, the table's layout and address(es), collect_hist. The fuse,
+    alpha and eps0 are device inputs, so they are not in it; nor are u,
+    s and task_valid, which the solve copies into the graph's buffers."""
+    c = dev.c
+    Tp, Mp = c.shape
+    if isinstance(c, RowBlocks):
+        layout = ("rows", tuple(tuple(b) for b in c.bounds))
+        addr = tuple(b.data_ptr() for b in c.blocks)
+    else:
+        layout = ("table",)
+        addr = (c.data_ptr(),)
+    return (c.device, Tp, Mp, min(Tp, max(1024, Tp // 4)), smax, layout,
+            addr, collect_hist)
+
+
+def uses_graph(c) -> bool:
+    """Whether a solve over table ``c`` runs its loop as the graph: a
+    table on one CUDA device (a plain tensor, or row blocks all on one
+    card). Row blocks over several devices keep the host loop."""
+    if isinstance(c, RowBlocks):
+        return len({b.device for b in c.blocks}) == 1 \
+            and c.blocks[0].device.type == "cuda"
+    return c.device.type == "cuda"
+
+
+def _graph_entry(dev: DenseInstance, smax: int, collect_hist: bool,
+                 start: tuple) -> _GraphEntry:
+    """The cached graph of this solve's key, or a new capture: the static
+    loop is loaded with ``start`` (dev, asg0, lvl0, floor0, eps0, alpha,
+    max_rounds), every body runs once eagerly at a shape not seen before
+    (kernel builds, launch plans, occupancy queries), then the bodies
+    are captured and the graph is built. A failure raises. The entry
+    comes back with its lock held (taken under the cache's lock, so an
+    eviction cannot close it first); the caller releases it."""
+    from poseidon_tpu_torch.kernels.loop_graph import LoopGraph
+
+    key = graph_key(dev, smax, collect_hist)
+    with _graphs_lock:
+        e = _graphs.get(key)
+        if e is not None:
+            _graphs.move_to_end(key)
+            e.lock.acquire()
+            return e
+        t0 = time.perf_counter()
+        device = key[0]
+        with torch.cuda.device(device):
+            loop = _Loop(dev, smax, collect_hist, static=True)
+            loop.load(*start)
+            shape = key[:6] + (collect_hist,)
+            if shape not in _warmed:
+                for body in ("head", "run_round", "pre", "refight", "head",
+                             "pre", "tighten"):
+                    getattr(loop, body)()
+                _warmed.add(shape)
+            S = loop.S
+            graph = LoopGraph(
+                device, loop.bodies(),
+                (lambda: loop.any_waiting, lambda: loop.any_now),
+                S.rounds, S.max_rounds, S.done)
+            # the graph reads the table by its address (in the key); the
+            # entry must not keep the tensor, or the table's slot could
+            # never be handed out again (TableSlots)
+            loop.dev = dataclasses.replace(loop.dev, c=None)
+        ms = (time.perf_counter() - t0) * 1e3
+        CAPTURES.add((key[1], key[2], smax, key[5], collect_hist, ms))
+        e = _GraphEntry(loop=loop, graph=graph, lock=threading.Lock(),
+                        free=torch.cuda.Event(), device=device)
+        e.lock.acquire()
+        _graphs[key] = e
+        while len(_graphs) > GRAPH_CACHE_SIZE:
+            _key, old = _graphs.popitem(last=False)
+            with old.lock:
+                old.graph.close()
+        return e
+
+
 def _solve(
     dev: DenseInstance,
     asg0: torch.Tensor,
@@ -602,253 +1144,58 @@ def _solve(
     analytic_init: bool = False,
     collect_hist: bool = False,
     syncs: SyncCounter | None = None,
+    trace: list | None = None,
+    host_loop: bool = False,
 ):
     """The auction loop over the machine-sorted seat layout.
 
-    ``eps0`` is an int or a 0-d tensor (read once, counted, when it is a
-    tensor and the analytic init does not replace it). ``syncs`` counts
-    the loop's host reads. Returns ``(asg, lvl, floor, gap, converged,
-    rounds, phases, hist)`` like the reference, with ``rounds`` and
-    ``phases`` as Python ints.
+    ``eps0`` is an int or a 0-d int32 tensor (never read on the host).
+    On a table on one CUDA device the loop runs as one CUDA graph
+    (``kernels/loop_graph.py``) and the host reads nothing; elsewhere
+    the host loop runs it, its reads counted by ``syncs`` (and its
+    iterations recorded in ``trace``). ``host_loop`` runs the host loop
+    on the card too: the plain version the graph is held against
+    (``chip_smoke.py`` [loop]); no entry point passes it. Returns
+    ``(asg, lvl, floor, gap, converged, rounds, phases, hist)`` like the
+    reference, ``rounds`` and ``phases`` as int32 0-d tensors (read with
+    the caller's fetch).
     """
     syncs = syncs if syncs is not None else SyncCounter()
-    c, s, u, task_valid = dev.c, dev.s, dev.u, dev.task_valid
-    Tp, Mp = c.shape
-    device = c.device
-    UNS = Mp           # segment for unscheduled tasks
-    WAIT = Mp + 1      # segment for unassigned tasks awaiting a bid slot
-    DUMP = Mp + 2      # segment for non-participants (padding tasks)
-    NSEG = Mp + 3
-    B = min(Tp, max(1024, Tp // 4))   # bid-window width
-    # the sort keys' domains (K13 packs each key into these bits): the
-    # segment, the task id (tids and the carried st are permutations of
-    # it), the negated level takes the whole int32 range
-    SEG, TASK = (0, NSEG - 1), (0, Tp - 1)
-    tids = torch.arange(Tp, dtype=I32, device=device)
-    pos = tids
-    seg_ids = torch.arange(NSEG + 1, dtype=I32, device=device)
-    s_pos = s > 0
-
-    def to_sorted(asg, lvl):
-        on_m = (asg >= 0) & (asg < Mp)
-        km = torch.where(
-            on_m, asg,
-            torch.where(asg == UNS, _i32(UNS, device),
-                        torch.where(task_valid, _i32(WAIT, device),
-                                    _i32(DUMP, device))),
-        )
-        kl = torch.where(on_m & (km < Mp), lvl, 0)
-        sm, snl, st = seat_sort((km, -kl, tids), (SEG, INT32, TASK))
-        return sm, -snl, st
-
-    def layout(sm):
-        bnd = torch.searchsorted(sm, seg_ids, out_int32=True)
-        segsz = bnd[1: Mp + 1] - bnd[:Mp]
-        occ = torch.minimum(segsz, s)
-        full = segsz >= s
-        rank = pos - bnd[torch.clamp(sm, max=NSEG - 1).long()]
-        in_m = sm < Mp
-        seated = in_m & (rank < s[torch.clamp(sm, max=Mp - 1).long()])
-        waiting = (in_m & ~seated) | (sm == WAIT)
-        return bnd, occ, full, seated, waiting
-
-    def to_task(sm, slvl, st, seated):
-        val = torch.where(
-            seated, sm,
-            torch.where((sm == UNS) | (sm == DUMP), _i32(UNS, device),
-                        _i32(-1, device)),
-        )
-        asg = torch.zeros(Tp, dtype=I32, device=device)
-        asg[st.long()] = val
-        lvl = torch.zeros(Tp, dtype=I32, device=device)
-        lvl[st.long()] = torch.where(seated, slvl, 0)
-        return asg, lvl
-
-    def ask_from_layout(slvl, bnd, occ, full, floor):
-        last = torch.clamp(bnd[:Mp] + occ - 1, 0, Tp - 1)
-        minlvl = torch.where(occ > 0, slvl[last.long()], INF)
-        p = torch.where(full, torch.clamp(minlvl, max=INF), floor)
-        return torch.where(s_pos, p, INF)
-
     if analytic_init:
-        asg0, lvl0, lam0, _theta = _theta_clearing(dev)
-        floor0 = lam0
-        eps = 1
-    elif isinstance(eps0, torch.Tensor):
-        eps = int(syncs.read(eps0))
-    else:
-        eps = int(eps0)
-
-    def scatter_window(base, bpos, vals):
-        """``base.at[bpos].set(vals, mode="drop")``: window positions are
-        distinct, and the fill position Tp lands in a spare slot that is
-        cut off again."""
-        ext = torch.cat([base, base.new_zeros(1)])
-        ext[bpos.long()] = vals.to(base.dtype)
-        return ext[:Tp]
-
-    def auction_round(sm, slvl, st, floor, eps, lay):
-        bnd, occ, full, seated, waiting = lay
-        p = ask_from_layout(slvl, bnd, occ, full, floor)
-        # compact the (few) unassigned tasks into the bid window; any
-        # overflow waits in the WAIT segment
-        bpos = seat_compact(waiting, B)
-        bvalid = bpos < Tp
-        btask = st[torch.clamp(bpos, max=Tp - 1).long()]
-        m1, _b1v, _v2, take_uns, beta = table_bid_pass(
-            c, p, u, btask, bvalid, eps
-        )
-        bids = bvalid & ~take_uns
-        # new keys per position: holders keep their seats, everyone
-        # else parks in WAIT unless this window gave them a bid
-        new_km = torch.where(
-            seated, sm,
-            torch.where(sm == UNS, _i32(UNS, device),
-                        torch.where(sm == DUMP, _i32(DUMP, device),
-                                    _i32(WAIT, device))),
-        )
-        new_kl = torch.where(seated, slvl, 0)
-        upd_km = torch.where(take_uns, _i32(UNS, device),
-                             torch.where(bids, m1, _i32(WAIT, device)))
-        upd_kl = torch.where(bids, beta, 0)
-        new_km = scatter_window(new_km, bpos, upd_km)
-        new_kl = scatter_window(new_kl, bpos, upd_kl)
-        # holders outrank bidders at equal level
-        is_bid = scatter_window(
-            torch.zeros(Tp, dtype=I32, device=device), bpos, bids.to(I32)
-        )
-        sm2, snl2, _isb, st2 = seat_sort(
-            (new_km, -new_kl, is_bid, st), (SEG, INT32, (0, 1), TASK))
-        return sm2, -snl2, st2
-
-    def violators(asg, p, eps):
-        """Standing assignments more than eps worse than the task's best
-        option at the ask prices."""
-        b1v, _, _ = _task_options(dev, p)
-        b1 = torch.minimum(b1v, u)
-        on_machine = (asg >= 0) & (asg < Mp)
-        asg_safe = torch.clamp(asg, 0, Mp - 1).long()
-        pa = p[asg_safe]
-        cur = torch.where(
-            on_machine,
-            torch.clamp(
-                table_gather(c, asg_safe).to(I64)
-                + torch.where(pa >= INF, 0, pa).to(I64),
-                max=INF,
-            ).to(I32),
-            torch.where(asg == UNS, u, INF),
-        )
-        return task_valid & (asg >= 0) & (cur > b1 + eps)
-
-    def deflate(p, full, floor, eps):
-        """Reverse-auction step for FREE machines: the reserve falls to
-        the s_m-th highest willingness-to-pay, minus eps + 1."""
-        b1v, m1, v2 = _task_options(dev, p)
-        alt1 = torch.minimum(b1v, u)
-        alt2 = torch.minimum(v2, u)
-        clear = table_top_willingness(c, alt1, alt2, m1, task_valid, s,
-                                      smax)
-        return torch.minimum(
-            torch.where(full, torch.minimum(floor, p), floor),
-            torch.clamp(clear - eps - 1, 0, INF),
-        )
-
-    def release(sm, slvl, st, viol):
-        """Re-sort the carry with violators (a task-space mask) sent to
-        WAIT."""
-        viol_pos = viol[st.long()]
-        km = torch.where(viol_pos, _i32(WAIT, device), sm)
-        kl = torch.where(viol_pos, 0, slvl)
-        s2, nl2, t2 = seat_sort((km, -kl, st), (SEG, INT32, TASK))
-        return s2, -nl2, t2
-
-    # a warm state may carry more holders on a machine than its
-    # (possibly shrunk) capacity allows; the sorted layout trims it
-    sm, slvl, st = to_sorted(asg0, lvl0)
-    floor = floor0
-    rounds = phases = 0
-    done = torch.zeros((), dtype=torch.bool, device=device)
-    maybe_done = False   # a tighten step ran since the last read
-    hist = torch.zeros(128, dtype=I32, device=device)
-    lay = None
-    while rounds < max_rounds:
-        lay = layout(sm)
-        seated, waiting = lay[3], lay[4]
-        any_waiting = waiting.any()
-        if maybe_done:
-            flags = syncs.read(torch.stack([done, any_waiting]))
-            if flags[0]:
-                break
-            any_unassigned = bool(flags[1])
-        else:
-            any_unassigned = bool(syncs.read(any_waiting))
-        maybe_done = False
-        h = min(phases, 31)
-        if any_unassigned:
-            if collect_hist:
-                hist[h] += 1
-                hist[h + 96] += waiting.sum(dtype=I32)
-            sm, slvl, st = auction_round(sm, slvl, st, floor, eps, lay)
-            rounds += 1
-        else:
-            bnd, occ, full = lay[0], lay[1], lay[2]
-            # task-space asg for the violator check; the re-sorted carry
-            # is rebuilt from position-space releases
-            val = torch.where(
-                seated, sm,
-                torch.where(sm >= UNS, _i32(UNS, device), _i32(-1, device)),
-            )
-            asg = torch.zeros(Tp, dtype=I32, device=device)
-            asg[st.long()] = val
-            p_now = ask_from_layout(slvl, bnd, occ, full, floor)
-            viol_now = violators(asg, p_now, eps)
-            if bool(syncs.read(viol_now.any())):
-                # refight: release the violators at the current eps
-                if collect_hist:
-                    hist[h + 32] += viol_now.sum(dtype=I32)
-                sm, slvl, st = release(sm, slvl, st, viol_now)
-                rounds += 1
+        asg0, lvl0, floor0, _theta = _theta_clearing(dev)
+        eps0 = 1
+    start = (dev, asg0, lvl0, floor0, eps0, alpha, max_rounds)
+    with contextlib.ExitStack() as held:
+        with census("loop.auction"):
+            if uses_graph(dev.c) and not host_loop:
+                entry = _graph_entry(dev, smax, collect_hist, start)
+                held.callback(entry.lock.release)
+                entry.run(start)
+                loop = entry.loop
             else:
-                # tighten: deflate free-machine reserves, shrink eps (or
-                # finish at eps == 1), release the violators the tighter
-                # tolerance exposes; at the eps = 1 fixpoint a remaining
-                # positive reserve on a free machine is forced to 0
-                next_eps = max(1, eps // alpha)
-                at_floor = eps <= 1
-                eps_chk = eps if at_floor else next_eps
-                f0 = deflate(p_now, full, floor, eps_chk)
-                viol = violators(
-                    asg, ask_from_layout(slvl, bnd, occ, full, f0), eps_chk
-                )
-                if at_floor:
-                    stranded = ~full & s_pos & (f0 > 0)
-                    force = ~viol.any() & stranded.any()
-                    f1 = torch.where(force & stranded, 0, f0)
-                    # with force off f1 == f0, so this is viol itself
-                    viol2 = violators(
-                        asg, ask_from_layout(slvl, bnd, occ, full, f1),
-                        eps_chk,
-                    )
-                    done = ~viol2.any() & ~(~full & s_pos & (f1 > 0)).any()
-                else:
-                    f1, viol2 = f0, viol
-                if collect_hist:
-                    hist[h + 64] += viol2.sum(dtype=I32)
-                sm, slvl, st = release(sm, slvl, st, viol2)
-                floor = f1
-                eps = next_eps
-                rounds += 1
-                phases += 1
-                maybe_done = at_floor
-        lay = None
-    if lay is None:
-        lay = layout(sm)
-    bnd_f, occ_f, full_f, seated_f, _waiting = lay
-    asg, lvl = to_task(sm, slvl, st, seated_f)
+                entry = None
+                loop = _Loop(dev, smax, collect_hist)
+                loop.load(*start)
+                _host_loop(loop, max_rounds, syncs, trace)
+        out = _certify(loop, dev)
+        if entry is not None:
+            entry.release()
+    return out
 
-    # exactness certificate: primal - dual at the ask prices, with
-    # lam = 0 on every non-full machine (complementary slackness)
-    lam = ask_from_layout(slvl, bnd_f, occ_f, full_f, floor)
+
+def _certify(loop: _Loop, dev: DenseInstance):
+    """The solve's outputs from the final state: the task-space
+    assignment and the exactness certificate, primal - dual at the ask
+    prices with lam = 0 on every non-full machine (complementary
+    slackness)."""
+    S = loop.S
+    c, s, u, task_valid = dev.c, dev.s, dev.u, dev.task_valid
+    Mp, UNS = loop.Mp, loop.UNS
+    s_pos = s > 0
+    bnd_f, occ_f, full_f, seated_f, _waiting = loop.layout(S.sm)
+    asg, lvl = loop.to_task(S.sm, S.slvl, S.st, seated_f)
+    floor = S.floor.clone()
+    lam = loop.ask(S.slvl, bnd_f, occ_f, full_f, floor)
     lam = torch.where(full_f & s_pos, lam, 0)
     price_mass = (s.to(I64) * lam.to(I64)).sum()
     if isinstance(c, RowBlocks):
@@ -867,8 +1214,9 @@ def _solve(
         b1_sum = torch.where(task_valid, b1, 0).to(I64).sum()
     dual = b1_sum - price_mass
     gap = primal - dual
-    converged = done & (gap >= 0) & (gap < dev.scale)
-    return asg, lvl, floor, gap, converged, rounds, phases, hist
+    converged = S.done & (gap >= 0) & (gap < dev.scale)
+    return (asg, lvl, floor, gap, converged, S.rounds.clone(),
+            S.phases.clone(), S.hist.clone())
 
 
 def cold_start(inst_dev: DenseInstance, alpha: int = 1024):
@@ -1026,7 +1374,8 @@ def solve_transport_dense(
         state = solve_dense(inst_dev, warm=warm, alpha=alpha,
                             max_rounds=max_rounds)
         got = SyncCounter().read(torch.cat([
-            state.asg[:T], state.converged.to(I32).reshape(1)]))
+            state.asg[:T], torch.stack([state.converged.to(I32),
+                                        state.rounds, state.phases])]))
     Mp = inst_dev.c.shape[1]
     asg = np.asarray(got[:T], np.int32)
     asg = np.where((asg >= 0) & (asg < Mp) & (asg < inst.n_machines),
@@ -1037,8 +1386,8 @@ def solve_transport_dense(
             assignment=asg,
             channel=ch,
             cost=_objective(inst, ch, asg),
-            rounds=int(state.rounds),
-            phases=int(state.phases),
+            rounds=int(got[T + 1]),
+            phases=int(got[T + 2]),
             converged=bool(got[T]),
         ),
         state,

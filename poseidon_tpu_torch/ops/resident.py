@@ -83,6 +83,7 @@ from poseidon_tpu_torch.ops.dense_auction import (
     DenseMemoryTooLarge,
     DenseState,
     RowBlocks,
+    TableSlots,
     _budget_need,
     _densify,
     _solve,
@@ -207,7 +208,7 @@ def pad_topology(
 
 
 def _redensify(dt: DenseTopology, cost: torch.Tensor, n_prefs: int,
-               smax: int, mesh=None):
+               smax: int, mesh=None, tables: TableSlots | None = None):
     """Gather the priced arc table into a scaled DenseInstance.
 
     Returns (DenseInstance, domain_ok, pc_scaled, ra_scaled). The domain
@@ -215,7 +216,8 @@ def _redensify(dt: DenseTopology, cost: torch.Tensor, n_prefs: int,
     device boolean read with the result. With a ``mesh`` the table is
     ``RowBlocks``: K1 runs once per shard over its rows of the
     task-major fields; the [Tp] and [Mp] vectors stay on the mesh's
-    first device.
+    first device. ``tables`` gives the card's table (or each block) a
+    slot at a fixed address, written in place by K1.
     """
     Tp = dt.arc_unsched.shape[0]
     device = cost.device
@@ -259,10 +261,16 @@ def _redensify(dt: DenseTopology, cost: torch.Tensor, n_prefs: int,
     task_valid = torch.arange(Tp, device=device) < dt.n_tasks
     u_s = torch.where(task_valid, u_s, 0)
 
+    Mp = d_s.shape[0]
+
+    def slot(rows, d, part=0):
+        return None if tables is None else tables.get(d, (rows, Mp), part)
+
     if mesh is None:
         c = _densify(
             w_s, d_s, ra_s, dt.rack_of, dt.slots, pc_s,
             dt.pref_machine, dt.pref_rack, n_prefs=n_prefs,
+            out=slot(Tp, device),
         )
     else:
         # the task-major operands by rows (the pref fields are in
@@ -274,8 +282,10 @@ def _redensify(dt: DenseTopology, cost: torch.Tensor, n_prefs: int,
                 rows_of(pc_s, r0, r1, d),
                 rows_of(dt.pref_machine, r0, r1, d),
                 rows_of(dt.pref_rack, r0, r1, d), n_prefs=n_prefs,
+                out=slot(r1 - r0, d, k),
             )
-            for (r0, r1), d in zip(mesh.rows(Tp), mesh.devices)
+            for k, ((r0, r1), d) in enumerate(zip(mesh.rows(Tp),
+                                                  mesh.devices))
         ]
         c = RowBlocks(blocks, mesh)
     dev = DenseInstance(
@@ -491,7 +501,7 @@ def _express_step(
     place, and so are its u, w and task_valid (the context's vectors have
     no other reader: a degraded batch drops the context); asg/lvl are
     not (``asg`` may be the warm state). ``rounds`` and ``phases`` come
-    back as Python ints; rows_out, asg_out, n_changes, primal and
+    back as int32 0-d tensors; rows_out, asg_out, n_changes, primal and
     n_active are views of the log row.
     """
     Tp, Mp = dev.c.shape
@@ -635,7 +645,7 @@ def _stream_chain(
     Returns ``(carry, log, rounds)``: carry = (c, u, w, s, valid, asg,
     lvl, floor, live), log an int64 [K, log_width(change_cap)] device
     tensor of the masked per-window logs (the flush's one fetch), rounds
-    the windows' repair rounds (host ints)."""
+    the windows' repair rounds (int32 0-d tensors)."""
     Tp, Mp = dev.c.shape
     device = dev.c.device
     c = dev.c
@@ -705,6 +715,10 @@ class _AsyncFetch:
         except BaseException as e:  # delivered to the joining thread
             self._exc = e
         finally:
+            # the closure may hold its owner (a round's InflightSolve
+            # holds this fetch): drop it, so the round's device tensors
+            # (its table slot among them) go with their last user
+            self._fn = None
             self._done.set()
 
     def result(self, timeout_s: float | None = None):
@@ -735,18 +749,20 @@ def _resident_chain(
     warm_start: bool,
     syncs: SyncCounter | None = None,
     mesh=None,
+    tables: TableSlots | None = None,
 ):
     """The whole resident round on the device: cost model → densify →
     auction → channel/objective finalize → decision stats. When
     ``warm_start`` is False the warm_* arguments are ignored. ``mesh``
-    lays the table out as row blocks (``_redensify``).
+    lays the table out as row blocks and ``tables`` keeps it at a fixed
+    address (``_redensify``).
 
     Returns the reference's 14-tuple: (asg, lvl, floor, gap, converged,
     rounds, phases, ch, primal, domain_ok, chosen, alt, cost, dev), with
-    ``rounds``/``phases`` as Python ints."""
+    ``rounds``/``phases`` as int32 0-d tensors."""
     cost = model_fn(inputs_dev)
     dev, domain_ok, pc_s, ra_s = _redensify(
-        dt, cost, n_prefs=n_prefs, smax=smax, mesh=mesh
+        dt, cost, n_prefs=n_prefs, smax=smax, mesh=mesh, tables=tables
     )
     if warm_start:
         asg, lvl, floor, gap, converged, rounds, phases, _ = _solve(
@@ -780,17 +796,21 @@ class _Fetched:
     converged: bool
     primal: int
     domain_ok: bool
+    rounds: int
+    phases: int
 
 
 def _fetch_result(fetches: SyncCounter, asg, ch, chosen, alt, lvl, floor,
-                  converged, primal, domain_ok) -> _Fetched:
+                  converged, primal, domain_ok, rounds, phases) -> _Fetched:
     """Pack every result array into one int64 buffer and bring it to the
-    host in ONE counted transfer."""
+    host in ONE counted transfer (the auction's rounds and phases, device
+    scalars, with them)."""
     Tp, Mp = asg.shape[0], floor.shape[0]
     packed = torch.cat([
         asg.to(I64), ch.to(I64), chosen.to(I64), alt.to(I64), lvl.to(I64),
         floor.to(I64),
-        torch.stack([converged.to(I64), primal.to(I64), domain_ok.to(I64)]),
+        torch.stack([converged.to(I64), primal.to(I64), domain_ok.to(I64),
+                     rounds.to(I64), phases.to(I64)]),
     ])
     h = fetches.read(packed)
     o = np.cumsum([0, Tp, Tp, Tp, Tp, Tp, Mp])
@@ -800,7 +820,8 @@ def _fetch_result(fetches: SyncCounter, asg, ch, chosen, alt, lvl, floor,
         lvl=h[o[4]:o[5]].astype(np.int32),
         floor=h[o[5]:o[6]].astype(np.int32),
         converged=bool(h[o[6]]), primal=int(h[o[6] + 1]),
-        domain_ok=bool(h[o[6] + 2]),
+        domain_ok=bool(h[o[6] + 2]), rounds=int(h[o[6] + 3]),
+        phases=int(h[o[6] + 4]),
     )
 
 
@@ -1241,6 +1262,9 @@ class ResidentSolver:
         self._fetches = SyncCounter()
         self._loop_syncs = SyncCounter()
         self._solves = 0
+        self._solve_rounds: list[int] = []
+        # the round's table at a fixed address (its loop graph is kept)
+        self._tables = TableSlots()
         # host mirror of the warm state (asg/lvl/floor from the round's
         # own fetch): the replay/restore seed, stale once an express
         # batch has moved the warm state on the device
@@ -1318,6 +1342,13 @@ class ResidentSolver:
         start did not certify and the round re-ran cold (each solve
         makes one result fetch)."""
         return self._solves
+
+    @property
+    def last_round_auction_rounds(self) -> list[int]:
+        """The auction rounds of each solve of the last round, read with
+        its result fetch (a solve that ran out its fuse shows the
+        fuse)."""
+        return list(self._solve_rounds)
 
     @property
     def warm(self) -> DenseState | None:
@@ -1429,6 +1460,7 @@ class ResidentSolver:
         self._fetches = SyncCounter()
         self._loop_syncs = SyncCounter()
         self._solves = 0
+        self._solve_rounds = []
         self.last_round_classes = 0
         timings: dict[str, float] = {}
         t0 = time.perf_counter()
@@ -1612,10 +1644,10 @@ class ResidentSolver:
             model_fn=inflight.model_fn, n_prefs=inflight.n_prefs,
             smax=inflight.smax, alpha=self.alpha,
             max_rounds=inflight.max_rounds, warm_start=warm is not None,
-            syncs=loop_syncs, mesh=self._mesh,
+            syncs=loop_syncs, mesh=self._mesh, tables=self._tables,
         )
         fetched = _fetch_result(fetches, asg, ch, chosen, alt, lvl, floor,
-                                conv, primal, dom_ok)
+                                conv, primal, dom_ok, rounds, phases)
         state = DenseState(asg=asg, lvl=lvl, floor=floor, gap=gap,
                            converged=conv, rounds=rounds, phases=phases)
         return fetched, state, cost, dev, time.perf_counter()
@@ -1664,6 +1696,7 @@ class ResidentSolver:
             raise
         timings["fetch_wait_ms"] = (time.perf_counter() - t0) * 1000
         timings["solve_ms"] = (t_done - inflight.t_dispatch) * 1000
+        self._solve_rounds.append(res.rounds)
 
         if not res.domain_ok:
             self._warm = None
@@ -1679,6 +1712,7 @@ class ResidentSolver:
             res, state, cost_dev, dev, _ = self._dispatch(
                 inflight, None, self._fetches, self._loop_syncs
             )
+            self._solve_rounds.append(res.rounds)
             timings["solve_ms"] += (time.perf_counter() - t0) * 1000
         if not res.converged:
             self._warm = None
@@ -1743,8 +1777,8 @@ class ResidentSolver:
             cost=res.primal // (T + 1),
             backend="dense_auction",
             converged=True,
-            rounds=int(state.rounds),
-            phases=int(state.phases),
+            rounds=res.rounds,
+            phases=res.phases,
             topology=topo,
             timings=timings,
             task_cost=task_cost,
@@ -2079,7 +2113,9 @@ class ResidentSolver:
             self.express_fetches += 1
             if self.metrics is not None:
                 self.metrics.record_express_fetch()
-            h = self._fetches.read(log_row)
+            got = self._fetches.read(torch.cat(
+                [log_row, torch.stack([rounds, phases]).to(I64)]))
+            h, n_rounds = got[:-2], int(got[-2])
             n_out = (h.shape[0] - 6) // 2
             rows_np, asg_np = h[:n_out], h[n_out: 2 * n_out]
             n_chg, _ok, conv_h, dom_h, primal_h = (
@@ -2089,7 +2125,7 @@ class ResidentSolver:
                 raise ExpressDegrade("cost domain exceeded")
             if not conv_h:
                 raise ExpressDegrade(
-                    f"repair uncertified after {rounds} rounds"
+                    f"repair uncertified after {n_rounds} rounds"
                 )
             degrade_reason = ""
             if n_chg > self.express_change_cap:
@@ -2138,7 +2174,7 @@ class ResidentSolver:
                 ok=True,
                 placements=placements,
                 cost=primal_h // ctx.scale,
-                rounds=rounds,
+                rounds=n_rounds,
                 degrade_reason=degrade_reason,
                 timings=timings,
             )
@@ -2422,8 +2458,12 @@ class ResidentSolver:
                     smax=ctx.smax, change_cap=change_cap,
                     syncs=loop_syncs,
                 )
-                # the batch's ONE result fetch: K masked window logs
-                return fetches.read(log), rounds, carry, time.perf_counter()
+                # the batch's ONE result fetch: K masked window logs,
+                # each with its repair's rounds in a last column
+                got = fetches.read(torch.cat(
+                    [log, torch.stack(rounds).to(I64)[:, None]], dim=1))
+                return (got[:, :-1], got[:, -1], carry,
+                        time.perf_counter())
 
         self.stream_fetches += 1
         self.last_stream_windows = real

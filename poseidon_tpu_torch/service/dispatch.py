@@ -52,6 +52,7 @@ from poseidon_tpu_torch.ops.dense_auction import (
     CostDomainTooLarge,
     DenseMemoryTooLarge,
     DenseState,
+    TableSlots,
     _channels_for,
     check_table_budget,
     default_fuse,
@@ -364,6 +365,9 @@ class BatchDispatcher:
         self.cold_retries = 0
         self.fetches = SyncCounter()
         self.loop_syncs = SyncCounter()
+        # the members' tables at fixed addresses, one a bucket shape:
+        # the members solve in turn, so each keeps its loop graph
+        self._tables = TableSlots()
 
     # ---- registration --------------------------------------------------
 
@@ -509,6 +513,7 @@ class BatchDispatcher:
                             n_prefs=P, smax=smax, alpha=self.alpha,
                             max_rounds=self.max_rounds,
                             warm_start=w is not None, syncs=loop_syncs,
+                            tables=self._tables,
                         )
                         for i, w in enumerate(warms)
                     ]
@@ -518,13 +523,15 @@ class BatchDispatcher:
                     h = fetches.read(torch.cat([
                         torch.stack([o[0][0] for o in outs]),
                         torch.stack([o[0][1] for o in outs]).to(I64),
+                        torch.stack([o[1][0] for o in outs]).to(I64),
                         torch.stack([o[0][2] for o in outs]).to(I64)
                         .reshape(-1),
                     ]))
                 vals = [
                     (int(h[i]), bool(h[B + i]),
-                     h[2 * B + i * Tp: 2 * B + (i + 1) * Tp], o[1][0])
-                    for i, o in enumerate(outs)
+                     h[3 * B + i * Tp: 3 * B + (i + 1) * Tp],
+                     int(h[2 * B + i]))
+                    for i in range(B)
                 ]
                 return vals, [o[0] for o in outs], outs, time.perf_counter()
             finally:
@@ -572,7 +579,7 @@ class BatchDispatcher:
         timings["fetch_ms"] = 0.0
         cost_np, conv, asg_np, rounds = vals[pending.slot]
         state = states[pending.slot]
-        phases = outs[pending.slot][1][1]
+        rounds_d, phases_d = outs[pending.slot][1]
         if not conv and pending.warm_used:
             # a stale warm start stranded the eps=1 settle: retry cold on
             # the chunk's still-resident tables (one more solve and one
@@ -585,17 +592,19 @@ class BatchDispatcher:
                                       device=self.device)
                 zeros_m = torch.zeros(pending.Mp, dtype=I32,
                                       device=self.device)
-                state, (rounds, phases) = _solve_member(
+                state, (rounds_d, phases_d) = _solve_member(
                     chunk.stacked, pending.slot, zeros_t, zeros_t, zeros_m,
                     n_prefs=pending.P, smax=chunk.smax, alpha=self.alpha,
                     max_rounds=self.max_rounds, warm_start=False,
-                    syncs=self.loop_syncs,
+                    syncs=self.loop_syncs, tables=self._tables,
                 )
                 h = self.fetches.read(torch.cat([
-                    torch.stack([state[0], state[1].to(I64)]),
+                    torch.stack([state[0], state[1].to(I64),
+                                 rounds_d.to(I64)]),
                     state[2].to(I64),
                 ]))
-            cost_np, conv, asg_np = int(h[0]), bool(h[1]), h[2:]
+            cost_np, conv, asg_np = int(h[0]), bool(h[1]), h[3:]
+            rounds = int(h[2])
             timings["solve_ms"] += (time.perf_counter() - t0) * 1000
         if not conv:
             self.pool.invalidate(pending.tenant)
@@ -613,7 +622,7 @@ class BatchDispatcher:
         self.pool.commit(
             pending.tenant,
             DenseState(asg=asg_d, lvl=lvl_d, floor=floor_d, gap=gap_d,
-                       converged=conv_d, rounds=rounds, phases=phases),
+                       converged=conv_d, rounds=rounds_d, phases=phases_d),
             pending.Tp, pending.Mp,
         )
         T = pending.T
@@ -629,7 +638,7 @@ class BatchDispatcher:
             cost=int(cost_np) // (T + 1),
             backend="dense_service",
             converged=True,
-            rounds=int(rounds),  # noqa: PTA001 -- rounds is a host int: _solve_member returns its (rounds, phases) as Python ints beside the device tuple
+            rounds=rounds,
             phases=0,
             topology=pending.topo,
             timings=timings,

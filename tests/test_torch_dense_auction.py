@@ -309,7 +309,8 @@ def test_bid_pass_twin_equals_numpy_restatement(seed):
     eps = int(rng.integers(1, 5))
     want = _bid_pass_numpy(c, p, u, btask, bvalid, eps)
     got = bid_pass_plain(*(torch.from_numpy(x) for x in (c, p, u, btask,
-                                                         bvalid)), eps)
+                                                         bvalid)),
+                         torch.tensor(eps, dtype=torch.int32))
     for name, a, b in zip(("m1", "b1v", "v2", "take_uns", "beta"), want,
                           got):
         assert np.array_equal(a, b.numpy()), name

@@ -148,8 +148,9 @@ def test_wrappers_take_the_twin_for_cpu_tensors():
     got = row_options.row_options(c, p)
     want = row_options.row_options_plain(c, p)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    got = bid_pass.bid_pass(c, p, u, btask, bvalid, 3)
-    want = bid_pass.bid_pass_plain(c, p, u, btask, bvalid, 3)
+    eps = torch.tensor(3, dtype=torch.int32)
+    got = bid_pass.bid_pass(c, p, u, btask, bvalid, eps)
+    want = bid_pass.bid_pass_plain(c, p, u, btask, bvalid, eps)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert all(k.launches == 0 for k in KERNELS)
     assert len(row_options.PLANS) == 0 and len(bid_pass.PLANS) == 0
@@ -160,11 +161,14 @@ def test_wrappers_raise_on_mixed_devices():
     c, p, u, btask, bvalid = _k3_args(rng)
     with pytest.raises(ValueError):
         row_options.row_options(c, p.to("meta"))
+    eps = torch.tensor(1, dtype=torch.int32)
     with pytest.raises(ValueError):
-        bid_pass.bid_pass(c, p, u.to("meta"), btask, bvalid, 1)
+        bid_pass.bid_pass(c, p, u.to("meta"), btask, bvalid, eps)
     with pytest.raises(ValueError):
         bid_pass.bid_pass(c.to("meta"), p.to("meta"), u.to("meta"),
-                          btask.to("meta"), bvalid.to("meta"), 1)
+                          btask.to("meta"), bvalid.to("meta"), eps)
+    with pytest.raises(TypeError):      # eps is a device int32, not an int
+        bid_pass.bid_pass(c, p, u, btask, bvalid, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -99,7 +99,8 @@ class TestProduction:
         visible mask): the pass has not gone blind."""
         got = {(c[1], c[2]) for c in padding_taint.candidates(
             taint_recordings)}
-        assert {("any", "_solve"), ("sum", "_solve")} <= got, got
+        assert {("any", "head"), ("any", "pre"), ("any", "tighten"),
+                ("sum", "_certify")} <= got, got
 
     def test_every_sanction_is_load_bearing(self, taint_recordings):
         checked = 0

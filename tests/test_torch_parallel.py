@@ -314,8 +314,9 @@ def test_bid_pass_twin_at_a_shard_offset(r0, r1):
     u = torch.from_numpy(rng.integers(0, 8, Tp).astype(np.int32))
     btask = torch.arange(r0, r1, dtype=torch.int32)
     bvalid = torch.ones(r1 - r0, dtype=torch.bool)
-    whole = bid_pass_plain(c, p, u, btask, bvalid, 3)
-    part = bid_pass_plain(c[r0:r1], p, u[r0:r1], btask - r0, bvalid, 3,
+    eps = torch.tensor(3, dtype=torch.int32)
+    whole = bid_pass_plain(c, p, u, btask, bvalid, eps)
+    part = bid_pass_plain(c[r0:r1], p, u[r0:r1], btask - r0, bvalid, eps,
                           task0=r0)
     for a, b in zip(whole, part):
         assert torch.equal(a, b)
