@@ -112,9 +112,11 @@ Phases (each prints its own lines):
    paths of the walk's shared record length - 1, + 0 and + 1 arcs, and
    the prologue, each also checked for the dist-buffer hazard (the
    distances read stay as they were, the next dist0 lands in the other
-   buffer); then one refine burst (a global update and 16 sweeps) and
-   SSP's first three paths (their K10 ``in`` rounds and K11 steps)
-   under ``torch.profiler``. The auction loop's K12 (``top_will``, the
+   buffer); K9 also with eps read on the device and K10 ``in`` and K11
+   with their parity words on the device (as the graphs run them); then
+   one refine burst (a global update and 16 sweeps, as the host loop
+   runs it), the flagship's cost-scaling solve and SSP's first 100
+   paths, each one graph, under ``torch.profiler``. The auction loop's K12 (``top_will``, the
    deflate step's clearing level) and K13 (``seat_sort``: the 4-key sort
    of ``auction_round`` is the record, the 3-key sort of ``to_sorted``
    and the bid window's compaction are printed) are held and timed the
@@ -187,7 +189,8 @@ Phases (each prints its own lines):
    the capture's ms, the graph's solve ms against the host loop's and
    both loop read counts; then a profiled warm round's device busy and
    idle share. K14 ``loop_ctl`` is held against its twin in [kernels]
-   over every mode, flag, done and fuse case and timed there;
+   over every mode, flag, done and fuse case (and its LOOP mode, the
+   general lane's, over every term shape) and timed there;
 6. models: each of the six cost models prices the flagship's cost
    inputs (knowledge aggregates from a seeded generator) on the card
    exactly as on the CPU, timed beside its byte bound; then one cold
@@ -286,20 +289,25 @@ Phases (each prints its own lines):
    its device time a launch, one launch a shard); the aggregated
    flagship's cost equal to the plain one's; ``sharded_certificate_gap``
    at width 4 equal to the solve's own gap;
-13. general: the general-graph lane on the card. Cost-scaling over
-   ``make_synthetic_cluster(200, 2000, seed=0)`` under quincy equal bit
-   for bit to the CPU twins (flows, sweeps, phases, routed, converged)
-   with the reference's 1,744 sweeps and 12 phases; then, launch counts
-   zeroed just before each solve and read just after it, the
-   quincy-priced flagship by cost-scaling (cost
-   771,192 = the C++ oracle's, the reference's 2,592 sweeps and 13
-   phases, one result fetch), by SSP (= oracle; one K11 call a path
-   after its prologue), written to DIMACS,
-   read back and solved through ``solve_scheduling`` with an
-   empty-cluster meta (backend ``cost_scaling``, = oracle), and through
-   ``solve_scheduling``'s dense path cold and warm (= oracle); wall ms,
-   sweeps, phases, paths, loop reads and fetches printed, K9-K11 and
-   K1-K3 each launched;
+13. general: the general-graph lane on the card, each solve one CUDA
+   graph (cost-scaling's three nested loops, SSP's two; K14 ``loop_ctl``
+   sets every WHILE and IF node on the device) with no loop read and one
+   result fetch, held against the host loop (``_host_loop=True``, the
+   plain version) on the same inputs, every output bit for bit and every
+   kernel's launch count (the graph's from K14's tally) equal:
+   cost-scaling over ``make_synthetic_cluster(200, 2000, seed=0)`` under
+   quincy (also == the CPU twins, the reference's 1,744 sweeps and 12
+   phases), with a blown fuse and with no supply; SSP there, at
+   max_paths and with no supply; the quincy-priced flagship by
+   cost-scaling (cost 771,192 = the C++ oracle's, the reference's 2,592
+   sweeps and 13 phases, K9 2,592 and K10 1,928 launches) and by SSP (=
+   oracle; K10 83,642 and K11 10,001 launches, one K11 call a path after
+   its prologue); written to DIMACS, read back and solved through
+   ``solve_scheduling`` with an empty-cluster meta (backend
+   ``cost_scaling``, = oracle, one graph, no loop read), and through
+   ``solve_scheduling``'s dense path cold and warm (= oracle). Each
+   graph's capture ms and solve ms beside the host loop's wall ms, loop
+   reads and fetches printed, K9-K11 and K1-K3 each launched;
 14. ha: crash safety over the flagship daemon, each daemon in a child
    process against the fake apiserver's process, serial rounds, bursts
    of 16 pods between rounds. Daemon A checkpoints every round and
@@ -349,7 +357,9 @@ Phases (each prints its own lines):
    innermost port frame): each window's synchronising calls inside
    ``SyncCounter.read`` equal the solver's own counters, every other one
    is a ``Contracts.sync_sites`` upload, and static PTA001 names every
-   site the card reported;
+   site the card reported; then a cost-scaling and an SSP flagship solve,
+   each its tables' declared uploads and one read (its fetch), none in
+   the loops;
 18. adversarial: all 240 trials of the adversarial fuse sweep
    (``poseidon_tpu_torch.adversarial``: six cost models over 2-40
    machines x 2-150 tasks) on the card over 4 processes, the trials the
@@ -2424,6 +2434,26 @@ def loop_ctl_record(torch, timer):
                     err = max(err, max_abs_err(ins[4:], [x.to(dev)
                                                          for x in host[4:]]))
                     n += 1
+    # LOOP (the general lane's graphs): flags, !done and count < limit
+    # terms, alone and together, at every value that decides them; go
+    # lands in the tally's slot 5, the run in slot 6
+    def word(x):
+        return None if x is None else torch.tensor([x], dtype=i32, device=dev)
+
+    n_loop = 0
+    for terms in (((None, 0),), ((None, 1),), ((0, None),), ((1, None),),
+                  ((7, 8),), ((8, 8),), ((None, 1), (8, 8)),
+                  ((None, 1), (7, 8)), ((3, 9), (None, 0), (2, 5)),
+                  ((3, 9), (None, 1), (2, 5)), ((9, 9), (None, 1), (2, 5)),
+                  ()):
+        ins = [tuple(word(x) for x in t) for t in terms]
+        host = [tuple(None if x is None else x.cpu() for x in t) for t in ins]
+        tally = torch.arange(k14.TALLY, dtype=i32, device=dev)
+        tally_h = tally.cpu()
+        k14.loop_step(ins, tally, 5, 6)
+        k14.loop_step_plain(host, tally_h, 5, 6)
+        err = max(err, max_abs_err([tally], [tally_h.to(dev)]))
+        n_loop += 1
     ins = [torch.tensor(True, device=dev),
            torch.tensor(3, dtype=i32, device=dev),
            torch.tensor(LOOP_FUSE, dtype=i32, device=dev),
@@ -2435,8 +2465,8 @@ def loop_ctl_record(torch, timer):
     # reads flag, rounds, the fuse, done and the tally once; writes the
     # codes and the tally once
     b = 1 + 4 + 4 + 1 + 4 * 4 + 2 * k14.TALLY * 4
-    log(f"[kernels] loop_ctl: {n} mode/flag/done/fuse cases, "
-        f"max_abs_err={err}")
+    log(f"[kernels] loop_ctl: {n} mode/flag/done/fuse cases and {n_loop} "
+        f"LOOP term cases, max_abs_err={err}")
     return (k14.KERNEL, err, ms, plain, *bound_ms(b, 8), (1,))
 
 
@@ -4647,6 +4677,13 @@ def pruned_oracle_cost(view, kw: dict, k: int, device) -> int:
 GENERAL_SMALL = (200, 2000)
 GENERAL_SMALL_COUNTS = (1744, 12)
 FLAGSHIP_CS = (771192, 2592, 13)
+# the flagship's launches of K9 and K10 (out) in a cost-scaling solve and
+# of K10 (in) and K11 in an SSP solve, as the host loop has run them
+FLAGSHIP_CS_LAUNCHES = (2592, 1928)
+FLAGSHIP_SSP_LAUNCHES = (83642, 10001)
+GENERAL_FUSE = 100               # a blown cost-scaling fuse at 200 x 2,000
+PROFILE_PATHS = 100              # SSP's paths under torch.profiler
+GENERAL_MAX_PATHS = 50           # SSP's path cap at 200 x 2,000
 GENERAL_KERNELS = ("cs_sweep", "bf_relax", "ssp_augment")
 GENERAL_SYMBOLS = ("cs_sweep_kernel", "bf_out_kernel", "bf_in_kernel",
                    "ssp_walk_kernel", "ssp_wide_kernel")
@@ -4676,11 +4713,12 @@ def cs_line(res) -> str:
 
 
 def busiest_burst(torch, net):
-    """Run ``net``'s cost-scaling solve through ``_Solve.run`` itself, with
-    one more read a refine burst (its global update samples the state),
+    """Run ``net``'s cost-scaling solve under the host loop of ``_Solve``
+    itself, with reads of the state at the start of every refine burst,
     and keep the state at the start of the burst whose active nodes have
     the most out-arcs. Returns a function that makes a fresh solve object
-    in that state, the burst's eps, its active nodes and their arcs."""
+    in that state (its eps on the device), the burst's eps, its active
+    nodes and their arcs."""
     from poseidon_tpu_torch.ops.cost_scaling import _Solve
 
     dev = torch.device(DEVICE)
@@ -4689,18 +4727,18 @@ def busiest_burst(torch, net):
     class Sampled(_Solve):
         best = (-1, None)
 
-        def global_update(self, eps: int) -> None:
+        def bf_init(self) -> None:
             act = self.excess > 0
             deg = (self.g.seg[1:] - self.g.seg[:-1]).long()
             load = int(deg[act].sum())
             if load > self.best[0]:
                 self.best = (load, (self.flow.clone(), self.excess.clone(),
-                                    self.price.clone(), eps,
+                                    self.price.clone(), int(self.eps),
                                     int(act.sum())))
-            super().global_update(eps)
+            super().bf_init()
 
     s = Sampled(net, dev, 8, fuse, 16)
-    s.run()
+    s.run(host_loop=True)
     load, (flow, excess, price, eps, n_act) = s.best
 
     def at_burst():
@@ -4708,9 +4746,26 @@ def busiest_burst(torch, net):
         t.flow.copy_(flow)
         t.excess.copy_(excess)
         t.price.copy_(price)
+        t.eps.fill_(eps)
         return t
 
     return at_burst, eps, n_act, load
+
+
+def global_update(s) -> int:
+    """Solve object ``s``'s global price update as its host loop runs it
+    (the arc lengths, Bellman-Ford bursts until converged or NN rounds,
+    the price shift). Returns the host reads it made."""
+    s.bf_init()
+    it, reads = 0, 0
+    while True:
+        s.bf_burst()
+        it += 8
+        reads += 1
+        if not (int(s.changed[0]) and it < s.NN):
+            break
+    s.update()
+    return reads
 
 
 def ssp_first_path(torch, net):
@@ -4738,10 +4793,11 @@ def ssp_first_path(torch, net):
     dist, pred = dist0.clone(), pred0.clone()
     d2 = torch.empty_like(dist)
     changed = torch.ones(1, dtype=torch.int32, device=dev)
+    even = torch.zeros(1, dtype=torch.int32, device=dev)
     rounds = 0
     while int(changed[0]) and rounds < NN:
         bf_relax_in(g.seg, g.arc, g.head, mrc, dist, d2, pred, changed,
-                    g.plan)
+                    g.plan, even)
         dist, d2 = d2, dist
         rounds += 1
     tabs = (torch.as_tensor(fsrc, device=dev), torch.as_tensor(fdst, device=dev))
@@ -4751,26 +4807,34 @@ def ssp_first_path(torch, net):
 
 
 def path_step(g, fsrc, fdst, NN: int, wanted: int, S: int, T: int, flow,
-              pred, dist, pot, routed: int = 0):
+              pred, dist, pot, routed: int = 0, words=(0, 0)):
     """A K11 ``PathStep`` over residual CSR ``g`` holding one path's flow,
     predecessors, distances (in the buffer the step reads), potentials
-    and routed count (copies of the tensors given)."""
+    and routed count (copies of the tensors given). ``words``: the
+    step's parity words (d, p) on the device."""
+    import torch
+
     from poseidon_tpu_torch.kernels.ssp_augment import PathStep
 
+    par = torch.tensor(list(words), dtype=flow.dtype, device=flow.device)
     st = PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap, fsrc, fdst, NN,
-                  wanted, S, T)
+                  wanted, S, T, parity=par)
+    d, p = st.parities()
     st.flow.copy_(flow)
     st.pred.copy_(pred)
-    st.dist[st.d].copy_(dist)
-    st.pot[st.p].copy_(pot)
+    st.dist[d].copy_(dist)
+    st.dist[d ^ 1].fill_(-3)
+    st.pot[p].copy_(pot)
     st.state[0] = routed
     return st
 
 
+
 def step_outputs(st) -> list:
     """Everything a K11 step writes or must leave as it was: the flow,
-    state, mirror costs, predecessors and both buffers of each pair."""
-    return [st.flow, st.state, st.mrc, st.pred, *st.dist, *st.pot]
+    state, mirror costs, predecessors, both buffers of each pair and the
+    parity words."""
+    return [st.flow, st.state, st.mrc, st.pred, *st.dist, *st.pot, st.par]
 
 
 def ssp_step_bytes_ops(NN: int, F: int, h: int) -> tuple[int, int]:
@@ -4820,7 +4884,8 @@ def path_length(pred, fsrc, fdst, S: int, T: int) -> int:
 def general_kernel_records(torch, timer):
     """K9-K11 held against their twins (tolerance 0) and timed cold at the
     flagship's shapes (NN 12,290, 2F 145,410 for cost-scaling; 145,408
-    for SSP); then one refine burst under torch.profiler."""
+    for SSP); then one refine burst as the host loop runs it and the
+    general lane's graphs under torch.profiler."""
     from poseidon_tpu_torch.kernels import bf_relax as k10
     from poseidon_tpu_torch.kernels import cs_sweep as k9
     from poseidon_tpu_torch.kernels import ssp_augment as k11
@@ -4834,7 +4899,7 @@ def general_kernel_records(torch, timer):
                          torch.device(DEVICE))
     at_burst, eps, n_act, load = busiest_burst(torch, flag)
     s = at_burst()
-    s.global_update(eps)
+    global_update(s)
     g, NN, F = s.g, s.NN, s.F
     act = s.excess > 0
     deg = (g.seg[1:] - g.seg[:-1]).long()
@@ -4850,19 +4915,20 @@ def general_kernel_records(torch, timer):
     def k9_kernel(*a):
         k9.cs_sweep(*a, plan)
 
+    # eps on the device, as the solve's graph passes it
     outs = []
     for fn in (k9_kernel, k9.cs_sweep_plain):
         flow = s.flow.clone()
         e_o, p_o = torch.empty_like(s.excess), torch.empty_like(s.price)
         fn(g.seg, g.arc, g.head, g.cost, g.fcap, flow, s.excess, s.price,
-           eps, e_o, p_o)
+           s.eps, e_o, p_o)
         outs.append([flow, e_o, p_o])
     err = max_abs_err(outs[0], outs[1])
     flow = s.flow.clone()
 
     def k9_call(fn):
         return lambda: fn(g.seg, g.arc, g.head, g.cost, g.fcap, flow,
-                          s.excess, s.price, eps, ex2, pr2)
+                          s.excess, s.price, s.eps, ex2, pr2)
 
     # bytes: seg, each active segment's arc/head/cost and residual (24 an
     # arc), excess and price in and out (24 a node)
@@ -4902,8 +4968,10 @@ def general_kernel_records(torch, timer):
     q = ssp_first_path(torch, flag)
     g2, NN2, F2 = q["g"], q["NN"], q["F"]
 
+    even = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+
     def k10_in(*a):
-        k10.bf_relax_in(*a, g2.plan)
+        k10.bf_relax_in(*a, g2.plan, even)
 
     outs = []
     for fn in (k10_in, k10.bf_relax_in_plain):
@@ -4927,7 +4995,7 @@ def general_kernel_records(torch, timer):
     # K11: the first path's step (walk, augment, potentials, the next
     # round's mirror costs and dist0/pred0); each timed call restores the
     # flow, the routed count and pred first (three copy_ launches, timed
-    # alone and taken off) and the step's buffer indices (host ints)
+    # alone and taken off); the parity words stay (0, 0)
     fsrc, fdst = q["tabs"]
     zero = torch.zeros(NN2, dtype=torch.int32, device=DEVICE)
 
@@ -4944,13 +5012,11 @@ def general_kernel_records(torch, timer):
     h = path_length(q["pred"], fsrc, fdst, q["S"], q["T"])
     st = first_step()
     st0 = st.state.clone()
-    d0, p0 = st.d, st.p
 
     def restore():
         st.flow.copy_(q["flow"])
         st.state.copy_(st0)
         st.pred.copy_(q["pred"])
-        st.d, st.p = d0, p0
 
     def k11_call(fn):
         def call():
@@ -4985,31 +5051,30 @@ def general_kernel_records(torch, timer):
         f"{wall:.3f} per call; torch.cuda._sleep(0) host_us={f_host:.3f} "
         f"wall_us={f_wall:.3f} (median of {HOST_BATCHES} x {HOST_CALLS} "
         f"calls)")
-    profile_refine_burst(torch, at_burst(), eps)
-    profile_ssp_paths(torch, flag)
+    profile_refine_burst(torch, at_burst())
+    profile_general_graphs(torch, flag)
     return records
 
 
-def profile_refine_burst(torch, s, eps: int) -> None:
+def profile_refine_burst(torch, s) -> None:
     """One refine burst (a global update, then 16 K9 sweeps) of solve
-    object ``s`` under torch.profiler: wall, device busy time and idle
-    share, and K9's and K10's device time per launch as the solve calls
-    them."""
+    object ``s`` under torch.profiler, as the host loop runs it: wall,
+    device busy time and idle share, and K9's and K10's device time per
+    launch."""
     from torch.profiler import ProfilerActivity, profile
 
-    syncs0 = s.syncs.count
     sync(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        s.global_update(eps)
-        s.sweep_burst(eps)
+        reads = global_update(s)
+        s.sweep_burst()
         sync(torch)
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = device_rows(prof)
     busy = sum(t for _, t, _ in rows)
-    log(f"[profile] refine burst (the flagship's busiest): wall_us="
-        f"{wall_us:.1f} loop_reads={s.syncs.count - syncs0} "
+    log(f"[profile] refine burst (the flagship's busiest, host loop): "
+        f"wall_us={wall_us:.1f} loop_reads={reads + 1} "
         f"device_busy_us={busy:.1f} idle_share={1 - min(busy / wall_us, 1):.3f}")
     rows.sort(key=lambda r: -r[1])
     for key, t, n in rows[:12]:
@@ -5021,24 +5086,42 @@ def profile_refine_burst(torch, s, eps: int) -> None:
             f"launches={count} us_per_launch={total / max(count, 1):.3f}")
 
 
-def profile_ssp_paths(torch, net, n_paths: int = 3) -> None:
-    """SSP's first ``n_paths`` paths over ``net`` under torch.profiler (the
-    residual CSR's build included): K10 ``in``'s and K11's device time
-    per launch as the solve calls them."""
+def profile_general_graphs(torch, net) -> None:
+    """The flagship's cost-scaling solve and SSP's first
+    ``PROFILE_PATHS`` paths, each one graph, under torch.profiler (the
+    residual CSR's build and the capture included): device busy and idle
+    share, each graph's solve ms (launch to fetch),
+    and K9's, K10's, K11's and K14's device time per launch as the graphs
+    run them. (The whole SSP graph, 83,642 relaxation rounds, under the
+    profiler once faulted with an illegal address on an H100, where the
+    same solve unprofiled equals its host loop.)"""
     from torch.profiler import ProfilerActivity, profile
 
-    from poseidon_tpu_torch.ops import ssp
+    from poseidon_tpu_torch import kernels
+    from poseidon_tpu_torch.ops import cost_scaling, ssp
 
-    sync(torch)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = ssp.solve_ssp(net, max_paths=n_paths, device=DEVICE)
+    for label, module, solve, symbols in (
+            ("cost-scaling flagship (graph)", cost_scaling,
+             cost_scaling.solve_cost_scaling, GENERAL_SYMBOLS[:2]),
+            (f"SSP's first {PROFILE_PATHS} paths (graph)", ssp,
+             lambda n, **k: ssp.solve_ssp(n, max_paths=PROFILE_PATHS, **k),
+             GENERAL_SYMBOLS[2:])):
+        n0 = module.CAPTURES.total
         sync(torch)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    label = f"SSP's first {res.iterations} paths"
-    log(f"[profile] {label}: routed={res.routed} loop_reads={res.loop_syncs}")
-    profile_symbols(prof, wall_us, label, GENERAL_SYMBOLS[2:])
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = solve(net, device=DEVICE)
+            sync(torch)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        (cap,) = module.CAPTURES.since(n0)
+        log(f"[profile] {label}: loop_reads={res.loop_syncs} "
+            f"fetches={res.fetches} capture_ms={cap[2]:.3f} "
+            f"solve_ms={cap[3]:.3f} (profiled) launches: " + " ".join(
+                f"{k.name}={k.launches}" for k in kernels.KERNELS
+                if k.name in GENERAL_KERNELS + ("loop_ctl",)))
+        profile_symbols(prof, wall_us, label, (*symbols, "loop_ctl_kernel"))
 
 
 def edge_residual_graph(seed: int, NN: int, F: int, hub: int):
@@ -5214,11 +5297,14 @@ def general_edges(torch) -> None:
         F = len(fsrc)
         if kind is None:
             for eps in (1, 3, 64):
-                def sweep_args(eps=eps):
+                # eps read on the device, as the solve's graph passes it
+                eps_t = torch.tensor(eps, dtype=torch.int64, device=dev)
+
+                def sweep_args(eps_t=eps_t):
                     fl = flow0.clone()
                     e_o, p_o = torch.empty_like(excess), torch.empty_like(price)
                     return ((g.seg, g.arc, g.head, g.cost, g.fcap, fl, excess,
-                             price, eps, e_o, p_o), [fl, e_o, p_o])
+                             price, eps_t, e_o, p_o), [fl, e_o, p_o])
                 check(("cs_sweep", name, eps),
                       lambda *a: k9.cs_sweep(*a, g.plan), k9.cs_sweep_plain,
                       sweep_args)
@@ -5253,12 +5339,22 @@ def general_edges(torch) -> None:
                 c_o = torch.full((1,), 7, dtype=torch.int32, device=dev)
                 return ((g.seg, g.arc, g.head, mrc, dist, d_o, p_o, c_o),
                         [d_o, p_o, c_o])
-            check(("bf_relax_in", name, dk),
-                  lambda *a: k10.bf_relax_in(*a, g.plan),
-                  k10.bf_relax_in_plain, in_args)
+            # the pair's roles from a parity word on the device: even
+            # reads the first buffer, odd the second
+            for word in (0, 2, 5):
+                par = torch.tensor([word], dtype=torch.int32, device=dev)
+
+                def in_parity(*a, par=par, odd=word % 2):
+                    din, dout = (a[5], a[4]) if odd else (a[4], a[5])
+                    k10.bf_relax_in(*a[:4], din, dout, *a[6:], g.plan, par)
+                check(("bf_relax_in", name, dk, f"parity {word}"),
+                      in_parity, k10.bf_relax_in_plain, in_args)
     hazards = []
-    for name, case, first in ssp_step_cases():
-        def step_args(case=case):
+    # each step with parity words on the device naming (d, p) = (0, 0),
+    # (1, 0) and (0, 1) (as counters: 3, 6 and 4, 1)
+    for (name, case, first), words in (
+            (c, w) for c in ssp_step_cases() for w in ((0, 0), (3, 6), (4, 1))):
+        def step_args(case=case, words=words):
             g = residual_csr(case["fsrc"], case["fdst"], case["fcap"],
                              np.concatenate([case["fcost"], -case["fcost"]]),
                              len(case["dist"]), dev)
@@ -5266,23 +5362,27 @@ def general_edges(torch) -> None:
                 "fsrc", "fdst", "flow", "pred", "dist", "pot")}
             st = path_step(g, t["fsrc"], t["fdst"], len(case["dist"]),
                            case["wanted"], case["S"], case["T"], t["flow"],
-                           t["pred"], t["dist"], t["pot"], case["routed"])
+                           t["pred"], t["dist"], t["pot"], case["routed"],
+                           words)
             return (st,), step_outputs(st)
 
-        def k11_kernel(st, first=first):
-            d0 = st.d
+        def k11_kernel(st, first=first, words=words, name=name):
+            d0, _ = st.parities()
             k11.ssp_augment(st, first)
             # the hazard: the next dist0 went into the other buffer, and
-            # the distances read are left as they were
+            # the distances read are left as they were; the words are the
+            # caller's to advance
             want = torch.as_tensor(case["dist"], device=dev)
-            if not torch.equal(st.dist[d0], want) or st.d != d0 ^ 1:
-                hazards.append(name)
+            kept = st.par.tolist() == list(words)
+            if not torch.equal(st.dist[d0], want) or not kept:
+                hazards.append((name, words))
 
-        check(("ssp_augment", name), k11_kernel,
+        check(("ssp_augment", name, words), k11_kernel,
               lambda st, first=first: k11.ssp_step_plain(st, first),
               step_args)
-    log(f"[edges] cs_sweep, bf_relax (out, in), ssp_augment: {n} cases, "
-        f"{len(bad)} differ; ssp_augment dist-buffer hazards: {hazards}")
+    log(f"[edges] cs_sweep, bf_relax (out, in), ssp_augment (eps and the "
+        f"parities on the device): {n} cases, {len(bad)} "
+        f"differ; ssp_augment dist-buffer hazards: {hazards}")
     if bad or hazards:
         raise AssertionError(f"[edges] general kernels != twins: {bad[:8]}")
 
@@ -5355,15 +5455,26 @@ def ssp_step_cases():
 
 
 def general_phase(torch, card: str) -> dict:
-    """The general-graph lane on the card. Cost-scaling at 200 x 2,000
-    equal bit for bit to the CPU twins; then, launch counts zeroed just
-    before each solve and read just after it, the quincy-priced flagship
-    by cost-scaling (cost = oracle, the reference's sweeps and phases,
-    one fetch), by SSP (= oracle), as a DIMACS text through
-    ``solve_scheduling`` (backend cost_scaling) and through
-    ``solve_scheduling``'s dense path cold and warm (= oracle). Returns
-    each kernel's launches in the solve its record times: K9 and K10
-    (its ``out`` round) in the cost-scaling solve, K11 in SSP's."""
+    """The general-graph lane on the card. Each solve runs its loops as
+    one graph (``ops/cost_scaling.py``, ``ops/ssp.py`` ``GRAPH``): it must
+    make no loop read and one fetch, and equal the host loop
+    (``_host_loop=True``, the plain version) on the same inputs in every
+    output and in its kernels' launch counts (the graph's from K14's
+    tally): cost-scaling at 200 x 2,000 (also == the CPU twins), with a
+    blown fuse, and with no supply; the quincy-priced flagship by
+    cost-scaling (cost = oracle, the reference's sweeps and phases) and by
+    SSP (= oracle, K11 once a path and once for the prologue); SSP at 200
+    x 2,000, at max_paths and with no supply. Then the flagship as a
+    DIMACS text through ``solve_scheduling`` (backend cost_scaling, one
+    graph) and through its dense path cold and warm (= oracle). Launch
+    counts are zeroed just before each solve and read just after it.
+    Prints each graph's capture ms and solve ms beside the host loop's.
+    Returns each kernel's launches in the solve its record times: K9 and
+    K10 (its ``out`` round) in the cost-scaling solve, K11 in SSP's."""
+    import dataclasses
+
+    import numpy as np
+
     from poseidon_tpu_torch import kernels
     from poseidon_tpu_torch.cluster import ClusterState
     from poseidon_tpu_torch.graph.builder import FlowGraphBuilder
@@ -5393,70 +5504,149 @@ def general_phase(torch, card: str) -> dict:
         out, ms = timed(fn)
         counts = {k.name: k.launches for k in kernels.KERNELS}
         log(f"[general] {label} launches: " + " ".join(
-            f"{k}={counts[k]}" for k in launched))
+            f"{k}={counts[k]}" for k in (*launched, "loop_ctl")))
         idle = [k for k in launched if counts[k] == 0]
         if idle:
             raise AssertionError(f"[general] {label}: not launched {idle}")
         return out, ms, counts
 
+    def graph_vs_host(label, module, solve, net, fields, launched, **kw):
+        """One solve as the graph and as the host loop on the card, the
+        same inputs: every output and launch count equal, the graph with
+        no loop read and one fetch. Returns (graph result, counts)."""
+        n0 = module.CAPTURES.total
+        res, ms, counts = counted(f"{label} (graph)", lambda: solve(
+            net, device=DEVICE, **kw), launched)
+        (cap,) = module.CAPTURES.since(n0)
+        host, host_ms, host_counts = counted(
+            f"{label} (host loop)", lambda: solve(
+                net, device=DEVICE, _host_loop=True, **kw), launched)
+        same = fields(res) == fields(host)
+        same_counts = all(counts[k] == host_counts[k]
+                          for k in GENERAL_KERNELS)
+        log(f"[general] {label}: graph capture_ms={cap[2]:.3f} solve_ms="
+            f"{cap[3]:.3f} wall_ms={ms:.3f} loop_syncs={res.loop_syncs} "
+            f"fetches={res.fetches} | host loop wall_ms={host_ms:.3f} "
+            f"loop_syncs={host.loop_syncs} | bit-identical={same} "
+            f"launches equal={same_counts}")
+        if not same or not same_counts or res.loop_syncs != 0 or \
+                res.fetches != 1 or host.fetches != 1:
+            raise AssertionError(f"[general] {label}: graph != host loop "
+                                 f"or loop reads/fetches off")
+        return res, counts
+
+    def ssp_fields(r) -> tuple:
+        return (r.flows.tobytes(), r.routed, r.wanted, r.iterations)
+
+    def no_supply(net):
+        return dataclasses.replace(net, supply=np.zeros_like(net.supply))
+
     small, _ = priced_net(torch, make_synthetic_cluster(*GENERAL_SMALL,
                                                         seed=0), dev)
-    card_res, card_ms = timed(
-        lambda: cost_scaling.solve_cost_scaling(small, device=DEVICE))
+    card_res, _ = graph_vs_host(
+        f"cost-scaling {GENERAL_SMALL[0]} x {GENERAL_SMALL[1]}",
+        cost_scaling, cost_scaling.solve_cost_scaling, small, cs_fields,
+        ("cs_sweep", "bf_relax"))
     cpu_res, cpu_ms = timed(
         lambda: cost_scaling.solve_cost_scaling(small, device="cpu"))
     same = cs_fields(card_res) == cs_fields(cpu_res)
     log(f"[general] cost-scaling {GENERAL_SMALL[0]} x {GENERAL_SMALL[1]}: "
-        f"card wall_ms={card_ms:.3f} {cs_line(card_res)} | CPU twins "
-        f"wall_ms={cpu_ms:.3f} | bit-identical={same}")
+        f"{cs_line(card_res)} | CPU twins wall_ms={cpu_ms:.3f} "
+        f"loop_syncs={cpu_res.loop_syncs} | card == CPU: {same}")
     if not same or not card_res.converged or (
             card_res.sweeps, card_res.phases) != GENERAL_SMALL_COUNTS:
         raise AssertionError(f"[general] 200 x 2000: card != CPU or "
                              f"counts != {GENERAL_SMALL_COUNTS}")
+    fused, _ = graph_vs_host(
+        f"cost-scaling {GENERAL_SMALL[0]} x {GENERAL_SMALL[1]} max_sweeps="
+        f"{GENERAL_FUSE}", cost_scaling, cost_scaling.solve_cost_scaling,
+        small, cs_fields, ("cs_sweep", "bf_relax"), max_sweeps=GENERAL_FUSE)
+    if fused.converged or fused.sweeps < GENERAL_FUSE:
+        raise AssertionError(f"[general] fuse: {cs_line(fused)}")
+    empty_res, _ = graph_vs_host(
+        "cost-scaling, no supply", cost_scaling,
+        cost_scaling.solve_cost_scaling, no_supply(small), cs_fields, ())
+    log(f"[general] cost-scaling, no supply: {cs_line(empty_res)}")
+    sres, _ = graph_vs_host(
+        f"SSP {GENERAL_SMALL[0]} x {GENERAL_SMALL[1]}", ssp, ssp.solve_ssp,
+        small, ssp_fields, ("bf_relax", "ssp_augment"))
+    capped, _ = graph_vs_host(
+        f"SSP max_paths={GENERAL_MAX_PATHS}", ssp, ssp.solve_ssp, small,
+        ssp_fields, ("bf_relax", "ssp_augment"), max_paths=GENERAL_MAX_PATHS)
+    empty, empty_counts = graph_vs_host(
+        "SSP, no supply", ssp, ssp.solve_ssp, no_supply(small), ssp_fields,
+        ())
+    if capped.iterations != GENERAL_MAX_PATHS or empty.iterations != 0 \
+            or empty_counts["ssp_augment"] != 0 or not sres.feasible:
+        raise AssertionError(f"[general] SSP cases: {capped.iterations} "
+                             f"paths at the cap, {empty.iterations} without "
+                             f"supply, {sres.routed}/{sres.wanted} routed")
 
     flag, meta = priced_net(torch, config2_quincy_flagship(seed=0), dev)
     t0 = time.perf_counter()
     want = solve_oracle(flag, algorithm="cost_scaling").cost
     oracle_ms = (time.perf_counter() - t0) * 1e3
-    res, ms, cs_counts = counted(
-        "cost-scaling flagship",
-        lambda: cost_scaling.solve_cost_scaling(flag, device=DEVICE),
+    res, cs_counts = graph_vs_host(
+        "cost-scaling flagship", cost_scaling,
+        cost_scaling.solve_cost_scaling, flag, cs_fields,
         ("cs_sweep", "bf_relax"))
     cost = cost_scaling.solution_cost(flag, res)
     log(f"[general] cost-scaling flagship (N {flag.num_node_slots}, E "
-        f"{flag.num_arc_slots}): wall_ms={ms:.3f} cost={cost} "
-        f"oracle={want} oracle_ms={oracle_ms:.1f} {cs_line(res)}")
+        f"{flag.num_arc_slots}): cost={cost} oracle={want} "
+        f"oracle_ms={oracle_ms:.1f} {cs_line(res)}")
     if (cost, res.sweeps, res.phases) != FLAGSHIP_CS or cost != want:
         raise AssertionError(f"[general] flagship: cost/sweeps/phases "
                              f"{(cost, res.sweeps, res.phases)}, want "
                              f"{FLAGSHIP_CS}, oracle {want}")
-    if not (res.converged and res.feasible) or res.fetches != 1:
+    if not (res.converged and res.feasible):
         raise AssertionError(f"[general] flagship: {cs_line(res)}")
+    if (cs_counts["cs_sweep"], cs_counts["bf_relax"]) != FLAGSHIP_CS_LAUNCHES:
+        raise AssertionError(f"[general] flagship launches {cs_counts}, "
+                             f"want K9, K10 {FLAGSHIP_CS_LAUNCHES}")
 
-    sres, ms, ssp_counts = counted(
-        "SSP flagship", lambda: ssp.solve_ssp(flag, device=DEVICE),
+    sres, ssp_counts = graph_vs_host(
+        "SSP flagship", ssp, ssp.solve_ssp, flag, ssp_fields,
         ("bf_relax", "ssp_augment"))
     scost = ssp.solution_cost(flag, sres)
-    log(f"[general] SSP flagship: wall_ms={ms:.3f} paths={sres.iterations} "
-        f"routed={sres.routed}/{sres.wanted} cost={scost} oracle={want} "
-        f"loop_syncs={sres.loop_syncs} fetches={sres.fetches}")
-    if scost != want or not sres.feasible or sres.fetches != 1:
+    log(f"[general] SSP flagship: paths={sres.iterations} "
+        f"routed={sres.routed}/{sres.wanted} cost={scost} oracle={want}")
+    if scost != want or not sres.feasible:
         raise AssertionError(f"[general] SSP cost {scost} != oracle {want}")
     # one K11 call a path, after the prologue
     if ssp_counts["ssp_augment"] != sres.iterations + 1:
         raise AssertionError(f"[general] SSP: {ssp_counts['ssp_augment']} "
                              f"K11 calls for {sres.iterations} paths")
+    if (ssp_counts["bf_relax"], ssp_counts["ssp_augment"]) != \
+            FLAGSHIP_SSP_LAUNCHES:
+        raise AssertionError(f"[general] SSP launches {ssp_counts}, want "
+                             f"K10, K11 {FLAGSHIP_SSP_LAUNCHES}")
+
+    # the front door: its cost-scaling solve's own result, kept
+    seen = []
+    solve = cost_scaling.solve_cost_scaling
+
+    def keep(*a, **k):
+        seen.append(solve(*a, **k))
+        return seen[-1]
 
     dnet = read_dimacs(write_dimacs(flag))
-    _, empty = FlowGraphBuilder().build(ClusterState(machines=[], tasks=[]))
-    out, ms, _ = counted(
-        "DIMACS flagship",
-        lambda: solve_scheduling(dnet, empty, device=DEVICE),
-        ("cs_sweep", "bf_relax"))
+    _, empty_meta = FlowGraphBuilder().build(ClusterState(machines=[], tasks=[]))
+    cost_scaling.solve_cost_scaling = keep
+    try:
+        out, ms, _ = counted(
+            "DIMACS flagship",
+            lambda: solve_scheduling(dnet, empty_meta, device=DEVICE),
+            ("cs_sweep", "bf_relax"))
+    finally:
+        cost_scaling.solve_cost_scaling = solve
+    (inner,) = seen
     log(f"[general] DIMACS flagship through solve_scheduling: backend="
-        f"{out.backend} cost={out.cost} oracle={want} wall_ms={ms:.3f}")
-    if out.backend != "cost_scaling" or out.cost != want:
-        raise AssertionError(f"[general] DIMACS: {out.backend} {out.cost}")
+        f"{out.backend} cost={out.cost} oracle={want} wall_ms={ms:.3f} "
+        f"loop_syncs={inner.loop_syncs} fetches={inner.fetches}")
+    if out.backend != "cost_scaling" or out.cost != want or \
+            inner.loop_syncs != 0 or inner.fetches != 1:
+        raise AssertionError(f"[general] DIMACS: {out.backend} {out.cost} "
+                             f"{inner.loop_syncs} loop reads")
 
     cold, cold_ms, _ = counted("dense cold", lambda: solve_scheduling(
         flag, meta, small_to_oracle=False, device=DEVICE), ROUND_KERNELS)
@@ -6756,6 +6946,21 @@ def analysis_phase(torch, card: str) -> None:
         raise AssertionError("[analysis] stream flush: no outcome")
     check_sync_window("stream flush", sites, solver.last_stream_fetches
                       + solver.last_round_loop_syncs, inventory, sanctioned)
+
+    # the general lane: a cost-scaling and an SSP flagship solve, each its
+    # tables' uploads, one graph and one fetch (no read in the loops)
+    from poseidon_tpu_torch.ops import cost_scaling, ssp
+
+    flag, _ = priced_net(torch, cluster, torch.device("cuda"))
+    for label, solve in (("cost-scaling flagship",
+                          cost_scaling.solve_cost_scaling),
+                         ("SSP flagship", ssp.solve_ssp)):
+        out, sites = sync_map(torch, lambda: solve(flag, device="cuda"))
+        got = check_sync_window(label, sites, out.fetches + out.loop_syncs,
+                                inventory, sanctioned)
+        if out.loop_syncs or out.fetches != 1 or got["reads"] != 1:
+            raise AssertionError(f"[analysis] {label}: {got['reads']} "
+                                 f"reads, loop_syncs={out.loop_syncs}")
 
 
 # the reference's exhausted trials of the adversarial sweep (its

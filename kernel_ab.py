@@ -7,7 +7,7 @@ and ``in``, K11 ``ssp_augment``, K12 ``top_will``, K13 ``seat_sort``, K6
 what surrounds them), of one or more checkouts on one GPU, in turns, in
 one run.
 
-    python3 kernel_ab.py [--parts=window,kernels,syncs] ROOT [ROOT ...]
+    python3 kernel_ab.py [--parts=window,kernels,syncs,graph] ROOT [ROOT ...]
 
 ``--parts`` names what to measure (``window`` and ``kernels`` by
 default): ``window`` the lanes (``window_lanes``: its note says what
@@ -15,7 +15,11 @@ each number is), ``kernels`` the rest below, ``syncs`` the flagship's
 synchronising calls (``sync_rounds``: a cold and three churned warm
 rounds under ``torch.cuda.set_sync_debug_mode("warn")``, each call
 counted and split into ``SyncCounter.read`` and the rest, beside the
-solver's own counters and the round's wall).
+solver's own counters and the round's wall), ``graph`` the auction
+loop's CUDA graph as the checkout builds it (``auction_graph``: one
+adversarial trial's dense solve, its graph printed by the driver's
+``cuGraphDebugDotPrint`` with addresses and handles masked, so two
+checkouts that build the same nodes print the same text).
 
 Each ROOT is the root of a checkout of this repository (for example a
 ``git archive`` of an older commit unpacked into a directory that
@@ -111,13 +115,14 @@ The card's name and power limit come first, from ``nvidia-smi``.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
 import sys
 import time
 
-PARTS = ("window", "kernels", "syncs")
+PARTS = ("window", "kernels", "syncs", "graph")
 DEFAULT_PARTS = ("window", "kernels")
 # K8's shapes: the flagship's table (a width-1 mesh's one shard) and
 # config 8's aggregated table
@@ -158,6 +163,8 @@ def worker(root: str, parts: tuple[str, ...] = DEFAULT_PARTS) -> dict:
         out["syncs"] = sync_rounds(torch)
     if "window" in parts:
         out.update(window_lanes(torch, dev))
+    if "graph" in parts:
+        out["graph"] = auction_graph(torch)
     if "kernels" not in parts:
         return out
     rng = np.random.default_rng(0)
@@ -348,6 +355,14 @@ def mirror_costs(g, pot, flow):
     return ssp.mirror_costs(g, pot, flow)
 
 
+def in_parity(torch, dev, k10) -> tuple:
+    """K10 ``in``'s parity word (even: read the first buffer of the pair)
+    where this process's checkout takes one, else nothing."""
+    if "parity" in inspect.signature(k10.bf_relax_in).parameters:
+        return (torch.zeros(1, dtype=torch.int32, device=dev),)
+    return ()
+
+
 def ssp_step_call(torch, dev, net):
     """K11 at SSP's first path of the flagship (``net``), with this
     process's checkout: (timed call, its restore, check against the twin,
@@ -375,27 +390,32 @@ def ssp_step_call(torch, dev, net):
     d2, changed = torch.empty_like(dist), torch.ones(1, dtype=i32, device=dev)
     while int(changed[0]):
         k10.bf_relax_in(g.seg, g.arc, g.head, mrc, dist, d2, pred, changed,
-                        g.plan)
+                        g.plan, *in_parity(torch, dev, k10))
         dist, d2 = d2, dist
     state0 = torch.zeros(2, dtype=i32, device=dev)
 
     if hasattr(k11, "PathStep"):
+        # a checkout whose step reads its parity words on the device takes
+        # them (0, 0); an older one keeps the host's d and p
+        words = "parity" in inspect.signature(k11.PathStep).parameters
+
         def make():
+            par = (torch.zeros(2, dtype=i32, device=dev),) if words else ()
             st = k11.PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap,
-                              fsrc_d, fdst_d, NN, wanted, S, T)
+                              fsrc_d, fdst_d, NN, wanted, S, T, *par)
             st.flow.copy_(flow0)
             st.pred.copy_(pred)
-            st.dist[st.d].copy_(dist)
+            st.dist[0].copy_(dist)
             return st
 
         st = make()
-        d0, p0 = st.d, st.p
 
         def restore():
             st.flow.copy_(flow0)
             st.state.copy_(state0)
             st.pred.copy_(pred)
-            st.d, st.p = d0, p0
+            if not words:
+                st.d, st.p = 0, 0
 
         def call():
             restore()
@@ -592,35 +612,63 @@ def general_calls(torch, dev, net) -> dict:
     from poseidon_tpu_torch.ops import ssp
 
     fuse = 200 * (net.num_node_slots.bit_length() + 8) * 8
+    # a checkout whose solve keeps eps on the device splits the global
+    # update into bodies (bf_init, bf_burst, update) and runs its host
+    # loop on request; an older one has global_update(eps)
+    bodies = not hasattr(cs._Solve, "global_update")
 
     class Sampled(cs._Solve):
         """The solve, keeping the state at the start of the refine burst
         whose active nodes hold the most positions."""
         best = (-1, None)
 
-        def global_update(self, eps: int) -> None:
+        def sample(self, eps: int) -> None:
             act = self.excess > 0
             deg = (self.g.seg[1:] - self.g.seg[:-1]).long()
             load = int(deg[act].sum())
             if load > self.best[0]:
                 self.best = (load, (self.flow.clone(), self.excess.clone(),
                                     self.price.clone(), eps))
-            super().global_update(eps)
+
+        if bodies:
+            def bf_init(self) -> None:
+                self.sample(int(self.eps))
+                super().bf_init()
+        else:
+            def global_update(self, eps: int) -> None:
+                self.sample(eps)
+                super().global_update(eps)
 
     sampled = Sampled(net, dev, 8, fuse, 16)
-    sampled.run()
+    sampled.run(host_loop=True) if bodies else sampled.run()
     flow, excess, price, eps = sampled.best[1]
     s = cs._Solve(net, dev, 8, fuse, 16)
     s.flow.copy_(flow)
     s.excess.copy_(excess)
     s.price.copy_(price)
-    s.global_update(eps)
+    if bodies:
+        s.eps.fill_(eps)
+        s.bf_init()
+        it = 0
+        while True:
+            s.bf_burst()
+            it += 8
+            if not (int(s.changed[0]) and it < s.NN):
+                break
+        s.update()
+    else:
+        s.global_update(eps)
     g = s.g
     plan = (g.plan,) if hasattr(g, "plan") else ()
 
+    # a checkout whose solve keeps eps on the device passes it there
+    eps_arg = torch.tensor(eps, dtype=torch.int64, device=dev) if bodies \
+        else eps
+
     def sweep_args(fl):
         return (g.seg, g.arc, g.head, g.cost, g.fcap, fl, s.excess, s.price,
-                eps, torch.empty_like(s.excess), torch.empty_like(s.price))
+                eps_arg, torch.empty_like(s.excess),
+                torch.empty_like(s.price))
 
     def check_sweep():
         a, b = sweep_args(s.flow.clone()), sweep_args(s.flow.clone())
@@ -660,9 +708,11 @@ def general_calls(torch, dev, net) -> dict:
                 torch.full((NN,), 2 * F, dtype=torch.int32, device=dev),
                 torch.zeros(1, dtype=torch.int32, device=dev))
 
+    par = in_parity(torch, dev, k10)
+
     def check_in():
         a, b = in_args(), in_args()
-        k10.bf_relax_in(*a, *plan2)
+        k10.bf_relax_in(*a, *plan2, *par)
         k10.bf_relax_in_plain(*b)
         return all(torch.equal(x, y) for x, y in zip(a[5:], b[5:]))
 
@@ -671,7 +721,8 @@ def general_calls(torch, dev, net) -> dict:
         "cs_sweep": (lambda: k9.cs_sweep(*sweep_call, *plan), check_sweep),
         "bf_relax_out": (lambda: k10.bf_relax_out(*out_call, *plan),
                          check_out),
-        "bf_relax_in": (lambda: k10.bf_relax_in(*in_call, *plan2), check_in),
+        "bf_relax_in": (lambda: k10.bf_relax_in(*in_call, *plan2, *par),
+                        check_in),
     }
 
 
@@ -938,6 +989,60 @@ def window_lanes(torch, dev, K: int = 8, n: int = 16) -> dict:
                 rows["launches"] = delta(c0)
     out["express"] = rows
     return out
+
+
+def auction_graph(torch, trial: int = 8) -> dict:
+    """The auction loop's graph of adversarial trial ``trial`` (8: coco,
+    34 machines x 128 tasks, converged after thousands of rounds, every
+    branch taken), as this process's checkout builds it: the trial's
+    outcome and the graph's text from the driver's
+    ``cuGraphDebugDotPrint`` (verbose, child and conditional bodies
+    included) with what differs between two builds of the same nodes
+    masked: hexadecimal addresses, numbers of 7 or more digits (node
+    ids, handles), the graphs' numbers (their order of creation) and the
+    per-file hashes in the kernels' mangled names. ``sha256`` is that
+    text's digest; ``sha256_k14`` the digest once K14's mangled name
+    (its argument list) is cut to ``loop_ctl_kernel`` too; ``nodes``
+    counts the nodes by kind."""
+    import collections
+    import hashlib
+    import importlib.util
+    import re
+    import tempfile
+
+    from poseidon_tpu_torch import adversarial
+    from poseidon_tpu_torch.ops import dense_auction as da
+
+    (job,) = [j for j in adversarial.trial_inputs(trial + 1) if j[0] == trial]
+    rec = adversarial.run_trial(*job, "cuda")
+    torch.cuda.synchronize()
+    (entry,) = list(da._graphs.values())
+    # the driver comes from this script's own checkout's loader (an older
+    # checkout's has no ``driver``); it is the same library for every one
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab_loader", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "poseidon_tpu_torch", "kernels", "loader.py"))
+    own = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        err = own.driver().cuGraphDebugDotPrint(entry.graph._graph,
+                                                path.encode(), 1)
+        if err:
+            raise RuntimeError(f"cuGraphDebugDotPrint: CUresult {err}")
+        with open(path) as f:
+            text = f.read()
+    for pattern, mask in ((r"0x[0-9a-fA-F]+", "0x_"), (r"\b\d{7,}\b", "N"),
+                          (r"\b(graph|cluster)_\d+", r"\1_X"),
+                          (r"(_GLOBAL__N__|_cu_)[0-9a-f]{8}", r"\1H")):
+        text = re.sub(pattern, mask, text)
+    k14 = re.sub(r"_ZN\w*loop_ctl_kernel\w*", "loop_ctl_kernel", text)
+    kinds = collections.Counter(re.findall(r'label="\{(\w+)', text))
+    return {"trial": trial, "rounds": rec.rounds, "cost": rec.cost,
+            "converged": rec.converged, "nodes": dict(kinds),
+            "sha256": hashlib.sha256(text.encode()).hexdigest(),
+            "sha256_k14": hashlib.sha256(k14.encode()).hexdigest(),
+            "dot": text}
 
 
 def sync_rounds(torch, rounds: int = 4) -> list[dict]:

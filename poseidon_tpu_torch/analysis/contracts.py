@@ -340,6 +340,14 @@ _SYNC_SITES: tuple = (
      "the bucket's ONE upload of its stacked member tables"),
     ("poseidon_tpu_torch/ops/dense_auction.py", "build_dense_instance",
      "the solo lane's upload of its padded tables, once a solve"),
+    ("poseidon_tpu_torch/ops/cost_scaling.py", "residual_csr",
+     "a general solve's residual CSR: one upload a column, once a solve, "
+     "before its graph"),
+    ("poseidon_tpu_torch/kernels/csr_plan.py", "make_plan",
+     "the residual CSR's launch plan: two uploads, once a solve"),
+    ("poseidon_tpu_torch/ops/ssp.py", "_Solve.__init__",
+     "SSP's forward arc ends for its path step: two uploads, once a "
+     "solve"),
 )
 
 
@@ -355,8 +363,15 @@ DEFAULT_CONTRACTS = Contracts(
         # the what-if batch and the service's member solve: one upload,
         # the members' solves, one batched fetch
         "poseidon_tpu_torch/ops/batch.py",
+        # the general lane: its tables' uploads, one graph a solve on the
+        # card, one fetch (the CPU's host loop reads its flags through
+        # SyncCounter.read)
+        "poseidon_tpu_torch/ops/cost_scaling.py",
+        "poseidon_tpu_torch/ops/ssp.py",
     ),
     hot_path_functions={
+        # the general lane's launch plan, made once a solve
+        "poseidon_tpu_torch/kernels/csr_plan.py": ("make_plan",),
         # the incremental-build path: O(churn) numpy patching, never a
         # device sync
         "poseidon_tpu_torch/graph/builder.py": (

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the dense auction (its row passes,
-the deflate step's selection, the seat-layout sorts and the loop's
-control kernel K14, which drives the loop's CUDA graph), the express and
+the deflate step's selection, the seat-layout sorts and the loops'
+control kernel K14, which drives the auction's and the general lane's
+CUDA graphs), the express and
 stream lanes, the what-if batch, the sharded certificate and the
 general-graph solvers (cost-scaling and successive shortest paths), each
 beside its plain PyTorch twin and its launch counter.

@@ -53,11 +53,14 @@ def bf_relax_out_plain(seg, head, ln, d_in, d_out, changed):
     changed.copy_((new < d_in).any().to(torch.int32).reshape(1))
 
 
-def bf_relax_in_plain(seg, arc, head, mrc, dist_in, dist_out, pred, changed):
+def bf_relax_in_plain(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
+                      parity=None):
     """The reference's ``round_`` restated over the CSR positions: position
     p stands for the mirror m of ``arc[p]``, an in-arc of p's tail with
     tail ``head[p]``; ``mrc[p]`` is rc[m], or INF where m has no capacity
-    left."""
+    left. An odd ``parity`` word swaps the pair's roles."""
+    if parity is not None and int(parity.reshape(-1)[0]) & 1:
+        dist_in, dist_out = dist_out, dist_in
     NN = seg.shape[0] - 1
     F = arc.shape[0] // 2
     node = csr_tails(seg)
@@ -105,15 +108,19 @@ def bf_relax_out(seg, head, ln, d_in, d_out, changed, plan: CsrPlan):
 
 @census_op("bf_relax")
 def bf_relax_in(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
-                plan: CsrPlan):
+                plan: CsrPlan, parity):
     """One SSP relaxation round: ``seg`` int32[NN + 1], ``arc``/``head``/
     ``mrc`` int32[2F], ``dist_in``/``dist_out``/``pred`` int32[NN] (pred
-    in place), ``changed`` int32[1]; ``plan`` the CSR's launch plan. CPU
-    tensors take the plain twin, which needs no plan; CUDA tensors launch
-    K10."""
-    if not on_card(seg, arc, head, mrc, dist_in, dist_out, pred, changed):
+    in place), ``changed`` int32[1]; ``plan`` the CSR's launch plan.
+    ``parity``, a one-element int32 tensor beside them, gives the pair's
+    roles on the device: when it is even the round reads ``dist_in`` and
+    writes ``dist_out``, when it is odd the other way (the caller advances
+    the word between rounds). CPU tensors take the plain twin, which needs
+    no plan; CUDA tensors launch K10."""
+    if not on_card(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
+                   parity):
         bf_relax_in_plain(seg, arc, head, mrc, dist_in, dist_out, pred,
-                          changed)
+                          changed, parity)
         return
     NN = seg.shape[0] - 1
     R = arc.shape[0]
@@ -125,10 +132,11 @@ def bf_relax_in(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
         (pred, "pred", i32, (NN,)), (changed, "changed", i32, (1,)),
     )
     ptrs = [kernel_arg(t, name, dt, shape) for t, name, dt, shape in spec]
+    par = kernel_arg(parity, "parity", i32, (1,))
     pp = plan_args(plan, NN, R)
     with torch.cuda.device(dist_in.device):
         err = library("bf_relax").bf_relax_in_launch(
-            *pp, *ptrs[1:], plan.n_heavy, plan.n_light, R // 2,
-            stream_ptr(dist_in))
+            *pp, *ptrs[1:6], par, *ptrs[6:], plan.n_heavy, plan.n_light,
+            R // 2, stream_ptr(dist_in))
     check_launch(KERNEL, err)
     KERNEL.launches += 1

@@ -51,9 +51,10 @@ def residual(arc, fcap, flow):
 
 
 def cs_sweep_plain(seg, arc, head, cost, fcap, flow, excess_in, price_in,
-                   eps: int, excess_out, price_out):
+                   eps, excess_out, price_out):
     """The reference lines restated in PyTorch over the CSR positions
-    (each residual arc once), with the kernel's in-place contract."""
+    (each residual arc once), with the kernel's in-place contract;
+    ``eps`` an int or an int64 0-d tensor beside the others."""
     NN = seg.shape[0] - 1
     F = fcap.shape[0]
     i64, dev = torch.int64, seg.device
@@ -91,15 +92,19 @@ def cs_sweep_plain(seg, arc, head, cost, fcap, flow, excess_in, price_in,
 
 @census_op("cs_sweep")
 def cs_sweep(seg, arc, head, cost, fcap, flow, excess_in, price_in,
-             eps: int, excess_out, price_out, plan: CsrPlan):
+             eps, excess_out, price_out, plan: CsrPlan):
     """One discharge sweep at ``eps``. ``seg`` int32[NN + 1], ``arc``/
     ``head`` int32[2F], ``cost`` int64[2F] (the CSR), ``fcap``/``flow``
-    int32[F], ``excess_*`` int32[NN], ``price_*`` int64[NN]; ``plan`` the
-    CSR's launch plan (``ResidualCSR.plan``). CPU tensors take the plain
-    twin, which needs no plan; CUDA tensors launch K9."""
+    int32[F], ``excess_*`` int32[NN], ``price_*`` int64[NN]; ``eps`` an
+    int64 0-d tensor beside them (K9 reads it on the device, so a
+    captured launch takes each run's eps); ``plan`` the CSR's launch plan
+    (``ResidualCSR.plan``). CPU tensors take the plain twin, which needs
+    no plan; CUDA tensors launch K9."""
+    if not isinstance(eps, torch.Tensor):
+        raise TypeError("cs_sweep: eps must be an int64 0-d tensor")
     args = (seg, arc, head, cost, fcap, flow, excess_in, price_in,
             excess_out, price_out)
-    if not on_card(*args):
+    if not on_card(*args, eps):
         cs_sweep_plain(seg, arc, head, cost, fcap, flow, excess_in,
                        price_in, eps, excess_out, price_out)
         return
@@ -120,8 +125,8 @@ def cs_sweep(seg, arc, head, cost, fcap, flow, excess_in, price_in,
     pp = plan_args(plan, NN, R)
     with torch.cuda.device(flow.device):
         err = library("cs_sweep").cs_sweep_launch(
-            *pp, *ptrs[1:], int(eps), plan.n_heavy, plan.n_light, NN, F,
-            stream_ptr(flow),
+            *pp, *ptrs[1:], kernel_arg(eps, "eps", i64, ()), plan.n_heavy,
+            plan.n_light, NN, F, stream_ptr(flow),
         )
     check_launch(KERNEL, err)
     KERNEL.launches += 1

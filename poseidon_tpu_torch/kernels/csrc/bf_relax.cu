@@ -27,10 +27,14 @@
 // lowest arc id among the candidates equal to best, carried by a plain
 // 64-bit min across lanes, chunks and blocks.
 //
-// Both read d/dist from one buffer and write the other (the host swaps
-// them between rounds): a head's distance is read by other blocks in the
-// same launch. pred is written in place (only its owner reads or writes
-// it). Each launch zeroes `changed` first.
+// Both read d/dist from one buffer and write the other: a head's distance
+// is read by other blocks in the same launch. `out`'s caller swaps them
+// between rounds; `in` takes the pair with a parity word on the device
+// (SSP's graph, ops/ssp.py, counts its rounds there): it reads the first
+// buffer and writes the second when the word is even, the other way when
+// it is odd, so a captured round follows the rounds the device ran. pred
+// is written in place (only its owner reads or writes it). Each launch
+// zeroes `changed` first.
 //
 // Bound: bytes. A round reads the whole CSR and the node vector: `out`
 // reads seg, head and ln (16 bytes an arc) and d at each head (8), and
@@ -211,10 +215,14 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
     bf_in_kernel(const int4* __restrict__ plan, int n_heavy, int n_light,
                  const int* __restrict__ tail, const int* __restrict__ arc,
-                 const int* __restrict__ head, const int* __restrict__ mrc,
-                 const int* __restrict__ dist_in, int* __restrict__ dist_out,
-                 int* __restrict__ pred, int* __restrict__ changed, int F) {
-  relax(In{arc, head, mrc, dist_in, dist_out, pred, F}, plan, n_heavy, n_light, tail, changed);
+                 const int* __restrict__ head, const int* __restrict__ mrc, int* dist_a,
+                 int* dist_b, const int* __restrict__ parity, int* __restrict__ pred,
+                 int* __restrict__ changed, int F) {
+  // the buffer pair read and written in turn: dist_a -> dist_b, or the
+  // other way when the device's parity word is odd
+  const bool flip = (*parity & 1) != 0;
+  relax(In{arc, head, mrc, flip ? dist_b : dist_a, flip ? dist_a : dist_b, pred, F}, plan, n_heavy,
+        n_light, tail, changed);
 }
 
 }  // namespace
@@ -233,15 +241,16 @@ extern "C" int bf_relax_out_launch(const int* plan, const int* tail, const int* 
 }
 
 extern "C" int bf_relax_in_launch(const int* plan, const int* tail, const int* arc, const int* head,
-                                  const int* mrc, const int* dist_in, int* dist_out, int* pred,
-                                  int* changed, int n_heavy, int n_light, int F, void* stream) {
+                                  const int* mrc, int* dist_a, int* dist_b, const int* parity,
+                                  int* pred, int* changed, int n_heavy, int n_light, int F,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(changed, 0, sizeof(int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = grid_blocks(n_heavy, n_light);
   if (blocks == 0) return 0;
   bf_in_kernel<<<blocks, THREADS, 0, s>>>(reinterpret_cast<const int4*>(plan), n_heavy, n_light,
-                                          tail, arc, head, mrc, dist_in, dist_out, pred, changed,
-                                          F);
+                                          tail, arc, head, mrc, dist_a, dist_b, parity, pred,
+                                          changed, F);
   return static_cast<int>(cudaGetLastError());
 }

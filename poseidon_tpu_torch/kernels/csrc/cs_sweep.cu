@@ -53,6 +53,10 @@
 // pass 2 reloads them.) Integer sums are exact in any order, so the
 // result is the same bit for bit under any split.
 //
+// eps is read on the device, through its address (the general lane's
+// graph, ops/cost_scaling.py, changes it between sweeps): one load a
+// thread, the same value in every thread of the launch.
+//
 // Every read is of the pre-sweep state, as the reference's:
 //   - price: read from price_in, written to price_out (double buffer);
 //   - excess: the launch copies excess_in to excess_out first, then
@@ -139,8 +143,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
                     const int* __restrict__ tail, const int* __restrict__ arc,
                     const int* __restrict__ head, const long long* __restrict__ cost,
                     const int* __restrict__ fcap, int* flow, const int* __restrict__ excess_in,
-                    const long long* __restrict__ price_in, long long eps, int* excess_out,
-                    long long* __restrict__ price_out, int F) {
+                    const long long* __restrict__ price_in, const long long* __restrict__ eps_at,
+                    int* excess_out, long long* __restrict__ price_out, int F) {
   // per node of a light block (slot 0 of s_c*: a heavy node's choice record, in rank 0)
   __shared__ long long s_total[MAX_NODES], s_sum[MAX_NODES], s_out[MAX_NODES];
   __shared__ long long s_price[MAX_NODES];
@@ -154,6 +158,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 
   const Work w = decode(plan, n_heavy, n_light);
   if (w.idle) return;
+  // eps from the device (a captured sweep takes each run's eps)
+  const long long eps = *eps_at;
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31, warp = tid >> 5;
   const int SENT = 2 * F;
@@ -358,8 +364,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 extern "C" int cs_sweep_launch(const int* plan, const int* tail, const int* arc, const int* head,
                                const long long* cost, const int* fcap, int* flow,
                                const int* excess_in, const long long* price_in, int* excess_out,
-                               long long* price_out, long long eps, int n_heavy, int n_light,
-                               int NN, int F, void* stream) {
+                               long long* price_out, const long long* eps_at, int n_heavy,
+                               int n_light, int NN, int F, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemcpyAsync(excess_out, excess_in, static_cast<size_t>(NN) * sizeof(int),
                                   cudaMemcpyDeviceToDevice, s);
@@ -368,6 +374,7 @@ extern "C" int cs_sweep_launch(const int* plan, const int* tail, const int* arc,
   if (blocks == 0) return 0;
   cs_sweep_kernel<<<blocks, THREADS, 0, s>>>(reinterpret_cast<const int4*>(plan), n_heavy,
                                              n_light, tail, arc, head, cost, fcap, flow,
-                                             excess_in, price_in, eps, excess_out, price_out, F);
+                                             excess_in, price_in, eps_at, excess_out, price_out,
+                                             F);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,10 @@
 //
 // Design: two launches on the caller's stream from one C entry point,
 // whose arguments are a host struct of device pointers checked once per
-// solve (kernels/ssp_augment.py) and three integers.
+// solve (kernels/ssp_augment.py) and one integer. The buffer indices d
+// and p are the low bits of two parity words on the device (SSP's graph,
+// ops/ssp.py: the number of relaxation rounds before a step is the
+// device's), each kernel picking its buffers from the pairs.
 // - `ssp_walk_kernel`, one block: thread 0 walks T -> S once, keeping
 //   the first `record` arc ids in shared memory and the bottleneck; the
 //   block's threads then add +-delta to the recorded arcs together. A
@@ -66,14 +69,16 @@ __device__ __forceinline__ int wrap_sub(int a, int b) {
 }
 
 __global__ void __launch_bounds__(WALK_THREADS)
-    ssp_walk_kernel(const int* __restrict__ pred, const int* __restrict__ dist,
-                    const int* __restrict__ fsrc, const int* __restrict__ fdst,
-                    const int* __restrict__ fcap, int* __restrict__ flow, int* __restrict__ state,
-                    int wanted, int S, int T, int NN, int F, int record) {
+    ssp_walk_kernel(const int* __restrict__ pred, const int* dist0, const int* dist1,
+                    const int* __restrict__ par, const int* __restrict__ fsrc,
+                    const int* __restrict__ fdst, const int* __restrict__ fcap,
+                    int* __restrict__ flow, int* __restrict__ state, int wanted, int S, int T,
+                    int NN, int F, int record) {
   extern __shared__ int rec[];
   __shared__ int s_delta, s_h, s_rest;
   if (threadIdx.x == 0) {
     const int NO_PRED = 2 * F;
+    const int* dist = (par[0] & 1) ? dist1 : dist0;
     const bool reachable = dist[T] < INF;
     int v = T;
     int bneck = INF;
@@ -134,11 +139,17 @@ __global__ void __launch_bounds__(WALK_THREADS)
 __global__ void __launch_bounds__(WIDE_THREADS)
     ssp_wide_kernel(const int* __restrict__ arc, const int* __restrict__ head,
                     const int* __restrict__ tail, const int* __restrict__ cost,
-                    const int* __restrict__ fcap, const int* __restrict__ flow,
-                    const int* __restrict__ dist, int* __restrict__ dist_next,
-                    const int* __restrict__ pot, int* __restrict__ pot_next,
+                    const int* __restrict__ fcap, const int* __restrict__ flow, int* dist0,
+                    int* dist1, int* pot0, int* pot1, const int* __restrict__ par,
                     int* __restrict__ pred, int* __restrict__ mrc, int S, int NN, int F, int R,
                     int first) {
+  // the step's buffer indices: the low bits of the parity words par[0]
+  // (dist) and par[1] (pot)
+  const int dp = par[0] & 1, pp = par[1] & 1;
+  const int* __restrict__ dist = dp ? dist1 : dist0;
+  int* __restrict__ dist_next = dp ? dist0 : dist1;
+  const int* __restrict__ pot = pp ? pot1 : pot0;
+  int* __restrict__ pot_next = pp ? pot0 : pot1;
   const int i = blockIdx.x * WIDE_THREADS + threadIdx.x;
   if (i < R) {
     const int a = arc[i];
@@ -184,27 +195,29 @@ struct SspArgs {
   int* state;
   int* dist[2];
   int* pot[2];
+  const int* par;  // the parity words (d, p) on the device
   long long wanted, S, T, NN, F, R, record;
 };
 
 // One path step: dist[d] holds the path's distances (unread when
 // `first`), pot[p] its potentials; the next relaxation reads dist[d ^ 1]
-// and the next step pot[p ^ 1].
-extern "C" int ssp_step_launch(const SspArgs* a, int d, int p, int first, void* stream) {
+// and the next step pot[p ^ 1]. d and p are par[0] & 1 and par[1] & 1,
+// read on the device (the caller advances the words after the step).
+extern "C" int ssp_step_launch(const SspArgs* a, int first, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = static_cast<int>(a->S), NN = static_cast<int>(a->NN);
   const int F = static_cast<int>(a->F), R = static_cast<int>(a->R);
   if (!first) {
     const int record = static_cast<int>(a->record);
     ssp_walk_kernel<<<1, WALK_THREADS, record * sizeof(int), st>>>(
-        a->pred, a->dist[d], a->fsrc, a->fdst, a->fcap, a->flow, a->state,
+        a->pred, a->dist[0], a->dist[1], a->par, a->fsrc, a->fdst, a->fcap, a->flow, a->state,
         static_cast<int>(a->wanted), S, static_cast<int>(a->T), NN, F, record);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int n = R > NN ? R : NN;
   ssp_wide_kernel<<<(n + WIDE_THREADS - 1) / WIDE_THREADS, WIDE_THREADS, 0, st>>>(
-      a->arc, a->head, a->tail, a->cost, a->fcap, a->flow, a->dist[d], a->dist[d ^ 1], a->pot[p],
-      a->pot[p ^ 1], a->pred, a->mrc, S, NN, F, R, first);
+      a->arc, a->head, a->tail, a->cost, a->fcap, a->flow, a->dist[0], a->dist[1], a->pot[0],
+      a->pot[1], a->par, a->pred, a->mrc, S, NN, F, R, first);
   return static_cast<int>(cudaGetLastError());
 }

@@ -181,6 +181,19 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def driver() -> ctypes.CDLL:
+    """The CUDA driver (``libcuda``), opened once, for the driver calls
+    no kernel library wraps: ``kernel_ab.py``'s print of a loop graph
+    (``cuGraphDebugDotPrint``)."""
+    with _lock:
+        lib = _libs.get("cuda")
+        if lib is None:
+            lib = _libs["cuda"] = ctypes.CDLL("libcuda.so.1")
+            lib.cuGraphDebugDotPrint.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint]
+        return lib
+
+
 def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     """Type every entry point: pointers and the stream as c_void_p (a
     bare Python int would be cut to 32 bits), sizes as c_int, 64-bit
@@ -219,14 +232,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "gap_rows_occupancy": [I] + occupancy,
         },
         "cs_sweep": {
-            "cs_sweep_launch": [P] * 11 + [L] + [I] * 4 + [P],
+            "cs_sweep_launch": [P] * 12 + [I] * 4 + [P],
         },
         "bf_relax": {
             "bf_relax_out_launch": [P] * 7 + [I] * 2 + [P],
-            "bf_relax_in_launch": [P] * 9 + [I] * 3 + [P],
+            "bf_relax_in_launch": [P] * 10 + [I] * 3 + [P],
         },
         "ssp_augment": {
-            "ssp_step_launch": [P, I, I, I, P],
+            "ssp_step_launch": [P, I, P],
         },
         "top_will": {
             "top_will_list_launch": [P] * 5 + [I] * 5 + [P, I] + [P] * 3,
@@ -241,10 +254,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "seat_compact_launch": [P] + [I] * 4 + [P] * 3,
         },
         "loop_graph": {
-            "loop_graph_build": [P] * 9 + [P, P],
-            "loop_graph_launch": [P, P],
-            "loop_graph_destroy": [P, P],
-            "loop_ctl_launch": [I] + [P] * 7,
+            "lg_create": [P],
+            "lg_handle": [P, P],
+            "lg_child": [P, P, P, P],
+            "lg_ctl": [P, P, P, P],
+            "lg_cond": [P, P, ctypes.c_ulonglong, I, P, P],
+            "lg_copy": [P, P, P, P, L, P],
+            "lg_instantiate": [P, P],
+            "lg_launch": [P, P],
+            "lg_destroy": [P, P],
+            "loop_ctl_launch": [P, P],
         },
     }[_builds()[name][0]]
     for fn_name, argtypes in sigs.items():

@@ -1,42 +1,53 @@
-"""K14 ``loop_ctl`` and the auction loop's CUDA graph, with K14's plain twin.
+"""K14 ``loop_ctl`` and the port's device loops as CUDA graphs, with K14's
+plain twin.
 
-Replaces ``poseidon_tpu/ops/dense_auction.py:946-951``: the ``cond``
-and the ``lax.while_loop`` of ``_solve`` (the ``lax.cond``s of its body,
-:839-938, choose the branch). The CUDA source is ``csrc/loop_graph.cu``;
-its header note draws the graph and gives K14's modes.
+Replaces ``poseidon_tpu/ops/dense_auction.py:946-951`` (the ``cond``
+and the ``lax.while_loop`` of ``_solve``; the ``lax.cond``s of its
+body, :839-938, choose the branch) and the conditions of the general
+lane's nested ``lax.while_loop``s (``poseidon_tpu/ops/cost_scaling.py``
+:283, :258, :212; ``poseidon_tpu/ops/ssp.py`` :165, :120). The CUDA
+source is ``csrc/loop_graph.cu``; its header note gives K14's modes.
 
-``LoopGraph`` captures the loop's five bodies (head, round,
-pre, refight, tighten: callables of the port's own PyTorch code and
-kernels) into graphs of one shared private pool, each with
-``torch.cuda.CUDAGraph(keep_graph=True)`` in ``thread_local`` mode on a
-side stream, and has ``csrc/loop_graph.cu`` build the loop around them:
-a WHILE node whose body chooses its branch by IF nodes that K14 sets on
-the device. ``launch`` is one ``cudaGraphLaunch``: the host reads
-nothing until the caller's result fetch. (torch 2.11 exposes no
-conditional capture of its own; the graph is built from raw graphs.)
+A loop is described here as a ``Seq``: the nodes of one graph in order,
+each a captured body (a name), a K14 ``Step`` or a ``Cond`` (an IF or
+WHILE node with its own ``Seq``). ``ControlGraph`` captures the bodies
+(callables of the port's own PyTorch code and kernels) into graphs of
+one shared private pool, each with ``torch.cuda.CUDAGraph(keep_graph=
+True)`` in ``thread_local`` mode on a side stream, and builds the
+description from ``csrc/loop_graph.cu``'s pieces; K14 sets every
+conditional handle on the device. ``launch`` is one ``cudaGraphLaunch``:
+the host reads nothing until the caller's result fetch. (torch 2.11
+exposes no conditional capture of its own; the graph is built from raw
+graphs.) ``LoopGraph`` is the auction's loop (``AUCTION``); the general
+lane's loops are ``ops/cost_scaling.py``'s and ``ops/ssp.py``'s, one
+graph a solve (``run_once``).
 
 Launch counts. A kernel in a body launches when the graph runs that
 body, not when its wrapper is called at capture. So the capture's
 wrapper calls are taken back out of the counts and recorded per body;
-K14 keeps a running tally of the branches the graph ran (int32[8] on
-the device, copied into pinned host memory by the graph's last node),
-and once a launch has completed (``torch.cuda.Event.query``, no host
-wait) ``settle`` adds each body's launches times its runs to the
-kernels' counts. ``loader.Kernel.launches`` settles before it answers.
+K14 keeps a running tally of the branches and loop bodies the graph ran
+(int32[8] on the device, copied into pinned host memory by the graph's
+last node): each ``Seq`` names the tally slots whose sum counts its
+runs. Once a launch has completed (``torch.cuda.Event.query``, no host
+wait) ``settle`` adds each body's launches times its runs, and each K14
+node's runs, to the kernels' counts. ``loader.Kernel.launches`` settles
+before it answers.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
+import functools
 import threading
+import time
 
 import numpy as np
 import torch
 
 from poseidon_tpu_torch.guards import note_build
-from poseidon_tpu_torch.kernels._args import (
-    census_op, kernel_arg, on_card, stream_ptr,
-)
+from poseidon_tpu_torch.kernels._args import census_op, on_card, stream_ptr
 from poseidon_tpu_torch.kernels.loader import (
     Kernel, check_launch, library, register_settle,
 )
@@ -48,15 +59,156 @@ KERNEL = Kernel(
 )
 
 # K14's modes (csrc/loop_graph.cu)
-ENTER, BRANCH, PHASE, NEXT = 0, 1, 2, 3
-BODIES = ("head", "round", "pre", "refight", "tighten")
-TALLY = 8     # tally[0..3] branch runs, tally[4] graph launches
+ENTER, BRANCH, PHASE, NEXT, LOOP = 0, 1, 2, 3, 4
+TALLY = 8     # the auction: tally[0..3] branch runs, tally[4] graph launches
+TERMS = 3     # a LOOP step's most terms
+
+
+# ---- a loop's description ------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Step:
+    """A K14 node. ``sets`` names the conditional handles it sets (h0,
+    then h1). The auction's modes read ``flag`` (a tensor's name) and the
+    tensors named rounds, max_rounds and done; LOOP reads ``terms``,
+    (lhs, rhs) pairs of tensor names (None: 0 on the left, 1 on the
+    right), and counts ``go`` into tally slot ``go`` and the step's run
+    into slot ``run`` (-1: none)."""
+
+    mode: int
+    sets: tuple = ()
+    flag: str | None = None
+    terms: tuple = ()
+    go: int = -1
+    run: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class Cond:
+    """An IF (``kind`` "if") or WHILE node on the handle ``handle``, its
+    body the graph ``body``."""
+
+    kind: str
+    handle: str
+    body: "Seq"
+
+
+@dataclasses.dataclass(frozen=True)
+class Seq:
+    """One graph's nodes in order: body names, ``Step``s and ``Cond``s.
+    ``runs``: the tally slots whose sum counts the graph's runs."""
+
+    runs: tuple
+    items: tuple
+
+
+def _walk(seq: Seq):
+    """(item, its Seq) for every item, depth first in order."""
+    for item in seq.items:
+        yield item, seq
+        if isinstance(item, Cond):
+            yield from _walk(item.body)
+
+
+@functools.lru_cache(maxsize=None)
+def layout(spec: Seq) -> tuple:
+    """(bodies, steps): each body's name with its Seq's run slots, in
+    capture order, and each K14 step's run slots."""
+    bodies = tuple((it, s.runs) for it, s in _walk(spec) if isinstance(it, str))
+    steps = tuple(s.runs for it, s in _walk(spec) if isinstance(it, Step))
+    return bodies, steps
+
+
+# the auction's loop (ops/dense_auction.py ``_Loop``):
+#   ENTER -> WHILE w { head -> BRANCH -> IF round { round }
+#                      -> IF phase { pre -> PHASE -> IF refight { refight }
+#                                               -> IF tighten { tighten } }
+#                      -> NEXT }
+AUCTION = Seq((4,), (
+    Step(ENTER, sets=("w",)),
+    Cond("while", "w", Seq((0, 1), (
+        "head",
+        Step(BRANCH, sets=("round", "phase"), flag="any_waiting"),
+        Cond("if", "round", Seq((0,), ("round",))),
+        Cond("if", "phase", Seq((1,), (
+            "pre",
+            Step(PHASE, sets=("refight", "tighten"), flag="any_now"),
+            Cond("if", "refight", Seq((2,), ("refight",))),
+            Cond("if", "tighten", Seq((3,), ("tighten",))),
+        ))),
+        Step(NEXT, sets=("w",)),
+    ))),
+))
+
+
+# ---- K14 eagerly, and its twin -------------------------------------------
+
+class _Ctl(ctypes.Structure):
+    """``Ctl`` of ``csrc/loop_graph.cu``."""
+
+    _fields_ = [("lhs", ctypes.c_void_p * TERMS),
+                ("rhs", ctypes.c_void_p * TERMS)] + [
+        (n, ctypes.c_void_p) for n in (
+            "flag", "rounds", "max_rounds", "done", "codes", "tally")] + [
+        ("h0", ctypes.c_ulonglong), ("h1", ctypes.c_ulonglong)] + [
+        (n, ctypes.c_int) for n in ("mode", "go_slot", "run_slot",
+                                    "n_handles")]
+
+
+def _word(t, name: str, dtype: torch.dtype) -> int:
+    """The device address of a one-element tensor K14 reads or writes."""
+    if t.dtype != dtype or t.numel() != 1:
+        raise TypeError(f"loop_ctl {name}: one {dtype} element, got "
+                        f"{t.dtype} of shape {tuple(t.shape)}")
+    return t.data_ptr()
+
+
+def _vector(t, name: str, n: int) -> int:
+    if t.dtype != torch.int32 or tuple(t.shape) != (n,) \
+            or not t.is_contiguous():
+        raise TypeError(f"loop_ctl {name}: int32[{n}] contiguous")
+    return t.data_ptr()
+
+
+def _ctl(step: Step, tensors: dict, codes, tally, handles=()) -> _Ctl:
+    c = _Ctl()
+    c.mode, c.go_slot, c.run_slot = step.mode, step.go, step.run
+    if step.mode == LOOP:
+        if len(step.terms) > TERMS:
+            raise ValueError(f"loop_ctl: at most {TERMS} terms")
+        for i, (lhs, rhs) in enumerate(step.terms):
+            c.lhs[i] = None if lhs is None else _word(tensors[lhs], lhs, torch.int32)
+            c.rhs[i] = None if rhs is None else _word(tensors[rhs], rhs, torch.int32)
+    else:
+        if step.flag is not None:
+            c.flag = _word(tensors[step.flag], step.flag, torch.bool)
+        c.rounds = _word(tensors["rounds"], "rounds", torch.int32)
+        c.max_rounds = _word(tensors["max_rounds"], "max_rounds", torch.int32)
+        c.done = _word(tensors["done"], "done", torch.bool)
+        c.codes = _vector(codes, "codes", 4)
+    c.tally = _vector(tally, "tally", TALLY)
+    if len(handles) > 2:
+        raise ValueError("loop_ctl: at most two handles")
+    c.n_handles = len(handles)
+    c.h0, c.h1 = (*handles, 0, 0)[:2]
+    return c
+
+
+def _launch_eager(step: Step, tensors: dict, codes, tally) -> None:
+    dev = tally.device
+    ctl = _ctl(step, tensors, codes, tally)
+    with torch.cuda.device(dev):
+        err = library("loop_graph").loop_ctl_launch(ctypes.byref(ctl),
+                                                   stream_ptr(tally))
+    check_launch(KERNEL, err)
+    KERNEL.launches += 1
 
 
 def loop_ctl_plain(mode: int, flag, rounds, max_rounds, done, codes, tally):
-    """K14 restated in PyTorch, in place on ``codes`` int32[4] and
-    ``tally`` int32[8]. Returns the values it gives the two conditional
-    handles (int32 tensors; ENTER and NEXT set one, the loop's)."""
+    """K14's auction modes restated in PyTorch, in place on ``codes``
+    int32[4] and ``tally`` int32[8]. Returns the values it gives the two
+    conditional handles (int32 tensors; ENTER and NEXT set one, the
+    loop's)."""
     if mode in (BRANCH, PHASE):
         a = flag.to(torch.int32).reshape(())
         lo = 0 if mode == BRANCH else 2
@@ -75,29 +227,57 @@ def loop_ctl_plain(mode: int, flag, rounds, max_rounds, done, codes, tally):
 
 @census_op("loop_ctl")
 def loop_ctl(mode: int, flag, rounds, max_rounds, done, codes, tally):
-    """One K14 step outside a graph (no handles): the check against the
-    twin. CPU tensors take the twin; CUDA tensors launch K14. Returns
-    the handle values on the CPU and None on the card, where no handle
-    exists outside a graph."""
+    """One K14 step of the auction's modes outside a graph (no handles):
+    the check against the twin. CPU tensors take the twin; CUDA tensors
+    launch K14. Returns the handle values on the CPU and None on the
+    card, where no handle exists outside a graph."""
     if mode not in (ENTER, BRANCH, PHASE, NEXT):
         raise ValueError(f"loop_ctl: mode {mode}")
     if not on_card(flag, rounds, max_rounds, done, codes, tally):
         return loop_ctl_plain(mode, flag, rounds, max_rounds, done, codes, tally)
-    i32 = torch.int32
-    dev = codes.device
-    with torch.cuda.device(dev):
-        err = library("loop_graph").loop_ctl_launch(
-            mode, kernel_arg(flag, "flag", torch.bool, ()),
-            kernel_arg(rounds, "rounds", i32, ()),
-            kernel_arg(max_rounds, "max_rounds", i32, ()),
-            kernel_arg(done, "done", torch.bool, ()),
-            kernel_arg(codes, "codes", i32, (4,)),
-            kernel_arg(tally, "tally", i32, (TALLY,)), stream_ptr(codes),
-        )
-    check_launch(KERNEL, err)
-    KERNEL.launches += 1
+    _launch_eager(Step(mode, flag="flag"),
+                  {"flag": flag, "rounds": rounds, "max_rounds": max_rounds,
+                   "done": done}, codes, tally)
     return None
 
+
+def loop_step_plain(terms, tally, go_slot: int = -1, run_slot: int = -1):
+    """K14's LOOP mode restated in PyTorch: ``terms`` (lhs, rhs) pairs of
+    one-element int32 tensors or None (0 on the left, 1 on the right),
+    the tally updated in place. Returns go (an int32 0-d tensor)."""
+    i32 = torch.int32
+    go = torch.ones((), dtype=i32, device=tally.device)
+    for lhs, rhs in terms:
+        if lhs is None and rhs is None:
+            continue
+        a = torch.zeros((), dtype=i32) if lhs is None else lhs.reshape(())
+        b = torch.ones((), dtype=i32) if rhs is None else rhs.reshape(())
+        go = go & (a < b).to(i32)
+    if go_slot >= 0:
+        tally[go_slot] += go
+    if run_slot >= 0:
+        tally[run_slot] += 1
+    return go
+
+
+@census_op("loop_ctl")
+def loop_step(terms, tally, go_slot: int = -1, run_slot: int = -1):
+    """One K14 LOOP step outside a graph (no handles): the check against
+    the twin. CPU tensors take the twin and return go; CUDA tensors
+    launch K14 and return None."""
+    given = [t for pair in terms for t in pair if t is not None]
+    if not on_card(tally, *given):
+        return loop_step_plain(terms, tally, go_slot, run_slot)
+    names = [tuple(None if t is None else f"t{i}{j}" for j, t in enumerate(p))
+             for i, p in enumerate(terms)]
+    tensors = {f"t{i}{j}": t for i, p in enumerate(terms)
+               for j, t in enumerate(p) if t is not None}
+    _launch_eager(Step(LOOP, terms=tuple(names), go=go_slot, run=run_slot),
+                  tensors, None, tally)
+    return None
+
+
+# ---- the graphs ------------------------------------------------------------
 
 # graphs with launches whose tallies are not yet in the kernels' counts
 _pending: set = set()
@@ -126,18 +306,27 @@ def _kernels():
     return kernels.KERNELS
 
 
-class LoopGraph:
-    """The auction loop of one solve shape as one executable graph.
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: cudaError {err}")
 
-    ``bodies`` maps each name of ``BODIES`` to a callable that runs it
-    on the loop's static tensors; ``flags`` gives the two bool 0-d
-    tensors K14 reads (``any_waiting`` after ``head``, ``any_now`` after
-    ``pre``) once the bodies have been captured. ``rounds``,
-    ``max_rounds`` and ``done`` are the loop state K14 reads."""
 
-    def __init__(self, device, bodies: dict, flags, rounds, max_rounds,
-                 done):
+class ControlGraph:
+    """One loop as one executable graph. ``spec`` describes it,
+    ``bodies`` maps each body name to a callable that runs it on the
+    loop's static tensors, and ``tensors`` maps the names K14's steps read
+    to one-element device tensors (or to callables returning them, read
+    once the bodies have been captured)."""
+
+    spec: Seq
+    label = "a loop"
+
+    def __init__(self, device, spec: Seq, bodies: dict, tensors: dict,
+                 label: str | None = None):
         self.device = device
+        self.spec = spec
+        if label is not None:
+            self.label = label
         i32 = torch.int32
         self.codes = torch.zeros(4, dtype=i32, device=device)
         self.tally = torch.zeros(TALLY, dtype=i32, device=device)
@@ -146,38 +335,40 @@ class LoopGraph:
         self._settled = np.zeros(TALLY, np.int64)
         self.done_event = torch.cuda.Event()
         self.per_body: dict[str, dict[str, int]] = {}
-        self.graphs = []
+        self.graphs: dict = {}
         self._graph = self._exec = None
         pool = torch.cuda.graph_pool_handle()
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
-        kern = _kernels()
         _capturing.on = True
         try:
-            self._capture(bodies, pool, side, kern)
+            self._capture(bodies, pool, side, _kernels())
         finally:
             _capturing.on = False
         cur.wait_stream(side)
-        any_waiting, any_now = (f() for f in flags)
-        raw = (ctypes.c_void_p * len(BODIES))(
-            *[g.raw_cuda_graph() for g in self.graphs])
-        graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+        resolved = {k: v() if callable(v) else v for k, v in tensors.items()}
+        graph = ctypes.c_void_p()
+        lib = library("loop_graph")
         with torch.cuda.device(device):
-            err = library("loop_graph").loop_graph_build(
-                ctypes.cast(raw, ctypes.c_void_p),
-                kernel_arg(any_waiting, "any_waiting", torch.bool, ()),
-                kernel_arg(any_now, "any_now", torch.bool, ()),
-                kernel_arg(rounds, "rounds", i32, ()),
-                kernel_arg(max_rounds, "max_rounds", i32, ()),
-                kernel_arg(done, "done", torch.bool, ()),
-                self.codes.data_ptr(), self.tally.data_ptr(),
-                self.tally_host.data_ptr(), ctypes.byref(graph),
-                ctypes.byref(exe))
-        if err != 0:
-            raise RuntimeError(
-                f"the auction loop's graph failed to build: cudaError {err}")
-        self._graph, self._exec = graph.value, exe.value
+            _check(lib.lg_create(ctypes.byref(graph)),
+                   f"{self.label}'s graph failed to build")
+            self._graph = graph.value
+            try:
+                last = self._build(lib, self._graph, spec, {}, resolved)
+                node = ctypes.c_void_p()
+                _check(lib.lg_copy(self._graph, last, self.tally_host.data_ptr(),
+                                   self.tally.data_ptr(), TALLY * 4,
+                                   ctypes.byref(node)),
+                       f"{self.label}'s graph failed to build")
+                exe = ctypes.c_void_p()
+                _check(lib.lg_instantiate(self._graph, ctypes.byref(exe)),
+                       f"{self.label}'s graph failed to build")
+            except BaseException:
+                lib.lg_destroy(self._graph, None)
+                self._graph = None
+                raise
+        self._exec = exe.value
         note_build()
 
     def _capture(self, bodies, pool, side, kern) -> None:
@@ -185,7 +376,9 @@ class LoopGraph:
         stream; the wrappers' launch counts of the capture are taken
         back and kept per body."""
         with torch.cuda.stream(side):
-            for name in BODIES:
+            for name, _runs in layout(self.spec)[0]:
+                if name in self.graphs:
+                    raise ValueError(f"{self.label}: body {name!r} twice")
                 before = {k.name: k.count for k in kern}
                 g = torch.cuda.CUDAGraph(keep_graph=True)
                 g.capture_begin(pool=pool, capture_error_mode="thread_local")
@@ -198,7 +391,7 @@ class LoopGraph:
                         pass
                     raise
                 g.capture_end()
-                self.graphs.append(g)
+                self.graphs[name] = g
                 # a captured wrapper call launched nothing: it launches
                 # each time the graph runs the body
                 self.per_body[name] = {
@@ -207,15 +400,46 @@ class LoopGraph:
                 for k in kern:
                     k.count = before[k.name]
 
+    def _build(self, lib, graph, seq: Seq, handles: dict, tensors: dict):
+        """Add ``seq``'s nodes to ``graph`` in order (each after the one
+        before); returns the last node. The handles of its conditional
+        nodes are made first, so a step may set a handle of its own graph
+        or of an enclosing one."""
+        what = f"{self.label}'s graph failed to build"
+        handles = dict(handles)
+        for item in seq.items:
+            if isinstance(item, Cond):
+                h = ctypes.c_ulonglong()
+                _check(lib.lg_handle(graph, ctypes.byref(h)), what)
+                handles[item.handle] = h.value
+        prev = None
+        for item in seq.items:
+            node = ctypes.c_void_p()
+            if isinstance(item, str):
+                _check(lib.lg_child(graph, prev,
+                                    self.graphs[item].raw_cuda_graph(),
+                                    ctypes.byref(node)), what)
+            elif isinstance(item, Step):
+                ctl = _ctl(item, tensors, self.codes, self.tally,
+                           [handles[n] for n in item.sets])
+                _check(lib.lg_ctl(graph, prev, ctypes.byref(ctl),
+                                  ctypes.byref(node)), what)
+            else:
+                body = ctypes.c_void_p()
+                _check(lib.lg_cond(graph, prev, handles[item.handle],
+                                   int(item.kind == "while"),
+                                   ctypes.byref(node), ctypes.byref(body)),
+                       what)
+                self._build(lib, body.value, item.body, handles, tensors)
+            prev = node.value
+        return prev
+
     def launch(self) -> None:
         """One run of the loop on the current stream."""
         stream = torch.cuda.current_stream(self.device)
         with torch.cuda.device(self.device):
-            err = library("loop_graph").loop_graph_launch(
-                self._exec, stream.cuda_stream)
-        if err != 0:
-            raise RuntimeError(
-                f"the auction loop's graph failed to launch: cudaError {err}")
+            err = library("loop_graph").lg_launch(self._exec, stream.cuda_stream)
+        _check(err, f"{self.label}'s graph failed to launch")
         self.done_event.record(stream)
         with _pending_lock:
             _pending.add(self)
@@ -228,13 +452,15 @@ class LoopGraph:
         now = self._host_view.astype(np.int64)
         d = now - self._settled
         self._settled = now
-        runs = {"head": d[0] + d[1], "round": d[0], "pre": d[1],
-                "refight": d[2], "tighten": d[3]}
+        bodies, steps = layout(self.spec)
+
+        def runs(slots) -> int:
+            return int(sum(d[s] for s in slots))
+
         for k in _kernels():
-            k.count += int(sum(self.per_body[b].get(k.name, 0) * runs[b]
-                               for b in BODIES))
-        # ENTER a launch; BRANCH and NEXT an iteration; PHASE a phase shift
-        KERNEL.count += int(d[4] + 2 * (d[0] + d[1]) + d[1])
+            k.count += sum(self.per_body[b].get(k.name, 0) * runs(slots)
+                           for b, slots in bodies)
+        KERNEL.count += sum(runs(slots) for slots in steps)
         return True
 
     def close(self) -> None:
@@ -242,16 +468,80 @@ class LoopGraph:
         pool's memory may not be handed out while the graph runs)."""
         if self._exec is None:
             return
-        self.done_event.synchronize()
+        if not self.done_event.query():
+            self.done_event.synchronize()
         with _pending_lock:
             if self.settle():
                 _pending.discard(self)
-        err = library("loop_graph").loop_graph_destroy(self._graph,
-                                                       self._exec)
+        err = library("loop_graph").lg_destroy(self._graph, self._exec)
         self._graph = self._exec = None
-        for g in self.graphs:
+        for g in self.graphs.values():
             g.reset()
-        self.graphs = []
-        if err != 0:
-            raise RuntimeError(
-                f"the auction loop's graph failed to close: cudaError {err}")
+        self.graphs = {}
+        _check(err, f"{self.label}'s graph failed to close")
+
+
+class LoopGraph(ControlGraph):
+    """The auction loop of one solve shape (``AUCTION``). ``bodies`` maps
+    head, round, pre, refight and tighten to callables; ``flags`` gives
+    the two bool 0-d tensors K14 reads (``any_waiting`` after ``head``,
+    ``any_now`` after ``pre``) once the bodies have been captured.
+    ``rounds``, ``max_rounds`` and ``done`` are the loop state K14
+    reads."""
+
+    spec = AUCTION
+    label = "the auction loop"
+
+    def __init__(self, device, bodies: dict, flags, rounds, max_rounds,
+                 done):
+        any_waiting, any_now = flags
+        super().__init__(device, AUCTION, bodies, {
+            "any_waiting": any_waiting, "any_now": any_now,
+            "rounds": rounds, "max_rounds": max_rounds, "done": done})
+
+
+# ---- a general solve's loop, one graph a solve ------------------------------
+
+class CaptureLog:
+    """A loop's graph captures: how many there were (``total``) and the
+    last 4,096 rows (the caller's tuples, ms last)."""
+
+    def __init__(self) -> None:
+        self.total = 0
+        self._recent: collections.deque = collections.deque(maxlen=4096)
+
+    def add(self, row: tuple) -> None:
+        self.total += 1
+        self._recent.append(row)
+
+    def since(self, total: int) -> list:
+        """The captures made after the log stood at ``total``."""
+        n = self.total - total
+        return list(self._recent)[-n:] if n > 0 else []
+
+
+def runs_graph(device) -> bool:
+    """Whether a general solve on ``device`` runs its loops as one graph
+    (a CUDA device) or on the host (the CPU)."""
+    return torch.device(device).type == "cuda"
+
+
+def run_once(device, spec: Seq, bodies: dict, tensors: dict, fetch,
+             label: str):
+    """One solve's loop as one graph: capture the bodies and build the
+    graph, launch it once and return ``(fetch(), capture_ms, solve_ms)``:
+    ``fetch`` is the solve's one result read; solve_ms runs from the
+    launch to the fetch's end. A capture launches nothing, so the state
+    the graph starts from is the one the caller made. The graph is
+    destroyed before this returns; a failure raises."""
+    t0 = time.perf_counter()
+    with torch.cuda.device(device):
+        graph = ControlGraph(device, spec, bodies, tensors, label)
+        t1 = time.perf_counter()
+        try:
+            graph.launch()
+            out = fetch()
+            t2 = time.perf_counter()
+        finally:
+            graph.close()
+    return out, (t1 - t0) * 1e3, (t2 - t1) * 1e3

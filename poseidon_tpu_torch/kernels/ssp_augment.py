@@ -20,9 +20,12 @@ arguments (``csrc/ssp_augment.cu``: its header note gives the bound and
 the design). ``dist`` and ``pot`` are buffer pairs: ``dist[d]`` is what
 the next relaxation reads, ``pot[p]`` the current potentials; a step
 reads ``dist[d]`` and writes the next distances into ``dist[d ^ 1]``,
-never into the buffer it reads, then flips ``d`` and ``p``. ``state``
-int32[2] carries ``routed`` in and out and receives ``delta``: the host
-reads both in one read a path.
+never into the buffer it reads. ``d`` and ``p`` are the low bits of the
+step's two parity words (int32[2] on its device), read there; the
+caller advances them after a step: SSP's graph (``ops/ssp.py``) runs a
+number of relaxation rounds before each step that only the device
+knows. ``state`` int32[2] carries ``routed`` in and out and receives
+``delta``.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "arc", "head", "tail", "cost", "fcap", "fsrc", "fdst", "flow",
-        "pred", "mrc", "state", "dist0", "dist1", "pot0", "pot1")] + [
+        "pred", "mrc", "state", "dist0", "dist1", "pot0", "pot1", "par")] + [
         (n, ctypes.c_longlong) for n in (
             "wanted", "S", "T", "NN", "F", "R", "record")]
 
@@ -67,10 +70,11 @@ class PathStep:
     ``fdst`` the forward tables int32[F]. The step owns ``flow`` int32[F]
     (zero), ``pred`` int32[NN], ``mrc`` int32[2F], ``state`` int32[2]
     (zero) and the ``dist``/``pot`` pairs int32[NN] (potentials zero);
-    the caller may fill any of them before a step."""
+    the caller may fill any of them before a step. ``parity``: the parity
+    words (d, p), int32[2] beside them, which the caller advances."""
 
     def __init__(self, arc, head, tail, cost, fcap, fsrc, fdst, NN: int,
-                 wanted: int, S: int, T: int):
+                 wanted: int, S: int, T: int, parity):
         dev = arc.device
         F, R = fcap.shape[0], arc.shape[0]
         i32 = torch.int32
@@ -85,9 +89,8 @@ class PathStep:
                      torch.empty(NN, dtype=i32, device=dev))
         self.pot = (torch.zeros(NN, dtype=i32, device=dev),
                     torch.zeros(NN, dtype=i32, device=dev))
-        self.d = 0
-        self.p = 0
-        self.card = on_card(arc, head, tail, cost, fcap, fsrc, fdst)
+        self.par = parity
+        self.card = on_card(arc, head, tail, cost, fcap, fsrc, fdst, parity)
         if not self.card:
             return
         spec = (
@@ -100,11 +103,16 @@ class PathStep:
         )
         self._args = _Args(
             *(kernel_arg(t, name, i32, (n,)) for name, t, n in spec),
+            kernel_arg(parity, "parity", i32, (2,)),
             wanted, S, T, NN, F, R, WALK_RECORD)
         self._addr = ctypes.addressof(self._args)
         self.device = dev
-        self._stream = stream_ptr(arc)
         self._launch = library("ssp_augment").ssp_step_launch
+
+    def parities(self) -> tuple[int, int]:
+        """(d, p): the low bits of the parity words (a read)."""
+        d, p = (int(x) & 1 for x in self.par.tolist())
+        return d, p
 
 
 def mirror_costs_plain(arc, head, tail, cost, fcap, pot, flow):
@@ -153,10 +161,11 @@ def ssp_augment_plain(pred, dist, fsrc, fdst, fcap, flow, state,
 def ssp_step_plain(step: PathStep, first: bool = False) -> None:
     """The whole path step, from its reference pieces: the walk's twin
     (unless ``first``), the torch potential update, ``mirror_costs_plain``
-    and the next relaxation's dist0/pred0. Leaves ``d`` and ``p`` as they
-    are (``ssp_augment`` flips them)."""
-    dist, dist_next = step.dist[step.d], step.dist[step.d ^ 1]
-    pot, pot_next = step.pot[step.p], step.pot[step.p ^ 1]
+    and the next relaxation's dist0/pred0. Leaves the parity words as
+    they are."""
+    d, p = step.parities()
+    dist, dist_next = step.dist[d], step.dist[d ^ 1]
+    pot, pot_next = step.pot[p], step.pot[p ^ 1]
     if first:
         pot_next.copy_(pot)
     else:
@@ -173,17 +182,14 @@ def ssp_step_plain(step: PathStep, first: bool = False) -> None:
 
 @census_op("ssp_augment")
 def ssp_augment(step: PathStep, first: bool = False) -> None:
-    """One path step of ``step`` (the prologue when ``first``), then flip
-    its ``dist`` and ``pot`` buffers. A step on CPU tensors runs the
-    plain twin; on CUDA tensors it is one launch call of K11 (two
-    kernels on the current stream of the step's making)."""
+    """One path step of ``step`` (the prologue when ``first``) from the
+    buffers its parity words name, which the caller then advances. A step
+    on CPU tensors runs the plain twin; on CUDA tensors it is one launch
+    call of K11 (two kernels on the current stream)."""
     if step.card:
         with torch.cuda.device(step.device):
-            err = step._launch(step._addr, step.d, step.p, int(first),
-                               step._stream)
+            err = step._launch(step._addr, int(first), stream_ptr(step.arc))
         check_launch(KERNEL, err)
         KERNEL.launches += 1
     else:
         ssp_step_plain(step, first)
-    step.d ^= 1
-    step.p ^= 1

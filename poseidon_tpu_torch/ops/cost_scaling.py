@@ -20,7 +20,22 @@ sweep is the hand kernel K9 ``cs_sweep`` and a Bellman-Ford round is K10
 shift are torch. On the CPU the same wrappers run their plain twins.
 
 Control flow. The reference runs the phase, refine and Bellman-Ford
-loops as nested ``while_loop``s on the device. Here they are host loops:
+loops as nested ``while_loop``s on the device (cost_scaling.py:283,
+:258, :212), and so does the port on the card. The loops' state lives on
+the device (eps, sweeps, phases, ok, done, the Bellman-Ford round count,
+``changed``, any(excess > 0)) and ``_Solve``'s six bodies update it in
+fixed buffers: ``enter`` (the saturation), ``bf_init`` (arc lengths and
+d0), ``bf_burst`` (8 K10 rounds), ``update`` (the branchless price
+shift), ``sweep_burst`` (16 K9 sweeps, K9 reading eps on the device) and
+``exit`` (ok, done, the next eps, phases). On a CUDA device they are
+captured into one CUDA graph a solve (``GRAPH``:
+``WHILE phase { enter; WHILE refine { bf_init; WHILE bf { bf_burst };
+update; sweep_burst }; exit }``, each WHILE set by K14 ``loop_ctl`` on
+the device at the reference's checks: ``!done`` after a phase,
+``any(excess > 0) & sweeps < max_sweeps`` before a burst, ``changed &
+it < NN`` after 8 rounds), launched once; the host reads nothing until
+the result fetch. On the CPU (or with ``_host_loop``) the same bodies run
+under the host loop, whose reads go through a ``SyncCounter``:
 
 - the eps ladder (``eps0 = BIG * NN``, then ``max(1, eps // alpha)``
   until the eps = 1 phase) is known on the host from the costs;
@@ -31,8 +46,8 @@ loops as nested ``while_loop``s on the device. Here they are host loops:
 - a global update reads its ``changed`` flag once per burst of 8 rounds
   and applies the shift only when Bellman-Ford converged.
 
-Every read goes through a ``SyncCounter``: the result reports them as
-``loop_syncs``, and the flows come back in one fetch (``fetches``).
+The result reports those reads as ``loop_syncs`` (0 on the card), and
+the flows, sweeps, phases and ok come back in one fetch (``fetches``).
 Prices are int64 (the n-scaled cost domain overflows int32), flows and
 excesses int32.
 """
@@ -49,6 +64,9 @@ from poseidon_tpu_torch.guards import GuardError, SyncCounter
 from poseidon_tpu_torch.kernels.bf_relax import INF_K, bf_relax_out
 from poseidon_tpu_torch.kernels.cs_sweep import cs_sweep, residual
 from poseidon_tpu_torch.kernels.csr_plan import CsrPlan, make_plan
+from poseidon_tpu_torch.kernels.loop_graph import (
+    LOOP, CaptureLog, Cond, Seq, Step, run_once, runs_graph,
+)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -163,8 +181,57 @@ def _augmented_tables(net: FlowNetwork):
     return fsrc, fdst, fcap, fcost, S, T, wanted, big
 
 
+# the solve's int32 scalars on the device (``_Solve.st``)
+SWEEPS, PHASES, OK, DONE, IT, ACTIVE = range(6)
+# K14's tally slots in the solve's graph: launches, phase runs, refine
+# bursts, Bellman-Ford bursts
+T_LAUNCH, T_PHASE, T_REFINE, T_BF = range(4)
+
+
+def _refine_go(go: int) -> Step:
+    """The refine loop's condition: any(excess > 0) & sweeps < max_sweeps."""
+    return Step(LOOP, sets=("refine",), go=go,
+                terms=((None, "active"), ("sweeps", "max_sweeps")))
+
+
+# the reference's nested while_loops (cost_scaling.py:283, :258, :212) as
+# one graph: each WHILE's condition set by K14 before the node and at the
+# end of its body
+GRAPH = Seq((T_LAUNCH,), (
+    Step(LOOP, sets=("phase",), terms=(("done", None),), go=T_PHASE,
+         run=T_LAUNCH),
+    Cond("while", "phase", Seq((T_PHASE,), (
+        "enter",
+        _refine_go(T_REFINE),
+        Cond("while", "refine", Seq((T_REFINE,), (
+            "bf_init",
+            Step(LOOP, sets=("bf",), terms=(("it", "nn"),), go=T_BF),
+            Cond("while", "bf", Seq((T_BF,), (
+                "bf_burst",
+                Step(LOOP, sets=("bf",), go=T_BF,
+                     terms=((None, "changed"), ("it", "nn"))),
+            ))),
+            "update",
+            "sweep_burst",
+            _refine_go(T_REFINE),
+        ))),
+        "exit",
+        Step(LOOP, sets=("phase",), terms=(("done", None),), go=T_PHASE),
+    ))),
+))
+CAPTURES = CaptureLog()      # (NN, 2F, capture_ms, solve_ms) per graph solve
+
+
 class _Solve:
-    """One solve's device state and loops (the reference's closures)."""
+    """One solve's device state and the reference's loop bodies over it.
+
+    Every quantity a loop's condition or a kernel reads lives on the
+    device: eps (int64 0-d), ``st`` (sweeps, phases, ok, done, the
+    Bellman-Ford round count, any(excess > 0)), ``changed``, and the
+    limits max_sweeps and NN. The bodies write the solve's fixed buffers
+    in place. On the card the loops run as one graph (``GRAPH``); on the
+    CPU, or with ``host_loop``, the host loop runs the same bodies and
+    reads the flags."""
 
     def __init__(self, net: FlowNetwork, device, alpha: int,
                  max_sweeps: int, sweeps_per_update: int):
@@ -172,7 +239,9 @@ class _Solve:
         self.F = F = fsrc.shape[0]
         self.NN = NN = net.num_node_slots + 2
         self.E = net.num_arc_slots
+        self.device = device
         self.wanted, self.big = wanted, big
+        self.eps0 = _wrap64(big * NN)
         # scaled cost domain (int64 products wrap as the reference's)
         with np.errstate(over="ignore"):
             rcost = np.concatenate([fcost, -fcost]) * np.int64(NN)
@@ -185,12 +254,24 @@ class _Solve:
         self.excess = torch.zeros(NN, dtype=I32, device=device)
         self._excess2 = torch.empty_like(self.excess)
         self._price2 = torch.empty_like(self.price)
+        self.ln = torch.empty(2 * F, dtype=I64, device=device)
+        self.d = torch.empty(NN, dtype=I64, device=device)
         self._d2 = torch.empty(NN, dtype=I64, device=device)
-        self._changed = torch.zeros(1, dtype=I32, device=device)
-        self.sweeps = 0
+        self.changed = torch.zeros(1, dtype=I32, device=device)
+        # the solve's start: no flow, prices 0, eps0, no sweep or phase
+        # yet, ok
+        self.eps = torch.full((), self.eps0, dtype=I64, device=device)
+        self.st = torch.zeros(8, dtype=I32, device=device)
+        self.st[OK:OK + 1].fill_(1)
+        self.limits = torch.empty(2, dtype=I32, device=device)
+        self.limits[0:1].fill_(min(max_sweeps, 2**31 - 1))
+        self.limits[1:2].fill_(NN)
 
     def _reduced_costs(self) -> tuple[torch.Tensor, torch.Tensor]:
         return reduced_costs(self.g, self.flow, self.price)
+
+    def _count_active(self) -> None:
+        self.st[ACTIVE].copy_((self.excess > 0).any())
 
     def saturate(self) -> None:
         """Saturate every residual arc of negative reduced cost; the
@@ -205,71 +286,140 @@ class _Solve:
         self.excess.index_add_(0, g.tail, -amt)
         self.excess.index_add_(0, g.head.long(), amt)
 
-    def global_update(self, eps: int) -> None:
+    # ---- the bodies (the graph's nodes, the host loop's steps) ----------
+
+    def enter(self) -> None:
+        """A phase's start: the saturation, then any(excess > 0)."""
+        self.saturate()
+        self._count_active()
+
+    def bf_init(self) -> None:
+        """The global update's inputs: the arc lengths
+        ``max(0, floor(rc / eps) + 1)`` and the deficits' distance 0."""
+        self.ln.copy_(arc_lengths(self.g, self.flow, self.price, self.eps))
+        self.d.copy_(torch.where(self.excess < 0, 0, INF_K))
+        self.st[IT].zero_()
+
+    def bf_burst(self) -> None:
+        """``BF_BURST`` K10 rounds, the distance buffers swapped between
+        them (an even count: the burst ends in ``d``)."""
+        g = self.g
+        d, d2 = self.d, self._d2
+        for _ in range(BF_BURST):
+            bf_relax_out(g.seg, g.head, self.ln, d, d2, self.changed, g.plan)
+            d, d2 = d2, d
+        self.st[IT].add_(BF_BURST)
+
+    def update(self) -> None:
         """The cs2 price update: the least k per node such that lowering
         its price by k * eps opens an admissible path to a deficit,
         applied only when Bellman-Ford converged; nodes with no residual
         path to a deficit drop to k_max + 1."""
-        ln = arc_lengths(self.g, self.flow, self.price, eps)
-        d = torch.where(self.excess < 0, 0, INF_K).to(I64)
-        d2 = self._d2
-        changed, it = True, 0
-        while changed and it < self.NN:
-            for _ in range(BF_BURST):
-                bf_relax_out(self.g.seg, self.g.head, ln, d, d2,
-                             self._changed, self.g.plan)
-                d, d2 = d2, d
-            it += BF_BURST
-            changed = bool(self.syncs.read(self._changed)[0])
-        self._d2 = d2
-        if not changed:
-            reach = d < INF_K
-            k_max = torch.where(reach, d, 0).max()
-            k = torch.where(reach, d, k_max + 1)
-            self.price = self.price - k * eps
+        reach = self.d < INF_K
+        k_max = torch.where(reach, self.d, 0).max()
+        k = torch.where(reach, self.d, k_max + 1)
+        self.price.copy_(torch.where(self.changed == 0,
+                                     self.price - k * self.eps, self.price))
 
-    def sweep_burst(self, eps: int) -> None:
+    def sweep_burst(self) -> None:
         """``sweeps_per_update`` K9 sweeps, the buffers swapped between
-        them."""
+        them and back in place after an odd count; then
+        any(excess > 0)."""
         g = self.g
         for _ in range(self.sweeps_per_update):
             cs_sweep(g.seg, g.arc, g.head, g.cost, g.fcap, self.flow,
-                     self.excess, self.price, eps, self._excess2,
+                     self.excess, self.price, self.eps, self._excess2,
                      self._price2, g.plan)
             self.excess, self._excess2 = self._excess2, self.excess
             self.price, self._price2 = self._price2, self.price
-        self.sweeps += self.sweeps_per_update
+        if self.sweeps_per_update % 2:
+            self._excess2.copy_(self.excess)
+            self._price2.copy_(self.price)
+            self.excess, self._excess2 = self._excess2, self.excess
+            self.price, self._price2 = self._price2, self.price
+        self.st[SWEEPS].add_(self.sweeps_per_update)
+        self._count_active()
 
-    def refine(self, eps: int) -> bool:
-        self.saturate()
-        while True:
-            active = bool(self.syncs.read((self.excess > 0).any()))
-            if not active or self.sweeps >= self.max_sweeps:
-                return not active
-            self.global_update(eps)
-            self.sweep_burst(eps)
+    def exit(self) -> None:
+        """A phase's end: ok &= no excess left, done = eps == 1, eps =
+        max(1, eps // alpha), phases += 1."""
+        st = self.st
+        st[OK].mul_(1 - st[ACTIVE])
+        st[DONE].copy_(self.eps == 1)
+        self.eps.copy_(torch.clamp(
+            torch.div(self.eps, self.alpha, rounding_mode="floor"), min=1))
+        st[PHASES].add_(1)
 
-    def run(self) -> CostScalingResult:
-        eps = _wrap64(self.big * self.NN)
-        phases, ok = 0, True
+    def bodies(self) -> dict:
+        return {"enter": self.enter, "bf_init": self.bf_init,
+                "bf_burst": self.bf_burst, "update": self.update,
+                "sweep_burst": self.sweep_burst, "exit": self.exit}
+
+    # ---- the loops --------------------------------------------------------
+
+    def host_loop(self) -> None:
+        """The loops on the host over the same bodies: one read of
+        any(excess > 0) before each refine burst and one of ``changed``
+        after each Bellman-Ford burst; the eps ladder, the sweep count
+        and the round count are known on the host."""
+        eps, sweeps = self.eps0, 0
         while True:
-            ok &= self.refine(eps)
-            phases += 1
+            self.enter()
+            while True:
+                active = bool(self.syncs.read(self.st[ACTIVE]))
+                if not active or sweeps >= self.max_sweeps:
+                    break
+                self.bf_init()
+                it = 0
+                while True:
+                    self.bf_burst()
+                    it += BF_BURST
+                    changed = bool(self.syncs.read(self.changed)[0])
+                    if not (changed and it < self.NN):
+                        break
+                self.update()
+                self.sweep_burst()
+                sweeps += self.sweeps_per_update
+            self.exit()
             done = eps == 1
             eps = max(1, eps // self.alpha)
             if done:
-                break
-        fetch = SyncCounter()
-        flow = fetch.read(self.flow)
+                return
+
+    def _result(self) -> torch.Tensor:
+        """The flows, sweeps, phases and ok in one tensor: the one fetch."""
+        return torch.cat([self.flow, self.st[SWEEPS:OK + 1]])
+
+    def _fetch(self, fetches: SyncCounter):
+        """The solve's one result read."""
+        return fetches.read(self._result())
+
+    def run(self, host_loop: bool = False) -> CostScalingResult:
+        fetches = SyncCounter()
+        if runs_graph(self.device) and not host_loop:
+            tensors = {"done": self.st[DONE], "active": self.st[ACTIVE],
+                       "sweeps": self.st[SWEEPS], "it": self.st[IT],
+                       "changed": self.changed,
+                       "max_sweeps": self.limits[0], "nn": self.limits[1]}
+            out, cap_ms, solve_ms = run_once(
+                self.device, GRAPH, self.bodies(), tensors,
+                lambda: self._fetch(fetches),
+                "the cost-scaling loop")
+            CAPTURES.add((self.NN, 2 * self.F, cap_ms, solve_ms))
+        else:
+            self.host_loop()
+            out = self._fetch(fetches)
+        flow = out[: self.F]
+        sweeps, phases, ok = (int(x) for x in out[self.F:])
         return CostScalingResult(
             flows=flow[: self.E].copy(),
             routed=int(flow[-1]),   # the forcing arc
             wanted=self.wanted,
-            sweeps=self.sweeps,
+            sweeps=sweeps,
             phases=phases,
-            converged=ok,
+            converged=bool(ok),
             loop_syncs=self.syncs.count,
-            fetches=fetch.count,
+            fetches=fetches.count,
         )
 
 
@@ -299,15 +449,19 @@ def solve_cost_scaling(
     alpha: int = 8,
     sweeps_per_update: int = 16,
     device=None,
+    _host_loop: bool = False,
 ) -> CostScalingResult:
     """Solve ``net`` exactly via cost-scaling push-relabel on ``device``
-    (``None``: the card; ``"cpu"`` runs the kernels' plain twins).
+    (``None``: the card, one graph a solve; ``"cpu"`` runs the kernels'
+    plain twins under the host loop).
 
     ``alpha`` is the epsilon division factor per phase. ``max_sweeps`` is
     a global fuse across all phases; the default scales with problem
     size. Raises ``GuardError`` (a ``ValueError``) when capacities could
-    wrap the int32
-    excess accumulators.
+    wrap the int32 excess accumulators. The private ``_host_loop`` runs
+    the host loop on the card too: the plain version ``chip_smoke.py``
+    [general] holds the graph against; no caller in the package passes
+    it.
     """
     from poseidon_tpu_torch.ops.resident import on_device, resolve_device
 
@@ -317,7 +471,8 @@ def solve_cost_scaling(
         max_sweeps = 200 * (net.num_node_slots.bit_length() + 8) * 8
     check_excess_bound(net)
     with on_device(dev):
-        return _Solve(net, dev, alpha, max_sweeps, sweeps_per_update).run()
+        return _Solve(net, dev, alpha, max_sweeps,
+                      sweeps_per_update).run(_host_loop)
 
 
 def solution_cost(net: FlowNetwork, result) -> int:

@@ -76,6 +76,7 @@ from poseidon_tpu_torch.guards import GuardError, SyncCounter, census
 from poseidon_tpu_torch.kernels.bid_pass import bid_pass
 from poseidon_tpu_torch.kernels.densify import densify
 from poseidon_tpu_torch.kernels.gap_rows import gap_rows
+from poseidon_tpu_torch.kernels.loop_graph import CaptureLog
 from poseidon_tpu_torch.kernels.row_options import row_options
 from poseidon_tpu_torch.kernels.seat_sort import INT32, seat_compact, seat_sort
 from poseidon_tpu_torch.kernels.top_will import top_will
@@ -1028,24 +1029,6 @@ class TableSlots:
             t = torch.empty(shape, dtype=I32, device=device)
             slots.append(t)
             return t
-
-
-class CaptureLog:
-    """The loop graphs' captures: how many there were (``total``) and
-    the last 4,096 as (Tp, Mp, smax, layout, collect_hist, ms)."""
-
-    def __init__(self) -> None:
-        self.total = 0
-        self._recent: collections.deque = collections.deque(maxlen=4096)
-
-    def add(self, row: tuple) -> None:
-        self.total += 1
-        self._recent.append(row)
-
-    def since(self, total: int) -> list:
-        """The captures made after the log stood at ``total``."""
-        n = self.total - total
-        return list(self._recent)[-n:] if n > 0 else []
 
 
 _graphs: collections.OrderedDict = collections.OrderedDict()

@@ -24,9 +24,22 @@ Internal super-source/sink framing: node slots [N] and [N+1] of an
 (N+2)-wide node space are S and T; one S-arc and one T-arc per node slot
 carries max(+-supply, 0).
 
-Control flow: the reference's two nested ``while_loop``s are host loops
-with one counted read a relaxation round (its ``changed`` flag) and one
-a path (``routed`` and ``delta``); the flows come back in one fetch.
+Control flow. The reference runs the path loop (ssp.py:165) around its
+Bellman-Ford (:120) as nested ``while_loop``s on the device, and so
+does the port on the card: the loops' state lives on the device (routed
+and delta in the step's ``state``, the path and round counts,
+``changed``, and the parity words of the dist and pot pairs, which K10
+``in`` and K11 read there) and ``_Solve``'s three bodies, ``prologue``
+(K11 ``first``), ``round`` (K10 ``in``) and ``step`` (K11), update it.
+On a CUDA device they are captured into one CUDA graph a solve
+(``GRAPH``: ``IF first { prologue }; WHILE path { WHILE bf { round };
+step }``, K14 ``loop_ctl`` setting each node on the device: ``routed <
+wanted & !done & paths < max_paths`` before a path, ``changed & it <
+NN`` after a round), launched once; the host reads nothing until the
+result fetch. On the CPU (or with ``_host_loop``) the same bodies run
+under the host loop, with one counted read a relaxation round (its
+``changed`` flag) and one a path (``routed`` and ``delta``). The flows,
+routed and the path count come back in one fetch.
 """
 
 from __future__ import annotations
@@ -39,6 +52,9 @@ import torch
 from poseidon_tpu_torch.graph.network import FlowNetwork, total_supply
 from poseidon_tpu_torch.guards import GuardError, SyncCounter
 from poseidon_tpu_torch.kernels.bf_relax import bf_relax_in
+from poseidon_tpu_torch.kernels.loop_graph import (
+    LOOP, CaptureLog, Cond, Seq, Step, run_once, runs_graph,
+)
 from poseidon_tpu_torch.kernels.ssp_augment import PathStep, ssp_augment
 from poseidon_tpu_torch.ops.cost_scaling import residual_csr
 
@@ -79,46 +95,152 @@ def _residual_tables(net: FlowNetwork):
             fcap.astype(np.int32), fcost.astype(np.int32), S, T)
 
 
-def _solve(net: FlowNetwork, max_paths: int, device) -> SolveResult:
-    fsrc, fdst, fcap, fcost, S, T = _residual_tables(net)
-    NN = net.num_node_slots + 2  # node space incl. S, T
-    g = residual_csr(fsrc, fdst, fcap,
-                     np.concatenate([fcost, -fcost]), NN, device)
-    wanted = total_supply(net)
-    syncs = SyncCounter()
-    changed = torch.zeros(1, dtype=I32, device=device)
-    step = PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap,
-                    torch.as_tensor(fsrc, device=device),
-                    torch.as_tensor(fdst, device=device), NN, wanted, S, T)
+# the solve's int32 counters on the device (``_Solve.ctr``): the parity
+# words of the dist and pot pairs (K10 ``in`` and K11 read their low
+# bits), the path count, the relaxation rounds of the current path
+D, P, PATHS, IT = range(4)
+# the limits K14 reads (``_Solve.limits``)
+WANTED, MAX_PATHS, NN_ = range(3)
+# K14's tally slots in the solve's graph: launches, the first path's
+# entry, the further paths, relaxation rounds
+T_LAUNCH, T_FIRST, T_PATH, T_ROUND = range(4)
 
-    def bellman_ford():
-        """Parallel Bellman-Ford with in-round predecessor tracking from
-        the step's dist0/pred0 over its mirror costs; predecessors are
-        rewritten only on strict improvement, so the parent graph stays
-        acyclic and the walk terminates."""
-        more, it = True, 0
-        while more and it < NN:
-            bf_relax_in(g.seg, g.arc, g.head, step.mrc, step.dist[step.d],
-                        step.dist[step.d ^ 1], step.pred, changed, g.plan)
-            step.d ^= 1
-            it += 1
-            more = bool(syncs.read(changed)[0])
+# the reference's path loop (ssp.py:165) around its Bellman-Ford (:120)
+# as one graph; the path loop's ``!done`` is ``0 < delta`` (the step's
+# delta, never negative), and before the first path ``done`` is False
+GRAPH = Seq((T_LAUNCH,), (
+    Step(LOOP, sets=("first", "path"), go=T_FIRST, run=T_LAUNCH,
+         terms=(("routed", "wanted"), ("paths", "max_paths"))),
+    Cond("if", "first", Seq((T_FIRST,), ("prologue",))),
+    Cond("while", "path", Seq((T_FIRST, T_PATH), (
+        Step(LOOP, sets=("bf",), terms=(("it", "nn"),), go=T_ROUND),
+        Cond("while", "bf", Seq((T_ROUND,), (
+            "round",
+            Step(LOOP, sets=("bf",), go=T_ROUND,
+                 terms=((None, "changed"), ("it", "nn"))),
+        ))),
+        "step",
+        Step(LOOP, sets=("path",), go=T_PATH,
+             terms=(("routed", "wanted"), (None, "delta"),
+                    ("paths", "max_paths"))),
+    ))),
+))
+CAPTURES = CaptureLog()      # (NN, 2F, capture_ms, solve_ms) per graph solve
 
-    routed, paths, done = 0, 0, False
-    while routed < wanted and not done and paths < max_paths:
-        if paths == 0:
-            ssp_augment(step, first=True)
-        bellman_ford()
-        ssp_augment(step)
-        routed, delta = (int(x) for x in syncs.read(step.state))
-        paths += 1
-        # a zero-unit round means no augmenting path exists: stop
-        done = delta == 0
-    fetch = SyncCounter()
-    flows = fetch.read(step.flow)[: net.num_arc_slots].copy()
-    return SolveResult(flows=flows, routed=routed, wanted=wanted,
-                       iterations=paths, loop_syncs=syncs.count,
-                       fetches=fetch.count)
+
+class _Solve:
+    """One solve's device state and the reference's loop bodies over it:
+    the path step's state (``PathStep``, its parity words on the device),
+    ``ctr`` (the parities, paths, rounds), ``changed`` and the limits
+    wanted, max_paths and NN. On the card the loops run as one graph
+    (``GRAPH``); on the CPU, or with ``host_loop``, the host loop runs the
+    same bodies and reads the flags."""
+
+    def __init__(self, net: FlowNetwork, max_paths: int, device):
+        fsrc, fdst, fcap, fcost, S, T = _residual_tables(net)
+        self.NN = NN = net.num_node_slots + 2  # node space incl. S, T
+        self.E = net.num_arc_slots
+        self.device = device
+        self.g = residual_csr(fsrc, fdst, fcap,
+                              np.concatenate([fcost, -fcost]), NN, device)
+        self.wanted = total_supply(net)
+        self.max_paths = max_paths
+        self.syncs = SyncCounter()
+        self.changed = torch.zeros(1, dtype=I32, device=device)
+        self.ctr = torch.zeros(4, dtype=I32, device=device)
+        self.limits = torch.empty(3, dtype=I32, device=device)
+        for i, v in ((WANTED, self.wanted), (MAX_PATHS, max_paths),
+                     (NN_, NN)):
+            self.limits[i:i + 1].fill_(min(v, 2**31 - 1))
+        g = self.g
+        self.step = PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap,
+                             torch.as_tensor(fsrc, device=device),
+                             torch.as_tensor(fdst, device=device), NN,
+                             self.wanted, S, T, parity=self.ctr[D:P + 1])
+
+    # ---- the bodies (the graph's nodes, the host loop's steps) ----------
+
+    def prologue(self) -> None:
+        """The first path's set-up (K11 ``first``): the mirror costs and
+        dist0/pred0; the parities advance."""
+        ssp_augment(self.step, first=True)
+        self.ctr[D:P + 1].add_(1)
+
+    def round(self) -> None:
+        """One Bellman-Ford round (K10 ``in``) with in-round predecessor
+        tracking from the step's dist0/pred0 over its mirror costs;
+        predecessors are rewritten only on strict improvement, so the
+        parent graph stays acyclic and the walk terminates. The dist
+        parity and the round count advance."""
+        g, st = self.g, self.step
+        bf_relax_in(g.seg, g.arc, g.head, st.mrc, st.dist[0], st.dist[1],
+                    st.pred, self.changed, g.plan, parity=self.ctr[D:D + 1])
+        self.ctr[D:IT + 1:IT - D].add_(1)
+
+    def path_step(self) -> None:
+        """The path's walk and augment and the next round's set-up (K11):
+        the parities and the path count advance, the round count
+        restarts."""
+        ssp_augment(self.step)
+        self.ctr[D:PATHS + 1].add_(1)
+        self.ctr[IT].zero_()
+
+    def bodies(self) -> dict:
+        return {"prologue": self.prologue, "round": self.round,
+                "step": self.path_step}
+
+    # ---- the loops --------------------------------------------------------
+
+    def host_loop(self) -> None:
+        """The loops on the host over the same bodies: one read of
+        ``changed`` a relaxation round and one of (routed, delta) a path;
+        the path and round counts are known on the host."""
+        routed, paths, done = 0, 0, False
+        while routed < self.wanted and not done and paths < self.max_paths:
+            if paths == 0:
+                self.prologue()
+            more, it = True, 0
+            while more and it < self.NN:
+                self.round()
+                it += 1
+                more = bool(self.syncs.read(self.changed)[0])
+            self.path_step()
+            routed, delta = (int(x) for x in self.syncs.read(self.step.state))
+            paths += 1
+            # a zero-unit round means no augmenting path exists: stop
+            done = delta == 0
+
+    def _result(self) -> torch.Tensor:
+        """The flows, routed and the path count in one tensor: the one
+        fetch."""
+        st = self.step
+        return torch.cat([st.flow, st.state[0:1], self.ctr[PATHS:PATHS + 1]])
+
+    def _fetch(self, fetches: SyncCounter):
+        """The solve's one result read."""
+        return fetches.read(self._result())
+
+    def run(self, host_loop: bool = False) -> SolveResult:
+        fetches = SyncCounter()
+        if runs_graph(self.device) and not host_loop:
+            st = self.step
+            tensors = {"routed": st.state[0], "delta": st.state[1],
+                       "paths": self.ctr[PATHS], "it": self.ctr[IT],
+                       "changed": self.changed,
+                       "wanted": self.limits[WANTED],
+                       "max_paths": self.limits[MAX_PATHS],
+                       "nn": self.limits[NN_]}
+            out, cap_ms, solve_ms = run_once(
+                self.device, GRAPH, self.bodies(), tensors,
+                lambda: self._fetch(fetches), "the SSP loop")
+            CAPTURES.add((self.NN, 2 * self.step.F, cap_ms, solve_ms))
+        else:
+            self.host_loop()
+            out = self._fetch(fetches)
+        return SolveResult(flows=out[: self.E].copy(), routed=int(out[-2]),
+                           wanted=self.wanted, iterations=int(out[-1]),
+                           loop_syncs=self.syncs.count,
+                           fetches=fetches.count)
 
 
 def check_cost_bound(net: FlowNetwork) -> None:
@@ -134,13 +256,17 @@ def check_cost_bound(net: FlowNetwork) -> None:
 
 
 def solve_ssp(net: FlowNetwork, *, max_paths: int | None = None,
-              device=None) -> SolveResult:
+              device=None, _host_loop: bool = False) -> SolveResult:
     """Solve ``net`` exactly via successive shortest paths on ``device``
-    (``None``: the card; ``"cpu"`` runs the kernels' plain twins).
+    (``None``: the card, one graph a solve; ``"cpu"`` runs the kernels'
+    plain twins under the host loop).
 
     ``max_paths`` bounds augmentations (default: total supply + 1; each
     successful augmentation routes >= 1 unit). A stalled instance (routed
     < wanted on return) means the remaining supplies are infeasible.
+    The private ``_host_loop`` runs the host loop on the card too: the
+    plain version ``chip_smoke.py`` [general] holds the graph against; no
+    caller in the package passes it.
     """
     from poseidon_tpu_torch.ops.resident import on_device, resolve_device
 
@@ -149,7 +275,7 @@ def solve_ssp(net: FlowNetwork, *, max_paths: int | None = None,
     if max_paths is None:
         max_paths = total_supply(net) + 1
     with on_device(dev):
-        return _solve(net, max_paths, dev)
+        return _Solve(net, max_paths, dev).run(_host_loop)
 
 
 def solution_cost(net: FlowNetwork, result: SolveResult) -> int:

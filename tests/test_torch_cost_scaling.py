@@ -301,8 +301,8 @@ def test_cs_sweep_twin_matches_reference_sweep(graph, eps):
     e_out = torch.empty(NN, dtype=torch.int32)
     p_out = torch.empty(NN, dtype=torch.int64)
     cs_sweep(g.seg, g.arc, g.head, g.cost, g.fcap, t_flow,
-             torch.from_numpy(excess), torch.from_numpy(price_), eps,
-             e_out, p_out, g.plan)
+             torch.from_numpy(excess), torch.from_numpy(price_),
+             torch.tensor(eps, dtype=torch.int64), e_out, p_out, g.plan)
     want = ref_sweep(fsrc, fdst, fcap, fcost, flow, excess, price_, eps)
     np.testing.assert_array_equal(t_flow.numpy(), want[0])
     np.testing.assert_array_equal(e_out.numpy(), want[1])
@@ -401,8 +401,8 @@ def test_cs_sweep_twin_at_plan_boundaries(case):
     e_out = torch.empty(NN, dtype=torch.int32)
     p_out = torch.empty(NN, dtype=torch.int64)
     cs_sweep(g.seg, g.arc, g.head, g.cost, g.fcap, t_flow,
-             torch.from_numpy(excess), torch.from_numpy(price_), 1,
-             e_out, p_out, g.plan)
+             torch.from_numpy(excess), torch.from_numpy(price_),
+             torch.tensor(1, dtype=torch.int64), e_out, p_out, g.plan)
     want = ref_sweep(fsrc, fdst, fcap, fcost, flow, excess, price_, 1)
     np.testing.assert_array_equal(t_flow.numpy(), want[0])
     np.testing.assert_array_equal(e_out.numpy(), want[1])

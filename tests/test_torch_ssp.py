@@ -241,7 +241,7 @@ def test_bf_relax_in_twin_matches_reference_round(graph, d_kind):
     t_pred = torch.from_numpy(pred.copy())
     changed = torch.full((1,), 7, dtype=torch.int32)
     bf_relax_in(g.seg, g.arc, g.head, mrc, torch.from_numpy(dist), d_out,
-                t_pred, changed, g.plan)
+                t_pred, changed, g.plan, torch.zeros(1, dtype=torch.int32))
     want = ref_round(fsrc, fdst, fcap, fcost, flow, pot, dist, pred)
     np.testing.assert_array_equal(d_out.numpy(), want[0])
     np.testing.assert_array_equal(t_pred.numpy(), want[1])
@@ -289,7 +289,7 @@ def test_bf_relax_in_tie_in_a_later_chunk(case):
     t_pred = torch.from_numpy(pred.copy())
     changed = torch.zeros(1, dtype=torch.int32)
     bf_relax_in(g.seg, g.arc, g.head, mrc, torch.from_numpy(dist), d_out,
-                t_pred, changed, g.plan)
+                t_pred, changed, g.plan, torch.zeros(1, dtype=torch.int32))
     want = ref_round(fsrc, fdst, fcap, fcost, flow, pot, dist, pred)
     np.testing.assert_array_equal(d_out.numpy(), want[0])
     np.testing.assert_array_equal(t_pred.numpy(), want[1])
@@ -334,7 +334,8 @@ def make_step(fsrc, fdst, fcap, flow, pred, dist, routed, wanted, S, T,
               fcost=None, pot=None):
     """A CPU ``PathStep`` over the residual CSR of the forward tables,
     filled with one path's flow, predecessors, distances (in the buffer
-    the step reads), potentials and routed count."""
+    the step reads: its parity words are 0), potentials and routed
+    count."""
     NN, F = len(dist), len(fsrc)
     if fcost is None:
         fcost = np.random.default_rng(F).integers(-50, 50, F).astype(np.int32)
@@ -342,12 +343,12 @@ def make_step(fsrc, fdst, fcap, flow, pred, dist, routed, wanted, S, T,
                      "cpu")
     step = PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap,
                     torch.from_numpy(fsrc), torch.from_numpy(fdst), NN,
-                    wanted, S, T)
+                    wanted, S, T, torch.zeros(2, dtype=torch.int32))
     step.flow.copy_(torch.from_numpy(flow))
     step.pred.copy_(torch.from_numpy(pred))
-    step.dist[step.d].copy_(torch.from_numpy(dist))
+    step.dist[0].copy_(torch.from_numpy(dist))
     if pot is not None:
-        step.pot[step.p].copy_(torch.from_numpy(pot))
+        step.pot[0].copy_(torch.from_numpy(pot))
     step.state[0] = routed
     return step, fcost
 
@@ -418,7 +419,7 @@ def test_path_step_twin_matches_reference_pieces(name):
     pot = np.random.default_rng(NN).integers(-40, 40, NN).astype(np.int32)
     step, fcost = make_step(fsrc, fdst, fcap, flow, pred, dist, routed,
                             wanted, S, T, pot=pot)
-    d0, p0 = step.d, step.p
+    d0, p0 = step.parities()
     ssp_augment(step, first=first)
     # the flow, routed and delta (ssp.py:130-157); the prologue walks not
     if first:
@@ -431,10 +432,11 @@ def test_path_step_twin_matches_reference_pieces(name):
     np.testing.assert_array_equal(step.flow.numpy(), w_flow)
     if not first:
         assert step.state.tolist() == [w_routed, w_delta]
-    # the buffers flipped; the distances read are left as they were
-    assert (step.d, step.p) == (d0 ^ 1, p0 ^ 1)
+    # the words left for the caller to advance; the next potentials in
+    # the other buffer; the distances read are left as they were
+    assert step.parities() == (d0, p0)
     np.testing.assert_array_equal(step.dist[d0].numpy(), dist)
-    np.testing.assert_array_equal(step.pot[step.p].numpy(), w_pot)
+    np.testing.assert_array_equal(step.pot[p0 ^ 1].numpy(), w_pot)
     # the next round's inputs (ssp.py:101-102, 119-120): each position's
     # mirror m of arc[p], rc[m] where m has capacity, else INF
     rc, cap_ok = ref_reduced(fsrc, fdst, fcap, fcost, w_flow, w_pot)
@@ -444,7 +446,7 @@ def test_path_step_twin_matches_reference_pieces(name):
                                   np.where(cap_ok[m], rc[m], INF))
     dist0 = np.full(NN, INF, np.int32)
     dist0[S] = 0
-    np.testing.assert_array_equal(step.dist[step.d].numpy(), dist0)
+    np.testing.assert_array_equal(step.dist[d0 ^ 1].numpy(), dist0)
     np.testing.assert_array_equal(step.pred.numpy(), np.full(NN, 2 * F))
     if name.startswith("record"):
         # a real path through the chain's bottleneck of 3
