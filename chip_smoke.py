@@ -4775,8 +4775,9 @@ def ssp_first_path(torch, net):
     import numpy as np
 
     from poseidon_tpu_torch.kernels.bf_relax import INF, bf_relax_in
-    from poseidon_tpu_torch.ops.cost_scaling import residual_csr
     from poseidon_tpu_torch.kernels.ssp_augment import mirror_costs_plain
+    from poseidon_tpu_torch.kernels.ssp_loop import D, GO_BF, SspLoop
+    from poseidon_tpu_torch.ops.cost_scaling import residual_csr
     from poseidon_tpu_torch.ops.ssp import _residual_tables
 
     dev = torch.device(DEVICE)
@@ -4792,14 +4793,17 @@ def ssp_first_path(torch, net):
     pred0 = torch.full((NN,), 2 * F, dtype=torch.int32, device=dev)
     dist, pred = dist0.clone(), pred0.clone()
     d2 = torch.empty_like(dist)
-    changed = torch.ones(1, dtype=torch.int32, device=dev)
-    even = torch.zeros(1, dtype=torch.int32, device=dev)
+    loop = SspLoop(dev, 1, 2, NN)
     rounds = 0
-    while int(changed[0]) and rounds < NN:
-        bf_relax_in(g.seg, g.arc, g.head, mrc, dist, d2, pred, changed,
-                    g.plan, even)
+    while True:
+        # the round reads dist and writes d2 at an even parity, then
+        # advances it: swap so that dist holds the round's distances
+        bf_relax_in(g.seg, g.arc, g.head, mrc, dist, d2, pred, g.plan, loop)
         dist, d2 = d2, dist
+        loop.words[D] = 0
         rounds += 1
+        if not int(loop.words[GO_BF]):
+            break
     tabs = (torch.as_tensor(fsrc, device=dev), torch.as_tensor(fdst, device=dev))
     return dict(g=g, mrc=mrc, dist0=dist0, pred0=pred0, dist=dist, pred=pred,
                 flow=flow, tabs=tabs, S=S, T=T, F=F, NN=NN, rounds=rounds,
@@ -4807,18 +4811,19 @@ def ssp_first_path(torch, net):
 
 
 def path_step(g, fsrc, fdst, NN: int, wanted: int, S: int, T: int, flow,
-              pred, dist, pot, routed: int = 0, words=(0, 0)):
+              pred, dist, pot, routed: int = 0, words=(0, 0), paths: int = 0,
+              max_paths: int = 2**31 - 1):
     """A K11 ``PathStep`` over residual CSR ``g`` holding one path's flow,
     predecessors, distances (in the buffer the step reads), potentials
-    and routed count (copies of the tensors given). ``words``: the
-    step's parity words (d, p) on the device."""
-    import torch
-
+    and routed count (copies of the tensors given). ``words``: the parity
+    words (d, p) of the step's loop words; ``paths`` its path count,
+    ``max_paths`` its cap."""
     from poseidon_tpu_torch.kernels.ssp_augment import PathStep
 
-    par = torch.tensor(list(words), dtype=flow.dtype, device=flow.device)
+    loop = ssp_words(flow.device, NN, wanted, max_paths, D=words[0],
+                     P=words[1], PATHS=paths)
     st = PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap, fsrc, fdst, NN,
-                  wanted, S, T, parity=par)
+                  wanted, S, T, loop)
     d, p = st.parities()
     st.flow.copy_(flow)
     st.pred.copy_(pred)
@@ -4830,11 +4835,117 @@ def path_step(g, fsrc, fdst, NN: int, wanted: int, S: int, T: int, flow,
 
 
 
+def ssp_words(dev, NN: int, wanted: int = 1, max_paths: int = 2, **words):
+    """Fresh SSP loop words (``kernels/ssp_loop.py``) with the named words
+    set (``D=3``, ``IT=5``, ...)."""
+    from poseidon_tpu_torch.kernels import ssp_loop
+
+    loop = ssp_loop.SspLoop(dev, wanted, max_paths, NN)
+    for k, v in words.items():
+        loop.words[getattr(ssp_loop, k)] = v
+    return loop
+
+
+def fold_graphs():
+    """K10 ``in``'s fold cases (name, fsrc, fdst, NN): a graph of one
+    light block; a CSR of no node (no heavy and no light item: the launch
+    runs one cluster of idle blocks); one node of 3,000 positions (a
+    heavy cluster only); one heavy node of 2,300 positions beside 3,000
+    light nodes of degree 6 (light blocks beside the cluster, the last
+    block to finish most likely a light one)."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    small = rng.integers(0, 6, (2, 8))
+    hub = np.zeros(1500, np.int64)
+    light = rng.integers(1, 3001, (2, 9000))
+    wide = np.concatenate([np.stack([np.zeros(2300, np.int64),
+                                     rng.integers(1, 3001, 2300)]), light], 1)
+    return [("one block", small[0], small[1], 6),
+            ("no segment", np.zeros(0, np.int64), np.zeros(0, np.int64), 0),
+            ("heavy only", hub, hub, 1),
+            ("heavy and light", wide[0], wide[1], 3001)]
+
+
+def fold_edges(torch) -> tuple[int, list]:
+    """The folded round and step ends on the card, launched eagerly (no
+    handle), each against its twin, tolerance 0: K10 ``in`` on
+    ``fold_graphs`` at round counts that keep and end the round loop,
+    and K11 steps whose end caps the path loop by max_paths, stops it by
+    delta 0, and goes on. Returns (cases, differing cases)."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels import bf_relax as k10
+    from poseidon_tpu_torch.kernels import ssp_augment as k11
+    from poseidon_tpu_torch.ops.cost_scaling import residual_csr
+
+    dev = torch.device(DEVICE)
+    n, bad = 0, []
+    for name, fsrc, fdst, NN in fold_graphs():
+        rng = np.random.default_rng(NN)
+        F = len(fsrc)
+        fcap = rng.integers(1, 6, F).astype(np.int32)
+        fcost = rng.integers(-30, 30, F).astype(np.int32)
+        g = residual_csr(fsrc.astype(np.int32), fdst.astype(np.int32), fcap,
+                         np.concatenate([fcost, -fcost]), NN, dev)
+        flow = torch.as_tensor(rng.integers(0, 2, F).astype(np.int32),
+                               device=dev)
+        pot = torch.as_tensor(rng.integers(-9, 9, NN).astype(np.int32),
+                              device=dev)
+        mrc = k11.mirror_costs_plain(g.arc, g.head, g.tail, g.cost, g.fcap,
+                                     pot, flow).to(torch.int32)
+        dist = torch.as_tensor(np.where(rng.random(NN) < 0.5, rng.integers(
+            0, 50, NN), k10.INF).astype(np.int32), device=dev)
+        pred0 = torch.as_tensor(rng.integers(0, 2 * F + 1, NN).astype(
+            np.int32), device=dev)
+        for word, it in ((1, 0), (4, max(NN - 1, 0))):
+            outs = []
+            for fn in (lambda *a, g=g: k10.bf_relax_in(*a[:7], g.plan, a[7]),
+                       k10.bf_relax_in_plain):
+                da, db, p_o = dist.clone(), torch.full_like(dist, -5), \
+                    pred0.clone()
+                if word % 2:
+                    da, db = db, da
+                loop = ssp_words(dev, NN, D=word, IT=it)
+                fn(g.seg, g.arc, g.head, mrc, da, db, p_o, loop)
+                outs.append([da, db, p_o, loop.words, loop.tally])
+            n += 1
+            if max_abs_err(outs[0], outs[1]):
+                bad.append(("bf_relax_in fold", name, word, it))
+    # K11's end: the path cap reached, delta 0 (an unreachable T), and a
+    # path that goes on; at parities 0 and odd
+    cases = {c[0]: c for c in ssp_step_cases()}
+    for label, case_name, paths, max_paths in (
+            ("cap", "path", 4, 5), ("delta 0", "unreachable", 0, 9),
+            ("goes on", "path", 2, 9), ("record+1", "record+1", 7, 9)):
+        _, case, first = cases[case_name]
+        for words in ((0, 0), (1, 3)):
+            outs = []
+            for fn in (k11.ssp_augment, k11.ssp_step_plain):
+                g = residual_csr(case["fsrc"], case["fdst"], case["fcap"],
+                                 np.concatenate([case["fcost"],
+                                                 -case["fcost"]]),
+                                 len(case["dist"]), dev)
+                t = {k: torch.as_tensor(case[k], device=dev) for k in (
+                    "fsrc", "fdst", "flow", "pred", "dist", "pot")}
+                st = path_step(g, t["fsrc"], t["fdst"], len(case["dist"]),
+                               case["wanted"], case["S"], case["T"],
+                               t["flow"], t["pred"], t["dist"], t["pot"],
+                               case["routed"], words, paths, max_paths)
+                fn(st, first)
+                outs.append(step_outputs(st))
+            n += 1
+            if max_abs_err(outs[0], outs[1]):
+                bad.append(("ssp_augment fold", label, words))
+    return n, bad
+
+
 def step_outputs(st) -> list:
     """Everything a K11 step writes or must leave as it was: the flow,
-    state, mirror costs, predecessors, both buffers of each pair and the
-    parity words."""
-    return [st.flow, st.state, st.mrc, st.pred, *st.dist, *st.pot, st.par]
+    state, mirror costs, predecessors, both buffers of each pair, and the
+    loop's words and tally (the step's end)."""
+    return [st.flow, st.state, st.mrc, st.pred, *st.dist, *st.pot,
+            st.loop.words, st.loop.tally]
 
 
 def ssp_step_bytes_ops(NN: int, F: int, h: int) -> tuple[int, int]:
@@ -4889,6 +5000,7 @@ def general_kernel_records(torch, timer):
     from poseidon_tpu_torch.kernels import bf_relax as k10
     from poseidon_tpu_torch.kernels import cs_sweep as k9
     from poseidon_tpu_torch.kernels import ssp_augment as k11
+    from poseidon_tpu_torch.kernels.ssp_loop import SspLoop
     from poseidon_tpu_torch.ops.cost_scaling import arc_lengths
     from poseidon_tpu_torch.synth import config2_quincy_flagship
 
@@ -4968,23 +5080,28 @@ def general_kernel_records(torch, timer):
     q = ssp_first_path(torch, flag)
     g2, NN2, F2 = q["g"], q["NN"], q["F"]
 
-    even = torch.zeros(1, dtype=torch.int32, device=DEVICE)
-
     def k10_in(*a):
-        k10.bf_relax_in(*a, g2.plan, even)
+        k10.bf_relax_in(*a[:7], g2.plan, a[7])
 
+    # the round and its end on fresh loop words (parity 0); the timed
+    # calls alternate the pair by the parity each round advances
     outs = []
     for fn in (k10_in, k10.bf_relax_in_plain):
-        d_o, p_o = torch.empty_like(q["dist0"]), q["pred0"].clone()
-        c_o = torch.zeros_like(ch)
-        fn(g2.seg, g2.arc, g2.head, q["mrc"], q["dist0"], d_o, p_o, c_o)
-        outs.append([d_o, p_o, c_o])
+        d_a, d_o, p_o = q["dist0"].clone(), torch.empty_like(q["dist0"]), \
+            q["pred0"].clone()
+        lp = SspLoop(torch.device(DEVICE), 1, 2, NN2)
+        fn(g2.seg, g2.arc, g2.head, q["mrc"], d_a, d_o, p_o, lp)
+        outs.append([d_a, d_o, p_o, lp.words, lp.tally])
     in_err = max_abs_err(outs[0], outs[1])
-    d_o, p_o = torch.empty_like(q["dist0"]), q["pred0"].clone()
-    in_args = (g2.seg, g2.arc, g2.head, q["mrc"], q["dist0"], d_o, p_o, ch)
+    in_args = (g2.seg, g2.arc, g2.head, q["mrc"], q["dist0"].clone(),
+               torch.empty_like(q["dist0"]), q["pred0"].clone(),
+               SspLoop(torch.device(DEVICE), 1, 2, NN2))
     in_ms = timer(lambda: k10_in(*in_args))
     in_plain = timer(lambda: k10.bf_relax_in_plain(*in_args))
-    b_in = 4 * (NN2 + 1) + 12 * 2 * F2 + 12 * NN2 + 4
+    # the round's bytes and its end's: the loop words it reads (parity,
+    # changed, the round count, NN, the tally slot) and writes (those and
+    # the go word and the ticket)
+    b_in = 4 * (NN2 + 1) + 12 * 2 * F2 + 12 * NN2 + 44
     in_bms, in_by = bound_ms(b_in, 4 * 2 * F2)
     log(f"[kernels] bf_relax (in) shape=({NN2}, {2 * F2}) "
         f"max_abs_err={in_err} ms={in_ms:.6f} plain_ms={in_plain:.6f} "
@@ -4993,9 +5110,10 @@ def general_kernel_records(torch, timer):
         raise AssertionError(f"bf_relax (in) != twin: {in_err}")
 
     # K11: the first path's step (walk, augment, potentials, the next
-    # round's mirror costs and dist0/pred0); each timed call restores the
-    # flow, the routed count and pred first (three copy_ launches, timed
-    # alone and taken off); the parity words stay (0, 0)
+    # round's mirror costs and dist0/pred0, the step's end); each timed
+    # call restores the flow, the routed count, pred and the loop words
+    # first (four launches, timed alone and taken off): the parity words
+    # are (0, 0) at every call
     fsrc, fdst = q["tabs"]
     zero = torch.zeros(NN2, dtype=torch.int32, device=DEVICE)
 
@@ -5017,6 +5135,7 @@ def general_kernel_records(torch, timer):
         st.flow.copy_(q["flow"])
         st.state.copy_(st0)
         st.pred.copy_(q["pred"])
+        st.loop.words.zero_()
 
     def k11_call(fn):
         def call():
@@ -5258,7 +5377,8 @@ def general_edges(torch) -> None:
     and mixed (the tie graphs with their own distances); and K11's
     walks: a path, one over a mirror arc, a walk that meets the
     sentinel, an unreachable T, a cycle to the step cap, and a delta
-    cut by wanted - routed."""
+    cut by wanted - routed; then the folded round and step ends
+    (``fold_edges``)."""
     import numpy as np
 
     from poseidon_tpu_torch.kernels import bf_relax as k10
@@ -5334,21 +5454,22 @@ def general_edges(torch) -> None:
             pred0 = torch.as_tensor(rng.integers(0, 2 * F + 1, NN)
                                     .astype(np.int32), device=dev)
 
-            def in_args(dist=dist, pred0=pred0):
-                d_o, p_o = torch.empty_like(dist), pred0.clone()
-                c_o = torch.full((1,), 7, dtype=torch.int32, device=dev)
-                return ((g.seg, g.arc, g.head, mrc, dist, d_o, p_o, c_o),
-                        [d_o, p_o, c_o])
-            # the pair's roles from a parity word on the device: even
-            # reads the first buffer, odd the second
-            for word in (0, 2, 5):
-                par = torch.tensor([word], dtype=torch.int32, device=dev)
-
-                def in_parity(*a, par=par, odd=word % 2):
-                    din, dout = (a[5], a[4]) if odd else (a[4], a[5])
-                    k10.bf_relax_in(*a[:4], din, dout, *a[6:], g.plan, par)
-                check(("bf_relax_in", name, dk, f"parity {word}"),
-                      in_parity, k10.bf_relax_in_plain, in_args)
+            # the pair's roles from the loop's parity word: even reads
+            # the first buffer, odd the second; the round's end at round
+            # counts before NN - 1 (go = changed), at NN - 1 (go = 0)
+            for word, it in ((0, 0), (2, NN - 2), (5, NN - 1)):
+                def in_args(dist=dist, pred0=pred0, word=word, it=it, g=g,
+                            mrc=mrc, NN=NN):
+                    other = torch.full_like(dist, -5)
+                    da, db = (other, dist.clone()) if word % 2 else (
+                        dist.clone(), other)
+                    p_o = pred0.clone()
+                    loop = ssp_words(dev, NN, D=word, IT=it)
+                    return ((g.seg, g.arc, g.head, mrc, da, db, p_o, loop),
+                            [da, db, p_o, loop.words, loop.tally])
+                check(("bf_relax_in", name, dk, f"parity {word} it {it}"),
+                      lambda *a, g=g: k10.bf_relax_in(*a[:7], g.plan, a[7]),
+                      k10.bf_relax_in_plain, in_args)
     hazards = []
     # each step with parity words on the device naming (d, p) = (0, 0),
     # (1, 0) and (0, 1) (as counters: 3, 6 and 4, 1)
@@ -5370,19 +5491,23 @@ def general_edges(torch) -> None:
             d0, _ = st.parities()
             k11.ssp_augment(st, first)
             # the hazard: the next dist0 went into the other buffer, and
-            # the distances read are left as they were; the words are the
-            # caller's to advance
+            # the distances read are left as they were; the step's end
+            # advanced both parity words by one
             want = torch.as_tensor(case["dist"], device=dev)
-            kept = st.par.tolist() == list(words)
+            kept = st.loop.words[:2].tolist() == [words[0] + 1, words[1] + 1]
             if not torch.equal(st.dist[d0], want) or not kept:
                 hazards.append((name, words))
 
         check(("ssp_augment", name, words), k11_kernel,
               lambda st, first=first: k11.ssp_step_plain(st, first),
               step_args)
+    n_fold, bad_fold = fold_edges(torch)
     log(f"[edges] cs_sweep, bf_relax (out, in), ssp_augment (eps and the "
         f"parities on the device): {n} cases, {len(bad)} "
-        f"differ; ssp_augment dist-buffer hazards: {hazards}")
+        f"differ; ssp_augment dist-buffer hazards: {hazards}; the folded "
+        f"round and step ends (eager, no handle): {n_fold} cases, "
+        f"{len(bad_fold)} differ {bad_fold}")
+    bad += bad_fold
     if bad or hazards:
         raise AssertionError(f"[edges] general kernels != twins: {bad[:8]}")
 
@@ -5466,7 +5591,9 @@ def general_phase(torch, card: str) -> dict:
     SSP (= oracle, K11 once a path and once for the prologue); SSP at 200
     x 2,000, at max_paths and with no supply. Then the flagship as a
     DIMACS text through ``solve_scheduling`` (backend cost_scaling, one
-    graph) and through its dense path cold and warm (= oracle). Launch
+    graph) and through its dense path cold and warm (= oracle). SSP's
+    flagship graph runs K14 at most once (K10 ``in`` and K11 set its
+    WHILE nodes); its us a round are printed. Launch
     counts are zeroed just before each solve and read just after it.
     Prints each graph's capture ms and solve ms beside the host loop's.
     Returns each kernel's launches in the solve its record times: K9 and
@@ -5620,6 +5747,20 @@ def general_phase(torch, card: str) -> dict:
             FLAGSHIP_SSP_LAUNCHES:
         raise AssertionError(f"[general] SSP launches {ssp_counts}, want "
                              f"K10, K11 {FLAGSHIP_SSP_LAUNCHES}")
+    # the loops' conditions are set by K10 in and K11 themselves: K14 runs
+    # only the graph's entry, once a solve
+    (_nn, _r, _cap_ms, solve_ms), = ssp.CAPTURES.since(
+        ssp.CAPTURES.total - 1)
+    rounds = ssp_counts["bf_relax"]
+    log(f"[general] SSP flagship graph: {rounds} relaxation rounds, "
+        f"{sres.iterations} paths, solve_ms={solve_ms:.3f}: "
+        f"{solve_ms * 1e3 / rounds:.3f} us a round (the steps included), "
+        f"{solve_ms * 1e3 / (rounds + sres.iterations):.3f} us a loop "
+        f"iteration (a round or a step); loop_ctl launches "
+        f"{ssp_counts['loop_ctl']} ({ssp_counts['loop_ctl'] / max(sres.iterations, 1):.6f} a path) | {card}")
+    if ssp_counts["loop_ctl"] > 1:
+        raise AssertionError(f"[general] SSP: K14 ran {ssp_counts['loop_ctl']} "
+                             f"times, want at most 1")
 
     # the front door: its cost-scaling solve's own result, kept
     seen = []
@@ -6974,15 +7115,144 @@ ADVERSARIAL_EXHAUSTED = (
     (161, "random", 37, 46), (203, "random", 36, 135),
 )
 ADVERSARIAL_WORKERS = 4          # processes, each its own CUDA context
+# trial 119 (random, 16 x 26: 823 rounds over a 32-row table, its seat
+# sorts 32 keys each) and the trials of its table shape and smax: K13's
+# split of n <= 32 keys runs no level, and once took no cluster barrier
+# before its blocks read each other's keys; four processes sharing the
+# card made that race show (an illegal address, or trial 119 out of its
+# fuse). Repeated for RACE_SECONDS in each of the four.
+RACE_TRIALS = (119, 5, 13, 136)
+RACE_SECONDS = 30.0
+# then K13's split alone in a CUDA graph of RACE_SORTS sorts, each held
+# against its twin inside the graph, replayed for RACE_SORT_SECONDS: 32
+# keys (no level) and 64 keys whose last level moves only some keys (the
+# copy back, which no barrier once ordered before the rank either)
+RACE_SORTS = 256
+RACE_SORT_SECONDS = 20.0
+
+
+def race_sort_cases(torch, device):
+    """(keys, spans) of the sort part: n = 32 seat keys (segment, negated
+    level, task id) over 35 segments, and n = 64 with 40 keys in one
+    segment, split again at level 1 (so level 1 moves 40 of 64 keys)."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels.seat_sort import INT32
+
+    rng = np.random.default_rng(19)
+    cases = []
+    for n, crowd in ((32, 0), (64, 40)):
+        seg = rng.integers(0, 35, n)
+        seg[:crowd] = 33
+        cols = (seg, -rng.integers(0, 1000, n), rng.permutation(n))
+        keys = tuple(torch.as_tensor(c.astype(np.int32), device=device)
+                     for c in cols)
+        cases.append((keys, ((0, 34), INT32, (0, n - 1))))
+    return cases
+
+
+def race_sorts(torch, seconds: float, device) -> tuple[int, int]:
+    """K13 on ``race_sort_cases`` for ``seconds``: on the card a captured
+    graph of RACE_SORTS sorts, each compared with its twin's result into
+    a device count, replayed; on the CPU the twin itself. Returns (sorts
+    that differed, sorts run)."""
+    from poseidon_tpu_torch.kernels import seat_sort
+
+    dev = torch.device(device)
+    cases = race_sort_cases(torch, dev)
+    want = [tuple(w.to(dev) for w in seat_sort.seat_sort_plain(
+        *(k.cpu() for k in keys))) for keys, _spans in cases]
+    bad = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def body():
+        for i in range(RACE_SORTS):
+            keys, spans = cases[i % 2]
+            outs = seat_sort.seat_sort(keys, spans)
+            differs = torch.stack([(o != w).any() for o, w in
+                                   zip(outs, want[i % 2])]).any()
+            bad.add_(differs.to(torch.int32))
+
+    t0, runs = time.perf_counter(), 0
+    if dev.type == "cuda":
+        body()                       # plans and kernels loaded, then captured
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+        bad.zero_()
+        while time.perf_counter() - t0 < seconds:
+            graph.replay()
+            runs += RACE_SORTS
+        torch.cuda.synchronize()
+    else:
+        while time.perf_counter() - t0 < seconds:
+            body()
+            runs += RACE_SORTS
+    return int(bad), runs
+
+
+def race_worker(job) -> tuple[list, tuple[int, int]]:
+    """One process of the race check: ``RACE_TRIALS`` in turns until
+    ``seconds`` have passed, each through the sweep's own trial (dense
+    solve, oracle), then ``race_sorts``; returns (trial, converged,
+    rounds, cost, oracle cost) of every run and the sorts' (differed,
+    run). A CUDA fault raises, and fails the phase."""
+    from poseidon_tpu_torch import adversarial
+
+    import torch
+
+    seconds, sort_seconds, device = job
+    torch.set_num_threads(1)
+    inputs = {t[0]: t for t in adversarial.trial_inputs(max(RACE_TRIALS) + 1)}
+    out, t0 = [], time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for trial in RACE_TRIALS:
+            r = adversarial.run_trial(*inputs[trial], device)
+            out.append((r.trial, r.converged, r.rounds, r.cost,
+                        r.oracle_cost))
+    return out, race_sorts(torch, sort_seconds, device)
+
+
+def race_check(card: str, seconds: float = RACE_SECONDS,
+               sort_seconds: float = RACE_SORT_SECONDS) -> None:
+    """The sweep's small-table trials, then K13's split alone, repeated in
+    ADVERSARIAL_WORKERS processes at once: every run converged at the
+    oracle's cost, every run of a trial took the same rounds, and every
+    sort equals its twin (ROADMAP Queue 3's closed fault)."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(ADVERSARIAL_WORKERS) as pool:
+        parts = pool.map(race_worker, [(seconds, sort_seconds, DEVICE)] *
+                         ADVERSARIAL_WORKERS)
+    runs = [r for part, _sorts in parts for r in part]
+    sort_bad = sum(b for _part, (b, _n) in parts)
+    sorts = sum(n for _part, (_b, n) in parts)
+    bad = [r for r in runs if not r[1] or r[3] != r[4]]
+    rounds = {}
+    for r in runs:
+        rounds.setdefault(r[0], set()).add(r[2])
+    log(f"[adversarial] race check: trials {RACE_TRIALS} repeated in "
+        f"{ADVERSARIAL_WORKERS} processes for {seconds:.0f} s: {len(runs)} "
+        f"runs ({ {t: sum(r[0] == t for r in runs) for t in RACE_TRIALS} }), "
+        f"rounds {sorted((t, sorted(v)) for t, v in rounds.items())}, "
+        f"{len(bad)} unconverged or off the oracle; K13's split of 32 and "
+        f"64 keys in a graph for {sort_seconds:.0f} s: {sorts} sorts, "
+        f"{sort_bad} differ from the twin; {time.perf_counter() - t0:.1f} s "
+        f"| {card}")
+    if bad or sort_bad or any(len(v) != 1 for v in rounds.values()):
+        raise AssertionError(f"[adversarial] race check: {bad[:8]}, rounds "
+                             f"{rounds}, sorts differing {sort_bad}")
 
 
 def adversarial_phase(torch, card: str) -> None:
-    """All 240 trials of the adversarial fuse sweep on the card. The
-    trials the reference ran out of their fuse (the 20,000-round runs,
-    66-99 s each) start first, so the pool's last trials are short ones;
-    the order changes no trial's result."""
+    """The race check (``race_check``), then all 240 trials of the
+    adversarial fuse sweep on the card. The trials the reference ran out
+    of their fuse (the 20,000-round runs, 66-99 s each) start first, so
+    the pool's last trials are short ones; the order changes no trial's
+    result."""
     from poseidon_tpu_torch import adversarial
 
+    race_check(card)
     t0 = time.perf_counter()
     records, launches = adversarial.sweep(
         adversarial.TRIALS, "cuda", workers=ADVERSARIAL_WORKERS,

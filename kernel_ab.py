@@ -363,6 +363,33 @@ def in_parity(torch, dev, k10) -> tuple:
     return ()
 
 
+def folded(k10) -> bool:
+    """Whether this process's checkout ends SSP's round in K10 ``in``
+    itself (its loop words, ``kernels/ssp_loop.py``)."""
+    return "loop" in inspect.signature(k10.bf_relax_in).parameters
+
+
+def ssp_words(dev, NN: int, wanted: int = 1, max_paths: int = 2):
+    """Fresh SSP loop words of a folded checkout (parities 0)."""
+    from poseidon_tpu_torch.kernels.ssp_loop import SspLoop
+
+    return SspLoop(dev, wanted, max_paths, NN)
+
+
+def in_round(torch, dev, k10, g, mrc, da, db, pred, loop=None):
+    """One K10 ``in`` round with this process's checkout, reading ``da``
+    and writing ``db`` (a folded checkout: by ``loop``'s parity, which
+    the round advances; an older one: its ``changed`` flag, returned)."""
+    if folded(k10):
+        k10.bf_relax_in(g.seg, g.arc, g.head, mrc, da, db, pred, g.plan, loop)
+        return None
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+    plan = (g.plan,) if hasattr(g, "plan") else ()
+    k10.bf_relax_in(g.seg, g.arc, g.head, mrc, da, db, pred, changed, *plan,
+                    *in_parity(torch, dev, k10))
+    return changed
+
+
 def ssp_step_call(torch, dev, net):
     """K11 at SSP's first path of the flagship (``net``), with this
     process's checkout: (timed call, its restore, check against the twin,
@@ -387,20 +414,38 @@ def ssp_step_call(torch, dev, net):
     dist = torch.full((NN,), k10.INF, dtype=i32, device=dev)
     dist[S] = 0
     pred = torch.full((NN,), 2 * F, dtype=i32, device=dev)
-    d2, changed = torch.empty_like(dist), torch.ones(1, dtype=i32, device=dev)
-    while int(changed[0]):
-        k10.bf_relax_in(g.seg, g.arc, g.head, mrc, dist, d2, pred, changed,
-                        g.plan, *in_parity(torch, dev, k10))
-        dist, d2 = d2, dist
+    d2 = torch.empty_like(dist)
+    if folded(k10):
+        from poseidon_tpu_torch.kernels.ssp_loop import GO_BF
+
+        words = ssp_words(dev, NN)
+        while True:
+            even = int(words.words[0]) % 2 == 0
+            in_round(torch, dev, k10, g, mrc, dist, d2, pred, words)
+            if not int(words.words[GO_BF]):
+                break
+        if even:
+            dist, d2 = d2, dist
+    else:
+        while True:
+            changed = in_round(torch, dev, k10, g, mrc, dist, d2, pred)
+            dist, d2 = d2, dist
+            if not int(changed[0]):
+                break
     state0 = torch.zeros(2, dtype=i32, device=dev)
 
     if hasattr(k11, "PathStep"):
-        # a checkout whose step reads its parity words on the device takes
-        # them (0, 0); an older one keeps the host's d and p
-        words = "parity" in inspect.signature(k11.PathStep).parameters
+        # a checkout whose step ends on SSP's loop words takes fresh ones
+        # (parities 0); one that reads its parity words on the device
+        # takes them (0, 0); an older one keeps the host's d and p
+        sig = inspect.signature(k11.PathStep).parameters
+        words = "parity" in sig or "loop" in sig
 
         def make():
-            par = (torch.zeros(2, dtype=i32, device=dev),) if words else ()
+            if "loop" in sig:
+                par = (ssp_words(dev, NN, wanted, wanted + 1),)
+            else:
+                par = (torch.zeros(2, dtype=i32, device=dev),) if words else ()
             st = k11.PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap,
                               fsrc_d, fdst_d, NN, wanted, S, T, *par)
             st.flow.copy_(flow0)
@@ -414,7 +459,9 @@ def ssp_step_call(torch, dev, net):
             st.flow.copy_(flow0)
             st.state.copy_(state0)
             st.pred.copy_(pred)
-            if not words:
+            if "loop" in sig:
+                st.loop.words.zero_()
+            elif not words:
                 st.d, st.p = 0, 0
 
         def call():
@@ -703,26 +750,45 @@ def general_calls(torch, dev, net) -> dict:
     dist = torch.full((NN,), k10.INF, dtype=torch.int32, device=dev)
     dist[S] = 0
 
-    def in_args():
-        return (g2.seg, g2.arc, g2.head, mrc, dist, torch.empty_like(dist),
-                torch.full((NN,), 2 * F, dtype=torch.int32, device=dev),
-                torch.zeros(1, dtype=torch.int32, device=dev))
+    if folded(k10):
+        # the round and its end, as SSP's graph runs it; the timed calls
+        # alternate the pair by the parity the round advances
+        def in_args():
+            return (g2.seg, g2.arc, g2.head, mrc, dist.clone(),
+                    torch.empty_like(dist),
+                    torch.full((NN,), 2 * F, dtype=torch.int32, device=dev))
 
-    par = in_parity(torch, dev, k10)
+        def check_in():
+            a, b = in_args(), in_args()
+            la, lb = ssp_words(dev, NN), ssp_words(dev, NN)
+            k10.bf_relax_in(*a, g2.plan, la)
+            k10.bf_relax_in_plain(*b, lb)
+            return all(torch.equal(x, y) for x, y in zip(
+                (*a[4:], la.words, la.tally), (*b[4:], lb.words, lb.tally)))
 
-    def check_in():
-        a, b = in_args(), in_args()
-        k10.bf_relax_in(*a, *plan2, *par)
-        k10.bf_relax_in_plain(*b)
-        return all(torch.equal(x, y) for x, y in zip(a[5:], b[5:]))
+        in_call, in_loop = in_args(), ssp_words(dev, NN)
+        in_timed = (lambda: k10.bf_relax_in(*in_call, g2.plan, in_loop))
+    else:
+        def in_args():
+            return (g2.seg, g2.arc, g2.head, mrc, dist, torch.empty_like(dist),
+                    torch.full((NN,), 2 * F, dtype=torch.int32, device=dev),
+                    torch.zeros(1, dtype=torch.int32, device=dev))
 
-    in_call = in_args()
+        par = in_parity(torch, dev, k10)
+
+        def check_in():
+            a, b = in_args(), in_args()
+            k10.bf_relax_in(*a, *plan2, *par)
+            k10.bf_relax_in_plain(*b)
+            return all(torch.equal(x, y) for x, y in zip(a[5:], b[5:]))
+
+        in_call = in_args()
+        in_timed = (lambda: k10.bf_relax_in(*in_call, *plan2, *par))
     return {
         "cs_sweep": (lambda: k9.cs_sweep(*sweep_call, *plan), check_sweep),
         "bf_relax_out": (lambda: k10.bf_relax_out(*out_call, *plan),
                          check_out),
-        "bf_relax_in": (lambda: k10.bf_relax_in(*in_call, *plan2, *par),
-                        check_in),
+        "bf_relax_in": (in_timed, check_in),
     }
 
 
@@ -991,43 +1057,33 @@ def window_lanes(torch, dev, K: int = 8, n: int = 16) -> dict:
     return out
 
 
-def auction_graph(torch, trial: int = 8) -> dict:
-    """The auction loop's graph of adversarial trial ``trial`` (8: coco,
-    34 machines x 128 tasks, converged after thousands of rounds, every
-    branch taken), as this process's checkout builds it: the trial's
-    outcome and the graph's text from the driver's
-    ``cuGraphDebugDotPrint`` (verbose, child and conditional bodies
-    included) with what differs between two builds of the same nodes
-    masked: hexadecimal addresses, numbers of 7 or more digits (node
-    ids, handles), the graphs' numbers (their order of creation) and the
-    per-file hashes in the kernels' mangled names. ``sha256`` is that
-    text's digest; ``sha256_k14`` the digest once K14's mangled name
-    (its argument list) is cut to ``loop_ctl_kernel`` too; ``nodes``
-    counts the nodes by kind."""
-    import collections
-    import hashlib
+def own_driver():
+    """The CUDA driver from this script's own checkout's loader (an older
+    checkout's has no ``driver``); it is the same library for every
+    one."""
     import importlib.util
-    import re
-    import tempfile
 
-    from poseidon_tpu_torch import adversarial
-    from poseidon_tpu_torch.ops import dense_auction as da
-
-    (job,) = [j for j in adversarial.trial_inputs(trial + 1) if j[0] == trial]
-    rec = adversarial.run_trial(*job, "cuda")
-    torch.cuda.synchronize()
-    (entry,) = list(da._graphs.values())
-    # the driver comes from this script's own checkout's loader (an older
-    # checkout's has no ``driver``); it is the same library for every one
     spec = importlib.util.spec_from_file_location(
         "kernel_ab_loader", os.path.join(os.path.dirname(os.path.abspath(
             __file__)), "poseidon_tpu_torch", "kernels", "loader.py"))
     own = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(own)
+    return own.driver()
+
+
+def graph_text(graph) -> str:
+    """A graph's text from the driver's ``cuGraphDebugDotPrint`` (verbose,
+    child and conditional bodies included) with what differs between two
+    builds of the same nodes masked: hexadecimal addresses, numbers of 7
+    or more digits (node ids, handles), the graphs' numbers (their order
+    of creation) and the per-file hashes in the kernels' mangled
+    names."""
+    import re
+    import tempfile
+
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "graph.dot")
-        err = own.driver().cuGraphDebugDotPrint(entry.graph._graph,
-                                                path.encode(), 1)
+        err = own_driver().cuGraphDebugDotPrint(graph, path.encode(), 1)
         if err:
             raise RuntimeError(f"cuGraphDebugDotPrint: CUresult {err}")
         with open(path) as f:
@@ -1036,13 +1092,109 @@ def auction_graph(torch, trial: int = 8) -> dict:
                           (r"\b(graph|cluster)_\d+", r"\1_X"),
                           (r"(_GLOBAL__N__|_cu_)[0-9a-f]{8}", r"\1H")):
         text = re.sub(pattern, mask, text)
+    return text
+
+
+def auction_graph(torch, trial: int = 8) -> dict:
+    """The auction loop's graph of adversarial trial ``trial`` (8: coco,
+    34 machines x 128 tasks, converged after thousands of rounds, every
+    branch taken), as this process's checkout builds it: the trial's
+    outcome and the graph's masked text (``graph_text``). ``sha256`` is
+    that text's digest; ``sha256_k14`` the digest once K14's mangled name
+    (its argument list) is cut to ``loop_ctl_kernel`` too; ``nodes``
+    counts the nodes by kind. Also SSP's graph (``ssp_graph``)."""
+    import collections
+    import hashlib
+    import re
+
+    from poseidon_tpu_torch import adversarial
+    from poseidon_tpu_torch.ops import dense_auction as da
+
+    (job,) = [j for j in adversarial.trial_inputs(trial + 1) if j[0] == trial]
+    rec = adversarial.run_trial(*job, "cuda")
+    torch.cuda.synchronize()
+    (entry,) = list(da._graphs.values())
+    text = graph_text(entry.graph._graph)
     k14 = re.sub(r"_ZN\w*loop_ctl_kernel\w*", "loop_ctl_kernel", text)
     kinds = collections.Counter(re.findall(r'label="\{(\w+)', text))
     return {"trial": trial, "rounds": rec.rounds, "cost": rec.cost,
             "converged": rec.converged, "nodes": dict(kinds),
             "sha256": hashlib.sha256(text.encode()).hexdigest(),
             "sha256_k14": hashlib.sha256(k14.encode()).hexdigest(),
-            "dot": text}
+            "dot": text, "ssp": ssp_graph(torch)}
+
+
+# the kernels SSP's graph may hold, by a part of their (mangled) names
+SSP_KERNELS = ("loop_ctl_kernel", "bf_in_kernel", "ssp_walk_kernel",
+               "ssp_wide_kernel", "elementwise_kernel", "fill")
+
+
+def ssp_graph(torch, paths: int = 3) -> dict:
+    """SSP's graph as this process's checkout builds it for the flagship
+    (BASELINE config 2 priced by quincy, ``paths`` paths), printed as
+    ``graph_text`` just before the solve destroys it, and its nodes
+    (``ssp_graph_nodes``)."""
+    from poseidon_tpu_torch.kernels import loop_graph
+    from poseidon_tpu_torch.ops import ssp
+
+    texts = []
+    close = loop_graph.ControlGraph.close
+
+    def dump_then_close(self):
+        if self._graph is not None:
+            texts.append(graph_text(self._graph))
+        close(self)
+
+    loop_graph.ControlGraph.close = dump_then_close
+    try:
+        res = ssp.solve_ssp(flagship_net(torch.device("cuda")),
+                            max_paths=paths, device="cuda")
+    finally:
+        loop_graph.ControlGraph.close = close
+    (text,) = texts
+    summary = ssp_graph_nodes(text)
+    return {"paths": res.iterations, **summary, "dot": text}
+
+
+def ssp_graph_nodes(text: str) -> dict:
+    """From SSP's graph text: its nodes by kind, its kernel nodes by
+    kernel (``SSP_KERNELS``, a node's function is on the line after its
+    kind), and the nodes of each subgraph that holds K10 ``in`` (the
+    captured round body and the WHILE body around it), by kind and
+    kernel."""
+    import collections
+    import re
+
+    def nodes(lines):
+        out = []
+        for i, ln in enumerate(lines):
+            kind = re.search(r'label="\{(\w+)', ln)
+            if kind:
+                fn = lines[i + 1] if i + 1 < len(lines) else ""
+                out.append((kind.group(1),
+                            next((k for k in SSP_KERNELS if k in fn), None)))
+        return out
+
+    def summary(ns):
+        return {"kinds": dict(collections.Counter(k for k, _ in ns)),
+                "kernels": dict(collections.Counter(f for _, f in ns if f))}
+
+    lines = text.splitlines()
+    stack, bodies = [], []
+    for ln in lines:
+        if ln.strip().startswith("subgraph"):
+            stack.append([])
+        elif ln.strip() == "}" and stack:
+            done = stack.pop()
+            if any("bf_in_kernel" in x for x in done):
+                bodies.append(done)
+            if stack:
+                stack[-1].extend(done)
+        elif stack:
+            stack[-1].append(ln)
+    whole = summary(nodes(lines))
+    return {"nodes": whole["kinds"], "kernels": whole["kernels"],
+            "round_body": [summary(nodes(b)) for b in bodies[:2]]}
 
 
 def sync_rounds(torch, rounds: int = 4) -> list[dict]:

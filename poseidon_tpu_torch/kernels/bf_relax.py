@@ -14,11 +14,15 @@ The CUDA source is ``csrc/bf_relax.cu``; its header note gives the byte
 bound and the design (a segmented min split by positions through the
 launch plan of ``kernels/csr_plan.py``, as K9). The CSR and its plan are
 the ones K9 reads (``kernels/cs_sweep.py``). Each launch writes the new
-distances into a second buffer and sets ``changed`` (int32[1]) when any
-improved; the caller swaps the buffers.
+distances into a second buffer. ``out`` sets ``changed`` (int32[1]) when
+any improved, and its caller swaps the buffers; ``in`` takes the pair by
+SSP's parity word and ends its round on the solve's loop words
+(``kernels/ssp_loop.py``), so SSP's round is this one launch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -28,6 +32,7 @@ from poseidon_tpu_torch.kernels._args import (
 from poseidon_tpu_torch.kernels.cs_sweep import csr_tails
 from poseidon_tpu_torch.kernels.csr_plan import CsrPlan, plan_args
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
+from poseidon_tpu_torch.kernels.ssp_loop import D, SspLoop, round_tail_plain
 
 INF_K = 2**50   # cost_scaling.py's "no path" distance
 INF = 2**30     # ssp.py's
@@ -53,13 +58,16 @@ def bf_relax_out_plain(seg, head, ln, d_in, d_out, changed):
     changed.copy_((new < d_in).any().to(torch.int32).reshape(1))
 
 
-def bf_relax_in_plain(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
-                      parity=None):
-    """The reference's ``round_`` restated over the CSR positions: position
-    p stands for the mirror m of ``arc[p]``, an in-arc of p's tail with
-    tail ``head[p]``; ``mrc[p]`` is rc[m], or INF where m has no capacity
-    left. An odd ``parity`` word swaps the pair's roles."""
-    if parity is not None and int(parity.reshape(-1)[0]) & 1:
+def bf_relax_in_plain(seg, arc, head, mrc, dist_a, dist_b, pred,
+                      loop: SspLoop):
+    """The reference's ``round_`` restated over the CSR positions, then
+    the round's end (``ssp_loop.round_tail_plain``): position p stands
+    for the mirror m of ``arc[p]``, an in-arc of p's tail with tail
+    ``head[p]``; ``mrc[p]`` is rc[m], or INF where m has no capacity
+    left. The round reads ``dist_a`` and writes ``dist_b`` when the
+    loop's dist parity is even, the other way when it is odd."""
+    dist_in, dist_out = dist_a, dist_b
+    if int(loop.words[D]) & 1:
         dist_in, dist_out = dist_out, dist_in
     NN = seg.shape[0] - 1
     F = arc.shape[0] // 2
@@ -76,7 +84,7 @@ def bf_relax_in_plain(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
         0, node, torch.where(is_best, m, 2 * F), "amin")
     pred.copy_(torch.where(improved, pred_new, pred))
     dist_out.copy_(torch.minimum(dist_in, best))
-    changed.copy_(improved.any().to(torch.int32).reshape(1))
+    round_tail_plain(loop, improved.any())
 
 
 @census_op("bf_relax")
@@ -107,20 +115,18 @@ def bf_relax_out(seg, head, ln, d_in, d_out, changed, plan: CsrPlan):
 
 
 @census_op("bf_relax")
-def bf_relax_in(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
-                plan: CsrPlan, parity):
-    """One SSP relaxation round: ``seg`` int32[NN + 1], ``arc``/``head``/
-    ``mrc`` int32[2F], ``dist_in``/``dist_out``/``pred`` int32[NN] (pred
-    in place), ``changed`` int32[1]; ``plan`` the CSR's launch plan.
-    ``parity``, a one-element int32 tensor beside them, gives the pair's
-    roles on the device: when it is even the round reads ``dist_in`` and
-    writes ``dist_out``, when it is odd the other way (the caller advances
-    the word between rounds). CPU tensors take the plain twin, which needs
-    no plan; CUDA tensors launch K10."""
-    if not on_card(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
-                   parity):
-        bf_relax_in_plain(seg, arc, head, mrc, dist_in, dist_out, pred,
-                          changed, parity)
+def bf_relax_in(seg, arc, head, mrc, dist_a, dist_b, pred, plan: CsrPlan,
+                loop: SspLoop):
+    """One SSP relaxation round and its end: ``seg`` int32[NN + 1],
+    ``arc``/``head``/``mrc`` int32[2F], ``dist_a``/``dist_b``/``pred``
+    int32[NN] (pred in place); ``plan`` the CSR's launch plan; ``loop``
+    the solve's loop words (``kernels/ssp_loop.py``): when its dist parity
+    is even the round reads ``dist_a`` and writes ``dist_b``, when it is
+    odd the other way, and the round's end advances the word, counts the
+    round and decides the round loop. CPU tensors take the plain twin,
+    which needs no plan; CUDA tensors launch K10."""
+    if not on_card(seg, arc, head, mrc, dist_a, dist_b, pred, loop.words):
+        bf_relax_in_plain(seg, arc, head, mrc, dist_a, dist_b, pred, loop)
         return
     NN = seg.shape[0] - 1
     R = arc.shape[0]
@@ -128,15 +134,14 @@ def bf_relax_in(seg, arc, head, mrc, dist_in, dist_out, pred, changed,
     spec = (
         (seg, "seg", i32, (NN + 1,)), (arc, "arc", i32, (R,)),
         (head, "head", i32, (R,)), (mrc, "mrc", i32, (R,)),
-        (dist_in, "dist_in", i32, (NN,)), (dist_out, "dist_out", i32, (NN,)),
-        (pred, "pred", i32, (NN,)), (changed, "changed", i32, (1,)),
+        (dist_a, "dist_a", i32, (NN,)), (dist_b, "dist_b", i32, (NN,)),
+        (pred, "pred", i32, (NN,)),
     )
     ptrs = [kernel_arg(t, name, dt, shape) for t, name, dt, shape in spec]
-    par = kernel_arg(parity, "parity", i32, (1,))
     pp = plan_args(plan, NN, R)
-    with torch.cuda.device(dist_in.device):
+    with torch.cuda.device(dist_a.device):
         err = library("bf_relax").bf_relax_in_launch(
-            *pp, *ptrs[1:6], par, *ptrs[6:], plan.n_heavy, plan.n_light,
-            R // 2, stream_ptr(dist_in))
+            *pp, *ptrs[1:], plan.n_heavy, plan.n_light, R // 2,
+            ctypes.byref(loop.c), stream_ptr(dist_a))
     check_launch(KERNEL, err)
     KERNEL.launches += 1

@@ -29,12 +29,19 @@
 //
 // Both read d/dist from one buffer and write the other: a head's distance
 // is read by other blocks in the same launch. `out`'s caller swaps them
-// between rounds; `in` takes the pair with a parity word on the device
-// (SSP's graph, ops/ssp.py, counts its rounds there): it reads the first
-// buffer and writes the second when the word is even, the other way when
-// it is odd, so a captured round follows the rounds the device ran. pred
-// is written in place (only its owner reads or writes it). Each launch
-// zeroes `changed` first.
+// between rounds and zeroes `changed` before each (the launch's memset);
+// `in` takes the pair with SSP's parity word on the device (ssp_loop.cuh):
+// it reads the first buffer and writes the second when the word is even,
+// the other way when it is odd, so a captured round follows the rounds the
+// device ran. pred is written in place (only its owner reads or writes it).
+//
+// `in` also ends its round (ssp_loop.cuh, step 2 of K14 for SSP): the last
+// block to finish reads `changed`, advances the parity word and the round
+// count, decides the round loop (changed && it < NN), tallies the round,
+// writes the go word, sets the WHILE node's handle inside SSP's graph, and
+// zeroes `changed` and its ticket for the next round. A round is then one
+// kernel node: no memset, no add, no K14 node. The launch always has at
+// least one cluster, so some block runs the tail whatever the plan.
 //
 // Bound: bytes. A round reads the whole CSR and the node vector: `out`
 // reads seg, head and ln (16 bytes an arc) and d at each head (8), and
@@ -57,6 +64,7 @@
 #include <stdint.h>
 
 #include "csr_plan.cuh"
+#include "ssp_loop.cuh"
 
 namespace {
 
@@ -216,13 +224,14 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
     bf_in_kernel(const int4* __restrict__ plan, int n_heavy, int n_light,
                  const int* __restrict__ tail, const int* __restrict__ arc,
                  const int* __restrict__ head, const int* __restrict__ mrc, int* dist_a,
-                 int* dist_b, const int* __restrict__ parity, int* __restrict__ pred,
-                 int* __restrict__ changed, int F) {
+                 int* dist_b, int* __restrict__ pred, int F, const ssp::Loop loop) {
   // the buffer pair read and written in turn: dist_a -> dist_b, or the
-  // other way when the device's parity word is odd
-  const bool flip = (*parity & 1) != 0;
+  // other way when the device's parity word is odd (read here, before the
+  // block's ticket: the tail advances the word only after every ticket)
+  const bool flip = (loop.words[ssp::D] & 1) != 0;
   relax(In{arc, head, mrc, flip ? dist_b : dist_a, flip ? dist_a : dist_b, pred, F}, plan, n_heavy,
-        n_light, tail, changed);
+        n_light, tail, loop.words + ssp::CHANGED);
+  if (ssp::last_block(loop) && threadIdx.x == 0) ssp::round_tail(loop);
 }
 
 }  // namespace
@@ -240,17 +249,15 @@ extern "C" int bf_relax_out_launch(const int* plan, const int* tail, const int* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// One SSP relaxation round and its end; `loop` (kernels/ssp_loop.py's
+// `_Loop`) is copied into the launch. `changed` must be 0 at the launch:
+// the solve's words start at 0 and every round's tail leaves it 0.
 extern "C" int bf_relax_in_launch(const int* plan, const int* tail, const int* arc, const int* head,
-                                  const int* mrc, int* dist_a, int* dist_b, const int* parity,
-                                  int* pred, int* changed, int n_heavy, int n_light, int F,
-                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(changed, 0, sizeof(int), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
+                                  const int* mrc, int* dist_a, int* dist_b, int* pred, int n_heavy,
+                                  int n_light, int F, const ssp::Loop* loop, void* stream) {
   const int blocks = grid_blocks(n_heavy, n_light);
-  if (blocks == 0) return 0;
-  bf_in_kernel<<<blocks, THREADS, 0, s>>>(reinterpret_cast<const int4*>(plan), n_heavy, n_light,
-                                          tail, arc, head, mrc, dist_a, dist_b, parity, pred,
-                                          changed, F);
+  bf_in_kernel<<<blocks > 0 ? blocks : CLUSTER, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int4*>(plan), n_heavy, n_light, tail, arc, head, mrc, dist_a, dist_b,
+      pred, F, *loop);
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,8 +55,10 @@
 //   any keys (all n in one bucket, 128-bit keys) end. Last, every key
 //   finds its bucket's ends in the bitmap and takes its rank in the bucket
 //   by counting the keys of the bucket below it (equal keys by position;
-//   a neighbour block's keys where the bucket crosses into it), and is
-//   unpacked to its place in the outputs. One block alone (an earlier
+//   a neighbour block's keys where the bucket crosses into it, read only
+//   after a cluster barrier: where no level ran, or the last level moved
+//   only some keys and their owners copied them back, the rank step takes
+//   one of its own), and is unpacked to its place in the outputs. One block alone (an earlier
 //   form of the split on a cluster of one) took about twice the cluster's
 //   time at the flagship: every step is issue-bound on one SM.
 // * tiles: above that (config 8's 524,288 tasks), a least-significant-
@@ -480,6 +482,9 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 1) seat_sort_split_kernel(Keys 
   stamps(STAMP_PACKED, stamper);
   int side = 0;
   int level = 0;
+  // whether every block's keys at `side` are where the rank step reads
+  // them, ordered by a cluster barrier (the same in every block)
+  bool settled = false;
   for (;; ++level) {
     const int count = m.misc[0];
     if (count == 0) break;
@@ -704,12 +709,16 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 1) seat_sort_split_kernel(Keys 
     step(5);
     if (listed == n) {
       side ^= 1;  // every key moved: the other side holds them all
+      settled = true;
     } else {
+      // the moved keys back to `side`, each by its owner, after the
+      // level's last cluster barrier
       for (int x = tid; x < owned; x += SPLIT_THREADS) {
         int j;
         const int e = own(x, j) - lo;
         b.store(side, e, b.load(side ^ 1, e));
       }
+      settled = false;
     }
     for (int i = tid; i < used; i += SPLIT_THREADS) m.hist[i] = 0;  // for the next level
     const int next = carry >> 16;
@@ -724,6 +733,15 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 1) seat_sort_split_kernel(Keys 
     __syncthreads();
   }
   stamps.put(STAMP_LEVELS, level, stamper);
+  // The rank below reads other blocks' keys. A last level that moved
+  // every key has ordered them by its cluster barrier. Otherwise no
+  // barrier has yet ordered each block's last writes of its keys before
+  // the other blocks' reads: with no level (n <= SMALL) the packing, and
+  // a block could even read a neighbour that had not started; after a
+  // level that moved some keys, the copy back to `side`. Without this
+  // barrier a block could rank against a neighbour's stale keys: a wrong
+  // rank, and out-of-range ids in the outputs.
+  if (!settled) cl.sync();
   // rank every key of this block inside its bucket (at most SMALL keys,
   // or all equal)
   for (int e = lo + tid; e < hi; e += SPLIT_THREADS) {

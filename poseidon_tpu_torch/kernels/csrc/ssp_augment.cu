@@ -50,9 +50,17 @@
 //   no thread waits on another's potential; it writes pot' into the other
 //   buffer of the pot pair, and dist0 into the other buffer of the dist
 //   pair, never into the `dist` it reads; pred is reset in place (only
-//   the walk, which ran before it, reads pred).
+//   the walk, which ran before it, reads pred). Its last block to finish
+//   ends the step (ssp_loop.cuh, step 2 of K14 for SSP): it advances both
+//   parity words and the path count, restarts the round count, decides
+//   the path loop (routed < wanted && delta > 0 && paths < max_paths),
+//   tallies it, writes the go words and, inside SSP's graph, sets the path
+//   loop's handle and arms the round loop's for the next path. The
+//   prologue's step only advances the parities and arms the round loop.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ssp_loop.cuh"
 
 namespace {
 
@@ -140,12 +148,12 @@ __global__ void __launch_bounds__(WIDE_THREADS)
     ssp_wide_kernel(const int* __restrict__ arc, const int* __restrict__ head,
                     const int* __restrict__ tail, const int* __restrict__ cost,
                     const int* __restrict__ fcap, const int* __restrict__ flow, int* dist0,
-                    int* dist1, int* pot0, int* pot1, const int* __restrict__ par,
-                    int* __restrict__ pred, int* __restrict__ mrc, int S, int NN, int F, int R,
-                    int first) {
-  // the step's buffer indices: the low bits of the parity words par[0]
-  // (dist) and par[1] (pot)
-  const int dp = par[0] & 1, pp = par[1] & 1;
+                    int* dist1, int* pot0, int* pot1, int* __restrict__ pred,
+                    int* __restrict__ mrc, const int* state, int S, int NN, int F, int R,
+                    int first, const ssp::Loop loop) {
+  // the step's buffer indices: the low bits of the parity words (read
+  // before the block's ticket; the tail advances them after every ticket)
+  const int dp = loop.words[ssp::D] & 1, pp = loop.words[ssp::P] & 1;
   const int* __restrict__ dist = dp ? dist1 : dist0;
   int* __restrict__ dist_next = dp ? dist0 : dist1;
   const int* __restrict__ pot = pp ? pot1 : pot0;
@@ -175,6 +183,7 @@ __global__ void __launch_bounds__(WIDE_THREADS)
     dist_next[i] = i == S ? 0 : INF;
     pred[i] = 2 * F;
   }
+  if (ssp::last_block(loop) && threadIdx.x == 0) ssp::step_tail(loop, state, first != 0);
 }
 
 }  // namespace
@@ -195,14 +204,14 @@ struct SspArgs {
   int* state;
   int* dist[2];
   int* pot[2];
-  const int* par;  // the parity words (d, p) on the device
+  ssp::Loop loop;  // the solve's loop words (d and p: its parities)
   long long wanted, S, T, NN, F, R, record;
 };
 
 // One path step: dist[d] holds the path's distances (unread when
 // `first`), pot[p] its potentials; the next relaxation reads dist[d ^ 1]
-// and the next step pot[p ^ 1]. d and p are par[0] & 1 and par[1] & 1,
-// read on the device (the caller advances the words after the step).
+// and the next step pot[p ^ 1]. d and p are the low bits of the loop's
+// parity words, read on the device; the step's last block advances them.
 extern "C" int ssp_step_launch(const SspArgs* a, int first, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = static_cast<int>(a->S), NN = static_cast<int>(a->NN);
@@ -210,7 +219,7 @@ extern "C" int ssp_step_launch(const SspArgs* a, int first, void* stream) {
   if (!first) {
     const int record = static_cast<int>(a->record);
     ssp_walk_kernel<<<1, WALK_THREADS, record * sizeof(int), st>>>(
-        a->pred, a->dist[0], a->dist[1], a->par, a->fsrc, a->fdst, a->fcap, a->flow, a->state,
+        a->pred, a->dist[0], a->dist[1], a->loop.words, a->fsrc, a->fdst, a->fcap, a->flow, a->state,
         static_cast<int>(a->wanted), S, static_cast<int>(a->T), NN, F, record);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -218,6 +227,6 @@ extern "C" int ssp_step_launch(const SspArgs* a, int first, void* stream) {
   const int n = R > NN ? R : NN;
   ssp_wide_kernel<<<(n + WIDE_THREADS - 1) / WIDE_THREADS, WIDE_THREADS, 0, st>>>(
       a->arc, a->head, a->tail, a->cost, a->fcap, a->flow, a->dist[0], a->dist[1], a->pot[0],
-      a->pot[1], a->par, a->pred, a->mrc, S, NN, F, R, first);
+      a->pot[1], a->pred, a->mrc, a->state, S, NN, F, R, first, a->loop);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,7 +43,7 @@ _STAMPED = ("top_will", "seat_sort")
 # the entry points that take the stamps buffer (before the stream) in the
 # stamps build
 _STAMPED_ENTRIES = ("top_will_list_launch", "seat_sort_launch")
-_HEADERS = ("common.cuh", "csr_plan.cuh")
+_HEADERS = ("common.cuh", "csr_plan.cuh", "ssp_loop.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -236,7 +236,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         },
         "bf_relax": {
             "bf_relax_out_launch": [P] * 7 + [I] * 2 + [P],
-            "bf_relax_in_launch": [P] * 10 + [I] * 3 + [P],
+            "bf_relax_in_launch": [P] * 8 + [I] * 3 + [P, P],
         },
         "ssp_augment": {
             "ssp_step_launch": [P, I, P],

@@ -9,7 +9,8 @@ lane's nested ``lax.while_loop``s (``poseidon_tpu/ops/cost_scaling.py``
 source is ``csrc/loop_graph.cu``; its header note gives K14's modes.
 
 A loop is described here as a ``Seq``: the nodes of one graph in order,
-each a captured body (a name), a K14 ``Step`` or a ``Cond`` (an IF or
+each a captured body (a name, or a ``Body`` whose kernel sets
+conditional handles itself), a K14 ``Step`` or a ``Cond`` (an IF or
 WHILE node with its own ``Seq``). ``ControlGraph`` captures the bodies
 (callables of the port's own PyTorch code and kernels) into graphs of
 one shared private pool, each with ``torch.cuda.CUDAGraph(keep_graph=
@@ -84,6 +85,17 @@ class Step:
 
 
 @dataclasses.dataclass(frozen=True)
+class Body:
+    """A captured body whose kernel ends by setting conditional handles
+    (SSP's K10 ``in`` and K11, ``kernels/ssp_loop.py``): ``sets`` holds
+    (handle, word) pairs, each handle set to the device word the kernel
+    writes beside it (its go word, which the host loop reads)."""
+
+    name: str
+    sets: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
 class Cond:
     """An IF (``kind`` "if") or WHILE node on the handle ``handle``, its
     body the graph ``body``."""
@@ -95,7 +107,8 @@ class Cond:
 
 @dataclasses.dataclass(frozen=True)
 class Seq:
-    """One graph's nodes in order: body names, ``Step``s and ``Cond``s.
+    """One graph's nodes in order: bodies (names or ``Body``s), ``Step``s
+    and ``Cond``s.
     ``runs``: the tally slots whose sum counts the graph's runs."""
 
     runs: tuple
@@ -110,11 +123,17 @@ def _walk(seq: Seq):
             yield from _walk(item.body)
 
 
+def body_name(item) -> str:
+    """A body item's name (a name, or a ``Body``'s)."""
+    return item.name if isinstance(item, Body) else item
+
+
 @functools.lru_cache(maxsize=None)
 def layout(spec: Seq) -> tuple:
     """(bodies, steps): each body's name with its Seq's run slots, in
     capture order, and each K14 step's run slots."""
-    bodies = tuple((it, s.runs) for it, s in _walk(spec) if isinstance(it, str))
+    bodies = tuple((body_name(it), s.runs) for it, s in _walk(spec)
+                   if isinstance(it, (str, Body)))
     steps = tuple(s.runs for it, s in _walk(spec) if isinstance(it, Step))
     return bodies, steps
 
@@ -316,20 +335,27 @@ class ControlGraph:
     ``bodies`` maps each body name to a callable that runs it on the
     loop's static tensors, and ``tensors`` maps the names K14's steps read
     to one-element device tensors (or to callables returning them, read
-    once the bodies have been captured)."""
+    once the bodies have been captured). ``tally``: the int32[TALLY]
+    tally the graph's K14 steps and copy use, where the bodies' kernels
+    count into it too (None: the graph's own). ``arm(handles)``: called
+    with every conditional handle by name once the graph is built, before
+    any launch, where the bodies' kernels set handles themselves (they
+    were captured before the handles existed)."""
 
     spec: Seq
     label = "a loop"
 
     def __init__(self, device, spec: Seq, bodies: dict, tensors: dict,
-                 label: str | None = None):
+                 label: str | None = None, tally=None, arm=None):
         self.device = device
         self.spec = spec
         if label is not None:
             self.label = label
         i32 = torch.int32
         self.codes = torch.zeros(4, dtype=i32, device=device)
-        self.tally = torch.zeros(TALLY, dtype=i32, device=device)
+        self.tally = (torch.zeros(TALLY, dtype=i32, device=device)
+                      if tally is None else tally)
+        self.handles: dict[str, int] = {}
         self.tally_host = torch.zeros(TALLY, dtype=i32, pin_memory=True)
         self._host_view = self.tally_host.numpy()
         self._settled = np.zeros(TALLY, np.int64)
@@ -361,6 +387,8 @@ class ControlGraph:
                                    self.tally.data_ptr(), TALLY * 4,
                                    ctypes.byref(node)),
                        f"{self.label}'s graph failed to build")
+                if arm is not None:
+                    arm(dict(self.handles))
                 exe = ctypes.c_void_p()
                 _check(lib.lg_instantiate(self._graph, ctypes.byref(exe)),
                        f"{self.label}'s graph failed to build")
@@ -411,14 +439,14 @@ class ControlGraph:
             if isinstance(item, Cond):
                 h = ctypes.c_ulonglong()
                 _check(lib.lg_handle(graph, ctypes.byref(h)), what)
-                handles[item.handle] = h.value
+                handles[item.handle] = self.handles[item.handle] = h.value
         prev = None
         for item in seq.items:
             node = ctypes.c_void_p()
-            if isinstance(item, str):
-                _check(lib.lg_child(graph, prev,
-                                    self.graphs[item].raw_cuda_graph(),
-                                    ctypes.byref(node)), what)
+            if isinstance(item, (str, Body)):
+                _check(lib.lg_child(
+                    graph, prev, self.graphs[body_name(item)].raw_cuda_graph(),
+                    ctypes.byref(node)), what)
             elif isinstance(item, Step):
                 ctl = _ctl(item, tensors, self.codes, self.tally,
                            [handles[n] for n in item.sets])
@@ -527,16 +555,18 @@ def runs_graph(device) -> bool:
 
 
 def run_once(device, spec: Seq, bodies: dict, tensors: dict, fetch,
-             label: str):
+             label: str, tally=None, arm=None):
     """One solve's loop as one graph: capture the bodies and build the
     graph, launch it once and return ``(fetch(), capture_ms, solve_ms)``:
     ``fetch`` is the solve's one result read; solve_ms runs from the
     launch to the fetch's end. A capture launches nothing, so the state
-    the graph starts from is the one the caller made. The graph is
-    destroyed before this returns; a failure raises."""
+    the graph starts from is the one the caller made. ``tally`` and
+    ``arm``: as ``ControlGraph`` takes them. The graph is destroyed
+    before this returns; a failure raises."""
     t0 = time.perf_counter()
     with torch.cuda.device(device):
-        graph = ControlGraph(device, spec, bodies, tensors, label)
+        graph = ControlGraph(device, spec, bodies, tensors, label, tally,
+                             arm)
         t1 = time.perf_counter()
         try:
             graph.launch()

@@ -21,11 +21,12 @@ the design). ``dist`` and ``pot`` are buffer pairs: ``dist[d]`` is what
 the next relaxation reads, ``pot[p]`` the current potentials; a step
 reads ``dist[d]`` and writes the next distances into ``dist[d ^ 1]``,
 never into the buffer it reads. ``d`` and ``p`` are the low bits of the
-step's two parity words (int32[2] on its device), read there; the
-caller advances them after a step: SSP's graph (``ops/ssp.py``) runs a
-number of relaxation rounds before each step that only the device
-knows. ``state`` int32[2] carries ``routed`` in and out and receives
-``delta``.
+parity words of the solve's loop (``kernels/ssp_loop.py``), read on the
+device: SSP's graph (``ops/ssp.py``) runs a number of relaxation rounds
+before each step that only the device knows. The step's last block ends
+it there: the parities and the path count advance, the round count
+restarts and the path loop is decided (``ssp_loop.step_tail_plain``).
+``state`` int32[2] carries ``routed`` in and out and receives ``delta``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from poseidon_tpu_torch.kernels._args import (
     census_op, kernel_arg, on_card, stream_ptr,
 )
 from poseidon_tpu_torch.kernels.loader import Kernel, check_launch, library
+from poseidon_tpu_torch.kernels.ssp_loop import D, P, SspLoop, step_tail_plain
 
 INF = 2**30
 # arc ids of a path the walk keeps in shared memory (4 KiB; the launch
@@ -53,11 +55,13 @@ KERNEL = Kernel(
 
 
 class _Args(ctypes.Structure):
-    """``SspArgs`` of ``csrc/ssp_augment.cu``: every field 8 bytes."""
+    """``SspArgs`` of ``csrc/ssp_augment.cu``: every field 8 bytes (the
+    last four pointers its ``ssp::Loop``)."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "arc", "head", "tail", "cost", "fcap", "fsrc", "fdst", "flow",
-        "pred", "mrc", "state", "dist0", "dist1", "pot0", "pot1", "par")] + [
+        "pred", "mrc", "state", "dist0", "dist1", "pot0", "pot1", "words",
+        "limits", "tally", "handles")] + [
         (n, ctypes.c_longlong) for n in (
             "wanted", "S", "T", "NN", "F", "R", "record")]
 
@@ -70,11 +74,12 @@ class PathStep:
     ``fdst`` the forward tables int32[F]. The step owns ``flow`` int32[F]
     (zero), ``pred`` int32[NN], ``mrc`` int32[2F], ``state`` int32[2]
     (zero) and the ``dist``/``pot`` pairs int32[NN] (potentials zero);
-    the caller may fill any of them before a step. ``parity``: the parity
-    words (d, p), int32[2] beside them, which the caller advances."""
+    the caller may fill any of them before a step. ``loop``: the solve's
+    loop words beside them (``kernels/ssp_loop.py``), whose parities name
+    the buffers and which each step advances."""
 
     def __init__(self, arc, head, tail, cost, fcap, fsrc, fdst, NN: int,
-                 wanted: int, S: int, T: int, parity):
+                 wanted: int, S: int, T: int, loop: SspLoop):
         dev = arc.device
         F, R = fcap.shape[0], arc.shape[0]
         i32 = torch.int32
@@ -89,8 +94,9 @@ class PathStep:
                      torch.empty(NN, dtype=i32, device=dev))
         self.pot = (torch.zeros(NN, dtype=i32, device=dev),
                     torch.zeros(NN, dtype=i32, device=dev))
-        self.par = parity
-        self.card = on_card(arc, head, tail, cost, fcap, fsrc, fdst, parity)
+        self.loop = loop
+        self.card = on_card(arc, head, tail, cost, fcap, fsrc, fdst,
+                            loop.words)
         if not self.card:
             return
         spec = (
@@ -101,18 +107,19 @@ class PathStep:
             ("dist0", self.dist[0], NN), ("dist1", self.dist[1], NN),
             ("pot0", self.pot[0], NN), ("pot1", self.pot[1], NN),
         )
+        c = loop.c
         self._args = _Args(
             *(kernel_arg(t, name, i32, (n,)) for name, t, n in spec),
-            kernel_arg(parity, "parity", i32, (2,)),
+            c.words, c.limits, c.tally, c.handles,
             wanted, S, T, NN, F, R, WALK_RECORD)
         self._addr = ctypes.addressof(self._args)
         self.device = dev
         self._launch = library("ssp_augment").ssp_step_launch
 
     def parities(self) -> tuple[int, int]:
-        """(d, p): the low bits of the parity words (a read)."""
-        d, p = (int(x) & 1 for x in self.par.tolist())
-        return d, p
+        """(d, p): the low bits of the loop's parity words (a read)."""
+        w = self.loop.words
+        return int(w[D]) & 1, int(w[P]) & 1
 
 
 def mirror_costs_plain(arc, head, tail, cost, fcap, pot, flow):
@@ -161,8 +168,8 @@ def ssp_augment_plain(pred, dist, fsrc, fdst, fcap, flow, state,
 def ssp_step_plain(step: PathStep, first: bool = False) -> None:
     """The whole path step, from its reference pieces: the walk's twin
     (unless ``first``), the torch potential update, ``mirror_costs_plain``
-    and the next relaxation's dist0/pred0. Leaves the parity words as
-    they are."""
+    and the next relaxation's dist0/pred0; then the step's end on the
+    loop words (``ssp_loop.step_tail_plain``)."""
     d, p = step.parities()
     dist, dist_next = step.dist[d], step.dist[d ^ 1]
     pot, pot_next = step.pot[p], step.pot[p ^ 1]
@@ -178,14 +185,15 @@ def ssp_step_plain(step: PathStep, first: bool = False) -> None:
     dist_next.fill_(INF)
     dist_next[step.S] = 0
     step.pred.fill_(2 * step.F)
+    step_tail_plain(step.loop, step.state, first)
 
 
 @census_op("ssp_augment")
 def ssp_augment(step: PathStep, first: bool = False) -> None:
     """One path step of ``step`` (the prologue when ``first``) from the
-    buffers its parity words name, which the caller then advances. A step
-    on CPU tensors runs the plain twin; on CUDA tensors it is one launch
-    call of K11 (two kernels on the current stream)."""
+    buffers its loop's parity words name, and the step's end on those
+    words. A step on CPU tensors runs the plain twin; on CUDA tensors it
+    is one launch call of K11 (two kernels on the current stream)."""
     if step.card:
         with torch.cuda.device(step.device):
             err = step._launch(step._addr, int(first), stream_ptr(step.arc))

@@ -27,19 +27,22 @@ carries max(+-supply, 0).
 Control flow. The reference runs the path loop (ssp.py:165) around its
 Bellman-Ford (:120) as nested ``while_loop``s on the device, and so
 does the port on the card: the loops' state lives on the device (routed
-and delta in the step's ``state``, the path and round counts,
-``changed``, and the parity words of the dist and pot pairs, which K10
-``in`` and K11 read there) and ``_Solve``'s three bodies, ``prologue``
-(K11 ``first``), ``round`` (K10 ``in``) and ``step`` (K11), update it.
-On a CUDA device they are captured into one CUDA graph a solve
-(``GRAPH``: ``IF first { prologue }; WHILE path { WHILE bf { round };
-step }``, K14 ``loop_ctl`` setting each node on the device: ``routed <
-wanted & !done & paths < max_paths`` before a path, ``changed & it <
-NN`` after a round), launched once; the host reads nothing until the
-result fetch. On the CPU (or with ``_host_loop``) the same bodies run
-under the host loop, with one counted read a relaxation round (its
-``changed`` flag) and one a path (``routed`` and ``delta``). The flows,
-routed and the path count come back in one fetch.
+and delta in the step's ``state``; the parity words of the dist and pot
+pairs, the path and round counts, ``changed`` and the go words in the
+solve's loop words, ``kernels/ssp_loop.py``) and ``_Solve``'s three
+bodies, ``prologue`` (K11 ``first``), ``round`` (K10 ``in``) and
+``step`` (K11), are one kernel launch each. Each kernel ends its own
+launch on the loop words: K10 ``in`` decides the round loop (``changed
+& it < NN``) and K11 the path loop (``routed < wanted & !done & paths <
+max_paths``, ``!done`` being ``0 < delta``) and arms the round loop for
+the next path. On a CUDA device the bodies are captured into one CUDA
+graph a solve (``GRAPH``: ``IF first { prologue }; WHILE path { WHILE
+bf { round }; step }``), the kernels setting the WHILE nodes from their
+last blocks and K14 ``loop_ctl`` only the entry; the host reads nothing
+until the result fetch. On the CPU (or with ``_host_loop``) the same
+bodies run under the host loop, which reads the go word the kernel wrote:
+one counted read a relaxation round and one a path. The flows, routed
+and the path count come back in one fetch.
 """
 
 from __future__ import annotations
@@ -53,12 +56,13 @@ from poseidon_tpu_torch.graph.network import FlowNetwork, total_supply
 from poseidon_tpu_torch.guards import GuardError, SyncCounter
 from poseidon_tpu_torch.kernels.bf_relax import bf_relax_in
 from poseidon_tpu_torch.kernels.loop_graph import (
-    LOOP, CaptureLog, Cond, Seq, Step, run_once, runs_graph,
+    LOOP, Body, CaptureLog, Cond, Seq, Step, run_once, runs_graph,
 )
 from poseidon_tpu_torch.kernels.ssp_augment import PathStep, ssp_augment
+from poseidon_tpu_torch.kernels.ssp_loop import (
+    GO_BF, GO_PATH, PATHS, T_FIRST, T_LAUNCH, T_PATH, T_ROUND, SspLoop,
+)
 from poseidon_tpu_torch.ops.cost_scaling import residual_csr
-
-I32 = torch.int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,34 +99,21 @@ def _residual_tables(net: FlowNetwork):
             fcap.astype(np.int32), fcost.astype(np.int32), S, T)
 
 
-# the solve's int32 counters on the device (``_Solve.ctr``): the parity
-# words of the dist and pot pairs (K10 ``in`` and K11 read their low
-# bits), the path count, the relaxation rounds of the current path
-D, P, PATHS, IT = range(4)
-# the limits K14 reads (``_Solve.limits``)
-WANTED, MAX_PATHS, NN_ = range(3)
-# K14's tally slots in the solve's graph: launches, the first path's
-# entry, the further paths, relaxation rounds
-T_LAUNCH, T_FIRST, T_PATH, T_ROUND = range(4)
-
 # the reference's path loop (ssp.py:165) around its Bellman-Ford (:120)
-# as one graph; the path loop's ``!done`` is ``0 < delta`` (the step's
-# delta, never negative), and before the first path ``done`` is False
+# as one graph. K14 decides the entry (before the first path ``done`` is
+# False); K11's step decides the path loop (its ``!done`` is ``0 <
+# delta``, the step's delta, never negative) and arms the round loop
+# for the next path, which the prologue arms for the first; K10 ``in``
+# decides the round loop after each round
 GRAPH = Seq((T_LAUNCH,), (
     Step(LOOP, sets=("first", "path"), go=T_FIRST, run=T_LAUNCH,
          terms=(("routed", "wanted"), ("paths", "max_paths"))),
-    Cond("if", "first", Seq((T_FIRST,), ("prologue",))),
+    Cond("if", "first", Seq((T_FIRST,), (
+        Body("prologue", sets=(("bf", "go_bf"),)),))),
     Cond("while", "path", Seq((T_FIRST, T_PATH), (
-        Step(LOOP, sets=("bf",), terms=(("it", "nn"),), go=T_ROUND),
         Cond("while", "bf", Seq((T_ROUND,), (
-            "round",
-            Step(LOOP, sets=("bf",), go=T_ROUND,
-                 terms=((None, "changed"), ("it", "nn"))),
-        ))),
-        "step",
-        Step(LOOP, sets=("path",), go=T_PATH,
-             terms=(("routed", "wanted"), (None, "delta"),
-                    ("paths", "max_paths"))),
+            Body("round", sets=(("bf", "go_bf"),)),))),
+        Body("step", sets=(("path", "go_path"), ("bf", "go_bf"))),
     ))),
 ))
 CAPTURES = CaptureLog()      # (NN, 2F, capture_ms, solve_ms) per graph solve
@@ -130,11 +121,12 @@ CAPTURES = CaptureLog()      # (NN, 2F, capture_ms, solve_ms) per graph solve
 
 class _Solve:
     """One solve's device state and the reference's loop bodies over it:
-    the path step's state (``PathStep``, its parity words on the device),
-    ``ctr`` (the parities, paths, rounds), ``changed`` and the limits
-    wanted, max_paths and NN. On the card the loops run as one graph
-    (``GRAPH``); on the CPU, or with ``host_loop``, the host loop runs the
-    same bodies and reads the flags."""
+    the path step's state (``PathStep``) and the loop words (``loop``:
+    the parities, the path and round counts, ``changed``, the go words,
+    the limits wanted, max_paths and NN, the graph's tally). On the card
+    the loops run as one graph (``GRAPH``); on the CPU, or with
+    ``host_loop``, the host loop runs the same bodies and reads the go
+    words."""
 
     def __init__(self, net: FlowNetwork, max_paths: int, device):
         fsrc, fdst, fcap, fcost, S, T = _residual_tables(net)
@@ -146,44 +138,36 @@ class _Solve:
         self.wanted = total_supply(net)
         self.max_paths = max_paths
         self.syncs = SyncCounter()
-        self.changed = torch.zeros(1, dtype=I32, device=device)
-        self.ctr = torch.zeros(4, dtype=I32, device=device)
-        self.limits = torch.empty(3, dtype=I32, device=device)
-        for i, v in ((WANTED, self.wanted), (MAX_PATHS, max_paths),
-                     (NN_, NN)):
-            self.limits[i:i + 1].fill_(min(v, 2**31 - 1))
+        self.loop = SspLoop(device, self.wanted, max_paths, NN)
         g = self.g
         self.step = PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap,
                              torch.as_tensor(fsrc, device=device),
                              torch.as_tensor(fdst, device=device), NN,
-                             self.wanted, S, T, parity=self.ctr[D:P + 1])
+                             self.wanted, S, T, self.loop)
 
     # ---- the bodies (the graph's nodes, the host loop's steps) ----------
 
     def prologue(self) -> None:
         """The first path's set-up (K11 ``first``): the mirror costs and
-        dist0/pred0; the parities advance."""
+        dist0/pred0; the parities advance and the round loop is armed."""
         ssp_augment(self.step, first=True)
-        self.ctr[D:P + 1].add_(1)
 
     def round(self) -> None:
         """One Bellman-Ford round (K10 ``in``) with in-round predecessor
         tracking from the step's dist0/pred0 over its mirror costs;
         predecessors are rewritten only on strict improvement, so the
-        parent graph stays acyclic and the walk terminates. The dist
-        parity and the round count advance."""
+        parent graph stays acyclic and the walk terminates. The round's
+        end advances the dist parity and the round count and decides the
+        round loop."""
         g, st = self.g, self.step
         bf_relax_in(g.seg, g.arc, g.head, st.mrc, st.dist[0], st.dist[1],
-                    st.pred, self.changed, g.plan, parity=self.ctr[D:D + 1])
-        self.ctr[D:IT + 1:IT - D].add_(1)
+                    st.pred, g.plan, self.loop)
 
     def path_step(self) -> None:
-        """The path's walk and augment and the next round's set-up (K11):
-        the parities and the path count advance, the round count
-        restarts."""
+        """The path's walk and augment and the next round's set-up (K11);
+        its end advances the parities and the path count, restarts the
+        round count, decides the path loop and arms the round loop."""
         ssp_augment(self.step)
-        self.ctr[D:PATHS + 1].add_(1)
-        self.ctr[IT].zero_()
 
     def bodies(self) -> dict:
         return {"prologue": self.prologue, "round": self.round,
@@ -192,29 +176,29 @@ class _Solve:
     # ---- the loops --------------------------------------------------------
 
     def host_loop(self) -> None:
-        """The loops on the host over the same bodies: one read of
-        ``changed`` a relaxation round and one of (routed, delta) a path;
-        the path and round counts are known on the host."""
-        routed, paths, done = 0, 0, False
-        while routed < self.wanted and not done and paths < self.max_paths:
-            if paths == 0:
-                self.prologue()
-            more, it = True, 0
-            while more and it < self.NN:
+        """The loops on the host over the same bodies, as the graph runs
+        them: the entry from the host's wanted and max_paths, then one
+        read of the round loop's go word a relaxation round and one of
+        both go words a path."""
+        w = self.loop.words
+        if not (0 < self.wanted and 0 < self.max_paths):
+            return
+        self.prologue()
+        go_path, go_bf = True, 0 < self.NN
+        while go_path:
+            while go_bf:
                 self.round()
-                it += 1
-                more = bool(self.syncs.read(self.changed)[0])
+                go_bf = bool(self.syncs.read(w[GO_BF:GO_BF + 1])[0])
             self.path_step()
-            routed, delta = (int(x) for x in self.syncs.read(self.step.state))
-            paths += 1
-            # a zero-unit round means no augmenting path exists: stop
-            done = delta == 0
+            go_bf, go_path = (bool(x) for x in self.syncs.read(
+                w[GO_BF:GO_PATH + 1]))
 
     def _result(self) -> torch.Tensor:
         """The flows, routed and the path count in one tensor: the one
         fetch."""
         st = self.step
-        return torch.cat([st.flow, st.state[0:1], self.ctr[PATHS:PATHS + 1]])
+        return torch.cat([st.flow, st.state[0:1],
+                          self.loop.words[PATHS:PATHS + 1]])
 
     def _fetch(self, fetches: SyncCounter):
         """The solve's one result read."""
@@ -223,16 +207,15 @@ class _Solve:
     def run(self, host_loop: bool = False) -> SolveResult:
         fetches = SyncCounter()
         if runs_graph(self.device) and not host_loop:
-            st = self.step
+            st, L = self.step, self.loop
             tensors = {"routed": st.state[0], "delta": st.state[1],
-                       "paths": self.ctr[PATHS], "it": self.ctr[IT],
-                       "changed": self.changed,
-                       "wanted": self.limits[WANTED],
-                       "max_paths": self.limits[MAX_PATHS],
-                       "nn": self.limits[NN_]}
+                       "paths": L.words[PATHS], "go_bf": L.words[GO_BF],
+                       "go_path": L.words[GO_PATH],
+                       "wanted": L.limits[0], "max_paths": L.limits[1]}
             out, cap_ms, solve_ms = run_once(
                 self.device, GRAPH, self.bodies(), tensors,
-                lambda: self._fetch(fetches), "the SSP loop")
+                lambda: self._fetch(fetches), "the SSP loop", L.tally,
+                L.arm)
             CAPTURES.add((self.NN, 2 * self.step.F, cap_ms, solve_ms))
         else:
             self.host_loop()

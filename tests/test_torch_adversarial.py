@@ -9,7 +9,10 @@
   costs; every converged cost equal to the C++ oracle's, every
   exhausted one exact through the port's front door;
 - (slow) all 240 trials through both packages: the same exhausted
-  list, pinned in ``chip_smoke.py`` as ``ADVERSARIAL_EXHAUSTED``.
+  list, pinned in ``chip_smoke.py`` as ``ADVERSARIAL_EXHAUSTED``;
+- the trials of ``chip_smoke.py``'s race check (``RACE_TRIALS``): one
+  table key, at most K13's ``SMALL`` rows (the split sort that runs no
+  level), and trial 119's outcome in both packages.
 """
 
 from __future__ import annotations
@@ -120,3 +123,43 @@ def test_full_sweep_exhausted_list_matches_reference():
     import chip_smoke
 
     assert chip_smoke.ADVERSARIAL_EXHAUSTED == tuple(ref_ex)
+
+
+def test_race_trials_share_one_small_table_key():
+    """The race check repeats trials whose dense tables share trial 119's
+    graph key (rows, columns, smax) and have at most K13's ``SMALL`` rows:
+    each of their seat sorts is the split with no level, the path whose
+    missing cluster barrier made the sweep's fault; the check holds every
+    run to the result both packages give trial 119 here."""
+    import chip_smoke
+    from poseidon_tpu_torch.graph.builder import FlowGraphBuilder as PortBuilder
+    from poseidon_tpu_torch.kernels import seat_sort
+    from poseidon_tpu_torch.ops.dense_auction import build_dense_instance
+    from poseidon_tpu_torch.ops.transport import extract_instance as port_extract
+
+    inputs = {t[0]: t for t in adversarial.trial_inputs(
+        max(chip_smoke.RACE_TRIALS) + 1)}
+    keys = set()
+    for trial in chip_smoke.RACE_TRIALS:
+        _t, model, _M, _T, cluster = inputs[trial]
+        net, meta = PortBuilder().build(cluster)
+        net = synth.price(net, meta, model, cluster, device="cpu")
+        dev = build_dense_instance(port_extract(net, meta), "cpu")
+        keys.add((*dev.c.shape, dev.smax))
+    assert len(keys) == 1
+    (Tp, Mp, _smax), = keys
+    assert Tp <= seat_sort.SMALL
+    bits = tuple(seat_sort.field_bits(sp) for sp in (
+        (0, Mp + 2), seat_sort.INT32, (0, Tp - 1)))
+    assert seat_sort.sort_plan(Tp, bits, 227 * 1024).method == "split"
+    # the reference's dense solve of trial 119 (the generator drawn
+    # through the trials before it, as its script draws them)
+    for _trial, model, M, T, rng in adversarial.shapes(120):
+        cluster = random_cluster(rng, M, T)
+    net, meta = FlowGraphBuilder().build(cluster)
+    net = price(net, meta, model, cluster)
+    ref, _ = solve_transport_dense(extract_instance(net, meta))
+    got = adversarial.run_trial(*inputs[119], CPU)
+    assert (got.converged, got.rounds, got.cost) == (
+        bool(ref.converged), int(ref.rounds), int(ref.cost)) == (
+        True, 823, 1624)

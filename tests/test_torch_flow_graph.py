@@ -8,12 +8,16 @@ bodies run under the host loop, which reads the flags. These tests hold
 that device-state loop against the reference's ``solve_cost_scaling``
 and ``solve_ssp`` bit for bit (tolerance 0: every output is an integer)
 on seeded scheduling graphs and on the zero-trip and fuse cases; the
-graphs' descriptions run by an interpreter with K14's twin (the graph
-path faked on the CPU: no host read, one fetch, the same outputs and
-the tally the host loop's counts); K14's LOOP twin term by term; K9's
-twin with eps on the device; K10 ``in``'s and K11's twins with their
-parity words on the device; the launch accounting of the nested bodies;
-and the order in which a description's graph is built. The graphs
+graphs' descriptions run by an interpreter with K14's twin and the
+bodies' own handle settings (the graph path faked on the CPU: no host
+read, one fetch, the same outputs and the tally the host loop's
+counts); K14's LOOP twin term by term; K9's twin with eps on the
+device; K10 ``in``'s and K11's twins with their parity words on the
+device and, since SSP's loop conditions are folded into them, held
+round by round and step by step against the sequence they replace
+(memset, relax, ``add_``, K14's LOOP twin); the launch accounting of
+the nested bodies; and the order in which a description's graph is
+built. The graphs
 themselves run only on the card: ``python3 chip_smoke.py
 --phases=general``.
 """
@@ -34,7 +38,8 @@ from poseidon_tpu_torch.kernels import bf_relax as k10
 from poseidon_tpu_torch.kernels import cs_sweep as k9
 from poseidon_tpu_torch.kernels import loop_graph as k14
 from poseidon_tpu_torch.kernels import ssp_augment as k11
-from poseidon_tpu_torch.kernels.loop_graph import Cond, Step
+from poseidon_tpu_torch.kernels import ssp_loop
+from poseidon_tpu_torch.kernels.loop_graph import Body, Cond, Step
 
 from tests.helpers import price, random_cluster
 from tests.test_torch_cost_scaling import to_port
@@ -134,7 +139,8 @@ def test_ssp_equals_reference(name, max_paths):
 def interpret(spec, bodies, tensors, tally, goes=None):
     """Run a graph description eagerly: bodies in order, K14's steps by
     its twin (``loop_step_plain``), IF and WHILE nodes on the values the
-    steps gave their handles. ``goes`` receives each step's (step, go)."""
+    steps, and the bodies whose kernels set handles, gave their handles.
+    ``goes`` receives each step's (step, go)."""
     handles = {}
 
     def word(name):
@@ -144,6 +150,10 @@ def interpret(spec, bodies, tensors, tally, goes=None):
         for item in seq.items:
             if isinstance(item, str):
                 bodies[item]()
+            elif isinstance(item, Body):
+                bodies[item.name]()
+                for h, w in item.sets:
+                    handles[h] = int(tensors[w])
             elif isinstance(item, Step):
                 go = int(k14.loop_step_plain(
                     [(word(a), word(b)) for a, b in item.terms], tally,
@@ -171,7 +181,10 @@ class FakeGraph:
         self.goes = []
         self.runs = 0
 
-    def __call__(self, device, spec, bodies, tensors, fetch, label):
+    def __call__(self, device, spec, bodies, tensors, fetch, label,
+                 tally=None, arm=None):
+        if tally is not None:       # the bodies' kernels count into it too
+            self.tally = tally
         interpret(spec, bodies, tensors, self.tally, self.goes)
         self.runs += 1
         return fetch(), 1.0, 2.0
@@ -383,13 +396,23 @@ def test_cs_sweep_eps_on_the_device(seed, eps):
                     torch.empty_like(price_), g.plan)
 
 
+def _loop(NN: int, words=(), wanted: int = 10, max_paths: int = 10):
+    """A CPU ``SspLoop`` with its words set from ``words`` (slot, value)
+    pairs."""
+    loop = ssp_loop.SspLoop("cpu", wanted, max_paths, NN)
+    for i, v in words:
+        loop.words[i] = v
+    return loop
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("word", [0, 1, 2, 7])
 def test_bf_relax_in_parity_on_the_device(seed, word):
-    """K10 ``in`` with the pair and a parity word (its wrapper, on the
-    CPU its twin): an even word reads the first buffer and writes the
-    second, an odd one the other way, exactly as the host's choice of
-    buffers (the twin given the buffers without a word)."""
+    """K10 ``in`` with the pair and the loop's parity word (its wrapper,
+    on the CPU its twin): an even word reads the first buffer and writes
+    the second, an odd one the other way, exactly as the round with word
+    0 and the data in the first buffer; the round's end advances the word
+    by one and decides the same go."""
     g, flow, excess, price_, rng = _edge_csr(seed)
     NN, F = g.seg.shape[0] - 1, g.fcap.shape[0]
     pot = (price_ % 50).to(torch.int32)
@@ -398,29 +421,35 @@ def test_bf_relax_in_parity_on_the_device(seed, word):
     dist = torch.where(excess > 0, excess * 3, k10.INF).to(torch.int32)
     other = torch.full((NN,), -5, dtype=torch.int32)
     pred0 = torch.from_numpy(rng.integers(0, 2 * F + 1, NN).astype(np.int32))
-    # the host's buffers
-    d_o, p_o, c_o = torch.empty_like(dist), pred0.clone(), _w(7)
-    k10.bf_relax_in_plain(g.seg, g.arc, g.head, mrc, dist, d_o, p_o, c_o)
+    # word 0: the data in the first buffer
+    d_o, p_o, l_o = torch.empty_like(dist), pred0.clone(), _loop(NN)
+    k10.bf_relax_in(g.seg, g.arc, g.head, mrc, dist.clone(), d_o, p_o, g.plan,
+                    l_o)
     # the device's: the same distances in the buffer the word names
     pair = (dist.clone(), other.clone()) if word % 2 == 0 else (
         other.clone(), dist.clone())
-    p2, c2 = pred0.clone(), _w(7)
-    k10.bf_relax_in(g.seg, g.arc, g.head, mrc, pair[0], pair[1], p2, c2,
-                    g.plan, parity=_w(word))
+    p2, l2 = pred0.clone(), _loop(NN, [(ssp_loop.D, word)])
+    k10.bf_relax_in(g.seg, g.arc, g.head, mrc, pair[0], pair[1], p2, g.plan,
+                    l2)
     read, written = (pair[0], pair[1]) if word % 2 == 0 else (pair[1],
                                                                pair[0])
     assert torch.equal(written, d_o) and torch.equal(read, dist)
-    assert torch.equal(p2, p_o) and torch.equal(c2, c_o)
+    assert torch.equal(p2, p_o)
+    assert int(l2.words[ssp_loop.D]) == word + 1
+    l2.words[ssp_loop.D] = 1
+    assert torch.equal(l2.words, l_o.words) and torch.equal(l2.tally,
+                                                            l_o.tally)
 
 
 @pytest.mark.parametrize("name", sorted(walk_cases()))
 @pytest.mark.parametrize("first", [False, True])
 @pytest.mark.parametrize("d,p", [(0, 0), (1, 0), (0, 1), (1, 1)])
 def test_ssp_augment_parity_on_the_device(name, first, d, p):
-    """K11's twin with the parity words naming buffers (d, p) equals the
-    step with words (0, 0) and the same data in buffers (0, 0): every
-    output, each in the buffer its own words name, the buffers it reads
-    left as they were, the words left for the caller to advance."""
+    """K11's twin with the loop's parity words naming buffers (d, p)
+    equals the step with words (0, 0) and the same data in buffers (0,
+    0): every output, each in the buffer its own words name, the buffers
+    it reads left as they were; the step's end advances both words by
+    one."""
     fsrc, fdst, fcap, flow, pred, dist, routed, wanted, S, T = \
         walk_cases()[name]
     NN = len(dist)
@@ -435,16 +464,134 @@ def test_ssp_augment_parity_on_the_device(name, first, d, p):
         if p and words != (0, 0):
             st.pot[1].copy_(st.pot[0])
             st.pot[0].fill_(-4)
-        st.par.copy_(torch.tensor(words, dtype=torch.int32))
+        w = st.loop.words
+        w[ssp_loop.D], w[ssp_loop.P] = words
         k11.ssp_augment(st, first=first)
-        assert st.par.tolist() == list(words)
+        assert (int(w[ssp_loop.D]), int(w[ssp_loop.P])) == (words[0] + 1,
+                                                            words[1] + 1)
         steps.append(st)
     ref, dev = steps
     for a, b in zip([ref.flow, ref.state, ref.mrc, ref.pred, ref.dist[0],
-                     ref.dist[1], ref.pot[0], ref.pot[1]],
+                     ref.dist[1], ref.pot[0], ref.pot[1], ref.loop.tally,
+                     ref.loop.words[ssp_loop.PATHS:]],
                     [dev.flow, dev.state, dev.mrc, dev.pred, dev.dist[d],
-                     dev.dist[d ^ 1], dev.pot[p], dev.pot[p ^ 1]]):
+                     dev.dist[d ^ 1], dev.pot[p], dev.pot[p ^ 1],
+                     dev.loop.tally, dev.loop.words[ssp_loop.PATHS:]]):
         assert torch.equal(a, b)
+
+
+# ---- SSP's loop conditions folded into K10 ``in`` and K11 ----------------
+
+def _unfolded_round(s, read, written, ctr, changed, tally):
+    """The round's control as the kernels' callers made it before the
+    fold: ``changed`` from the memset and the relaxation (any distance
+    improved), the dist parity and the round count advanced by an
+    ``add_``, then K14's LOOP twin over (0 < changed) and (it < NN)."""
+    changed.copy_((written != read).any().to(torch.int32).reshape(1))
+    ctr[ssp_loop.D] += 1
+    ctr[ssp_loop.IT] += 1
+    return int(k14.loop_step_plain(
+        [(None, changed), (ctr[ssp_loop.IT:ssp_loop.IT + 1],
+                           s.loop.limits[ssp_loop.NN:])],
+        tally, go_slot=ssp_loop.T_ROUND))
+
+
+def _unfolded_step(s, ctr, tally, first: bool):
+    """The step's control before the fold: the parities (and after a path
+    the path count) advanced and the round count zeroed by ``add_`` and
+    ``zero_``, K14's LOOP twin over the path loop's terms, and the path
+    body's entry step over (it < NN) where the path loop goes on. Returns
+    (go_path, go_bf); go_path None for the prologue."""
+    L, st = s.loop, s.step
+    ctr[ssp_loop.D] += 1
+    ctr[ssp_loop.P] += 1
+    go_path = None
+    if not first:
+        ctr[ssp_loop.PATHS] += 1
+        ctr[ssp_loop.IT] = 0
+        go_path = int(k14.loop_step_plain(
+            [(st.state[0:1], L.limits[0:1]), (None, st.state[1:2]),
+             (ctr[ssp_loop.PATHS:ssp_loop.PATHS + 1], L.limits[1:2])],
+            tally, go_slot=ssp_loop.T_PATH))
+    go_bf = 0
+    if first or go_path:
+        go_bf = int(k14.loop_step_plain(
+            [(ctr[ssp_loop.IT:ssp_loop.IT + 1], L.limits[2:3])], tally,
+            go_slot=ssp_loop.T_ROUND))
+    return go_path, go_bf
+
+
+@pytest.mark.parametrize("name,max_paths", [
+    ("cluster1", None), ("cluster5", None), ("infeasible", None),
+    ("single_arc", None), ("cluster2", 3)])
+def test_folded_loop_ends_equal_the_unfolded_sequence(name, max_paths):
+    """At every round and every step of a solve, the folded twins
+    (``bf_relax_in_plain``, ``ssp_step_plain``) leave the same parity,
+    path and round words and the same tally as the sequence they replace
+    (memset, relax, ``add_``, K14's LOOP twin), and write the go that
+    sequence's K14 step decided."""
+    net = to_port(_net(name))
+    mp = max_paths if max_paths is not None else int(
+        np.maximum(net.supply, 0).sum()) + 1
+    s = ssp._Solve(net, mp, torch.device("cpu"))
+    L, st = s.loop, s.step
+    ctr = torch.zeros(4, dtype=torch.int32)
+    changed = torch.zeros(1, dtype=torch.int32)
+    tally = torch.zeros(k14.TALLY, dtype=torch.int32)
+    rounds = steps = 0
+
+    def same(go_word, go):
+        assert torch.equal(L.words[:4], ctr)
+        assert torch.equal(L.tally[1:], tally[1:])
+        assert int(L.words[go_word]) == go
+        assert int(L.words[ssp_loop.CHANGED]) == 0
+
+    assert 0 < s.wanted and 0 < mp
+    s.prologue()
+    _, go_bf = _unfolded_step(s, ctr, tally, True)
+    same(ssp_loop.GO_BF, go_bf)
+    go_path = True
+    while go_path:
+        while go_bf:
+            d = int(L.words[ssp_loop.D]) & 1
+            read = st.dist[d].clone()
+            s.round()
+            rounds += 1
+            go_bf = _unfolded_round(s, read, st.dist[d ^ 1], ctr, changed,
+                                    tally)
+            same(ssp_loop.GO_BF, go_bf)
+        s.path_step()
+        steps += 1
+        go_path, go_bf = _unfolded_step(s, ctr, tally, False)
+        same(ssp_loop.GO_PATH, go_path)
+        same(ssp_loop.GO_BF, go_bf)
+    got = s._result().numpy()
+    want = ref_ssp.solve_ssp(_net(name), **(
+        {} if max_paths is None else {"max_paths": max_paths}))
+    assert got[:s.E].tolist() == np.asarray(want.flows).tolist()
+    assert (int(got[-2]), int(got[-1])) == (int(want.routed),
+                                            int(want.iterations))
+    assert steps == int(want.iterations) and rounds == int(tally[3])
+
+
+def test_folded_round_over_a_csr_with_no_segment():
+    """A CSR of no node (no heavy and no light item in its plan; on the
+    card the launch still runs one cluster of idle blocks, whose last
+    ends the round): the round writes nothing, reads no changed, and
+    ends the round loop."""
+    seg = torch.zeros(1, dtype=torch.int32)
+    empty = torch.zeros(0, dtype=torch.int32)
+    plan = cs.residual_csr(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                           np.zeros(0, np.int32), np.zeros(0, np.int64), 0,
+                           "cpu").plan
+    assert plan.n_heavy == plan.n_light == 0
+    loop = _loop(0, [(ssp_loop.D, 3)])
+    k10.bf_relax_in(seg, empty, empty, empty, empty, empty.clone(),
+                    empty.clone(), plan, loop)
+    w = loop.words
+    assert (int(w[ssp_loop.D]), int(w[ssp_loop.IT]),
+            int(w[ssp_loop.GO_BF])) == (4, 1, 0)
+    assert int(loop.tally[ssp_loop.T_ROUND]) == 0
 
 
 # ---- launch accounting and the build order -------------------------------
@@ -489,13 +636,12 @@ def test_cost_scaling_graph_launch_accounting():
 
 def test_ssp_graph_launch_accounting():
     """K11 once for the prologue and once a path, K10 once a round; K14
-    once a launch, twice a path and once a round."""
+    once a launch: the loops' conditions are set by K10 and K11."""
     per_body = {"prologue": {"ssp_augment": 1}, "round": {"bf_relax": 1},
                 "step": {"ssp_augment": 1}}
     got = _accounting(ssp.GRAPH, per_body, (1, 1, 9_999, 83_642))
     assert got == {"cs_sweep": 0, "bf_relax": 83_642,
-                   "ssp_augment": 10_001,
-                   "loop_ctl": 1 + 2 * 10_000 + 83_642}
+                   "ssp_augment": 10_001, "loop_ctl": 1}
     # no path: the prologue does not run either
     assert _accounting(ssp.GRAPH, per_body, (1, 0, 0, 0)) == {
         "cs_sweep": 0, "bf_relax": 0, "ssp_augment": 0, "loop_ctl": 1}
@@ -540,26 +686,28 @@ class _FakeLib:
 def test_graph_build_order(monkeypatch):
     """A description becomes its nodes in order, each after the one
     before; each conditional handle is made in the graph that holds its
-    node, before any step that sets it; a step sets its handles by name,
-    from its own graph or an enclosing one."""
+    node, and the graph keeps every handle by name (for the bodies'
+    kernels, which set SSP's WHILE nodes themselves); the entry step sets
+    its handles by name."""
     monkeypatch.setattr(k14.ctypes, "byref", lambda x: types.SimpleNamespace(
         _obj=x))
     g = object.__new__(k14.ControlGraph)
     g.label = "test"
     g.codes = torch.zeros(4, dtype=torch.int32)
     g.tally = torch.zeros(k14.TALLY, dtype=torch.int32)
+    g.handles = {}
     names = [n for n, _ in k14.layout(ssp.GRAPH)[0]]
     g.graphs = {n: types.SimpleNamespace(raw_cuda_graph=lambda n=n: n)
                 for n in names}
     w = torch.zeros(8, dtype=torch.int32)
     tensors = {k: w[i:i + 1] for i, k in enumerate(
-        ("routed", "delta", "paths", "it", "changed", "wanted",
-         "max_paths", "nn"))}
+        ("routed", "delta", "paths", "go_bf", "go_path", "wanted",
+         "max_paths"))}
     lib = _FakeLib()
     g._build(lib, 1000, ssp.GRAPH, {}, tensors)
     assert [c[0] for c in lib.calls] == [
         "handle", "handle", "ctl", "cond", "child", "cond", "handle",
-        "ctl", "cond", "child", "ctl", "child", "ctl"]
+        "cond", "child", "child"]
     # root: two handles, the entry step setting both, IF then WHILE
     h_first, h_path = lib.calls[0][2], lib.calls[1][2]
     entry = lib.calls[2]
@@ -569,43 +717,62 @@ def test_graph_build_order(monkeypatch):
     conds = [c for c in lib.calls if c[0] == "cond"]
     assert [(c[3], c[4]) for c in conds[:2]] == [(h_first, 0), (h_path, 1)]
     assert conds[0][1] == conds[1][1] == 1000
-    # the WHILE bf node is in the path body, its handle made there and set
-    # by the step before it and the step at the end of its own body
+    # the WHILE bf node is in the path body, its handle made there; no
+    # K14 node sets it: its body's kernel and the step's do
     path_body = conds[1][5]
     bf = conds[2]
     assert bf[1] == path_body and bf[4] == 1
     h_bf = bf[3]
     assert ("handle", path_body, h_bf) in lib.calls
-    setters = [c for c in lib.calls if c[0] == "ctl" and c[5] == h_bf]
-    assert len(setters) == 2 and {c[1] for c in setters} == {path_body,
-                                                             bf[5]}
-    # the path's last step sets the root's WHILE handle from the body
-    last = [c for c in lib.calls if c[0] == "ctl" and c[1] == path_body][-1]
-    assert (last[4], last[5], last[7]) == (1, h_path, ssp.T_PATH)
-    # every child is a captured body, chained after its predecessor
-    assert [c[3] for c in lib.calls if c[0] == "child"] == [
-        "prologue", "round", "step"]
+    assert [c for c in lib.calls if c[0] == "ctl"] == [entry]
+    assert g.handles == {"first": h_first, "path": h_path, "bf": h_bf}
+    # every child is a captured body, chained after its predecessor: the
+    # step after the WHILE bf node, in the path body
+    children = [c for c in lib.calls if c[0] == "child"]
+    assert [c[3] for c in children] == ["prologue", "round", "step"]
+    assert children[0][1] == conds[0][5] and children[1][1] == bf[5]
+    assert children[2][1] == path_body and children[2][2] is not None
+
+
+def test_ssp_loop_arm_writes_the_handles():
+    """``arm`` hands the round loop's and the path loop's handles to the
+    kernels (as int64 bit patterns) and their count; an eager loop keeps
+    the count 0."""
+    loop = ssp_loop.SspLoop("cpu", 4, 5, 6)
+    assert loop.handles.tolist() == [0, 0, 0]
+    assert loop.limits.tolist() == [4, 5, 6]
+    loop.arm({"first": 1, "bf": 7, "path": 2**64 - 1})
+    assert loop.handles.tolist() == [2, 7, -1]
 
 
 def test_descriptions_are_well_formed():
-    """Every handle a step sets names a conditional node of its own graph
-    or an enclosing one, and every conditional node's handle is set by a
-    step before it in its graph; the bodies are named once."""
+    """Every handle a step or a body sets names a conditional node of the
+    description (a step's: of its own graph or an enclosing one), and
+    every conditional node's handle is set before the node is reached: by
+    a step before it in its graph or by a body run earlier; the bodies
+    are named once."""
     for spec in (k14.AUCTION, cs.GRAPH, ssp.GRAPH):
         seen_bodies = []
+        handles = {it.handle for it, _ in k14._walk(spec)
+                   if isinstance(it, Cond)}
+        by_body = set()
 
         def check(seq, outer):
             mine = {it.handle for it in seq.items if isinstance(it, Cond)}
             known = outer | mine
             set_here = set()
             for it in seq.items:
-                if isinstance(it, str):
-                    seen_bodies.append(it)
+                if isinstance(it, (str, Body)):
+                    seen_bodies.append(k14.body_name(it))
+                    if isinstance(it, Body):
+                        sets = {h for h, _ in it.sets}
+                        assert sets <= handles, it
+                        by_body.update(sets)
                 elif isinstance(it, Step):
                     assert set(it.sets) <= known, it
                     set_here |= set(it.sets)
                 else:
-                    assert it.handle in set_here, it
+                    assert it.handle in set_here | by_body, it
                     check(it.body, known)
 
         check(spec, set())

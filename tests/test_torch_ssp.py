@@ -33,6 +33,7 @@ import poseidon_tpu_torch.ops.ssp as port
 from poseidon_tpu.graph.network import FlowNetwork
 from poseidon_tpu_torch.kernels.bf_relax import INF, bf_relax_in
 from poseidon_tpu_torch.kernels.csr_plan import CHUNK
+from poseidon_tpu_torch.kernels import ssp_loop
 from poseidon_tpu_torch.kernels.ssp_augment import (
     WALK_RECORD, PathStep, mirror_costs_plain, ssp_augment,
 )
@@ -239,13 +240,17 @@ def test_bf_relax_in_twin_matches_reference_round(graph, d_kind):
                              torch.from_numpy(pot), torch.from_numpy(flow))
     d_out = torch.empty(NN, dtype=torch.int32)
     t_pred = torch.from_numpy(pred.copy())
-    changed = torch.full((1,), 7, dtype=torch.int32)
+    loop = ssp_loop.SspLoop("cpu", 10, 10, NN)
     bf_relax_in(g.seg, g.arc, g.head, mrc, torch.from_numpy(dist), d_out,
-                t_pred, changed, g.plan, torch.zeros(1, dtype=torch.int32))
+                t_pred, g.plan, loop)
     want = ref_round(fsrc, fdst, fcap, fcost, flow, pot, dist, pred)
     np.testing.assert_array_equal(d_out.numpy(), want[0])
     np.testing.assert_array_equal(t_pred.numpy(), want[1])
-    assert int(changed[0]) == int(want[2])
+    # the round's end: changed (read and zeroed) is the go of round 1 < NN
+    w = loop.words
+    assert int(w[ssp_loop.GO_BF]) == int(want[2])
+    assert (int(w[ssp_loop.CHANGED]), int(w[ssp_loop.IT]),
+            int(w[ssp_loop.D])) == (0, 1, 1)
 
 
 def tie_graph(D1: int, D2: int = 20, NN: int = 30):
@@ -287,13 +292,13 @@ def test_bf_relax_in_tie_in_a_later_chunk(case):
                              torch.from_numpy(pot), torch.from_numpy(flow))
     d_out = torch.empty(NN, dtype=torch.int32)
     t_pred = torch.from_numpy(pred.copy())
-    changed = torch.zeros(1, dtype=torch.int32)
+    loop = ssp_loop.SspLoop("cpu", 10, 10, NN)
     bf_relax_in(g.seg, g.arc, g.head, mrc, torch.from_numpy(dist), d_out,
-                t_pred, changed, g.plan, torch.zeros(1, dtype=torch.int32))
+                t_pred, g.plan, loop)
     want = ref_round(fsrc, fdst, fcap, fcost, flow, pot, dist, pred)
     np.testing.assert_array_equal(d_out.numpy(), want[0])
     np.testing.assert_array_equal(t_pred.numpy(), want[1])
-    assert int(changed[0]) == int(want[2]) == 1
+    assert int(loop.words[ssp_loop.GO_BF]) == int(want[2]) == 1
     # node 1 takes -5 over the lowest id, arc D1 from node 3, whose
     # position is past the first CHUNK of the segment when heavy
     assert (want[0][1], want[1][1]) == (-5, D1)
@@ -334,8 +339,8 @@ def make_step(fsrc, fdst, fcap, flow, pred, dist, routed, wanted, S, T,
               fcost=None, pot=None):
     """A CPU ``PathStep`` over the residual CSR of the forward tables,
     filled with one path's flow, predecessors, distances (in the buffer
-    the step reads: its parity words are 0), potentials and routed
-    count."""
+    the step reads: its loop's parity words are 0), potentials and
+    routed count; no path cap."""
     NN, F = len(dist), len(fsrc)
     if fcost is None:
         fcost = np.random.default_rng(F).integers(-50, 50, F).astype(np.int32)
@@ -343,7 +348,8 @@ def make_step(fsrc, fdst, fcap, flow, pred, dist, routed, wanted, S, T,
                      "cpu")
     step = PathStep(g.arc, g.head, g.plan.tail, g.cost, g.fcap,
                     torch.from_numpy(fsrc), torch.from_numpy(fdst), NN,
-                    wanted, S, T, torch.zeros(2, dtype=torch.int32))
+                    wanted, S, T, ssp_loop.SspLoop("cpu", wanted, 2**31 - 1,
+                                                   NN))
     step.flow.copy_(torch.from_numpy(flow))
     step.pred.copy_(torch.from_numpy(pred))
     step.dist[0].copy_(torch.from_numpy(dist))
@@ -432,9 +438,18 @@ def test_path_step_twin_matches_reference_pieces(name):
     np.testing.assert_array_equal(step.flow.numpy(), w_flow)
     if not first:
         assert step.state.tolist() == [w_routed, w_delta]
-    # the words left for the caller to advance; the next potentials in
-    # the other buffer; the distances read are left as they were
-    assert step.parities() == (d0, p0)
+    # the step's end advanced both parities (and, after a path, the path
+    # count, deciding the next path by routed < wanted and delta > 0);
+    # the next potentials in the other buffer; the distances read are
+    # left as they were
+    assert step.parities() == (d0 ^ 1, p0 ^ 1)
+    w = step.loop.words
+    if not first:
+        go = int(w_routed < wanted and w_delta > 0)
+        assert (int(w[ssp_loop.PATHS]), int(w[ssp_loop.GO_PATH]),
+                int(w[ssp_loop.GO_BF])) == (1, go, go)
+    else:
+        assert (int(w[ssp_loop.PATHS]), int(w[ssp_loop.GO_BF])) == (0, 1)
     np.testing.assert_array_equal(step.dist[d0].numpy(), dist)
     np.testing.assert_array_equal(step.pot[p0 ^ 1].numpy(), w_pot)
     # the next round's inputs (ssp.py:101-102, 119-120): each position's
