@@ -160,7 +160,8 @@ Phases (each prints its own lines):
    3-window stream flush on both: placements, cost, rounds and carry;
    then the scale lane on the same cell (aggregation, a width-2 mesh
    with both shards on one device): a round, two express windows and a
-   3-window stream flush, every field and both row blocks equal;
+   3-window stream flush, every field and both row blocks equal (each
+   card flush one graph launch, the width-2 one too);
 5. main path: ``config2_quincy_flagship(seed=0)`` through
    ``ResidentSolver(device="cuda", small_to_oracle=False).run_round``,
    one cold round and three warm rounds over a seeded 1% churn of pods
@@ -247,10 +248,18 @@ Phases (each prints its own lines):
    express lane's agreement over the same windows is printed (ties go
    another way in the two lanes, in the reference too); a short flush
    (3 windows padded to 8, under ``torch.profiler``: CUDA kernels a
-   window in all and outside ``_solve``); each flush's host time a
+   window in all and outside ``_solve``); the full flush again, its
+   graph cached (the steady state); each flush's host time a
    window outside ``_solve``; and a flush whose window 3 fails its
    certificate: windows 0-2 bind, the table and carry equal a clean
-   3-window flush's, window 3's pods bind in the next round;
+   3-window flush's, window 3's pods bind in the next round. Every
+   flush on the card is one CUDA graph (the reference's ``lax.scan``:
+   ``kernels/loop_graph.STREAM``): one launch, K windows from its
+   tally, 0 loop reads, one fetch, captures and capture ms, the
+   graph's device ms and the placements' e2b p50/p99 printed;
+   and each is replayed by ``host_loop=True`` from copies of its card
+   inputs (``TwinChain``): every window's log row and rounds and the
+   carry equal bit for bit;
 10. whatif: ``solve_what_if`` over BASELINE config 5 (1,000 machines x
    4,000 pods, quincy) with 64 variants on the card: every variant
    certified, variant 0 equal to the C++ oracle, variants 1 and 63
@@ -393,6 +402,7 @@ and the contract line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -518,6 +528,31 @@ class Timer:
             b.record()
             b.synchronize()
             times.append(a.elapsed_time(b))
+        times.sort()
+        return times[len(times) // 2]
+
+    def in_graph(self, fn, calls: int = 32, repeats: int = REPEATS) -> float:
+        """Median device ms of one call of ``fn`` as a CUDA graph runs it:
+        ``calls`` calls captured back to back in one graph, the graph's
+        span between CUDA events over ``calls`` (L2 warm: the calls
+        follow one another, as a flush's kernels follow the window's
+        other work)."""
+        torch = self.torch
+        fn()                                   # warm up
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        times = []
+        for _ in range(repeats):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / calls)
+        graph.reset()
         times.sort()
         return times[len(times) // 2]
 
@@ -1685,6 +1720,9 @@ def express_kernel_records(torch, timer, inst, dt, ra_s):
     saved = saved_rows_buffer(c4, kmax)
     ms4 = timer(lambda: k4.express_rows(c4, *rest, vec, saved))
     plain4 = timer(lambda: k4.express_rows_plain(c4, *rest, vec, saved))
+    g4 = timer.in_graph(lambda: k4.express_rows(c4, *rest, vec, saved))
+    log(f"[kernels] express_rows in a CUDA graph (32 calls back to "
+        f"back at the stream window's shapes) us={g4 * 1e3:.3f}")
     del c4
     # read: the lanes' scalars and preferences, 4 [Mp] columns, asg and
     # lvl, the old rows; written: the rows, the saved rows, asg0/lvl0,
@@ -1705,6 +1743,9 @@ def express_kernel_records(torch, timer, inst, dt, ra_s):
     dst = tuple(torch.empty_like(x) for x in state)
     ms5 = timer(lambda: k5.express_patch(state, dst, backlog))
     plain5 = timer(lambda: k5.express_patch_plain(state, dst, backlog))
+    g5 = timer.in_graph(lambda: k5.express_patch(state, dst, backlog))
+    log(f"[kernels] express_patch in a CUDA graph (32 calls back to "
+        f"back at the stream window's shapes) us={g5 * 1e3:.3f}")
     # yardstick, not a call the port makes: index_add_ of the chunk's
     # seat deltas alone (one part of K5's function); no single PyTorch
     # call computes K5's
@@ -2069,6 +2110,13 @@ def stream_commit_record(torch, timer):
     ms = timer(lambda: (ka[-1].live.fill_(1), k7.stream_commit(*ka)))
     plain = timer(lambda: (pa[-1].live.fill_(1),
                            k7.stream_commit_plain(*pa)))
+    # in a graph: the latch's fill captured too, its own time taken off
+    pair = timer.in_graph(lambda: (ka[-1].live.fill_(1),
+                                   k7.stream_commit(*ka)))
+    fill = timer.in_graph(lambda: ka[-1].live.fill_(1))
+    log(f"[kernels] stream_commit in a CUDA graph (32 calls back to "
+        f"back at the stream window's shapes) us={(pair - fill) * 1e3:.3f} (with the latch's "
+        f"fill {pair * 1e3:.3f}, the fill alone {fill * 1e3:.3f})")
     sa, _ = stream_commit_args(torch, x, cap, commit=False)
     log(f"[kernels] stream_commit without the commit (the synced lane's "
         f"tail) ms={timer(lambda: k7.stream_commit(*sa)):.6f}; bound "
@@ -2941,6 +2989,145 @@ STREAM_SYMBOLS = ("stream_commit_kernel", "express_rows_kernel",
                   "bid_pass_kernel")
 
 
+class TwinChain:
+    """While active, every ``_stream_chain`` over a table on the card
+    (the flush's graph route) first copies its card inputs (the table,
+    the round's vectors, the warm start; the windows are only read);
+    ``check(label)`` then replays each recorded flush from those copies
+    by ``host_loop=True`` (the plain version: the windows and every
+    repair on the host) and holds every window's log row and rounds and
+    the whole carry to the graph's, bit for bit. Call it right after
+    the flush's finish, before the next flush patches the table."""
+
+    def __init__(self, torch):
+        from poseidon_tpu_torch.ops import resident
+
+        self.torch, self.mod = torch, resident
+        # the replays call the module's own function (made before any
+        # timing wrapper is put in its place)
+        self.real = self.inner = resident._stream_chain
+        self.flushes = []
+
+    def __enter__(self):
+        self.inner = self.mod._stream_chain
+        self.mod._stream_chain = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._stream_chain = self.inner
+
+    @staticmethod
+    def _copy_table(c):
+        from poseidon_tpu_torch.ops.dense_auction import RowBlocks
+
+        if isinstance(c, RowBlocks):
+            return RowBlocks([b.clone() for b in c.blocks], c.mesh)
+        return c.clone()
+
+    def __call__(self, dev, dt, cost_dev, windows, asg, lvl, floor, **kw):
+        import dataclasses
+
+        if not self.mod.uses_graph(dev.c) or kw.get("host_loop"):
+            return self.inner(dev, dt, cost_dev, windows, asg, lvl, floor,
+                              **kw)
+        copy = (dataclasses.replace(
+            dev, c=self._copy_table(dev.c), u=dev.u.clone(),
+            w=dev.w.clone(), s=dev.s.clone(),
+            task_valid=dev.task_valid.clone()),
+            asg.clone(), lvl.clone(), floor.clone())
+        out = self.inner(dev, dt, cost_dev, windows, asg, lvl, floor, **kw)
+        self.flushes.append((copy, dt, cost_dev, windows, kw, out))
+        return out
+
+    def check(self, label: str) -> int:
+        """Replay the flushes recorded since the last check; returns how
+        many were held."""
+        from poseidon_tpu_torch.guards import SyncCounter
+        from poseidon_tpu_torch.ops.dense_auction import RowBlocks
+
+        torch = self.torch
+        n = len(self.flushes)
+        for (dev, asg, lvl, floor), dt, cost_dev, windows, kw, out in \
+                self.flushes:
+            kw = {k: v for k, v in kw.items()
+                  if k not in ("graph_stats", "syncs")}
+            syncs = SyncCounter()
+            t0 = time.perf_counter()
+            host = self.real(dev, dt, cost_dev, windows, asg, lvl, floor,
+                             host_loop=True, syncs=syncs, **kw)
+            sync(torch)
+            host_ms = (time.perf_counter() - t0) * 1e3
+
+            def flat(x):
+                return (torch.cat([b.reshape(-1) for b in x.blocks])
+                        if isinstance(x, RowBlocks) else x.reshape(-1))
+
+            names = ("c", "u", "w", "s", "valid", "asg", "lvl", "floor",
+                     "live")
+            differ = [nm for nm, a, b in zip(names, out[0], host[0])
+                      if not torch.equal(flat(a), flat(b))]
+            if not torch.equal(out[1], host[1]):
+                differ.append("log")
+            if not torch.equal(torch.stack(out[2]), torch.stack(host[2])):
+                differ.append("rounds")
+            if differ:
+                raise AssertionError(f"[stream] {label}: the graph != "
+                                     f"host_loop=True on {differ}")
+            log(f"[stream] {label}: graph == host_loop=True on the same "
+                f"card inputs, bit for bit (every window's log row and "
+                f"rounds {torch.stack(out[2]).tolist()}, the carry); the "
+                f"host loop {host_ms:.3f} ms, {syncs.count} loop reads")
+        self.flushes = []
+        return n
+
+
+class GraphTimer:
+    """While active, every loop graph launch records CUDA events just
+    before and after itself on its stream; ``ms(label)`` sums the device
+    ms between them over the launches of graphs so labelled (read after
+    a synchronise): a flush graph's device time from its first node to
+    its last."""
+
+    def __init__(self, torch):
+        from poseidon_tpu_torch.kernels import loop_graph
+
+        self.torch, self.cls = torch, loop_graph.ControlGraph
+        self.pairs = []
+
+    def __enter__(self):
+        torch, timer = self.torch, self
+        self.real = real = self.cls.launch
+
+        def launch(graph):
+            stream = torch.cuda.current_stream(graph.device)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record(stream)
+            real(graph)
+            b.record(stream)
+            timer.pairs.append((graph.label, a, b))
+
+        self.cls.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.launch = self.real
+
+    def ms(self, label: str) -> float:
+        return sum(a.elapsed_time(b) for lb, a, b in self.pairs
+                   if lb == label)
+
+
+def stream_graph_line(solver, captures0: int) -> dict:
+    """The last flush's graph numbers (``last_stream_graph``): launches
+    and windows from the graph's tally, capture ms, and the flush
+    graphs captured since ``captures0``."""
+    from poseidon_tpu_torch.ops import resident
+
+    g = dict(solver.last_stream_graph)
+    g["captures"] = resident.STREAM_CAPTURES.total - captures0
+    return g
+
+
 def profile_symbols(prof, wall_us: float, label: str, symbols) -> None:
     """Device busy and idle share of one profiled call and each named
     kernel's device time as called (by its CUDA symbol)."""
@@ -3055,9 +3242,13 @@ def stream_phase(torch, card: str):
     CPU (the twins); beside it, the synced express lane on a third
     bridge over the same windows, its agreement printed (both packages
     place ties differently in the two lanes: see ``stream_failure``'s
-    note); a short flush (3 windows, padded), again card == CPU; and a
+    note); a short flush (3 windows, padded) and the full flush again
+    (its graph cached: the steady state), again card == CPU; and a
     flush whose window 3 fails its certificate (``stream_failure``).
-    Returns the launch counts of the K = 8 flush."""
+    Each card flush is one graph launch, replayed by ``host_loop=True``
+    (``TwinChain``); its graph's device ms (``GraphTimer``) and its
+    placements' e2b p50/p99 are printed. Returns the launch counts of
+    the K = 8 flush."""
     import numpy as np
 
     from poseidon_tpu_torch import kernels
@@ -3077,10 +3268,15 @@ def stream_phase(torch, card: str):
 
         windows = stream_schedule(card_b, rng, label, sizes)
         fetched0 = solver.stream_fetches
+        captures0 = resident.STREAM_CAPTURES.total
+        n_e2b = len(card_b._express_e2b)
+        twin = TwinChain(torch)
+        timer = GraphTimer(torch) if DEVICE == "cuda" else None
         sync(torch)
         if launches:
             kernels.reset_launch_counts()
-        with SolveMarks(torch, resident) as marks:
+        with SolveMarks(torch, resident) as marks, twin, \
+                timer or contextlib.nullcontext():
             if profiled and DEVICE == "cuda":
                 from torch.profiler import ProfilerActivity, profile
 
@@ -3113,6 +3309,26 @@ def stream_phase(torch, card: str):
         log(f"[stream] {label}: host_us a window outside _solve="
             f"{(marks.chain_s - marks.solve_s) / STREAM_WINDOWS * 1e6:.1f}")
         counts = {k.name: k.launches for k in kernels.KERNELS}
+        g = stream_graph_line(solver, captures0)
+        graph_ms = timer.ms("the stream flush") if timer else 0.0
+        e2b = np.asarray(card_b._express_e2b[n_e2b:] or [0.0])
+        log(f"[stream] {label}: graph launches={g.get('launches', 0)} "
+            f"windows run (tally)={g.get('windows_run', 0)} loop_reads="
+            f"{solver.last_round_loop_syncs} fetches="
+            f"{solver.last_stream_fetches} captures={g['captures']} "
+            f"capture_ms={g.get('capture_ms', 0.0):.3f} graph_device_ms="
+            f"{graph_ms:.3f} ({graph_ms / STREAM_WINDOWS:.3f} a window; "
+            f"the flush's wall outside the graph's span "
+            f"{1 - graph_ms / wall_ms:.3f}) "
+            f"e2b_p50_ms={np.percentile(e2b, 50):.3f} e2b_p99_ms="
+            f"{np.percentile(e2b, 99):.3f} | {card}")
+        if DEVICE == "cuda" and (g.get("launches") != 1 or g.get(
+                "windows_run") != STREAM_WINDOWS):
+            raise AssertionError(f"[stream] {label}: not one graph launch "
+                                 f"of {STREAM_WINDOWS} windows: {g}")
+        if DEVICE == "cuda" and twin.check(label) != 1:
+            raise AssertionError(f"[stream] {label}: the flush did not "
+                                 "take the graph route")
         t = r.timings if r is not None else {}
         log(f"[stream] {label}: windows={len(windows)} of K="
             f"{STREAM_WINDOWS} placed={[len(a) for a in per]} "
@@ -3147,10 +3363,14 @@ def stream_phase(torch, card: str):
         return windows, per, counts
 
     windows, per, counts = run("full", [16] * STREAM_WINDOWS, launches=True)
-    idle = [n for n in ("express_rows", "express_patch", "stream_commit")
-            if counts[n] == 0 and DEVICE == "cuda"]
-    if idle:
-        raise AssertionError(f"[stream] kernels not launched: {idle}")
+    # the counted flush is the bridge's first (it captures): a window
+    # launches K4, K5 and K7 once each, and nothing else launches them
+    off = [n for n in ("express_rows", "express_patch", "stream_commit")
+           if counts[n] != STREAM_WINDOWS and DEVICE == "cuda"]
+    if off:
+        raise AssertionError(f"[stream] K4/K5/K7 not {STREAM_WINDOWS} "
+                             f"launches each in the counted flush: "
+                             f"{ {n: counts[n] for n in off} }")
     want = synced_windows(synced, windows, "full")
     same = [sum(a.get(u) == m for u, m in b.items())
             for a, b in zip(per, want)]
@@ -3159,6 +3379,8 @@ def stream_phase(torch, card: str):
         f"the stream in {same} (ties go another way in the two lanes, as "
         f"in the reference)")
     run("short", [16] * 3, profiled=True)
+    # the full flush again, its graph cached: the steady state
+    run("steady", [16] * STREAM_WINDOWS)
     stream_failure(torch, cluster)
     return counts
 
@@ -3184,15 +3406,26 @@ def stream_failure(torch, cluster) -> None:
     clean = express_bridge(DEVICE, cluster, STREAM_WINDOWS)[0]
     rng = np.random.default_rng(606)
     windows = stream_schedule(clean, rng, "fail", [4, 4, 4, 16])
-    want, _r3, inf3 = stream_flush_windows(clean, windows[:3], "clean")
+    twin = TwinChain(torch)
+    with twin:
+        want, _r3, inf3 = stream_flush_windows(clean, windows[:3], "clean")
+    twin.check("clean 3-window flush")
     cap = max(len(b) for b in want)
     failing.solver.express_change_cap = cap
     trace = failing.trace
     # the trace is a ring (the first round's events fill it): count
     # the events this flush adds by the ring's running total
     n0 = trace.dropped_total + len(trace.events)
-    per, r, inf = stream_flush_windows(failing, windows, "fail")
+    with twin:
+        per, r, inf = stream_flush_windows(failing, windows, "fail")
     sync(torch)
+    g = failing.solver.last_stream_graph
+    log(f"[stream] failing flush: graph launches={g.get('launches', 0)} "
+        f"windows run (tally)={g.get('windows_run', 0)} loop_reads="
+        f"{failing.solver.last_round_loop_syncs}")
+    if DEVICE == "cuda" and (twin.check("failing flush") != 1
+                             or g.get("launches") != 1):
+        raise AssertionError("[stream] failing flush: not one graph launch")
     new = trace.dropped_total + len(trace.events) - n0
     tail = list(trace.events)[-new:] if new else []
     whys = [e.detail["why"] for e in tail if e.event == "EXPRESS_DEGRADE"]
@@ -3243,6 +3476,10 @@ def stream_parity() -> None:
         rng = np.random.default_rng(78)
         windows = stream_schedule(bridge, rng, "par", [8, 8, 8])
         per, r, inf = stream_flush_windows(bridge, windows, "parity")
+        if device == "cuda" and bridge.solver.last_stream_graph.get(
+                "launches") != 1:
+            raise AssertionError("[parity] stream flush: not one graph "
+                                 "launch on the card")
         warm = bridge.solver.warm
         runs[device] = (per, r.cost, r.rounds,
                         [np.asarray(t.cpu()).tolist()
@@ -4624,6 +4861,10 @@ def scale_parity() -> None:
             bridge.confirm_binding(uid, m)
         windows = stream_schedule(bridge, rng, "sc", [8, 8, 8])
         per, r, inf = stream_flush_windows(bridge, windows, "scale parity")
+        if device == "cuda" and bridge.solver.last_stream_graph.get(
+                "launches") != 1:
+            raise AssertionError("[parity] width-2 stream flush: not one "
+                                 "graph launch on the card")
         warm = bridge.solver.warm
         out.append((per, r.cost, r.rounds,
                     [np.asarray(t.cpu()).tolist()
@@ -4635,7 +4876,8 @@ def scale_parity() -> None:
     if runs[DEVICE] != runs["cpu"]:
         raise AssertionError("[parity] aggregated width-2 lane: card != cpu")
     log(f"[parity] aggregated width-2 round, 2 express windows and a "
-        f"3-window stream flush: card == cpu (round cost="
+        f"3-window stream flush (one graph launch on the card): card == "
+        f"cpu (round cost="
         f"{runs['cpu'][0][1]}, windows placed "
         f"{[len(w[0]) for w in runs['cpu'][1:3]]}, flush placed "
         f"{[len(a) for a in runs['cpu'][3][0]]})")

@@ -952,7 +952,9 @@ def window_lanes(torch, dev, K: int = 8, n: int = 16) -> dict:
     thread, ``InlineFetch``). ``flush_ms``: host
     clock from ``stream_flush`` to ``stream_finish``'s return;
     ``window_host_us``: ``_stream_chain``'s host time less its
-    ``_solve`` calls', a window; ``batch_ms``: ``express_batch``'s wall,
+    ``_solve`` calls', a window; ``e2b_p50_ms``/``e2b_p99_ms``: the
+    flush's placements' event-to-bind (from each window's accumulate to
+    the finish); ``batch_ms``: ``express_batch``'s wall,
     ``solve_ms`` its own timing; ``step_host_us``: ``_express_step``'s
     host time less its ``_solve``'s; ``launches``: the wrappers'
     counts a flush or batch. Every checkout sees the same events."""
@@ -986,10 +988,12 @@ def window_lanes(torch, dev, K: int = 8, n: int = 16) -> dict:
     rng = np.random.default_rng(2024)
     sb = bridge(K)
     async_fetch = resident._AsyncFetch
-    rows = {"flush_ms": [], "window_host_us": [], "placed": []}
+    rows = {"flush_ms": [], "window_host_us": [], "placed": [],
+            "e2b_p50_ms": [], "e2b_p99_ms": []}
     with SolveMarks(torch, resident) as marks:
         for f in range(FLUSHES + 2):
             windows = lane_events(sb, rng, f"s{f}", [n] * K)
+            n_e2b = len(sb._express_e2b)
             for ev in windows:
                 sb.stream_window(ev, t_event=time.perf_counter())
             marks.reset()
@@ -1020,6 +1024,11 @@ def window_lanes(torch, dev, K: int = 8, n: int = 16) -> dict:
                     (marks.chain_s - marks.solve_s) / K * 1e6)
                 rows["placed"].append(len(r.bindings))
                 rows["launches"] = delta(c0)
+                # each placement's event-to-bind: from its window's
+                # accumulate to the flush's finish
+                e2b = sb._express_e2b[n_e2b:]
+                rows["e2b_p50_ms"].append(float(np.percentile(e2b, 50)))
+                rows["e2b_p99_ms"].append(float(np.percentile(e2b, 99)))
     out["stream"] = rows
     del sb
     xb = bridge(0)

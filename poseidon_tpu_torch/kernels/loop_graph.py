@@ -21,7 +21,10 @@ the host reads nothing until the caller's result fetch. (torch 2.11
 exposes no conditional capture of its own; the graph is built from raw
 graphs.) ``LoopGraph`` is the auction's loop (``AUCTION``); the general
 lane's loops are ``ops/cost_scaling.py``'s and ``ops/ssp.py``'s, one
-graph a solve (``run_once``).
+graph a solve (``run_once``); the stream lane's flush (``STREAM``: the
+reference's ``lax.scan`` over K windows, ``poseidon_tpu/ops/
+resident.py:703``, each window's repair the auction's loop nested in
+it) is ``ops/resident.py``'s ``_StreamGraph``, one graph a flush shape.
 
 Launch counts. A kernel in a body launches when the graph runs that
 body, not when its wrapper is called at capture. So the capture's
@@ -61,7 +64,9 @@ KERNEL = Kernel(
 
 # K14's modes (csrc/loop_graph.cu)
 ENTER, BRANCH, PHASE, NEXT, LOOP = 0, 1, 2, 3, 4
-TALLY = 8     # the auction: tally[0..3] branch runs, tally[4] graph launches
+TALLY = 8     # the auction: tally[0..3] branch runs, tally[4] graph
+              # launches; the stream flush: tally[5] windows, tally[6]
+              # flushes (``T_WINDOWS``, ``T_FLUSHES``)
 TERMS = 3     # a LOOP step's most terms
 
 
@@ -156,6 +161,24 @@ AUCTION = Seq((4,), (
             Cond("if", "tighten", Seq((3,), ("tighten",))),
         ))),
         Step(NEXT, sets=("w",)),
+    ))),
+))
+
+# the stream lane's flush (ops/resident.py ``_StreamGraph``, the
+# reference's ``lax.scan`` over K windows), each window's repair the
+# auction's loop nested in it:
+#   LOOP(k < K) -> WHILE win { window_head -> <AUCTION's items>
+#                              -> window_tail -> LOOP(k < K) }
+# tally[5] counts the windows run, tally[6] the flushes (graph launches)
+T_WINDOWS, T_FLUSHES = 5, 6
+STREAM = Seq((T_FLUSHES,), (
+    Step(LOOP, sets=("win",), terms=(("k", "K"),), go=T_WINDOWS,
+         run=T_FLUSHES),
+    Cond("while", "win", Seq((T_WINDOWS,), (
+        "window_head",
+        *AUCTION.items,
+        "window_tail",
+        Step(LOOP, sets=("win",), terms=(("k", "K"),), go=T_WINDOWS),
     ))),
 ))
 
@@ -340,13 +363,17 @@ class ControlGraph:
     count into it too (None: the graph's own). ``arm(handles)``: called
     with every conditional handle by name once the graph is built, before
     any launch, where the bodies' kernels set handles themselves (they
-    were captured before the handles existed)."""
+    were captured before the handles existed). ``snapshot``: the graph's
+    first node copies the tally into pinned host memory too
+    (``_start_view``), so a launch's own runs are the tally's host view
+    less it, however many launches went before unread."""
 
     spec: Seq
     label = "a loop"
 
     def __init__(self, device, spec: Seq, bodies: dict, tensors: dict,
-                 label: str | None = None, tally=None, arm=None):
+                 label: str | None = None, tally=None, arm=None,
+                 snapshot: bool = False):
         self.device = device
         self.spec = spec
         if label is not None:
@@ -358,6 +385,9 @@ class ControlGraph:
         self.handles: dict[str, int] = {}
         self.tally_host = torch.zeros(TALLY, dtype=i32, pin_memory=True)
         self._host_view = self.tally_host.numpy()
+        self.start_host = (torch.zeros(TALLY, dtype=i32, pin_memory=True)
+                           if snapshot else None)
+        self._start_view = self.start_host.numpy() if snapshot else None
         self._settled = np.zeros(TALLY, np.int64)
         self.done_event = torch.cuda.Event()
         self.per_body: dict[str, dict[str, int]] = {}
@@ -381,7 +411,17 @@ class ControlGraph:
                    f"{self.label}'s graph failed to build")
             self._graph = graph.value
             try:
-                last = self._build(lib, self._graph, spec, {}, resolved)
+                first = None
+                if snapshot:
+                    node = ctypes.c_void_p()
+                    _check(lib.lg_copy(self._graph, None,
+                                       self.start_host.data_ptr(),
+                                       self.tally.data_ptr(), TALLY * 4,
+                                       ctypes.byref(node)),
+                           f"{self.label}'s graph failed to build")
+                    first = node.value
+                last = self._build(lib, self._graph, spec, {}, resolved,
+                                   first)
                 node = ctypes.c_void_p()
                 _check(lib.lg_copy(self._graph, last, self.tally_host.data_ptr(),
                                    self.tally.data_ptr(), TALLY * 4,
@@ -428,9 +468,10 @@ class ControlGraph:
                 for k in kern:
                     k.count = before[k.name]
 
-    def _build(self, lib, graph, seq: Seq, handles: dict, tensors: dict):
+    def _build(self, lib, graph, seq: Seq, handles: dict, tensors: dict,
+               prev=None):
         """Add ``seq``'s nodes to ``graph`` in order (each after the one
-        before); returns the last node. The handles of its conditional
+        before, the first after ``prev``); returns the last node. The handles of its conditional
         nodes are made first, so a step may set a handle of its own graph
         or of an enclosing one."""
         what = f"{self.label}'s graph failed to build"
@@ -440,7 +481,6 @@ class ControlGraph:
                 h = ctypes.c_ulonglong()
                 _check(lib.lg_handle(graph, ctypes.byref(h)), what)
                 handles[item.handle] = self.handles[item.handle] = h.value
-        prev = None
         for item in seq.items:
             node = ctypes.c_void_p()
             if isinstance(item, (str, Body)):
@@ -546,6 +586,59 @@ class CaptureLog:
         """The captures made after the log stood at ``total``."""
         n = self.total - total
         return list(self._recent)[-n:] if n > 0 else []
+
+
+class GraphCache:
+    """Captured graphs by key, the least recently used closed past
+    ``size`` (the auction's loops and the stream lane's flushes). An
+    entry has a ``lock``, held while a caller stages and launches it,
+    and a ``close()``; ``captures`` logs each capture."""
+
+    def __init__(self, size: int) -> None:
+        self.size = size
+        self.captures = CaptureLog()
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key, make, row: tuple):
+        """``(entry, capture_ms)``: the entry of ``key`` (capture ms 0.0),
+        or ``make()``'s new one, logged as ``row + (ms,)``. The entry comes
+        back with its lock held (taken under the cache's lock, so an
+        eviction cannot close it first); the caller releases it. A
+        failure of ``make`` raises and caches nothing."""
+        with self._lock:
+            e = self._entries.get(key)
+            if e is not None:
+                self._entries.move_to_end(key)
+                e.lock.acquire()
+                return e, 0.0
+            t0 = time.perf_counter()
+            e = make()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.captures.add(row + (ms,))
+            e.lock.acquire()
+            self._entries[key] = e
+            while len(self._entries) > self.size:
+                _key, old = self._entries.popitem(last=False)
+                with old.lock:
+                    old.close()
+            return e, ms
+
+    def values(self) -> list:
+        with self._lock:
+            return list(self._entries.values())
+
+    def clear(self) -> None:
+        """Close and drop every entry (each once its lock is free)."""
+        with self._lock:
+            entries, self._entries = (list(self._entries.values()),
+                                      collections.OrderedDict())
+        for e in entries:
+            with e.lock:
+                e.close()
+
+    def __len__(self) -> int:
+        return len(self._entries)
 
 
 def runs_graph(device) -> bool:

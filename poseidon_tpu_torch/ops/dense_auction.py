@@ -66,7 +66,6 @@ import dataclasses
 import os
 import sys
 import threading
-import time
 
 import numpy as np
 import torch
@@ -76,7 +75,7 @@ from poseidon_tpu_torch.guards import GuardError, SyncCounter, census
 from poseidon_tpu_torch.kernels.bid_pass import bid_pass
 from poseidon_tpu_torch.kernels.densify import densify
 from poseidon_tpu_torch.kernels.gap_rows import gap_rows
-from poseidon_tpu_torch.kernels.loop_graph import CaptureLog
+from poseidon_tpu_torch.kernels.loop_graph import GraphCache
 from poseidon_tpu_torch.kernels.row_options import row_options
 from poseidon_tpu_torch.kernels.seat_sort import INT32, seat_compact, seat_sort
 from poseidon_tpu_torch.kernels.top_will import top_will
@@ -988,6 +987,9 @@ class _GraphEntry:
         """The certificate has been enqueued: the state is free."""
         self.free.record(self.stream)
 
+    def close(self) -> None:
+        self.graph.close()
+
 
 class TableSlots:
     """Dense tables on the card at fixed addresses, reused from solve to
@@ -1031,10 +1033,10 @@ class TableSlots:
             return t
 
 
-_graphs: collections.OrderedDict = collections.OrderedDict()
-_graphs_lock = threading.Lock()
+_graphs = GraphCache(GRAPH_CACHE_SIZE)
 _warmed: set = set()
-CAPTURES = CaptureLog()
+# the loop graphs' captures: (Tp, Mp, smax, table layout, collect_hist, ms)
+CAPTURES = _graphs.captures
 
 
 def graph_key(dev: DenseInstance, smax: int, collect_hist: bool) -> tuple:
@@ -1071,19 +1073,14 @@ def _graph_entry(dev: DenseInstance, smax: int, collect_hist: bool,
     max_rounds), every body runs once eagerly at a shape not seen before
     (kernel builds, launch plans, occupancy queries), then the bodies
     are captured and the graph is built. A failure raises. The entry
-    comes back with its lock held (taken under the cache's lock, so an
-    eviction cannot close it first); the caller releases it."""
+    comes back with its lock held (``GraphCache.get``); the caller
+    releases it."""
     from poseidon_tpu_torch.kernels.loop_graph import LoopGraph
 
     key = graph_key(dev, smax, collect_hist)
-    with _graphs_lock:
-        e = _graphs.get(key)
-        if e is not None:
-            _graphs.move_to_end(key)
-            e.lock.acquire()
-            return e
-        t0 = time.perf_counter()
-        device = key[0]
+    device = key[0]
+
+    def make() -> _GraphEntry:
         with torch.cuda.device(device):
             loop = _Loop(dev, smax, collect_hist, static=True)
             loop.load(*start)
@@ -1102,17 +1099,11 @@ def _graph_entry(dev: DenseInstance, smax: int, collect_hist: bool,
             # entry must not keep the tensor, or the table's slot could
             # never be handed out again (TableSlots)
             loop.dev = dataclasses.replace(loop.dev, c=None)
-        ms = (time.perf_counter() - t0) * 1e3
-        CAPTURES.add((key[1], key[2], smax, key[5], collect_hist, ms))
-        e = _GraphEntry(loop=loop, graph=graph, lock=threading.Lock(),
-                        free=torch.cuda.Event(), device=device)
-        e.lock.acquire()
-        _graphs[key] = e
-        while len(_graphs) > GRAPH_CACHE_SIZE:
-            _key, old = _graphs.popitem(last=False)
-            with old.lock:
-                old.graph.close()
-        return e
+        return _GraphEntry(loop=loop, graph=graph, lock=threading.Lock(),
+                           free=torch.cuda.Event(), device=device)
+
+    return _graphs.get(key, make, (key[1], key[2], smax, key[5],
+                                   collect_hist))[0]
 
 
 def _solve(

@@ -24,11 +24,13 @@ the certificate's table pass is K8 per shard. Width 0 is the plain
 layout; width 1 is a one-shard mesh with the same results.
 
 Host syncs. The reference's round is one compiled program with one host
-sync. Here the auction's loop runs on the host and reads a small flag
-tensor per iteration (see ``ops/dense_auction.py``); those reads are
-counted as ``last_round_loop_syncs``, and the round's result comes back
-in one sanctioned fetch, counted as ``last_round_fetches`` (1 on the
-certified dense path).
+sync. On the card the auction's loop is one CUDA graph a solve (see
+``ops/dense_auction.py``) and a stream flush one CUDA graph for all its
+windows (``_StreamGraph``): neither reads anything on the host. The CPU
+runs the host loops, which read a small flag tensor per iteration;
+those reads are counted as ``last_round_loop_syncs``, and the round's
+result comes back in one sanctioned fetch, counted as
+``last_round_fetches`` (1 on the certified dense path).
 
 Devices. ``ResidentSolver(device=None)`` runs on ``"cuda"``; without a
 card it raises instead of drifting onto the CPU. Pass ``device="cpu"``
@@ -59,9 +61,16 @@ from poseidon_tpu_torch.graph.aggregate import (
 )
 from poseidon_tpu_torch.graph.builder import ArcKind, GraphMeta
 from poseidon_tpu_torch.graph.network import FlowNetwork, pad_bucket
-from poseidon_tpu_torch.guards import FetchTimeout, SyncCounter
+from poseidon_tpu_torch.guards import FetchTimeout, SyncCounter, census
 from poseidon_tpu_torch.kernels.express_patch import express_patch
 from poseidon_tpu_torch.kernels.express_rows import express_rows
+from poseidon_tpu_torch.kernels.loop_graph import (
+    STREAM,
+    T_FLUSHES,
+    T_WINDOWS,
+    ControlGraph,
+    GraphCache,
+)
 from poseidon_tpu_torch.kernels.stream_commit import (
     Commit,
     log_width,
@@ -85,15 +94,19 @@ from poseidon_tpu_torch.ops.dense_auction import (
     RowBlocks,
     TableSlots,
     _budget_need,
+    _certify,
     _densify,
+    _Loop,
     _solve,
     check_table_budget,
     cold_start,
     default_fuse,
+    graph_key,
     rows_of,
     table_gather,
     table_row_options,
     to_dev,
+    uses_graph,
 )
 from poseidon_tpu_torch.ops.transport import (
     CH_CLUSTER,
@@ -458,12 +471,12 @@ class _StreamCarry:
     saved: list
 
 
-def _express_step(
+def _express_head(
     dev: DenseInstance,
     dt: DenseTopology,
     cost_dev,
     mini_inputs,
-    asg, lvl, floor,
+    asg, lvl,
     add_row,      # i32[kmax] padded row to activate (-1 unused)
     add_pm,       # i32[kmax, pk] pref machine COLUMN (-1 none)
     add_pr,       # i32[kmax, pk] pref rack index (-1 none)
@@ -471,42 +484,18 @@ def _express_step(
     model_fn,
     kmax: int,
     pk: int,
-    alpha: int,
-    max_rounds: int,
     smax: int,
-    change_cap: int,
-    syncs: SyncCounter | None = None,
-    carry: _StreamCarry | None = None,
-    log_row: torch.Tensor | None = None,
+    c_saved: list | None = None,
 ):
-    """One express window on the device (the reference's
-    ``_express_step``, which its ``_express_chain`` runs one window a
-    dispatch): price the arrivals' task-side arcs with the round's cost
-    model, activate their table rows and scatter u, w, task_valid, asg
-    and lvl at them (the head, K4: one launch) against the warm
-    instance, run a bounded eps=1 repair from the existing prices
-    (``_solve``: K2, K3, the sorts), and compact the changed placements
-    into one int64 log row for the one result fetch (the tail, K7: one
-    launch; ``log_width`` entries, into ``log_row`` when given). The
-    trailing ``report`` mask stays on the device; only the change-cap
-    overflow path fetches it. With ``carry`` (the stream lane) the head
-    saves the rows it overwrites and the tail commits the window into
-    the carry, latching and masking as ``_stream_chain`` says.
-
-    No rebuild, no cold eps ladder: machine-side routes (``dev.dgen``,
-    the m->sink / rack legs gathered from ``cost_dev``) are the LAST
-    round's prices by design — the periodic correction round re-prices
-    everything and differential-verifies what express placed. The
-    repair's certificate gates every batch. ``dev.c`` is patched in
-    place, and so are its u, w and task_valid (the context's vectors have
-    no other reader: a degraded batch drops the context); asg/lvl are
-    not (``asg`` may be the warm state). ``rounds`` and ``phases`` come
-    back as int32 0-d tensors; rows_out, asg_out, n_changes, primal and
-    n_active are views of the log row.
-    """
-    Tp, Mp = dev.c.shape
-    device = dev.c.device
-
+    """A window's head on the device, before its repair: price the
+    arrivals' task-side arcs with the round's cost model, check the
+    batch's integer domain, then activate their table rows and scatter
+    u, w, task_valid, asg and lvl at them (K4: one launch) against the
+    warm instance. With ``c_saved`` (the stream lane) K4 keeps the rows
+    it overwrites. ``dev.scale`` is the round's int, or (in the stream
+    lane's graph) an int32 0-d tensor holding it. Returns ``(dev2, asg0,
+    lvl0, domain_ok)``: the instance the repair solves, its start and
+    the batch's domain bit."""
     # ---- price the arrivals' task-side arcs (shared cost model) ----
     cost_mini = model_fn(mini_inputs)
     u_u = (cost_mini[:kmax]
@@ -557,8 +546,9 @@ def _express_step(
     )
 
     def sc(x):
-        # int32 times the Python-int scale wraps; the where() discards
-        # the INF-saturated lanes before anything reads them
+        # int32 times the scale (a Python int or an int32 0-d tensor)
+        # wraps; the where() discards the INF-saturated lanes before
+        # anything reads them
         return torch.where(x >= INF, INF, x * scale).to(I32)
 
     u_s, w_s = sc(u_u), sc(w_u)
@@ -568,17 +558,25 @@ def _express_step(
     # ---- the head (K4): the arrival rows and scatters, one launch ----
     asg0, lvl0 = _write_arrival_rows(
         dev, dt, w_s, u_s, pc_s, add_row, add_pm, add_pr, ra_s, asg, lvl,
-        carry.saved if carry is not None else None)
-    dev2 = dataclasses.replace(dev, smax=smax)
+        c_saved)
+    return dataclasses.replace(dev, smax=smax), asg0, lvl0, domain_ok
 
-    # ---- bounded eps=1 repair from the existing prices ----
-    asg_f, lvl_f, floor_f, gap, conv, rounds, phases, _ = _solve(
-        dev2, asg0, lvl0, floor, 1, alpha=alpha, max_rounds=max_rounds,
-        smax=smax, analytic_init=False, syncs=syncs,
-    )
 
-    # ---- the tail (K7): report, count, ordered compaction, objective
-    # (and the stream's commit), one launch with no host read ----
+def _express_tail(dev2: DenseInstance, asg0, solved, domain_ok, add_row,
+                  *, change_cap: int, carry: _StreamCarry | None = None,
+                  log_row: torch.Tensor | None = None):
+    """A window's tail on the device, after its repair (``solved``:
+    ``_solve``'s outputs): the report, the change count, the ordered
+    compaction of the changed placements and the objective into one
+    int64 log row (K7: one launch, no host read; ``log_width`` entries,
+    into ``log_row`` when given). With ``carry`` (the stream lane) K7
+    also commits the window into the carry: the latch, the auto-retire,
+    the latched select and a dead window's undo of K4's rows (in the
+    first shard; ``_stream_window_tail`` undoes the others'). Returns
+    ``_express_step``'s tuple."""
+    asg_f, lvl_f, floor_f, gap, conv, rounds, phases, _ = solved
+    Tp, Mp = dev2.c.shape
+    device = dev2.c.device
     cap = min(change_cap, Tp)
     if log_row is None:
         log_row = torch.empty(log_width(cap), dtype=I64, device=device)
@@ -606,6 +604,102 @@ def _express_step(
             report, log_row)
 
 
+def _express_step(
+    dev: DenseInstance,
+    dt: DenseTopology,
+    cost_dev,
+    mini_inputs,
+    asg, lvl, floor,
+    add_row,      # i32[kmax] padded row to activate (-1 unused)
+    add_pm,       # i32[kmax, pk] pref machine COLUMN (-1 none)
+    add_pr,       # i32[kmax, pk] pref rack index (-1 none)
+    *,
+    model_fn,
+    kmax: int,
+    pk: int,
+    alpha: int,
+    max_rounds: int,
+    smax: int,
+    change_cap: int,
+    syncs: SyncCounter | None = None,
+):
+    """One express window on the device (the reference's
+    ``_express_step``, which its ``_express_chain`` runs one window a
+    dispatch): the head (``_express_head``: pricing, the domain guard,
+    K4's arrival rows and scatters, one launch), a bounded eps=1 repair
+    from the existing prices (``_solve``: K2, K3, the sorts), and the
+    tail (``_express_tail``: K7's compaction of the changed placements
+    into one int64 log row for the one result fetch, one launch). The
+    trailing ``report`` mask stays on the device; only the change-cap
+    overflow path fetches it.
+
+    No rebuild, no cold eps ladder: machine-side routes (``dev.dgen``,
+    the m->sink / rack legs gathered from ``cost_dev``) are the LAST
+    round's prices by design — the periodic correction round re-prices
+    everything and differential-verifies what express placed. The
+    repair's certificate gates every batch. ``dev.c`` is patched in
+    place, and so are its u, w and task_valid (the context's vectors have
+    no other reader: a degraded batch drops the context); asg/lvl are
+    not (``asg`` may be the warm state). ``rounds`` and ``phases`` come
+    back as int32 0-d tensors; rows_out, asg_out, n_changes, primal and
+    n_active are views of the log row.
+    """
+    dev2, asg0, lvl0, domain_ok = _express_head(
+        dev, dt, cost_dev, mini_inputs, asg, lvl, add_row, add_pm, add_pr,
+        model_fn=model_fn, kmax=kmax, pk=pk, smax=smax)
+    # ---- bounded eps=1 repair from the existing prices ----
+    solved = _solve(
+        dev2, asg0, lvl0, floor, 1, alpha=alpha, max_rounds=max_rounds,
+        smax=smax, analytic_init=False, syncs=syncs,
+    )
+    return _express_tail(dev2, asg0, solved, domain_ok, add_row,
+                         change_cap=change_cap)
+
+
+# ---------------------------------------------------------------------------
+# the stream lane: K windows a flush, one fetch
+# ---------------------------------------------------------------------------
+
+def _stream_window_head(dev: DenseInstance, dt, cost_dev, carry, buffers,
+                        window, *, model_fn, kmax: int, pk: int,
+                        smax: int):
+    """One stream window up to its repair, as both routes run it (the
+    host loop and the flush's graph): the window's retire/removal/slot
+    patch (K5, out of place: the carry into the flush's window buffers
+    ``buffers``), then ``_express_head`` over the patched instance, K4
+    saving the rows it overwrites. ``window`` is (mini, add_row, add_pm,
+    add_pr, patch[1, 3, pw]). Returns ``(dev2, asg0, lvl0, domain_ok)``
+    as ``_express_head``."""
+    mini, add_row, add_pm, add_pr, patch = window
+    state = (carry.u, carry.w, carry.valid, carry.s, carry.asg, carry.lvl)
+    u1, w1, valid1, s1, asg1, lvl1 = _express_patch(state, patch, buffers)
+    dev_w = DenseInstance(
+        c=dev.c, u=u1, w=w1, dgen=dev.dgen, s=s1, task_valid=valid1,
+        scale=dev.scale, cmax=dev.cmax, smax=smax,
+    )
+    return _express_head(dev_w, dt, cost_dev, mini, asg1, lvl1, add_row,
+                         add_pm, add_pr, model_fn=model_fn, kmax=kmax,
+                         pk=pk, smax=smax, c_saved=carry.saved)
+
+
+def _stream_window_tail(dev2: DenseInstance, asg0, solved, domain_ok,
+                        add_row, carry, *, change_cap: int, log_row):
+    """One stream window after its repair, as both routes run it: the
+    tail (K7 ``stream_commit`` with the commit: the compaction, the
+    latch, the auto-retire, the latched select, a dead window's undo in
+    the first shard, the masked log row into ``log_row``), then under a
+    mesh K7's restore in every other shard, which reads the verdict K7
+    just wrote to ``live``."""
+    _express_tail(dev2, asg0, solved, domain_ok, add_row,
+                  change_cap=change_cap, carry=carry, log_row=log_row)
+    c = dev2.c
+    if isinstance(c, RowBlocks):
+        Tp = c.shape[0]
+        for (b, r0, _r1, d), saved in zip(c.shards()[1:], carry.saved[1:]):
+            stream_restore(to_dev(carry.live, d), to_dev(add_row, d), saved,
+                           b, Tp, r0)
+
+
 def _stream_chain(
     dev: DenseInstance,
     dt: DenseTopology,
@@ -621,73 +715,352 @@ def _stream_chain(
     smax: int,
     change_cap: int,
     syncs: SyncCounter | None = None,
+    host_loop: bool = False,
+    graph_stats: dict | None = None,
 ):
     """The stream lane: K express windows back to back on the device,
     with no host read of their own (the reference's ``_stream_chain``,
-    one ``lax.scan``; here a host loop over the windows).
+    one ``lax.scan``).
 
-    Each window replays what the synced lane does per window: the
-    window's retire/removal/slot patch (K5, out of place: the carry into
-    the flush's window buffers),
-    then ``_express_step`` with the carry: pricing, the head (K4: the
-    arrival rows, their old contents saved), the eps=1 repair, and the
-    tail (K7 ``stream_commit``; under a mesh, then K7's restore in every
-    other shard): the compaction, the certificate latch ``live`` (an
-    int32[1] on the device), the in-device auto-retire of the window's
+    Each window replays what the synced lane does per window
+    (``_stream_window_head``, the eps=1 repair, ``_stream_window_tail``):
+    the window's retire/removal/slot patch (K5, out of place: the carry
+    into the flush's window buffers), pricing, the head (K4: the arrival
+    rows, their old contents saved), the repair, and the tail (K7
+    ``stream_commit``; under a mesh, then K7's restore in every other
+    shard): the compaction, the certificate latch ``live`` (an int32[1]
+    on the device), the in-device auto-retire of the window's
     placements, the latched select of the carry, the undo of K4's rows
-    in a dead window, and the masked log row. A dead
-    window still runs its repair from the frozen carry, as the
-    reference's scan does, so every window's conv, domain_ok, n_changes
-    and rounds match it; its outputs read as masked.
+    in a dead window, and the masked log row. A dead window still runs
+    its repair from the frozen carry, as the reference's scan does, so
+    every window's conv, domain_ok, n_changes and rounds match it; its
+    outputs read as masked.
 
-    ``asg``/``lvl``/``floor`` are overwritten in place (pass copies);
-    ``dev``'s u/w/s/task_valid and c likewise carry the stream's state.
-    Returns ``(carry, log, rounds)``: carry = (c, u, w, s, valid, asg,
-    lvl, floor, live), log an int64 [K, log_width(change_cap)] device
-    tensor of the masked per-window logs (the flush's one fetch), rounds
-    the windows' repair rounds (int32 0-d tensors)."""
-    Tp, Mp = dev.c.shape
-    device = dev.c.device
+    Two routes run these same functions. A table on one CUDA device
+    runs the whole flush as ONE CUDA graph (``_StreamGraph``:
+    ``kernels/loop_graph.STREAM``, each window's repair the auction's
+    loop nested in the window loop, K14 setting every condition on the
+    card): the host stages the flush's inputs into the graph's buffers
+    by copies, launches once and reads nothing. The CPU, row blocks over
+    several cards, and ``host_loop`` (the plain version on the card,
+    which no entry point passes) run the windows in a host loop, each
+    repair through ``_solve`` (``host_loop`` forces its host loop too).
+    A capture or launch failure raises. ``graph_stats`` (a dict) gets
+    the graph route's entry and capture ms (0 without a capture).
+
+    ``asg``/``lvl``/``floor`` are overwritten in place by the host loop
+    (pass copies); ``dev``'s table is patched in place, and the host loop
+    also carries the stream's state in its u/w/s/task_valid. Returns
+    ``(carry, log, rounds)``: carry = (c, u, w, s, valid, asg, lvl,
+    floor, live), log an int64 [K, log_width(change_cap)] device tensor
+    of the masked per-window logs (the flush's one fetch), rounds the
+    windows' repair rounds (int32 0-d tensors)."""
+    kw = dict(model_fn=model_fn, kmax=kmax, pk=pk, alpha=alpha,
+              max_rounds=max_rounds, smax=smax, change_cap=change_cap)
+    with census("loop.stream"):
+        if uses_graph(dev.c) and not host_loop:
+            return _stream_graph_run(dev, dt, cost_dev, windows, asg, lvl,
+                                     floor, graph_stats, **kw)
+        return _stream_host_loop(dev, dt, cost_dev, windows, asg, lvl,
+                                 floor, syncs=syncs, host_loop=host_loop,
+                                 **kw)
+
+
+def _stream_carry(dev: DenseInstance, asg, lvl, floor, kmax: int):
+    """The carry over ``dev``'s vectors and ``asg``/``lvl``/``floor``,
+    with the latch at 1 and one saved-rows buffer a table shard."""
     c = dev.c
+    Tp, Mp = c.shape
     shards = (c.shards() if isinstance(c, RowBlocks)
-              else [(c, 0, Tp, device)])
-    carry = _StreamCarry(
-        live=torch.ones(1, dtype=I32, device=device), u=dev.u, w=dev.w,
+              else [(c, 0, Tp, c.device)])
+    return _StreamCarry(
+        live=torch.ones(1, dtype=I32, device=c.device), u=dev.u, w=dev.w,
         valid=dev.task_valid, asg=asg, lvl=lvl, s=dev.s, floor=floor,
         saved=[torch.empty((kmax, Mp), dtype=I32, device=d)
                for *_, d in shards],
     )
+
+
+def _stream_host_loop(dev, dt, cost_dev, windows, asg, lvl, floor, *,
+                      model_fn, kmax, pk, alpha, max_rounds, smax,
+                      change_cap, syncs, host_loop):
+    """``_stream_chain``'s host loop (the plain version): the windows one
+    after another, each repair through ``_solve``."""
+    Tp = dev.c.shape[0]
+    carry = _stream_carry(dev, asg, lvl, floor, kmax)
     cap = min(change_cap, Tp)
     log = torch.empty((len(windows), log_width(cap)), dtype=I64,
-                      device=device)
+                      device=dev.c.device)
     rounds_all = []
     # the window's patched vectors, one set a flush: window k + 1's K5
     # writes them only after window k's K7 (the last reader of w/s/valid/u
     # here) on the same stream, and reads nothing but the carry
     state = (carry.u, carry.w, carry.valid, carry.s, carry.asg, carry.lvl)
     buffers = tuple(torch.empty_like(x) for x in state)
-    for k, (mini, add_row, add_pm, add_pr, patch) in enumerate(windows):
-        u1, w1, valid1, s1, asg1, lvl1 = _express_patch(state, patch,
-                                                        buffers)
-        dev_w = DenseInstance(
-            c=c, u=u1, w=w1, dgen=dev.dgen, s=s1, task_valid=valid1,
-            scale=dev.scale, cmax=dev.cmax, smax=smax,
-        )
-        *_, rounds, _phases = _express_step(
-            dev_w, dt, cost_dev, mini, asg1, lvl1, carry.floor,
-            add_row, add_pm, add_pr,
-            model_fn=model_fn, kmax=kmax, pk=pk, alpha=alpha,
-            max_rounds=max_rounds, smax=smax, change_cap=change_cap,
-            syncs=syncs, carry=carry, log_row=log[k],
-        )[:8]
-        # under a mesh the other shards undo their own rows of a dead
-        # window, reading the verdict K7 just wrote to ``live``
-        for (b, r0, _r1, d), saved in zip(shards[1:], carry.saved[1:]):
-            stream_restore(to_dev(carry.live, d), to_dev(add_row, d), saved,
-                           b, Tp, r0)
-        rounds_all.append(rounds)
-    return ((c, carry.u, carry.w, carry.s, carry.valid, carry.asg, carry.lvl,
-             carry.floor, carry.live), log, rounds_all)
+    for k, window in enumerate(windows):
+        dev2, asg0, lvl0, domain_ok = _stream_window_head(
+            dev, dt, cost_dev, carry, buffers, window, model_fn=model_fn,
+            kmax=kmax, pk=pk, smax=smax)
+        solved = _solve(
+            dev2, asg0, lvl0, carry.floor, 1, alpha=alpha,
+            max_rounds=max_rounds, smax=smax, analytic_init=False,
+            syncs=syncs, host_loop=host_loop)
+        _stream_window_tail(dev2, asg0, solved, domain_ok, window[1], carry,
+                            change_cap=change_cap, log_row=log[k])
+        rounds_all.append(solved[5])
+    return ((dev.c, carry.u, carry.w, carry.s, carry.valid, carry.asg,
+             carry.lvl, carry.floor, carry.live), log, rounds_all)
+
+
+# ---- the flush as one CUDA graph (the card) ---------------------------------
+
+STREAM_GRAPH_CACHE_SIZE = 8    # flush graphs kept (LRU)
+_stream_graphs = GraphCache(STREAM_GRAPH_CACHE_SIZE)
+# the flush graphs' captures: (Tp, Mp, K, kmax, pk, pw, table layout, ms)
+STREAM_CAPTURES = _stream_graphs.captures
+
+
+def stream_graph_key(dev: DenseInstance, cost_dev, windows, *, model_fn,
+                     kmax: int, pk: int, alpha: int, max_rounds: int,
+                     smax: int, change_cap: int) -> tuple:
+    """The flush graph's cache key: the auction graph's (``graph_key``:
+    the device, Tp, Mp, the bid window, smax, the table's layout and
+    address(es)), then K, kmax, pk, the patch width pw, change_cap, alpha
+    and the fuse (constants of the captured bodies), the cost model, and
+    the shapes and dtypes the flush stages (the priced arc table, the
+    windows' mini inputs). The round's vectors, topology and prices, the
+    warm start, the windows, the scale and cmax are copied into the
+    graph's buffers each flush, so they are not in it."""
+    mini = windows[0][0]
+    staged = tuple((f.name, tuple(getattr(mini, f.name).shape),
+                    getattr(mini, f.name).dtype)
+                   for f in dataclasses.fields(mini))
+    return graph_key(dev, smax, False) + (
+        len(windows), kmax, pk, int(windows[0][4].shape[-1]), change_cap,
+        alpha, max_rounds, model_fn, tuple(cost_dev.shape), staged)
+
+
+class _StreamGraph:
+    """One flush shape's window loop as one CUDA graph (``STREAM``): the
+    buffers the captured bodies read and write, the static auction loop
+    of the windows' repairs, the graph, and the lock and ``free`` event
+    that order its flushes (as ``_GraphEntry``'s).
+
+    Fixed addresses. A graph reads its tensors where they lie, so each
+    flush is staged into the graph's own buffers by copies on the
+    flush's stream (``stage``): the round's vectors, topology legs and
+    prices, the scale and cmax, the warm start, the latch, the window
+    counter and the K windows' inputs, stacked [K, ...] (the
+    reference's ``xs``). Nothing runs eagerly before the capture, so
+    every launch the kernels make is a flush's own. A window is uploaded
+    to tensors of its own when it arrives (``_stream_put``), so the next
+    batch's uploads never write a buffer of a flush in flight; the next
+    flush's staging waits for ``free``, which ``run`` records once this
+    flush's carry, log and rounds have been copied out. The carry is
+    handed out as those copies, so the warm state a round or an express
+    batch reads later is never a graph buffer. The table is read and
+    patched where it lies (its address is in the key); the graph keeps
+    no reference to it (``TableSlots``)."""
+
+    def __init__(self, dev: DenseInstance, dt: DenseTopology, cost_dev,
+                 windows, asg, lvl, floor, *, model_fn, kmax: int, pk: int,
+                 alpha: int, max_rounds: int, smax: int, change_cap: int):
+        c = dev.c
+        Tp, Mp = c.shape
+        device = c.device
+        K = len(windows)
+        e = torch.empty_like
+        self.K, self.device = K, device
+        self.kw = dict(model_fn=model_fn, kmax=kmax, pk=pk, smax=smax)
+        self.alpha, self.max_rounds = alpha, max_rounds
+        self.change_cap = change_cap
+        self.lock = threading.Lock()
+        self.free = torch.cuda.Event() if device.type == "cuda" else None
+        # the round's inputs a window reads; the scale is a device word
+        # (a Python int would be baked into the captured kernels)
+        self.scale = torch.zeros((), dtype=I32, device=device)
+        self.dev = DenseInstance(
+            c=c, u=e(dev.u), w=e(dev.w), dgen=e(dev.dgen), s=e(dev.s),
+            task_valid=e(dev.task_valid), scale=self.scale,
+            cmax=e(dev.cmax), smax=smax)
+        # the topology legs a window reads (the rest stays None)
+        self.dt = DenseTopology(**{
+            **{f.name: None for f in dataclasses.fields(DenseTopology)},
+            "arc_m2s": e(dt.arc_m2s), "arc_r2m": e(dt.arc_r2m),
+            "rack_of": e(dt.rack_of), "n_tasks": dt.n_tasks})
+        self.cost = e(cost_dev)
+        self.carry = _stream_carry(self.dev, e(asg), e(lvl), e(floor), kmax)
+        cr = self.carry
+        self.buffers = tuple(e(x) for x in (cr.u, cr.w, cr.valid, cr.s,
+                                            cr.asg, cr.lvl))
+        # the windows, stacked
+        mini0 = windows[0][0]
+        self.mini = {
+            f.name: torch.empty((K, *getattr(mini0, f.name).shape),
+                                dtype=getattr(mini0, f.name).dtype,
+                                device=device)
+            for f in dataclasses.fields(mini0)}
+        self.xs = [torch.empty((K, *x.shape), dtype=x.dtype, device=device)
+                   for x in windows[0][1:]]
+        self.k = torch.zeros(1, dtype=I32, device=device)
+        self.K_word = torch.full((1,), K, dtype=I32, device=device)
+        cap = min(change_cap, Tp)
+        self.log = torch.empty((K, log_width(cap)), dtype=I64,
+                               device=device)
+        self.log_row = torch.empty(log_width(cap), dtype=I64, device=device)
+        self.rounds = torch.zeros(K, dtype=I32, device=device)
+        self.loop = _Loop(self.dev, smax, False, static=True)
+        self.mid = None
+        self.graph = None
+
+    # ---- the two bodies around the repair ------------------------------
+
+    def _window(self):
+        """Window k's inputs, k the device counter: row k of the stacked
+        buffers (the scan's slicing of its ``xs``)."""
+        kk = self.k.long()
+        mini = CostInputs(**{n: t.index_select(0, kk)[0]
+                             for n, t in self.mini.items()})
+        return (mini, *(t.index_select(0, kk)[0] for t in self.xs))
+
+    def window_head(self) -> None:
+        """Window k up to its repair, and the repair's start loaded into
+        the auction loop's state."""
+        window = self._window()
+        dev2, asg0, lvl0, domain_ok = _stream_window_head(
+            self.dev, self.dt, self.cost, self.carry, self.buffers, window,
+            **self.kw)
+        self.loop.load(dev2, asg0, lvl0, self.carry.floor, 1, self.alpha,
+                       self.max_rounds)
+        self.mid = (dev2, asg0, domain_ok, window[1])
+
+    def window_tail(self) -> None:
+        """Window k after its repair: the certificate, K7's commit (and
+        the restores), its log row and rounds into row k, k += 1."""
+        dev2, asg0, domain_ok, add_row = self.mid
+        solved = _certify(self.loop, dev2)
+        _stream_window_tail(dev2, asg0, solved, domain_ok, add_row,
+                            self.carry, change_cap=self.change_cap,
+                            log_row=self.log_row)
+        kk = self.k.long()
+        self.log.index_copy_(0, kk, self.log_row[None])
+        self.rounds.index_copy_(0, kk, solved[5].reshape(1))
+        self.k.add_(1)
+
+    def bodies(self) -> dict:
+        return {"window_head": self.window_head, **self.loop.bodies(),
+                "window_tail": self.window_tail}
+
+    def words(self) -> dict:
+        """The device words K14's steps read: the auction's flags (read
+        once the bodies have been captured) and loop state, the window
+        counter k and K."""
+        S = self.loop.S
+        return {"any_waiting": lambda: self.loop.any_waiting,
+                "any_now": lambda: self.loop.any_now,
+                "rounds": S.rounds, "max_rounds": S.max_rounds,
+                "done": S.done, "k": self.k, "K": self.K_word}
+
+    def capture(self) -> None:
+        """Capture the bodies and build the graph; then let go of every
+        reference to the table."""
+        self.graph = ControlGraph(self.device, STREAM, self.bodies(),
+                                  self.words(), label="the stream flush",
+                                  snapshot=True)
+        # the captured tensors stay referenced (the loop's attributes,
+        # ``mid``); the table does not
+        self.mid = (None, *self.mid[1:])
+        self.dev = dataclasses.replace(self.dev, c=None)
+        self.loop.dev = dataclasses.replace(self.loop.dev, c=None)
+
+    # ---- a flush ------------------------------------------------------
+
+    def stage(self, dev, dt, cost_dev, windows, asg, lvl, floor) -> None:
+        """Load one flush into the graph's buffers by copies on the
+        current stream (no host read): one ``_foreach_copy_`` a dtype."""
+        cr = self.carry
+        pairs = [(self.dev.dgen, dev.dgen), (self.dt.arc_m2s, dt.arc_m2s),
+                 (self.dt.arc_r2m, dt.arc_r2m),
+                 (self.dt.rack_of, dt.rack_of), (self.cost, cost_dev),
+                 (self.dev.cmax, dev.cmax),
+                 (cr.u, dev.u), (cr.w, dev.w), (cr.valid, dev.task_valid),
+                 (cr.s, dev.s), (cr.asg, asg), (cr.lvl, lvl),
+                 (cr.floor, floor)]
+        for i, (mini, *xs) in enumerate(windows):
+            pairs += [(t[i], getattr(mini, n)) for n, t in self.mini.items()]
+            pairs += [(t[i], x) for t, x in zip(self.xs, xs)]
+        by_dtype: dict = {}
+        for dst, src in pairs:
+            by_dtype.setdefault(dst.dtype, ([], []))
+            by_dtype[dst.dtype][0].append(dst)
+            by_dtype[dst.dtype][1].append(src)
+        for dsts, srcs in by_dtype.values():
+            torch._foreach_copy_(dsts, srcs)
+        self.scale.fill_(dev.scale)
+        cr.live.fill_(1)
+        self.k.zero_()
+
+    def run(self, dev, dt, cost_dev, windows, asg, lvl, floor):
+        """One flush (the lock held): on the current stream, after the
+        previous flush's outputs have been copied out, stage this one,
+        launch the graph once and copy its outputs out. Returns
+        ``_stream_chain``'s (carry, log, rounds)."""
+        stream = None
+        if self.free is not None:
+            # the card (on the CPU only the tests interpret the graph)
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self.free)
+        self.stage(dev, dt, cost_dev, windows, asg, lvl, floor)
+        self.graph.launch()
+        cr = self.carry
+        carry = tuple(x.clone() for x in (cr.u, cr.w, cr.s, cr.valid,
+                                          cr.asg, cr.lvl, cr.floor, cr.live))
+        log, rounds = self.log.clone(), self.rounds.clone()
+        if stream is not None:
+            self.free.record(stream)
+        return (dev.c, *carry), log, list(rounds)
+
+    def runs(self) -> tuple[int, int]:
+        """(windows, flushes) the last launch ran: the tally its last
+        node copied to pinned host memory less the one its first node
+        did (``snapshot``). Call it after the flush's fetch; a flush
+        abandoned before then leaves no trace in the next one's."""
+        end, start = self.graph._host_view, self.graph._start_view
+        return tuple(int(end[t]) - int(start[t])
+                     for t in (T_WINDOWS, T_FLUSHES))
+
+    def close(self) -> None:
+        if self.graph is not None:
+            self.graph.close()
+
+
+def _stream_graph_run(dev, dt, cost_dev, windows, asg, lvl, floor,
+                      stats, **kw):
+    """``_stream_chain``'s graph route: one launch of the flush's graph,
+    the cached one of its key or a new capture (built, captured; a
+    failure raises). ``asg``/``lvl``/``floor`` and ``dev``'s vectors are
+    read, not written (the graph works on its own copies)."""
+    key = stream_graph_key(dev, cost_dev, windows, **kw)
+
+    def make() -> _StreamGraph:
+        with on_device(key[0]):
+            e = _StreamGraph(dev, dt, cost_dev, windows, asg, lvl, floor,
+                             **kw)
+            e.capture()
+        return e
+
+    Tp, Mp = dev.c.shape
+    entry, ms = _stream_graphs.get(key, make, (
+        Tp, Mp, len(windows), kw["kmax"], kw["pk"],
+        int(windows[0][4].shape[-1]), key[5][0]))
+    try:
+        with on_device(entry.device):
+            out = entry.run(dev, dt, cost_dev, windows, asg, lvl, floor)
+    finally:
+        entry.lock.release()
+    if stats is not None:
+        stats.update(entry=entry, capture_ms=ms)
+    return out
 
 
 class _AsyncFetch:
@@ -1050,6 +1423,10 @@ class _InflightStream:
     fetches: SyncCounter = dataclasses.field(default_factory=SyncCounter)
     timings: dict = dataclasses.field(default_factory=dict)
     t_dispatch: float = 0.0
+    # the graph route's numbers (``_stream_chain``'s ``graph_stats``):
+    # capture_ms, windows_run and launches (the graph's tally); empty on
+    # the host loop
+    graph: dict = dataclasses.field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
@@ -1230,10 +1607,12 @@ class ResidentSolver:
         self._stream_pending: list[_StreamWindow] = []
         self._stream_inflight: _InflightStream | None = None
         # lifetime stream fetches (one per flush), the window count the
-        # last flush carried, and the last flush's result fetches (1)
+        # last flush carried, the last flush's result fetches (1) and,
+        # on the card, its graph's numbers (``_InflightStream.graph``)
         self.stream_fetches = 0
         self.last_stream_windows = 0
         self.last_stream_fetches = 0
+        self.last_stream_graph: dict = {}
         # flushed-but-unjoined stream batches a full round abandoned
         # (the daemon drains streams before every tick: nonzero means a
         # driver bug worth surfacing)
@@ -2447,6 +2826,7 @@ class ResidentSolver:
         fetches = inflight.fetches
         dev_windows = [w.dev for w in windows]
         change_cap = self.express_change_cap
+        graph = inflight.graph
 
         def run():
             with on_device(self.device):
@@ -2456,12 +2836,16 @@ class ResidentSolver:
                     model_fn=ctx.model_fn, kmax=kmax, pk=pk,
                     alpha=self.alpha, max_rounds=EXPRESS_FUSE,
                     smax=ctx.smax, change_cap=change_cap,
-                    syncs=loop_syncs,
+                    syncs=loop_syncs, graph_stats=graph,
                 )
                 # the batch's ONE result fetch: K masked window logs,
                 # each with its repair's rounds in a last column
                 got = fetches.read(torch.cat(
                     [log, torch.stack(rounds).to(I64)[:, None]], dim=1))
+                if "entry" in graph:
+                    # the graph's tally, in pinned host memory by now
+                    graph["windows_run"], graph["launches"] = \
+                        graph.pop("entry").runs()
                 return (got[:, :-1], got[:, -1], carry,
                         time.perf_counter())
 
@@ -2504,6 +2888,7 @@ class ResidentSolver:
                 windows=real, fetches=1, timings=inf.timings,
             )
         self.last_stream_fetches = inf.fetches.count
+        self.last_stream_graph = dict(inf.graph)
         timings = dict(inf.timings)
         timings["solve_ms"] = (t_done - inf.t_dispatch) * 1000
         if self._express is not ctx:

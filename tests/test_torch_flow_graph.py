@@ -138,13 +138,20 @@ def test_ssp_equals_reference(name, max_paths):
 
 def interpret(spec, bodies, tensors, tally, goes=None):
     """Run a graph description eagerly: bodies in order, K14's steps by
-    its twin (``loop_step_plain``), IF and WHILE nodes on the values the
-    steps, and the bodies whose kernels set handles, gave their handles.
-    ``goes`` receives each step's (step, go)."""
+    its twins (``loop_step_plain``; the auction's modes by
+    ``loop_ctl_plain``), IF and WHILE nodes on the values the steps, and
+    the bodies whose kernels set handles, gave their handles. A tensor
+    may be given as a callable, read at each step (as the graph reads
+    its flags once the bodies are captured). ``goes`` receives each LOOP
+    step's (step, go)."""
     handles = {}
+    codes = torch.zeros(4, dtype=torch.int32)
 
     def word(name):
-        return None if name is None else tensors[name]
+        if name is None:
+            return None
+        t = tensors[name]
+        return t() if callable(t) else t
 
     def run(seq):
         for item in seq.items:
@@ -154,6 +161,12 @@ def interpret(spec, bodies, tensors, tally, goes=None):
                 bodies[item.name]()
                 for h, w in item.sets:
                     handles[h] = int(tensors[w])
+            elif isinstance(item, Step) and item.mode != k14.LOOP:
+                vals = k14.loop_ctl_plain(
+                    item.mode, word(item.flag), word("rounds"),
+                    word("max_rounds"), word("done"), codes, tally)
+                for h, v in zip(item.sets, vals):
+                    handles[h] = int(v)
             elif isinstance(item, Step):
                 go = int(k14.loop_step_plain(
                     [(word(a), word(b)) for a, b in item.terms], tally,

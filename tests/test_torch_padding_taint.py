@@ -129,7 +129,8 @@ class TestProduction:
             "stale kernel_mask_contracts entry"]
 
 
-# the arrival-lane masks of _express_step's domain guard
+# the arrival-lane masks of _express_step's domain guard (in its head,
+# _express_head, which the stream lane's window shares)
 _MASKED_U = "torch.where(arr_valid, u_u, 0).min(),"
 _MASKED_W = "torch.where(arr_valid, w_u, 0).min(),"
 
@@ -141,7 +142,7 @@ def _express_step_folds(module) -> list:
     rec, _ = optrace_check.record("express_step", module._express_step,
                                   args, kwargs, taint=True)
     return sorted((op, line) for op, fn, _p, line in rec.candidates
-                  if fn == "_express_step")
+                  if fn in ("_express_step", "_express_head"))
 
 
 class TestExpressAcceptance:
