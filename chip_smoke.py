@@ -1413,10 +1413,12 @@ def seat_sort_edges(torch) -> None:
 
 
 def edges_phase(torch) -> None:
-    """K12 and K13 against their twins at their designs' edges (the
-    older kernels' batteries run inside [kernels])."""
+    """K12 and K13 against their twins at their designs' edges, and the
+    batched K9 and K10 ``out`` on K9's edge graphs (the older kernels'
+    batteries run inside [kernels])."""
     top_will_edges(torch)
     seat_sort_edges(torch)
+    batch_edges(torch)
 
 
 
@@ -2334,6 +2336,75 @@ def profile_round(torch, solver, cluster):
            else "not found"))
 
 
+# the flagship cold round's wall while the clearing still sorted by the
+# library (``torch.sort``/``argsort``), on an H100 80GB HBM3 at 700 W:
+# printed beside the cold round's wall now that it sorts by K13
+COLD_WALL_LIBRARY_SORTS_MS = 61.496
+CLEARING_SHAPES = (1024, 10240)  # the flagship's Mp and Tp
+
+
+def clearing_sort_times(torch, timer) -> None:
+    """The clearing's three kinds of sort at the flagship's shapes (int32
+    keys drawn over its domains), each timed cold as K13 and as the
+    library call it replaced: the machines by (d_eff, machine) (Mp
+    keys), the willingness alone and the tasks by (-y, task) (Tp keys);
+    then the two stable argsorts past the split (K13's tiles): the tasks
+    at config 8's Tp 524,288 and the residual CSR's tails at the
+    flagship's 2F 145,410 (NN 12,290). Each equal to the library's
+    sort."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels.seat_sort import (
+        INT32, seat_order, seat_sort,
+    )
+
+    rng = np.random.default_rng(3)
+    Mp, Tp = CLEARING_SHAPES
+    dev = torch.device(DEVICE)
+    d_eff = torch.as_tensor(rng.integers(0, 2**29, Mp).astype(np.int32),
+                            device=dev)
+    y = torch.as_tensor(rng.integers(-2**29, 2**29, Tp).astype(np.int32),
+                        device=dev)
+    rows = []
+    for label, k13, lib in (
+            ("machines (d_eff, machine)", lambda: seat_order(d_eff, INT32),
+             lambda: torch.sort(d_eff, stable=True)),
+            ("willingness", lambda: seat_sort((y,), (INT32,)),
+             lambda: torch.sort(y)),
+            ("tasks (-y, task)", lambda: seat_order(-y, INT32),
+             lambda: torch.sort(-y, stable=True))):
+        want = lib()
+        got = k13()
+        if not torch.equal(got[0], want.values) or (
+                len(got) > 1 and not torch.equal(got[1].long(), want.indices)):
+            raise AssertionError(f"[main] clearing sort {label}: K13 != "
+                                 f"the library sort")
+        rows.append((label, timer(k13), timer(lib)))
+    log("[main] the clearing's sorts at Mp 1,024 / Tp 10,240, cold: " + "; ".join(
+        f"{label} K13 ms={a:.6f} library ms={b:.6f}" for label, a, b in rows)
+        + f"; a cold round's four: K13 ms="
+        f"{rows[0][1] + 2 * rows[1][1] + rows[2][1]:.6f} library ms="
+        f"{rows[0][2] + 2 * rows[1][2] + rows[2][2]:.6f}")
+    wide = []
+    for label, key, span in (
+            ("config 8 tasks (-y, task), Tp 524,288",
+             torch.as_tensor(rng.integers(-2**29, 2**29, 524288)
+                             .astype(np.int32), device=dev), INT32),
+            ("flagship CSR tails, 2F 145,410",
+             torch.as_tensor(np.sort(rng.integers(0, 12290, 145410))[
+                 rng.permutation(145410)].astype(np.int32), device=dev),
+             (0, 12289))):
+        got = seat_order(key, span)
+        want = torch.sort(key, stable=True)
+        if not (torch.equal(got[0], want.values)
+                and torch.equal(got[1].long(), want.indices)):
+            raise AssertionError(f"[main] {label}: K13 != the library sort")
+        wide.append((label, timer(lambda: seat_order(key, span)),
+                     timer(lambda: torch.sort(key, stable=True))))
+    log("[main] stable argsorts by K13's tiles, cold: " + "; ".join(
+        f"{label} K13 ms={a:.6f} library ms={b:.6f}" for label, a, b in wide))
+
+
 def main_path_phase(torch):
     """The flagship resident round on the card: cold + 3 churned warm."""
     from poseidon_tpu_torch import kernels
@@ -2380,6 +2451,11 @@ def main_path_phase(torch):
             f"{sum(caps):.3f} "
             f"fetches={fetches} cost={out.cost} oracle_cost={want} "
             f"oracle_ms={oracle_ms:.1f} launches={launched}")
+        if r == 0:
+            log(f"[main] the cold round's wall_ms={wall:.3f}, with the "
+                f"clearing's sorts by K13; by the library sorts "
+                f"{COLD_WALL_LIBRARY_SORTS_MS:.3f} (an H100 80GB HBM3 at "
+                f"700 W)")
         if out.backend != "dense_auction" or not out.converged:
             raise AssertionError(f"round {r}: backend {out.backend}")
         if out.cost != want:
@@ -2392,6 +2468,7 @@ def main_path_phase(torch):
         idle = [n for n in ROUND_KERNELS if launched[n] == 0]
         if idle:
             raise AssertionError(f"round {r}: kernels not launched: {idle}")
+    clearing_sort_times(torch, Timer(torch))
     return launches
 
 
@@ -4922,6 +4999,9 @@ FLAGSHIP_CS = (771192, 2592, 13)
 # the flagship's launches of K9 and K10 (out) in a cost-scaling solve and
 # of K10 (in) and K11 in an SSP solve, as the host loop has run them
 FLAGSHIP_CS_LAUNCHES = (2592, 1928)
+# the flagship cost-scaling graph's solve ms before K9 and K10 took a
+# batch axis (an H100 80GB HBM3 at 700 W): printed beside this run's
+FLAGSHIP_CS_SOLVE_MS_BEFORE = (50.441, 50.633)
 FLAGSHIP_SSP_LAUNCHES = (83642, 10001)
 GENERAL_FUSE = 100               # a blown cost-scaling fuse at 200 x 2,000
 PROFILE_PATHS = 100              # SSP's paths under torch.profiler
@@ -5478,8 +5558,8 @@ def profile_general_graphs(torch, net) -> None:
             wall_us = (time.perf_counter() - t0) * 1e6
         (cap,) = module.CAPTURES.since(n0)
         log(f"[profile] {label}: loop_reads={res.loop_syncs} "
-            f"fetches={res.fetches} capture_ms={cap[2]:.3f} "
-            f"solve_ms={cap[3]:.3f} (profiled) launches: " + " ".join(
+            f"fetches={res.fetches} capture_ms={cap[-2]:.3f} "
+            f"solve_ms={cap[-1]:.3f} (profiled) launches: " + " ".join(
                 f"{k.name}={k.launches}" for k in kernels.KERNELS
                 if k.name in GENERAL_KERNELS + ("loop_ctl",)))
         profile_symbols(prof, wall_us, label, (*symbols, "loop_ctl_kernel"))
@@ -5893,8 +5973,8 @@ def general_phase(torch, card: str) -> dict:
         same = fields(res) == fields(host)
         same_counts = all(counts[k] == host_counts[k]
                           for k in GENERAL_KERNELS)
-        log(f"[general] {label}: graph capture_ms={cap[2]:.3f} solve_ms="
-            f"{cap[3]:.3f} wall_ms={ms:.3f} loop_syncs={res.loop_syncs} "
+        log(f"[general] {label}: graph capture_ms={cap[-2]:.3f} solve_ms="
+            f"{cap[-1]:.3f} wall_ms={ms:.3f} loop_syncs={res.loop_syncs} "
             f"fetches={res.fetches} | host loop wall_ms={host_ms:.3f} "
             f"loop_syncs={host.loop_syncs} | bit-identical={same} "
             f"launches equal={same_counts}")
@@ -5963,6 +6043,13 @@ def general_phase(torch, card: str) -> dict:
     log(f"[general] cost-scaling flagship (N {flag.num_node_slots}, E "
         f"{flag.num_arc_slots}): cost={cost} oracle={want} "
         f"oracle_ms={oracle_ms:.1f} {cs_line(res)}")
+    (cap,) = cost_scaling.CAPTURES.since(cost_scaling.CAPTURES.total - 1)
+    lo, hi = FLAGSHIP_CS_SOLVE_MS_BEFORE
+    log(f"[general] cost-scaling flagship graph: solve_ms={cap[-1]:.3f}, "
+        f"K9/K10 launches {cs_counts['cs_sweep']}/{cs_counts['bf_relax']}; "
+        f"before the batch axis {lo:.3f}-{hi:.3f} ms, K9/K10 "
+        f"{FLAGSHIP_CS_LAUNCHES[0]}/{FLAGSHIP_CS_LAUNCHES[1]}; within 10 %: "
+        f"{0.9 * lo <= cap[-1] <= 1.1 * hi} | {card}")
     if (cost, res.sweeps, res.phases) != FLAGSHIP_CS or cost != want:
         raise AssertionError(f"[general] flagship: cost/sweeps/phases "
                              f"{(cost, res.sweeps, res.phases)}, want "
@@ -6046,6 +6133,413 @@ def general_phase(torch, card: str) -> dict:
     return {"cs_sweep": cs_counts["cs_sweep"],
             "bf_relax": cs_counts["bf_relax"],
             "ssp_augment": ssp_counts["ssp_augment"]}
+
+
+# ---- [csbatch]: the vmapped cost-scaling solve as one batched graph -----
+
+CSBATCH_B = 64                   # BASELINE config 5's what-if batch
+CSBATCH_SEED = 7                 # the cost draws' seed
+CSBATCH_ORACLE = (0, 21, 42, 63)  # elements held against the C++ oracle
+CSBATCH_SMALL = (200, 2000, 8)   # machines, pods, B of the card == CPU case
+BATCH_EDGE_B = (1, 2, 64, 65)
+BATCH_EDGE_MASKS = ("none", "one", "all")
+
+
+def whatif_costs(net, B: int, seed: int = CSBATCH_SEED):
+    """B cost vectors over ``net``'s topology (int32[B, E]): each real
+    arc's cost plus a draw in [0, cost // 10] (about 10 %, the what-if's
+    magnitude), one generator for the batch; the padding slots 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(net.n_arcs)
+    base = np.asarray(net.cost, np.int64)[:n]
+    hi = np.maximum(base, 0) // 10 + 1
+    costs = np.zeros((B, net.num_arc_slots), np.int32)
+    for b in range(B):
+        costs[b, :n] = base + rng.integers(0, hi)
+    return costs
+
+
+def batch_state(torch, tabs, B: int, seed: int):
+    """B elements over one edge graph's CSR: each element's costs, flow,
+    excess and price drawn around the graph's own (costs of both signs,
+    excesses from -6 to 8, prices to +-900) and an eps of its own from 1,
+    3, 64 and 2^40."""
+    import numpy as np
+
+    from poseidon_tpu_torch.ops.cost_scaling import residual_csr
+
+    fsrc, fdst, fcap, fcost, flow_h, excess_h, price_h = tabs
+    NN, F = len(excess_h), len(fsrc)
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    g = residual_csr(fsrc, fdst, fcap, np.concatenate([fcost, -fcost]), NN,
+                     dev)
+    cost = np.stack([fcost + rng.integers(-50, 50, F) * (b > 0)
+                     for b in range(B)])
+    rcost = np.concatenate([cost, -cost], axis=1)[:, g.arc.cpu().long()]
+    flow = np.stack([flow_h if b == 0 else
+                     (rng.random(F) * (fcap + 1)).astype(np.int32)
+                     .clip(0, fcap) for b in range(B)])
+    excess = np.stack([excess_h if b == 0 else
+                       rng.integers(-6, 9, NN).astype(np.int32)
+                       for b in range(B)])
+    price = np.stack([price_h if b == 0 else
+                      rng.integers(-900, 900, NN).astype(np.int64)
+                      for b in range(B)])
+    eps = np.array([(1, 3, 64, 2**40)[b % 4] for b in range(B)], np.int64)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+
+    return g, t(rcost), t(flow), t(excess), t(price), t(eps)
+
+
+def batch_mask(torch, kind: str, B: int, rng):
+    """int32[B]: no element, one element or every element running."""
+    import numpy as np
+
+    m = np.zeros(B, np.int32)
+    if kind == "all":
+        m[:] = 1
+    elif kind == "one":
+        m[int(rng.integers(0, B))] = 1
+    return torch.as_tensor(m, device=torch.device(DEVICE))
+
+
+def batch_edges(torch) -> None:
+    """The batched K9 and K10 ``out`` against their twins on the card,
+    tolerance 0: B = 1, 2, 64 and 65 elements, each with its own costs,
+    flow, excess, price and eps (1, 3, 64, 2^40 in turn), masks with no
+    element, one element and every element running, on each of K9's
+    edge graphs (``general_edge_graphs``: segments of degree 0, 1, the
+    chunk and a cluster's reach +- 1, hubs, heavy nodes only). A masked
+    element must come out as it went in (its excess and price copied,
+    its flow untouched; its distances copied, no change reported)."""
+    import dataclasses
+
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels import bf_relax as k10
+    from poseidon_tpu_torch.kernels import cs_sweep as k9
+    from poseidon_tpu_torch.ops.cost_scaling import arc_lengths
+
+    bad, n = [], 0
+    rng = np.random.default_rng(11)
+    graphs = [(name, tabs) for name, tabs, kind in general_edge_graphs()
+              if kind is None]
+    for gi, (name, tabs) in enumerate(graphs):
+        for B in BATCH_EDGE_B:
+            g, cost, flow0, excess, price, eps = batch_state(
+                torch, tabs, B, 100 * gi + B)
+            NN = excess.shape[1]
+            ln = torch.stack([arc_lengths(
+                dataclasses.replace(g, cost=cost[b]), flow0[b], price[b],
+                int(eps[b])) for b in range(B)])
+            d0 = torch.where(excess < 0, 0, k10.INF_K).to(torch.int64)
+            for mk in BATCH_EDGE_MASKS:
+                mask = batch_mask(torch, mk, B, rng)
+                outs = []
+                for fn in (lambda *a: k9.cs_sweep_batch(*a, g.plan),
+                           k9.cs_sweep_batch_plain):
+                    fl = flow0.clone()
+                    e_o = torch.full_like(excess, -77)
+                    p_o = torch.full_like(price, -77)
+                    fn(g.seg, g.arc, g.head, cost, g.fcap, fl, excess, price,
+                       eps, e_o, p_o, mask)
+                    outs.append([fl, e_o, p_o])
+                held = mask == 0
+                kept = (torch.equal(outs[0][0][held], flow0[held])
+                        and torch.equal(outs[0][1][held], excess[held])
+                        and torch.equal(outs[0][2][held], price[held]))
+                err = max_abs_err(outs[0], outs[1])
+                n += 1
+                if err or not kept:
+                    bad.append(("cs_sweep", name, B, mk, err, kept))
+                outs = []
+                for fn in (lambda *a: k10.bf_relax_out_batch(*a, g.plan),
+                           k10.bf_relax_out_batch_plain):
+                    d_o = torch.full_like(d0, -77)
+                    c_o = torch.full((B,), 7, dtype=torch.int32,
+                                     device=d0.device)
+                    fn(g.seg, g.head, ln, d0, d_o, c_o, mask)
+                    outs.append([d_o, c_o])
+                kept = (torch.equal(outs[0][0][held], d0[held])
+                        and not bool(outs[0][1][held].any()))
+                err = max_abs_err(outs[0], outs[1])
+                n += 1
+                if err or not kept:
+                    bad.append(("bf_relax_out", name, B, mk, err, kept))
+    log(f"[edges] batched cs_sweep and bf_relax out (B {BATCH_EDGE_B}, "
+        f"masks {BATCH_EDGE_MASKS}, eps per element, {len(graphs)} edge "
+        f"graphs): {n} cases, {len(bad)} differ or move a masked element")
+    if bad:
+        raise AssertionError(f"[edges] batched K9/K10 != twins: {bad[:8]}")
+
+
+def batch_kernel_records(torch, timer, net, costs) -> None:
+    """The batched K9 and K10 ``out`` at the what-if batch's shapes, on
+    the state of its first refine burst (every element after its first
+    saturation and global-update inputs): each against its twin
+    (tolerance 0, also with half the elements masked) and timed cold
+    (``Timer``: L2 flushed), beside its bound: the shared CSR read once,
+    each element's rows once (K9: excess and price in and out, and its
+    active nodes' segments; K10: ln, d in and out at every arc and
+    node), at 3.35 TB/s."""
+    from poseidon_tpu_torch.kernels import bf_relax as k10
+    from poseidon_tpu_torch.kernels import cs_sweep as k9
+    from poseidon_tpu_torch.ops import cost_scaling as cs
+
+    dev = torch.device(DEVICE)
+    s = cs._BatchSolve(net, costs, dev, 8, 10**9, 16)
+    s.enter()
+    s.bf_init()
+    g, B, NN, F = s.g, s.B, s.NN, s.F
+    deg = (g.seg[1:] - g.seg[:-1]).long()
+    act_arcs = int((deg[None, :] * (s.excess > 0)).sum())
+    half = torch.zeros(B, dtype=torch.int32, device=dev)
+    half[::2] = 1
+    errs = []
+    for mask in (s.go_r, half):
+        outs = []
+        for fn in (lambda *a: k9.cs_sweep_batch(*a, g.plan),
+                   k9.cs_sweep_batch_plain):
+            fl = s.flow.clone()
+            e_o, p_o = torch.empty_like(s.excess), torch.empty_like(s.price)
+            fn(g.seg, g.arc, g.head, s.cost, g.fcap, fl, s.excess, s.price,
+               s.eps, e_o, p_o, mask)
+            outs.append([fl, e_o, p_o])
+        errs.append(max_abs_err(outs[0], outs[1]))
+        outs = []
+        for fn in (lambda *a: k10.bf_relax_out_batch(*a, g.plan),
+                   k10.bf_relax_out_batch_plain):
+            d_o = torch.empty_like(s.d)
+            c_o = torch.zeros(B, dtype=torch.int32, device=dev)
+            fn(g.seg, g.head, s.ln, s.d, d_o, c_o, mask)
+            outs.append([d_o, c_o])
+        errs.append(max_abs_err(outs[0], outs[1]))
+    fl = s.flow.clone()
+    e2, p2 = torch.empty_like(s.excess), torch.empty_like(s.price)
+    d2 = torch.empty_like(s.d)
+    ch = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def k9_call(fn):
+        return lambda: fn(g.seg, g.arc, g.head, s.cost, g.fcap, fl, s.excess,
+                          s.price, s.eps, e2, p2, s.go_r)
+
+    def k10_call(fn):
+        return lambda: fn(g.seg, g.head, s.ln, s.d, d2, ch, s.go_r)
+
+    k9_ms = timer(k9_call(lambda *a: k9.cs_sweep_batch(*a, g.plan)))
+    k9_plain = timer(k9_call(k9.cs_sweep_batch_plain), repeats=5)
+    k10_ms = timer(k10_call(lambda *a: k10.bf_relax_out_batch(*a, g.plan)))
+    k10_plain = timer(k10_call(k10.bf_relax_out_batch_plain), repeats=5)
+    R = 2 * F
+    k9_b = 4 * (NN + 1) + 24 * act_arcs + B * 24 * NN
+    k10_b = 4 * (NN + 1) + 4 * R + B * (8 * R + 16 * NN + 4)
+    k9_bound = bound_ms(k9_b, 12 * act_arcs)
+    k10_bound = bound_ms(k10_b, 4 * R * B)
+    log(f"[csbatch] batched kernels at B={B} (NN {NN}, 2F {R}), the first "
+        f"refine burst's state: max_abs_err {errs} (all running, half "
+        f"masked; tolerance 0)")
+    log(f"[csbatch] batched cs_sweep: {act_arcs} active arcs over the "
+        f"batch, cold ms={k9_ms:.6f} plain_ms={k9_plain:.6f} bound_ms="
+        f"{k9_bound[0]:.6f} ({k9_bound[1]}); batched bf_relax out: cold "
+        f"ms={k10_ms:.6f} plain_ms={k10_plain:.6f} bound_ms="
+        f"{k10_bound[0]:.6f} ({k10_bound[1]})")
+    if any(errs):
+        raise AssertionError(f"[csbatch] batched K9/K10 != twins: {errs}")
+
+
+def cpu_batch_solve(job):
+    """A child process's CPU solve of one batch (``csbatch_phase``): the
+    port's twins under the host loop, on two intra-op threads (the card's
+    process keeps the other cores). Returns (the fields compared, the
+    loop reads, seconds)."""
+    import torch
+
+    from poseidon_tpu_torch.ops import cost_scaling as cs
+
+    net, costs = job
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    r = cs.solve_cost_scaling_batch(net, costs, device="cpu")
+    return batch_fields(r), r.loop_syncs, time.perf_counter() - t0
+
+
+def batch_fields(r) -> tuple:
+    """A batch result's compared fields, as bytes."""
+    return (r.flows.tobytes(), r.routed.tobytes(), r.sweeps.tobytes(),
+            r.phases.tobytes(), r.converged.tobytes())
+
+
+def csbatch_phase(torch, card: str) -> dict:
+    """The reference's ``_solve`` under ``jax.vmap`` over cost vectors
+    (BASELINE config 5's what-if over the general lane): the quincy-
+    priced config 5 graph (1,000 machines x 4,000 pods) under 64 cost
+    vectors (``whatif_costs``) as ``solve_cost_scaling_batch`` on the
+    card. The batch must be one graph launch with no loop read and one
+    fetch; every element must equal the port's single graph solve of its
+    cost vector on the card, bit for bit; the whole batch must equal the
+    host loop (``_host_loop=True``) on the card; 4 elements must reach
+    the C++ oracle's cost; and an 8-element batch at 200 x 2,000 must
+    equal the CPU twins (solved in a child process while the card
+    works).
+    Prints capture and solve ms beside the 64 single solves' sum, the
+    batched K9/K10 launches (zeroed just before the batch, read just
+    after) and their us as called (torch.profiler over the host loop's
+    batch; the graph's own profile gives its busy share). Returns the
+    batch's launch counts."""
+    import multiprocessing
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from poseidon_tpu_torch import kernels
+    from poseidon_tpu_torch.ops import cost_scaling as cs
+    from poseidon_tpu_torch.oracle import solve_oracle
+    from poseidon_tpu_torch.synth import (
+        config5_whatif, make_synthetic_cluster,
+    )
+
+    dev = torch.device(DEVICE)
+    log(f"[csbatch] card: {card}")
+    m, p, b_small = CSBATCH_SMALL
+    small, _ = priced_net(torch, make_synthetic_cluster(m, p, seed=0), dev)
+    small_costs = whatif_costs(small, b_small)
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    cpu_job = pool.apply_async(cpu_batch_solve, ((small, small_costs),))
+
+    def fields(r, b=None):
+        return batch_fields(r) if b is None else cs_fields(r[b])
+
+    net, _ = priced_net(torch, config5_whatif(seed=0), dev)
+    costs = whatif_costs(net, CSBATCH_B)
+    n0 = cs.CAPTURES.total
+    sync(torch)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cs.solve_cost_scaling_batch(net, costs, device=DEVICE)
+    sync(torch)
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    caps = cs.CAPTURES.since(n0)
+    log(f"[csbatch] config 5 (N {net.num_node_slots}, E {net.num_arc_slots}) "
+        f"x B={CSBATCH_B}: graph launches={len(caps)} capture_ms="
+        f"{caps[0][-2] if caps else -1:.3f} solve_ms="
+        f"{caps[0][-1] if caps else -1:.3f} wall_ms={wall:.3f} "
+        f"loop_syncs={res.loop_syncs} fetches={res.fetches}; sweeps "
+        f"{int(res.sweeps.min())}-{int(res.sweeps.max())} phases "
+        f"{int(res.phases.min())}-{int(res.phases.max())} converged "
+        f"{int(res.converged.sum())}/{CSBATCH_B} routed==wanted "
+        f"{int(res.feasible.sum())}/{CSBATCH_B}; launches cs_sweep="
+        f"{counts['cs_sweep']} bf_relax={counts['bf_relax']} loop_ctl="
+        f"{counts['loop_ctl']}")
+    if len(caps) != 1 or caps[0][2] != CSBATCH_B or res.loop_syncs != 0 \
+            or res.fetches != 1:
+        raise AssertionError(f"[csbatch] {len(caps)} graphs, "
+                             f"{res.loop_syncs} loop reads, {res.fetches} "
+                             f"fetches; want 1 graph of B={CSBATCH_B}, 0, 1")
+    if not (res.converged.all() and res.feasible.all()):
+        raise AssertionError("[csbatch] an element did not converge")
+    if not (counts["cs_sweep"] and counts["bf_relax"]):
+        raise AssertionError(f"[csbatch] batched kernels not launched: "
+                             f"{counts}")
+
+    # every element against its own single graph solve on the card
+    single_cap = single_solve = single_wall = 0.0
+    single = {"cs_sweep": 0, "bf_relax": 0}
+    differ = []
+    for b in range(CSBATCH_B):
+        n1 = cs.CAPTURES.total
+        sync(torch)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = cs.solve_cost_scaling(net.with_costs(costs[b]), device=DEVICE)
+        sync(torch)
+        single_wall += (time.perf_counter() - t0) * 1e3
+        for k in kernels.KERNELS:
+            if k.name in single:
+                single[k.name] += k.launches
+        (cap,) = cs.CAPTURES.since(n1)
+        single_cap += cap[-2]
+        single_solve += cap[-1]
+        if cs_fields(r) != fields(res, b):
+            differ.append(b)
+    log(f"[csbatch] {CSBATCH_B} single graph solves: capture_ms sum="
+        f"{single_cap:.3f} solve_ms sum={single_solve:.3f} wall_ms sum="
+        f"{single_wall:.3f} launches cs_sweep={single['cs_sweep']} "
+        f"bf_relax={single['bf_relax']} | the batch: capture_ms="
+        f"{caps[0][-2]:.3f} solve_ms={caps[0][-1]:.3f} wall_ms={wall:.3f} "
+        f"| elements != their single solve: {differ}")
+    if differ:
+        raise AssertionError(f"[csbatch] elements {differ} != single solves")
+
+    # the whole batch against the host loop on the same card inputs, under
+    # torch.profiler: outside a graph it sees every launch, so it gives
+    # the batched K9's and K10's us as the solve calls them
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        host = cs.solve_cost_scaling_batch(net, costs, device=DEVICE,
+                                           _host_loop=True)
+        sync(torch)
+        host_us = (time.perf_counter() - t0) * 1e6
+    same = fields(host) == fields(res)
+    log(f"[csbatch] host loop on the card (profiled): wall_ms="
+        f"{host_us / 1e3:.3f} loop_syncs={host.loop_syncs} fetches="
+        f"{host.fetches} | graph == host loop: {same}")
+    profile_symbols(prof, host_us, f"batch of {CSBATCH_B} (host loop)",
+                    ("cs_sweep_kernel", "bf_out_kernel"))
+    if not same:
+        raise AssertionError("[csbatch] the batch's graph != its host loop")
+
+    # four elements against the C++ oracle
+    for b in CSBATCH_ORACLE:
+        net_b = net.with_costs(costs[b])
+        want = solve_oracle(net_b, algorithm="cost_scaling").cost
+        got = cs.solution_cost(net_b, res[b])
+        log(f"[csbatch] element {b}: cost={got} oracle={want} "
+            f"sweeps={int(res.sweeps[b])} phases={int(res.phases[b])}")
+        if got != want:
+            raise AssertionError(f"[csbatch] element {b}: cost {got} != "
+                                 f"oracle {want}")
+
+    # the batch's graph under the profiler: its busy and idle share (the
+    # profiler sees a conditional body's kernels only in part)
+    sync(torch)
+    n2 = cs.CAPTURES.total
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = cs.solve_cost_scaling_batch(net, costs, device=DEVICE)
+        sync(torch)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    (cap,) = cs.CAPTURES.since(n2)
+    log(f"[csbatch] profiled batch: capture_ms={cap[-2]:.3f} solve_ms="
+        f"{cap[-1]:.3f} == the first: {fields(again) == fields(res)}")
+    profile_symbols(prof, wall_us, f"batch of {CSBATCH_B} (graph)", ())
+    if fields(again) != fields(res):
+        raise AssertionError("[csbatch] a second batch solve differs")
+    batch_kernel_records(torch, Timer(torch), net, costs)
+
+    # the 8-element batch at 200 x 2,000: the card against the CPU twins
+    card_small = cs.solve_cost_scaling_batch(small, small_costs,
+                                             device=DEVICE)
+    t0 = time.perf_counter()
+    cpu_fields, cpu_reads, cpu_s = cpu_job.get()
+    waited = time.perf_counter() - t0
+    pool.close()
+    pool.join()
+    same = fields(card_small) == cpu_fields
+    log(f"[csbatch] {m} x {p} x B={b_small}: sweeps "
+        f"{card_small.sweeps.tolist()} phases {card_small.phases.tolist()} "
+        f"| CPU twins (a child process, {cpu_s:.1f} s; waited for "
+        f"{waited:.1f} s) loop_syncs={cpu_reads} | card == CPU: {same}")
+    if not same:
+        raise AssertionError(f"[csbatch] {m} x {p}: card != CPU twins")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -7092,11 +7586,12 @@ def chaos_phase(torch, card: str) -> None:
 
 # ---- the contract checker on the card --------------------------------
 
-# the audited entries that run a cold solve, and the library sorts of its
-# clearing (``_theta_clearing``: two stable argsorts, two sorts), which
-# stay torch (ROADMAP Queue 2)
+# the audited entries that run a cold solve, and the sorts of its
+# clearing (``_theta_clearing``: the machines by (d_eff, machine), the
+# willingness in each of the two clearings, the tasks by (-y, task)), K13
+# calls outside the auction loop's seam; no entry makes a library sort
 COLD_ENTRIES = ("resident_chain", "solve_member")
-CLEARING_SORTS = {"aten.sort.stable": 2, "aten.sort.default": 2}
+CLEARING_SORTS = {"kernel.seat_sort": 4}
 SYNC_WARNING = "synchronizing CUDA operation"
 SYNC_ARRIVALS = 16               # the express phase's batch width
 SYNC_WINDOWS = 8                 # the stream phase's flush
@@ -7272,19 +7767,25 @@ def analysis_phase(torch, card: str) -> None:
         f"{len(found)} problems, {time.perf_counter() - t0:.2f} s")
     if found:
         raise AssertionError(f"[analysis] op census: {len(found)} problems")
-    # the auction loop makes no library top-k or sort on the card (K12,
-    # K13); a cold entry keeps only its clearing's sorts
+    # no entry makes a library top-k or sort on the card (K12, K13); a
+    # cold entry's clearing sorts by K13 outside the loop's seam
     for name, r in recs.items():
         lib = {k: v for k, v in r.census.items()
                if k.startswith(("aten.sort", "aten.argsort", "aten.topk"))}
+        outside = {k: v for k, v in r.card_census.items()
+                   if k == "kernel.seat_sort"}
         want = CLEARING_SORTS if name in COLD_ENTRIES else {}
         log(f"[analysis] census {name} (cuda): library sorts and top-k "
             f"{lib}, K12 {r.census.get('kernel.top_will', 0)}, K13 "
-            f"{r.census.get('kernel.seat_sort', 0)} sorts + "
+            f"{r.census.get('kernel.seat_sort', 0)} sorts "
+            f"({outside.get('kernel.seat_sort', 0)} outside the loop) + "
             f"{r.census.get('kernel.seat_compact', 0)} compactions")
-        if lib != want:
+        if lib:
             raise AssertionError(f"[analysis] {name}: library sorts/top-k "
-                                 f"{lib}, expected {want}")
+                                 f"{lib}, expected none")
+        if outside != want:
+            raise AssertionError(f"[analysis] {name}: K13 sorts outside "
+                                 f"the loop {outside}, expected {want}")
 
     # (c) the runtime sync map at the main path's, the express phase's
     # and the stream phase's shapes
@@ -7616,6 +8117,8 @@ def main() -> int:
         general_launches = phase("general", general_phase, torch, smi)
         for k in GENERAL_KERNELS:
             launches[k] = general_launches[k]
+    if want("csbatch"):
+        phase("csbatch", csbatch_phase, torch, smi)
     keep_dir = option("--keep_dir=")
     if want("ha"):
         phase("ha", ha_phase, torch, smi, keep_dir)

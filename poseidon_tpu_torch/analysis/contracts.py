@@ -343,6 +343,9 @@ _SYNC_SITES: tuple = (
     ("poseidon_tpu_torch/ops/cost_scaling.py", "residual_csr",
      "a general solve's residual CSR: one upload a column, once a solve, "
      "before its graph"),
+    ("poseidon_tpu_torch/ops/cost_scaling.py", "_BatchSolve.__init__",
+     "a batch solve's per-element residual costs and first eps: two "
+     "uploads, once a batch, before its graph"),
     ("poseidon_tpu_torch/kernels/csr_plan.py", "make_plan",
      "the residual CSR's launch plan: two uploads, once a solve"),
     ("poseidon_tpu_torch/ops/ssp.py", "_Solve.__init__",

@@ -18,6 +18,13 @@ distances into a second buffer. ``out`` sets ``changed`` (int32[1]) when
 any improved, and its caller swaps the buffers; ``in`` takes the pair by
 SSP's parity word and ends its round on the solve's loop words
 (``kernels/ssp_loop.py``), so SSP's round is this one launch.
+
+``bf_relax_out_batch`` is one ``out`` round of a batch (the reference's
+``_solve`` under ``jax.vmap`` over cost vectors): B elements over one
+CSR and plan, each with its own ln row, d rows and ``changed`` word, and
+a mask word on the device; a masked element copies d_in to d_out and
+reports no change. ``bf_relax_out`` is the same kernel at B = 1 with no
+mask.
 """
 
 from __future__ import annotations
@@ -56,6 +63,27 @@ def bf_relax_out_plain(seg, head, ln, d_in, d_out, changed):
     new = torch.minimum(d_in, best)
     d_out.copy_(new)
     changed.copy_((new < d_in).any().to(torch.int32).reshape(1))
+
+
+def bf_relax_out_batch_plain(seg, head, ln, d_in, d_out, changed, mask):
+    """``bf_relax_out_plain`` over a batch in one pass, restated over the
+    positions that can lower a distance (residual capacity, a finite
+    head distance, a running element), each element's nodes at its own
+    offset in the flattened [B * NN] vector; an element whose ``mask``
+    word is 0 relaxes no arc."""
+    B, NN = d_in.shape
+    R = head.shape[0]
+    dh = d_in.index_select(1, head.long())
+    on = (ln < INF_K) & (dh < INF_K) & (mask != 0)[:, None]
+    at = on.reshape(-1).nonzero().squeeze(1)                 # b * R + p
+    key = at // R * NN + csr_tails(seg)[at % R]
+    via = dh.reshape(-1)[at] + ln.reshape(-1)[at]
+    best = torch.full((B * NN,), INF_K, dtype=torch.int64,
+                      device=seg.device).scatter_reduce_(
+        0, key, via, "amin").view(B, NN)
+    new = torch.minimum(d_in, best)
+    d_out.copy_(new)
+    changed.copy_((new < d_in).any(dim=1).to(torch.int32))
 
 
 def bf_relax_in_plain(seg, arc, head, mrc, dist_a, dist_b, pred,
@@ -97,19 +125,45 @@ def bf_relax_out(seg, head, ln, d_in, d_out, changed, plan: CsrPlan):
     if not on_card(seg, head, ln, d_in, d_out, changed):
         bf_relax_out_plain(seg, head, ln, d_in, d_out, changed)
         return
+    _launch_out(plan, seg, head, ln, d_in, d_out, changed, None, 1)
+
+
+@census_op("bf_relax")
+def bf_relax_out_batch(seg, head, ln, d_in, d_out, changed, mask,
+                       plan: CsrPlan):
+    """One round of the global price update for B elements over one CSR:
+    ``ln`` int64[B, 2F], ``d_in``/``d_out`` int64[B, NN], ``changed``
+    int32[B] (each element's "any improved" this round; 0 for a masked
+    element) and ``mask`` int32[B] on the device (element b relaxes where
+    ``mask[b]`` is non-zero and copies d_in to d_out where it is 0);
+    ``seg``, ``head`` and ``plan`` as ``bf_relax_out``'s. CPU tensors take
+    the plain twin; CUDA tensors launch K10 once for the batch."""
+    if not on_card(seg, head, ln, d_in, d_out, changed, mask):
+        bf_relax_out_batch_plain(seg, head, ln, d_in, d_out, changed, mask)
+        return
+    _launch_out(plan, seg, head, ln, d_in, d_out, changed, mask,
+                d_in.shape[0])
+
+
+def _launch_out(plan, seg, head, ln, d_in, d_out, changed, mask,
+                B: int) -> None:
     NN = seg.shape[0] - 1
     R = head.shape[0]
     i32, i64 = torch.int32, torch.int64
+    rows = () if mask is None else (B,)
     spec = (
         (seg, "seg", i32, (NN + 1,)), (head, "head", i32, (R,)),
-        (ln, "ln", i64, (R,)), (d_in, "d_in", i64, (NN,)),
-        (d_out, "d_out", i64, (NN,)), (changed, "changed", i32, (1,)),
+        (ln, "ln", i64, (*rows, R)), (d_in, "d_in", i64, (*rows, NN)),
+        (d_out, "d_out", i64, (*rows, NN)),
+        (changed, "changed", i32, (B,)),
     )
     ptrs = [kernel_arg(t, name, dt, shape) for t, name, dt, shape in spec]
+    m = None if mask is None else kernel_arg(mask, "mask", i32, (B,))
     pp = plan_args(plan, NN, R)
     with torch.cuda.device(d_in.device):
         err = library("bf_relax").bf_relax_out_launch(
-            *pp, *ptrs[1:], plan.n_heavy, plan.n_light, stream_ptr(d_in))
+            *pp, *ptrs[1:], m, plan.n_heavy, plan.n_light, NN, R, B,
+            stream_ptr(d_in))
     check_launch(KERNEL, err)
     KERNEL.launches += 1
 

@@ -15,6 +15,13 @@ position's residual arc id (a < F forward, a >= F the mirror of a - F),
 head node and scaled int64 cost. A sweep reads the pre-sweep ``flow``,
 ``excess_in`` and ``price_in``, updates ``flow`` in place and writes
 ``excess_out`` and ``price_out``.
+
+``cs_sweep_batch`` is one sweep of a batch (the reference's ``_solve``
+under ``jax.vmap`` over cost vectors): B elements over one CSR and plan,
+each with its own cost row, flow, excess, price and eps, and a mask word
+on the device; a masked element keeps its state (its excess and price
+carried into the output buffers). ``cs_sweep`` is the same kernel at
+B = 1 with no mask.
 """
 
 from __future__ import annotations
@@ -90,6 +97,110 @@ def cs_sweep_plain(seg, arc, head, cost, fcap, flow, excess_in, price_in,
     price_out.copy_(torch.where(active & ~has_adm, price_in - eps, price_in))
 
 
+def cs_sweep_batch_plain(seg, arc, head, cost, fcap, flow, excess_in,
+                        price_in, eps, excess_out, price_out, mask):
+    """``cs_sweep_plain`` over a batch in one pass, restated over the
+    positions of the active nodes' segments only (an inactive node's arcs
+    are not admissible, so they push nothing and feed no sum), each
+    element's nodes and arc slots at their own offsets in the flattened
+    [B * NN] and [B * F] vectors; an element whose ``mask`` word is 0 has
+    no active node (so it pushes nothing and keeps its excess and
+    price)."""
+    B, NN = excess_in.shape
+    F = fcap.shape[0]
+    R = arc.shape[0]
+    i64, dev = torch.int64, seg.device
+    tails = csr_tails(seg)
+    active = (excess_in > 0) & (mask != 0)[:, None]
+    at = active[:, tails].reshape(-1).nonzero().squeeze(1)   # b * R + p
+    b, p = at // R, at % R
+    a = arc[p]
+    key = b * NN + tails[p]                                  # the tail
+    hd = b * NN + head[p].long()
+    fwd = a < F
+    slot = torch.where(fwd, a, a - F).long()
+    fs = b * F + slot
+    fl = flow.reshape(-1)
+    res = torch.where(fwd, fcap[slot] - fl[fs], fl[fs])
+    p_in = price_in.reshape(-1)
+    rc = cost.reshape(-1)[at] + p_in[key] - p_in[hd]
+    adm = (res > 0) & (rc < 0)
+    adm_amt = torch.where(adm, res, 0).to(i64)
+    total = torch.zeros(B * NN, dtype=i64, device=dev).index_add_(
+        0, key, adm_amt)
+    exc64 = excess_in.reshape(-1).to(i64)
+    prop = torch.minimum(
+        adm_amt, (exc64[key] * adm_amt) // torch.clamp(total[key], min=1))
+    sum_prop = torch.zeros(B * NN, dtype=i64, device=dev).index_add_(
+        0, key, prop)
+    sent = 2 * F
+    choice = torch.full((B * NN,), sent, dtype=arc.dtype,
+                        device=dev).scatter_reduce_(
+        0, key, torch.where(adm, a, sent), "amin")
+    is_chosen = adm & (a == choice[key])
+    leftover = (exc64 - sum_prop)[key]
+    extra = torch.where(is_chosen, torch.minimum(adm_amt - prop, leftover), 0)
+    push32 = (prop + extra).to(torch.int32)
+    fl.index_add_(0, fs, torch.where(fwd, push32, -push32))
+    excess_out.copy_(excess_in)
+    ex = excess_out.view(-1)
+    ex.index_add_(0, key, -push32)
+    ex.index_add_(0, hd, push32)
+    has_adm = torch.zeros(B * NN, dtype=torch.int32, device=dev).index_add_(
+        0, key, adm.to(torch.int32)).view(B, NN) > 0
+    price_out.copy_(torch.where(active & ~has_adm,
+                                price_in - eps[:, None], price_in))
+
+
+def _launch(plan, seg, arc, head, cost, fcap, flow, excess_in, price_in,
+            eps, excess_out, price_out, mask, B: int) -> None:
+    NN = seg.shape[0] - 1
+    F = fcap.shape[0]
+    R = 2 * F
+    i32, i64 = torch.int32, torch.int64
+    rows = () if mask is None else (B,)
+    spec = (
+        (seg, "seg", i32, (NN + 1,)), (arc, "arc", i32, (R,)),
+        (head, "head", i32, (R,)), (cost, "cost", i64, (*rows, R)),
+        (fcap, "fcap", i32, (F,)), (flow, "flow", i32, (*rows, F)),
+        (excess_in, "excess_in", i32, (*rows, NN)),
+        (price_in, "price_in", i64, (*rows, NN)),
+        (excess_out, "excess_out", i32, (*rows, NN)),
+        (price_out, "price_out", i64, (*rows, NN)),
+        (eps, "eps", i64, rows),
+    )
+    ptrs = [kernel_arg(t, name, dt, shape) for t, name, dt, shape in spec]
+    m = None if mask is None else kernel_arg(mask, "mask", i32, (B,))
+    pp = plan_args(plan, NN, R)
+    with torch.cuda.device(flow.device):
+        err = library("cs_sweep").cs_sweep_launch(
+            *pp, *ptrs[1:], m, plan.n_heavy, plan.n_light, NN, F, B,
+            stream_ptr(flow),
+        )
+    check_launch(KERNEL, err)
+    KERNEL.launches += 1
+
+
+@census_op("cs_sweep")
+def cs_sweep_batch(seg, arc, head, cost, fcap, flow, excess_in, price_in,
+                   eps, excess_out, price_out, mask, plan: CsrPlan):
+    """One discharge sweep of B elements over one CSR: ``cost`` int64[B,
+    2F], ``flow`` int32[B, F], ``excess_*`` int32[B, NN], ``price_*``
+    int64[B, NN], ``eps`` int64[B] and ``mask`` int32[B] on the device
+    (element b sweeps where ``mask[b]`` is non-zero and keeps its state
+    where it is 0); ``seg``/``arc``/``head``/``fcap`` and ``plan`` as
+    ``cs_sweep``'s. CPU tensors take the plain twin; CUDA tensors launch
+    K9 once for the batch."""
+    args = (seg, arc, head, cost, fcap, flow, excess_in, price_in,
+            excess_out, price_out, eps, mask)
+    if not on_card(*args):
+        cs_sweep_batch_plain(seg, arc, head, cost, fcap, flow, excess_in,
+                             price_in, eps, excess_out, price_out, mask)
+        return
+    _launch(plan, seg, arc, head, cost, fcap, flow, excess_in, price_in,
+            eps, excess_out, price_out, mask, excess_in.shape[0])
+
+
 @census_op("cs_sweep")
 def cs_sweep(seg, arc, head, cost, fcap, flow, excess_in, price_in,
              eps, excess_out, price_out, plan: CsrPlan):
@@ -99,7 +210,8 @@ def cs_sweep(seg, arc, head, cost, fcap, flow, excess_in, price_in,
     int64 0-d tensor beside them (K9 reads it on the device, so a
     captured launch takes each run's eps); ``plan`` the CSR's launch plan
     (``ResidualCSR.plan``). CPU tensors take the plain twin, which needs
-    no plan; CUDA tensors launch K9."""
+    no plan; CUDA tensors launch K9 (the batch's kernel at B = 1, no
+    mask)."""
     if not isinstance(eps, torch.Tensor):
         raise TypeError("cs_sweep: eps must be an int64 0-d tensor")
     args = (seg, arc, head, cost, fcap, flow, excess_in, price_in,
@@ -108,25 +220,5 @@ def cs_sweep(seg, arc, head, cost, fcap, flow, excess_in, price_in,
         cs_sweep_plain(seg, arc, head, cost, fcap, flow, excess_in,
                        price_in, eps, excess_out, price_out)
         return
-    NN = seg.shape[0] - 1
-    F = fcap.shape[0]
-    R = 2 * F
-    i32, i64 = torch.int32, torch.int64
-    spec = (
-        (seg, "seg", i32, (NN + 1,)), (arc, "arc", i32, (R,)),
-        (head, "head", i32, (R,)), (cost, "cost", i64, (R,)),
-        (fcap, "fcap", i32, (F,)), (flow, "flow", i32, (F,)),
-        (excess_in, "excess_in", i32, (NN,)),
-        (price_in, "price_in", i64, (NN,)),
-        (excess_out, "excess_out", i32, (NN,)),
-        (price_out, "price_out", i64, (NN,)),
-    )
-    ptrs = [kernel_arg(t, name, dt, shape) for t, name, dt, shape in spec]
-    pp = plan_args(plan, NN, R)
-    with torch.cuda.device(flow.device):
-        err = library("cs_sweep").cs_sweep_launch(
-            *pp, *ptrs[1:], kernel_arg(eps, "eps", i64, ()), plan.n_heavy,
-            plan.n_light, NN, F, stream_ptr(flow),
-        )
-    check_launch(KERNEL, err)
-    KERNEL.launches += 1
+    _launch(plan, seg, arc, head, cost, fcap, flow, excess_in, price_in,
+            eps, excess_out, price_out, None, 1)

@@ -27,6 +27,15 @@
 // lowest arc id among the candidates equal to best, carried by a plain
 // 64-bit min across lanes, chunks and blocks.
 //
+// `out` also takes a batch (the reference's `_solve` under `jax.vmap`,
+// ops/cost_scaling.py's solve_cost_scaling_batch): B elements share the
+// CSR and its plan, each with its own ln row, d rows and `changed` word,
+// stored element after element; element b is the grid's y index b. A
+// masked element (mask[b] == 0; no mask: every element runs) loads no
+// arc, so its blocks copy d_in to d_out, and its `changed` word stays 0.
+// A single round is the batch of one with no mask. A batch's byte bound
+// is the shared CSR (seg, head) once and each element's ln and d.
+//
 // Both read d/dist from one buffer and write the other: a head's distance
 // is read by other blocks in the same launch. `out`'s caller swaps them
 // between rounds and zeroes `changed` before each (the launch's memset);
@@ -80,9 +89,11 @@ struct Out {
   const long long* __restrict__ ln;
   const long long* __restrict__ d_in;
   long long* __restrict__ d_out;
+  bool live;  // a masked element loads no arc
   __device__ __forceinline__ long long sent() const { return INF_K; }
   __device__ __forceinline__ long long node(int v) const { return d_in[v]; }
   __device__ __forceinline__ void load(int p, bool ok, int& h, int&, long long& x) const {
+    ok = ok && live;
     h = ok ? head[p] : 0;
     x = ok ? ln[p] : INF_K;
   }
@@ -216,8 +227,14 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
     bf_out_kernel(const int4* __restrict__ plan, int n_heavy, int n_light,
                   const int* __restrict__ tail, const int* __restrict__ head,
                   const long long* __restrict__ ln, const long long* __restrict__ d_in,
-                  long long* __restrict__ d_out, int* __restrict__ changed) {
-  relax(Out{head, ln, d_in, d_out}, plan, n_heavy, n_light, tail, changed);
+                  long long* __restrict__ d_out, int* __restrict__ changed,
+                  const int* __restrict__ mask, int NN, int R) {
+  // element b's rows
+  const int b = static_cast<int>(blockIdx.y);
+  const size_t nb = static_cast<size_t>(b) * NN;
+  const bool live = mask == nullptr || mask[b] != 0;
+  relax(Out{head, ln + static_cast<size_t>(b) * R, d_in + nb, d_out + nb, live}, plan, n_heavy,
+        n_light, tail, changed + b);
 }
 
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
@@ -236,16 +253,20 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 
 }  // namespace
 
+// One `out` round of B elements (ln [B, R], d [B, NN], changed [B], mask
+// [B] or null).
 extern "C" int bf_relax_out_launch(const int* plan, const int* tail, const int* head,
                                    const long long* ln, const long long* d_in, long long* d_out,
-                                   int* changed, int n_heavy, int n_light, void* stream) {
+                                   int* changed, const int* mask, int n_heavy, int n_light,
+                                   int NN, int R, int B, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(changed, 0, sizeof(int), s);
+  cudaError_t e = cudaMemsetAsync(changed, 0, static_cast<size_t>(B) * sizeof(int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = grid_blocks(n_heavy, n_light);
-  if (blocks == 0) return 0;
-  bf_out_kernel<<<blocks, THREADS, 0, s>>>(reinterpret_cast<const int4*>(plan), n_heavy, n_light,
-                                           tail, head, ln, d_in, d_out, changed);
+  if (blocks == 0 || B == 0) return 0;
+  bf_out_kernel<<<dim3(blocks, B), THREADS, 0, s>>>(reinterpret_cast<const int4*>(plan), n_heavy,
+                                                    n_light, tail, head, ln, d_in, d_out, changed,
+                                                    mask, NN, R);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -57,6 +57,18 @@
 // graph, ops/cost_scaling.py, changes it between sweeps): one load a
 // thread, the same value in every thread of the launch.
 //
+// A batch (the reference's `_solve` under `jax.vmap` over cost vectors,
+// ops/cost_scaling.py's solve_cost_scaling_batch): B elements share the
+// CSR and its plan, and each has its own cost row, flow, excess, price
+// and eps, stored element after element. Element b is the grid's y index
+// b: every block of a cluster has the same b. Its mask word (mask[b];
+// no mask: every element runs) is read on the device: a masked element
+// runs as if no node were active, so its blocks write price_out =
+// price_in, push nothing and leave its flow, and the launch's copy
+// carries its excess into excess_out. A single solve is the batch of one
+// with no mask. A batch's byte bound is its running elements' node
+// vectors and active segments added up, the shared CSR read once.
+//
 // Every read is of the pre-sweep state, as the reference's:
 //   - price: read from price_in, written to price_out (double buffer);
 //   - excess: the launch copies excess_in to excess_out first, then
@@ -144,7 +156,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
                     const int* __restrict__ head, const long long* __restrict__ cost,
                     const int* __restrict__ fcap, int* flow, const int* __restrict__ excess_in,
                     const long long* __restrict__ price_in, const long long* __restrict__ eps_at,
-                    int* excess_out, long long* __restrict__ price_out, int F) {
+                    int* excess_out, long long* __restrict__ price_out,
+                    const int* __restrict__ mask, int NN, int F) {
   // per node of a light block (slot 0 of s_c*: a heavy node's choice record, in rank 0)
   __shared__ long long s_total[MAX_NODES], s_sum[MAX_NODES], s_out[MAX_NODES];
   __shared__ long long s_price[MAX_NODES];
@@ -158,8 +171,18 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 
   const Work w = decode(plan, n_heavy, n_light);
   if (w.idle) return;
+  // element b's rows; a masked element has no active node
+  const int b = static_cast<int>(blockIdx.y);
+  const size_t nb = static_cast<size_t>(b) * NN, fb = static_cast<size_t>(b) * F;
+  cost += 2 * fb;
+  flow += fb;
+  excess_in += nb;
+  price_in += nb;
+  excess_out += nb;
+  price_out += nb;
+  const bool live = mask == nullptr || mask[b] != 0;
   // eps from the device (a captured sweep takes each run's eps)
-  const long long eps = *eps_at;
+  const long long eps = eps_at[b];
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31, warp = tid >> 5;
   const int SENT = 2 * F;
@@ -169,7 +192,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
   if (!w.heavy) {
     // ---- a light block: nodes [lo, hi), one pass of at most CHUNK ----
     const int n = w.hi - w.lo;
-    const int my_exc = tid < n ? excess_in[w.lo + tid] : 0;
+    const int my_exc = tid < n && live ? excess_in[w.lo + tid] : 0;
     const long long my_price = tid < n ? price_in[w.lo + tid] : 0;
     load_items(it, w.first, w, tail, arc, head, cost);
     if (tid < n) {
@@ -247,7 +270,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 
   // ---- a heavy node v, its segment dealt over the cluster ----
   const int v = w.lo;
-  const int exc_v = excess_in[v];
+  const int exc_v = live ? excess_in[v] : 0;
   const long long price_v = price_in[v];
   load_items(it, w.first, w, tail, arc, head, cost);
   if (exc_v <= 0) {  // the whole cluster reads the same excess
@@ -361,20 +384,22 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 
 }  // namespace
 
+// One sweep of B elements (cost [B, 2F], flow [B, F], excess/price
+// [B, NN], eps [B], mask [B] or null).
 extern "C" int cs_sweep_launch(const int* plan, const int* tail, const int* arc, const int* head,
                                const long long* cost, const int* fcap, int* flow,
                                const int* excess_in, const long long* price_in, int* excess_out,
-                               long long* price_out, const long long* eps_at, int n_heavy,
-                               int n_light, int NN, int F, void* stream) {
+                               long long* price_out, const long long* eps_at, const int* mask,
+                               int n_heavy, int n_light, int NN, int F, int B, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemcpyAsync(excess_out, excess_in, static_cast<size_t>(NN) * sizeof(int),
+  cudaError_t e = cudaMemcpyAsync(excess_out, excess_in,
+                                  static_cast<size_t>(B) * NN * sizeof(int),
                                   cudaMemcpyDeviceToDevice, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = grid_blocks(n_heavy, n_light);
-  if (blocks == 0) return 0;
-  cs_sweep_kernel<<<blocks, THREADS, 0, s>>>(reinterpret_cast<const int4*>(plan), n_heavy,
-                                             n_light, tail, arc, head, cost, fcap, flow,
-                                             excess_in, price_in, eps_at, excess_out, price_out,
-                                             F);
+  if (blocks == 0 || B == 0) return 0;
+  cs_sweep_kernel<<<dim3(blocks, B), THREADS, 0, s>>>(
+      reinterpret_cast<const int4*>(plan), n_heavy, n_light, tail, arc, head, cost, fcap, flow,
+      excess_in, price_in, eps_at, excess_out, price_out, mask, NN, F);
   return static_cast<int>(cudaGetLastError());
 }

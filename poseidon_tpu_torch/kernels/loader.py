@@ -232,10 +232,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "gap_rows_occupancy": [I] + occupancy,
         },
         "cs_sweep": {
-            "cs_sweep_launch": [P] * 12 + [I] * 4 + [P],
+            "cs_sweep_launch": [P] * 13 + [I] * 5 + [P],
         },
         "bf_relax": {
-            "bf_relax_out_launch": [P] * 7 + [I] * 2 + [P],
+            "bf_relax_out_launch": [P] * 8 + [I] * 5 + [P],
             "bf_relax_in_launch": [P] * 8 + [I] * 3 + [P, P],
         },
         "ssp_augment": {

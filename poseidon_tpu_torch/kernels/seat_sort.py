@@ -273,6 +273,21 @@ def seat_sort(keys, spans) -> tuple[torch.Tensor, ...]:
     return outs
 
 
+def seat_order(key: torch.Tensor, span) -> tuple[torch.Tensor, torch.Tensor]:
+    """A stable argsort by K13: ``(sorted key, perm)``, ``perm`` int32 with
+    ``key[perm]`` the sorted key and ties in ascending position
+    (``torch.sort(key, stable=True)``). A stable sort is a two-key sort
+    over (key, position), so this is one ``seat_sort`` call with the
+    position as its last key; ``span`` bounds the key. CPU tensors take
+    the twin (after the span check); CUDA tensors launch K13. No key (an
+    empty CSR): nothing to sort, no launch."""
+    n = key.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=key.device)
+    if n == 0:
+        return key.clone(), pos
+    return seat_sort((key, pos), (span, (0, n - 1)))
+
+
 def phase_stamps(keys, spans) -> list[int]:
     """One launch of K13's split on CUDA keys by the stamps build, its
     phase stamps (clock64() on one SM at the STAMP_* slots; -1 where a

@@ -77,7 +77,9 @@ from poseidon_tpu_torch.kernels.densify import densify
 from poseidon_tpu_torch.kernels.gap_rows import gap_rows
 from poseidon_tpu_torch.kernels.loop_graph import GraphCache
 from poseidon_tpu_torch.kernels.row_options import row_options
-from poseidon_tpu_torch.kernels.seat_sort import INT32, seat_compact, seat_sort
+from poseidon_tpu_torch.kernels.seat_sort import (
+    INT32, seat_compact, seat_order, seat_sort,
+)
 from poseidon_tpu_torch.kernels.top_will import top_will
 from poseidon_tpu_torch.ops.transport import (
     CH_CLUSTER,
@@ -527,10 +529,12 @@ def _theta_clearing(dev: DenseInstance):
     UNS = Mp
     s_pos = dev.s > 0
     d_eff = torch.where(s_pos, dev.dgen, INF)
-    # machines sorted by generic route cost (ties by machine index);
-    # cumulative seat supply
-    order = torch.argsort(d_eff, stable=True)
-    sd, sdm, scap = d_eff[order], order.to(I32), dev.s[order]
+    # machines sorted by generic route cost (ties by machine index; K13
+    # over (d_eff, machine), the reference's two keys); cumulative seat
+    # supply. The spans are int32's: dgen and the willingness are scaled
+    # costs with no narrower bound by construction
+    sd, sdm = seat_order(d_eff, INT32)
+    scap = dev.s[sdm.long()]
     cumcap = torch.cumsum(torch.where(sd < INF, scap, 0).to(I64), dim=0)
 
     def supply_at(x):
@@ -541,7 +545,7 @@ def _theta_clearing(dev: DenseInstance):
         )
 
     def clear(y):
-        y_sorted = torch.sort(y).values
+        y_sorted = seat_sort((y,), (INT32,))[0]
         cands = torch.cat([sd, y])
         supply = supply_at(cands)
         demand = Tp - torch.searchsorted(y_sorted, cands, right=True)
@@ -582,7 +586,7 @@ def _theta_clearing(dev: DenseInstance):
     theta, k = clear(y)
     # rank tasks by effective willingness (desc, tid asc); top-k get
     # seats in cheapest-first order via the capacity boundaries
-    rt = torch.argsort(-y, stable=True)
+    rt = seat_order(-y, INT32)[1].long()
     rank = torch.empty(Tp, dtype=I32, device=device)
     rank[rt] = torch.arange(Tp, dtype=I32, device=device)
     seat_machine = sdm[

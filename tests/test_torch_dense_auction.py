@@ -198,6 +198,65 @@ def test_theta_clearing_equal(instances, name):
         assert np.array_equal(np.asarray(a), b.numpy())
 
 
+def _clearing_market(kind: str, seed: int):
+    """A dense market built directly, at the clearing's edges: ``ties``
+    (d_eff drawn from 3 values, u - w from 4, so both sorts meet long
+    runs of equal keys), ``invalid`` (a third of the tasks invalid: y =
+    -INF), ``no_slots`` (half the machines with s == 0: d_eff = INF) and
+    ``all`` (the three at once). Returns (reference, port) instances."""
+    INF = port.INF
+    rng = np.random.default_rng(seed)
+    Tp, Mp = 64, 16
+    c = rng.integers(0, 400, (Tp, Mp)).astype(np.int32)
+    c[rng.random((Tp, Mp)) < 0.6] = INF
+    u = rng.integers(100, 900, Tp).astype(np.int32)
+    w = rng.integers(0, 300, Tp).astype(np.int32)
+    dgen = rng.integers(0, 200, Mp).astype(np.int32)
+    s = rng.integers(1, 4, Mp).astype(np.int32)
+    valid = np.ones(Tp, bool)
+    if kind in ("ties", "all"):
+        dgen = rng.choice([5, 17, 40], Mp).astype(np.int32)
+        w = rng.integers(0, 50, Tp).astype(np.int32)
+        u = (w + rng.choice([10, 60, 61, 300], Tp)).astype(np.int32)
+    if kind in ("invalid", "all"):
+        valid[rng.random(Tp) < 0.33] = False
+        valid[-1] = False
+    if kind in ("no_slots", "all"):
+        s[rng.random(Mp) < 0.5] = 0
+        s[0] = 0
+    c[:, s == 0] = INF
+    u[~valid], w[~valid], c[~valid] = 0, INF, INF
+    smax = max(int(s.max()), 1)
+    cmax = int(c[c < INF].max(initial=0))
+    dref = ref.DenseInstance(
+        c=jax.numpy.asarray(c), u=jax.numpy.asarray(u),
+        w=jax.numpy.asarray(w), dgen=jax.numpy.asarray(dgen),
+        s=jax.numpy.asarray(s), task_valid=jax.numpy.asarray(valid),
+        scale=jax.numpy.int32(Tp + 1), cmax=jax.numpy.int32(cmax),
+        smax=smax)
+    dport = port.DenseInstance(
+        c=torch.from_numpy(c), u=torch.from_numpy(u),
+        w=torch.from_numpy(w), dgen=torch.from_numpy(dgen),
+        s=torch.from_numpy(s), task_valid=torch.from_numpy(valid),
+        scale=Tp + 1, cmax=torch.tensor(cmax, dtype=torch.int32),
+        smax=smax)
+    return dref, dport
+
+
+@pytest.mark.parametrize("kind", ["ties", "invalid", "no_slots", "all"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_theta_clearing_edges_equal(kind, seed):
+    """The clearing's K13 sorts (twins on the CPU, each key checked
+    against its span) give the reference's seats and prices with ties in
+    d_eff and in y, with -INF tasks and with machines of no slot."""
+    dref, dport = _clearing_market(kind, seed)
+    with enable_x64(True):
+        got_ref = _ref_theta_clearing(dref)
+    got_port = port._theta_clearing(dport)
+    for a, b in zip(got_ref, got_port):
+        assert np.array_equal(np.asarray(a), b.numpy())
+
+
 def _cold(dev, mod, alpha=1024, max_rounds=20_000, analytic_init=True,
           collect_hist=True):
     asg0, lvl0, floor0, eps0 = mod.cold_start(dev, alpha)

@@ -165,6 +165,38 @@ def test_twin_sorts_like_np_lexsort(data):
         np.testing.assert_array_equal(g.numpy(), k[order])
 
 
+@pytest.mark.parametrize("n", [0, 1, 2, 33, 1024, 10240])
+@pytest.mark.parametrize("kind", ["ties", "distinct", "wide", "one"])
+def test_seat_order_is_a_stable_argsort(n, kind):
+    """``seat_order`` (K13 over (key, position); its twin on the CPU)
+    equals a stable argsort: the sorted key, and the permutation with
+    ties in ascending position, as ``jax.lax.sort((key, arange),
+    num_keys=1)`` and ``np.argsort(kind="stable")`` give them."""
+    rng = np.random.default_rng(n)
+    if kind == "ties":
+        key, span = rng.integers(0, 4, n), (0, 3)
+    elif kind == "distinct":
+        key, span = rng.permutation(n), (0, max(n - 1, 0))
+    elif kind == "wide":
+        key, span = rng.integers(-2**31, 2**31, n), k13.INT32
+    else:
+        key, span = np.full(n, -INF), (-INF, INF)
+    key = key.astype(np.int32)
+    got, perm = k13.seat_order(torch.from_numpy(key), span)
+    want = np.argsort(key, kind="stable")
+    assert perm.dtype == torch.int32
+    np.testing.assert_array_equal(perm.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), key[want])
+    ref_key, ref_perm = ref_sort([key, np.arange(n, dtype=np.int32)])
+    np.testing.assert_array_equal(perm.numpy(), ref_perm)
+    np.testing.assert_array_equal(got.numpy(), ref_key)
+
+
+def test_seat_order_checks_its_span():
+    with pytest.raises(ValueError, match="leaves its span"):
+        k13.seat_order(torch.tensor([0, 5, 9], dtype=torch.int32), (0, 8))
+
+
 def test_span_check_on_the_cpu():
     keys = [torch.tensor([0, 5, 2], dtype=torch.int32),
             torch.tensor([2, 0, 1], dtype=torch.int32)]
