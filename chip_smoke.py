@@ -1283,10 +1283,14 @@ def seat_keys(torch, rng, n, Mp, nkeys, kind):
         km[n - n // 40:] = nseg - 1
         kl[:] = 0
         isb[:] = 0
+    elif kind == "coldone":      # one segment, level 0, not bidding
+        km[:] = nseg - 2
+        kl[:] = 0
+        isb[:] = 0
     elif kind not in ("rand", "wide", "same", "dup"):
         raise ValueError(kind)
     to = lambda a: torch.from_numpy(  # noqa: E731
-        np.ascontiguousarray(a, dtype=np.int64).astype(np.int32)).to("cuda")
+        np.ascontiguousarray(a, dtype=np.int64).astype(np.int32)).to(DEVICE)
     if kind == "wide":
         keys = [rng.integers(-2**31, 2**31, n) for _ in range(nkeys)]
         return [to(k) for k in keys], [INT32] * nkeys
@@ -1326,13 +1330,17 @@ def bucket_segments(rng, n: int, nseg: int):
 def seat_sort_edges(torch) -> None:
     """K13 equals its twin (tolerance 0): 1, 3 and 4 keys; n 1, 2, 3,
     7-9 (blocks of the cluster without keys), 1,023-1,025, 10,240 and
-    10,241, the former LSD cluster's limit and one past it (tiles), the
+    10,241, the former LSD cluster's limit and one past it (onesweep), the
     split's edges (the module note's list),
-    20,000 and 524,288; the segment at 0 and Mp + 2, levels 0 and INF, one
-    segment, is_bid all 0 and all 1; keys past 64 bits (Mp 65,539 with n
-    past 2^15, and four whole-int32 keys, each on the split and on
-    tiles); the compaction with 0, B - 1, B, B + 1 and n waiting, one
-    block and several."""
+    20,000, 524,288 and 2^20; the segment at 0 and Mp + 2, levels 0 and
+    INF, one segment, is_bid all 0 and all 1; keys past 64 bits (Mp 65,539
+    with n past 2^15, and four whole-int32 keys, each on the split and on
+    the onesweep); the onesweep's edges: n at k tiles and one off it for
+    each tile the plan takes, a cold layout past the split (one segment,
+    level 0: only the task id's passes live), equal keys (no live pass),
+    and each tile forced on n from 1 key up and on config 8's shapes
+    (``onesweep_forced``); the compaction with 0, B - 1, B, B + 1 and n
+    waiting, one block and several."""
     import numpy as np
 
     from poseidon_tpu_torch.kernels import seat_sort as k13
@@ -1380,6 +1388,19 @@ def seat_sort_edges(torch) -> None:
         (10240, 16, 1, "wide"), (10240, 16, 2, "wide"),
         (10240, 16, 4, "same"), (10240, 16, 1, "dup"), (3000, 16, 3, "dup"),
         (12288, 65539, 4, "sizedlvl"),
+        # the onesweep: n at k tiles and one off it for its 2,048- and
+        # 4,096-key tiles (the plan's), a cold layout past the
+        # split (every pass but the task id's dead), 2^20 keys, four
+        # whole-int32 keys (two words), equal keys (no pass live: pass 0
+        # writes the outputs)
+        *[(n, 1024, 4, "rand") for n in (24575, 24576, 24577)],
+        *[(n, 1024, 3, "rand") for n in (147455, 147456, 147457)],
+        *[(n, 256, 4, "rand") for n in (524287, 524289)],
+        (30000, 1024, 4, "coldone"), (524288, 256, 4, "coldone"),
+        (524288, 256, 4, "cold"), (2**20, 256, 4, "rand"),
+        (2**20, 1024, 1, "rand"), (40000, 16, 4, "wide"),
+        (2**17, 16, 4, "wide"), (30000, 16, 4, "same"),
+        (100000, 16, 1, "dup"),
     ]
     for n, Mp, nkeys, kind in cases:
         keys, spans = seat_keys(torch, rng, n, Mp, nkeys, kind)
@@ -1389,11 +1410,13 @@ def seat_sort_edges(torch) -> None:
         p = k13.PLANS["sort", keys[0].device, n, bits]
         log(f"[edges] seat_sort n={n} Mp={Mp} keys={nkeys} {kind}: "
             f"max_abs_err={err} bits={sum(bits)} words={p.words} "
-            f"method={p.method} passes={p.passes} tiles={p.tiles}")
+            f"method={p.method} passes={p.passes} tiles={p.tiles} "
+            f"tile={p.tile if p.method == 'onesweep' else 0}")
         if err != 0:
             raise AssertionError(f"seat_sort edge n={n} Mp={Mp} "
                                  f"keys={nkeys} {kind}: kernel != twin "
                                  f"(max_abs_err {err})")
+    onesweep_forced(torch, rng)
     for n in (1, 3, 10240, 65536, 65537, 524288):
         B = min(n, max(1024, n // 4))
         for waiting_n in sorted({0, B - 1, B, min(B + 1, n), n}):
@@ -1410,6 +1433,80 @@ def seat_sort_edges(torch) -> None:
                 raise AssertionError(f"seat_compact edge n={n} "
                                      f"waiting={waiting_n}: kernel != twin "
                                      f"(max_abs_err {err})")
+
+
+def onesweep_forced(torch, rng) -> None:
+    """K13's onesweep at each tile (SWEEP_ROUNDS), forced where the plan
+    would take the split or another tile, against the twin (tolerance 0):
+    n from 1 key up (one tile, a ragged tile, one key past one tile of
+    each size), two-word keys, and config 8's three shapes (the stable
+    argsort, the CSR tails, the 4-key auction sort). These launches go
+    through ``_launch`` and are not counted."""
+    from poseidon_tpu_torch.kernels import seat_sort as k13
+
+    cases = [(1, 16, 4, "rand"), (2, 16, 3, "rand"), (33, 16, 1, "rand"),
+             (2049, 1024, 4, "rand"), (4097, 1024, 4, "rand"),
+             (5000, 1024, 3, "cold"),
+             (3000, 16, 4, "wide"), (2500, 16, 4, "same")]
+    for rounds in k13.SWEEP_ROUNDS:
+        for n, Mp, nkeys, kind in cases:
+            keys, spans = seat_keys(torch, rng, n, Mp, nkeys, kind)
+            bits = tuple(k13.field_bits(sp) for sp in spans)
+            p = k13.onesweep_plan(n, bits, rounds)
+            err = max_abs_err(list(k13._launch(keys, spans, p)),
+                              list(k13.seat_sort_plain(*keys)))
+            log(f"[edges] seat_sort onesweep forced tile={p.tile} n={n} "
+                f"Mp={Mp} keys={nkeys} {kind}: max_abs_err={err} "
+                f"words={p.words} passes={p.passes} tiles={p.tiles}")
+            if err != 0:
+                raise AssertionError(f"seat_sort onesweep tile={p.tile} n={n} "
+                                     f"{kind}: kernel != twin (max_abs_err "
+                                     f"{err})")
+        for label, (keys, spans) in wide_sort_inputs(torch, rng).items():
+            bits = tuple(k13.field_bits(sp) for sp in spans)
+            p = k13.onesweep_plan(keys[0].shape[0], bits, rounds)
+            err = max_abs_err(list(k13._launch(keys, spans, p)),
+                              list(k13.seat_sort_plain(*keys)))
+            log(f"[edges] seat_sort onesweep forced tile={p.tile} {label}: "
+                f"max_abs_err={err} tiles={p.tiles}")
+            if err != 0:
+                raise AssertionError(f"seat_sort onesweep tile={p.tile} "
+                                     f"{label}: kernel != twin")
+
+
+# the flagship's residual arcs (2F) and nodes (NN)
+FLAGSHIP_CSR = (145410, 12290)
+
+
+def wide_sort_inputs(torch, rng) -> dict:
+    """K13's three sorts past the split, as (keys, spans) on the card:
+    config 8's clearing argsort of the tasks by (-y, task), the flagship
+    residual CSR's argsort of its arcs by tail, both stable argsorts
+    (``seat_order``: the key, then the position), and config 8's 4-key
+    auction sort (segment over Mp + 3, negated level, is_bid, task id)."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels.seat_sort import INT32
+
+    dev = torch.device(DEVICE)
+    Tp, Mp = CONFIG8_TABLE
+    arcs, nodes = FLAGSHIP_CSR
+
+    def on(a):
+        return torch.as_tensor(np.ascontiguousarray(a).astype(np.int32),
+                               device=dev)
+
+    y = on(rng.integers(-2**29, 2**29, Tp))
+    tails = on(np.sort(rng.integers(0, nodes, arcs))[rng.permutation(arcs)])
+    k4, s4 = seat_keys(torch, rng, Tp, Mp, 4, "rand")
+    return {
+        "config 8 tasks (-y, task), Tp 524,288": (
+            (-y, on(np.arange(Tp))), (INT32, (0, Tp - 1))),
+        "flagship CSR tails, 2F 145,410": (
+            (tails, on(np.arange(arcs))), ((0, nodes - 1), (0, arcs - 1))),
+        "config 8 auction 4-key sort, Tp 524,288 Mp 256": (tuple(k4),
+                                                           tuple(s4)),
+    }
 
 
 def edges_phase(torch) -> None:
@@ -2348,10 +2445,10 @@ def clearing_sort_times(torch, timer) -> None:
     keys drawn over its domains), each timed cold as K13 and as the
     library call it replaced: the machines by (d_eff, machine) (Mp
     keys), the willingness alone and the tasks by (-y, task) (Tp keys);
-    then the two stable argsorts past the split (K13's tiles): the tasks
-    at config 8's Tp 524,288 and the residual CSR's tails at the
-    flagship's 2F 145,410 (NN 12,290). Each equal to the library's
-    sort."""
+    then K13's sorts past the split (``wide_sort_times``: the two stable
+    argsorts, the tasks at config 8's Tp 524,288 and the residual CSR's
+    tails at the flagship's 2F 145,410, NN 12,290, and config 8's 4-key
+    auction sort). Each equal to the library's sort or the twin."""
     import numpy as np
 
     from poseidon_tpu_torch.kernels.seat_sort import (
@@ -2385,24 +2482,75 @@ def clearing_sort_times(torch, timer) -> None:
         + f"; a cold round's four: K13 ms="
         f"{rows[0][1] + 2 * rows[1][1] + rows[2][1]:.6f} library ms="
         f"{rows[0][2] + 2 * rows[1][2] + rows[2][2]:.6f}")
-    wide = []
-    for label, key, span in (
-            ("config 8 tasks (-y, task), Tp 524,288",
-             torch.as_tensor(rng.integers(-2**29, 2**29, 524288)
-                             .astype(np.int32), device=dev), INT32),
-            ("flagship CSR tails, 2F 145,410",
-             torch.as_tensor(np.sort(rng.integers(0, 12290, 145410))[
-                 rng.permutation(145410)].astype(np.int32), device=dev),
-             (0, 12289))):
-        got = seat_order(key, span)
-        want = torch.sort(key, stable=True)
-        if not (torch.equal(got[0], want.values)
-                and torch.equal(got[1].long(), want.indices)):
-            raise AssertionError(f"[main] {label}: K13 != the library sort")
-        wide.append((label, timer(lambda: seat_order(key, span)),
-                     timer(lambda: torch.sort(key, stable=True))))
-    log("[main] stable argsorts by K13's tiles, cold: " + "; ".join(
-        f"{label} K13 ms={a:.6f} library ms={b:.6f}" for label, a, b in wide))
+    wide_sort_times(torch, timer, rng)
+
+
+def live_passes(torch, keys, spans) -> list[int] | None:
+    """The digit passes whose 8-bit digit is not the same for every key
+    (the passes K13's onesweep runs), from the packed keys; None past 63
+    bits."""
+    from poseidon_tpu_torch.kernels.seat_sort import DIGIT_BITS, field_bits
+
+    packed = packed_keys(torch, keys, spans)
+    if packed is None:
+        return None
+    width = sum(field_bits(sp) for sp in spans)
+    out = []
+    for q in range(max(1, -(-width // DIGIT_BITS))):
+        d = (packed >> (DIGIT_BITS * q)) & 255
+        if int(d.min()) != int(d.max()):
+            out.append(q)
+    return out or [0]
+
+
+def wide_sort_times(torch, timer, rng) -> None:
+    """K13's sorts past the split (``wide_sort_inputs``), each equal to
+    its twin and timed cold as K13 (the plan's tile, then every tile
+    forced), as the library call (``torch.sort(stable=True)`` of the key
+    or of the packed keys) and against its byte bound (each key read and
+    written once); its launches a sort (a memset, the up-front launch,
+    one a pass) and the live passes."""
+    from poseidon_tpu_torch.kernels import seat_sort as k13
+
+    for label, (keys, spans) in wide_sort_inputs(torch, rng).items():
+        n = keys[0].shape[0]
+        bits = tuple(k13.field_bits(sp) for sp in spans)
+        got = k13.seat_sort(keys, spans)
+        err = max_abs_err(list(got), list(k13.seat_sort_plain(*keys)))
+        if err != 0:
+            raise AssertionError(f"[main] {label}: K13 != its twin")
+        p = k13.PLANS["sort", keys[0].device, n, bits]
+        if len(keys) == 2:            # a stable argsort (seat_order)
+            lib = lambda: torch.sort(keys[0], stable=True)  # noqa: E731
+        else:
+            packed = packed_keys(torch, keys, spans)
+            lib = lambda: torch.sort(packed, stable=True)  # noqa: E731
+        ms = timer(lambda: k13.seat_sort(keys, spans))
+        forced = {r: timer(lambda: k13._launch(
+            keys, spans, k13.onesweep_plan(n, bits, r)))
+            for r in k13.SWEEP_ROUNDS}
+        lib_ms = timer(lib)
+        nbytes = 2 * 4 * n * len(keys)   # each int32 key in and out
+        bms, by = bound_ms(nbytes, 0)
+        live = live_passes(torch, keys, spans)
+        log(f"[main] past the split: {label}: K13 {p.method} tile={p.tile} "
+            f"ms={ms:.6f} library ms={lib_ms:.6f} bound_ms={bms:.6f} ({by}) "
+            f"passes={p.passes} live={live} launches a sort: 1 memset + "
+            f"{1 + p.passes} kernels ({1 + len(live or [])} doing work); "
+            f"forced tiles " + ", ".join(
+                f"{k13.SWEEP_THREADS * r} ms={t:.6f}" for r, t in forced.items()))
+        # by kernel: device us a launch over 5 sorts back to back
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                k13.seat_sort(keys, spans)
+            torch.cuda.synchronize()
+        rows = sorted(device_rows(prof), key=lambda r: -r[1])
+        log(f"[main] past the split: {label}: by kernel (us a launch, "
+            f"launches in 5 sorts): " + "; ".join(
+                f"{key.split('::')[-1][:40]} {t / max(c, 1):.3f} x{c}"
+                for key, t, c in rows))
 
 
 def main_path_phase(torch):
@@ -4571,6 +4719,7 @@ def _scale_config8(torch) -> dict:
 
     from poseidon_tpu_torch import kernels
     from poseidon_tpu_torch.bridge import SchedulerBridge
+    from poseidon_tpu_torch.kernels import seat_sort as k13
     from poseidon_tpu_torch.ops import dense_auction as da
     from poseidon_tpu_torch.synth import config8_arrivals, config8_scale
 
@@ -4664,21 +4813,29 @@ def _scale_config8(torch) -> dict:
         torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     one_round(0, "burst round")
+    burst_by = k13.KERNEL.launches_by
     for r in range(1, CONFIG8_ROUNDS + 1):
         one_round(r, f"churn round {r}")
     launches = {k.name: k.launches for k in kernels.KERNELS}
+    churn_by = {m: c - burst_by.get(m, 0)
+                for m, c in k13.KERNEL.launches_by.items()}
     log(f"[scale] config 8 launches={launches}")
+    log(f"[scale] config 8 K13 launches by method: burst round {burst_by}; "
+        f"{CONFIG8_ROUNDS} churn rounds {churn_by}")
     idle = [n for n in SCALE_KERNELS if launches[n] == 0]
     if idle and DEVICE == "cuda":
         raise AssertionError(f"[scale] config 8: not launched: {idle}")
     if DEVICE == "cuda":
         from torch.profiler import ProfilerActivity, profile
 
+        by0 = k13.KERNEL.launches_by
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             one_round(CONFIG8_ROUNDS + 1, "profiled churn round")
             wall_us = (time.perf_counter() - t0) * 1e6
+        prof_by = {m: c - by0.get(m, 0)
+                   for m, c in k13.KERNEL.launches_by.items()}
         rows = device_rows(prof)
         busy = sum(t for _, t, _ in rows)
         log(f"[scale] config 8 profiled churn round: wall_us={wall_us:.1f} "
@@ -4694,6 +4851,21 @@ def _scale_config8(torch) -> dict:
             count = sum(n for _, n in hits)
             log(f"[scale] kernel {k}: total_us={total:.1f} launches={count} "
                 f"us_per_launch={total / max(count, 1):.3f}")
+        # K13 by method as the round calls it: the onesweep's up-front and
+        # pass kernels over its sorts (the memset apart), the split's
+        # launches, the compaction's
+        parts = {"onesweep": ("seat_sweep_",), "split": ("seat_sort_split",),
+                 "compact": ("seat_count_kernel", "seat_compact_kernel")}
+        for method, names in parts.items():
+            hits = [(t, n) for key, t, n in rows
+                    if any(nm in key for nm in names)]
+            total = sum(t for t, _ in hits)
+            sorts = prof_by.get(method, 0)
+            log(f"[scale] K13 {method} in the profiled churn round: "
+                f"kernel_us={total:.1f} kernel launches="
+                f"{sum(n for _, n in hits)} calls={sorts} us_per_call="
+                f"{total / max(sorts, 1):.3f} (the loop graph's bodies are "
+                f"seen in part)")
     return launches
 
 
@@ -7872,6 +8044,13 @@ RACE_SECONDS = 30.0
 # copy back, which no barrier once ordered before the rank either)
 RACE_SORTS = 256
 RACE_SORT_SECONDS = 20.0
+# then K13's onesweep alone, the same way: a graph of RACE_WIDE_SORTS sorts
+# past the split (a 30,000-key and a 524,288-key stable argsort, config
+# 8's 4-key auction sort, in turns), replayed for RACE_WIDE_SECONDS: its
+# look-back orders blocks through device memory, which only other
+# processes' work on the card may show wrong
+RACE_WIDE_SORTS = 12
+RACE_WIDE_SECONDS = 15.0
 
 
 def race_sort_cases(torch, device):
@@ -7894,25 +8073,52 @@ def race_sort_cases(torch, device):
     return cases
 
 
-def race_sorts(torch, seconds: float, device) -> tuple[int, int]:
-    """K13 on ``race_sort_cases`` for ``seconds``: on the card a captured
-    graph of RACE_SORTS sorts, each compared with its twin's result into
-    a device count, replayed; on the CPU the twin itself. Returns (sorts
-    that differed, sorts run)."""
+def race_wide_cases(torch, device):
+    """(keys, spans) of the onesweep part: stable argsorts (key, position)
+    of 30,000 and 524,288 keys, and config 8's 4-key auction sort (segment
+    over Mp + 3 = 259, negated level, is_bid, task id)."""
+    import numpy as np
+
+    from poseidon_tpu_torch.kernels.seat_sort import INT32
+
+    rng = np.random.default_rng(22)
+    Tp, Mp = CONFIG8_TABLE
+
+    def on(a):
+        return torch.as_tensor(np.asarray(a).astype(np.int32), device=device)
+
+    cases = []
+    for n in (30000, Tp):
+        cases.append(((on(rng.integers(-2**29, 2**29, n)), on(np.arange(n))),
+                      (INT32, (0, n - 1))))
+    cols = (rng.integers(0, Mp + 3, Tp), -rng.integers(0, 2**29, Tp),
+            rng.integers(0, 2, Tp), rng.permutation(Tp))
+    cases.append((tuple(on(c) for c in cols),
+                   ((0, Mp + 2), INT32, (0, 1), (0, Tp - 1))))
+    return cases
+
+
+def race_sorts(torch, seconds: float, device, cases=None,
+               sorts: int = RACE_SORTS) -> tuple[int, int]:
+    """K13 on ``cases`` (``race_sort_cases`` by default) in turns for
+    ``seconds``: on the card a captured graph of ``sorts`` sorts, each
+    compared with its twin's result into a device count, replayed; on
+    the CPU the twin itself. Returns (sorts that differed, sorts run)."""
     from poseidon_tpu_torch.kernels import seat_sort
 
     dev = torch.device(device)
-    cases = race_sort_cases(torch, dev)
+    if cases is None:
+        cases = race_sort_cases(torch, dev)
     want = [tuple(w.to(dev) for w in seat_sort.seat_sort_plain(
         *(k.cpu() for k in keys))) for keys, _spans in cases]
     bad = torch.zeros((), dtype=torch.int32, device=dev)
 
     def body():
-        for i in range(RACE_SORTS):
-            keys, spans = cases[i % 2]
+        for i in range(sorts):
+            keys, spans = cases[i % len(cases)]
             outs = seat_sort.seat_sort(keys, spans)
             differs = torch.stack([(o != w).any() for o, w in
-                                   zip(outs, want[i % 2])]).any()
+                                   zip(outs, want[i % len(cases)])]).any()
             bad.add_(differs.to(torch.int32))
 
     t0, runs = time.perf_counter(), 0
@@ -7924,12 +8130,12 @@ def race_sorts(torch, seconds: float, device) -> tuple[int, int]:
         bad.zero_()
         while time.perf_counter() - t0 < seconds:
             graph.replay()
-            runs += RACE_SORTS
+            runs += sorts
         torch.cuda.synchronize()
     else:
         while time.perf_counter() - t0 < seconds:
             body()
-            runs += RACE_SORTS
+            runs += sorts
     return int(bad), runs
 
 
@@ -7943,7 +8149,7 @@ def race_worker(job) -> tuple[list, tuple[int, int]]:
 
     import torch
 
-    seconds, sort_seconds, device = job
+    seconds, sort_seconds, wide_seconds, device = job
     torch.set_num_threads(1)
     inputs = {t[0]: t for t in adversarial.trial_inputs(max(RACE_TRIALS) + 1)}
     out, t0 = [], time.perf_counter()
@@ -7952,24 +8158,33 @@ def race_worker(job) -> tuple[list, tuple[int, int]]:
             r = adversarial.run_trial(*inputs[trial], device)
             out.append((r.trial, r.converged, r.rounds, r.cost,
                         r.oracle_cost))
-    return out, race_sorts(torch, sort_seconds, device)
+    split = race_sorts(torch, sort_seconds, device)
+    wide = race_sorts(torch, wide_seconds, device,
+                      race_wide_cases(torch, torch.device(device)),
+                      RACE_WIDE_SORTS)
+    return out, split, wide
 
 
 def race_check(card: str, seconds: float = RACE_SECONDS,
-               sort_seconds: float = RACE_SORT_SECONDS) -> None:
-    """The sweep's small-table trials, then K13's split alone, repeated in
-    ADVERSARIAL_WORKERS processes at once: every run converged at the
-    oracle's cost, every run of a trial took the same rounds, and every
-    sort equals its twin (ROADMAP Queue 3's closed fault)."""
+               sort_seconds: float = RACE_SORT_SECONDS,
+               wide_seconds: float = RACE_WIDE_SECONDS) -> None:
+    """The sweep's small-table trials, then K13's split alone, then its
+    onesweep alone, repeated in ADVERSARIAL_WORKERS processes at once:
+    every run converged at the oracle's cost, every run of a trial took
+    the same rounds, and every sort equals its twin (ROADMAP Queue 3's
+    closed fault)."""
     import multiprocessing
 
     t0 = time.perf_counter()
     with multiprocessing.get_context("spawn").Pool(ADVERSARIAL_WORKERS) as pool:
-        parts = pool.map(race_worker, [(seconds, sort_seconds, DEVICE)] *
+        parts = pool.map(race_worker,
+                         [(seconds, sort_seconds, wide_seconds, DEVICE)] *
                          ADVERSARIAL_WORKERS)
-    runs = [r for part, _sorts in parts for r in part]
-    sort_bad = sum(b for _part, (b, _n) in parts)
-    sorts = sum(n for _part, (_b, n) in parts)
+    runs = [r for part, _split, _wide in parts for r in part]
+    sort_bad = sum(b for _part, (b, _n), _wide in parts)
+    sorts = sum(n for _part, (_b, n), _wide in parts)
+    wide_bad = sum(b for _part, _split, (b, _n) in parts)
+    wide = sum(n for _part, _split, (_b, n) in parts)
     bad = [r for r in runs if not r[1] or r[3] != r[4]]
     rounds = {}
     for r in runs:
@@ -7980,11 +8195,15 @@ def race_check(card: str, seconds: float = RACE_SECONDS,
         f"rounds {sorted((t, sorted(v)) for t, v in rounds.items())}, "
         f"{len(bad)} unconverged or off the oracle; K13's split of 32 and "
         f"64 keys in a graph for {sort_seconds:.0f} s: {sorts} sorts, "
-        f"{sort_bad} differ from the twin; {time.perf_counter() - t0:.1f} s "
-        f"| {card}")
-    if bad or sort_bad or any(len(v) != 1 for v in rounds.values()):
+        f"{sort_bad} differ from the twin; K13's onesweep (30,000 and "
+        f"524,288-key argsorts, config 8's 4-key sort) in a graph for "
+        f"{wide_seconds:.0f} s: {wide} sorts, {wide_bad} differ from the "
+        f"twin; {time.perf_counter() - t0:.1f} s | {card}")
+    if (bad or sort_bad or wide_bad
+            or any(len(v) != 1 for v in rounds.values())):
         raise AssertionError(f"[adversarial] race check: {bad[:8]}, rounds "
-                             f"{rounds}, sorts differing {sort_bad}")
+                             f"{rounds}, sorts differing {sort_bad} (split) "
+                             f"{wide_bad} (onesweep)")
 
 
 def adversarial_phase(torch, card: str) -> None:

@@ -10,7 +10,8 @@ one run.
     python3 kernel_ab.py [--parts=window,kernels,syncs,graph] ROOT [ROOT ...]
 
 ``--parts`` names what to measure (``window`` and ``kernels`` by
-default): ``window`` the lanes (``window_lanes``: its note says what
+default): ``sorts`` K13's sorts past the split and the flagship's 4-key
+sort alone (``sort_part``), ``window`` the lanes (``window_lanes``: its note says what
 each number is), ``kernels`` the rest below, ``syncs`` the flagship's
 synchronising calls (``sync_rounds``: a cold and three churned warm
 rounds under ``torch.cuda.set_sync_debug_mode("warn")``, each call
@@ -97,7 +98,8 @@ them (``loop_kernel_calls``): K12's list method and K13's 4-key sort,
 3-key sort and compaction on the inputs of their first calls in a
 flagship cold solve, each checkout's own solver; K12's radix method at
 config 8's shape ([524288, 256], smax 3,072, drawn on the card from a
-seed). Each is checked against its twin (tolerance 0) and prints
+seed); K13's sorts past the split (``wide_sort_calls``: config 8's
+argsort and 4-key sort, the flagship CSR's argsort by tail). Each is checked against its twin (tolerance 0) and prints
 ``cold_ms``, ``warm_ms``, ``host_us`` and ``wall_us``.
 
 K6 ``perturb`` runs at BASELINE config 5 with 64 variants (Tp 4096, Mp
@@ -122,7 +124,7 @@ import subprocess
 import sys
 import time
 
-PARTS = ("window", "kernels", "syncs", "graph")
+PARTS = ("window", "kernels", "syncs", "graph", "sorts")
 DEFAULT_PARTS = ("window", "kernels")
 # K8's shapes: the flagship's table (a width-1 mesh's one shard) and
 # config 8's aggregated table
@@ -165,6 +167,8 @@ def worker(root: str, parts: tuple[str, ...] = DEFAULT_PARTS) -> dict:
         out.update(window_lanes(torch, dev))
     if "graph" in parts:
         out["graph"] = auction_graph(torch)
+    if "sorts" in parts:
+        out.update(sort_part(torch, dev))
     if "kernels" not in parts:
         return out
     rng = np.random.default_rng(0)
@@ -522,6 +526,136 @@ def ssp_step_call(torch, dev, net):
 # config 8's aggregated table (524,288 tasks x 256 classes) and a deflate
 # smax of its order: K12's radix method
 RADIX_SHAPE = (524288, 256, 3072)
+# the flagship's residual CSR: arcs (2F) and nodes (NN)
+CSR_SHAPE = (145410, 12290)
+
+
+def radix_inputs(torch, dev):
+    """K12's arguments at config 8's shape (RADIX_SHAPE), drawn on the card
+    from a seed: ([table part], s, smax)."""
+    rows, Mp, kr = RADIX_SHAPE
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    a1 = ints(0, 6000, (rows,))
+    return ([(ints(0, 5000, (rows, Mp)), a1, a1 + ints(0, 500, (rows,)),
+              ints(0, Mp, (rows,)), ints(0, 10, (rows,)) < 9)],
+            ints(0, kr + 3, (Mp,)), kr)
+
+
+def wide_sort_calls(torch, dev) -> dict:
+    """K13's sorts past the split, (call, check) by name, on keys drawn
+    from one seed (every checkout gets the same): ``seat_order_config8``,
+    config 8's clearing argsort of Tp 524,288 tasks by (-y, task);
+    ``seat_order_csr``, the flagship residual CSR's argsort of its 2F
+    145,410 arcs by tail (NN 12,290); ``seat_sort4_config8``, config 8's
+    4-key auction sort (segment over Mp + 3 = 259, negated level, is_bid,
+    task id). Each check holds the call against its twin (tolerance 0);
+    the third member is the library's stable sort of the same keys (of
+    the packed keys for the 4-key sort)."""
+    import numpy as np
+
+    import chip_smoke
+    from poseidon_tpu_torch.kernels import seat_sort as k13
+
+    rng = np.random.default_rng(22)
+    Tp, Mp, _k = RADIX_SHAPE
+    arcs, nodes = CSR_SHAPE
+
+    def on(a):
+        return torch.as_tensor(np.asarray(a).astype(np.int32), device=dev)
+
+    y = on(-rng.integers(-2**29, 2**29, Tp))
+    tails = on(np.sort(rng.integers(0, nodes, arcs))[rng.permutation(arcs)])
+    keys4 = tuple(on(c) for c in (
+        rng.integers(0, Mp + 3, Tp), -rng.integers(0, 2**29, Tp),
+        rng.integers(0, 2, Tp), rng.permutation(Tp)))
+    spans4 = ((0, Mp + 2), k13.INT32, (0, 1), (0, Tp - 1))
+
+    def order_check(key, span):
+        got = k13.seat_order(key, span)
+        want = torch.sort(key, stable=True)
+        return (torch.equal(got[0], want.values)
+                and torch.equal(got[1].long(), want.indices))
+
+    packed4 = chip_smoke.packed_keys(torch, keys4, spans4)
+    return {
+        "seat_order_config8": (lambda: k13.seat_order(y, k13.INT32),
+                               lambda: order_check(y, k13.INT32),
+                               lambda: torch.sort(y, stable=True)),
+        "seat_order_csr": (lambda: k13.seat_order(tails, (0, nodes - 1)),
+                           lambda: order_check(tails, (0, nodes - 1)),
+                           lambda: torch.sort(tails, stable=True)),
+        "seat_sort4_config8": (
+            lambda: k13.seat_sort(keys4, spans4),
+            lambda: all(torch.equal(a, b) for a, b in zip(
+                k13.seat_sort(keys4, spans4), k13.seat_sort_plain(*keys4))),
+            lambda: torch.sort(packed4, stable=True)),
+    }
+
+
+def sort_part(torch, dev) -> dict:
+    """``--parts=sorts``: K13's sorts past the split (``wide_sort_calls``)
+    and the flagship's 4-key sort, each checked, then ``cold_ms`` (L2
+    flushed by a 128 MiB read, the card held busy until the call is
+    enqueued, median of REPEATS) and ``warm_and_host``; beside each the
+    library's stable sort of the same keys (``torch.sort``), cold; and
+    K12's radix method at config 8's shape beside ``torch.topk`` of the
+    transposed will table."""
+    import chip_smoke
+    from poseidon_tpu_torch.kernels import seat_sort as k13
+    from poseidon_tpu_torch.kernels import top_will as k12
+    from poseidon_tpu_torch.ops.resident import _redensify
+
+    flush = torch.zeros(128 << 20, dtype=torch.uint8, device=dev)
+
+    def cold(call) -> float:
+        call()
+        times = []
+        for _ in range(REPEATS):
+            flush.max()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            call()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        times.sort()
+        return times[len(times) // 2]
+
+    calls = wide_sort_calls(torch, dev)
+    dt, cost, smax = chip_smoke.flagship_inputs(torch, dev)
+    inst = _redensify(dt, cost, n_prefs=dt.pref_machine.shape[1],
+                      smax=smax)[0]
+    keys4, spans4 = chip_smoke.loop_calls(torch, inst, smax)["sort4"]
+    packed4 = chip_smoke.packed_keys(torch, keys4, spans4)
+    calls["seat_sort4"] = (
+        lambda: k13.seat_sort(keys4, spans4),
+        lambda: all(torch.equal(a, b) for a, b in zip(
+            k13.seat_sort(keys4, spans4), k13.seat_sort_plain(*keys4))),
+        lambda: torch.sort(packed4, stable=True))
+    # K12's radix method at config 8's shape, beside torch.topk of the
+    # transposed will table (made outside the timing)
+    radix = radix_inputs(torch, dev)
+    will_t = chip_smoke.will_table_t(torch, radix[0][0])
+    calls["top_will_radix"] = (
+        lambda: k12.top_will(*radix),
+        lambda: all(torch.equal(a, b) for a, b in zip(
+            *((x if isinstance(x, tuple) else (x,)) for x in (
+                k12.top_will(*radix), k12.top_will_plain(*radix))))),
+        lambda: torch.topk(will_t, radix[2], dim=1))
+    out = {}
+    for name, (call, check, lib) in calls.items():
+        if not check():
+            raise AssertionError(f"{name} != its twin")
+        out[name] = {"cold_ms": cold(call), **warm_and_host(torch, call),
+                     "library_cold_ms": cold(lib)}
+    return out
 
 
 def loop_kernel_calls(torch, dev) -> dict:
@@ -546,24 +680,14 @@ def loop_kernel_calls(torch, dev) -> dict:
     keys4, spans4 = got["sort4"]
     keys3, spans3 = got["sort3"]
     waiting, B = got["compact"]
-    rows, Mp, kr = RADIX_SHAPE
-    g = torch.Generator(device=dev)
-    g.manual_seed(8)
-
-    def ints(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=g, device=dev,
-                             dtype=torch.int32)
-
-    a1 = ints(0, 6000, (rows,))
-    radix = ([(ints(0, 5000, (rows, Mp)), a1, a1 + ints(0, 500, (rows,)),
-               ints(0, Mp, (rows,)), ints(0, 10, (rows,)) < 9)],
-             ints(0, kr + 3, (Mp,)), kr)
+    radix = radix_inputs(torch, dev)
 
     def same(a, b):
         a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
     return {
+        **{name: c[:2] for name, c in wide_sort_calls(torch, dev).items()},
         "top_will": (lambda: k12.top_will(parts, s, k),
                      lambda: same(k12.top_will(parts, s, k),
                                   k12.top_will_plain(parts, s, k))),

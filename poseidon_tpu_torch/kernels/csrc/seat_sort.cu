@@ -11,8 +11,11 @@
 //
 // Bound: bytes, and far below any launch: n * 4 bytes a key in and out
 // (320 KiB for the 4-key sort at the flagship's n = 10,240: 0.1 us at
-// 3.35 TB/s). What costs is the sort's dependent steps, each a barrier,
-// so the design keeps them in shared memory, in one launch, and few.
+// 3.35 TB/s; 8 MiB, 2.5 us, for config 8's stable argsort of 524,288
+// keys; 16 MiB, 5.0 us, for its 4-key sort). What costs is the sort's
+// dependent steps, each a barrier or a launch, so the design keeps them
+// in shared memory and few: one launch up to the split's limit, one a
+// digit pass past it.
 //
 // Design. The wrapper (kernels/seat_sort.py) gives every key a domain
 // [lo, lo + 2^bits): the segment in [0, Mp + 3), the negated level the
@@ -61,14 +64,52 @@
 //   one of its own), and is unpacked to its place in the outputs. One block alone (an earlier
 //   form of the split on a cluster of one) took about twice the cluster's
 //   time at the flagship: every step is issue-bound on one SM.
-// * tiles: above that (config 8's 524,288 tasks), a least-significant-
-//   digit radix sort, 8 bits a pass (ceil(W / 8) passes), with the packed
-//   keys in a device buffer pair, three launches a pass over tiles of
-//   4,096 keys: a digit count a tile, one block's exclusive scan over
-//   (digit, tile), and the stable scatter of each tile at its offsets (a
-//   key's rank among the keys of its digit that its warp met before it:
-//   eight ballots a key and a per-warp, per-digit counter). A split there
-//   would need a launch a level with its bins in device memory.
+// * onesweep: above that (config 8's 524,288 tasks, the flagship's
+//   residual CSR of 145,410 arcs), a least-significant-digit radix sort
+//   of 8-bit digits (ceil(W / 8) passes) over the packed keys in a device
+//   buffer pair (sides 0 and 1, each word a row of `stride` keys), one
+//   launch a digit pass, each pass one chained scan with decoupled
+//   look-back (Adinets and Merrill's Onesweep). In order on the stream:
+//   - a cudaMemsetAsync zeroes the workspace's head: every pass's
+//     histogram, the count of finished up-front blocks, the live mask and
+//     each pass's tile counter (the workspace is the caller's scratch,
+//     zeroed on every call, so a replayed graph starts clean);
+//   - the up-front launch packs the int32 keys into side 0 and, in the
+//     same read, counts every pass's digits into its block's shared
+//     histograms (one add a warp where its 32 keys share the digit, as
+//     in a cold layout, else one a key), added to device memory; it
+//     zeroes the passes' look-back words, and its last block to finish
+//     marks the live passes: those whose digit does not hold all n keys
+//     in one bin (a level field of 0 for every key makes 3 of config 8's
+//     8 passes dead; with none live, pass 0 runs);
+//   - a launch a pass. A dead pass returns from every block at once. In
+//     a live one the side it reads is the parity of the live passes
+//     before it (side 0 the packed keys), each block takes its tile of
+//     TILE keys from the pass's atomic counter (so it waits only on tiles
+//     that blocks already running took), loads it into shared memory by
+//     16-byte vectors (every thread's loads in flight at once; the keys
+//     sit in L2, and the rank that follows needs every thread anyway),
+//     and ranks each key among the tile's keys of its digit, stably: warp
+//     w takes keys [w * R * 32, (w + 1) * R * 32) in R rounds of 32, a
+//     key's rank is the warp's count of its digit so far (eight ballots
+//     find the lanes that share it) plus the warps before it. The
+//     block publishes its tile's count of each digit ("aggregate"),
+//     writes its keys back into shared memory in digit order, then
+//     looks back over the earlier tiles' words, eight at a time, adding
+//     aggregates until it meets an inclusive prefix, and publishes its
+//     own ("prefix"); release stores and relaxed loads closed by a fence
+//     (an acquire) order the words, which carry their count, flag and
+//     pass. Each digit's place is the pass's
+//     global offset (an exclusive scan of the up-front histogram, made
+//     by every block in shared memory) plus that prefix, so the block
+//     stores each digit's run of the tile to consecutive places. The last
+//     live pass stores the int32 fields instead (the unpack fused).
+//   The host enqueues a memset, the up-front launch and one launch a
+//   pass, and reads nothing. TILE is SWEEP_THREADS (512) x R keys, R 4
+//   or 8 by the plan (kernels/seat_sort.py `sort_plan`): 4,096 keys where
+//   that still gives the pass SWEEP_MIN_TILES (64) tiles, else 2,048 (on
+//   an H100 at 700 W, 4,096 was fastest at config 8's 524,288 keys and
+//   2,048 at the CSR's 145,410; 1,024 slower at both).
 //
 // The stamps build (-DPHASE_STAMPS, common.cuh `Stamps`) adds a `stamps`
 // buffer to `seat_sort_launch`: thread 0 of block 0 of the split writes
@@ -91,12 +132,26 @@ using u64 = unsigned long long;
 
 constexpr int RADIX = 256;
 constexpr int MAX_KEYS = 4;
-constexpr int TILE_THREADS = 256;
-constexpr int TILE_WARPS = TILE_THREADS / 32;
-constexpr int TILE_ROUNDS = 16;
-constexpr int TILE = TILE_THREADS * TILE_ROUNDS;
-constexpr int SCAN_THREADS = 1024;
-constexpr int PACK_THREADS = 256;
+constexpr int MAX_PASSES = 16;      // 8-bit digits of a 128-bit key
+// the onesweep method (kernels/seat_sort.py names the same sizes)
+constexpr int SWEEP_THREADS = 512;  // a pass's block; its tile is SWEEP_THREADS x rounds keys
+constexpr int SWEEP_WARPS = SWEEP_THREADS / 32;
+// a pass block's ints after its tile: the warps' digit counts, the
+// digits' offsets and tile starts, the warp sums and the scalars
+constexpr int SWEEP_FIXED_INTS = 4656;
+constexpr int STRIDE_KEYS = 32;     // a buffer row's keys, a multiple of 32 (16-byte vectors)
+constexpr int HIST_THREADS = 512;   // the up-front block
+constexpr int HIST_ITEMS = 8;       // keys a thread of the up-front block, loads in flight together
+constexpr int WORK_HEAD = 32;       // ints after the histograms: done count, live mask, tile counters
+constexpr int LOOK = 8;             // look-back words a thread loads at once
+// a look-back word: the count in bits 0-25, the pass in bits 26-29, the
+// flag in bits 30-31 (0 not yet written, 1 aggregate, 2 inclusive prefix)
+constexpr int STATUS_COUNT_BITS = 26;
+constexpr unsigned FLAG_AGGREGATE = 1u;
+constexpr unsigned FLAG_PREFIX = 2u;
+static_assert(SWEEP_FIXED_INTS == SWEEP_WARPS * RADIX + 2 * RADIX + 48, "the pass block's ints");
+static_assert(WORK_HEAD >= 2 + MAX_PASSES, "done, live and a counter a pass");
+static_assert(MAX_PASSES <= 16, "the pass in four bits of a look-back word");
 constexpr int COMPACT_THREADS = 1024;
 constexpr int COMPACT_ITEMS = 8;
 constexpr int COMPACT_CHUNK = COMPACT_THREADS * COMPACT_ITEMS;
@@ -108,7 +163,7 @@ constexpr int SMALL = 32;           // a bucket the last step ranks as it is
 constexpr int DIGIT_MAX = 11;       // bits of a level's digit
 constexpr int SPLIT_FIXED_INTS = 48;  // the scan's warp sums and the level's scalars
 // the methods of seat_sort_launch
-constexpr int METHOD_TILES = 0;
+constexpr int METHOD_ONESWEEP = 0;
 constexpr int METHOD_SPLIT = 1;
 // the stamps build's slots (kernels/seat_sort.py names the same): clock64()
 // at the ends of the split's phases, thread 0 of block 0
@@ -252,54 +307,6 @@ __device__ __forceinline__ unsigned match_digit(unsigned act, int d) {
     peers &= ((d >> b) & 1) ? on : ~on;
   }
   return peers;
-}
-
-// Keys [first, first + here) of side `side`, dealt to warps in runs of
-// rounds * 32 (warp w's round r holds keys w * rounds * 32 + r * 32 + lane):
-// count each warp's keys by the digit of `pass` into cnt[warp][digit].
-template <int WORDS>
-__device__ __forceinline__ void count_digits(const Buf<WORDS>& b, int side, int first, int here,
-                                             int rounds, int pass, int* cnt) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int r = 0; r < rounds; ++r) {
-    const int i = (warp * rounds + r) * 32 + lane;
-    const bool in = i < here;
-    const unsigned act = __ballot_sync(0xffffffffu, in);
-    if (in) {
-      const int d = digit<WORDS>(b.load(side, first + i), pass);
-      const unsigned peers = match_digit(act, d);
-      if (lane == __ffs(peers) - 1) cnt[warp * RADIX + d] += __popc(peers);
-    }
-    __syncwarp();
-  }
-}
-
-// The same walk; cnt[warp][digit] holds each warp's first offset of each
-// digit. Every key goes to its offset plus its rank among the keys of its
-// digit that its warp met before it, through `put(rank, key)`.
-template <int WORDS, class Put>
-__device__ __forceinline__ void scatter_digits(const Buf<WORDS>& b, int side, int first, int here,
-                                               int rounds, int pass, volatile int* cnt, Put put) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int r = 0; r < rounds; ++r) {
-    const int i = (warp * rounds + r) * 32 + lane;
-    const bool in = i < here;
-    const unsigned act = __ballot_sync(0xffffffffu, in);
-    if (in) {
-      const Packed p = b.load(side, first + i);
-      const int d = digit<WORDS>(p, pass);
-      const unsigned peers = match_digit(act, d);
-      volatile int* slot = cnt + warp * RADIX + d;
-      const int base = *slot;
-      const int rank = base + __popc(peers & ((1u << lane) - 1u));
-      __syncwarp(act);
-      if (lane == __ffs(peers) - 1) *slot = base + __popc(peers);
-      put(rank, p);
-    }
-    __syncwarp();
-  }
 }
 
 // ---- the split method -------------------------------------------------
@@ -774,109 +781,326 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 1) seat_sort_split_kernel(Keys 
   stamps(STAMP_END, stamper);
 }
 
-template <int WORDS>
-__global__ void __launch_bounds__(PACK_THREADS) seat_pack_kernel(Keys k, int n, Fields f,
-                                                                 u64* buf) {
-  const Buf<WORDS> b{buf, n};
-  for (int e = blockIdx.x * PACK_THREADS + threadIdx.x; e < n; e += gridDim.x * PACK_THREADS)
-    b.store(0, e, pack<WORDS>(k, f, e));
+// ---- the onesweep method ---------------------------------------------
+
+// A look-back word: tile t's count of one digit in pass `pass`.
+__device__ __forceinline__ unsigned status_word(unsigned flag, int pass, int count) {
+  return flag << 30 | static_cast<unsigned>(pass) << STATUS_COUNT_BITS |
+         static_cast<unsigned>(count);
 }
 
-template <int WORDS>
-__global__ void __launch_bounds__(PACK_THREADS) seat_unpack_kernel(Keys k, int n, Fields f,
-                                                                   u64* buf, int side) {
-  const Buf<WORDS> b{buf, n};
-  for (int e = blockIdx.x * PACK_THREADS + threadIdx.x; e < n; e += gridDim.x * PACK_THREADS) {
-    const Packed p = b.load(side, e);
+__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// The keys of digit d in the tiles before `tile`: the earlier tiles'
+// words, LOOK at a time (relaxed loads, in flight together: an acquire
+// load would hold the next until it completed), nearest first, summed up
+// to an inclusive prefix; a word not yet written in this pass (flag 0, or
+// another pass's) is loaded again. Tiles before 0 read as a prefix of 0.
+// A fence after the last window makes the loads that found the prefix
+// acquire it (each word carries its own count, so nothing else is read
+// through it).
+__device__ __forceinline__ int look_back(const unsigned* status, int tile, int d, int pass) {
+  constexpr unsigned COUNT_MASK = (1u << STATUS_COUNT_BITS) - 1u;
+  const unsigned start = status_word(FLAG_PREFIX, pass, 0);
+  int sum = 0;
+  int t = tile - 1;
+  for (;;) {
+    unsigned w[LOOK];
 #pragma unroll
-    for (int i = 0; i < MAX_KEYS; ++i)
-      if (i < f.nkeys) k.out[i][e] = field<WORDS>(p, f, i);
+    for (int j = 0; j < LOOK; ++j)
+      w[j] = t - j >= 0 ? load_relaxed(status + static_cast<size_t>(t - j) * RADIX + d) : start;
+    int used = 0;  // words taken, nearest first: aggregates so far
+#pragma unroll
+    for (int j = 0; j < LOOK; ++j) {
+      const unsigned v = w[j];
+      const bool ready = (v >> 30) != 0u &&
+                         ((v >> STATUS_COUNT_BITS) & 15u) == static_cast<unsigned>(pass);
+      if (used == j && ready) {
+        sum += static_cast<int>(v & COUNT_MASK);
+        if ((v >> 30) == FLAG_PREFIX) {
+          __threadfence();
+          return sum;
+        }
+        used = j + 1;
+      }
+    }
+    t -= used;
   }
 }
 
-template <int WORDS>
-__global__ void __launch_bounds__(TILE_THREADS) seat_hist_kernel(u64* buf, int n, int side,
-                                                                 int pass, int tiles,
-                                                                 int* __restrict__ tile_hist) {
-  __shared__ int h[RADIX];
-  static_assert(TILE_THREADS == RADIX, "one thread a digit");
-  h[threadIdx.x] = 0;
-  __syncthreads();
-  const Buf<WORDS> b{buf, n};
-  const int first = blockIdx.x * TILE;
-  const int here = min(TILE, n - first);
-  for (int i = threadIdx.x; i < here; i += TILE_THREADS)
-    atomicAdd(&h[digit<WORDS>(b.load(side, first + i), pass)], 1);
-  __syncthreads();
-  tile_hist[threadIdx.x * tiles + blockIdx.x] = h[threadIdx.x];
+// The workspace (ints): every pass's histogram [passes][RADIX], WORK_HEAD
+// ints ([0] the up-front blocks finished, [1] the live mask, [2 + p] pass
+// p's tile counter), then the look-back words [tiles][RADIX] (one set for
+// all passes: a word carries its pass). The memset zeroes everything
+// before the look-back words; the up-front launch zeroes those.
+struct Work {
+  int* hist;
+  int* head;
+  unsigned* status;
+};
+
+__device__ __forceinline__ Work work_at(int* base, int passes) {
+  Work w;
+  w.hist = base;
+  w.head = base + passes * RADIX;
+  w.status = reinterpret_cast<unsigned*>(w.head + WORK_HEAD);
+  return w;
 }
 
-// In-place exclusive scan of a[len] (len = RADIX * tiles, digit-major:
-// a tile's offset of a digit follows every lower digit and every earlier
-// tile's keys of the same digit). One block walks the array in chunks of
-// SCAN_THREADS * 8 counts, each thread two 16-byte vectors of eight
-// consecutive counts, a block-wide scan a chunk, the running total carried
-// to the next; len is a multiple of 8 (RADIX is).
-__global__ void __launch_bounds__(SCAN_THREADS) seat_scan_kernel(int* __restrict__ a, int len) {
-  __shared__ int sums[32];
-  constexpr int ITEMS = 8;
-  int carry = 0;
-  for (int chunk = 0; chunk < len; chunk += SCAN_THREADS * ITEMS) {
-    const int e = chunk + threadIdx.x * ITEMS;
-    int4 lo = make_int4(0, 0, 0, 0);
-    int4 hi = lo;
-    if (e < len) {
-      lo = *reinterpret_cast<const int4*>(a + e);
-      hi = *reinterpret_cast<const int4*>(a + e + 4);
-    }
-    const int v[ITEMS] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    int local = 0;
+// The up-front launch: every key packed into side 0, every pass's digits
+// counted, the look-back words zeroed; the last block to finish marks the
+// live passes.
+template <int WORDS>
+__global__ void __launch_bounds__(HIST_THREADS) seat_sweep_hist_kernel(Keys k, int n, Fields f,
+                                                                      u64* buf, int stride,
+                                                                      int* ws, int tiles) {
+  __shared__ int h[MAX_PASSES * RADIX];
+  __shared__ int last;
+  const int passes = f.passes;
+  const Work w = work_at(ws, passes);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  for (int i = tid; i < passes * RADIX; i += HIST_THREADS) h[i] = 0;
+  const size_t words = static_cast<size_t>(tiles) * RADIX;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * HIST_THREADS + tid; i < words;
+       i += static_cast<size_t>(gridDim.x) * HIST_THREADS)
+    w.status[i] = 0u;
+  __syncthreads();
+  const Buf<WORDS> b{buf, stride};
+  constexpr int SPAN = HIST_THREADS * HIST_ITEMS;
+  for (int first = blockIdx.x * SPAN; first < n; first += gridDim.x * SPAN) {
+    Packed p[HIST_ITEMS];
 #pragma unroll
-    for (int j = 0; j < ITEMS; ++j) local += v[j];
-    int total;
-    int run = carry + block_exclusive_scan<SCAN_THREADS>(local, sums, total);
-    int out[ITEMS];
+    for (int r = 0; r < HIST_ITEMS; ++r) {
+      const int e = first + r * HIST_THREADS + tid;
+      if (e < n) p[r] = pack<WORDS>(k, f, e);
+    }
 #pragma unroll
-    for (int j = 0; j < ITEMS; ++j) {
-      out[j] = run;
-      run += v[j];
+    for (int r = 0; r < HIST_ITEMS; ++r) {
+      const int e = first + r * HIST_THREADS + tid;
+      const unsigned act = __ballot_sync(0xffffffffu, e < n);
+      if (e < n) {
+        b.store(0, e, p[r]);
+        const int leader = __ffs(act) - 1;
+        for (int q = 0; q < passes; ++q) {
+          const int d = digit<WORDS>(p[r], q);
+          // a warp whose keys share the digit adds once
+          if (__all_sync(act, d == __shfl_sync(act, d, leader))) {
+            if (lane == leader) atomicAdd(&h[q * RADIX + d], __popc(act));
+          } else {
+            atomicAdd(&h[q * RADIX + d], 1);
+          }
+        }
+      }
     }
-    if (e < len) {
-      *reinterpret_cast<int4*>(a + e) = make_int4(out[0], out[1], out[2], out[3]);
-      *reinterpret_cast<int4*>(a + e + 4) = make_int4(out[4], out[5], out[6], out[7]);
-    }
-    carry += total;
   }
+  __syncthreads();
+  for (int i = tid; i < passes * RADIX; i += HIST_THREADS)
+    if (h[i]) atomicAdd(&w.hist[i], h[i]);
+  __threadfence();  // this thread's adds before the block's count below
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&w.head[0], 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every block's adds are seen by the reads below
+  // a thread a digit: its bin of every pass, the loads in flight together;
+  // one bin holding all n keys makes the pass move nothing
+  static_assert(HIST_THREADS >= RADIX, "a thread a digit");
+  const volatile int* hist = w.hist;
+  unsigned full = 0u;
+  if (tid < RADIX) {
+    int c[MAX_PASSES];
+#pragma unroll
+    for (int q = 0; q < MAX_PASSES; ++q) c[q] = q < passes ? hist[q * RADIX + tid] : 0;
+#pragma unroll
+    for (int q = 0; q < MAX_PASSES; ++q) full |= static_cast<unsigned>(c[q] == n) << q;
+  }
+  // the passes with a full bin, over the block (h is free again)
+  if (tid == 0) h[0] = 0;
+  __syncthreads();
+  if (full) atomicOr(reinterpret_cast<unsigned*>(h), full);
+  __syncthreads();
+  const unsigned live = ~static_cast<unsigned>(h[0]) & ((1u << passes) - 1u);
+  if (tid == 0) w.head[1] = static_cast<int>(live ? live : 1u);
 }
 
-template <int WORDS>
-__global__ void __launch_bounds__(TILE_THREADS) seat_scatter_kernel(
-    u64* buf, int n, int side, int pass, int tiles, const int* __restrict__ tile_off) {
-  __shared__ int cnt[TILE_WARPS * RADIX];
-  for (int i = threadIdx.x; i < TILE_WARPS * RADIX; i += TILE_THREADS) cnt[i] = 0;
-  __syncthreads();
-  const Buf<WORDS> b{buf, n};
-  const int first = blockIdx.x * TILE;
+// One digit pass. A block's shared memory: its tile's keys (word j of
+// local key i at j * TILE + i), then ints: each warp's count of each digit
+// (then the warp's offset inside the digit), each digit's global offset
+// (then its base), each digit's start in the tile, the warp sums, the
+// scalars (SWEEP_FIXED_INTS in all).
+template <int WORDS, int ROUNDS>
+__global__ void __launch_bounds__(SWEEP_THREADS) seat_sweep_pass_kernel(Keys k, int n, Fields f,
+                                                                       u64* buf, int stride,
+                                                                       int* ws, int pass) {
+  constexpr int TILE = SWEEP_THREADS * ROUNDS;
+  static_assert(ROUNDS % 2 == 0, "a tile of whole 16-byte vectors");
+  static_assert(SWEEP_THREADS >= RADIX, "a thread a digit");
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* tk = reinterpret_cast<u64*>(smem);
+  int* cnt = reinterpret_cast<int*>(tk + WORDS * TILE);
+  int* base = cnt + SWEEP_WARPS * RADIX;
+  int* lstart = base + RADIX;
+  int* sums = lstart + RADIX;
+  int* misc = sums + 32;
+  const Work w = work_at(ws, f.passes);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // the tile number, the live mask and the histogram loaded together (a
+  // dead pass's tile numbers are never read)
+  if (tid == 0) misc[0] = atomicAdd(&w.head[2 + pass], 1);
+  const int h = tid < RADIX ? w.hist[pass * RADIX + tid] : 0;
+  const unsigned live = static_cast<unsigned>(w.head[1]);
+  if (!((live >> pass) & 1u)) return;  // one digit for every key: nothing moves
+  const int src = __popc(live & ((1u << pass) - 1u)) & 1;
+  const bool last = (live >> (pass + 1)) == 0u;
+  for (int i = tid; i < SWEEP_WARPS * RADIX; i += SWEEP_THREADS) cnt[i] = 0;
+  // the pass's global digit offsets (the scan's barriers also publish the
+  // tile number and the zeroed counts)
+  int all;
+  const int g = block_exclusive_scan<SWEEP_THREADS>(h, sums, all);
+  if (tid < RADIX) base[tid] = g;
+  const int tile = misc[0];
+  const int first = tile * TILE;
   const int here = min(TILE, n - first);
-  count_digits<WORDS>(b, side, first, here, TILE_ROUNDS, pass, cnt);
-  __syncthreads();
+  // the tile into shared memory by 16-byte vectors (rows of `stride`
+  // keys, a multiple of 32, so a pair's key past n is still in the row)
   {
-    const int d = threadIdx.x;
-    int run = tile_off[d * tiles + blockIdx.x];
-    for (int w = 0; w < TILE_WARPS; ++w) {
-      const int c = cnt[w * RADIX + d];
-      cnt[w * RADIX + d] = run;
-      run += c;
+    const int pairs = (here + 1) >> 1;
+    ulonglong2 v[WORDS][ROUNDS / 2];
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) {
+      const ulonglong2* from = reinterpret_cast<const ulonglong2*>(
+          buf + static_cast<size_t>(src * WORDS + j) * stride + first);
+#pragma unroll
+      for (int r = 0; r < ROUNDS / 2; ++r) {
+        const int q = r * SWEEP_THREADS + tid;
+        if (q < pairs) v[j][r] = from[q];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) {
+      ulonglong2* to = reinterpret_cast<ulonglong2*>(tk + j * TILE);
+#pragma unroll
+      for (int r = 0; r < ROUNDS / 2; ++r) {
+        const int q = r * SWEEP_THREADS + tid;
+        if (q < pairs) to[q] = v[j][r];
+      }
     }
   }
   __syncthreads();
-  scatter_digits<WORDS>(b, side, first, here, TILE_ROUNDS, pass, cnt,
-                        [&](int rank, const Packed& p) { b.store(side ^ 1, rank, p); });
+  // rank every key among the tile's keys of its digit, stably: warp w
+  // takes keys [w * ROUNDS * 32, (w + 1) * ROUNDS * 32), 32 a round; first
+  // its rank among the warp's keys of the digit
+  Packed key[ROUNDS];
+  int rank[ROUNDS];
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int i = (warp * ROUNDS + r) * 32 + lane;
+    const bool in = i < here;
+    const unsigned act = __ballot_sync(0xffffffffu, in);
+    rank[r] = 0;
+    if (in) {
+      key[r].lo = tk[i];
+      key[r].hi = WORDS == 2 ? tk[TILE + i] : 0ull;
+      const int d = digit<WORDS>(key[r], pass);
+      const unsigned peers = match_digit(act, d);
+      volatile int* slot = cnt + warp * RADIX + d;
+      const int before = *slot;
+      rank[r] = before + __popc(peers & ((1u << lane) - 1u));
+      __syncwarp(act);
+      if (lane == __ffs(peers) - 1) *slot = before + __popc(peers);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  // each digit: the warps' offsets inside it, the tile's count, published
+  // (tile 0's count is its inclusive prefix), its start in the tile
+  int count = 0;
+  if (tid < RADIX) {
+    for (int v = 0; v < SWEEP_WARPS; ++v) {
+      const int c = cnt[v * RADIX + tid];
+      cnt[v * RADIX + tid] = count;
+      count += c;
+    }
+    store_release(w.status + static_cast<size_t>(tile) * RADIX + tid,
+                  status_word(tile ? FLAG_AGGREGATE : FLAG_PREFIX, pass, count));
+  }
+  const int ls = block_exclusive_scan<SWEEP_THREADS>(count, sums, all);
+  if (tid < RADIX) lstart[tid] = ls;
+  __syncthreads();
+  // the keys back into shared memory in digit order (every read of the
+  // tile there ended at the barrier after the rank)
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int i = (warp * ROUNDS + r) * 32 + lane;
+    if (i < here) {
+      const int d = digit<WORDS>(key[r], pass);
+      const int at = lstart[d] + cnt[warp * RADIX + d] + rank[r];
+      tk[at] = key[r].lo;
+      if (WORDS == 2) tk[TILE + at] = key[r].hi;
+    }
+  }
+  // each digit's keys in the earlier tiles; this tile's prefix published
+  if (tid < RADIX) {
+    int before = 0;
+    if (tile > 0) {
+      before = look_back(w.status, tile, tid, pass);
+      store_release(w.status + static_cast<size_t>(tile) * RADIX + tid,
+                    status_word(FLAG_PREFIX, pass, before + count));
+    }
+    base[tid] += before - lstart[tid];  // the digit's key at tile place j goes to base + j
+  }
+  __syncthreads();
+  // the tile out in digit order, each digit's run to consecutive places;
+  // the last live pass writes the int32 fields
+  const Buf<WORDS> b{buf, stride};
+  for (int j = tid; j < here; j += SWEEP_THREADS) {
+    Packed p;
+    p.lo = tk[j];
+    p.hi = WORDS == 2 ? tk[TILE + j] : 0ull;
+    const int at = base[digit<WORDS>(p, pass)] + j;
+    if (last) {
+#pragma unroll
+      for (int i = 0; i < MAX_KEYS; ++i)
+        if (i < f.nkeys) k.out[i][at] = field<WORDS>(p, f, i);
+    } else {
+      b.store(src ^ 1, at, p);
+    }
+  }
+}
+
+// A pass block's dynamic shared memory (kernels/seat_sort.py
+// `sweep_smem` sums the same sizes).
+__host__ __device__ constexpr int sweep_smem(int words, int rounds) {
+  return 8 * words * SWEEP_THREADS * rounds + 4 * SWEEP_FIXED_INTS;
+}
+
+template <int WORDS, int ROUNDS>
+cudaError_t sweep_passes(const Keys& k, int n, const Fields& f, int tiles, u64* buf, int stride,
+                         int* ws, cudaStream_t st) {
+  for (int pass = 0; pass < f.passes; ++pass) {
+    seat_sweep_pass_kernel<WORDS, ROUNDS>
+        <<<tiles, SWEEP_THREADS, sweep_smem(WORDS, ROUNDS), st>>>(k, n, f, buf, stride, ws, pass);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 template <int WORDS>
 cudaError_t sort_keys(const Keys& k, int n, const Fields& f, int method, int cluster, int smem,
-                      int tiles, u64* buf, int* tile_hist, pt::Stamps stamps, cudaStream_t st) {
+                      int tiles, int rounds, int stride, int hist_blocks, u64* buf, int* ws,
+                      pt::Stamps stamps, cudaStream_t st) {
   if (method == METHOD_SPLIT) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(cluster);
@@ -893,25 +1117,18 @@ cudaError_t sort_keys(const Keys& k, int n, const Fields& f, int method, int clu
     const cudaError_t e = cudaLaunchKernelEx(&cfg, seat_sort_split_kernel<WORDS>, k, n, f, stamps);
     return e != cudaSuccess ? e : cudaGetLastError();
   }
-  const int pack_grid = min((n + PACK_THREADS - 1) / PACK_THREADS, 1024);
-  seat_pack_kernel<WORDS><<<pack_grid, PACK_THREADS, 0, st>>>(k, n, f, buf);
-  cudaError_t e = cudaGetLastError();
-  int side = 0;
-  for (int pass = 0; pass < f.passes && e == cudaSuccess; ++pass) {
-    seat_hist_kernel<WORDS><<<tiles, TILE_THREADS, 0, st>>>(buf, n, side, pass, tiles, tile_hist);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) break;
-    seat_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(tile_hist, RADIX * tiles);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) break;
-    seat_scatter_kernel<WORDS><<<tiles, TILE_THREADS, 0, st>>>(buf, n, side, pass, tiles,
-                                                               tile_hist);
-    e = cudaGetLastError();
-    side ^= 1;
-  }
+  // in stream order: the head zeroed, the up-front launch, the passes
+  cudaError_t e = cudaMemsetAsync(
+      ws, 0, sizeof(int) * static_cast<size_t>(f.passes * RADIX + WORK_HEAD), st);
   if (e != cudaSuccess) return e;
-  seat_unpack_kernel<WORDS><<<pack_grid, PACK_THREADS, 0, st>>>(k, n, f, buf, side);
-  return cudaGetLastError();
+  seat_sweep_hist_kernel<WORDS>
+      <<<hist_blocks, HIST_THREADS, 0, st>>>(k, n, f, buf, stride, ws, tiles);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  switch (rounds) {
+    case 4: return sweep_passes<WORDS, 4>(k, n, f, tiles, buf, stride, ws, st);
+    default: return sweep_passes<WORDS, 8>(k, n, f, tiles, buf, stride, ws, st);
+  }
 }
 
 // Eight waiting flags from e on (none at or past `last`): their count, and
@@ -985,34 +1202,45 @@ __global__ void __launch_bounds__(COMPACT_THREADS) seat_compact_kernel(
 
 }  // namespace
 
+template <class Kernel>
+cudaError_t lift_smem(cudaError_t e, Kernel kernel, int bytes) {
+  return e != cudaSuccess ? e
+                          : cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 bytes);
+}
+
 // Lift the split kernel's dynamic shared-memory cap to the card's
 // per-block maximum and report that maximum (the plan sizes the split by
-// it). Called once per device.
+// it), and each onesweep pass kernel's to its tile's size. Called once
+// per device.
 extern "C" int seat_sort_setup(int* optin) {
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(seat_sort_split_kernel<1>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(seat_sort_split_kernel<2>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, *optin);
+  e = lift_smem(e, seat_sort_split_kernel<1>, *optin);
+  e = lift_smem(e, seat_sort_split_kernel<2>, *optin);
+  e = lift_smem(e, seat_sweep_pass_kernel<1, 4>, sweep_smem(1, 4));
+  e = lift_smem(e, seat_sweep_pass_kernel<1, 8>, sweep_smem(1, 8));
+  e = lift_smem(e, seat_sweep_pass_kernel<2, 4>, sweep_smem(2, 4));
+  e = lift_smem(e, seat_sweep_pass_kernel<2, 8>, sweep_smem(2, 8));
   return static_cast<int>(e);
 }
 
 // Sort n positions by nkeys int32 keys (k0 most significant), key i in
 // [lo_i, lo_i + 2^bits_i), into o0..o3. `words` (1 or 2) 64-bit words a
 // packed key; `method` METHOD_SPLIT (`cluster` blocks of `smem` bytes)
-// or METHOD_TILES (`tiles` tiles over buf, 2 * words * n 64-bit words,
-// and tile_hist, RADIX * tiles ints). The stamps build takes `stamps`
-// too (STAMPS int64) for the split's phase stamps.
+// or METHOD_ONESWEEP: `tiles` tiles of SWEEP_THREADS * `rounds` keys
+// (rounds 4 or 8),
+// `hist_blocks` up-front blocks, buf 2 * words rows of `stride` 64-bit
+// words, ws the workspace (passes * RADIX + WORK_HEAD + tiles * RADIX
+// ints; kernels/seat_sort.py `sweep_work`). The stamps build takes
+// `stamps` too (STAMPS int64) for the split's phase stamps.
 extern "C" int seat_sort_launch(const int* k0, const int* k1, const int* k2, const int* k3,
                                 int* o0, int* o1, int* o2, int* o3, int n, int nkeys, int lo0,
                                 int lo1, int lo2, int lo3, int b0, int b1, int b2, int b3,
                                 int words, int method, int cluster, int smem, int tiles,
-                                void* buf, int* tile_hist,
+                                int rounds, int stride, int hist_blocks, void* buf, int* ws,
 #ifdef PHASE_STAMPS
                                 long long* stamp_buf,
 #endif
@@ -1037,15 +1265,26 @@ extern "C" int seat_sort_launch(const int* k0, const int* k1, const int* k2, con
     width += bits[i];
   }
   if (width > 64 * words || words < 1 || words > 2) return static_cast<int>(cudaErrorInvalidValue);
-  f.passes = (width + 7) / 8;
+  f.passes = width > 0 ? (width + 7) / 8 : 1;  // the last live pass writes the outputs
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   u64* b = static_cast<u64*>(buf);
-  if ((method != METHOD_TILES && method != METHOD_SPLIT) ||
-      (method == METHOD_SPLIT && (cluster < 1 || cluster > SPLIT_CLUSTER || n > SPLIT_MAX_N)))
+  if (method == METHOD_SPLIT) {
+    if (cluster < 1 || cluster > SPLIT_CLUSTER || n > SPLIT_MAX_N)
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (method == METHOD_ONESWEEP) {
+    const long long tile = static_cast<long long>(SWEEP_THREADS) * rounds;
+    if ((rounds != 4 && rounds != 8) || tiles != (n + tile - 1) / tile ||
+        stride < n || stride % STRIDE_KEYS != 0 || hist_blocks < 1 ||
+        n >= (1 << STATUS_COUNT_BITS) || b == nullptr || ws == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(
-      words == 1 ? sort_keys<1>(k, n, f, method, cluster, smem, tiles, b, tile_hist, stamps, st)
-                 : sort_keys<2>(k, n, f, method, cluster, smem, tiles, b, tile_hist, stamps, st));
+      words == 1 ? sort_keys<1>(k, n, f, method, cluster, smem, tiles, rounds, stride,
+                                hist_blocks, b, ws, stamps, st)
+                 : sort_keys<2>(k, n, f, method, cluster, smem, tiles, rounds, stride,
+                                hist_blocks, b, ws, stamps, st));
 }
 
 // The bid window's compaction of waiting[n] into out[B]: `blocks` blocks

@@ -87,6 +87,9 @@ class Kernel:
     source: str      # path in the repository
     replaces: str    # file:line of the reference's device program
     count: int = 0
+    # the launches by the method the wrapper took, where it has several
+    # (K13: "split", "onesweep", "compact"); settled with ``count``
+    by: dict = dataclasses.field(default_factory=dict)
 
     @property
     def launches(self) -> int:
@@ -97,6 +100,18 @@ class Kernel:
     def launches(self, n: int) -> None:
         _settle()
         self.count = n
+        if n == 0:
+            self.by.clear()
+
+    def launched(self, method: str) -> None:
+        """One launch by the wrapper, by ``method``."""
+        self.launches += 1
+        self.by[method] = self.by.get(method, 0) + 1
+
+    @property
+    def launches_by(self) -> dict[str, int]:
+        _settle()
+        return dict(self.by)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,7 +265,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         },
         "seat_sort": {
             "seat_sort_setup": [ctypes.POINTER(I)],
-            "seat_sort_launch": [P] * 8 + [I] * 15 + [P] * 3,
+            "seat_sort_launch": [P] * 8 + [I] * 18 + [P] * 3,
             "seat_compact_launch": [P] + [I] * 4 + [P] * 3,
         },
         "loop_graph": {

@@ -447,7 +447,7 @@ class ControlGraph:
             for name, _runs in layout(self.spec)[0]:
                 if name in self.graphs:
                     raise ValueError(f"{self.label}: body {name!r} twice")
-                before = {k.name: k.count for k in kern}
+                before = {k.name: (k.count, dict(k.by)) for k in kern}
                 g = torch.cuda.CUDAGraph(keep_graph=True)
                 g.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
@@ -461,12 +461,20 @@ class ControlGraph:
                 g.capture_end()
                 self.graphs[name] = g
                 # a captured wrapper call launched nothing: it launches
-                # each time the graph runs the body
-                self.per_body[name] = {
-                    k.name: k.count - before[k.name] for k in kern
-                    if k.count != before[k.name]}
+                # each time the graph runs the body (a kernel's launches
+                # by method under (name, method))
+                got = {}
                 for k in kern:
-                    k.count = before[k.name]
+                    count, by = before[k.name]
+                    if k.count != count:
+                        got[k.name] = k.count - count
+                    for m, c in k.by.items():
+                        if c != by.get(m, 0):
+                            got[k.name, m] = c - by.get(m, 0)
+                    k.count = count
+                    k.by.clear()
+                    k.by.update(by)
+                self.per_body[name] = got
 
     def _build(self, lib, graph, seq: Seq, handles: dict, tensors: dict,
                prev=None):
@@ -528,6 +536,12 @@ class ControlGraph:
         for k in _kernels():
             k.count += sum(self.per_body[b].get(k.name, 0) * runs(slots)
                            for b, slots in bodies)
+        by_name = {k.name: k for k in _kernels()}
+        for b, slots in bodies:
+            for key, c in self.per_body[b].items():
+                if isinstance(key, tuple):
+                    k = by_name[key[0]]
+                    k.by[key[1]] = k.by.get(key[1], 0) + c * runs(slots)
         KERNEL.count += sum(runs(slots) for slots in steps)
         return True
 

@@ -39,10 +39,19 @@ KERNEL = Kernel(
 
 INT32 = (-2**31, 2**31 - 1)   # the span of a key with no narrower domain
 MAX_KEYS = 4
-DIGIT_BITS = 8                # a digit pass of the tiled sort
+DIGIT_BITS = 8                # a digit pass of the onesweep method
 RADIX = 256
 MAX_PASSES = 16               # digit passes of a 128-bit key
-TILE = 4096                   # keys a tile of the tiled sort
+# the onesweep method (csrc/seat_sort.cu SWEEP_*, HIST_*, WORK_HEAD, ...)
+SWEEP_THREADS = 512           # a pass block; its tile SWEEP_THREADS x rounds keys
+SWEEP_ROUNDS = (8, 4)         # a warp's rounds of 32 keys, largest first
+SWEEP_MIN_TILES = 64          # tiles the plan keeps a pass at (or the smallest tile)
+SWEEP_FIXED_INTS = 4656       # a pass block's ints beside its tile
+STRIDE_KEYS = 32              # a buffer row's keys: a multiple of 32
+HIST_THREADS = 512            # the up-front block
+HIST_ITEMS = 8                # keys a thread of the up-front block
+WORK_HEAD = 32                # the workspace's ints after the histograms
+STATUS_COUNT_BITS = 26        # a look-back word's count: n < 2^26
 # the split method (csrc/seat_sort.cu SPLIT_*, SMALL, DIGIT_MAX)
 SPLIT_THREADS = 1024
 SPLIT_CLUSTER = 8             # blocks of the split's cluster
@@ -50,7 +59,7 @@ SPLIT_MAX_N = 32768           # keys of a split (a bin's count in 16 bits)
 SMALL = 32                    # a bucket the last step ranks as it is
 DIGIT_MAX = 11                # bits of a level's digit
 SPLIT_FIXED_INTS = 48
-METHODS = {"tiles": 0, "split": 1}   # csrc METHOD_*
+METHODS = {"onesweep": 0, "split": 1}   # csrc METHOD_*
 # the stamps build's slots (csrc STAMP_*): clock64() at the split's phase
 # ends; levels and steps are counted from 0
 STAMPS = 32
@@ -79,12 +88,20 @@ def field_bits(span: tuple[int, int]) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SortPlan:
-    words: int    # 64-bit words of a packed key (1, or 2 past 64 bits)
-    passes: int   # 8-bit digit passes of the tiled method
-    method: str   # "split" or "tiles"
-    cluster: int  # blocks of the split's cluster, else 0
-    smem: int     # dynamic shared memory of a split block, else 0
-    tiles: int    # the tiled method's tiles of TILE keys, else 0
+    words: int        # 64-bit words of a packed key (1, or 2 past 64 bits)
+    passes: int       # 8-bit digit passes of the onesweep method (at least 1)
+    method: str       # "split" or "onesweep"
+    cluster: int = 0  # blocks of the split's cluster
+    smem: int = 0     # dynamic shared memory of a split or pass block
+    tiles: int = 0    # the onesweep's tiles of SWEEP_THREADS x rounds keys
+    rounds: int = 0   # a warp's rounds of 32 keys in a onesweep tile
+    stride: int = 0   # keys a row of the onesweep's buffer pair
+    hist_blocks: int = 0   # blocks of the onesweep's up-front launch
+    work: int = 0     # int32 of the onesweep's workspace
+
+    @property
+    def tile(self) -> int:
+        return SWEEP_THREADS * self.rounds
 
 
 def split_lmax(n: int) -> int:
@@ -105,22 +122,58 @@ def split_smem(n: int, words: int, cluster: int) -> int:
     return 16 * words * (chunk + lmax) + 4 * ints
 
 
+def sweep_smem(words: int, rounds: int) -> int:
+    """Shared memory of a onesweep pass block (csrc ``sweep_smem``): its
+    tile's keys, then SWEEP_FIXED_INTS ints (each warp's count of each
+    digit, each digit's offset and tile start, the warp sums and the
+    scalars)."""
+    return 8 * words * SWEEP_THREADS * rounds + 4 * SWEEP_FIXED_INTS
+
+
+def sweep_work(passes: int, tiles: int) -> int:
+    """Ints of the onesweep's workspace (csrc ``Work``): every pass's
+    histogram, WORK_HEAD ints (the finished up-front blocks, the live
+    mask, a tile counter a pass), a look-back word per tile and digit."""
+    return passes * RADIX + WORK_HEAD + tiles * RADIX
+
+
+def onesweep_plan(n: int, bits: tuple[int, ...], rounds: int) -> SortPlan:
+    """The onesweep method for n keys of these field widths at tiles of
+    SWEEP_THREADS x ``rounds`` keys."""
+    if rounds not in SWEEP_ROUNDS:
+        raise ValueError(f"seat_sort: rounds={rounds}")
+    if not 1 <= n < 2 ** STATUS_COUNT_BITS:
+        raise ValueError(f"seat_sort: n={n} past the onesweep's look-back words")
+    width = sum(bits)
+    words = 1 if width <= 64 else 2
+    passes = max(1, -(-width // DIGIT_BITS))
+    tiles = -(-n // (SWEEP_THREADS * rounds))
+    return SortPlan(
+        words=words, passes=passes, method="onesweep",
+        smem=sweep_smem(words, rounds), tiles=tiles, rounds=rounds,
+        stride=-(-n // STRIDE_KEYS) * STRIDE_KEYS,
+        hist_blocks=-(-n // (HIST_THREADS * HIST_ITEMS)),
+        work=sweep_work(passes, tiles))
+
+
 def sort_plan(n: int, bits: tuple[int, ...], smem_optin: int) -> SortPlan:
     """The method for n keys of these field widths on a card whose
     block may take ``smem_optin`` bytes of shared memory: the split over
     SPLIT_CLUSTER blocks while n <= SPLIT_MAX_N and a block's share
-    fits, else tiles of 4,096."""
+    fits, else the onesweep at the largest tile that still gives
+    SWEEP_MIN_TILES tiles (the smallest tile below that)."""
     if n < 1 or not 1 <= len(bits) <= MAX_KEYS:
         raise ValueError(f"seat_sort: n={n}, {len(bits)} keys")
     width = sum(bits)
     words = 1 if width <= 64 else 2
-    passes = -(-width // DIGIT_BITS)
     smem = split_smem(n, words, SPLIT_CLUSTER)
     if n <= SPLIT_MAX_N and smem <= smem_optin:
-        return SortPlan(words=words, passes=passes, method="split",
-                        cluster=SPLIT_CLUSTER, smem=smem, tiles=0)
-    return SortPlan(words=words, passes=passes, method="tiles", cluster=0,
-                    smem=0, tiles=-(-n // TILE))
+        return SortPlan(words=words, passes=max(1, -(-width // DIGIT_BITS)),
+                        method="split", cluster=SPLIT_CLUSTER, smem=smem)
+    rounds = next((r for r in SWEEP_ROUNDS
+                   if -(-n // (SWEEP_THREADS * r)) >= SWEEP_MIN_TILES),
+                  SWEEP_ROUNDS[-1])
+    return onesweep_plan(n, bits, rounds)
 
 
 def split_digit(width: int, size: int) -> int:
@@ -233,19 +286,22 @@ def _launch(keys, spans, p: SortPlan, stamps=None) -> tuple[torch.Tensor, ...]:
     outs = [torch.empty(n, dtype=i32, device=dev) for _ in keys]
     pad = MAX_KEYS - len(keys)
     bits = [field_bits(sp) for sp in spans]
+    PLANS._smem_optin(dev)   # the kernels' shared-memory caps, once a device
     with torch.cuda.device(dev):
         lib = library("seat_sort" if stamps is None else "seat_sort_stamps")
-        if p.method == "tiles":
-            buf = torch.empty(2 * p.words * n, dtype=torch.int64, device=dev)
-            hist = torch.empty(RADIX * p.tiles, dtype=i32, device=dev)
+        if p.method == "onesweep":
+            buf = torch.empty(2 * p.words * p.stride, dtype=torch.int64,
+                              device=dev)
+            work = torch.empty(p.work, dtype=i32, device=dev)
         else:
-            buf = hist = None
+            buf = work = None
         err = lib.seat_sort_launch(
             *ins, *[None] * pad, *[o.data_ptr() for o in outs], *[None] * pad,
             n, len(keys), *[sp[0] for sp in spans], *[0] * pad,
             *bits, *[0] * pad, p.words, METHODS[p.method], p.cluster, p.smem,
-            p.tiles, None if buf is None else buf.data_ptr(),
-            None if hist is None else hist.data_ptr(),
+            p.tiles, p.rounds, p.stride, p.hist_blocks,
+            None if buf is None else buf.data_ptr(),
+            None if work is None else work.data_ptr(),
             *([] if stamps is None else [stamps.data_ptr()]), stream_ptr(keys[0]),
         )
     check_launch(KERNEL, err)
@@ -257,8 +313,9 @@ def seat_sort(keys, spans) -> tuple[torch.Tensor, ...]:
     """The keys (1-4 int32[n] tensors on one device, the first most
     significant) sorted lexicographically. ``spans[i] = (lo, hi)`` bounds
     key i. CPU tensors take the plain twin (after the span check); CUDA
-    tensors launch K13 (one launch up to the split's limit, else 3
-    launches a digit pass and two)."""
+    tensors launch K13 (one launch up to the split's limit, else a
+    memset, one launch up front and one a digit pass; the launch is
+    counted by method in ``KERNEL.by``)."""
     keys = tuple(keys)
     spans = tuple(spans)
     if len(keys) != len(spans) or not 1 <= len(keys) <= MAX_KEYS:
@@ -269,7 +326,7 @@ def seat_sort(keys, spans) -> tuple[torch.Tensor, ...]:
         return seat_sort_plain(*keys)
     p = PLANS.sort(keys[0].device, keys[0].shape[0], bits)
     outs = _launch(keys, spans, p)
-    KERNEL.launches += 1
+    KERNEL.launched(p.method)
     return outs
 
 
@@ -333,5 +390,5 @@ def seat_compact(waiting: torch.Tensor, B: int) -> torch.Tensor:
             out.data_ptr(), stream_ptr(waiting),
         )
     check_launch(KERNEL, err)
-    KERNEL.launches += 1
+    KERNEL.launched("compact")
     return out

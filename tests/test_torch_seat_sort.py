@@ -10,14 +10,17 @@ level 0 and INF and the whole int32 range, is_bid all 0 and all 1, one
 segment), and by a hypothesis property against ``np.lexsort``. The
 wrapper's span check, the launch plans and the packed key's layout (the
 fields the CUDA source packs, restated with Python ints, sorted as one
-integer give the twin's order) are held here too; the kernel itself runs
-only on the card.
+integer give the twin's order) are held here too, and both sort methods
+restated on Python ints (``split_model``, ``onesweep_model``) against
+the twin; the kernel itself runs only on the card.
 """
 
 from __future__ import annotations
 
 import pathlib
+import random
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -68,6 +71,10 @@ def loop_keys(rng, n, Mp, nkeys, kind):
         if kind == "sized":
             kl[:] = 0
             isb[:] = 0
+    elif kind == "onepass":   # only the task id's low byte varies
+        km[:] = nseg // 2
+        kl[:] = 0
+        isb[:] = 0
     elif kind == "cold":
         km[:] = nseg - 2
         km[n - n // 40:] = nseg - 1
@@ -284,34 +291,68 @@ ONE_WORD_SPLIT_MAX = max(
     if k13.split_smem(n, 1, k13.SPLIT_CLUSTER) <= H100_SMEM_OPTIN)
 
 
+TWO_WORD_SPLIT_MAX = max(
+    n for n in range(1, k13.SPLIT_MAX_N + 1)
+    if k13.split_smem(n, 2, k13.SPLIT_CLUSTER) <= H100_SMEM_OPTIN)
+
+
 @pytest.mark.parametrize("n", [1, 8, 33, 1024, 10240, ONE_WORD_SPLIT_MAX,
-                               ONE_WORD_SPLIT_MAX + 1, 53456, 53457,
-                               ONE_WORD_CLUSTER_MAX + 1, 524288])
+                               ONE_WORD_SPLIT_MAX + 1, TWO_WORD_SPLIT_MAX + 1,
+                               53456, 53457, ONE_WORD_CLUSTER_MAX + 1,
+                               145410, 524288, 2**20])
 @pytest.mark.parametrize("bits", [(11, 32, 14), (11, 32, 1, 14),
                                   (17, 32, 1, 16), (32, 32, 32, 32), (14,)])
 def test_sort_plan(n, bits):
     """The method by n and the key width: the split cluster while n <=
     32,768 and a block's share fits (the flagship's 3- and 4-key sorts),
-    tiles above."""
+    the onesweep above: a tile of SWEEP_THREADS x rounds keys, the
+    largest that still gives SWEEP_MIN_TILES tiles, its buffer rows,
+    up-front blocks and workspace sized from n and the passes."""
     p = k13.sort_plan(n, bits, H100_SMEM_OPTIN)
     width = sum(bits)
     assert p.words == (1 if width <= 64 else 2)
     assert p.passes == -(-width // 8) <= k13.MAX_PASSES
     split = k13.split_smem(n, p.words, k13.SPLIT_CLUSTER)
     if n <= k13.SPLIT_MAX_N and split <= H100_SMEM_OPTIN:
-        assert (p.method, p.cluster, p.tiles) == ("split", 8, 0)
+        assert (p.method, p.cluster, p.tiles, p.work) == ("split", 8, 0, 0)
         assert p.smem == split
     else:
-        assert (p.method, p.cluster, p.smem) == ("tiles", 0, 0)
-        assert (p.tiles - 1) * k13.TILE < n <= p.tiles * k13.TILE
+        assert (p.method, p.cluster) == ("onesweep", 0)
+        assert (p.tiles - 1) * p.tile < n <= p.tiles * p.tile
+        assert p.tile == k13.SWEEP_THREADS * p.rounds
+        bigger = [r for r in k13.SWEEP_ROUNDS if r > p.rounds]
+        assert all(-(-n // (k13.SWEEP_THREADS * r)) < k13.SWEEP_MIN_TILES
+                   for r in bigger)
+        assert (p.tiles >= k13.SWEEP_MIN_TILES
+                or p.rounds == min(k13.SWEEP_ROUNDS))
+        assert p.smem == k13.sweep_smem(p.words, p.rounds) <= H100_SMEM_OPTIN
+        assert p.stride % k13.STRIDE_KEYS == 0 and 0 <= p.stride - n < 32
+        assert ((p.hist_blocks - 1) * k13.HIST_THREADS * k13.HIST_ITEMS < n
+                <= p.hist_blocks * k13.HIST_THREADS * k13.HIST_ITEMS)
+        assert p.work == k13.sweep_work(p.passes, p.tiles)
+        assert n < 2 ** k13.STATUS_COUNT_BITS
     assert p.method in k13.METHODS
     # the flagship's 3- and 4-key sorts: the split cluster, one word
     if n == 10240 and width <= 64:
         assert p.method == "split" and p.words == 1
     # past the split's limit (23,936 one-word keys on an H100, 19,056
-    # two-word ones) the tiles take over, a launch plan fixed by n
-    if n > ONE_WORD_SPLIT_MAX:
-        assert p.method == "tiles"
+    # two-word ones) the onesweep takes over
+    if n > ONE_WORD_SPLIT_MAX or (n > TWO_WORD_SPLIT_MAX and width > 64):
+        assert p.method == "onesweep"
+    # config 8's argsort and 4-key sort (4,096-key tiles), the flagship's
+    # CSR tails (2,048): a tile for most SMs at once
+    if n in (524288, 145410) and p.method == "onesweep":
+        assert (p.tile, p.tiles) == ((4096, 128) if n == 524288
+                                     else (2048, 72))
+
+
+def test_onesweep_plan_checks_its_arguments():
+    with pytest.raises(ValueError):
+        k13.onesweep_plan(1000, (14,), 3)
+    with pytest.raises(ValueError):
+        k13.onesweep_plan(2 ** k13.STATUS_COUNT_BITS, (32,), 8)
+    p = k13.onesweep_plan(1, (0,), 4)        # no bit varies: one pass
+    assert (p.passes, p.tiles, p.stride) == (1, 1, 32)
 
 
 def test_split_smem_sums_the_kernel_layout():
@@ -483,6 +524,253 @@ def test_compact_plan_covers_every_flag(n):
         assert (p.blocks - 1) * p.per_block < n <= p.blocks * p.per_block
 
 
+def onesweep_model(packed, width, warps, rounds, seed):
+    """csrc/seat_sort.cu's onesweep method restated on Python ints, at a
+    tile of ``warps`` x ``rounds`` x 32 keys. The up-front launch's
+    histograms; the live passes (no bin holding all n keys; pass 0 where
+    none is); each live pass reading the side the parity of the live
+    passes before it names (the side it leaves is emptied, so a wrong
+    parity reads holes); a tile's stable ranks by the kernel's warp walk
+    (warp w's rounds of 32, the warps before it, the digit's start in the
+    tile); the look-back words, one set for all passes, each carrying its
+    pass, with tiles taking their ids in order and stepping in a seeded
+    random order: a tile publishes its aggregates (tile 0 its prefix),
+    loads LOOK words at a time for each digit as they stand, takes them
+    nearest first until one not written in this pass, stops at a prefix,
+    publishes its own; then each key goes to the digit's global offset
+    plus its tile's prefix plus its place in the tile's run. The last
+    live pass writes the outputs. Returns the keys in output order and
+    the live passes."""
+    n = len(packed)
+    tile = warps * rounds * 32
+    passes = max(1, -(-width // k13.DIGIT_BITS))
+    tiles = -(-n // tile)
+    look = 8                                   # csrc LOOK
+
+    def digit(x, q):
+        return (x >> (k13.DIGIT_BITS * q)) & (k13.RADIX - 1)
+
+    def exclusive(counts):
+        out, run = [], 0
+        for c in counts:
+            out.append(run)
+            run += c
+        return out
+
+    hist = [[0] * k13.RADIX for _ in range(passes)]
+    for x in packed:
+        for q in range(passes):
+            hist[q][digit(x, q)] += 1
+    live = [q for q in range(passes) if max(hist[q]) != n] or [0]
+    sides = [list(packed), [None] * n]
+    out = [None] * n
+    status = [[(0, 0, 0)] * k13.RADIX for _ in range(tiles)]  # flag, pass, count
+    rng = random.Random(seed)
+    for q in live:
+        src = sum(v < q for v in live) % 2
+        offs = exclusive(hist[q])
+        tiles_of = []
+        for t in range(tiles):
+            keys = sides[src][t * tile:(t + 1) * tile]
+            assert None not in keys
+            cnt = [[0] * k13.RADIX for _ in range(warps)]
+            rank = []
+            for i, x in enumerate(keys):       # i = (w * rounds + r) * 32 + lane
+                w = i // (rounds * 32)
+                rank.append(cnt[w][digit(x, q)])
+                cnt[w][digit(x, q)] += 1
+            count = [0] * k13.RADIX
+            for d in range(k13.RADIX):
+                for w in range(warps):
+                    cnt[w][d], count[d] = count[d], count[d] + cnt[w][d]
+            lstart = exclusive(count)
+            local = [None] * len(keys)
+            for i, x in enumerate(keys):
+                at = (lstart[digit(x, q)] + cnt[i // (rounds * 32)][digit(x, q)]
+                      + rank[i])
+                assert local[at] is None
+                local[at] = x
+            tiles_of.append((count, lstart, local))
+        # the chained scan, tiles stepping in a random order
+        prefix = [None] * tiles
+        cursor = {}                            # tile: (next tile read, sums) a digit
+        started = 0
+        while prefix.count(None):
+            can = [t for t in cursor] + ([started] if started < tiles else [])
+            t = rng.choice(can)
+            count = tiles_of[t][0]
+            if t == started:                   # takes its id, publishes
+                started += 1
+                flag = 2 if t == 0 else 1
+                status[t] = [(flag, q, c) for c in count]
+                if t == 0:
+                    prefix[0] = [0] * k13.RADIX
+                else:
+                    cursor[t] = ([t - 1] * k13.RADIX, [0] * k13.RADIX)
+                continue
+            nxt, sums = cursor[t]
+            for d in range(k13.RADIX):
+                if nxt[d] is None:
+                    continue
+                window = [status[u][d] if u >= 0 else (2, q, 0)
+                          for u in range(nxt[d], nxt[d] - look, -1)]
+                for flag, qq, c in window:
+                    if flag == 0 or qq != q:
+                        break
+                    sums[d] += c
+                    if flag == 2:
+                        nxt[d] = None
+                        break
+                    nxt[d] -= 1
+            if all(x is None for x in nxt):
+                prefix[t] = sums
+                status[t] = [(2, q, b + c) for b, c in zip(sums, count)]
+                del cursor[t]
+        for t in range(tiles):
+            assert prefix[t] == [sum(tiles_of[u][0][d] for u in range(t))
+                                 for d in range(k13.RADIX)]
+        dst = out if q == live[-1] else [None] * n
+        for t, (count, lstart, local) in enumerate(tiles_of):
+            for j, x in enumerate(local):
+                d = digit(x, q)
+                at = offs[d] + prefix[t][d] + j - lstart[d]
+                assert dst[at] is None
+                dst[at] = x
+        if q != live[-1]:
+            sides[src ^ 1] = dst
+        sides[src] = [None] * n
+    return out, live
+
+
+ONESWEEP_CASES = SORT_CASES + [  # (n, Mp, nkeys, kind, warps, rounds)
+    (50, 16, 4, "rand"), (64, 16, 3, "rand"), (200, 16, 3, "rand"),
+    (319, 64, 4, "rand"), (320, 64, 4, "rand"), (321, 64, 4, "rand"),
+    (200, 16, 4, "onepass"), (256, 16, 3, "onepass"), (640, 16, 4, "cold"),
+    (500, 16, 3, "same"), (600, 16, 1, "dup"), (700, 16, 4, "wide"),
+    (1025, 16, 3, "wide"), (640, 16, 2, "wide"), (1500, 1024, 4, "sizedlvl"),
+]
+
+
+@pytest.mark.parametrize("n,Mp,nkeys,kind", ONESWEEP_CASES)
+def test_onesweep_model_sorts_like_the_twin(n, Mp, nkeys, kind):
+    """The onesweep method restated (``onesweep_model``, 64-key tiles of
+    two warps of one round; 128-key tiles of two rounds where n is odd)
+    writes every key once and in the twin's order: the sort cases above,
+    one tile, a ragged last tile, n at a multiple of the tile and one off
+    it, every pass but one dead (only the task id's low byte varies), the
+    cold layout's dead middle passes, no live pass (equal keys), keys past
+    64 bits."""
+    rng = np.random.default_rng(n * 5 + nkeys + Mp)
+    keys, spans = loop_keys(rng, n, Mp, nkeys, kind)
+    packed = [_pack(vals, spans) for vals in zip(*keys)]
+    width = sum(k13.field_bits(sp) for sp in spans)
+    rounds = 2 if n % 2 else 1
+    got, live = onesweep_model(packed, width, 2, rounds, seed=n + nkeys)
+    want = k13.seat_sort_plain(*[torch.from_numpy(k) for k in keys])
+    for i, w in enumerate(want):
+        assert [_unpack(p, spans, i) for p in got] == w.tolist()
+    passes = max(1, -(-width // 8))
+    assert live and set(live) <= set(range(passes))
+    if kind == "onepass":
+        assert live == [0]
+    if kind == "cold" and nkeys == 4:
+        # 48 bits: the task id in bits 0-9, is_bid 10, the level 11-42
+        # (all 0), the segment 43-47: passes 2-4 see one digit each
+        assert live == [0, 1, 5]
+
+
+def test_onesweep_model_at_config8_layout():
+    """Config 8's 4-key auction sort (Mp 256, task ids over Tp 524,288:
+    61-bit keys, 8 passes), restated at 2,000 keys with distinct ids drawn
+    over the whole span: in a cold layout (level 0, not bidding, every
+    task WAIT or DUMP) the passes inside the level (bits 24-47) and the
+    segment's top bits are dead; with segments, levels and bids drawn all
+    8 are live."""
+    n, Mp = 2000, 256
+    rng = np.random.default_rng(8)
+    nseg = Mp + 3
+    tid = rng.choice(524288, n, replace=False).astype(np.int32)
+    spans = [(0, nseg - 1), k13.INT32, (0, 1), (0, 524287)]
+    width = sum(k13.field_bits(sp) for sp in spans)
+    assert width == 61
+    for layout in ("cold", "drawn"):
+        cold = layout == "cold"
+        km = rng.integers(nseg - 2 if cold else 0, nseg, n)
+        kl = np.zeros(n) if cold else rng.integers(0, 2**29, n)
+        isb = np.zeros(n) if cold else rng.integers(0, 2, n)
+        keys = [a.astype(np.int32) for a in (km, -kl, isb)] + [tid]
+        packed = [_pack(vals, spans) for vals in zip(*keys)]
+        got, live = onesweep_model(packed, width, 2, 1, seed=3)
+        assert got == sorted(packed)
+        assert live == ([0, 1, 2, 6] if cold else list(range(8)))
+
+
+def test_sweep_smem_and_work_sum_the_kernel_layout():
+    """sweep_smem is the csrc pass block's layout (its tile's keys, then
+    the warps' digit counts, the digits' offsets and tile starts, the
+    warp sums and the scalars), and sweep_work the workspace's (the
+    histograms, the head the memset zeroes with them, the look-back
+    words); every tile fits a block on the H100."""
+    src = (CSRC / "seat_sort.cu").read_text()
+    assert ("static_assert(SWEEP_FIXED_INTS == SWEEP_WARPS * RADIX + 2 * RADIX"
+            " + 48" in src)
+    warps = k13.SWEEP_THREADS // 32
+    assert k13.SWEEP_FIXED_INTS == warps * k13.RADIX + 2 * k13.RADIX + 48
+    assert ("return 8 * words * SWEEP_THREADS * rounds + 4 * SWEEP_FIXED_INTS;"
+            in src)
+    for words in (1, 2):
+        for rounds in k13.SWEEP_ROUNDS:
+            got = k13.sweep_smem(words, rounds)
+            assert got == (8 * words * k13.SWEEP_THREADS * rounds
+                           + 4 * k13.SWEEP_FIXED_INTS)
+            assert got <= H100_SMEM_OPTIN
+    # the workspace: histograms, head, look-back words; the memset covers
+    # the first two
+    assert "w.head = base + passes * RADIX;" in src
+    assert "w.status = reinterpret_cast<unsigned*>(w.head + WORK_HEAD);" in src
+    assert "sizeof(int) * static_cast<size_t>(f.passes * RADIX + WORK_HEAD)" in src
+    for passes, tiles in ((1, 1), (7, 128), (8, 128), (16, 256)):
+        assert k13.sweep_work(passes, tiles) == (
+            passes * k13.RADIX + k13.WORK_HEAD + tiles * k13.RADIX)
+    # the head: done, live, a tile counter a pass
+    assert k13.WORK_HEAD >= 2 + k13.MAX_PASSES
+    p = k13.sort_plan(524288, (9, 32, 1, 19), H100_SMEM_OPTIN)
+    assert (p.passes, p.tiles, p.work) == (8, 128, 8 * 256 + 32 + 128 * 256)
+
+
+def test_launch_counts_by_method():
+    """K13's launches by method: the wrapper's own calls, and a loop
+    graph's bodies settled from its tally (a body's launches by method
+    times its runs), beside the total."""
+    from poseidon_tpu_torch.kernels import loop_graph
+
+    k = k13.KERNEL
+    count, by = k.count, dict(k.by)
+    try:
+        k.count, k.by = 0, {}
+        k.launched("onesweep")
+        k.launched("split")
+        k.launched("onesweep")
+        assert k.launches == 3
+        assert k.launches_by == {"onesweep": 2, "split": 1}
+        g = object.__new__(loop_graph.LoopGraph)
+        g.done_event = types.SimpleNamespace(query=lambda: True)
+        g._host_view = np.zeros(loop_graph.TALLY, np.int32)
+        g._settled = np.zeros(loop_graph.TALLY, np.int64)
+        g.per_body = {"head": {}, "round": {"seat_sort": 2,
+                                           ("seat_sort", "onesweep"): 1,
+                                           ("seat_sort", "compact"): 1},
+                      "pre": {}, "refight": {}, "tighten": {}}
+        g._host_view[:5] = (10, 0, 0, 0, 1)   # 10 rounds, one launch
+        assert g.settle()
+        assert k.launches == 3 + 20
+        assert k.launches_by == {"onesweep": 12, "split": 1, "compact": 10}
+        k.launches = 0
+        assert k.launches_by == {}
+    finally:
+        k.count, k.by = count, by
+
+
 def test_kernel_constants_agree_with_the_plan():
     src = (CSRC / "seat_sort.cu").read_text()
 
@@ -491,8 +779,20 @@ def test_kernel_constants_agree_with_the_plan():
 
     assert const("RADIX") == k13.RADIX == 2 ** k13.DIGIT_BITS
     assert const("MAX_KEYS") == k13.MAX_KEYS
+    assert const("MAX_PASSES") == k13.MAX_PASSES
     assert k13.MAX_PASSES * k13.DIGIT_BITS == 32 * k13.MAX_KEYS
-    assert const("TILE_THREADS") * const("TILE_ROUNDS") == k13.TILE
+    for name in ("SWEEP_THREADS", "SWEEP_FIXED_INTS", "STRIDE_KEYS",
+                 "HIST_THREADS", "HIST_ITEMS", "WORK_HEAD",
+                 "STATUS_COUNT_BITS"):
+        assert const(name) == getattr(k13, name), name
+    # the tiles the launch dispatches: the plan's rounds
+    for r in k13.SWEEP_ROUNDS:
+        assert f"case {r}: return sweep_passes<WORDS, {r}>" in src or (
+            r == max(k13.SWEEP_ROUNDS)
+            and f"default: return sweep_passes<WORDS, {r}>" in src)
+        for w in (1, 2):
+            assert f"seat_sweep_pass_kernel<{w}, {r}>, sweep_smem({w}, {r})" in src
+    assert "rounds != 4 && rounds != 8" in src
     assert (const("COMPACT_THREADS") * const("COMPACT_ITEMS")
             == k13.COMPACT_CHUNK)
     assert const("COMPACT_THREADS") == k13.COMPACT_MAX_BLOCKS
@@ -511,3 +811,6 @@ def test_kernel_constants_agree_with_the_plan():
     for name, value in k13.METHODS.items():
         assert const(f"METHOD_{name.upper()}") == value
     assert "return n / (SMALL + 1) + 1;" in src      # split_lmax
+    for name in ("seat_pack_kernel", "seat_unpack_kernel", "seat_hist_kernel",
+                 "seat_scan_kernel", "seat_scatter_kernel", "TILE_"):
+        assert name not in src                   # the tiles method is gone
